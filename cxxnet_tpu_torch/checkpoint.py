@@ -2,15 +2,17 @@
 
 The port's own copy of the format of ``cxxnet_tpu/checkpoint.py``: one
 npz archive of flattened arrays, ``params/<layer>/<leaf>`` and
-``state/<layer>/<leaf>`` (plus ``opt/...`` in training rounds, which an
-inference load never decompresses), and a ``__meta__`` JSON blob with
-the structure signature, the round and epoch counters and a per-array
-sha256 digest map. Loads verify the digests and raise
-:class:`CheckpointCorrupt` on a mismatch or a torn archive.
+``state/<layer>/<leaf>``, plus ``opt/mom/<layer>/<leaf>`` in training
+rounds (``has_opt``; an inference load never decompresses them), and a
+``__meta__`` JSON blob with the structure signature, the round, epoch
+and step counters and a per-array sha256 digest map. Loads verify the
+digests and raise :class:`CheckpointCorrupt` on a mismatch or a torn
+archive.
 
 Arrays are in the JAX package's layout (conv weights HWIO), so a round
 written by ``python -m cxxnet_tpu.main ... task=train`` serves in the
-port and a round written here loads in the JAX package;
+port, and a round written here (by ``task = train`` too) loads, and
+resumes, in the JAX package;
 ``convert.params_from_jax`` / ``params_to_jax`` change layouts.
 """
 
@@ -68,13 +70,17 @@ def _sig_to_json(sig: tuple) -> str:
 
 def save_model(path: str, *, structure_sig: tuple, round_counter: int,
                epoch_counter: int, params: Any, net_state: Any,
-               step_count: int = 0, lr_scale: float = 1.0) -> None:
-    """Write an inference round (no optimizer state). ``params`` and
-    ``net_state`` are trees of arrays in the JAX package's layout. The
-    file appears atomically (temp file, fsync, rename)."""
+               opt_state: Any = None, step_count: int = 0,
+               lr_scale: float = 1.0) -> None:
+    """Write a round. ``params``, ``net_state`` and ``opt_state`` (a
+    training round's ``{"mom": tree}``; None for an inference round)
+    are trees of arrays in the JAX package's layout. The file appears
+    atomically (temp file, fsync, rename)."""
     arrays: Dict[str, np.ndarray] = {}
     _flatten("params", params, arrays)
     _flatten("state", net_state, arrays)
+    if opt_state is not None:
+        _flatten("opt", opt_state, arrays)
     meta = {
         "format_version": 2,
         "structure_sig": _sig_to_json(structure_sig),
@@ -82,7 +88,7 @@ def save_model(path: str, *, structure_sig: tuple, round_counter: int,
         "epoch": int(epoch_counter),
         "step_count": int(step_count),
         "lr_scale": float(lr_scale),
-        "has_opt": False,
+        "has_opt": opt_state is not None,
         "digests": {k: _digest(v) for k, v in arrays.items()},
     }
     arrays["__meta__"] = np.frombuffer(
@@ -102,9 +108,21 @@ def load_for_inference(path: str, verify: bool = True) -> Dict[str, Any]:
     package's layout: ``{"meta", "params", "state"}``. The ``opt/``
     members are never read. Raises :class:`CheckpointCorrupt` on a torn
     archive or, with ``verify``, a digest mismatch."""
+    return _load(path, verify, with_opt=False)
+
+
+def load_model(path: str, verify: bool = True) -> Dict[str, Any]:
+    """A whole round: :func:`load_for_inference`'s ``{"meta", "params",
+    "state"}`` plus ``"opt"``, the optimizer state tree of a training
+    round (None when the round has none)."""
+    return _load(path, verify, with_opt=True)
+
+
+def _load(path: str, verify: bool, with_opt: bool) -> Dict[str, Any]:
     try:
         with np.load(path, allow_pickle=False) as z:
-            arrays = {k: z[k] for k in z.files if not k.startswith("opt/")}
+            arrays = {k: z[k] for k in z.files
+                      if with_opt or not k.startswith("opt/")}
         if "__meta__" not in arrays:
             raise CheckpointCorrupt(f"{path}: archive has no meta blob")
         meta = json.loads(bytes(arrays.pop("__meta__")).decode("utf-8"))
@@ -127,9 +145,12 @@ def load_for_inference(path: str, verify: bool = True) -> Dict[str, Any]:
     for k, v in arrays.items():
         head, _, rest = k.partition("/")
         groups.setdefault(head, {})[rest] = v
-    return {"meta": meta,
-            "params": _unflatten(groups["params"]),
-            "state": _unflatten(groups["state"])}
+    out = {"meta": meta,
+           "params": _unflatten(groups["params"]),
+           "state": _unflatten(groups["state"])}
+    if with_opt:
+        out["opt"] = _unflatten(groups["opt"]) if "opt" in groups else None
+    return out
 
 
 def check_structure(meta: Dict[str, Any], structure_sig: tuple) -> None:

@@ -1,16 +1,16 @@
 """Config-file parser for the cxxnet key=value dialect (PyTorch port).
 
 The port's own copy of the parts of ``cxxnet_tpu/config.py`` that the
-serving path needs: the tokenizer and ``parse_config_string``, the
-mixed-precision :class:`Policy` (mapped to torch dtypes), the
-``fused_kernels`` grammar, the ``serve_*`` namespace, and the split of
-iterator sections (``data = train`` .. ``iter = end``) from the global
-settings. Grammar: whitespace-separated tokens, ``=`` as its own token,
+serving and training paths need: the tokenizer and
+``parse_config_string``, the mixed-precision :class:`Policy` (mapped to
+torch dtypes), the ``fused_kernels`` grammar, the ``serve_*`` namespace,
+the training keys the port does not run yet, and the split of iterator
+sections (``data = train`` .. ``iter = end``) from the global settings. Grammar: whitespace-separated tokens, ``=`` as its own token,
 ``#`` line comments, ``"..."`` single-line and ``'...'`` multi-line
 quoted strings with backslash escapes. Order of pairs is preserved,
 because the net-config grammar is order-sensitive.
 
-Keys whose feature the port does not serve yet raise
+Keys whose feature the port does not serve or train yet raise
 :class:`ConfigError` naming the ROADMAP item that brings it, instead of
 being accepted and ignored.
 """
@@ -195,6 +195,82 @@ def parse_serve_config(cfg: ConfigPairs) -> ServeConfig:
             f"serve_breaker_threshold must be >= 0, got "
             f"{sc.breaker_threshold}")
     return sc
+
+
+# -- training -----------------------------------------------------------------
+
+_A3 = "Queue A 3, still queued: "
+
+#: training keys of features the port does not train with yet ->
+#: (predicate "holds its off value", ROADMAP item)
+TRAIN_NOT_YET = {
+    "continue": (lambda v: _same_value(v, "0"),
+                 _A3 + "continue = 1 and finetune"),
+    "model_in": (lambda v: v.strip() == "NULL",
+                 _A3 + "continue = 1 and finetune (start from a round)"),
+    "updater": (lambda v: v.strip() in ("sgd", "nag"),
+                _A3 + "Adam, Queue B row 12b"),
+    "compute_dtype": (lambda v: _DTYPE_NAMES.get(v.strip().lower())
+                      != "float16", _A3 + "the fp16 loss scaler"),
+    "update_period": (lambda v: _same_value(v, "1"), _A3 + "update_period"),
+    "input_fold": (lambda v: v.strip().lower() in ("auto", "0", "off"),
+                   _A3 + "the uint8 input fold, Queue B row 13"),
+    "train_chain": (lambda v: int(v) <= 1, _A3 + "train_chain"),
+    "health": (lambda v: _same_value(v, "0"), "Queue A 12 (model health)"),
+    "sentinel": (lambda v: _same_value(v, "0"),
+                 "Queue A 12 (the loss sentinel)"),
+    "failpoints": (lambda v: not v.strip(),
+                   "Queue A 12 (fault injection)"),
+    "profile_dir": (lambda v: not v.strip(),
+                    "Queue A 12 (profile_dir -> torch.profiler)"),
+    "shard_ckpt": (lambda v: _same_value(v, "0"),
+                   "Queue A 11 (sharded checkpoints)"),
+    "save_async": (lambda v: _same_value(v, "0"),
+                   "Queue A 11 (async save)"),
+    "keep_last_n": (lambda v: _same_value(v, "0"),
+                    "Queue A 11 (checkpoint rotation)"),
+    "data_service": (lambda v: not v.strip(),
+                     "Queue A 2 (the input data service)"),
+    "test_io": (lambda v: _same_value(v, "0"),
+                "Queue A 2 (input pipeline benchmarking)"),
+    "model_parallel": (lambda v: _same_value(v, "1"),
+                       "Queue A 9 (model parallelism)"),
+    "seq_parallel": (lambda v: _same_value(v, "1"),
+                     "Queue A 9 (model parallelism)"),
+    "pipeline_parallel": (lambda v: _same_value(v, "1"),
+                          "Queue A 9 (model parallelism)"),
+}
+
+#: key prefixes of training features the port does not run yet
+TRAIN_NOT_YET_PREFIXES = {
+    "elastic_": "Queue A 12 (elastic training)",
+    "telemetry_": "Queue A 12 (telemetry)",
+}
+
+
+def check_train_config(cfg: ConfigPairs) -> None:
+    """Raise :class:`ConfigError` naming the ROADMAP item for the first
+    training key whose feature the port does not run yet, unless it
+    holds its off value (the last occurrence of a key decides)."""
+    last = {}
+    for name, val in cfg:
+        last[name] = val
+    for name, val in last.items():
+        item = None
+        if name in TRAIN_NOT_YET:
+            off, item = TRAIN_NOT_YET[name]
+            try:
+                if off(val):
+                    continue
+            except ValueError:
+                pass
+        else:
+            item = next((it for pre, it in TRAIN_NOT_YET_PREFIXES.items()
+                         if name.startswith(pre)), None)
+            if item is None or not val.strip() or _same_value(val, "0"):
+                continue
+        raise ConfigError(f"{name} = {val}: not trained by the PyTorch "
+                          f"port yet (ROADMAP {item})")
 
 
 # -- iterator sections --------------------------------------------------------

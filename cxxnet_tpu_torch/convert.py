@@ -7,6 +7,10 @@ PyTorch's layout. Everything else is the same in both: fullc ``wmat``
 ``(in, out)``, biases and batch-norm ``wmat``/``bias``/``running_exp``/
 ``running_var`` ``(C,)``. A conv weight is the one 4-D ``wmat`` leaf.
 
+The SGD optimizer state ``{"mom": tree}`` has the params' layout, and
+its conv momenta are transposed the same way (:func:`opt_from_jax`,
+:func:`opt_to_jax`).
+
 Weights move between the packages this way or through a checkpoint
 (checkpoint.py reads and writes the JAX layout), never through seeds:
 the two packages draw different numbers from the same seed.
@@ -43,10 +47,23 @@ def params_from_jax(params_np: Dict, state_np: Dict
 
 def params_to_jax(params: Dict, state: Dict) -> Tuple[Dict, Dict]:
     """Port trees (tensors on any device) -> JAX-layout trees of float32
-    numpy arrays, conv ``wmat`` transposed OIHW -> HWIO."""
+    numpy arrays (copies: later in-place updates of the tensors do not
+    reach them), conv ``wmat`` transposed OIHW -> HWIO."""
     def conv(leaf, t):
         a = t.detach().float().cpu().numpy()
         if leaf == "wmat" and a.ndim == 4:
             a = a.transpose(_OIHW_TO_HWIO)
-        return np.ascontiguousarray(a)
+        return np.array(a, dtype=np.float32, order="C")
     return _map(params, conv), _map(state, conv)
+
+
+def opt_from_jax(opt_np: Dict) -> Dict:
+    """JAX-layout ``{"mom": tree}`` -> port layout (float32 CPU tensors,
+    conv momenta OIHW)."""
+    return {"mom": params_from_jax(opt_np["mom"], {})[0]}
+
+
+def opt_to_jax(opt: Dict) -> Dict:
+    """Port ``{"mom": tree}`` (tensors on any device) -> JAX layout
+    (float32 numpy, conv momenta HWIO)."""
+    return {"mom": params_to_jax(opt["mom"], {})[0]}

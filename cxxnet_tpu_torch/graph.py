@@ -12,7 +12,8 @@ that :mod:`cxxnet_tpu_torch.model` runs. Grammar:
   * ``layer[...] = share[tag]``         weight sharing with primary layer ``tag``
   * ``layer[...] = pairtest-A-B``       side-by-side test composite
   * params after a layer line attach to that layer until the next layer line
-  * ``label_vec[a,b) = name``           named label slices
+  * ``label_vec[a,b) = name``           named label slices (loss targets)
+  * ``updater = sgd|nag|adam``           the optimizer (outside layer blocks)
   * ``extra_data_num`` / ``extra_data_shape[i]`` extra input nodes
 
 Left out on purpose: ``stem_pad_plan`` and the space-to-depth stem
@@ -83,6 +84,11 @@ class NetGraph:
         self.input_shape: Optional[Tuple[int, int, int]] = None  # (c, y, x)
         self.extra_data_num: int = 0
         self.extra_shapes: List[Tuple[int, int, int]] = []
+        # label slicing: list of (begin, end), name -> slice index
+        self.label_range: List[Tuple[int, int]] = [(0, 1)]
+        self.label_name_map: Dict[str, int] = {"label": 0}
+        self._label_default = True
+        self.updater_type: str = "sgd"
 
     def _node_index(self, name: str, alloc_unknown: bool) -> int:
         if name in self.node_name_map:
@@ -104,6 +110,12 @@ class NetGraph:
         if name not in self.node_name_map:
             raise ConfigError(f"unknown node name {name!r}")
         return self.node_name_map[name]
+
+    def label_slice(self, name: str) -> Tuple[int, int]:
+        """Label columns [begin, end) of the named label field."""
+        if name not in self.label_name_map:
+            raise ConfigError(f"unknown label field {name!r}")
+        return self.label_range[self.label_name_map[name]]
 
     def structure_signature(self) -> tuple:
         return tuple(l.structure_signature() for l in self.layers)
@@ -182,8 +194,19 @@ def build_graph(cfg: ConfigPairs) -> NetGraph:
                 raise ConfigError(
                     "input_shape must be three integers c,y,x e.g. 1,1,784")
             graph.input_shape = dims
-        if netcfg_mode != 2 and _LABEL_VEC.match(name):
-            continue      # label slices name training targets (Queue A 3)
+        if netcfg_mode != 2:
+            if name == "updater":
+                graph.updater_type = val
+            mlv = _LABEL_VEC.match(name)
+            if mlv:
+                if graph._label_default:
+                    graph.label_range = []
+                    graph.label_name_map = {}
+                    graph._label_default = False
+                graph.label_range.append((int(mlv.group(1)),
+                                          int(mlv.group(2))))
+                graph.label_name_map[val] = len(graph.label_range) - 1
+                continue
         if name == "netconfig" and val == "start":
             netcfg_mode = 1
             continue

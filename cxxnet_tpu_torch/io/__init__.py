@@ -1,0 +1,14 @@
+"""Data iterators of the PyTorch port (the port of ``cxxnet_tpu/io``).
+
+The port's own copy of the iterator protocol (:class:`DataBatch`,
+:class:`DataIter`), the in-memory batch cursor and the ``synthetic``
+iterator, whose data is bit-equal to the JAX package's from the same
+seeds (numpy draws it). :func:`create_iterator` builds an iterator from
+one config section; the other iterator types (imgrec, imgbin, mnist,
+csv, threadbuffer, ...) raise, naming ROADMAP Queue A 2.
+"""
+
+from .data import DataBatch, DataIter, create_iterator
+from .proc import SyntheticIterator
+
+__all__ = ["DataBatch", "DataIter", "SyntheticIterator", "create_iterator"]

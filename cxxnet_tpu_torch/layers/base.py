@@ -4,7 +4,10 @@ The port of ``cxxnet_tpu/layers/base.py``. A layer is an object holding
 parsed hyperparameters; its parameters and state live in dictionaries
 that the :class:`~cxxnet_tpu_torch.model.Network` keeps and hands to
 ``forward``, as the JAX package threads its pytrees through ``apply``.
-This slice serves, so layers have an eval forward only.
+One ``forward`` serves eval and training (``ApplyCtx.train``); in
+training it is differentiable by PyTorch autograd, and layers with
+state (batch_norm's running statistics) hand their new state to
+``ApplyCtx.state_sink`` instead of returning it.
 
 Tensor convention: every node is a 4-D NHWC tensor ``(batch, y, x, c)``,
 contiguous. "Flat" nodes are ``(batch, 1, 1, n)`` with features on the
@@ -126,8 +129,12 @@ class LayerHyper:
 
 @dataclasses.dataclass
 class ApplyCtx:
-    """Per-call context of ``Layer.forward`` (eval fields only)."""
+    """Per-call context of ``Layer.forward``."""
     compute_dtype: torch.dtype = torch.float32
+    # training forward: batch statistics, dropout, differentiable
+    train: bool = False
+    # training: layer name -> its new state (batch_norm running stats)
+    state_sink: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
     # hand tensors to the kernel wrappers (ops/fused.py); False = the
     # plain PyTorch versions
     fused: bool = False
@@ -141,8 +148,8 @@ class ApplyCtx:
 
 
 class Layer:
-    """Base class: parse hyperparameters at construction, then a pure
-    eval forward over tensors."""
+    """Base class: parse hyperparameters at construction, then a
+    forward over tensors (eval, or training when ``ctx.train``)."""
 
     has_params = False
     has_state = False

@@ -5,13 +5,16 @@ permute is a view whose memory is channels_last, so no copy is made,
 and the output is permuted back the same way. Weights are OIHW
 ``(cout, cin/group, kh, kw)`` in channels_last memory (the JAX package's
 HWIO becomes OIHW in ``convert.params_from_jax``). A bias and a folded
-relu go through the epilogue kernel.
+relu go through the epilogue kernel. In training the conv is
+differentiated by PyTorch autograd, as the JAX package left its
+gradient to XLA.
 
 Pooling keeps cxxnet's ceil-mode geometry exactly (``_pool_geometry``):
 the node is padded explicitly, with ``-inf`` for max and 0 for sum, and
 then pooled with no padding; avg divides by ``k*k`` counting padded
 cells. Windows that tile the node or cover it whole go to the pooling
-kernel (ops/fused_pool.py), as in the JAX package. ``F.max_pool2d`` /
+kernels (``ops/fused_pool.Pool``, forward and backward), as in the JAX
+package; the other geometries are differentiated by autograd. ``F.max_pool2d`` /
 ``F.avg_pool2d`` with ``ceil_mode=True`` count windows and divide
 differently, so they are never given padding here.
 
@@ -27,7 +30,7 @@ from typing import List
 import torch
 import torch.nn.functional as F
 
-from ..ops.fused_pool import fused_pool, kernel_geometry, scale_in_dtype
+from ..ops.fused_pool import kernel_geometry, pool, scale_in_dtype
 from .base import Layer, Params, Shape3, register_layer
 from .core import bias_act
 
@@ -160,8 +163,8 @@ class _PoolingLayer(Layer):
         pad, extra = (hp.pad_y, hp.pad_x), (self._extra_y, self._extra_x)
         if ctx.fused and kernel_geometry(x.shape[1], x.shape[2], kh, kw,
                                          hp.stride, pad, extra):
-            return [fused_pool(x, kh, kw, self.reducer, self.scale_avg,
-                               self.pre_relu)]
+            return [pool(x, kh, kw, self.reducer, self.scale_avg,
+                         self.pre_relu)]
         return [pool_padded_plain(x, kh, kw, hp.stride, pad, extra,
                                   self.reducer, self.scale_avg,
                                   self.pre_relu)]
@@ -189,6 +192,14 @@ class ReluMaxPoolingLayer(_PoolingLayer):
     eval forward this is (its random cell pick is train-only)."""
     reducer = "max"
     pre_relu = True
+
+    def forward(self, params, state, inputs, ctx):
+        if ctx.train and self.spec.type == "insanity_max_pooling":
+            raise NotImplementedError(
+                f"insanity_max_pooling {self.name!r}: its training forward "
+                "(a random cell pick) is not in the PyTorch port yet "
+                "(ROADMAP Queue A 6, remaining layers)")
+        return super().forward(params, state, inputs, ctx)
 
 
 @register_layer("lrn")

@@ -1,5 +1,7 @@
 """Core (non-conv) layers: fullc, activations, flatten, dropout, split,
-concat (the port of ``cxxnet_tpu/layers/core.py``'s eval forwards)."""
+concat (the port of ``cxxnet_tpu/layers/core.py``). Their training
+forwards are differentiated by PyTorch autograd; the fullc epilogue's
+backward is the epilogue kernel's (``ops/fused_epilogue.BiasAct``)."""
 
 from __future__ import annotations
 
@@ -8,7 +10,8 @@ from typing import List
 import torch
 import torch.nn.functional as F
 
-from ..ops.fused_epilogue import bias_act_plain, fused_bias_act
+from ..ops.fused_epilogue import bias_act as bias_act_fused
+from ..ops.fused_epilogue import bias_act_plain
 from .base import Layer, Params, Shape3, flat_size, is_flat, register_layer
 
 
@@ -23,11 +26,12 @@ def _as_node(x2d: torch.Tensor) -> torch.Tensor:
 
 
 def bias_act(x: torch.Tensor, bias, act: str, fused: bool) -> torch.Tensor:
-    """The conv/fullc epilogue: the kernel wrapper when ``fused``, else
-    the plain version; ``x`` unchanged when there is nothing to do."""
+    """The conv/fullc epilogue: the kernels' autograd function when
+    ``fused``, else the plain version (differentiated by autograd);
+    ``x`` unchanged when there is nothing to do."""
     if bias is None and act == "none":
         return x
-    return (fused_bias_act if fused else bias_act_plain)(x, bias, act)
+    return (bias_act_fused if fused else bias_act_plain)(x, bias, act)
 
 
 @register_layer("fullc")
@@ -106,7 +110,8 @@ class FlattenLayer(Layer):
 
 @register_layer("dropout")
 class DropoutLayer(Layer):
-    """Inverted dropout; identity at eval, the only mode served."""
+    """Inverted dropout: identity at eval and at ``threshold = 0``; its
+    training mode is not ported yet."""
 
     def set_param(self, name, val):
         if name == "threshold":
@@ -123,6 +128,10 @@ class DropoutLayer(Layer):
         return [in_shapes[0]]
 
     def forward(self, params, state, inputs, ctx):
+        if ctx.train and self.threshold > 0.0:
+            raise NotImplementedError(
+                f"dropout {self.name!r}: its training mode is not in the "
+                "PyTorch port yet (ROADMAP Queue A 6, remaining layers)")
         return [inputs[0]]
 
 

@@ -1,6 +1,14 @@
-"""Loss layers' eval forwards: softmax, lp_loss/l2_loss, multi_logistic
-(the port of ``cxxnet_tpu/layers/loss.py``; the losses themselves come
-with training, ROADMAP Queue A 3)."""
+"""Loss layers: softmax, lp_loss/l2_loss, multi_logistic (the port of
+``cxxnet_tpu/layers/loss.py``).
+
+Each is a self-loop layer whose forward writes its prediction into the
+node (probabilities, sigmoid, identity) and whose ``loss(outputs,
+label, mask)`` is the scalar that training differentiates: the
+per-example loss times the mask (padded rows 0), summed, divided by
+the full batch and multiplied by ``grad_scale``, as the reference's
+hand-set gradients scale (loss_layer_base-inl.hpp:55-62). Softmax and
+its cross-entropy run in f32 whatever the compute dtype.
+"""
 
 from __future__ import annotations
 
@@ -29,6 +37,17 @@ class LossLayerBase(Layer):
         self.check_n(in_shapes, 1, 1)
         return [in_shapes[0]]
 
+    def _mean(self, per_example: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+        """grad_scale-weighted mean over the full batch (padded rows
+        masked out, the division still by the batch size)."""
+        return self.grad_scale * torch.sum(per_example * mask) \
+            / per_example.shape[0]
+
+    def loss(self, outputs, label: torch.Tensor,
+             mask: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
 
 @register_layer("softmax")
 class SoftmaxLayer(LossLayerBase):
@@ -39,6 +58,13 @@ class SoftmaxLayer(LossLayerBase):
         x = inputs[0]
         logits = x.reshape(x.shape[0], -1).float()
         return [torch.softmax(logits, dim=-1).reshape(x.shape)]
+
+    def loss(self, outputs, label, mask):
+        """Cross-entropy of the class index in ``label[:, 0]``."""
+        probs = outputs[0].reshape(outputs[0].shape[0], -1)
+        idx = label[:, 0].long()
+        p = torch.gather(probs, 1, idx[:, None])[:, 0]
+        return self._mean(-torch.log(torch.clamp(p, min=1e-30)), mask)
 
 
 @register_layer("lp_loss", "l2_loss")
@@ -57,6 +83,12 @@ class LpLossLayer(LossLayerBase):
     def forward(self, params, state, inputs, ctx):
         return [inputs[0]]
 
+    def loss(self, outputs, label, mask):
+        """sum_j |pred_j - label_j|^p per example."""
+        pred = outputs[0].reshape(outputs[0].shape[0], -1).float()
+        per = torch.sum(torch.abs(pred - label) ** self.p, dim=1)
+        return self._mean(per, mask)
+
 
 @register_layer("multi_logistic")
 class MultiLogisticLayer(LossLayerBase):
@@ -64,3 +96,11 @@ class MultiLogisticLayer(LossLayerBase):
 
     def forward(self, params, state, inputs, ctx):
         return [torch.sigmoid(inputs[0])]
+
+    def loss(self, outputs, label, mask):
+        """Binary cross-entropy summed over the outputs."""
+        p = outputs[0].reshape(outputs[0].shape[0], -1).float()
+        p = torch.clamp(p, 1e-7, 1.0 - 1e-7)
+        per = -torch.sum(label * torch.log(p)
+                         + (1 - label) * torch.log(1 - p), dim=1)
+        return self._mean(per, mask)

@@ -1,27 +1,35 @@
-"""Batch normalization at eval (the port of ``cxxnet_tpu/layers/norm.py``).
+"""Batch normalization (the port of ``cxxnet_tpu/layers/norm.py``).
 
-``batch_norm`` normalizes with its running statistics. The arithmetic
-follows the JAX package (norm.py:224-228): with a bf16 input and f32
-``slope``/``mean``/``var``, the input is promoted to f32, scaled and
-shifted, the folded relu applied, and only then cast back to the
-input's dtype. Statistics are per channel for conv nodes and per
-feature for flat nodes, as the trailing NHWC axis holds either.
+Training (``ctx.train``) normalizes with the batch's own per-channel
+moments. With the kernels selected that is
+:func:`~cxxnet_tpu_torch.ops.fused_norm.fused_bn_act` (the BN forward
+and backward kernels on the card, their plain versions on the CPU);
+with ``fused_kernels = 0`` it is the JAX package's jnp path written in
+PyTorch, one-pass ``E[x^2] - E[x]^2`` clamped at 0 or two-pass with
+``bn_two_pass = 1``, differentiated by autograd. ``batch_norm`` then
+moves its running statistics by ``bn_momentum`` in f32 and hands them
+to ``ctx.state_sink``.
 
-``batch_norm_no_ma`` recomputes batch statistics at eval; on the card
-that is the JAX package's BN forward kernel (``_bn_fwd_kernel``), not in
-this slice, so with kernels selected a CUDA tensor raises instead of
-computing it quietly in plain PyTorch.
+At eval ``batch_norm`` normalizes with its running statistics. The
+arithmetic follows the JAX package (norm.py:224-228): with a bf16 input
+and f32 ``slope``/``mean``/``var``, the input is promoted to f32, scaled
+and shifted, the folded relu applied, and only then cast back to the
+input's dtype. ``batch_norm_no_ma`` recomputes batch statistics at
+eval: through the BN forward kernel when the kernels are selected, as
+the JAX package's fused path does (norm.py:211-215). Statistics are per
+channel for conv nodes and per feature for flat nodes, as the trailing
+NHWC axis holds either.
 
 :func:`cxxnet_tpu_torch.model.calibrate_bn` drives the one other mode:
 with ``ctx.calib_sink`` set, a layer normalizes with its input's batch
-moments (one-pass ``E[x^2] - E[x]^2`` clamped at 0, or two-pass with
-``bn_two_pass = 1``) and records them.
+moments and records them.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..ops.fused_norm import bn_act_plain, fused_bn_act
 from .base import Layer, is_flat, register_layer
 
 
@@ -44,6 +52,7 @@ class _BatchNormBase(Layer):
         self.eps = 1e-10
         self.bn_momentum = 0.9
         self.two_pass = False
+        self._clamp_checked = False
         super().__init__(spec, global_cfg)
 
     @property
@@ -79,22 +88,64 @@ class _BatchNormBase(Layer):
                               - mean.square(), min=0.0)
         return mean, var
 
+    def _check_clamp(self, x: torch.Tensor, mean: torch.Tensor) -> None:
+        """The JAX package's variance-clamp warning (norm.py:168-184) as
+        a host-side check, made once per layer instance (its first
+        training call on the plain path): the one-pass moment
+        ``E[x^2] - E[x]^2`` went negative by more than eps on some
+        channel."""
+        self._clamp_checked = True
+        with torch.no_grad():
+            xf = x.float()
+            worst = float((xf.square().mean(dim=(0, 1, 2))
+                           - mean.square()).min())
+        if worst < -self.eps:
+            print(f"WARNING batch_norm {self.name!r}: one-pass variance "
+                  f"went negative (min E[x^2]-E[x]^2 = {worst:.3e}, "
+                  f"beyond eps {self.eps:.1e}) and was clamped to 0 — f32 "
+                  f"cancellation on a large-mean/low-variance channel; "
+                  f"normalization degrades toward rsqrt(eps) there. "
+                  f"Consider rescaling inputs or raising eps.", flush=True)
+
+    def _forward_train(self, params, state, x, ctx):
+        slope, bias = params["wmat"], params["bias"]
+        act = ctx.fuse_act or "none"
+        if ctx.fused:
+            out, mean, var = fused_bn_act(x, slope, bias, self.eps, act,
+                                          self.two_pass)
+        else:
+            # the JAX package's jnp path (norm.py:145-189), differentiated
+            # by autograd through the moments
+            out, mean, var = bn_act_plain(x, slope, bias, self.eps, act,
+                                          self.two_pass)
+            if not self.two_pass and not self._clamp_checked:
+                self._check_clamp(x, mean.detach())
+        if self.moving_avg:
+            m = self.bn_momentum
+            with torch.no_grad():
+                ctx.state_sink[self.name] = {
+                    "running_exp": state["running_exp"] * m
+                    + mean.detach() * (1 - m),
+                    "running_var": state["running_var"] * m
+                    + var.detach() * (1 - m),
+                }
+        return [out]
+
     def forward(self, params, state, inputs, ctx):
         x = inputs[0]
+        if ctx.train:
+            return self._forward_train(params, state, x, ctx)
+        slope, bias = params["wmat"], params["bias"]
         if ctx.calib_sink is not None:
             mean, var = self._batch_moments(x)
             ctx.calib_sink[self.name] = (mean, var)
         elif self.moving_avg:
             mean, var = state["running_exp"], state["running_var"]
+        elif ctx.fused:
+            return [fused_bn_act(x, slope, bias, self.eps,
+                                 ctx.fuse_act or "none", self.two_pass)[0]]
         else:
-            if ctx.fused and x.device.type == "cuda":
-                raise NotImplementedError(
-                    f"batch_norm_no_ma {self.name!r} at eval needs the BN "
-                    "forward kernel, not in the PyTorch port yet (ROADMAP "
-                    "Queue B row 6, _bn_fwd_kernel); fused_kernels = 0 "
-                    "selects the plain version")
             mean, var = self._batch_moments(x)
-        slope, bias = params["wmat"], params["bias"]
         inv = torch.rsqrt(var + self.eps)
         out = x.float() * (slope * inv) + (bias - slope * mean * inv)
         if ctx.fuse_act == "relu":

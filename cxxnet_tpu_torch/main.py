@@ -1,24 +1,37 @@
-"""Task driver CLI of the PyTorch port: ``task = serve``.
+"""Task driver CLI of the PyTorch port: ``task = train`` and ``serve``.
 
+    python -m cxxnet_tpu_torch.main <conf> [task=train] [key=value ...]
     python -m cxxnet_tpu_torch.main <conf> task=serve model_in=<round>.model \\
         [serve_port=8080 serve_max_batch=32 serve_buckets=1,8,32 ...]
 
 The config file plus ``key=value`` overrides, as in
-``python -m cxxnet_tpu.main``. Iterator sections (``data = train`` ..
-``iter = end``) are split off and never opened: serving reads requests,
-not record files. The round named by ``model_in`` (a ``%04d.model``
-written by either package) is loaded into the Network on the device
-the config's ``dev`` names, and served over HTTP until SIGINT/SIGTERM.
+``python -m cxxnet_tpu.main``, on the device the config's ``dev`` names
+(the card unless ``dev = cpu``).
 
-The other tasks (train, finetune, pred, pred_raw, extract, get_weight)
-wait for later slices (ROADMAP Queue A 2 and A 3).
+``task = train`` (the default) trains from fresh weights for rounds
+``start_counter`` .. ``num_round - 1`` (capped by ``max_round``) over the
+``data = ...`` section, printing the JAX package's progress lines every
+``print_step`` batches and its round line ``round N:[T sec]`` with the
+train metrics and one fragment per ``eval = <name>`` section; every
+``save_period`` rounds (``save_model = 1``) and at the end it writes
+``<model_dir>/%04d.model`` with the optimizer state, a round the JAX
+package loads and resumes.
+
+``task = serve``: iterator sections are never opened; the round named by
+``model_in`` (a ``%04d.model`` written by either package) is served over
+HTTP until SIGINT/SIGTERM.
+
+The other tasks (finetune, pred, pred_raw, extract, get_weight) wait for
+later slices (ROADMAP Queue A 2 and A 3).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import threading
+import time
 from typing import Callable, List, Optional
 
 import torch
@@ -29,8 +42,10 @@ from .config import (ConfigError, ConfigPairs, parse_cli_overrides,
 from .convert import params_from_jax
 from .graph import build_graph, global_param
 from .model import Network
+from .io import create_iterator
 from .serve import InferenceEngine, ServeServer
 from .serve.engine import version_name
+from .trainer import Trainer
 
 
 def task_serve(cfg: ConfigPairs,
@@ -44,8 +59,8 @@ def task_serve(cfg: ConfigPairs,
     if int(gp("continue", "0")):
         raise ConfigError(
             "continue = 1: the PyTorch port serves the round named by "
-            "model_in; the resume scan comes with training (ROADMAP "
-            "Queue A 3)")
+            "model_in; the resume scan comes with resumed training "
+            "(ROADMAP Queue A 3, still queued: continue = 1 and finetune)")
     # float32 policies compute in full float32 (no TF32 in cuDNN convs
     # or cuBLAS matmuls), as the JAX package's float32 does on the CPU;
     # bfloat16 / float16 policies are unaffected
@@ -88,25 +103,101 @@ def task_serve(cfg: ConfigPairs,
     srv.serve_until_interrupt()
 
 
-def run(cfg: ConfigPairs,
-        ready: Optional[Callable[[ServeServer], None]] = None) -> None:
-    """Dispatch on ``task`` over the global settings; ``ready`` as in
-    :func:`task_serve`."""
-    global_cfg, _sections = split_sections(cfg)
+def _train_rounds(tr: Trainer, gp, itr_train, evals) -> int:
+    """The JAX package's round loop (main.py:1023-1167, its single-device
+    parts); returns the last round run."""
+    start = time.time()
+    start_counter = int(gp("start_counter", "0"))
+    num_round = int(gp("num_round", "10"))
+    max_round = int(gp("max_round", "0"))
+    print_step = int(gp("print_step", "100"))
+    save_period = int(gp("save_period", "1"))
+    save_model = int(gp("save_model", "1"))
+    model_dir = gp("model_dir", "./models")
+    silent = int(gp("silent", "0"))
+    end_round = num_round
+    if max_round > 0:
+        end_round = min(end_round, start_counter + max_round)
+    for r in range(start_counter, end_round):
+        tr.start_round(r)
+        batch_count = n_images = 0
+        round_start = time.time()
+        for batch in itr_train:
+            tr.update(batch)
+            n_images += batch.batch_size - batch.num_batch_padd
+            batch_count += 1
+            if print_step and batch_count % print_step == 0 and not silent:
+                ips = n_images / max(time.time() - round_start, 1e-9)
+                print(f"round {r:8d}:[{batch_count:8d}] "
+                      f"{int(time.time() - start)} sec elapsed, "
+                      f"loss={tr.last_loss:.6f}, {ips:.1f} images/sec",
+                      flush=True)
+        line = f"round {r:8d}:[{int(time.time() - start)} sec]"
+        if tr.eval_train:
+            line += tr.train_metric_report("train")
+        for name, itr in evals:
+            line += tr.evaluate(itr, name)
+        print(line, flush=True)
+        if save_model and save_period and (r + 1) % save_period == 0:
+            tr.save_model(ckpt.model_path(model_dir, r))
+    return end_round - 1
+
+
+def task_train(cfg: ConfigPairs, sections,
+               ready: Optional[Callable[[Trainer], None]] = None) -> Trainer:
+    """Train from fresh weights over the ``data`` section, evaluating on
+    each ``eval`` section after every round; ``ready`` is handed the
+    initialized trainer before the first step. Returns the trainer."""
+    gp = lambda n, d: global_param(cfg, n, d)
+    # float32 policies compute in full float32 (no TF32 in cuDNN convs
+    # or cuBLAS matmuls), as the JAX package's float32 does on the CPU
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tr = Trainer(cfg)
+    data = [pairs for kind, _, pairs in sections if kind == "data"]
+    if not data:
+        raise ConfigError("no training data section (data = ...) in config")
+    itr_train = create_iterator(cfg + data[0])
+    evals = [(name, create_iterator(cfg + pairs))
+             for kind, name, pairs in sections if kind == "eval"]
+    model_dir = gp("model_dir", "./models")
+    save_model = int(gp("save_model", "1"))
+    if save_model:
+        os.makedirs(model_dir, exist_ok=True)
+    tr.init_model()
+    if ready is not None:
+        ready(tr)
+    last = _train_rounds(tr, gp, itr_train, evals)
+    final = ckpt.model_path(model_dir, last)
+    if save_model and last >= 0 and not os.path.exists(final):
+        tr.save_model(final)
+    return tr
+
+
+def run(cfg: ConfigPairs, ready: Optional[Callable] = None):
+    """Dispatch on ``task`` over the global settings. ``ready`` is handed
+    the listening server (serve) or the initialized trainer (train);
+    train returns its :class:`Trainer`."""
+    global_cfg, sections = split_sections(cfg)
     task = global_param(global_cfg, "task", "train")
+    if task == "train":
+        return task_train(global_cfg, sections, ready)
     if task != "serve":
         raise ConfigError(
-            f"task = {task}: the PyTorch port runs task = serve only so "
-            "far (pred / pred_raw / extract: ROADMAP Queue A 2; train: "
-            "Queue A 3)")
+            f"task = {task}: the PyTorch port runs task = train and serve "
+            "only so far (pred / pred_raw / extract / get_weight: ROADMAP "
+            "Queue A 2; finetune: Queue A 3, still queued: continue = 1 "
+            "and finetune)")
     task_serve(global_cfg, ready)
+    return None
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     argv = argv if argv is not None else sys.argv[1:]
     ap = argparse.ArgumentParser(
         prog="cxxnet_tpu_torch",
-        description="cxxnet task driver, PyTorch/CUDA port (task=serve)")
+        description="cxxnet task driver, PyTorch/CUDA port "
+                    "(task=train|serve)")
     ap.add_argument("config", help="config file (key=value dialect)")
     ap.add_argument("overrides", nargs="*", help="key=value overrides")
     args = ap.parse_args(argv)

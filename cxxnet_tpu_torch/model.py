@@ -1,17 +1,20 @@
-"""Network: a NetGraph run as one eval forward over NHWC tensors.
+"""Network: a NetGraph run over NHWC tensors, at eval or in training.
 
-The port of ``cxxnet_tpu/model.py``'s Network, eval branch: shape
-inference over the DAG, the activation-fold plan, init from an explicit
-``torch.Generator``, and a forward with node capture for extract.
+The port of ``cxxnet_tpu/model.py``'s Network: shape inference over the
+DAG, the activation-fold plan, init from an explicit
+``torch.Generator``, an eval forward with node capture for extract, and
+:meth:`Network.apply`, the differentiable training pass.
 Parameters and layer state are kept as ``params[layer][leaf]`` /
 ``state[layer][leaf]`` dictionaries, the JAX package's pytree layout,
 with conv weights OIHW (``convert.params_from_jax``). Shared layers
 (``share[tag]``) reuse the primary layer's object and parameters.
 
-Weights live on the network's device as float32 masters; the leaves a
-layer computes with (conv and fullc ``wmat``) are also held cast to the
-compute dtype, cast once when loaded, which equals the JAX package's
-per-call cast.
+Weights live on the network's device as float32 masters. For the eval
+forward the leaves a layer computes with (conv and fullc ``wmat``) are
+also held cast to the compute dtype, cast once per load or update
+(:meth:`Network.invalidate_cast`), which equals the JAX package's
+per-call cast. :meth:`Network.apply` casts inside the autograd graph
+instead, so gradients reach the f32 masters.
 """
 
 from __future__ import annotations
@@ -163,6 +166,26 @@ class Network(nn.Module):
             self._cast = {}
         self.weights_for(self.compute_dtype)
 
+    def invalidate_cast(self) -> None:
+        """Drop the eval forward's cast weights: call after the masters
+        changed in place (an optimizer step)."""
+        with self._cast_lock:
+            self._cast = {}
+
+    def _cast_tree(self, params: Params, dtype: torch.dtype) -> Params:
+        """Each layer's compute leaves cast to ``dtype`` and laid out by
+        the layer; the other leaves as they are."""
+        tree = {}
+        for layer in self.layers:
+            lp = params.get(layer.name)
+            if lp is None or layer.name in tree:
+                continue
+            tree[layer.name] = {
+                k: layer.place_leaf(
+                    k, v.to(dtype) if k in layer.compute_leaves else v)
+                for k, v in lp.items()}
+        return tree
+
     def weights_for(self, dtype: torch.dtype) -> Params:
         """Params with each layer's compute leaves cast to ``dtype`` and
         laid out by the layer, built once per dtype."""
@@ -171,17 +194,47 @@ class Network(nn.Module):
                 raise ValueError("no weights loaded: call load_weights()")
             tree = self._cast.get(dtype)
             if tree is None:
-                tree = {}
-                for layer in self.layers:
-                    lp = self.params.get(layer.name)
-                    if lp is None or layer.name in tree:
-                        continue
-                    tree[layer.name] = {
-                        k: layer.place_leaf(
-                            k, v.to(dtype) if k in layer.compute_leaves else v)
-                        for k, v in lp.items()}
+                with torch.inference_mode():
+                    tree = self._cast_tree(self.params, dtype)
                 self._cast[dtype] = tree
             return tree
+
+    # -- graph walk --------------------------------------------------------
+    def _walk(self, params: Params, state: NetState, data: torch.Tensor,
+              ctx_fields: Dict[str, Any],
+              label: Optional[torch.Tensor] = None,
+              mask: Optional[torch.Tensor] = None):
+        """The one walk of :meth:`forward` and :meth:`apply`: each layer
+        over its input nodes with its leaves of ``params`` (already cast)
+        and an ``ApplyCtx(**ctx_fields)`` carrying the act-fold plan.
+        Returns the node values and the f32 sum of the loss layers'
+        losses (0 without a label)."""
+        g = self.graph
+        want = to_nhwc(g.input_shape, data.shape[0])
+        if tuple(data.shape) != want:
+            raise ValueError(f"input shape {tuple(data.shape)} != {want}")
+        nodes: List[Optional[torch.Tensor]] = [None] * g.num_nodes
+        nodes[0] = data
+        loss = torch.zeros((), dtype=torch.float32, device=data.device)
+        for li, (spec, layer) in enumerate(zip(g.layers, self.layers)):
+            if li in self._act_folded:
+                # relu folded into its producer (graph.act_fusion_plan)
+                nodes[spec.nindex_out[0]] = nodes[spec.nindex_in[0]]
+                continue
+            ctx = ApplyCtx(fuse_act=self._fuse_act.get(li), **ctx_fields)
+            outputs = layer.forward(
+                params.get(layer.name, {}), state.get(layer.name, {}),
+                [nodes[ni] for ni in spec.nindex_in], ctx)
+            for ni, out in zip(spec.nindex_out, outputs):
+                nodes[ni] = out
+            if layer.is_loss and label is not None:
+                a, b = g.label_slice(layer.target)
+                loss = loss + layer.loss(outputs, label[:, a:b].float(), mask)
+        return nodes, loss
+
+    def _top(self) -> int:
+        g = self.graph
+        return g.layers[-1].nindex_out[0] if g.layers else 0
 
     # -- forward -----------------------------------------------------------
     @torch.inference_mode()
@@ -195,34 +248,54 @@ class Network(nn.Module):
         ``serve_dtype``); ``fused`` overrides the kernel selection;
         ``calib_sink`` switches batch_norm layers to calibration
         (:func:`calibrate_bn`)."""
-        g = self.graph
-        want = to_nhwc(g.input_shape, data.shape[0])
-        if tuple(data.shape) != want:
-            raise ValueError(f"input shape {tuple(data.shape)} != {want}")
         cdt = self.compute_dtype if compute_dtype is None else compute_dtype
-        params = self.weights_for(cdt)
-        fused_now = self.fused if fused is None else fused
-        nodes: List[Optional[torch.Tensor]] = [None] * g.num_nodes
-        nodes[0] = data
-        for li, (spec, layer) in enumerate(zip(g.layers, self.layers)):
-            if li in self._act_folded:
-                # relu folded into its producer (graph.act_fusion_plan)
-                nodes[spec.nindex_out[0]] = nodes[spec.nindex_in[0]]
-                continue
-            ctx = ApplyCtx(compute_dtype=cdt, fused=fused_now,
-                           fuse_act=self._fuse_act.get(li),
-                           calib_sink=calib_sink)
-            outputs = layer.forward(
-                params.get(layer.name, {}), self.state.get(layer.name, {}),
-                [nodes[ni] for ni in spec.nindex_in], ctx)
-            for ni, out in zip(spec.nindex_out, outputs):
-                nodes[ni] = out
+        nodes, _ = self._walk(
+            self.weights_for(cdt), self.state, data,
+            dict(compute_dtype=cdt,
+                 fused=self.fused if fused is None else fused,
+                 calib_sink=calib_sink))
         node_map = None
         if capture_nodes:
-            node_map = {name: nodes[i] for i, name in enumerate(g.node_names)
+            node_map = {name: nodes[i]
+                        for i, name in enumerate(self.graph.node_names)
                         if nodes[i] is not None}
-        out = nodes[g.layers[-1].nindex_out[0]] if g.layers else data
-        return ForwardResult(out=out, nodes=node_map)
+        return ForwardResult(out=nodes[self._top()], nodes=node_map)
+
+    # -- training pass -----------------------------------------------------
+    def apply(self, params: Params, state: NetState, data: torch.Tensor,
+              label: Optional[torch.Tensor] = None,
+              mask: Optional[torch.Tensor] = None, train: bool = False,
+              capture_nodes: bool = False):
+        """One differentiable pass (the JAX package's ``Network.apply``):
+        returns ``(loss, new_state, nodes)``. ``params`` are the f32
+        masters (leaves that may require grad); each layer casts its
+        compute leaves to the compute dtype inside the graph. ``label``
+        is (batch, label_width) float32 and ``mask`` (batch,) marks real
+        rows (None = all). ``loss`` is the f32 sum of the loss layers'
+        losses (0 without a label); ``new_state`` is ``state`` with the
+        training updates of layers that keep state (batch_norm's
+        running statistics, no grad); ``nodes`` maps node names to
+        values: every node with ``capture_nodes``, else the last one."""
+        if mask is None:
+            mask = torch.ones((data.shape[0],), dtype=torch.float32,
+                              device=data.device)
+        sink: Dict[str, Dict[str, torch.Tensor]] = {}
+        nodes, loss = self._walk(
+            self._cast_tree(params, self.compute_dtype), state, data,
+            dict(compute_dtype=self.compute_dtype, fused=self.fused,
+                 train=train, state_sink=sink), label, mask)
+        new_state = {l: dict(d) for l, d in state.items()}
+        new_state.update(sink)
+        top = self._top()
+        node_map = {name: nodes[i]
+                    for i, name in enumerate(self.graph.node_names)
+                    if nodes[i] is not None and (capture_nodes or i == top)}
+        return loss, new_state, node_map
+
+    def top_node(self) -> str:
+        """Name of the last layer's output node (the metrics' default)."""
+        g = self.graph
+        return g.node_names[g.layers[-1].nindex_out[0] if g.layers else 0]
 
 
 def calibrate_bn(net: Network, data: torch.Tensor) -> NetState:

@@ -117,3 +117,12 @@ def check_cuda_input(name: str, x: torch.Tensor) -> int:
 def stream_handle(device: torch.device) -> int:
     """PyTorch's current stream on ``device``, as a C pointer value."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def row_blocks(n: int, c: int) -> int:
+    """Row blocks of the first stage of the column sums in
+    ``csrc/colsum.cuh`` (BN forward and backward, the epilogue's dbias):
+    about eight CTAs per SM of the H100's 132 over the ceil(c/32)
+    channel tiles, and at least 64 rows per block."""
+    tiles = -(-c // 32)
+    return max(1, min(max(1, 1056 // tiles), -(-n // 64)))

@@ -1,10 +1,13 @@
-"""Bias + activation epilogue: the CUDA kernel and its plain version.
+"""Bias + activation epilogue: the CUDA kernels, their plain versions
+and the autograd function over them.
 
-The port of ``cxxnet_tpu/ops/fused_epilogue.py``'s forward: a conv or
-fullc output ``x`` viewed as (N, C) rows gets ``bias`` (C,) added, cast
-to ``x``'s dtype first, and then an optional relu (the graph-folded one,
-graph.act_fusion_plan). The matmul or conv itself stays PyTorch's, as
-the JAX package left it to XLA; the kernel is ``csrc/epilogue_fwd.cu``.
+The port of ``cxxnet_tpu/ops/fused_epilogue.py``: a conv or fullc output
+``x`` viewed as (N, C) rows gets ``bias`` (C,) added, cast to ``x``'s
+dtype first, and then an optional relu (the graph-folded one,
+graph.act_fusion_plan); the kernel is ``csrc/epilogue_fwd.cu``. Its
+backward (``csrc/epilogue_bwd.cu``) is dx = dy, masked by ``y > 0`` with
+relu, and dbias = the f32 column sum of that dx. The matmul or conv
+itself stays PyTorch's, as the JAX package left it to XLA.
 """
 
 from __future__ import annotations
@@ -14,13 +17,23 @@ from typing import Optional
 
 import torch
 
-from .fused import Kernel, check_cuda_input, register, stream_handle
+from .fused import (Kernel, check_cuda_input, register, row_blocks,
+                    stream_handle)
 
 EPILOGUE_FWD = register(Kernel(
     "epilogue_fwd", "epilogue_fwd.cu",
     replaces="cxxnet_tpu/ops/fused_epilogue.py:46",
     argtypes=[ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
               ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+              ctypes.c_void_p]))
+
+
+EPILOGUE_BWD = register(Kernel(
+    "epilogue_bwd", "epilogue_bwd.cu",
+    replaces="cxxnet_tpu/ops/fused_epilogue.py:58",
+    argtypes=[ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
               ctypes.c_void_p]))
 
 
@@ -74,3 +87,77 @@ def fused_bias_act(x: torch.Tensor, bias: Optional[torch.Tensor],
             y.data_ptr(), x.numel() // c, c, code, int(act == "relu"),
             stream_handle(x.device))
     return y
+
+
+def epilogue_bwd_plain(y: torch.Tensor, dy: torch.Tensor, act: str,
+                       with_bias: bool):
+    """Plain PyTorch epilogue backward, the definition of what the
+    backward kernel computes: ``(dx, dbias)`` with dx = dy masked by
+    ``y > 0`` when ``act == "relu"``, and dbias the column sum of dx in
+    float32 over every leading axis (None without a bias)."""
+    dx = dy
+    if act == "relu":
+        dx = torch.where(y > 0, dy, torch.zeros_like(dy))
+    db = None
+    if with_bias:
+        db = dx.reshape(-1, dx.shape[-1]).sum(dim=0, dtype=torch.float32)
+    return dx, db
+
+
+def fused_epilogue_bwd(y: torch.Tensor, dy: torch.Tensor, act: str,
+                       with_bias: bool):
+    """Epilogue backward over the trailing channel axis: ``(dx, dbias)``.
+    A CUDA tensor goes to the kernel; a CPU tensor to
+    :func:`epilogue_bwd_plain`."""
+    if act not in ("none", "relu") or y.shape != dy.shape or dy.dim() < 1:
+        raise ValueError("epilogue backward: y and dy must match and act "
+                         f"be none or relu (got {act!r})")
+    if dy.device.type == "cpu":
+        return epilogue_bwd_plain(y, dy, act, with_bias)
+    if dy.device.type != "cuda":
+        raise ValueError(f"epilogue backward: no kernel for {dy.device}")
+    code = check_cuda_input("epilogue backward", dy)
+    if act == "relu" and check_cuda_input("epilogue backward", y) != code:
+        raise TypeError("epilogue backward: y and dy must share a dtype")
+    c = dy.shape[-1]
+    n = dy.numel() // c
+    g = row_blocks(n, c)
+    dx = torch.empty_like(dy)
+    db = (torch.empty((c,), dtype=torch.float32, device=dy.device)
+          if with_bias else None)
+    part = (torch.empty((g, c), dtype=torch.float32, device=dy.device)
+            if with_bias else None)
+    with torch.cuda.device(dy.device):
+        EPILOGUE_BWD.launch(
+            y.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            None if db is None else db.data_ptr(),
+            None if part is None else part.data_ptr(), n, c, g, code,
+            int(act == "relu"), stream_handle(dy.device))
+    return dx, db
+
+
+class BiasAct(torch.autograd.Function):
+    """The epilogue with forward :func:`fused_bias_act` and backward
+    :func:`fused_epilogue_bwd`; dbias is cast to the bias's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, bias, act):
+        y = fused_bias_act(x, bias, act)
+        ctx.act = act
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        (y,) = ctx.saved_tensors
+        dx, db = fused_epilogue_bwd(y, dy.contiguous(), ctx.act,
+                                    ctx.bias_dtype is not None)
+        return dx, None if db is None else db.to(ctx.bias_dtype), None
+
+
+def bias_act(x: torch.Tensor, bias: Optional[torch.Tensor],
+             act: str = "none") -> torch.Tensor:
+    """Differentiable epilogue through :class:`BiasAct` (x contiguous;
+    raises when there is nothing to do, as :func:`fused_bias_act`)."""
+    return BiasAct.apply(x.contiguous(), bias, act)

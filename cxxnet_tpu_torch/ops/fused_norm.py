@@ -1,0 +1,201 @@
+"""Training batch norm with an optional folded relu: the CUDA kernels,
+their plain versions and the autograd function over them.
+
+The port of ``cxxnet_tpu/ops/fused_norm.py``'s single-device part.
+Activations are viewed as (N, C) rows, N = batch*H*W for conv nodes and
+N = batch for flat nodes, with per-channel statistics over the rows:
+
+* forward (``csrc/bn_fwd.cu``): f32 moments, one-pass
+  ``E[x^2] - E[x]^2`` clamped at 0 or, with ``two_pass``, the mean and
+  then ``E[(x - mean)^2]``; ``y = (x - mean) * rstd * gamma + beta``, an
+  optional relu, y in the dtype of x; mean and var in f32.
+* backward (``csrc/bn_bwd.cu``): ``dy' = dy`` masked by ``y > 0`` with
+  relu, ``x_hat = (x - mean) * rstd``, ``dbeta = sum dy'``,
+  ``dgamma = sum dy' * x_hat`` (f32), and
+  ``dx = gamma * rstd * (dy' - dbeta / N - x_hat * dgamma / N)``.
+
+:class:`BnAct` saves ``(x, gamma, mean, rstd, y if relu)`` as the JAX
+custom_vjp does, drops the gradients that mean and var receive (they
+feed the running-statistic EMA only), and casts dgamma and dbeta to
+gamma's dtype. Any N and C go to the kernels: the TPU kernel's row-block
+divisibility does not apply here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from .fused import (Kernel, check_cuda_input, register, row_blocks,
+                    stream_handle)
+
+_P = ctypes.c_void_p
+BN_FWD = register(Kernel(
+    "bn_fwd", "bn_fwd.cu",
+    replaces="cxxnet_tpu/ops/fused_norm.py:77",
+    argtypes=[_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int,
+              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+              ctypes.c_float, _P]))
+BN_BWD = register(Kernel(
+    "bn_bwd", "bn_bwd.cu",
+    replaces="cxxnet_tpu/ops/fused_norm.py:168",
+    argtypes=[_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64,
+              ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]))
+
+
+def _check(x: torch.Tensor, gamma: torch.Tensor, act: str) -> None:
+    if act not in ("none", "relu"):
+        raise ValueError(f"bn: act must be none or relu, got {act!r}")
+    if x.dim() < 2 or x.shape[-1] < 1 or x.numel() == 0:
+        raise ValueError(f"bn: bad input shape {tuple(x.shape)}")
+    if tuple(gamma.shape) != (x.shape[-1],):
+        raise ValueError(f"bn: gamma shape {tuple(gamma.shape)} != "
+                         f"({x.shape[-1]},)")
+
+
+def bn_act_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                 eps: float, act: str = "none", two_pass: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch batch norm over the trailing channel axis, the
+    definition of what the forward kernel computes (the JAX package's
+    ``bn_act_reference``): ``(y, mean, var)`` with f32 statistics over
+    all leading axes and y in x's dtype."""
+    _check(x, gamma, act)
+    axes = tuple(range(x.dim() - 1))
+    xf = x.float()
+    mean = xf.mean(dim=axes)
+    if two_pass:
+        var = (xf - mean).square().mean(dim=axes)
+    else:
+        var = torch.clamp(xf.square().mean(dim=axes) - mean.square(),
+                          min=0.0)
+    inv = torch.rsqrt(var + eps)
+    out = (xf - mean) * inv * gamma.float() + beta.float()
+    if act == "relu":
+        out = torch.relu(out)
+    return out.to(x.dtype), mean, var
+
+
+def bn_bwd_plain(x: torch.Tensor, dy: torch.Tensor, y: Optional[torch.Tensor],
+                 gamma: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch backward over (N, C) rows, the definition of what
+    the backward kernel computes (the formula of the JAX package's
+    ``_bn_bwd_kernel``): ``(dx, dgamma, dbeta)``, dx in x's dtype, the
+    two sums in f32. ``y`` is the forward's output when a relu was
+    folded in (its mask), else None."""
+    n = x.shape[0]
+    dyf = dy.float()
+    if y is not None:
+        dyf = torch.where(y.float() > 0, dyf, torch.zeros_like(dyf))
+    xh = (x.float() - mean) * rstd
+    sb = dyf.sum(dim=0)
+    sxh = (dyf * xh).sum(dim=0)
+    g = gamma.float() * rstd
+    dx = g * (dyf - sb / n - xh * (sxh / n))
+    return dx.to(x.dtype), sxh, sb
+
+
+def _vec_on(t: torch.Tensor, dev: torch.device, what: str) -> None:
+    if t.dtype != torch.float32 or t.device != dev or not t.is_contiguous():
+        raise ValueError(f"bn: {what} must be a contiguous float32 tensor "
+                         f"on {dev} (got {t.dtype} on {t.device})")
+
+
+def bn_fwd(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+           eps: float, act: str = "none", two_pass: bool = False):
+    """Forward over (N, C) rows: ``(y, mean, var, rstd)``. A CUDA tensor
+    goes to the kernel (gamma and beta float32 on the same device); a
+    CPU tensor to :func:`bn_act_plain`. Raises on what the kernel does
+    not take."""
+    _check(x2, gamma, act)
+    if x2.dim() != 2:
+        raise ValueError(f"bn: expected (N, C) rows, got {tuple(x2.shape)}")
+    if x2.device.type == "cpu":
+        y, mean, var = bn_act_plain(x2, gamma, beta, eps, act, two_pass)
+        return y, mean, var, torch.rsqrt(var + eps)
+    if x2.device.type != "cuda":
+        raise ValueError(f"bn: no kernel for device {x2.device}")
+    code = check_cuda_input("bn", x2)
+    _vec_on(gamma, x2.device, "gamma")
+    _vec_on(beta, x2.device, "beta")
+    n, c = x2.shape
+    g = row_blocks(n, c)
+    y = torch.empty_like(x2)
+    stats = torch.empty((3, c), dtype=torch.float32, device=x2.device)
+    part = torch.empty((2, g, c), dtype=torch.float32, device=x2.device)
+    with torch.cuda.device(x2.device):
+        BN_FWD.launch(x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                      y.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+                      stats[2].data_ptr(), part.data_ptr(), n, c, g, code,
+                      int(act == "relu"), int(two_pass), float(eps),
+                      stream_handle(x2.device))
+    return y, stats[0], stats[1], stats[2]
+
+
+def bn_bwd(x2: torch.Tensor, dy2: torch.Tensor, y2: Optional[torch.Tensor],
+           gamma: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor):
+    """Backward over (N, C) rows: ``(dx, dgamma, dbeta)``. ``y2`` is the
+    forward's output when a relu was folded in, else None. A CUDA tensor
+    goes to the kernel; a CPU tensor to :func:`bn_bwd_plain`."""
+    if x2.dim() != 2 or dy2.shape != x2.shape or (
+            y2 is not None and y2.shape != x2.shape):
+        raise ValueError("bn backward: x, dy (and y) must be equal (N, C)")
+    if x2.device.type == "cpu":
+        return bn_bwd_plain(x2, dy2, y2, gamma, mean, rstd)
+    if x2.device.type != "cuda":
+        raise ValueError(f"bn backward: no kernel for device {x2.device}")
+    code = check_cuda_input("bn backward", x2)
+    for t in (dy2,) + (() if y2 is None else (y2,)):
+        if check_cuda_input("bn backward", t) != code:
+            raise TypeError("bn backward: x, dy and y must share a dtype")
+    for t, what in ((gamma, "gamma"), (mean, "mean"), (rstd, "rstd")):
+        _vec_on(t, x2.device, what)
+    n, c = x2.shape
+    g = row_blocks(n, c)
+    dx = torch.empty_like(x2)
+    grads = torch.empty((2, c), dtype=torch.float32, device=x2.device)
+    part = torch.empty((2, g, c), dtype=torch.float32, device=x2.device)
+    with torch.cuda.device(x2.device):
+        BN_BWD.launch(x2.data_ptr(), dy2.data_ptr(),
+                      None if y2 is None else y2.data_ptr(),
+                      gamma.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                      dx.data_ptr(), grads[0].data_ptr(),
+                      grads[1].data_ptr(), part.data_ptr(), n, c, g, code,
+                      stream_handle(x2.device))
+    return dx, grads[0], grads[1]
+
+
+class BnAct(torch.autograd.Function):
+    """Batch norm (+ folded relu) over the trailing channel axis whose
+    forward and backward are :func:`bn_fwd` and :func:`bn_bwd`."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, act, two_pass):
+        c = x.shape[-1]
+        x2 = x.reshape(-1, c)
+        y, mean, var, rstd = bn_fwd(x2, gamma, beta, eps, act, two_pass)
+        ctx.save_for_backward(x2, gamma, mean, rstd,
+                              y if act == "relu" else None)
+        ctx.mark_non_differentiable(mean, var)
+        return y.reshape(x.shape), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x2, gamma, mean, rstd, y = ctx.saved_tensors
+        dx, dgamma, dbeta = bn_bwd(x2, dy.reshape(x2.shape).contiguous(), y,
+                                   gamma, mean, rstd)
+        return (dx.reshape(dy.shape), dgamma.to(gamma.dtype),
+                dbeta.to(gamma.dtype), None, None, None)
+
+
+def fused_bn_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                 eps: float, act: str = "none", two_pass: bool = False):
+    """Training batch norm (+ optional relu) of an NHWC or flat node
+    through :class:`BnAct`: ``(y, mean, var)``, y in x's dtype, f32
+    statistics. Differentiable in x, gamma and beta."""
+    _check(x, gamma, act)
+    return BnAct.apply(x.contiguous(), gamma, beta, float(eps), act,
+                       bool(two_pass))

@@ -1,8 +1,8 @@
-"""Pooling over tiling or global windows: the CUDA kernel and its plain
-version.
+"""Pooling over tiling or global windows: the CUDA kernels, their plain
+versions and the autograd function over them.
 
-The port of ``cxxnet_tpu/ops/fused_pool.py``'s forward. Two window
-regimes go to the kernel (``csrc/pool_fwd.cu``):
+The port of ``cxxnet_tpu/ops/fused_pool.py``. Two window regimes go to
+the forward kernel (``csrc/pool_fwd.cu``):
 
 * **tile**: square windows with ``stride == kernel``, no padding, and
   spatial dims that the window divides (the 2x2/2 pools of the MNIST
@@ -16,6 +16,12 @@ dtype as the JAX kernel does (fused_pool.py:86-88). ``pre_relu`` folds
 relu_max_pooling's activation in. Every other geometry (padding,
 ceil-mode overhang, overlapping windows) is the layers' plain padded
 pooling (layers/conv.py).
+
+The backward of sum and avg (``csrc/pool_bwd.cu``) gives every cell of
+a window that window's dy, times the avg scale rounded to the dtype.
+The first-match max backward is still to port (ROADMAP Queue B row 2):
+:class:`Pool` raises when a max pool's backward reaches it on the card,
+and computes the plain first-match backward on the CPU.
 """
 
 from __future__ import annotations
@@ -33,6 +39,14 @@ POOL_FWD = register(Kernel(
               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
               ctypes.c_float, ctypes.c_void_p]))
+
+
+POOL_BWD = register(Kernel(
+    "pool_bwd", "pool_bwd.cu",
+    replaces="cxxnet_tpu/ops/fused_pool.py:115",
+    argtypes=[ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+              ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]))
 
 
 def kernel_geometry(h: int, w: int, kh: int, kw: int, stride: int,
@@ -103,3 +117,113 @@ def fused_pool(x: torch.Tensor, kh: int, kw: int, reducer: str,
                         code, int(reducer == "max"), int(pre_relu), scale,
                         stream_handle(x.device))
     return y
+
+
+def _bwd_scale(kh: int, kw: int, scale_avg: bool, dtype: torch.dtype):
+    """The backward's scale, rounded to ``dtype``, or None for 1."""
+    if scale_avg and kh * kw != 1:
+        return scale_in_dtype(1.0 / (kh * kw), dtype)
+    return None
+
+
+def pool_bwd_lin_plain(dy: torch.Tensor, kh: int, kw: int,
+                       scale_avg: bool) -> torch.Tensor:
+    """Plain PyTorch sum/avg pooling backward, the definition of what
+    the backward kernel computes: ``dy`` (B, OY, OX, C) times the avg
+    scale (both rounded to the dtype, and the product) broadcast over
+    each kh x kw window of dx (B, OY*kh, OX*kw, C)."""
+    if dy.dim() != 4:
+        raise ValueError(f"pool backward: expected NHWC dy, got "
+                         f"{tuple(dy.shape)}")
+    b, oy, ox, c = dy.shape
+    s = _bwd_scale(kh, kw, scale_avg, dy.dtype)
+    v = dy if s is None else (dy.float() * s).to(dy.dtype)
+    return v.reshape(b, oy, 1, ox, 1, c).expand(b, oy, kh, ox, kw, c) \
+        .reshape(b, oy * kh, ox * kw, c)
+
+
+def pool_bwd_max_plain(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
+                       kh: int, kw: int, pre_relu: bool) -> torch.Tensor:
+    """Plain first-match max pooling backward over tiling windows (the
+    JAX package's ``_pool_bwd_max_kernel``): in row-major window order,
+    the first cell equal to the window's max takes the whole dy; with
+    ``pre_relu`` only a cell whose input is > 0 can take it."""
+    b, h, w, c = x.shape
+    oy, ox = h // kh, w // kw
+    xr = x.reshape(b, oy, kh, ox, kw, c)
+    xa = torch.relu(xr) if pre_relu else xr
+    dx = torch.zeros_like(xr)
+    taken = torch.zeros((b, oy, ox, c), dtype=torch.bool, device=x.device)
+    zero = torch.zeros_like(dy)
+    for i in range(kh):
+        for j in range(kw):
+            hit = (xa[:, :, i, :, j, :] == y) & ~taken
+            if pre_relu:
+                hit = hit & (xr[:, :, i, :, j, :] > 0)
+            taken = taken | hit
+            dx[:, :, i, :, j, :] = torch.where(hit, dy, zero)
+    return dx.reshape(b, h, w, c)
+
+
+def fused_pool_bwd_lin(dy: torch.Tensor, kh: int, kw: int,
+                       scale_avg: bool) -> torch.Tensor:
+    """Sum/avg pooling backward of windows that tile the input (a global
+    window is the one-tile case). A CUDA tensor goes to the kernel; a
+    CPU tensor to :func:`pool_bwd_lin_plain`."""
+    if dy.dim() != 4 or kh <= 0 or kw <= 0:
+        raise ValueError(f"pool backward: bad dy {tuple(dy.shape)} or "
+                         f"window {kh}x{kw}")
+    if dy.device.type == "cpu":
+        return pool_bwd_lin_plain(dy, kh, kw, scale_avg)
+    if dy.device.type != "cuda":
+        raise ValueError(f"pool backward: no kernel for device {dy.device}")
+    code = check_cuda_input("pool backward", dy)
+    b, oy, ox, c = dy.shape
+    dx = torch.empty((b, oy * kh, ox * kw, c), dtype=dy.dtype,
+                     device=dy.device)
+    s = _bwd_scale(kh, kw, scale_avg, dy.dtype)
+    with torch.cuda.device(dy.device):
+        POOL_BWD.launch(dy.data_ptr(), dx.data_ptr(), b, oy * kh, ox * kw,
+                        c, kh, kw, code, 1.0 if s is None else s,
+                        stream_handle(dy.device))
+    return dx
+
+
+class Pool(torch.autograd.Function):
+    """Pooling over tiling or global windows: forward :func:`fused_pool`,
+    backward :func:`fused_pool_bwd_lin` for sum and avg. A max pool's
+    backward raises on the card (its kernel is ROADMAP Queue B row 2)
+    and is :func:`pool_bwd_max_plain` on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, kh, kw, reducer, scale_avg, pre_relu):
+        y = fused_pool(x, kh, kw, reducer, scale_avg, pre_relu)
+        ctx.geom = (kh, kw, reducer, scale_avg, pre_relu)
+        if reducer == "max":
+            ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        kh, kw, reducer, scale_avg, pre_relu = ctx.geom
+        dy = dy.contiguous()
+        if reducer == "max":
+            x, y = ctx.saved_tensors
+            if dy.device.type != "cpu":
+                raise NotImplementedError(
+                    "max pooling backward over tiling windows on the card "
+                    "needs _pool_bwd_max_kernel, not in the PyTorch port "
+                    "yet (ROADMAP Queue B row 2); fused_kernels = 0 "
+                    "selects the plain pooling")
+            dx = pool_bwd_max_plain(x, y, dy, kh, kw, pre_relu)
+        else:
+            dx = fused_pool_bwd_lin(dy, kh, kw, scale_avg)
+        return dx, None, None, None, None, None
+
+
+def pool(x: torch.Tensor, kh: int, kw: int, reducer: str, scale_avg: bool,
+         pre_relu: bool) -> torch.Tensor:
+    """Differentiable pooling of ``x`` (B, H, W, C) over windows that
+    tile it or cover it whole, through :class:`Pool`."""
+    _check(x, kh, kw, reducer)
+    return Pool.apply(x.contiguous(), kh, kw, reducer, scale_avg, pre_relu)

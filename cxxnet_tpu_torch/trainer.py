@@ -1,0 +1,237 @@
+"""Trainer: one device, SGD / NAG (the port of ``cxxnet_tpu/trainer.py``'s
+single-device path).
+
+A step is the JAX package's ``_make_train_step`` body ``one``
+(trainer.py:1620-1650) without model health, chains or gradient
+accumulation: the differentiable forward :meth:`Network.apply` over the
+f32 masters, ``torch.autograd.grad`` of the summed loss, then the
+optimizer's in-place update of the masters and momenta, and the
+batch_norm running statistics replaced by the step's. The eval
+forward's cast weights are dropped after every update, so
+:meth:`Trainer.evaluate` scores the weights just trained.
+
+Train metrics are read one step late, as in the JAX package: step N's
+top node is copied to the host after step N+1 was queued, so the copy
+does not stall the card. Rounds are ``%04d.model`` checkpoints in the
+JAX layout with the momentum tree (``has_opt``), which the JAX package
+loads and resumes.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import checkpoint as ckpt
+from .config import ConfigPairs, check_train_config
+from .convert import opt_from_jax, opt_to_jax, params_from_jax, params_to_jax
+from .graph import build_graph, global_param
+from .io.data import DataBatch
+from .metrics import MetricSet
+from .model import Network
+from .optim import Optimizer, leaves
+
+_METRIC_RE = re.compile(r"^metric(?:\[([^,\]]+)(?:,([^\]]+))?\])?$")
+
+
+class Trainer:
+    """Single-device trainer over one :class:`Network`. ``cfg`` is the
+    global settings (iterator sections split off)."""
+
+    def __init__(self, cfg: ConfigPairs, device: Optional[Any] = None):
+        check_train_config(cfg)
+        self.cfg = list(cfg)
+        gp = lambda n, d: global_param(cfg, n, d)
+        self.graph = build_graph(cfg)
+        self.net = Network(self.graph, cfg, device=device)
+        self.device = self.net.device
+        self.eval_train = int(gp("eval_train", "1"))
+        self.seed = int(gp("seed", "0"))
+        self.silent = int(gp("silent", "0"))
+        self.optimizer = Optimizer(self.graph.updater_type, cfg)
+        self.metric = MetricSet()
+        self.train_metric = MetricSet()
+        for name, val in cfg:
+            m = _METRIC_RE.match(name)
+            if not m:
+                continue
+            label_field, node = m.group(1), m.group(2)
+            if label_field is None or node is None:
+                label_field, node = "label", None
+            self.metric.add(val, label_field, node)
+            self.train_metric.add(val, label_field, node)
+        self._metric_nodes = sorted({n for n in self.metric.nodes if n})
+        self.epoch_counter = 0          # applied updates (schedules key)
+        self.round_counter = 0
+        self.step_count = 0
+        self.params = None
+        self.opt_state = None
+        self._last_loss: Optional[torch.Tensor] = None
+        self._pending_metric = None
+        self._ones: Optional[torch.Tensor] = None
+        #: called with the trainer after every update (timing, tests)
+        self.step_hook: Optional[Callable[["Trainer"], None]] = None
+        if self.net.fused_mode == "off" and not self.silent:
+            print("fused_kernels = 0: this trainer computes the plain "
+                  "PyTorch versions of the kernels", flush=True)
+
+    # -- weights --------------------------------------------------------------
+    def init_model(self, weights: Optional[Tuple[Dict, Dict]] = None) -> None:
+        """Fresh weights and optimizer state on the device. ``weights``
+        is a JAX-layout ``(params, state)`` pair of numpy arrays, carried
+        in by ``convert.params_from_jax``; without it the layers' own
+        init draws them from a CPU generator seeded with ``seed``."""
+        if weights is None:
+            weights = params_to_jax(
+                *self.net.init(torch.Generator().manual_seed(self.seed)))
+        self._place(*params_from_jax(*weights), opt=None)
+
+    def _place(self, params: Dict, state: Dict, opt: Optional[Dict]) -> None:
+        self.net.load_weights(params, state)
+        self.params = self.net.params
+        for _, _, v in leaves(self.params):
+            v.requires_grad_(True)
+        if opt is None:
+            self.opt_state = self.optimizer.init_state(self.params)
+        else:
+            self.opt_state = {"mom": {
+                l: {k: torch.as_tensor(v).to(self.device, torch.float32)
+                    .contiguous() for k, v in d.items()}
+                for l, d in opt["mom"].items()}}
+            want = {(l, k) for l, k, _ in leaves(self.params)}
+            if {(l, k) for l, k, _ in leaves(self.opt_state["mom"])} != want:
+                raise ValueError("optimizer state does not match the net's "
+                                 "parameters")
+
+    def load_blob(self, blob: Dict[str, Any]) -> None:
+        """Restore params, layer state, momenta and counters from a round
+        read by ``checkpoint.load_model`` (JAX layout)."""
+        ckpt.check_structure(blob["meta"], self.graph.structure_signature())
+        p, s = params_from_jax(blob["params"], blob["state"])
+        opt = blob.get("opt")
+        self._place(p, s, None if opt is None else opt_from_jax(opt))
+        meta = blob["meta"]
+        self.round_counter = meta["round"]
+        self.epoch_counter = meta["epoch"]
+        self.step_count = int(meta.get("step_count", 0))
+        self.optimizer.lr_scale = float(meta.get("lr_scale", 1.0))
+
+    def save_model(self, path: str) -> None:
+        """Write the current round with its momenta (``has_opt``)."""
+        params, state = params_to_jax(self.params, self.net.state)
+        ckpt.save_model(path, structure_sig=self.graph.structure_signature(),
+                        round_counter=self.round_counter,
+                        epoch_counter=self.epoch_counter, params=params,
+                        net_state=state, opt_state=opt_to_jax(self.opt_state),
+                        step_count=self.step_count,
+                        lr_scale=self.optimizer.lr_scale)
+
+    def start_round(self, round_counter: int) -> None:
+        self.round_counter = round_counter
+
+    # -- training ---------------------------------------------------------
+    def _to_device(self, batch: DataBatch):
+        data = torch.from_numpy(np.ascontiguousarray(batch.data, np.float32))
+        label = torch.from_numpy(np.ascontiguousarray(batch.label,
+                                                      np.float32))
+        if self.device.type == "cuda":
+            data = data.pin_memory().to(self.device, non_blocking=True)
+            label = label.pin_memory().to(self.device, non_blocking=True)
+        return data, label
+
+    def _mask(self, batch: DataBatch) -> torch.Tensor:
+        """Real rows 1, padded rows 0. The all-ones mask of every full
+        batch is made once per batch size on the device (no upload)."""
+        n, padd = batch.batch_size, batch.num_batch_padd
+        if not padd:
+            if self._ones is None or self._ones.shape[0] != n:
+                self._ones = torch.ones((n,), dtype=torch.float32,
+                                        device=self.device)
+            return self._ones
+        mask = torch.ones((n,), dtype=torch.float32)
+        mask[n - padd:] = 0.0
+        return mask.to(self.device)
+
+    def update(self, batch: DataBatch) -> None:
+        """One minibatch forward, backward and optimizer step."""
+        if self.params is None:
+            raise RuntimeError("call init_model() first")
+        data, label = self._to_device(batch)
+        loss, new_state, nodes = self.net.apply(
+            self.params, self.net.state, data, label, self._mask(batch),
+            train=True, capture_nodes=bool(self._metric_nodes))
+        flat = leaves(self.params)
+        grads = torch.autograd.grad(loss, [v for _, _, v in flat])
+        gtree: Dict[str, Dict[str, torch.Tensor]] = {}
+        for (l, k, _), g in zip(flat, grads):
+            gtree.setdefault(l, {})[k] = g
+        self.optimizer.update(self.params, gtree, self.opt_state,
+                              self.optimizer.schedules(self.epoch_counter))
+        self.net.state = new_state
+        self.net.invalidate_cast()
+        self._last_loss = loss.detach()
+        self.step_count += 1
+        self.epoch_counter += 1
+        if self.eval_train:
+            self._drain_pending_metric()
+            self._pending_metric = (
+                {n: nodes[n if n is not None else self.net.top_node()]
+                 .detach() for n in set(self.train_metric.nodes)}, batch)
+        if self.step_hook is not None:
+            self.step_hook(self)
+
+    @property
+    def last_loss(self) -> float:
+        """The last step's loss (a host sync), NaN before the first."""
+        return float(self._last_loss) if self._last_loss is not None \
+            else float("nan")
+
+    @property
+    def last_loss_tensor(self) -> Optional[torch.Tensor]:
+        """The last step's loss on the device (no sync)."""
+        return self._last_loss
+
+    # -- metrics / evaluation -------------------------------------------------
+    def _add_metric(self, mset: MetricSet,
+                    nodes: Dict[Optional[str], torch.Tensor],
+                    batch: DataBatch) -> None:
+        n_real = batch.batch_size - batch.num_batch_padd
+        if n_real <= 0:
+            return
+        vals = {k: v.float().cpu().numpy().reshape(v.shape[0], -1)[:n_real]
+                for k, v in nodes.items()}
+        labels = {k: np.asarray(batch.label)[:n_real] for k in nodes}
+        slices = {name: self.graph.label_slice(name)
+                  for name in self.graph.label_name_map}
+        mset.add_eval(vals, labels, slices)
+
+    def _drain_pending_metric(self) -> None:
+        if self._pending_metric is not None:
+            nodes, batch = self._pending_metric
+            self._pending_metric = None
+            self._add_metric(self.train_metric, nodes, batch)
+
+    def evaluate(self, data_iter, name: str) -> str:
+        """All metrics over ``data_iter`` with the eval forward; returns
+        the round-line fragment ``\\tname-metric:value``."""
+        self.metric.clear()
+        need = set(self.metric.nodes)
+        for batch in data_iter:
+            data = torch.from_numpy(np.ascontiguousarray(
+                batch.data, np.float32)).to(self.device)
+            res = self.net(data, capture_nodes=any(n is not None
+                                                   for n in need))
+            nodes = {n: (res.out if n is None else res.nodes[n])
+                     for n in need}
+            self._add_metric(self.metric, nodes, batch)
+        return "".join("\t%s:%f" % (m, v) for m, v in self.metric.get(name))
+
+    def train_metric_report(self, name: str = "train") -> str:
+        self._drain_pending_metric()
+        out = "".join("\t%s:%f" % (m, v)
+                      for m, v in self.train_metric.get(name))
+        self.train_metric.clear()
+        return out

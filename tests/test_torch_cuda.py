@@ -12,8 +12,17 @@ import pytest
 import torch
 
 from cxxnet_tpu_torch.ops.fused import KERNELS
-from cxxnet_tpu_torch.ops.fused_epilogue import bias_act_plain, fused_bias_act
-from cxxnet_tpu_torch.ops.fused_pool import fused_pool, pool_fwd_plain
+from cxxnet_tpu_torch.ops.fused_epilogue import (bias_act_plain,
+                                                 epilogue_bwd_plain,
+                                                 fused_bias_act,
+                                                 fused_epilogue_bwd)
+from cxxnet_tpu_torch.ops.fused_norm import (bn_act_plain, bn_bwd,
+                                             bn_bwd_plain, bn_fwd)
+from cxxnet_tpu_torch.ops.fused_optim import fused_sgd_apply, sgd_apply_plain
+from cxxnet_tpu_torch.ops.fused_pool import (Pool, fused_pool,
+                                             fused_pool_bwd_lin,
+                                             pool_bwd_lin_plain,
+                                             pool_fwd_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -74,7 +83,8 @@ def test_each_launch_counts_once(dev):
     fused_bias_act(x.reshape(-1, 64), None, "relu")
     torch.cuda.synchronize()
     assert {k: v.launches for k, v in KERNELS.items()} == \
-        {"pool_fwd": 2, "epilogue_fwd": 1}
+        {"pool_fwd": 2, "epilogue_fwd": 1, "pool_bwd": 0, "epilogue_bwd": 0,
+         "bn_fwd": 0, "bn_bwd": 0, "sgd_apply": 0}
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -89,3 +99,94 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         fused_bias_act(x, torch.zeros(16, device=dev, dtype=torch.float16))
     with pytest.raises(ValueError, match="float32"):
         fused_bias_act(x, torch.zeros(16))            # bias on the CPU
+
+
+def _ulp_ok(got, want, dtype, atol=1e-5):
+    """|got - want| within one ulp of ``dtype`` (relative) plus atol: both
+    round f32 values whose sums were taken in another order."""
+    err = (got.float() - want.float()).abs()
+    return bool((err <= ULP[dtype] * want.float().abs() + atol).all())
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("two_pass", [False, True])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("n,c", [(128 * 7 * 7, 1024), (1000, 64), (37, 3),
+                                 (333, 200)])
+def test_bn_kernels_match_plain(dev, dtype, relu, two_pass, n, c):
+    """Forward: statistics rtol 1e-4 (f32 sums in another order); y
+    within one ulp plus 1e-4. Backward: dgamma and dbeta rtol 1e-3 plus
+    atol 1e-3 (sums that cancel); dx within one ulp plus 1e-3."""
+    act = "relu" if relu else "none"
+    x = _randn((n, c), dtype, dev) * 1.5 + 0.25
+    x = x.to(dtype)
+    g = _randn((c,), torch.float32, dev, seed=1) * 0.2 + 1.0
+    b = _randn((c,), torch.float32, dev, seed=2) * 0.1
+    y, mean, var, rstd = bn_fwd(x, g, b, 1e-5, act, two_pass)
+    y0, mean0, var0 = bn_act_plain(x, g, b, 1e-5, act, two_pass)
+    torch.testing.assert_close(mean, mean0, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(var, var0, rtol=1e-4, atol=1e-5)
+    assert y.dtype == dtype and _ulp_ok(y, y0, dtype, 1e-4)
+    dy = _randn((n, c), dtype, dev, seed=3)
+    yy = y if relu else None
+    dx, dg, db = bn_bwd(x, dy, yy, g, mean, rstd)
+    dx0, dg0, db0 = bn_bwd_plain(x, dy, yy, g, mean, rstd)
+    torch.testing.assert_close(dg, dg0, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(db, db0, rtol=1e-3, atol=1e-3)
+    assert dx.dtype == dtype and _ulp_ok(dx, dx0, dtype, 1e-3)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape,kh,kw,avg", [
+    ((128, 7, 7, 1024), 7, 7, True), ((3, 12, 20, 40), 4, 5, False),
+    ((5, 2, 2, 17), 2, 2, True)])
+def test_pool_backward_kernel_matches_plain(dev, dtype, shape, kh, kw, avg):
+    """Equal: one rounding of the same product on both sides."""
+    b, h, w, c = shape
+    dy = _randn((b, h // kh, w // kw, c), dtype, dev)
+    assert torch.equal(fused_pool_bwd_lin(dy, kh, kw, avg),
+                       pool_bwd_lin_plain(dy, kh, kw, avg))
+
+
+def test_max_pool_backward_on_the_card_names_its_roadmap_row(dev):
+    x = _randn((2, 8, 8, 16), torch.float32, dev).requires_grad_(True)
+    y = Pool.apply(x, 2, 2, "max", False, False)
+    with pytest.raises(NotImplementedError, match="Queue B row 2"):
+        y.sum().backward()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("rows,c,with_bias,act", [
+    (128, 1000, True, "none"), (37, 333, True, "relu"), (9, 7, False, "relu"),
+    (1568, 192, True, "relu")])
+def test_epilogue_backward_kernel_matches_plain(dev, dtype, rows, c,
+                                                with_bias, act):
+    """dx equal (a masked copy); dbias rtol 1e-5 (f32 sums in another
+    order)."""
+    y = _randn((rows, c), dtype, dev)
+    dy = _randn((rows, c), dtype, dev, seed=1)
+    dx, db = fused_epilogue_bwd(y, dy, act, with_bias)
+    dx0, db0 = epilogue_bwd_plain(y, dy, act, with_bias)
+    assert torch.equal(dx, dx0)
+    if with_bias:
+        torch.testing.assert_close(db, db0, rtol=1e-5, atol=1e-5)
+    else:
+        assert db is None and db0 is None
+
+
+@pytest.mark.parametrize("nag", [False, True])
+@pytest.mark.parametrize("wd,clip", [(0.0, 0.0), (1e-4, 0.0), (1e-4, 0.5)])
+def test_sgd_apply_kernel_matches_plain(dev, nag, wd, clip):
+    """Within 2 f32 ulp: the same rounded operations in the same order
+    (the plain version's tensor ops may be contracted differently)."""
+    shapes = [(64, 3, 7, 7), (64,), (8193,), (1000, 1024), (1,)]
+    ws = [_randn(s, torch.float32, dev, seed=i) for i, s in enumerate(shapes)]
+    gs = [_randn(s, torch.float32, dev, seed=10 + i)
+          for i, s in enumerate(shapes)]
+    gs[0].view(-1)[::5] = float("nan")
+    ms = [_randn(s, torch.float32, dev, seed=20 + i) * 0.1
+          for i, s in enumerate(shapes)]
+    want_w, want_m = sgd_apply_plain(ws, gs, ms, 0.1, 0.9, wd, clip, nag)
+    fused_sgd_apply(ws, gs, ms, 0.1, 0.9, wd=wd, clip=clip, nag=nag)
+    for a, b in zip(ws + ms, want_w + want_m):
+        torch.testing.assert_close(a, b, rtol=2.4e-7, atol=1e-7)

@@ -45,8 +45,14 @@ def _top_level_imports(path):
 def test_port_files_exist():
     names = {os.path.relpath(p, REPO) for p in PORT_FILES}
     assert "chip_smoke.py" in names
-    assert "cxxnet_tpu_torch/ops/fused_pool.py" in names
-    assert len(names) > 20
+    assert {"cxxnet_tpu_torch/ops/fused_pool.py",
+            "cxxnet_tpu_torch/ops/fused_norm.py",
+            "cxxnet_tpu_torch/ops/fused_optim.py",
+            "cxxnet_tpu_torch/io/__init__.py",
+            "cxxnet_tpu_torch/io/data.py", "cxxnet_tpu_torch/io/proc.py",
+            "cxxnet_tpu_torch/trainer.py", "cxxnet_tpu_torch/optim.py",
+            "cxxnet_tpu_torch/metrics.py"} <= names
+    assert len(names) > 30
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -89,10 +95,17 @@ def test_serve_entry_point_without_cuda_raises(no_cuda, tmp_path):
         port_main.main([str(conf), "task=serve", "serve_port=0"])
 
 
+def test_train_entry_point_without_cuda_raises(no_cuda, tmp_path):
+    conf = tmp_path / "ibn.conf"
+    conf.write_text(IBN_TEXT)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_main.main([str(conf), "task=train"])
+
+
 def test_other_tasks_and_fleet_keys_name_the_roadmap(tmp_path):
     conf = tmp_path / "ibn.conf"
     conf.write_text(IBN_TEXT)
-    for args in (["task=train"], ["task=serve", "serve_replicas=2"],
+    for args in (["task=pred"], ["task=serve", "serve_replicas=2"],
                  ["task=serve", "cascade_enable=1"],
                  ["task=serve", "serve_dtype=int8"]):
         with pytest.raises(ValueError, match="ROADMAP"):

@@ -112,7 +112,8 @@ def test_wrappers_take_the_plain_version_on_cpu_and_count_nothing():
         fused_bias_act(y, b, "relu").numpy(),
         bias_act_plain(y, b, "relu").numpy())
     assert {k: v.launches for k, v in KERNELS.items()} == \
-        {"pool_fwd": 0, "epilogue_fwd": 0}
+        {k: 0 for k in ("pool_fwd", "pool_bwd", "epilogue_fwd",
+                        "epilogue_bwd", "bn_fwd", "bn_bwd", "sgd_apply")}
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take():
