@@ -12,7 +12,13 @@ and prints no result:
             for sm_90a (one nvcc per source, all at once).
 3. kernels: each kernel against its plain PyTorch version on the card,
             at the serving and training paths' shapes, in bf16, f16 and
-            f32, and at row counts the TPU kernels' gates refused.
+            f32, and at row counts the TPU kernels' gates refused; the
+            flash attention kernels (forward, dQ, dK/dV) in bf16 and
+            f32, causal and not, at S 2048 and the ragged 1000, head
+            widths 16, 64 and 128 (f32 within 2e-5 of max|plain|, bf16
+            one ulp plus 2e-5 of max|plain|, lse 1e-5 of max|lse|); the
+            Adam apply over the LM's and Inception-BN's parameter groups,
+            bit-equal.
 4. serve:   full-width Inception-BN (224x224x3, 69 batch_norm layers,
             1000 classes, bfloat16) with random weights drawn by numpy
             from ``--seed``, BN statistics calibrated on one seeded
@@ -52,6 +58,26 @@ and prints no result:
             leaf 0.15, BN statistics 1e-3. The written round is loaded
             and served a finite answer; the train step and each
             training kernel are timed.
+7. lm:      the long-context causal LM (``examples/LM/long_context_lm
+            .conf``: E 128, 8 heads of 16 with rope, ffn 512, S 2048,
+            batch 8, bf16, remat, Adam) trained through ``main.run``
+            for 4 steps (``num_inst`` cut to 32, weights from
+            ``--seed``), one round written. Launch counts, set to 0 just
+            before the first step and read after the run: per step 2
+            ``flash_fwd`` (remat runs the forward again), 1 each of
+            ``flash_bwd_dq`` and ``flash_bwd_dkv``, and one
+            ``adam_apply`` per tag group. Each bf16 step, and two float32
+            steps from the init, held against ``fused_kernels = 0`` from
+            the same state: the loss (LM_LOSS_TOL of max(1, |loss|)) and
+            each leaf's gradient (rel L2 LM_GRAD_TOL), except the k
+            projections' biases, whose gradient is zero analytically
+            and rounding noise in practice: their move in a step, in the
+            run and in the plain step, stays within 1.001 of the most an
+            Adam step can move an element. The written round loads and
+            gives finite log-probabilities; the LM step and each LM
+            kernel are timed beside bound, plain version and library
+            call (``F.scaled_dot_product_attention`` forward and
+            backward, ``torch.optim.Adam(fused=True)``).
 
 Then, on lines of their own: the card's name and power limit as
 ``nvidia-smi`` reports them, the kernels JSON line, and last
@@ -79,13 +105,17 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(ROOT, "examples", "ImageNet", "inception_bn.conf")
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and float32 FLOP/s
-# outside the tensor cores, where these elementwise kernels compute
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s
+# outside the tensor cores, and the bf16 tensor cores' dense FLOP/s (the
+# peak for attention's products on bf16 inputs)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 BUCKETS = (1, 8, 32)
 SERVE_KERNELS = ("pool_fwd", "epilogue_fwd")
+TRAIN_KERNELS = SERVE_KERNELS + ("pool_bwd", "epilogue_bwd", "bn_fwd",
+                                 "bn_bwd", "sgd_apply")
 #: a net whose batch_norm_no_ma normalizes with batch moments at eval
 NO_MA_NET = """
 netconfig = start
@@ -104,16 +134,21 @@ netconfig = end
 input_shape = 8,7,7
 compute_dtype = bfloat16
 """
+LM_CONF = os.path.join(ROOT, "examples", "LM", "long_context_lm.conf")
+#: the long-context LM's attention: (B, S, H, D, dtype, causal)
+LM_PATH_ATTN = (8, 2048, 8, 16, torch.bfloat16, True)
+LM_STEPS = 4            # batches of 8: num_inst cut from 256 to 32
 TRAIN_BATCH = 128       # the flagship's batch_size
 TRAIN_STEPS = 4         # 512 synthetic rows
 TRAIN_IMAGE, TRAIN_CLASSES = "3,224,224", 1000
 
 
-def bound_ms(nbytes: int, nops: int):
+def bound_ms(nbytes: int, nops: int, flops: float = F32_FLOPS):
     """Least time the card could take: the larger of bytes over the
-    memory rate and operations over the float32 rate."""
+    memory rate and operations over the peak rate for their type
+    (float32 by default)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / F32_FLOPS * 1e3
+    t_ops = nops / flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -187,7 +222,12 @@ def time_loop(fn, reps: int = 20) -> float:
 
 
 #: kernel-name fragments -> what the time is spent on (first match wins)
-_KINDS = (("pool_fwd_kernel", "pool kernel"), ("pool_bwd_kernel", "pool kernel"),
+_KINDS = (("flash_fwd_kernel", "flash fwd kernel"),
+          ("flash_bwd_dq_kernel", "flash dq kernel"),
+          ("flash_bwd_dkv_kernel", "flash dkv kernel"),
+          ("adam_apply_kernel", "adam kernel"), ("embedding", "embedding"),
+          ("nvjet", "matmul"),
+          ("pool_fwd_kernel", "pool kernel"), ("pool_bwd_kernel", "pool kernel"),
           ("epilogue_fwd_kernel", "epilogue kernel"),
           ("mask_copy", "epilogue kernel"), ("finalize_dbias", "epilogue kernel"),
           ("colsum_partials", "bn/epilogue sums kernel"),
@@ -227,19 +267,25 @@ def profile_calls(fn, n: int = 5, what: str = "forward") -> str:
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     span = spans[-1][1] - spans[0][0]
-    by_kind = {}
+    by_kind, other = {}, {}
     for e in kern:
         name = e.name.lower()
         kind = next((k for frag, k in _KINDS if frag in name), "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + e.device_time_total
+        if kind == "other":
+            other[e.name[:60]] = other.get(e.name[:60], 0.0) \
+                + e.device_time_total
     total = sum(by_kind.values())
     kinds = ", ".join(f"{k} {v / n / 1e3:.3f} ms ({100 * v / total:.1f}%)"
                       for k, v in sorted(by_kind.items(),
                                          key=lambda kv: -kv[1]))
+    top = "; ".join(f"{k} {v / n / 1e3:.3f} ms" for k, v in
+                    sorted(other.items(), key=lambda kv: -kv[1])[:3])
     return (f"{len(kern) / n:.0f} kernels per {what}, host {wall_ms:.3f} "
             f"ms per {what}, device busy {busy / n / 1e3:.3f} ms per {what}"
             f" = {100 * busy / span:.1f}% of the kernels' span (idle "
-            f"{100 - 100 * busy / span:.1f}%) | device time: {kinds}")
+            f"{100 - 100 * busy / span:.1f}%) | device time: {kinds}"
+            f" | largest other: {top}")
 
 
 # -- phase 1 ------------------------------------------------------------------
@@ -356,7 +402,6 @@ def flagship_shapes(conf: str):
     from cxxnet_tpu_torch.config import parse_config_file, split_sections
     from cxxnet_tpu_torch.graph import build_graph
     from cxxnet_tpu_torch.model import Network
-    from cxxnet_tpu_torch.optim import tag_for_param
     cfg, _ = split_sections(parse_config_file(conf))
     graph = build_graph(cfg)
     net = Network(graph, cfg, device="cpu")
@@ -365,10 +410,27 @@ def flagship_shapes(conf: str):
         if spec.type.startswith("batch_norm"):
             c, y, x = net.node_shapes[spec.nindex_in[0]]
             bn.append((TRAIN_BATCH * y * x, c))
+    return bn, param_groups(net)
+
+
+def param_groups(net):
+    """Parameter leaf shapes of ``net`` by tag group."""
+    from cxxnet_tpu_torch.optim import tag_for_param
     groups = {}
-    for (_, leaf), shape in net._expected()[0].items():
-        groups.setdefault(tag_for_param(leaf), []).append(shape)
-    return bn, groups
+    for path, shape in net._expected()[0].items():
+        groups.setdefault(tag_for_param(path[-1]), []).append(shape)
+    return groups
+
+
+def lm_shapes(conf: str):
+    """(the LM's network on the CPU, its parameter leaf shapes by tag
+    group) of the net config ``conf``."""
+    from cxxnet_tpu_torch.config import parse_config_file, split_sections
+    from cxxnet_tpu_torch.graph import build_graph
+    from cxxnet_tpu_torch.model import Network
+    cfg, _ = split_sections(parse_config_file(conf))
+    net = Network(build_graph(cfg), cfg, device="cpu")
+    return net, param_groups(net)
 
 
 def phase_train_kernels(gen: torch.Generator, conf: str) -> dict:
@@ -515,6 +577,123 @@ def phase_train_kernels(gen: torch.Generator, conf: str) -> dict:
         raise AssertionError("batch_norm_no_ma eval: " + lines[-1])
     print(f"kernels (train): {len(lines)} cases agree with the plain "
           "versions | " + " | ".join(lines), flush=True)
+    return path_err
+
+
+#: flash attention cases of phase 3: (B, H) per head width, the LM path's
+#: (8, 8) at D = 16 and fewer heads where D is wider
+FLASH_BH = {16: (8, 8), 64: (2, 4), 128: (2, 2)}
+#: sequence lengths of phase 3's flash cases: the path's, and a ragged one
+FLASH_S = (2048, 1000)
+
+
+def _flash_bad(got, want, dtype):
+    """(max abs error, whether it exceeds the bound): float32 2e-5 of
+    max|plain| (f32 sums over up to 2048 keys in another order);
+    bfloat16 one bf16 ulp of the value (2^-7 relative) plus 2e-5 of
+    max|plain| (the same f32 sums, then one rounding each side)."""
+    err = (got.float() - want.float()).abs()
+    top = want.float().abs().max().item()
+    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    return err.max().item(), bool(
+        (err > rel * want.float().abs() + 2e-5 * top).any())
+
+
+def flash_case(gen, B, S, H, D, dtype, causal):
+    """The three flash kernels against their plain versions on one
+    seeded case; the backward kernels get the plain forward's output and
+    lse, as their plain versions do. Returns {kernel: max abs error}."""
+    from cxxnet_tpu_torch.ops import attention as att
+    dev = gen.device
+    q, k, v, g = (torch.randn((B, S, H, D), generator=gen, device=dev)
+                  .to(dtype) for _ in range(4))
+    scale = D ** -0.5
+    out, lse = att.flash_fwd(q, k, v, causal, scale)
+    out0, lse0 = att.flash_fwd_plain(q, k, v, causal, scale)
+    delta = att.flash_delta(out0, g)
+    args = (q, k, v, g, lse0, delta, causal, scale)
+    dq, dq0 = att.flash_bwd_dq(*args), att.flash_bwd_dq_plain(*args)
+    (dk, dv), (dk0, dv0) = att.flash_bwd_dkv(*args), \
+        att.flash_bwd_dkv_plain(*args)
+    torch.cuda.synchronize()
+    errs, bad = {}, []
+    for name, pairs in (("flash_fwd", [(out, out0)]),
+                        ("flash_bwd_dq", [(dq, dq0)]),
+                        ("flash_bwd_dkv", [(dk, dk0), (dv, dv0)])):
+        e = 0.0
+        for got, want in pairs:
+            m, b = _flash_bad(got, want, dtype)
+            e = max(e, m)
+            if b:
+                bad.append(name)
+        errs[name] = e
+    lse_err = (lse - lse0).abs().max().item()
+    if lse_err > 1e-5 * lse0.abs().max().item():
+        bad.append("flash_fwd lse")
+    errs["lse"] = lse_err
+    return errs, bad
+
+
+def phase_lm_kernels(gen: torch.Generator, conf: str) -> dict:
+    """The LM path's kernels against their plain versions: flash
+    attention forward, dQ and dK/dV in bf16 and f32, causal and not, at
+    S 2048 (the path's) and 1000 (a ragged edge the TPU kernel refused),
+    head widths 16 (the path's), 64 and 128; the Adam apply over the LM's
+    parameter groups and over Inception-BN's, exact. Returns the largest
+    error per kernel at the path's shape."""
+    from cxxnet_tpu_torch.ops.fused_optim import (adam_apply_plain,
+                                                  fused_adam_apply)
+    dev = gen.device
+    path_err, lines = {}, []
+    for dt in (torch.bfloat16, torch.float32):
+        for causal in (True, False):
+            for S in FLASH_S:
+                for D in sorted(FLASH_BH):
+                    B, H = FLASH_BH[D]
+                    errs, bad = flash_case(gen, B, S, H, D, dt, causal)
+                    lines.append(
+                        f"flash ({B},{S},{H},{D}) {str(dt)[6:]} causal="
+                        f"{int(causal)}: fwd {errs['flash_fwd']:.3g} lse "
+                        f"{errs['lse']:.3g} dq {errs['flash_bwd_dq']:.3g} "
+                        f"dkv {errs['flash_bwd_dkv']:.3g}")
+                    if bad:
+                        raise AssertionError(
+                            f"flash kernels disagree ({bad}; tol f32 2e-5 "
+                            "of max|plain|, bf16 one ulp + 2e-5 of max|plain|"
+                            ", lse 1e-5 of max|lse|): " + lines[-1])
+                    if (B, S, H, D, dt, causal) == LM_PATH_ATTN:
+                        path_err.update({k: v for k, v in errs.items()
+                                         if k != "lse"})
+    for what, groups in (("LM", lm_shapes(conf)[1]),
+                         ("Inception-BN", flagship_shapes(FLAGSHIP)[1])):
+        for tag, shapes in sorted(groups.items()):
+            rnd = lambda sh, sc=1.0: torch.randn(sh, generator=gen,
+                                                 device=dev) * sc
+            ws = [rnd(sh) for sh in shapes]
+            gs = [rnd(sh) for sh in shapes]
+            gs[0].view(-1)[::7] = float("nan")
+            m1 = [rnd(sh, 0.1) for sh in shapes]
+            m2 = [rnd(sh, 0.1).abs() for sh in shapes]
+            wd, clip = (1e-4, 0.0) if tag == "wmat" else (0.0, 0.5)
+            want = adam_apply_plain(ws, gs, m1, m2, 1e-3, 0.1, 0.001, wd,
+                                    clip)
+            fused_adam_apply(ws, gs, m1, m2, 1e-3, d1=0.1, d2=0.001, wd=wd,
+                             clip=clip)
+            torch.cuda.synchronize()
+            err = max((a - b).abs().max().item() for a, b in
+                      zip(ws + m1 + m2, sum(want, [])))
+            lines.append(f"adam_apply {what} {tag} group ({len(shapes)} "
+                         f"leaves, {sum(int(np.prod(sh)) for sh in shapes)} "
+                         f"params, wd {wd}, clip {clip}): max_abs_err "
+                         f"{err:.3g} (tol 0: the same rounded f32 ops)")
+            if err != 0.0:
+                raise AssertionError("adam apply kernel disagrees: "
+                                     + lines[-1])
+            if what == "LM":
+                path_err["adam_apply"] = max(path_err.get("adam_apply", 0.0),
+                                             err)
+    print(f"kernels (LM): {len(lines)} cases agree with the plain versions"
+          " | " + " | ".join(lines), flush=True)
     return path_err
 
 
@@ -903,8 +1082,8 @@ def phase_train(conf: str, seed: int, tmp: str):
     want = {"bn_fwd": n_bn * steps, "bn_bwd": n_bn * steps,
             "sgd_apply": 2 * steps}
     bad = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
-    bad.update({k: (n, f">= {steps}") for k, n in launches.items()
-                if k not in want and n < steps})
+    bad.update({k: (launches[k], f">= {steps}") for k in TRAIN_KERNELS
+                if k not in want and launches[k] < steps})
     if bad:
         raise AssertionError(f"launches (got, want) per kernel: {bad}")
     losses = box["losses"]
@@ -1081,8 +1260,7 @@ def phase_train_times(tr, plain, batches, gen) -> dict:
     ws = [v.detach().clone() for d in tr.params.values() for v in d.values()]
     gs = [torch.randn_like(w) for w in ws]
     ms = [torch.zeros_like(w) for w in ws]
-    table = fused_optim._table(ws, gs, ms)
-    nblk = (table.numel() - 4 * len(ws)) // 2
+    table, nblk = fused_optim._table(ws, gs, ms)
     stream = lambda: stream_handle(dev)
     nparam = sum(w.numel() for w in ws)
     tparams = [w.clone().requires_grad_(True) for w in ws]
@@ -1168,6 +1346,343 @@ def phase_train_times(tr, plain, batches, gen) -> dict:
             "kernels": rows}
 
 
+# -- phase 7 ------------------------------------------------------------------
+
+#: bounds of the LM phase, kernels against fused_kernels = 0 from the
+#: same state (readings in PERF.md section 2): the loss relative to
+#: max(1, |loss|), and each parameter leaf's gradient as a relative L2
+#: difference; per dtype
+LM_LOSS_TOL = {"bfloat16": 1e-4, "float32": 1e-6}
+LM_GRAD_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
+
+
+def lm_cfg(seed: int, model_dir: str, extra=()):
+    """The long-context LM's config as ``python -m cxxnet_tpu_torch.main``
+    reads it, its data section's ``num_inst`` cut from 256 to LM_STEPS
+    batches of 8 (a cut of depth only), weights drawn from ``seed``."""
+    from cxxnet_tpu_torch.config import (parse_cli_overrides,
+                                         parse_config_file, split_sections)
+    glob, sections = split_sections(parse_config_file(LM_CONF))
+    data = [p for kind, _, p in sections if kind == "data"][0]
+    data = [(k, str(8 * LM_STEPS) if k == "num_inst" else v)
+            for k, v in data]
+    return (glob + [("data", "train")] + data + [("iter", "end")]
+            + parse_cli_overrides([
+                "task=train", "num_round=1", f"model_dir={model_dir}",
+                "save_model=1", "print_step=1", f"seed={seed}", *extra]))
+
+
+def _paths(tree):
+    from cxxnet_tpu_torch.optim import leaves
+    return dict(leaves(tree))
+
+
+def _is_k_bias(path):
+    return len(path) == 3 and path[1:] == ("k", "bias")
+
+
+def _grad_rels(got, want):
+    """Per parameter leaf (the k biases aside), the relative L2
+    difference of two gradient trees, as (rel, leaf) pairs."""
+    g, w = _paths(got), _paths(want)
+    return [(float((g[p] - w[p]).norm() / w[p].norm().clamp_min(1e-30)),
+             "/".join(p)) for p in w if not _is_k_bias(p)]
+
+
+def adam_step_bound(lr: float, t: int, d1: float, d2: float) -> float:
+    """The most one Adam step t can move an element: lr times the
+    Cauchy-Schwarz bound sqrt(sum_i a_i^2 / b_i) of |m1_hat| /
+    sqrt(m2_hat), with a_i and b_i the weights of gradient i in the
+    bias-corrected moments (1 at t = 1, 1.007 at t = 4 for d1 0.1 and d2
+    0.001). A leaf whose gradient is rounding noise moves this far at
+    most, in either direction."""
+    i = np.arange(1, t + 1)
+    a = d1 * (1 - d1) ** (t - i) / (1 - (1 - d1) ** t)
+    b = d2 * (1 - d2) ** (t - i) / (1 - (1 - d2) ** t)
+    return lr * float(np.sqrt(np.sum(a * a / b)))
+
+
+def _k_bias_moves(params, before, opt, epoch):
+    """Largest move of a k bias in step ``epoch + 1`` over the most an
+    Adam step can move it (:func:`adam_step_bound`)."""
+    h = opt.hypers["bias"]
+    bound = adam_step_bound(opt.schedules(epoch)["bias"][0], epoch + 1,
+                            h.beta1_decay, h.beta2_decay)
+    p, b = _paths(params), _paths(before)
+    return max(float((p[k].detach().cpu() - torch.as_tensor(b[k]))
+                     .abs().max()) / bound for k in b if _is_k_bias(k))
+
+
+def lm_step_check(kern, plain, snap, batch, epoch, dtype):
+    """One step's gradients with the kernels and with fused_kernels = 0
+    from the same state: (loss difference of max(1, |loss|), per-leaf
+    gradient rel L2 pairs, the plain step's k-bias move over its bound,
+    loss)."""
+    got = []
+    for t in (kern, plain):
+        _load(t, snap, epoch)
+        loss, _, _, grads = t.gradients(batch)
+        got.append((float(loss.detach()), grads))
+    (lk, gk), (lp, gp) = got
+    plain.optimizer.update(plain.params, gp, plain.opt_state,
+                           plain.optimizer.schedules(epoch))
+    return (abs(lk - lp) / max(1.0, abs(lp)), _grad_rels(gk, gp),
+            _k_bias_moves(plain.params, snap[0], plain.optimizer, epoch),
+            lk)
+
+
+def phase_lm(seed: int, tmp: str):
+    """Train the long-context LM through main.run (LM_STEPS steps of
+    batch 8 at S 2048, bf16, remat, Adam), check the launches, hold
+    each step against fused_kernels = 0 from the same state, then two
+    f32 steps likewise, and load the written round. Returns (the run's
+    trainer, a bf16 kernel trainer and its fused_kernels = 0 twin,
+    batches, launches, notes)."""
+    from cxxnet_tpu_torch import checkpoint as ckpt
+    from cxxnet_tpu_torch.config import split_sections
+    from cxxnet_tpu_torch.convert import params_from_jax
+    from cxxnet_tpu_torch.io import create_iterator
+    from cxxnet_tpu_torch.main import run
+    from cxxnet_tpu_torch.model import Network
+    from cxxnet_tpu_torch.ops import KERNELS, reset_launches
+    from cxxnet_tpu_torch.trainer import Trainer
+    model_dir = os.path.join(tmp, "lm")
+    cfg = lm_cfg(seed, model_dir)
+    box = {"losses": [], "before": []}
+
+    def on_step(tr):
+        box["losses"].append(tr.last_loss)
+        box["before"].append(_snap(tr))
+
+    def ready(tr):
+        box["before"].append(_snap(tr))
+        tr.step_hook = on_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()                  # just before the first step
+        box["t0"] = time.perf_counter()
+
+    tr = run(cfg, ready=ready)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in KERNELS.values()}
+    took = time.perf_counter() - box["t0"]
+    peak = torch.cuda.max_memory_allocated()
+    tr.step_hook = None
+    g = tr.graph
+    mha = [l for l in tr.net.layers if l.spec.type == "mha"]
+    c, _, S = g.input_shape
+    B = int(dict(tr.cfg)["batch_size"])
+    E = tr.net.node_shapes[mha[0].spec.nindex_in[0]][0]
+    attn = (B, S, mha[0].nhead, E // mha[0].nhead, tr.net.compute_dtype,
+            mha[0].causal)
+    steps = len(box["losses"])
+    if attn != LM_PATH_ATTN or steps != LM_STEPS or not tr.net.remat:
+        raise AssertionError(f"LM path {attn}, {steps} steps, remat "
+                             f"{tr.net.remat}")
+    groups = len(tr.optimizer._groups(tr.params))
+    want = {"flash_fwd": 2 * len(mha) * steps,
+            "flash_bwd_dq": len(mha) * steps,
+            "flash_bwd_dkv": len(mha) * steps,
+            "adam_apply": groups * steps}
+    bad = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+    if bad:
+        raise AssertionError(f"LM launches (got, want) per kernel: {bad}")
+    losses = box["losses"]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite LM loss: {losses}")
+
+    glob, sections = split_sections(cfg)
+    data = [p for kind, _, p in sections if kind == "data"][0]
+    batches = list(create_iterator(glob + data))
+    quiet = [("silent", "1")]
+    checks = {}
+    for dt in ("bfloat16", "float32"):
+        pol = quiet + [("compute_dtype", dt)]
+        kern = Trainer(glob + pol)
+        plain = Trainer(glob + pol + [("fused_kernels", "0")])
+        snaps = box["before"][:steps] if dt == "bfloat16" else []
+        if dt == "float32":               # two f32 steps from the init
+            kern.init_model((box["before"][0][0], box["before"][0][2]))
+            for b in batches[:2]:
+                snaps.append(_snap(kern))
+                kern.update(b)
+        rows = []
+        for i, b in enumerate(batches[:len(snaps)]):
+            dl, rels, kmove, lk = lm_step_check(kern, plain, snaps[i], b,
+                                                i, dt)
+            rows.append((dl, float(np.median([r for r, _ in rels])),
+                         max(rels), kmove, lk))
+        checks[dt] = rows
+        if dt == "bfloat16":
+            kern_lm, plain_lm = kern, plain
+        else:
+            del kern, plain
+    # the run's own steps: each k bias moved at most its Adam step bound
+    run_kmove = max(_k_bias_moves(_unflat_np(after[0]),
+                                  box["before"][i][0], tr.optimizer, i)
+                    for i, after in enumerate(box["before"][1:]))
+    fails = [f"{dt} step {i + 1}: {row}" for dt, rows in checks.items()
+             for i, row in enumerate(rows)
+             if row[0] > LM_LOSS_TOL[dt] or row[2][0] > LM_GRAD_TOL[dt]
+             or row[3] > 1 + 1e-3]
+    if run_kmove > 1 + 1e-3:
+        fails.append(f"the run's k bias moved {run_kmove} of the bound")
+    if fails:
+        raise AssertionError("LM kernels vs fused_kernels=0 from the same "
+                             f"state (tol loss {LM_LOSS_TOL}, gradient "
+                             f"{LM_GRAD_TOL}, k bias 1 + 1e-3 of the Adam "
+                             f"step bound): {fails}")
+
+    # the written round loads in the port and gives finite log-probs
+    path = ckpt.model_path(model_dir, 0)
+    blob = ckpt.load_for_inference(path)
+    net = Network(tr.graph, [kv for kv in glob if kv[0] != "task"])
+    ckpt.check_structure(blob["meta"], tr.graph.structure_signature())
+    net.load_weights(*params_from_jax(blob["params"], blob["state"]))
+    x = torch.from_numpy(batches[0].data).to(net.device)
+    logp = net(x).out.float()
+    norm = torch.logsumexp(logp, dim=-1).abs().max().item()
+    if not bool(torch.isfinite(logp).all()) or norm > 1e-3:
+        raise AssertionError(f"the written round's log-probabilities: "
+                             f"finite {bool(torch.isfinite(logp).all())}, "
+                             f"|logsumexp| {norm}")
+    n_params = sum(v.numel() for v in _paths(tr.params).values())
+    fmt = lambda rows: [(f"{dl:.2g}", f"{md:.2g}", f"{w[0]:.2g} {w[1]}",
+                         f"{km:.2g}") for dl, md, w, km, _ in rows]
+    print(f"lm: {steps} steps of the long-context LM (E 128, 8 heads of "
+          f"16, S 2048, batch 8, bf16, remat, Adam) through main.run in "
+          f"{took:.1f}s with the round written | losses "
+          f"{[round(v, 4) for v in losses]} | launches "
+          f"{ {k: launches[k] for k in want} } (per step: flash_fwd "
+          f"{launches['flash_fwd'] // steps}, flash_bwd_dq "
+          f"{launches['flash_bwd_dq'] // steps}, flash_bwd_dkv "
+          f"{launches['flash_bwd_dkv'] // steps}, adam_apply "
+          f"{launches['adam_apply'] // steps} for {groups} tag groups) | "
+          f"vs fused_kernels=0 from the same state, per step (loss diff of "
+          f"max(1,|loss|), gradient rel L2 median, worst leaf, k-bias move "
+          f"of the plain step over the Adam step bound): bf16 "
+          f"{fmt(checks['bfloat16'])}, f32 "
+          f"{fmt(checks['float32'])} (tol loss {LM_LOSS_TOL}, gradient "
+          f"{LM_GRAD_TOL}, k bias 1.001) | the run's k-bias move "
+          f"{run_kmove:.3g} of the bound | round {os.path.basename(path)} "
+          f"loads, "
+          f"finite log-probs (|logsumexp| {norm:.2g}) | {n_params} "
+          f"parameters | peak memory {peak / 2**30:.2f} GiB", flush=True)
+    return tr, kern_lm, plain_lm, batches, launches, {
+        "losses": losses, "checks": checks, "params": n_params,
+        "peak_gib": peak / 2**30, "seconds": took,
+        "run_k_bias_move": run_kmove}
+
+
+def _unflat_np(tree):
+    from cxxnet_tpu_torch.optim import leaves, unflatten
+    return unflatten((p, torch.as_tensor(v)) for p, v in leaves(tree))
+
+
+def phase_lm_times(tr, kern, plain, batches, gen) -> dict:
+    """CUDA-event times of an LM train step with the kernels and with
+    fused_kernels = 0 (from the same state, one host batch), and of each
+    LM kernel at the path's shape beside its bound, its plain version
+    and one PyTorch library call computing the same function; the Adam
+    apply also at Inception-BN's size."""
+    import torch.nn.functional as F
+    from cxxnet_tpu_torch.ops import attention as att
+    from cxxnet_tpu_torch.ops import fused_optim
+    from cxxnet_tpu_torch.ops.fused import stream_handle
+    b0 = batches[0]
+    snap = _snap(tr)
+    _load(kern, snap, 0)
+    _load(plain, snap, 0)
+    step_ms = time_forward(lambda: kern.update(b0), reps=10)
+    step_plain = time_forward(lambda: plain.update(b0), reps=10)
+    prof = {}
+    for who, t in (("kernels", kern), ("fused_kernels=0", plain)):
+        prof[who] = profile_calls(lambda: t.update(b0), 3, "step")
+        print(f"profile: LM train step, {who}: {prof[who]}", flush=True)
+    dev = tr.device
+    B, S, H, D, dt, causal = LM_PATH_ATTN
+    q, k, v, g = (torch.randn((B, S, H, D), generator=gen, device=dev)
+                  .to(dt) for _ in range(4))
+    scale = D ** -0.5
+    out, lse = att.flash_fwd(q, k, v, causal, scale)
+    delta = att.flash_delta(out, g)
+    args = (q, k, v, g, lse, delta, causal, scale)
+    qh, kh, vh, gh = (t.transpose(1, 2).contiguous() for t in (q, k, v, g))
+    qh, kh, vh = (t.requires_grad_(True) for t in (qh, kh, vh))
+    oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
+    sdpa_bwd = time_loop(lambda: torch.autograd.grad(
+        oh, (qh, kh, vh), gh, retain_graph=True))
+    el, rows_ = B * S * H * D, B * H * S
+    pairs = B * H * S * S // 2 if causal else B * H * S * S
+    rows = {
+        "flash_fwd": dict(
+            ms=time_call(lambda: att.flash_fwd(q, k, v, causal, scale)),
+            plain_ms=time_loop(lambda: att.flash_fwd_plain(q, k, v, causal,
+                                                           scale)),
+            library_ms=time_call(lambda: F.scaled_dot_product_attention(
+                qh.detach(), kh.detach(), vh.detach(), is_causal=causal)),
+            bound=bound_ms(4 * el * 2 + 4 * rows_, 2 * 2 * pairs * D,
+                           BF16_FLOPS),
+            library="F.scaled_dot_product_attention forward"),
+        "flash_bwd_dq": dict(
+            ms=time_call(lambda: att.flash_bwd_dq(*args)),
+            plain_ms=time_loop(lambda: att.flash_bwd_dq_plain(*args)),
+            library_ms=sdpa_bwd,
+            bound=bound_ms(5 * el * 2 + 8 * rows_, 3 * 2 * pairs * D,
+                           BF16_FLOPS),
+            library="SDPA backward (dq, dk and dv together)"),
+        "flash_bwd_dkv": dict(
+            ms=time_call(lambda: att.flash_bwd_dkv(*args)),
+            plain_ms=time_loop(lambda: att.flash_bwd_dkv_plain(*args)),
+            library_ms=sdpa_bwd,
+            bound=bound_ms(6 * el * 2 + 8 * rows_, 4 * 2 * pairs * D,
+                           BF16_FLOPS),
+            library="SDPA backward (dq, dk and dv together)"),
+    }
+    for r in rows.values():
+        r["shape"] = (f"(B {B}, S {S}, H {H}, D {D}) {str(dt)[6:]} "
+                      f"causal={int(causal)}")
+
+    def adam_row(ws, what):
+        gs = [torch.randn_like(w) for w in ws]
+        m1 = [torch.zeros_like(w) for w in ws]
+        m2 = [torch.zeros_like(w) for w in ws]
+        table, nblk = fused_optim._table(ws, gs, m1, m2)
+        n = sum(w.numel() for w in ws)
+        tparams = [w.clone().requires_grad_(True) for w in ws]
+        for t, gg in zip(tparams, gs):
+            t.grad = gg
+        adam = torch.optim.Adam(tparams, lr=1e-3, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=1e-4, fused=True)
+        return dict(
+            ms=time_call(lambda: fused_optim.ADAM_APPLY.launch(
+                table.data_ptr(), len(ws), nblk, fused_optim.CHUNK, 1e-3,
+                0.1, 0.001, 1e-4, 0.0, stream_handle(dev))),
+            plain_ms=time_call(lambda: fused_optim.adam_apply_plain(
+                ws, gs, m1, m2, 1e-3, 0.1, 0.001, 1e-4, 0.0)),
+            library_ms=time_loop(adam.step),
+            bound=bound_ms(28 * n, 12 * n),
+            shape=f"{what}: all {len(ws)} leaves, {n} params, f32, one "
+                  "launch",
+            library="torch.optim.Adam(fused=True).step()")
+    rows["adam_apply"] = adam_row(
+        [v.detach().clone() for v in _paths(tr.params).values()], "LM")
+    ibn = adam_row([torch.randn(sh, generator=gen, device=dev)
+                    for shapes in flagship_shapes(FLAGSHIP)[1].values()
+                    for sh in shapes], "Inception-BN")
+    line = lambda k, r: (f"{k} {r['shape']}: {r['ms'] * 1e3:.2f} us, bound "
+                         f"{r['bound'][0] * 1e3:.2f} us ({r['bound'][1]}), "
+                         f"plain {r['plain_ms'] * 1e3:.2f} us, "
+                         f"{r['library']} {r['library_ms'] * 1e3:.2f} us")
+    print(f"times (LM): train step {step_ms:.3f} ms, fused_kernels=0 "
+          f"{step_plain:.3f} ms (one batch of 8 x 2048 tokens from the host, "
+          "CUDA events, median of 10) | "
+          + " | ".join(line(k, r) for k, r in rows.items())
+          + " | " + line("adam_apply", ibn), flush=True)
+    return {"step_ms": step_ms, "step_plain_ms": step_plain,
+            "kernels": rows, "adam_ibn": ibn, "profile": prof}
+
+
 # -- main ---------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -1188,6 +1703,7 @@ def main(argv=None) -> int:
     phase_build()
     errs = phase_kernels(gen)
     errs.update(phase_train_kernels(gen, args.conf))
+    errs.update(phase_lm_kernels(gen, LM_CONF))
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         model = write_round(args.conf, args.seed, tmp, torch.device("cuda"))
@@ -1217,13 +1733,21 @@ def main(argv=None) -> int:
     del tr, plain_tr
     torch.cuda.empty_cache()
     f32 = phase_train_f32(batches, notes["init"], glob)
+    with tempfile.TemporaryDirectory() as tmp:
+        tr, kern, plain_tr, lm_batches, lm_launches, lm_notes = phase_lm(
+            args.seed, tmp)
+    lm_times = phase_lm_times(tr, kern, plain_tr, lm_batches, gen)
+    del tr, kern, plain_tr
+    torch.cuda.empty_cache()
     kernels = []
     for name, k in KERNELS.items():
-        r = train_times["kernels"][name]
+        lm = name in lm_times["kernels"]
+        r = (lm_times if lm else train_times)["kernels"][name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"cxxnet_tpu_torch/csrc/{k.source}",
-            "replaces": k.replaces, "launches": launches[name],
+            "replaces": k.replaces,
+            "launches": (lm_launches if lm else launches)[name],
             "max_abs_err": errs[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
@@ -1238,6 +1762,12 @@ def main(argv=None) -> int:
               "train_step_plain_ms": train_times["step_plain_ms"],
               "train": {k: v for k, v in notes.items() if k != "init"},
               "train_f32": f32,
+              "lm_step_ms": lm_times["step_ms"],
+              "lm_step_plain_ms": lm_times["step_plain_ms"],
+              "lm": lm_notes, "lm_profile": lm_times["profile"],
+              "adam_inception_bn": {kk: vv for kk, vv in
+                                    lm_times["adam_ibn"].items()
+                                    if kk != "bound"},
               "card": smi_line, "seconds": time.perf_counter() - t_start}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)

@@ -2,8 +2,11 @@
 
 The port's own copy of the format of ``cxxnet_tpu/checkpoint.py``: one
 npz archive of flattened arrays, ``params/<layer>/<leaf>`` and
-``state/<layer>/<leaf>``, plus ``opt/mom/<layer>/<leaf>`` in training
-rounds (``has_opt``; an inference load never decompresses them), and a
+``state/<layer>/<leaf>`` (deeper where a layer's tree nests, as
+``params/attn1/q/wmat``), plus the optimizer state in training rounds
+(``has_opt``: ``opt/mom/...`` for SGD, ``opt/m1/...``, ``opt/m2/...``
+and the int32 ``opt/t`` for Adam; an inference load never decompresses
+them), and a
 ``__meta__`` JSON blob with the structure signature, the round, epoch
 and step counters and a per-array sha256 digest map. Loads verify the
 digests and raise :class:`CheckpointCorrupt` on a mismatch or a torn
@@ -73,7 +76,7 @@ def save_model(path: str, *, structure_sig: tuple, round_counter: int,
                opt_state: Any = None, step_count: int = 0,
                lr_scale: float = 1.0) -> None:
     """Write a round. ``params``, ``net_state`` and ``opt_state`` (a
-    training round's ``{"mom": tree}``; None for an inference round)
+    training round's optimizer state; None for an inference round)
     are trees of arrays in the JAX package's layout. The file appears
     atomically (temp file, fsync, rename)."""
     arrays: Dict[str, np.ndarray] = {}

@@ -208,8 +208,6 @@ TRAIN_NOT_YET = {
                  _A3 + "continue = 1 and finetune"),
     "model_in": (lambda v: v.strip() == "NULL",
                  _A3 + "continue = 1 and finetune (start from a round)"),
-    "updater": (lambda v: v.strip() in ("sgd", "nag"),
-                _A3 + "Adam, Queue B row 12b"),
     "compute_dtype": (lambda v: _DTYPE_NAMES.get(v.strip().lower())
                       != "float16", _A3 + "the fp16 loss scaler"),
     "update_period": (lambda v: _same_value(v, "1"), _A3 + "update_period"),

@@ -7,9 +7,11 @@ PyTorch's layout. Everything else is the same in both: fullc ``wmat``
 ``(in, out)``, biases and batch-norm ``wmat``/``bias``/``running_exp``/
 ``running_var`` ``(C,)``. A conv weight is the one 4-D ``wmat`` leaf.
 
-The SGD optimizer state ``{"mom": tree}`` has the params' layout, and
-its conv momenta are transposed the same way (:func:`opt_from_jax`,
-:func:`opt_to_jax`).
+Trees nest to any depth (an attention layer's ``params[layer][q][wmat]``
+is 3-D ``(E, H, D)``, not a conv weight). The optimizer state, SGD's
+``{"mom": tree}`` or Adam's ``{"m1": tree, "m2": tree, "t": step}``, has
+the params' layout, and its conv moments are transposed the same way
+(:func:`opt_from_jax`, :func:`opt_to_jax`).
 
 Weights move between the packages this way or through a checkpoint
 (checkpoint.py reads and writes the JAX layout), never through seeds:
@@ -58,12 +60,15 @@ def params_to_jax(params: Dict, state: Dict) -> Tuple[Dict, Dict]:
 
 
 def opt_from_jax(opt_np: Dict) -> Dict:
-    """JAX-layout ``{"mom": tree}`` -> port layout (float32 CPU tensors,
-    conv momenta OIHW)."""
-    return {"mom": params_from_jax(opt_np["mom"], {})[0]}
+    """JAX-layout optimizer state -> port layout: SGD's ``{"mom": tree}``
+    or Adam's ``{"m1": tree, "m2": tree, "t": step}``, the trees as
+    float32 CPU tensors (conv moments OIHW), ``t`` an int32 scalar."""
+    return {k: torch.as_tensor(np.asarray(v, np.int32)) if k == "t"
+            else params_from_jax(v, {})[0] for k, v in opt_np.items()}
 
 
 def opt_to_jax(opt: Dict) -> Dict:
-    """Port ``{"mom": tree}`` (tensors on any device) -> JAX layout
-    (float32 numpy, conv momenta HWIO)."""
-    return {"mom": params_to_jax(opt["mom"], {})[0]}
+    """Port optimizer state (tensors on any device) -> JAX layout
+    (float32 numpy trees, conv moments HWIO; ``t`` int32)."""
+    return {k: np.asarray(v.cpu().numpy(), np.int32) if k == "t"
+            else params_to_jax(v, {})[0] for k, v in opt.items()}

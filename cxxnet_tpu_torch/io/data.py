@@ -75,9 +75,9 @@ def register_iter(*names: str):
 def create_iterator(cfg: ConfigPairs) -> DataIter:
     """Build an iterator from one config section: each ``iter = <type>``
     entry names an iterator (``end`` closes the section); every other
-    pair is passed to it. The port reads ``synthetic`` only; the other
-    iterator types, chains and the keys of ``NOT_YET_KEYS`` raise naming
-    ROADMAP Queue A 2."""
+    pair is passed to it. The port reads ``synthetic`` and
+    ``synthetic_lm`` only; the other iterator types, chains and the keys
+    of ``NOT_YET_KEYS`` raise naming ROADMAP Queue A 2."""
     from . import proc  # noqa: F401  (populate registry)
     kinds = [v for k, v in cfg if k == "iter" and v != "end"]
     params = [(k, v) for k, v in cfg if k != "iter"]
@@ -91,7 +91,8 @@ def create_iterator(cfg: ConfigPairs) -> DataIter:
         if kind not in ITER_REGISTRY:
             raise ConfigError(
                 f"iter = {kind}: the PyTorch port reads iter = synthetic "
-                "only so far (ROADMAP Queue A 2, the input pipeline)")
+                "and synthetic_lm only so far (ROADMAP Queue A 2, the "
+                "input pipeline)")
     if len(kinds) > 1:
         raise ConfigError(
             f"iterator chain {kinds}: chains of iterators are not in the "

@@ -1,8 +1,9 @@
 """In-memory iterators (the port of part of ``cxxnet_tpu/io/proc.py``):
-the sequential batch cursor with tail padding and the ``synthetic``
-gaussian-cluster classification data.
+the sequential batch cursor with tail padding, the ``synthetic``
+gaussian-cluster classification data and the ``synthetic_lm`` token
+sequences.
 
-The synthetic draw is the JAX package's, line for line, so the same
+The synthetic draws are the JAX package's, line for line, so the same
 ``seed_data`` gives bit-equal data and labels and the same batches in
 the same order. The JAX iterators' data-service sharding keys
 (``dist_num_worker``, ``dist_worker_rank``, ``data_gen_seed``) are not
@@ -86,5 +87,53 @@ class SyntheticIterator(_InMemoryIterator):
                 .transpose(0, 2, 3, 1).copy()
         self.labels = np.tile(lab.astype(np.float32)[:, None],
                               (1, self.label_width))
+        self._finalize_rows()
+        self.before_first()
+
+
+@register_iter("synthetic_lm")
+class SyntheticLMIterator(_InMemoryIterator):
+    """Token sequences for language models: ``num_inst`` rows of
+    ``seq_len`` uniform token ids below ``vocab_size`` as a flat
+    ``(n, 1, 1, seq_len)`` float node. Labels are ``(token_t + token_0)
+    mod vocab_size`` (``lm_task = add0``: solvable only by attending
+    back to position 0) or the tokens themselves (``lm_task = copy``)."""
+
+    def set_param(self, name, val):
+        if name == "num_inst":
+            self.num_inst = int(val)
+        elif name == "batch_size":
+            self.batch_size = int(val)
+        elif name == "vocab_size":
+            self.vocab_size = int(val)
+        elif name == "seq_len":
+            self.seq_len = int(val)
+        elif name == "seed_data":
+            self.seed = int(val)
+        elif name == "lm_task":
+            if val not in ("add0", "copy"):
+                raise ValueError(f"unknown lm_task {val!r}")
+            self.lm_task = val
+
+    def __init__(self, cfg):
+        self.num_inst = 512
+        self.batch_size = 32
+        self.vocab_size = 32
+        self.seq_len = 64
+        self.seed = 11
+        self.lm_task = "add0"
+        super().__init__(cfg)
+
+    def init(self):
+        rng = np.random.RandomState(self.seed)
+        toks = rng.randint(0, self.vocab_size,
+                           size=(self.num_inst, self.seq_len))
+        if self.lm_task == "copy":
+            lab = toks
+        else:
+            lab = (toks + toks[:, :1]) % self.vocab_size
+        self.data = toks.astype(np.float32) \
+            .reshape(self.num_inst, 1, 1, self.seq_len)
+        self.labels = lab.astype(np.float32)
         self._finalize_rows()
         self.before_first()

@@ -1,4 +1,4 @@
-"""Evaluation metrics: rmse, error, logloss, rec@n.
+"""Evaluation metrics: rmse, error, logloss, rec@n, seq_error.
 
 The port's own copy of ``cxxnet_tpu/metrics.py``: metrics accumulate
 (sum, count) host-side over numpy prediction/label slices; padded rows
@@ -99,10 +99,22 @@ class MetricRecall(Metric):
         self.cnt += n
 
 
+class MetricSeqError(Metric):
+    """Per-token classification error for sequence models: pred is the
+    flattened (n, S*V) per-token scores, label is (n, S) token ids (V
+    inferred as pred_cols // label_cols)."""
+
+    def add(self, pred, label):
+        n, S = label.shape
+        V = pred.shape[1] // S
+        guess = np.argmax(pred.reshape(n, S, V), axis=2)
+        self.sum += float(np.sum(guess != label.astype(np.int64)))
+        self.cnt += n * S
+
+
 def create_metric(name: str, label_field: str) -> Metric:
     if name == "seq_error":
-        raise ValueError("metric seq_error: sequence models are not in the "
-                         "PyTorch port yet (ROADMAP Queue A 8)")
+        return MetricSeqError(name, label_field)
     if name == "rmse":
         return MetricRMSE(name, label_field)
     if name == "error":

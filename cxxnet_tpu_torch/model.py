@@ -6,8 +6,15 @@ DAG, the activation-fold plan, init from an explicit
 :meth:`Network.apply`, the differentiable training pass.
 Parameters and layer state are kept as ``params[layer][leaf]`` /
 ``state[layer][leaf]`` dictionaries, the JAX package's pytree layout,
-with conv weights OIHW (``convert.params_from_jax``). Shared layers
-(``share[tag]``) reuse the primary layer's object and parameters.
+nested one level deeper where a layer's parameters are (``mha``'s
+``params[layer][q|k|v|o][leaf]``, ``ffn``'s ``[h|o]``), with conv
+weights OIHW (``convert.params_from_jax``). Shared layers
+(``share[tag]``) reuse the primary layer's object and parameters. The
+input node holds images (NHWC) or, for sequence models, token ids as
+floats in a flat ``(batch, 1, 1, S)`` node, which ``embed`` reads.
+With ``remat = 1`` the training pass wraps each layer that has
+parameters in ``torch.utils.checkpoint`` (the JAX package's
+``jax.checkpoint``): its forward runs again in the backward.
 
 Weights live on the network's device as float32 masters. For the eval
 forward the leaves a layer computes with (conv and fullc ``wmat``) are
@@ -20,12 +27,14 @@ instead, so gradients reach the f32 masters.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import threading
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .config import ConfigPairs, Policy
 from .device import resolve_device
@@ -33,6 +42,7 @@ from .graph import NetGraph, act_fusion_plan, global_param, policy_from_config
 from .layers import ApplyCtx, Layer, create_layer
 from .layers.base import Shape3, to_nhwc
 from .ops.fused import kernels_active, resolve_mode
+from .optim import get_leaf, leaves, unflatten
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 NetState = Dict[str, Dict[str, torch.Tensor]]
@@ -67,6 +77,10 @@ class Network(nn.Module):
             global_param(cfg, "fused_kernels", "auto"))
         self.device = (torch.device(device) if device is not None
                        else resolve_device(global_param(cfg, "dev", "")))
+        # remat = 1: each layer with parameters keeps only its inputs for
+        # the backward and runs its forward again there (the JAX
+        # package's jax.checkpoint per layer)
+        self.remat = bool(int(global_param(cfg, "remat", "0")))
         self.layers: List[Layer] = []
         for spec in graph.layers:
             if spec.is_shared:
@@ -126,38 +140,39 @@ class Network(nn.Module):
         return params, state
 
     def _expected(self) -> Tuple[Dict, Dict]:
-        """Leaf shapes the graph implies: (params, state) name -> shape."""
+        """Leaf shapes the graph implies: (params, state) path -> shape,
+        a path being the keys from the layer down to the leaf."""
         g = torch.Generator()
         p, s = self.init(g)
-        shape = lambda tree: {(l, k): tuple(v.shape)
-                              for l, d in tree.items() for k, v in d.items()}
+        shape = lambda tree: {path: tuple(v.shape)
+                              for path, v in leaves(tree)}
         return shape(p), shape(s)
 
     def load_weights(self, params: Dict, state: Dict) -> None:
-        """Place ``params``/``state`` (port layout, numpy arrays or
-        tensors) on the device as float32, checked leaf by leaf against
-        the graph, and cast the compute leaves once."""
+        """Place ``params``/``state`` (port layout, nested trees of numpy
+        arrays or tensors) on the device as float32, checked leaf by leaf
+        against the graph, and cast the compute leaves once."""
         want_p, want_s = self._expected()
 
         def place(tree, want, what):
-            got = {(l, k) for l, d in tree.items() for k in d}
+            got = {path for path, _ in leaves(tree)}
             if got != set(want):
                 missing = sorted(set(want) - got)[:4]
                 extra = sorted(got - set(want))[:4]
                 raise ValueError(
                     f"{what} do not match the net config: missing "
                     f"{missing}, unexpected {extra}")
-            out: Dict[str, Dict[str, torch.Tensor]] = {}
-            for (l, k), shp in want.items():
-                v = torch.as_tensor(np.asarray(tree[l][k])
-                                    if not torch.is_tensor(tree[l][k])
-                                    else tree[l][k])
+            out = []
+            for path, shp in want.items():
+                v = get_leaf(tree, path)
+                v = torch.as_tensor(v if torch.is_tensor(v)
+                                    else np.asarray(v))
                 if tuple(v.shape) != shp:
                     raise ValueError(
-                        f"{what} {l}/{k}: shape {tuple(v.shape)} != {shp} "
-                        "implied by the net config")
-                out.setdefault(l, {})[k] = v.to(self.device, torch.float32)
-            return out
+                        f"{what} {'/'.join(path)}: shape {tuple(v.shape)} "
+                        f"!= {shp} implied by the net config")
+                out.append((path, v.to(self.device, torch.float32)))
+            return unflatten(out)
 
         params_d = place(params, want_p, "params")
         state_d = place(state, want_s, "state")
@@ -222,15 +237,24 @@ class Network(nn.Module):
                 nodes[spec.nindex_out[0]] = nodes[spec.nindex_in[0]]
                 continue
             ctx = ApplyCtx(fuse_act=self._fuse_act.get(li), **ctx_fields)
-            outputs = layer.forward(
-                params.get(layer.name, {}), state.get(layer.name, {}),
-                [nodes[ni] for ni in spec.nindex_in], ctx)
+            run = functools.partial(self._run_layer, layer,
+                                    params.get(layer.name, {}),
+                                    state.get(layer.name, {}), ctx)
+            inputs = [nodes[ni] for ni in spec.nindex_in]
+            if self.remat and layer.has_params and torch.is_grad_enabled():
+                outputs = checkpoint(run, *inputs, use_reentrant=False)
+            else:
+                outputs = run(*inputs)
             for ni, out in zip(spec.nindex_out, outputs):
                 nodes[ni] = out
             if layer.is_loss and label is not None:
                 a, b = g.label_slice(layer.target)
                 loss = loss + layer.loss(outputs, label[:, a:b].float(), mask)
         return nodes, loss
+
+    @staticmethod
+    def _run_layer(layer: Layer, lp, ls, ctx: ApplyCtx, *inputs):
+        return tuple(layer.forward(lp, ls, list(inputs), ctx))
 
     def _top(self) -> int:
         g = self.graph

@@ -1,36 +1,45 @@
 """Optimizers with tag-scoped hyperparameters and learning-rate schedules
-(the port of ``cxxnet_tpu/optim.py``, SGD and NAG).
+(the port of ``cxxnet_tpu/optim.py``: SGD, NAG and Adam).
 
-Hyperparameters are resolved per leaf by its tag: a leaf keyed ``bias``
-(and batch_norm's ``bias``) is in the ``bias`` group, every other leaf
-in ``wmat``; ``wmat:lr = ...`` scopes a key to one group. The schedules
+Parameter trees are nested dictionaries of any depth: Inception-BN's
+are ``params[layer][leaf]``, an attention layer's ``params[layer][q|k|v|
+o][leaf]``. Hyperparameters are resolved per leaf by its tag, taken from
+the leaf's last key as in the JAX package: a leaf keyed ``bias``,
+``gamma`` or ``beta`` is in the ``bias`` group, every other leaf in
+``wmat``; ``wmat:lr = ...`` scopes a key to one group. The schedules
 (constant, expdecay, polydecay, factor, and the momentum ramp) are
 evaluated on the host per update and handed to the apply as floats, so
 a schedule change rebuilds nothing.
 
-The step updates the f32 masters and the momenta IN PLACE (the JAX
-package returns new trees; in place saves a copy of both). With the
+The step updates the f32 masters and the moments IN PLACE (the JAX
+package returns new trees; in place saves a copy of each). With the
 kernels selected it is one :func:`~cxxnet_tpu_torch.ops.fused_optim.
-fused_sgd_apply` per tag group (one kernel launch on the card); with
-``fused_kernels = 0`` it is the plain per-leaf math. The optimizer
-state is ``{"mom": tree}`` in the params' layout, as in the JAX package.
+fused_sgd_apply` or ``fused_adam_apply`` per tag group (one kernel
+launch on the card); with ``fused_kernels = 0`` it is the plain
+per-leaf math. The optimizer state is the JAX package's: ``{"mom":
+tree}`` for SGD / NAG, ``{"m1": tree, "m2": tree, "t": step}`` for Adam,
+the trees in the params' layout and ``t`` an int32 scalar kept on the
+host (Adam's bias correction is computed there, once per step).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Any, Dict, List, Tuple
 
+import numpy as np
 import torch
 
 from .config import ConfigError, ConfigPairs
 from .graph import global_param
 from .ops.fused import kernels_active, resolve_mode
-from .ops.fused_optim import fused_sgd_apply
+from .ops.fused_optim import adam_apply_plain, fused_adam_apply, fused_sgd_apply
 
 TAGS = ("wmat", "bias")
 
-Tree = Dict[str, Dict[str, torch.Tensor]]
+#: a parameter-shaped tree: nested dictionaries with tensor leaves
+Tree = Dict[str, Any]
+Path = Tuple[str, ...]
 
 
 def tag_for_param(param_name: str) -> str:
@@ -57,6 +66,8 @@ class UpdaterHyper:
     final_momentum: float = 0.9
     saturation_epoch: int = 0
     clip_gradient: float = 0.0
+    beta1_decay: float = 0.1      # adam: beta1 = 1 - beta1_decay
+    beta2_decay: float = 0.001
 
     def set_param(self, name: str, val: str) -> None:
         # tag scoping: "wmat:lr" applies only when tag == "wmat"
@@ -80,6 +91,10 @@ class UpdaterHyper:
             self.base_momentum = float(val)
         elif name == "saturation_epoch":
             self.saturation_epoch = int(val)
+        elif name == "beta1":
+            self.beta1_decay = float(val)
+        elif name == "beta2":
+            self.beta2_decay = float(val)
         elif name.startswith("lr:") or name.startswith("eta:"):
             sub = name.split(":", 1)[1]
             if sub == "schedule":
@@ -146,20 +161,59 @@ def _prep_grad(g: torch.Tensor, w: torch.Tensor,
     return g
 
 
-def leaves(tree: Tree) -> List[Tuple[str, str, torch.Tensor]]:
-    """``(layer, key, tensor)`` of a two-level tree, in its order."""
-    return [(l, k, v) for l, d in tree.items() for k, v in d.items()]
+def leaves(tree: Tree, prefix: Path = ()) -> List[Tuple[Path, Any]]:
+    """``(path, leaf)`` of a nested tree, depth first in its order: the
+    path is the tuple of keys from the root to the leaf."""
+    out = []
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out += leaves(v, prefix + (k,))
+        else:
+            out.append((prefix + (k,), v))
+    return out
+
+
+def get_leaf(tree: Tree, path: Path) -> Any:
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def unflatten(pairs) -> Tree:
+    """The nested tree of ``(path, leaf)`` pairs (:func:`leaves`'s
+    inverse), keys in the order the pairs give them."""
+    tree: Tree = {}
+    for path, v in pairs:
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return tree
+
+
+def tree_map(fn, tree: Tree) -> Tree:
+    """``tree`` with ``fn`` applied to every leaf."""
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def adam_lr_t(lr: float, t: int, d1: float, d2: float) -> float:
+    """Adam's bias-corrected step size at step ``t`` (1-based),
+    ``lr * sqrt(1 - (1 - d2)^t) / (1 - (1 - d1)^t)``, computed in float32
+    as the JAX package's traced step computes it, so the kernel and the
+    plain apply receive the same scalar."""
+    f = np.float32
+    tf = f(t)
+    fix1 = f(1.0) - f(1.0 - d1) ** tf
+    fix2 = f(1.0) - f(1.0 - d2) ** tf
+    return float(f(lr) * np.sqrt(fix2) / fix1)
 
 
 class Optimizer:
-    """SGD / NAG over ``params[layer][key]`` trees of f32 masters."""
+    """SGD / NAG / Adam over nested trees of f32 masters."""
 
     def __init__(self, updater_type: str, cfg: ConfigPairs):
-        if updater_type == "adam":
-            raise ConfigError(
-                "updater = adam: not trained by the PyTorch port yet "
-                "(ROADMAP Queue A 3, still queued: Adam, Queue B row 12b)")
-        if updater_type not in ("sgd", "nag"):
+        if updater_type not in ("sgd", "nag", "adam"):
             raise ConfigError(f"unknown updater {updater_type!r}")
         self.type = updater_type
         self.hypers = build_hypers(cfg)
@@ -172,9 +226,12 @@ class Optimizer:
         """Whether the step goes through the multi-tensor apply."""
         return kernels_active(self.fused_mode)
 
-    def init_state(self, params: Tree) -> Dict[str, Tree]:
-        return {"mom": {l: {k: torch.zeros_like(v) for k, v in d.items()}
-                        for l, d in params.items()}}
+    def init_state(self, params: Tree) -> Dict[str, Any]:
+        zeros = lambda: tree_map(torch.zeros_like, params)
+        if self.type == "adam":
+            return {"m1": zeros(), "m2": zeros(),
+                    "t": torch.zeros((), dtype=torch.int32)}
+        return {"mom": zeros()}
 
     def schedules(self, epoch: int) -> Dict[str, Tuple[float, float]]:
         """(lr, momentum) per tag at update step ``epoch``."""
@@ -184,31 +241,39 @@ class Optimizer:
             out[tag] = (lr * self.lr_scale, mom)
         return out
 
+    def _groups(self, params: Tree) -> Dict[str, List[Path]]:
+        """Leaf paths of ``params`` by tag group, in tree order."""
+        groups: Dict[str, List[Path]] = {}
+        for path, _ in leaves(params):
+            groups.setdefault(tag_for_param(path[-1]), []).append(path)
+        return groups
+
     @torch.no_grad()
-    def update(self, params: Tree, grads: Tree, opt_state: Dict[str, Tree],
+    def update(self, params: Tree, grads: Tree, opt_state: Dict[str, Any],
                sched: Dict[str, Tuple[float, float]]) -> None:
-        """One step: ``params`` and ``opt_state["mom"]`` change in place;
-        ``grads`` has the params' structure."""
+        """One step: ``params`` and the moments in ``opt_state`` change in
+        place (Adam's ``t`` is replaced by ``t + 1``); ``grads`` has the
+        params' structure."""
+        if self.type == "adam":
+            self._adam(params, grads, opt_state, sched)
+            return
         mom = opt_state["mom"]
         if self.fused:
-            groups: Dict[str, List[Tuple[str, str]]] = {}
-            for l, k, _ in leaves(params):
-                groups.setdefault(tag_for_param(k), []).append((l, k))
-            for tag, keys in groups.items():
+            for tag, paths in self._groups(params).items():
                 h = self.hypers[tag]
                 lr, momentum = sched[tag]
                 fused_sgd_apply(
-                    [params[l][k] for l, k in keys],
-                    [grads[l][k].float().contiguous() for l, k in keys],
-                    [mom[l][k] for l, k in keys], lr, momentum,
+                    [get_leaf(params, p) for p in paths],
+                    [get_leaf(grads, p).float().contiguous() for p in paths],
+                    [get_leaf(mom, p) for p in paths], lr, momentum,
                     wd=h.wd, clip=h.clip_gradient, nag=self.type == "nag")
             return
-        for l, k, w in leaves(params):
-            tag = tag_for_param(k)
+        for path, w in leaves(params):
+            tag = tag_for_param(path[-1])
             h = self.hypers[tag]
             lr, momentum = sched[tag]
-            g = _prep_grad(grads[l][k], w, h)
-            m = mom[l][k]
+            g = _prep_grad(get_leaf(grads, path), w, h)
+            m = get_leaf(mom, path)
             new_m = momentum * m - lr * g
             if self.type == "sgd":
                 new_w = w + new_m
@@ -216,3 +281,29 @@ class Optimizer:
                 new_w = w + (1 + momentum) * new_m - momentum * m
             w.copy_(new_w)
             m.copy_(new_m)
+
+    def _adam(self, params: Tree, grads: Tree, opt_state: Dict[str, Any],
+              sched: Dict[str, Tuple[float, float]]) -> None:
+        """Adam (the JAX package's ``_apply`` / ``_apply_fused``): one
+        apply per tag group with the kernels, else the plain math leaf by
+        leaf; either way with ``t + 1``'s float32 ``lr_t``."""
+        t = int(opt_state["t"]) + 1
+        m1, m2 = opt_state["m1"], opt_state["m2"]
+        for tag, paths in self._groups(params).items():
+            h = self.hypers[tag]
+            d1, d2 = h.beta1_decay, h.beta2_decay
+            lr_t = adam_lr_t(sched[tag][0], t, d1, d2)
+            ws = [get_leaf(params, p) for p in paths]
+            gs = [get_leaf(grads, p).float().contiguous() for p in paths]
+            a = [get_leaf(m1, p) for p in paths]
+            b = [get_leaf(m2, p) for p in paths]
+            if self.fused:
+                fused_adam_apply(ws, gs, a, b, lr_t, d1=d1, d2=d2, wd=h.wd,
+                                 clip=h.clip_gradient)
+                continue
+            new = adam_apply_plain(ws, gs, a, b, lr_t, d1, d2, h.wd,
+                                   h.clip_gradient)
+            for dst, src in zip((ws, a, b), new):
+                for t_, v in zip(dst, src):
+                    t_.copy_(v)
+        opt_state["t"] = torch.tensor(t, dtype=torch.int32)

@@ -1,11 +1,11 @@
-"""Trainer: one device, SGD / NAG (the port of ``cxxnet_tpu/trainer.py``'s
-single-device path).
+"""Trainer: one device, SGD / NAG / Adam (the port of
+``cxxnet_tpu/trainer.py``'s single-device path).
 
 A step is the JAX package's ``_make_train_step`` body ``one``
 (trainer.py:1620-1650) without model health, chains or gradient
 accumulation: the differentiable forward :meth:`Network.apply` over the
 f32 masters, ``torch.autograd.grad`` of the summed loss, then the
-optimizer's in-place update of the masters and momenta, and the
+optimizer's in-place update of the masters and moments, and the
 batch_norm running statistics replaced by the step's. The eval
 forward's cast weights are dropped after every update, so
 :meth:`Trainer.evaluate` scores the weights just trained.
@@ -13,8 +13,9 @@ forward's cast weights are dropped after every update, so
 Train metrics are read one step late, as in the JAX package: step N's
 top node is copied to the host after step N+1 was queued, so the copy
 does not stall the card. Rounds are ``%04d.model`` checkpoints in the
-JAX layout with the momentum tree (``has_opt``), which the JAX package
-loads and resumes.
+JAX layout with the optimizer state (``has_opt``: SGD's momentum tree,
+Adam's ``m1``, ``m2`` and ``t``), which the JAX package loads and
+resumes.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from .graph import build_graph, global_param
 from .io.data import DataBatch
 from .metrics import MetricSet
 from .model import Network
-from .optim import Optimizer, leaves
+from .optim import Optimizer, leaves, tree_map, unflatten
 
 _METRIC_RE = re.compile(r"^metric(?:\[([^,\]]+)(?:,([^\]]+))?\])?$")
 
@@ -92,23 +93,31 @@ class Trainer:
     def _place(self, params: Dict, state: Dict, opt: Optional[Dict]) -> None:
         self.net.load_weights(params, state)
         self.params = self.net.params
-        for _, _, v in leaves(self.params):
+        for _, v in leaves(self.params):
             v.requires_grad_(True)
+        fresh = self.optimizer.init_state(self.params)
         if opt is None:
-            self.opt_state = self.optimizer.init_state(self.params)
-        else:
-            self.opt_state = {"mom": {
-                l: {k: torch.as_tensor(v).to(self.device, torch.float32)
-                    .contiguous() for k, v in d.items()}
-                for l, d in opt["mom"].items()}}
-            want = {(l, k) for l, k, _ in leaves(self.params)}
-            if {(l, k) for l, k, _ in leaves(self.opt_state["mom"])} != want:
+            self.opt_state = fresh
+            return
+        if set(opt) != set(fresh):
+            raise ValueError(f"optimizer state {sorted(opt)} does not match "
+                             f"updater = {self.optimizer.type}")
+        want = {p for p, _ in leaves(self.params)}
+        self.opt_state = {}
+        for name, tree in opt.items():
+            if name == "t":
+                self.opt_state["t"] = torch.as_tensor(tree).to(torch.int32)
+                continue
+            if {p for p, _ in leaves(tree)} != want:
                 raise ValueError("optimizer state does not match the net's "
                                  "parameters")
+            self.opt_state[name] = tree_map(
+                lambda v: torch.as_tensor(v).to(self.device, torch.float32)
+                .contiguous(), tree)
 
     def load_blob(self, blob: Dict[str, Any]) -> None:
-        """Restore params, layer state, momenta and counters from a round
-        read by ``checkpoint.load_model`` (JAX layout)."""
+        """Restore params, layer state, optimizer state and counters from
+        a round read by ``checkpoint.load_model`` (JAX layout)."""
         ckpt.check_structure(blob["meta"], self.graph.structure_signature())
         p, s = params_from_jax(blob["params"], blob["state"])
         opt = blob.get("opt")
@@ -120,7 +129,7 @@ class Trainer:
         self.optimizer.lr_scale = float(meta.get("lr_scale", 1.0))
 
     def save_model(self, path: str) -> None:
-        """Write the current round with its momenta (``has_opt``)."""
+        """Write the current round with its optimizer state (``has_opt``)."""
         params, state = params_to_jax(self.params, self.net.state)
         ckpt.save_model(path, structure_sig=self.graph.structure_signature(),
                         round_counter=self.round_counter,
@@ -155,8 +164,10 @@ class Trainer:
         mask[n - padd:] = 0.0
         return mask.to(self.device)
 
-    def update(self, batch: DataBatch) -> None:
-        """One minibatch forward, backward and optimizer step."""
+    def gradients(self, batch: DataBatch):
+        """The forward and backward of one minibatch, changing nothing:
+        ``(loss, new_state, nodes, grads)``, ``grads`` in the params'
+        tree layout (f32)."""
         if self.params is None:
             raise RuntimeError("call init_model() first")
         data, label = self._to_device(batch)
@@ -164,10 +175,13 @@ class Trainer:
             self.params, self.net.state, data, label, self._mask(batch),
             train=True, capture_nodes=bool(self._metric_nodes))
         flat = leaves(self.params)
-        grads = torch.autograd.grad(loss, [v for _, _, v in flat])
-        gtree: Dict[str, Dict[str, torch.Tensor]] = {}
-        for (l, k, _), g in zip(flat, grads):
-            gtree.setdefault(l, {})[k] = g
+        grads = torch.autograd.grad(loss, [v for _, v in flat])
+        return loss, new_state, nodes, unflatten(
+            (p, g) for (p, _), g in zip(flat, grads))
+
+    def update(self, batch: DataBatch) -> None:
+        """One minibatch forward, backward and optimizer step."""
+        loss, new_state, nodes, gtree = self.gradients(batch)
         self.optimizer.update(self.params, gtree, self.opt_state,
                               self.optimizer.schedules(self.epoch_counter))
         self.net.state = new_state

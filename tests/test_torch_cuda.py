@@ -18,7 +18,10 @@ from cxxnet_tpu_torch.ops.fused_epilogue import (bias_act_plain,
                                                  fused_epilogue_bwd)
 from cxxnet_tpu_torch.ops.fused_norm import (bn_act_plain, bn_bwd,
                                              bn_bwd_plain, bn_fwd)
-from cxxnet_tpu_torch.ops.fused_optim import fused_sgd_apply, sgd_apply_plain
+from cxxnet_tpu_torch.ops import attention as att
+from cxxnet_tpu_torch.ops.fused_optim import (adam_apply_plain,
+                                              fused_adam_apply,
+                                              fused_sgd_apply, sgd_apply_plain)
 from cxxnet_tpu_torch.ops.fused_pool import (Pool, fused_pool,
                                              fused_pool_bwd_lin,
                                              pool_bwd_lin_plain,
@@ -84,7 +87,8 @@ def test_each_launch_counts_once(dev):
     torch.cuda.synchronize()
     assert {k: v.launches for k, v in KERNELS.items()} == \
         {"pool_fwd": 2, "epilogue_fwd": 1, "pool_bwd": 0, "epilogue_bwd": 0,
-         "bn_fwd": 0, "bn_bwd": 0, "sgd_apply": 0}
+         "bn_fwd": 0, "bn_bwd": 0, "sgd_apply": 0, "adam_apply": 0,
+         "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -190,3 +194,82 @@ def test_sgd_apply_kernel_matches_plain(dev, nag, wd, clip):
     fused_sgd_apply(ws, gs, ms, 0.1, 0.9, wd=wd, clip=clip, nag=nag)
     for a, b in zip(ws + ms, want_w + want_m):
         torch.testing.assert_close(a, b, rtol=2.4e-7, atol=1e-7)
+
+
+def _flash_ok(got, want, dtype):
+    """float32 within 2e-5 of max|plain| (f32 sums over the keys in
+    another order); bfloat16 within one bf16 ulp plus that."""
+    err = (got.float() - want.float()).abs()
+    rel = ULP[dtype] if dtype != torch.float32 else 0.0
+    top = want.float().abs().max()
+    return bool((err <= rel * want.float().abs() + 2e-5 * top).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,D", [(2, 256, 2, 16), (1, 1000, 2, 64),
+                                     (1, 77, 3, 128), (2, 130, 1, 6)])
+def test_flash_kernels_match_plain(dev, dtype, causal, B, S, H, D):
+    """Forward, dQ and dK/dV against their plain versions on the same
+    inputs, ragged S and a D that is not a multiple of 16 included; lse
+    within 1e-5 of max|lse|."""
+    q, k, v, g = (_randn((B, S, H, D), dtype, dev, seed=i) for i in range(4))
+    scale = D ** -0.5
+    out, lse = att.flash_fwd(q, k, v, causal, scale)
+    out0, lse0 = att.flash_fwd_plain(q, k, v, causal, scale)
+    assert out.dtype == dtype and _flash_ok(out, out0, dtype)
+    assert float((lse - lse0).abs().max()) <= 1e-5 * float(lse0.abs().max())
+    delta = att.flash_delta(out0, g)
+    args = (q, k, v, g, lse0, delta, causal, scale)
+    assert _flash_ok(att.flash_bwd_dq(*args), att.flash_bwd_dq_plain(*args),
+                     dtype)
+    for a, b in zip(att.flash_bwd_dkv(*args), att.flash_bwd_dkv_plain(*args)):
+        assert _flash_ok(a, b, dtype)
+
+
+def test_flash_attention_launches_each_kernel_once_per_call(dev):
+    for k in KERNELS.values():
+        k.launches = 0
+    q, k, v = (_randn((1, 64, 2, 16), torch.bfloat16, dev, seed=i)
+               .requires_grad_(True) for i in range(3))
+    att.flash_attention(q, k, v, causal=True).float().sum().backward()
+    torch.cuda.synchronize()
+    assert [KERNELS[n].launches for n in
+            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")] == [1, 1, 1]
+    att.flash_attention(q, k, v, causal=True, fused=False).float().sum() \
+        .backward()
+    assert KERNELS["flash_fwd"].launches == 1
+
+
+def test_flash_wrappers_refuse_on_the_card(dev):
+    q = _randn((1, 32, 2, 16), torch.float32, dev)
+    with pytest.raises(ValueError):
+        att.flash_fwd(q[..., :15].contiguous(), q[..., :15].contiguous(),
+                      q[..., :15].contiguous(), True, 0.25)
+    with pytest.raises(TypeError):
+        att.flash_fwd(q.double(), q.double(), q.double(), True, 0.25)
+    with pytest.raises(ValueError, match="contiguous"):
+        att.flash_fwd(q.transpose(1, 2), q, q, True, 0.25)
+    with pytest.raises(TypeError):
+        att.flash_fwd(q, q.cpu(), q, True, 0.25)
+
+
+@pytest.mark.parametrize("wd,clip", [(0.0, 0.0), (1e-4, 0.0), (1e-4, 0.5)])
+def test_adam_apply_kernel_is_bit_equal_to_plain(dev, wd, clip):
+    """Equal: the same correctly rounded f32 operations in the same order
+    on both sides (no FMA contraction, IEEE division and square root)."""
+    shapes = [(64, 3, 7, 7), (64,), (8193,), (1000, 1024), (1,)]
+    ws = [_randn(s, torch.float32, dev, seed=i) for i, s in enumerate(shapes)]
+    gs = [_randn(s, torch.float32, dev, seed=10 + i)
+          for i, s in enumerate(shapes)]
+    gs[0].view(-1)[::5] = float("nan")
+    m1 = [_randn(s, torch.float32, dev, seed=20 + i) * 0.1
+          for i, s in enumerate(shapes)]
+    m2 = [_randn(s, torch.float32, dev, seed=30 + i).abs() * 0.1
+          for i, s in enumerate(shapes)]
+    want = adam_apply_plain(ws, gs, m1, m2, 3e-4, 0.1, 0.001, wd, clip)
+    fused_adam_apply(ws, gs, m1, m2, 3e-4, d1=0.1, d2=0.001, wd=wd,
+                     clip=clip)
+    for a, b in zip(ws + m1 + m2, sum(want, [])):
+        assert torch.equal(a, b)

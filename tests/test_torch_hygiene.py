@@ -51,7 +51,9 @@ def test_port_files_exist():
             "cxxnet_tpu_torch/io/__init__.py",
             "cxxnet_tpu_torch/io/data.py", "cxxnet_tpu_torch/io/proc.py",
             "cxxnet_tpu_torch/trainer.py", "cxxnet_tpu_torch/optim.py",
-            "cxxnet_tpu_torch/metrics.py"} <= names
+            "cxxnet_tpu_torch/metrics.py",
+            "cxxnet_tpu_torch/ops/attention.py",
+            "cxxnet_tpu_torch/layers/seq.py"} <= names
     assert len(names) > 30
 
 
@@ -100,6 +102,12 @@ def test_train_entry_point_without_cuda_raises(no_cuda, tmp_path):
     conf.write_text(IBN_TEXT)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_main.main([str(conf), "task=train"])
+
+
+def test_lm_train_entry_point_without_cuda_raises(no_cuda):
+    conf = os.path.join(REPO, "examples", "LM", "long_context_lm.conf")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_main.main([conf, "task=train"])
 
 
 def test_other_tasks_and_fleet_keys_name_the_roadmap(tmp_path):

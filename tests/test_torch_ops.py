@@ -113,7 +113,9 @@ def test_wrappers_take_the_plain_version_on_cpu_and_count_nothing():
         bias_act_plain(y, b, "relu").numpy())
     assert {k: v.launches for k, v in KERNELS.items()} == \
         {k: 0 for k in ("pool_fwd", "pool_bwd", "epilogue_fwd",
-                        "epilogue_bwd", "bn_fwd", "bn_bwd", "sgd_apply")}
+                        "epilogue_bwd", "bn_fwd", "bn_bwd", "sgd_apply",
+                        "adam_apply", "flash_fwd", "flash_bwd_dq",
+                        "flash_bwd_dkv")}
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take():

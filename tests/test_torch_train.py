@@ -572,7 +572,8 @@ def test_main_train_writes_rounds_the_jax_package_resumes(tmp_path, capsys):
 
 #: a value that switches on each training key outside this slice
 SWITCHED_ON = {
-    "continue": "1", "model_in": "/nowhere/0003.model", "updater": "adam",
+    "continue": "1", "model_in": "/nowhere/0003.model",
+    "telemetry_port": "9099",
     "compute_dtype": "float16", "update_period": "2", "input_fold": "1",
     "train_chain": "4", "health": "1", "sentinel": "1",
     "failpoints": "device.step=every:3", "profile_dir": "/nowhere/prof",
@@ -591,11 +592,11 @@ def test_every_rejected_key_is_covered():
 def test_training_keys_outside_the_slice_name_their_roadmap_item(key):
     base = _cfg("ibn", "float32", "auto")
     with pytest.raises(ConfigError, match=r"ROADMAP Queue .*" + {
-            "updater": "row 12b", "compute_dtype": "fp16 loss scaler",
+            "compute_dtype": "fp16 loss scaler",
             "continue": "continue = 1 and finetune",
             "update_period": "update_period"}.get(key, "")):
         Trainer(parse_config_string(base + f'{key} = "{SWITCHED_ON[key]}"\n'))
-    off = {"model_in": "NULL", "updater": "nag", "compute_dtype": "bfloat16",
+    off = {"model_in": "NULL", "compute_dtype": "bfloat16",
            "update_period": "1", "input_fold": "auto", "train_chain": "1",
            "model_parallel": "1", "seq_parallel": "1",
            "pipeline_parallel": "1"}.get(key, "0" if key not in (

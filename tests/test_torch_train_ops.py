@@ -221,7 +221,13 @@ def test_optimizer_step_matches_jax_optimizer(updater, port_fused, jax_fused):
                                    np.asarray(want_o["mom"][l][k]), atol=1e-6)
 
 
-def test_optimizer_refuses_adam_naming_row_12b():
-    from cxxnet_tpu_torch.config import ConfigError
-    with pytest.raises(ConfigError, match="row 12b"):
-        Optimizer("adam", [])
+def test_update_period_still_names_its_queue_item():
+    """Adam trains now; gradient accumulation is still queued and its key
+    still raises naming its ROADMAP item (the unknown updater too)."""
+    from cxxnet_tpu_torch.config import ConfigError, check_train_config
+    with pytest.raises(ConfigError,
+                       match="Queue A 3, still queued: update_period"):
+        check_train_config([("updater", "adam"), ("update_period", "2")])
+    check_train_config([("updater", "adam"), ("update_period", "1")])
+    with pytest.raises(ConfigError, match="unknown updater"):
+        Optimizer("adagrad", [])
