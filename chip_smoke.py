@@ -18,7 +18,13 @@ and prints no result:
             widths 16, 64 and 128 (f32 within 2e-5 of max|plain|, bf16
             one ulp plus 2e-5 of max|plain|, lse 1e-5 of max|lse|); the
             Adam apply over the LM's and Inception-BN's parameter groups,
-            bit-equal.
+            bit-equal; LRN forward and backward at AlexNet's lrn1 and
+            lrn2 and at 7 rows by C 7, C 1500 and a ragged row count,
+            nsize 3/4/5, knorm 1/2, beta 0.75/0.5 (f32 within 4 ulp of
+            max|plain|, bf16/f16 one ulp); the first-match max-pool
+            backward at spp1's shape, a 2x2 tile and a global 7x7
+            window, pre_relu on and off, on tie-ridden integer inputs
+            (bit-equal).
 4. serve:   full-width Inception-BN (224x224x3, 69 batch_norm layers,
             1000 classes, bfloat16) with random weights drawn by numpy
             from ``--seed``, BN statistics calibrated on one seeded
@@ -78,6 +84,27 @@ and prints no result:
             kernel are timed beside bound, plain version and library
             call (``F.scaled_dot_product_attention`` forward and
             backward, ``torch.optim.Adam(fused=True)``).
+
+8. convnets: full-width AlexNet (``examples/ImageNet/alexnet.conf``:
+            batch 256, 3x227x227, bf16, SGD, dropout 0.5, LRN) and the
+            SPP net (``kaiming.conf``: batch 128, 3x224x224, insanity,
+            a four-level pyramid of max pools) trained through
+            ``main.run`` for CONVNET_STEPS steps each over ``iter =
+            synthetic`` data from ``--seed``, one round written. Launch
+            counts are read after every step: ``lrn_fwd`` = ``lrn_bwd`` =
+            2 a step for AlexNet, ``pool_bwd_max`` = 1 for the SPP net,
+            ``sgd_apply`` one per tag group, the epilogues at least 1.
+            Each bf16 step, and two float32 steps from the init, held
+            against ``fused_kernels = 0`` from the same state and the
+            same draws (CONVNET_LOSS_TOL, CONVNET_GRAD_TOL); insanity's
+            step counters read CONVNET_STEPS; the written round answers
+            finite softmax rows. Step and kernel times beside bound,
+            plain version and library call (``F.local_response_norm``
+            forward and backward, ``max_pool2d_with_indices_backward``).
+9. digits:  ``examples/digits/digits_lenet.conf`` trained one round
+            through ``main.run`` on the card from gzipped idx files
+            written from ``--seed``; ``pool_bwd_max`` launches once a
+            step.
 
 Then, on lines of their own: the card's name and power limit as
 ``nvidia-smi`` reports them, the kernels JSON line, and last
@@ -227,7 +254,9 @@ _KINDS = (("flash_fwd_kernel", "flash fwd kernel"),
           ("flash_bwd_dkv_kernel", "flash dkv kernel"),
           ("adam_apply_kernel", "adam kernel"), ("embedding", "embedding"),
           ("nvjet", "matmul"),
+          ("lrn_fwd_kernel", "lrn kernel"), ("lrn_bwd_kernel", "lrn kernel"),
           ("pool_fwd_kernel", "pool kernel"), ("pool_bwd_kernel", "pool kernel"),
+          ("pool_bwd_max_kernel", "pool kernel"),
           ("epilogue_fwd_kernel", "epilogue kernel"),
           ("mask_copy", "epilogue kernel"), ("finalize_dbias", "epilogue kernel"),
           ("colsum_partials", "bn/epilogue sums kernel"),
@@ -907,10 +936,13 @@ def phase_times(engine, gen: torch.Generator) -> dict:
 
 # -- phase 6 ------------------------------------------------------------------
 
-def train_cfg(conf: str, seed: int, model_dir: str, extra=()):
-    """The flagship's netconfig and globals with its data/eval sections
-    replaced by ``iter = synthetic`` (3x224x224, 1000 classes, from
-    ``seed``): TRAIN_STEPS batches of 128 to train on, one to evaluate."""
+def train_cfg(conf: str, seed: int, model_dir: str, extra=(),
+              batch: int = TRAIN_BATCH, steps: int = TRAIN_STEPS,
+              image: str = TRAIN_IMAGE):
+    """``conf``'s netconfig and globals (the flagship's by default) with
+    its data/eval sections replaced by ``iter = synthetic`` (``image``,
+    1000 classes, from ``seed``): ``steps`` batches of ``batch`` to train
+    on, one to evaluate."""
     from cxxnet_tpu_torch.config import (parse_cli_overrides,
                                          parse_config_file, split_sections)
     glob, _ = split_sections(parse_config_file(conf))
@@ -918,12 +950,12 @@ def train_cfg(conf: str, seed: int, model_dir: str, extra=()):
     def synth(kind, name, n, s):
         return [(kind, name), ("iter", "synthetic"), ("num_inst", str(n)),
                 ("num_class", str(TRAIN_CLASSES)),
-                ("input_shape", TRAIN_IMAGE), ("seed_data", str(s)),
+                ("input_shape", image), ("seed_data", str(s)),
                 ("iter", "end")]
-    return (glob + synth("data", "train", TRAIN_BATCH * TRAIN_STEPS, seed)
-            + synth("eval", "val", TRAIN_BATCH, seed + 1)
+    return (glob + synth("data", "train", batch * steps, seed)
+            + synth("eval", "val", batch, seed + 1)
             + parse_cli_overrides([
-                "task=train", f"batch_size={TRAIN_BATCH}", "num_round=1",
+                "task=train", f"batch_size={batch}", "num_round=1",
                 f"model_dir={model_dir}", "save_model=1", "print_step=1",
                 *extra]))
 
@@ -1033,11 +1065,13 @@ def layer_parity(tr, batch, gen) -> dict:
 
 
 def _load(tr, snap, epoch):
+    """Load ``snap`` as the state before update ``epoch`` (its step
+    counter too, so a drawing layer draws what that step drew)."""
     from cxxnet_tpu_torch.checkpoint import _sig_to_json
     p, o, s = snap
     tr.load_blob({"meta": {"structure_sig": _sig_to_json(
-        tr.graph.structure_signature()), "round": 0, "epoch": epoch},
-        "params": p, "state": s, "opt": o})
+        tr.graph.structure_signature()), "round": 0, "epoch": epoch,
+        "step_count": epoch}, "params": p, "state": s, "opt": o})
 
 
 def phase_train(conf: str, seed: int, tmp: str):
@@ -1683,6 +1717,408 @@ def phase_lm_times(tr, kern, plain, batches, gen) -> dict:
             "kernels": rows, "adam_ibn": ibn, "profile": prof}
 
 
+# -- phase 8 ------------------------------------------------------------------
+
+ALEXNET = os.path.join(ROOT, "examples", "ImageNet", "alexnet.conf")
+KAIMING = os.path.join(ROOT, "examples", "ImageNet", "kaiming.conf")
+DIGITS = os.path.join(ROOT, "examples", "digits", "digits_lenet.conf")
+#: the convnet cells: name -> (config, batch, input shape, launches per
+#: step of the kernels this slice added)
+CONVNETS = {"alexnet": (ALEXNET, 256, "3,227,227",
+                        {"lrn_fwd": 2, "lrn_bwd": 2}),
+            "spp": (KAIMING, 128, "3,224,224", {"pool_bwd_max": 1})}
+CONVNET_STEPS = 4
+#: bounds of the convnet phase, kernels against fused_kernels = 0 from the
+#: same state with the same draws (readings in PERF.md section 2), per
+#: dtype: the loss difference (bf16: of max(1, |loss|); f32: relative)
+#: and the parameter gradients' relative L2 difference, as (median over
+#: leaves, worst leaf). In f32 the worst leaf is AlexNet's cv2 weight,
+#: whose gradient is 1e-3 of its weight's norm and sums 186,624 products
+#: of mixed sign: cuDNN's nondeterministic weight gradient of that
+#: grouped conv moves it by 8.8e-4 between two runs of the same plain
+#: step, so each check also reports that run-to-run spread
+CONVNET_LOSS_TOL = {"bfloat16": 1e-3, "float32": 1e-5}
+CONVNET_GRAD_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (4e-6, 1e-2)}
+#: phase 3's LRN hyperparameters: AlexNet's, then the odd cases'
+LRN_ALEX = (5, 1e-4, 0.75, 1.0)          # nsize, alpha, beta, knorm
+
+
+def phase_convnet_kernels(gen: torch.Generator) -> dict:
+    """The convnet path's kernels against their plain versions: LRN
+    forward and backward at AlexNet's lrn1 and lrn2 (bf16, f16, f32) and
+    at 7 rows by C 7, C 1500 (past the TPU kernel's 1024) and a ragged row
+    count, with nsize 3, 4 and 5, knorm 1 and 2, beta 0.75 and 0.5
+    (float32 within 4 ulp of max|plain|, bf16/f16 one ulp of the value);
+    the first-match max-pool backward at spp1's shape, the digits LeNet's
+    2x2 pool and a global 7x7 window, pre_relu on and off, inputs drawn
+    from five integer values so that ties abound (bit-equal). Returns the
+    largest error per kernel at the path's shape."""
+    from cxxnet_tpu_torch.ops.fused_lrn import (fused_lrn_bwd, fused_lrn_fwd,
+                                                lrn_bwd_plain, lrn_plain)
+    from cxxnet_tpu_torch.ops.fused_pool import (fused_pool_bwd_max,
+                                                 pool_bwd_max_plain,
+                                                 pool_fwd_plain)
+    dev = gen.device
+    path_err, lines = {}, []
+    dts = (torch.bfloat16, torch.float16, torch.float32)
+    cases = [((256, 27, 27, 96), dt, LRN_ALEX) for dt in dts]
+    cases += [((256, 13, 13, 256), dt, LRN_ALEX) for dt in dts]
+    cases += [(shape, dt, (n, 0.1, beta, knorm))
+              for shape in ((1, 1, 7, 7), (1, 1, 3, 1500), (3, 5, 7, 33))
+              for dt in dts for n in (3, 4, 5)
+              for knorm, beta in ((1.0, 0.75), (2.0, 0.5))]
+    for shape, dt, (n, alpha, beta, knorm) in cases:
+        x = (torch.randn(shape, generator=gen, device=dev) * 3).to(dt)
+        dy = torch.randn(shape, generator=gen, device=dev).to(dt)
+        y = fused_lrn_fwd(x, n, alpha, beta, knorm)
+        y0 = lrn_plain(x, n, alpha, beta, knorm)
+        dx = fused_lrn_bwd(x, dy, n, alpha, beta, knorm)
+        dx0 = lrn_bwd_plain(x, dy, n, alpha, beta, knorm)
+        torch.cuda.synchronize()
+        errs = []
+        for got, want in ((y, y0), (dx, dx0)):
+            err = (got.float() - want.float()).abs()
+            if dt == torch.float32:
+                bad = bool((err > 4 * 2.0 ** -23
+                            * want.abs().max()).any())
+            else:
+                bad = bool((err > _ulp_tol(dt) * want.float().abs()
+                            + 1e-30).any())
+            errs.append((err.max().item(), bad))
+        lines.append(f"lrn {shape} {str(dt)[6:]} nsize {n} knorm {knorm} "
+                     f"beta {beta}: fwd {errs[0][0]:.3g} bwd "
+                     f"{errs[1][0]:.3g}")
+        if errs[0][1] or errs[1][1]:
+            raise AssertionError("lrn kernels disagree (tol f32 4 ulp of "
+                                 "max|plain|, bf16/f16 one ulp): "
+                                 + lines[-1])
+        if shape == (256, 27, 27, 96) and dt == torch.bfloat16:
+            path_err["lrn_fwd"], path_err["lrn_bwd"] = errs[0][0], errs[1][0]
+    pools = [((128, 27, 27, 256), 3), ((100, 8, 8, 32), 2),
+             ((32, 7, 7, 256), 7)]
+    for (shape, k), dt, relu in ((p, dt, r) for p in pools for dt in dts
+                                 for r in (False, True)):
+        x = torch.randint(-2, 3, shape, generator=gen, device=dev).to(dt)
+        y = pool_fwd_plain(x, k, k, "max", False, relu)
+        dy = torch.randn(y.shape, generator=gen, device=dev).to(dt)
+        got = fused_pool_bwd_max(x, y, dy, k, k, relu)
+        want = pool_bwd_max_plain(x, y, dy, k, k, relu)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        lines.append(f"pool_bwd_max {k}x{k} {shape} {str(dt)[6:]} "
+                     f"relu={int(relu)}: max_abs_err {err:.3g} (tol 0)")
+        if not torch.equal(got, want):
+            raise AssertionError("max-pool backward kernel disagrees: "
+                                 + lines[-1])
+        if shape[0] == 128 and dt == torch.bfloat16 and not relu:
+            path_err["pool_bwd_max"] = err
+    print(f"kernels (convnets): {len(lines)} cases agree with the plain "
+          "versions | " + " | ".join(lines), flush=True)
+    return path_err
+
+
+def check_launches(what: str, launches: dict, exact: dict,
+                   at_least: dict) -> None:
+    """Raise unless each kernel of ``exact`` launched exactly that often
+    and each of ``at_least`` at least that often."""
+    bad = {k: (launches[k], v) for k, v in exact.items() if launches[k] != v}
+    bad.update({k: (launches[k], f">= {v}") for k, v in at_least.items()
+                if launches[k] < v})
+    if bad:
+        raise AssertionError(f"{what} launches (got, want): {bad}")
+
+
+def convnet_step_check(kern, plain, snap, batch, step, dtype):
+    """One step's loss and gradients with the kernels and with
+    fused_kernels = 0 (twice) from the same state and the same draws:
+    (loss difference, per-leaf gradient rel L2 pairs of kernels against
+    plain, the worst pair of plain against itself)."""
+    got = []
+    for t in (kern, plain, plain):
+        _load(t, snap, step)
+        loss, _, _, grads = t.gradients(batch)
+        got.append((float(loss.detach()), grads))
+    (lk, gk), (lp, gp), (_, gp2) = got
+    dl = abs(lk - lp) / (max(1.0, abs(lp)) if dtype == "bfloat16"
+                         else abs(lp))
+    return dl, _grad_rels(gk, gp), max(_grad_rels(gp2, gp))
+
+
+def phase_convnet(name: str, seed: int, tmp: str):
+    """Train one convnet cell through main.run (CONVNET_STEPS steps, bf16,
+    SGD, the config's own dropout and activations), check the launches
+    per step, hold each bf16 step and two float32 steps from the init
+    against fused_kernels = 0 from the same state and draws, check
+    insanity's step counters and load the written round. Returns (the
+    run's trainer, its fused_kernels = 0 twin, batches, launches,
+    notes)."""
+    from cxxnet_tpu_torch import checkpoint as ckpt
+    from cxxnet_tpu_torch.config import split_sections
+    from cxxnet_tpu_torch.convert import params_from_jax
+    from cxxnet_tpu_torch.io import create_iterator
+    from cxxnet_tpu_torch.main import run
+    from cxxnet_tpu_torch.model import Network
+    from cxxnet_tpu_torch.ops import KERNELS, reset_launches
+    from cxxnet_tpu_torch.trainer import Trainer
+    conf, batch, image, per_step = CONVNETS[name]
+    steps = CONVNET_STEPS
+    model_dir = os.path.join(tmp, name)
+    cfg = train_cfg(conf, seed, model_dir, (f"seed={seed}",), batch=batch,
+                    steps=steps, image=image)
+    box = {"losses": [], "before": [], "counts": []}
+
+    def on_step(tr):
+        box["counts"].append({k.name: k.launches for k in KERNELS.values()})
+        box["losses"].append(tr.last_loss)
+        if len(box["losses"]) < steps:
+            box["before"].append(_snap(tr))
+
+    def ready(tr):
+        box["before"].append(_snap(tr))
+        tr.step_hook = on_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()                  # just before the first step
+        box["t0"] = time.perf_counter()
+
+    tr = run(cfg, ready=ready)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in KERNELS.values()}
+    took = time.perf_counter() - box["t0"]
+    peak = torch.cuda.max_memory_allocated()
+    tr.step_hook = None
+    if len(box["losses"]) != steps:
+        raise AssertionError(f"{name}: {len(box['losses'])} steps")
+    # launches of each step (the counts after it less those before it);
+    # the evaluation after the last step launches forward kernels too
+    want = dict(per_step)
+    want["sgd_apply"] = len(tr.optimizer._groups(tr.params))
+    before = {k: 0 for k in launches}
+    for i, after in enumerate(box["counts"]):
+        check_launches(f"{name} step {i + 1}",
+                       {k: after[k] - before[k] for k in after}, want,
+                       {"epilogue_fwd": 1, "epilogue_bwd": 1})
+        before = after
+    losses = box["losses"]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: non-finite loss {losses}")
+    counters = {l.name: int(tr.net.state[l.name]["step"])
+                for l in tr.net.layers if l.spec.type == "insanity"}
+    if any(v != steps for v in counters.values()):
+        raise AssertionError(f"{name}: insanity step counters {counters}")
+
+    glob, sections = split_sections(cfg)
+    data = [p for kind, _, p in sections if kind == "data"][0]
+    batches = list(create_iterator(glob + data))
+    quiet = [("silent", "1")]
+    checks = {}
+    for dt in ("bfloat16", "float32"):
+        pol = quiet + [("compute_dtype", dt)]
+        kern = Trainer(glob + pol)
+        plain = Trainer(glob + pol + [("fused_kernels", "0")])
+        snaps = box["before"][:steps] if dt == "bfloat16" else []
+        if dt == "float32":               # two f32 steps from the init
+            kern.init_model((box["before"][0][0], box["before"][0][2]))
+            for b in batches[:2]:
+                snaps.append(_snap(kern))
+                kern.update(b)
+        rows = []
+        for i, b in enumerate(batches[:len(snaps)]):
+            dl, rels, spread = convnet_step_check(kern, plain, snaps[i], b,
+                                                  i, dt)
+            rows.append((dl, float(np.median([r for r, _ in rels])),
+                         max(rels), spread))
+        checks[dt] = rows
+        if dt == "bfloat16":
+            plain_bf16 = plain
+        else:
+            del plain
+        del kern
+    torch.cuda.empty_cache()
+    fails = [f"{dt} step {i + 1}: {row}" for dt, rows in checks.items()
+             for i, row in enumerate(rows)
+             if row[0] > CONVNET_LOSS_TOL[dt]
+             or row[1] > CONVNET_GRAD_TOL[dt][0]
+             or row[2][0] > CONVNET_GRAD_TOL[dt][1]]
+    if fails:
+        raise AssertionError(f"{name}: kernels vs fused_kernels=0 from the "
+                             f"same state (tol loss {CONVNET_LOSS_TOL}, "
+                             f"gradient {CONVNET_GRAD_TOL}): {fails}")
+
+    # the written round loads in the port and answers finitely
+    path = ckpt.model_path(model_dir, 0)
+    blob = ckpt.load_for_inference(path)
+    net = Network(tr.graph, [kv for kv in glob if kv[0] != "task"])
+    ckpt.check_structure(blob["meta"], tr.graph.structure_signature())
+    net.load_weights(*params_from_jax(blob["params"], blob["state"]))
+    x = torch.from_numpy(batches[0].data[:8]).to(net.device)
+    prob = net(x).out.float().reshape(8, -1)
+    if not bool(torch.isfinite(prob).all()) or \
+            (prob.sum(1) - 1).abs().max().item() > 1e-3:
+        raise AssertionError(f"{name}: the written round's answers are not "
+                             "finite softmax rows")
+    del net
+    n_params = sum(v.numel() for v in _paths(tr.params).values())
+    fmt = lambda rows: [(f"{dl:.2g}", f"{md:.2g}", f"{w[0]:.2g} {w[1]}",
+                         f"{sp[0]:.2g} {sp[1]}") for dl, md, w, sp in rows]
+    print(f"{name}: {steps} steps (batch {batch}, {image}, bf16, SGD, "
+          f"{n_params} parameters) through main.run in {took:.1f}s with "
+          f"the evaluation and the round written | losses "
+          f"{[round(v, 4) for v in losses]} | launches per step "
+          f"{want} (each step checked), the run with its evaluation "
+          f"{ {k: v for k, v in launches.items() if v} }"
+          f" | insanity step counters {counters or 'none'} | vs "
+          f"fused_kernels=0 from the same state and draws, per step (loss "
+          f"diff, gradient rel L2 median, worst leaf; the plain step "
+          f"against itself, worst leaf): bf16 "
+          f"{fmt(checks['bfloat16'])}, f32 {fmt(checks['float32'])} (tol "
+          f"loss {CONVNET_LOSS_TOL}, gradient (median, worst) "
+          f"{CONVNET_GRAD_TOL}) | round "
+          f"{os.path.basename(path)} loads, finite softmax rows | peak "
+          f"memory {peak / 2**30:.2f} GiB", flush=True)
+    return tr, plain_bf16, batches, launches, {
+        "losses": losses, "checks": checks, "params": n_params,
+        "insanity_steps": counters, "peak_gib": peak / 2**30,
+        "seconds": took}
+
+
+def phase_convnet_times(name, tr, plain, batches, gen) -> dict:
+    """CUDA-event times of one train step of the cell with the kernels
+    and with fused_kernels = 0 from the same state, a profile of the step,
+    and, for the kernels the cell adds, each kernel at the path's shape
+    beside its bound, its plain version and one PyTorch library call."""
+    import torch.nn.functional as F
+    from cxxnet_tpu_torch.ops.fused_lrn import (fused_lrn_bwd, fused_lrn_fwd,
+                                                lrn_bwd_plain, lrn_plain)
+    from cxxnet_tpu_torch.ops.fused_pool import (fused_pool_bwd_max,
+                                                 pool_bwd_max_plain,
+                                                 pool_fwd_plain)
+    b0 = batches[0]
+    snap = _snap(tr)
+    _load(plain, snap, tr.epoch_counter)
+    step_ms = time_forward(lambda: tr.update(b0), reps=5)
+    step_plain = time_forward(lambda: plain.update(b0), reps=5)
+    prof = profile_calls(lambda: tr.update(b0), 3, "step")
+    print(f"profile: {name} train step, kernels: {prof}", flush=True)
+    dev, bf = tr.device, torch.bfloat16
+    rows = {}
+    if name == "alexnet":
+        n, alpha, beta, knorm = LRN_ALEX
+        for layer, shape in (("lrn1", (256, 27, 27, 96)),
+                             ("lrn2", (256, 13, 13, 256))):
+            x = (torch.randn(shape, generator=gen, device=dev) * 3).to(bf)
+            dy = torch.randn(shape, generator=gen, device=dev).to(bf)
+            xn = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
+            yn = F.local_response_norm(xn, n, alpha, beta, knorm)
+            dyn = dy.permute(0, 3, 1, 2)
+            el = x.numel()
+            for kname, r in (
+                    ("lrn_fwd", dict(
+                        ms=time_call(lambda: fused_lrn_fwd(x, n, alpha, beta,
+                                                           knorm)),
+                        plain_ms=time_call(lambda: lrn_plain(
+                            x, n, alpha, beta, knorm)),
+                        library_ms=time_call(lambda: F.local_response_norm(
+                            xn.detach(), n, alpha, beta, knorm)),
+                        bound=bound_ms(2 * el * 2, (n + 8) * el),
+                        library="F.local_response_norm forward")),
+                    ("lrn_bwd", dict(
+                        ms=time_call(lambda: fused_lrn_bwd(x, dy, n, alpha,
+                                                           beta, knorm)),
+                        plain_ms=time_call(lambda: lrn_bwd_plain(
+                            x, dy, n, alpha, beta, knorm)),
+                        library_ms=time_loop(lambda: torch.autograd.grad(
+                            yn, [xn], dyn, retain_graph=True)),
+                        bound=bound_ms(3 * el * 2, (2 * n + 16) * el),
+                        library="F.local_response_norm backward "
+                                "(autograd)"))):
+                r["shape"] = f"{layer} {shape} bf16 nsize {n}"
+                rows[kname if layer == "lrn1" else f"{kname} ({layer})"] = r
+    if name == "spp":
+        shape, k = (128, 27, 27, 256), 3
+        x = torch.randn(shape, generator=gen, device=dev).to(bf)
+        y = pool_fwd_plain(x, k, k, "max", False, False)
+        dy = torch.randn(y.shape, generator=gen, device=dev).to(bf)
+        xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+        _, idx = F.max_pool2d(xn, k, k, return_indices=True)
+        nbytes = 2 * (2 * x.numel() + 2 * y.numel())
+        rows["pool_bwd_max"] = dict(
+            ms=time_call(lambda: fused_pool_bwd_max(x, y, dy, k, k, False)),
+            plain_ms=time_call(lambda: pool_bwd_max_plain(x, y, dy, k, k,
+                                                          False)),
+            library_ms=time_call(
+                lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                    dyn, xn, [k, k], [k, k], [0, 0], [1, 1], False, idx)),
+            bound=bound_ms(nbytes, x.numel()),
+            shape=f"spp1 3x3/3, x {shape} bf16",
+            library="aten.max_pool2d_with_indices_backward (indices "
+                    "from the forward)")
+    line = lambda k, r: (f"{k} {r['shape']}: {r['ms'] * 1e3:.2f} us, bound "
+                         f"{r['bound'][0] * 1e3:.2f} us ({r['bound'][1]}), "
+                         f"plain {r['plain_ms'] * 1e3:.2f} us, "
+                         f"{r['library']} {r['library_ms'] * 1e3:.2f} us")
+    print(f"times ({name}): train step {step_ms:.3f} ms, fused_kernels=0 "
+          f"{step_plain:.3f} ms (one batch from the host, CUDA events, "
+          f"median of 5) | " + " | ".join(line(k, r) for k, r in
+                                          rows.items()), flush=True)
+    return {"step_ms": step_ms, "step_plain_ms": step_plain,
+            "kernels": rows, "profile": prof}
+
+
+def _write_idx(path: str, arr: np.ndarray) -> None:
+    """An idx-ubyte file, gzipped (the MNIST layout)."""
+    import gzip
+    import struct
+    arr = np.ascontiguousarray(arr, dtype=np.uint8)
+    head = struct.pack(">i", 2048 + arr.ndim) + b"".join(
+        struct.pack(">i", d) for d in arr.shape)
+    with gzip.open(path, "wb") as f:
+        f.write(head + arr.tobytes())
+
+
+def phase_digits(seed: int, tmp: str) -> dict:
+    """The digits LeNet (``examples/digits/digits_lenet.conf``) trained
+    for one round through main.run on the card from idx files written
+    here from ``seed`` (1500 training images of 8x8, 300 to evaluate), its
+    paths pointed at them; the max-pool backward kernel must run."""
+    from cxxnet_tpu_torch.config import parse_config_file
+    from cxxnet_tpu_torch.main import run
+    from cxxnet_tpu_torch.ops import KERNELS, reset_launches
+    rs = np.random.RandomState(seed)
+    files = {}
+    for split, n in (("train", 1500), ("t10k", 300)):
+        for what, arr in (("images-idx3", rs.randint(0, 256, (n, 8, 8))),
+                          ("labels-idx1", rs.randint(0, 10, (n,)))):
+            p = os.path.join(tmp, f"{split}-{what}-ubyte.gz")
+            _write_idx(p, arr)
+            files[os.path.basename(p)] = p
+    cfg = [(k, files[os.path.basename(v)] if k in ("path_img", "path_label")
+            else v) for k, v in parse_config_file(DIGITS)]
+    cfg += [("dev", "gpu"), ("num_round", "1"), ("print_step", "5"),
+            ("seed", str(seed))]
+    box = {}
+
+    def ready(tr):
+        reset_launches()
+        box["t0"] = time.perf_counter()
+
+    tr = run(cfg, ready=ready)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - box["t0"]
+    launches = {k.name: k.launches for k in KERNELS.values()}
+    steps = tr.step_count
+    if steps != 15 or not np.isfinite(tr.last_loss):
+        raise AssertionError(f"digits LeNet: {steps} steps, loss "
+                             f"{tr.last_loss}")
+    check_launches("digits LeNet", launches, {"pool_bwd_max": steps},
+                   {"pool_fwd": steps, "sgd_apply": steps})
+    launches = {k: v for k, v in launches.items() if v}
+    print(f"digits: LeNet trained one round of {steps} steps from idx "
+          f"files through main.run in {took:.1f}s | loss "
+          f"{tr.last_loss:.4f} | launches {launches}", flush=True)
+    return {"steps": steps, "launches": launches, "seconds": took}
+
+
 # -- main ---------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -1699,11 +2135,18 @@ def main(argv=None) -> int:
     from cxxnet_tpu_torch.serve import InferenceEngine
     t_start = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    marks = [("start", t_start)]
+
+    def mark(what):
+        marks.append((what, time.perf_counter()))
     smi_line = phase_env()
     phase_build()
+    mark("build")
     errs = phase_kernels(gen)
     errs.update(phase_train_kernels(gen, args.conf))
     errs.update(phase_lm_kernels(gen, LM_CONF))
+    errs.update(phase_convnet_kernels(gen))
+    mark("kernels")
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         model = write_round(args.conf, args.seed, tmp, torch.device("cuda"))
@@ -1725,6 +2168,7 @@ def main(argv=None) -> int:
               f"prob diff {worst:.3g} (atol 2e-2) | latency_ms "
               f"{statz['latency_ms']} | batches {statz['batches']}", flush=True)
         times = phase_times(engine, gen)
+        mark("serve")
         del engine
         tr, plain_tr, batches, launches, notes = phase_train(
             args.conf, args.seed, tmp)
@@ -1733,21 +2177,41 @@ def main(argv=None) -> int:
     del tr, plain_tr
     torch.cuda.empty_cache()
     f32 = phase_train_f32(batches, notes["init"], glob)
+    mark("train")
     with tempfile.TemporaryDirectory() as tmp:
         tr, kern, plain_tr, lm_batches, lm_launches, lm_notes = phase_lm(
             args.seed, tmp)
     lm_times = phase_lm_times(tr, kern, plain_tr, lm_batches, gen)
+    mark("lm")
     del tr, kern, plain_tr
     torch.cuda.empty_cache()
+    # each kernel's time and launches from the path that runs it
+    source = {k: (train_times, launches) for k in TRAIN_KERNELS}
+    source.update({k: (lm_times, lm_launches) for k in lm_times["kernels"]})
+    convnets = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in CONVNETS:
+            tr, plain_tr, cbatches, claunches, cnotes = phase_convnet(
+                name, args.seed, tmp)
+            ctimes = phase_convnet_times(name, tr, plain_tr, cbatches, gen)
+            del tr, plain_tr, cbatches
+            torch.cuda.empty_cache()
+            convnets[name] = {"notes": cnotes, "times": ctimes,
+                              "launches": claunches}
+            mark(name)
+            source.update({k: (ctimes, claunches)
+                           for k in CONVNETS[name][3]})
+        digits = phase_digits(args.seed, tmp)
+        mark("digits")
     kernels = []
     for name, k in KERNELS.items():
-        lm = name in lm_times["kernels"]
-        r = (lm_times if lm else train_times)["kernels"][name]
+        times_of, launches_of = source[name]
+        r = times_of["kernels"][name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"cxxnet_tpu_torch/csrc/{k.source}",
             "replaces": k.replaces,
-            "launches": (lm_launches if lm else launches)[name],
+            "launches": launches_of[name],
             "max_abs_err": errs[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
@@ -1768,16 +2232,32 @@ def main(argv=None) -> int:
               "adam_inception_bn": {kk: vv for kk, vv in
                                     lm_times["adam_ibn"].items()
                                     if kk != "bound"},
+              "convnets": {n: {"step_ms": c["times"]["step_ms"],
+                               "step_plain_ms": c["times"]["step_plain_ms"],
+                               "profile": c["times"]["profile"],
+                               "kernels": {kk: {a: b for a, b in r.items()
+                                                if a != "bound"}
+                                           for kk, r in
+                                           c["times"]["kernels"].items()},
+                               **c["notes"]}
+                           for n, c in convnets.items()},
+              "digits": digits,
+              "phase_seconds": {b[0]: b[1] - a[1]
+                                for a, b in zip(marks, marks[1:])},
               "card": smi_line, "seconds": time.perf_counter() - t_start}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
             json.dump(result, f, indent=1)
+    print(f"chip_smoke: all phases passed in {result['seconds']:.1f}s ("
+          + ", ".join(f"{k} {v:.1f}s" for k, v in
+                      result["phase_seconds"].items()) + ")", flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
+    # the run uses one card, whatever else the host shows
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": 1}}), flush=True)
     return 0
 
 

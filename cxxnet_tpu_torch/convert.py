@@ -38,8 +38,12 @@ def _map(tree: Any, fn, leaf: str = "") -> Any:
 def params_from_jax(params_np: Dict, state_np: Dict
                     ) -> Tuple[Dict, Dict]:
     """JAX-layout trees (numpy arrays) -> port trees of float32 CPU
-    tensors, conv ``wmat`` transposed HWIO -> OIHW."""
+    tensors (integer leaves, insanity's ``step``, int32), conv ``wmat``
+    transposed HWIO -> OIHW."""
     def conv(leaf, a):
+        a = np.asarray(a)
+        if a.dtype.kind in "iu":
+            return torch.from_numpy(np.array(a, dtype=np.int32))
         a = np.array(a, dtype=np.float32)         # a writable copy
         if leaf == "wmat" and a.ndim == 4:
             a = np.ascontiguousarray(a.transpose(_HWIO_TO_OIHW))
@@ -49,9 +53,12 @@ def params_from_jax(params_np: Dict, state_np: Dict
 
 def params_to_jax(params: Dict, state: Dict) -> Tuple[Dict, Dict]:
     """Port trees (tensors on any device) -> JAX-layout trees of float32
-    numpy arrays (copies: later in-place updates of the tensors do not
-    reach them), conv ``wmat`` transposed OIHW -> HWIO."""
+    numpy arrays (integer leaves int32; copies: later in-place updates of
+    the tensors do not reach them), conv ``wmat`` transposed OIHW ->
+    HWIO."""
     def conv(leaf, t):
+        if not t.is_floating_point():
+            return np.array(t.detach().cpu().numpy(), dtype=np.int32)
         a = t.detach().float().cpu().numpy()
         if leaf == "wmat" and a.ndim == 4:
             a = a.transpose(_OIHW_TO_HWIO)

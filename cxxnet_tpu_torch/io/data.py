@@ -75,10 +75,10 @@ def register_iter(*names: str):
 def create_iterator(cfg: ConfigPairs) -> DataIter:
     """Build an iterator from one config section: each ``iter = <type>``
     entry names an iterator (``end`` closes the section); every other
-    pair is passed to it. The port reads ``synthetic`` and
-    ``synthetic_lm`` only; the other iterator types, chains and the keys
-    of ``NOT_YET_KEYS`` raise naming ROADMAP Queue A 2."""
-    from . import proc  # noqa: F401  (populate registry)
+    pair is passed to it. The port reads ``synthetic``, ``synthetic_lm``
+    and ``mnist``; the other iterator types, chains and the keys of
+    ``NOT_YET_KEYS`` raise naming ROADMAP Queue A 2."""
+    from . import iter_mnist, proc  # noqa: F401  (populate registry)
     kinds = [v for k, v in cfg if k == "iter" and v != "end"]
     params = [(k, v) for k, v in cfg if k != "iter"]
     for k, v in params:
@@ -90,9 +90,9 @@ def create_iterator(cfg: ConfigPairs) -> DataIter:
     for kind in kinds:
         if kind not in ITER_REGISTRY:
             raise ConfigError(
-                f"iter = {kind}: the PyTorch port reads iter = synthetic "
-                "and synthetic_lm only so far (ROADMAP Queue A 2, the "
-                "input pipeline)")
+                f"iter = {kind}: the PyTorch port reads iter = synthetic, "
+                "synthetic_lm and mnist only so far (ROADMAP Queue A 2, "
+                "the input pipeline)")
     if len(kinds) > 1:
         raise ConfigError(
             f"iterator chain {kinds}: chains of iterators are not in the "

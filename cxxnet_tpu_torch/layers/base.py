@@ -6,8 +6,10 @@ that the :class:`~cxxnet_tpu_torch.model.Network` keeps and hands to
 ``forward``, as the JAX package threads its pytrees through ``apply``.
 One ``forward`` serves eval and training (``ApplyCtx.train``); in
 training it is differentiable by PyTorch autograd, and layers with
-state (batch_norm's running statistics) hand their new state to
-``ApplyCtx.state_sink`` instead of returning it.
+state (batch_norm's running statistics, insanity's step counter) hand
+their new state to ``ApplyCtx.state_sink`` instead of returning it.
+Layers that draw random numbers in training (dropout, insanity) take
+them from ``ApplyCtx.draws``, a :class:`Draws` of their own.
 
 Tensor convention: every node is a 4-D NHWC tensor ``(batch, y, x, c)``,
 contiguous. "Flat" nodes are ``(batch, 1, 1, n)`` with features on the
@@ -18,6 +20,7 @@ tuples, as the config dialect's ``input_shape = c,y,x``.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -127,6 +130,40 @@ class LayerHyper:
         raise ValueError(f"unsupported random_type {self.random_type}")
 
 
+class Draws:
+    """The random draws of one layer in one training forward (the port of
+    the JAX package's per-layer key ``fold_in(fold_in(PRNGKey(seed),
+    step), layer)``, model.py:226 and trainer.py:709-715).
+
+    Each draw makes a fresh ``torch.Generator`` on ``device`` seeded from
+    (``seed``, ``step``, ``layer``), so the same triple gives the same
+    numbers whenever the forward runs: a resumed run draws what an
+    unbroken one would have, and a forward recomputed in the backward
+    (``torch.utils.checkpoint``, which restores only the default
+    generators) draws the same mask again. The numbers differ from
+    ``jax.random``'s; tests hand a layer the JAX layer's draws through an
+    object with these two methods."""
+
+    def __init__(self, seed: int, step: int, layer: int,
+                 device: torch.device):
+        self.device = torch.device(device)
+        h = hashlib.sha256(f"{seed}:{step}:{layer}".encode()).digest()
+        self._seed = int.from_bytes(h[:8], "little") & (2 ** 63 - 1)
+
+    def _generator(self) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(self._seed)
+
+    def keep_mask(self, shape, pkeep: float) -> torch.Tensor:
+        """Bernoulli(``pkeep``) booleans of ``shape``: True keeps."""
+        return torch.rand(shape, generator=self._generator(),
+                          device=self.device) < pkeep
+
+    def uniform(self, shape, dtype: torch.dtype) -> torch.Tensor:
+        """Uniform [0, 1) values of ``shape`` drawn in ``dtype``."""
+        return torch.rand(shape, generator=self._generator(),
+                          device=self.device, dtype=dtype)
+
+
 @dataclasses.dataclass
 class ApplyCtx:
     """Per-call context of ``Layer.forward``."""
@@ -145,6 +182,15 @@ class ApplyCtx:
     # with the batch moments of their input and record them here under
     # their name (model.calibrate_bn)
     calib_sink: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None
+    # training: this layer's random draws (dropout, insanity)
+    draws: Optional[Draws] = None
+
+    def draw_source(self, layer: str) -> Draws:
+        """The layer's draws; a training forward without them raises."""
+        if self.draws is None:
+            raise ValueError(f"layer {layer!r} draws random numbers in "
+                             "training: ApplyCtx.draws must be set")
+        return self.draws
 
 
 class Layer:

@@ -18,9 +18,12 @@ package; the other geometries are differentiated by autograd. ``F.max_pool2d`` /
 ``F.avg_pool2d`` with ``ceil_mode=True`` count windows and divide
 differently, so they are never given padding here.
 
+LRN (``lrn``) runs the LRN kernels (``ops/fused_lrn.Lrn``) when the
+kernels are selected and take the node, else the JAX layer's own
+arithmetic in the node's dtype.
+
 Left out: the JAX package's space-to-depth stem rewrite and stem
-channel padding, value-exact layout tricks for the TPU's matrix unit,
-and LRN, whose kernel is still to port (ROADMAP Queue B row 14).
+channel padding, value-exact layout tricks for the TPU's matrix unit.
 """
 
 from __future__ import annotations
@@ -30,9 +33,10 @@ from typing import List
 import torch
 import torch.nn.functional as F
 
+from ..ops.fused_lrn import lrn, lrn_takes
 from ..ops.fused_pool import kernel_geometry, pool, scale_in_dtype
 from .base import Layer, Params, Shape3, register_layer
-from .core import bias_act
+from .core import bias_act, const_like
 
 
 @register_layer("conv")
@@ -204,10 +208,42 @@ class ReluMaxPoolingLayer(_PoolingLayer):
 
 @register_layer("lrn")
 class LRNLayer(Layer):
-    """Cross-channel LRN: its kernel (cxxnet_tpu/ops/fused_lrn.py) is
-    still to port."""
+    """AlexNet's cross-channel local response normalization: ``y = x *
+    (knorm + alpha/nsize * window_sum(x^2))^-beta`` over a centered
+    channel window of ``local_size``. With the kernels selected and
+    ``knorm > 0`` it is the LRN kernels' autograd function (f32 inside);
+    otherwise the JAX layer's unfused arithmetic in the node's dtype:
+    x^2, the padded shifted window sum, ``exp(-beta * log(norm))``."""
+
+    def set_param(self, name, val):
+        if name == "local_size":
+            self.nsize = int(val)
+        elif name == "alpha":
+            self.alpha = float(val)
+        elif name == "beta":
+            self.beta = float(val)
+        elif name == "knorm":
+            self.knorm = float(val)
 
     def __init__(self, spec, global_cfg):
-        raise NotImplementedError(
-            f"lrn layer {spec.name!r}: not in the PyTorch port yet "
-            "(ROADMAP Queue B row 14, _lrn_fwd_kernel)")
+        self.nsize = 3
+        self.alpha = 0.001
+        self.beta = 0.75
+        self.knorm = 1.0
+        super().__init__(spec, global_cfg)
+
+    def infer_shapes(self, in_shapes):
+        self.check_n(in_shapes, 1, 1)
+        return [in_shapes[0]]
+
+    def forward(self, params, state, inputs, ctx):
+        x = inputs[0]
+        if ctx.fused and lrn_takes(x, self.knorm):
+            return [lrn(x, self.nsize, self.alpha, self.beta, self.knorm)]
+        half = self.nsize // 2
+        padded = F.pad(x * x, (half, self.nsize - 1 - half))
+        c = x.shape[-1]
+        win = sum(padded[..., i:i + c] for i in range(self.nsize))
+        ab = const_like(self.alpha / self.nsize, x)
+        norm = const_like(self.knorm, x) + ab * win
+        return [x * torch.exp(const_like(-self.beta, x) * torch.log(norm))]

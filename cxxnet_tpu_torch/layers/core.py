@@ -1,7 +1,14 @@
-"""Core (non-conv) layers: fullc, activations, flatten, dropout, split,
-concat (the port of ``cxxnet_tpu/layers/core.py``). Their training
-forwards are differentiated by PyTorch autograd; the fullc epilogue's
-backward is the epilogue kernel's (``ops/fused_epilogue.BiasAct``)."""
+"""Core (non-conv) layers: fullc, activations (xelu and the randomized
+insanity among them), flatten, dropout, split, concat (the port of
+``cxxnet_tpu/layers/core.py``). Their training forwards are
+differentiated by PyTorch autograd; the fullc epilogue's backward is the
+epilogue kernel's (``ops/fused_epilogue.BiasAct``).
+
+Arithmetic with a constant runs in the node's dtype, as JAX's weakly
+typed Python floats do: the constant is rounded to the dtype and held in
+a 0-dim tensor on the node's device (:func:`const_like`), so a division
+stays a division on the card (PyTorch turns a division by a Python
+scalar there into a product with its reciprocal)."""
 
 from __future__ import annotations
 
@@ -23,6 +30,11 @@ def _flat2d(x: torch.Tensor) -> torch.Tensor:
 def _as_node(x2d: torch.Tensor) -> torch.Tensor:
     """Lift (b, n) back to the flat node layout (b, 1, 1, n)."""
     return x2d.reshape(x2d.shape[0], 1, 1, x2d.shape[1])
+
+
+def const_like(v, like: torch.Tensor) -> torch.Tensor:
+    """``v`` as a 0-dim tensor of ``like``'s dtype and device."""
+    return torch.full((), v, dtype=like.dtype, device=like.device)
 
 
 def bias_act(x: torch.Tensor, bias, act: str, fused: bool) -> torch.Tensor:
@@ -95,6 +107,95 @@ class SoftplusLayer(_ActivationLayer):
     fn = staticmethod(F.softplus)
 
 
+def _xelu(x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """op::xelu: ``x > 0 ? x : x / b``."""
+    return torch.where(x > 0, x, x / b)
+
+
+@register_layer("xelu")
+class XeluLayer(_ActivationLayer):
+    """Leaky relu with divisor slope ``b`` (default 5)."""
+
+    def set_param(self, name, val):
+        if name == "b":
+            self.b = float(val)
+
+    def __init__(self, spec, global_cfg):
+        self.b = 5.0
+        super().__init__(spec, global_cfg)
+
+    def forward(self, params, state, inputs, ctx):
+        x = inputs[0]
+        return [_xelu(x, const_like(self.b, x))]
+
+
+@register_layer("insanity", "rrelu")
+class InsanityLayer(_ActivationLayer):
+    """Randomized leaky relu. Training: per-element divisor slopes drawn
+    U[lb, ub) in the node's dtype (``ctx.draws``) and the int32 ``step``
+    state advanced by one; eval: the slope ``(ub - lb) / (log ub - log
+    lb)`` in float32 (``(lb + ub) / 2`` when ``lb == ub``), rounded to
+    the dtype. ``calm_start``/``calm_end`` move (lb, ub) linearly toward
+    their midpoint over those updates, as the JAX package does; its
+    float32 bounds then make a training output float32, as JAX's type
+    promotion does. The pipeline's once-per-step state tick waits for
+    model parallelism (ROADMAP Queue A 9)."""
+    has_state = True
+
+    def set_param(self, name, val):
+        if name == "lb":
+            self.lb = float(val)
+        elif name == "ub":
+            self.ub = float(val)
+        elif name == "calm_start":
+            self.calm_start = int(val)
+        elif name == "calm_end":
+            self.calm_end = int(val)
+
+    def __init__(self, spec, global_cfg):
+        self.lb, self.ub = 5.0, 10.0
+        self.calm_start = self.calm_end = 0
+        super().__init__(spec, global_cfg)
+
+    def init_state(self, in_shapes):
+        return {"step": torch.zeros((), dtype=torch.int32)}
+
+    @property
+    def annealing(self) -> bool:
+        return self.calm_end > self.calm_start
+
+    def _bounds(self, step: torch.Tensor):
+        """(lb, ub) at ``step``: Python floats, or float32 0-dim tensors
+        while annealing."""
+        if not self.annealing:
+            return self.lb, self.ub
+        mid = 0.5 * (self.lb + self.ub)
+        t = ((step - self.calm_start).float()
+             / float(self.calm_end - self.calm_start)).clamp(0.0, 1.0)
+        return self.lb + t * (mid - self.lb), self.ub + t * (mid - self.ub)
+
+    def forward(self, params, state, inputs, ctx):
+        x = inputs[0]
+        step = state["step"]
+        lb, ub = self._bounds(step)
+        if ctx.train:
+            u = ctx.draw_source(self.name).uniform(x.shape, x.dtype)
+            if self.annealing:
+                x, slope = x.float(), u.float() * (ub - lb) + lb
+            else:
+                slope = u * const_like(ub - lb, x) + const_like(lb, x)
+            if ctx.state_sink is not None:
+                ctx.state_sink[self.name] = {"step": step + 1}
+            return [_xelu(x, slope)]
+        f32 = torch.float32
+        lb_, ub_ = (torch.as_tensor(v, dtype=f32).to(x.device)
+                    for v in (lb, ub))
+        denom = torch.log(ub_) - torch.log(lb_)
+        slope = torch.where(denom < 1e-8, 0.5 * (lb_ + ub_),
+                            (ub_ - lb_) / denom.clamp_min(1e-8))
+        return [_xelu(x, slope.to(x.dtype))]
+
+
 @register_layer("flatten")
 class FlattenLayer(Layer):
     """Reshape to a flat node; feature order (y, x, c) as in the JAX
@@ -110,8 +211,10 @@ class FlattenLayer(Layer):
 
 @register_layer("dropout")
 class DropoutLayer(Layer):
-    """Inverted dropout: identity at eval and at ``threshold = 0``; its
-    training mode is not ported yet."""
+    """Inverted dropout, ``threshold`` the drop probability: identity at
+    eval and at ``threshold = 0``; in training a keep mask Bernoulli(1 -
+    threshold) from ``ctx.draws`` and ``where(mask, x / pkeep, 0)``, the
+    division in the node's dtype."""
 
     def set_param(self, name, val):
         if name == "threshold":
@@ -128,11 +231,13 @@ class DropoutLayer(Layer):
         return [in_shapes[0]]
 
     def forward(self, params, state, inputs, ctx):
-        if ctx.train and self.threshold > 0.0:
-            raise NotImplementedError(
-                f"dropout {self.name!r}: its training mode is not in the "
-                "PyTorch port yet (ROADMAP Queue A 6, remaining layers)")
-        return [inputs[0]]
+        x = inputs[0]
+        if not ctx.train or self.threshold == 0.0:
+            return [x]
+        pkeep = 1.0 - self.threshold
+        mask = ctx.draw_source(self.name).keep_mask(x.shape, pkeep)
+        return [torch.where(mask, x / const_like(pkeep, x),
+                            const_like(0.0, x))]
 
 
 @register_layer("split")

@@ -14,7 +14,10 @@ input node holds images (NHWC) or, for sequence models, token ids as
 floats in a flat ``(batch, 1, 1, S)`` node, which ``embed`` reads.
 With ``remat = 1`` the training pass wraps each layer that has
 parameters in ``torch.utils.checkpoint`` (the JAX package's
-``jax.checkpoint``): its forward runs again in the backward.
+``jax.checkpoint``): its forward runs again in the backward. Layers that
+draw in training (dropout, insanity) get a ``layers.Draws`` of their own
+per pass, seeded from (``seed``, the step, the layer's index), as the
+JAX package folds the layer index into the step's key.
 
 Weights live on the network's device as float32 masters. For the eval
 forward the leaves a layer computes with (conv and fullc ``wmat``) are
@@ -29,7 +32,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,7 +43,7 @@ from .config import ConfigPairs, Policy
 from .device import resolve_device
 from .graph import NetGraph, act_fusion_plan, global_param, policy_from_config
 from .layers import ApplyCtx, Layer, create_layer
-from .layers.base import Shape3, to_nhwc
+from .layers.base import Draws, Shape3, to_nhwc
 from .ops.fused import kernels_active, resolve_mode
 from .optim import get_leaf, leaves, unflatten
 
@@ -81,6 +84,7 @@ class Network(nn.Module):
         # the backward and runs its forward again there (the JAX
         # package's jax.checkpoint per layer)
         self.remat = bool(int(global_param(cfg, "remat", "0")))
+        self.seed = int(global_param(cfg, "seed", "0"))
         self.layers: List[Layer] = []
         for spec in graph.layers:
             if spec.is_shared:
@@ -171,7 +175,11 @@ class Network(nn.Module):
                     raise ValueError(
                         f"{what} {'/'.join(path)}: shape {tuple(v.shape)} "
                         f"!= {shp} implied by the net config")
-                out.append((path, v.to(self.device, torch.float32)))
+                # float leaves as float32; integer state (insanity's
+                # step counter) keeps its int32
+                dt = torch.int32 if not v.is_floating_point() \
+                    else torch.float32
+                out.append((path, v.to(self.device, dt)))
             return unflatten(out)
 
         params_d = place(params, want_p, "params")
@@ -218,12 +226,14 @@ class Network(nn.Module):
     def _walk(self, params: Params, state: NetState, data: torch.Tensor,
               ctx_fields: Dict[str, Any],
               label: Optional[torch.Tensor] = None,
-              mask: Optional[torch.Tensor] = None):
+              mask: Optional[torch.Tensor] = None,
+              draws: Optional[Callable[[int], Any]] = None):
         """The one walk of :meth:`forward` and :meth:`apply`: each layer
         over its input nodes with its leaves of ``params`` (already cast)
-        and an ``ApplyCtx(**ctx_fields)`` carrying the act-fold plan.
-        Returns the node values and the f32 sum of the loss layers'
-        losses (0 without a label)."""
+        and an ``ApplyCtx(**ctx_fields)`` carrying the act-fold plan and,
+        given ``draws``, ``draws(layer index)``. Returns the node values
+        and the f32 sum of the loss layers' losses (0 without a
+        label)."""
         g = self.graph
         want = to_nhwc(g.input_shape, data.shape[0])
         if tuple(data.shape) != want:
@@ -236,7 +246,9 @@ class Network(nn.Module):
                 # relu folded into its producer (graph.act_fusion_plan)
                 nodes[spec.nindex_out[0]] = nodes[spec.nindex_in[0]]
                 continue
-            ctx = ApplyCtx(fuse_act=self._fuse_act.get(li), **ctx_fields)
+            ctx = ApplyCtx(fuse_act=self._fuse_act.get(li),
+                           draws=draws(li) if draws is not None else None,
+                           **ctx_fields)
             run = functools.partial(self._run_layer, layer,
                                     params.get(layer.name, {}),
                                     state.get(layer.name, {}), ctx)
@@ -289,7 +301,8 @@ class Network(nn.Module):
     def apply(self, params: Params, state: NetState, data: torch.Tensor,
               label: Optional[torch.Tensor] = None,
               mask: Optional[torch.Tensor] = None, train: bool = False,
-              capture_nodes: bool = False):
+              capture_nodes: bool = False, step: int = 0,
+              draws: Optional[Callable[[int], Any]] = None):
         """One differentiable pass (the JAX package's ``Network.apply``):
         returns ``(loss, new_state, nodes)``. ``params`` are the f32
         masters (leaves that may require grad); each layer casts its
@@ -298,16 +311,22 @@ class Network(nn.Module):
         rows (None = all). ``loss`` is the f32 sum of the loss layers'
         losses (0 without a label); ``new_state`` is ``state`` with the
         training updates of layers that keep state (batch_norm's
-        running statistics, no grad); ``nodes`` maps node names to
-        values: every node with ``capture_nodes``, else the last one."""
+        running statistics and insanity's step counter, no grad);
+        ``nodes`` maps node names to values: every node with
+        ``capture_nodes``, else the last one. In training each layer draws
+        from ``Draws(seed, step, layer index)``; ``draws`` replaces that
+        factory (tests hand the JAX package's draws in)."""
         if mask is None:
             mask = torch.ones((data.shape[0],), dtype=torch.float32,
                               device=data.device)
         sink: Dict[str, Dict[str, torch.Tensor]] = {}
+        if train and draws is None:
+            draws = functools.partial(Draws, self.seed, step,
+                                      device=data.device)
         nodes, loss = self._walk(
             self._cast_tree(params, self.compute_dtype), state, data,
             dict(compute_dtype=self.compute_dtype, fused=self.fused,
-                 train=train, state_sink=sink), label, mask)
+                 train=train, state_sink=sink), label, mask, draws)
         new_state = {l: dict(d) for l, d in state.items()}
         new_state.update(sink)
         top = self._top()

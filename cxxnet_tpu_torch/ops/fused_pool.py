@@ -19,9 +19,9 @@ pooling (layers/conv.py).
 
 The backward of sum and avg (``csrc/pool_bwd.cu``) gives every cell of
 a window that window's dy, times the avg scale rounded to the dtype.
-The first-match max backward is still to port (ROADMAP Queue B row 2):
-:class:`Pool` raises when a max pool's backward reaches it on the card,
-and computes the plain first-match backward on the CPU.
+The backward of max (``csrc/pool_bwd_max.cu``) gives the whole dy to the
+first cell of the window, in row-major order, that equals the max
+(XLA's select-and-scatter semantics), with no cap on the window size.
 """
 
 from __future__ import annotations
@@ -47,6 +47,15 @@ POOL_BWD = register(Kernel(
     argtypes=[ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
               ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]))
+
+
+POOL_BWD_MAX = register(Kernel(
+    "pool_bwd_max", "pool_bwd_max.cu",
+    replaces="cxxnet_tpu/ops/fused_pool.py:92",
+    argtypes=[ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+              ctypes.c_int, ctypes.c_void_p]))
 
 
 def kernel_geometry(h: int, w: int, kh: int, kw: int, stride: int,
@@ -189,11 +198,41 @@ def fused_pool_bwd_lin(dy: torch.Tensor, kh: int, kw: int,
     return dx
 
 
+def fused_pool_bwd_max(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
+                       kh: int, kw: int, pre_relu: bool) -> torch.Tensor:
+    """First-match max pooling backward of windows that tile ``x`` (a
+    global window is the one-tile case): ``y`` is the forward's output,
+    ``dy`` its gradient. A CUDA tensor goes to the kernel; a CPU tensor
+    to :func:`pool_bwd_max_plain`."""
+    _check(x, kh, kw, "max")
+    b, h, w, c = x.shape
+    want = (b, h // kh, w // kw, c)
+    if tuple(y.shape) != want or tuple(dy.shape) != want:
+        raise ValueError(f"max pool backward: y {tuple(y.shape)} and dy "
+                         f"{tuple(dy.shape)} must be {want}")
+    if x.device.type == "cpu":
+        return pool_bwd_max_plain(x, y, dy, kh, kw, pre_relu)
+    if x.device.type != "cuda":
+        raise ValueError(f"max pool backward: no kernel for device "
+                         f"{x.device}")
+    code = check_cuda_input("max pool backward", x)
+    for t in (y, dy):
+        if check_cuda_input("max pool backward", t) != code or \
+                t.device != x.device:
+            raise ValueError("max pool backward: x, y and dy must share "
+                             "dtype and device")
+    dx = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        POOL_BWD_MAX.launch(x.data_ptr(), y.data_ptr(), dy.data_ptr(),
+                            dx.data_ptr(), b, h, w, c, kh, kw, code,
+                            int(pre_relu), stream_handle(x.device))
+    return dx
+
+
 class Pool(torch.autograd.Function):
     """Pooling over tiling or global windows: forward :func:`fused_pool`,
-    backward :func:`fused_pool_bwd_lin` for sum and avg. A max pool's
-    backward raises on the card (its kernel is ROADMAP Queue B row 2)
-    and is :func:`pool_bwd_max_plain` on the CPU."""
+    backward :func:`fused_pool_bwd_lin` for sum and avg and
+    :func:`fused_pool_bwd_max` for max."""
 
     @staticmethod
     def forward(ctx, x, kh, kw, reducer, scale_avg, pre_relu):
@@ -209,13 +248,7 @@ class Pool(torch.autograd.Function):
         dy = dy.contiguous()
         if reducer == "max":
             x, y = ctx.saved_tensors
-            if dy.device.type != "cpu":
-                raise NotImplementedError(
-                    "max pooling backward over tiling windows on the card "
-                    "needs _pool_bwd_max_kernel, not in the PyTorch port "
-                    "yet (ROADMAP Queue B row 2); fused_kernels = 0 "
-                    "selects the plain pooling")
-            dx = pool_bwd_max_plain(x, y, dy, kh, kw, pre_relu)
+            dx = fused_pool_bwd_max(x, y, dy, kh, kw, pre_relu)
         else:
             dx = fused_pool_bwd_lin(dy, kh, kw, scale_avg)
         return dx, None, None, None, None, None

@@ -173,7 +173,8 @@ class Trainer:
         data, label = self._to_device(batch)
         loss, new_state, nodes = self.net.apply(
             self.params, self.net.state, data, label, self._mask(batch),
-            train=True, capture_nodes=bool(self._metric_nodes))
+            train=True, capture_nodes=bool(self._metric_nodes),
+            step=self.step_count)
         flat = leaves(self.params)
         grads = torch.autograd.grad(loss, [v for _, v in flat])
         return loss, new_state, nodes, unflatten(

@@ -22,9 +22,14 @@ from cxxnet_tpu_torch.ops import attention as att
 from cxxnet_tpu_torch.ops.fused_optim import (adam_apply_plain,
                                               fused_adam_apply,
                                               fused_sgd_apply, sgd_apply_plain)
+from cxxnet_tpu_torch.ops.fused_lrn import (Lrn, fused_lrn_bwd,
+                                            fused_lrn_fwd, lrn_bwd_plain,
+                                            lrn_plain)
 from cxxnet_tpu_torch.ops.fused_pool import (Pool, fused_pool,
                                              fused_pool_bwd_lin,
+                                             fused_pool_bwd_max,
                                              pool_bwd_lin_plain,
+                                             pool_bwd_max_plain,
                                              pool_fwd_plain)
 
 pytestmark = pytest.mark.cuda
@@ -88,7 +93,8 @@ def test_each_launch_counts_once(dev):
     assert {k: v.launches for k, v in KERNELS.items()} == \
         {"pool_fwd": 2, "epilogue_fwd": 1, "pool_bwd": 0, "epilogue_bwd": 0,
          "bn_fwd": 0, "bn_bwd": 0, "sgd_apply": 0, "adam_apply": 0,
-         "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+         "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+         "lrn_fwd": 0, "lrn_bwd": 0, "pool_bwd_max": 0}
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -152,11 +158,65 @@ def test_pool_backward_kernel_matches_plain(dev, dtype, shape, kh, kw, avg):
                        pool_bwd_lin_plain(dy, kh, kw, avg))
 
 
-def test_max_pool_backward_on_the_card_names_its_roadmap_row(dev):
-    x = _randn((2, 8, 8, 16), torch.float32, dev).requires_grad_(True)
-    y = Pool.apply(x, 2, 2, "max", False, False)
-    with pytest.raises(NotImplementedError, match="Queue B row 2"):
-        y.sum().backward()
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape,k,relu", [
+    ((128, 27, 27, 256), 3, False),    # the SPP net's spp1
+    ((100, 8, 8, 32), 2, True),        # the digits LeNet's pool
+    ((6, 7, 7, 40), 7, False),         # a global 7x7 max (49 cells)
+    ((3, 4, 6, 5), 2, True)])
+def test_max_pool_backward_kernel_is_bit_equal_to_plain(dev, dtype, shape, k,
+                                                        relu):
+    """Inputs from a few integer values, so that ties abound: the first
+    match in row-major order takes dy, exactly as the plain version."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randint(-2, 3, shape, generator=g, device=dev).to(dtype)
+    y = pool_fwd_plain(x, k, k, "max", False, relu)
+    dy = _randn(y.shape, dtype, dev, seed=4)
+    got = fused_pool_bwd_max(x, y, dy, k, k, relu)
+    assert torch.equal(got, pool_bwd_max_plain(x, y, dy, k, k, relu))
+    xr = x.detach().clone().requires_grad_(True)
+    (dx,) = torch.autograd.grad(Pool.apply(xr, k, k, "max", False, relu),
+                                [xr], dy)
+    assert torch.equal(dx, got)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("nsize", [3, 4, 5])
+@pytest.mark.parametrize("shape,knorm,beta", [
+    ((256, 27, 27, 96), 1.0, 0.75),    # AlexNet's lrn1
+    ((256, 13, 13, 256), 1.0, 0.75),   # AlexNet's lrn2
+    ((1, 1, 7, 7), 2.0, 0.5), ((1, 1, 3, 1500), 1.0, 0.75),
+    ((3, 5, 7, 33), 2.0, 0.75)])
+def test_lrn_kernels_match_plain(dev, dtype, nsize, shape, knorm, beta):
+    """Within 4 float32 ulp of max|plain| in float32 and one ulp of the
+    dtype of the value in bfloat16 and float16 (expf/logf against
+    PyTorch's exp/log; the same sums in the same order)."""
+    x = _randn(shape, dtype, dev) * 3
+    dy = _randn(shape, dtype, dev, seed=1)
+    alpha = 1e-4 if shape[0] == 256 else 0.1
+    y, y0 = (f(x, nsize, alpha, beta, knorm) for f in (fused_lrn_fwd,
+                                                       lrn_plain))
+    dx, dx0 = (f(x, dy, nsize, alpha, beta, knorm)
+               for f in (fused_lrn_bwd, lrn_bwd_plain))
+    for got, want in ((y, y0), (dx, dx0)):
+        assert got.dtype == dtype
+        err = (got.float() - want.float()).abs()
+        if dtype == torch.float32:
+            ok = err <= 4 * 2.0 ** -23 * want.abs().max()
+        else:
+            ok = err <= ULP[dtype] * want.float().abs() + 1e-30
+        assert bool(ok.all()), err.max()
+
+
+def test_lrn_function_launches_each_kernel_once(dev):
+    for k in KERNELS.values():
+        k.launches = 0
+    x = _randn((4, 5, 5, 64), torch.bfloat16, dev).requires_grad_(True)
+    y = Lrn.apply(x, 5, 1e-4, 0.75, 1.0)
+    y.float().sum().backward()
+    torch.cuda.synchronize()
+    assert KERNELS["lrn_fwd"].launches == 1
+    assert KERNELS["lrn_bwd"].launches == 1
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)

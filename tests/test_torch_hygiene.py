@@ -53,7 +53,12 @@ def test_port_files_exist():
             "cxxnet_tpu_torch/trainer.py", "cxxnet_tpu_torch/optim.py",
             "cxxnet_tpu_torch/metrics.py",
             "cxxnet_tpu_torch/ops/attention.py",
-            "cxxnet_tpu_torch/layers/seq.py"} <= names
+            "cxxnet_tpu_torch/layers/seq.py",
+            "cxxnet_tpu_torch/ops/fused_lrn.py",
+            "cxxnet_tpu_torch/io/iter_mnist.py"} <= names
+    csrc = {os.path.basename(p) for p in glob.glob(
+        os.path.join(REPO, "cxxnet_tpu_torch", "csrc", "*.cu"))}
+    assert {"lrn_fwd.cu", "lrn_bwd.cu", "pool_bwd_max.cu"} <= csrc
     assert len(names) > 30
 
 
@@ -102,6 +107,13 @@ def test_train_entry_point_without_cuda_raises(no_cuda, tmp_path):
     conf.write_text(IBN_TEXT)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_main.main([str(conf), "task=train"])
+
+
+@pytest.mark.parametrize("conf", ["alexnet.conf", "kaiming.conf"])
+def test_convnet_train_entry_points_without_cuda_raise(no_cuda, conf):
+    path = os.path.join(REPO, "examples", "ImageNet", conf)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_main.main([path, "task=train"])
 
 
 def test_lm_train_entry_point_without_cuda_raises(no_cuda):

@@ -115,7 +115,8 @@ def test_wrappers_take_the_plain_version_on_cpu_and_count_nothing():
         {k: 0 for k in ("pool_fwd", "pool_bwd", "epilogue_fwd",
                         "epilogue_bwd", "bn_fwd", "bn_bwd", "sgd_apply",
                         "adam_apply", "flash_fwd", "flash_bwd_dq",
-                        "flash_bwd_dkv")}
+                        "flash_bwd_dkv", "lrn_fwd", "lrn_bwd",
+                        "pool_bwd_max")}
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take():

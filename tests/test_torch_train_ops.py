@@ -3,7 +3,10 @@ Pallas kernels, run in interpret mode on the CPU:
 
 * ``pool_bwd_lin_plain`` and the ``Pool`` autograd function against the
   vjp of ``cxxnet_tpu/ops/fused_pool.fused_pool`` (``_pool_bwd_lin_kernel``
-  for sum and avg, ``_pool_bwd_max_kernel`` for the CPU's max backward);
+  for sum and avg, ``_pool_bwd_max_kernel`` for max, whose plain version
+  is ``pool_bwd_max_plain``); a max window past the JAX kernel's 16
+  cells (the 7x7 global max) against the JAX package's
+  ``pool_reference``, whose vjp is XLA's select-and-scatter;
 * ``epilogue_bwd_plain`` and the ``BiasAct`` function against the vjp of
   ``fused_epilogue.fused_bias_act`` (``_epi_bwd_kernel``);
 * ``sgd_apply_plain`` and the port's ``Optimizer`` against
@@ -28,12 +31,15 @@ from cxxnet_tpu.config import parse_config_string as jax_parse
 from cxxnet_tpu.ops.fused_epilogue import fused_bias_act as jax_bias_act
 from cxxnet_tpu.ops.fused_optim import fused_sgd_apply as jax_sgd_apply
 from cxxnet_tpu.ops.fused_pool import fused_pool as jax_pool
+from cxxnet_tpu.ops.fused_pool import pool_reference
 from cxxnet_tpu.optim import Optimizer as JaxOptimizer
 from cxxnet_tpu_torch.config import parse_config_string
 from cxxnet_tpu_torch.ops import KERNELS
 from cxxnet_tpu_torch.ops.fused_epilogue import bias_act, epilogue_bwd_plain
 from cxxnet_tpu_torch.ops.fused_optim import fused_sgd_apply, sgd_apply_plain
-from cxxnet_tpu_torch.ops.fused_pool import pool, pool_bwd_lin_plain
+from cxxnet_tpu_torch.ops.fused_pool import (pool, pool_bwd_lin_plain,
+                                             pool_bwd_max_plain,
+                                             pool_fwd_plain)
 from cxxnet_tpu_torch.optim import Optimizer
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -54,13 +60,17 @@ def _f32(a):
 
 
 # (id, x shape, kh, kw, reducer, scale_avg, pre_relu): global 7x7 and 2x2
-# windows (16 rows), 2x2/2 tiles; max only where the JAX gate takes it
+# windows (16 rows), 2x2/2 tiles, the SPP net's 3x3/3 tile (spp1) and a
+# 7x7 global max, which the JAX kernel refuses (49 cells > 16)
 POOLS = [("global7-avg", (16, 7, 7, 32), 7, 7, "sum", True, False),
          ("global7-sum", (16, 7, 7, 32), 7, 7, "sum", False, False),
          ("global2-avg", (16, 2, 2, 24), 2, 2, "sum", True, False),
          ("tile-avg", (4, 8, 8, 16), 2, 2, "sum", True, False),
          ("tile-max", (4, 8, 8, 16), 2, 2, "max", False, False),
-         ("tile-relumax", (4, 8, 8, 16), 2, 2, "max", False, True)]
+         ("tile-relumax", (4, 8, 8, 16), 2, 2, "max", False, True),
+         ("tile3-max", (16, 9, 9, 16), 3, 3, "max", False, False),
+         ("tile3-relumax", (16, 9, 9, 16), 3, 3, "max", False, True),
+         ("global7-max", (16, 7, 7, 16), 7, 7, "max", False, False)]
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -77,7 +87,13 @@ def test_pool_backward_matches_jax_vjp(case, dtype):
     xj, dyj = jnp.asarray(x).astype(jdt), jnp.asarray(dy).astype(jdt)
     call = lambda a: jax_pool(a, kh, kw, kh, (0, 0), (0, 0), red, avg, relu,
                               interpret=True)
-    assert "pallas_call" in str(jax.make_jaxpr(
+    if call(xj) is None:          # past the JAX kernel's max-window cap
+        assert red == "max" and kh * kw > 16
+        call = lambda a: pool_reference(a, kh, kw, kh, red, avg, relu)
+        site = "select_and_scatter"
+    else:
+        site = "pallas_call"
+    assert site in str(jax.make_jaxpr(
         lambda a, d: jax.vjp(call, a)[1](d))(xj, dyj))
     _, vjp = jax.vjp(call, xj)
     want = _f32(vjp(dyj)[0])
@@ -86,6 +102,11 @@ def test_pool_backward_matches_jax_vjp(case, dtype):
     (got,) = torch.autograd.grad(y, [xt], _t(_f32(dyj), tdt))
     assert got.dtype == tdt
     np.testing.assert_array_equal(_np(got), want)
+    if red == "max":
+        xd = xt.detach()
+        np.testing.assert_array_equal(_np(pool_bwd_max_plain(
+            xd, pool_fwd_plain(xd, kh, kw, red, avg, relu),
+            _t(_f32(dyj), tdt), kh, kw, relu)), want)
     if red == "sum":
         np.testing.assert_array_equal(
             _np(pool_bwd_lin_plain(_t(_f32(dyj), tdt), kh, kw, avg)), want)
