@@ -105,6 +105,25 @@ and prints no result:
             through ``main.run`` on the card from gzipped idx files
             written from ``--seed``; ``pool_bwd_max`` launches once a
             step.
+10. int8:   the int8 product ``q_mm`` bit-equal to ``q_mm_plain`` at the
+            int8 paths' shapes (fc1 at M 1, 8, 32; conv1 as im2col at
+            bucket 32, K 147; an inception 3x3, K 576; AlexNet's grouped
+            conv2; fc6 and fc7 at M 32; 7x13x5; K 4096 with every code
+            at +-127, |acc| past 2^24), with bias and relu and without.
+            Phase 4's Inception-BN round quantized by ``python -m
+            cxxnet_tpu_torch.quant``'s ``main()`` over synthetic batches
+            from ``--seed`` (its drift line printed) and served over
+            HTTP by ``main.run`` with ``serve_dtype=int8``: launch counts
+            set to 0 just before the requests and read just after, 70
+            ``q_mm`` a forward (69 convs and fc1); finite rows summing to
+            1, held against an int8 engine with ``fused_kernels = 0``
+            (INT8_ROW_ATOL). AlexNet (``alexnet.conf``, random weights)
+            quantized the same way and run by the int8 engine at bucket
+            32: 8 ``q_mm`` a forward, held the same way. The int8
+            rows against fp32 (rel L2, top-1) printed, not gated: random
+            weights. Times: the int8 forward per bucket beside phase 5's
+            bf16 one, and ``q_mm`` at each path shape beside its bound,
+            its plain version and ``torch._int_mm`` with the epilogue.
 
 Then, on lines of their own: the card's name and power limit as
 ``nvidia-smi`` reports them, the kernels JSON line, and last
@@ -138,6 +157,9 @@ FLAGSHIP = os.path.join(ROOT, "examples", "ImageNet", "inception_bn.conf")
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+#: and the int8 tensor cores' dense operations per second (the peak for
+#: the int8 product of phase 10)
+INT8_OPS = 1979e12
 
 BUCKETS = (1, 8, 32)
 SERVE_KERNELS = ("pool_fwd", "epilogue_fwd")
@@ -249,7 +271,8 @@ def time_loop(fn, reps: int = 20) -> float:
 
 
 #: kernel-name fragments -> what the time is spent on (first match wins)
-_KINDS = (("flash_fwd_kernel", "flash fwd kernel"),
+_KINDS = (("q_mm_kernel", "q_mm kernel"),
+          ("flash_fwd_kernel", "flash fwd kernel"),
           ("flash_bwd_dq_kernel", "flash dq kernel"),
           ("flash_bwd_dkv_kernel", "flash dkv kernel"),
           ("adam_apply_kernel", "adam kernel"), ("embedding", "embedding"),
@@ -853,9 +876,9 @@ def phase_serve(conf: str, seed: int, model_path: str, extra=()):
     return srv.engine, launches, answers, statz
 
 
-def check_answers(engine_plain, answers) -> float:
+def check_answers(engine_plain, answers, atol: float = 2e-2) -> float:
     """Softmax rows finite and summing to 1 (1e-3); classes in range;
-    the answers held against the plain engine (atol 2e-2 on
+    the answers held against the plain engine (``atol`` on
     probabilities, top-1 equal where the margin exceeds 0.05)."""
     worst = 0.0
     for rows, raw, got in answers:
@@ -866,8 +889,8 @@ def check_answers(engine_plain, answers) -> float:
             if np.abs(got.sum(1) - 1.0).max() > 1e-3:
                 raise AssertionError("softmax rows do not sum to 1")
             worst = max(worst, float(np.abs(got - want).max()))
-            if worst > 2e-2:
-                raise AssertionError(f"kernels vs plain: {worst} > 2e-2")
+            if worst > atol:
+                raise AssertionError(f"kernels vs plain: {worst} > {atol}")
             pred = got.argmax(1)
         else:
             pred = got.astype(np.int64)
@@ -2119,6 +2142,283 @@ def phase_digits(seed: int, tmp: str) -> dict:
     return {"steps": steps, "launches": launches, "seconds": took}
 
 
+# -- phase 10 -----------------------------------------------------------------
+
+#: q_mm cases of phase 10 at the int8 serve paths' shapes (and odd ones):
+#: name -> (M, K, N per group, groups, all codes at +-127)
+Q_MM_CASES = {
+    "fc1 b1": (1, 1024, 1000, 1, False),
+    "fc1 b8": (8, 1024, 1000, 1, False),
+    "fc1 b32": (32, 1024, 1000, 1, False),
+    "conv1 b32": (BUCKETS[-1] * 112 * 112, 147, 64, 1, False),
+    "3a 3x3 b32": (BUCKETS[-1] * 28 * 28, 576, 64, 1, False),
+    "alex conv2 b32": (BUCKETS[-1] * 27 * 27, 1200, 128, 2, False),
+    "fc6 b32": (32, 9216, 4096, 1, False),
+    "fc7 b32": (32, 4096, 4096, 1, False),
+    "odd": (7, 13, 5, 1, False),
+    "K4096 +-127": (5, 4096, 3, 1, True),
+}
+#: the case whose numbers stand in the kernels JSON line: the largest
+#: product of the served Inception-BN forward at bucket 32
+Q_MM_PATH = "conv1 b32"
+#: launches of q_mm per int8 forward: Inception-BN's 69 convs and fc1;
+#: AlexNet's 5 convs (the grouped ones one launch each) and fc6-fc8
+Q_MM_PER_FORWARD = {"inception_bn": 70, "alexnet": 8}
+#: int8 engine with the kernels against fused_kernels = 0 on the same
+#: round and rows: the largest probability difference. Read 0 for both
+#: nets (PERF.md section 2): q_mm is bit-equal to its plain version.
+#: The global pool kernel may sum in another order than the plain pool,
+#: which can move one of fc1's input codes by a step: a logit by about
+#: act_scale/127 * |w| (2e-3 at random weights), a probability by less
+#: than 5e-4; the bound is twice that
+INT8_ROW_ATOL = 1e-3
+
+
+def _codes(shape, gen, extreme):
+    dev = gen.device
+    if extreme:
+        return torch.where(torch.rand(shape, generator=gen, device=dev) < 0.9,
+                           127, -127).to(torch.int8)
+    return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                         dtype=torch.int8)
+
+
+def q_mm_case(gen, name):
+    """Operands of one Q_MM_CASES case on the card: (xq, wt, factor,
+    bias, groups)."""
+    m, k, n, g, extreme = Q_MM_CASES[name]
+    dev = gen.device
+    xq = _codes((m, g * k), gen, extreme)
+    wt = _codes((g * n, k), gen, extreme)
+    f = torch.rand((g * n,), generator=gen, device=dev) * 1e-3
+    b = torch.randn((g * n,), generator=gen, device=dev)
+    return xq, wt, f, b, g
+
+
+def phase_int8_kernels(gen: torch.Generator) -> dict:
+    """q_mm against q_mm_plain at every Q_MM_CASES shape, with bias and
+    relu and without: bit-equal (an exact int32 sum on both sides, then
+    the same two f32 roundings). Returns the largest error at the path's
+    shape."""
+    from cxxnet_tpu_torch.ops.fused_quant import q_mm, q_mm_plain
+    lines, worst = [], {}
+    for name in Q_MM_CASES:
+        xq, wt, f, b, g = q_mm_case(gen, name)
+        errs = []
+        for bias, act in ((b, "relu"), (None, "none")):
+            got = q_mm(xq, wt, f, bias, act, g)
+            want = q_mm_plain(xq, wt, f, bias, act, g)
+            torch.cuda.synchronize()
+            errs.append((got - want).abs().max().item())
+        worst[name] = max(errs)
+        lines.append(f"{name} {tuple(xq.shape)}x{tuple(wt.shape)} G {g}: "
+                     f"max_abs_err {worst[name]:.3g}")
+        if worst[name] != 0.0:
+            raise AssertionError("q_mm disagrees with q_mm_plain (tol 0): "
+                                 + lines[-1])
+        del xq, wt, got, want
+    torch.cuda.empty_cache()
+    print(f"kernels (int8): q_mm bit-equal to q_mm_plain in "
+          f"{2 * len(lines)} cases (bias+relu, none) | " + " | ".join(lines),
+          flush=True)
+    return {"q_mm": worst[Q_MM_PATH]}
+
+
+def write_conf(path: str, pairs) -> str:
+    """``pairs`` as a config file of the key=value dialect."""
+    def q(v):
+        if v and not any(ch in v for ch in " \t\r\n#='\"\\"):
+            return v
+        return "'" + v.replace("\\", "\\\\").replace("'", "\\'") + "'"
+    with open(path, "w") as f:
+        f.writelines(f"{k} = {q(v)}\n" for k, v in pairs)
+    return path
+
+
+def quantize_round(conf: str, model: str, seed: int, tmp: str, tag: str,
+                   image: str, batch: int = BUCKETS[-1]) -> tuple:
+    """The round ``model`` quantized by ``python -m cxxnet_tpu_torch.quant``'s
+    ``main()`` over 2 synthetic batches of ``batch`` from ``seed``; returns
+    (path, exit code, the drift verdict line)."""
+    import contextlib
+    import io
+    from cxxnet_tpu_torch.quant.__main__ import main as quant_main
+    cfg_path = write_conf(os.path.join(tmp, f"{tag}-calib.conf"), train_cfg(
+        conf, seed + 3, tmp, batch=batch, steps=2, image=image))
+    out = os.path.join(tmp, f"{tag}-int8.model")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = quant_main([cfg_path, model, out, "quant_calib_batches=2"])
+    lines = buf.getvalue().strip().splitlines()
+    if rc not in (0, 2) or not lines or "quant drift" not in lines[-1]:
+        raise AssertionError(f"quantize {tag}: exit {rc}, output {lines[-3:]}")
+    return out, rc, lines[-1]
+
+
+def _int8_vs_fp(got, want):
+    """(rel L2 of the softmax rows, top-1 agreement, mean top
+    probability of int8 and of fp32) of int8 vs fp32 rows."""
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    return (rel, float(np.mean(got.argmax(1) == want.argmax(1))),
+            float(got.max(1).mean()), float(want.max(1).mean()))
+
+
+def phase_int8(conf: str, seed: int, tmp: str, bf16_forward) -> dict:
+    """Inception-BN quantized and served int8 over HTTP through main.run,
+    AlexNet int8 through the engine at bucket 32; launches, answers
+    against fused_kernels = 0, and times."""
+    from cxxnet_tpu_torch.ops import KERNELS, reset_launches
+    from cxxnet_tpu_torch.serve import InferenceEngine
+    notes, t0 = {}, time.perf_counter()
+    dev = torch.device("cuda")
+    model = write_round(conf, seed, tmp, dev)
+    qpath, rc, drift = quantize_round(conf, model, seed, tmp, "ibn",
+                                      TRAIN_IMAGE)
+    print(f"int8: Inception-BN round quantized by cxxnet_tpu_torch.quant "
+          f"(exit {rc}): {drift}", flush=True)
+    engine, launches, answers, statz = phase_serve(
+        conf, seed, qpath, extra=("serve_dtype=int8",))
+    forwards = launches["pool_fwd"]
+    per = Q_MM_PER_FORWARD["inception_bn"]
+    if not engine.serve_int8 or forwards < 6 \
+            or launches["q_mm"] != per * forwards:
+        raise AssertionError(f"int8 serve: q_mm {launches['q_mm']} launches "
+                             f"for {forwards} forwards, want {per} each")
+    if statz["version"] != "r0001-int8":
+        raise AssertionError(f"int8 serve version {statz['version']}")
+    serve_cfg = dict(buckets=",".join(map(str, BUCKETS)),
+                     max_batch=BUCKETS[-1])
+    plain = InferenceEngine.from_checkpoint(
+        _serve_cfg(conf, ["fused_kernels=0"]), qpath, dtype="int8",
+        **serve_cfg)
+    worst = check_answers(plain, answers, INT8_ROW_ATOL)
+    del plain
+    fp = InferenceEngine.from_checkpoint(_serve_cfg(conf, []), model,
+                                         dtype="float32", **serve_cfg)
+    got = np.concatenate([a for _, raw, a in answers if raw])
+    want = fp.predict_raw(np.concatenate([r for r, raw, _ in answers if raw]))
+    del fp
+    rel, top1, pmax, pmax_fp = _int8_vs_fp(got, want)
+    notes["inception_bn"] = {"launches_q_mm": launches["q_mm"],
+                             "forwards": forwards, "vs_plain": worst,
+                             "int8_vs_fp32_rel_l2": rel, "top1_agree": top1,
+                             "top_prob": (pmax, pmax_fp), "drift": drift}
+    print(f"int8: Inception-BN served over HTTP by main.run "
+          f"(serve_dtype=int8, version {statz['version']}) | q_mm "
+          f"{launches['q_mm']} launches in {forwards} forwards ({per} each) "
+          f"| vs fused_kernels=0: max prob diff {worst:.3g} (atol "
+          f"{INT8_ROW_ATOL}) | int8 vs fp32 (random weights, not gated): "
+          f"rel L2 {rel:.3g}, top-1 agree {top1:.3f}, mean top prob "
+          f"{pmax:.3g} vs {pmax_fp:.3g}", flush=True)
+    net = engine.net
+    c, y, x = net.graph.input_shape
+    f32 = torch.float32
+    fwd = {}
+    for b in BUCKETS:
+        data = torch.randn((b, y, x, c), generator=torch.Generator(
+            device=dev).manual_seed(seed + b), device=dev)
+        fwd[b] = (time_forward(lambda: net(data, compute_dtype=f32)),
+                  time_forward(lambda: net(data, compute_dtype=f32,
+                                           fused=False)))
+    print("times (int8): Inception-BN engine forward " + " | ".join(
+        f"bucket {b}: int8 {ms:.3f} ms ({b / ms * 1e3:.1f} img/s), "
+        f"fused_kernels=0 {mp:.3f} ms, bf16 (phase 5) "
+        f"{bf16_forward[b][0]:.3f} ms" for b, (ms, mp) in fwd.items()),
+        flush=True)
+    prof = profile_calls(lambda: net(data, compute_dtype=f32))
+    print(f"profile: int8 bucket {BUCKETS[-1]}: {prof}", flush=True)
+    notes["inception_bn"].update(forward_ms={str(b): v[0]
+                                             for b, v in fwd.items()},
+                                 forward_plain_ms={str(b): v[1]
+                                                   for b, v in fwd.items()},
+                                 profile=prof)
+    del engine, net, data
+    torch.cuda.empty_cache()
+    # AlexNet int8 at bucket 32, through the engine
+    adir = os.path.join(tmp, "alexnet")
+    os.makedirs(adir, exist_ok=True)
+    amodel = write_round(ALEXNET, seed, adir, dev)
+    aq, rc, adrift = quantize_round(ALEXNET, amodel, seed, tmp, "alexnet",
+                                    "3,227,227")
+    b = BUCKETS[-1]
+    kw = dict(buckets=str(b), max_batch=b)
+    eng = InferenceEngine.from_checkpoint(_serve_cfg(ALEXNET, []), aq,
+                                          dtype="int8", **kw)
+    rows = np.random.RandomState(seed + 5).randn(
+        b, 3 * 227 * 227).astype(np.float32)
+    reset_launches()
+    got = eng.predict_raw(rows)
+    torch.cuda.synchronize()
+    alaunch = {k.name: k.launches for k in KERNELS.values() if k.launches}
+    if alaunch.get("q_mm") != Q_MM_PER_FORWARD["alexnet"]:
+        raise AssertionError(f"AlexNet int8: launches {alaunch}")
+    plain = InferenceEngine.from_checkpoint(
+        _serve_cfg(ALEXNET, ["fused_kernels=0"]), aq, dtype="int8", **kw)
+    aworst = check_answers(plain, [(rows, 1, got)], INT8_ROW_ATOL)
+    del plain
+    fp = InferenceEngine.from_checkpoint(_serve_cfg(ALEXNET, []), amodel,
+                                         dtype="float32", **kw)
+    arel, atop1, apmax, apmax_fp = _int8_vs_fp(got, fp.predict_raw(rows))
+    del fp
+    data = torch.from_numpy(eng._to_input(rows)).to(dev)
+    ams = time_forward(lambda: eng.net(data, compute_dtype=f32))
+    ams_plain = time_forward(lambda: eng.net(data, compute_dtype=f32,
+                                             fused=False))
+    notes["alexnet"] = {"launches": alaunch, "vs_plain": aworst,
+                        "int8_vs_fp32_rel_l2": arel, "top1_agree": atop1,
+                        "top_prob": (apmax, apmax_fp), "drift": adrift, "forward_ms": ams,
+                        "forward_plain_ms": ams_plain}
+    print(f"int8: AlexNet quantized (exit {rc}: {adrift}) and run through "
+          f"the int8 engine at bucket {b} | launches {alaunch} | vs "
+          f"fused_kernels=0: max prob diff {aworst:.3g} | int8 vs fp32 (not "
+          f"gated): rel L2 {arel:.3g}, top-1 agree {atop1:.3f}, mean top "
+          f"prob {apmax:.3g} vs {apmax_fp:.3g} | forward "
+          f"{ams:.3f} ms, fused_kernels=0 {ams_plain:.3f} ms", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    notes["seconds"] = time.perf_counter() - t0
+    return notes
+
+
+def phase_int8_times(gen: torch.Generator) -> dict:
+    """q_mm at each path shape (bias, relu for the convs and fc6/fc7)
+    beside its bound, q_mm_plain and torch._int_mm (cuBLASLt) with the
+    same epilogue in PyTorch, where its shape rules hold (M > 16, K and N
+    multiples of 8, one group)."""
+    from cxxnet_tpu_torch.ops.fused_quant import q_mm, q_mm_plain
+    rows = {}
+    for name in Q_MM_CASES:
+        if name in ("odd", "K4096 +-127"):
+            continue
+        xq, wt, f, b, g = q_mm_case(gen, name)
+        act = "none" if name.startswith("fc1") else "relu"
+        m, k, n = xq.shape[0], wt.shape[1], wt.shape[0] // g
+        lib_ms = None
+        if g == 1 and m > 16 and k % 8 == 0 and n % 8 == 0:
+            wkn = wt.t()
+
+            def lib():
+                y = torch._int_mm(xq, wkn).float() * f + b
+                return torch.relu(y) if act == "relu" else y
+            lib_ms = time_call(lib)
+        rows[name] = dict(
+            ms=time_call(lambda: q_mm(xq, wt, f, b, act, g)),
+            plain_ms=time_call(lambda: q_mm_plain(xq, wt, f, b, act, g)),
+            library_ms=lib_ms,
+            bound=bound_ms(m * g * k + g * n * k + m * g * n * 4 + 2 * g * n * 4,
+                           2 * m * n * k * g, INT8_OPS),
+            shape=f"{name} M {m} K {k} N {n} G {g} {act}")
+        del xq, wt
+    torch.cuda.empty_cache()
+    print("times (int8): " + " | ".join(
+        f"q_mm {r['shape']}: {r['ms'] * 1e3:.2f} us, bound "
+        f"{r['bound'][0] * 1e3:.2f} us ({r['bound'][1]}), plain "
+        f"{r['plain_ms'] * 1e3:.2f} us, torch._int_mm + epilogue "
+        + (f"{r['library_ms'] * 1e3:.2f} us" if r["library_ms"] is not None
+           else "n/a") for r in rows.values()), flush=True)
+    return {"kernels": {"q_mm": rows[Q_MM_PATH]}, "all": rows}
+
+
 # -- main ---------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -2203,6 +2503,13 @@ def main(argv=None) -> int:
                            for k in CONVNETS[name][3]})
         digits = phase_digits(args.seed, tmp)
         mark("digits")
+    errs.update(phase_int8_kernels(gen))
+    with tempfile.TemporaryDirectory() as tmp:
+        int8 = phase_int8(args.conf, args.seed, tmp, times["forward"])
+    int8_times = phase_int8_times(gen)
+    mark("int8")
+    source["q_mm"] = (int8_times,
+                      {"q_mm": int8["inception_bn"]["launches_q_mm"]})
     kernels = []
     for name, k in KERNELS.items():
         times_of, launches_of = source[name]
@@ -2242,6 +2549,10 @@ def main(argv=None) -> int:
                                **c["notes"]}
                            for n, c in convnets.items()},
               "digits": digits,
+              "int8": int8,
+              "int8_kernels": {k: {kk: vv for kk, vv in r.items()
+                                   if kk != "bound"}
+                               for k, r in int8_times["all"].items()},
               "phase_seconds": {b[0]: b[1] - a[1]
                                 for a, b in zip(marks, marks[1:])},
               "card": smi_line, "seconds": time.perf_counter() - t_start}

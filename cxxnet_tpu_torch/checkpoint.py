@@ -16,7 +16,9 @@ Arrays are in the JAX package's layout (conv weights HWIO), so a round
 written by ``python -m cxxnet_tpu.main ... task=train`` serves in the
 port, and a round written here (by ``task = train`` too) loads, and
 resumes, in the JAX package;
-``convert.params_from_jax`` / ``params_to_jax`` change layouts.
+``convert.params_from_jax`` / ``params_to_jax`` change layouts. A
+PTQ-derived round (``quant/``) holds int8 ``wmat`` leaves and carries
+``__quant_meta__`` in its meta JSON (:func:`quant_meta`).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import io
 import json
 import os
 import zipfile
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -74,11 +76,15 @@ def _sig_to_json(sig: tuple) -> str:
 def save_model(path: str, *, structure_sig: tuple, round_counter: int,
                epoch_counter: int, params: Any, net_state: Any,
                opt_state: Any = None, step_count: int = 0,
-               lr_scale: float = 1.0) -> None:
+               lr_scale: float = 1.0,
+               extra_meta: Optional[Dict[str, Any]] = None) -> None:
     """Write a round. ``params``, ``net_state`` and ``opt_state`` (a
     training round's optimizer state; None for an inference round)
-    are trees of arrays in the JAX package's layout. The file appears
-    atomically (temp file, fsync, rename)."""
+    are trees of arrays in the JAX package's layout (float leaves as
+    float32, integer leaves, a quantized round's int8 ``wmat``, as they
+    are). ``extra_meta`` adds keys to the meta JSON (a derived round's
+    ``__quant_meta__``); a key that clashes with the reserved fields
+    raises. The file appears atomically (temp file, fsync, rename)."""
     arrays: Dict[str, np.ndarray] = {}
     _flatten("params", params, arrays)
     _flatten("state", net_state, arrays)
@@ -94,6 +100,12 @@ def save_model(path: str, *, structure_sig: tuple, round_counter: int,
         "has_opt": opt_state is not None,
         "digests": {k: _digest(v) for k, v in arrays.items()},
     }
+    if extra_meta:
+        clash = set(extra_meta) & set(meta)
+        if clash:
+            raise ValueError(
+                f"extra_meta keys clash with checkpoint meta: {clash}")
+        meta.update(extra_meta)
     arrays["__meta__"] = np.frombuffer(
         json.dumps(meta).encode("utf-8"), dtype=np.uint8)
     buf = io.BytesIO()
@@ -175,6 +187,25 @@ def blob_digest(meta: Dict[str, Any]) -> str:
     for k in sorted(digests):
         h.update(f"{k}={digests[k]};".encode("ascii"))
     return h.hexdigest()[:12]
+
+
+def quant_meta(meta: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+    """The ``__quant_meta__`` block of a PTQ-derived int8 round (source
+    round and digest, calibration, per-layer drift), or None for an
+    ordinary round."""
+    qm = meta.get("__quant_meta__")
+    return qm if isinstance(qm, dict) else None
+
+
+def is_quantized(meta: Dict[str, Any]) -> bool:
+    """Whether this round is a PTQ-derived int8 round."""
+    return quant_meta(meta) is not None
+
+
+def verify_model(path: str) -> Dict[str, Any]:
+    """Read every member of a round and check its digests; returns the
+    meta dict, raises :class:`CheckpointCorrupt` otherwise."""
+    return _load(path, verify=True, with_opt=True)["meta"]
 
 
 def model_path(model_dir: str, round_counter: int) -> str:

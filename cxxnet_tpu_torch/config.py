@@ -3,8 +3,8 @@
 The port's own copy of the parts of ``cxxnet_tpu/config.py`` that the
 serving and training paths need: the tokenizer and
 ``parse_config_string``, the mixed-precision :class:`Policy` (mapped to
-torch dtypes), the ``fused_kernels`` grammar, the ``serve_*`` namespace,
-the training keys the port does not run yet, and the split of iterator
+torch dtypes), the ``fused_kernels`` grammar, the ``serve_*`` and ``quant_*``
+namespaces, the training keys the port does not run yet, and the split of iterator
 sections (``data = train`` .. ``iter = end``) from the global settings. Grammar: whitespace-separated tokens, ``=`` as its own token,
 ``#`` line comments, ``"..."`` single-line and ``'...'`` multi-line
 quoted strings with backslash escapes. Order of pairs is preserved,
@@ -94,7 +94,8 @@ class ServeConfig:
     buckets: str = ""             # serve_buckets: comma ladder ('' = auto)
     max_batch: int = 64           # serve_max_batch
     cache_size: int = 16          # serve_cache_size
-    dtype: str = ""               # serve_dtype: compute-dtype override
+    dtype: str = ""               # serve_dtype: compute-dtype override,
+    #   or int8: serve a PTQ-derived round through the int8 path
     max_latency_ms: float = 5.0   # serve_max_latency_ms
     queue_rows: int = 1024        # serve_queue_rows
     timeout_ms: float = 0.0       # serve_timeout_ms (0 = none)
@@ -179,11 +180,7 @@ def parse_serve_config(cfg: ConfigPairs) -> ServeConfig:
         except ValueError as e:
             raise ConfigError(f"bad {name} value {val!r}: {e}")
     sc = ServeConfig(**vals)
-    if sc.dtype.strip().lower() == "int8":
-        raise ConfigError(
-            "serve_dtype = int8: not served by the PyTorch port yet "
-            "(ROADMAP Queue A 4 (int8 serving), Queue B row 16)")
-    if sc.dtype:
+    if sc.dtype and sc.dtype.strip().lower() != "int8":
         parse_policy(sc.dtype)
     if sc.max_batch < 1 or sc.queue_rows < 1 or sc.cache_size < 1:
         raise ConfigError(
@@ -195,6 +192,90 @@ def parse_serve_config(cfg: ConfigPairs) -> ServeConfig:
             f"serve_breaker_threshold must be >= 0, got "
             f"{sc.breaker_threshold}")
     return sc
+
+
+# -- post-training quantization -----------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class QuantConfig:
+    """The ``quant_*`` / ``cascade_*`` knob set: the PTQ pass's
+    calibration and the drift-verdict thresholds, with the JAX package's
+    keys, defaults and validation (a typo'd key raises). The cascade
+    keys are parsed and validated too, but ``cascade_enable = 1`` raises:
+    the two-tier cascade is not served by the port yet."""
+    calib_batches: int = 4        # quant_calib_batches: activation calib
+    calib_percentile: float = 100.0  # quant_calib_percentile (100=absmax)
+    max_rel_err: float = 0.05     # quant_max_rel_err: drift gate (RMS)
+    max_sat_frac: float = 0.05    # quant_max_sat_frac: |q|==127 fraction
+    parity_tol: float = 0.02      # quant_parity_tol: int8-vs-fp accuracy
+    cascade_enable: int = 0       # cascade_enable: 1 = route via cascade
+    cascade_threshold: float = 0.5  # cascade_threshold: escalate below
+    cascade_metric: str = "margin"  # cascade_metric: margin|entropy
+    cascade_model: str = ""       # cascade_model: fast-tier checkpoint
+    cascade_replicas: int = 1     # cascade_replicas: fast-tier size
+
+
+def parse_quant_config(cfg: ConfigPairs) -> QuantConfig:
+    """Collect and validate the ``quant_*`` / ``cascade_*`` keys (last
+    occurrence wins; unknown keys in either namespace raise)."""
+    known = {
+        "quant_calib_batches": ("calib_batches", int),
+        "quant_calib_percentile": ("calib_percentile", float),
+        "quant_max_rel_err": ("max_rel_err", float),
+        "quant_max_sat_frac": ("max_sat_frac", float),
+        "quant_parity_tol": ("parity_tol", float),
+        "cascade_enable": ("cascade_enable", int),
+        "cascade_threshold": ("cascade_threshold", float),
+        "cascade_metric": ("cascade_metric", str),
+        "cascade_model": ("cascade_model", str),
+        "cascade_replicas": ("cascade_replicas", int),
+    }
+    vals = {}
+    for name, val in cfg:
+        if name.startswith("quant_") or name.startswith("cascade_"):
+            if name not in known:
+                raise ConfigError(
+                    f"unknown quant/cascade setting {name!r}; valid "
+                    "keys: " + ", ".join(sorted(known)))
+            field, conv = known[name]
+            try:
+                vals[field] = conv(val)
+            except ValueError as e:
+                raise ConfigError(f"bad {name} value {val!r}: {e}")
+    qc = QuantConfig(**vals)
+    if qc.calib_batches < 1:
+        raise ConfigError(
+            f"quant_calib_batches must be >= 1, got {qc.calib_batches}")
+    if not 0.0 < qc.calib_percentile <= 100.0:
+        raise ConfigError(
+            "quant_calib_percentile must be in (0, 100], got "
+            f"{qc.calib_percentile}")
+    if qc.max_rel_err <= 0 or qc.max_sat_frac < 0:
+        raise ConfigError(
+            "quant_max_rel_err must be > 0 and quant_max_sat_frac "
+            f">= 0, got {qc.max_rel_err}/{qc.max_sat_frac}")
+    if qc.parity_tol <= 0:
+        raise ConfigError(
+            f"quant_parity_tol must be > 0, got {qc.parity_tol}")
+    if qc.cascade_enable not in (0, 1):
+        raise ConfigError(
+            f"cascade_enable must be 0 or 1, got {qc.cascade_enable}")
+    if not 0.0 < qc.cascade_threshold < 1.0:
+        raise ConfigError(
+            "cascade_threshold must be in (0, 1), got "
+            f"{qc.cascade_threshold}")
+    if qc.cascade_metric not in ("margin", "entropy"):
+        raise ConfigError(
+            f"cascade_metric must be margin|entropy, got "
+            f"{qc.cascade_metric!r}")
+    if qc.cascade_replicas < 1:
+        raise ConfigError(
+            f"cascade_replicas must be >= 1, got {qc.cascade_replicas}")
+    if qc.cascade_enable:
+        raise ConfigError(
+            "cascade_enable = 1: not served by the PyTorch port yet "
+            f"(ROADMAP {_NOT_YET_PREFIXES['cascade_']})")
+    return qc
 
 
 # -- training -----------------------------------------------------------------

@@ -6,6 +6,8 @@ keeps the same tree with conv weights OIHW ``(cout, cin/group, kh, kw)``,
 PyTorch's layout. Everything else is the same in both: fullc ``wmat``
 ``(in, out)``, biases and batch-norm ``wmat``/``bias``/``running_exp``/
 ``running_var`` ``(C,)``. A conv weight is the one 4-D ``wmat`` leaf.
+A PTQ-derived round (quant/ptq.py) keeps the same layouts: ``wmat`` int8
+of the float shape, ``wmat_scale`` (N,) and ``act_scale`` () float32.
 
 Trees nest to any depth (an attention layer's ``params[layer][q][wmat]``
 is 3-D ``(E, H, D)``, not a conv weight). The optimizer state, SGD's
@@ -38,13 +40,16 @@ def _map(tree: Any, fn, leaf: str = "") -> Any:
 def params_from_jax(params_np: Dict, state_np: Dict
                     ) -> Tuple[Dict, Dict]:
     """JAX-layout trees (numpy arrays) -> port trees of float32 CPU
-    tensors (integer leaves, insanity's ``step``, int32), conv ``wmat``
-    transposed HWIO -> OIHW."""
+    tensors, conv ``wmat`` transposed HWIO -> OIHW. int8 leaves (the
+    ``wmat`` of a PTQ-derived round) stay int8, a conv's transposed too;
+    other integer leaves (insanity's ``step``) become int32."""
     def conv(leaf, a):
         a = np.asarray(a)
         if a.dtype.kind in "iu":
-            return torch.from_numpy(np.array(a, dtype=np.int32))
-        a = np.array(a, dtype=np.float32)         # a writable copy
+            a = np.array(a, dtype=np.int8 if a.dtype == np.int8
+                         else np.int32)
+        else:
+            a = np.array(a, dtype=np.float32)     # a writable copy
         if leaf == "wmat" and a.ndim == 4:
             a = np.ascontiguousarray(a.transpose(_HWIO_TO_OIHW))
         return torch.from_numpy(a)
@@ -53,16 +58,19 @@ def params_from_jax(params_np: Dict, state_np: Dict
 
 def params_to_jax(params: Dict, state: Dict) -> Tuple[Dict, Dict]:
     """Port trees (tensors on any device) -> JAX-layout trees of float32
-    numpy arrays (integer leaves int32; copies: later in-place updates of
-    the tensors do not reach them), conv ``wmat`` transposed OIHW ->
-    HWIO."""
+    numpy arrays (int8 leaves int8, other integer leaves int32; copies:
+    later in-place updates of the tensors do not reach them), conv
+    ``wmat`` transposed OIHW -> HWIO."""
     def conv(leaf, t):
-        if not t.is_floating_point():
-            return np.array(t.detach().cpu().numpy(), dtype=np.int32)
-        a = t.detach().float().cpu().numpy()
+        if t.is_floating_point():
+            a = t.detach().float().cpu().numpy()
+            dt = np.float32
+        else:
+            a = t.detach().cpu().numpy()
+            dt = np.int8 if a.dtype == np.int8 else np.int32
         if leaf == "wmat" and a.ndim == 4:
             a = a.transpose(_OIHW_TO_HWIO)
-        return np.array(a, dtype=np.float32, order="C")
+        return np.array(a, dtype=dt, order="C")
     return _map(params, conv), _map(state, conv)
 
 

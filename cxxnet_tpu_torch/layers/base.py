@@ -232,6 +232,13 @@ class Layer:
         """Hook to give a loaded leaf its memory layout (conv weights)."""
         return t
 
+    def quant_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        """Shapes of the leaves a PTQ-derived round adds to this layer's
+        parameters beside its int8 ``wmat`` (``wmat_scale`` per output
+        channel, the scalar ``act_scale``); empty for a layer that does
+        not quantize (quant/ptq.QUANT_LAYER_TYPES)."""
+        return {}
+
     def forward(self, params: Params, state: State,
                 inputs: List[torch.Tensor], ctx: ApplyCtx
                 ) -> List[torch.Tensor]:

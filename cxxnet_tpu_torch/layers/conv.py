@@ -5,7 +5,10 @@ permute is a view whose memory is channels_last, so no copy is made,
 and the output is permuted back the same way. Weights are OIHW
 ``(cout, cin/group, kh, kw)`` in channels_last memory (the JAX package's
 HWIO becomes OIHW in ``convert.params_from_jax``). A bias and a folded
-relu go through the epilogue kernel. In training the conv is
+relu go through the epilogue kernel. With int8 weights (a PTQ-derived
+round) the conv is the int8 kernel's product over an int8 im2col with
+the bias and relu in its epilogue (``ops/fused_quant.int8_conv``), its
+weight laid out (cout, kh*kw*cin/group) at load. In training the conv is
 differentiated by PyTorch autograd, as the JAX package left its
 gradient to XLA.
 
@@ -34,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.fused_lrn import lrn, lrn_takes
+from ..ops.fused_quant import conv_weight_for_kernel, int8_conv
 from ..ops.fused_pool import kernel_geometry, pool, scale_in_dtype
 from .base import Layer, Params, Shape3, register_layer
 from .core import bias_act, const_like
@@ -78,13 +82,26 @@ class ConvolutionLayer(Layer):
                                         device=generator.device)
         return params
 
+    def quant_shapes(self):
+        return {"wmat_scale": (self.hp.num_channel,), "act_scale": ()}
+
     def place_leaf(self, leaf, t):
+        if leaf == "wmat" and t.dtype == torch.int8:
+            return conv_weight_for_kernel(t)
         if leaf == "wmat":
             return t.contiguous(memory_format=torch.channels_last)
         return t
 
     def forward(self, params, state, inputs, ctx):
         hp = self.hp
+        if "wmat_scale" in params:
+            return [int8_conv(
+                inputs[0], params["wmat"], params["wmat_scale"],
+                params["act_scale"], params.get("bias"),
+                ctx.fuse_act or "none",
+                kernel=(hp.kernel_height, hp.kernel_width), stride=hp.stride,
+                padding=(hp.pad_y, hp.pad_x), groups=hp.num_group,
+                fused=ctx.fused)]
         x = inputs[0].to(ctx.compute_dtype)
         y = F.conv2d(x.permute(0, 3, 1, 2), params["wmat"],
                      stride=hp.stride, padding=(hp.pad_y, hp.pad_x),

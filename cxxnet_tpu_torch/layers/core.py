@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from ..ops.fused_epilogue import bias_act as bias_act_fused
 from ..ops.fused_epilogue import bias_act_plain
+from ..ops.fused_quant import fullc_weight_for_kernel, int8_matmul
 from .base import Layer, Params, Shape3, flat_size, is_flat, register_layer
 
 
@@ -49,9 +50,19 @@ def bias_act(x: torch.Tensor, bias, act: str, fused: bool) -> torch.Tensor:
 @register_layer("fullc")
 class FullConnectLayer(Layer):
     """Fully-connected layer. Weight (in, out), forward ``x @ W``; the
-    bias and a folded relu go through the epilogue."""
+    bias and a folded relu go through the epilogue. With int8 weights
+    (a PTQ-derived round: ``wmat_scale`` present) the product and its
+    epilogue are the int8 kernel's (``ops/fused_quant``), output f32."""
     has_params = True
     compute_leaves = ("wmat",)
+
+    def quant_shapes(self):
+        return {"wmat_scale": (self.hp.num_hidden,), "act_scale": ()}
+
+    def place_leaf(self, leaf, t):
+        if leaf == "wmat" and t.dtype == torch.int8:
+            return fullc_weight_for_kernel(t)
+        return t
 
     def infer_shapes(self, in_shapes: List[Shape3]) -> List[Shape3]:
         self.check_n(in_shapes, 1, 1)
@@ -70,6 +81,12 @@ class FullConnectLayer(Layer):
         return params
 
     def forward(self, params, state, inputs, ctx):
+        if "wmat_scale" in params:
+            y = int8_matmul(_flat2d(inputs[0]), params["wmat"],
+                            params["wmat_scale"], params["act_scale"],
+                            params.get("bias"), ctx.fuse_act or "none",
+                            fused=ctx.fused)
+            return [_as_node(y)]
         x = _flat2d(inputs[0]).to(ctx.compute_dtype)
         y = torch.matmul(x, params["wmat"])
         y = bias_act(y, params.get("bias"), ctx.fuse_act or "none", ctx.fused)

@@ -12,8 +12,9 @@ the masters in f32. ``mha`` and ``ffn`` keep their projections one level
 deeper in the parameter tree (``{"q"|"k"|"v"|"o": {"wmat", "bias"}}``,
 ``{"h"|"o": {...}}``), the JAX package's layout. Left out: the sequence-
 and pipeline-parallel attention (``seq_parallel`` and
-``pipeline_parallel`` raise naming ROADMAP Queue A 9) and ``seqfc``'s
-int8 weights (Queue A 4).
+``pipeline_parallel`` raise naming ROADMAP Queue A 9). ``seqfc`` with
+int8 weights (a PTQ-derived round) runs the int8 product of
+``ops/fused_quant``.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import (attention_reference, chunked_attention,
                              flash_attention, rope)
+from ..ops.fused_quant import fullc_weight_for_kernel, int8_matmul
 from .base import Layer, Shape3, register_layer
 from .loss import LossLayerBase
 
@@ -297,11 +299,24 @@ class SeqFCLayer(Layer, _SeqLinearMixin):
         return self._linear_params(generator, e, self.hp.num_hidden,
                                    self.hp.no_bias)
 
+    def quant_shapes(self):
+        return {"wmat_scale": (self.hp.num_hidden,), "act_scale": ()}
+
+    def place_leaf(self, leaf, t):
+        if leaf == "wmat" and t.dtype == torch.int8:
+            return fullc_weight_for_kernel(t)
+        return t
+
     def forward(self, params, state, inputs, ctx):
         if "wmat_scale" in params:
-            raise NotImplementedError(
-                f"seqfc {self.name!r}: int8 weights are not in the PyTorch "
-                "port yet (ROADMAP Queue A 4, int8 serving; Queue B row 16)")
+            # int8 weights (a PTQ-derived round): positions fold into
+            # rows, one int8 product with the fused dequant/bias epilogue
+            x = _seq(inputs[0])
+            b, s, e = x.shape
+            y = int8_matmul(x.reshape(b * s, e), params["wmat"],
+                            params["wmat_scale"], params["act_scale"],
+                            params.get("bias"), "none", fused=ctx.fused)
+            return [_unseq(y.reshape(b, s, -1))]
         cdt = ctx.compute_dtype
         x = _seq(inputs[0]).to(cdt)
         return [_unseq(_linear(x, params, "bse,ek->bsk", cdt))]

@@ -19,7 +19,10 @@ package loads and resumes.
 
 ``task = serve``: iterator sections are never opened; the round named by
 ``model_in`` (a ``%04d.model`` written by either package) is served over
-HTTP until SIGINT/SIGTERM.
+HTTP until SIGINT/SIGTERM. ``serve_dtype = int8`` serves a round
+quantized by ``python -m cxxnet_tpu_torch.quant`` (or the JAX package's
+``tools/quantize.py``) as version ``rNNNN-int8``; an fp engine serves a
+quantized round dequantized.
 
 The other tasks (finetune, pred, pred_raw, extract, get_weight) wait for
 later slices (ROADMAP Queue A 2 and A 3).
@@ -44,7 +47,7 @@ from .graph import build_graph, global_param
 from .model import Network
 from .io import create_iterator
 from .serve import InferenceEngine, ServeServer
-from .serve.engine import version_name
+from .serve.engine import negotiate_blob, version_name
 from .trainer import Trainer
 
 
@@ -73,7 +76,11 @@ def task_serve(cfg: ConfigPairs,
     if model_in != "NULL":
         blob = ckpt.load_for_inference(model_in)
         ckpt.check_structure(blob["meta"], graph.structure_signature())
-        net.load_weights(*params_from_jax(blob["params"], blob["state"]))
+        # dtype negotiation: serve_dtype = int8 demands a PTQ-derived
+        # round; an fp engine dequantizes a quantized one on load
+        placed = negotiate_blob(blob, sc.dtype or None)
+        net.load_weights(*params_from_jax(placed["params"],
+                                          placed["state"]))
         if not silent:
             print(f"serving model {model_in}", flush=True)
     else:
@@ -87,7 +94,8 @@ def task_serve(cfg: ConfigPairs,
                              dtype=sc.dtype or None)
     if blob is not None:
         engine.weights_digest = ckpt.blob_digest(blob["meta"])
-        engine.weights_version = version_name(blob["meta"]["round"])
+        engine.weights_version = version_name(blob["meta"]["round"]) \
+            + ("-int8" if engine.serve_int8 else "")
     srv = ServeServer(
         engine, port=sc.port, host=sc.host,
         max_latency_ms=sc.max_latency_ms, max_queue_rows=sc.queue_rows,

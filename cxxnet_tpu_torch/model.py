@@ -152,11 +152,32 @@ class Network(nn.Module):
                               for path, v in leaves(tree)}
         return shape(p), shape(s)
 
+    def _expected_quant(self, params: Dict) -> Dict:
+        """Leaf shapes the int8 form adds for each layer of ``params``
+        that carries ``wmat_scale`` (a PTQ-derived round); raises for a
+        layer that does not quantize."""
+        by_name = {l.name: l for l in self.layers}
+        want = {}
+        for name, lp in params.items():
+            if not (isinstance(lp, dict) and "wmat_scale" in lp):
+                continue
+            shapes = by_name[name].quant_shapes() if name in by_name else {}
+            if not shapes:
+                raise ValueError(
+                    f"params {name}: int8 leaves on a layer that does not "
+                    "quantize (fullc, conv, seqfc do)")
+            want.update({(name, leaf): s for leaf, s in shapes.items()})
+        return want
+
     def load_weights(self, params: Dict, state: Dict) -> None:
         """Place ``params``/``state`` (port layout, nested trees of numpy
         arrays or tensors) on the device as float32, checked leaf by leaf
-        against the graph, and cast the compute leaves once."""
+        against the graph, and cast the compute leaves once. A quantized
+        layer's leaves (``wmat`` int8 of the float shape, ``wmat_scale``,
+        ``act_scale``) are checked too; int8 stays int8."""
         want_p, want_s = self._expected()
+        want_p.update(self._expected_quant(params))
+        quant = {path[0] for path in want_p if path[-1] == "wmat_scale"}
 
         def place(tree, want, what):
             got = {path for path, _ in leaves(tree)}
@@ -175,10 +196,18 @@ class Network(nn.Module):
                     raise ValueError(
                         f"{what} {'/'.join(path)}: shape {tuple(v.shape)} "
                         f"!= {shp} implied by the net config")
-                # float leaves as float32; integer state (insanity's
-                # step counter) keeps its int32
-                dt = torch.int32 if not v.is_floating_point() \
-                    else torch.float32
+                # float leaves as float32, a quantized layer's wmat as
+                # int8; integer state (insanity's step counter) int32
+                if path[0] in quant and path[-1] == "wmat":
+                    if v.dtype != torch.int8:
+                        raise ValueError(
+                            f"{what} {'/'.join(path)}: a quantized layer's "
+                            f"wmat must be int8, got {v.dtype}")
+                    dt = torch.int8
+                elif v.is_floating_point():
+                    dt = torch.float32
+                else:
+                    dt = torch.int32
                 out.append((path, v.to(self.device, dt)))
             return unflatten(out)
 
@@ -197,7 +226,8 @@ class Network(nn.Module):
 
     def _cast_tree(self, params: Params, dtype: torch.dtype) -> Params:
         """Each layer's compute leaves cast to ``dtype`` and laid out by
-        the layer; the other leaves as they are."""
+        the layer; the other leaves, and int8 weights, as they are (an
+        int8 ``wmat`` laid out for the int8 product)."""
         tree = {}
         for layer in self.layers:
             lp = params.get(layer.name)
@@ -205,7 +235,8 @@ class Network(nn.Module):
                 continue
             tree[layer.name] = {
                 k: layer.place_leaf(
-                    k, v.to(dtype) if k in layer.compute_leaves else v)
+                    k, v.to(dtype) if k in layer.compute_leaves
+                    and v.is_floating_point() else v)
                 for k, v in lp.items()}
         return tree
 

@@ -13,7 +13,10 @@ at eval), so zero rows padded up to the bucket cannot perturb the real
 rows.
 
 Weights are cast to the compute dtype once at load (Network.weights_for);
-responses leave as float32.
+responses leave as float32. ``dtype = "int8"`` serves a PTQ-derived round
+through the int8 kernel (``ops/fused_quant``), everything else in
+float32, as version ``rNNNN-int8``; an fp engine dequantizes a quantized
+round on load (:func:`negotiate_blob`).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from ..config import ConfigPairs, parse_config_string, parse_policy
 from ..convert import params_from_jax
 from ..graph import build_graph
 from ..model import Network
+from ..quant import dequantize_blob, is_quantized_params
 from .stats import ServingStats
 
 # output kinds mirroring the cxxnet task modes pred / pred_raw / extract
@@ -39,6 +43,29 @@ _KINDS = ("predict", "raw", "extract")
 def version_name(round_counter: int) -> str:
     """Model-version id of a checkpoint round (the ``%04d.model`` name)."""
     return "r%04d" % int(round_counter)
+
+
+def negotiate_blob(blob, dtype: Optional[str]):
+    """Dtype negotiation between a loaded round and the engine's serving
+    dtype (the JAX package's rules):
+
+    - ``int8`` engine + quantized round: served as it is (the int8 path);
+    - ``int8`` engine + plain round: raises, since quantizing on the fly
+      would skip calibration and the drift verdict;
+    - fp engine + quantized round: dequantized on load (the scales folded
+      back into f32 ``wmat``), served at fp cost;
+    - fp engine + plain round: passed through.
+    """
+    want_int8 = bool(dtype) and str(dtype).lower() == "int8"
+    quantized = is_quantized_params(blob["params"])
+    if want_int8 and not quantized:
+        raise ValueError(
+            "serve_dtype=int8 but the checkpoint round is not "
+            "quantized (no __quant_meta__/wmat_scale leaves); run "
+            "tools/quantize.py to derive an int8 round first")
+    if quantized and not want_int8:
+        return dequantize_blob(blob)
+    return blob
 
 
 def _parse_buckets(val: Union[str, Sequence[int], None],
@@ -98,9 +125,27 @@ class InferenceEngine:
         self.stats = stats or ServingStats()
         self.layout = layout
         # serving compute dtype: the net's policy, or ``dtype`` (a round
-        # trained fp32 can serve bf16; params are fp32 masters)
-        self.compute_dtype = (parse_policy(dtype).compute_dtype if dtype
-                              else net.compute_dtype)
+        # trained fp32 can serve bf16; params are fp32 masters).
+        # ``dtype = "int8"`` selects the quantized path: the weights must
+        # be a PTQ-derived round; the int8 layers' epilogues and every
+        # other layer compute in float32
+        self.serve_int8 = bool(dtype) and str(dtype).lower() == "int8"
+        if self.serve_int8:
+            self.compute_dtype = torch.float32
+        else:
+            self.compute_dtype = (parse_policy(dtype).compute_dtype
+                                  if dtype else net.compute_dtype)
+        quantized = is_quantized_params(net.params)
+        if self.serve_int8 and not quantized:
+            raise ValueError(
+                "serve_dtype=int8 but the loaded params are not "
+                "quantized (no wmat_scale leaves); run tools/quantize.py "
+                "and serve the derived round")
+        if quantized and not self.serve_int8:
+            raise ValueError(
+                "params are int8-quantized but the engine dtype is "
+                f"{dtype or 'the net policy'}; set serve_dtype=int8 or "
+                "dequantize the blob first (serve.engine.negotiate_blob)")
         self.max_batch = int(max_batch)
         self.buckets = _parse_buckets(buckets, self.max_batch)
         if self.buckets[-1] > self.max_batch:
@@ -127,19 +172,22 @@ class InferenceEngine:
 
     @classmethod
     def from_checkpoint(cls, cfg: Union[str, ConfigPairs], model_path: str,
-                        device=None, **kw) -> "InferenceEngine":
-        """Build the Network of a net config, load a round into it, and
-        wrap it."""
+                        device=None, dtype: Optional[str] = None,
+                        **kw) -> "InferenceEngine":
+        """Build the Network of a net config, load a round into it after
+        dtype negotiation (:func:`negotiate_blob`), and wrap it."""
         pairs = parse_config_string(cfg) if isinstance(cfg, str) \
             else list(cfg)
         graph = build_graph(pairs)
         net = Network(graph, pairs, device=device)
         blob = ckpt.load_for_inference(model_path)
         ckpt.check_structure(blob["meta"], graph.structure_signature())
-        net.load_weights(*params_from_jax(blob["params"], blob["state"]))
-        eng = cls(net, **kw)
+        placed = negotiate_blob(blob, dtype)
+        net.load_weights(*params_from_jax(placed["params"], placed["state"]))
+        eng = cls(net, dtype=dtype, **kw)
         eng.weights_digest = ckpt.blob_digest(blob["meta"])
-        eng.weights_version = version_name(blob["meta"]["round"])
+        eng.weights_version = version_name(blob["meta"]["round"]) \
+            + ("-int8" if eng.serve_int8 else "")
         return eng
 
     # -- shape plumbing --------------------------------------------------

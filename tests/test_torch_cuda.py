@@ -25,6 +25,7 @@ from cxxnet_tpu_torch.ops.fused_optim import (adam_apply_plain,
 from cxxnet_tpu_torch.ops.fused_lrn import (Lrn, fused_lrn_bwd,
                                             fused_lrn_fwd, lrn_bwd_plain,
                                             lrn_plain)
+from cxxnet_tpu_torch.ops import fused_quant as fq
 from cxxnet_tpu_torch.ops.fused_pool import (Pool, fused_pool,
                                              fused_pool_bwd_lin,
                                              fused_pool_bwd_max,
@@ -94,7 +95,7 @@ def test_each_launch_counts_once(dev):
         {"pool_fwd": 2, "epilogue_fwd": 1, "pool_bwd": 0, "epilogue_bwd": 0,
          "bn_fwd": 0, "bn_bwd": 0, "sgd_apply": 0, "adam_apply": 0,
          "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-         "lrn_fwd": 0, "lrn_bwd": 0, "pool_bwd_max": 0}
+         "lrn_fwd": 0, "lrn_bwd": 0, "pool_bwd_max": 0, "q_mm": 0}
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -333,3 +334,69 @@ def test_adam_apply_kernel_is_bit_equal_to_plain(dev, wd, clip):
                      clip=clip)
     for a, b in zip(ws + m1 + m2, sum(want, [])):
         assert torch.equal(a, b)
+
+
+def _codes(shape, dev, seed, extreme=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if extreme:
+        return torch.where(torch.rand(shape, generator=g, device=dev) < 0.9,
+                           127, -127).to(torch.int8)
+    return torch.randint(-127, 128, shape, generator=g, device=dev,
+                         dtype=torch.int8)
+
+
+@pytest.mark.parametrize("act", ["none", "relu"])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("m,k,n,groups,extreme", [
+    (1, 1024, 1000, 1, False),      # Inception-BN's fc1, bucket 1
+    (32, 9216, 4096, 1, False),     # AlexNet's fc6, bucket 32
+    (4000, 147, 64, 1, False),      # conv1 as im2col (K not a multiple of 4)
+    (777, 576, 96, 1, False),       # an inception 3x3
+    (300, 1200, 128, 2, False),     # AlexNet's grouped conv2
+    (7, 13, 5, 1, False),
+    (5, 4096, 3, 1, True),          # |acc| past 2^24
+])
+def test_q_mm_kernel_is_bit_equal_to_plain(dev, m, k, n, groups, extreme,
+                                           with_bias, act):
+    """Equal: an exact int32 sum on both sides, then the same two f32
+    roundings of the epilogue."""
+    xq = _codes((m, groups * k), dev, 1, extreme)
+    wt = _codes((groups * n, k), dev, 2, extreme)
+    f = _randn((groups * n,), torch.float32, dev, seed=3).abs() * 1e-3
+    b = _randn((groups * n,), torch.float32, dev, seed=4) \
+        if with_bias else None
+    got = fq.q_mm(xq, wt, f, b, act, groups)
+    want = fq.q_mm_plain(xq, wt, f, b, act, groups)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape,cout,k,stride,pad,groups", [
+    ((2, 227, 227, 3), 96, 11, 4, 0, 1), ((2, 27, 27, 96), 256, 5, 1, 2, 2),
+    ((3, 14, 14, 64), 96, 3, 1, 1, 1), ((1, 7, 9, 16), 8, 3, 2, 1, 2)])
+def test_int8_conv_on_the_card_is_bit_equal_to_plain(dev, shape, cout, k,
+                                                     stride, pad, groups):
+    x = _randn(shape, torch.float32, dev)
+    wt = _codes((cout, k * k * shape[3] // groups), dev, 5)
+    ws = _randn((cout,), torch.float32, dev, seed=6).abs() * 1e-2
+    a = torch.tensor(2.5, device=dev)
+    b = _randn((cout,), torch.float32, dev, seed=7)
+    kw = dict(kernel=(k, k), stride=stride, padding=(pad, pad), groups=groups)
+    KERNELS["q_mm"].launches = 0
+    got = fq.int8_conv(x, wt, ws, a, b, "relu", fused=True, **kw)
+    want = fq.int8_conv(x, wt, ws, a, b, "relu", fused=False, **kw)
+    torch.cuda.synchronize()
+    assert KERNELS["q_mm"].launches == 1
+    assert torch.equal(got, want)
+
+
+def test_q_mm_refuses_what_the_kernel_does_not_take(dev):
+    xq = _codes((4, 32), dev, 1)
+    wt = _codes((8, 32), dev, 2)
+    f = torch.ones(8, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        fq.q_mm(xq, wt.t().contiguous().t(), f, None)
+    with pytest.raises(TypeError, match="float32"):
+        fq.q_mm(xq, wt, f.half(), None)
+    with pytest.raises(ValueError, match="contiguous"):
+        fq.q_mm(xq, wt, f.cpu(), None)

@@ -55,10 +55,13 @@ def test_port_files_exist():
             "cxxnet_tpu_torch/ops/attention.py",
             "cxxnet_tpu_torch/layers/seq.py",
             "cxxnet_tpu_torch/ops/fused_lrn.py",
-            "cxxnet_tpu_torch/io/iter_mnist.py"} <= names
+            "cxxnet_tpu_torch/io/iter_mnist.py",
+            "cxxnet_tpu_torch/ops/fused_quant.py",
+            "cxxnet_tpu_torch/quant/ptq.py",
+            "cxxnet_tpu_torch/quant/__main__.py"} <= names
     csrc = {os.path.basename(p) for p in glob.glob(
         os.path.join(REPO, "cxxnet_tpu_torch", "csrc", "*.cu"))}
-    assert {"lrn_fwd.cu", "lrn_bwd.cu", "pool_bwd_max.cu"} <= csrc
+    assert {"lrn_fwd.cu", "lrn_bwd.cu", "pool_bwd_max.cu", "q_mm.cu"} <= csrc
     assert len(names) > 30
 
 
@@ -116,6 +119,14 @@ def test_convnet_train_entry_points_without_cuda_raise(no_cuda, conf):
         port_main.main([path, "task=train"])
 
 
+def test_quantize_entry_point_without_cuda_raises(no_cuda, tmp_path):
+    from cxxnet_tpu_torch.quant.__main__ import main as quant_main
+    conf = tmp_path / "ibn.conf"
+    conf.write_text(IBN_TEXT)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quant_main([str(conf), "in.model", "out.model"])
+
+
 def test_lm_train_entry_point_without_cuda_raises(no_cuda):
     conf = os.path.join(REPO, "examples", "LM", "long_context_lm.conf")
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -127,7 +138,7 @@ def test_other_tasks_and_fleet_keys_name_the_roadmap(tmp_path):
     conf.write_text(IBN_TEXT)
     for args in (["task=pred"], ["task=serve", "serve_replicas=2"],
                  ["task=serve", "cascade_enable=1"],
-                 ["task=serve", "serve_dtype=int8"]):
+                 ["task=serve", "deploy_enable=1"]):
         with pytest.raises(ValueError, match="ROADMAP"):
             port_main.main([str(conf), "dev=cpu", *args])
 

@@ -18,6 +18,7 @@ from cxxnet_tpu.ops.fused_epilogue import fused_bias_act as jax_bias_act
 from cxxnet_tpu.ops.fused_pool import fused_pool as jax_pool
 from cxxnet_tpu_torch.ops import KERNELS
 from cxxnet_tpu_torch.ops.fused_epilogue import bias_act_plain, fused_bias_act
+from cxxnet_tpu_torch.ops.fused_quant import q_mm, q_mm_plain
 from cxxnet_tpu_torch.ops.fused_pool import (fused_pool, kernel_geometry,
                                              pool_fwd_plain)
 
@@ -111,12 +112,16 @@ def test_wrappers_take_the_plain_version_on_cpu_and_count_nothing():
     np.testing.assert_array_equal(
         fused_bias_act(y, b, "relu").numpy(),
         bias_act_plain(y, b, "relu").numpy())
+    xq = torch.randint(-127, 128, (4, 12), dtype=torch.int8)
+    wt = torch.randint(-127, 128, (6, 12), dtype=torch.int8)
+    assert torch.equal(q_mm(xq, wt, b[:6], None, "relu"),
+                       q_mm_plain(xq, wt, b[:6], None, "relu"))
     assert {k: v.launches for k, v in KERNELS.items()} == \
         {k: 0 for k in ("pool_fwd", "pool_bwd", "epilogue_fwd",
                         "epilogue_bwd", "bn_fwd", "bn_bwd", "sgd_apply",
                         "adam_apply", "flash_fwd", "flash_bwd_dq",
                         "flash_bwd_dkv", "lrn_fwd", "lrn_bwd",
-                        "pool_bwd_max")}
+                        "pool_bwd_max", "q_mm")}
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take():
