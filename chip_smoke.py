@@ -24,7 +24,13 @@ and prints no result:
             max|plain|, bf16/f16 one ulp); the first-match max-pool
             backward at spp1's shape, a 2x2 tile and a global 7x7
             window, pre_relu on and off, on tie-ridden integer inputs
-            (bit-equal).
+            (bit-equal); the four data-parallel BN kernels at every BN
+            shape of Inception-BN at 64 rows a rank, a flat node, C 1, 7
+            and 1500 and a ragged row count in bf16, f16 and f32: their
+            sums within the order-of-summation bound of the exact sum
+            (depth of colsum.cuh's addition chain * 2^-24 * sum|term|),
+            their outputs within 4 f32 ulp of max|plain| (bf16/f16 one
+            ulp more).
 4. serve:   full-width Inception-BN (224x224x3, 69 batch_norm layers,
             1000 classes, bfloat16) with random weights drawn by numpy
             from ``--seed``, BN statistics calibrated on one seeded
@@ -125,6 +131,37 @@ and prints no result:
             bf16 one, and ``q_mm`` at each path shape beside its bound,
             its plain version and ``torch._int_mm`` with the epilogue.
 
+11. dp:     full-width Inception-BN trained data-parallel through
+            ``main.run`` (what ``python -m cxxnet_tpu_torch.main <conf>
+            dev=gpu:0-1`` calls) with the launcher's override of two
+            ranks on card 0 over gloo (NCCL refuses two ranks on one
+            card; every kernel, activation and update stays on the card,
+            only the collectives go through the host): global batch 128,
+            64 a rank, bf16, SGD, ``iter = synthetic`` from ``--seed``, 4
+            steps, the round line with one evaluation, one round written.
+            Launch counts, set to 0 in each rank just before its first
+            step and read after each: 69 of each sync-BN kernel
+            (``bn_sums``, ``bn_norm``, ``bn_bwd_sums``, ``bn_bwd_dx``) a
+            step, 0 of ``bn_fwd``/``bn_bwd``, 2 ``sgd_apply``. The ranks'
+            masters, momenta and BN statistics bit-equal after every
+            step. Each step held against the single-device step on the
+            same global batch from the same state with phase 6's bounds
+            (loss 2e-2 * max(1, |loss|), BN statistics rel L2 2e-2, the
+            gradient-part norm ratio in [0.5, 2], the update's median rel
+            L2 at most 1.5x that of single-device bf16 against f32 at
+            steps 2-4); two float32 dp steps from the same init (a second
+            launch): loss rtol 1e-4, update median rel L2 5e-2, BN
+            statistics rel L2 2e-4 (only the order of the sums differs;
+            the single-device kernels against their plain versions read
+            the same order of size, printed beside it), and step 1 again
+            with rank-local BN moments planted must read above 2e-4.
+            The written round served finite softmax rows by a
+            single-device engine. The dp step time per rank and the host
+            time inside the collectives; the four kernels timed at
+            bn_stem1's per-rank shape beside bound, plain version and
+            ``torch.batch_norm_stats`` / ``batch_norm_elemt`` /
+            ``batch_norm_backward_reduce`` / ``batch_norm_backward_elemt``.
+
 Then, on lines of their own: the card's name and power limit as
 ``nvidia-smi`` reports them, the kernels JSON line, and last
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits 2 when
@@ -134,8 +171,10 @@ there is none.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
+import pickle
 import statistics
 import subprocess
 import sys
@@ -448,8 +487,8 @@ def phase_kernels(gen: torch.Generator) -> dict:
     return path_err
 
 
-def flagship_shapes(conf: str):
-    """(BN inputs as (N, C) rows at batch 128 in graph order, param leaf
+def flagship_shapes(conf: str, batch: int = TRAIN_BATCH):
+    """(BN inputs as (N, C) rows at ``batch`` in graph order, param leaf
     shapes by tag group) of the net config ``conf``."""
     from cxxnet_tpu_torch.config import parse_config_file, split_sections
     from cxxnet_tpu_torch.graph import build_graph
@@ -461,7 +500,7 @@ def flagship_shapes(conf: str):
     for spec in graph.layers:
         if spec.type.startswith("batch_norm"):
             c, y, x = net.node_shapes[spec.nindex_in[0]]
-            bn.append((TRAIN_BATCH * y * x, c))
+            bn.append((batch * y * x, c))
     return bn, param_groups(net)
 
 
@@ -629,6 +668,109 @@ def phase_train_kernels(gen: torch.Generator, conf: str) -> dict:
         raise AssertionError("batch_norm_no_ma eval: " + lines[-1])
     print(f"kernels (train): {len(lines)} cases agree with the plain "
           "versions | " + " | ".join(lines), flush=True)
+    return path_err
+
+
+#: the data-parallel BN kernels (queue B rows 8-11)
+DP_KERNELS = ("bn_sums", "bn_norm", "bn_bwd_sums", "bn_bwd_dx")
+#: per-rank batch of phase 11 (two ranks share the flagship's 128)
+DP_RANKS = 2
+DP_BATCH = TRAIN_BATCH // DP_RANKS
+
+
+def _sum_bound_ratio(got, terms, n):
+    """Worst ratio, over the channels of one (C,) row of column sums, of
+    its distance from the exact (float64) sum of its float32 ``terms``
+    to colsum.cuh's order-of-summation bound (depth * 2^-24 * sum|t|)."""
+    from cxxnet_tpu_torch.ops.fused import colsum_depth
+    t = terms.double()
+    bound = colsum_depth(n, terms.shape[1]) * 2.0 ** -24 * t.abs().sum(0)
+    err = (got.double() - t.sum(0)).abs()
+    return float((err / bound.clamp_min(1e-300)).max())
+
+
+def phase_sync_bn_kernels(gen: torch.Generator, conf: str) -> dict:
+    """The four data-parallel BN kernels against their plain versions at
+    every BN shape of the Inception-BN path at a per-rank batch of
+    DP_BATCH, a flat (DP_BATCH, 1024) node, C 1, 7 and 1500 and a ragged
+    row count, in bf16, f16 and f32, relu on the path's shapes: the sums
+    (rows 8, 10) within the order-of-summation bound of their exact
+    value, the outputs (rows 9, 11) within 4 f32 ulp of max|plain| in
+    f32 and one ulp (plus that) in bf16/f16. Returns the largest error
+    against the plain version per kernel at bn_stem1."""
+    from cxxnet_tpu_torch.ops.fused_norm import (
+        bn_bwd_dx, bn_bwd_dx_plain, bn_bwd_sums, bn_bwd_sums_plain, bn_norm,
+        bn_norm_plain, bn_sums, bn_sums_plain)
+    dev = gen.device
+    bn_shapes, _ = flagship_shapes(conf, DP_BATCH)
+    shapes = list(dict.fromkeys(bn_shapes))
+    shapes += [(DP_BATCH, 1024), (4099, 1), (333, 7), (1000, 1500),
+               (12345, 64)]
+    path_err = {k: 0.0 for k in DP_KERNELS}
+    worst = {"sums": 0.0, "out": 0.0}
+    cases = 0
+    for n, c in shapes:
+        for dt in (torch.bfloat16, torch.float16, torch.float32):
+            relu = (n, c) in bn_shapes or c == 7
+            act = "relu" if relu else "none"
+            x = (torch.randn((n, c), generator=gen, device=dev) * 1.5
+                 + 0.25).to(dt)
+            g = torch.randn((c,), generator=gen, device=dev) * 0.2 + 1.0
+            b = torch.randn((c,), generator=gen, device=dev) * 0.1
+            dy = torch.randn((n, c), generator=gen, device=dev).to(dt)
+            xf = x.float()
+            s, s0 = bn_sums(x), bn_sums_plain(x)
+            mean = s0[0] / n
+            rstd = torch.rsqrt(torch.clamp(s0[1] / n - mean * mean, min=0.0)
+                               + 1e-5)
+            y, y0 = (bn_norm(x, g, b, mean, rstd, act),
+                     bn_norm_plain(x, g, b, mean, rstd, act))
+            yy = y0 if relu else None
+            d = dy.float() if yy is None else torch.where(
+                yy.float() > 0, dy.float(), torch.zeros_like(xf))
+            bs, bs0 = (bn_bwd_sums(x, dy, yy, mean, rstd),
+                       bn_bwd_sums_plain(x, dy, yy, mean, rstd))
+            sbn, sxhn = bs0[0] / n, bs0[1] / n
+            dx, dx0 = (bn_bwd_dx(x, dy, yy, g, mean, rstd, sbn, sxhn),
+                       bn_bwd_dx_plain(x, dy, yy, g, mean, rstd, sbn, sxhn))
+            torch.cuda.synchronize()
+            ratio = max(_sum_bound_ratio(s[0], xf, n),
+                        _sum_bound_ratio(s[1], xf * xf, n),
+                        _sum_bound_ratio(bs[0], d, n),
+                        _sum_bound_ratio(bs[1], d * ((xf - mean) * rstd), n))
+            outs = []
+            for got, want in ((y, y0), (dx, dx0)):
+                err = (got.float() - want.float()).abs()
+                tol = 4 * 2.0 ** -23 * want.float().abs().max().item()
+                if dt != torch.float32:
+                    tol = _ulp_tol(dt) * want.float().abs() + tol
+                outs.append(float((err / tol).max()) if torch.is_tensor(tol)
+                            else err.max().item() / max(tol, 1e-300))
+            worst["sums"] = max(worst["sums"], ratio)
+            worst["out"] = max(worst["out"], *outs)
+            cases += 1
+            if ratio > 1.0 or max(outs) > 1.0:
+                raise AssertionError(
+                    f"sync-BN kernels disagree at ({n},{c}) {dt} act={act}: "
+                    f"sums at {ratio:.3g} of their bound, y and dx at "
+                    f"{outs[0]:.3g} and {outs[1]:.3g} of their tolerance")
+            if (n, c) == bn_shapes[0] and dt == torch.bfloat16:
+                for k, got, want in (("bn_sums", s, s0), ("bn_norm", y, y0),
+                                     ("bn_bwd_sums", bs, bs0),
+                                     ("bn_bwd_dx", dx, dx0)):
+                    path_err[k] = (got.float() - want.float()).abs().max() \
+                        .item()
+    print(f"kernels (sync BN): {cases} cases ({len(shapes)} shapes: the "
+          f"{len(set(bn_shapes))} distinct BN shapes of Inception-BN at "
+          f"{DP_BATCH} a rank, a flat node, C 1/7/1500, ragged rows; bf16, "
+          f"f16, f32) agree with the plain versions | sums: worst "
+          f"{worst['sums']:.3g} of the order-of-summation bound (distance "
+          f"to the exact f64 sum of the f32 terms over depth * 2^-24 * "
+          f"sum|term|, depth = colsum.cuh's longest addition chain) | y, "
+          f"dx: worst {worst['out']:.3g} of the tolerance (4 f32 ulp of "
+          f"max|plain|; bf16/f16 one ulp more) | at bn_stem1 bf16 vs plain: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in path_err.items()),
+          flush=True)
     return path_err
 
 
@@ -2419,6 +2561,403 @@ def phase_int8_times(gen: torch.Generator) -> dict:
     return {"kernels": {"q_mm": rows[Q_MM_PATH]}, "all": rows}
 
 
+# -- phase 11 -----------------------------------------------------------------
+
+#: phase 11's ranks: two on card 0 over gloo (NCCL refuses two ranks on
+#: one card); every kernel, activation and update stays on the card, the
+#: collectives are staged through the host
+DP_DEVICES = ("cuda:0",) * DP_RANKS
+#: steps timed per rank in phase 11
+DP_TIME_STEPS = 8
+#: phase 11's bound on the BN running statistics' rel L2 after a float32
+#: dp step against the single-device step: sound runs on the card read
+#: up to 5.1e-5 (the order of the sums alone), the same step with
+#: rank-local moments planted must read above it
+DP_F32_STATE_TOL = 2e-4
+
+
+def _dump(path: str, obj) -> None:
+    with open(path, "wb") as f:
+        pickle.dump(obj, f, protocol=4)
+
+
+def _undump(path: str):
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def _replica(tr) -> torch.Tensor:
+    """A rank's masters, momenta and BN statistics, flat, as float32."""
+    from cxxnet_tpu_torch.optim import leaves
+    trees = [tr.params, tr.net.state] + [
+        v for k, v in sorted(tr.opt_state.items()) if k != "t"]
+    return torch.cat([v.detach().float().reshape(-1)
+                      for t in trees for _, v in leaves(t)])
+
+
+def _dp_ready(out_dir: str, tr) -> None:
+    """Phase 11's hook in each rank of ``main.run``: rank 0 writes the
+    state before the first step; after each step every rank reads its
+    launch counts (set to 0 just before the first step and after each
+    read), checks its replica bit-equal to rank 0's (a broadcast), and
+    rank 0 writes the state after the step. After the last step each
+    rank writes its record."""
+    from cxxnet_tpu_torch.ops import KERNELS, reset_launches
+    rec = {"launches": [], "equal": [], "losses": []}
+    if tr.dp.is_main:
+        _dump(os.path.join(out_dir, "state_0.pkl"), _snap(tr))
+
+    def on_step(t):
+        torch.cuda.synchronize()
+        rec["launches"].append({k.name: k.launches for k in KERNELS.values()})
+        reset_launches()
+        mine = _replica(t)
+        rec["equal"].append(bool(torch.equal(
+            mine, t.dp.broadcast(mine.clone(), 0))))
+        rec["losses"].append(t.last_loss)
+        step = len(rec["losses"])
+        if t.dp.is_main:
+            _dump(os.path.join(out_dir, f"state_{step}.pkl"), _snap(t))
+        if step == TRAIN_STEPS:
+            t.step_hook = None
+            with open(os.path.join(out_dir, f"rank{t.dp.rank}.json"),
+                      "w") as f:
+                json.dump(rec, f)
+
+    tr.step_hook = on_step
+    torch.cuda.synchronize()
+    reset_launches()                      # just before the first step
+
+
+class _RankLocal:
+    """The fault planted in phase 11's float32 check: a batch_norm that
+    sees its own rank alone (rank-local moments, no all-reduce)."""
+    world = 1
+
+    @staticmethod
+    def all_reduce(t):
+        return t
+
+
+def _dp_f32_and_time(dp, glob, data, out_dir):
+    """Phase 11's second launch, in each rank: two float32 dp steps from
+    the bf16 run's initial state (rank 0 writes the state after each),
+    the first step again with rank-local BN moments planted (rank 0
+    writes the state after it), then the bf16 dp step timed (host clock around DP_TIME_STEPS steps
+    ending in a synchronize, the host time inside the collectives beside
+    it) and profiled."""
+    from cxxnet_tpu_torch.io import create_iterator
+    from cxxnet_tpu_torch.trainer import Trainer
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batches = list(create_iterator(glob + data))
+    init = _undump(os.path.join(out_dir, "state_0.pkl"))
+    quiet = [("silent", "1")]
+    t32 = Trainer(glob + quiet + [("compute_dtype", "float32")], dp=dp)
+    _load(t32, init, 0)
+    out = {"losses32": [], "equal32": []}
+    for i, b in enumerate(batches[:2]):
+        t32.update(b)
+        out["losses32"].append(t32.last_loss)
+        mine = _replica(t32)
+        out["equal32"].append(bool(torch.equal(
+            mine, dp.broadcast(mine.clone(), 0))))
+        if dp.is_main:
+            _dump(os.path.join(out_dir, f"f32_{i + 1}.pkl"), _snap(t32))
+    from cxxnet_tpu_torch.layers import norm
+    sound = norm.sync_bn_act
+    norm.sync_bn_act = lambda x, g, b, eps, act, _dp, fused: sound(
+        x, g, b, eps, act, _RankLocal(), fused)
+    try:
+        _load(t32, init, 0)
+        t32.update(batches[0])
+    finally:
+        norm.sync_bn_act = sound
+    if dp.is_main:
+        _dump(os.path.join(out_dir, "f32_fault.pkl"), _snap(t32))
+    del t32
+    torch.cuda.empty_cache()
+    tr = Trainer(glob + quiet, dp=dp)
+    _load(tr, init, 0)
+    b0 = batches[0]
+    for _ in range(2):
+        tr.update(b0)
+    torch.cuda.synchronize()
+    c0, n0 = dp.comm_seconds, dp.collectives
+    t0 = time.perf_counter()
+    for _ in range(DP_TIME_STEPS):
+        tr.update(b0)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / DP_TIME_STEPS
+    out.update(step_ms=step_ms,
+               comm_ms=(dp.comm_seconds - c0) * 1e3 / DP_TIME_STEPS,
+               collectives=(dp.collectives - n0) / DP_TIME_STEPS,
+               profile=profile_calls(lambda: tr.update(b0), 3, "step"))
+    return out
+
+
+def check_dp_records(recs) -> None:
+    """The ranks' records of phase 11's run: TRAIN_STEPS steps each, the
+    replicas bit-equal after every step, one global loss, and the launch
+    counts per step of each rank (69 of each sync-BN kernel, none of the
+    single-device BN kernels, 2 SGD applies, the pool and epilogue
+    kernels at least once)."""
+    n_bn = 69
+    want = {k: n_bn for k in DP_KERNELS}
+    want.update(bn_fwd=0, bn_bwd=0, sgd_apply=2)
+    bad = []
+    for r, rec in enumerate(recs):
+        if len(rec["launches"]) != TRAIN_STEPS or not all(rec["equal"]) \
+                or rec["losses"] != recs[0]["losses"]:
+            bad.append(f"rank {r}: {len(rec['launches'])} steps, replicas "
+                       f"equal {rec['equal']}, losses {rec['losses']}")
+        for i, c in enumerate(rec["launches"]):
+            bad += [f"rank {r} step {i + 1}: {k} {c[k]} (want {v})"
+                    for k, v in want.items() if c[k] != v]
+            bad += [f"rank {r} step {i + 1}: {k} {c[k]} (want >= 1)"
+                    for k in TRAIN_KERNELS if k not in want and c[k] < 1]
+    if bad:
+        raise AssertionError("dp run: " + "; ".join(bad))
+
+
+def phase_dp(conf: str, seed: int, tmp: str) -> dict:
+    """Full-width Inception-BN trained data-parallel through ``main.run``
+    (what ``python -m cxxnet_tpu_torch.main <conf> dev=gpu:0-1`` calls)
+    on two ranks of card 0 over gloo, global batch TRAIN_BATCH; checks
+    and returns what the module docstring's phase 11 lists."""
+    from cxxnet_tpu_torch import checkpoint as ckpt
+    from cxxnet_tpu_torch.config import split_sections
+    from cxxnet_tpu_torch.io import create_iterator
+    from cxxnet_tpu_torch.main import run
+    from cxxnet_tpu_torch.parallel import launch
+    from cxxnet_tpu_torch.serve import InferenceEngine
+    from cxxnet_tpu_torch.trainer import Trainer
+    model_dir, out_dir = os.path.join(tmp, "dp"), os.path.join(tmp, "dps")
+    os.makedirs(out_dir)
+    # the single-device float32 steps below in full float32, as the
+    # ranks' (main.run and _dp_f32_and_time turn TF32 off there)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = train_cfg(conf, seed, model_dir)
+    glob, sections = split_sections(cfg)
+    data = [p for kind, _, p in sections if kind == "data"][0]
+    t0 = time.perf_counter()
+    run(cfg, ready=functools.partial(_dp_ready, out_dir),
+        devices=DP_DEVICES, backend="gloo")
+    took = time.perf_counter() - t0
+    recs = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
+            for r in range(DP_RANKS)]
+    check_dp_records(recs)
+    launches = {k: sum(c[k] for c in recs[0]["launches"])
+                for k in recs[0]["launches"][0]}
+    losses = recs[0]["losses"]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite dp loss: {losses}")
+
+    # each bf16 dp step against the single-device step on the same global
+    # batch from the same state, phase 6's bounds; f32 as the yardstick
+    batches = list(create_iterator(glob + data))
+    quiet = [("silent", "1")]
+    sd16 = Trainer(glob + quiet)
+    sd32 = Trainer(glob + quiet + [("compute_dtype", "float32")])
+    worst = {"loss": 0.0, "state": 0.0, "kp": [], "pf": [], "ratio": []}
+    for i, b in enumerate(batches):
+        before = _undump(os.path.join(out_dir, f"state_{i}.pkl"))
+        after = _undump(os.path.join(out_dir, f"state_{i + 1}.pkl"))
+        got = []
+        for t in (sd16, sd32):
+            _load(t, before, i)
+            t.update(b)
+            got.append((t.last_loss, _snap(t)))
+        (l16, s16), (_, s32) = got
+        mom = {m for _, m in sd16.optimizer.schedules(i).values()}.pop()
+        worst["loss"] = max(worst["loss"],
+                            abs(losses[i] - l16) / max(1.0, abs(l16)))
+        kp, st = _step_rels(after, s16, before)
+        pf, _ = _step_rels(s16, s32, before)
+        ratio = _grad_ratios(after, s16, before, mom)
+        worst["state"] = max(worst["state"], st)
+        worst["kp"].append((float(np.median([r for r, _ in kp])), max(kp)))
+        worst["pf"].append((float(np.median([r for r, _ in pf])), max(pf)))
+        worst["ratio"].append((min(ratio), max(ratio)))
+    del sd16
+    bad = [i + 1 for i, (mk, mf) in enumerate(zip(worst["kp"], worst["pf"]))
+           if i > 0 and mk[0] > 1.5 * mf[0]]
+    bad += [f"ratio at step {i + 1}" for i, (lo, hi) in
+            enumerate(worst["ratio"]) if lo[0] < 0.5 or hi[0] > 2]
+    print(f"dp train: {TRAIN_STEPS} steps of full-width Inception-BN "
+          f"through main.run on {DP_RANKS} ranks of card 0 over gloo "
+          f"(global batch {TRAIN_BATCH}, {DP_BATCH} a rank, bf16, SGD) in "
+          f"{took:.1f}s with the spawn, the evaluation and the round "
+          f"written | losses {[round(v, 4) for v in losses]} | launches "
+          f"per rank per step "
+          f"{ {k: v for k, v in recs[0]['launches'][0].items() if v} } | "
+          f"replicas bit-equal after every step | vs the single-device step "
+          f"from the same state: loss {worst['loss']:.3g} of max(1,|loss|) "
+          f"(tol 2e-2), BN statistics {worst['state']:.3g} (tol 2e-2), "
+          f"update rel L2 median / worst leaf, dp vs single bf16 "
+          f"{[(round(m, 4), round(w[0], 4)) for m, w in worst['kp']]} "
+          f"against single bf16 vs single f32 "
+          f"{[(round(m, 4), round(w[0], 4)) for m, w in worst['pf']]} "
+          f"(tol: median at most 1.5x at steps 2-{TRAIN_STEPS}); "
+          f"gradient-part norm ratio min-max per step "
+          f"{[(round(lo[0], 3), round(hi[0], 3)) for lo, hi in worst['ratio']]}"
+          f" (tol [0.5, 2])", flush=True)
+    if worst["loss"] > 2e-2 or worst["state"] > 2e-2 or bad:
+        raise AssertionError(f"dp vs single-device steps {bad}: {worst}")
+
+    # two float32 dp steps (second launch, which also times the bf16
+    # step), each against the single-device f32 step from the same state;
+    # the single-device kernels against fused_kernels = 0 from that state
+    # is the yardstick of a change of summation order alone
+    t1 = time.perf_counter()
+    res = launch(_dp_f32_and_time, (glob, data, out_dir), devices=DP_DEVICES,
+                 backend="gloo")
+    took_f32 = time.perf_counter() - t1
+    if res[0]["losses32"] != res[1]["losses32"] or not all(
+            res[0]["equal32"] + res[1]["equal32"]):
+        raise AssertionError(f"f32 dp ranks differ: {res}")
+    pl32 = Trainer(glob + quiet + [("compute_dtype", "float32"),
+                                   ("fused_kernels", "0")])
+    f32 = []
+    init = _undump(os.path.join(out_dir, "state_0.pkl"))
+    for i, b in enumerate(batches[:2]):
+        before = init if i == 0 else \
+            _undump(os.path.join(out_dir, f"f32_{i}.pkl"))
+        after = _undump(os.path.join(out_dir, f"f32_{i + 1}.pkl"))
+        for t in (sd32, pl32):
+            _load(t, before, i)
+            t.update(b)
+        single = _snap(sd32)
+        if i == 0:
+            _, fault = _step_rels(
+                _undump(os.path.join(out_dir, "f32_fault.pkl")), single,
+                before)
+        rels, st = _step_rels(after, single, before)
+        _, yard = _step_rels(single, _snap(pl32), before)
+        f32.append((abs(res[0]["losses32"][i] / sd32.last_loss - 1),
+                    float(np.median([r for r, _ in rels])), max(rels), st,
+                    yard))
+    del sd32, pl32
+    torch.cuda.empty_cache()
+    print(f"dp train f32 (second launch, {took_f32:.1f}s), per step from "
+          f"the same state, dp vs single device: " + " | ".join(
+              f"step {i + 1}: loss rtol {dl:.3g}, update rel L2 median "
+              f"{md:.3g}, worst {w[0]:.3g} at {w[1]}, BN statistics "
+              f"{st:.3g} (single-device kernels vs fused_kernels=0: "
+              f"{yd:.3g})" for i, (dl, md, w, st, yd) in enumerate(f32))
+          + f" (tol: loss 1e-4, median 5e-2, BN statistics "
+          f"{DP_F32_STATE_TOL:g}) | planted fault, step 1 with rank-local "
+          f"BN moments: BN statistics {fault:.3g} (must exceed "
+          f"{DP_F32_STATE_TOL:g})", flush=True)
+    if any(dl > 1e-4 or md > 5e-2 or st > DP_F32_STATE_TOL
+           for dl, md, _, st, _ in f32) or fault <= DP_F32_STATE_TOL:
+        raise AssertionError(f"f32 dp vs single-device: {f32}, planted "
+                             f"fault {fault}")
+
+    # the written round loads in a single-device engine and answers
+    path = ckpt.model_path(model_dir, 0)
+    engine = InferenceEngine.from_checkpoint(
+        _serve_cfg(conf, []), path, buckets="8", max_batch=8)
+    prob = engine.predict_raw(batches[0].data[:8].transpose(0, 3, 1, 2))
+    del engine
+    if not np.isfinite(prob).all() or np.abs(prob.sum(1) - 1).max() > 1e-3:
+        raise AssertionError("the dp round's answers are not finite "
+                             "softmax rows")
+    print(f"dp train: round {os.path.basename(path)} loads in a "
+          f"single-device engine, finite softmax rows", flush=True)
+    for r, rr in enumerate(res):
+        print(f"profile: dp train step, rank {r}: {rr['step_ms']:.3f} ms a "
+              f"step (host clock, {DP_TIME_STEPS} steps), "
+              f"{rr['collectives']:.0f} collectives a step taking "
+              f"{rr['comm_ms']:.3f} ms on the host "
+              f"({100 * rr['comm_ms'] / rr['step_ms']:.1f}% of the step) | "
+              f"{rr['profile']}", flush=True)
+    return {"launches": launches, "losses": losses, "worst": worst,
+            "f32": [{"loss_rtol": dl, "update_median": md,
+                     "update_worst": w[0], "state": st,
+                     "state_kernels_vs_plain": yd}
+                    for dl, md, w, st, yd in f32],
+            "f32_state_rank_local": fault,
+            "seconds": took, "step_ms": [rr["step_ms"] for rr in res],
+            "comm_ms": [rr["comm_ms"] for rr in res],
+            "profile": [rr["profile"] for rr in res]}
+
+
+def phase_dp_times(gen: torch.Generator) -> dict:
+    """CUDA-event times of the four data-parallel BN kernels at
+    bn_stem1's per-rank shape (DP_BATCH x 112 x 112, 64, bf16, relu)
+    beside the bound (bytes at the memory rate), the plain version and
+    the PyTorch call computing the same function."""
+    from cxxnet_tpu_torch.ops.fused_norm import (
+        bn_bwd_dx, bn_bwd_dx_plain, bn_bwd_sums, bn_bwd_sums_plain, bn_norm,
+        bn_norm_plain, bn_sums, bn_sums_plain)
+    dev = gen.device
+    n, c = DP_BATCH * 112 * 112, 64
+    x = (torch.randn((n, c), generator=gen, device=dev) * 1.5
+         + 0.25).to(torch.bfloat16)
+    g = torch.rand((c,), generator=gen, device=dev) + 0.5
+    b = torch.randn((c,), generator=gen, device=dev) * 0.1
+    s = bn_sums(x)
+    mean = s[0] / n
+    rstd = torch.rsqrt(torch.clamp(s[1] / n - mean * mean, min=0) + 1e-10)
+    y = bn_norm(x, g, b, mean, rstd, "relu")
+    dy = torch.randn((n, c), generator=gen, device=dev).to(torch.bfloat16)
+    bs = bn_bwd_sums(x, dy, y, mean, rstd)
+    sbn, sxhn = bs[0] / n, bs[1] / n
+    count = torch.full((DP_RANKS,), n, dtype=torch.int32, device=dev)
+    e, v = n * c * 2, 4 * c * 4              # bytes of a (N, C) bf16, vectors
+
+    def lib(fn):
+        try:
+            return time_call(fn)
+        except Exception as ex:               # not gated: a yardstick only
+            print(f"times (sync BN): library call failed: {ex!r}", flush=True)
+            return None
+    rows = {
+        "bn_sums": dict(
+            ms=time_call(lambda: bn_sums(x)),
+            plain_ms=time_call(lambda: bn_sums_plain(x)),
+            library_ms=lib(lambda: torch.batch_norm_stats(x, 1e-10)),
+            bound=bound_ms(e + 2 * c * 4, 3 * n * c),
+            library="torch.batch_norm_stats (mean, invstd)"),
+        "bn_norm": dict(
+            ms=time_call(lambda: bn_norm(x, g, b, mean, rstd, "relu")),
+            plain_ms=time_call(lambda: bn_norm_plain(x, g, b, mean, rstd,
+                                                     "relu")),
+            library_ms=lib(lambda: torch.batch_norm_elemt(
+                x, g, b, mean, rstd, 1e-10)),
+            bound=bound_ms(2 * e + v, 5 * n * c),
+            library="torch.batch_norm_elemt (no relu)"),
+        "bn_bwd_sums": dict(
+            ms=time_call(lambda: bn_bwd_sums(x, dy, y, mean, rstd)),
+            plain_ms=time_call(lambda: bn_bwd_sums_plain(x, dy, y, mean,
+                                                         rstd)),
+            library_ms=lib(lambda: torch.batch_norm_backward_reduce(
+                dy, x, mean, rstd, g, True, True, True)),
+            bound=bound_ms(3 * e + 2 * c * 4 + 2 * c * 4, 6 * n * c),
+            library="torch.batch_norm_backward_reduce (no relu mask)"),
+        "bn_bwd_dx": dict(
+            ms=time_call(lambda: bn_bwd_dx(x, dy, y, g, mean, rstd, sbn,
+                                           sxhn)),
+            plain_ms=time_call(lambda: bn_bwd_dx_plain(x, dy, y, g, mean,
+                                                       rstd, sbn, sxhn)),
+            library_ms=lib(lambda: torch.batch_norm_backward_elemt(
+                dy, x, mean, rstd, g, bs[0], bs[1], count)),
+            bound=bound_ms(4 * e + 5 * c * 4, 9 * n * c),
+            library="torch.batch_norm_backward_elemt (no relu mask)"),
+    }
+    print(f"times (sync BN) at bn_stem1 per rank ({n},{c}) bf16 relu: "
+          + " | ".join(
+              f"{k}: {r['ms'] * 1e3:.2f} us, bound {r['bound'][0] * 1e3:.2f}"
+              f" us ({r['bound'][1]}), plain {r['plain_ms'] * 1e3:.2f} us, "
+              f"{r['library']} "
+              + ("failed" if r["library_ms"] is None
+                 else f"{r['library_ms'] * 1e3:.2f} us")
+              for k, r in rows.items()), flush=True)
+    return {"kernels": rows}
+
+
 # -- main ---------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -2444,6 +2983,7 @@ def main(argv=None) -> int:
     mark("build")
     errs = phase_kernels(gen)
     errs.update(phase_train_kernels(gen, args.conf))
+    errs.update(phase_sync_bn_kernels(gen, args.conf))
     errs.update(phase_lm_kernels(gen, LM_CONF))
     errs.update(phase_convnet_kernels(gen))
     mark("kernels")
@@ -2510,6 +3050,12 @@ def main(argv=None) -> int:
     mark("int8")
     source["q_mm"] = (int8_times,
                       {"q_mm": int8["inception_bn"]["launches_q_mm"]})
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        dp = phase_dp(args.conf, args.seed, tmp)
+    dp_times = phase_dp_times(gen)
+    mark("dp")
+    source.update({k: (dp_times, dp["launches"]) for k in DP_KERNELS})
     kernels = []
     for name, k in KERNELS.items():
         times_of, launches_of = source[name]
@@ -2553,6 +3099,7 @@ def main(argv=None) -> int:
               "int8_kernels": {k: {kk: vv for kk, vv in r.items()
                                    if kk != "bound"}
                                for k, r in int8_times["all"].items()},
+              "dp": dp,
               "phase_seconds": {b[0]: b[1] - a[1]
                                 for a, b in zip(marks, marks[1:])},
               "card": smi_line, "seconds": time.perf_counter() - t_start}

@@ -318,6 +318,12 @@ TRAIN_NOT_YET = {
                      "Queue A 9 (model parallelism)"),
     "pipeline_parallel": (lambda v: _same_value(v, "1"),
                           "Queue A 9 (model parallelism)"),
+    "dist_coordinator": (lambda v: not v.strip(),
+                         "Queue A 5, still queued: multi-host launch"),
+    "dist_num_proc": (lambda v: _same_value(v, "1"),
+                      "Queue A 5, still queued: multi-host launch"),
+    "dist_rank": (lambda v: _same_value(v, "0"),
+                  "Queue A 5, still queued: multi-host launch"),
 }
 
 #: key prefixes of training features the port does not run yet

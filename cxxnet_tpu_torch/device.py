@@ -7,8 +7,9 @@ accelerator, which in the port is a CUDA card; an empty ``dev`` names it
 too. ``cpu`` is the only way onto the CPU: with no CUDA device visible,
 any other value raises instead of quietly running on the CPU.
 
-One engine runs on one card; a multi-card list raises until data
-parallelism lands (ROADMAP Queue A 5).
+One engine runs on one card (:func:`resolve_device`); a multi-card list
+is for data-parallel training, one rank per card
+(:func:`resolve_devices`).
 """
 
 from __future__ import annotations
@@ -38,22 +39,34 @@ def parse_device_spec(spec: str) -> Optional[List[int]]:
     raise ConfigError(f"cannot parse device spec {spec!r}")
 
 
-def resolve_device(spec: str) -> torch.device:
-    """The torch device a ``dev`` value names (see module docstring)."""
+def resolve_devices(spec: str) -> List[torch.device]:
+    """Every torch device a ``dev`` value names (see module docstring):
+    one for ``cpu`` and a single card, one per listed card otherwise."""
     spec = (spec or "").strip().lower()
     kind = spec.split(":", 1)[0]
     ids = parse_device_spec(spec)
     if kind == "cpu":
-        return torch.device("cpu")
+        return [torch.device("cpu")]
     if kind not in _ACCEL + ("",):
         raise ConfigError(
             f"dev = {spec!r}: expected cpu, gpu, cuda or tpu")
-    if ids is not None and len(ids) > 1:
-        raise ConfigError(
-            f"dev = {spec!r}: one engine runs on one card; several cards "
-            "wait for data parallelism (ROADMAP Queue A 5)")
     if not torch.cuda.is_available():
         raise RuntimeError(
             f"dev = {spec or '(default)'!r} names the accelerator, but no "
             "CUDA device is visible; set dev = cpu to run on the CPU")
-    return torch.device("cuda", ids[0] if ids else torch.cuda.current_device())
+    if ids is not None and len(set(ids)) != len(ids):
+        raise ConfigError(f"dev = {spec!r}: a card is listed twice")
+    return [torch.device("cuda", i) for i in
+            (ids or [torch.cuda.current_device()])]
+
+
+def resolve_device(spec: str) -> torch.device:
+    """The one torch device of a ``dev`` value (see module docstring). A
+    list of several cards raises: only training spreads over them."""
+    devs = resolve_devices(spec)
+    if len(devs) > 1:
+        raise ConfigError(
+            f"dev = {spec!r}: one engine runs on one card; task = train "
+            "spreads over several (data parallelism), serving over several "
+            "waits for the fleet (ROADMAP Queue A 4)")
+    return devs[0]

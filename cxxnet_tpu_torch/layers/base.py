@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -142,26 +142,37 @@ class Draws:
     (``torch.utils.checkpoint``, which restores only the default
     generators) draws the same mask again. The numbers differ from
     ``jax.random``'s; tests hand a layer the JAX layer's draws through an
-    object with these two methods."""
+    object with these two methods.
+
+    Under data parallelism (``dp``, a ``parallel.DpContext``) each rank
+    draws for the global batch, ``shape[0] * dp.world`` rows, and keeps
+    its own rows (``dp.rows``): the ranks' draws differ as the parts of
+    one device's draw do, and the dp step draws what the single-device
+    step on the global batch draws."""
 
     def __init__(self, seed: int, step: int, layer: int,
-                 device: torch.device):
+                 device: torch.device, dp: Optional[Any] = None):
         self.device = torch.device(device)
+        self.dp = dp
         h = hashlib.sha256(f"{seed}:{step}:{layer}".encode()).digest()
         self._seed = int.from_bytes(h[:8], "little") & (2 ** 63 - 1)
 
-    def _generator(self) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(self._seed)
+    def _rand(self, shape, dtype: torch.dtype) -> torch.Tensor:
+        shape = tuple(shape)
+        world = 1 if self.dp is None else self.dp.world
+        u = torch.rand((shape[0] * world,) + shape[1:],
+                       generator=torch.Generator(device=self.device)
+                       .manual_seed(self._seed),
+                       device=self.device, dtype=dtype)
+        return u if world == 1 else u[self.dp.rows(u.shape[0])]
 
     def keep_mask(self, shape, pkeep: float) -> torch.Tensor:
         """Bernoulli(``pkeep``) booleans of ``shape``: True keeps."""
-        return torch.rand(shape, generator=self._generator(),
-                          device=self.device) < pkeep
+        return self._rand(shape, torch.float32) < pkeep
 
     def uniform(self, shape, dtype: torch.dtype) -> torch.Tensor:
         """Uniform [0, 1) values of ``shape`` drawn in ``dtype``."""
-        return torch.rand(shape, generator=self._generator(),
-                          device=self.device, dtype=dtype)
+        return self._rand(shape, dtype)
 
 
 @dataclasses.dataclass
@@ -184,6 +195,9 @@ class ApplyCtx:
     calib_sink: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None
     # training: this layer's random draws (dropout, insanity)
     draws: Optional[Draws] = None
+    # data parallelism: this rank's parallel.DpContext (batch_norm takes
+    # the global batch's moments over it); None on one device
+    dp: Optional[Any] = None
 
     def draw_source(self, layer: str) -> Draws:
         """The layer's draws; a training forward without them raises."""

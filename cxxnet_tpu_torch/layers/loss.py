@@ -12,6 +12,8 @@ its cross-entropy run in f32 whatever the compute dtype.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .base import Layer, register_layer
@@ -37,15 +39,21 @@ class LossLayerBase(Layer):
         self.check_n(in_shapes, 1, 1)
         return [in_shapes[0]]
 
-    def _mean(self, per_example: torch.Tensor,
-              mask: torch.Tensor) -> torch.Tensor:
+    def _mean(self, per_example: torch.Tensor, mask: torch.Tensor,
+              batch: Optional[int]) -> torch.Tensor:
         """grad_scale-weighted mean over the full batch (padded rows
-        masked out, the division still by the batch size)."""
+        masked out, the division still by the batch size): ``batch``
+        rows, the global batch of a data-parallel rank, or by default the
+        rows given."""
         return self.grad_scale * torch.sum(per_example * mask) \
-            / per_example.shape[0]
+            / (per_example.shape[0] if batch is None else batch)
 
-    def loss(self, outputs, label: torch.Tensor,
-             mask: torch.Tensor) -> torch.Tensor:
+    def loss(self, outputs, label: torch.Tensor, mask: torch.Tensor,
+             batch: Optional[int] = None) -> torch.Tensor:
+        """The scalar loss of these rows, divided by ``batch`` (default:
+        their number). A data-parallel rank passes the global batch, so
+        the ranks' losses, and their gradients, sum to the global
+        batch's."""
         raise NotImplementedError
 
 
@@ -59,12 +67,13 @@ class SoftmaxLayer(LossLayerBase):
         logits = x.reshape(x.shape[0], -1).float()
         return [torch.softmax(logits, dim=-1).reshape(x.shape)]
 
-    def loss(self, outputs, label, mask):
+    def loss(self, outputs, label, mask, batch=None):
         """Cross-entropy of the class index in ``label[:, 0]``."""
         probs = outputs[0].reshape(outputs[0].shape[0], -1)
         idx = label[:, 0].long()
         p = torch.gather(probs, 1, idx[:, None])[:, 0]
-        return self._mean(-torch.log(torch.clamp(p, min=1e-30)), mask)
+        return self._mean(-torch.log(torch.clamp(p, min=1e-30)), mask,
+                          batch)
 
 
 @register_layer("lp_loss", "l2_loss")
@@ -83,11 +92,11 @@ class LpLossLayer(LossLayerBase):
     def forward(self, params, state, inputs, ctx):
         return [inputs[0]]
 
-    def loss(self, outputs, label, mask):
+    def loss(self, outputs, label, mask, batch=None):
         """sum_j |pred_j - label_j|^p per example."""
         pred = outputs[0].reshape(outputs[0].shape[0], -1).float()
         per = torch.sum(torch.abs(pred - label) ** self.p, dim=1)
-        return self._mean(per, mask)
+        return self._mean(per, mask, batch)
 
 
 @register_layer("multi_logistic")
@@ -97,10 +106,10 @@ class MultiLogisticLayer(LossLayerBase):
     def forward(self, params, state, inputs, ctx):
         return [torch.sigmoid(inputs[0])]
 
-    def loss(self, outputs, label, mask):
+    def loss(self, outputs, label, mask, batch=None):
         """Binary cross-entropy summed over the outputs."""
         p = outputs[0].reshape(outputs[0].shape[0], -1).float()
         p = torch.clamp(p, 1e-7, 1.0 - 1e-7)
         per = -torch.sum(label * torch.log(p)
                          + (1 - label) * torch.log(1 - p), dim=1)
-        return self._mean(per, mask)
+        return self._mean(per, mask, batch)

@@ -20,6 +20,14 @@ the JAX package's fused path does (norm.py:211-215). Statistics are per
 channel for conv nodes and per feature for flat nodes, as the trailing
 NHWC axis holds either.
 
+Under data parallelism (``ctx.dp``) every pass that takes batch moments
+(training, and ``batch_norm_no_ma`` at eval) takes those of the global
+batch through :func:`~cxxnet_tpu_torch.ops.fused_norm.sync_bn_act`: the
+sync-BN kernels, or their plain versions under ``fused_kernels = 0``.
+Nothing takes shard-local moments there. ``bn_two_pass = 1`` raises
+under dp: two-pass moments across ranks are not ported (nor does the JAX
+package have a kernel for them).
+
 :func:`cxxnet_tpu_torch.model.calibrate_bn` drives the one other mode:
 with ``ctx.calib_sink`` set, a layer normalizes with its input's batch
 moments and records them.
@@ -29,7 +37,8 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.fused_norm import bn_act_plain, fused_bn_act
+from ..config import ConfigError
+from ..ops.fused_norm import bn_act_plain, fused_bn_act, sync_bn_act
 from .base import Layer, is_flat, register_layer
 
 
@@ -107,10 +116,22 @@ class _BatchNormBase(Layer):
                   f"normalization degrades toward rsqrt(eps) there. "
                   f"Consider rescaling inputs or raising eps.", flush=True)
 
+    def _sync(self, x, slope, bias, ctx):
+        """The global batch's batch norm over the ranks of ``ctx.dp``."""
+        if self.two_pass:
+            raise ConfigError(
+                f"batch_norm {self.name!r}: bn_two_pass = 1 under data "
+                "parallelism is not in the PyTorch port (ROADMAP Queue A 5, "
+                "still queued: two-pass moments across ranks)")
+        return sync_bn_act(x, slope, bias, self.eps, ctx.fuse_act or "none",
+                           ctx.dp, ctx.fused)
+
     def _forward_train(self, params, state, x, ctx):
         slope, bias = params["wmat"], params["bias"]
         act = ctx.fuse_act or "none"
-        if ctx.fused:
+        if ctx.dp is not None:
+            out, mean, var = self._sync(x, slope, bias, ctx)
+        elif ctx.fused:
             out, mean, var = fused_bn_act(x, slope, bias, self.eps, act,
                                           self.two_pass)
         else:
@@ -141,6 +162,8 @@ class _BatchNormBase(Layer):
             ctx.calib_sink[self.name] = (mean, var)
         elif self.moving_avg:
             mean, var = state["running_exp"], state["running_var"]
+        elif ctx.dp is not None:
+            return [self._sync(x, slope, bias, ctx)[0]]
         elif ctx.fused:
             return [fused_bn_act(x, slope, bias, self.eps,
                                  ctx.fuse_act or "none", self.two_pass)[0]]

@@ -354,10 +354,10 @@ class LMLossLayer(LossLayerBase):
     def forward(self, params, state, inputs, ctx):
         return [torch.log_softmax(inputs[0].float(), dim=-1)]
 
-    def loss(self, outputs, label, mask):
+    def loss(self, outputs, label, mask, batch=None):
         logp_all = outputs[0]                      # (b, S, 1, V)
         b, S = logp_all.shape[0], logp_all.shape[1]
         lp2 = logp_all.reshape(b, S, -1)
         idx = label.long()                         # (b, S)
         logp = torch.gather(lp2, 2, idx[:, :, None])[:, :, 0]
-        return self._mean(-logp.mean(dim=1), mask)
+        return self._mean(-logp.mean(dim=1), mask, batch)

@@ -17,6 +17,12 @@ train metrics and one fragment per ``eval = <name>`` section; every
 ``<model_dir>/%04d.model`` with the optimizer state, a round the JAX
 package loads and resumes.
 
+With several cards in ``dev`` (``gpu:0-1``, ``gpu:0,2``) ``task = train``
+runs data-parallel: one process per card (NCCL), the global
+``batch_size`` split evenly, batch norm over the global batch, one
+gradient all-reduce a step; rank 0 alone prints and writes rounds, and a
+rank that fails fails the run (:mod:`cxxnet_tpu_torch.parallel`).
+
 ``task = serve``: iterator sections are never opened; the round named by
 ``model_in`` (a ``%04d.model`` written by either package) is served over
 HTTP until SIGINT/SIGTERM. ``serve_dtype = int8`` serves a round
@@ -35,7 +41,7 @@ import os
 import sys
 import threading
 import time
-from typing import Callable, List, Optional
+from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 
@@ -44,8 +50,10 @@ from .config import (ConfigError, ConfigPairs, parse_cli_overrides,
                      parse_config_file, parse_serve_config, split_sections)
 from .convert import params_from_jax
 from .graph import build_graph, global_param
+from .device import resolve_devices
 from .model import Network
 from .io import create_iterator
+from .parallel import DpContext, launch
 from .serve import InferenceEngine, ServeServer
 from .serve.engine import negotiate_blob, version_name
 from .trainer import Trainer
@@ -113,7 +121,8 @@ def task_serve(cfg: ConfigPairs,
 
 def _train_rounds(tr: Trainer, gp, itr_train, evals) -> int:
     """The JAX package's round loop (main.py:1023-1167, its single-device
-    parts); returns the last round run."""
+    and dp parts; under dp every rank runs it, rank 0 alone prints);
+    returns the last round run."""
     start = time.time()
     start_counter = int(gp("start_counter", "0"))
     num_round = int(gp("num_round", "10"))
@@ -122,7 +131,8 @@ def _train_rounds(tr: Trainer, gp, itr_train, evals) -> int:
     save_period = int(gp("save_period", "1"))
     save_model = int(gp("save_model", "1"))
     model_dir = gp("model_dir", "./models")
-    silent = int(gp("silent", "0"))
+    silent = int(gp("silent", "0")) or (tr.dp is not None
+                                        and not tr.dp.is_main)
     end_round = num_round
     if max_round > 0:
         end_round = min(end_round, start_counter + max_round)
@@ -145,23 +155,26 @@ def _train_rounds(tr: Trainer, gp, itr_train, evals) -> int:
             line += tr.train_metric_report("train")
         for name, itr in evals:
             line += tr.evaluate(itr, name)
-        print(line, flush=True)
+        if not silent:
+            print(line, flush=True)
         if save_model and save_period and (r + 1) % save_period == 0:
             tr.save_model(ckpt.model_path(model_dir, r))
     return end_round - 1
 
 
 def task_train(cfg: ConfigPairs, sections,
-               ready: Optional[Callable[[Trainer], None]] = None) -> Trainer:
+               ready: Optional[Callable[[Trainer], None]] = None,
+               dp: Optional[DpContext] = None) -> Trainer:
     """Train from fresh weights over the ``data`` section, evaluating on
     each ``eval`` section after every round; ``ready`` is handed the
-    initialized trainer before the first step. Returns the trainer."""
+    initialized trainer before the first step. Under ``dp`` this is one
+    rank's part of a data-parallel run. Returns the trainer."""
     gp = lambda n, d: global_param(cfg, n, d)
     # float32 policies compute in full float32 (no TF32 in cuDNN convs
     # or cuBLAS matmuls), as the JAX package's float32 does on the CPU
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    tr = Trainer(cfg)
+    tr = Trainer(cfg, dp=dp)
     data = [pairs for kind, _, pairs in sections if kind == "data"]
     if not data:
         raise ConfigError("no training data section (data = ...) in config")
@@ -182,13 +195,48 @@ def task_train(cfg: ConfigPairs, sections,
     return tr
 
 
-def run(cfg: ConfigPairs, ready: Optional[Callable] = None):
+def _train_worker(dp: DpContext, cfg: ConfigPairs, sections,
+                  ready: Optional[Callable[[Trainer], None]]) -> None:
+    """One rank of a data-parallel ``task = train`` (spawned by
+    :func:`task_train_dp`)."""
+    task_train(cfg, sections, ready, dp=dp)
+
+
+def task_train_dp(cfg: ConfigPairs, sections, devices: Sequence[Any],
+                  ready: Optional[Callable[[Trainer], None]] = None,
+                  backend: Optional[str] = None) -> None:
+    """Data-parallel ``task = train``: one rank per entry of ``devices``
+    (``parallel.launch``), each running :func:`task_train` on its rows of
+    every global batch. On the card the kernels are built here first, so
+    every rank loads the same libraries. ``ready`` (a module-level
+    function, as it crosses to the ranks by pickle) is handed each
+    rank's trainer before its first step. Raises with the traceback of a
+    rank that fails."""
+    if any(torch.device(d).type == "cuda" for d in devices):
+        from .ops import KERNELS, _build
+        _build.build(sorted({k.source for k in KERNELS.values()}))
+    launch(_train_worker, (cfg, sections, ready), devices=devices,
+           backend=backend)
+
+
+def run(cfg: ConfigPairs, ready: Optional[Callable] = None,
+        devices: Optional[Sequence[Any]] = None,
+        backend: Optional[str] = None):
     """Dispatch on ``task`` over the global settings. ``ready`` is handed
     the listening server (serve) or the initialized trainer (train);
-    train returns its :class:`Trainer`."""
+    single-device train returns its :class:`Trainer`. ``devices`` and
+    ``backend`` override, for training, the ranks that ``dev`` names and
+    the collective backend (``parallel.launch``): tests run two CPU
+    ranks over gloo with ``dev = cpu`` and ``devices=("cpu", "cpu")``,
+    and two ranks can share one card with ``backend="gloo"``."""
     global_cfg, sections = split_sections(cfg)
     task = global_param(global_cfg, "task", "train")
     if task == "train":
+        if devices is None:
+            devices = resolve_devices(global_param(global_cfg, "dev", ""))
+        if len(devices) > 1:
+            task_train_dp(global_cfg, sections, devices, ready, backend)
+            return None
         return task_train(global_cfg, sections, ready)
     if task != "serve":
         raise ConfigError(

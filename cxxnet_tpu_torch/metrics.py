@@ -2,7 +2,10 @@
 
 The port's own copy of ``cxxnet_tpu/metrics.py``: metrics accumulate
 (sum, count) host-side over numpy prediction/label slices; padded rows
-(num_batch_padd) are excluded by the caller passing only real rows.
+(num_batch_padd) are excluded by the caller passing only real rows. A
+data-parallel run sums the (sum, count) pairs over its ranks
+(``MetricSet.pairs`` / ``load_pairs``), as the JAX package's
+allreduce does.
 """
 
 from __future__ import annotations
@@ -162,3 +165,16 @@ class MetricSet:
 
     def get(self, prefix: str) -> List[Tuple[str, float]]:
         return [(f"{prefix}-{m.name}", m.get()) for m in self.metrics]
+
+    def pairs(self) -> List[Tuple[float, int]]:
+        """Each metric's accumulators ``(sum, cnt)``, in order: what a
+        data-parallel run sums over its ranks."""
+        return [(m.sum, m.cnt) for m in self.metrics]
+
+    def load_pairs(self, pairs: List[Tuple[float, int]]) -> None:
+        """Set each metric's accumulators from :meth:`pairs`' layout."""
+        if len(pairs) != len(self.metrics):
+            raise ValueError(f"{len(pairs)} metric pairs for "
+                             f"{len(self.metrics)} metrics")
+        for m, (s, c) in zip(self.metrics, pairs):
+            m.sum, m.cnt = float(s), int(c)

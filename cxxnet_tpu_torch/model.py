@@ -115,6 +115,11 @@ class Network(nn.Module):
             self._fuse_act, self._act_folded = {}, set()
         self.params: Optional[Params] = None
         self.state: Optional[NetState] = None
+        # data parallelism: this rank's parallel.DpContext (the JAX
+        # package's Network.fused_spmd), set by the trainer; every pass
+        # hands it to the layers, batch_norm takes the global batch's
+        # moments over it and the loss divides by the global batch
+        self.dp = None
         self._cast: Dict[torch.dtype, Params] = {}
         self._cast_lock = threading.Lock()
 
@@ -272,6 +277,7 @@ class Network(nn.Module):
         nodes: List[Optional[torch.Tensor]] = [None] * g.num_nodes
         nodes[0] = data
         loss = torch.zeros((), dtype=torch.float32, device=data.device)
+        batch = None if self.dp is None else data.shape[0] * self.dp.world
         for li, (spec, layer) in enumerate(zip(g.layers, self.layers)):
             if li in self._act_folded:
                 # relu folded into its producer (graph.act_fusion_plan)
@@ -292,7 +298,8 @@ class Network(nn.Module):
                 nodes[ni] = out
             if layer.is_loss and label is not None:
                 a, b = g.label_slice(layer.target)
-                loss = loss + layer.loss(outputs, label[:, a:b].float(), mask)
+                loss = loss + layer.loss(outputs, label[:, a:b].float(),
+                                         mask, batch)
         return nodes, loss
 
     @staticmethod
@@ -320,7 +327,7 @@ class Network(nn.Module):
             self.weights_for(cdt), self.state, data,
             dict(compute_dtype=cdt,
                  fused=self.fused if fused is None else fused,
-                 calib_sink=calib_sink))
+                 calib_sink=calib_sink, dp=self.dp))
         node_map = None
         if capture_nodes:
             node_map = {name: nodes[i]
@@ -345,7 +352,8 @@ class Network(nn.Module):
         running statistics and insanity's step counter, no grad);
         ``nodes`` maps node names to values: every node with
         ``capture_nodes``, else the last one. In training each layer draws
-        from ``Draws(seed, step, layer index)``; ``draws`` replaces that
+        from ``Draws(seed, step, layer index)`` (under dp this rank's rows
+        of the global batch's draws); ``draws`` replaces that
         factory (tests hand the JAX package's draws in)."""
         if mask is None:
             mask = torch.ones((data.shape[0],), dtype=torch.float32,
@@ -353,11 +361,12 @@ class Network(nn.Module):
         sink: Dict[str, Dict[str, torch.Tensor]] = {}
         if train and draws is None:
             draws = functools.partial(Draws, self.seed, step,
-                                      device=data.device)
+                                      device=data.device, dp=self.dp)
         nodes, loss = self._walk(
             self._cast_tree(params, self.compute_dtype), state, data,
             dict(compute_dtype=self.compute_dtype, fused=self.fused,
-                 train=train, state_sink=sink), label, mask, draws)
+                 train=train, state_sink=sink, dp=self.dp), label, mask,
+            draws)
         new_state = {l: dict(d) for l, d in state.items()}
         new_state.update(sink)
         top = self._top()

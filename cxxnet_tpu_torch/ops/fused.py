@@ -126,3 +126,14 @@ def row_blocks(n: int, c: int) -> int:
     channel tiles, and at least 64 rows per block."""
     tiles = -(-c // 32)
     return max(1, min(max(1, 1056 // tiles), -(-n // 64)))
+
+
+def colsum_depth(n: int, c: int) -> int:
+    """The longest chain of f32 additions behind one column sum of
+    ``csrc/colsum.cuh`` over ``n`` rows: a row lane's share of its row
+    block, then the 8 lanes, then the row blocks. A sum so taken is
+    within ``depth * 2**-24`` times the sum of its terms' magnitudes of
+    the exact sum of its terms."""
+    g = row_blocks(n, c)
+    rows_per = -(-n // g)
+    return -(-rows_per // 8) + 8 + g

@@ -19,6 +19,25 @@ custom_vjp does, drops the gradients that mean and var receive (they
 feed the running-statistic EMA only), and casts dgamma and dbeta to
 gamma's dtype. Any N and C go to the kernels: the TPU kernel's row-block
 divisibility does not apply here.
+
+Data parallelism (the dp-mesh island of the JAX package's
+``fused_norm.py``, ``_bn_act_mesh``) splits the same function around two
+all-reduces, one per direction, in :class:`SyncBnAct`, through four
+kernels of ``csrc/bn_sync.cu``:
+
+* ``bn_sums``: the rank's per-channel ``S1 = sum x``, ``S2 = sum x^2``
+  (f32) into one (2, C) buffer, all-reduced; then ``mean = S1 / N``,
+  ``var = max(S2 / N - mean^2, 0)``, ``rstd = rsqrt(var + eps)`` over the
+  global row count N;
+* ``bn_norm``: ``y = (x - mean) * rstd * gamma + beta`` (+ relu) with the
+  global moments;
+* ``bn_bwd_sums``: the rank's ``SB = sum dy'``, ``SXH = sum dy' * x_hat``
+  into one (2, C) buffer, all-reduced;
+* ``bn_bwd_dx``: ``dx = gamma * rstd * (dy' - SB/N - x_hat * SXH/N)``
+  with the global sums.
+
+dgamma and dbeta are the rank's own SXH and SB: the trainer's gradient
+all-reduce sums them with every other gradient leaf.
 """
 
 from __future__ import annotations
@@ -43,6 +62,23 @@ BN_BWD = register(Kernel(
     replaces="cxxnet_tpu/ops/fused_norm.py:168",
     argtypes=[_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64,
               ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]))
+_I64, _I = ctypes.c_int64, ctypes.c_int
+BN_SUMS = register(Kernel(
+    "bn_sums", "bn_sync.cu",
+    replaces="cxxnet_tpu/ops/fused_norm.py:291",
+    argtypes=[_P, _P, _P, _I64, _I, _I, _I, _P]))
+BN_NORM = register(Kernel(
+    "bn_norm", "bn_sync.cu",
+    replaces="cxxnet_tpu/ops/fused_norm.py:309",
+    argtypes=[_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P]))
+BN_BWD_SUMS = register(Kernel(
+    "bn_bwd_sums", "bn_sync.cu",
+    replaces="cxxnet_tpu/ops/fused_norm.py:322",
+    argtypes=[_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P]))
+BN_BWD_DX = register(Kernel(
+    "bn_bwd_dx", "bn_sync.cu",
+    replaces="cxxnet_tpu/ops/fused_norm.py:350",
+    argtypes=[_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _P]))
 
 
 def _check(x: torch.Tensor, gamma: torch.Tensor, act: str) -> None:
@@ -87,15 +123,9 @@ def bn_bwd_plain(x: torch.Tensor, dy: torch.Tensor, y: Optional[torch.Tensor],
     two sums in f32. ``y`` is the forward's output when a relu was
     folded in (its mask), else None."""
     n = x.shape[0]
-    dyf = dy.float()
-    if y is not None:
-        dyf = torch.where(y.float() > 0, dyf, torch.zeros_like(dyf))
-    xh = (x.float() - mean) * rstd
-    sb = dyf.sum(dim=0)
-    sxh = (dyf * xh).sum(dim=0)
-    g = gamma.float() * rstd
-    dx = g * (dyf - sb / n - xh * (sxh / n))
-    return dx.to(x.dtype), sxh, sb
+    sb, sxh = bn_bwd_sums_plain(x, dy, y, mean, rstd)
+    dx = bn_bwd_dx_plain(x, dy, y, gamma, mean, rstd, sb / n, sxh / n)
+    return dx, sxh, sb
 
 
 def _vec_on(t: torch.Tensor, dev: torch.device, what: str) -> None:
@@ -199,3 +229,226 @@ def fused_bn_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     _check(x, gamma, act)
     return BnAct.apply(x.contiguous(), gamma, beta, float(eps), act,
                        bool(two_pass))
+
+
+# -- synchronized batch norm (data parallelism) ------------------------------
+
+def _masked(dy: torch.Tensor, y: Optional[torch.Tensor]) -> torch.Tensor:
+    dyf = dy.float()
+    if y is not None:
+        dyf = torch.where(y.float() > 0, dyf, torch.zeros_like(dyf))
+    return dyf
+
+
+def bn_sums_plain(x2: torch.Tensor) -> torch.Tensor:
+    """The rank's per-channel ``[sum x, sum x^2]`` of (N, C) rows as one
+    (2, C) f32 tensor: the definition of what ``bn_sums`` computes (the
+    JAX package's ``_bn_sums_kernel``)."""
+    xf = x2.float()
+    return torch.stack([xf.sum(dim=0), (xf * xf).sum(dim=0)])
+
+
+def bn_norm_plain(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                  mean: torch.Tensor, rstd: torch.Tensor,
+                  act: str = "none") -> torch.Tensor:
+    """``(x - mean) * rstd * gamma + beta`` (+ relu) over (N, C) rows with
+    given f32 moments, in x's dtype: the definition of what ``bn_norm``
+    computes (the JAX package's ``_bn_norm_kernel``)."""
+    out = (x2.float() - mean) * rstd * gamma.float() + beta.float()
+    if act == "relu":
+        out = torch.relu(out)
+    return out.to(x2.dtype)
+
+
+def bn_bwd_sums_plain(x2: torch.Tensor, dy2: torch.Tensor,
+                      y2: Optional[torch.Tensor], mean: torch.Tensor,
+                      rstd: torch.Tensor) -> torch.Tensor:
+    """The rank's per-channel ``[sum dy', sum dy' * x_hat]`` as one (2, C)
+    f32 tensor, ``dy'`` masked by ``y2 > 0`` when a relu was folded in:
+    the definition of what ``bn_bwd_sums`` computes (the JAX package's
+    ``_bn_bwd_sums_kernel``)."""
+    dyf = _masked(dy2, y2)
+    xh = (x2.float() - mean) * rstd
+    return torch.stack([dyf.sum(dim=0), (dyf * xh).sum(dim=0)])
+
+
+def bn_bwd_dx_plain(x2: torch.Tensor, dy2: torch.Tensor,
+                    y2: Optional[torch.Tensor], gamma: torch.Tensor,
+                    mean: torch.Tensor, rstd: torch.Tensor,
+                    sbn: torch.Tensor, sxhn: torch.Tensor) -> torch.Tensor:
+    """``gamma * rstd * (dy' - sbn - x_hat * sxhn)`` in x's dtype, with
+    ``sbn``, ``sxhn`` the global sums over the global row count: the
+    definition of what ``bn_bwd_dx`` computes (the JAX package's
+    ``_bn_bwd_dx_kernel``)."""
+    dyf = _masked(dy2, y2)
+    xh = (x2.float() - mean) * rstd
+    g = gamma.float() * rstd
+    return (g * (dyf - sbn - xh * sxhn)).to(x2.dtype)
+
+
+def _rows(name: str, x2: torch.Tensor, *same) -> Optional[int]:
+    """Check (N, C) rows and their companions; the dtype code on the card,
+    None on the CPU. Raises on what the kernels do not take."""
+    if x2.dim() != 2 or x2.numel() == 0:
+        raise ValueError(f"{name}: expected non-empty (N, C) rows, got "
+                         f"{tuple(x2.shape)}")
+    for t in same:
+        if t is not None and t.shape != x2.shape:
+            raise ValueError(f"{name}: x, dy and y must be equal (N, C)")
+    if x2.device.type == "cpu":
+        return None
+    if x2.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x2.device}")
+    code = check_cuda_input(name, x2)
+    for t in same:
+        if t is not None and check_cuda_input(name, t) != code:
+            raise TypeError(f"{name}: x, dy and y must share a dtype")
+    return code
+
+
+def _vecs(name: str, x2: torch.Tensor, **vecs) -> None:
+    for what, t in vecs.items():
+        _vec_on(t, x2.device, f"{name} {what}")
+        if t.shape != (x2.shape[1],):
+            raise ValueError(f"{name}: {what} shape {tuple(t.shape)} != "
+                             f"({x2.shape[1]},)")
+
+
+def bn_sums(x2: torch.Tensor) -> torch.Tensor:
+    """(2, C) f32 ``[sum x, sum x^2]`` of (N, C) rows: the ``bn_sums``
+    kernel on a CUDA tensor, :func:`bn_sums_plain` on a CPU one."""
+    code = _rows("bn_sums", x2)
+    if code is None:
+        return bn_sums_plain(x2)
+    n, c = x2.shape
+    g = row_blocks(n, c)
+    sums = torch.empty((2, c), dtype=torch.float32, device=x2.device)
+    part = torch.empty((2, g, c), dtype=torch.float32, device=x2.device)
+    with torch.cuda.device(x2.device):
+        BN_SUMS.launch(x2.data_ptr(), sums.data_ptr(), part.data_ptr(), n, c,
+                       g, code, stream_handle(x2.device))
+    return sums
+
+
+def bn_norm(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+            mean: torch.Tensor, rstd: torch.Tensor,
+            act: str = "none") -> torch.Tensor:
+    """Normalize (N, C) rows with given moments: the ``bn_norm`` kernel on
+    a CUDA tensor, :func:`bn_norm_plain` on a CPU one."""
+    if act not in ("none", "relu"):
+        raise ValueError(f"bn_norm: act must be none or relu, got {act!r}")
+    code = _rows("bn_norm", x2)
+    if code is None:
+        return bn_norm_plain(x2, gamma, beta, mean, rstd, act)
+    _vecs("bn_norm", x2, gamma=gamma, beta=beta, mean=mean, rstd=rstd)
+    n, c = x2.shape
+    y = torch.empty_like(x2)
+    with torch.cuda.device(x2.device):
+        BN_NORM.launch(x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                       mean.data_ptr(), rstd.data_ptr(), y.data_ptr(), n, c,
+                       code, int(act == "relu"), stream_handle(x2.device))
+    return y
+
+
+def bn_bwd_sums(x2: torch.Tensor, dy2: torch.Tensor,
+                y2: Optional[torch.Tensor], mean: torch.Tensor,
+                rstd: torch.Tensor) -> torch.Tensor:
+    """(2, C) f32 ``[sum dy', sum dy' * x_hat]``: the ``bn_bwd_sums``
+    kernel on a CUDA tensor, :func:`bn_bwd_sums_plain` on a CPU one."""
+    code = _rows("bn_bwd_sums", x2, dy2, y2)
+    if code is None:
+        return bn_bwd_sums_plain(x2, dy2, y2, mean, rstd)
+    _vecs("bn_bwd_sums", x2, mean=mean, rstd=rstd)
+    n, c = x2.shape
+    g = row_blocks(n, c)
+    sums = torch.empty((2, c), dtype=torch.float32, device=x2.device)
+    part = torch.empty((2, g, c), dtype=torch.float32, device=x2.device)
+    with torch.cuda.device(x2.device):
+        BN_BWD_SUMS.launch(x2.data_ptr(), dy2.data_ptr(),
+                           None if y2 is None else y2.data_ptr(),
+                           mean.data_ptr(), rstd.data_ptr(), sums.data_ptr(),
+                           part.data_ptr(), n, c, g, code,
+                           stream_handle(x2.device))
+    return sums
+
+
+def bn_bwd_dx(x2: torch.Tensor, dy2: torch.Tensor, y2: Optional[torch.Tensor],
+              gamma: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
+              sbn: torch.Tensor, sxhn: torch.Tensor) -> torch.Tensor:
+    """dx of (N, C) rows from the global sums over the global row count:
+    the ``bn_bwd_dx`` kernel on a CUDA tensor, :func:`bn_bwd_dx_plain` on
+    a CPU one."""
+    code = _rows("bn_bwd_dx", x2, dy2, y2)
+    if code is None:
+        return bn_bwd_dx_plain(x2, dy2, y2, gamma, mean, rstd, sbn, sxhn)
+    _vecs("bn_bwd_dx", x2, gamma=gamma, mean=mean, rstd=rstd, sbn=sbn,
+          sxhn=sxhn)
+    n, c = x2.shape
+    dx = torch.empty_like(x2)
+    with torch.cuda.device(x2.device):
+        BN_BWD_DX.launch(x2.data_ptr(), dy2.data_ptr(),
+                         None if y2 is None else y2.data_ptr(),
+                         gamma.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                         sbn.data_ptr(), sxhn.data_ptr(), dx.data_ptr(), n, c,
+                         code, stream_handle(x2.device))
+    return dx
+
+
+#: (sums, normalize, backward sums, dx): the kernel wrappers, or the
+#: plain versions under ``fused_kernels = 0``
+_SYNC_OPS = {True: (bn_sums, bn_norm, bn_bwd_sums, bn_bwd_dx),
+             False: (bn_sums_plain, bn_norm_plain, bn_bwd_sums_plain,
+                     bn_bwd_dx_plain)}
+
+
+class SyncBnAct(torch.autograd.Function):
+    """Batch norm (+ folded relu) over the trailing channel axis with the
+    moments of the global batch, its rows split over the ranks of ``dp``
+    (a :class:`~cxxnet_tpu_torch.parallel.DpContext`): the rank's sums,
+    one all-reduce of (2, C), normalize; backward: the rank's sums, one
+    all-reduce of (2, C), dx. ``fused`` picks the kernels (their plain
+    versions on the CPU) or, under ``fused_kernels = 0``, the plain
+    versions on any device. Returns ``(y, mean, var)``; dgamma and dbeta
+    are the rank's own sums (the gradient all-reduce adds the ranks')."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, act, dp, fused):
+        sums_fn, norm_fn, _, _ = _SYNC_OPS[bool(fused)]
+        c = x.shape[-1]
+        x2 = x.reshape(-1, c)
+        n_total = float(x2.shape[0] * dp.world)
+        sums = dp.all_reduce(sums_fn(x2))
+        mean = sums[0] / n_total
+        var = torch.clamp(sums[1] / n_total - mean * mean, min=0.0)
+        rstd = torch.rsqrt(var + eps)
+        ctx.gamma_dtype = gamma.dtype
+        gamma = gamma.float()
+        y = norm_fn(x2, gamma, beta.float(), mean, rstd, act)
+        ctx.save_for_backward(x2, gamma, mean, rstd,
+                              y if act == "relu" else None)
+        ctx.dp, ctx.fused, ctx.n_total = dp, bool(fused), n_total
+        ctx.mark_non_differentiable(mean, var)
+        return y.reshape(x.shape), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x2, gamma, mean, rstd, y = ctx.saved_tensors
+        _, _, bwd_sums_fn, dx_fn = _SYNC_OPS[ctx.fused]
+        dy2 = dy.reshape(x2.shape).contiguous()
+        local = bwd_sums_fn(x2, dy2, y, mean, rstd)
+        total = ctx.dp.all_reduce(local.clone())
+        dx = dx_fn(x2, dy2, y, gamma, mean, rstd, total[0] / ctx.n_total,
+                   total[1] / ctx.n_total)
+        gdt = ctx.gamma_dtype
+        return (dx.reshape(dy.shape), local[1].to(gdt), local[0].to(gdt),
+                None, None, None, None)
+
+
+def sync_bn_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                eps: float, act: str, dp, fused: bool = True):
+    """Training batch norm (+ optional relu) of an NHWC or flat node over
+    the global batch of ``dp``'s ranks through :class:`SyncBnAct`:
+    ``(y, mean, var)``, y in x's dtype, f32 global statistics."""
+    _check(x, gamma, act)
+    return SyncBnAct.apply(x.contiguous(), gamma, beta, float(eps), act, dp,
+                           bool(fused))

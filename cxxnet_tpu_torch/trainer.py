@@ -1,5 +1,5 @@
-"""Trainer: one device, SGD / NAG / Adam (the port of
-``cxxnet_tpu/trainer.py``'s single-device path).
+"""Trainer: one device or one data-parallel rank, SGD / NAG / Adam (the
+port of ``cxxnet_tpu/trainer.py``'s single-device and dp paths).
 
 A step is the JAX package's ``_make_train_step`` body ``one``
 (trainer.py:1620-1650) without model health, chains or gradient
@@ -16,6 +16,18 @@ does not stall the card. Rounds are ``%04d.model`` checkpoints in the
 JAX layout with the optimizer state (``has_opt``: SGD's momentum tree,
 Adam's ``m1``, ``m2`` and ``t``), which the JAX package loads and
 resumes.
+
+Data parallelism (``dp``, a :class:`~cxxnet_tpu_torch.parallel.DpContext`):
+every rank draws the same global batch and keeps its rows
+(``dp.rows``), the padded tail masked on the rank that holds it; the
+loss divides by the global batch and batch_norm takes the global
+batch's moments (``Network.dp``). After the backward, one all-reduce
+sums a flat f32 buffer of every gradient leaf and the loss, so the
+ranks' gradients add up to the global batch's and ``last_loss`` is the
+global loss; each rank then applies the same update to its replica,
+which stays bit-equal to the others. Train and eval metrics are summed
+over the ranks as (sum, cnt) pairs; rank 0 alone writes a round, after
+a barrier.
 """
 
 from __future__ import annotations
@@ -34,20 +46,32 @@ from .io.data import DataBatch
 from .metrics import MetricSet
 from .model import Network
 from .optim import Optimizer, leaves, tree_map, unflatten
+from .parallel import DpContext, allreduce_metric_pairs
 
 _METRIC_RE = re.compile(r"^metric(?:\[([^,\]]+)(?:,([^\]]+))?\])?$")
 
 
 class Trainer:
-    """Single-device trainer over one :class:`Network`. ``cfg`` is the
+    """Trainer over one :class:`Network`, on one device or as rank
+    ``dp.rank`` of a data-parallel run on ``dp.device``. ``cfg`` is the
     global settings (iterator sections split off)."""
 
-    def __init__(self, cfg: ConfigPairs, device: Optional[Any] = None):
+    def __init__(self, cfg: ConfigPairs, device: Optional[Any] = None,
+                 dp: Optional[DpContext] = None):
         check_train_config(cfg)
         self.cfg = list(cfg)
         gp = lambda n, d: global_param(cfg, n, d)
+        self.dp = dp
+        if dp is not None:
+            batch_size = int(gp("batch_size", "128"))
+            if batch_size % dp.world:
+                raise ValueError(
+                    f"batch_size {batch_size} not divisible by data-parallel "
+                    f"degree {dp.world}")
+            device = dp.device
         self.graph = build_graph(cfg)
         self.net = Network(self.graph, cfg, device=device)
+        self.net.dp = dp
         self.device = self.net.device
         self.eval_train = int(gp("eval_train", "1"))
         self.seed = int(gp("seed", "0"))
@@ -75,7 +99,8 @@ class Trainer:
         self._ones: Optional[torch.Tensor] = None
         #: called with the trainer after every update (timing, tests)
         self.step_hook: Optional[Callable[["Trainer"], None]] = None
-        if self.net.fused_mode == "off" and not self.silent:
+        if self.net.fused_mode == "off" and not self.silent and (
+                dp is None or dp.is_main):
             print("fused_kernels = 0: this trainer computes the plain "
                   "PyTorch versions of the kernels", flush=True)
 
@@ -129,7 +154,18 @@ class Trainer:
         self.optimizer.lr_scale = float(meta.get("lr_scale", 1.0))
 
     def save_model(self, path: str) -> None:
-        """Write the current round with its optimizer state (``has_opt``)."""
+        """Write the current round with its optimizer state (``has_opt``).
+        Under dp rank 0 writes it between two barriers: once every rank
+        got here, and before any rank goes on."""
+        if self.dp is not None:
+            self.dp.barrier()
+            if self.dp.is_main:
+                self._write(path)
+            self.dp.barrier()
+            return
+        self._write(path)
+
+    def _write(self, path: str) -> None:
         params, state = params_to_jax(self.params, self.net.state)
         ckpt.save_model(path, structure_sig=self.graph.structure_signature(),
                         round_counter=self.round_counter,
@@ -142,9 +178,18 @@ class Trainer:
         self.round_counter = round_counter
 
     # -- training ---------------------------------------------------------
+    def _rows(self, batch: DataBatch) -> Tuple[slice, int]:
+        """This process's rows of ``batch`` and how many of them are real
+        (not padding): all of them on one device, ``dp.rows`` under dp."""
+        n, n_real = batch.batch_size, batch.batch_size - batch.num_batch_padd
+        rows = slice(0, n) if self.dp is None else self.dp.rows(n)
+        return rows, min(max(n_real - rows.start, 0), rows.stop - rows.start)
+
     def _to_device(self, batch: DataBatch):
-        data = torch.from_numpy(np.ascontiguousarray(batch.data, np.float32))
-        label = torch.from_numpy(np.ascontiguousarray(batch.label,
+        rows, _ = self._rows(batch)
+        data = torch.from_numpy(np.ascontiguousarray(batch.data[rows],
+                                                     np.float32))
+        label = torch.from_numpy(np.ascontiguousarray(batch.label[rows],
                                                       np.float32))
         if self.device.type == "cuda":
             data = data.pin_memory().to(self.device, non_blocking=True)
@@ -152,16 +197,18 @@ class Trainer:
         return data, label
 
     def _mask(self, batch: DataBatch) -> torch.Tensor:
-        """Real rows 1, padded rows 0. The all-ones mask of every full
-        batch is made once per batch size on the device (no upload)."""
-        n, padd = batch.batch_size, batch.num_batch_padd
-        if not padd:
+        """This process's rows: real 1, padded 0. The all-ones mask of
+        every full batch is made once per batch size on the device (no
+        upload)."""
+        rows, n_real = self._rows(batch)
+        n = rows.stop - rows.start
+        if n_real == n:
             if self._ones is None or self._ones.shape[0] != n:
                 self._ones = torch.ones((n,), dtype=torch.float32,
                                         device=self.device)
             return self._ones
         mask = torch.ones((n,), dtype=torch.float32)
-        mask[n - padd:] = 0.0
+        mask[n_real:] = 0.0
         return mask.to(self.device)
 
     def gradients(self, batch: DataBatch):
@@ -180,9 +227,25 @@ class Trainer:
         return loss, new_state, nodes, unflatten(
             (p, g) for (p, _), g in zip(flat, grads))
 
+    def _allreduce(self, loss: torch.Tensor, gtree):
+        """One all-reduce (sum over the ranks) of a flat f32 buffer of
+        every gradient leaf and the loss: the global batch's gradients
+        and loss."""
+        flat = leaves(gtree)
+        buf = torch.cat([g.reshape(-1) for _, g in flat]
+                        + [loss.detach().reshape(1)])
+        self.dp.all_reduce(buf)
+        out, o = [], 0
+        for p, g in flat:
+            out.append((p, buf[o:o + g.numel()].view_as(g)))
+            o += g.numel()
+        return buf[o], unflatten(out)
+
     def update(self, batch: DataBatch) -> None:
         """One minibatch forward, backward and optimizer step."""
         loss, new_state, nodes, gtree = self.gradients(batch)
+        if self.dp is not None:
+            loss, gtree = self._allreduce(loss, gtree)
         self.optimizer.update(self.params, gtree, self.opt_state,
                               self.optimizer.schedules(self.epoch_counter))
         self.net.state = new_state
@@ -213,12 +276,12 @@ class Trainer:
     def _add_metric(self, mset: MetricSet,
                     nodes: Dict[Optional[str], torch.Tensor],
                     batch: DataBatch) -> None:
-        n_real = batch.batch_size - batch.num_batch_padd
+        rows, n_real = self._rows(batch)
         if n_real <= 0:
             return
         vals = {k: v.float().cpu().numpy().reshape(v.shape[0], -1)[:n_real]
                 for k, v in nodes.items()}
-        labels = {k: np.asarray(batch.label)[:n_real] for k in nodes}
+        labels = {k: np.asarray(batch.label)[rows][:n_real] for k in nodes}
         slices = {name: self.graph.label_slice(name)
                   for name in self.graph.label_name_map}
         mset.add_eval(vals, labels, slices)
@@ -229,24 +292,30 @@ class Trainer:
             self._pending_metric = None
             self._add_metric(self.train_metric, nodes, batch)
 
+    def _report(self, mset: MetricSet, name: str) -> str:
+        """The round-line fragment of ``mset``, its (sum, cnt) pairs
+        summed over the ranks under dp."""
+        mset.load_pairs(allreduce_metric_pairs(mset.pairs(), self.dp))
+        return "".join("\t%s:%f" % (m, v) for m, v in mset.get(name))
+
     def evaluate(self, data_iter, name: str) -> str:
         """All metrics over ``data_iter`` with the eval forward; returns
         the round-line fragment ``\\tname-metric:value``."""
         self.metric.clear()
         need = set(self.metric.nodes)
         for batch in data_iter:
+            rows, _ = self._rows(batch)
             data = torch.from_numpy(np.ascontiguousarray(
-                batch.data, np.float32)).to(self.device)
+                batch.data[rows], np.float32)).to(self.device)
             res = self.net(data, capture_nodes=any(n is not None
                                                    for n in need))
             nodes = {n: (res.out if n is None else res.nodes[n])
                      for n in need}
             self._add_metric(self.metric, nodes, batch)
-        return "".join("\t%s:%f" % (m, v) for m, v in self.metric.get(name))
+        return self._report(self.metric, name)
 
     def train_metric_report(self, name: str = "train") -> str:
         self._drain_pending_metric()
-        out = "".join("\t%s:%f" % (m, v)
-                      for m, v in self.train_metric.get(name))
+        out = self._report(self.train_metric, name)
         self.train_metric.clear()
         return out

@@ -16,8 +16,13 @@ from cxxnet_tpu_torch.ops.fused_epilogue import (bias_act_plain,
                                                  epilogue_bwd_plain,
                                                  fused_bias_act,
                                                  fused_epilogue_bwd)
+from cxxnet_tpu_torch.ops.fused import colsum_depth
 from cxxnet_tpu_torch.ops.fused_norm import (bn_act_plain, bn_bwd,
-                                             bn_bwd_plain, bn_fwd)
+                                             bn_bwd_dx, bn_bwd_dx_plain,
+                                             bn_bwd_plain, bn_bwd_sums,
+                                             bn_bwd_sums_plain, bn_fwd,
+                                             bn_norm, bn_norm_plain, bn_sums,
+                                             bn_sums_plain)
 from cxxnet_tpu_torch.ops import attention as att
 from cxxnet_tpu_torch.ops.fused_optim import (adam_apply_plain,
                                               fused_adam_apply,
@@ -95,7 +100,8 @@ def test_each_launch_counts_once(dev):
         {"pool_fwd": 2, "epilogue_fwd": 1, "pool_bwd": 0, "epilogue_bwd": 0,
          "bn_fwd": 0, "bn_bwd": 0, "sgd_apply": 0, "adam_apply": 0,
          "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-         "lrn_fwd": 0, "lrn_bwd": 0, "pool_bwd_max": 0, "q_mm": 0}
+         "lrn_fwd": 0, "lrn_bwd": 0, "pool_bwd_max": 0, "q_mm": 0,
+         "bn_sums": 0, "bn_norm": 0, "bn_bwd_sums": 0, "bn_bwd_dx": 0}
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -145,6 +151,103 @@ def test_bn_kernels_match_plain(dev, dtype, relu, two_pass, n, c):
     torch.testing.assert_close(dg, dg0, rtol=1e-3, atol=1e-3)
     torch.testing.assert_close(db, db0, rtol=1e-3, atol=1e-3)
     assert dx.dtype == dtype and _ulp_ok(dx, dx0, dtype, 1e-3)
+
+
+def _sums_ok(got, terms_a, terms_b, n):
+    """(2, C) f32 column sums against the exact (f64) sums of their f32
+    terms: within colsum.cuh's depth times 2^-24 of the terms'
+    magnitudes."""
+    depth = colsum_depth(n, terms_a.shape[1])
+    for row, t in zip(got, (terms_a, terms_b)):
+        exact = t.double().sum(0)
+        bound = depth * 2.0 ** -24 * t.double().abs().sum(0)
+        if not bool(((row.double() - exact).abs() <= bound).all()):
+            return False
+    return True
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("n,c", [(64 * 112 * 112, 64), (64 * 7 * 7, 1024),
+                                 (64, 1000), (37, 1), (333, 7), (1000, 1500)])
+def test_sync_bn_kernels_match_plain(dev, dtype, relu, n, c):
+    """The four data-parallel BN kernels against their plain versions on
+    the same inputs: the sums within the summation-order bound of their
+    exact value (``_sums_ok``); y and dx
+    within 4 f32 ulp of max|plain| in float32 and one ulp in bf16/f16
+    (both compute the same rounded f32 operations)."""
+    act = "relu" if relu else "none"
+    x = (_randn((n, c), dtype, dev) * 1.5 + 0.25).to(dtype)
+    g = _randn((c,), torch.float32, dev, seed=1) * 0.2 + 1.0
+    b = _randn((c,), torch.float32, dev, seed=2) * 0.1
+    s = bn_sums(x)
+    xf = x.float()
+    assert s.dtype == torch.float32 and s.shape == (2, c)
+    assert _sums_ok(s, xf, xf * xf, n)
+    s0 = bn_sums_plain(x)
+    mean = s0[0] / n
+    rstd = torch.rsqrt(torch.clamp(s0[1] / n - mean * mean, min=0) + 1e-5)
+    y = bn_norm(x, g, b, mean, rstd, act)
+    y0 = bn_norm_plain(x, g, b, mean, rstd, act)
+    tol = 4 * 2.0 ** -23 * y0.float().abs().max().item()
+    assert y.dtype == dtype and _ulp_ok(y, y0, dtype, tol)
+    dy = _randn((n, c), dtype, dev, seed=3)
+    yy = y if relu else None
+    bs = bn_bwd_sums(x, dy, yy, mean, rstd)
+    d = dy.float() if yy is None else torch.where(
+        yy.float() > 0, dy.float(), torch.zeros_like(dy, dtype=torch.float32))
+    assert _sums_ok(bs, d, d * ((xf - mean) * rstd), n)
+    bs0 = bn_bwd_sums_plain(x, dy, yy, mean, rstd)
+    dx = bn_bwd_dx(x, dy, yy, g, mean, rstd, bs0[0] / n, bs0[1] / n)
+    dx0 = bn_bwd_dx_plain(x, dy, yy, g, mean, rstd, bs0[0] / n, bs0[1] / n)
+    tol = 4 * 2.0 ** -23 * dx0.float().abs().max().item()
+    assert dx.dtype == dtype and _ulp_ok(dx, dx0, dtype, tol)
+
+
+def test_sync_bn_kernels_launch_once_and_refuse(dev):
+    from cxxnet_tpu_torch.ops.fused_norm import BN_NORM, BN_SUMS
+    x = _randn((64, 32), torch.bfloat16, dev)
+    g = torch.ones(32, device=dev)
+    before = (BN_SUMS.launches, BN_NORM.launches)
+    s = bn_sums(x)
+    bn_norm(x, g, g, s[0], s[1])
+    torch.cuda.synchronize()
+    assert (BN_SUMS.launches, BN_NORM.launches) == \
+        (before[0] + 1, before[1] + 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        bn_sums(x.t())
+    with pytest.raises(ValueError, match="float32"):
+        bn_norm(x, g.half(), g, s[0], s[1])
+    with pytest.raises(ValueError, match="float32"):
+        bn_norm(x, g.cpu(), g, s[0], s[1])
+    with pytest.raises(ValueError, match="shape"):
+        bn_bwd_dx(x, x, None, g[:8], g, g, g, g)
+
+
+def test_dp_train_on_two_cards_through_main_run(dev, tmp_path):
+    """``dev = gpu:0-1`` through ``main.run``: two ranks over NCCL train
+    two rounds of the synthetic MLP and write the rounds, with the round
+    lines of the single-card run."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards (NCCL refuses two ranks on one)")
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    lines = {}
+    for dev_spec in ("gpu:0", "gpu:0-1"):
+        d = tmp_path / dev_spec.replace(":", "_")
+        r = subprocess.run(
+            [sys.executable, "-m", "cxxnet_tpu_torch.main",
+             os.path.join(repo, "examples", "synthetic_mlp.conf"),
+             f"dev={dev_spec}", f"model_dir={d}", "num_round=2"],
+            cwd=repo, capture_output=True, text=True, timeout=600)
+        assert r.returncode == 0, r.stderr[-3000:]
+        lines[dev_spec] = [ln.split("]", 1)[1] for ln in
+                           r.stdout.splitlines() if ln.startswith("round")]
+        assert sorted(os.listdir(d)) == ["0000.model", "0001.model"]
+    assert len(lines["gpu:0-1"]) == 2
+    assert lines["gpu:0-1"] == lines["gpu:0"]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)

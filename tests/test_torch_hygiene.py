@@ -58,10 +58,13 @@ def test_port_files_exist():
             "cxxnet_tpu_torch/io/iter_mnist.py",
             "cxxnet_tpu_torch/ops/fused_quant.py",
             "cxxnet_tpu_torch/quant/ptq.py",
-            "cxxnet_tpu_torch/quant/__main__.py"} <= names
+            "cxxnet_tpu_torch/quant/__main__.py",
+            "cxxnet_tpu_torch/parallel/__init__.py",
+            "cxxnet_tpu_torch/parallel/dist.py"} <= names
     csrc = {os.path.basename(p) for p in glob.glob(
         os.path.join(REPO, "cxxnet_tpu_torch", "csrc", "*.cu"))}
-    assert {"lrn_fwd.cu", "lrn_bwd.cu", "pool_bwd_max.cu", "q_mm.cu"} <= csrc
+    assert {"lrn_fwd.cu", "lrn_bwd.cu", "pool_bwd_max.cu", "q_mm.cu",
+            "bn_sync.cu"} <= csrc
     assert len(names) > 30
 
 

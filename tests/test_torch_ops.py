@@ -116,12 +116,22 @@ def test_wrappers_take_the_plain_version_on_cpu_and_count_nothing():
     wt = torch.randint(-127, 128, (6, 12), dtype=torch.int8)
     assert torch.equal(q_mm(xq, wt, b[:6], None, "relu"),
                        q_mm_plain(xq, wt, b[:6], None, "relu"))
+    from cxxnet_tpu_torch.ops import fused_norm as fn
+    mean, rstd = y.mean(0), torch.rsqrt(y.var(0) + 1e-5)
+    assert torch.equal(fn.bn_sums(y), fn.bn_sums_plain(y))
+    assert torch.equal(fn.bn_norm(y, b, b, mean, rstd, "relu"),
+                       fn.bn_norm_plain(y, b, b, mean, rstd, "relu"))
+    assert torch.equal(fn.bn_bwd_sums(y, y, None, mean, rstd),
+                       fn.bn_bwd_sums_plain(y, y, None, mean, rstd))
+    assert torch.equal(fn.bn_bwd_dx(y, y, y, b, mean, rstd, b, b),
+                       fn.bn_bwd_dx_plain(y, y, y, b, mean, rstd, b, b))
     assert {k: v.launches for k, v in KERNELS.items()} == \
         {k: 0 for k in ("pool_fwd", "pool_bwd", "epilogue_fwd",
                         "epilogue_bwd", "bn_fwd", "bn_bwd", "sgd_apply",
                         "adam_apply", "flash_fwd", "flash_bwd_dq",
                         "flash_bwd_dkv", "lrn_fwd", "lrn_bwd",
-                        "pool_bwd_max", "q_mm")}
+                        "pool_bwd_max", "q_mm", "bn_sums", "bn_norm",
+                        "bn_bwd_sums", "bn_bwd_dx")}
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take():

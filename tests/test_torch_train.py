@@ -581,6 +581,8 @@ SWITCHED_ON = {
     "data_service": "127.0.0.1:9400", "test_io": "1",
     "model_parallel": "2", "seq_parallel": "2", "pipeline_parallel": "2",
     "elastic_dir": "/nowhere/elastic", "telemetry_trace": "/nowhere/t.json",
+    "dist_coordinator": "10.0.0.1:1234", "dist_num_proc": "2",
+    "dist_rank": "1",
 }
 
 
@@ -599,9 +601,10 @@ def test_training_keys_outside_the_slice_name_their_roadmap_item(key):
     off = {"model_in": "NULL", "compute_dtype": "bfloat16",
            "update_period": "1", "input_fold": "auto", "train_chain": "1",
            "model_parallel": "1", "seq_parallel": "1",
-           "pipeline_parallel": "1"}.get(key, "0" if key not in (
-               "failpoints", "profile_dir", "data_service", "elastic_dir",
-               "telemetry_trace") else "")
+           "pipeline_parallel": "1", "dist_num_proc": "1"}.get(
+               key, "0" if key not in (
+                   "failpoints", "profile_dir", "data_service", "elastic_dir",
+                   "telemetry_trace", "dist_coordinator") else "")
     Trainer(parse_config_string(base + f'{key} = "{off}"\n'))
 
 
