@@ -162,6 +162,36 @@ and prints no result:
             ``torch.batch_norm_stats`` / ``batch_norm_elemt`` /
             ``batch_norm_backward_reduce`` / ``batch_norm_backward_elemt``.
 
+12. imgrec: full-width Inception-BN trained through ``main.run`` from
+            ``inception_bn.conf``'s own data and eval sections (``iter =
+            imgrec`` with ``image_mean``, ``rand_crop``, ``rand_mirror``,
+            ``shuffle``, then ``iter = threadbuffer``; the eval section
+            center-crops), only ``image_rec`` and ``image_mean``
+            rewritten to files the phase writes from ``--seed``: 512
+            train and 128 val RGB PNGs of 256x256 (its own PNG writer
+            over zlib, every row filter in each image) in the port's
+            record files. Batch 128, bf16, SGD, 4 steps, one evaluation,
+            one round written; the mean image is computed on first use
+            and written, and the log must show ``device_normalize
+            auto-resolved to 1``. Launch counts, set to 0 just before
+            the first step and read after each: ``stem`` 1 a step and 0
+            in the evaluation, ``bn_fwd`` = ``bn_bwd`` = 69 and
+            ``sgd_apply`` = 2. Each step held against ``fused_kernels =
+            0`` from the same state on the same uint8 batches with phase
+            6's bounds; the folded input bit-equal to the ``input_fold =
+            0`` path cast to bf16; the val crops bit-equal to the center
+            crops of the encoded arrays; the written round answers
+            finite softmax rows. Before the phases' runs, with the other
+            kernels, ``stem`` is held bit-equal to its plain version at
+            the path shape (128x224x224x3 to bf16, a mean image), with a
+            per-channel mean to f32 and f16, without a mean at a factor
+            of 1/255, at a ragged 5x17x13x3 and a batch of 1. Times,
+            printed and not gated: ``stem`` beside its bound and plain
+            version, the H2D copy of one uint8 and one float32 batch,
+            the imgrec train step beside phase 6's, the train chain's
+            decoded images/s with its ``decode_threads`` and the PNG
+            decoder's alone.
+
 Then, on lines of their own: the card's name and power limit as
 ``nvidia-smi`` reports them, the kernels JSON line, and last
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits 2 when
@@ -1239,6 +1269,66 @@ def _load(tr, snap, epoch):
         "step_count": epoch}, "params": p, "state": s, "opt": o})
 
 
+def steps_vs_plain(glob, before, after, losses, batches):
+    """Each step of a kernel run (``before[i]`` -> ``after[i]``, loss
+    ``losses[i]``, on ``batches[i]``) held against the same step with
+    fused_kernels = 0 from the same state, in bf16 and, as the yardstick
+    of bf16 rounding, in f32 (the module docstring's phase 6 bounds).
+    Returns the readings and the plain bf16 trainer; raises past a
+    bound."""
+    from cxxnet_tpu_torch.trainer import Trainer
+    plain = Trainer(glob + [("fused_kernels", "0")])
+    plain32 = Trainer(glob + [("fused_kernels", "0"), ("silent", "1"),
+                              ("compute_dtype", "float32")])
+    worst = {"loss": 0.0, "state": 0.0, "kp": [], "pf": [], "ratio": []}
+    for i, b in enumerate(batches):
+        got = []
+        for t in (plain, plain32):
+            _load(t, before[i], i)
+            t.update(b)
+            got.append((t.last_loss, _snap(t)))
+        (lp, sp), (_, sf) = got
+        moms = {m for _, m in plain.optimizer.schedules(i).values()}
+        if len(moms) != 1:
+            raise AssertionError(f"momentum differs between tags: {moms}")
+        worst["loss"] = max(worst["loss"],
+                            abs(lp - losses[i]) / max(1.0, abs(losses[i])))
+        kp, st = _step_rels(after[i], sp, before[i])
+        pf, _ = _step_rels(sp, sf, before[i])
+        ratio = _grad_ratios(after[i], sp, before[i], moms.pop())
+        worst["state"] = max(worst["state"], st)
+        worst["kp"].append((float(np.median([r for r, _ in kp])), max(kp)))
+        worst["pf"].append((float(np.median([r for r, _ in pf])), max(pf)))
+        worst["ratio"].append((min(ratio), max(ratio)))
+    del plain32
+    # step 1's bf16 rounding yardstick (median 0.94) leaves no bound
+    # under 1, so its update is held by the ratio check only
+    bad = [i + 1 for i, (mk, mf) in enumerate(zip(worst["kp"], worst["pf"]))
+           if i > 0 and mk[0] > 1.5 * mf[0]]
+    bad += [f"ratio at step {i + 1}" for i, (lo, hi) in
+            enumerate(worst["ratio"]) if lo[0] < 0.5 or hi[0] > 2]
+    if worst["loss"] > 2e-2 or worst["state"] > 2e-2 or bad:
+        raise AssertionError(f"kernel vs fused_kernels=0 steps {bad}: "
+                             f"{worst}")
+    return worst, plain
+
+
+def _steps_line(worst) -> str:
+    """The round-line text of :func:`steps_vs_plain`'s readings."""
+    return (f"vs fused_kernels=0 from the same state, worst over steps: loss "
+            f"{worst['loss']:.3g} of max(1,|loss|) (tol 2e-2), BN statistics "
+            f"{worst['state']:.3g} (tol 2e-2); per step, update rel L2 "
+            f"median over leaves / worst leaf, kernels vs plain bf16 "
+            f"{[(round(m, 4), round(w[0], 4)) for m, w in worst['kp']]} "
+            f"against plain bf16 vs plain f32 (bf16 rounding) "
+            f"{[(round(m, 4), round(w[0], 4)) for m, w in worst['pf']]} "
+            f"(tol: median at most 1.5x the rounding's at steps 2-"
+            f"{len(worst['kp'])}); gradient-part norm ratio per leaf, "
+            f"kernels / plain, min-max per step "
+            f"{[(round(lo[0], 3), round(hi[0], 3)) for lo, hi in worst['ratio']]}"
+            f" (tol [0.5, 2])")
+
+
 def phase_train(conf: str, seed: int, tmp: str):
     """Train through main.run, check the launches, hold each step
     against the plain one from the same state and the written round's
@@ -1250,7 +1340,6 @@ def phase_train(conf: str, seed: int, tmp: str):
     from cxxnet_tpu_torch.main import run
     from cxxnet_tpu_torch.model import Network
     from cxxnet_tpu_torch.ops import KERNELS, reset_launches
-    from cxxnet_tpu_torch.trainer import Trainer
     model_dir = os.path.join(tmp, "train")
     cfg = train_cfg(conf, seed, model_dir)
     box = {"losses": [], "before": []}
@@ -1290,45 +1379,11 @@ def phase_train(conf: str, seed: int, tmp: str):
         raise AssertionError(f"non-finite train loss: {losses}")
     after = box["before"][1:] + [_snap(tr)]
 
-    # the same steps with fused_kernels = 0, each from the kernel run's
-    # state before it, in bf16 and, as the yardstick of bf16 rounding,
-    # in f32
     glob, sections = split_sections(cfg)
     data = [p for kind, _, p in sections if kind == "data"][0]
     batches = list(create_iterator(glob + data))
-    plain = Trainer(glob + [("fused_kernels", "0")])
-    plain32 = Trainer(glob + [("fused_kernels", "0"), ("silent", "1"),
-                              ("compute_dtype", "float32")])
-    worst = {"loss": 0.0, "state": 0.0, "kp": [], "pf": [], "ratio": []}
-    for i, b in enumerate(batches):
-        got = []
-        for t in (plain, plain32):
-            _load(t, box["before"][i], i)
-            t.update(b)
-            got.append((t.last_loss, _snap(t)))
-        (lp, sp), (_, sf) = got
-        moms = {m for _, m in plain.optimizer.schedules(i).values()}
-        if len(moms) != 1:
-            raise AssertionError(f"momentum differs between tags: {moms}")
-        worst["loss"] = max(worst["loss"],
-                            abs(lp - losses[i]) / max(1.0, abs(losses[i])))
-        kp, st = _step_rels(after[i], sp, box["before"][i])
-        pf, _ = _step_rels(sp, sf, box["before"][i])
-        ratio = _grad_ratios(after[i], sp, box["before"][i], moms.pop())
-        worst["state"] = max(worst["state"], st)
-        worst["kp"].append((float(np.median([r for r, _ in kp])), max(kp)))
-        worst["pf"].append((float(np.median([r for r, _ in pf])), max(pf)))
-        worst["ratio"].append((min(ratio), max(ratio)))
-    del plain32
-    # step 1's bf16 rounding yardstick (median 0.94) leaves no bound
-    # under 1, so its update is held by the ratio check only
-    bad = [i + 1 for i, (mk, mf) in enumerate(zip(worst["kp"], worst["pf"]))
-           if i > 0 and mk[0] > 1.5 * mf[0]]
-    bad += [f"ratio at step {i + 1}" for i, (lo, hi) in
-            enumerate(worst["ratio"]) if lo[0] < 0.5 or hi[0] > 2]
-    if worst["loss"] > 2e-2 or worst["state"] > 2e-2 or bad:
-        raise AssertionError(f"kernel vs fused_kernels=0 steps {bad}: "
-                             f"{worst}")
+    worst, plain = steps_vs_plain(glob, box["before"], after, losses,
+                                  batches)
     layers = layer_parity(tr, batches[0], torch.Generator(
         device=tr.device).manual_seed(seed))
     if any(not v <= LAYER_TOL for v, _ in layers.values()):
@@ -1354,19 +1409,8 @@ def phase_train(conf: str, seed: int, tmp: str):
           f"{[round(v, 4) for v in losses]} | launches {launches} (per "
           f"step: bn_fwd {launches['bn_fwd'] // steps}, bn_bwd "
           f"{launches['bn_bwd'] // steps}, sgd_apply "
-          f"{launches['sgd_apply'] // steps}) | vs fused_kernels=0 from the "
-          f"same state, worst over steps: loss {worst['loss']:.3g} of "
-          f"max(1,|loss|) (tol 2e-2), BN statistics {worst['state']:.3g} "
-          f"(tol 2e-2); per step, update rel L2 median over leaves / worst "
-          f"leaf, kernels vs plain bf16 "
-          f"{[(round(m, 4), round(w[0], 4)) for m, w in worst['kp']]} "
-          f"against plain bf16 vs plain f32 (bf16 rounding) "
-          f"{[(round(m, 4), round(w[0], 4)) for m, w in worst['pf']]} "
-          f"(tol: median at most 1.5x the rounding's at steps 2-"
-          f"{TRAIN_STEPS}); gradient-part norm ratio per leaf, kernels / "
-          f"plain, min-max per step "
-          f"{[(round(lo[0], 3), round(hi[0], 3)) for lo, hi in worst['ratio']]}"
-          f" (tol [0.5, 2]) | layer by layer in bf16, kernels vs plain "
+          f"{launches['sgd_apply'] // steps}) | {_steps_line(worst)}"
+          f" | layer by layer in bf16, kernels vs plain "
           f"from the same inputs and upstream gradient, worst rel L2: "
           f"{', '.join(f'{k} {v:.3g} at {n}' for k, (v, n) in layers.items())}"
           f" (tol {LAYER_TOL}) | round {os.path.basename(path)}"
@@ -2958,6 +3002,370 @@ def phase_dp_times(gen: torch.Generator) -> dict:
     return {"kernels": rows}
 
 
+# -- phase 12 -----------------------------------------------------------------
+
+#: phase 12's records: train and val images of IMGREC_SIDE^2 RGB pixels,
+#: cropped to the flagship's 224 (its own data/eval sections)
+IMGREC_TRAIN, IMGREC_VAL, IMGREC_SIDE = TRAIN_BATCH * TRAIN_STEPS, 128, 256
+
+
+def _png_filter_types(h: int):
+    """Row filters of phase 12's PNGs: the five types in turn on 5 rows
+    of every 20 (so every image has rows of each), Up on the rest; a
+    tenth of the rows need the decoder's byte loop (Average, Paeth)."""
+    return np.array([r % 5 if (r // 5) % 4 == 0 else 2 for r in range(h)])
+
+
+def png_encode(img: np.ndarray, ftypes) -> bytes:
+    """A minimal 8-bit RGB PNG writer over zlib: each row filtered by
+    its type of ``ftypes`` (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth)."""
+    import struct
+    import zlib
+    h, w, ch = img.shape
+    r = img.reshape(h, w * ch).astype(np.int32)
+    a = np.zeros_like(r)
+    a[:, ch:] = r[:, :-ch]                       # left
+    b = np.zeros_like(r)
+    b[1:] = r[:-1]                               # up
+    c = np.zeros_like(r)
+    c[1:, ch:] = r[:-1, :-ch]                    # up-left
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    pred = np.stack([np.zeros_like(r), a, b, (a + b) >> 1, paeth])
+    rows = np.take_along_axis(pred, ftypes[None, :, None], 0)[0]
+    body = np.concatenate([ftypes[:, None], (r - rows) & 255], axis=1)
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(body.astype(np.uint8).tobytes(), 1))
+            + chunk(b"IEND", b""))
+
+
+def seeded_images(rng: np.random.RandomState, n: int, side: int):
+    """``n`` RGB images with structure (a gradient per channel, two
+    bright rectangles, noise), uint8."""
+    yy, xx = np.mgrid[0:side, 0:side].astype(np.float32)
+    out = []
+    for _ in range(n):
+        k = rng.uniform(-0.4, 0.4, (2, 3)).astype(np.float32)
+        img = (128 + k[0] * (yy[..., None] - side / 2)
+               + k[1] * (xx[..., None] - side / 2))
+        for _ in range(2):
+            y0, x0 = rng.randint(0, side * 3 // 4, 2)
+            img[y0:y0 + side // 4, x0:x0 + side // 4] += rng.uniform(
+                -60, 60, 3)
+        img += rng.randn(side, side, 3).astype(np.float32) * 8
+        out.append(np.clip(np.rint(img), 0, 255).astype(np.uint8))
+    return out
+
+
+def write_imgrec(tmp: str, seed: int):
+    """Phase 12's record files (train and val PNGs with labels from
+    ``seed``) through the port's RecordWriter; returns their paths, the
+    val images and the seconds taken."""
+    from cxxnet_tpu_torch.io.recordio import ImageRecord, RecordWriter
+    rng = np.random.RandomState(seed)
+    t0 = time.perf_counter()
+    ft = _png_filter_types(IMGREC_SIDE)
+    paths, val = {}, None
+    for name, n in (("train", IMGREC_TRAIN), ("val", IMGREC_VAL)):
+        imgs = seeded_images(rng, n, IMGREC_SIDE)
+        labels = rng.randint(0, TRAIN_CLASSES, n)
+        paths[name] = os.path.join(tmp, f"{name}.rec")
+        with RecordWriter(paths[name]) as w:
+            for i, (img, lab) in enumerate(zip(imgs, labels)):
+                w.write(ImageRecord(inst_id=i, labels=np.float32([lab]),
+                                    data=png_encode(img, ft)).pack())
+            w.write_index(paths[name])
+        if name == "val":
+            val = imgs
+    return paths, val, time.perf_counter() - t0
+
+
+def imgrec_cfg(conf: str, paths, mean: str, model_dir: str, extra=()):
+    """``conf`` as it stands, its data and eval sections included, with
+    only the record and mean paths rewritten to phase 12's files."""
+    from cxxnet_tpu_torch.config import (parse_cli_overrides,
+                                         parse_config_file)
+    out, section = [], None
+    for k, v in parse_config_file(conf):
+        if k in ("data", "eval"):
+            section = "train" if k == "data" else "val"
+        if k == "image_rec":
+            v = paths[section]
+        elif k == "image_mean":
+            v = mean
+        out.append((k, v))
+    return out + parse_cli_overrides([
+        "task=train", "num_round=1", f"model_dir={model_dir}",
+        "save_model=1", "print_step=1", *extra])
+
+
+#: stem cases of phase 12: (name, shape, mean kind, factor, out dtype)
+STEM_CASES = (
+    ("path", (TRAIN_BATCH, 224, 224, 3), "image", 1.0, torch.bfloat16),
+    ("channel f32", (8, 224, 224, 3), "channel", 1 / 58.0, torch.float32),
+    ("channel f16", (8, 224, 224, 3), "channel", 1 / 58.0, torch.float16),
+    ("no mean", (16, 227, 227, 3), "none", 1 / 255.0, torch.bfloat16),
+    ("ragged", (5, 17, 13, 3), "image", 0.017, torch.float32),
+    ("batch 1", (1, 224, 224, 3), "channel", 1.0, torch.bfloat16),
+)
+
+
+def _stem_inputs(gen, shape, mean_kind):
+    x = torch.randint(0, 256, shape, generator=gen, device="cuda",
+                      dtype=torch.uint8)
+    mean = {"none": None,
+            "channel": torch.tensor([123.68, 116.78, 103.94],
+                                    device="cuda"),
+            "image": torch.rand(shape[1:], generator=gen, device="cuda")
+            * 255}[mean_kind]
+    return x, mean
+
+
+def phase_stem_kernels(gen: torch.Generator) -> dict:
+    """``stem`` bit-equal to its plain version in every case of
+    STEM_CASES; returns the worst absolute difference (0)."""
+    from cxxnet_tpu_torch.ops import fused_stem as fs
+    worst, notes = 0.0, []
+    for name, shape, mk, f, dt in STEM_CASES:
+        x, mean = _stem_inputs(gen, shape, mk)
+        got = fs.fused_decode_normalize(x, mean, f, dt)
+        want = fs.decode_normalize_reference(x, mean, f, dt)
+        torch.cuda.synchronize()
+        if got.dtype != dt or not torch.equal(got, want):
+            raise AssertionError(f"stem {name} {shape}: max |kernel - "
+                                 f"plain| {(got.float() - want.float()).abs().max().item()}")
+        notes.append(f"{name} {shape} {str(dt)[6:]}")
+    print(f"kernels (stem): bit-equal to decode_normalize_reference in "
+          f"{len(notes)} cases: {', '.join(notes)}", flush=True)
+    return {"stem": worst}
+
+
+class _Tee:
+    """stdout that is also kept: the phase reads the run's log."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def phase_imgrec(conf: str, seed: int, tmp: str, extra=()):
+    """Phase 12: train Inception-BN from ``conf``'s own imgrec sections
+    over seeded PNG records and check it (module docstring); returns
+    (trainer, batches, config, val images, notes, launches)."""
+    import contextlib
+    from cxxnet_tpu_torch import checkpoint as ckpt
+    from cxxnet_tpu_torch.config import split_sections
+    from cxxnet_tpu_torch.convert import params_from_jax
+    from cxxnet_tpu_torch.io import close_chain, create_iterator
+    from cxxnet_tpu_torch.main import run
+    from cxxnet_tpu_torch.model import Network
+    from cxxnet_tpu_torch.ops import KERNELS, reset_launches
+    from cxxnet_tpu_torch.trainer import Trainer
+    paths, val_imgs, t_write = write_imgrec(tmp, seed)
+    mean_path = os.path.join(tmp, "mean.bin")
+    model_dir = os.path.join(tmp, "imgrec")
+    cfg = imgrec_cfg(conf, paths, mean_path, model_dir, extra)
+    box = {"losses": [], "before": [], "batches": [], "per_step": []}
+    counted = ("stem", "bn_fwd", "bn_bwd", "sgd_apply")
+
+    def on_step(tr):
+        box["losses"].append(tr.last_loss)
+        box["per_step"].append({k: KERNELS[k].launches for k in counted})
+        reset_launches()
+        if len(box["losses"]) < TRAIN_STEPS:
+            box["before"].append(_snap(tr))
+
+    def ready(tr):
+        box["before"].append(_snap(tr))
+        tr.step_hook = on_step
+        update = tr.update
+
+        def keep(b):
+            box["batches"].append(b)
+            update(b)
+        tr.update = keep
+        torch.cuda.synchronize()
+        reset_launches()                  # just before the first step
+        box["t0"] = time.perf_counter()
+
+    had_mean = os.path.exists(mean_path + ".npy")
+    tee = _Tee(sys.stdout)
+    t_run = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        tr = run(cfg, ready=ready)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t_run
+    eval_launches = {k: KERNELS[k].launches for k in counted}
+    del tr.update
+    tr.step_hook = None
+    log = "".join(tee.parts)
+    if "device_normalize auto-resolved to 1" not in log:
+        raise AssertionError("the imgrec sections did not resolve "
+                             "device_normalize to 1")
+    if had_mean or not os.path.exists(mean_path + ".npy"):
+        raise AssertionError("the mean image was not computed and written "
+                             "on first use")
+    steps = len(box["losses"])
+    batches = box["batches"]
+    if steps != TRAIN_STEPS or len(batches) != steps or any(
+            b.data.dtype != np.uint8 or b.norm is None for b in batches):
+        raise AssertionError(f"{steps} steps over {len(batches)} batches; "
+                             "want uint8 batches with norm")
+    want = {"stem": 1, "bn_fwd": 69, "bn_bwd": 69, "sgd_apply": 2}
+    bad = [(i + 1, n) for i, n in enumerate(box["per_step"]) if n != want]
+    if bad or eval_launches["stem"] != 0:
+        raise AssertionError(f"launches per step {bad} (want {want}), stem "
+                             f"in the evaluation {eval_launches['stem']}")
+    losses = box["losses"]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite train loss: {losses}")
+    after = box["before"][1:] + [_snap(tr)]
+    glob, sections = split_sections(cfg)
+    worst, plain = steps_vs_plain(glob, box["before"], after, losses,
+                                  batches)
+    # the folded input against the input_fold = 0 eager path, in bf16
+    eager = Trainer(glob + [("input_fold", "0"), ("silent", "1")])
+    for b in batches:
+        folded = tr._input(b, fold=True)
+        ref = eager._input(b, fold=True).to(folded.dtype)
+        if folded.dtype != torch.bfloat16 or not torch.equal(folded, ref):
+            raise AssertionError("the folded input differs from the "
+                                 "input_fold = 0 path cast to bf16")
+    del eager
+    # the val crops: center crops of the encoded arrays, bit for bit
+    val_pairs = [p for kind, _, p in sections if kind == "eval"][0]
+    it = create_iterator(glob + val_pairs + [("silent", "1")])
+    vb = it.next()
+    close_chain(it)
+    crop = vb.data.shape[1]
+    o = (IMGREC_SIDE - crop) // 2
+    crops = np.stack([val_imgs[i][o:o + crop, o:o + crop]
+                      for i in vb.inst_index])
+    if vb.data.dtype != np.uint8 or not np.array_equal(vb.data, crops):
+        raise AssertionError("the val crops differ from the encoded arrays")
+    # the written round serves finite softmax rows
+    blob = ckpt.load_for_inference(ckpt.model_path(model_dir, 0))
+    net = Network(tr.graph, [kv for kv in glob if kv[0] != "task"])
+    ckpt.check_structure(blob["meta"], tr.graph.structure_signature())
+    net.load_weights(*params_from_jax(blob["params"], blob["state"]))
+    prob = net(tr._input(vb, fold=False)[:8]).out.float().reshape(8, -1)
+    if not bool(torch.isfinite(prob).all()) or \
+            (prob.sum(1) - 1).abs().max().item() > 1e-3:
+        raise AssertionError("the written round's answers are not finite "
+                             "softmax rows")
+    del net
+    print(f"imgrec: {steps} steps of full-width Inception-BN from "
+          f"{os.path.relpath(conf, ROOT)}'s own data/eval sections (imgrec, "
+          f"rand_crop, rand_mirror, shuffle, image_mean, threadbuffer; "
+          f"{IMGREC_TRAIN} train and {IMGREC_VAL} val PNG records of "
+          f"{IMGREC_SIDE}x{IMGREC_SIDE} written in {t_write:.1f}s) through "
+          f"main.run in {t_run:.1f}s with the mean computed and written, "
+          f"the evaluation and the round | device_normalize auto-resolved "
+          f"to 1, uint8 batches | losses {[round(v, 4) for v in losses]} | "
+          f"launches per step {box['per_step'][0]} (want {want}), stem in "
+          f"the evaluation {eval_launches['stem']} | {_steps_line(worst)} |"
+          f" folded input bit-equal to input_fold=0 cast to bf16 | val "
+          f"crops bit-equal to the encoded arrays' center crops | round "
+          f"loads, finite softmax rows", flush=True)
+    launches = {k: sum(n[k] for n in box["per_step"]) + eval_launches[k]
+                for k in counted}
+    notes = {"losses": losses, "worst": worst, "seconds": t_run,
+             "write_seconds": t_write}
+    del plain
+    return tr, batches, cfg, val_imgs, notes, launches
+
+
+def phase_imgrec_times(tr, batches, cfg, val_imgs, synthetic_step_ms):
+    """Phase 12's times, printed and not gated: ``stem`` at the path
+    shape beside its bound and plain version, the H2D copy of a uint8 and
+    a float32 batch, the train step over an imgrec batch beside phase
+    6's, the train chain's decode rate and the PNG decoder's alone."""
+    from cxxnet_tpu_torch.config import split_sections
+    from cxxnet_tpu_torch.io import close_chain, create_iterator
+    from cxxnet_tpu_torch.io.decode import decode_image
+    from cxxnet_tpu_torch.ops import fused_stem as fs
+    glob, sections = split_sections(cfg)
+    b0 = batches[0]
+    x = torch.from_numpy(b0.data).cuda()
+    mean_t = torch.from_numpy(np.asarray(b0.norm["mean"], np.float32)).cuda()
+    f = np.float32(b0.norm["scale"] / b0.norm["divideby"])
+    n, cols = x.shape[0], x[0].numel()
+    stem = dict(
+        ms=time_call(lambda: fs.fused_decode_normalize(x, mean_t, f,
+                                                       torch.bfloat16)),
+        plain_ms=time_call(lambda: fs.decode_normalize_reference(
+            x, mean_t, f, torch.bfloat16)),
+        library_ms=None,
+        bound=bound_ms(n * cols + n * cols * 2 + cols * 4, 2 * n * cols),
+        shape=f"{tuple(x.shape)} u8 -> bf16, mean image",
+        library="n/a (no one call)")
+    host8 = torch.from_numpy(b0.data).pin_memory()
+    host32 = torch.from_numpy(b0.data.astype(np.float32)).pin_memory()
+    h2d = {k: time_forward(lambda h=h: h.to("cuda", non_blocking=True))
+           for k, h in (("uint8", host8), ("float32", host32))}
+    step_ms = time_forward(lambda: tr.update(b0), reps=10)
+    prof = profile_calls(lambda: tr.update(b0), 3, "step")
+    # decode: the train chain's images/s over one epoch (its first batch
+    # waits for the decode of four), and
+    # the PNG decoder alone on one thread (phase 12's filter mix, and a
+    # Paeth-only image)
+    data_pairs = [p for kind, _, p in sections if kind == "data"][0]
+    chain = {}
+    for extra in ((), (("decode_threads", "1"),)):
+        it = create_iterator(glob + data_pairs + [("silent", "1"), *extra])
+        t0 = time.perf_counter()
+        seen = sum(bb.batch_size for bb in it)
+        chain[getattr(it, "base", it).nthread] = \
+            seen / (time.perf_counter() - t0)
+        close_chain(it)
+    threads = max(chain)
+    iter_ips = chain[threads]
+    enc = png_encode(val_imgs[0], _png_filter_types(IMGREC_SIDE))
+    enc4 = png_encode(val_imgs[0], np.full(IMGREC_SIDE, 4))
+    rates = {}
+    for k, e in (("mix", enc), ("paeth", enc4)):
+        if not np.array_equal(decode_image(e, 3), val_imgs[0]):
+            raise AssertionError(f"PNG ({k}) does not decode to its array")
+        t0 = time.perf_counter()
+        for _ in range(20):
+            decode_image(e, 3)
+        rates[k] = 20 / (time.perf_counter() - t0)
+    host_ms = TRAIN_BATCH / iter_ips * 1e3
+    print(f"times (imgrec): stem {stem['shape']}: {stem['ms'] * 1e3:.2f} us, "
+          f"bound {stem['bound'][0] * 1e3:.2f} us ({stem['bound'][1]}), "
+          f"plain {stem['plain_ms'] * 1e3:.2f} us, library "
+          f"{stem['library']} | H2D of one batch (pinned, CUDA events, "
+          f"median of 20): uint8 {host8.numel() / 1e6:.1f} MB "
+          f"{h2d['uint8']:.3f} ms, float32 {host32.numel() * 4 / 1e6:.1f} MB "
+          f"{h2d['float32']:.3f} ms | train step over an imgrec batch "
+          f"(uint8 H2D, stem, forward, backward, SGD) {step_ms:.3f} ms, "
+          f"phase 6's synthetic step {synthetic_step_ms:.3f} ms | train "
+          f"chain {iter_ips:.1f} images/s with decode_threads={threads} "
+          f"(the default; host decode of one batch of {TRAIN_BATCH}: "
+          f"{host_ms:.1f} ms), {chain[1]:.1f} with decode_threads=1 | "
+          f"PNG decode alone, one thread, {IMGREC_SIDE}x{IMGREC_SIDE} RGB: "
+          f"{rates['mix']:.1f} images/s at phase 12's filter mix, "
+          f"{rates['paeth']:.1f} Paeth-only | profile: train step over an "
+          f"imgrec batch: {prof}", flush=True)
+    return {"kernels": {"stem": stem}, "step_ms": step_ms,
+            "h2d_ms": h2d, "iter_images_per_s": iter_ips,
+            "iter_images_per_s_1_thread": chain[1],
+            "decode_threads": threads, "png_images_per_s": rates,
+            "profile": prof}
+
+
 # -- main ---------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -2986,6 +3394,7 @@ def main(argv=None) -> int:
     errs.update(phase_sync_bn_kernels(gen, args.conf))
     errs.update(phase_lm_kernels(gen, LM_CONF))
     errs.update(phase_convnet_kernels(gen))
+    errs.update(phase_stem_kernels(gen))
     mark("kernels")
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -3056,6 +3465,15 @@ def main(argv=None) -> int:
     dp_times = phase_dp_times(gen)
     mark("dp")
     source.update({k: (dp_times, dp["launches"]) for k in DP_KERNELS})
+    with tempfile.TemporaryDirectory() as tmp:
+        tr, ibatches, icfg, val_imgs, imgrec, imgrec_launches = \
+            phase_imgrec(args.conf, args.seed, tmp)
+        imgrec_times = phase_imgrec_times(tr, ibatches, icfg, val_imgs,
+                                          train_times["step_ms"])
+    del tr, ibatches
+    torch.cuda.empty_cache()
+    mark("imgrec")
+    source["stem"] = (imgrec_times, imgrec_launches)
     kernels = []
     for name, k in KERNELS.items():
         times_of, launches_of = source[name]
@@ -3100,6 +3518,8 @@ def main(argv=None) -> int:
                                    if kk != "bound"}
                                for k, r in int8_times["all"].items()},
               "dp": dp,
+              "imgrec": {**imgrec, **{k: v for k, v in imgrec_times.items()
+                                      if k != "kernels"}},
               "phase_seconds": {b[0]: b[1] - a[1]
                                 for a, b in zip(marks, marks[1:])},
               "card": smi_line, "seconds": time.perf_counter() - t_start}

@@ -292,8 +292,6 @@ TRAIN_NOT_YET = {
     "compute_dtype": (lambda v: _DTYPE_NAMES.get(v.strip().lower())
                       != "float16", _A3 + "the fp16 loss scaler"),
     "update_period": (lambda v: _same_value(v, "1"), _A3 + "update_period"),
-    "input_fold": (lambda v: v.strip().lower() in ("auto", "0", "off"),
-                   _A3 + "the uint8 input fold, Queue B row 13"),
     "train_chain": (lambda v: int(v) <= 1, _A3 + "train_chain"),
     "health": (lambda v: _same_value(v, "0"), "Queue A 12 (model health)"),
     "sentinel": (lambda v: _same_value(v, "0"),

@@ -22,16 +22,12 @@ from typing import Optional
 
 import numpy as np
 
-from ..config import ConfigError
-from .data import DataBatch, DataIter, register_iter
+from .data import DataBatch, DataIter, check_local, register_iter
 
 
 def open_maybe_gz(path: str):
     """Binary read stream of a local file, gunzipped for ``.gz`` paths."""
-    if "://" in path:
-        raise ConfigError(
-            f"{path}: remote paths are not read by the PyTorch port yet "
-            "(ROADMAP Queue A 2, the input pipeline)")
+    check_local(path)
     if path.endswith(".gz"):
         return gzip.open(path, "rb")
     return open(path, "rb")

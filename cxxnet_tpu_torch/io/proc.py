@@ -1,7 +1,7 @@
-"""In-memory iterators (the port of part of ``cxxnet_tpu/io/proc.py``):
-the sequential batch cursor with tail padding, the ``synthetic``
-gaussian-cluster classification data and the ``synthetic_lm`` token
-sequences.
+"""Processing iterators (the port of part of ``cxxnet_tpu/io/proc.py``):
+the ``threadbuffer`` prefetch wrapper, the sequential batch cursor with
+tail padding, the ``synthetic`` gaussian-cluster classification data and
+the ``synthetic_lm`` token sequences.
 
 The synthetic draws are the JAX package's, line for line, so the same
 ``seed_data`` gives bit-equal data and labels and the same batches in
@@ -12,9 +12,121 @@ ported: ``create_iterator`` raises on them (ROADMAP Queue A 2).
 
 from __future__ import annotations
 
+import queue
+import threading
+from typing import Optional
+
 import numpy as np
 
 from .data import DataBatch, DataIter, register_iter
+
+
+class _ProducerError:
+    """Queue item carrying an exception out of the producer thread, so
+    that it surfaces in the consumer's ``next()`` instead of leaving it
+    blocked behind a dead producer."""
+    __slots__ = ("exc",)
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+@register_iter("threadbuffer")
+class ThreadBufferIterator(DataIter):
+    """Prefetch of whole batches by a background thread into a queue of
+    depth ``buffer_size`` (default 2). The producer is a daemon thread
+    whose every put is timed and re-checks the stop flag, so
+    :meth:`close` (and the next :meth:`before_first`) stops and joins it
+    however full the queue is, and a chain left open never holds the
+    interpreter at exit. An exception in the wrapped iterator is raised
+    again by :meth:`next`."""
+
+    #: seconds :meth:`close` waits for the producer before giving up on it
+    JOIN_TIMEOUT_S = 10.0
+
+    def set_param(self, name, val):
+        if name == "buffer_size":
+            self.buffer_size = int(val)
+
+    def __init__(self, cfg, base: DataIter):
+        self.buffer_size = 2
+        self.base = base
+        self._queue: Optional[queue.Queue] = None
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        super().__init__(cfg)
+        if self.buffer_size < 1:
+            raise ValueError(f"buffer_size must be >= 1, got "
+                             f"{self.buffer_size}")
+
+    def _put(self, item) -> bool:
+        """Put ``item``, giving up when asked to stop; False if it did."""
+        while not self._stop.is_set():
+            try:
+                self._queue.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _producer(self):
+        try:
+            self.base.before_first()
+            while not self._stop.is_set():
+                batch = self.base.next()
+                if not self._put(batch) or batch is None:
+                    return
+        except BaseException as e:      # noqa: BLE001 (relayed to next())
+            self._put(_ProducerError(e))
+
+    def _join_producer(self):
+        """Stop the producer, draining the queue until it has ended (it
+        may refill a freed slot before it sees the flag), for at most
+        ``JOIN_TIMEOUT_S`` (a wrapped iterator stuck in a read cannot be
+        interrupted; the thread is a daemon and dies with the process)."""
+        t = self._thread
+        if t is None or not t.is_alive():
+            return
+        self._stop.set()
+        waited = 0.0
+        while t.is_alive() and waited < self.JOIN_TIMEOUT_S:
+            try:
+                while True:
+                    self._queue.get_nowait()
+            except queue.Empty:
+                pass
+            t.join(timeout=0.05)
+            waited += 0.05
+
+    def before_first(self):
+        self._join_producer()
+        self._stop.clear()
+        self._queue = queue.Queue(maxsize=self.buffer_size)
+        self._thread = threading.Thread(target=self._producer, daemon=True,
+                                        name="io-threadbuffer")
+        self._thread.start()
+
+    def next(self):
+        if self._queue is None:
+            self.before_first()
+        while True:
+            try:
+                item = self._queue.get(timeout=0.1)
+                break
+            except queue.Empty:
+                # a producer that ended and left nothing: nothing comes
+                if not self._thread.is_alive() and self._queue.empty():
+                    return None
+        if isinstance(item, _ProducerError):
+            raise item.exc
+        return item
+
+    def close(self):
+        """Stop and join the producer, then close the wrapped iterator."""
+        self._join_producer()
+        close = getattr(self.base, "close", None)
+        if callable(close):
+            close()
 
 
 class _InMemoryIterator(DataIter):

@@ -30,6 +30,14 @@ quantized by ``python -m cxxnet_tpu_torch.quant`` (or the JAX package's
 ``tools/quantize.py``) as version ``rNNNN-int8``; an fp engine serves a
 quantized round dequantized.
 
+The iterator sections read ``synthetic``, ``synthetic_lm``, ``mnist``
+and ``imgrec`` record files (PNG everywhere, JPEG where libjpeg is
+installed), optionally wrapped by ``iter = threadbuffer``, as the
+ImageNet configs of ``examples/ImageNet/`` have them; an imgrec section
+that resolves ``device_normalize`` to 1 feeds uint8 batches that the
+train step normalizes on the card (the input fold). The chains' threads
+are stopped when the task ends.
+
 The other tasks (finetune, pred, pred_raw, extract, get_weight) wait for
 later slices (ROADMAP Queue A 2 and A 3).
 """
@@ -52,7 +60,7 @@ from .convert import params_from_jax
 from .graph import build_graph, global_param
 from .device import resolve_devices
 from .model import Network
-from .io import create_iterator
+from .io import close_chain, create_iterator
 from .parallel import DpContext, launch
 from .serve import InferenceEngine, ServeServer
 from .serve.engine import negotiate_blob, version_name
@@ -178,20 +186,27 @@ def task_train(cfg: ConfigPairs, sections,
     data = [pairs for kind, _, pairs in sections if kind == "data"]
     if not data:
         raise ConfigError("no training data section (data = ...) in config")
-    itr_train = create_iterator(cfg + data[0])
-    evals = [(name, create_iterator(cfg + pairs))
-             for kind, name, pairs in sections if kind == "eval"]
-    model_dir = gp("model_dir", "./models")
-    save_model = int(gp("save_model", "1"))
-    if save_model:
-        os.makedirs(model_dir, exist_ok=True)
-    tr.init_model()
-    if ready is not None:
-        ready(tr)
-    last = _train_rounds(tr, gp, itr_train, evals)
-    final = ckpt.model_path(model_dir, last)
-    if save_model and last >= 0 and not os.path.exists(final):
-        tr.save_model(final)
+    chains = [create_iterator(cfg + data[0])]
+    try:
+        evals = []
+        for kind, name, pairs in sections:
+            if kind == "eval":
+                chains.append(create_iterator(cfg + pairs))
+                evals.append((name, chains[-1]))
+        model_dir = gp("model_dir", "./models")
+        save_model = int(gp("save_model", "1"))
+        if save_model:
+            os.makedirs(model_dir, exist_ok=True)
+        tr.init_model()
+        if ready is not None:
+            ready(tr)
+        last = _train_rounds(tr, gp, chains[0], evals)
+        final = ckpt.model_path(model_dir, last)
+        if save_model and last >= 0 and not os.path.exists(final):
+            tr.save_model(final)
+    finally:
+        for it in chains:
+            close_chain(it)
     return tr
 
 

@@ -6,6 +6,8 @@ interface, compiled for Hopper (``sm_90a``) into
 hash of the sources, the shared headers and the flags, so an edited
 source never loads a stale library. :func:`build` starts one ``nvcc``
 per missing library, all at once, and waits for them together.
+:func:`load_host` does the same for a host C++ source under ``native/``
+(the JPEG decoder) with ``g++``.
 
 Nothing here runs at import: the CPU-only test environment has no
 ``nvcc`` and imports every module. A build that fails raises with the
@@ -26,6 +28,7 @@ from typing import Dict, List, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
+NATIVE_DIR = os.path.join(_PKG, "native")
 BUILD_DIR = os.path.join(_PKG, "build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -125,4 +128,59 @@ def load(source: str) -> ctypes.CDLL:
             build([source])
             lib = ctypes.CDLL(lib_path(source))
             _libs[source] = lib
+        return lib
+
+
+GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
+
+
+def host_lib_path(source: str, libs: Sequence[str] = ()) -> str:
+    """Where the host library of ``native/<source>`` lands: keyed by the
+    bytes of the source, the flags and the libraries it links."""
+    h = hashlib.sha256()
+    h.update(" ".join(GXX_FLAGS + tuple(libs)).encode())
+    with open(os.path.join(NATIVE_DIR, source), "rb") as f:
+        h.update(f.read())
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")
+
+
+def load_host(source: str, libs: Sequence[str] = ()) -> ctypes.CDLL:
+    """The loaded host library of ``native/<source>``, compiled first
+    with ``g++`` (``$CXX`` when set) and linked with ``-l<lib>`` for each
+    of ``libs`` when missing or when it does not load (a library built
+    on another machine). Raises with the compiler's output when the
+    build fails."""
+    key = "host:" + source
+    with _lock:
+        lib = _libs.get(key)
+        if lib is not None:
+            return lib
+        out = host_lib_path(source, libs)
+        if os.path.exists(out):
+            try:
+                lib = ctypes.CDLL(out)
+            except OSError:         # built elsewhere, against other libs
+                os.remove(out)
+        if lib is None:
+            cxx = os.environ.get("CXX") or shutil.which("g++") \
+                or shutil.which("c++")
+            if cxx is None:
+                raise RuntimeError(f"no C++ compiler (g++, c++ or $CXX) to "
+                                   f"build {source}")
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+            p = subprocess.run(
+                [cxx, *GXX_FLAGS, "-o", tmp, os.path.join(NATIVE_DIR, source),
+                 *(f"-l{lb}" for lb in libs)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            if p.returncode != 0:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+                raise RuntimeError(
+                    f"building {source} with {cxx} failed (exit "
+                    f"{p.returncode}):\n" + p.stdout.decode("utf-8", "replace"))
+            os.replace(tmp, out)
+            lib = ctypes.CDLL(out)
+        _libs[key] = lib
         return lib

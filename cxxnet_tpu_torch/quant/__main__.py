@@ -47,7 +47,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from ..config import (parse_cli_overrides, parse_config_file,
                           parse_quant_config, split_sections)
     from ..graph import build_graph
-    from ..io import create_iterator
+    from ..io import close_chain, create_iterator
     from ..model import Network
     from . import drift_verdict, quantize_blob, write_quantized_round
 
@@ -68,7 +68,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     itr = create_iterator(global_cfg + data_pairs)
     batches = (b.data for b in itertools.islice(iter(itr),
                                                 qc.calib_batches))
-    qblob, qm = quantize_blob(net, blob, batches, qc)
+    try:
+        qblob, qm = quantize_blob(net, blob, batches, qc)
+    finally:
+        close_chain(itr)
 
     write_quantized_round(args.out, graph.structure_signature(), qblob, qm)
     out_digest = ckpt.blob_digest(ckpt.verify_model(args.out))

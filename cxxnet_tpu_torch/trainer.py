@@ -10,6 +10,17 @@ batch_norm running statistics replaced by the step's. The eval
 forward's cast weights are dropped after every update, so
 :meth:`Trainer.evaluate` scores the weights just trained.
 
+Input fold (``input_fold = auto|1|0``, on unless 0): a
+``device_normalize`` batch (uint8 with its ``norm``, from an imgrec
+pipeline) goes to the card as uint8, and the train step begins by
+normalizing it into the compute dtype with the stem kernel
+(``ops.fused_stem.decode_normalize``, the JAX package's in-step fold).
+With ``input_fold = 0``, and always in :meth:`Trainer.evaluate`, the
+uint8 batch is normalized eagerly in f32 on the card, as the JAX
+package's ``_device_normalize`` does; under a float32 policy both give
+the same bits. Under data parallelism each rank uploads and folds its
+own rows.
+
 Train metrics are read one step late, as in the JAX package: step N's
 top node is copied to the host after step N+1 was queued, so the copy
 does not stall the card. Rounds are ``%04d.model`` checkpoints in the
@@ -39,12 +50,14 @@ import numpy as np
 import torch
 
 from . import checkpoint as ckpt
-from .config import ConfigPairs, check_train_config
+from .config import (ConfigError, ConfigPairs, check_train_config,
+                     parse_fused_mode)
 from .convert import opt_from_jax, opt_to_jax, params_from_jax, params_to_jax
 from .graph import build_graph, global_param
 from .io.data import DataBatch
 from .metrics import MetricSet
 from .model import Network
+from .ops.fused_stem import decode_normalize, decode_normalize_reference
 from .optim import Optimizer, leaves, tree_map, unflatten
 from .parallel import DpContext, allreduce_metric_pairs
 
@@ -76,6 +89,14 @@ class Trainer:
         self.eval_train = int(gp("eval_train", "1"))
         self.seed = int(gp("seed", "0"))
         self.silent = int(gp("silent", "0"))
+        try:
+            self.input_fold = parse_fused_mode(gp("input_fold", "auto")) \
+                != "off"
+        except ConfigError:
+            raise ConfigError(f"input_fold must be one of auto|1|0 (got "
+                              f"{gp('input_fold', 'auto')!r})") from None
+        #: device-side (mean, factor) of the last batch's norm, by value
+        self._norm_cache = None
         self.optimizer = Optimizer(self.graph.updater_type, cfg)
         self.metric = MetricSet()
         self.train_metric = MetricSet()
@@ -185,16 +206,52 @@ class Trainer:
         rows = slice(0, n) if self.dp is None else self.dp.rows(n)
         return rows, min(max(n_real - rows.start, 0), rows.stop - rows.start)
 
+    def _upload(self, a: np.ndarray, dtype) -> torch.Tensor:
+        """A host array on the device as ``dtype`` (pinned and
+        non-blocking onto a card)."""
+        t = torch.from_numpy(np.ascontiguousarray(a, dtype))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _norm_consts(self, norm: dict):
+        """The device-side mean (or None) and the factor of a batch's
+        ``norm``, cached by value. The factor is ``scale / divideby``
+        taken in double and rounded to float32, as the JAX package's."""
+        mean = norm.get("mean")
+        div = float(norm.get("divideby", 1.0))
+        scale = float(norm.get("scale", 1.0))
+        key = (None if mean is None else
+               (np.shape(mean), np.asarray(mean, np.float32).tobytes()),
+               div, scale)
+        if self._norm_cache is None or self._norm_cache[0] != key:
+            mean_c = None if mean is None else self._upload(mean, np.float32)
+            self._norm_cache = (key, mean_c, np.float32(scale / div))
+        return self._norm_cache[1], self._norm_cache[2]
+
+    def _input(self, batch: DataBatch, fold: bool) -> torch.Tensor:
+        """This process's rows of ``batch.data`` as the network's input on
+        the device. A uint8 batch crosses as uint8; with ``fold`` and
+        ``input_fold`` on, its ``norm`` is applied into the compute dtype
+        by :func:`decode_normalize` (the stem kernel when the kernels are
+        on), else eagerly into f32 (no ``norm``: a plain cast)."""
+        rows, _ = self._rows(batch)
+        data = np.asarray(batch.data)[rows]
+        if data.dtype != np.uint8:
+            return self._upload(data, np.float32)
+        x = self._upload(data, np.uint8)
+        if batch.norm is None:
+            return x.to(torch.float32)
+        mean, factor = self._norm_consts(batch.norm)
+        if fold and self.input_fold:
+            return decode_normalize(x, mean, factor, self.net.compute_dtype,
+                                    fused=self.net.fused)
+        return decode_normalize_reference(x, mean, factor, torch.float32)
+
     def _to_device(self, batch: DataBatch):
         rows, _ = self._rows(batch)
-        data = torch.from_numpy(np.ascontiguousarray(batch.data[rows],
-                                                     np.float32))
-        label = torch.from_numpy(np.ascontiguousarray(batch.label[rows],
-                                                      np.float32))
-        if self.device.type == "cuda":
-            data = data.pin_memory().to(self.device, non_blocking=True)
-            label = label.pin_memory().to(self.device, non_blocking=True)
-        return data, label
+        return (self._input(batch, fold=True),
+                self._upload(batch.label[rows], np.float32))
 
     def _mask(self, batch: DataBatch) -> torch.Tensor:
         """This process's rows: real 1, padded 0. The all-ones mask of
@@ -304,9 +361,7 @@ class Trainer:
         self.metric.clear()
         need = set(self.metric.nodes)
         for batch in data_iter:
-            rows, _ = self._rows(batch)
-            data = torch.from_numpy(np.ascontiguousarray(
-                batch.data[rows], np.float32)).to(self.device)
+            data = self._input(batch, fold=False)
             res = self.net(data, capture_nodes=any(n is not None
                                                    for n in need))
             nodes = {n: (res.out if n is None else res.nodes[n])

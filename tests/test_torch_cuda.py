@@ -31,6 +31,7 @@ from cxxnet_tpu_torch.ops.fused_lrn import (Lrn, fused_lrn_bwd,
                                             fused_lrn_fwd, lrn_bwd_plain,
                                             lrn_plain)
 from cxxnet_tpu_torch.ops import fused_quant as fq
+from cxxnet_tpu_torch.ops import fused_stem as fs
 from cxxnet_tpu_torch.ops.fused_pool import (Pool, fused_pool,
                                              fused_pool_bwd_lin,
                                              fused_pool_bwd_max,
@@ -101,7 +102,8 @@ def test_each_launch_counts_once(dev):
          "bn_fwd": 0, "bn_bwd": 0, "sgd_apply": 0, "adam_apply": 0,
          "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
          "lrn_fwd": 0, "lrn_bwd": 0, "pool_bwd_max": 0, "q_mm": 0,
-         "bn_sums": 0, "bn_norm": 0, "bn_bwd_sums": 0, "bn_bwd_dx": 0}
+         "bn_sums": 0, "bn_norm": 0, "bn_bwd_sums": 0, "bn_bwd_dx": 0,
+         "stem": 0}
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -503,3 +505,51 @@ def test_q_mm_refuses_what_the_kernel_does_not_take(dev):
         fq.q_mm(xq, wt, f.half(), None)
     with pytest.raises(ValueError, match="contiguous"):
         fq.q_mm(xq, wt, f.cpu(), None)
+
+
+@pytest.mark.parametrize("out_dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("mean_kind", ["none", "channel", "image"])
+@pytest.mark.parametrize("shape", [(128, 224, 224, 3), (5, 17, 13, 3),
+                                   (1, 7, 9, 1), (3, 5, 5, 3)])
+def test_stem_kernel_is_bit_equal_to_plain(dev, out_dtype, mean_kind, shape):
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randint(0, 256, shape, generator=g, device=dev,
+                      dtype=torch.uint8)
+    mean = {"none": None,
+            "channel": torch.tensor([123.68, 116.78, 103.94][:shape[-1]],
+                                    device=dev),
+            "image": torch.rand(shape[1:], generator=g, device=dev) * 255
+            }[mean_kind]
+    before = fs.STEM.launches
+    got = fs.fused_decode_normalize(x, mean, 1 / 255.0, out_dtype)
+    want = fs.decode_normalize_reference(x, mean, 1 / 255.0, out_dtype)
+    torch.cuda.synchronize()
+    assert fs.STEM.launches == before + 1
+    assert got.dtype == out_dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("out_dtype", DTYPES, ids=str)
+def test_stem_kernel_takes_an_unaligned_batch(dev, out_dtype):
+    """A batch that does not start on 16 bytes (rows 1.. of a (B, 5, 7,
+    3) batch, 105 bytes a row) takes the kernel's scalar loop."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randint(0, 256, (9, 5, 7, 3), generator=g, device=dev,
+                      dtype=torch.uint8)[1:]
+    assert x.data_ptr() % 16 != 0
+    mean = torch.rand((5, 7, 3), generator=g, device=dev) * 255
+    assert torch.equal(fs.fused_decode_normalize(x, mean, 0.5, out_dtype),
+                       fs.decode_normalize_reference(x, mean, 0.5,
+                                                     out_dtype))
+
+
+def test_stem_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    x = torch.zeros((2, 4, 4, 3), dtype=torch.uint8, device=dev)
+    with pytest.raises(TypeError, match="uint8"):
+        fs.fused_decode_normalize(x.float(), None, 1.0, torch.float32)
+    with pytest.raises(TypeError, match="uint8"):
+        fs.fused_decode_normalize(x.reshape(2, 48), None, 1.0, torch.float32)
+    with pytest.raises(ValueError, match="mean of shape"):
+        fs.fused_decode_normalize(x, torch.zeros(4, 4, device=dev), 1.0,
+                                  torch.float32)
+    with pytest.raises(ValueError, match="float32 on"):
+        fs.fused_decode_normalize(x, torch.zeros(3), 1.0, torch.float32)

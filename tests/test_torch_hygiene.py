@@ -60,11 +60,16 @@ def test_port_files_exist():
             "cxxnet_tpu_torch/quant/ptq.py",
             "cxxnet_tpu_torch/quant/__main__.py",
             "cxxnet_tpu_torch/parallel/__init__.py",
-            "cxxnet_tpu_torch/parallel/dist.py"} <= names
+            "cxxnet_tpu_torch/parallel/dist.py",
+            "cxxnet_tpu_torch/io/recordio.py",
+            "cxxnet_tpu_torch/io/decode.py",
+            "cxxnet_tpu_torch/io/augment.py",
+            "cxxnet_tpu_torch/io/iter_imgrec.py",
+            "cxxnet_tpu_torch/ops/fused_stem.py"} <= names
     csrc = {os.path.basename(p) for p in glob.glob(
         os.path.join(REPO, "cxxnet_tpu_torch", "csrc", "*.cu"))}
     assert {"lrn_fwd.cu", "lrn_bwd.cu", "pool_bwd_max.cu", "q_mm.cu",
-            "bn_sync.cu"} <= csrc
+            "bn_sync.cu", "stem.cu"} <= csrc
     assert len(names) > 30
 
 

@@ -125,13 +125,19 @@ def test_wrappers_take_the_plain_version_on_cpu_and_count_nothing():
                        fn.bn_bwd_sums_plain(y, y, None, mean, rstd))
     assert torch.equal(fn.bn_bwd_dx(y, y, y, b, mean, rstd, b, b),
                        fn.bn_bwd_dx_plain(y, y, y, b, mean, rstd, b, b))
+    from cxxnet_tpu_torch.ops import fused_stem as fs
+    u8 = torch.randint(0, 256, (2, 5, 7, 3), dtype=torch.uint8)
+    assert torch.equal(fs.fused_decode_normalize(u8, b[:3], 0.5,
+                                                 torch.bfloat16),
+                       fs.decode_normalize_reference(u8, b[:3], 0.5,
+                                                     torch.bfloat16))
     assert {k: v.launches for k, v in KERNELS.items()} == \
         {k: 0 for k in ("pool_fwd", "pool_bwd", "epilogue_fwd",
                         "epilogue_bwd", "bn_fwd", "bn_bwd", "sgd_apply",
                         "adam_apply", "flash_fwd", "flash_bwd_dq",
                         "flash_bwd_dkv", "lrn_fwd", "lrn_bwd",
                         "pool_bwd_max", "q_mm", "bn_sums", "bn_norm",
-                        "bn_bwd_sums", "bn_bwd_dx")}
+                        "bn_bwd_sums", "bn_bwd_dx", "stem")}
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take():

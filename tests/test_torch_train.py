@@ -574,7 +574,7 @@ def test_main_train_writes_rounds_the_jax_package_resumes(tmp_path, capsys):
 SWITCHED_ON = {
     "continue": "1", "model_in": "/nowhere/0003.model",
     "telemetry_port": "9099",
-    "compute_dtype": "float16", "update_period": "2", "input_fold": "1",
+    "compute_dtype": "float16", "update_period": "2",
     "train_chain": "4", "health": "1", "sentinel": "1",
     "failpoints": "device.step=every:3", "profile_dir": "/nowhere/prof",
     "shard_ckpt": "1", "save_async": "1", "keep_last_n": "3",
@@ -599,7 +599,7 @@ def test_training_keys_outside_the_slice_name_their_roadmap_item(key):
             "update_period": "update_period"}.get(key, "")):
         Trainer(parse_config_string(base + f'{key} = "{SWITCHED_ON[key]}"\n'))
     off = {"model_in": "NULL", "compute_dtype": "bfloat16",
-           "update_period": "1", "input_fold": "auto", "train_chain": "1",
+           "update_period": "1", "train_chain": "1",
            "model_parallel": "1", "seq_parallel": "1",
            "pipeline_parallel": "1", "dist_num_proc": "1"}.get(
                key, "0" if key not in (
@@ -660,8 +660,8 @@ def test_evaluate_scores_the_weights_just_trained():
 
 
 @pytest.mark.parametrize("pairs", [
-    [("iter", "imgrec"), ("image_rec", "x.rec")],
-    [("iter", "synthetic"), ("iter", "threadbuffer")],
+    [("iter", "imgrec"), ("image_bin", "x.bin"), ("image_list", "x.lst")],
+    [("iter", "synthetic"), ("iter", "throttle")],
     [("iter", "synthetic"), ("dist_num_worker", "2")],
     [("iter", "synthetic"), ("data_gen_seed", "3")],
     [("iter", "synthetic"), ("test_skipread", "1")],
