@@ -13,10 +13,11 @@ and prints no result:
 3. kernels: each kernel against its plain PyTorch version on the card,
             at the serving and training paths' shapes, in bf16, f16 and
             f32, and at row counts the TPU kernels' gates refused; the
-            flash attention kernels (forward, dQ, dK/dV) in bf16 and
-            f32, causal and not, at S 2048 and the ragged 1000, head
-            widths 16, 64 and 128 (f32 within 2e-5 of max|plain|, bf16
-            one ulp plus 2e-5 of max|plain|, lse 1e-5 of max|lse|); the
+            flash attention kernels (forward, dQ, dK/dV) in bf16, f16
+            and f32, causal and not, at S 2048 and the ragged 1000, head
+            widths 16, 64 and 128, and non-causal with 300 queries over
+            1000 keys (f32 within 2e-5 of max|plain|, bf16 and f16 one
+            ulp plus 2e-5 of max|plain|, lse 1e-5 of max|lse|); the
             Adam apply over the LM's and Inception-BN's parameter groups,
             bit-equal; LRN forward and backward at AlexNet's lrn1 and
             lrn2 and at 7 rows by C 7, C 1500 and a ragged row count,
@@ -89,7 +90,11 @@ and prints no result:
             gives finite log-probabilities; the LM step and each LM
             kernel are timed beside bound, plain version and library
             call (``F.scaled_dot_product_attention`` forward and
-            backward, ``torch.optim.Adam(fused=True)``).
+            backward, ``torch.optim.Adam(fused=True)``); a flash kernel's
+            bound is the largest of its bytes, its products at the bf16
+            tensor-core rate and its exponentials at the SFU's rate
+            (SFU_EXP_PER_S). The forward also timed non-causal and in
+            f16 at the path's shape.
 
 8. convnets: full-width AlexNet (``examples/ImageNet/alexnet.conf``:
             batch 256, 3x227x227, bf16, SGD, dropout 0.5, LRN) and the
@@ -113,15 +118,21 @@ and prints no result:
             step.
 10. int8:   the int8 product ``q_mm`` bit-equal to ``q_mm_plain`` at the
             int8 paths' shapes (fc1 at M 1, 8, 32; conv1 as im2col at
-            bucket 32, K 147; an inception 3x3, K 576; AlexNet's grouped
-            conv2; fc6 and fc7 at M 32; 7x13x5; K 4096 with every code
-            at +-127, |acc| past 2^24), with bias and relu and without.
+            bucket 32, K 147 padded to 160 as the conv pads it; an
+            inception 3x3, K 576; a 7x7 inception conv at bucket 1, M 49
+            and N 384; AlexNet's conv1 (K 363, padded to 368) and
+            grouped conv2; fc6 at M 1 and 32, fc7 at M 32) and odd ones
+            (K 4112, whose steps the split of K does not divide; 7x13x5;
+            K 4096 with every code at +-127, |acc| past 2^24), with bias
+            and relu and without; every path shape takes the pipelined
+            variant (``fused_quant.Q_MM_VARIANTS``).
             Phase 4's Inception-BN round quantized by ``python -m
             cxxnet_tpu_torch.quant``'s ``main()`` over synthetic batches
             from ``--seed`` (its drift line printed) and served over
             HTTP by ``main.run`` with ``serve_dtype=int8``: launch counts
             set to 0 just before the requests and read just after, 70
-            ``q_mm`` a forward (69 convs and fc1); finite rows summing to
+            ``q_mm`` a forward (69 convs and fc1), every launch of the
+            pipelined variant (as in the AlexNet run); finite rows summing to
             1, held against an int8 engine with ``fused_kernels = 0``
             (INT8_ROW_ATOL). AlexNet (``alexnet.conf``, random weights)
             quantized the same way and run by the int8 engine at bucket
@@ -129,7 +140,8 @@ and prints no result:
             rows against fp32 (rel L2, top-1) printed, not gated: random
             weights. Times: the int8 forward per bucket beside phase 5's
             bf16 one, and ``q_mm`` at each path shape beside its bound,
-            its plain version and ``torch._int_mm`` with the epilogue.
+            its plain version and ``torch._int_mm`` with the epilogue;
+            the fc shapes also cold, over weight copies past the L2.
 
 11. dp:     full-width Inception-BN trained data-parallel through
             ``main.run`` (what ``python -m cxxnet_tpu_torch.main <conf>
@@ -229,6 +241,10 @@ BF16_FLOPS = 989e12
 #: and the int8 tensor cores' dense operations per second (the peak for
 #: the int8 product of phase 10)
 INT8_OPS = 1979e12
+#: exponentials per second on the SFU: 16 a clock per SM (the CUDA
+#: programming guide's arithmetic-throughput table, compute capability
+#: 9.0) on 132 SMs at the H100 SXM's 1.98 GHz boost clock
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
 
 BUCKETS = (1, 8, 32)
 SERVE_KERNELS = ("pool_fwd", "epilogue_fwd")
@@ -256,6 +272,12 @@ LM_CONF = os.path.join(ROOT, "examples", "LM", "long_context_lm.conf")
 #: the long-context LM's attention: (B, S, H, D, dtype, causal)
 LM_PATH_ATTN = (8, 2048, 8, 16, torch.bfloat16, True)
 LM_STEPS = 4            # batches of 8: num_inst cut from 256 to 32
+#: the kernels' times before their redesign, as PERF.md's kernel table
+#: has them (ms on the H100 at the path shapes), printed beside the new
+#: ones
+PERF_BEFORE_MS = {"flash_fwd": "0.8869 ms",
+                  "q_mm conv1 b32": "0.1640 ms",
+                  "q_mm fc6 b32": "0.1918 ms warm"}
 TRAIN_BATCH = 128       # the flagship's batch_size
 TRAIN_STEPS = 4         # 512 synthetic rows
 TRAIN_IMAGE, TRAIN_CLASSES = "3,224,224", 1000
@@ -268,6 +290,19 @@ def bound_ms(nbytes: int, nops: int, flops: float = F32_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_bound_ms(nbytes: int, nflops: int, nexp: int):
+    """Least time of a flash-attention kernel: the largest of its bytes
+    over the memory rate, its products over the bf16 tensor cores' rate
+    and its exponentials over the SFU's (each kernel computes P once).
+    Returns (ms, "bytes" or "operations", the term that bounds it)."""
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "tensor-core FLOPs": nflops / BF16_FLOPS * 1e3,
+             "exponentials": nexp / SFU_EXP_PER_S * 1e3}
+    term = max(terms, key=terms.get)
+    return (terms[term], "bytes" if term == "bytes" else "operations",
+            term)
 
 
 def time_call(fn, reps: int = 20, inner: int = 50) -> float:
@@ -342,6 +377,7 @@ def time_loop(fn, reps: int = 20) -> float:
 #: kernel-name fragments -> what the time is spent on (first match wins)
 _KINDS = (("q_mm_kernel", "q_mm kernel"),
           ("flash_fwd_kernel", "flash fwd kernel"),
+          ("flash_fwd_tc", "flash fwd kernel"),
           ("flash_bwd_dq_kernel", "flash dq kernel"),
           ("flash_bwd_dkv_kernel", "flash dkv kernel"),
           ("adam_apply_kernel", "adam kernel"), ("embedding", "embedding"),
@@ -446,6 +482,45 @@ def phase_build():
     print(f"build: {len(sources)} sources with nvcc for sm_90a in "
           f"{took:.1f}s ({', '.join(f'{s} {t:.1f}s' for s, t in per.items())})"
           f" | ptxas {' | '.join(regs)}", flush=True)
+    for src in REPORT_PTXAS:
+        print(f"ptxas {src}: " + ", ".join(
+            f"{name} {n} registers" + (f" {sp} bytes spilled" if sp else "")
+            for name, n, sp in ptxas_functions(_build.build_log(src))),
+            flush=True)
+
+
+#: the sources whose every kernel's registers and spills phase 2 prints
+REPORT_PTXAS = ("flash_fwd.cu", "q_mm.cu")
+
+
+def ptxas_functions(log: str):
+    """(kernel with its template arguments, registers, spill-store bytes)
+    of each entry function in an ``nvcc -Xptxas -v`` log."""
+    import re
+    out, name, spill = [], None, 0
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            k = re.search(r"(flash_fwd_tc|flash_fwd_kernel|q_mm_kernel)I(\w+)",
+                          m.group(1))
+            if k is None:
+                name = m.group(1)
+            else:
+                args = ["f32"] if k.group(2).startswith("f") else []
+                args += [{"13__nv_bfloat16": "bf16", "6__half": "f16"}.get(t, t)
+                         for t in re.findall(
+                             r"13__nv_bfloat16|6__half|(?<=L[ib])\d+(?=E)",
+                             k.group(2))]
+                name = f"{k.group(1)}<{','.join(args)}>"
+            spill = 0
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    return out
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -809,28 +884,35 @@ def phase_sync_bn_kernels(gen: torch.Generator, conf: str) -> dict:
 FLASH_BH = {16: (8, 8), 64: (2, 4), 128: (2, 2)}
 #: sequence lengths of phase 3's flash cases: the path's, and a ragged one
 FLASH_S = (2048, 1000)
+#: and a non-causal case with other query and key counts: (B, Sq, Sk, H, D)
+FLASH_SQ_SK = (2, 300, 1000, 4, 64)
 
 
 def _flash_bad(got, want, dtype):
     """(max abs error, whether it exceeds the bound): float32 2e-5 of
     max|plain| (f32 sums over up to 2048 keys in another order);
-    bfloat16 one bf16 ulp of the value (2^-7 relative) plus 2e-5 of
-    max|plain| (the same f32 sums, then one rounding each side)."""
+    bfloat16 and float16 one ulp of the value (2^-7, 2^-10 relative)
+    plus 2e-5 of max|plain| (the same f32 sums, then one rounding each
+    side)."""
     err = (got.float() - want.float()).abs()
     top = want.float().abs().max().item()
-    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    rel = 0.0 if dtype == torch.float32 else _ulp_tol(dtype)
     return err.max().item(), bool(
         (err > rel * want.float().abs() + 2e-5 * top).any())
 
 
-def flash_case(gen, B, S, H, D, dtype, causal):
+def flash_case(gen, B, S, H, D, dtype, causal, Sk=None):
     """The three flash kernels against their plain versions on one
-    seeded case; the backward kernels get the plain forward's output and
-    lse, as their plain versions do. Returns {kernel: max abs error}."""
+    seeded case (``Sk`` keys, default S); the backward kernels get the
+    plain forward's output and lse, as their plain versions do. Returns
+    {kernel: max abs error}."""
     from cxxnet_tpu_torch.ops import attention as att
     dev = gen.device
-    q, k, v, g = (torch.randn((B, S, H, D), generator=gen, device=dev)
-                  .to(dtype) for _ in range(4))
+    Sk = S if Sk is None else Sk
+    q, g = (torch.randn((B, S, H, D), generator=gen, device=dev)
+            .to(dtype) for _ in range(2))
+    k, v = (torch.randn((B, Sk, H, D), generator=gen, device=dev)
+            .to(dtype) for _ in range(2))
     scale = D ** -0.5
     out, lse = att.flash_fwd(q, k, v, causal, scale)
     out0, lse0 = att.flash_fwd_plain(q, k, v, causal, scale)
@@ -860,34 +942,37 @@ def flash_case(gen, B, S, H, D, dtype, causal):
 
 def phase_lm_kernels(gen: torch.Generator, conf: str) -> dict:
     """The LM path's kernels against their plain versions: flash
-    attention forward, dQ and dK/dV in bf16 and f32, causal and not, at
-    S 2048 (the path's) and 1000 (a ragged edge the TPU kernel refused),
-    head widths 16 (the path's), 64 and 128; the Adam apply over the LM's
+    attention forward, dQ and dK/dV in bf16, f16 and f32, causal and
+    not, at S 2048 (the path's) and 1000 (a ragged edge the TPU kernel
+    refused), head widths 16 (the path's), 64 and 128, and non-causal
+    with 300 queries over 1000 keys; the Adam apply over the LM's
     parameter groups and over Inception-BN's, exact. Returns the largest
     error per kernel at the path's shape."""
     from cxxnet_tpu_torch.ops.fused_optim import (adam_apply_plain,
                                                   fused_adam_apply)
     dev = gen.device
     path_err, lines = {}, []
-    for dt in (torch.bfloat16, torch.float32):
-        for causal in (True, False):
-            for S in FLASH_S:
-                for D in sorted(FLASH_BH):
-                    B, H = FLASH_BH[D]
-                    errs, bad = flash_case(gen, B, S, H, D, dt, causal)
-                    lines.append(
-                        f"flash ({B},{S},{H},{D}) {str(dt)[6:]} causal="
-                        f"{int(causal)}: fwd {errs['flash_fwd']:.3g} lse "
-                        f"{errs['lse']:.3g} dq {errs['flash_bwd_dq']:.3g} "
-                        f"dkv {errs['flash_bwd_dkv']:.3g}")
-                    if bad:
-                        raise AssertionError(
-                            f"flash kernels disagree ({bad}; tol f32 2e-5 "
-                            "of max|plain|, bf16 one ulp + 2e-5 of max|plain|"
-                            ", lse 1e-5 of max|lse|): " + lines[-1])
-                    if (B, S, H, D, dt, causal) == LM_PATH_ATTN:
-                        path_err.update({k: v for k, v in errs.items()
-                                         if k != "lse"})
+    cases = [(FLASH_BH[D][0], S, S, FLASH_BH[D][1], D, causal)
+             for causal in (True, False) for S in FLASH_S
+             for D in sorted(FLASH_BH)]
+    b_, sq_, sk_, h_, d_ = FLASH_SQ_SK
+    cases.append((b_, sq_, sk_, h_, d_, False))
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
+        for B, S, Sk, H, D, causal in cases:
+            errs, bad = flash_case(gen, B, S, H, D, dt, causal, Sk)
+            lines.append(
+                f"flash ({B},{S}{'' if Sk == S else f'x{Sk}'},{H},{D}) "
+                f"{str(dt)[6:]} causal={int(causal)}: fwd "
+                f"{errs['flash_fwd']:.3g} lse {errs['lse']:.3g} dq "
+                f"{errs['flash_bwd_dq']:.3g} dkv {errs['flash_bwd_dkv']:.3g}")
+            if bad:
+                raise AssertionError(
+                    f"flash kernels disagree ({bad}; tol f32 2e-5 of "
+                    "max|plain|, bf16/f16 one ulp + 2e-5 of max|plain|, lse "
+                    "1e-5 of max|lse|): " + lines[-1])
+            if (B, S, H, D, dt, causal) == LM_PATH_ATTN and Sk == S:
+                path_err.update({k: v for k, v in errs.items()
+                                 if k != "lse"})
     for what, groups in (("LM", lm_shapes(conf)[1]),
                          ("Inception-BN", flagship_shapes(FLAGSHIP)[1])):
         for tag, shapes in sorted(groups.items()):
@@ -1856,7 +1941,10 @@ def phase_lm_times(tr, kern, plain, batches, gen) -> dict:
     sdpa_bwd = time_loop(lambda: torch.autograd.grad(
         oh, (qh, kh, vh), gh, retain_graph=True))
     el, rows_ = B * S * H * D, B * H * S
-    pairs = B * H * S * S // 2 if causal else B * H * S * S
+    # the (query, key) pairs that count: the causal lower triangle with
+    # its diagonal, or all; one product (2 D FLOPs) and, per kernel, one
+    # exponential each
+    pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * S
     rows = {
         "flash_fwd": dict(
             ms=time_call(lambda: att.flash_fwd(q, k, v, causal, scale)),
@@ -1864,27 +1952,40 @@ def phase_lm_times(tr, kern, plain, batches, gen) -> dict:
                                                            scale)),
             library_ms=time_call(lambda: F.scaled_dot_product_attention(
                 qh.detach(), kh.detach(), vh.detach(), is_causal=causal)),
-            bound=bound_ms(4 * el * 2 + 4 * rows_, 2 * 2 * pairs * D,
-                           BF16_FLOPS),
+            bound=flash_bound_ms(4 * el * 2 + 4 * rows_, 2 * 2 * pairs * D,
+                                 pairs),
             library="F.scaled_dot_product_attention forward"),
         "flash_bwd_dq": dict(
             ms=time_call(lambda: att.flash_bwd_dq(*args)),
             plain_ms=time_loop(lambda: att.flash_bwd_dq_plain(*args)),
             library_ms=sdpa_bwd,
-            bound=bound_ms(5 * el * 2 + 8 * rows_, 3 * 2 * pairs * D,
-                           BF16_FLOPS),
+            bound=flash_bound_ms(5 * el * 2 + 8 * rows_, 3 * 2 * pairs * D,
+                                 pairs),
             library="SDPA backward (dq, dk and dv together)"),
         "flash_bwd_dkv": dict(
             ms=time_call(lambda: att.flash_bwd_dkv(*args)),
             plain_ms=time_loop(lambda: att.flash_bwd_dkv_plain(*args)),
             library_ms=sdpa_bwd,
-            bound=bound_ms(6 * el * 2 + 8 * rows_, 4 * 2 * pairs * D,
-                           BF16_FLOPS),
+            bound=flash_bound_ms(6 * el * 2 + 8 * rows_, 4 * 2 * pairs * D,
+                                 pairs),
             library="SDPA backward (dq, dk and dv together)"),
     }
     for r in rows.values():
         r["shape"] = (f"(B {B}, S {S}, H {H}, D {D}) {str(dt)[6:]} "
                       f"causal={int(causal)}")
+    # the forward where its exponentials double (no mask) and in f16:
+    # does its time track the exp count?
+    extra = {}
+    for what, c, t in (("non-causal", False, dt),
+                       ("f16", causal, torch.float16)):
+        qq, kk, vv = (x.to(t) for x in (q, k, v))
+        pp = B * H * S * (S + 1) // 2 if c else B * H * S * S
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (qq, kk, vv))
+        extra[what] = dict(
+            ms=time_call(lambda: att.flash_fwd(qq, kk, vv, c, scale)),
+            library_ms=time_call(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=c)),
+            bound=flash_bound_ms(4 * el * 2 + 4 * rows_, 2 * 2 * pp * D, pp))
 
     def adam_row(ws, what):
         gs = [torch.randn_like(w) for w in ws]
@@ -1914,16 +2015,26 @@ def phase_lm_times(tr, kern, plain, batches, gen) -> dict:
                     for shapes in flagship_shapes(FLAGSHIP)[1].values()
                     for sh in shapes], "Inception-BN")
     line = lambda k, r: (f"{k} {r['shape']}: {r['ms'] * 1e3:.2f} us, bound "
-                         f"{r['bound'][0] * 1e3:.2f} us ({r['bound'][1]}), "
+                         f"{r['bound'][0] * 1e3:.2f} us ({r['bound'][-1]}), "
                          f"plain {r['plain_ms'] * 1e3:.2f} us, "
-                         f"{r['library']} {r['library_ms'] * 1e3:.2f} us")
+                         f"{r['library']} {r['library_ms'] * 1e3:.2f} us"
+                         + (f" (PERF.md before: {PERF_BEFORE_MS[k]})"
+                            if k in PERF_BEFORE_MS else ""))
     print(f"times (LM): train step {step_ms:.3f} ms, fused_kernels=0 "
           f"{step_plain:.3f} ms (one batch of 8 x 2048 tokens from the host, "
           "CUDA events, median of 10) | "
           + " | ".join(line(k, r) for k, r in rows.items())
-          + " | " + line("adam_apply", ibn), flush=True)
+          + " | " + line("adam_apply", ibn) + " | " + " | ".join(
+              f"flash_fwd {what}: {r['ms'] * 1e3:.2f} us, bound "
+              f"{r['bound'][0] * 1e3:.2f} us ({r['bound'][-1]}), SDPA "
+              f"forward {r['library_ms'] * 1e3:.2f} us"
+              for what, r in extra.items()), flush=True)
     return {"step_ms": step_ms, "step_plain_ms": step_plain,
-            "kernels": rows, "adam_ibn": ibn, "profile": prof}
+            "kernels": rows, "adam_ibn": ibn, "profile": prof,
+            "flash_fwd_extra": {w: {"ms": r["ms"],
+                                    "library_ms": r["library_ms"],
+                                    "bound_ms": r["bound"][0]}
+                                for w, r in extra.items()}}
 
 
 # -- phase 8 ------------------------------------------------------------------
@@ -2331,19 +2442,27 @@ def phase_digits(seed: int, tmp: str) -> dict:
 # -- phase 10 -----------------------------------------------------------------
 
 #: q_mm cases of phase 10 at the int8 serve paths' shapes (and odd ones):
-#: name -> (M, K, N per group, groups, all codes at +-127)
+#: name -> (M, K, N per group, groups, all codes at +-127, K padded to a
+#: multiple of 16 with zero columns as the int8 conv pads it)
 Q_MM_CASES = {
-    "fc1 b1": (1, 1024, 1000, 1, False),
-    "fc1 b8": (8, 1024, 1000, 1, False),
-    "fc1 b32": (32, 1024, 1000, 1, False),
-    "conv1 b32": (BUCKETS[-1] * 112 * 112, 147, 64, 1, False),
-    "3a 3x3 b32": (BUCKETS[-1] * 28 * 28, 576, 64, 1, False),
-    "alex conv2 b32": (BUCKETS[-1] * 27 * 27, 1200, 128, 2, False),
-    "fc6 b32": (32, 9216, 4096, 1, False),
-    "fc7 b32": (32, 4096, 4096, 1, False),
-    "odd": (7, 13, 5, 1, False),
-    "K4096 +-127": (5, 4096, 3, 1, True),
+    "fc1 b1": (1, 1024, 1000, 1, False, False),
+    "fc1 b8": (8, 1024, 1000, 1, False, False),
+    "fc1 b32": (32, 1024, 1000, 1, False, False),
+    "conv1 b32": (BUCKETS[-1] * 112 * 112, 147, 64, 1, False, True),
+    "3a 3x3 b32": (BUCKETS[-1] * 28 * 28, 576, 64, 1, False, True),
+    "5b 3x3 b1": (49, 1728, 384, 1, False, True),
+    "alex conv1 b32": (BUCKETS[-1] * 55 * 55, 363, 96, 1, False, True),
+    "alex conv2 b32": (BUCKETS[-1] * 27 * 27, 1200, 128, 2, False, True),
+    "fc6 b1": (1, 9216, 4096, 1, False, False),
+    "fc6 b32": (32, 9216, 4096, 1, False, False),
+    "fc7 b32": (32, 4096, 4096, 1, False, False),
+    "K 4112 split": (8, 4112, 512, 1, False, False),
+    "odd": (7, 13, 5, 1, False, False),
+    "K4096 +-127": (5, 4096, 3, 1, True, False),
 }
+#: the cases that are not shapes of a path (every other case must take
+#: the pipelined variant)
+Q_MM_OFF_PATH = ("odd", "K4096 +-127", "K 4112 split")
 #: the case whose numbers stand in the kernels JSON line: the largest
 #: product of the served Inception-BN forward at bucket 32
 Q_MM_PATH = "conv1 b32"
@@ -2371,14 +2490,30 @@ def _codes(shape, gen, extreme):
 
 def q_mm_case(gen, name):
     """Operands of one Q_MM_CASES case on the card: (xq, wt, factor,
-    bias, groups)."""
-    m, k, n, g, extreme = Q_MM_CASES[name]
+    bias, groups), K padded with zero columns in both operands to a
+    multiple of 16 where the case is padded."""
+    from cxxnet_tpu_torch.ops.fused_quant import padded_k
+    m, k, n, g, extreme, pad = Q_MM_CASES[name]
     dev = gen.device
-    xq = _codes((m, g * k), gen, extreme)
-    wt = _codes((g * n, k), gen, extreme)
+    kp = padded_k(k) if pad else k
+    xq = _codes((m, g, kp), gen, extreme)
+    wt = _codes((g * n, kp), gen, extreme)
+    xq[..., k:] = 0
+    wt[:, k:] = 0
     f = torch.rand((g * n,), generator=gen, device=dev) * 1e-3
     b = torch.randn((g * n,), generator=gen, device=dev)
-    return xq, wt, f, b, g
+    return xq.view(m, g * kp), wt, f, b, g
+
+
+def check_q_mm_variants(what: str) -> dict:
+    """The q_mm variants launched since the last reset; raises unless
+    every one is the pipelined (16-byte copy ring) variant."""
+    from cxxnet_tpu_torch.ops.fused_quant import Q_MM_VARIANTS
+    got = dict(Q_MM_VARIANTS)
+    if not got or any(not v.startswith("pipelined") for v in got):
+        raise AssertionError(f"{what}: q_mm launches off the pipelined "
+                             f"variant: {got}")
+    return got
 
 
 def phase_int8_kernels(gen: torch.Generator) -> dict:
@@ -2386,19 +2521,24 @@ def phase_int8_kernels(gen: torch.Generator) -> dict:
     relu and without: bit-equal (an exact int32 sum on both sides, then
     the same two f32 roundings). Returns the largest error at the path's
     shape."""
-    from cxxnet_tpu_torch.ops.fused_quant import q_mm, q_mm_plain
+    from cxxnet_tpu_torch.ops.fused_quant import (Q_MM_VARIANTS, q_mm,
+                                                  q_mm_plain,
+                                                  reset_q_mm_variants)
     lines, worst = [], {}
     for name in Q_MM_CASES:
         xq, wt, f, b, g = q_mm_case(gen, name)
         errs = []
+        reset_q_mm_variants()
         for bias, act in ((b, "relu"), (None, "none")):
             got = q_mm(xq, wt, f, bias, act, g)
             want = q_mm_plain(xq, wt, f, bias, act, g)
             torch.cuda.synchronize()
             errs.append((got - want).abs().max().item())
         worst[name] = max(errs)
+        variant = (dict(Q_MM_VARIANTS) if name in Q_MM_OFF_PATH
+                   else check_q_mm_variants(f"q_mm case {name}"))
         lines.append(f"{name} {tuple(xq.shape)}x{tuple(wt.shape)} G {g}: "
-                     f"max_abs_err {worst[name]:.3g}")
+                     f"max_abs_err {worst[name]:.3g} {variant}")
         if worst[name] != 0.0:
             raise AssertionError("q_mm disagrees with q_mm_plain (tol 0): "
                                  + lines[-1])
@@ -2454,9 +2594,11 @@ def phase_int8(conf: str, seed: int, tmp: str, bf16_forward) -> dict:
     AlexNet int8 through the engine at bucket 32; launches, answers
     against fused_kernels = 0, and times."""
     from cxxnet_tpu_torch.ops import KERNELS, reset_launches
+    from cxxnet_tpu_torch.ops.fused_quant import reset_q_mm_variants
     from cxxnet_tpu_torch.serve import InferenceEngine
     notes, t0 = {}, time.perf_counter()
     dev = torch.device("cuda")
+    reset_q_mm_variants()
     model = write_round(conf, seed, tmp, dev)
     qpath, rc, drift = quantize_round(conf, model, seed, tmp, "ibn",
                                       TRAIN_IMAGE)
@@ -2472,6 +2614,7 @@ def phase_int8(conf: str, seed: int, tmp: str, bf16_forward) -> dict:
                              f"for {forwards} forwards, want {per} each")
     if statz["version"] != "r0001-int8":
         raise AssertionError(f"int8 serve version {statz['version']}")
+    variants = check_q_mm_variants("int8 serve, Inception-BN")
     serve_cfg = dict(buckets=",".join(map(str, BUCKETS)),
                      max_batch=BUCKETS[-1])
     plain = InferenceEngine.from_checkpoint(
@@ -2486,13 +2629,15 @@ def phase_int8(conf: str, seed: int, tmp: str, bf16_forward) -> dict:
     del fp
     rel, top1, pmax, pmax_fp = _int8_vs_fp(got, want)
     notes["inception_bn"] = {"launches_q_mm": launches["q_mm"],
+                             "q_mm_variants": variants,
                              "forwards": forwards, "vs_plain": worst,
                              "int8_vs_fp32_rel_l2": rel, "top1_agree": top1,
                              "top_prob": (pmax, pmax_fp), "drift": drift}
     print(f"int8: Inception-BN served over HTTP by main.run "
           f"(serve_dtype=int8, version {statz['version']}) | q_mm "
           f"{launches['q_mm']} launches in {forwards} forwards ({per} each) "
-          f"| vs fused_kernels=0: max prob diff {worst:.3g} (atol "
+          f"| variants {variants} | vs fused_kernels=0: max prob diff "
+          f"{worst:.3g} (atol "
           f"{INT8_ROW_ATOL}) | int8 vs fp32 (random weights, not gated): "
           f"rel L2 {rel:.3g}, top-1 agree {top1:.3f}, mean top prob "
           f"{pmax:.3g} vs {pmax_fp:.3g}", flush=True)
@@ -2533,11 +2678,13 @@ def phase_int8(conf: str, seed: int, tmp: str, bf16_forward) -> dict:
     rows = np.random.RandomState(seed + 5).randn(
         b, 3 * 227 * 227).astype(np.float32)
     reset_launches()
+    reset_q_mm_variants()
     got = eng.predict_raw(rows)
     torch.cuda.synchronize()
     alaunch = {k.name: k.launches for k in KERNELS.values() if k.launches}
     if alaunch.get("q_mm") != Q_MM_PER_FORWARD["alexnet"]:
         raise AssertionError(f"AlexNet int8: launches {alaunch}")
+    avariants = check_q_mm_variants("int8 forward, AlexNet")
     plain = InferenceEngine.from_checkpoint(
         _serve_cfg(ALEXNET, ["fused_kernels=0"]), aq, dtype="int8", **kw)
     aworst = check_answers(plain, [(rows, 1, got)], INT8_ROW_ATOL)
@@ -2550,12 +2697,14 @@ def phase_int8(conf: str, seed: int, tmp: str, bf16_forward) -> dict:
     ams = time_forward(lambda: eng.net(data, compute_dtype=f32))
     ams_plain = time_forward(lambda: eng.net(data, compute_dtype=f32,
                                              fused=False))
-    notes["alexnet"] = {"launches": alaunch, "vs_plain": aworst,
+    notes["alexnet"] = {"launches": alaunch, "q_mm_variants": avariants,
+                        "vs_plain": aworst,
                         "int8_vs_fp32_rel_l2": arel, "top1_agree": atop1,
                         "top_prob": (apmax, apmax_fp), "drift": adrift, "forward_ms": ams,
                         "forward_plain_ms": ams_plain}
     print(f"int8: AlexNet quantized (exit {rc}: {adrift}) and run through "
-          f"the int8 engine at bucket {b} | launches {alaunch} | vs "
+          f"the int8 engine at bucket {b} | launches {alaunch} | variants "
+          f"{avariants} | vs "
           f"fused_kernels=0: max prob diff {aworst:.3g} | int8 vs fp32 (not "
           f"gated): rel L2 {arel:.3g}, top-1 agree {atop1:.3f}, mean top "
           f"prob {apmax:.3g} vs {apmax_fp:.3g} | forward "
@@ -2566,42 +2715,77 @@ def phase_int8(conf: str, seed: int, tmp: str, bf16_forward) -> dict:
     return notes
 
 
+#: operand bytes a cold timing rotates through: three times the L2
+COLD_BYTES = 150_000_000
+
+
+def time_cold(fn_of, copies: int) -> float:
+    """time_call of ``fn_of(i)`` with i rotating through ``copies``
+    operand copies, so that each call finds its operand out of L2 (as a
+    served forward finds fc6's weight: the other layers come between)."""
+    i = [0]
+
+    def call():
+        i[0] += 1
+        return fn_of(i[0] % copies)
+    return time_call(call)
+
+
 def phase_int8_times(gen: torch.Generator) -> dict:
     """q_mm at each path shape (bias, relu for the convs and fc6/fc7)
-    beside its bound, q_mm_plain and torch._int_mm (cuBLASLt) with the
-    same epilogue in PyTorch, where its shape rules hold (M > 16, K and N
-    multiples of 8, one group)."""
+    beside its bound (at the unpadded K), q_mm_plain and torch._int_mm
+    (cuBLASLt) with the same epilogue in PyTorch, where its shape rules
+    hold (M > 16, N a multiple of 8, one group; K padded to a multiple
+    of 8 outside the timed call). The fc cases also cold: over a
+    rotation of weight copies past the 50 MB L2, the kernel and the
+    library alike."""
     from cxxnet_tpu_torch.ops.fused_quant import q_mm, q_mm_plain
     rows = {}
     for name in Q_MM_CASES:
-        if name in ("odd", "K4096 +-127"):
+        if name in Q_MM_OFF_PATH:
             continue
+        m, k, n, g, _, _ = Q_MM_CASES[name]
         xq, wt, f, b, g = q_mm_case(gen, name)
         act = "none" if name.startswith("fc1") else "relu"
-        m, k, n = xq.shape[0], wt.shape[1], wt.shape[0] // g
-        lib_ms = None
-        if g == 1 and m > 16 and k % 8 == 0 and n % 8 == 0:
-            wkn = wt.t()
-
-            def lib():
-                y = torch._int_mm(xq, wkn).float() * f + b
-                return torch.relu(y) if act == "relu" else y
-            lib_ms = time_call(lib)
-        rows[name] = dict(
+        copies = max(2, -(-COLD_BYTES // wt.numel())) \
+            if name.startswith("fc") else 0
+        wts = [wt] + [wt.clone() for _ in range(copies - 1)]
+        r = dict(
             ms=time_call(lambda: q_mm(xq, wt, f, b, act, g)),
+            ms_cold=time_cold(lambda i: q_mm(xq, wts[i], f, b, act, g),
+                              copies) if copies else None,
             plain_ms=time_call(lambda: q_mm_plain(xq, wt, f, b, act, g)),
-            library_ms=lib_ms,
+            library_ms=None, library_cold_ms=None,
             bound=bound_ms(m * g * k + g * n * k + m * g * n * 4 + 2 * g * n * 4,
                            2 * m * n * k * g, INT8_OPS),
-            shape=f"{name} M {m} K {k} N {n} G {g} {act}")
-        del xq, wt
-    torch.cuda.empty_cache()
+            shape=f"{name} M {m} K {k} (rows of {wt.shape[1]}) N {n} G {g} "
+                  f"{act}")
+        if g == 1 and m > 16 and n % 8 == 0:
+            k8 = -(-k // 8) * 8
+            xl = xq[:, :k8].contiguous()
+            wkn = [w[:, :k8].contiguous().t() for w in wts]
+
+            def lib(i):
+                y = torch._int_mm(xl, wkn[i]).float() * f + b
+                return torch.relu(y) if act == "relu" else y
+            r["library_ms"] = time_call(lambda: lib(0))
+            if copies:
+                r["library_cold_ms"] = time_cold(lib, copies)
+            del wkn
+        rows[name] = r
+        del xq, wt, wts
+        torch.cuda.empty_cache()
+    us = lambda v: "n/a" if v is None else f"{v * 1e3:.2f} us"
     print("times (int8): " + " | ".join(
-        f"q_mm {r['shape']}: {r['ms'] * 1e3:.2f} us, bound "
-        f"{r['bound'][0] * 1e3:.2f} us ({r['bound'][1]}), plain "
-        f"{r['plain_ms'] * 1e3:.2f} us, torch._int_mm + epilogue "
-        + (f"{r['library_ms'] * 1e3:.2f} us" if r["library_ms"] is not None
-           else "n/a") for r in rows.values()), flush=True)
+        f"q_mm {r['shape']}: {us(r['ms'])}"
+        + (f" warm, {us(r['ms_cold'])} cold" if r["ms_cold"] else "")
+        + f", bound {r['bound'][0] * 1e3:.2f} us ({r['bound'][1]}), plain "
+        f"{us(r['plain_ms'])}, torch._int_mm + epilogue {us(r['library_ms'])}"
+        + (f" warm, {us(r['library_cold_ms'])} cold"
+           if r["library_cold_ms"] else "")
+        + (f" (PERF.md before: {PERF_BEFORE_MS['q_mm ' + name]})"
+           if "q_mm " + name in PERF_BEFORE_MS else "")
+        for name, r in rows.items()), flush=True)
     return {"kernels": {"q_mm": rows[Q_MM_PATH]}, "all": rows}
 
 

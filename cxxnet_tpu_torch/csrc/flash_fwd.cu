@@ -8,27 +8,44 @@
 //   s_ij = scale * q_i . k_j;  m_i = max_j s_ij;  l_i = sum_j exp(s_ij - m_i)
 //   o_i = sum_j exp(s_ij - m_i) v_j / max(l_i, 1e-30)    (in the input type)
 //   lse_i = m_i + log(max(l_i, 1e-30))                     (f32)
-// with the TPU kernel's running max starting at -1e30 and masked logits
-// set to -1e30, so a row with no key gives zeros. Unlike the TPU kernel,
-// any S works (the ragged last tile is masked) and the tiles are this
-// card's, not the config's attn_block.
+// with the TPU kernel's running max starting at -1e30, so a row with no
+// key gives zeros. Unlike the TPU kernel, any S works (the ragged last
+// tile is masked) and the tiles are this card's, not the config's
+// attn_block.
 //
-// Bound on the H100: the long-context LM's call (B 8, S 2048, H 8, D 16,
-// bf16, causal) does 4 * B * H * S^2 * D / 2 = 8.6 GFLOP of products over
-// the causal half: 8.7 us at the bf16 tensor-core rate (989 TFLOP/s), the
-// bound of the function; 0.13 ms on the f32 CUDA cores (67 TFLOP/s) where
-// this kernel computes. Its bytes (4 MB) take 1.3 us.
+// Bound on the H100, at the long-context LM's call (B 8, S 2048, H 8,
+// D 16, bf16, causal): the products are 4 * B * H * S^2 * D / 2 = 8.6
+// GFLOP, 8.7 us at the bf16 tensor-core rate (989 TFLOP/s); the
+// B * H * S (S + 1) / 2 = 134 M exponentials take 32 us at the SFU's 16
+// a clock per SM (132 SMs, 1.98 GHz); the bytes (4 MB) 1.3 us. At D = 16
+// the exponentials bound it.
 //
-// Design (flash.cuh has the thread layout): the TPU grid's sequential
-// k-block axis becomes a loop inside the CTA. A CTA owns 64 query rows of
-// one (batch, head) and walks the key tiles up to the diagonal: each tile
-// of K and V is staged in shared memory as f32, each thread computes its
-// row's logits for the whole tile into registers, takes the tile's max,
-// rescales its accumulator once, and adds exp(s - m) v_j. The running max,
-// sum and the 16-feature accumulator stay in registers. Tiles wholly
-// above the diagonal are not visited. No tensor cores yet: a simple kernel
-// that is right first.
+// bf16 and f16 inputs (flash_fwd_tc): a CTA of 4 warps owns 64 query rows
+// of one (batch, head), a warp 16 of them, and walks the key tiles of 64
+// up to the diagonal (the TPU grid's sequential k-block axis as a loop).
+// K and V tiles stay in the input type in shared memory, in a ring of
+// three stages: the next two tiles' 16-byte cp.async copies are in flight
+// while the current one is computed, one barrier a tile; the copies
+// zero-fill the ragged last tile and the features past D. S = Q K^T runs on the tensor cores (mma.sync m16n8k16,
+// f32 accumulators; Q's fragments loaded once from global memory, K's by
+// ldmatrix). The online softmax works on the accumulator fragments: a
+// row's max and sum take two shuffles within its quad, scale * log2(e) is
+// folded into one FFMA per score and exp2 is the SFU's ex2.approx; masks
+// are applied only on the tile that crosses the ragged key edge or the
+// warp's diagonal. P stays in registers as the A operand of P V (V by
+// ldmatrix.trans), split into a hi and a lo part in the input type so the
+// product sees P to about 2^-16 (the plain version keeps P in f32), at the
+// cost of a second product, small next to the exponentials at D = 16.
+// The longest causal query blocks are scheduled first. The output tile is
+// staged in shared memory and stored in 16-byte vectors; lse in natural
+// log.
+//
+// f32 inputs (flash_fwd_kernel): the CUDA-core kernel; flash.cuh has its
+// thread layout. A row is held by DMAX / 16 threads; each tile of K and V
+// is staged as f32, each thread computes its row's logits for the whole
+// tile, takes the tile's max, rescales once and adds exp(s - m) v_j.
 #include "flash.cuh"
+#include "mma.cuh"
 
 using namespace flash;
 
@@ -96,20 +113,364 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+namespace tc {
+
+constexpr int kQRows = 64;               // query rows a CTA owns
+constexpr int kWarps = kQRows / 16;      // a warp owns 16 of them
+constexpr int kThreads = kWarps * 32;
+constexpr int kBK = 64;                  // keys per tile
+constexpr int kNJ = kBK / 8;             // n8 blocks of a tile's S
+constexpr int kStages = 3;               // K/V tiles in flight or in use
+constexpr float kLn2 = 0.693147180559945309f;
+
+// elements per staged row: D's bucket plus 16 bytes, so the 8 rows of an
+// ldmatrix phase fall in 8 different 16-byte bank groups
+template <int DMAX> __host__ __device__ constexpr int pitch() {
+  return DMAX + 8;
+}
+// kStages stages of a K and a V tile
+template <int DMAX> __host__ __device__ constexpr int smem_bytes() {
+  return kStages * 2 * kBK * pitch<DMAX>() * 2;
+}
+
+// (x0, x1) as a packed pair of T
+template <typename T> __device__ __forceinline__ unsigned pack2(float x0,
+                                                               float x1);
+template <> __device__ __forceinline__ unsigned pack2<__nv_bfloat16>(
+    float x0, float x1) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  return *reinterpret_cast<unsigned*>(&h);
+}
+template <> __device__ __forceinline__ unsigned pack2<__half>(float x0,
+                                                             float x1) {
+  __half2 h = __floats2half2_rn(x0, x1);
+  return *reinterpret_cast<unsigned*>(&h);
+}
+
+// the pair (x0, x1) of probabilities in [0, 1] as hi + lo, two packed
+// pairs of T whose sum is x to about 2^-16 relative. bf16: hi truncates
+// x to its top 16 bits (a byte permute), lo is the exact remainder
+// truncated the same way; f16 rounds both parts.
+template <typename T> __device__ __forceinline__ void split2(
+    float x0, float x1, unsigned& hi, unsigned& lo);
+template <> __device__ __forceinline__ void split2<__nv_bfloat16>(
+    float x0, float x1, unsigned& hi, unsigned& lo) {
+  const unsigned u0 = __float_as_uint(x0), u1 = __float_as_uint(x1);
+  hi = __byte_perm(u0, u1, 0x7632);
+  const float r0 = x0 - __uint_as_float(u0 & 0xffff0000u);
+  const float r1 = x1 - __uint_as_float(u1 & 0xffff0000u);
+  lo = __byte_perm(__float_as_uint(r0), __float_as_uint(r1), 0x7632);
+}
+template <> __device__ __forceinline__ void split2<__half>(
+    float x0, float x1, unsigned& hi, unsigned& lo) {
+  const __half2 h = __floats2half2_rn(x0, x1);
+  const float2 hf = __half22float2(h);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = pack2<__half>(x0 - hf.x, x1 - hf.y);
+}
+
+// copy keys [k0, k0 + kBK) of a (B, S, H, D) tensor's (b, h) slice into
+// a staged tile, zeros past S and past D: 16-byte copies (VEC: D % 8 == 0
+// and 16-byte aligned bases) or 4-byte ones
+template <typename T, int DMAX, bool VEC>
+__device__ __forceinline__ void load_tile(T* dst, const T* base, int64_t rs,
+                                          int k0, int Sk, int D) {
+  constexpr int P = pitch<DMAX>();
+  constexpr int UNIT = VEC ? 8 : 2;            // elements per copy
+  constexpr int UPR = DMAX / UNIT;             // copies per row
+  constexpr int N = kBK * UPR;
+#pragma unroll 8
+  for (int i = 0; i < (N + kThreads - 1) / kThreads; ++i) {
+    const int c = threadIdx.x + i * kThreads;
+    if (N % kThreads && c >= N) break;
+    const int r = c / UPR, d = (c % UPR) * UNIT;
+    const bool ok = k0 + r < Sk && d < D;
+    const T* src = ok ? base + (int64_t)(k0 + r) * rs + d : base;
+    if (VEC)
+      ptx::cp_async16(dst + r * P + d, src, ok);
+    else
+      ptx::cp_async4(dst + r * P + d, src, ok);
+  }
+}
+
+template <typename T, int DMAX, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_tc(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, T* __restrict__ o,
+             float* __restrict__ lse, int Sq, int Sk, int H, int D,
+             float scale_log2, int causal) {
+  constexpr int P = pitch<DMAX>(), TILE = kBK * P;
+  constexpr int KD = DMAX / 16;   // k16 steps of Q K^T
+  constexpr int NO = DMAX / 8;    // n8 blocks of the output
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);   // stage s: K, then V
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kQRows;  // longest first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int qw = q0 + warp * 16;   // the warp's first row
+  const int64_t rs = (int64_t)H * D;
+  const int64_t base = (int64_t)h * D;
+  const T* kb = k + (int64_t)b * Sk * rs + base;
+  const T* vb = v + (int64_t)b * Sk * rs + base;
+  const int64_t qo = (int64_t)b * Sq * rs + base;   // row 0 of q and o
+
+  // causal: key tiles starting past the CTA's last query row are skipped
+  const int k_end = causal ? min(Sk, q0 + kQRows) : Sk;
+  const int ntiles = (k_end + kBK - 1) / kBK;
+  // tile t goes to stage t % kStages; tiles 0 .. kStages - 2 up front
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < ntiles) {
+      load_tile<T, DMAX, VEC>(sm + t * 2 * TILE, kb, rs, t * kBK, Sk, D);
+      load_tile<T, DMAX, VEC>(sm + t * 2 * TILE + TILE, vb, rs, t * kBK, Sk,
+                              D);
+    }
+    ptx::cp_async_commit();
+  }
+
+  // Q's A fragments, once: a[r] holds row gid + 8 (r & 1), features
+  // 2 tig + 8 (r >> 1) and the next
+  unsigned qf[KD][4];
+#pragma unroll
+  for (int kd = 0; kd < KD; ++kd)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = qw + gid + (r & 1) * 8;
+      const int col = kd * 16 + tig * 2 + (r >> 1) * 8;
+      qf[kd][r] = (row < Sq && col < D)
+          ? __ldg(reinterpret_cast<const unsigned*>(q + qo + row * rs + col))
+          : 0u;
+    }
+
+  float oacc[NO][4];
+#pragma unroll
+  for (int nb = 0; nb < NO; ++nb)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) oacc[nb][r] = 0.f;
+  // rows gid (0) and gid + 8 (1): running max (log2 units), and this
+  // thread's share of the running sum
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < ntiles; ++t) {
+    ptx::cp_async_wait<kStages - 2>();   // tile t has landed for this thread
+    // ... and for every thread; and every warp is done with tile t - 1,
+    // whose stage tile t + kStages - 1 takes
+    __syncthreads();
+    if (t + kStages - 1 < ntiles) {
+      const int tn = t + kStages - 1;
+      T* nxt = sm + (tn % kStages) * 2 * TILE;
+      load_tile<T, DMAX, VEC>(nxt, kb, rs, tn * kBK, Sk, D);
+      load_tile<T, DMAX, VEC>(nxt + TILE, vb, rs, tn * kBK, Sk, D);
+    }
+    ptx::cp_async_commit();
+    const T* ks = sm + (t % kStages) * 2 * TILE;
+    const T* vs = ks + TILE;
+    const int k0 = t * kBK;
+
+    // S = Q K^T: kNJ n8 blocks of keys
+    float s[kNJ][4];
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) s[j][r] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd)
+#pragma unroll
+      for (int jn = 0; jn < kNJ / 2; ++jn) {
+        unsigned bf[4];
+        ptx::ldmatrix_x4(bf, ks + (jn * 16 + (lane >> 4) * 8 + (lane & 7)) * P
+                                 + kd * 16 + ((lane >> 3) & 1) * 8);
+        ptx::mma_16816<T>(s[2 * jn], qf[kd], bf[0], bf[1]);
+        ptx::mma_16816<T>(s[2 * jn + 1], qf[kd], bf[2], bf[3]);
+      }
+    // masks where the tile crosses the ragged key edge or, causal, the
+    // warp's diagonal; a masked logit is -inf, so its exp2 is 0
+    if (k0 + kBK > Sk || (causal && k0 + kBK - 1 > qw)) {
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int key = k0 + j * 8 + tig * 2 + (r & 1);
+          const int row = qw + gid + (r >> 1) * 8;
+          if (key >= Sk || (causal && key > row)) s[j][r] = -INFINITY;
+        }
+    }
+
+    // online softmax on the fragments
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+    float neg_m[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float mn = fmaxf(m[i], mx[i] * scale_log2);
+      const float corr = ptx::ex2(m[i] - mn);
+      m[i] = mn;
+      neg_m[i] = -mn;
+      l[i] *= corr;
+#pragma unroll
+      for (int nb = 0; nb < NO; ++nb) {
+        oacc[nb][2 * i] *= corr;
+        oacc[nb][2 * i + 1] *= corr;
+      }
+    }
+
+    // P V, 16 keys at a time: P's A fragments from the S accumulators of
+    // key blocks 2 kc and 2 kc + 1, in a hi and a lo part
+#pragma unroll
+    for (int kc = 0; kc < kNJ / 2; ++kc) {
+      float p[2][4];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          p[jj][r] = ptx::ex2(fmaf(s[2 * kc + jj][r], scale_log2,
+                                   neg_m[r >> 1]));
+          l[r >> 1] += p[jj][r];
+        }
+      unsigned ahi[4], alo[4];
+      split2<T>(p[0][0], p[0][1], ahi[0], alo[0]);   // row gid
+      split2<T>(p[0][2], p[0][3], ahi[1], alo[1]);   // row gid + 8
+      split2<T>(p[1][0], p[1][1], ahi[2], alo[2]);   // keys + 8
+      split2<T>(p[1][2], p[1][3], ahi[3], alo[3]);
+#pragma unroll
+      for (int nd = 0; nd < NO / 2; ++nd) {
+        unsigned vf[4];
+        ptx::ldmatrix_x4_trans(
+            vf, vs + (kc * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * P
+                    + nd * 16 + (lane >> 4) * 8);
+        ptx::mma_16816<T>(oacc[2 * nd], ahi, vf[0], vf[1]);
+        ptx::mma_16816<T>(oacc[2 * nd], alo, vf[0], vf[1]);
+        ptx::mma_16816<T>(oacc[2 * nd + 1], ahi, vf[2], vf[3]);
+        ptx::mma_16816<T>(oacc[2 * nd + 1], alo, vf[2], vf[3]);
+      }
+    }
+  }
+
+  float lf[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    lf[i] = fmaxf(l[i], 1e-30f);
+    const int row = qw + gid + i * 8;
+    if (tig == 0 && row < Sq)
+      lse[(int64_t)bh * Sq + row] =
+          (m[i] == kNeg ? kNeg : m[i] * kLn2) + logf(lf[i]);
+  }
+#pragma unroll
+  for (int nb = 0; nb < NO; ++nb)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) oacc[nb][r] = oacc[nb][r] / lf[r >> 1];
+
+  if (VEC) {
+    // the warp's 16 rows through shared memory (a stage no warp reads
+    // any more: the last tile's is (ntiles - 1) % kStages), then 16-byte
+    // stores
+    T* so = sm + (ntiles % kStages) * 2 * TILE + warp * 16 * P;
+#pragma unroll
+    for (int nb = 0; nb < NO; ++nb)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        *reinterpret_cast<unsigned*>(so + (gid + i * 8) * P + nb * 8 +
+                                     tig * 2) =
+            pack2<T>(oacc[nb][2 * i], oacc[nb][2 * i + 1]);
+    __syncwarp();
+    constexpr int CPR = DMAX / 8;
+    for (int c = lane; c < 16 * CPR; c += 32) {
+      const int r = c / CPR, d = (c % CPR) * 8, row = qw + r;
+      if (row < Sq && d < D)
+        *reinterpret_cast<uint4*>(o + qo + row * rs + d) =
+            *reinterpret_cast<const uint4*>(so + r * P + d);
+    }
+  } else {
+#pragma unroll
+    for (int nb = 0; nb < NO; ++nb)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = qw + gid + i * 8, col = nb * 8 + tig * 2;
+        if (row < Sq && col < D)
+          *reinterpret_cast<unsigned*>(o + qo + row * rs + col) =
+              pack2<T>(oacc[nb][2 * i], oacc[nb][2 * i + 1]);
+      }
+  }
+}
+
+template <typename T, int DMAX, bool VEC>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Sk, int H, int D, float scale, int causal,
+           cudaStream_t st) {
+  constexpr int bytes = smem_bytes<DMAX>();
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_tc<T, DMAX, VEC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid(B * H, (Sq + kQRows - 1) / kQRows);
+  const float scale_log2 = (float)((double)scale * 1.4426950408889634);
+  flash_fwd_tc<T, DMAX, VEC><<<grid, kThreads, bytes, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Sq, Sk, H, D,
+      scale_log2, causal);
+  return (int)cudaGetLastError();
+}
+
+// 16-byte copies and stores when D % 8 == 0 and every base is 16-byte
+// aligned; 4-byte ones otherwise (D is even)
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* lse, int B, int Sq, int Sk, int H, int D, float scale,
+             int causal, cudaStream_t st) {
+  const uintptr_t any = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
+                        (uintptr_t)o;
+  if (any % 4) return (int)cudaErrorMisalignedAddress;
+  const bool vec = D % 8 == 0 && any % 16 == 0;
+  if (vec) {
+    FLASH_DMAX(D, return launch<T, DMAX, true>(q, k, v, o, lse, B, Sq, Sk,
+                                                H, D, scale, causal, st))
+  } else {
+    FLASH_DMAX(D, return launch<T, DMAX, false>(q, k, v, o, lse, B, Sq, Sk,
+                                                 H, D, scale, causal, st))
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace tc
+
 // q (B, Sq, H, D), k and v (B, Sk, H, D), o like q, all of one dtype
-// (code of common.cuh), contiguous; lse (B, H, Sq) f32. Returns a
-// cudaError_t (0 = launched).
+// (code of common.cuh), contiguous; lse (B, H, Sq) f32. bf16 and f16 run
+// on the tensor cores, f32 on the CUDA cores. Returns a cudaError_t (0 =
+// launched).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          float* lse, int B, int Sq, int Sk, int H, int D,
                          float scale, int causal, int dtype, void* stream) {
   if (!flash_args_ok(B, Sq, Sk, H, D)) return (int)cudaErrorInvalidValue;
-  const dim3 grid(B * H, (Sq + kRows - 1) / kRows);
   cudaStream_t st = (cudaStream_t)stream;
-  FLASH_DISPATCH(dtype, D,
-      flash_fwd_kernel<T, DMAX><<<grid, kRows * (DMAX / kSlice), 0, st>>>(
-          (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Sq, Sk, H, D,
-          scale, causal))
-  return (int)cudaGetLastError();
+  switch (dtype) {
+    case kBF16:
+      return tc::dispatch<__nv_bfloat16>(q, k, v, o, lse, B, Sq, Sk, H, D,
+                                         scale, causal, st);
+    case kF16:
+      return tc::dispatch<__half>(q, k, v, o, lse, B, Sq, Sk, H, D, scale,
+                                  causal, st);
+    case kF32: {
+      typedef float T;
+      const dim3 grid(B * H, (Sq + kRows - 1) / kRows);
+      FLASH_DMAX(D,
+          flash_fwd_kernel<T, DMAX><<<grid, kRows * (DMAX / kSlice), 0, st>>>(
+              (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Sq, Sk, H,
+              D, scale, causal))
+      return (int)cudaGetLastError();
+    }
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* flash_fwd_error_string(int err) {

@@ -21,7 +21,10 @@ The port of ``cxxnet_tpu/ops/attention.py``. Every function takes
 
 The kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) read and write
 (B, S, H, D) through its strides: the transposes to (B * H, S, D) around
-the TPU kernels are not made. Their tiles are the card's; the config's
+the TPU kernels are not made. The forward runs bf16 and f16 on the
+tensor cores (its P V product takes P as a hi and a lo part, so it sees
+P at about f32 accuracy, as the plain version does), f32 on the CUDA
+cores; the backward kernels run on the CUDA cores. Their tiles are the card's; the config's
 ``attn_block`` only picks the dispatch in the ``mha`` layer. Any S works
 (the TPU kernel needed S divisible by its blocks), and every even head
 width up to 128.

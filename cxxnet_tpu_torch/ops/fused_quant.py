@@ -30,25 +30,116 @@ PyTorch ops, as the JAX package computes them outside its kernel.
 
 Unlike the TPU kernel, whose int8 tiling took K and N in multiples of
 128 and rows in multiples of 32, the Hopper kernel takes every shape.
-A CUDA tensor goes to the kernel or raises; the plain version runs on
-the CPU and under ``fused_kernels = 0``.
+Its tiles and its split of K are chosen here (:func:`q_mm_plan`); its
+fast variant wants rows of a multiple of 16 bytes, so the conv pads K to
+a multiple of 16 with zero columns in the im2col and in its laid-out
+weight (:func:`padded_k`), which leaves every exact sum as it is. The
+round's stored weight stays unpadded. A CUDA tensor goes to the kernel
+or raises; the plain version runs on the CPU and under ``fused_kernels
+= 0``.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
-from typing import Optional, Tuple
+import threading
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .fused import Kernel, register, stream_handle
 
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 Q_MM = register(Kernel(
     "q_mm", "q_mm.cu", replaces="cxxnet_tpu/ops/fused_quant.py:68",
-    argtypes=[ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]))
+    argtypes=[_P] * 5 + [_I] * 4 + [_L, _L] + [_I] * 5 + [_P] * 3))
+
+#: the kernel's row tiles (BM, BK bytes of K a step), csrc/q_mm.cu's T16
+#: to T128: the smallest BM that holds M is taken
+Q_MM_TILES = ((16, 128), (32, 128), (64, 64), (128, 64))
+#: its column tile
+Q_MM_BN = 64
+#: the fewest K steps a split of K takes
+Q_MM_MIN_STEPS = 2
+#: CTAs per SM that a split of K aims at
+Q_MM_CTAS_PER_SM = 2
+#: the most splits of K: the last CTA of a tile reads the others'
+#: partials
+Q_MM_MAX_SPLITS = 8
+#: variant of each launch since :func:`reset_q_mm_variants`, by name:
+#: "pipelined" (16-byte copy ring) or "odd" (4-byte gathers), the row
+#: tile and the split, e.g. "pipelined bm32 x5"
+Q_MM_VARIANTS: collections.Counter = collections.Counter()
+_lock = threading.Lock()
+
+
+class QmmPlan(NamedTuple):
+    """One launch's tiling: row tile ``bm``, K step ``bk``, ``splits``
+    CTAs over K per output tile taking ``kps`` steps each (the last
+    fewer), ``tiles`` output tiles."""
+    bm: int
+    bk: int
+    splits: int
+    kps: int
+    tiles: int
+
+
+def q_mm_plan(m: int, k: int, n: int, groups: int = 1,
+              sms: int = 132) -> QmmPlan:
+    """The tiling of an (M, K) x (K, N) product per group on a card of
+    ``sms`` SMs: the smallest row tile of :data:`Q_MM_TILES` that holds M
+    (the largest past 128 rows); where the output tiles do not fill the
+    SMs, K split so that at least :data:`Q_MM_CTAS_PER_SM` CTAs run per
+    SM where K has the steps, each split :data:`Q_MM_MIN_STEPS` steps
+    long or more, at most :data:`Q_MM_MAX_SPLITS` splits, the last one
+    shorter where the steps do not divide."""
+    bm, bk = next((t for t in Q_MM_TILES if m <= t[0]), Q_MM_TILES[-1])
+    tiles = -(-max(m, 1) // bm) * -(-n // Q_MM_BN) * groups
+    steps = -(-k // bk)
+    kps = steps
+    if tiles < sms:
+        want = -(-Q_MM_CTAS_PER_SM * sms // tiles)
+        kps = max(Q_MM_MIN_STEPS, steps // want,
+                  -(-steps // Q_MM_MAX_SPLITS))
+    return QmmPlan(bm, bk, -(-steps // kps), kps, tiles)
+
+
+def reset_q_mm_variants() -> None:
+    with _lock:
+        Q_MM_VARIANTS.clear()
+
+
+def padded_k(k: int) -> int:
+    """K rounded up to a multiple of 16: the conv's operand rows are
+    then multiples of 16 bytes."""
+    return -(-k // 16) * 16
+
+
+_ws: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+_sms: Dict[torch.device, int] = {}
+
+
+def _split_buffers(dev: torch.device, ints: int, tiles: int):
+    """The split's int32 workspace (at least ``ints``) and per-tile
+    arrival counters (at least ``tiles``, zero: each launch leaves them
+    zero), cached per device; launches on a device are ordered by its
+    stream."""
+    with _lock:
+        ws, cnt = _ws.get(dev, (None, None))
+        if ws is None or ws.numel() < ints:
+            ws = torch.empty(ints, dtype=torch.int32, device=dev)
+        if cnt is None or cnt.numel() < tiles:
+            cnt = torch.zeros(max(tiles, 256), dtype=torch.int32, device=dev)
+        _ws[dev] = (ws, cnt)
+        return ws, cnt
+
+
+def _sm_count(dev: torch.device) -> int:
+    if dev not in _sms:
+        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _sms[dev]
 
 
 def quantize_act(x: torch.Tensor, act_scale: torch.Tensor) -> torch.Tensor:
@@ -77,8 +168,13 @@ def fullc_weight_for_kernel(wq: torch.Tensor) -> torch.Tensor:
 
 def conv_weight_for_kernel(wq: torch.Tensor) -> torch.Tensor:
     """An int8 conv ``wmat`` OIHW (cout, cin/G, kh, kw) as the product
-    reads it: (cout, kh*kw*cin/G), K in (kh, kw, cin) order."""
-    return wq.permute(0, 2, 3, 1).reshape(wq.shape[0], -1).contiguous()
+    reads it: (cout, padded_k(kh*kw*cin/G)), K in (kh, kw, cin) order,
+    then zero columns. A copy: the round keeps ``wq`` as it is."""
+    w = wq.permute(0, 2, 3, 1).reshape(wq.shape[0], -1)
+    k = w.shape[1]
+    out = wq.new_zeros((wq.shape[0], padded_k(k)))
+    out[:, :k] = w
+    return out
 
 
 def _check(xq, wt, factor, bias, act, groups) -> Tuple[int, int, int]:
@@ -91,6 +187,8 @@ def _check(xq, wt, factor, bias, act, groups) -> Tuple[int, int, int]:
         raise ValueError(f"q_mm: need xq (M, G*K), wt (G*N, K), G >= 1; "
                          f"got {tuple(xq.shape)}, {tuple(wt.shape)}, "
                          f"G {groups}")
+    if wt.shape[1] == 0:
+        raise ValueError("q_mm: K is 0")
     k = wt.shape[1]
     if xq.shape[1] != groups * k or wt.shape[0] % groups:
         raise ValueError(f"q_mm: xq {tuple(xq.shape)} and wt "
@@ -127,9 +225,10 @@ def q_mm(xq: torch.Tensor, wt: torch.Tensor, factor: torch.Tensor,
          bias: Optional[torch.Tensor], act: str = "none",
          groups: int = 1) -> torch.Tensor:
     """The product with its fused epilogue: on CUDA tensors the kernel
-    (every operand contiguous on one device, factor and bias float32),
-    on CPU tensors :func:`q_mm_plain`. Raises on what the kernel does
-    not take; never falls back."""
+    (one launch, tiled by :func:`q_mm_plan`; every operand contiguous on
+    one device, factor and bias float32), on CPU tensors
+    :func:`q_mm_plain`. Raises on what the kernel does not take; never
+    falls back."""
     m, k, n = _check(xq, wt, factor, bias, act, groups)
     if xq.device.type == "cpu":
         return q_mm_plain(xq, wt, factor, bias, act, groups)
@@ -144,12 +243,27 @@ def q_mm(xq: torch.Tensor, wt: torch.Tensor, factor: torch.Tensor,
                              f"{xq.device} (got {v.device})")
         if name in ("factor", "bias") and v.dtype != torch.float32:
             raise TypeError(f"q_mm: {name} must be float32, got {v.dtype}")
-    y = torch.empty((m, groups * n), dtype=torch.float32, device=xq.device)
-    with torch.cuda.device(xq.device):
+    dev = xq.device
+    plan = q_mm_plan(m, k, n, groups, _sm_count(dev))
+    # the copy ring wants rows of a multiple of 16 bytes (the conv pads K)
+    aligned = (k % 16 == 0 and xq.data_ptr() % 16 == 0
+               and wt.data_ptr() % 16 == 0)
+    y = torch.empty((m, groups * n), dtype=torch.float32, device=dev)
+    ws = cnt = None
+    if plan.splits > 1:
+        ws, cnt = _split_buffers(dev, plan.tiles * plan.splits * plan.bm
+                                 * Q_MM_BN, plan.tiles)
+    with torch.cuda.device(dev):
         Q_MM.launch(xq.data_ptr(), wt.data_ptr(), factor.data_ptr(),
                     None if bias is None else bias.data_ptr(), y.data_ptr(),
-                    m, k, n, groups, int(act == "relu"),
-                    stream_handle(xq.device))
+                    m, k, n, groups, groups * k, k, int(act == "relu"),
+                    plan.bm, plan.splits, plan.kps, int(aligned),
+                    None if ws is None else ws.data_ptr(),
+                    None if cnt is None else cnt.data_ptr(),
+                    stream_handle(dev))
+    with _lock:
+        Q_MM_VARIANTS[f"{'pipelined' if aligned else 'odd'} bm{plan.bm} "
+                      f"x{plan.splits}"] += 1
     return y
 
 
@@ -169,18 +283,31 @@ def int8_matmul(x: torch.Tensor, wt: torch.Tensor, w_scale: torch.Tensor,
 
 
 def im2col_int8(xq: torch.Tensor, kh: int, kw: int, stride: int,
-                padding: Tuple[int, int], groups: int) -> torch.Tensor:
-    """int8 NHWC (B, H, W, C) -> (B*OH*OW, G*kh*kw*C/G) patch rows, group
-    g's columns in (kh, kw, cin) order: zero padding, ``unfold`` views,
-    then one contiguous copy."""
+                padding: Tuple[int, int], groups: int,
+                kp: Optional[int] = None) -> torch.Tensor:
+    """int8 NHWC (B, H, W, C) -> (B*OH*OW, G*kp) patch rows: group g's
+    K = kh*kw*C/G columns in (kh, kw, cin) order at [g*kp, g*kp + K),
+    then zeros up to kp (default K, no zeros). Zero padding, ``unfold``
+    views, then one copy into the rows (and a fill of the zero
+    columns)."""
     b, _, _, c = xq.shape
     py, px = padding
     if py or px:
         xq = F.pad(xq, (0, 0, px, px, py, py))
     p = xq.unfold(1, kh, stride).unfold(2, kw, stride)  # B,OH,OW,C,kh,kw
     oh, ow = p.shape[1], p.shape[2]
-    p = p.reshape(b, oh, ow, groups, c // groups, kh, kw)
-    return p.permute(0, 1, 2, 3, 5, 6, 4).reshape(b * oh * ow, -1)
+    cg = c // groups
+    p = p.reshape(b, oh, ow, groups, cg, kh, kw).permute(0, 1, 2, 3, 5, 6, 4)
+    k = kh * kw * cg
+    kp = k if kp is None else kp
+    if kp == k:
+        return p.reshape(b * oh * ow, -1)
+    if kp < k:
+        raise ValueError(f"im2col_int8: row width {kp} < K {k}")
+    out = xq.new_empty((b * oh * ow, groups, kp))
+    out[..., k:].zero_()
+    out[..., :k].view(b, oh, ow, groups, kh, kw, cg).copy_(p)
+    return out.view(b * oh * ow, groups * kp)
 
 
 def int8_conv(x: torch.Tensor, wt: torch.Tensor, w_scale: torch.Tensor,
@@ -189,13 +316,17 @@ def int8_conv(x: torch.Tensor, wt: torch.Tensor, w_scale: torch.Tensor,
               stride: int = 1, padding: Tuple[int, int] = (0, 0),
               groups: int = 1, fused: bool = True) -> torch.Tensor:
     """Quantized convolution: f32 NHWC ``x`` against the int8 weight
-    ``wt`` (cout, kh*kw*cin/G) (:func:`conv_weight_for_kernel` of the
-    round's OIHW) with per-output-channel ``w_scale``; output NHWC
-    float32 after the fused epilogue, one product for all groups."""
+    ``wt`` (cout, kp) (:func:`conv_weight_for_kernel` of the round's
+    OIHW: K = kh*kw*cin/G columns, then zeros up to kp >= K) with
+    per-output-channel ``w_scale``; output NHWC float32 after the fused
+    epilogue, one product for all groups over rows padded to kp."""
     kh, kw = kernel
-    b, h, w, _ = x.shape
+    b, h, w, c = x.shape
+    k, kp = kh * kw * (c // groups), wt.shape[1]
+    if kp < k:
+        raise ValueError(f"int8_conv: weight rows of {kp} < K {k}")
     xq = quantize_act(x, act_scale)
-    cols = im2col_int8(xq, kh, kw, stride, padding, groups)
+    cols = im2col_int8(xq, kh, kw, stride, padding, groups, kp)
     factor = dequant_factor(w_scale, act_scale)
     fb = None if bias is None else bias.float()
     y = (q_mm if fused else q_mm_plain)(cols, wt, factor, fb, act, groups)

@@ -375,11 +375,12 @@ def _flash_ok(got, want, dtype):
                                    torch.float16], ids=str)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("B,S,H,D", [(2, 256, 2, 16), (1, 1000, 2, 64),
-                                     (1, 77, 3, 128), (2, 130, 1, 6)])
+                                     (1, 77, 3, 128), (2, 130, 1, 6),
+                                     (8, 2048, 8, 16)])
 def test_flash_kernels_match_plain(dev, dtype, causal, B, S, H, D):
     """Forward, dQ and dK/dV against their plain versions on the same
-    inputs, ragged S and a D that is not a multiple of 16 included; lse
-    within 1e-5 of max|lse|."""
+    inputs, ragged S, a D that is not a multiple of 16 and the
+    long-context LM's shape included; lse within 1e-5 of max|lse|."""
     q, k, v, g = (_randn((B, S, H, D), dtype, dev, seed=i) for i in range(4))
     scale = D ** -0.5
     out, lse = att.flash_fwd(q, k, v, causal, scale)
@@ -392,6 +393,21 @@ def test_flash_kernels_match_plain(dev, dtype, causal, B, S, H, D):
                      dtype)
     for a, b in zip(att.flash_bwd_dkv(*args), att.flash_bwd_dkv_plain(*args)):
         assert _flash_ok(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+@pytest.mark.parametrize("Sq,Sk,D", [(300, 1000, 64), (1000, 300, 16),
+                                     (65, 7, 10)])
+def test_flash_fwd_kernel_with_other_key_count_matches_plain(dev, dtype, Sq,
+                                                             Sk, D):
+    """Non-causal attention over more (or fewer) keys than queries."""
+    q = _randn((2, Sq, 3, D), dtype, dev, seed=1)
+    k, v = (_randn((2, Sk, 3, D), dtype, dev, seed=i) for i in (2, 3))
+    out, lse = att.flash_fwd(q, k, v, False, D ** -0.5)
+    out0, lse0 = att.flash_fwd_plain(q, k, v, False, D ** -0.5)
+    assert out.shape == q.shape and _flash_ok(out, out0, dtype)
+    assert float((lse - lse0).abs().max()) <= 1e-5 * float(lse0.abs().max())
 
 
 def test_flash_attention_launches_each_kernel_once_per_call(dev):
@@ -460,11 +476,16 @@ def _codes(shape, dev, seed, extreme=False):
     (300, 1200, 128, 2, False),     # AlexNet's grouped conv2
     (7, 13, 5, 1, False),
     (5, 4096, 3, 1, True),          # |acc| past 2^24
+    (1, 9216, 4096, 1, False),      # AlexNet's fc6, bucket 1
+    (96800, 368, 96, 1, False),     # AlexNet's conv1 as im2col, K padded
+    (8, 4112, 512, 1, False),       # K steps the split does not divide
+    (49, 1728, 384, 1, False),      # a 7x7 inception conv, bucket 1
+    (3, 363, 7, 1, False),          # K 363 unpadded: the 4-byte variant
 ])
 def test_q_mm_kernel_is_bit_equal_to_plain(dev, m, k, n, groups, extreme,
                                            with_bias, act):
-    """Equal: an exact int32 sum on both sides, then the same two f32
-    roundings of the epilogue."""
+    """Equal: an exact int32 sum on both sides (split over K or not),
+    then the same two f32 roundings of the epilogue."""
     xq = _codes((m, groups * k), dev, 1, extreme)
     wt = _codes((groups * n, k), dev, 2, extreme)
     f = _randn((groups * n,), torch.float32, dev, seed=3).abs() * 1e-3
@@ -476,22 +497,35 @@ def test_q_mm_kernel_is_bit_equal_to_plain(dev, m, k, n, groups, extreme,
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("padded", [False, True])
 @pytest.mark.parametrize("shape,cout,k,stride,pad,groups", [
     ((2, 227, 227, 3), 96, 11, 4, 0, 1), ((2, 27, 27, 96), 256, 5, 1, 2, 2),
-    ((3, 14, 14, 64), 96, 3, 1, 1, 1), ((1, 7, 9, 16), 8, 3, 2, 1, 2)])
+    ((3, 14, 14, 64), 96, 3, 1, 1, 1), ((1, 7, 9, 16), 8, 3, 2, 1, 2),
+    ((2, 224, 224, 3), 64, 7, 2, 3, 1)])
 def test_int8_conv_on_the_card_is_bit_equal_to_plain(dev, shape, cout, k,
-                                                     stride, pad, groups):
+                                                     stride, pad, groups,
+                                                     padded):
+    """One launch, equal to the plain product; with the weight's K padded
+    to a multiple of 16 (as conv_weight_for_kernel lays it out) the
+    launch takes the pipelined variant."""
     x = _randn(shape, torch.float32, dev)
     wt = _codes((cout, k * k * shape[3] // groups), dev, 5)
+    if padded:
+        kp = fq.padded_k(wt.shape[1])
+        wt = torch.cat([wt, wt.new_zeros((cout, kp - wt.shape[1]))], 1)
     ws = _randn((cout,), torch.float32, dev, seed=6).abs() * 1e-2
     a = torch.tensor(2.5, device=dev)
     b = _randn((cout,), torch.float32, dev, seed=7)
     kw = dict(kernel=(k, k), stride=stride, padding=(pad, pad), groups=groups)
     KERNELS["q_mm"].launches = 0
+    fq.reset_q_mm_variants()
     got = fq.int8_conv(x, wt, ws, a, b, "relu", fused=True, **kw)
     want = fq.int8_conv(x, wt, ws, a, b, "relu", fused=False, **kw)
     torch.cuda.synchronize()
     assert KERNELS["q_mm"].launches == 1
+    assert sum(fq.Q_MM_VARIANTS.values()) == 1
+    if padded:
+        assert all(v.startswith("pipelined") for v in fq.Q_MM_VARIANTS)
     assert torch.equal(got, want)
 
 

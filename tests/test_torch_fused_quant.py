@@ -101,6 +101,7 @@ def test_int8_matmul_matches_jax_where_the_pallas_kernel_refuses(
     ((2, 7, 7, 8), 4, 1, 1, 0, 1),       # 1x1
     ((2, 10, 10, 4), 8, 5, 1, 2, 2),     # AlexNet's conv2 geometry
     ((1, 5, 6, 4), 4, 3, 2, 1, 2),       # ragged, grouped
+    ((2, 23, 23, 3), 8, 7, 2, 3, 1),     # Inception-BN's conv1: K 147
 ])
 def test_int8_conv_matches_jax(shape, cout, k, stride, pad, groups, act):
     rs = np.random.RandomState(sum(shape) + cout + k)
