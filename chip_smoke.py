@@ -89,12 +89,15 @@ and prints no result:
             Adam step can move an element. The written round loads and
             gives finite log-probabilities; the LM step and each LM
             kernel are timed beside bound, plain version and library
-            call (``F.scaled_dot_product_attention`` forward and
-            backward, ``torch.optim.Adam(fused=True)``); a flash kernel's
-            bound is the largest of its bytes, its products at the bf16
-            tensor-core rate and its exponentials at the SFU's rate
-            (SFU_EXP_PER_S). The forward also timed non-causal and in
-            f16 at the path's shape.
+            call (``F.scaled_dot_product_attention`` forward; SDPA's
+            backward as one op in a CUDA graph, fed its own forward's
+            saved outputs, the faster of its flash and cuDNN ops, with
+            its autograd host loop printed beside it;
+            ``torch.optim.Adam(fused=True)``); a flash
+            kernel's bound is the largest of its bytes, its products at
+            the bf16 tensor-core rate and its exponentials at the SFU's
+            rate (SFU_EXP_PER_S). The three flash kernels also timed
+            non-causal and in f16 at the path's shape.
 
 8. convnets: full-width AlexNet (``examples/ImageNet/alexnet.conf``:
             batch 256, 3x227x227, bf16, SGD, dropout 0.5, LRN) and the
@@ -276,6 +279,8 @@ LM_STEPS = 4            # batches of 8: num_inst cut from 256 to 32
 #: has them (ms on the H100 at the path shapes), printed beside the new
 #: ones
 PERF_BEFORE_MS = {"flash_fwd": "0.8869 ms",
+                  "flash_bwd_dq": "0.7877 ms",
+                  "flash_bwd_dkv": "0.7659 ms",
                   "q_mm conv1 b32": "0.1640 ms",
                   "q_mm fc6 b32": "0.1918 ms warm"}
 TRAIN_BATCH = 128       # the flagship's batch_size
@@ -379,7 +384,9 @@ _KINDS = (("q_mm_kernel", "q_mm kernel"),
           ("flash_fwd_kernel", "flash fwd kernel"),
           ("flash_fwd_tc", "flash fwd kernel"),
           ("flash_bwd_dq_kernel", "flash dq kernel"),
+          ("flash_bwd_dq_tc", "flash dq kernel"),
           ("flash_bwd_dkv_kernel", "flash dkv kernel"),
+          ("flash_bwd_dkv_tc", "flash dkv kernel"),
           ("adam_apply_kernel", "adam kernel"), ("embedding", "embedding"),
           ("nvjet", "matmul"),
           ("lrn_fwd_kernel", "lrn kernel"), ("lrn_bwd_kernel", "lrn kernel"),
@@ -490,7 +497,7 @@ def phase_build():
 
 
 #: the sources whose every kernel's registers and spills phase 2 prints
-REPORT_PTXAS = ("flash_fwd.cu", "q_mm.cu")
+REPORT_PTXAS = ("flash_fwd.cu", "flash_bwd.cu", "q_mm.cu")
 
 
 def ptxas_functions(log: str):
@@ -501,7 +508,7 @@ def ptxas_functions(log: str):
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            k = re.search(r"(flash_fwd_tc|flash_fwd_kernel|q_mm_kernel)I(\w+)",
+            k = re.search(r"(flash_\w+?_(?:tc|kernel)|q_mm_kernel)I(\w+)",
                           m.group(1))
             if k is None:
                 name = m.group(1)
@@ -1936,9 +1943,14 @@ def phase_lm_times(tr, kern, plain, batches, gen) -> dict:
     delta = att.flash_delta(out, g)
     args = (q, k, v, g, lse, delta, causal, scale)
     qh, kh, vh, gh = (t.transpose(1, 2).contiguous() for t in (q, k, v, g))
+    # SDPA's backward as one op in a CUDA graph, fed its own forward's
+    # saved outputs, as the kernels are timed (its flash op and its cuDNN
+    # op, which F.scaled_dot_product_attention dispatches to on the H100);
+    # and through autograd in a host loop, printed beside them
+    sdpa_bwd = sdpa_backward_ms(qh, kh, vh, gh, causal, scale)
     qh, kh, vh = (t.requires_grad_(True) for t in (qh, kh, vh))
     oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
-    sdpa_bwd = time_loop(lambda: torch.autograd.grad(
+    sdpa_bwd_loop = time_loop(lambda: torch.autograd.grad(
         oh, (qh, kh, vh), gh, retain_graph=True))
     el, rows_ = B * S * H * D, B * H * S
     # the (query, key) pairs that count: the causal lower triangle with
@@ -1958,34 +1970,52 @@ def phase_lm_times(tr, kern, plain, batches, gen) -> dict:
         "flash_bwd_dq": dict(
             ms=time_call(lambda: att.flash_bwd_dq(*args)),
             plain_ms=time_loop(lambda: att.flash_bwd_dq_plain(*args)),
-            library_ms=sdpa_bwd,
+            library_ms=min(sdpa_bwd.values()),
             bound=flash_bound_ms(5 * el * 2 + 8 * rows_, 3 * 2 * pairs * D,
                                  pairs),
-            library="SDPA backward (dq, dk and dv together)"),
+            library="SDPA backward, the faster of its flash and cuDNN "
+                    "ops in a CUDA graph (dq, dk and dv together)"),
         "flash_bwd_dkv": dict(
             ms=time_call(lambda: att.flash_bwd_dkv(*args)),
             plain_ms=time_loop(lambda: att.flash_bwd_dkv_plain(*args)),
-            library_ms=sdpa_bwd,
+            library_ms=min(sdpa_bwd.values()),
             bound=flash_bound_ms(6 * el * 2 + 8 * rows_, 4 * 2 * pairs * D,
                                  pairs),
-            library="SDPA backward (dq, dk and dv together)"),
+            library="SDPA backward, the faster of its flash and cuDNN "
+                    "ops in a CUDA graph (dq, dk and dv together)"),
     }
     for r in rows.values():
         r["shape"] = (f"(B {B}, S {S}, H {H}, D {D}) {str(dt)[6:]} "
                       f"causal={int(causal)}")
-    # the forward where its exponentials double (no mask) and in f16:
-    # does its time track the exp count?
+    # the three kernels where the exponentials double (no mask) and in
+    # f16: do their times track the exp count?
     extra = {}
     for what, c, t in (("non-causal", False, dt),
                        ("f16", causal, torch.float16)):
-        qq, kk, vv = (x.to(t) for x in (q, k, v))
+        qq, kk, vv, gg = (x.to(t) for x in (q, k, v, g))
         pp = B * H * S * (S + 1) // 2 if c else B * H * S * S
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (qq, kk, vv))
-        extra[what] = dict(
-            ms=time_call(lambda: att.flash_fwd(qq, kk, vv, c, scale)),
-            library_ms=time_call(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=c)),
-            bound=flash_bound_ms(4 * el * 2 + 4 * rows_, 2 * 2 * pp * D, pp))
+        qt, kt, vt, gt = (x.transpose(1, 2).contiguous()
+                          for x in (qq, kk, vv, gg))
+        oo, ll = att.flash_fwd(qq, kk, vv, c, scale)
+        a2 = (qq, kk, vv, gg, ll, att.flash_delta(oo, gg), c, scale)
+        sdpa_b = sdpa_backward_ms(qt, kt, vt, gt, c, scale)
+        extra[what] = {
+            "flash_fwd": dict(
+                ms=time_call(lambda: att.flash_fwd(qq, kk, vv, c, scale)),
+                library_ms=time_call(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=c)),
+                bound=flash_bound_ms(4 * el * 2 + 4 * rows_, 2 * 2 * pp * D,
+                                     pp)),
+            "flash_bwd_dq": dict(
+                ms=time_call(lambda: att.flash_bwd_dq(*a2)),
+                library_ms=min(sdpa_b.values()),
+                bound=flash_bound_ms(5 * el * 2 + 8 * rows_, 3 * 2 * pp * D,
+                                     pp)),
+            "flash_bwd_dkv": dict(
+                ms=time_call(lambda: att.flash_bwd_dkv(*a2)),
+                library_ms=min(sdpa_b.values()),
+                bound=flash_bound_ms(6 * el * 2 + 8 * rows_, 4 * 2 * pp * D,
+                                     pp))}
 
     def adam_row(ws, what):
         gs = [torch.randn_like(w) for w in ws]
@@ -2024,17 +2054,46 @@ def phase_lm_times(tr, kern, plain, batches, gen) -> dict:
           f"{step_plain:.3f} ms (one batch of 8 x 2048 tokens from the host, "
           "CUDA events, median of 10) | "
           + " | ".join(line(k, r) for k, r in rows.items())
+          + " | SDPA backward ops in a CUDA graph: " + ", ".join(
+              f"{k} {v * 1e3:.2f} us" for k, v in sdpa_bwd.items())
+          + f"; through autograd, host loop: {sdpa_bwd_loop * 1e3:.2f} us"
           + " | " + line("adam_apply", ibn) + " | " + " | ".join(
-              f"flash_fwd {what}: {r['ms'] * 1e3:.2f} us, bound "
+              f"{k} {what}: {r['ms'] * 1e3:.2f} us, bound "
               f"{r['bound'][0] * 1e3:.2f} us ({r['bound'][-1]}), SDPA "
-              f"forward {r['library_ms'] * 1e3:.2f} us"
-              for what, r in extra.items()), flush=True)
+              f"{'forward' if k == 'flash_fwd' else 'backward'} "
+              f"{r['library_ms'] * 1e3:.2f} us"
+              for what, e in extra.items() for k, r in e.items()),
+          flush=True)
     return {"step_ms": step_ms, "step_plain_ms": step_plain,
             "kernels": rows, "adam_ibn": ibn, "profile": prof,
-            "flash_fwd_extra": {w: {"ms": r["ms"],
+            "sdpa_backward_ms": sdpa_bwd,
+            "sdpa_backward_host_loop_ms": sdpa_bwd_loop,
+            "flash_extra": {w: {k: {"ms": r["ms"],
                                     "library_ms": r["library_ms"],
                                     "bound_ms": r["bound"][0]}
-                                for w, r in extra.items()}}
+                                for k, r in e.items()}
+                            for w, e in extra.items()}}
+
+
+def sdpa_backward_ms(qh, kh, vh, gh, causal: bool, scale: float) -> dict:
+    """CUDA-graph time in ms of SDPA's backward as one op on (B, H, S, D)
+    tensors, fed the saved outputs of its own forward, through its flash
+    op and its cuDNN op (the library yardstick of the flash backward
+    kernels: dq, dk and dv in one call)."""
+    aten = torch.ops.aten
+    o, lse, cq, ck, mq, mk, seed, off = \
+        aten._scaled_dot_product_flash_attention(
+            qh, kh, vh, 0.0, causal, False, scale=scale)[:8]
+    flash = lambda: aten._scaled_dot_product_flash_attention_backward(
+        gh, qh, kh, vh, o, lse, cq, ck, mq, mk, 0.0, causal, seed, off,
+        scale=scale)
+    o2, lse2, cq2, ck2, mq2, mk2, seed2, off2 = \
+        aten._scaled_dot_product_cudnn_attention(
+            qh, kh, vh, None, True, 0.0, causal, False, scale=scale)[:8]
+    cudnn = lambda: aten._scaled_dot_product_cudnn_attention_backward(
+        gh, qh, kh, vh, o2, lse2, seed2, off2, None, cq2, ck2, mq2, mk2, 0.0,
+        causal, scale=scale)
+    return {"flash": time_call(flash), "cudnn": time_call(cudnn)}
 
 
 # -- phase 8 ------------------------------------------------------------------

@@ -1,20 +1,22 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// the thread layout, the row reduction across a row's threads, the causal
-// keep test and the dispatch over dtype and head width.
+// the operands' layout, the argument check and the dispatch over head
+// width, and the thread layout of the f32 kernels on the CUDA cores
+// (flash_tc.cuh has the bf16/f16 kernels' tensor-core tiles).
 //
 // Layout: q, k, v, o, dO, dq, dk, dv are (B, S, H, D) contiguous, read and
 // written through their strides (row stride H * D), so no transpose to
 // (B * H, S, D) is made around the kernels (the TPU wrapper makes one,
 // cxxnet_tpu/ops/attention.py:328-330). lse and delta are (B, H, Sq) f32.
 //
-// A CTA owns 64 rows (query rows, or key rows in the dK/dV kernel). A row
-// is held by DMAX / 16 neighbouring threads of one warp, each with 16 of
-// its DMAX features in registers; DMAX is D rounded up to 16, 32, 64 or
-// 128, the features past D are zeros. A dot product of two rows is 16 FMAs
-// per thread and a butterfly of shuffles over the row's threads, after
-// which every thread of the row holds it. The other operand's tile (keys
-// and values, or queries, dO, lse and delta) is staged in shared memory as
-// f32. All math is f32, as the TPU kernels' is after their astype(f32).
+// f32 kernels: a CTA owns 64 rows (query rows, or key rows in the dK/dV
+// kernel). A row is held by DMAX / 16 neighbouring threads of one warp,
+// each with 16 of its DMAX features in registers; DMAX is D rounded up to
+// 16, 32, 64 or 128, the features past D are zeros. A dot product of two
+// rows is 16 FMAs per thread and a butterfly of shuffles over the row's
+// threads, after which every thread of the row holds it. The other
+// operand's tile (keys and values, or queries, dO, lse and delta) is
+// staged in shared memory as f32. All math is f32, as the TPU kernels'
+// is after their astype(f32).
 #pragma once
 
 #include "common.cuh"
@@ -86,21 +88,13 @@ __device__ __forceinline__ void stage(float (*dst)[DMAX], const T* base,
 
 }  // namespace flash
 
-// the launch statement (the variadic arguments) once for the dtype code and
-// D's width bucket, with T and DMAX defined for it
+// the launch statement (the variadic arguments) once for D's width
+// bucket, with DMAX defined for it
 #define FLASH_DMAX(D, ...)                                          \
   if ((D) <= 16) { constexpr int DMAX = 16; __VA_ARGS__; }          \
   else if ((D) <= 32) { constexpr int DMAX = 32; __VA_ARGS__; }     \
   else if ((D) <= 64) { constexpr int DMAX = 64; __VA_ARGS__; }     \
   else { constexpr int DMAX = 128; __VA_ARGS__; }
-
-#define FLASH_DISPATCH(dtype, D, ...)                                         \
-  switch (dtype) {                                                            \
-    case kF32: { typedef float T; FLASH_DMAX(D, __VA_ARGS__) break; }         \
-    case kBF16: { typedef __nv_bfloat16 T; FLASH_DMAX(D, __VA_ARGS__) break; } \
-    case kF16: { typedef __half T; FLASH_DMAX(D, __VA_ARGS__) break; }        \
-    default: return (int)cudaErrorInvalidValue;                               \
-  }
 
 // the arguments every entry point checks: D even in [2, 128], positive
 // sizes, grid dimensions in range

@@ -20,7 +20,8 @@
 // a clock per SM (132 SMs, 1.98 GHz); the bytes (4 MB) 1.3 us. At D = 16
 // the exponentials bound it.
 //
-// bf16 and f16 inputs (flash_fwd_tc): a CTA of 4 warps owns 64 query rows
+// bf16 and f16 inputs (flash_fwd_tc; flash_tc.cuh has the pieces it shares
+// with the backward kernels): a CTA of 4 warps owns 64 query rows
 // of one (batch, head), a warp 16 of them, and walks the key tiles of 64
 // up to the diagonal (the TPU grid's sequential k-block axis as a loop).
 // K and V tiles stay in the input type in shared memory, in a ring of
@@ -45,7 +46,7 @@
 // is staged as f32, each thread computes its row's logits for the whole
 // tile, takes the tile's max, rescales once and adds exp(s - m) v_j.
 #include "flash.cuh"
-#include "mma.cuh"
+#include "flash_tc.cuh"
 
 using namespace flash;
 
@@ -115,83 +116,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 namespace tc {
 
-constexpr int kQRows = 64;               // query rows a CTA owns
-constexpr int kWarps = kQRows / 16;      // a warp owns 16 of them
-constexpr int kThreads = kWarps * 32;
-constexpr int kBK = 64;                  // keys per tile
 constexpr int kNJ = kBK / 8;             // n8 blocks of a tile's S
-constexpr int kStages = 3;               // K/V tiles in flight or in use
-constexpr float kLn2 = 0.693147180559945309f;
-
-// elements per staged row: D's bucket plus 16 bytes, so the 8 rows of an
-// ldmatrix phase fall in 8 different 16-byte bank groups
-template <int DMAX> __host__ __device__ constexpr int pitch() {
-  return DMAX + 8;
-}
-// kStages stages of a K and a V tile
-template <int DMAX> __host__ __device__ constexpr int smem_bytes() {
-  return kStages * 2 * kBK * pitch<DMAX>() * 2;
-}
-
-// (x0, x1) as a packed pair of T
-template <typename T> __device__ __forceinline__ unsigned pack2(float x0,
-                                                               float x1);
-template <> __device__ __forceinline__ unsigned pack2<__nv_bfloat16>(
-    float x0, float x1) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  return *reinterpret_cast<unsigned*>(&h);
-}
-template <> __device__ __forceinline__ unsigned pack2<__half>(float x0,
-                                                             float x1) {
-  __half2 h = __floats2half2_rn(x0, x1);
-  return *reinterpret_cast<unsigned*>(&h);
-}
-
-// the pair (x0, x1) of probabilities in [0, 1] as hi + lo, two packed
-// pairs of T whose sum is x to about 2^-16 relative. bf16: hi truncates
-// x to its top 16 bits (a byte permute), lo is the exact remainder
-// truncated the same way; f16 rounds both parts.
-template <typename T> __device__ __forceinline__ void split2(
-    float x0, float x1, unsigned& hi, unsigned& lo);
-template <> __device__ __forceinline__ void split2<__nv_bfloat16>(
-    float x0, float x1, unsigned& hi, unsigned& lo) {
-  const unsigned u0 = __float_as_uint(x0), u1 = __float_as_uint(x1);
-  hi = __byte_perm(u0, u1, 0x7632);
-  const float r0 = x0 - __uint_as_float(u0 & 0xffff0000u);
-  const float r1 = x1 - __uint_as_float(u1 & 0xffff0000u);
-  lo = __byte_perm(__float_as_uint(r0), __float_as_uint(r1), 0x7632);
-}
-template <> __device__ __forceinline__ void split2<__half>(
-    float x0, float x1, unsigned& hi, unsigned& lo) {
-  const __half2 h = __floats2half2_rn(x0, x1);
-  const float2 hf = __half22float2(h);
-  hi = *reinterpret_cast<const unsigned*>(&h);
-  lo = pack2<__half>(x0 - hf.x, x1 - hf.y);
-}
-
-// copy keys [k0, k0 + kBK) of a (B, S, H, D) tensor's (b, h) slice into
-// a staged tile, zeros past S and past D: 16-byte copies (VEC: D % 8 == 0
-// and 16-byte aligned bases) or 4-byte ones
-template <typename T, int DMAX, bool VEC>
-__device__ __forceinline__ void load_tile(T* dst, const T* base, int64_t rs,
-                                          int k0, int Sk, int D) {
-  constexpr int P = pitch<DMAX>();
-  constexpr int UNIT = VEC ? 8 : 2;            // elements per copy
-  constexpr int UPR = DMAX / UNIT;             // copies per row
-  constexpr int N = kBK * UPR;
-#pragma unroll 8
-  for (int i = 0; i < (N + kThreads - 1) / kThreads; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    if (N % kThreads && c >= N) break;
-    const int r = c / UPR, d = (c % UPR) * UNIT;
-    const bool ok = k0 + r < Sk && d < D;
-    const T* src = ok ? base + (int64_t)(k0 + r) * rs + d : base;
-    if (VEC)
-      ptx::cp_async16(dst + r * P + d, src, ok);
-    else
-      ptx::cp_async4(dst + r * P + d, src, ok);
-  }
-}
 
 template <typename T, int DMAX, bool VEC>
 __global__ void __launch_bounds__(kThreads)
@@ -205,7 +130,7 @@ flash_fwd_tc(const T* __restrict__ q, const T* __restrict__ k,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);   // stage s: K, then V
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kQRows;  // longest first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest first
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gid = lane / 4, tig = lane % 4;
   const int qw = q0 + warp * 16;   // the warp's first row
@@ -216,7 +141,7 @@ flash_fwd_tc(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t qo = (int64_t)b * Sq * rs + base;   // row 0 of q and o
 
   // causal: key tiles starting past the CTA's last query row are skipped
-  const int k_end = causal ? min(Sk, q0 + kQRows) : Sk;
+  const int k_end = causal ? min(Sk, q0 + kRows) : Sk;
   const int ntiles = (k_end + kBK - 1) / kBK;
   // tile t goes to stage t % kStages; tiles 0 .. kStages - 2 up front
 #pragma unroll
@@ -229,19 +154,8 @@ flash_fwd_tc(const T* __restrict__ q, const T* __restrict__ k,
     ptx::cp_async_commit();
   }
 
-  // Q's A fragments, once: a[r] holds row gid + 8 (r & 1), features
-  // 2 tig + 8 (r >> 1) and the next
-  unsigned qf[KD][4];
-#pragma unroll
-  for (int kd = 0; kd < KD; ++kd)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = qw + gid + (r & 1) * 8;
-      const int col = kd * 16 + tig * 2 + (r >> 1) * 8;
-      qf[kd][r] = (row < Sq && col < D)
-          ? __ldg(reinterpret_cast<const unsigned*>(q + qo + row * rs + col))
-          : 0u;
-    }
+  unsigned qf[KD][4];   // Q's A fragments, once
+  load_a<T, KD>(qf, q + qo, rs, qw, Sq, D);
 
   float oacc[NO][4];
 #pragma unroll
@@ -275,15 +189,8 @@ flash_fwd_tc(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int r = 0; r < 4; ++r) s[j][r] = 0.f;
 #pragma unroll
-    for (int kd = 0; kd < KD; ++kd)
-#pragma unroll
-      for (int jn = 0; jn < kNJ / 2; ++jn) {
-        unsigned bf[4];
-        ptx::ldmatrix_x4(bf, ks + (jn * 16 + (lane >> 4) * 8 + (lane & 7)) * P
-                                 + kd * 16 + ((lane >> 3) & 1) * 8);
-        ptx::mma_16816<T>(s[2 * jn], qf[kd], bf[0], bf[1]);
-        ptx::mma_16816<T>(s[2 * jn + 1], qf[kd], bf[2], bf[3]);
-      }
+    for (int jn = 0; jn < kNJ / 2; ++jn)
+      mma_rows<T, KD, P>(s[2 * jn], s[2 * jn + 1], qf, ks + jn * 16 * P);
     // masks where the tile crosses the ragged key edge or, causal, the
     // warp's diagonal; a masked logit is -inf, so its exp2 is 0
     if (k0 + kBK > Sk || (causal && k0 + kBK - 1 > qw)) {
@@ -335,21 +242,8 @@ flash_fwd_tc(const T* __restrict__ q, const T* __restrict__ k,
           l[r >> 1] += p[jj][r];
         }
       unsigned ahi[4], alo[4];
-      split2<T>(p[0][0], p[0][1], ahi[0], alo[0]);   // row gid
-      split2<T>(p[0][2], p[0][3], ahi[1], alo[1]);   // row gid + 8
-      split2<T>(p[1][0], p[1][1], ahi[2], alo[2]);   // keys + 8
-      split2<T>(p[1][2], p[1][3], ahi[3], alo[3]);
-#pragma unroll
-      for (int nd = 0; nd < NO / 2; ++nd) {
-        unsigned vf[4];
-        ptx::ldmatrix_x4_trans(
-            vf, vs + (kc * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * P
-                    + nd * 16 + (lane >> 4) * 8);
-        ptx::mma_16816<T>(oacc[2 * nd], ahi, vf[0], vf[1]);
-        ptx::mma_16816<T>(oacc[2 * nd], alo, vf[0], vf[1]);
-        ptx::mma_16816<T>(oacc[2 * nd + 1], ahi, vf[2], vf[3]);
-        ptx::mma_16816<T>(oacc[2 * nd + 1], alo, vf[2], vf[3]);
-      }
+      to_a<T, kCut>(p[0], p[1], ahi, alo);
+      mma_hilo<T, NO, P, 0>(oacc, ahi, alo, vs + kc * 16 * P);
     }
   }
 
@@ -368,69 +262,33 @@ flash_fwd_tc(const T* __restrict__ q, const T* __restrict__ k,
   for (int nb = 0; nb < NO; ++nb)
 #pragma unroll
     for (int r = 0; r < 4; ++r) oacc[nb][r] = oacc[nb][r] / lf[r >> 1];
-
-  if (VEC) {
-    // the warp's 16 rows through shared memory (a stage no warp reads
-    // any more: the last tile's is (ntiles - 1) % kStages), then 16-byte
-    // stores
-    T* so = sm + (ntiles % kStages) * 2 * TILE + warp * 16 * P;
-#pragma unroll
-    for (int nb = 0; nb < NO; ++nb)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        *reinterpret_cast<unsigned*>(so + (gid + i * 8) * P + nb * 8 +
-                                     tig * 2) =
-            pack2<T>(oacc[nb][2 * i], oacc[nb][2 * i + 1]);
-    __syncwarp();
-    constexpr int CPR = DMAX / 8;
-    for (int c = lane; c < 16 * CPR; c += 32) {
-      const int r = c / CPR, d = (c % CPR) * 8, row = qw + r;
-      if (row < Sq && d < D)
-        *reinterpret_cast<uint4*>(o + qo + row * rs + d) =
-            *reinterpret_cast<const uint4*>(so + r * P + d);
-    }
-  } else {
-#pragma unroll
-    for (int nb = 0; nb < NO; ++nb)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int row = qw + gid + i * 8, col = nb * 8 + tig * 2;
-        if (row < Sq && col < D)
-          *reinterpret_cast<unsigned*>(o + qo + row * rs + col) =
-              pack2<T>(oacc[nb][2 * i], oacc[nb][2 * i + 1]);
-      }
-  }
+  // the warp's rows staged in a stage no warp reads any more (the last
+  // tile's is (ntiles - 1) % kStages)
+  store_rows<T, DMAX, VEC>(o + qo, rs, qw, Sq, D, oacc,
+                           sm + (ntiles % kStages) * 2 * TILE + warp * 16 * P);
 }
 
 template <typename T, int DMAX, bool VEC>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int Sq, int Sk, int H, int D, float scale, int causal,
            cudaStream_t st) {
-  constexpr int bytes = smem_bytes<DMAX>();
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_tc<T, DMAX, VEC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid(B * H, (Sq + kQRows - 1) / kQRows);
-  const float scale_log2 = (float)((double)scale * 1.4426950408889634);
+  constexpr int bytes = kv_ring_bytes<T, DMAX>();
+  const cudaError_t e = allow_smem(flash_fwd_tc<T, DMAX, VEC>, bytes);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(B * H, (Sq + kRows - 1) / kRows);
   flash_fwd_tc<T, DMAX, VEC><<<grid, kThreads, bytes, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Sq, Sk, H, D,
-      scale_log2, causal);
+      exp2_factor(scale), causal);
   return (int)cudaGetLastError();
 }
 
-// 16-byte copies and stores when D % 8 == 0 and every base is 16-byte
-// aligned; 4-byte ones otherwise (D is even)
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o,
              float* lse, int B, int Sq, int Sk, int H, int D, float scale,
              int causal, cudaStream_t st) {
-  const uintptr_t any = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
-                        (uintptr_t)o;
-  if (any % 4) return (int)cudaErrorMisalignedAddress;
-  const bool vec = D % 8 == 0 && any % 16 == 0;
+  const int vec = vec_mode(D, (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
+                                  (uintptr_t)o);
+  if (vec < 0) return (int)cudaErrorMisalignedAddress;
   if (vec) {
     FLASH_DMAX(D, return launch<T, DMAX, true>(q, k, v, o, lse, B, Sq, Sk,
                                                 H, D, scale, causal, st))

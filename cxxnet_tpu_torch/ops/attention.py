@@ -21,13 +21,17 @@ The port of ``cxxnet_tpu/ops/attention.py``. Every function takes
 
 The kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) read and write
 (B, S, H, D) through its strides: the transposes to (B * H, S, D) around
-the TPU kernels are not made. The forward runs bf16 and f16 on the
-tensor cores (its P V product takes P as a hi and a lo part, so it sees
-P at about f32 accuracy, as the plain version does), f32 on the CUDA
-cores; the backward kernels run on the CUDA cores. Their tiles are the card's; the config's
+the TPU kernels are not made. All three run bf16 and f16 on the tensor
+cores (``csrc/flash_tc.cuh``) and f32 on the CUDA cores. A score matrix
+that feeds a second product (P in P V and P^T dO, dS in dS K and dS^T Q)
+enters it as a hi and a lo part in the input type, so the product sees
+it at about f32 accuracy, as the plain versions do; the backward rounds
+both parts to nearest (dS cancels over a row, and dV sums many small P).
+dQ and dK/dV stay two kernels, as on the TPU: no atomics, and a rerun
+gives the same bits. Their tiles are the card's; the config's
 ``attn_block`` only picks the dispatch in the ``mha`` layer. Any S works
-(the TPU kernel needed S divisible by its blocks), and every even head
-width up to 128.
+(the TPU kernel needed S divisible by its blocks), query and key counts
+may differ, and every even head width up to 128.
 
 Masking: ``causal`` masks strictly-future keys; a row with no key left
 gives zeros (guarded divide).

@@ -410,6 +410,64 @@ def test_flash_fwd_kernel_with_other_key_count_matches_plain(dev, dtype, Sq,
     assert float((lse - lse0).abs().max()) <= 1e-5 * float(lse0.abs().max())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+@pytest.mark.parametrize("Sq,Sk,D", [(300, 1000, 64), (1000, 300, 16),
+                                     (65, 7, 10)])
+def test_flash_bwd_kernels_with_other_key_count_match_plain(dev, dtype, Sq,
+                                                            Sk, D):
+    """dQ and dK/dV, non-causal, over more (or fewer) keys than queries;
+    D 10 takes the 4-byte copies."""
+    q, g = (_randn((2, Sq, 3, D), dtype, dev, seed=i) for i in (1, 4))
+    k, v = (_randn((2, Sk, 3, D), dtype, dev, seed=i) for i in (2, 3))
+    scale = D ** -0.5
+    out0, lse0 = att.flash_fwd_plain(q, k, v, False, scale)
+    args = (q, k, v, g, lse0, att.flash_delta(out0, g), False, scale)
+    dq = att.flash_bwd_dq(*args)
+    assert dq.shape == q.shape
+    assert _flash_ok(dq, att.flash_bwd_dq_plain(*args), dtype)
+    for a, b in zip(att.flash_bwd_dkv(*args), att.flash_bwd_dkv_plain(*args)):
+        assert a.shape == k.shape and _flash_ok(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_kernels_rerun_bit_equal(dev, dtype, causal):
+    """No atomics: two launches on the same inputs give the same bits."""
+    q, k, v, g = (_randn((2, 300, 2, 64), dtype, dev, seed=i)
+                  for i in range(4))
+    out, lse = att.flash_fwd(q, k, v, causal, 0.125)
+    args = (q, k, v, g, lse, att.flash_delta(out, g), causal, 0.125)
+    first = [att.flash_bwd_dq(*args), *att.flash_bwd_dkv(*args)]
+    second = [att.flash_bwd_dq(*args), *att.flash_bwd_dkv(*args)]
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype,names", [
+    (torch.bfloat16, ("flash_bwd_dq_tc", "flash_bwd_dkv_tc")),
+    (torch.float16, ("flash_bwd_dq_tc", "flash_bwd_dkv_tc")),
+    (torch.float32, ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))],
+    ids=str)
+def test_flash_bwd_runs_the_tensor_core_kernels(dev, dtype, names):
+    """bf16 and f16 launch the mma.sync kernels, f32 the CUDA-core ones:
+    the device kernels' names in a profile of one backward."""
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v, g = (_randn((1, 256, 2, 16), dtype, dev, seed=i)
+                  for i in range(4))
+    out, lse = att.flash_fwd(q, k, v, True, 0.25)
+    args = (q, k, v, g, lse, att.flash_delta(out, g), True, 0.25)
+    att.flash_bwd_dq(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        att.flash_bwd_dq(*args)
+        att.flash_bwd_dkv(*args)
+        torch.cuda.synchronize()
+    seen = [e.key for e in prof.key_averages()]
+    for name in names:
+        assert sum(name in s for s in seen) == 1, (name, seen)
+
+
 def test_flash_attention_launches_each_kernel_once_per_call(dev):
     for k in KERNELS.values():
         k.launches = 0
