@@ -12,7 +12,10 @@ and prints no result:
             for sm_90a (one nvcc per source, all at once).
 3. kernels: each kernel against its plain PyTorch version on the card,
             at the serving and training paths' shapes, in bf16, f16 and
-            f32, and at row counts the TPU kernels' gates refused; the
+            f32, and at row counts the TPU kernels' gates refused (the
+            pooling forward also at the digits LeNet's 2x2 tiles, C 20
+            and 1000, a base 2 bytes past a 16-byte boundary, and NaNs
+            in max and sum windows, which must stay NaN); the
             flash attention kernels (forward, dQ, dK/dV) in bf16, f16
             and f32, causal and not, at S 2048 and the ragged 1000, head
             widths 16, 64 and 128, and non-causal with 300 queries over
@@ -27,9 +30,11 @@ and prints no result:
             window, pre_relu on and off, on tie-ridden integer inputs
             (bit-equal); the four data-parallel BN kernels at every BN
             shape of Inception-BN at 64 rows a rank, a flat node, C 1, 7
-            and 1500 and a ragged row count in bf16, f16 and f32: their
-            sums within the order-of-summation bound of the exact sum
-            (depth of colsum.cuh's addition chain * 2^-24 * sum|term|),
+            and 1500, a ragged row count and ragged rows 1 element past
+            a 16-byte boundary in bf16, f16 and f32: their sums within
+            the order-of-summation bound of the exact sum (the longest
+            addition chain of colsum.cuh's order for bn_sums, of
+            colsum_vec.cuh's plan for bn_bwd_sums, * 2^-24 * sum|term|),
             their outputs within 4 f32 ulp of max|plain| (bf16/f16 one
             ulp more).
 4. serve:   full-width Inception-BN (224x224x3, 69 batch_norm layers,
@@ -282,7 +287,9 @@ PERF_BEFORE_MS = {"flash_fwd": "0.8869 ms",
                   "flash_bwd_dq": "0.7877 ms",
                   "flash_bwd_dkv": "0.7659 ms",
                   "q_mm conv1 b32": "0.1640 ms",
-                  "q_mm fc6 b32": "0.1918 ms warm"}
+                  "q_mm fc6 b32": "0.1918 ms warm",
+                  "bn_bwd_sums": "0.1768 ms",
+                  "pool_fwd": "0.00923 ms"}
 TRAIN_BATCH = 128       # the flagship's batch_size
 TRAIN_STEPS = 4         # 512 synthetic rows
 TRAIN_IMAGE, TRAIN_CLASSES = "3,224,224", 1000
@@ -395,6 +402,7 @@ _KINDS = (("q_mm_kernel", "q_mm kernel"),
           ("epilogue_fwd_kernel", "epilogue kernel"),
           ("mask_copy", "epilogue kernel"), ("finalize_dbias", "epilogue kernel"),
           ("colsum_partials", "bn/epilogue sums kernel"),
+          ("colsum_vec", "bn/epilogue sums kernel"),
           ("bn_normalize", "bn kernel"), ("bn_dx", "bn kernel"),
           ("finalize", "bn kernel"), ("sgd_apply_kernel", "sgd kernel"),
           ("conv", "conv"), ("xmma", "conv"), ("cudnn", "conv"),
@@ -452,6 +460,31 @@ def profile_calls(fn, n: int = 5, what: str = "forward") -> str:
             f" | largest other: {top}")
 
 
+def launch_breakdown(fn, n: int = 20) -> str:
+    """torch.profiler over ``n`` calls of ``fn``: device time and launches
+    per call of each kernel it launches, by name (a wrapper that makes
+    more than one launch shows each apart)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            t, k = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.device_time_total, k + 1)
+    if not by_name:
+        return "no device events in the trace (not measured)"
+    return ", ".join(f"{name.split('(')[0][:48]} {t / n:.2f} us x{k / n:g}"
+                     for name, (t, k) in sorted(by_name.items(),
+                                                key=lambda kv: -kv[1][0]))
+
+
 # -- phase 1 ------------------------------------------------------------------
 
 def phase_env() -> str:
@@ -492,12 +525,14 @@ def phase_build():
     for src in REPORT_PTXAS:
         print(f"ptxas {src}: " + ", ".join(
             f"{name} {n} registers" + (f" {sp} bytes spilled" if sp else "")
-            for name, n, sp in ptxas_functions(_build.build_log(src))),
+            for name, n, sp in ptxas_functions(_build.build_log(src))
+            if not name.startswith("_Z")),
             flush=True)
 
 
 #: the sources whose every kernel's registers and spills phase 2 prints
-REPORT_PTXAS = ("flash_fwd.cu", "flash_bwd.cu", "q_mm.cu")
+REPORT_PTXAS = ("flash_fwd.cu", "flash_bwd.cu", "q_mm.cu", "bn_sync.cu",
+                "pool_fwd.cu")
 
 
 def ptxas_functions(log: str):
@@ -508,12 +543,14 @@ def ptxas_functions(log: str):
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            k = re.search(r"(flash_\w+?_(?:tc|kernel)|q_mm_kernel)I(\w+)",
-                          m.group(1))
+            k = re.search(r"(flash_\w+?_(?:tc|kernel)|q_mm_kernel|"
+                          r"colsum_vec|pool_fwd_kernel)I(\w+)", m.group(1))
             if k is None:
                 name = m.group(1)
             else:
-                args = ["f32"] if k.group(2).startswith("f") else []
+                g = k.group(2)
+                args = ["f32"] if g.startswith("f") or re.match(
+                    r"\d+BwdSumsVecIf", g) else []
                 args += [{"13__nv_bfloat16": "bf16", "6__half": "f16"}.get(t, t)
                          for t in re.findall(
                              r"13__nv_bfloat16|6__half|(?<=L[ib])\d+(?=E)",
@@ -551,27 +588,44 @@ def phase_kernels(gen: torch.Generator) -> dict:
     def rnd(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    pool_cases = [((b, 7, 7, 1024), torch.bfloat16, 7, 7, "sum", True, False)
-                  for b in (1, 5, 32)]
+    # (shape, dtype, window, reducer, avg, relu, how): "" plain inputs,
+    # "nan" a NaN planted in some windows, "offset" x and y 2 bytes past a
+    # 16-byte boundary (the one-element loads)
+    pool_cases = [((b, 7, 7, 1024), torch.bfloat16, 7, 7, "sum", True, False,
+                   "") for b in (1, 5, 32)]
     pool_cases += [
-        ((3, 14, 14, 64), torch.float32, 2, 2, "max", False, True),
-        ((3, 14, 14, 64), torch.float16, 2, 2, "sum", False, False),
-        ((5, 7, 7, 256), torch.float16, 7, 7, "sum", False, True),
-        ((2, 8, 8, 96), torch.float32, 8, 8, "sum", True, False),
+        ((3, 14, 14, 64), torch.float32, 2, 2, "max", False, True, ""),
+        ((3, 14, 14, 64), torch.float16, 2, 2, "sum", False, False, ""),
+        ((5, 7, 7, 256), torch.float16, 7, 7, "sum", False, True, ""),
+        ((2, 8, 8, 96), torch.float32, 8, 8, "sum", True, False, ""),
+        ((100, 8, 8, 32), torch.float32, 2, 2, "max", False, False, ""),
+        ((4, 6, 6, 20), torch.bfloat16, 3, 3, "max", False, True, ""),
+        ((3, 7, 7, 1000), torch.bfloat16, 7, 7, "sum", True, False, ""),
+        ((2, 7, 7, 1024), torch.bfloat16, 7, 7, "sum", True, False,
+         "offset"),
+        ((2, 4, 4, 64), torch.bfloat16, 2, 2, "max", False, True, "nan"),
+        ((2, 7, 7, 64), torch.bfloat16, 7, 7, "sum", False, False, "nan"),
     ]
-    for shape, dt, kh, kw, red, avg, relu in pool_cases:
+    for shape, dt, kh, kw, red, avg, relu, how in pool_cases:
         x = rnd(shape, dt)
+        if how == "offset":
+            x = rnd((x.numel() + 1,), dt)[1:].view(shape)
+        if how == "nan":
+            x.view(-1)[::37] = float("nan")
         got = fused_pool(x, kh, kw, red, avg, relu)
         want = pool_fwd_plain(x, kh, kw, red, avg, relu)
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs()
+        nan_ok = torch.equal(got.isnan(), want.isnan())
+        err = (got.float() - want.float()).abs().nan_to_num(0.0)
         tol = 0.0 if red == "max" else _ulp_tol(dt)
-        bad = err > tol * want.float().abs() + 1e-6
+        bad = err > tol * want.float().abs().nan_to_num(0.0) + 1e-6
         name = "avg" if avg else red
         lines.append(f"pool {name} {kh}x{kw} {tuple(shape)} "
-                     f"{str(dt)[6:]} relu={int(relu)}: max_abs_err "
-                     f"{err.max().item():.3g} (tol {tol:.3g}*|plain| + 1e-6)")
-        if bad.any():
+                     f"{str(dt)[6:]} relu={int(relu)} {how or 'plain'}: "
+                     f"max_abs_err {err.max().item():.3g} (tol "
+                     f"{tol:.3g}*|plain| + 1e-6), NaNs where plain has them "
+                     f"{nan_ok}")
+        if bad.any() or not nan_ok:
             raise AssertionError("pool kernel disagrees: " + lines[-1])
         if shape == (32, 7, 7, 1024):
             path_err["pool_fwd"] = err.max().item()
@@ -790,13 +844,13 @@ DP_RANKS = 2
 DP_BATCH = TRAIN_BATCH // DP_RANKS
 
 
-def _sum_bound_ratio(got, terms, n):
+def _sum_bound_ratio(got, terms, depth):
     """Worst ratio, over the channels of one (C,) row of column sums, of
     its distance from the exact (float64) sum of its float32 ``terms``
-    to colsum.cuh's order-of-summation bound (depth * 2^-24 * sum|t|)."""
-    from cxxnet_tpu_torch.ops.fused import colsum_depth
+    to the order-of-summation bound depth * 2^-24 * sum|t|, ``depth``
+    the longest addition chain of the kernel's order."""
     t = terms.double()
-    bound = colsum_depth(n, terms.shape[1]) * 2.0 ** -24 * t.abs().sum(0)
+    bound = depth * 2.0 ** -24 * t.abs().sum(0)
     err = (got.double() - t.sum(0)).abs()
     return float((err / bound.clamp_min(1e-300)).max())
 
@@ -804,32 +858,40 @@ def _sum_bound_ratio(got, terms, n):
 def phase_sync_bn_kernels(gen: torch.Generator, conf: str) -> dict:
     """The four data-parallel BN kernels against their plain versions at
     every BN shape of the Inception-BN path at a per-rank batch of
-    DP_BATCH, a flat (DP_BATCH, 1024) node, C 1, 7 and 1500 and a ragged
-    row count, in bf16, f16 and f32, relu on the path's shapes: the sums
-    (rows 8, 10) within the order-of-summation bound of their exact
-    value, the outputs (rows 9, 11) within 4 f32 ulp of max|plain| in
-    f32 and one ulp (plus that) in bf16/f16. Returns the largest error
-    against the plain version per kernel at bn_stem1."""
+    DP_BATCH, a flat (DP_BATCH, 1024) node, C 1, 7 and 1500, a ragged
+    row count and the ragged rows 1 element past a 16-byte boundary (the
+    one-element loads), in bf16, f16 and f32, relu on the path's shapes:
+    the sums (rows 8, 10) within the order-of-summation bound of their
+    exact value (each kernel's own addition depth), the outputs (rows 9,
+    11) within 4 f32 ulp of max|plain| in f32 and one ulp (plus that) in
+    bf16/f16. Returns the largest error against the plain version per
+    kernel at bn_stem1."""
+    from cxxnet_tpu_torch.ops.fused import colsum_depth, sm_count
     from cxxnet_tpu_torch.ops.fused_norm import (
         bn_bwd_dx, bn_bwd_dx_plain, bn_bwd_sums, bn_bwd_sums_plain, bn_norm,
-        bn_norm_plain, bn_sums, bn_sums_plain)
+        bn_norm_plain, bn_sums, bn_sums_plain, colsum_vec_depth,
+        colsum_vec_plan)
     dev = gen.device
     bn_shapes, _ = flagship_shapes(conf, DP_BATCH)
-    shapes = list(dict.fromkeys(bn_shapes))
-    shapes += [(DP_BATCH, 1024), (4099, 1), (333, 7), (1000, 1500),
-               (12345, 64)]
+    shapes = [(n, c, False) for n, c in dict.fromkeys(bn_shapes)]
+    shapes += [(DP_BATCH, 1024, False), (4099, 1, False), (333, 7, False),
+               (1000, 1500, False), (12345, 64, False), (12345, 64, True)]
     path_err = {k: 0.0 for k in DP_KERNELS}
     worst = {"sums": 0.0, "out": 0.0}
     cases = 0
-    for n, c in shapes:
+
+    def rows(n, c, dt, scale, shift, offset):
+        """(n, c) rows, ``offset`` elements past a 16-byte boundary"""
+        t = torch.randn((n * c + offset,), generator=gen, device=dev)
+        return (t * scale + shift).to(dt)[offset:].view(n, c)
+    for n, c, off in shapes:
         for dt in (torch.bfloat16, torch.float16, torch.float32):
-            relu = (n, c) in bn_shapes or c == 7
+            relu = (n, c) in bn_shapes or c == 7 or off
             act = "relu" if relu else "none"
-            x = (torch.randn((n, c), generator=gen, device=dev) * 1.5
-                 + 0.25).to(dt)
+            x = rows(n, c, dt, 1.5, 0.25, int(off))
             g = torch.randn((c,), generator=gen, device=dev) * 0.2 + 1.0
             b = torch.randn((c,), generator=gen, device=dev) * 0.1
-            dy = torch.randn((n, c), generator=gen, device=dev).to(dt)
+            dy = rows(n, c, dt, 1.0, 0.0, int(off))
             xf = x.float()
             s, s0 = bn_sums(x), bn_sums_plain(x)
             mean = s0[0] / n
@@ -838,6 +900,8 @@ def phase_sync_bn_kernels(gen: torch.Generator, conf: str) -> dict:
             y, y0 = (bn_norm(x, g, b, mean, rstd, act),
                      bn_norm_plain(x, g, b, mean, rstd, act))
             yy = y0 if relu else None
+            if off:             # y too 2 or 4 bytes past a boundary
+                yy = torch.cat([y0.new_zeros(1), y0.view(-1)])[1:].view(n, c)
             d = dy.float() if yy is None else torch.where(
                 yy.float() > 0, dy.float(), torch.zeros_like(xf))
             bs, bs0 = (bn_bwd_sums(x, dy, yy, mean, rstd),
@@ -846,10 +910,17 @@ def phase_sync_bn_kernels(gen: torch.Generator, conf: str) -> dict:
             dx, dx0 = (bn_bwd_dx(x, dy, yy, g, mean, rstd, sbn, sxhn),
                        bn_bwd_dx_plain(x, dy, yy, g, mean, rstd, sbn, sxhn))
             torch.cuda.synchronize()
-            ratio = max(_sum_bound_ratio(s[0], xf, n),
-                        _sum_bound_ratio(s[1], xf * xf, n),
-                        _sum_bound_ratio(bs[0], d, n),
-                        _sum_bound_ratio(bs[1], d * ((xf - mean) * rstd), n))
+            plan = colsum_vec_plan(n, c, x.element_size(), not off,
+                                   sm_count(dev))
+            if off != (x.data_ptr() % 16 != 0):
+                raise AssertionError(f"({n},{c}) {dt}: the offset case must "
+                                     "be the one not 16-byte aligned")
+            d_old, d_new = colsum_depth(n, c), colsum_vec_depth(plan, c)
+            ratio = max(_sum_bound_ratio(s[0], xf, d_old),
+                        _sum_bound_ratio(s[1], xf * xf, d_old),
+                        _sum_bound_ratio(bs[0], d, d_new),
+                        _sum_bound_ratio(bs[1], d * ((xf - mean) * rstd),
+                                         d_new))
             outs = []
             for got, want in ((y, y0), (dx, dx0)):
                 err = (got.float() - want.float()).abs()
@@ -863,10 +934,11 @@ def phase_sync_bn_kernels(gen: torch.Generator, conf: str) -> dict:
             cases += 1
             if ratio > 1.0 or max(outs) > 1.0:
                 raise AssertionError(
-                    f"sync-BN kernels disagree at ({n},{c}) {dt} act={act}: "
+                    f"sync-BN kernels disagree at ({n},{c}) {dt} act={act}"
+                    f"{' offset' if off else ''}: "
                     f"sums at {ratio:.3g} of their bound, y and dx at "
                     f"{outs[0]:.3g} and {outs[1]:.3g} of their tolerance")
-            if (n, c) == bn_shapes[0] and dt == torch.bfloat16:
+            if (n, c) == bn_shapes[0] and dt == torch.bfloat16 and not off:
                 for k, got, want in (("bn_sums", s, s0), ("bn_norm", y, y0),
                                      ("bn_bwd_sums", bs, bs0),
                                      ("bn_bwd_dx", dx, dx0)):
@@ -874,11 +946,13 @@ def phase_sync_bn_kernels(gen: torch.Generator, conf: str) -> dict:
                         .item()
     print(f"kernels (sync BN): {cases} cases ({len(shapes)} shapes: the "
           f"{len(set(bn_shapes))} distinct BN shapes of Inception-BN at "
-          f"{DP_BATCH} a rank, a flat node, C 1/7/1500, ragged rows; bf16, "
-          f"f16, f32) agree with the plain versions | sums: worst "
-          f"{worst['sums']:.3g} of the order-of-summation bound (distance "
-          f"to the exact f64 sum of the f32 terms over depth * 2^-24 * "
-          f"sum|term|, depth = colsum.cuh's longest addition chain) | y, "
+          f"{DP_BATCH} a rank, a flat node, C 1/7/1500, ragged rows, "
+          f"inputs 1 element past a 16-byte boundary; bf16, f16, f32) agree "
+          f"with the plain versions | sums: worst {worst['sums']:.3g} of the "
+          f"order-of-summation bound (distance to the exact f64 sum of the "
+          f"f32 terms over depth * 2^-24 * sum|term|, depth = the longest "
+          f"addition chain: colsum.cuh's for bn_sums, colsum_vec.cuh's "
+          f"plan's for bn_bwd_sums) | y, "
           f"dx: worst {worst['out']:.3g} of the tolerance (4 f32 ulp of "
           f"max|plain|; bf16/f16 one ulp more) | at bn_stem1 bf16 vs plain: "
           + ", ".join(f"{k} {v:.3g}" for k, v in path_err.items()),
@@ -1169,9 +1243,23 @@ def check_answers(engine_plain, answers, atol: float = 2e-2) -> float:
 
 # -- phase 5 ------------------------------------------------------------------
 
+def pool_fwd_row(xp) -> dict:
+    """``pool_fwd``'s 7x7 global average over ``xp`` (B, 7, 7, C) bf16
+    beside its bound, its plain version and ``x.mean``."""
+    from cxxnet_tpu_torch.ops.fused_pool import fused_pool, pool_fwd_plain
+    b, _, _, c = xp.shape
+    return dict(
+        ms=time_call(lambda: fused_pool(xp, 7, 7, "sum", True, False)),
+        plain_ms=time_call(lambda: pool_fwd_plain(xp, 7, 7, "sum", True,
+                                                  False)),
+        library_ms=time_call(lambda: xp.mean(dim=(1, 2))),
+        bound=bound_ms(xp.numel() * 2 + b * c * 2, xp.numel() + b * c),
+        shape=f"avg 7x7 global on {tuple(xp.shape)} bf16",
+        library="x.mean(dim=(1, 2))")
+
+
 def phase_times(engine, gen: torch.Generator) -> dict:
     from cxxnet_tpu_torch.ops.fused_epilogue import bias_act_plain, fused_bias_act
-    from cxxnet_tpu_torch.ops.fused_pool import fused_pool, pool_fwd_plain
     net = engine.net
     c, y, x = net.graph.input_shape
     fwd = {}
@@ -1196,15 +1284,7 @@ def phase_times(engine, gen: torch.Generator) -> dict:
     bias = torch.randn((1000,), generator=gen, device=dev)
     bias16 = bias.to(torch.bfloat16)
     rows = {
-        "pool_fwd": dict(
-            ms=time_call(lambda: fused_pool(xp, 7, 7, "sum", True, False)),
-            plain_ms=time_call(lambda: pool_fwd_plain(xp, 7, 7, "sum", True,
-                                                      False)),
-            library_ms=time_call(lambda: xp.mean(dim=(1, 2))),
-            bound=bound_ms(xp.numel() * 2 + b * 1024 * 2,
-                           xp.numel() + b * 1024),
-            shape=f"avg 7x7 global on {tuple(xp.shape)} bf16",
-            library="x.mean(dim=(1, 2))"),
+        "pool_fwd": pool_fwd_row(xp),
         "epilogue_fwd": dict(
             ms=time_call(lambda: fused_bias_act(xe, bias, "none")),
             plain_ms=time_call(lambda: bias_act_plain(xe, bias, "none")),
@@ -1564,10 +1644,8 @@ def phase_train_times(tr, plain, batches, gen) -> dict:
         fused_epilogue_bwd)
     from cxxnet_tpu_torch.ops.fused_norm import (bn_act_plain, bn_bwd,
                                                  bn_bwd_plain, bn_fwd)
-    from cxxnet_tpu_torch.ops.fused_pool import (fused_pool,
-                                                 fused_pool_bwd_lin,
-                                                 pool_bwd_lin_plain,
-                                                 pool_fwd_plain)
+    from cxxnet_tpu_torch.ops.fused_pool import (fused_pool_bwd_lin,
+                                                 pool_bwd_lin_plain)
     b0 = batches[0]
     step_ms = time_forward(lambda: tr.update(b0), reps=10)
     step_plain = time_forward(lambda: plain.update(b0), reps=10)
@@ -1624,15 +1702,7 @@ def phase_train_times(tr, plain, batches, gen) -> dict:
             bound=bound_ms(4 * n * c * 2, 12 * n * c),
             shape=f"bn_stem1 ({n},{c}) bf16 relu",
             library="aten.native_batch_norm_backward, no relu mask"),
-        "pool_fwd": dict(
-            ms=time_call(lambda: fused_pool(xp, 7, 7, "sum", True, False)),
-            plain_ms=time_call(lambda: pool_fwd_plain(xp, 7, 7, "sum", True,
-                                                      False)),
-            library_ms=time_call(lambda: xp.mean(dim=(1, 2))),
-            bound=bound_ms(xp.numel() * 2 + TRAIN_BATCH * 1024 * 2,
-                           xp.numel() + TRAIN_BATCH * 1024),
-            shape=f"avg 7x7 global on {tuple(xp.shape)} bf16",
-            library="x.mean(dim=(1, 2))"),
+        "pool_fwd": pool_fwd_row(xp),
         "pool_bwd": dict(
             ms=time_call(lambda: fused_pool_bwd_lin(dyp, 7, 7, True)),
             plain_ms=time_call(lambda: pool_bwd_lin_plain(dyp, 7, 7, True)),
@@ -1675,7 +1745,9 @@ def phase_train_times(tr, plain, batches, gen) -> dict:
               f"{k} {r['shape']}: {r['ms'] * 1e3:.2f} us, bound "
               f"{r['bound'][0] * 1e3:.2f} us ({r['bound'][1]}), plain "
               f"{r['plain_ms'] * 1e3:.2f} us, {r['library']} "
-              f"{r['library_ms'] * 1e3:.2f} us" for k, r in rows.items()),
+              f"{r['library_ms'] * 1e3:.2f} us"
+              + (f" (PERF.md before: {PERF_BEFORE_MS[k]})"
+                 if k in PERF_BEFORE_MS else "") for k, r in rows.items()),
           flush=True)
     return {"step_ms": step_ms, "step_plain_ms": step_plain,
             "kernels": rows}
@@ -3241,7 +3313,20 @@ def phase_dp_times(gen: torch.Generator) -> dict:
               f"{r['library']} "
               + ("failed" if r["library_ms"] is None
                  else f"{r['library_ms'] * 1e3:.2f} us")
+              + (f" (PERF.md before: {PERF_BEFORE_MS[k]})"
+                 if k in PERF_BEFORE_MS else "")
               for k, r in rows.items()), flush=True)
+    # the library reduce reads dy and x only: its own byte bound
+    lib2 = bound_ms(2 * e + 2 * c * 4 + 2 * c * 4, 6 * n * c)[0]
+    lib_ms = rows["bn_bwd_sums"]["library_ms"]
+    ours = launch_breakdown(lambda: bn_bwd_sums(x, dy, y, mean, rstd))
+    theirs = launch_breakdown(lambda: torch.batch_norm_backward_reduce(
+        dy, x, mean, rstd, g, True, True, True))
+    print(f"times (sync BN): bn_bwd_sums by launch: {ours} | "
+          f"torch.batch_norm_backward_reduce by launch: {theirs} | its "
+          f"own 2-stream byte bound {lib2 * 1e3:.2f} us"
+          + ("" if lib_ms is None else
+             f" = {100 * lib2 / lib_ms:.1f}% of its time"), flush=True)
     return {"kernels": rows}
 
 

@@ -20,16 +20,20 @@
 // reads x, dy and, with relu, y (3x); bn_bwd_dx reads those and writes dx
 // (4x). Operations are a handful per element, far below the f32 rate.
 //
-// Design: the sums are the two-stage column sums of colsum.cuh (a grid of
+// Design: bn_sums takes the two-stage column sums of colsum.cuh (a grid of
 // row-block CTAs, each thread one channel of a coalesced row read; the
-// partials added per channel in a fixed order by a finalize kernel), so
-// two runs on the same input agree bit for bit and so do both ranks'
-// reductions of the same rows. They write into one (2, C) f32 buffer, the
-// buffer the caller all-reduces in one call. The elementwise passes are
-// grid-stride loops; every multiply and add is a rounded f32 operation in
-// the order of the plain PyTorch version (no contraction into an FMA).
-// Any N and C: the TPU kernel's row-block divisibility does not apply.
+// partials added per channel in a fixed order by a finalize kernel);
+// bn_bwd_sums the one-launch vectorised column sums of colsum_vec.cuh
+// (16-byte loads, the last CTA adds the partials). Both add in a fixed
+// order, so two runs on the same input agree bit for bit and so do both
+// ranks' reductions of the same rows. They write into one (2, C) f32
+// buffer, the buffer the caller all-reduces in one call. The elementwise
+// passes are grid-stride loops; every multiply and add is a rounded f32
+// operation in the order of the plain PyTorch version (no contraction
+// into an FMA). Any N and C: the TPU kernel's row-block divisibility does
+// not apply.
 #include "colsum.cuh"
+#include "colsum_vec.cuh"
 
 template <typename T>
 struct Moments {  // a += x, b += x * x
@@ -49,18 +53,49 @@ __device__ __forceinline__ float masked_grad(const T* dy, const T* y,
   return d;
 }
 
-template <typename T>
-struct BwdSums {  // a += dy', b += dy' * x_hat
+// a[k] += dy'[k], b[k] += dy'[k] * x_hat[k] over V channels a load
+template <typename T, int V_, bool RELU>
+struct BwdSumsVec {
+  static constexpr int V = V_;
+  using IO = VecIO<T, V>;
+  struct Row {
+    typename IO::Raw x, dy, y;
+  };
+  struct Consts {
+    float mean[V], rstd[V];
+  };
   const T* x;
   const T* dy;
   const T* y;
   const float* mean;
   const float* rstd;
-  __device__ void operator()(int64_t i, int c, float& a, float& b) const {
-    const float d = masked_grad(dy, y, i);
-    const float xh = __fmul_rn(__fsub_rn(to_f32(x[i]), mean[c]), rstd[c]);
-    a += d;
-    b += __fmul_rn(d, xh);
+  __device__ Consts consts(int c0) const {
+    Consts k;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      k.mean[j] = mean[c0 + j];
+      k.rstd[j] = rstd[c0 + j];
+    }
+    return k;
+  }
+  __device__ Row load(int64_t i) const {
+    Row r;
+    r.x = IO::load(x + i);
+    r.dy = IO::load(dy + i);
+    if (RELU) r.y = IO::load(y + i);
+    return r;
+  }
+  __device__ void add(const Row& r, const Consts& k, float* a,
+                      float* b) const {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      float d = IO::at(r.dy, j);
+      if (RELU && !(IO::at(r.y, j) > 0.f)) d = 0.f;
+      const float xh = __fmul_rn(__fsub_rn(IO::at(r.x, j), k.mean[j]),
+                                 k.rstd[j]);
+      a[j] = __fadd_rn(a[j], d);
+      b[j] = __fadd_rn(b[j], __fmul_rn(d, xh));
+    }
   }
 };
 
@@ -149,21 +184,67 @@ extern "C" int bn_norm(const void* x, const float* gamma, const float* beta,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int V, bool RELU>
+static void launch_bwd_sums(const void* x, const void* dy, const void* y,
+                            const float* mean, const float* rstd, float* sums,
+                            float* part, unsigned* counters, int64_t N, int C,
+                            int cgt, int tiles, int blocks, int64_t rows_per,
+                            int fvec, cudaStream_t s) {
+  const BwdSumsVec<T, V, RELU> op{(const T*)x, (const T*)dy, (const T*)y,
+                                  mean, rstd};
+  colsum_vec<<<dim3(blocks, tiles), kVecThreads, 0, s>>>(
+      op, N, C, cgt, rows_per, fvec, part, counters, sums);
+}
+
+template <typename T>
+static int bwd_sums_typed(const void* x, const void* dy, const void* y,
+                          const float* mean, const float* rstd, float* sums,
+                          float* part, unsigned* counters, int64_t N, int C,
+                          int vec, int cgt, int tiles, int blocks,
+                          int64_t rows_per, int fvec, cudaStream_t s) {
+  constexpr int VW = 16 / sizeof(T);
+  const int groups = vec == VW ? C / VW : C;
+  const auto aligned = [](const void* p) {
+    return ((uintptr_t)p & 15) == 0;
+  };
+  if (vec != 1 && (vec != VW || C % VW || !aligned(x) || !aligned(dy) ||
+                   (y != nullptr && !aligned(y))))
+    return (int)cudaErrorInvalidValue;
+  if (cgt < 1 || cgt > kVecThreads || tiles != (groups + cgt - 1) / cgt ||
+      blocks < 1 || rows_per < 1 || (int64_t)blocks * rows_per < N ||
+      (fvec != 1 && (fvec != 4 || C % 4 || (cgt * vec) % 4)))
+    return (int)cudaErrorInvalidValue;
+#define BWD_SUMS(V_, RELU_)                                                 \
+  launch_bwd_sums<T, V_, RELU_>(x, dy, y, mean, rstd, sums, part, counters, \
+                                N, C, cgt, tiles, blocks, rows_per, fvec, s)
+  if (vec == VW) {
+    if (y != nullptr) BWD_SUMS(VW, true); else BWD_SUMS(VW, false);
+  } else {
+    if (y != nullptr) BWD_SUMS(1, true); else BWD_SUMS(1, false);
+  }
+#undef BWD_SUMS
+  return 0;
+}
+
 // x, dy: (N, C) of dtype code `dtype`; y: the forward's output when the
 // relu was folded in, else NULL; mean, rstd: (C,) f32; sums: (2, C) f32
-// output, row 0 SB and row 1 SXH; part: 2 * G * C f32 scratch.
+// output, row 0 SB and row 1 SXH; part: blocks * 2 * C f32 scratch;
+// counters: `tiles` zero unsigned ints, left zero. vec, cgt, tiles,
+// blocks, rows_per, fvec: ops/fused_norm.colsum_vec_plan. Returns a
+// cudaError_t.
 extern "C" int bn_bwd_sums(const void* x, const void* dy, const void* y,
                            const float* mean, const float* rstd, float* sums,
-                           float* part, int64_t N, int C, int G, int dtype,
+                           float* part, unsigned* counters, int64_t N, int C,
+                           int vec, int cgt, int tiles, int blocks,
+                           int64_t rows_per, int fvec, int dtype,
                            void* stream) {
-  if (N <= 0 || C <= 0 || G <= 0) return (int)cudaErrorInvalidValue;
+  if (N <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  float* p1 = part;
-  float* p2 = part + (int64_t)G * C;
-  DISPATCH(dtype, launch_colsum(BwdSums<T>{(const T*)x, (const T*)dy,
-                                           (const T*)y, mean, rstd},
-                                N, C, G, p1, p2, s));
-  finalize_pair<<<(C + 255) / 256, 256, 0, s>>>(p1, p2, G, C, sums);
+  int rc = 0;
+  DISPATCH(dtype, rc = bwd_sums_typed<T>(x, dy, y, mean, rstd, sums, part,
+                                         counters, N, C, vec, cgt, tiles,
+                                         blocks, rows_per, fvec, s));
+  if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
 

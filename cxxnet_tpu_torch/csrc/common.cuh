@@ -1,6 +1,7 @@
 // Shared helpers of the port's hand-written kernels: dtype codes (as the
-// Python wrappers pass them), conversions through float, and the launch
-// grid of a grid-stride loop.
+// Python wrappers pass them), conversions through float, vectors of V
+// elements loaded as one instruction, and the launch grid of a
+// grid-stride loop.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -29,6 +30,23 @@ template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
 template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
 }
+
+// V elements of T, loaded and stored as one vector of sizeof(T) * V bytes
+template <typename T, int V>
+struct alignas(sizeof(T) * V) VecOf {
+  T v[V];
+};
+
+template <typename T, int V>
+struct VecIO {
+  using Raw = VecOf<T, V>;
+  static __device__ __forceinline__ Raw load(const T* p) {
+    return *reinterpret_cast<const Raw*>(p);
+  }
+  static __device__ __forceinline__ float at(const Raw& r, int k) {
+    return to_f32(r.v[k]);
+  }
+};
 
 // relu that lets a NaN through, as jnp.maximum(x, 0) and torch.relu do
 __device__ __forceinline__ float relu_f32(float v) { return (v > 0.f || v != v) ? v : 0.f; }

@@ -25,7 +25,7 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
@@ -117,6 +117,41 @@ def check_cuda_input(name: str, x: torch.Tensor) -> int:
 def stream_handle(device: torch.device) -> int:
     """PyTorch's current stream on ``device``, as a C pointer value."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+_sms: Dict[torch.device, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the card ``device``."""
+    if device not in _sms:
+        _sms[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sms[device]
+
+
+_scratch: Dict[Tuple[torch.device, str],
+               Tuple[torch.Tensor, torch.Tensor]] = {}
+_scratch_lock = threading.Lock()
+
+
+def split_scratch(device: torch.device, key: str, nbytes: int, tiles: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The workspace (at least ``nbytes`` bytes) and the int32 per-tile
+    arrival counters (at least ``tiles``, zero) of a kernel whose CTAs
+    write partials of a tile and whose last CTA to arrive adds them
+    (``key``: ``q_mm``'s split of K, ``bn_bwd_sums``'s row blocks),
+    cached per device and key. Each launch leaves its counters zero, and
+    launches on a device are ordered by its stream."""
+    with _scratch_lock:
+        ws, cnt = _scratch.get((device, key), (None, None))
+        if ws is None or ws.numel() < nbytes:
+            ws = torch.empty(nbytes, dtype=torch.uint8, device=device)
+        if cnt is None or cnt.numel() < tiles:
+            cnt = torch.zeros(max(tiles, 256), dtype=torch.int32,
+                              device=device)
+        _scratch[(device, key)] = (ws, cnt)
+        return ws, cnt
 
 
 def row_blocks(n: int, c: int) -> int:

@@ -43,12 +43,13 @@ all-reduce sums them with every other gradient leaf.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from .fused import (Kernel, check_cuda_input, register, row_blocks,
-                    stream_handle)
+                    sm_count, split_scratch, stream_handle)
 
 _P = ctypes.c_void_p
 BN_FWD = register(Kernel(
@@ -74,11 +75,88 @@ BN_NORM = register(Kernel(
 BN_BWD_SUMS = register(Kernel(
     "bn_bwd_sums", "bn_sync.cu",
     replaces="cxxnet_tpu/ops/fused_norm.py:322",
-    argtypes=[_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P]))
+    argtypes=[_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I,
+              _I64, _I, _I, _P]))
 BN_BWD_DX = register(Kernel(
     "bn_bwd_dx", "bn_sync.cu",
     replaces="cxxnet_tpu/ops/fused_norm.py:350",
     argtypes=[_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _P]))
+
+
+#: threads of a CTA of ``csrc/colsum_vec.cuh`` (its kVecThreads)
+COLSUM_VEC_THREADS = 256
+#: CTAs a SM the grid aims at: one wave of the CTAs a SM holds
+#: (kVecCtasPerSm)
+COLSUM_VEC_CTAS_PER_SM = 3
+#: rows a lane takes at least before the grid grows
+COLSUM_VEC_MIN_ROWS = 8
+
+
+class ColsumPlan(NamedTuple):
+    """The launch of ``csrc/colsum_vec.cuh`` over (n, c) rows: ``vec``
+    channels a load (16 bytes, or 1 where c or a base does not allow
+    it), ``cgt`` channel groups of ``vec`` a channel tile, ``lanes`` row
+    lanes a CTA, a grid of ``blocks`` row blocks of ``rows_per`` rows by
+    ``tiles`` channel tiles, and ``fvec`` partials the last CTA adds a
+    load. The scratch is ``blocks * 2 * c`` floats and ``tiles``
+    counters."""
+    vec: int
+    cgt: int
+    lanes: int
+    tiles: int
+    blocks: int
+    rows_per: int
+    fvec: int
+
+
+def colsum_vec_plan(n: int, c: int, itemsize: int, aligned: bool = True,
+                    sms: int = 132) -> ColsumPlan:
+    """The launch of the vectorised column sums over (n, c) rows of
+    ``itemsize``-byte elements: ``vec`` channels a thread loads as one
+    16-byte vector (1 when c is not a multiple of it or a base is not
+    ``aligned``); about sqrt(c / 64) channel tiles, so that the last
+    CTA of a tile adds few partials; row blocks to make
+    COLSUM_VEC_CTAS_PER_SM CTAs a SM of ``sms`` in all, each lane taking
+    at least COLSUM_VEC_MIN_ROWS rows."""
+    vw = 16 // itemsize
+    vec = vw if aligned and c % vw == 0 else 1
+    groups = c // vec
+    tiles = max(1, min(groups, round(math.sqrt(c / 64))),
+                -(-groups // COLSUM_VEC_THREADS))
+    cgt = -(-groups // tiles)
+    tiles = -(-groups // cgt)
+    lanes = COLSUM_VEC_THREADS // cgt
+    want = max(1, COLSUM_VEC_CTAS_PER_SM * sms // tiles)
+    blocks = max(1, min(want, -(-n // (lanes * COLSUM_VEC_MIN_ROWS))))
+    rows_per = -(-n // blocks)
+    blocks = -(-n // rows_per)
+    fvec = 4 if c % 4 == 0 and (cgt * vec) % 4 == 0 else 1
+    return ColsumPlan(vec, cgt, lanes, tiles, blocks, rows_per, fvec)
+
+
+def colsum_vec_runs(plan: ColsumPlan, cw: int) -> int:
+    """Runs of row blocks the last CTA of a tile of ``cw`` channels adds
+    apart (one per thread that a unit of ``fvec`` sums leaves)."""
+    units = 2 * cw // plan.fvec
+    return max(1, min(plan.blocks, COLSUM_VEC_THREADS // units))
+
+
+def colsum_vec_depth(plan: ColsumPlan, c: int) -> int:
+    """The longest chain of f32 additions behind one column sum of
+    ``csrc/colsum_vec.cuh`` under ``plan``: a lane's rows of its row
+    block, then the lanes, then a run of row blocks, then the runs. A
+    sum so taken is within ``depth * 2**-24`` times the sum of its
+    terms' magnitudes of the exact sum of its terms."""
+    tile = plan.cgt * plan.vec
+    fin = 0
+    for t in range(plan.tiles):
+        runs = colsum_vec_runs(plan, min(tile, c - t * tile))
+        fin = max(fin, -(-plan.blocks // runs) + runs)
+    return -(-plan.rows_per // plan.lanes) + plan.lanes + fin
+
+
+def _aligned(*ts) -> bool:
+    return all(t is None or t.data_ptr() % 16 == 0 for t in ts)
 
 
 def _check(x: torch.Tensor, gamma: torch.Tensor, act: str) -> None:
@@ -354,21 +432,26 @@ def bn_bwd_sums(x2: torch.Tensor, dy2: torch.Tensor,
                 y2: Optional[torch.Tensor], mean: torch.Tensor,
                 rstd: torch.Tensor) -> torch.Tensor:
     """(2, C) f32 ``[sum dy', sum dy' * x_hat]``: the ``bn_bwd_sums``
-    kernel on a CUDA tensor, :func:`bn_bwd_sums_plain` on a CPU one."""
+    kernel on a CUDA tensor (one launch under :func:`colsum_vec_plan`),
+    :func:`bn_bwd_sums_plain` on a CPU one."""
     code = _rows("bn_bwd_sums", x2, dy2, y2)
     if code is None:
         return bn_bwd_sums_plain(x2, dy2, y2, mean, rstd)
     _vecs("bn_bwd_sums", x2, mean=mean, rstd=rstd)
     n, c = x2.shape
-    g = row_blocks(n, c)
-    sums = torch.empty((2, c), dtype=torch.float32, device=x2.device)
-    part = torch.empty((2, g, c), dtype=torch.float32, device=x2.device)
-    with torch.cuda.device(x2.device):
+    dev = x2.device
+    plan = colsum_vec_plan(n, c, x2.element_size(), _aligned(x2, dy2, y2),
+                           sm_count(dev))
+    sums = torch.empty((2, c), dtype=torch.float32, device=dev)
+    part, cnt = split_scratch(dev, "bn_bwd_sums", 4 * plan.blocks * 2 * c,
+                              plan.tiles)
+    with torch.cuda.device(dev):
         BN_BWD_SUMS.launch(x2.data_ptr(), dy2.data_ptr(),
                            None if y2 is None else y2.data_ptr(),
                            mean.data_ptr(), rstd.data_ptr(), sums.data_ptr(),
-                           part.data_ptr(), n, c, g, code,
-                           stream_handle(x2.device))
+                           part.data_ptr(), cnt.data_ptr(), n, c, plan.vec,
+                           plan.cgt, plan.tiles, plan.blocks, plan.rows_per,
+                           plan.fvec, code, stream_handle(dev))
     return sums
 
 

@@ -27,6 +27,7 @@ first cell of the window, in row-major order, that equals the max
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -38,7 +39,36 @@ POOL_FWD = register(Kernel(
     argtypes=[ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-              ctypes.c_float, ctypes.c_void_p]))
+              ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+              ctypes.c_void_p]))
+
+#: window rows one output's threads split at most (a block's y)
+POOL_MAX_SPLIT = 16
+#: threads a block of the forward kernel aims at
+POOL_THREADS = 256
+
+
+class PoolPlan(NamedTuple):
+    """The launch of ``csrc/pool_fwd.cu``: ``vec`` channels a load (16
+    bytes, or 1), the window's rows split over ``ry`` threads (thread y
+    takes rows y, y + ry, ...) and ``bx`` output vectors a block."""
+    vec: int
+    ry: int
+    bx: int
+
+
+def pool_fwd_plan(c: int, kh: int, kw: int, itemsize: int,
+                  aligned: bool = True) -> PoolPlan:
+    """The forward kernel's launch over windows of kh x kw on C channels
+    of ``itemsize``-byte elements: 16-byte vectors where C and the bases
+    (``aligned``) allow, one thread a window row up to POOL_MAX_SPLIT
+    rows, and blocks of about POOL_THREADS threads, a whole warp of
+    output vectors at least."""
+    vw = 16 // itemsize
+    vec = vw if aligned and c % vw == 0 else 1
+    ry = min(kh, POOL_MAX_SPLIT)
+    bx = max(32, POOL_THREADS // ry // 32 * 32)
+    return PoolPlan(vec, ry, bx)
 
 
 POOL_BWD = register(Kernel(
@@ -121,10 +151,12 @@ def fused_pool(x: torch.Tensor, kh: int, kw: int, reducer: str,
     y = torch.empty((b, h // kh, w // kw, c), dtype=x.dtype, device=x.device)
     scale = (scale_in_dtype(1.0 / (kh * kw), x.dtype)
              if scale_avg and kh * kw != 1 else 1.0)
+    plan = pool_fwd_plan(c, kh, kw, x.element_size(),
+                         (x.data_ptr() | y.data_ptr()) % 16 == 0)
     with torch.cuda.device(x.device):
         POOL_FWD.launch(x.data_ptr(), y.data_ptr(), b, h, w, c, kh, kw,
                         code, int(reducer == "max"), int(pre_relu), scale,
-                        stream_handle(x.device))
+                        plan.vec, plan.ry, plan.bx, stream_handle(x.device))
     return y
 
 

@@ -44,12 +44,12 @@ from __future__ import annotations
 import collections
 import ctypes
 import threading
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from .fused import Kernel, register, stream_handle
+from .fused import Kernel, register, sm_count, split_scratch, stream_handle
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 Q_MM = register(Kernel(
@@ -115,31 +115,6 @@ def padded_k(k: int) -> int:
     """K rounded up to a multiple of 16: the conv's operand rows are
     then multiples of 16 bytes."""
     return -(-k // 16) * 16
-
-
-_ws: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
-_sms: Dict[torch.device, int] = {}
-
-
-def _split_buffers(dev: torch.device, ints: int, tiles: int):
-    """The split's int32 workspace (at least ``ints``) and per-tile
-    arrival counters (at least ``tiles``, zero: each launch leaves them
-    zero), cached per device; launches on a device are ordered by its
-    stream."""
-    with _lock:
-        ws, cnt = _ws.get(dev, (None, None))
-        if ws is None or ws.numel() < ints:
-            ws = torch.empty(ints, dtype=torch.int32, device=dev)
-        if cnt is None or cnt.numel() < tiles:
-            cnt = torch.zeros(max(tiles, 256), dtype=torch.int32, device=dev)
-        _ws[dev] = (ws, cnt)
-        return ws, cnt
-
-
-def _sm_count(dev: torch.device) -> int:
-    if dev not in _sms:
-        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    return _sms[dev]
 
 
 def quantize_act(x: torch.Tensor, act_scale: torch.Tensor) -> torch.Tensor:
@@ -244,15 +219,15 @@ def q_mm(xq: torch.Tensor, wt: torch.Tensor, factor: torch.Tensor,
         if name in ("factor", "bias") and v.dtype != torch.float32:
             raise TypeError(f"q_mm: {name} must be float32, got {v.dtype}")
     dev = xq.device
-    plan = q_mm_plan(m, k, n, groups, _sm_count(dev))
+    plan = q_mm_plan(m, k, n, groups, sm_count(dev))
     # the copy ring wants rows of a multiple of 16 bytes (the conv pads K)
     aligned = (k % 16 == 0 and xq.data_ptr() % 16 == 0
                and wt.data_ptr() % 16 == 0)
     y = torch.empty((m, groups * n), dtype=torch.float32, device=dev)
     ws = cnt = None
     if plan.splits > 1:
-        ws, cnt = _split_buffers(dev, plan.tiles * plan.splits * plan.bm
-                                 * Q_MM_BN, plan.tiles)
+        ws, cnt = split_scratch(dev, "q_mm", 4 * plan.tiles * plan.splits
+                                * plan.bm * Q_MM_BN, plan.tiles)
     with torch.cuda.device(dev):
         Q_MM.launch(xq.data_ptr(), wt.data_ptr(), factor.data_ptr(),
                     None if bias is None else bias.data_ptr(), y.data_ptr(),

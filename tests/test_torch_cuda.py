@@ -16,13 +16,14 @@ from cxxnet_tpu_torch.ops.fused_epilogue import (bias_act_plain,
                                                  epilogue_bwd_plain,
                                                  fused_bias_act,
                                                  fused_epilogue_bwd)
-from cxxnet_tpu_torch.ops.fused import colsum_depth
+from cxxnet_tpu_torch.ops.fused import colsum_depth, sm_count
 from cxxnet_tpu_torch.ops.fused_norm import (bn_act_plain, bn_bwd,
                                              bn_bwd_dx, bn_bwd_dx_plain,
                                              bn_bwd_plain, bn_bwd_sums,
                                              bn_bwd_sums_plain, bn_fwd,
                                              bn_norm, bn_norm_plain, bn_sums,
-                                             bn_sums_plain)
+                                             bn_sums_plain, colsum_vec_depth,
+                                             colsum_vec_plan)
 from cxxnet_tpu_torch.ops import attention as att
 from cxxnet_tpu_torch.ops.fused_optim import (adam_apply_plain,
                                               fused_adam_apply,
@@ -75,6 +76,60 @@ def test_pool_kernel_matches_plain(dev, dtype, shape, kh, kw, red, avg, relu):
     tol = 0.0 if red == "max" else ULP[dtype]
     err = (got.float() - want.float()).abs()
     assert bool((err <= tol * want.float().abs() + 1e-6).all()), err.max()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape,kh,kw,red,avg,relu", [
+    ((1, 7, 7, 1024), 7, 7, "sum", True, False),    # buckets 1, 5, 32
+    ((5, 7, 7, 1024), 7, 7, "sum", True, False),
+    ((32, 7, 7, 1024), 7, 7, "max", False, False),
+    ((100, 8, 8, 32), 2, 2, "max", False, False),   # the digits LeNet
+    ((100, 8, 8, 32), 2, 2, "max", False, True),
+    ((3, 56, 56, 24), 56, 56, "sum", True, True),   # window rows split 16
+])
+def test_pool_kernel_at_the_paths_windows_matches_plain(dev, dtype, shape, kh,
+                                                        kw, red, avg, relu):
+    """The compiled 7x7 and 2x2 windows and a 56x56 one: max equal, sum
+    and avg within one ulp of the dtype."""
+    x = _randn(shape, dtype, dev, seed=5)
+    got = fused_pool(x, kh, kw, red, avg, relu)
+    want = pool_fwd_plain(x, kh, kw, red, avg, relu)
+    tol = 0.0 if red == "max" else ULP[dtype]
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= tol * want.float().abs() + 1e-6).all()), err.max()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("red", ["max", "sum"])
+@pytest.mark.parametrize("shape,k", [((4, 7, 7, 64), 7), ((6, 8, 8, 32), 2),
+                                     ((2, 9, 9, 12), 3)])
+def test_pool_kernel_keeps_a_nan(dev, dtype, red, shape, k):
+    """A NaN in a window wins in max and in sum, as in the plain version,
+    whether it is a window's first cell or its last; the other windows
+    match it (max equal, sum one ulp)."""
+    x = _randn(shape, dtype, dev, seed=6)
+    x[0, 0, 0, ::2] = float("nan")
+    x[1, k - 1, k - 1, 1::3] = float("nan")
+    got = fused_pool(x, k, k, red, False, True)
+    want = pool_fwd_plain(x, k, k, red, False, True)
+    nan = want.isnan()
+    assert bool(nan.any()) and bool((~nan).any())
+    assert torch.equal(got.isnan(), nan)
+    tol = 0.0 if red == "max" else ULP[dtype]
+    err = (got.float() - want.float()).abs()[~nan]
+    assert bool((err <= tol * want.float().abs()[~nan] + 1e-6).all())
+
+
+def test_pool_kernel_takes_a_base_past_a_16_byte_boundary(dev):
+    """x 2 bytes past a boundary: the one-element loads, one ulp."""
+    buf = _randn((2 * 7 * 7 * 1024 + 1,), torch.bfloat16, dev, seed=7)
+    x = buf[1:].view(2, 7, 7, 1024)
+    assert x.data_ptr() % 16 != 0
+    got = fused_pool(x, 7, 7, "sum", True, False)
+    want = pool_fwd_plain(x, 7, 7, "sum", True, False)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= ULP[torch.bfloat16] * want.float().abs()
+                 + 1e-6).all())
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -155,11 +210,10 @@ def test_bn_kernels_match_plain(dev, dtype, relu, two_pass, n, c):
     assert dx.dtype == dtype and _ulp_ok(dx, dx0, dtype, 1e-3)
 
 
-def _sums_ok(got, terms_a, terms_b, n):
+def _sums_ok(got, terms_a, terms_b, depth):
     """(2, C) f32 column sums against the exact (f64) sums of their f32
-    terms: within colsum.cuh's depth times 2^-24 of the terms'
-    magnitudes."""
-    depth = colsum_depth(n, terms_a.shape[1])
+    terms: within ``depth`` (the kernel's longest addition chain) times
+    2^-24 of the terms' magnitudes."""
     for row, t in zip(got, (terms_a, terms_b)):
         exact = t.double().sum(0)
         bound = depth * 2.0 ** -24 * t.double().abs().sum(0)
@@ -175,7 +229,8 @@ def _sums_ok(got, terms_a, terms_b, n):
 def test_sync_bn_kernels_match_plain(dev, dtype, relu, n, c):
     """The four data-parallel BN kernels against their plain versions on
     the same inputs: the sums within the summation-order bound of their
-    exact value (``_sums_ok``); y and dx
+    exact value with each kernel's own addition depth (``_sums_ok``);
+    y and dx
     within 4 f32 ulp of max|plain| in float32 and one ulp in bf16/f16
     (both compute the same rounded f32 operations)."""
     act = "relu" if relu else "none"
@@ -185,7 +240,7 @@ def test_sync_bn_kernels_match_plain(dev, dtype, relu, n, c):
     s = bn_sums(x)
     xf = x.float()
     assert s.dtype == torch.float32 and s.shape == (2, c)
-    assert _sums_ok(s, xf, xf * xf, n)
+    assert _sums_ok(s, xf, xf * xf, colsum_depth(n, c))
     s0 = bn_sums_plain(x)
     mean = s0[0] / n
     rstd = torch.rsqrt(torch.clamp(s0[1] / n - mean * mean, min=0) + 1e-5)
@@ -198,12 +253,76 @@ def test_sync_bn_kernels_match_plain(dev, dtype, relu, n, c):
     bs = bn_bwd_sums(x, dy, yy, mean, rstd)
     d = dy.float() if yy is None else torch.where(
         yy.float() > 0, dy.float(), torch.zeros_like(dy, dtype=torch.float32))
-    assert _sums_ok(bs, d, d * ((xf - mean) * rstd), n)
+    plan = colsum_vec_plan(n, c, x.element_size(), True, sm_count(dev))
+    assert _sums_ok(bs, d, d * ((xf - mean) * rstd),
+                    colsum_vec_depth(plan, c))
     bs0 = bn_bwd_sums_plain(x, dy, yy, mean, rstd)
     dx = bn_bwd_dx(x, dy, yy, g, mean, rstd, bs0[0] / n, bs0[1] / n)
     dx0 = bn_bwd_dx_plain(x, dy, yy, g, mean, rstd, bs0[0] / n, bs0[1] / n)
     tol = 4 * 2.0 ** -23 * dx0.float().abs().max().item()
     assert dx.dtype == dtype and _ulp_ok(dx, dx0, dtype, tol)
+
+
+def _bwd_inputs(n, c, dtype, dev, offset=0):
+    """Seeded x, dy, y (n, c) rows, ``offset`` elements past a 16-byte
+    boundary, and f32 moments."""
+    def rows(seed, scale, shift):
+        t = _randn((n * c + offset,), torch.float32, dev, seed) * scale
+        return (t + shift).to(dtype)[offset:].view(n, c)
+    x, dy, y = rows(11, 1.5, 0.25), rows(12, 1.0, 0.0), rows(13, 1.0, 0.0)
+    mean = x.float().mean(0)
+    rstd = torch.rsqrt(x.float().var(0, unbiased=False) + 1e-5)
+    return x, dy, y, mean, rstd
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("n,c", [(64 * 112 * 112, 64), (64 * 7 * 7, 1024),
+                                 (1000, 1500), (333, 7)])
+def test_bn_bwd_sums_reruns_bit_equal_and_in_its_emulated_order(dev, dtype,
+                                                                n, c):
+    """One launch; two runs on the same input agree bit for bit (no
+    float atomics), and both equal the emulation of the kernel's order
+    of additions (``tests/torch_colsum_order.py``) bit for bit."""
+    import torch_colsum_order as order
+    from cxxnet_tpu_torch.ops.fused_norm import BN_BWD_SUMS
+    x, dy, y, mean, rstd = _bwd_inputs(n, c, dtype, dev)
+    before = BN_BWD_SUMS.launches
+    a = bn_bwd_sums(x, dy, y, mean, rstd)
+    b = bn_bwd_sums(x, dy, y, mean, rstd)
+    torch.cuda.synchronize()
+    assert BN_BWD_SUMS.launches == before + 2
+    assert torch.equal(a, b)
+    plan = colsum_vec_plan(n, c, x.element_size(), True, sm_count(dev))
+    terms = order.bwd_sums_terms(x.float().cpu().numpy(),
+                                 dy.float().cpu().numpy(),
+                                 y.float().cpu().numpy(),
+                                 mean.cpu().numpy(), rstd.cpu().numpy())
+    for row, t in zip(a.cpu().numpy(), terms):
+        want, _ = order.colsum_vec_sum(t, plan)
+        assert (row.view("u4") == want.view("u4")).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("n,c,offset", [(12345, 64, 1), (12345, 64, 3),
+                                        (999, 7, 0), (500, 36, 1),
+                                        (4099, 1, 1)])
+def test_bn_bwd_sums_narrow_loads_match_plain(dev, dtype, relu, n, c,
+                                              offset):
+    """Odd C and bases past a 16-byte boundary take the one-element
+    loads: within the order-of-summation bound of the exact sums, and
+    the plain version's within the same."""
+    x, dy, y, mean, rstd = _bwd_inputs(n, c, dtype, dev, offset)
+    yy = y if relu else None
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, dy, y))
+    plan = colsum_vec_plan(n, c, x.element_size(), aligned, sm_count(dev))
+    assert plan.vec == 1 and aligned == (offset == 0)
+    got = bn_bwd_sums(x, dy, yy, mean, rstd)
+    xf = x.float()
+    d = dy.float() if yy is None else torch.where(
+        yy.float() > 0, dy.float(), torch.zeros_like(xf))
+    assert _sums_ok(got, d, d * ((xf - mean) * rstd),
+                    colsum_vec_depth(plan, c))
 
 
 def test_sync_bn_kernels_launch_once_and_refuse(dev):
