@@ -3,6 +3,11 @@
 
     python3 chip_smoke.py [--seed 0] [--conf examples/ImageNet/inception_bn.conf]
                           [--json OUT.json]
+    python3 chip_smoke.py --ab PARENT . . PARENT   # A/B of two checkouts
+
+With ``--ab``, only the batch-norm backward kernels are timed, in each
+checkout root given, in turn, one process each (``bn_bwd`` as phase 6
+times it, the four sync-BN kernels as phase 11 does).
 
 Phases, each printing one line of its own; any failure exits non-zero
 and prints no result:
@@ -75,7 +80,13 @@ and prints no result:
             state: loss rtol 1e-4, update rel L2 median 5e-2 and worst
             leaf 0.15, BN statistics 1e-3. The written round is loaded
             and served a finite answer; the train step and each
-            training kernel are timed.
+            training kernel are timed; ``bn_bwd`` also by launch beside
+            the library call's launches, and beside the two-pass byte
+            floors (7 streams with y read twice, 6.125 with the mask
+            bits it reads) as well as the table's 4-stream bound. With
+            the kernels, ``bn_bwd``'s dx (its dx pass reads the mask
+            bits) is held bit-equal to ``bn_bwd_dx``'s (which reads y)
+            given the same sums.
 7. lm:      the long-context causal LM (``examples/LM/long_context_lm
             .conf``: E 128, 8 heads of 16 with rope, ffn 512, S 2048,
             batch 8, bf16, remat, Adam) trained through ``main.run``
@@ -289,7 +300,9 @@ PERF_BEFORE_MS = {"flash_fwd": "0.8869 ms",
                   "q_mm conv1 b32": "0.1640 ms",
                   "q_mm fc6 b32": "0.1918 ms warm",
                   "bn_bwd_sums": "0.1768 ms",
-                  "pool_fwd": "0.00923 ms"}
+                  "pool_fwd": "0.00923 ms",
+                  "bn_bwd": "0.7367 ms",
+                  "bn_bwd_dx": "0.1889 ms"}
 TRAIN_BATCH = 128       # the flagship's batch_size
 TRAIN_STEPS = 4         # 512 synthetic rows
 TRAIN_IMAGE, TRAIN_CLASSES = "3,224,224", 1000
@@ -461,9 +474,11 @@ def profile_calls(fn, n: int = 5, what: str = "forward") -> str:
 
 
 def launch_breakdown(fn, n: int = 20) -> str:
-    """torch.profiler over ``n`` calls of ``fn``: device time and launches
-    per call of each kernel it launches, by name (a wrapper that makes
-    more than one launch shows each apart)."""
+    """torch.profiler over ``n`` calls of ``fn``: the mean device time of
+    a launch and the launches per call of each kernel it launches, by
+    name (a wrapper that makes more than one launch shows each apart; a
+    trace that lost events shows fewer launches a call, not a shorter
+    time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -480,7 +495,7 @@ def launch_breakdown(fn, n: int = 20) -> str:
             by_name[e.name] = (t + e.device_time_total, k + 1)
     if not by_name:
         return "no device events in the trace (not measured)"
-    return ", ".join(f"{name.split('(')[0][:48]} {t / n:.2f} us x{k / n:g}"
+    return ", ".join(f"{name.split('(')[0][:48]} {t / k:.2f} us x{k / n:g}"
                      for name, (t, k) in sorted(by_name.items(),
                                                 key=lambda kv: -kv[1][0]))
 
@@ -532,7 +547,7 @@ def phase_build():
 
 #: the sources whose every kernel's registers and spills phase 2 prints
 REPORT_PTXAS = ("flash_fwd.cu", "flash_bwd.cu", "q_mm.cu", "bn_sync.cu",
-                "pool_fwd.cu")
+                "bn_bwd.cu", "pool_fwd.cu")
 
 
 def ptxas_functions(log: str):
@@ -544,7 +559,8 @@ def ptxas_functions(log: str):
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             k = re.search(r"(flash_\w+?_(?:tc|kernel)|q_mm_kernel|"
-                          r"colsum_vec|pool_fwd_kernel)I(\w+)", m.group(1))
+                          r"colsum_vec|bn_dx_vec|pool_fwd_kernel)I(\w+)",
+                          m.group(1))
             if k is None:
                 name = m.group(1)
             else:
@@ -699,7 +715,8 @@ def phase_train_kernels(gen: torch.Generator, conf: str) -> dict:
     from cxxnet_tpu_torch.ops.fused_epilogue import (epilogue_bwd_plain,
                                                      fused_epilogue_bwd)
     from cxxnet_tpu_torch.ops.fused_norm import (bn_act_plain, bn_bwd,
-                                                 bn_bwd_plain, bn_fwd)
+                                                 bn_bwd_dx, bn_bwd_plain,
+                                                 bn_fwd)
     from cxxnet_tpu_torch.ops.fused_optim import (fused_sgd_apply,
                                                   sgd_apply_plain)
     from cxxnet_tpu_torch.ops.fused_pool import (fused_pool_bwd_lin,
@@ -733,7 +750,13 @@ def phase_train_kernels(gen: torch.Generator, conf: str) -> dict:
         yy = y if relu else None
         dx, dg, db = bn_bwd(x, dy, yy, g, mean, rstd)
         dx0, dg0, db0 = bn_bwd_plain(x, dy, yy, g, mean, rstd)
+        # bn_bwd_dx reads y, bn_bwd's dx pass the mask bits: with the same
+        # sums over N (divided once, as bn_bwd does) the same dx
+        dxy = bn_bwd_dx(x, dy, yy, g, mean, rstd, (db.double() / n).float(),
+                        (dg.double() / n).float())
         torch.cuda.synchronize()
+        ints = torch.int32 if dt == torch.float32 else torch.int16
+        same_y = torch.equal(dx.view(ints), dxy.view(ints))
         stat = max((mean - mean0).abs().max().item(),
                    ((var - var0).abs() / var0.clamp(min=1e-6)).max().item())
         ey, bad_y = ulp_bad(y, y0, dt, 1e-4)
@@ -743,12 +766,13 @@ def phase_train_kernels(gen: torch.Generator, conf: str) -> dict:
         lines.append(f"bn ({n},{c}) {str(dt)[6:]} relu={int(relu)} "
                      f"two_pass={int(two_pass)}: y {ey.max().item():.3g}, "
                      f"stats {stat:.3g}, dx {edx.max().item():.3g}, "
-                     f"dgamma/dbeta {egb:.3g}")
-        if bad_y or bad_dx or stat > 1e-4 or egb > 1e-3:
+                     f"dgamma/dbeta {egb:.3g}, dx = bn_bwd_dx's with its "
+                     f"sums {same_y}")
+        if bad_y or bad_dx or stat > 1e-4 or egb > 1e-3 or not same_y:
             raise AssertionError(
                 "bn kernels disagree (tol: y one ulp + 1e-4, dx one ulp + "
-                "1e-3, stats 1e-4, dgamma/dbeta 1e-3 of |v| + 1): "
-                + lines[-1])
+                "1e-3, stats 1e-4, dgamma/dbeta 1e-3 of |v| + 1; dx "
+                "bit-equal to bn_bwd_dx's with the same sums): " + lines[-1])
         if (n, c) == bn_shapes[0]:
             path_err["bn_fwd"] = ey.max().item()
             path_err["bn_bwd"] = edx.max().item()
@@ -1631,6 +1655,85 @@ def phase_train_f32(batches, weights, glob) -> dict:
                       for dl, md, w, st in out]}
 
 
+#: the batch-norm backward's traffic in streams of N * C elements when it
+#: reads the rows twice: the sums pass reads x, dy and y; the dx pass reads
+#: x, dy and y again and writes dx (7), or reads the mask bits that the
+#: sums pass wrote, 1/16 of a bf16 stream each way, in place of y (6.125)
+BN_BWD_STREAMS = {"y": 7.0, "bits": 6.125}
+
+
+def bn_bwd_times(gen: torch.Generator) -> dict:
+    """``bn_bwd`` at bn_stem1 at batch 128 (bf16, relu): CUDA-graph times
+    of the wrapper, its plain version and
+    ``aten.native_batch_norm_backward``, and both by launch (profiler);
+    the table's bound (4 streams: the rows read once) beside the two-pass
+    floors of BN_BWD_STREAMS. Prints one line; returns the kernel table's
+    row."""
+    from cxxnet_tpu_torch.ops.fused_norm import bn_bwd, bn_bwd_plain, bn_fwd
+    dev = gen.device
+    bf = torch.bfloat16
+    n, c = TRAIN_BATCH * 112 * 112, 64                  # bn_stem1
+    x = torch.randn((n, c), generator=gen, device=dev).to(bf) * 1.5
+    g = torch.rand((c,), generator=gen, device=dev) + 0.5
+    be = torch.randn((c,), generator=gen, device=dev) * 0.1
+    y, mean, var, rstd = bn_fwd(x, g, be, 1e-10, "relu")
+    dy = torch.randn((n, c), generator=gen, device=dev).to(bf)
+    w16 = g.to(bf)
+    _, smean, sinv = torch.ops.aten.native_batch_norm(
+        x, w16, be.to(bf), None, None, True, 0.1, 1e-10)
+    ours = lambda: bn_bwd(x, dy, y, g, mean, rstd)
+    lib = lambda: torch.ops.aten.native_batch_norm_backward(
+        dy, x, w16, None, None, smean, sinv, True, 1e-10, [True, True, True])
+    row = dict(
+        ms=time_call(ours),
+        plain_ms=time_call(lambda: bn_bwd_plain(x, dy, y, g, mean, rstd)),
+        library_ms=time_call(lib),
+        bound=bound_ms(4 * n * c * 2, 12 * n * c),
+        shape=f"bn_stem1 ({n},{c}) bf16 relu",
+        library="aten.native_batch_norm_backward, no relu mask")
+    floor = {k: v * n * c * 2 / HBM_BYTES_PER_S * 1e3
+             for k, v in BN_BWD_STREAMS.items()}
+    print(f"times (bn_bwd) at bn_stem1 ({n},{c}) bf16 relu: "
+          f"{row['ms'] * 1e3:.2f} us | bound {row['bound'][0] * 1e3:.2f} us (4 streams: the rows "
+          f"read once); two-pass floors {floor['y'] * 1e3:.2f} us (7 "
+          f"streams, y read twice), {floor['bits'] * 1e3:.2f} us (6.125, "
+          f"the mask bits) | {row['library']} "
+          f"{row['library_ms'] * 1e3:.2f} us | by launch: "
+          f"{launch_breakdown(ours)} | the library by launch: "
+          f"{launch_breakdown(lib)}", flush=True)
+    return row
+
+
+def ab_times(gen: torch.Generator) -> None:
+    """The times of the kernels this tree's ``bn_bwd_vec.cuh`` design
+    touches, for an A/B of two trees (``--ab``): ``bn_bwd`` as
+    :func:`bn_bwd_times` takes it, and the four sync-BN kernels as
+    :func:`phase_dp_times` does. Prints them as one JSON line."""
+    r = bn_bwd_times(gen)
+    dp = phase_dp_times(gen)["kernels"]
+    print("ab: " + json.dumps({"bn_bwd": r["ms"],
+                               **{k: v["ms"] for k, v in dp.items()}}),
+          flush=True)
+
+
+def run_ab(trees, seed: int) -> int:
+    """:func:`ab_times` of each checkout root in ``trees`` in turn, one
+    process each, on the kernels built from that tree's sources (this
+    file's timing code throughout). Returns the first non-zero exit."""
+    print(phase_env(), flush=True)
+    for tree in trees:
+        tree = os.path.abspath(tree)
+        code = (f"import sys, runpy, torch; sys.path.insert(0, {tree!r}); "
+                f"m = runpy.run_path({os.path.abspath(__file__)!r}); "
+                f"m['ab_times'](torch.Generator(device='cuda')"
+                f".manual_seed({seed}))")
+        print(f"ab: tree {tree}", flush=True)
+        rc = subprocess.run([sys.executable, "-c", code], cwd=tree).returncode
+        if rc != 0:
+            return rc
+    return 0
+
+
 def phase_train_times(tr, plain, batches, gen) -> dict:
     """CUDA-event times of a train step (one host batch, H2D included)
     with the kernels and with fused_kernels = 0, and of each kernel at
@@ -1642,8 +1745,7 @@ def phase_train_times(tr, plain, batches, gen) -> dict:
     from cxxnet_tpu_torch.ops.fused_epilogue import (
         bias_act_plain, epilogue_bwd_plain, fused_bias_act,
         fused_epilogue_bwd)
-    from cxxnet_tpu_torch.ops.fused_norm import (bn_act_plain, bn_bwd,
-                                                 bn_bwd_plain, bn_fwd)
+    from cxxnet_tpu_torch.ops.fused_norm import bn_act_plain, bn_fwd
     from cxxnet_tpu_torch.ops.fused_pool import (fused_pool_bwd_lin,
                                                  pool_bwd_lin_plain)
     b0 = batches[0]
@@ -1661,11 +1763,7 @@ def phase_train_times(tr, plain, batches, gen) -> dict:
     x = rnd((n, c)) * 1.5
     g = torch.rand((c,), generator=gen, device=dev) + 0.5
     be = torch.randn((c,), generator=gen, device=dev) * 0.1
-    y, mean, var, rstd = bn_fwd(x, g, be, 1e-10, "relu")
-    dy = rnd((n, c))
     w16, b16 = g.to(bf), be.to(bf)
-    _, smean, sinv = torch.ops.aten.native_batch_norm(
-        x, w16, b16, None, None, True, 0.1, 1e-10)
     xp = rnd((TRAIN_BATCH, 7, 7, 1024))
     dyp = rnd((TRAIN_BATCH, 1, 1, 1024))
     xe, dye = rnd((TRAIN_BATCH, 1000)), rnd((TRAIN_BATCH, 1000))
@@ -1691,17 +1789,7 @@ def phase_train_times(tr, plain, batches, gen) -> dict:
             bound=bound_ms(2 * n * c * 2, 8 * n * c),
             shape=f"bn_stem1 ({n},{c}) bf16 relu",
             library="F.batch_norm(training=True), bf16 weights, no relu"),
-        "bn_bwd": dict(
-            ms=time_call(lambda: bn_bwd(x, dy, y, g, mean, rstd)),
-            plain_ms=time_call(lambda: bn_bwd_plain(x, dy, y, g, mean,
-                                                    rstd)),
-            library_ms=time_call(
-                lambda: torch.ops.aten.native_batch_norm_backward(
-                    dy, x, w16, None, None, smean, sinv, True, 1e-10,
-                    [True, True, True])),
-            bound=bound_ms(4 * n * c * 2, 12 * n * c),
-            shape=f"bn_stem1 ({n},{c}) bf16 relu",
-            library="aten.native_batch_norm_backward, no relu mask"),
+        "bn_bwd": bn_bwd_times(gen),
         "pool_fwd": pool_fwd_row(xp),
         "pool_bwd": dict(
             ms=time_call(lambda: fused_pool_bwd_lin(dyp, 7, 7, True)),
@@ -3701,11 +3789,16 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--conf", default=FLAGSHIP)
     ap.add_argument("--json", default="", help="also write the results here")
+    ap.add_argument("--ab", nargs="+", metavar="TREE",
+                    help="only time the BN backward kernels of each checkout "
+                         "root in turn (e.g. parent change change parent)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs the "
               "port on the card only", file=sys.stderr, flush=True)
         return 2
+    if args.ab:
+        return run_ab(args.ab, args.seed)
     from cxxnet_tpu_torch.ops import KERNELS
     from cxxnet_tpu_torch.serve import InferenceEngine
     t_start = time.perf_counter()

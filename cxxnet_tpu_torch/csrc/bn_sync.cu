@@ -22,18 +22,24 @@
 //
 // Design: bn_sums takes the two-stage column sums of colsum.cuh (a grid of
 // row-block CTAs, each thread one channel of a coalesced row read; the
-// partials added per channel in a fixed order by a finalize kernel);
-// bn_bwd_sums the one-launch vectorised column sums of colsum_vec.cuh
-// (16-byte loads, the last CTA adds the partials). Both add in a fixed
-// order, so two runs on the same input agree bit for bit and so do both
-// ranks' reductions of the same rows. They write into one (2, C) f32
-// buffer, the buffer the caller all-reduces in one call. The elementwise
-// passes are grid-stride loops; every multiply and add is a rounded f32
-// operation in the order of the plain PyTorch version (no contraction
-// into an FMA). Any N and C: the TPU kernel's row-block divisibility does
-// not apply.
+// partials added per channel in a fixed order by a finalize kernel).
+// bn_bwd_sums and bn_bwd_dx are the two passes of bn_bwd_vec.cuh, which
+// bn_bwd (bn_bwd.cu) launches back to back on one device's rows: the
+// one-launch vectorised column sums of colsum_vec.cuh (16-byte loads, the
+// last CTA adds the partials), and the vectorised dx pass (a thread keeps
+// its 16 bytes of channels and their constants for its whole loop, SB/N
+// and SXH/N handed in). The sums add in a fixed order, so two runs on the
+// same input agree bit for bit and so do both ranks' reductions of the
+// same rows. They write into one (2, C) f32 buffer, the buffer the caller
+// all-reduces in one call. bn_norm is a grid-stride loop. Every multiply
+// and add is a rounded f32 operation in the order of the plain PyTorch
+// version (no contraction into an FMA). Any N and C: the TPU kernel's
+// row-block divisibility does not apply. At bn_stem1 per rank on an
+// NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py --ab) bn_bwd_dx takes
+// 0.1373 ms, 1.12x its bound (a scalar grid-stride loop took 0.1903;
+// torch.batch_norm_backward_elemt 0.1538, reading no mask).
 #include "colsum.cuh"
-#include "colsum_vec.cuh"
+#include "bn_bwd_vec.cuh"
 
 template <typename T>
 struct Moments {  // a += x, b += x * x
@@ -42,60 +48,6 @@ struct Moments {  // a += x, b += x * x
     const float v = to_f32(x[i]);
     a += v;
     b += __fmul_rn(v, v);
-  }
-};
-
-template <typename T>
-__device__ __forceinline__ float masked_grad(const T* dy, const T* y,
-                                             int64_t i) {
-  const float d = to_f32(dy[i]);
-  if (y != nullptr && !(to_f32(y[i]) > 0.f)) return 0.f;
-  return d;
-}
-
-// a[k] += dy'[k], b[k] += dy'[k] * x_hat[k] over V channels a load
-template <typename T, int V_, bool RELU>
-struct BwdSumsVec {
-  static constexpr int V = V_;
-  using IO = VecIO<T, V>;
-  struct Row {
-    typename IO::Raw x, dy, y;
-  };
-  struct Consts {
-    float mean[V], rstd[V];
-  };
-  const T* x;
-  const T* dy;
-  const T* y;
-  const float* mean;
-  const float* rstd;
-  __device__ Consts consts(int c0) const {
-    Consts k;
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      k.mean[j] = mean[c0 + j];
-      k.rstd[j] = rstd[c0 + j];
-    }
-    return k;
-  }
-  __device__ Row load(int64_t i) const {
-    Row r;
-    r.x = IO::load(x + i);
-    r.dy = IO::load(dy + i);
-    if (RELU) r.y = IO::load(y + i);
-    return r;
-  }
-  __device__ void add(const Row& r, const Consts& k, float* a,
-                      float* b) const {
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      float d = IO::at(r.dy, j);
-      if (RELU && !(IO::at(r.y, j) > 0.f)) d = 0.f;
-      const float xh = __fmul_rn(__fsub_rn(IO::at(r.x, j), k.mean[j]),
-                                 k.rstd[j]);
-      a[j] = __fadd_rn(a[j], d);
-      b[j] = __fadd_rn(b[j], __fmul_rn(d, xh));
-    }
   }
 };
 
@@ -128,36 +80,6 @@ __global__ void sync_normalize(const T* __restrict__ x,
   }
 }
 
-template <typename T>
-__global__ void sync_dx(const T* __restrict__ x, const T* __restrict__ dy,
-                        const T* __restrict__ y,
-                        const float* __restrict__ gamma,
-                        const float* __restrict__ mean,
-                        const float* __restrict__ rstd,
-                        const float* __restrict__ sbn,
-                        const float* __restrict__ sxhn, T* __restrict__ dx,
-                        int64_t n, int C) {
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += step) {
-    const int c = (int)(i % C);
-    const float d = masked_grad(dy, y, i);
-    const float xh = __fmul_rn(__fsub_rn(to_f32(x[i]), mean[c]), rstd[c]);
-    const float g = __fmul_rn(gamma[c], rstd[c]);
-    const float t = __fsub_rn(__fsub_rn(d, sbn[c]), __fmul_rn(xh, sxhn[c]));
-    dx[i] = from_f32<T>(__fmul_rn(g, t));
-  }
-}
-
-// runs the statement(s) with T the element type of dtype code `dtype`
-#define DISPATCH(dtype, ...)                                       \
-  switch (dtype) {                                                 \
-    case kF32: { using T = float; __VA_ARGS__; } break;            \
-    case kBF16: { using T = __nv_bfloat16; __VA_ARGS__; } break;   \
-    case kF16: { using T = __half; __VA_ARGS__; } break;           \
-    default: return (int)cudaErrorInvalidValue;                    \
-  }
-
 // x: (N, C) of dtype code `dtype`; sums: (2, C) f32 output, row 0 S1 and
 // row 1 S2; part: 2 * G * C f32 scratch. Returns a cudaError_t.
 extern "C" int bn_sums(const void* x, float* sums, float* part, int64_t N,
@@ -184,48 +106,6 @@ extern "C" int bn_norm(const void* x, const float* gamma, const float* beta,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int V, bool RELU>
-static void launch_bwd_sums(const void* x, const void* dy, const void* y,
-                            const float* mean, const float* rstd, float* sums,
-                            float* part, unsigned* counters, int64_t N, int C,
-                            int cgt, int tiles, int blocks, int64_t rows_per,
-                            int fvec, cudaStream_t s) {
-  const BwdSumsVec<T, V, RELU> op{(const T*)x, (const T*)dy, (const T*)y,
-                                  mean, rstd};
-  colsum_vec<<<dim3(blocks, tiles), kVecThreads, 0, s>>>(
-      op, N, C, cgt, rows_per, fvec, part, counters, sums);
-}
-
-template <typename T>
-static int bwd_sums_typed(const void* x, const void* dy, const void* y,
-                          const float* mean, const float* rstd, float* sums,
-                          float* part, unsigned* counters, int64_t N, int C,
-                          int vec, int cgt, int tiles, int blocks,
-                          int64_t rows_per, int fvec, cudaStream_t s) {
-  constexpr int VW = 16 / sizeof(T);
-  const int groups = vec == VW ? C / VW : C;
-  const auto aligned = [](const void* p) {
-    return ((uintptr_t)p & 15) == 0;
-  };
-  if (vec != 1 && (vec != VW || C % VW || !aligned(x) || !aligned(dy) ||
-                   (y != nullptr && !aligned(y))))
-    return (int)cudaErrorInvalidValue;
-  if (cgt < 1 || cgt > kVecThreads || tiles != (groups + cgt - 1) / cgt ||
-      blocks < 1 || rows_per < 1 || (int64_t)blocks * rows_per < N ||
-      (fvec != 1 && (fvec != 4 || C % 4 || (cgt * vec) % 4)))
-    return (int)cudaErrorInvalidValue;
-#define BWD_SUMS(V_, RELU_)                                                 \
-  launch_bwd_sums<T, V_, RELU_>(x, dy, y, mean, rstd, sums, part, counters, \
-                                N, C, cgt, tiles, blocks, rows_per, fvec, s)
-  if (vec == VW) {
-    if (y != nullptr) BWD_SUMS(VW, true); else BWD_SUMS(VW, false);
-  } else {
-    if (y != nullptr) BWD_SUMS(1, true); else BWD_SUMS(1, false);
-  }
-#undef BWD_SUMS
-  return 0;
-}
-
 // x, dy: (N, C) of dtype code `dtype`; y: the forward's output when the
 // relu was folded in, else NULL; mean, rstd: (C,) f32; sums: (2, C) f32
 // output, row 0 SB and row 1 SXH; part: blocks * 2 * C f32 scratch;
@@ -241,27 +121,30 @@ extern "C" int bn_bwd_sums(const void* x, const void* dy, const void* y,
   if (N <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int rc = 0;
-  DISPATCH(dtype, rc = bwd_sums_typed<T>(x, dy, y, mean, rstd, sums, part,
-                                         counters, N, C, vec, cgt, tiles,
-                                         blocks, rows_per, fvec, s));
+  DISPATCH(dtype, rc = (launch_bwd_sums<T>(
+                      x, dy, y, nullptr, mean, rstd, sums, part, counters,
+                      N, C, vec, cgt, tiles, blocks, rows_per, fvec, s)));
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
 
 // x, dy, dx: (N, C) of dtype code `dtype`; y as for bn_bwd_sums; gamma,
 // mean, rstd and the global SB / N_global (sbn) and SXH / N_global (sxhn):
-// (C,) f32.
+// (C,) f32. vec, lanes, blocks: ops/fused_norm.bn_dx_plan. Returns a
+// cudaError_t.
 extern "C" int bn_bwd_dx(const void* x, const void* dy, const void* y,
                          const float* gamma, const float* mean,
                          const float* rstd, const float* sbn,
                          const float* sxhn, void* dx, int64_t N, int C,
-                         int dtype, void* stream) {
+                         int vec, int64_t lanes, int blocks, int dtype,
+                         void* stream) {
   if (N <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int64_t total = N * C;
-  DISPATCH(dtype, sync_dx<T><<<grid_for(total, 256), 256, 0, s>>>(
-                      (const T*)x, (const T*)dy, (const T*)y, gamma, mean,
-                      rstd, sbn, sxhn, (T*)dx, total, C));
+  int rc = 0;
+  DISPATCH(dtype, rc = (launch_bn_dx<T>(
+                      x, dy, y, nullptr, gamma, mean, rstd, sbn, sxhn, 0.f,
+                      dx, N, C, vec, lanes, blocks, s)));
+  if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
 

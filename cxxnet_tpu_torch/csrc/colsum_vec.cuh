@@ -1,5 +1,6 @@
 // Per-channel column sums over (N, C) rows in one launch, with 16-byte
-// loads and no float atomics: the reduction of bn_bwd_sums (bn_sync.cu).
+// loads and no float atomics: the reduction of bn_bwd_sums (bn_sync.cu)
+// and of bn_bwd (bn_bwd.cu), through bn_bwd_vec.cuh's BwdSumsVec op.
 //
 // Bound on the H100 (3.35 TB/s): the bytes of the input rows, read once.
 // colsum.cuh's two-stage design (one scalar 2-byte load per stream and

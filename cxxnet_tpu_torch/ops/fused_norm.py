@@ -12,7 +12,9 @@ N = batch for flat nodes, with per-channel statistics over the rows:
 * backward (``csrc/bn_bwd.cu``): ``dy' = dy`` masked by ``y > 0`` with
   relu, ``x_hat = (x - mean) * rstd``, ``dbeta = sum dy'``,
   ``dgamma = sum dy' * x_hat`` (f32), and
-  ``dx = gamma * rstd * (dy' - dbeta / N - x_hat * dgamma / N)``.
+  ``dx = gamma * rstd * (dy' - dbeta / N - x_hat * dgamma / N)``: the
+  column sums of ``bn_bwd_sums`` (:func:`colsum_vec_plan`), then the dx
+  pass of ``bn_bwd_dx`` (:func:`bn_dx_plan`), in one wrapper call.
 
 :class:`BnAct` saves ``(x, gamma, mean, rstd, y if relu)`` as the JAX
 custom_vjp does, drops the gradients that mean and var receive (they
@@ -58,12 +60,12 @@ BN_FWD = register(Kernel(
     argtypes=[_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int,
               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
               ctypes.c_float, _P]))
+_I64, _I = ctypes.c_int64, ctypes.c_int
 BN_BWD = register(Kernel(
     "bn_bwd", "bn_bwd.cu",
     replaces="cxxnet_tpu/ops/fused_norm.py:168",
-    argtypes=[_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64,
-              ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]))
-_I64, _I = ctypes.c_int64, ctypes.c_int
+    argtypes=[_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
+              _I, _I, _I64, _I, _I64, _I, _I, _P]))
 BN_SUMS = register(Kernel(
     "bn_sums", "bn_sync.cu",
     replaces="cxxnet_tpu/ops/fused_norm.py:291",
@@ -80,7 +82,8 @@ BN_BWD_SUMS = register(Kernel(
 BN_BWD_DX = register(Kernel(
     "bn_bwd_dx", "bn_sync.cu",
     replaces="cxxnet_tpu/ops/fused_norm.py:350",
-    argtypes=[_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _P]))
+    argtypes=[_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I64, _I, _I,
+              _P]))
 
 
 #: threads of a CTA of ``csrc/colsum_vec.cuh`` (its kVecThreads)
@@ -153,6 +156,38 @@ def colsum_vec_depth(plan: ColsumPlan, c: int) -> int:
         runs = colsum_vec_runs(plan, min(tile, c - t * tile))
         fin = max(fin, -(-plan.blocks // runs) + runs)
     return -(-plan.rows_per // plan.lanes) + plan.lanes + fin
+
+
+#: threads of a CTA of the dx pass (``csrc/bn_bwd_vec.cuh``, kDxThreads)
+BN_DX_THREADS = 256
+#: CTAs a SM its grid fills (kDxCtasPerSm)
+BN_DX_CTAS_PER_SM = 3
+#: vectors of each stream a thread has in flight (kDxRows)
+BN_DX_ROWS = 2
+
+
+class DxPlan(NamedTuple):
+    """The launch of the dx pass (``bn_dx_vec`` of ``csrc/bn_bwd_vec.cuh``)
+    over (n, c) rows: ``vec`` channels a load (16 bytes, or 1 where c or
+    a base does not allow it), ``lanes`` row lanes, each of ``c // vec``
+    threads (one a channel group), on ``blocks`` CTAs of BN_DX_THREADS.
+    Thread t takes the vectors t, t + lanes * c // vec, ..."""
+    vec: int
+    lanes: int
+    blocks: int
+
+
+def bn_dx_plan(n: int, c: int, itemsize: int, aligned: bool = True,
+               sms: int = 132) -> DxPlan:
+    """The launch of the dx pass over (n, c) rows of ``itemsize``-byte
+    elements: ``vec`` as :func:`colsum_vec_plan` takes it, and as many
+    row lanes (at most n) as one wave of BN_DX_CTAS_PER_SM CTAs a SM of
+    ``sms`` holds whole (at least one)."""
+    vw = 16 // itemsize
+    vec = vw if aligned and c % vw == 0 else 1
+    groups = c // vec
+    lanes = max(1, min(n, BN_DX_CTAS_PER_SM * sms * BN_DX_THREADS // groups))
+    return DxPlan(vec, lanes, -(-lanes * groups // BN_DX_THREADS))
 
 
 def _aligned(*ts) -> bool:
@@ -247,33 +282,35 @@ def bn_bwd(x2: torch.Tensor, dy2: torch.Tensor, y2: Optional[torch.Tensor],
            gamma: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor):
     """Backward over (N, C) rows: ``(dx, dgamma, dbeta)``. ``y2`` is the
     forward's output when a relu was folded in, else None. A CUDA tensor
-    goes to the kernel; a CPU tensor to :func:`bn_bwd_plain`."""
-    if x2.dim() != 2 or dy2.shape != x2.shape or (
-            y2 is not None and y2.shape != x2.shape):
-        raise ValueError("bn backward: x, dy (and y) must be equal (N, C)")
-    if x2.device.type == "cpu":
+    goes to the kernel; a CPU tensor to :func:`bn_bwd_plain`. On the
+    16-byte path the sums pass hands the dx pass the relu mask as bits,
+    one byte a vector."""
+    code = _rows("bn backward", x2, dy2, y2)
+    if code is None:
         return bn_bwd_plain(x2, dy2, y2, gamma, mean, rstd)
-    if x2.device.type != "cuda":
-        raise ValueError(f"bn backward: no kernel for device {x2.device}")
-    code = check_cuda_input("bn backward", x2)
-    for t in (dy2,) + (() if y2 is None else (y2,)):
-        if check_cuda_input("bn backward", t) != code:
-            raise TypeError("bn backward: x, dy and y must share a dtype")
-    for t, what in ((gamma, "gamma"), (mean, "mean"), (rstd, "rstd")):
-        _vec_on(t, x2.device, what)
+    _vecs("bn backward", x2, gamma=gamma, mean=mean, rstd=rstd)
     n, c = x2.shape
-    g = row_blocks(n, c)
+    dev = x2.device
     dx = torch.empty_like(x2)
-    grads = torch.empty((2, c), dtype=torch.float32, device=x2.device)
-    part = torch.empty((2, g, c), dtype=torch.float32, device=x2.device)
-    with torch.cuda.device(x2.device):
+    aligned = _aligned(x2, dy2, y2)
+    plan = colsum_vec_plan(n, c, x2.element_size(), aligned, sm_count(dev))
+    dplan = bn_dx_plan(n, c, x2.element_size(), aligned, sm_count(dev))
+    sums = torch.empty((2, c), dtype=torch.float32, device=dev)
+    part, cnt = split_scratch(dev, "bn_bwd", 4 * plan.blocks * 2 * c,
+                              plan.tiles)
+    bits = None
+    if y2 is not None and plan.vec > 1:
+        bits = torch.empty(n * c // plan.vec, dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
         BN_BWD.launch(x2.data_ptr(), dy2.data_ptr(),
                       None if y2 is None else y2.data_ptr(),
                       gamma.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-                      dx.data_ptr(), grads[0].data_ptr(),
-                      grads[1].data_ptr(), part.data_ptr(), n, c, g, code,
-                      stream_handle(x2.device))
-    return dx, grads[0], grads[1]
+                      dx.data_ptr(), sums.data_ptr(), part.data_ptr(),
+                      cnt.data_ptr(), None if bits is None else bits.data_ptr(),
+                      n, c, plan.vec, plan.cgt, plan.tiles, plan.blocks,
+                      plan.rows_per, plan.fvec, dplan.lanes, dplan.blocks,
+                      code, stream_handle(dev))
+    return dx, sums[1], sums[0]
 
 
 class BnAct(torch.autograd.Function):
@@ -459,8 +496,8 @@ def bn_bwd_dx(x2: torch.Tensor, dy2: torch.Tensor, y2: Optional[torch.Tensor],
               gamma: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
               sbn: torch.Tensor, sxhn: torch.Tensor) -> torch.Tensor:
     """dx of (N, C) rows from the global sums over the global row count:
-    the ``bn_bwd_dx`` kernel on a CUDA tensor, :func:`bn_bwd_dx_plain` on
-    a CPU one."""
+    the ``bn_bwd_dx`` kernel on a CUDA tensor (one launch under
+    :func:`bn_dx_plan`), :func:`bn_bwd_dx_plain` on a CPU one."""
     code = _rows("bn_bwd_dx", x2, dy2, y2)
     if code is None:
         return bn_bwd_dx_plain(x2, dy2, y2, gamma, mean, rstd, sbn, sxhn)
@@ -468,12 +505,15 @@ def bn_bwd_dx(x2: torch.Tensor, dy2: torch.Tensor, y2: Optional[torch.Tensor],
           sxhn=sxhn)
     n, c = x2.shape
     dx = torch.empty_like(x2)
+    plan = bn_dx_plan(n, c, x2.element_size(), _aligned(x2, dy2, y2),
+                      sm_count(x2.device))
     with torch.cuda.device(x2.device):
         BN_BWD_DX.launch(x2.data_ptr(), dy2.data_ptr(),
                          None if y2 is None else y2.data_ptr(),
                          gamma.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
                          sbn.data_ptr(), sxhn.data_ptr(), dx.data_ptr(), n, c,
-                         code, stream_handle(x2.device))
+                         plan.vec, plan.lanes, plan.blocks, code,
+                         stream_handle(x2.device))
     return dx
 
 

@@ -22,7 +22,8 @@ from cxxnet_tpu_torch.ops.fused_norm import (bn_act_plain, bn_bwd,
                                              bn_bwd_plain, bn_bwd_sums,
                                              bn_bwd_sums_plain, bn_fwd,
                                              bn_norm, bn_norm_plain, bn_sums,
-                                             bn_sums_plain, colsum_vec_depth,
+                                             bn_dx_plan, bn_sums_plain,
+                                             colsum_vec_depth,
                                              colsum_vec_plan)
 from cxxnet_tpu_torch.ops import attention as att
 from cxxnet_tpu_torch.ops.fused_optim import (adam_apply_plain,
@@ -323,6 +324,89 @@ def test_bn_bwd_sums_narrow_loads_match_plain(dev, dtype, relu, n, c,
         yy.float() > 0, dy.float(), torch.zeros_like(xf))
     assert _sums_ok(got, d, d * ((xf - mean) * rstd),
                     colsum_vec_depth(plan, c))
+
+
+def _same_bits(a, b):
+    """Bit for bit (NaN payloads and the sign of zero included)."""
+    ints = {4: torch.int32, 2: torch.int16}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.view(ints), b.view(ints))
+
+
+#: the backward's cases: bn_stem1 and a wide layer of Inception-BN at 64
+#: images, C 1500, ragged rows 1 and 3 elements past a 16-byte boundary,
+#: C 1, 3 and 7 (the one-element loads)
+BWD_CASES = [(64 * 112 * 112, 64, 0), (64 * 7 * 7, 1024, 0), (1000, 1500, 0),
+             (12345, 64, 1), (12345, 64, 3), (4099, 1, 0), (999, 3, 1),
+             (333, 7, 3)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("n,c,offset", BWD_CASES)
+def test_bn_bwd_is_bn_bwd_sums_then_bn_bwd_dx_bit_for_bit(dev, dtype, relu,
+                                                          n, c, offset):
+    """One launch a call; reruns bit-equal; (dgamma, dbeta) bit-equal to
+    ``bn_bwd_sums`` on the same rows and to the emulated order of
+    ``tests/torch_colsum_order.py``; dx bit-equal to ``bn_bwd_dx`` given
+    dbeta / N and dgamma / N (divided in float64 and rounded once, as the
+    kernel's __fdiv_rn), whose dx pass reads y where bn_bwd's reads the
+    mask bits. y holds NaNs, which mask as !(y > 0) does."""
+    import torch_colsum_order as order
+    from cxxnet_tpu_torch.ops.fused_norm import BN_BWD, BN_BWD_DX, BN_BWD_SUMS
+    x, dy, y, mean, rstd = _bwd_inputs(n, c, dtype, dev, offset)
+    y.view(-1)[::29] = float("nan")
+    yy = y if relu else None
+    g = _randn((c,), torch.float32, dev, seed=1) * 0.2 + 1.0
+    counts = lambda: (BN_BWD.launches, BN_BWD_SUMS.launches,
+                      BN_BWD_DX.launches)
+    before = counts()
+    dx, dg, db = bn_bwd(x, dy, yy, g, mean, rstd)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1], before[2])
+    again = bn_bwd(x, dy, yy, g, mean, rstd)
+    assert all(_same_bits(a, b) for a, b in zip(again, (dx, dg, db)))
+    sums = bn_bwd_sums(x, dy, yy, mean, rstd)
+    assert _same_bits(db, sums[0]) and _same_bits(dg, sums[1])
+    aligned = offset == 0
+    plan = colsum_vec_plan(n, c, x.element_size(), aligned, sm_count(dev))
+    terms = order.bwd_sums_terms(
+        x.float().cpu().numpy(), dy.float().cpu().numpy(),
+        None if yy is None else yy.float().cpu().numpy(),
+        mean.cpu().numpy(), rstd.cpu().numpy())
+    for row, t in zip((db, dg), terms):
+        want, _ = order.colsum_vec_sum(t, plan)
+        assert (row.cpu().numpy().view("u4") == want.view("u4")).all()
+    sbn, sxhn = ((s.double() / n).float() for s in (db, dg))
+    assert _same_bits(dx, bn_bwd_dx(x, dy, yy, g, mean, rstd, sbn, sxhn))
+    dx0 = bn_bwd_dx_plain(x, dy, yy, g, mean, rstd, sbn, sxhn)
+    assert _ulp_ok(dx, dx0, dtype, 4 * 2.0 ** -23 * dx0.float().abs().max()
+                   .item())
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("n,c,offset", BWD_CASES)
+def test_bn_bwd_dx_matches_plain_on_every_path(dev, dtype, relu, n, c,
+                                               offset):
+    """The 16-byte and the one-element dx pass against the plain version
+    within 4 f32 ulp of max|plain| (bf16/f16 one ulp more), with NaNs in
+    y; one launch a call."""
+    from cxxnet_tpu_torch.ops.fused_norm import BN_BWD_DX
+    x, dy, y, mean, rstd = _bwd_inputs(n, c, dtype, dev, offset)
+    y.view(-1)[::29] = float("nan")
+    yy = y if relu else None
+    g = _randn((c,), torch.float32, dev, seed=1) * 0.2 + 1.0
+    plan = bn_dx_plan(n, c, x.element_size(), offset == 0, sm_count(dev))
+    vw = 16 // x.element_size()
+    assert plan.vec == (vw if offset == 0 and c % vw == 0 else 1)
+    s0 = bn_bwd_sums_plain(x, dy, yy, mean, rstd)
+    before = BN_BWD_DX.launches
+    dx = bn_bwd_dx(x, dy, yy, g, mean, rstd, s0[0] / n, s0[1] / n)
+    torch.cuda.synchronize()
+    assert BN_BWD_DX.launches == before + 1
+    dx0 = bn_bwd_dx_plain(x, dy, yy, g, mean, rstd, s0[0] / n, s0[1] / n)
+    tol = 4 * 2.0 ** -23 * dx0.float().abs().max().item()
+    assert dx.dtype == dtype and _ulp_ok(dx, dx0, dtype, tol)
 
 
 def test_sync_bn_kernels_launch_once_and_refuse(dev):

@@ -9,6 +9,11 @@ in numpy float32 (each addition rounded as the card's ``__fadd_rn``):
   of a window adds its rows y, y + ry, ... cell by cell, then the ry
   threads' sums are added in order.
 
+And the walk of the batch-norm backward's dx pass (``bn_dx_vec`` of
+``csrc/bn_bwd_vec.cuh`` under ``bn_dx_plan``) over the vectors of the
+rows, with the relu mask bits that ``bn_bwd``'s sums pass packs and its
+dx pass reads.
+
 Each emulation also counts the additions on the longest chain behind
 one result, which the depth functions (``colsum_vec_depth`` of the
 port, :func:`pool_fwd_depth` here) must equal. No jax here:
@@ -80,6 +85,48 @@ def colsum_vec_sum(terms: np.ndarray, plan: N.ColsumPlan
     return out, colsum_vec_chain(plan, n, c)
 
 
+def colsum_vec_sum_blocks(terms_of, plan: N.ColsumPlan, n: int, c: int,
+                          chunk: int = 1 << 21):
+    """:func:`colsum_vec_sum` over rows too many to hold at once:
+    ``terms_of(r0, r1)`` gives a tuple of (r1 - r0, c) float32 term arrays
+    of rows r0 to r1, taken a run of whole row blocks (about ``chunk``
+    elements) at a time. Returns, for each array of the tuple, its sums in
+    the kernel's order, the float64 sums and the float64 sums of the
+    magnitudes of the same terms."""
+    g, rp, lanes = plan.blocks, plan.rows_per, plan.lanes
+    k = -(-rp // lanes)
+    per = max(1, chunk // max(1, rp * c))
+    part, exact, mag = None, None, None
+    for b0 in range(0, g, per):
+        b1 = min(g, b0 + per)
+        r0, r1 = b0 * rp, min(n, b1 * rp)
+        ts = [np.asarray(t, np.float32) for t in terms_of(r0, r1)]
+        if part is None:
+            part = np.zeros((len(ts), g, c), np.float32)
+            exact = np.zeros((len(ts), c), np.float64)
+            mag = np.zeros((len(ts), c), np.float64)
+        for q, t in enumerate(ts):
+            exact[q] += t.astype(np.float64).sum(0)
+            mag[q] += np.abs(t.astype(np.float64)).sum(0)
+            padded = np.zeros(((b1 - b0) * k * lanes, c), np.float32)
+            for b in range(b0, b1):
+                rows = t[(b - b0) * rp:min(n, (b + 1) * rp) - r0]
+                at = (b - b0) * k * lanes
+                padded[at:at + len(rows)] = rows
+            part[q, b0:b1] = _seq(_seq(padded.reshape(b1 - b0, k, lanes, c),
+                                       1), 1)
+    out = []
+    for q in range(len(part)):
+        sums = np.zeros(c, np.float32)
+        for lo, hi, runs in _tiles(plan, c):
+            gper = -(-g // runs)
+            sums[lo:hi] = _seq(np.stack(
+                [_seq(part[q, j * gper:(j + 1) * gper, lo:hi], 0)
+                 for j in range(runs)]), 0)
+        out.append((sums, exact[q], mag[q]))
+    return out
+
+
 def _tiles(plan: N.ColsumPlan, c: int):
     """(first channel, end, runs of the last CTA) of each channel tile."""
     tile = plan.cgt * plan.vec
@@ -101,6 +148,91 @@ def colsum_vec_chain(plan: N.ColsumPlan, n: int, c: int) -> int:
                       for j in range(runs))
         longest = max(longest, lane_max + plan.lanes + run_max + runs)
     return longest
+
+
+def dx_walk(plan: N.DxPlan, n: int, c: int):
+    """The vectors the dx pass's threads take, in the kernel's loop: thread
+    t < lanes * groups starts at vector t and takes N.BN_DX_ROWS vectors
+    ``stride`` apart while the last of them is in range, then one at a
+    time. Yields (threads, vectors) array pairs, one a step of the loop,
+    vector v of the (n * c / vec) being elements v * vec to v * vec + vec
+    of the flat rows."""
+    groups = c // plan.vec
+    stride = plan.lanes * groups
+    assert stride <= plan.blocks * N.BN_DX_THREADS
+    nv = n * c // plan.vec
+    t = np.arange(stride, dtype=np.int64)
+    v = t.copy()
+    while True:
+        main = v + (N.BN_DX_ROWS - 1) * stride < nv
+        if not main.any():
+            break
+        for u in range(N.BN_DX_ROWS):
+            yield t[main], v[main] + u * stride
+        v = np.where(main, v + N.BN_DX_ROWS * stride, v)
+    while True:
+        live = v < nv
+        if not live.any():
+            return
+        yield t[live], v[live]
+        v = v + stride
+
+
+def pack_bits(y: np.ndarray, plan: N.ColsumPlan) -> np.ndarray:
+    """The relu mask bits the sums pass of ``bn_bwd`` writes over (n, c)
+    rows ``y`` under ``plan`` (16-byte loads): at each (row, channel group)
+    a lane of a tile loads, byte (row * c + c0) / vec, bit k = y[row, c0 +
+    k] > 0 (a NaN gives 0). Returns the bytes and how many times each was
+    written."""
+    n, c = y.shape
+    vec = plan.vec
+    out = np.zeros(n * c // vec, np.uint8)
+    writes = np.zeros(n * c // vec, np.int64)
+    rows = np.concatenate([lane_rows(plan, n, b, lane)
+                           for b in range(plan.blocks)
+                           for lane in range(plan.lanes)])
+    weights = (1 << np.arange(vec)).astype(np.uint8)
+    for t in range(plan.tiles):
+        for cg in range(plan.cgt):
+            ch = tile_channels(plan, c, t, cg)
+            if len(ch) == 0:
+                continue
+            on = (y[rows[:, None], ch[None, :]] > 0).astype(np.uint8)
+            at = (rows * c + ch[0]) // vec
+            out[at] = (on * weights).sum(1)
+            np.add.at(writes, at, 1)
+    return out, writes
+
+
+def unpack_bits(bits: np.ndarray, plan: N.DxPlan, n: int, c: int
+                ) -> np.ndarray:
+    """The mask the dx pass reads from ``bits`` under ``plan``: for each
+    vector a thread takes, byte v, bit k for its channel k, as (n, c)
+    booleans; elements no thread takes stay False."""
+    vec = plan.vec
+    got = np.zeros(n * c, bool)
+    for _, v in dx_walk(plan, n, c):
+        for k in range(vec):
+            got[v * vec + k] = (bits[v] >> k) & 1 == 1
+    return got.reshape(n, c)
+
+
+def dx_emulated(x, dy, on, gamma, mean, rstd, sb, sxh, rows: int = 0
+                ) -> np.ndarray:
+    """The dx pass's f32 arithmetic over (n, c) rows (numpy float32, each
+    operation rounded): per channel once ``g = gamma * rstd`` and, when
+    ``rows`` > 0, ``sb / rows`` and ``sxh / rows`` (else ``sb`` and
+    ``sxh`` as given); per element ``dy' = dy`` where ``on`` (the mask,
+    or None) else 0, ``x_hat = (x - mean) * rstd`` and
+    ``g * ((dy' - sb) - x_hat * sxh)``. float32, not yet rounded to the
+    dtype of x."""
+    f = lambda a: np.asarray(a, np.float32)
+    g = f(gamma) * f(rstd)
+    if rows:
+        sb, sxh = f(sb) / np.float32(rows), f(sxh) / np.float32(rows)
+    d = f(dy) if on is None else np.where(on, f(dy), np.float32(0))
+    xh = (f(x) - f(mean)) * f(rstd)
+    return (g * ((d - f(sb)) - xh * f(sxh))).astype(np.float32)
 
 
 def pool_fwd_depth(plan: P.PoolPlan, kh: int, kw: int) -> int:
