@@ -5,9 +5,10 @@
                           [--json OUT.json]
     python3 chip_smoke.py --ab PARENT . . PARENT   # A/B of two checkouts
 
-With ``--ab``, only the batch-norm backward kernels are timed, in each
-checkout root given, in turn, one process each (``bn_bwd`` as phase 6
-times it, the four sync-BN kernels as phase 11 does).
+With ``--ab``, only the kernels of the vectorised designs are timed, in
+each checkout root given, in turn, one process each (``bn_bwd`` and
+``epilogue_bwd`` at fc1 and AlexNet's cv1 and fc6 as phase 6 times
+them, the four sync-BN kernels as phase 11 does).
 
 Phases, each printing one line of its own; any failure exits non-zero
 and prints no result:
@@ -40,8 +41,11 @@ and prints no result:
             the order-of-summation bound of the exact sum (the longest
             addition chain of colsum.cuh's order for bn_sums, of
             colsum_vec.cuh's plan for bn_bwd_sums, * 2^-24 * sum|term|),
-            their outputs within 4 f32 ulp of max|plain| (bf16/f16 one
-            ulp more).
+            ``bn_norm``'s output bit-equal to the plain version's,
+            ``bn_bwd_dx``'s within 4 f32 ulp of max|plain| (bf16/f16 one
+            ulp more); the epilogue backward at fc1, AlexNet-like cv1
+            rows and odd shapes: dx equal, dbias within the
+            order-of-summation bound of its plan.
 4. serve:   full-width Inception-BN (224x224x3, 69 batch_norm layers,
             1000 classes, bfloat16) with random weights drawn by numpy
             from ``--seed``, BN statistics calibrated on one seeded
@@ -83,7 +87,11 @@ and prints no result:
             training kernel are timed; ``bn_bwd`` also by launch beside
             the library call's launches, and beside the two-pass byte
             floors (7 streams with y read twice, 6.125 with the mask
-            bits it reads) as well as the table's 4-stream bound. With
+            bits it reads) as well as the table's 4-stream bound;
+            ``epilogue_bwd`` at fc1 and at AlexNet's cv1 and fc6 (relu
+            and a bias, EPI_CV1 and EPI_FC6 rows) beside its yardstick
+            (``dy.sum(0)``; ``threshold_backward`` then ``.sum(0)``),
+            fc1 and cv1 also by launch. With
             the kernels, ``bn_bwd``'s dx (its dx pass reads the mask
             bits) is held bit-equal to ``bn_bwd_dx``'s (which reads y)
             given the same sums.
@@ -130,7 +138,9 @@ and prints no result:
             step counters read CONVNET_STEPS; the written round answers
             finite softmax rows. Step and kernel times beside bound,
             plain version and library call (``F.local_response_norm``
-            forward and backward, ``max_pool2d_with_indices_backward``).
+            forward and backward, ``max_pool2d_with_indices_backward``);
+            for AlexNet also the device time and launches a step of its
+            epilogue backwards, from the step's profile by kind.
 9. digits:  ``examples/digits/digits_lenet.conf`` trained one round
             through ``main.run`` on the card from gzipped idx files
             written from ``--seed``; ``pool_bwd_max`` launches once a
@@ -302,7 +312,10 @@ PERF_BEFORE_MS = {"flash_fwd": "0.8869 ms",
                   "bn_bwd_sums": "0.1768 ms",
                   "pool_fwd": "0.00923 ms",
                   "bn_bwd": "0.7367 ms",
-                  "bn_bwd_dx": "0.1889 ms"}
+                  "bn_bwd_dx": "0.1889 ms",
+                  "epilogue_bwd": "0.004553 ms",
+                  "epilogue_bwd (cv1)": "0.2254 ms",
+                  "bn_norm": "0.1430 ms"}
 TRAIN_BATCH = 128       # the flagship's batch_size
 TRAIN_STEPS = 4         # 512 synthetic rows
 TRAIN_IMAGE, TRAIN_CLASSES = "3,224,224", 1000
@@ -413,10 +426,12 @@ _KINDS = (("q_mm_kernel", "q_mm kernel"),
           ("pool_fwd_kernel", "pool kernel"), ("pool_bwd_kernel", "pool kernel"),
           ("pool_bwd_max_kernel", "pool kernel"),
           ("epilogue_fwd_kernel", "epilogue kernel"),
-          ("mask_copy", "epilogue kernel"), ("finalize_dbias", "epilogue kernel"),
-          ("colsum_partials", "bn/epilogue sums kernel"),
-          ("colsum_vec", "bn/epilogue sums kernel"),
-          ("bn_normalize", "bn kernel"), ("bn_dx", "bn kernel"),
+          ("epibwdvec", "epilogue bwd kernel"),
+          ("mask_copy_vec", "epilogue bwd kernel"),
+          ("colsum_partials", "bn sums kernel"),
+          ("colsum_vec", "bn sums kernel"),
+          ("bn_normalize", "bn kernel"), ("bn_norm_vec", "bn kernel"),
+          ("bn_dx", "bn kernel"),
           ("finalize", "bn kernel"), ("sgd_apply_kernel", "sgd kernel"),
           ("conv", "conv"), ("xmma", "conv"), ("cudnn", "conv"),
           ("gemm", "matmul"), ("sm90", "conv/matmul"),
@@ -428,6 +443,12 @@ def profile_calls(fn, n: int = 5, what: str = "forward") -> str:
     """torch.profiler over ``n`` calls of ``fn``: kernels per call, the
     device's busy share of the span its kernels cover, host time per
     call, and device time by kind of kernel."""
+    return profile_kinds(fn, n, what)[0]
+
+
+def profile_kinds(fn, n: int = 5, what: str = "forward"):
+    """:func:`profile_calls`'s line, and per kind of kernel (``_KINDS``)
+    the device ms and the launches per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -441,7 +462,7 @@ def profile_calls(fn, n: int = 5, what: str = "forward") -> str:
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kern:
-        return "no device events in the trace (not measured)"
+        return "no device events in the trace (not measured)", {}
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for s, e in spans[1:]:
@@ -452,11 +473,12 @@ def profile_calls(fn, n: int = 5, what: str = "forward") -> str:
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     span = spans[-1][1] - spans[0][0]
-    by_kind, other = {}, {}
+    by_kind, other, count = {}, {}, {}
     for e in kern:
         name = e.name.lower()
         kind = next((k for frag, k in _KINDS if frag in name), "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + e.device_time_total
+        count[kind] = count.get(kind, 0) + 1
         if kind == "other":
             other[e.name[:60]] = other.get(e.name[:60], 0.0) \
                 + e.device_time_total
@@ -470,7 +492,8 @@ def profile_calls(fn, n: int = 5, what: str = "forward") -> str:
             f"ms per {what}, device busy {busy / n / 1e3:.3f} ms per {what}"
             f" = {100 * busy / span:.1f}% of the kernels' span (idle "
             f"{100 - 100 * busy / span:.1f}%) | device time: {kinds}"
-            f" | largest other: {top}")
+            f" | largest other: {top}",
+            {k: (v / n / 1e3, count[k] / n) for k, v in by_kind.items()})
 
 
 def launch_breakdown(fn, n: int = 20) -> str:
@@ -547,7 +570,7 @@ def phase_build():
 
 #: the sources whose every kernel's registers and spills phase 2 prints
 REPORT_PTXAS = ("flash_fwd.cu", "flash_bwd.cu", "q_mm.cu", "bn_sync.cu",
-                "bn_bwd.cu", "pool_fwd.cu")
+                "bn_bwd.cu", "pool_fwd.cu", "epilogue_bwd.cu")
 
 
 def ptxas_functions(log: str):
@@ -559,14 +582,16 @@ def ptxas_functions(log: str):
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             k = re.search(r"(flash_\w+?_(?:tc|kernel)|q_mm_kernel|"
-                          r"colsum_vec|bn_dx_vec|pool_fwd_kernel)I(\w+)",
-                          m.group(1))
+                          r"colsum_vec|bn_dx_vec|bn_norm_vec|mask_copy_vec|"
+                          r"pool_fwd_kernel)I(\w+)", m.group(1))
             if k is None:
                 name = m.group(1)
             else:
                 g = k.group(2)
-                args = ["f32"] if g.startswith("f") or re.match(
-                    r"\d+BwdSumsVecIf", g) else []
+                op = re.match(r"\d+(BwdSumsVec|EpiBwdVec)I", g)
+                args = [op.group(1)] if op else []
+                args += ["f32"] if g.startswith("f") or re.match(
+                    r"\d+(?:BwdSumsVec|EpiBwdVec)If", g) else []
                 args += [{"13__nv_bfloat16": "bf16", "6__half": "f16"}.get(t, t)
                          for t in re.findall(
                              r"13__nv_bfloat16|6__half|(?<=L[ib])\d+(?=E)",
@@ -710,13 +735,16 @@ def phase_train_kernels(gen: torch.Generator, conf: str) -> dict:
     """The training kernels against their plain versions: at the
     training path's shapes (bn_stem1 and the last BN layer, the 7x7
     global average's backward, fc1's epilogue backward, Inception-BN's
-    parameter set) in bf16, and at odd shapes in f16 and f32. Returns the
-    largest error per kernel at the path's shape."""
+    parameter set) in bf16, AlexNet-like cv1 rows of the epilogue
+    backward, and at odd shapes in f16 and f32. Returns the largest
+    error per kernel at the path's shape."""
+    from cxxnet_tpu_torch.ops.fused import sm_count
     from cxxnet_tpu_torch.ops.fused_epilogue import (epilogue_bwd_plain,
+                                                     epilogue_bwd_plan,
                                                      fused_epilogue_bwd)
     from cxxnet_tpu_torch.ops.fused_norm import (bn_act_plain, bn_bwd,
                                                  bn_bwd_dx, bn_bwd_plain,
-                                                 bn_fwd)
+                                                 bn_fwd, colsum_vec_depth)
     from cxxnet_tpu_torch.ops.fused_optim import (fused_sgd_apply,
                                                   sgd_apply_plain)
     from cxxnet_tpu_torch.ops.fused_pool import (fused_pool_bwd_lin,
@@ -795,20 +823,29 @@ def phase_train_kernels(gen: torch.Generator, conf: str) -> dict:
             path_err["pool_bwd"] = err
 
     epi_cases = [((TRAIN_BATCH, 1000), torch.bfloat16, True, "none"),
+                 ((55 * 55 * 8, 96), torch.bfloat16, True, "relu"),
                  ((37, 333), torch.float16, True, "relu"),
-                 ((9, 7), torch.float32, False, "relu")]
+                 ((9, 7), torch.float32, False, "relu"),
+                 ((1000, 96), torch.float32, True, "relu")]
     for shape, dt, with_bias, act in epi_cases:
         y, dy = rnd(shape, dt), rnd(shape, dt)
         dx, db = fused_epilogue_bwd(y, dy, act, with_bias)
         dx0, db0 = epilogue_bwd_plain(y, dy, act, with_bias)
         torch.cuda.synchronize()
         err = (dx.float() - dx0.float()).abs().max().item()
-        errb = 0.0 if db is None else (
-            (db - db0).abs() / (db0.abs() + 1.0)).max().item()
+        errb, ratio = 0.0, 0.0
+        if db is not None:
+            errb = ((db - db0).abs() / (db0.abs() + 1.0)).max().item()
+            plan = epilogue_bwd_plan(shape[0], shape[1], dy.element_size(),
+                                     True, sm_count(dev))
+            ratio = _sum_bound_ratio(db, dx0.float(),
+                                     colsum_vec_depth(plan, shape[1], 1))
         lines.append(f"epilogue_bwd {shape} {str(dt)[6:]} "
                      f"bias={int(with_bias)} act={act}: dx {err:.3g} "
-                     f"(tol 0), dbias {errb:.3g} (tol 1e-5 of |v| + 1)")
-        if err != 0.0 or errb > 1e-5:
+                     f"(tol 0), dbias {errb:.3g} (tol 1e-5 of |v| + 1), "
+                     f"{ratio:.3g} of its order-of-summation bound")
+        if err != 0.0 or errb > 1e-5 or ratio > 1.0 or (
+                act == "none" and dx is not dy):
             raise AssertionError("epilogue backward kernel disagrees: "
                                  + lines[-1])
         if shape[0] == TRAIN_BATCH:
@@ -886,8 +923,9 @@ def phase_sync_bn_kernels(gen: torch.Generator, conf: str) -> dict:
     row count and the ragged rows 1 element past a 16-byte boundary (the
     one-element loads), in bf16, f16 and f32, relu on the path's shapes:
     the sums (rows 8, 10) within the order-of-summation bound of their
-    exact value (each kernel's own addition depth), the outputs (rows 9,
-    11) within 4 f32 ulp of max|plain| in f32 and one ulp (plus that) in
+    exact value (each kernel's own addition depth), ``bn_norm``'s output
+    (row 9) bit-equal to the plain version's, ``bn_bwd_dx``'s (row 11)
+    within 4 f32 ulp of max|plain| in f32 and one ulp (plus that) in
     bf16/f16. Returns the largest error against the plain version per
     kernel at bn_stem1."""
     from cxxnet_tpu_torch.ops.fused import colsum_depth, sm_count
@@ -945,8 +983,8 @@ def phase_sync_bn_kernels(gen: torch.Generator, conf: str) -> dict:
                         _sum_bound_ratio(bs[0], d, d_new),
                         _sum_bound_ratio(bs[1], d * ((xf - mean) * rstd),
                                          d_new))
-            outs = []
-            for got, want in ((y, y0), (dx, dx0)):
+            outs = [0.0 if torch.equal(y, y0) else float("inf")]
+            for got, want in ((dx, dx0),):
                 err = (got.float() - want.float()).abs()
                 tol = 4 * 2.0 ** -23 * want.float().abs().max().item()
                 if dt != torch.float32:
@@ -960,8 +998,10 @@ def phase_sync_bn_kernels(gen: torch.Generator, conf: str) -> dict:
                 raise AssertionError(
                     f"sync-BN kernels disagree at ({n},{c}) {dt} act={act}"
                     f"{' offset' if off else ''}: "
-                    f"sums at {ratio:.3g} of their bound, y and dx at "
-                    f"{outs[0]:.3g} and {outs[1]:.3g} of their tolerance")
+                    f"sums at {ratio:.3g} of their bound, y "
+                    f"{'equal' if outs[0] == 0 else 'not equal'} to the "
+                    f"plain version's, dx at {outs[1]:.3g} of its "
+                    f"tolerance")
             if (n, c) == bn_shapes[0] and dt == torch.bfloat16 and not off:
                 for k, got, want in (("bn_sums", s, s0), ("bn_norm", y, y0),
                                      ("bn_bwd_sums", bs, bs0),
@@ -976,9 +1016,10 @@ def phase_sync_bn_kernels(gen: torch.Generator, conf: str) -> dict:
           f"order-of-summation bound (distance to the exact f64 sum of the "
           f"f32 terms over depth * 2^-24 * sum|term|, depth = the longest "
           f"addition chain: colsum.cuh's for bn_sums, colsum_vec.cuh's "
-          f"plan's for bn_bwd_sums) | y, "
-          f"dx: worst {worst['out']:.3g} of the tolerance (4 f32 ulp of "
-          f"max|plain|; bf16/f16 one ulp more) | at bn_stem1 bf16 vs plain: "
+          f"plan's for bn_bwd_sums) | y bit-equal to the plain version's "
+          f"in every case | dx: worst {worst['out']:.3g} of the tolerance "
+          f"(4 f32 ulp of max|plain|; bf16/f16 one ulp more) | at "
+          f"bn_stem1 bf16 vs plain: "
           + ", ".join(f"{k} {v:.3g}" for k, v in path_err.items()),
           flush=True)
     return path_err
@@ -1704,15 +1745,96 @@ def bn_bwd_times(gen: torch.Generator) -> dict:
     return row
 
 
+#: AlexNet's cv1 and fc6 outputs as (N, C) rows: their epilogues' relu
+#: and bias
+EPI_CV1 = (256 * 55 * 55, 96)
+EPI_FC6 = (256, 4096)
+
+
+def epilogue_bwd_times(gen: torch.Generator) -> dict:
+    """``epilogue_bwd`` at fc1 (Inception-BN, (TRAIN_BATCH, 1000) bf16, no
+    relu, a bias: dx is dy) and at AlexNet's cv1 and fc6 (EPI_CV1 and
+    EPI_FC6 bf16, relu, a bias): CUDA-graph times of the wrapper and of
+    its plain version beside the bound and one PyTorch yardstick, fc1
+    and cv1 also by launch (profiler). Prints one line; returns the rows
+    "epilogue_bwd" (fc1), "epilogue_bwd (cv1)" and "epilogue_bwd
+    (fc6)"."""
+    from cxxnet_tpu_torch.ops.fused_epilogue import (epilogue_bwd_plain,
+                                                     fused_epilogue_bwd)
+    dev, bf, f32 = gen.device, torch.bfloat16, torch.float32
+    rnd = lambda shape: torch.randn(shape, generator=gen, device=dev)
+    ye, dye = rnd((TRAIN_BATCH, 1000)).to(bf), rnd((TRAIN_BATCH, 1000)).to(bf)
+    n, c = EPI_CV1
+    y, dy = torch.relu(rnd((n, c))).to(bf), rnd((n, c)).to(bf)
+    fc1 = lambda: fused_epilogue_bwd(ye, dye, "none", True)
+    cv1 = lambda: fused_epilogue_bwd(y, dy, "relu", True)
+    lib_fc1 = lambda: dye.sum(0, dtype=f32)
+    lib_cv1 = lambda: torch.ops.aten.threshold_backward(dy, y, 0).sum(
+        0, dtype=f32)
+    n6, c6 = EPI_FC6
+    y6, dy6 = torch.relu(rnd((n6, c6))).to(bf), rnd((n6, c6)).to(bf)
+    rows = {
+        "epilogue_bwd": dict(
+            ms=time_call(fc1),
+            plain_ms=time_call(lambda: epilogue_bwd_plain(ye, dye, "none",
+                                                          True)),
+            library_ms=time_call(lib_fc1),
+            # dx is dy: dy read once, dbias written
+            bound=bound_ms(dye.numel() * 2 + 1000 * 4, dye.numel()),
+            shape=f"fc1 bias on {tuple(dye.shape)} bf16 (launch-bound)",
+            library="dy.sum(0, dtype=float32) (dx is dy)"),
+        "epilogue_bwd (cv1)": dict(
+            ms=time_call(cv1),
+            plain_ms=time_call(lambda: epilogue_bwd_plain(y, dy, "relu",
+                                                          True)),
+            library_ms=time_call(lib_cv1),
+            # dy and y read, dx written: 6 bytes an element, and dbias
+            bound=bound_ms(6 * n * c + 4 * c, 2 * n * c),
+            shape=f"AlexNet cv1 relu + bias on ({n},{c}) bf16",
+            library="aten.threshold_backward then .sum(0, dtype=float32), "
+                    "two calls"),
+        "epilogue_bwd (fc6)": dict(
+            ms=time_call(lambda: fused_epilogue_bwd(y6, dy6, "relu", True)),
+            plain_ms=time_call(lambda: epilogue_bwd_plain(y6, dy6, "relu",
+                                                          True)),
+            library_ms=time_call(lambda: torch.ops.aten.threshold_backward(
+                dy6, y6, 0).sum(0, dtype=f32)),
+            bound=bound_ms(6 * n6 * c6 + 4 * c6, 2 * n6 * c6),
+            shape=f"AlexNet fc6 relu + bias on ({n6},{c6}) bf16",
+            library="aten.threshold_backward then .sum(0, dtype=float32), "
+                    "two calls"),
+    }
+    print("times (epilogue_bwd): " + " | ".join(
+        f"{k} {r['shape']}: {r['ms'] * 1e3:.2f} us, bound "
+        f"{r['bound'][0] * 1e3:.2f} us ({r['bound'][1]}), plain "
+        f"{r['plain_ms'] * 1e3:.2f} us, {r['library']} "
+        f"{r['library_ms'] * 1e3:.2f} us" for k, r in rows.items())
+        + f" | fc1 by launch: {launch_breakdown(fc1)} | its yardstick by "
+        f"launch: {launch_breakdown(lib_fc1)} | cv1 by launch: "
+        f"{launch_breakdown(cv1)} | its yardstick by launch: "
+        f"{launch_breakdown(lib_cv1)} | cv1 without the bias (the masked "
+        f"copy, the same bytes): "
+        f"{time_call(lambda: fused_epilogue_bwd(y, dy, 'relu', False)) * 1e3:.2f}"
+        f" us", flush=True)
+    return rows
+
+
 def ab_times(gen: torch.Generator) -> None:
-    """The times of the kernels this tree's ``bn_bwd_vec.cuh`` design
-    touches, for an A/B of two trees (``--ab``): ``bn_bwd`` as
-    :func:`bn_bwd_times` takes it, and the four sync-BN kernels as
-    :func:`phase_dp_times` does. Prints them as one JSON line."""
+    """The times of the kernels this tree's vectorised designs touch, for
+    an A/B of two trees (``--ab``): ``bn_bwd`` as :func:`bn_bwd_times`
+    takes it, the four sync-BN kernels as :func:`phase_dp_times` does,
+    and ``epilogue_bwd`` at fc1, cv1 and fc6 as
+    :func:`epilogue_bwd_times` does. Prints them as one JSON line."""
     r = bn_bwd_times(gen)
     dp = phase_dp_times(gen)["kernels"]
+    epi = epilogue_bwd_times(gen)
     print("ab: " + json.dumps({"bn_bwd": r["ms"],
-                               **{k: v["ms"] for k, v in dp.items()}}),
+                               **{k: v["ms"] for k, v in dp.items()},
+                               "epilogue_bwd fc1": epi["epilogue_bwd"]["ms"],
+                               "epilogue_bwd cv1":
+                                   epi["epilogue_bwd (cv1)"]["ms"],
+                               "epilogue_bwd fc6":
+                                   epi["epilogue_bwd (fc6)"]["ms"]}),
           flush=True)
 
 
@@ -1742,9 +1864,8 @@ def phase_train_times(tr, plain, batches, gen) -> dict:
     import torch.nn.functional as F
     from cxxnet_tpu_torch.ops import fused_optim
     from cxxnet_tpu_torch.ops.fused import stream_handle
-    from cxxnet_tpu_torch.ops.fused_epilogue import (
-        bias_act_plain, epilogue_bwd_plain, fused_bias_act,
-        fused_epilogue_bwd)
+    from cxxnet_tpu_torch.ops.fused_epilogue import (bias_act_plain,
+                                                     fused_bias_act)
     from cxxnet_tpu_torch.ops.fused_norm import bn_act_plain, bn_fwd
     from cxxnet_tpu_torch.ops.fused_pool import (fused_pool_bwd_lin,
                                                  pool_bwd_lin_plain)
@@ -1766,7 +1887,7 @@ def phase_train_times(tr, plain, batches, gen) -> dict:
     w16, b16 = g.to(bf), be.to(bf)
     xp = rnd((TRAIN_BATCH, 7, 7, 1024))
     dyp = rnd((TRAIN_BATCH, 1, 1, 1024))
-    xe, dye = rnd((TRAIN_BATCH, 1000)), rnd((TRAIN_BATCH, 1000))
+    xe = rnd((TRAIN_BATCH, 1000))
     bias = torch.randn((1000,), generator=gen, device=dev)
     ws = [v.detach().clone() for d in tr.params.values() for v in d.values()]
     gs = [torch.randn_like(w) for w in ws]
@@ -1807,14 +1928,7 @@ def phase_train_times(tr, plain, batches, gen) -> dict:
             bound=bound_ms(xe.numel() * 2 * 2 + 1000 * 4, xe.numel()),
             shape=f"fc1 bias on {tuple(xe.shape)} bf16",
             library="torch.add(x, bias_bf16)"),
-        "epilogue_bwd": dict(
-            ms=time_call(lambda: fused_epilogue_bwd(xe, dye, "none", True)),
-            plain_ms=time_call(lambda: epilogue_bwd_plain(xe, dye, "none",
-                                                          True)),
-            library_ms=time_call(lambda: dye.sum(0, dtype=torch.float32)),
-            bound=bound_ms(dye.numel() * 2 * 2 + 1000 * 4, dye.numel()),
-            shape=f"fc1 bias on {tuple(dye.shape)} bf16 (launch-bound)",
-            library="dy.sum(0, dtype=float32) (dx is dy)"),
+        **epilogue_bwd_times(gen),
         "sgd_apply": dict(
             ms=time_call(lambda: fused_optim.SGD_APPLY.launch(
                 table.data_ptr(), len(ws), nblk, fused_optim.CHUNK, 0.1,
@@ -2537,8 +2651,13 @@ def phase_convnet_times(name, tr, plain, batches, gen) -> dict:
     _load(plain, snap, tr.epoch_counter)
     step_ms = time_forward(lambda: tr.update(b0), reps=5)
     step_plain = time_forward(lambda: plain.update(b0), reps=5)
-    prof = profile_calls(lambda: tr.update(b0), 3, "step")
+    prof, kinds = profile_kinds(lambda: tr.update(b0), 3, "step")
     print(f"profile: {name} train step, kernels: {prof}", flush=True)
+    if name == "alexnet":
+        ms, k = kinds.get("epilogue bwd kernel", (0.0, 0))
+        print(f"profile: alexnet epilogue backward: {k:g} launches a step, "
+              f"{ms:.4f} ms a step in all (the step's profile by kind; "
+              f"8 epilogues with a bias, 7 with relu)", flush=True)
     dev, bf = tr.device, torch.bfloat16
     rows = {}
     if name == "alexnet":
@@ -3410,11 +3529,14 @@ def phase_dp_times(gen: torch.Generator) -> dict:
     ours = launch_breakdown(lambda: bn_bwd_sums(x, dy, y, mean, rstd))
     theirs = launch_breakdown(lambda: torch.batch_norm_backward_reduce(
         dy, x, mean, rstd, g, True, True, True))
+    clone_ms = time_call(lambda: x.clone())
     print(f"times (sync BN): bn_bwd_sums by launch: {ours} | "
           f"torch.batch_norm_backward_reduce by launch: {theirs} | its "
           f"own 2-stream byte bound {lib2 * 1e3:.2f} us"
           + ("" if lib_ms is None else
-             f" = {100 * lib2 / lib_ms:.1f}% of its time"), flush=True)
+             f" = {100 * lib2 / lib_ms:.1f}% of its time")
+          + f" | x.clone() {clone_ms * 1e3:.2f} us (bn_norm's bytes as a "
+          f"plain copy: one read and one write stream)", flush=True)
     return {"kernels": rows}
 
 

@@ -37,15 +37,6 @@ constexpr int kDxThreads = 256;
 constexpr int kDxRows = 2;       // vectors of each stream in flight a thread
 constexpr int kDxCtasPerSm = 3;  // resident CTAs a SM the grid fills
 
-// runs the statement(s) with T the element type of dtype code `dtype`
-#define DISPATCH(dtype, ...)                                       \
-  switch (dtype) {                                                 \
-    case kF32: { using T = float; __VA_ARGS__; } break;            \
-    case kBF16: { using T = __nv_bfloat16; __VA_ARGS__; } break;   \
-    case kF16: { using T = __half; __VA_ARGS__; } break;           \
-    default: return (int)cudaErrorInvalidValue;                    \
-  }
-
 // dy' of one element: dy, or 0 where the folded relu's mask is off
 __device__ __forceinline__ float relu_grad(float dy, bool on) {
   return on ? dy : 0.f;
@@ -66,6 +57,7 @@ template <typename T, int V_, bool RELU, bool BITS = false>
 struct BwdSumsVec {
   static_assert(!BITS || (RELU && V_ > 1 && V_ <= 8), "mask bits: V <= 8");
   static constexpr int V = V_;
+  static constexpr int NS = 2;
   using IO = VecIO<T, V>;
   struct Row {
     typename IO::Raw x, dy, y;
@@ -113,10 +105,6 @@ struct BwdSumsVec {
   }
 };
 
-static inline bool aligned16(const void* p) {
-  return ((uintptr_t)p & 15) == 0;
-}
-
 template <typename T, int V, bool RELU, bool BITS>
 static void launch_sums(const void* x, const void* dy, const void* y,
                         uint8_t* bits, const float* mean, const float* rstd,
@@ -142,13 +130,10 @@ static int launch_bwd_sums(const void* x, const void* dy, const void* y,
                            int cgt, int tiles, int blocks, int64_t rows_per,
                            int fvec, cudaStream_t s) {
   constexpr int VW = 16 / sizeof(T);
-  const int groups = vec == VW ? C / VW : C;
   if (vec != 1 && (vec != VW || C % VW || !aligned16(x) || !aligned16(dy) ||
                    (y != nullptr && !aligned16(y))))
     return (int)cudaErrorInvalidValue;
-  if (cgt < 1 || cgt > kVecThreads || tiles != (groups + cgt - 1) / cgt ||
-      blocks < 1 || rows_per < 1 || (int64_t)blocks * rows_per < N ||
-      (fvec != 1 && (fvec != 4 || C % 4 || (cgt * vec) % 4)))
+  if (!colsum_plan_ok(N, C, vec, cgt, tiles, blocks, rows_per, fvec))
     return (int)cudaErrorInvalidValue;
   if (bits != nullptr && (y == nullptr || vec != VW))
     return (int)cudaErrorInvalidValue;

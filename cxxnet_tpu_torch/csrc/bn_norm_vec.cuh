@@ -1,0 +1,115 @@
+// The batch-norm normalize over (N, C) rows, vectorised:
+//   y = ((x - mean) * rstd) * gamma + beta   (+ relu), in the dtype of x,
+// with the moments and the affine parameters handed in as (C,) f32
+// vectors. bn_norm (bn_sync.cu) launches it with the all-reduced moments.
+//
+// The walk is the dx pass's (bn_bwd_vec.cuh's bn_dx_vec). Thread t owns
+// the V = 16 / sizeof(T) neighbouring channels of group t % groups
+// (groups = C / V) for its whole loop: their mean, rstd, gamma and beta
+// sit in registers, loaded once. It takes the vectors t, t + stride, ...
+// with stride = lanes * groups vectors, a multiple of C elements, so the
+// channel group never changes: no division in the loop. kNormRows vectors
+// of x in flight a thread, 16-byte loads of x and 16-byte stores of y, one
+// wave of kNormCtasPerSm CTAs a SM (ops/fused_norm.bn_dx_plan plans both
+// walks: kNormThreads and kNormCtasPerSm are the dx pass's). Every
+// operation is a rounded f32 operation in the order of the plain version
+// (no FMA contraction), so y is bit-equal to it on finite inputs.
+//
+// Where C is not a multiple of V or a base is not 16-byte aligned the plan
+// takes V = 1: one element a load, a planned path of the same kernel.
+#pragma once
+
+#include "colsum_vec.cuh"
+
+constexpr int kNormThreads = 256;
+constexpr int kNormRows = 2;       // vectors of x in flight a thread
+constexpr int kNormCtasPerSm = 3;  // resident CTAs a SM the grid fills
+
+// The V channels of a vector: ((x - mean) * rstd) * gamma + beta (+ relu)
+template <typename T, int V, bool RELU>
+__device__ __forceinline__ void norm_vec(const typename VecIO<T, V>::Raw& rx,
+                                         const float* km, const float* kr,
+                                         const float* kg, const float* kb,
+                                         T* out) {
+  using IO = VecIO<T, V>;
+  typename IO::Raw o;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    float v = __fmul_rn(__fsub_rn(IO::at(rx, j), km[j]), kr[j]);
+    v = __fadd_rn(__fmul_rn(v, kg[j]), kb[j]);
+    o.v[j] = from_f32<T>(RELU ? relu_f32(v) : v);
+  }
+  *reinterpret_cast<typename IO::Raw*>(out) = o;
+}
+
+// nv = N * C / V vectors; thread t < lanes * groups takes the vectors t,
+// t + stride, ... (stride = lanes * groups)
+template <typename T, int V, bool RELU>
+__global__ void __launch_bounds__(kNormThreads, kNormCtasPerSm)
+    bn_norm_vec(const T* __restrict__ x, const float* __restrict__ gamma,
+                const float* __restrict__ beta,
+                const float* __restrict__ mean,
+                const float* __restrict__ rstd, T* __restrict__ y,
+                int64_t nv, int groups, int64_t lanes) {
+  using IO = VecIO<T, V>;
+  const int64_t stride = lanes * groups;
+  const int64_t t = (int64_t)blockIdx.x * kNormThreads + threadIdx.x;
+  if (t >= stride) return;
+  const int c0 = (int)(t % groups) * V;
+  float km[V], kr[V], kg[V], kb[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    km[j] = mean[c0 + j];
+    kr[j] = rstd[c0 + j];
+    kg[j] = gamma[c0 + j];
+    kb[j] = beta[c0 + j];
+  }
+  int64_t v = t;
+  for (; v + (kNormRows - 1) * stride < nv; v += kNormRows * stride) {
+    typename IO::Raw rx[kNormRows];
+#pragma unroll
+    for (int u = 0; u < kNormRows; ++u) rx[u] = IO::load(x + (v + u * stride) * V);
+#pragma unroll
+    for (int u = 0; u < kNormRows; ++u)
+      norm_vec<T, V, RELU>(rx[u], km, kr, kg, kb, y + (v + u * stride) * V);
+  }
+  for (; v < nv; v += stride)
+    norm_vec<T, V, RELU>(IO::load(x + v * V), km, kr, kg, kb, y + v * V);
+}
+
+template <typename T, int V, bool RELU>
+static void launch_norm(const void* x, const float* gamma, const float* beta,
+                        const float* mean, const float* rstd, void* y,
+                        int64_t nv, int groups, int64_t lanes, int blocks,
+                        cudaStream_t s) {
+  bn_norm_vec<T, V, RELU><<<blocks, kNormThreads, 0, s>>>(
+      (const T*)x, gamma, beta, mean, rstd, (T*)y, nv, groups, lanes);
+}
+
+// The normalize under bn_dx_plan's (vec, lanes, blocks). Returns
+// cudaErrorInvalidValue for a plan the inputs do not allow.
+template <typename T>
+static int launch_bn_norm(const void* x, const float* gamma,
+                          const float* beta, const float* mean,
+                          const float* rstd, void* y, int64_t N, int C,
+                          int vec, int64_t lanes, int blocks, int relu,
+                          cudaStream_t s) {
+  constexpr int VW = 16 / sizeof(T);
+  if (vec != 1 && (vec != VW || C % VW || !aligned16(x) || !aligned16(y)))
+    return (int)cudaErrorInvalidValue;
+  const int groups = C / vec;
+  if (lanes < 1 || lanes > N || blocks < 1 ||
+      (int64_t)blocks * kNormThreads < lanes * groups)
+    return (int)cudaErrorInvalidValue;
+  const int64_t nv = N * C / vec;
+#define BN_NORM(V_, RELU_)                                                \
+  launch_norm<T, V_, RELU_>(x, gamma, beta, mean, rstd, y, nv, groups,   \
+                            lanes, blocks, s)
+  if (vec == VW) {
+    if (relu) BN_NORM(VW, true); else BN_NORM(VW, false);
+  } else {
+    if (relu) BN_NORM(1, true); else BN_NORM(1, false);
+  }
+#undef BN_NORM
+  return 0;
+}

@@ -31,15 +31,21 @@
 // and SXH/N handed in). The sums add in a fixed order, so two runs on the
 // same input agree bit for bit and so do both ranks' reductions of the
 // same rows. They write into one (2, C) f32 buffer, the buffer the caller
-// all-reduces in one call. bn_norm is a grid-stride loop. Every multiply
-// and add is a rounded f32 operation in the order of the plain PyTorch
-// version (no contraction into an FMA). Any N and C: the TPU kernel's
-// row-block divisibility does not apply. At bn_stem1 per rank on an
-// NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py --ab) bn_bwd_dx takes
-// 0.1373 ms, 1.12x its bound (a scalar grid-stride loop took 0.1903;
-// torch.batch_norm_backward_elemt 0.1538, reading no mask).
+// all-reduces in one call. bn_norm is bn_norm_vec.cuh's walk, the dx
+// pass's: a thread keeps its 16 bytes of channels and their mean, rstd,
+// gamma and beta in registers, 16-byte loads of x and stores of y. Every
+// multiply and add is a rounded f32 operation in the order of the plain
+// PyTorch version (no contraction into an FMA), so bn_norm is bit-equal
+// to its plain version on finite inputs. Any N and C:
+// the TPU kernel's row-block divisibility does not apply. At bn_stem1 per
+// rank on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py --ab)
+// bn_bwd_dx takes 0.1373 ms, 1.12x its bound (a scalar grid-stride loop
+// took 0.1903; torch.batch_norm_backward_elemt 0.1538, reading no mask);
+// bn_norm 0.0763 ms, 1.24x its bound (the scalar grid-stride loop it
+// replaced 0.1425, torch.batch_norm_elemt 0.1285 without the relu).
 #include "colsum.cuh"
 #include "bn_bwd_vec.cuh"
+#include "bn_norm_vec.cuh"
 
 template <typename T>
 struct Moments {  // a += x, b += x * x
@@ -61,25 +67,6 @@ __global__ void finalize_pair(const float* __restrict__ p1,
   out[C + c] = sum_partials(p2, G, C, c);
 }
 
-template <typename T>
-__global__ void sync_normalize(const T* __restrict__ x,
-                               const float* __restrict__ gamma,
-                               const float* __restrict__ beta,
-                               const float* __restrict__ mean,
-                               const float* __restrict__ rstd,
-                               T* __restrict__ y, int64_t n, int C,
-                               int relu) {
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += step) {
-    const int c = (int)(i % C);
-    float v = __fmul_rn(__fsub_rn(to_f32(x[i]), mean[c]), rstd[c]);
-    v = __fadd_rn(__fmul_rn(v, gamma[c]), beta[c]);
-    if (relu) v = relu_f32(v);
-    y[i] = from_f32<T>(v);
-  }
-}
-
 // x: (N, C) of dtype code `dtype`; sums: (2, C) f32 output, row 0 S1 and
 // row 1 S2; part: 2 * G * C f32 scratch. Returns a cudaError_t.
 extern "C" int bn_sums(const void* x, float* sums, float* part, int64_t N,
@@ -94,15 +81,17 @@ extern "C" int bn_sums(const void* x, float* sums, float* part, int64_t N,
 }
 
 // x, y: (N, C) of dtype code `dtype`; gamma, beta, mean, rstd: (C,) f32.
+// vec, lanes, blocks: ops/fused_norm.bn_dx_plan. Returns a cudaError_t.
 extern "C" int bn_norm(const void* x, const float* gamma, const float* beta,
                        const float* mean, const float* rstd, void* y,
-                       int64_t N, int C, int dtype, int relu, void* stream) {
+                       int64_t N, int C, int vec, int64_t lanes, int blocks,
+                       int dtype, int relu, void* stream) {
   if (N <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int64_t total = N * C;
-  DISPATCH(dtype, sync_normalize<T><<<grid_for(total, 256), 256, 0, s>>>(
-                      (const T*)x, gamma, beta, mean, rstd, (T*)y, total, C,
-                      relu));
+  int rc = 0;
+  DISPATCH(dtype, rc = (launch_bn_norm<T>(x, gamma, beta, mean, rstd, y, N,
+                                          C, vec, lanes, blocks, relu, s)));
+  if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
 

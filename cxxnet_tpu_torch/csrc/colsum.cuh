@@ -1,7 +1,8 @@
 // Per-channel column sums over (N, C) rows, in two stages: a grid of
 // row-block CTAs writes f32 partial sums per (row block, channel), and a
 // finalize kernel adds the partials of each channel in row-block order.
-// Shared by the batch-norm forward and backward and the epilogue backward.
+// Shared by the batch-norm forward (bn_fwd.cu) and the sync-BN moments
+// (bn_sync.cu's bn_sums).
 //
 // No atomics: every partial is summed in a fixed order, so two runs on
 // the same input agree bit for bit.

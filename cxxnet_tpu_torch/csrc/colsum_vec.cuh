@@ -1,6 +1,8 @@
 // Per-channel column sums over (N, C) rows in one launch, with 16-byte
 // loads and no float atomics: the reduction of bn_bwd_sums (bn_sync.cu)
-// and of bn_bwd (bn_bwd.cu), through bn_bwd_vec.cuh's BwdSumsVec op.
+// and of bn_bwd (bn_bwd.cu), through bn_bwd_vec.cuh's BwdSumsVec op (two
+// sums a channel), and the epilogue's dbias (epilogue_bwd.cu's EpiBwdVec
+// op, one sum a channel).
 //
 // Bound on the H100 (3.35 TB/s): the bytes of the input rows, read once.
 // colsum.cuh's two-stage design (one scalar 2-byte load per stream and
@@ -22,20 +24,24 @@
 // SM: 74 KB of loads in flight a SM (of 1 to 16 CTAs a SM, 3 measured
 // fastest: fewer leave too few bytes in flight, more add a tail). The
 // lanes' sums meet in shared memory and are added in lane order; each
-// CTA writes its (2, tile) partials into the wrapper's workspace; an
+// CTA writes its (NS, tile) partials into the wrapper's workspace; an
 // integer arrival counter per tile picks the CTA that arrives last,
 // which adds the tile's partials in row-block order, spread over all of
 // its threads (fvec partials a load, `chunks` runs of row blocks added
 // apart and then in order), writes the sums and resets the counter for
 // the next launch. So two runs on the same input agree bit for bit, and
-// the counters need no memset.
+// the counters need no memset. With one row block (G = 1) the lanes' sums
+// are the column sums: the CTA writes them and skips the partials, the
+// counter and the last pass (whose additions, 0 + the one partial, would
+// be exact).
 // Where C is not a multiple of V or a base is not 16-byte aligned the
 // wrapper plans V = 1 (one element a load).
 //
 // ops/fused_norm.colsum_vec_plan gives cgt, the tiles, the row blocks
 // and fvec; ops/fused_norm.colsum_vec_depth the longest chain of f32
 // additions behind one sum: a lane's rows, then the lanes, then a run of
-// row blocks, then the runs.
+// row blocks, then the runs. An op with one sum (NS = 1) writes and adds
+// half the partials; its last CTA spreads the runs over as many threads.
 #pragma once
 
 #include "common.cuh"
@@ -45,15 +51,42 @@ constexpr int kVecRows = 2;     // rows of each stream a thread has in flight
 constexpr int kVecCtasPerSm = 3; // resident CTAs a SM (at most 85 registers)
 constexpr int kVecShared = 2 * kVecThreads * 8;   // floats of shared memory
 
-// The last CTA's pass over one tile's partials: sum q of the tile's 2 * cw
-// (a then b) is the sum over row blocks g of part[g * 2C + s * C + c],
-// taken in `chunks` runs of gper row blocks, FV sums a load; each run's
-// total lands in sc[run * 2 * cw + q].
-template <int FV>
+// runs the statement(s) with T the element type of dtype code `dtype`
+#define DISPATCH(dtype, ...)                                       \
+  switch (dtype) {                                                 \
+    case kF32: { using T = float; __VA_ARGS__; } break;            \
+    case kBF16: { using T = __nv_bfloat16; __VA_ARGS__; } break;   \
+    case kF16: { using T = __half; __VA_ARGS__; } break;           \
+    default: return (int)cudaErrorInvalidValue;                    \
+  }
+
+static inline bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15) == 0;
+}
+
+// Whether colsum_vec_plan's (vec, cgt, tiles, blocks, rows_per, fvec)
+// covers (N, C) rows: the channel groups in whole tiles, the rows in the
+// row blocks, fvec 4 only where the partials allow float4 loads.
+static inline bool colsum_plan_ok(int64_t N, int C, int vec, int cgt,
+                                  int tiles, int blocks, int64_t rows_per,
+                                  int fvec) {
+  if (vec < 1 || C % vec) return false;
+  const int groups = C / vec;
+  return cgt >= 1 && cgt <= kVecThreads &&
+         tiles == (groups + cgt - 1) / cgt && blocks >= 1 && rows_per >= 1 &&
+         (int64_t)blocks * rows_per >= N &&
+         (fvec == 1 || (fvec == 4 && C % 4 == 0 && (cgt * vec) % 4 == 0));
+}
+
+// The last CTA's pass over one tile's partials: sum q of the tile's NS * cw
+// (a, then b when NS = 2) is the sum over row blocks g of
+// part[g * NS * C + s * C + c], taken in `chunks` runs of gper row blocks,
+// FV sums a load; each run's total lands in sc[run * NS * cw + q].
+template <int NS, int FV>
 __device__ __forceinline__ void sum_runs(const float* __restrict__ part,
                                          int G, int C, int c_base, int cw,
                                          int chunks, float* sc) {
-  const int units = 2 * cw / FV;
+  const int units = NS * cw / FV;
   const int gper = (G + chunks - 1) / chunks;
   for (int w = threadIdx.x; w < units * chunks; w += kVecThreads) {
     const int u = w % units, run = w / units;
@@ -67,7 +100,7 @@ __device__ __forceinline__ void sum_runs(const float* __restrict__ part,
     for (int k = 0; k < FV; ++k) t[k] = 0.f;
 #pragma unroll 8
     for (int g = g0; g < g1; ++g) {
-      const float* p = src + (int64_t)g * 2 * C;
+      const float* p = src + (int64_t)g * NS * C;
       if constexpr (FV == 4) {
         const float4 v = __ldcg(reinterpret_cast<const float4*>(p));
         t[0] = __fadd_rn(t[0], v.x);
@@ -79,24 +112,27 @@ __device__ __forceinline__ void sum_runs(const float* __restrict__ part,
       }
     }
 #pragma unroll
-    for (int k = 0; k < FV; ++k) sc[run * 2 * cw + q0 + k] = t[k];
+    for (int k = 0; k < FV; ++k) sc[run * NS * cw + q0 + k] = t[k];
   }
 }
 
-// Op: static constexpr int V; struct Row (one row's raw vectors);
-// struct Consts (per-channel constants); __device__ Consts consts(int c0)
-// const; __device__ Row load(int64_t i) const (the V channels from
-// element i on); __device__ void add(const Row&, const Consts&, float* a,
-// float* b) const (adds them into a[0..V) and b[0..V)).
+// Op: static constexpr int V; static constexpr int NS (1 or 2 sums a
+// channel); struct Row (one row's raw vectors); struct Consts
+// (per-channel constants); __device__ Consts consts(int c0) const;
+// __device__ Row load(int64_t i) const (the V channels from element i
+// on); __device__ void add(const Row&, const Consts&, float* a, float* b)
+// const (adds them into a[0..V) and, when NS = 2, b[0..V)).
 //
-// grid (G row blocks, tiles); block kVecThreads. part: G * 2 * C floats;
-// counters: one per tile, zero; out: (2, C).
+// grid (G row blocks, tiles); block kVecThreads. part: G * NS * C floats;
+// counters: one per tile, zero; out: (NS, C).
 template <typename Op>
 __global__ void __launch_bounds__(kVecThreads, kVecCtasPerSm)
     colsum_vec(Op op, int64_t N, int C, int cgt, int64_t rows_per,
                int fvec, float* __restrict__ part,
                unsigned* __restrict__ counters, float* __restrict__ out) {
   constexpr int V = Op::V;
+  constexpr int NS = Op::NS;
+  static_assert(NS == 1 || NS == 2, "one or two sums a channel");
   __shared__ __align__(16) float sh[kVecShared];
   __shared__ bool is_last;
   const int tid = threadIdx.x;
@@ -139,18 +175,22 @@ __global__ void __launch_bounds__(kVecThreads, kVecCtasPerSm)
 #pragma unroll
     for (int k = 0; k < V; ++k) {
       sa[lane * cw_full + cg * V + k] = a[k];
-      sb[lane * cw_full + cg * V + k] = b[k];
+      if (NS == 2) sb[lane * cw_full + cg * V + k] = b[k];
     }
   }
   __syncthreads();
-  float* mine = part + (int64_t)blockIdx.x * 2 * C + c_base;
-  for (int q = tid; q < 2 * cw; q += kVecThreads) {
+  float* mine = part + (int64_t)blockIdx.x * NS * C + c_base;
+  for (int q = tid; q < NS * cw; q += kVecThreads) {
     const int s = q / cw, j = q % cw;
     const float* src = (s ? sb : sa) + j;
     float t = 0.f;
     for (int l = 0; l < lanes; ++l) t = __fadd_rn(t, src[l * cw_full]);
-    __stcg(mine + (int64_t)s * C + j, t);
+    if (G == 1)
+      out[(int64_t)s * C + c_base + j] = t;   // the sums themselves
+    else
+      __stcg(mine + (int64_t)s * C + j, t);
   }
+  if (G == 1) return;
 
   // the CTA that arrives last at its tile adds the tile's partials
   __threadfence();
@@ -160,18 +200,18 @@ __global__ void __launch_bounds__(kVecThreads, kVecCtasPerSm)
   __syncthreads();
   if (!is_last) return;
   __threadfence();
-  const int units = 2 * cw / fvec;
+  const int units = NS * cw / fvec;
   int chunks = kVecThreads / units;
   chunks = chunks < 1 ? 1 : (chunks > G ? G : chunks);
   if (fvec == 4)
-    sum_runs<4>(part, G, C, c_base, cw, chunks, sh);
+    sum_runs<NS, 4>(part, G, C, c_base, cw, chunks, sh);
   else
-    sum_runs<1>(part, G, C, c_base, cw, chunks, sh);
+    sum_runs<NS, 1>(part, G, C, c_base, cw, chunks, sh);
   __syncthreads();
-  for (int q = tid; q < 2 * cw; q += kVecThreads) {
+  for (int q = tid; q < NS * cw; q += kVecThreads) {
     float t = 0.f;
     for (int run = 0; run < chunks; ++run)
-      t = __fadd_rn(t, sh[run * 2 * cw + q]);
+      t = __fadd_rn(t, sh[run * NS * cw + q]);
     const int s = q / cw, j = q % cw;
     out[(int64_t)s * C + c_base + j] = t;
   }

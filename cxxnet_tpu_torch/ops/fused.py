@@ -140,7 +140,8 @@ def split_scratch(device: torch.device, key: str, nbytes: int, tiles: int
     """The workspace (at least ``nbytes`` bytes) and the int32 per-tile
     arrival counters (at least ``tiles``, zero) of a kernel whose CTAs
     write partials of a tile and whose last CTA to arrive adds them
-    (``key``: ``q_mm``'s split of K, ``bn_bwd_sums``'s row blocks),
+    (``key``: ``q_mm``'s split of K, the row blocks of ``bn_bwd_sums``,
+    ``bn_bwd`` and ``epilogue_bwd``),
     cached per device and key. Each launch leaves its counters zero, and
     launches on a device are ordered by its stream."""
     with _scratch_lock:
@@ -156,9 +157,9 @@ def split_scratch(device: torch.device, key: str, nbytes: int, tiles: int
 
 def row_blocks(n: int, c: int) -> int:
     """Row blocks of the first stage of the column sums in
-    ``csrc/colsum.cuh`` (BN forward and backward, the epilogue's dbias):
-    about eight CTAs per SM of the H100's 132 over the ceil(c/32)
-    channel tiles, and at least 64 rows per block."""
+    ``csrc/colsum.cuh`` (the BN forward's moments, ``bn_fwd``, and the
+    sync-BN's, ``bn_sums``): about eight CTAs per SM of the H100's 132
+    over the ceil(c/32) channel tiles, and at least 64 rows per block."""
     tiles = -(-c // 32)
     return max(1, min(max(1, 1056 // tiles), -(-n // 64)))
 

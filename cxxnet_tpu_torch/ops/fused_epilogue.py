@@ -6,19 +6,25 @@ The port of ``cxxnet_tpu/ops/fused_epilogue.py``: a conv or fullc output
 dtype first, and then an optional relu (the graph-folded one,
 graph.act_fusion_plan); the kernel is ``csrc/epilogue_fwd.cu``. Its
 backward (``csrc/epilogue_bwd.cu``) is dx = dy, masked by ``y > 0`` with
-relu, and dbias = the f32 column sum of that dx. The matmul or conv
-itself stays PyTorch's, as the JAX package left it to XLA.
+relu, and dbias = the f32 column sum of that dx, in one launch: with a
+bias, the column sums of ``csrc/colsum_vec.cuh`` (:func:`epilogue_bwd_plan`)
+storing the masked dx on the way; with relu and no bias, a masked copy
+(:func:`epilogue_copy_plan`). Without the relu dx is dy itself, as in the
+plain version. The matmul or conv itself stays PyTorch's, as the JAX
+package left it to XLA.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
-from .fused import (Kernel, check_cuda_input, register, row_blocks,
-                    stream_handle)
+from .fused import (Kernel, check_cuda_input, register, sm_count,
+                    split_scratch, stream_handle)
+from .fused_norm import (COLSUM_VEC_THREADS, ColsumPlan, _aligned,
+                         colsum_vec_plan)
 
 EPILOGUE_FWD = register(Kernel(
     "epilogue_fwd", "epilogue_fwd.cu",
@@ -28,13 +34,62 @@ EPILOGUE_FWD = register(Kernel(
               ctypes.c_void_p]))
 
 
+_P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 EPILOGUE_BWD = register(Kernel(
     "epilogue_bwd", "epilogue_bwd.cu",
     replaces="cxxnet_tpu/ops/fused_epilogue.py:58",
-    argtypes=[ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-              ctypes.c_void_p]))
+    argtypes=[_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I64, _I,
+              _I, _I, _P]))
+
+#: rows a lane of a one-block plan takes: one round of the kVecRows
+#: rows ``csrc/colsum_vec.cuh`` keeps in flight
+EPI_MIN_ROWS = 2
+#: threads of a CTA of the masked copy (``csrc/epilogue_bwd.cu``,
+#: kEpiThreads) and the CTAs a SM its grid fills (kEpiCtasPerSm)
+EPI_COPY_THREADS = 256
+EPI_COPY_CTAS_PER_SM = 3
+
+
+def epilogue_bwd_plan(n: int, c: int, itemsize: int, aligned: bool = True,
+                      sms: int = 132) -> ColsumPlan:
+    """The launch of the dbias sums over (n, c) rows. Where one CTA's
+    lanes take every row EPI_MIN_ROWS at a time with at least two
+    channel groups a tile (n up to COLSUM_VEC_THREADS // 2 *
+    EPI_MIN_ROWS: a fullc's batch), one row block of as many channel
+    groups a tile as that leaves: each lane loads its rows in one round
+    and each CTA writes its tile's sums itself, with no partials and no
+    arrival counter. Else :func:`~.fused_norm.colsum_vec_plan`, as the
+    BN sums take it."""
+    plan = colsum_vec_plan(n, c, itemsize, aligned, sms)
+    lanes = -(-n // EPI_MIN_ROWS)
+    if lanes > COLSUM_VEC_THREADS // 2:
+        return plan
+    groups = c // plan.vec
+    cgt = min(groups, COLSUM_VEC_THREADS // lanes)
+    fvec = 4 if c % 4 == 0 and (cgt * plan.vec) % 4 == 0 else 1
+    return ColsumPlan(plan.vec, cgt, COLSUM_VEC_THREADS // cgt,
+                      -(-groups // cgt), 1, n, fvec)
+
+
+class CopyPlan(NamedTuple):
+    """The launch of the masked copy over ``numel`` elements: ``vec``
+    elements a load (16 bytes, or 1 where the count or a base does not
+    allow it) on ``blocks`` CTAs of EPI_COPY_THREADS; thread t takes the
+    vectors t, t + blocks * EPI_COPY_THREADS, ..."""
+    vec: int
+    blocks: int
+
+
+def epilogue_copy_plan(numel: int, itemsize: int, aligned: bool = True,
+                       sms: int = 132) -> CopyPlan:
+    """The masked copy's launch: 16-byte vectors where ``numel`` and the
+    bases allow, one vector a thread up to one wave of
+    EPI_COPY_CTAS_PER_SM CTAs a SM of ``sms``."""
+    vw = 16 // itemsize
+    vec = vw if aligned and numel % vw == 0 else 1
+    nv = numel // vec
+    return CopyPlan(vec, max(1, min(EPI_COPY_CTAS_PER_SM * sms,
+                                    -(-nv // EPI_COPY_THREADS))))
 
 
 def _check(x: torch.Tensor, bias: Optional[torch.Tensor], act: str) -> None:
@@ -107,8 +162,9 @@ def epilogue_bwd_plain(y: torch.Tensor, dy: torch.Tensor, act: str,
 def fused_epilogue_bwd(y: torch.Tensor, dy: torch.Tensor, act: str,
                        with_bias: bool):
     """Epilogue backward over the trailing channel axis: ``(dx, dbias)``.
-    A CUDA tensor goes to the kernel; a CPU tensor to
-    :func:`epilogue_bwd_plain`."""
+    A CUDA tensor goes to the kernel, one launch (none when there is
+    neither a bias nor a relu); a CPU tensor to
+    :func:`epilogue_bwd_plain`. Without the relu dx is ``dy`` itself."""
     if act not in ("none", "relu") or y.shape != dy.shape or dy.dim() < 1:
         raise ValueError("epilogue backward: y and dy must match and act "
                          f"be none or relu (got {act!r})")
@@ -117,22 +173,35 @@ def fused_epilogue_bwd(y: torch.Tensor, dy: torch.Tensor, act: str,
     if dy.device.type != "cuda":
         raise ValueError(f"epilogue backward: no kernel for {dy.device}")
     code = check_cuda_input("epilogue backward", dy)
-    if act == "relu" and check_cuda_input("epilogue backward", y) != code:
+    relu = act == "relu"
+    if relu and check_cuda_input("epilogue backward", y) != code:
         raise TypeError("epilogue backward: y and dy must share a dtype")
+    if not relu and not with_bias:
+        return dy, None
+    dev = dy.device
     c = dy.shape[-1]
     n = dy.numel() // c
-    g = row_blocks(n, c)
-    dx = torch.empty_like(dy)
-    db = (torch.empty((c,), dtype=torch.float32, device=dy.device)
-          if with_bias else None)
-    part = (torch.empty((g, c), dtype=torch.float32, device=dy.device)
-            if with_bias else None)
-    with torch.cuda.device(dy.device):
+    dx = torch.empty_like(dy) if relu else dy
+    aligned = _aligned(dy, y if relu else None, dx)
+    db = part = cnt = None
+    if with_bias:
+        p = epilogue_bwd_plan(n, c, dy.element_size(), aligned, sm_count(dev))
+        db = torch.empty((c,), dtype=torch.float32, device=dev)
+        part, cnt = split_scratch(dev, "epilogue_bwd", 4 * p.blocks * c,
+                                  p.tiles)
+        args = (p.vec, p.cgt, p.tiles, p.blocks, p.rows_per, p.fvec)
+    else:
+        cp = epilogue_copy_plan(n * c, dy.element_size(), aligned,
+                                sm_count(dev))
+        args = (cp.vec, 0, 0, cp.blocks, 0, 0)
+    with torch.cuda.device(dev):
         EPILOGUE_BWD.launch(
-            y.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            y.data_ptr() if relu else None, dy.data_ptr(),
+            dx.data_ptr() if relu else None,
             None if db is None else db.data_ptr(),
-            None if part is None else part.data_ptr(), n, c, g, code,
-            int(act == "relu"), stream_handle(dy.device))
+            None if part is None else part.data_ptr(),
+            None if cnt is None else cnt.data_ptr(), n, c, *args, code,
+            int(relu), stream_handle(dev))
     return dx, db
 
 

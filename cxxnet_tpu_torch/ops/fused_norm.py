@@ -32,7 +32,7 @@ kernels of ``csrc/bn_sync.cu``:
   ``var = max(S2 / N - mean^2, 0)``, ``rstd = rsqrt(var + eps)`` over the
   global row count N;
 * ``bn_norm``: ``y = (x - mean) * rstd * gamma + beta`` (+ relu) with the
-  global moments;
+  global moments (the dx pass's walk, :func:`bn_dx_plan`);
 * ``bn_bwd_sums``: the rank's ``SB = sum dy'``, ``SXH = sum dy' * x_hat``
   into one (2, C) buffer, all-reduced;
 * ``bn_bwd_dx``: ``dx = gamma * rstd * (dy' - SB/N - x_hat * SXH/N)``
@@ -73,7 +73,7 @@ BN_SUMS = register(Kernel(
 BN_NORM = register(Kernel(
     "bn_norm", "bn_sync.cu",
     replaces="cxxnet_tpu/ops/fused_norm.py:309",
-    argtypes=[_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P]))
+    argtypes=[_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I64, _I, _I, _I, _P]))
 BN_BWD_SUMS = register(Kernel(
     "bn_bwd_sums", "bn_sync.cu",
     replaces="cxxnet_tpu/ops/fused_norm.py:322",
@@ -137,23 +137,25 @@ def colsum_vec_plan(n: int, c: int, itemsize: int, aligned: bool = True,
     return ColsumPlan(vec, cgt, lanes, tiles, blocks, rows_per, fvec)
 
 
-def colsum_vec_runs(plan: ColsumPlan, cw: int) -> int:
+def colsum_vec_runs(plan: ColsumPlan, cw: int, sums: int = 2) -> int:
     """Runs of row blocks the last CTA of a tile of ``cw`` channels adds
-    apart (one per thread that a unit of ``fvec`` sums leaves)."""
-    units = 2 * cw // plan.fvec
+    apart (one per thread that a unit of ``fvec`` sums leaves), for an
+    op of ``sums`` sums a channel (2 for BN's, 1 for the epilogue's)."""
+    units = sums * cw // plan.fvec
     return max(1, min(plan.blocks, COLSUM_VEC_THREADS // units))
 
 
-def colsum_vec_depth(plan: ColsumPlan, c: int) -> int:
+def colsum_vec_depth(plan: ColsumPlan, c: int, sums: int = 2) -> int:
     """The longest chain of f32 additions behind one column sum of
-    ``csrc/colsum_vec.cuh`` under ``plan``: a lane's rows of its row
-    block, then the lanes, then a run of row blocks, then the runs. A
-    sum so taken is within ``depth * 2**-24`` times the sum of its
-    terms' magnitudes of the exact sum of its terms."""
+    ``csrc/colsum_vec.cuh`` under ``plan`` for an op of ``sums`` sums a
+    channel: a lane's rows of its row block, then the lanes, then a run
+    of row blocks, then the runs. A sum so taken is within
+    ``depth * 2**-24`` times the sum of its terms' magnitudes of the
+    exact sum of its terms."""
     tile = plan.cgt * plan.vec
     fin = 0
     for t in range(plan.tiles):
-        runs = colsum_vec_runs(plan, min(tile, c - t * tile))
+        runs = colsum_vec_runs(plan, min(tile, c - t * tile), sums)
         fin = max(fin, -(-plan.blocks // runs) + runs)
     return -(-plan.rows_per // plan.lanes) + plan.lanes + fin
 
@@ -164,14 +166,19 @@ BN_DX_THREADS = 256
 BN_DX_CTAS_PER_SM = 3
 #: vectors of each stream a thread has in flight (kDxRows)
 BN_DX_ROWS = 2
+#: vectors of x a thread of the normalize has in flight
+#: (``csrc/bn_norm_vec.cuh``, kNormRows; its walk is the dx pass's)
+BN_NORM_ROWS = 2
 
 
 class DxPlan(NamedTuple):
     """The launch of the dx pass (``bn_dx_vec`` of ``csrc/bn_bwd_vec.cuh``)
-    over (n, c) rows: ``vec`` channels a load (16 bytes, or 1 where c or
-    a base does not allow it), ``lanes`` row lanes, each of ``c // vec``
-    threads (one a channel group), on ``blocks`` CTAs of BN_DX_THREADS.
-    Thread t takes the vectors t, t + lanes * c // vec, ..."""
+    and of the normalize (``bn_norm_vec`` of ``csrc/bn_norm_vec.cuh``,
+    the same walk) over (n, c) rows: ``vec`` channels a load (16 bytes,
+    or 1 where c or a base does not allow it), ``lanes`` row lanes, each
+    of ``c // vec`` threads (one a channel group), on ``blocks`` CTAs of
+    BN_DX_THREADS. Thread t takes the vectors t, t + lanes * c // vec,
+    ..."""
     vec: int
     lanes: int
     blocks: int
@@ -449,7 +456,9 @@ def bn_norm(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
             mean: torch.Tensor, rstd: torch.Tensor,
             act: str = "none") -> torch.Tensor:
     """Normalize (N, C) rows with given moments: the ``bn_norm`` kernel on
-    a CUDA tensor, :func:`bn_norm_plain` on a CPU one."""
+    a CUDA tensor (one launch under :func:`bn_dx_plan`, bit-equal to the
+    plain version on finite inputs), :func:`bn_norm_plain` on a CPU
+    one."""
     if act not in ("none", "relu"):
         raise ValueError(f"bn_norm: act must be none or relu, got {act!r}")
     code = _rows("bn_norm", x2)
@@ -458,10 +467,13 @@ def bn_norm(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     _vecs("bn_norm", x2, gamma=gamma, beta=beta, mean=mean, rstd=rstd)
     n, c = x2.shape
     y = torch.empty_like(x2)
+    plan = bn_dx_plan(n, c, x2.element_size(), _aligned(x2),
+                      sm_count(x2.device))
     with torch.cuda.device(x2.device):
         BN_NORM.launch(x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
                        mean.data_ptr(), rstd.data_ptr(), y.data_ptr(), n, c,
-                       code, int(act == "relu"), stream_handle(x2.device))
+                       plan.vec, plan.lanes, plan.blocks, code,
+                       int(act == "relu"), stream_handle(x2.device))
     return y
 
 

@@ -1,18 +1,20 @@
 """The orders in which the port's vectorised reductions add, emulated
 in numpy float32 (each addition rounded as the card's ``__fadd_rn``):
 
-* ``bn_bwd_sums`` (``csrc/colsum_vec.cuh`` under ``colsum_vec_plan``):
-  each lane of a row block adds its rows in order, the lanes' sums are
-  added in lane order, the last CTA adds the row blocks' partials in
-  runs and then the runs in order;
+* ``bn_bwd_sums`` and the epilogue's dbias (``csrc/colsum_vec.cuh``
+  under ``colsum_vec_plan``, with two sums a channel and with one): each
+  lane of a row block adds its rows in order, the lanes' sums are added
+  in lane order, the last CTA adds the row blocks' partials in runs and
+  then the runs in order;
 * ``pool_fwd`` (``csrc/pool_fwd.cu`` under ``pool_fwd_plan``): thread y
   of a window adds its rows y, y + ry, ... cell by cell, then the ry
   threads' sums are added in order.
 
 And the walk of the batch-norm backward's dx pass (``bn_dx_vec`` of
 ``csrc/bn_bwd_vec.cuh`` under ``bn_dx_plan``) over the vectors of the
-rows, with the relu mask bits that ``bn_bwd``'s sums pass packs and its
-dx pass reads.
+rows, which the normalize (``bn_norm_vec`` of ``csrc/bn_norm_vec.cuh``)
+takes with its own rows in flight, with the relu mask bits that
+``bn_bwd``'s sums pass packs and its dx pass reads.
 
 Each emulation also counts the additions on the longest chain behind
 one result, which the depth functions (``colsum_vec_depth`` of the
@@ -63,10 +65,11 @@ def tile_channels(plan: N.ColsumPlan, c: int, tile: int, cg: int):
     return np.arange(c0, min(c, c0 + plan.vec))
 
 
-def colsum_vec_sum(terms: np.ndarray, plan: N.ColsumPlan
+def colsum_vec_sum(terms: np.ndarray, plan: N.ColsumPlan, sums: int = 2
                    ) -> Tuple[np.ndarray, int]:
-    """The column sums of ``terms`` (n, c) float32 in the kernel's order,
-    and the additions on the longest chain behind one of them."""
+    """The column sums of ``terms`` (n, c) float32 in the kernel's order
+    for an op of ``sums`` sums a channel (the last CTA's runs depend on
+    it), and the additions on the longest chain behind one of them."""
     n, c = terms.shape
     g, rp, lanes = plan.blocks, plan.rows_per, plan.lanes
     k = -(-rp // lanes)
@@ -77,12 +80,12 @@ def colsum_vec_sum(terms: np.ndarray, plan: N.ColsumPlan
     per_lane = _seq(padded.reshape(g, k, lanes, c), 1)     # (g, lanes, c)
     part = _seq(per_lane, 1)                                # (g, c)
     out = np.zeros(c, np.float32)
-    for lo, hi, runs in _tiles(plan, c):
+    for lo, hi, runs in _tiles(plan, c, sums):
         gper = -(-g // runs)
         run_sums = np.stack([_seq(part[j * gper:(j + 1) * gper, lo:hi], 0)
                              for j in range(runs)])
         out[lo:hi] = _seq(run_sums, 0)
-    return out, colsum_vec_chain(plan, n, c)
+    return out, colsum_vec_chain(plan, n, c, sums)
 
 
 def colsum_vec_sum_blocks(terms_of, plan: N.ColsumPlan, n: int, c: int,
@@ -127,22 +130,24 @@ def colsum_vec_sum_blocks(terms_of, plan: N.ColsumPlan, n: int, c: int,
     return out
 
 
-def _tiles(plan: N.ColsumPlan, c: int):
+def _tiles(plan: N.ColsumPlan, c: int, sums: int = 2):
     """(first channel, end, runs of the last CTA) of each channel tile."""
     tile = plan.cgt * plan.vec
     for t in range(plan.tiles):
         lo, hi = t * tile, min(c, (t + 1) * tile)
-        yield lo, hi, N.colsum_vec_runs(plan, hi - lo)
+        yield lo, hi, N.colsum_vec_runs(plan, hi - lo, sums)
 
 
-def colsum_vec_chain(plan: N.ColsumPlan, n: int, c: int) -> int:
-    """The additions on the longest chain behind one column sum, counted
-    from the rows each lane takes, the lanes, and the runs of row blocks
-    the last CTA of each tile adds."""
+def colsum_vec_chain(plan: N.ColsumPlan, n: int, c: int,
+                     sums: int = 2) -> int:
+    """The additions on the longest chain behind one column sum of an op
+    of ``sums`` sums a channel, counted from the rows each lane takes,
+    the lanes, and the runs of row blocks the last CTA of each tile
+    adds."""
     lane_max = max(len(lane_rows(plan, n, b, lane))
                    for b in range(plan.blocks) for lane in range(plan.lanes))
     longest = 0
-    for _, _, runs in _tiles(plan, c):
+    for _, _, runs in _tiles(plan, c, sums):
         gper = -(-plan.blocks // runs)
         run_max = max(len(range(j * gper, min(plan.blocks, (j + 1) * gper)))
                       for j in range(runs))
@@ -150,13 +155,14 @@ def colsum_vec_chain(plan: N.ColsumPlan, n: int, c: int) -> int:
     return longest
 
 
-def dx_walk(plan: N.DxPlan, n: int, c: int):
+def dx_walk(plan: N.DxPlan, n: int, c: int, rows: int = N.BN_DX_ROWS):
     """The vectors the dx pass's threads take, in the kernel's loop: thread
-    t < lanes * groups starts at vector t and takes N.BN_DX_ROWS vectors
+    t < lanes * groups starts at vector t and takes ``rows`` vectors
     ``stride`` apart while the last of them is in range, then one at a
-    time. Yields (threads, vectors) array pairs, one a step of the loop,
-    vector v of the (n * c / vec) being elements v * vec to v * vec + vec
-    of the flat rows."""
+    time (the normalize walks the same way with N.BN_NORM_ROWS). Yields
+    (threads, vectors) array pairs, one a step of the loop, vector v of
+    the (n * c / vec) being elements v * vec to v * vec + vec of the flat
+    rows."""
     groups = c // plan.vec
     stride = plan.lanes * groups
     assert stride <= plan.blocks * N.BN_DX_THREADS
@@ -164,12 +170,12 @@ def dx_walk(plan: N.DxPlan, n: int, c: int):
     t = np.arange(stride, dtype=np.int64)
     v = t.copy()
     while True:
-        main = v + (N.BN_DX_ROWS - 1) * stride < nv
+        main = v + (rows - 1) * stride < nv
         if not main.any():
             break
-        for u in range(N.BN_DX_ROWS):
+        for u in range(rows):
             yield t[main], v[main] + u * stride
-        v = np.where(main, v + N.BN_DX_ROWS * stride, v)
+        v = np.where(main, v + rows * stride, v)
     while True:
         live = v < nv
         if not live.any():
