@@ -6,7 +6,8 @@
     python3 chip_smoke.py --ab PARENT . . PARENT   # A/B of two checkouts
 
 With ``--ab``, only the kernels of the vectorised designs are timed, in
-each checkout root given, in turn, one process each (``bn_bwd`` and
+each checkout root given, in turn, one process each (``bn_fwd`` at
+bn_stem1 one- and two-pass and at a mid layer, ``bn_bwd`` and
 ``epilogue_bwd`` at fc1 and AlexNet's cv1 and fc6 as phase 6 times
 them, the four sync-BN kernels as phase 11 does).
 
@@ -39,8 +40,8 @@ and prints no result:
             and 1500, a ragged row count and ragged rows 1 element past
             a 16-byte boundary in bf16, f16 and f32: their sums within
             the order-of-summation bound of the exact sum (the longest
-            addition chain of colsum.cuh's order for bn_sums, of
-            colsum_vec.cuh's plan for bn_bwd_sums, * 2^-24 * sum|term|),
+            addition chain of colsum_vec.cuh's plan for each, * 2^-24 *
+            sum|term|), bn_sums' bit-equal to bn_fwd's of the same rows,
             ``bn_norm``'s output bit-equal to the plain version's,
             ``bn_bwd_dx``'s within 4 f32 ulp of max|plain| (bf16/f16 one
             ulp more); the epilogue backward at fc1, AlexNet-like cv1
@@ -84,7 +85,10 @@ and prints no result:
             state: loss rtol 1e-4, update rel L2 median 5e-2 and worst
             leaf 0.15, BN statistics 1e-3. The written round is loaded
             and served a finite answer; the train step and each
-            training kernel are timed; ``bn_bwd`` also by launch beside
+            training kernel are timed; ``bn_fwd`` also at a mid layer
+            (BN_MID) and by launch, and the device time and launches of
+            a step's 69 ``bn_fwd`` summed from the step's profile by
+            kind (BN_FWD_KINDS); ``bn_bwd`` also by launch beside
             the library call's launches, and beside the two-pass byte
             floors (7 streams with y read twice, 6.125 with the mask
             bits it reads) as well as the table's 4-stream bound;
@@ -304,7 +308,10 @@ LM_STEPS = 4            # batches of 8: num_inst cut from 256 to 32
 #: the kernels' times before their redesign, as PERF.md's kernel table
 #: has them (ms on the H100 at the path shapes), printed beside the new
 #: ones
-PERF_BEFORE_MS = {"flash_fwd": "0.8869 ms",
+PERF_BEFORE_MS = {"bn_fwd": "0.4064 ms",
+                  "bn_fwd (mid)": "0.02807 ms",
+                  "bn_sums": "0.07506 ms",
+                  "flash_fwd": "0.8869 ms",
                   "flash_bwd_dq": "0.7877 ms",
                   "flash_bwd_dkv": "0.7659 ms",
                   "q_mm conv1 b32": "0.1640 ms",
@@ -428,11 +435,12 @@ _KINDS = (("q_mm_kernel", "q_mm kernel"),
           ("epilogue_fwd_kernel", "epilogue kernel"),
           ("epibwdvec", "epilogue bwd kernel"),
           ("mask_copy_vec", "epilogue bwd kernel"),
-          ("colsum_partials", "bn sums kernel"),
+          ("momentsvec", "bn moments kernel"),
+          ("sqdevvec", "bn moments kernel"),
+          ("bn_fwd_norm_vec", "bn fwd normalize kernel"),
           ("colsum_vec", "bn sums kernel"),
-          ("bn_normalize", "bn kernel"), ("bn_norm_vec", "bn kernel"),
-          ("bn_dx", "bn kernel"),
-          ("finalize", "bn kernel"), ("sgd_apply_kernel", "sgd kernel"),
+          ("bn_norm_vec", "bn kernel"), ("bn_dx", "bn kernel"),
+          ("sgd_apply_kernel", "sgd kernel"),
           ("conv", "conv"), ("xmma", "conv"), ("cudnn", "conv"),
           ("gemm", "matmul"), ("sm90", "conv/matmul"),
           ("cat", "concat"), ("reduce", "reduce"), ("pool", "torch pool"),
@@ -570,7 +578,7 @@ def phase_build():
 
 #: the sources whose every kernel's registers and spills phase 2 prints
 REPORT_PTXAS = ("flash_fwd.cu", "flash_bwd.cu", "q_mm.cu", "bn_sync.cu",
-                "bn_bwd.cu", "pool_fwd.cu", "epilogue_bwd.cu")
+                "bn_fwd.cu", "bn_bwd.cu", "pool_fwd.cu", "epilogue_bwd.cu")
 
 
 def ptxas_functions(log: str):
@@ -582,16 +590,17 @@ def ptxas_functions(log: str):
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             k = re.search(r"(flash_\w+?_(?:tc|kernel)|q_mm_kernel|"
-                          r"colsum_vec|bn_dx_vec|bn_norm_vec|mask_copy_vec|"
-                          r"pool_fwd_kernel)I(\w+)", m.group(1))
+                          r"colsum_vec|bn_dx_vec|bn_norm_vec|bn_fwd_norm_vec|"
+                          r"mask_copy_vec|pool_fwd_kernel)I(\w+)", m.group(1))
             if k is None:
                 name = m.group(1)
             else:
                 g = k.group(2)
-                op = re.match(r"\d+(BwdSumsVec|EpiBwdVec)I", g)
+                ops = "BwdSumsVec|EpiBwdVec|MomentsVec|SqDevVec"
+                op = re.match(rf"\d+({ops})I", g)
                 args = [op.group(1)] if op else []
                 args += ["f32"] if g.startswith("f") or re.match(
-                    r"\d+(?:BwdSumsVec|EpiBwdVec)If", g) else []
+                    rf"\d+(?:{ops})If", g) else []
                 args += [{"13__nv_bfloat16": "bf16", "6__half": "f16"}.get(t, t)
                          for t in re.findall(
                              r"13__nv_bfloat16|6__half|(?<=L[ib])\d+(?=E)",
@@ -744,7 +753,8 @@ def phase_train_kernels(gen: torch.Generator, conf: str) -> dict:
                                                      fused_epilogue_bwd)
     from cxxnet_tpu_torch.ops.fused_norm import (bn_act_plain, bn_bwd,
                                                  bn_bwd_dx, bn_bwd_plain,
-                                                 bn_fwd, colsum_vec_depth)
+                                                 bn_fwd, bn_norm_plain,
+                                                 colsum_vec_depth)
     from cxxnet_tpu_torch.ops.fused_optim import (fused_sgd_apply,
                                                   sgd_apply_plain)
     from cxxnet_tpu_torch.ops.fused_pool import (fused_pool_bwd_lin,
@@ -774,6 +784,8 @@ def phase_train_kernels(gen: torch.Generator, conf: str) -> dict:
         b = rnd((c,), torch.float32, 0.1)
         y, mean, var, rstd = bn_fwd(x, g, b, 1e-5, act, two_pass)
         y0, mean0, var0 = bn_act_plain(x, g, b, 1e-5, act, two_pass)
+        # with its own moments, y is the plain normalize's bit for bit
+        same_norm = torch.equal(y, bn_norm_plain(x, g, b, mean, rstd, act))
         dy = rnd((n, c), dt)
         yy = y if relu else None
         dx, dg, db = bn_bwd(x, dy, yy, g, mean, rstd)
@@ -793,14 +805,17 @@ def phase_train_kernels(gen: torch.Generator, conf: str) -> dict:
                   ((db - db0).abs() / (db0.abs() + 1.0)).max().item())
         lines.append(f"bn ({n},{c}) {str(dt)[6:]} relu={int(relu)} "
                      f"two_pass={int(two_pass)}: y {ey.max().item():.3g}, "
+                     f"y = bn_norm_plain's with its moments {same_norm}, "
                      f"stats {stat:.3g}, dx {edx.max().item():.3g}, "
                      f"dgamma/dbeta {egb:.3g}, dx = bn_bwd_dx's with its "
                      f"sums {same_y}")
-        if bad_y or bad_dx or stat > 1e-4 or egb > 1e-3 or not same_y:
+        if (bad_y or bad_dx or stat > 1e-4 or egb > 1e-3 or not same_y
+                or not same_norm):
             raise AssertionError(
-                "bn kernels disagree (tol: y one ulp + 1e-4, dx one ulp + "
-                "1e-3, stats 1e-4, dgamma/dbeta 1e-3 of |v| + 1; dx "
-                "bit-equal to bn_bwd_dx's with the same sums): " + lines[-1])
+                "bn kernels disagree (tol: y one ulp + 1e-4 and bit-equal "
+                "to bn_norm_plain with its own moments, dx one ulp + 1e-3, "
+                "stats 1e-4, dgamma/dbeta 1e-3 of |v| + 1; dx bit-equal to "
+                "bn_bwd_dx's with the same sums): " + lines[-1])
         if (n, c) == bn_shapes[0]:
             path_err["bn_fwd"] = ey.max().item()
             path_err["bn_bwd"] = edx.max().item()
@@ -923,16 +938,17 @@ def phase_sync_bn_kernels(gen: torch.Generator, conf: str) -> dict:
     row count and the ragged rows 1 element past a 16-byte boundary (the
     one-element loads), in bf16, f16 and f32, relu on the path's shapes:
     the sums (rows 8, 10) within the order-of-summation bound of their
-    exact value (each kernel's own addition depth), ``bn_norm``'s output
+    exact value (each kernel's own addition depth), ``bn_sums``' bit-equal
+    to ``bn_fwd``'s one-pass sums of the same rows, ``bn_norm``'s output
     (row 9) bit-equal to the plain version's, ``bn_bwd_dx``'s (row 11)
     within 4 f32 ulp of max|plain| in f32 and one ulp (plus that) in
     bf16/f16. Returns the largest error against the plain version per
     kernel at bn_stem1."""
-    from cxxnet_tpu_torch.ops.fused import colsum_depth, sm_count
+    from cxxnet_tpu_torch.ops.fused import sm_count
     from cxxnet_tpu_torch.ops.fused_norm import (
-        bn_bwd_dx, bn_bwd_dx_plain, bn_bwd_sums, bn_bwd_sums_plain, bn_norm,
-        bn_norm_plain, bn_sums, bn_sums_plain, colsum_vec_depth,
-        colsum_vec_plan)
+        bn_bwd_dx, bn_bwd_dx_plain, bn_bwd_sums, bn_bwd_sums_plain,
+        bn_fwd_sums, bn_norm, bn_norm_plain, bn_sums, bn_sums_plain,
+        colsum_vec_depth, colsum_vec_plan)
     dev = gen.device
     bn_shapes, _ = flagship_shapes(conf, DP_BATCH)
     shapes = [(n, c, False) for n, c in dict.fromkeys(bn_shapes)]
@@ -956,6 +972,8 @@ def phase_sync_bn_kernels(gen: torch.Generator, conf: str) -> dict:
             dy = rows(n, c, dt, 1.0, 0.0, int(off))
             xf = x.float()
             s, s0 = bn_sums(x), bn_sums_plain(x)
+            fwd_same = torch.equal(s.view(torch.int32), bn_fwd_sums(
+                x, g, b, 1e-5, act)[2].view(torch.int32))
             mean = s0[0] / n
             rstd = torch.rsqrt(torch.clamp(s0[1] / n - mean * mean, min=0.0)
                                + 1e-5)
@@ -977,12 +995,12 @@ def phase_sync_bn_kernels(gen: torch.Generator, conf: str) -> dict:
             if off != (x.data_ptr() % 16 != 0):
                 raise AssertionError(f"({n},{c}) {dt}: the offset case must "
                                      "be the one not 16-byte aligned")
-            d_old, d_new = colsum_depth(n, c), colsum_vec_depth(plan, c)
-            ratio = max(_sum_bound_ratio(s[0], xf, d_old),
-                        _sum_bound_ratio(s[1], xf * xf, d_old),
-                        _sum_bound_ratio(bs[0], d, d_new),
+            depth = colsum_vec_depth(plan, c)
+            ratio = max(_sum_bound_ratio(s[0], xf, depth),
+                        _sum_bound_ratio(s[1], xf * xf, depth),
+                        _sum_bound_ratio(bs[0], d, depth),
                         _sum_bound_ratio(bs[1], d * ((xf - mean) * rstd),
-                                         d_new))
+                                         depth))
             outs = [0.0 if torch.equal(y, y0) else float("inf")]
             for got, want in ((dx, dx0),):
                 err = (got.float() - want.float()).abs()
@@ -994,11 +1012,12 @@ def phase_sync_bn_kernels(gen: torch.Generator, conf: str) -> dict:
             worst["sums"] = max(worst["sums"], ratio)
             worst["out"] = max(worst["out"], *outs)
             cases += 1
-            if ratio > 1.0 or max(outs) > 1.0:
+            if ratio > 1.0 or max(outs) > 1.0 or not fwd_same:
                 raise AssertionError(
                     f"sync-BN kernels disagree at ({n},{c}) {dt} act={act}"
                     f"{' offset' if off else ''}: "
-                    f"sums at {ratio:.3g} of their bound, y "
+                    f"sums at {ratio:.3g} of their bound, bn_sums "
+                    f"{'equal' if fwd_same else 'not equal'} to bn_fwd's, y "
                     f"{'equal' if outs[0] == 0 else 'not equal'} to the "
                     f"plain version's, dx at {outs[1]:.3g} of its "
                     f"tolerance")
@@ -1015,8 +1034,9 @@ def phase_sync_bn_kernels(gen: torch.Generator, conf: str) -> dict:
           f"with the plain versions | sums: worst {worst['sums']:.3g} of the "
           f"order-of-summation bound (distance to the exact f64 sum of the "
           f"f32 terms over depth * 2^-24 * sum|term|, depth = the longest "
-          f"addition chain: colsum.cuh's for bn_sums, colsum_vec.cuh's "
-          f"plan's for bn_bwd_sums) | y bit-equal to the plain version's "
+          f"addition chain of colsum_vec.cuh's plan) | bn_sums bit-equal to "
+          f"bn_fwd's one-pass sums in every case | y bit-equal to the plain "
+          f"version's "
           f"in every case | dx: worst {worst['out']:.3g} of the tolerance "
           f"(4 f32 ulp of max|plain|; bf16/f16 one ulp more) | at "
           f"bn_stem1 bf16 vs plain: "
@@ -1819,16 +1839,51 @@ def epilogue_bwd_times(gen: torch.Generator) -> dict:
     return rows
 
 
+#: the profile kinds (``_KINDS``) of bn_fwd's launches in a train step
+BN_FWD_KINDS = ("bn moments kernel", "bn fwd normalize kernel")
+#: (rows, channels) of Inception-BN's bn_stem1 at batch TRAIN_BATCH, and
+#: of a mid layer (14 x 14, C 256)
+BN_STEM1 = (TRAIN_BATCH * 112 * 112, 64)
+BN_MID = (TRAIN_BATCH * 14 * 14, 256)
+
+
+def bn_fwd_cases(gen: torch.Generator) -> dict:
+    """``bn_fwd``'s timed cases, bf16 with relu: bn_stem1 one-pass (the
+    kernel table's row), bn_stem1 two-pass, and the mid layer one-pass.
+    Per case (x, gamma, beta, two_pass)."""
+    dev = gen.device
+    out = {}
+    for name, (n, c), two_pass in (("bn_fwd", BN_STEM1, False),
+                                   ("bn_fwd (two-pass)", BN_STEM1, True),
+                                   ("bn_fwd (mid)", BN_MID, False)):
+        x = (torch.randn((n, c), generator=gen, device=dev) * 1.5
+             ).to(torch.bfloat16)
+        g = torch.rand((c,), generator=gen, device=dev) + 0.5
+        be = torch.randn((c,), generator=gen, device=dev) * 0.1
+        out[name] = (x, g, be, two_pass)
+    return out
+
+
 def ab_times(gen: torch.Generator) -> None:
     """The times of the kernels this tree's vectorised designs touch, for
-    an A/B of two trees (``--ab``): ``bn_bwd`` as :func:`bn_bwd_times`
-    takes it, the four sync-BN kernels as :func:`phase_dp_times` does,
-    and ``epilogue_bwd`` at fc1, cv1 and fc6 as
-    :func:`epilogue_bwd_times` does. Prints them as one JSON line."""
+    an A/B of two trees (``--ab``): ``bn_fwd`` at :func:`bn_fwd_cases`,
+    ``bn_bwd`` as :func:`bn_bwd_times` takes it, the four sync-BN
+    kernels as :func:`phase_dp_times` does, and ``epilogue_bwd`` at fc1,
+    cv1 and fc6 as :func:`epilogue_bwd_times` does. Prints them as one
+    JSON line."""
+    from cxxnet_tpu_torch.ops.fused_norm import bn_fwd
+    fwd = {}
+    for k, (x, g, be, tp) in bn_fwd_cases(gen).items():
+        call = lambda: bn_fwd(x, g, be, 1e-10, "relu", tp)
+        fwd[k] = time_call(call)
+        print(f"ab: {k} {tuple(x.shape)} by launch: "
+              f"{launch_breakdown(call)}", flush=True)
+    del x
+    torch.cuda.empty_cache()
     r = bn_bwd_times(gen)
     dp = phase_dp_times(gen)["kernels"]
     epi = epilogue_bwd_times(gen)
-    print("ab: " + json.dumps({"bn_bwd": r["ms"],
+    print("ab: " + json.dumps({**fwd, "bn_bwd": r["ms"],
                                **{k: v["ms"] for k, v in dp.items()},
                                "epilogue_bwd fc1": epi["epilogue_bwd"]["ms"],
                                "epilogue_bwd cv1":
@@ -1873,18 +1928,29 @@ def phase_train_times(tr, plain, batches, gen) -> dict:
     step_ms = time_forward(lambda: tr.update(b0), reps=10)
     step_plain = time_forward(lambda: plain.update(b0), reps=10)
     for who, t in (("kernels", tr), ("fused_kernels=0", plain)):
-        print(f"profile: train step, {who}: "
-              f"{profile_calls(lambda: t.update(b0), 3, 'step')}",
-              flush=True)
+        line, kinds = profile_kinds(lambda: t.update(b0), 3, "step")
+        print(f"profile: train step, {who}: {line}", flush=True)
+        if t is tr:
+            fwd = [kinds.get(k, (0.0, 0.0)) for k in BN_FWD_KINDS]
+            bn_fwd_step = {"ms": sum(ms for ms, _ in fwd),
+                           "launches": sum(k for _, k in fwd)} \
+                if kinds else None
+    print(f"profile: bn_fwd in one train step (the step's profile, kinds "
+          f"{' + '.join(BN_FWD_KINDS)}): "
+          + ("not measured (no device events)" if bn_fwd_step is None else
+             f"{bn_fwd_step['ms']:.4f} ms over {bn_fwd_step['launches']:g} "
+             "launches"), flush=True)
     dev = tr.device
     bf = torch.bfloat16
     rnd = lambda shape, dt=bf: torch.randn(shape, generator=gen,
                                            device=dev).to(dt)
-    n, c = TRAIN_BATCH * 112 * 112, 64                  # bn_stem1
-    x = rnd((n, c)) * 1.5
-    g = torch.rand((c,), generator=gen, device=dev) + 0.5
-    be = torch.randn((c,), generator=gen, device=dev) * 0.1
+    cases = bn_fwd_cases(gen)
+    x, g, be, _ = cases["bn_fwd"]                       # bn_stem1
+    n, c = x.shape
     w16, b16 = g.to(bf), be.to(bf)
+    xm, gm, bm, _ = cases["bn_fwd (mid)"]
+    nm, cm = xm.shape
+    del cases
     xp = rnd((TRAIN_BATCH, 7, 7, 1024))
     dyp = rnd((TRAIN_BATCH, 1, 1, 1024))
     xe = rnd((TRAIN_BATCH, 1000))
@@ -1909,6 +1975,15 @@ def phase_train_times(tr, plain, batches, gen) -> dict:
                 x, None, None, w16, b16, True, 0.1, 1e-10)),
             bound=bound_ms(2 * n * c * 2, 8 * n * c),
             shape=f"bn_stem1 ({n},{c}) bf16 relu",
+            library="F.batch_norm(training=True), bf16 weights, no relu"),
+        "bn_fwd (mid)": dict(
+            ms=time_call(lambda: bn_fwd(xm, gm, bm, 1e-10, "relu")),
+            plain_ms=time_call(lambda: bn_act_plain(xm, gm, bm, 1e-10,
+                                                    "relu")),
+            library_ms=time_call(lambda: F.batch_norm(
+                xm, None, None, gm.to(bf), bm.to(bf), True, 0.1, 1e-10)),
+            bound=bound_ms(2 * nm * cm * 2, 8 * nm * cm),
+            shape=f"mid layer ({nm},{cm}) bf16 relu",
             library="F.batch_norm(training=True), bf16 weights, no relu"),
         "bn_bwd": bn_bwd_times(gen),
         "pool_fwd": pool_fwd_row(xp),
@@ -1941,6 +2016,11 @@ def phase_train_times(tr, plain, batches, gen) -> dict:
             library="torch.optim.SGD(fused=True).step() (its momentum "
                     "buffer is cxxnet's times -1/lr)"),
     }
+    print(f"times (bn_fwd) by launch: bn_stem1 "
+          f"{launch_breakdown(lambda: bn_fwd(x, g, be, 1e-10, 'relu'))} | "
+          f"mid layer "
+          f"{launch_breakdown(lambda: bn_fwd(xm, gm, bm, 1e-10, 'relu'))}",
+          flush=True)
     print(f"times (train): train step {step_ms:.3f} ms, fused_kernels=0 "
           f"{step_plain:.3f} ms (one batch of {TRAIN_BATCH} from the host, "
           "CUDA events, median of 10) | " + " | ".join(
@@ -1952,6 +2032,7 @@ def phase_train_times(tr, plain, batches, gen) -> dict:
                  if k in PERF_BEFORE_MS else "") for k, r in rows.items()),
           flush=True)
     return {"step_ms": step_ms, "step_plain_ms": step_plain,
+            "bn_fwd_step": bn_fwd_step,
             "kernels": rows}
 
 
@@ -3912,8 +3993,9 @@ def main(argv=None) -> int:
     ap.add_argument("--conf", default=FLAGSHIP)
     ap.add_argument("--json", default="", help="also write the results here")
     ap.add_argument("--ab", nargs="+", metavar="TREE",
-                    help="only time the BN backward kernels of each checkout "
-                         "root in turn (e.g. parent change change parent)")
+                    help="only time the vectorised BN and epilogue kernels "
+                         "of each checkout root in turn (e.g. parent change "
+                         "change parent)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs the "
@@ -4038,6 +4120,10 @@ def main(argv=None) -> int:
                                 for k, r in times["kernels"].items()},
               "train_step_ms": train_times["step_ms"],
               "train_step_plain_ms": train_times["step_plain_ms"],
+              "bn_fwd_step": train_times["bn_fwd_step"],
+              "bn_fwd_mid": {k: v for k, v in
+                             train_times["kernels"]["bn_fwd (mid)"].items()
+                             if k != "bound"},
               "train": {k: v for k, v in notes.items() if k != "init"},
               "train_f32": f32,
               "lm_step_ms": lm_times["step_ms"],

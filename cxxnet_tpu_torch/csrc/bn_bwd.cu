@@ -28,7 +28,7 @@
 // version's order. At bn_stem1 on an NVIDIA H100 80GB HBM3 at 700 W
 // (chip_smoke.py --ab): 0.4361 ms (the sums 0.2276 and dx 0.2067 by
 // launch), 0.4760 with the dx pass reading y; the previous design
-// (colsum.cuh's scalar two-stage sums, a one-CTA finalize, a scalar
+// (a scalar two-stage column sum, a one-CTA finalize, a scalar
 // grid-stride dx loop) 0.7316, aten.native_batch_norm_backward 0.5010.
 #include "bn_bwd_vec.cuh"
 

@@ -11,130 +11,144 @@
 //
 // Bound on the H100 (3.35 TB/s): the bytes that must move, x read once
 // and y written once, 2 * N * C * sizeof(T). For bn_stem1 at batch 128
-// (N * C = 128 * 112 * 112 * 64, bf16) that is 411 MB, 0.123 ms.
+// (N * C = 128 * 112 * 112 * 64, bf16) that is 411 MB, 0.123 ms. No
+// design reaches it there: the moments must see every row before the
+// first y, and x (205.5 MB) does not stay in the 50 MB L2 between them,
+// so x is read twice: 616.5 MB, 0.184 ms.
 //
-// Design: two stages instead of the TPU's sequential grid that carried
-// the sums in VMEM from one row block to the next. Stage 1 is a grid of
-// row-block CTAs writing f32 partial sums per channel (colsum.cuh, one
-// coalesced read of x); a finalize kernel adds the partials in a fixed
-// order and forms mean, var and rstd; a normalize sweep reads x again
-// and writes y. So the design moves 3 * N * C * sizeof(T) (0.18 ms of
-// traffic at bn_stem1), 4 with two_pass. No atomics: repeated runs agree
-// bit for bit. The normalize's multiply and add are the rounded f32
-// operations of the plain version (no contraction into an FMA). At
-// bn_stem1: 0.41 ms on an H100 80GB HBM3 at 700 W (chip_smoke.py).
-#include "colsum.cuh"
+// Design: two launches one-pass, three two-pass, and no finalize kernel.
+// The moments are one launch of colsum_vec.cuh's column sums with
+// bn_moments.cuh's MomentsVec op (sum x and sum x^2 into a (2, C)
+// buffer, bit-equal to bn_sums' on the same rows); two-pass takes sum x
+// (MomentsVec with one sum), then sum (x - mean)^2 (SqDevVec, which forms
+// mean = sum x / N once a thread). The normalize, bn_fwd_norm_vec, is
+// bn_norm_vec.cuh's walk (a thread keeps one 16-byte channel group and
+// its constants in registers, stride a multiple of C): each thread forms
+// its channels' mean, var and rstd from the raw sums with bn_moments.cuh's
+// formula, and the threads of row lane 0 write them out. No float
+// atomics: reruns agree bit for bit. The normalize's operations are the
+// rounded f32 operations of the plain version in its order, so y is
+// bit-equal to bn_norm_plain with the kernel's own mean and rstd on
+// finite inputs; a NaN in a channel gives that channel NaN moments, as
+// the plain version and the TPU kernel do.
+//
+// On an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py --ab): 0.2230
+// ms at bn_stem1 one-pass, 1.82x its bound (by launch the moments 83.0
+// us, 2.48 TB/s, and the normalize 139.0 us, 2.96 TB/s), 0.2987 two-pass,
+// 0.01769 at a mid layer (25,088 x 256; 8.5 and 8.7 us by launch). The
+// design it replaced (a scalar two-stage column sum, a one-thread-a-
+// channel finalize, a scalar grid-stride normalize: three launches) took
+// 0.4058, 0.4925 and 0.02806 ms there in the same call.
+#include "bn_moments.cuh"
+#include "bn_norm_vec.cuh"
 
-template <typename T>
-struct SumSq {  // a += x, b += x * x
-  const T* x;
-  __device__ void operator()(int64_t i, int, float& a, float& b) const {
-    const float v = to_f32(x[i]);
-    a += v;
-    b += v * v;
+// The normalize with the statistics formed from the raw sums: sums (2, C)
+// = (sum x, sum x^2), or with TWO_PASS (sum x, sum (x - mean)^2); stats
+// (3, C) = mean, var, rstd, written by the threads of row lane 0. The walk
+// is bn_norm_vec's.
+template <typename T, int V, bool RELU, bool TWO_PASS>
+__global__ void __launch_bounds__(kNormThreads, kNormCtasPerSm)
+    bn_fwd_norm_vec(const T* __restrict__ x, const float* __restrict__ gamma,
+                    const float* __restrict__ beta,
+                    const float* __restrict__ sums, float n, float eps,
+                    float* __restrict__ stats, T* __restrict__ y,
+                    int64_t nv, int groups, int64_t lanes) {
+  const int64_t stride = lanes * groups;
+  const int64_t t = (int64_t)blockIdx.x * kNormThreads + threadIdx.x;
+  if (t >= stride) return;
+  const int C = groups * V;
+  const int c0 = (int)(t % groups) * V;
+  float km[V], kr[V], kg[V], kb[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const float mean = bn_mean(sums[c0 + j], n);
+    const float var = TWO_PASS ? __fdiv_rn(sums[C + c0 + j], n)
+                               : bn_var(sums[C + c0 + j], n, mean);
+    km[j] = mean;
+    kr[j] = bn_rstd(var, eps);
+    kg[j] = gamma[c0 + j];
+    kb[j] = beta[c0 + j];
+    if (t < groups) {
+      stats[c0 + j] = mean;
+      stats[C + c0 + j] = var;
+      stats[2 * C + c0 + j] = kr[j];
+    }
   }
-};
-
-template <typename T>
-struct SqDev {  // a += (x - mean)^2
-  const T* x;
-  const float* mean;
-  __device__ void operator()(int64_t i, int c, float& a, float&) const {
-    const float d = to_f32(x[i]) - mean[c];
-    a += d * d;
-  }
-};
-
-// one pass: mean = S1 / N, var = max(S2 / N - mean^2, 0)
-__global__ void finalize_one_pass(const float* __restrict__ p1,
-                                  const float* __restrict__ p2, int G, int C,
-                                  float n, float eps, float* mean, float* var,
-                                  float* rstd) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  const float m = sum_partials(p1, G, C, c) / n;
-  const float v = fmaxf(sum_partials(p2, G, C, c) / n - m * m, 0.f);
-  mean[c] = m;
-  var[c] = v;
-  rstd[c] = rsqrtf(v + eps);
+  norm_walk<T, V, RELU>(x, y, t, stride, nv, km, kr, kg, kb);
 }
 
-// two pass, first half: mean = S1 / N
-__global__ void finalize_mean(const float* __restrict__ p1, int G, int C,
-                              float n, float* mean) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c < C) mean[c] = sum_partials(p1, G, C, c) / n;
-}
-
-// two pass, second half: var = S2 / N where S2 = sum (x - mean)^2
-__global__ void finalize_var(const float* __restrict__ p2, int G, int C,
-                             float n, float eps, float* var, float* rstd) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  const float v = sum_partials(p2, G, C, c) / n;
-  var[c] = v;
-  rstd[c] = rsqrtf(v + eps);
+template <typename T, int V, bool RELU, bool TWO_PASS>
+static void launch_fwd_norm(const void* x, const float* gamma,
+                            const float* beta, const float* sums, float n,
+                            float eps, float* stats, void* y, int64_t nv,
+                            int groups, int64_t lanes, int blocks,
+                            cudaStream_t s) {
+  bn_fwd_norm_vec<T, V, RELU, TWO_PASS><<<blocks, kNormThreads, 0, s>>>(
+      (const T*)x, gamma, beta, sums, n, eps, stats, (T*)y, nv, groups,
+      lanes);
 }
 
 template <typename T>
-__global__ void bn_normalize(const T* __restrict__ x,
-                             const float* __restrict__ gamma,
-                             const float* __restrict__ beta,
-                             const float* __restrict__ mean,
-                             const float* __restrict__ rstd,
-                             T* __restrict__ y, int64_t n, int C, int relu) {
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += step) {
-    const int c = (int)(i % C);
-    float v = __fsub_rn(to_f32(x[i]), mean[c]);
-    v = __fadd_rn(__fmul_rn(__fmul_rn(v, rstd[c]), gamma[c]), beta[c]);
-    if (relu) v = relu_f32(v);
-    y[i] = from_f32<T>(v);
-  }
-}
-
-template <typename T>
-static void run(const void* xv, const float* gamma, const float* beta,
-                void* yv, float* mean, float* var, float* rstd, float* part,
-                int64_t N, int C, int G, int relu, int two_pass, float eps,
-                cudaStream_t s) {
-  const T* x = (const T*)xv;
-  float* p1 = part;
-  float* p2 = part + (int64_t)G * C;
-  const int fin_blocks = (C + 255) / 256;
+static int run(const void* x, const float* gamma, const float* beta,
+               void* y, float* stats, float* sums, float* part,
+               unsigned* counters, int64_t N, int C, int vec, int cgt,
+               int tiles, int blocks, int64_t rows_per, int fvec,
+               int64_t lanes, int nblocks, int relu, int two_pass,
+               float eps, cudaStream_t s) {
+  constexpr int VW = 16 / sizeof(T);
+  if (!norm_plan_ok<T>(x, y, N, C, vec, lanes, nblocks))
+    return (int)cudaErrorInvalidValue;
+  int rc = launch_moments<T>(x, sums, part, counters, N, C, vec, cgt, tiles,
+                             blocks, rows_per, fvec,
+                             two_pass ? kSumX : kSumsX2, s);
+  if (rc == 0 && two_pass)
+    rc = launch_moments<T>(x, sums, part, counters, N, C, vec, cgt, tiles,
+                           blocks, rows_per, fvec, kSqDev, s);
+  if (rc != 0) return rc;
+  const int groups = C / vec;
+  const int64_t nv = N * C / vec;
   const float n = (float)N;
-  if (two_pass) {
-    launch_colsum(SumSq<T>{x}, N, C, G, p1, nullptr, s);
-    finalize_mean<<<fin_blocks, 256, 0, s>>>(p1, G, C, n, mean);
-    launch_colsum(SqDev<T>{x, mean}, N, C, G, p2, nullptr, s);
-    finalize_var<<<fin_blocks, 256, 0, s>>>(p2, G, C, n, eps, var, rstd);
-  } else {
-    launch_colsum(SumSq<T>{x}, N, C, G, p1, p2, s);
-    finalize_one_pass<<<fin_blocks, 256, 0, s>>>(p1, p2, G, C, n, eps, mean,
-                                                 var, rstd);
+#define FWD_NORM(V_, RELU_, TWO_)                                           \
+  launch_fwd_norm<T, V_, RELU_, TWO_>(x, gamma, beta, sums, n, eps, stats, \
+                                      y, nv, groups, lanes, nblocks, s)
+#define FWD_NORM_V(V_)                                                    \
+  if (two_pass) {                                                         \
+    if (relu) FWD_NORM(V_, true, true); else FWD_NORM(V_, false, true);   \
+  } else {                                                                \
+    if (relu) FWD_NORM(V_, true, false); else FWD_NORM(V_, false, false); \
   }
-  const int64_t total = N * C;
-  bn_normalize<T><<<grid_for(total, 256), 256, 0, s>>>(
-      x, gamma, beta, mean, rstd, (T*)yv, total, C, relu);
+  if (vec == VW) {
+    FWD_NORM_V(VW)
+  } else {
+    FWD_NORM_V(1)
+  }
+#undef FWD_NORM_V
+#undef FWD_NORM
+  return 0;
 }
 
 // x, y: (N, C) contiguous of dtype code `dtype`; gamma, beta: (C,) f32;
-// mean, var, rstd: (C,) f32 outputs; part: 2 * G * C f32 scratch. G is the
-// number of row blocks of stage 1 (chosen by the caller). Returns a
-// cudaError_t (0 = launched).
+// stats: (3, C) f32 output, mean, var and rstd; sums: (2, C) f32 output,
+// the sums the statistics were formed from (sum x and sum x^2, or with
+// two_pass sum x and sum (x - mean)^2); part: blocks * 2 * C f32 scratch;
+// counters: `tiles` zero unsigned ints, left zero. vec, cgt, tiles,
+// blocks, rows_per, fvec: ops/fused_norm.colsum_vec_plan; lanes, nblocks:
+// ops/fused_norm.bn_dx_plan (same vec). Returns a cudaError_t (0 =
+// launched).
 extern "C" int bn_fwd(const void* x, const float* gamma, const float* beta,
-                      void* y, float* mean, float* var, float* rstd,
-                      float* part, int64_t N, int C, int G, int dtype,
-                      int relu, int two_pass, float eps, void* stream) {
-  if (N <= 0 || C <= 0 || G <= 0) return (int)cudaErrorInvalidValue;
+                      void* y, float* stats, float* sums, float* part,
+                      unsigned* counters, int64_t N, int C, int vec, int cgt,
+                      int tiles, int blocks, int64_t rows_per, int fvec,
+                      int64_t lanes, int nblocks, int dtype, int relu,
+                      int two_pass, float eps, void* stream) {
+  if (N <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (dtype) {
-    case kF32: run<float>(x, gamma, beta, y, mean, var, rstd, part, N, C, G, relu, two_pass, eps, s); break;
-    case kBF16: run<__nv_bfloat16>(x, gamma, beta, y, mean, var, rstd, part, N, C, G, relu, two_pass, eps, s); break;
-    case kF16: run<__half>(x, gamma, beta, y, mean, var, rstd, part, N, C, G, relu, two_pass, eps, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  int rc = 0;
+  DISPATCH(dtype, rc = run<T>(x, gamma, beta, y, stats, sums, part,
+                              counters, N, C, vec, cgt, tiles, blocks,
+                              rows_per, fvec, lanes, nblocks, relu, two_pass,
+                              eps, s));
+  if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,9 @@
 // The batch-norm normalize over (N, C) rows, vectorised:
 //   y = ((x - mean) * rstd) * gamma + beta   (+ relu), in the dtype of x,
 // with the moments and the affine parameters handed in as (C,) f32
-// vectors. bn_norm (bn_sync.cu) launches it with the all-reduced moments.
+// vectors. bn_norm (bn_sync.cu) launches it with the all-reduced moments;
+// bn_fwd (bn_fwd.cu) takes the same walk (norm_walk) in its own kernel,
+// which forms the moments from the column sums.
 //
 // The walk is the dx pass's (bn_bwd_vec.cuh's bn_dx_vec). Thread t owns
 // the V = 16 / sizeof(T) neighbouring channels of group t % groups
@@ -42,6 +44,28 @@ __device__ __forceinline__ void norm_vec(const typename VecIO<T, V>::Raw& rx,
   *reinterpret_cast<typename IO::Raw*>(out) = o;
 }
 
+// Thread t's walk: the vectors t, t + stride, ... below nv, kNormRows
+// in flight, with its channel group's constants km, kr, kg, kb
+template <typename T, int V, bool RELU>
+__device__ __forceinline__ void norm_walk(const T* __restrict__ x,
+                                          T* __restrict__ y, int64_t t,
+                                          int64_t stride, int64_t nv,
+                                          const float* km, const float* kr,
+                                          const float* kg, const float* kb) {
+  using IO = VecIO<T, V>;
+  int64_t v = t;
+  for (; v + (kNormRows - 1) * stride < nv; v += kNormRows * stride) {
+    typename IO::Raw rx[kNormRows];
+#pragma unroll
+    for (int u = 0; u < kNormRows; ++u) rx[u] = IO::load(x + (v + u * stride) * V);
+#pragma unroll
+    for (int u = 0; u < kNormRows; ++u)
+      norm_vec<T, V, RELU>(rx[u], km, kr, kg, kb, y + (v + u * stride) * V);
+  }
+  for (; v < nv; v += stride)
+    norm_vec<T, V, RELU>(IO::load(x + v * V), km, kr, kg, kb, y + v * V);
+}
+
 // nv = N * C / V vectors; thread t < lanes * groups takes the vectors t,
 // t + stride, ... (stride = lanes * groups)
 template <typename T, int V, bool RELU>
@@ -51,7 +75,6 @@ __global__ void __launch_bounds__(kNormThreads, kNormCtasPerSm)
                 const float* __restrict__ mean,
                 const float* __restrict__ rstd, T* __restrict__ y,
                 int64_t nv, int groups, int64_t lanes) {
-  using IO = VecIO<T, V>;
   const int64_t stride = lanes * groups;
   const int64_t t = (int64_t)blockIdx.x * kNormThreads + threadIdx.x;
   if (t >= stride) return;
@@ -64,17 +87,20 @@ __global__ void __launch_bounds__(kNormThreads, kNormCtasPerSm)
     kg[j] = gamma[c0 + j];
     kb[j] = beta[c0 + j];
   }
-  int64_t v = t;
-  for (; v + (kNormRows - 1) * stride < nv; v += kNormRows * stride) {
-    typename IO::Raw rx[kNormRows];
-#pragma unroll
-    for (int u = 0; u < kNormRows; ++u) rx[u] = IO::load(x + (v + u * stride) * V);
-#pragma unroll
-    for (int u = 0; u < kNormRows; ++u)
-      norm_vec<T, V, RELU>(rx[u], km, kr, kg, kb, y + (v + u * stride) * V);
-  }
-  for (; v < nv; v += stride)
-    norm_vec<T, V, RELU>(IO::load(x + v * V), km, kr, kg, kb, y + v * V);
+  norm_walk<T, V, RELU>(x, y, t, stride, nv, km, kr, kg, kb);
+}
+
+// Whether bn_dx_plan's (vec, lanes, blocks) covers (N, C) rows of T from
+// x to y: 16-byte loads only where C and both bases allow them, lanes
+// threads of each of the C / vec channel groups on `blocks` CTAs
+template <typename T>
+static bool norm_plan_ok(const void* x, const void* y, int64_t N, int C,
+                         int vec, int64_t lanes, int blocks) {
+  constexpr int VW = 16 / sizeof(T);
+  if (vec != 1 && (vec != VW || C % VW || !aligned16(x) || !aligned16(y)))
+    return false;
+  return lanes >= 1 && lanes <= N && blocks >= 1 &&
+         (int64_t)blocks * kNormThreads >= lanes * (C / vec);
 }
 
 template <typename T, int V, bool RELU>
@@ -95,12 +121,9 @@ static int launch_bn_norm(const void* x, const float* gamma,
                           int vec, int64_t lanes, int blocks, int relu,
                           cudaStream_t s) {
   constexpr int VW = 16 / sizeof(T);
-  if (vec != 1 && (vec != VW || C % VW || !aligned16(x) || !aligned16(y)))
+  if (!norm_plan_ok<T>(x, y, N, C, vec, lanes, blocks))
     return (int)cudaErrorInvalidValue;
   const int groups = C / vec;
-  if (lanes < 1 || lanes > N || blocks < 1 ||
-      (int64_t)blocks * kNormThreads < lanes * groups)
-    return (int)cudaErrorInvalidValue;
   const int64_t nv = N * C / vec;
 #define BN_NORM(V_, RELU_)                                                \
   launch_norm<T, V_, RELU_>(x, gamma, beta, mean, rstd, y, nv, groups,   \

@@ -20,63 +20,51 @@
 // reads x, dy and, with relu, y (3x); bn_bwd_dx reads those and writes dx
 // (4x). Operations are a handful per element, far below the f32 rate.
 //
-// Design: bn_sums takes the two-stage column sums of colsum.cuh (a grid of
-// row-block CTAs, each thread one channel of a coalesced row read; the
-// partials added per channel in a fixed order by a finalize kernel).
-// bn_bwd_sums and bn_bwd_dx are the two passes of bn_bwd_vec.cuh, which
-// bn_bwd (bn_bwd.cu) launches back to back on one device's rows: the
-// one-launch vectorised column sums of colsum_vec.cuh (16-byte loads, the
-// last CTA adds the partials), and the vectorised dx pass (a thread keeps
-// its 16 bytes of channels and their constants for its whole loop, SB/N
-// and SXH/N handed in). The sums add in a fixed order, so two runs on the
-// same input agree bit for bit and so do both ranks' reductions of the
-// same rows. They write into one (2, C) f32 buffer, the buffer the caller
-// all-reduces in one call. bn_norm is bn_norm_vec.cuh's walk, the dx
-// pass's: a thread keeps its 16 bytes of channels and their mean, rstd,
-// gamma and beta in registers, 16-byte loads of x and stores of y. Every
-// multiply and add is a rounded f32 operation in the order of the plain
-// PyTorch version (no contraction into an FMA), so bn_norm is bit-equal
-// to its plain version on finite inputs. Any N and C:
-// the TPU kernel's row-block divisibility does not apply. At bn_stem1 per
-// rank on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py --ab)
-// bn_bwd_dx takes 0.1373 ms, 1.12x its bound (a scalar grid-stride loop
-// took 0.1903; torch.batch_norm_backward_elemt 0.1538, reading no mask);
-// bn_norm 0.0763 ms, 1.24x its bound (the scalar grid-stride loop it
-// replaced 0.1425, torch.batch_norm_elemt 0.1285 without the relu).
-#include "colsum.cuh"
+// Design: bn_sums is one launch of colsum_vec.cuh's vectorised column
+// sums with bn_moments.cuh's MomentsVec op (16-byte loads of x, the last
+// CTA of a channel tile adds the row blocks' partials in a fixed order),
+// the launch bn_fwd (bn_fwd.cu) takes for its one-pass moments, so the two
+// agree bit for bit on the same rows. bn_bwd_sums and bn_bwd_dx are the
+// two passes of bn_bwd_vec.cuh, which bn_bwd (bn_bwd.cu) launches back to
+// back on one device's rows: the same column sums with the BwdSumsVec op,
+// and the vectorised dx pass (a thread keeps its 16 bytes of channels and
+// their constants for its whole loop, SB/N and SXH/N handed in). The sums
+// add in a fixed order, so two runs on the same input agree bit for bit
+// and so do both ranks' reductions of the same rows. They write into one
+// (2, C) f32 buffer, the buffer the caller all-reduces in one call.
+// bn_norm is bn_norm_vec.cuh's walk, the dx pass's: a thread keeps its 16
+// bytes of channels and their mean, rstd, gamma and beta in registers,
+// 16-byte loads of x and stores of y. Every multiply and add is a rounded
+// f32 operation in the order of the plain PyTorch version (no contraction
+// into an FMA), so bn_norm is bit-equal to its plain version on finite
+// inputs. Any N and C: the TPU kernel's row-block divisibility does not
+// apply. At bn_stem1 per rank on an NVIDIA H100 80GB HBM3 at 700.00 W
+// (chip_smoke.py --ab) bn_bwd_dx takes 0.1373 ms, 1.12x its bound (a
+// scalar grid-stride loop took 0.1903; torch.batch_norm_backward_elemt
+// 0.1538, reading no mask); bn_norm 0.0763 ms, 1.24x its bound (the
+// scalar grid-stride loop it replaced 0.1425, torch.batch_norm_elemt
+// 0.1285 without the relu); bn_sums 0.0418 ms, 1.36x its bound (the
+// two-stage scalar column sum it replaced 0.0740 in the same call,
+// torch.batch_norm_stats 0.187).
 #include "bn_bwd_vec.cuh"
+#include "bn_moments.cuh"
 #include "bn_norm_vec.cuh"
 
-template <typename T>
-struct Moments {  // a += x, b += x * x
-  const T* x;
-  __device__ void operator()(int64_t i, int, float& a, float& b) const {
-    const float v = to_f32(x[i]);
-    a += v;
-    b += __fmul_rn(v, v);
-  }
-};
-
-// out[c] = sum of p1's partials, out[C + c] = sum of p2's, in row-block order
-__global__ void finalize_pair(const float* __restrict__ p1,
-                              const float* __restrict__ p2, int G, int C,
-                              float* __restrict__ out) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  out[c] = sum_partials(p1, G, C, c);
-  out[C + c] = sum_partials(p2, G, C, c);
-}
-
 // x: (N, C) of dtype code `dtype`; sums: (2, C) f32 output, row 0 S1 and
-// row 1 S2; part: 2 * G * C f32 scratch. Returns a cudaError_t.
-extern "C" int bn_sums(const void* x, float* sums, float* part, int64_t N,
-                       int C, int G, int dtype, void* stream) {
-  if (N <= 0 || C <= 0 || G <= 0) return (int)cudaErrorInvalidValue;
+// row 1 S2; part: blocks * 2 * C f32 scratch; counters: `tiles` zero
+// unsigned ints, left zero. vec, cgt, tiles, blocks, rows_per, fvec:
+// ops/fused_norm.colsum_vec_plan. Returns a cudaError_t.
+extern "C" int bn_sums(const void* x, float* sums, float* part,
+                       unsigned* counters, int64_t N, int C, int vec,
+                       int cgt, int tiles, int blocks, int64_t rows_per,
+                       int fvec, int dtype, void* stream) {
+  if (N <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  float* p1 = part;
-  float* p2 = part + (int64_t)G * C;
-  DISPATCH(dtype, launch_colsum(Moments<T>{(const T*)x}, N, C, G, p1, p2, s));
-  finalize_pair<<<(C + 255) / 256, 256, 0, s>>>(p1, p2, G, C, sums);
+  int rc = 0;
+  DISPATCH(dtype, rc = (launch_moments<T>(x, sums, part, counters, N, C,
+                                          vec, cgt, tiles, blocks, rows_per,
+                                          fvec, kSumsX2, s)));
+  if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
 

@@ -1,39 +1,44 @@
 // Per-channel column sums over (N, C) rows in one launch, with 16-byte
-// loads and no float atomics: the reduction of bn_bwd_sums (bn_sync.cu)
-// and of bn_bwd (bn_bwd.cu), through bn_bwd_vec.cuh's BwdSumsVec op (two
-// sums a channel), and the epilogue's dbias (epilogue_bwd.cu's EpiBwdVec
-// op, one sum a channel).
+// loads and no float atomics. Its users: the batch-norm moments of
+// bn_fwd (bn_fwd.cu) and bn_sums (bn_sync.cu), through bn_moments.cuh's
+// MomentsVec (sum x, sum x^2) and SqDevVec (sum (x - mean)^2) ops; the
+// backward sums of bn_bwd_sums (bn_sync.cu) and bn_bwd (bn_bwd.cu),
+// through bn_bwd_vec.cuh's BwdSumsVec op (two sums a channel); and the
+// epilogue's dbias (epilogue_bwd.cu's EpiBwdVec op, one sum a channel).
 //
 // Bound on the H100 (3.35 TB/s): the bytes of the input rows, read once.
-// colsum.cuh's two-stage design (one scalar 2-byte load per stream and
-// channel, a (32, 8) block a 32-channel tile, then a one-CTA finalize
-// that walks every partial of a channel in a serial chain) took 0.1768
-// ms for bn_bwd_sums at bn_stem1 per rank ((802,816, 64) bf16 with the
-// relu mask: 308 MB, bound 0.0920 ms) on an NVIDIA H100 80GB HBM3 at
-// 700 W (chip_smoke.py, phase 11's times). This design takes 0.105 ms
-// there on the same card, 1.14x its bound (PERF.md row 10).
+// The design it replaced, a two-stage scalar column sum (one 2-byte load
+// per stream and channel, a (32, 8) block a 32-channel tile, then a
+// one-CTA finalize that walked every partial of a channel in a serial
+// chain), took 0.1768 ms for bn_bwd_sums at bn_stem1 per rank ((802,816,
+// 64) bf16 with the relu mask: 308 MB, bound 0.0920 ms) on an NVIDIA H100
+// 80GB HBM3 at 700.00 W (chip_smoke.py, phase 11's times). This design
+// takes 0.105 ms there on the same card, 1.14x its bound (PERF.md row
+// 10); the one-stream moments of bn_sums there 0.0418 ms (102.75 MB,
+// 1.36x its bound; the two-stage design 0.0740, chip_smoke.py --ab).
 //
 // Design. A CTA of kVecThreads threads owns a block of rows and a tile
 // of channels. Thread t takes V = 16 / sizeof(T) neighbouring channels
 // (its channel group cg = t % cgt of the tile's cgt groups) on row lane
 // t / cgt, and loads each row of each stream as one 16-byte vector: at
 // C = 64 bf16, 8 threads cover a row and a warp reads 4 whole rows (512
-// contiguous bytes). Its V means and rstds sit in registers. A lane
-// takes every lanes-th row of the block, kVecRows rows of every stream
-// in flight at a time, and the grid is one wave of kVecCtasPerSm CTAs a
-// SM: 74 KB of loads in flight a SM (of 1 to 16 CTAs a SM, 3 measured
-// fastest: fewer leave too few bytes in flight, more add a tail). The
-// lanes' sums meet in shared memory and are added in lane order; each
-// CTA writes its (NS, tile) partials into the wrapper's workspace; an
-// integer arrival counter per tile picks the CTA that arrives last,
-// which adds the tile's partials in row-block order, spread over all of
-// its threads (fvec partials a load, `chunks` runs of row blocks added
-// apart and then in order), writes the sums and resets the counter for
-// the next launch. So two runs on the same input agree bit for bit, and
-// the counters need no memset. With one row block (G = 1) the lanes' sums
-// are the column sums: the CTA writes them and skips the partials, the
-// counter and the last pass (whose additions, 0 + the one partial, would
-// be exact).
+// contiguous bytes). The op's per-channel constants sit in registers.
+// A lane takes every lanes-th row of the block, kVecRows rows of every
+// stream in flight at a time, and the grid is one wave of kVecCtasPerSm
+// CTAs a SM: 74 KB of loads in flight a SM with three streams (of 1 to
+// 16 CTAs a SM, 3 measured fastest: fewer leave too few bytes in flight,
+// more add a tail); with the one stream of the moments, 4 or 8 rows in
+// flight measured no faster than 2. The lanes' sums meet in shared
+// memory and are added in lane order; each CTA writes its (NS, tile)
+// partials into the wrapper's workspace; an integer arrival counter per
+// tile picks the CTA that arrives last, which adds the tile's partials
+// in row-block order, spread over all of its threads (fvec partials a
+// load, `chunks` runs of row blocks added apart and then in order),
+// writes the sums and resets the counter for the next launch. So two
+// runs on the same input agree bit for bit, and the counters need no
+// memset. With one row block (G = 1) the lanes' sums are the column
+// sums: the CTA writes them and skips the partials, the counter and the
+// last pass (whose additions, 0 + the one partial, would be exact).
 // Where C is not a multiple of V or a base is not 16-byte aligned the
 // wrapper plans V = 1 (one element a load).
 //

@@ -35,7 +35,7 @@
 //
 // On an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py --ab): cv1
 // 0.1684 ms, 1.26x its bound, and fc1 2.48 us. The previous design
-// (colsum.cuh's scalar two-stage sums writing dx, a finalize kernel, a
+// (a scalar two-stage column sum writing dx, a finalize kernel, a
 // copy of dy without the relu) took 0.2261 ms and 4.26 us there;
 // aten.threshold_backward then .sum(0) take 0.2615 ms at cv1, dy.sum(0)
 // 3.90 us at fc1.

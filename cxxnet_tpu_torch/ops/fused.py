@@ -140,10 +140,10 @@ def split_scratch(device: torch.device, key: str, nbytes: int, tiles: int
     """The workspace (at least ``nbytes`` bytes) and the int32 per-tile
     arrival counters (at least ``tiles``, zero) of a kernel whose CTAs
     write partials of a tile and whose last CTA to arrive adds them
-    (``key``: ``q_mm``'s split of K, the row blocks of ``bn_bwd_sums``,
-    ``bn_bwd`` and ``epilogue_bwd``),
-    cached per device and key. Each launch leaves its counters zero, and
-    launches on a device are ordered by its stream."""
+    (``key``: ``q_mm``'s split of K; the row blocks of the column sums of
+    ``bn_fwd``, ``bn_sums``, ``bn_bwd_sums``, ``bn_bwd`` and
+    ``epilogue_bwd``), cached per device and key. Each launch leaves its
+    counters zero, and launches on a device are ordered by its stream."""
     with _scratch_lock:
         ws, cnt = _scratch.get((device, key), (None, None))
         if ws is None or ws.numel() < nbytes:
@@ -153,23 +153,3 @@ def split_scratch(device: torch.device, key: str, nbytes: int, tiles: int
                               device=device)
         _scratch[(device, key)] = (ws, cnt)
         return ws, cnt
-
-
-def row_blocks(n: int, c: int) -> int:
-    """Row blocks of the first stage of the column sums in
-    ``csrc/colsum.cuh`` (the BN forward's moments, ``bn_fwd``, and the
-    sync-BN's, ``bn_sums``): about eight CTAs per SM of the H100's 132
-    over the ceil(c/32) channel tiles, and at least 64 rows per block."""
-    tiles = -(-c // 32)
-    return max(1, min(max(1, 1056 // tiles), -(-n // 64)))
-
-
-def colsum_depth(n: int, c: int) -> int:
-    """The longest chain of f32 additions behind one column sum of
-    ``csrc/colsum.cuh`` over ``n`` rows: a row lane's share of its row
-    block, then the 8 lanes, then the row blocks. A sum so taken is
-    within ``depth * 2**-24`` times the sum of its terms' magnitudes of
-    the exact sum of its terms."""
-    g = row_blocks(n, c)
-    rows_per = -(-n // g)
-    return -(-rows_per // 8) + 8 + g

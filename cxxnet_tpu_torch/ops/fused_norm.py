@@ -6,9 +6,12 @@ Activations are viewed as (N, C) rows, N = batch*H*W for conv nodes and
 N = batch for flat nodes, with per-channel statistics over the rows:
 
 * forward (``csrc/bn_fwd.cu``): f32 moments, one-pass
-  ``E[x^2] - E[x]^2`` clamped at 0 or, with ``two_pass``, the mean and
-  then ``E[(x - mean)^2]``; ``y = (x - mean) * rstd * gamma + beta``, an
-  optional relu, y in the dtype of x; mean and var in f32.
+  ``E[x^2] - E[x]^2`` clamped at 0 (a NaN kept) or, with ``two_pass``,
+  the mean and then ``E[(x - mean)^2]``; ``y = (x - mean) * rstd * gamma
+  + beta``, an optional relu, y in the dtype of x; mean and var in f32:
+  the column sums (:func:`colsum_vec_plan`, ``csrc/bn_moments.cuh``'s
+  ops), once or twice, then the normalize (:func:`bn_dx_plan`'s walk),
+  which forms the statistics from the sums, in one wrapper call.
 * backward (``csrc/bn_bwd.cu``): ``dy' = dy`` masked by ``y > 0`` with
   relu, ``x_hat = (x - mean) * rstd``, ``dbeta = sum dy'``,
   ``dgamma = sum dy' * x_hat`` (f32), and
@@ -28,7 +31,9 @@ all-reduces, one per direction, in :class:`SyncBnAct`, through four
 kernels of ``csrc/bn_sync.cu``:
 
 * ``bn_sums``: the rank's per-channel ``S1 = sum x``, ``S2 = sum x^2``
-  (f32) into one (2, C) buffer, all-reduced; then ``mean = S1 / N``,
+  (f32) into one (2, C) buffer, all-reduced: the column sums of the
+  one-pass forward, bit-equal to its sums of the same rows (one launch
+  under :func:`colsum_vec_plan`); then ``mean = S1 / N``,
   ``var = max(S2 / N - mean^2, 0)``, ``rstd = rsqrt(var + eps)`` over the
   global row count N;
 * ``bn_norm``: ``y = (x - mean) * rstd * gamma + beta`` (+ relu) with the
@@ -50,17 +55,16 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .fused import (Kernel, check_cuda_input, register, row_blocks,
-                    sm_count, split_scratch, stream_handle)
+from .fused import (Kernel, check_cuda_input, register, sm_count,
+                    split_scratch, stream_handle)
 
 _P = ctypes.c_void_p
+_I64, _I = ctypes.c_int64, ctypes.c_int
 BN_FWD = register(Kernel(
     "bn_fwd", "bn_fwd.cu",
     replaces="cxxnet_tpu/ops/fused_norm.py:77",
-    argtypes=[_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int,
-              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-              ctypes.c_float, _P]))
-_I64, _I = ctypes.c_int64, ctypes.c_int
+    argtypes=[_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I,
+              _I64, _I, _I64, _I, _I, _I, _I, ctypes.c_float, _P]))
 BN_BWD = register(Kernel(
     "bn_bwd", "bn_bwd.cu",
     replaces="cxxnet_tpu/ops/fused_norm.py:168",
@@ -69,7 +73,8 @@ BN_BWD = register(Kernel(
 BN_SUMS = register(Kernel(
     "bn_sums", "bn_sync.cu",
     replaces="cxxnet_tpu/ops/fused_norm.py:291",
-    argtypes=[_P, _P, _P, _I64, _I, _I, _I, _P]))
+    argtypes=[_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I64, _I, _I,
+              _P]))
 BN_NORM = register(Kernel(
     "bn_norm", "bn_sync.cu",
     replaces="cxxnet_tpu/ops/fused_norm.py:309",
@@ -266,23 +271,44 @@ def bn_fwd(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     if x2.device.type == "cpu":
         y, mean, var = bn_act_plain(x2, gamma, beta, eps, act, two_pass)
         return y, mean, var, torch.rsqrt(var + eps)
-    if x2.device.type != "cuda":
-        raise ValueError(f"bn: no kernel for device {x2.device}")
+    y, stats, _ = bn_fwd_sums(x2, gamma, beta, eps, act, two_pass)
+    return y, stats[0], stats[1], stats[2]
+
+
+def bn_fwd_sums(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                eps: float, act: str = "none", two_pass: bool = False):
+    """The forward kernel on CUDA (N, C) rows: ``(y, stats, sums)`` with
+    ``stats`` (3, C) f32 mean, var and rstd, and ``sums`` (2, C) f32 the
+    column sums they were formed from: ``[sum x, sum x^2]`` (bit-equal
+    to :func:`bn_sums` of the same rows), or with ``two_pass`` ``[sum x,
+    sum (x - mean)^2]``. Two launches one-pass, three two-pass, in one
+    wrapper call."""
+    _check(x2, gamma, act)
+    if x2.dim() != 2 or x2.device.type != "cuda":
+        raise ValueError(f"bn: no kernel for {tuple(x2.shape)} rows on "
+                         f"{x2.device}")
     code = check_cuda_input("bn", x2)
     _vec_on(gamma, x2.device, "gamma")
     _vec_on(beta, x2.device, "beta")
     n, c = x2.shape
-    g = row_blocks(n, c)
+    dev = x2.device
     y = torch.empty_like(x2)
-    stats = torch.empty((3, c), dtype=torch.float32, device=x2.device)
-    part = torch.empty((2, g, c), dtype=torch.float32, device=x2.device)
-    with torch.cuda.device(x2.device):
+    aligned = _aligned(x2, y)
+    plan = colsum_vec_plan(n, c, x2.element_size(), aligned, sm_count(dev))
+    nplan = bn_dx_plan(n, c, x2.element_size(), aligned, sm_count(dev))
+    stats = torch.empty((3, c), dtype=torch.float32, device=dev)
+    sums = torch.empty((2, c), dtype=torch.float32, device=dev)
+    part, cnt = split_scratch(dev, "bn_fwd", 4 * plan.blocks * 2 * c,
+                              plan.tiles)
+    with torch.cuda.device(dev):
         BN_FWD.launch(x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                      y.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
-                      stats[2].data_ptr(), part.data_ptr(), n, c, g, code,
+                      y.data_ptr(), stats.data_ptr(), sums.data_ptr(),
+                      part.data_ptr(), cnt.data_ptr(), n, c, plan.vec,
+                      plan.cgt, plan.tiles, plan.blocks, plan.rows_per,
+                      plan.fvec, nplan.lanes, nplan.blocks, code,
                       int(act == "relu"), int(two_pass), float(eps),
-                      stream_handle(x2.device))
-    return y, stats[0], stats[1], stats[2]
+                      stream_handle(dev))
+    return y, stats, sums
 
 
 def bn_bwd(x2: torch.Tensor, dy2: torch.Tensor, y2: Optional[torch.Tensor],
@@ -438,17 +464,23 @@ def _vecs(name: str, x2: torch.Tensor, **vecs) -> None:
 
 def bn_sums(x2: torch.Tensor) -> torch.Tensor:
     """(2, C) f32 ``[sum x, sum x^2]`` of (N, C) rows: the ``bn_sums``
-    kernel on a CUDA tensor, :func:`bn_sums_plain` on a CPU one."""
+    kernel on a CUDA tensor (one launch under :func:`colsum_vec_plan`),
+    :func:`bn_sums_plain` on a CPU one."""
     code = _rows("bn_sums", x2)
     if code is None:
         return bn_sums_plain(x2)
     n, c = x2.shape
-    g = row_blocks(n, c)
-    sums = torch.empty((2, c), dtype=torch.float32, device=x2.device)
-    part = torch.empty((2, g, c), dtype=torch.float32, device=x2.device)
-    with torch.cuda.device(x2.device):
-        BN_SUMS.launch(x2.data_ptr(), sums.data_ptr(), part.data_ptr(), n, c,
-                       g, code, stream_handle(x2.device))
+    dev = x2.device
+    plan = colsum_vec_plan(n, c, x2.element_size(), _aligned(x2),
+                           sm_count(dev))
+    sums = torch.empty((2, c), dtype=torch.float32, device=dev)
+    part, cnt = split_scratch(dev, "bn_sums", 4 * plan.blocks * 2 * c,
+                              plan.tiles)
+    with torch.cuda.device(dev):
+        BN_SUMS.launch(x2.data_ptr(), sums.data_ptr(), part.data_ptr(),
+                       cnt.data_ptr(), n, c, plan.vec, plan.cgt, plan.tiles,
+                       plan.blocks, plan.rows_per, plan.fvec, code,
+                       stream_handle(dev))
     return sums
 
 

@@ -16,12 +16,13 @@ from cxxnet_tpu_torch.ops.fused_epilogue import (bias_act_plain,
                                                  epilogue_bwd_plain,
                                                  fused_bias_act,
                                                  fused_epilogue_bwd)
-from cxxnet_tpu_torch.ops.fused import colsum_depth, sm_count
+from cxxnet_tpu_torch.ops.fused import sm_count
 from cxxnet_tpu_torch.ops.fused_norm import (bn_act_plain, bn_bwd,
                                              bn_bwd_dx, bn_bwd_dx_plain,
                                              bn_bwd_plain, bn_bwd_sums,
                                              bn_bwd_sums_plain, bn_fwd,
-                                             bn_norm, bn_norm_plain, bn_sums,
+                                             bn_fwd_sums, bn_norm,
+                                             bn_norm_plain, bn_sums,
                                              bn_dx_plan, bn_sums_plain,
                                              colsum_vec_depth,
                                              colsum_vec_plan)
@@ -183,6 +184,22 @@ def _ulp_ok(got, want, dtype, atol=1e-5):
     return bool((err <= ULP[dtype] * want.float().abs() + atol).all())
 
 
+def _emulated_fwd_sums(x, two_pass, aligned=True):
+    """``bn_fwd``'s (2, C) sums of (n, c) rows in the kernels' order,
+    emulated on the host (``tests/torch_colsum_order.py``)."""
+    import torch_colsum_order as order
+    n, c = x.shape
+    plan = colsum_vec_plan(n, c, x.element_size(), aligned,
+                           sm_count(x.device))
+    xf = x.float().cpu().numpy()
+    if two_pass:
+        s1, _ = order.colsum_vec_sum(xf, plan, 1)
+        s2, _ = order.colsum_vec_sum(order.sqdev_terms(xf, s1, n), plan, 1)
+        return s1, s2
+    return tuple(order.colsum_vec_sum(t, plan)[0]
+                 for t in order.moments_terms(xf))
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("two_pass", [False, True])
 @pytest.mark.parametrize("relu", [False, True])
@@ -190,18 +207,40 @@ def _ulp_ok(got, want, dtype, atol=1e-5):
                                  (333, 200)])
 def test_bn_kernels_match_plain(dev, dtype, relu, two_pass, n, c):
     """Forward: statistics rtol 1e-4 (f32 sums in another order); y
-    within one ulp plus 1e-4. Backward: dgamma and dbeta rtol 1e-3 plus
-    atol 1e-3 (sums that cancel); dx within one ulp plus 1e-3."""
+    within one ulp plus 1e-4 of ``bn_act_plain`` and bit-equal to
+    ``bn_norm_plain`` with the kernel's own mean and rstd (also from a
+    base one element past a 16-byte boundary, the one-element loads);
+    the sums bit-equal to the emulated order; reruns bit-equal; one
+    wrapper launch a call. Backward: dgamma and dbeta rtol 1e-3 plus atol
+    1e-3 (sums that cancel); dx within one ulp plus 1e-3."""
+    from cxxnet_tpu_torch.ops.fused_norm import BN_FWD
     act = "relu" if relu else "none"
     x = _randn((n, c), dtype, dev) * 1.5 + 0.25
     x = x.to(dtype)
     g = _randn((c,), torch.float32, dev, seed=1) * 0.2 + 1.0
     b = _randn((c,), torch.float32, dev, seed=2) * 0.1
+    before = BN_FWD.launches
     y, mean, var, rstd = bn_fwd(x, g, b, 1e-5, act, two_pass)
+    torch.cuda.synchronize()
+    assert BN_FWD.launches == before + 1
     y0, mean0, var0 = bn_act_plain(x, g, b, 1e-5, act, two_pass)
     torch.testing.assert_close(mean, mean0, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(var, var0, rtol=1e-4, atol=1e-5)
     assert y.dtype == dtype and _ulp_ok(y, y0, dtype, 1e-4)
+    assert torch.equal(y, bn_norm_plain(x, g, b, mean, rstd, act))
+    first = bn_fwd_sums(x, g, b, 1e-5, act, two_pass)
+    again = bn_fwd_sums(x, g, b, 1e-5, act, two_pass)
+    assert all(_same_bits(p, q) for p, q in zip(first, again))
+    assert _same_bits(first[0], y)
+    for got, want in zip(first[2].cpu().numpy(),
+                         _emulated_fwd_sums(x, two_pass)):
+        assert (got.view("u4") == want.view("u4")).all()
+    xo = torch.cat([x.new_zeros(1), x.view(-1)])[1:].view(n, c)
+    assert xo.data_ptr() % 16 != 0
+    yo, mo, vo, ro = bn_fwd(xo, g, b, 1e-5, act, two_pass)
+    torch.testing.assert_close(mo, mean0, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(vo, var0, rtol=1e-4, atol=1e-5)
+    assert torch.equal(yo, bn_norm_plain(xo, g, b, mo, ro, act))
     dy = _randn((n, c), dtype, dev, seed=3)
     yy = y if relu else None
     dx, dg, db = bn_bwd(x, dy, yy, g, mean, rstd)
@@ -209,6 +248,95 @@ def test_bn_kernels_match_plain(dev, dtype, relu, two_pass, n, c):
     torch.testing.assert_close(dg, dg0, rtol=1e-3, atol=1e-3)
     torch.testing.assert_close(db, db0, rtol=1e-3, atol=1e-3)
     assert dx.dtype == dtype and _ulp_ok(dx, dx0, dtype, 1e-3)
+
+
+def _graph_nodes(fn):
+    """The nodes of one ``fn()`` (after a warm-up call) captured in a
+    CUDA graph, read through the CUDA driver's graph calls: per node its
+    type (0: a kernel launch) and, for a kernel, its mangled name."""
+    import ctypes
+
+    class KernelParams(ctypes.Structure):       # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p)] + [
+            (f, ctypes.c_uint) for f in ("gx", "gy", "gz", "bx", "by", "bz",
+                                         "smem")] + [
+            (f, ctypes.c_void_p) for f in ("params", "extra", "kern",
+                                           "ctx")]
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0
+    out = []
+    for node in nodes:
+        node = ctypes.c_void_p(node)
+        kind, name = ctypes.c_int(-1), ctypes.c_char_p()
+        assert cu.cuGraphNodeGetType(node, ctypes.byref(kind)) == 0
+        if kind.value == 0:
+            kp = KernelParams()
+            assert cu.cuGraphKernelNodeGetParams_v2(node,
+                                                    ctypes.byref(kp)) == 0
+            if kp.func:
+                rc = cu.cuFuncGetName(ctypes.byref(name),
+                                      ctypes.c_void_p(kp.func))
+            else:
+                rc = cu.cuKernelGetName(ctypes.byref(name),
+                                        ctypes.c_void_p(kp.kern))
+            assert rc == 0
+        out.append((kind.value, name.value and name.value.decode()))
+    return out
+
+
+@pytest.mark.parametrize("what,kernels", [("one-pass", 2), ("two-pass", 3),
+                                           ("bn_sums", 1)])
+@pytest.mark.parametrize("n,c", [(1000, 64), (333, 7)])
+def test_bn_fwd_and_bn_sums_device_launches(dev, what, kernels, n, c):
+    """``bn_fwd`` launches two device kernels a call one-pass (the
+    moments, the normalize) and three two-pass (sum x, sum (x - mean)^2,
+    the normalize); ``bn_sums`` one (the moments), on the 16-byte and the
+    one-element paths, and nothing else (no memset): the kernel nodes of
+    one call captured in a CUDA graph."""
+    x = (_randn((n, c), torch.bfloat16, dev) * 1.5 + 0.25).to(torch.bfloat16)
+    g = torch.ones(c, device=dev)
+    call = {"one-pass": lambda: bn_fwd(x, g, g, 1e-5, "relu"),
+            "two-pass": lambda: bn_fwd(x, g, g, 1e-5, "relu", True),
+            "bn_sums": lambda: bn_sums(x)}[what]
+    nodes = _graph_nodes(call)
+    assert [k for k, _ in nodes] == [0] * kernels, nodes
+    want = {"one-pass": ("MomentsVec", "bn_fwd_norm_vec"),
+            "two-pass": ("MomentsVec", "SqDevVec", "bn_fwd_norm_vec"),
+            "bn_sums": ("MomentsVec",)}[what]
+    assert all(sum(w in name for _, name in nodes) == 1 for w in want), nodes
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("two_pass", [False, True])
+@pytest.mark.parametrize("n,c", [(1000, 64), (333, 7)])
+def test_bn_fwd_keeps_a_nan_channel(dev, dtype, two_pass, n, c):
+    """One NaN in channel 2: its mean and var are NaN, as
+    ``bn_act_plain``'s are; every other channel's statistics and y are
+    those of the same rows without the NaN, bit for bit."""
+    x = (_randn((n, c), dtype, dev) * 1.5 + 0.25).to(dtype)
+    g = _randn((c,), torch.float32, dev, seed=1) * 0.2 + 1.0
+    b = _randn((c,), torch.float32, dev, seed=2) * 0.1
+    xn = x.clone()
+    xn[n // 3, 2] = float("nan")
+    y, mean, var, rstd = bn_fwd(xn, g, b, 1e-5, "relu", two_pass)
+    y1, mean1, var1, _ = bn_fwd(x, g, b, 1e-5, "relu", two_pass)
+    _, pmean, pvar = bn_act_plain(xn, g, b, 1e-5, "relu", two_pass)
+    assert bool(pmean[2].isnan()) and bool(pvar[2].isnan())
+    assert bool(mean[2].isnan()) and bool(var[2].isnan())
+    assert bool(rstd[2].isnan())
+    keep = torch.arange(c, device=dev) != 2
+    assert _same_bits(mean[keep], mean1[keep])
+    assert _same_bits(var[keep], var1[keep])
+    assert _same_bits(y[:, keep].contiguous(), y1[:, keep].contiguous())
 
 
 def _sums_ok(got, terms_a, terms_b, depth):
@@ -239,10 +367,17 @@ def test_sync_bn_kernels_match_plain(dev, dtype, relu, n, c):
     x = (_randn((n, c), dtype, dev) * 1.5 + 0.25).to(dtype)
     g = _randn((c,), torch.float32, dev, seed=1) * 0.2 + 1.0
     b = _randn((c,), torch.float32, dev, seed=2) * 0.1
+    from cxxnet_tpu_torch.ops.fused_norm import BN_SUMS
+    before = BN_SUMS.launches
     s = bn_sums(x)
+    torch.cuda.synchronize()
+    assert BN_SUMS.launches == before + 1
     xf = x.float()
     assert s.dtype == torch.float32 and s.shape == (2, c)
-    assert _sums_ok(s, xf, xf * xf, colsum_depth(n, c))
+    plan = colsum_vec_plan(n, c, x.element_size(), True, sm_count(dev))
+    assert _sums_ok(s, xf, xf * xf, colsum_vec_depth(plan, c))
+    assert _same_bits(s, bn_sums(x))
+    assert _same_bits(s, bn_fwd_sums(x, g, b, 1e-5, act)[2])
     s0 = bn_sums_plain(x)
     mean = s0[0] / n
     rstd = torch.rsqrt(torch.clamp(s0[1] / n - mean * mean, min=0) + 1e-5)
@@ -258,7 +393,6 @@ def test_sync_bn_kernels_match_plain(dev, dtype, relu, n, c):
     bs = bn_bwd_sums(x, dy, yy, mean, rstd)
     d = dy.float() if yy is None else torch.where(
         yy.float() > 0, dy.float(), torch.zeros_like(dy, dtype=torch.float32))
-    plan = colsum_vec_plan(n, c, x.element_size(), True, sm_count(dev))
     assert _sums_ok(bs, d, d * ((xf - mean) * rstd),
                     colsum_vec_depth(plan, c))
     bs0 = bn_bwd_sums_plain(x, dy, yy, mean, rstd)
@@ -695,19 +829,16 @@ def test_flash_bwd_kernels_rerun_bit_equal(dev, dtype, causal):
     ids=str)
 def test_flash_bwd_runs_the_tensor_core_kernels(dev, dtype, names):
     """bf16 and f16 launch the mma.sync kernels, f32 the CUDA-core ones:
-    the device kernels' names in a profile of one backward."""
-    from torch.profiler import ProfilerActivity, profile
+    the kernels' names in the CUDA graph of one backward (a profiler
+    session there lost its device events after the file's earlier
+    ones)."""
     q, k, v, g = (_randn((1, 256, 2, 16), dtype, dev, seed=i)
                   for i in range(4))
     out, lse = att.flash_fwd(q, k, v, True, 0.25)
     args = (q, k, v, g, lse, att.flash_delta(out, g), True, 0.25)
-    att.flash_bwd_dq(*args)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        att.flash_bwd_dq(*args)
-        att.flash_bwd_dkv(*args)
-        torch.cuda.synchronize()
-    seen = [e.key for e in prof.key_averages()]
+    seen = [name for kind, name in _graph_nodes(
+        lambda: (att.flash_bwd_dq(*args), att.flash_bwd_dkv(*args)))
+        if kind == 0]
     for name in names:
         assert sum(name in s for s in seen) == 1, (name, seen)
 

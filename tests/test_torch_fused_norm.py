@@ -29,7 +29,6 @@ import torch
 
 from cxxnet_tpu.ops.fused_norm import bn_act_reference
 from cxxnet_tpu.ops.fused_norm import fused_bn_act as jax_bn_act
-from cxxnet_tpu_torch.ops.fused import row_blocks
 from cxxnet_tpu_torch.ops.fused_norm import (bn_act_plain, bn_bwd_plain,
                                              fused_bn_act)
 
@@ -178,13 +177,6 @@ def test_bn_backward_plain_masks_by_the_forward_output():
     np.testing.assert_allclose(db.numpy(), (dy2 * keep).sum(0).numpy(),
                                rtol=1e-6, atol=1e-6)
     assert bool((dg != bn_bwd_plain(x2, dy2, None, g, mean, rstd)[1]).any())
-
-
-@pytest.mark.parametrize("n,c,want", [(16, 8, 1), (128 * 112 * 112, 64, 528),
-                                      (128 * 7 * 7, 1024, 33),
-                                      (128, 1000, 2)])
-def test_row_blocks_fill_the_card_and_keep_64_rows(n, c, want):
-    assert row_blocks(n, c) == want
 
 
 NO_MA_NET = """

@@ -1,8 +1,9 @@
 """The orders in which the port's vectorised reductions add, emulated
 in numpy float32 (each addition rounded as the card's ``__fadd_rn``):
 
-* ``bn_bwd_sums`` and the epilogue's dbias (``csrc/colsum_vec.cuh``
-  under ``colsum_vec_plan``, with two sums a channel and with one): each
+* the batch-norm moments of ``bn_fwd`` and ``bn_sums``, ``bn_bwd_sums``
+  and the epilogue's dbias (``csrc/colsum_vec.cuh`` under
+  ``colsum_vec_plan``, with two sums a channel and with one): each
   lane of a row block adds its rows in order, the lanes' sums are added
   in lane order, the last CTA adds the row blocks' partials in runs and
   then the runs in order;
@@ -10,7 +11,9 @@ in numpy float32 (each addition rounded as the card's ``__fadd_rn``):
   of a window adds its rows y, y + ry, ... cell by cell, then the ry
   threads' sums are added in order.
 
-And the walk of the batch-norm backward's dx pass (``bn_dx_vec`` of
+The statistics ``bn_fwd``'s normalize forms from the moments
+(``csrc/bn_moments.cuh``'s formula), and the walk of the batch-norm
+backward's dx pass (``bn_dx_vec`` of
 ``csrc/bn_bwd_vec.cuh`` under ``bn_dx_plan``) over the vectors of the
 rows, which the normalize (``bn_norm_vec`` of ``csrc/bn_norm_vec.cuh``)
 takes with its own rows in flight, with the relu mask bits that
@@ -52,6 +55,38 @@ def bwd_sums_terms(x, dy, y, mean, rstd) -> Tuple[np.ndarray, np.ndarray]:
     return d, (d * xh).astype(np.float32)
 
 
+def moments_terms(x) -> Tuple[np.ndarray, np.ndarray]:
+    """The one-pass moments' f32 terms over (n, c) rows (numpy, any float
+    dtype): ``x`` and ``x * x``, the product rounded to f32."""
+    x = np.asarray(x, np.float32)
+    return x, (x * x).astype(np.float32)
+
+
+def sqdev_terms(x, s1, n: int) -> np.ndarray:
+    """The two-pass second sum's f32 terms: ``(x - mean)^2`` with ``mean
+    = s1 / n`` rounded once a channel, each operation rounded to f32."""
+    d = np.asarray(x, np.float32) - bn_mean(s1, n)
+    return (d * d).astype(np.float32)
+
+
+def bn_mean(s1, n: int) -> np.ndarray:
+    """``mean = S1 / n`` in float32, rounded once (``__fdiv_rn``)."""
+    return (np.asarray(s1, np.float32) / np.float32(n)).astype(np.float32)
+
+
+def bn_stats(s1, s2, n: int, two_pass: bool = False):
+    """``(mean, var)`` of ``csrc/bn_moments.cuh``'s formula in float32:
+    ``mean = S1 / n``; one-pass ``var = S2 / n - mean * mean`` clamped at
+    0 with a NaN kept (``v < 0 ? 0 : v``); two-pass ``var = S2 / n`` with
+    S2 the sum of squared deviations. Each operation rounded to f32."""
+    mean = bn_mean(s1, n)
+    s2n = (np.asarray(s2, np.float32) / np.float32(n)).astype(np.float32)
+    if two_pass:
+        return mean, s2n
+    var = (s2n - mean * mean).astype(np.float32)
+    return mean, np.where(var < 0, np.float32(0), var).astype(np.float32)
+
+
 def lane_rows(plan: N.ColsumPlan, n: int, block: int, lane: int):
     """The rows lane ``lane`` of row block ``block`` adds, in order."""
     r0 = block * plan.rows_per
@@ -89,13 +124,14 @@ def colsum_vec_sum(terms: np.ndarray, plan: N.ColsumPlan, sums: int = 2
 
 
 def colsum_vec_sum_blocks(terms_of, plan: N.ColsumPlan, n: int, c: int,
-                          chunk: int = 1 << 21):
+                          chunk: int = 1 << 21, sums: int = 2):
     """:func:`colsum_vec_sum` over rows too many to hold at once:
     ``terms_of(r0, r1)`` gives a tuple of (r1 - r0, c) float32 term arrays
     of rows r0 to r1, taken a run of whole row blocks (about ``chunk``
     elements) at a time. Returns, for each array of the tuple, its sums in
     the kernel's order, the float64 sums and the float64 sums of the
-    magnitudes of the same terms."""
+    magnitudes of the same terms. ``sums``: the op's sums a channel, as
+    for :func:`colsum_vec_sum`."""
     g, rp, lanes = plan.blocks, plan.rows_per, plan.lanes
     k = -(-rp // lanes)
     per = max(1, chunk // max(1, rp * c))
@@ -120,13 +156,13 @@ def colsum_vec_sum_blocks(terms_of, plan: N.ColsumPlan, n: int, c: int,
                                        1), 1)
     out = []
     for q in range(len(part)):
-        sums = np.zeros(c, np.float32)
-        for lo, hi, runs in _tiles(plan, c):
+        got = np.zeros(c, np.float32)
+        for lo, hi, runs in _tiles(plan, c, sums):
             gper = -(-g // runs)
-            sums[lo:hi] = _seq(np.stack(
+            got[lo:hi] = _seq(np.stack(
                 [_seq(part[q, j * gper:(j + 1) * gper, lo:hi], 0)
                  for j in range(runs)]), 0)
-        out.append((sums, exact[q], mag[q]))
+        out.append((got, exact[q], mag[q]))
     return out
 
 
