@@ -9,7 +9,11 @@ With ``--ab``, only the kernels of the vectorised designs are timed, in
 each checkout root given, in turn, one process each (``bn_fwd`` at
 bn_stem1 one- and two-pass and at a mid layer, ``bn_bwd`` and
 ``epilogue_bwd`` at fc1 and AlexNet's cv1 and fc6 as phase 6 times
-them, the four sync-BN kernels as phase 11 does).
+them, the four sync-BN kernels as phase 11 does, ``lrn_fwd`` and
+``lrn_bwd`` at AlexNet's lrn1 and lrn2 as phase 8 does, with their
+rates at lrn1, out of the L2, and a copy of the bytes beside them; a
+tree that plans the LRN blocks also times lrn1 at each of LRN_SWEEP
+threads a block).
 
 Phases, each printing one line of its own; any failure exits non-zero
 and prints no result:
@@ -30,7 +34,8 @@ and prints no result:
             ulp plus 2e-5 of max|plain|, lse 1e-5 of max|lse|); the
             Adam apply over the LM's and Inception-BN's parameter groups,
             bit-equal; LRN forward and backward at AlexNet's lrn1 and
-            lrn2 and at 7 rows by C 7, C 1500 and a ragged row count,
+            lrn2 and at 7 rows by C 7, C 1500, C 4104 (a row in chunks)
+            and a ragged row count,
             nsize 3/4/5, knorm 1/2, beta 0.75/0.5 (f32 within 4 ulp of
             max|plain|, bf16/f16 one ulp); the first-match max-pool
             backward at spp1's shape, a 2x2 tile and a global 7x7
@@ -578,7 +583,8 @@ def phase_build():
 
 #: the sources whose every kernel's registers and spills phase 2 prints
 REPORT_PTXAS = ("flash_fwd.cu", "flash_bwd.cu", "q_mm.cu", "bn_sync.cu",
-                "bn_fwd.cu", "bn_bwd.cu", "pool_fwd.cu", "epilogue_bwd.cu")
+                "bn_fwd.cu", "bn_bwd.cu", "pool_fwd.cu", "epilogue_bwd.cu",
+                "lrn_fwd.cu", "lrn_bwd.cu")
 
 
 def ptxas_functions(log: str):
@@ -591,7 +597,8 @@ def ptxas_functions(log: str):
         if m:
             k = re.search(r"(flash_\w+?_(?:tc|kernel)|q_mm_kernel|"
                           r"colsum_vec|bn_dx_vec|bn_norm_vec|bn_fwd_norm_vec|"
-                          r"mask_copy_vec|pool_fwd_kernel)I(\w+)", m.group(1))
+                          r"mask_copy_vec|pool_fwd_kernel|lrn_fwd_kernel|"
+                          r"lrn_bwd_kernel)I(\w+)", m.group(1))
             if k is None:
                 name = m.group(1)
             else:
@@ -1864,14 +1871,137 @@ def bn_fwd_cases(gen: torch.Generator) -> dict:
     return out
 
 
+def lrn_ab_times(gen: torch.Generator) -> dict:
+    """``lrn_fwd`` and ``lrn_bwd`` at AlexNet's lrn1 and lrn2 (bf16,
+    LRN_ALEX), timed as :func:`phase_convnet_times` times them, and
+    lrn1's rates. Where the tree plans its blocks by
+    ``fused_lrn.LRN_THREADS``, also prints both at lrn1 for each of
+    LRN_SWEEP threads a block (the rows a block follow) and at nsize 4
+    and 6 (the run-time window), and their issue floor."""
+    from cxxnet_tpu_torch.ops import fused_lrn
+    n, alpha, beta, knorm = LRN_ALEX
+    out = {}
+    for layer, shape in LRN_LAYERS:
+        x, dy = lrn_inputs(gen, shape)
+        fwd = lambda: fused_lrn.fused_lrn_fwd(x, n, alpha, beta, knorm)
+        bwd = lambda: fused_lrn.fused_lrn_bwd(x, dy, n, alpha, beta, knorm)
+        out[f"lrn_fwd {layer}"] = time_call(fwd)
+        out[f"lrn_bwd {layer}"] = time_call(bwd)
+        if layer != "lrn1":
+            continue
+        # what sets the pace: the same rows' rate out of the L2, and a
+        # copy of the forward's bytes
+        xs, dys = x[:LRN_L2_IMAGES], dy[:LRN_L2_IMAGES]
+        el, els = x.numel(), xs.numel()
+        l2 = (time_call(lambda: fused_lrn.fused_lrn_fwd(xs, n, alpha, beta,
+                                                        knorm)),
+              time_call(lambda: fused_lrn.fused_lrn_bwd(xs, dys, n, alpha,
+                                                        beta, knorm)))
+        copy = time_call(lambda: x.clone())
+        rate = lambda ms, m: f"{m / ms / 1e6:.1f} G elements/s"
+        print(f"ab: lrn rates at lrn1 {shape} bf16: fwd "
+              f"{rate(out['lrn_fwd lrn1'], el)} "
+              f"({4 * el / out['lrn_fwd lrn1'] / 1e9:.2f} TB/s), bwd "
+              f"{rate(out['lrn_bwd lrn1'], el)} "
+              f"({6 * el / out['lrn_bwd lrn1'] / 1e9:.2f} TB/s) | the first "
+              f"{LRN_L2_IMAGES} images ({4 * els / 1e6:.1f} MB in and out "
+              f"forward, in the L2): fwd {l2[0]:.5f} ms = {rate(l2[0], els)},"
+              f" bwd {l2[1]:.5f} ms = {rate(l2[1], els)} | x.clone() of "
+              f"lrn1 {copy:.5f} ms ({4 * el / copy / 1e9:.2f} TB/s, the "
+              f"forward's bytes)", flush=True)
+        if not hasattr(fused_lrn, "LRN_THREADS"):
+            continue
+        print(lrn_issue_floor(out["lrn_fwd lrn1"], out["lrn_bwd lrn1"]),
+              flush=True)
+        keep, sweep = fused_lrn.LRN_THREADS, []
+        try:
+            for threads in LRN_SWEEP:
+                fused_lrn.LRN_THREADS = threads
+                plan = fused_lrn.lrn_plan(*fused_lrn._rows(x), 2, n)
+                sweep.append(f"{threads} threads ({plan.rows} rows): fwd "
+                             f"{time_call(fwd):.5f} bwd {time_call(bwd):.5f}")
+        finally:
+            fused_lrn.LRN_THREADS = keep
+        for k in (4, 6):      # nsize 5's window is compiled in, these not
+            f = time_call(lambda: fused_lrn.fused_lrn_fwd(x, k, alpha, beta,
+                                                          knorm))
+            b = time_call(lambda: fused_lrn.fused_lrn_bwd(x, dy, k, alpha,
+                                                          beta, knorm))
+            sweep.append(f"nsize {k} (run-time window): fwd {f:.5f} bwd "
+                         f"{b:.5f}")
+        print(f"ab: lrn sweep at lrn1 {shape} bf16, ms: " + " | ".join(sweep),
+              flush=True)
+    return out
+
+
+def sass_counts(source: str, fragment: str) -> dict:
+    """Static SASS instructions (NOPs left out) of each kernel of
+    ``source``'s built library whose mangled name holds ``fragment``, by
+    name, from ``cuobjdump -sass`` beside nvcc; {} without cuobjdump."""
+    import re
+    from cxxnet_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", _build.lib_path(source)],
+                          capture_output=True, text=True, timeout=300).stdout
+    counts, name = {}, None
+    for ln in sass.splitlines():
+        m = re.match(r"\s+Function : (\S+)", ln)
+        if m:
+            name = m.group(1) if fragment in m.group(1) else None
+            if name:
+                counts[name] = 0
+        elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", ln) \
+                and "NOP" not in ln:
+            counts[name] += 1
+    return counts
+
+
+def lrn_issue_floor(fwd_ms: float, bwd_ms: float) -> str:
+    """The LRN kernels at lrn1 (bf16, 8 channels a thread, nsize 5)
+    against their instruction issue: static SASS instructions a thread
+    (an upper bound of what a thread runs: the rare branches count too),
+    and the time 4 warp instructions a clock on each of the card's SMs
+    would take for all of lrn1's warps at the SM clock nvidia-smi reads
+    now and at its maximum."""
+    from cxxnet_tpu_torch.ops import fused_lrn
+    n, c = 256 * 27 * 27, 96
+    plan = fused_lrn.lrn_plan(n, c, 2, 5)
+    warps = -(-n // plan.rows) * -(-plan.rows * plan.tpr // 32)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split(",")
+    mhz = [float(v) for v in smi]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    parts = []
+    for src, kern, ms in (("lrn_fwd.cu", "lrn_fwd_kernel", fwd_ms),
+                          ("lrn_bwd.cu", "lrn_bwd_kernel", bwd_ms)):
+        k = [v for name, v in sass_counts(src, kern).items()
+             if "nv_bfloat16Li8ELi5E" in name]
+        if not k:
+            parts.append(f"{kern}: no SASS (not measured)")
+            continue
+        floor = [warps * k[0] / (sms * 4 * f * 1e3) for f in mhz]
+        parts.append(f"{kern}<bf16,8,5> {k[0]} SASS instructions a thread "
+                     f"({k[0] / plan.vec:.1f} an element): issue floor "
+                     f"{floor[0]:.5f} ms at {mhz[0]:.0f} MHz, {floor[1]:.5f} "
+                     f"at {mhz[1]:.0f}; measured {ms:.5f} "
+                     f"({100 * floor[0] / ms:.0f}% of issue at {mhz[0]:.0f})")
+    return f"ab: lrn issue at lrn1 ({warps} warps): " + " | ".join(parts)
+
+
 def ab_times(gen: torch.Generator) -> None:
     """The times of the kernels this tree's vectorised designs touch, for
     an A/B of two trees (``--ab``): ``bn_fwd`` at :func:`bn_fwd_cases`,
     ``bn_bwd`` as :func:`bn_bwd_times` takes it, the four sync-BN
-    kernels as :func:`phase_dp_times` does, and ``epilogue_bwd`` at fc1,
-    cv1 and fc6 as :func:`epilogue_bwd_times` does. Prints them as one
-    JSON line."""
+    kernels as :func:`phase_dp_times` does, ``epilogue_bwd`` at fc1,
+    cv1 and fc6 as :func:`epilogue_bwd_times` does, and the LRN kernels
+    as :func:`lrn_ab_times` does. Prints them as one JSON line."""
     from cxxnet_tpu_torch.ops.fused_norm import bn_fwd
+    lrn = lrn_ab_times(gen)
+    torch.cuda.empty_cache()
     fwd = {}
     for k, (x, g, be, tp) in bn_fwd_cases(gen).items():
         call = lambda: bn_fwd(x, g, be, 1e-10, "relu", tp)
@@ -1889,7 +2019,8 @@ def ab_times(gen: torch.Generator) -> None:
                                "epilogue_bwd cv1":
                                    epi["epilogue_bwd (cv1)"]["ms"],
                                "epilogue_bwd fc6":
-                                   epi["epilogue_bwd (fc6)"]["ms"]}),
+                                   epi["epilogue_bwd (fc6)"]["ms"],
+                               **lrn}),
           flush=True)
 
 
@@ -2475,13 +2606,28 @@ CONVNET_LOSS_TOL = {"bfloat16": 1e-3, "float32": 1e-5}
 CONVNET_GRAD_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (4e-6, 1e-2)}
 #: phase 3's LRN hyperparameters: AlexNet's, then the odd cases'
 LRN_ALEX = (5, 1e-4, 0.75, 1.0)          # nsize, alpha, beta, knorm
+#: AlexNet's two LRN layers and their inputs' shapes at batch 256
+LRN_LAYERS = (("lrn1", (256, 27, 27, 96)), ("lrn2", (256, 13, 13, 256)))
+#: threads a block of the LRN kernels swept by ``--ab`` at lrn1
+LRN_SWEEP = (128, 256, 512)
+#: lrn1's images that ``--ab`` also times out of the L2 (x and y 19 MB)
+LRN_L2_IMAGES = 64
+
+
+def lrn_inputs(gen: torch.Generator, shape):
+    """x (scaled by 3, so that the window sums matter) and dy, bf16."""
+    x = (torch.randn(shape, generator=gen, device=gen.device) * 3).to(
+        torch.bfloat16)
+    return x, torch.randn(shape, generator=gen, device=gen.device).to(
+        torch.bfloat16)
 
 
 def phase_convnet_kernels(gen: torch.Generator) -> dict:
     """The convnet path's kernels against their plain versions: LRN
     forward and backward at AlexNet's lrn1 and lrn2 (bf16, f16, f32) and
-    at 7 rows by C 7, C 1500 (past the TPU kernel's 1024) and a ragged row
-    count, with nsize 3, 4 and 5, knorm 1 and 2, beta 0.75 and 0.5
+    at 7 rows by C 7, C 1500 (past the TPU kernel's 1024), C 4104 (past
+    a block's threads in bf16: chunks of a row) and a ragged row count,
+    with nsize 3, 4 and 5, knorm 1 and 2, beta 0.75 and 0.5
     (float32 within 4 ulp of max|plain|, bf16/f16 one ulp of the value);
     the first-match max-pool backward at spp1's shape, the digits LeNet's
     2x2 pool and a global 7x7 window, pre_relu on and off, inputs drawn
@@ -2498,7 +2644,8 @@ def phase_convnet_kernels(gen: torch.Generator) -> dict:
     cases = [((256, 27, 27, 96), dt, LRN_ALEX) for dt in dts]
     cases += [((256, 13, 13, 256), dt, LRN_ALEX) for dt in dts]
     cases += [(shape, dt, (n, 0.1, beta, knorm))
-              for shape in ((1, 1, 7, 7), (1, 1, 3, 1500), (3, 5, 7, 33))
+              for shape in ((1, 1, 7, 7), (1, 1, 3, 1500), (3, 5, 7, 33),
+                            (1, 1, 7, 4104))
               for dt in dts for n in (3, 4, 5)
               for knorm, beta in ((1.0, 0.75), (2.0, 0.5))]
     for shape, dt, (n, alpha, beta, knorm) in cases:
@@ -2739,14 +2886,16 @@ def phase_convnet_times(name, tr, plain, batches, gen) -> dict:
         print(f"profile: alexnet epilogue backward: {k:g} launches a step, "
               f"{ms:.4f} ms a step in all (the step's profile by kind; "
               f"8 epilogues with a bias, 7 with relu)", flush=True)
+        ms, k = kinds.get("lrn kernel", (0.0, 0))
+        print(f"profile: alexnet lrn: {k:g} launches a step, {ms:.4f} ms a "
+              f"step in all (the step's profile by kind; lrn_fwd and lrn_bwd "
+              f"at lrn1 and lrn2)", flush=True)
     dev, bf = tr.device, torch.bfloat16
     rows = {}
     if name == "alexnet":
         n, alpha, beta, knorm = LRN_ALEX
-        for layer, shape in (("lrn1", (256, 27, 27, 96)),
-                             ("lrn2", (256, 13, 13, 256))):
-            x = (torch.randn(shape, generator=gen, device=dev) * 3).to(bf)
-            dy = torch.randn(shape, generator=gen, device=dev).to(bf)
+        for layer, shape in LRN_LAYERS:
+            x, dy = lrn_inputs(gen, shape)
             xn = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
             yn = F.local_response_norm(xn, n, alpha, beta, knorm)
             dyn = dy.permute(0, 3, 1, 2)
@@ -3993,9 +4142,9 @@ def main(argv=None) -> int:
     ap.add_argument("--conf", default=FLAGSHIP)
     ap.add_argument("--json", default="", help="also write the results here")
     ap.add_argument("--ab", nargs="+", metavar="TREE",
-                    help="only time the vectorised BN and epilogue kernels "
-                         "of each checkout root in turn (e.g. parent change "
-                         "change parent)")
+                    help="only time the vectorised BN, epilogue and LRN "
+                         "kernels of each checkout root in turn (e.g. parent "
+                         "change change parent)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs the "

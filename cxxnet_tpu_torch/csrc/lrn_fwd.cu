@@ -11,91 +11,123 @@
 // The TPU sums the window as a matmul against a (C, C) band matrix to
 // reach its matrix unit; here each output adds its nsize squares in
 // ascending channel order, the order of the plain version, with no fused
-// multiply-adds and expf/logf without fast math.
+// multiply-adds and expf/logf without fast math: y is bit-equal to
+// ops/fused_lrn.lrn_plain.
 //
 // Bound on the H100 (3.35 TB/s): bytes, x read once and y written once.
 // At AlexNet's lrn1 (256, 27, 27, 96) bf16 that is 71.7 MB, 21.4 us; at
 // lrn2 (256, 13, 13, 256) 44.3 MB, 13.2 us.
 //
-// Design: a block owns R rows by a chunk of CH channels (CH = min(C,
-// 1024), R * CH about 2048 outputs). It stages x^2 in f32 in shared memory
-// over the chunk and its window halo (nsize - 1 channels, zero outside
-// [0, C)), then each thread computes outputs from shared memory; x is read
-// a second time for the product (an L1/L2 hit). Loads and stores are
-// coalesced along C. Any row count and any C are taken: the TPU kernel's
-// C <= 1024 and row-block gates do not apply.
-#include "common.cuh"
+// The first design (a block of R rows by a chunk of channels, scalar
+// 2-byte loads, a run-time division per element, x read twice) took
+// 0.1319 ms at lrn1 on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py),
+// 6.2x its bound.
+//
+// Design (lrn_tile.cuh): a block owns whole rows, so no halo comes from
+// another block, and a thread one vector of V channels (16 bytes where C
+// and the bases allow), read once and kept in registers. The thread
+// writes its V squares into the rows' f32 tile, the block syncs once,
+// and the thread reads the V + nsize - 1 slots of its windows into
+// registers (nsize 5 compiled in; any other nsize reads each term from
+// the tile), forms V outputs and stores them as one vector. Where a row's
+// vectors outgrow a block, blocks take chunks of a row with their halo.
+// ops/fused_lrn.lrn_plan gives V, the rows, the chunk and the tile.
+// This design takes 0.0404 ms at lrn1 and 0.0255 at lrn2 on the same
+// card (chip_smoke.py --ab), 1.9x its bound and no faster from the L2:
+// instruction issue sets the pace (60.5 SASS instructions an element,
+// most in the accurate logf and expf, at 82% of the issue rate).
+#include "lrn_tile.cuh"
 
-template <typename T>
-__global__ void lrn_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
-                               int64_t n_rows, int C, int CH, int R,
-                               int nsize, int half, float ab, float knorm,
-                               float nbeta) {
-  extern __shared__ float sq[];  // R x (CH + nsize - 1)
-  const int W = CH + nsize - 1;
-  const int64_t row0 = (int64_t)blockIdx.x * R;
-  const int c0 = blockIdx.y * CH;
-  const int lo = c0 - half;  // channel held by sq[r * W + 0]
-  for (int i = threadIdx.x; i < R * W; i += blockDim.x) {
-    const int r = i / W, c = lo + i % W;
-    const int64_t row = row0 + r;
-    float v = 0.f;
-    if (row < n_rows && c >= 0 && c < C) {
-      v = to_f32(x[row * C + c]);
-      v = __fmul_rn(v, v);
-    }
-    sq[i] = v;
-  }
+template <typename T, int V, int N>
+__global__ void __launch_bounds__(kLrnMaxThreads)
+lrn_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t n_rows,
+               int C, int chunk, int stride, int nsize_rt, float ab,
+               float knorm, float nbeta) {
+  extern __shared__ float tile_mem[];
+  const int nsize = N > 0 ? N : nsize_rt;
+  const int h = nsize - 1, half = nsize / 2;
+  const int tx = threadIdx.x;
+  float* tile = tile_mem + threadIdx.y * stride;
+  const int64_t row = (int64_t)blockIdx.x * blockDim.y + threadIdx.y;
+  const int c0 = blockIdx.y * chunk;
+  const int c = c0 + tx * V;
+  const bool row_ok = row < n_rows, ok = row_ok && c < C;
+  const T* xrow = x + row * C;
+  float xv[V], sq[V];
+  load_vec<T, V>(xrow + c, ok, xv);
+#pragma unroll
+  for (int k = 0; k < V; ++k) sq[k] = __fmul_rn(xv[k], xv[k]);
+  stage_own<V>(tile, tx, h, sq);
+  stage_halo<T, V>(tile, xrow, row_ok, C, c0, chunk, h, tx);
   __syncthreads();
-  const int chn = min(CH, C - c0);
-  for (int i = threadIdx.x; i < R * CH; i += blockDim.x) {
-    const int r = i / CH, j = i % CH;
-    const int64_t row = row0 + r;
-    if (row >= n_rows || j >= chn) continue;
-    const float* s = sq + r * W + j;  // window of channel c0 + j
-    float win = 0.f;
-    for (int k = 0; k < nsize; ++k) win = __fadd_rn(win, s[k]);
-    const float norm = __fadd_rn(knorm, __fmul_rn(ab, win));
-    const float p = expf(__fmul_rn(nbeta, logf(norm)));
-    const int64_t off = row * C + c0 + j;
-    y[off] = from_f32<T>(__fmul_rn(to_f32(x[off]), p));
+  if (!ok) return;
+  float win[V], out[V];
+  window_sums<V, N>(tile, tx, h - half, nsize, win);
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    float norm;
+    out[k] = __fmul_rn(xv[k], lrn_scale(win[k], ab, knorm, nbeta, &norm));
   }
+  store_vec<T, V>(y + row * C + c, out);
 }
 
-template <typename T>
+template <typename T, int V, int N>
 static int launch(const void* x, void* y, int64_t n, int C, int nsize,
-                  float ab, float knorm, float nbeta, cudaStream_t s) {
-  const int CH = C < 1024 ? C : 1024;
-  int R = 2048 / CH;
-  R = R < 1 ? 1 : (R > 256 ? 256 : R);
-  const size_t smem = (size_t)R * (CH + nsize - 1) * sizeof(float);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        lrn_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((unsigned)((n + R - 1) / R), (unsigned)((C + CH - 1) / CH));
-  lrn_fwd_kernel<T><<<grid, 256, smem, s>>>((const T*)x, (T*)y, n, C, CH, R,
-                                             nsize, nsize / 2, ab, knorm,
-                                             nbeta);
+                  float ab, float knorm, float nbeta, int vec, int rows,
+                  int chunk, int stride, cudaStream_t s) {
+  dim3 grid, block;
+  size_t smem;
+  cudaError_t e = lrn_configure(lrn_fwd_kernel<T, V, N>, n, C, vec, rows,
+                                chunk, stride, &grid, &block, &smem);
+  if (e != cudaSuccess) return (int)e;
+  lrn_fwd_kernel<T, V, N><<<grid, block, smem, s>>>(
+      (const T*)x, (T*)y, n, C, chunk, stride, nsize, ab, knorm, nbeta);
   return (int)cudaGetLastError();
 }
 
+template <typename T, int N>
+static int launch_vec(const void* x, void* y, int64_t n, int C, int nsize,
+                      float ab, float knorm, float nbeta, int vec, int rows,
+                      int chunk, int stride, cudaStream_t s) {
+  switch (vec) {
+    case 1: return launch<T, 1, N>(x, y, n, C, nsize, ab, knorm, nbeta, vec, rows, chunk, stride, s);
+    case 2: return launch<T, 2, N>(x, y, n, C, nsize, ab, knorm, nbeta, vec, rows, chunk, stride, s);
+    case 4: return launch<T, 4, N>(x, y, n, C, nsize, ab, knorm, nbeta, vec, rows, chunk, stride, s);
+    default:
+      if constexpr (sizeof(T) == 2)
+        return launch<T, 8, N>(x, y, n, C, nsize, ab, knorm, nbeta, vec, rows, chunk, stride, s);
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+static int launch_dtype(const void* x, void* y, int64_t n, int C, int nsize,
+                        float ab, float knorm, float nbeta, int vec, int rows,
+                        int chunk, int stride, cudaStream_t s) {
+  const void* bases[2] = {x, y};
+  if (!lrn_plan_ok(n, C, nsize, (int)sizeof(T), vec, rows, chunk, stride,
+                   bases, 2))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  if (nsize == 5)
+    return launch_vec<T, 5>(x, y, n, C, nsize, ab, knorm, nbeta, vec, rows, chunk, stride, s);
+  return launch_vec<T, 0>(x, y, n, C, nsize, ab, knorm, nbeta, vec, rows, chunk, stride, s);
+}
+
 // x, y: (n_rows, C) contiguous of dtype code `dtype`. ab = alpha / nsize
-// and nbeta = -beta, both rounded to float by the caller. Returns a
-// cudaError_t (0 = launched).
+// and nbeta = -beta, both rounded to float by the caller; vec, rows,
+// chunk and stride: the plan of ops/fused_lrn.lrn_plan. Returns a
+// cudaError_t (0 = launched; cudaErrorInvalidValue for a plan the
+// inputs do not allow).
 extern "C" int lrn_fwd(const void* x, void* y, int64_t n_rows, int C,
                        int nsize, int dtype, float ab, float knorm,
-                       float nbeta, void* stream) {
-  if (C <= 0 || nsize <= 0 || n_rows < 0) return (int)cudaErrorInvalidValue;
-  if (n_rows == 0) return 0;
+                       float nbeta, int vec, int rows, int chunk, int stride,
+                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
-    case kF32: return launch<float>(x, y, n_rows, C, nsize, ab, knorm, nbeta, s);
-    case kBF16: return launch<__nv_bfloat16>(x, y, n_rows, C, nsize, ab, knorm, nbeta, s);
-    case kF16: return launch<__half>(x, y, n_rows, C, nsize, ab, knorm, nbeta, s);
+    case kF32: return launch_dtype<float>(x, y, n_rows, C, nsize, ab, knorm, nbeta, vec, rows, chunk, stride, s);
+    case kBF16: return launch_dtype<__nv_bfloat16>(x, y, n_rows, C, nsize, ab, knorm, nbeta, vec, rows, chunk, stride, s);
+    case kF16: return launch_dtype<__half>(x, y, n_rows, C, nsize, ab, knorm, nbeta, vec, rows, chunk, stride, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -14,6 +14,10 @@ Pallas kernels compute it (fused_lrn.py:66-87); the forward kernel is
 from x, as the TPU kernel does, and sums ``t = dy * x * norm^(-beta-1)``
 over the transposed window ``[c - (nsize - 1 - half), c + half]``.
 
+Both kernels launch under one :func:`lrn_plan`: a block owns whole rows
+(or, where a row needs more than LRN_MAX_TPR threads, a chunk of a row
+and its halo), a thread one vector of channels.
+
 Eligibility (:func:`lrn_takes`): an NHWC node and ``knorm > 0`` (the log
 needs ``norm > 0``); any row count and any C. The TPU's C <= 1024 and
 row-block gates are not carried over. The layer decides before it calls;
@@ -23,27 +27,98 @@ a wrapper handed what the kernel does not take raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from .fused import Kernel, check_cuda_input, register, stream_handle
 
-_FLOAT = ctypes.c_float
+_FLOAT, _INT = ctypes.c_float, ctypes.c_int
+#: vec, rows, chunk and stride of an LrnPlan
+_PLAN = [_INT, _INT, _INT, _INT]
 
 LRN_FWD = register(Kernel(
     "lrn_fwd", "lrn_fwd.cu",
     replaces="cxxnet_tpu/ops/fused_lrn.py:66",
-    argtypes=[ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-              ctypes.c_int, ctypes.c_int, ctypes.c_int, _FLOAT, _FLOAT,
-              _FLOAT, ctypes.c_void_p]))
+    argtypes=[ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, _INT,
+              _INT, _INT, _FLOAT, _FLOAT, _FLOAT, *_PLAN, ctypes.c_void_p]))
 
 LRN_BWD = register(Kernel(
     "lrn_bwd", "lrn_bwd.cu",
     replaces="cxxnet_tpu/ops/fused_lrn.py:75",
     argtypes=[ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-              _FLOAT, _FLOAT, _FLOAT, _FLOAT, ctypes.c_void_p]))
+              ctypes.c_int64, _INT, _INT, _INT, _FLOAT, _FLOAT, _FLOAT,
+              _FLOAT, *_PLAN, ctypes.c_void_p]))
+
+#: threads a block aims at: the rows of a block are LRN_THREADS // tpr
+LRN_THREADS = 256
+#: threads a row (or a chunk of one) takes at most: a block's threads are
+#: capped there too (the kernels' launch bound)
+LRN_MAX_TPR = 512
+#: shared memory a block of an H100 can have
+LRN_SMEM = 227 * 1024
+
+
+class LrnPlan(NamedTuple):
+    """The launch of ``csrc/lrn_fwd.cu`` and ``csrc/lrn_bwd.cu``: ``vec``
+    channels a thread (one load of ``vec`` elements), ``rows`` rows a
+    block (threadIdx.y), ``tpr`` threads a row (threadIdx.x, ``chunk /
+    vec``), ``chunk`` channels a block (C where a row fits one block),
+    and the shared tile: per row ``stride`` floats (the chunk and
+    nsize - 1 channels each side, one pad after every ``vec``), ``smem``
+    bytes in all. The grid is (ceil(n / rows), ceil(C / chunk))."""
+    vec: int
+    rows: int
+    tpr: int
+    chunk: int
+    stride: int
+    smem: int
+
+
+def tile_pos(i: int, vec: int) -> int:
+    """Where slot ``i`` of a row's tile lies in shared memory: one pad
+    float after every ``vec`` slots, so that the lanes of a warp, which
+    read ``vec`` slots apart, fall in different banks."""
+    return i + i // vec if vec > 1 else i
+
+
+def lrn_plan(n: int, c: int, itemsize: int, nsize: int, align: int = 16
+             ) -> LrnPlan:
+    """The kernels' launch over ``n`` rows of ``c`` channels of
+    ``itemsize``-byte elements, every base address a multiple of
+    ``align`` bytes: the widest vector (16 bytes, down to one element)
+    that C and the bases allow; whole rows in a block where a row's
+    vectors fit LRN_MAX_TPR threads, else chunks of LRN_MAX_TPR vectors,
+    each with its halo; about LRN_THREADS threads a block. Raises
+    ValueError where no block can hold a row's tile (a window that
+    outgrows the shared memory)."""
+    if n < 0 or c < 1 or nsize < 1:
+        raise ValueError(f"lrn_plan: needs n >= 0 and c, nsize >= 1, got "
+                         f"{n}, {c}, {nsize}")
+    vec = 16 // itemsize
+    while vec > 1 and (c % vec or align % (vec * itemsize)):
+        vec //= 2
+    chunk = c if c // vec <= LRN_MAX_TPR else LRN_MAX_TPR * vec
+    tpr = chunk // vec
+    if chunk < c and tpr < nsize - 1:
+        raise ValueError(f"lrn_plan: a halo of {nsize - 1} channels needs "
+                         f"as many threads a chunk, the chunk has {tpr}")
+    stride = tile_pos(chunk + 2 * (nsize - 1) - 1, vec) + 1
+    if stride * 4 > LRN_SMEM:
+        raise ValueError(f"lrn_plan: a row's tile of {stride} floats "
+                         f"outgrows {LRN_SMEM} bytes of shared memory")
+    rows = max(1, min(LRN_THREADS // tpr, LRN_MAX_TPR // tpr, n or 1,
+                      LRN_SMEM // (stride * 4)))
+    return LrnPlan(vec, rows, tpr, chunk, stride, rows * stride * 4)
+
+
+def _align(*ts: torch.Tensor) -> int:
+    """The largest power of two up to 16 that divides every base."""
+    p = 0
+    for t in ts:
+        p |= t.data_ptr()
+    return min(16, p & -p) if p else 16
 
 
 def lrn_takes(x: torch.Tensor, knorm: float) -> bool:
@@ -113,9 +188,11 @@ def fused_lrn_fwd(x: torch.Tensor, nsize: int, alpha: float, beta: float,
     code = check_cuda_input("lrn", x)
     n, c = _rows(x)
     y = torch.empty_like(x)
+    plan = lrn_plan(n, c, x.element_size(), nsize, _align(x, y))
     with torch.cuda.device(x.device):
         LRN_FWD.launch(x.data_ptr(), y.data_ptr(), n, c, nsize, code,
-                       alpha / nsize, knorm, -beta, stream_handle(x.device))
+                       alpha / nsize, knorm, -beta, plan.vec, plan.rows,
+                       plan.chunk, plan.stride, stream_handle(x.device))
     return y
 
 
@@ -138,10 +215,12 @@ def fused_lrn_bwd(x: torch.Tensor, dy: torch.Tensor, nsize: int,
                          "device")
     n, c = _rows(x)
     dx = torch.empty_like(x)
+    plan = lrn_plan(n, c, x.element_size(), nsize, _align(x, dy, dx))
     ab = alpha / nsize
     with torch.cuda.device(x.device):
         LRN_BWD.launch(x.data_ptr(), dy.data_ptr(), dx.data_ptr(), n, c,
                        nsize, code, ab, knorm, -beta, 2.0 * ab * beta,
+                       plan.vec, plan.rows, plan.chunk, plan.stride,
                        stream_handle(x.device))
     return dx
 

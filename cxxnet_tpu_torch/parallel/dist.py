@@ -14,9 +14,11 @@ CUDA tensors through the host; NCCL refuses two ranks on one card).
 The global ``batch_size`` is split evenly over the ranks, rank r holding
 rows ``[r * B / W, (r + 1) * B / W)`` of every global batch, as the JAX
 mesh shards the batch axis. The rendezvous and every collective carry a
-timeout: a rank that raises exits, :func:`launch` then stops the others
-and raises with that rank's traceback; a rank that hangs makes the
-others' next collective time out, with the same end.
+timeout: a rank that raises records when it did and exits, :func:`launch`
+then stops the others and raises with the traceback of the rank that
+raised first (a peer whose collective broke when it exited fails later);
+a rank that hangs makes the others' next collective time out, with the
+same end.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import os
 import pickle
 import tempfile
 import time
+import traceback
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
@@ -34,6 +37,9 @@ import torch.distributed as dist
 
 #: seconds a rank waits at the rendezvous and in any one collective
 DEFAULT_TIMEOUT_S = 300.0
+#: seconds the other ranks have to exit on their own once one has failed
+#: (a rank that failed first but exits later finishes writing its record)
+FAIL_GRACE_S = 2.0
 
 
 @dataclasses.dataclass
@@ -107,24 +113,58 @@ def default_backend(devices: Sequence[torch.device]) -> str:
     return "gloo"
 
 
+def _dump(path: str, obj) -> None:
+    with open(path + ".tmp", "wb") as f:
+        pickle.dump(obj, f)
+    os.replace(path + ".tmp", path)
+
+
 def _worker(rank: int, devices, backend: str, init_file: str,
             timeout_s: float, out_dir: str, fn: Callable, args) -> None:
-    device = torch.device(devices[rank])
-    world = len(devices)
-    if device.type == "cuda":
-        torch.cuda.set_device(device)
-    else:
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    dist.init_process_group(
-        backend, init_method=f"file://{init_file}", rank=rank,
-        world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
-    result = fn(DpContext(rank=rank, world=world, device=device,
-                          backend=backend), *args)
-    path = os.path.join(out_dir, f"result_{rank}.pkl")
-    with open(path + ".tmp", "wb") as f:
-        pickle.dump(result, f)
-    os.replace(path + ".tmp", path)
+    try:
+        device = torch.device(devices[rank])
+        world = len(devices)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        else:
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        dist.init_process_group(
+            backend, init_method=f"file://{init_file}", rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+        result = fn(DpContext(rank=rank, world=world, device=device,
+                              backend=backend), *args)
+    except Exception:
+        # when it failed, on the clock that every process of the host
+        # shares, for the launcher to raise the first failure
+        _dump(os.path.join(out_dir, f"failed_{rank}.pkl"),
+              (time.monotonic(), traceback.format_exc()))
+        raise
+    _dump(os.path.join(out_dir, f"result_{rank}.pkl"), result)
     dist.destroy_process_group()
+
+
+def _join(ctx, out_dir: str) -> bool:
+    """``ctx.join`` for up to a second. Where a rank has failed, join
+    raises for the first failed exit it sees, and under load that can be
+    a peer whose collective broke when the failing rank exited; so this
+    raises for the rank whose :func:`_worker` recorded the earliest
+    failure instead."""
+    import torch.multiprocessing as mp
+    try:
+        return ctx.join(timeout=1.0, grace_period=FAIL_GRACE_S)
+    except mp.ProcessRaisedException:
+        failed = []
+        for r, p in enumerate(ctx.processes):
+            path = os.path.join(out_dir, f"failed_{r}.pkl")
+            if os.path.exists(path):
+                with open(path, "rb") as f:
+                    failed.append((*pickle.load(f), r, p.pid))
+        if not failed:
+            raise
+        _, tb, rank, pid = min(failed)
+        raise mp.ProcessRaisedException(
+            f"\n\n-- Process {rank:d} terminated with the following "
+            f"error:\n{tb}", rank, pid) from None
 
 
 def launch(fn: Callable, args: Tuple = (),
@@ -137,9 +177,12 @@ def launch(fn: Callable, args: Tuple = (),
     gloo) and return the ranks' results, by rank. ``fn``, ``args`` and
     the results cross process boundaries by pickle: ``fn`` is a
     module-level function. ``backend`` defaults to
-    :func:`default_backend`. If a rank fails, the others are stopped and
-    ``torch.multiprocessing.ProcessRaisedException`` (or
-    ``ProcessExitedException``) carries its traceback. ``timeout_s``
+    :func:`default_backend`. If a rank fails, the others are given
+    FAIL_GRACE_S to exit, then stopped, and
+    ``torch.multiprocessing.ProcessRaisedException`` carries the
+    traceback of the rank that raised first, whichever exit was seen
+    first (``ProcessExitedException`` if a rank ended by a signal and
+    none raised). ``timeout_s``
     bounds the rendezvous and each collective; ``deadline_s`` (None: no
     deadline) bounds the whole run, so that a test whose rank hangs
     outside a collective fails instead of hanging: past it the ranks are
@@ -159,7 +202,7 @@ def launch(fn: Callable, args: Tuple = (),
                            float(timeout_s), tmp, fn, tuple(args)),
             nprocs=len(devices), join=False, start_method="spawn")
         t0 = time.monotonic()
-        while not ctx.join(timeout=1.0):
+        while not _join(ctx, tmp):
             if deadline_s is not None and time.monotonic() - t0 > deadline_s:
                 for p in ctx.processes:
                     if p.is_alive():

@@ -30,9 +30,9 @@ from cxxnet_tpu_torch.ops import attention as att
 from cxxnet_tpu_torch.ops.fused_optim import (adam_apply_plain,
                                               fused_adam_apply,
                                               fused_sgd_apply, sgd_apply_plain)
-from cxxnet_tpu_torch.ops.fused_lrn import (Lrn, fused_lrn_bwd,
+from cxxnet_tpu_torch.ops.fused_lrn import (Lrn, _align, fused_lrn_bwd,
                                             fused_lrn_fwd, lrn_bwd_plain,
-                                            lrn_plain)
+                                            lrn_plain, lrn_plan)
 from cxxnet_tpu_torch.ops import fused_quant as fq
 from cxxnet_tpu_torch.ops import fused_stem as fs
 from cxxnet_tpu_torch.ops.fused_pool import (Pool, fused_pool,
@@ -664,6 +664,93 @@ def test_lrn_function_launches_each_kernel_once(dev):
     torch.cuda.synchronize()
     assert KERNELS["lrn_fwd"].launches == 1
     assert KERNELS["lrn_bwd"].launches == 1
+
+
+def _lrn_pair(x, dy, nsize, alpha, beta, knorm):
+    """(kernel, plain) of y and of dx."""
+    return ((fused_lrn_fwd(x, nsize, alpha, beta, knorm),
+             lrn_plain(x, nsize, alpha, beta, knorm)),
+            (fused_lrn_bwd(x, dy, nsize, alpha, beta, knorm),
+             lrn_bwd_plain(x, dy, nsize, alpha, beta, knorm)))
+
+
+def _same_bits(got, want):
+    """Equal, with a NaN wherever the other has one."""
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) and torch.equal(
+        got[~nan], want[~nan])
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", [(256, 27, 27, 96), (256, 13, 13, 256)],
+                         ids=["lrn1", "lrn2"])
+def test_lrn_kernels_are_bit_equal_to_plain_at_alexnet(dev, dtype, shape):
+    """AlexNet's LRN layers (nsize 5, alpha 1e-4, beta 0.75, knorm 1):
+    the 16-byte vectors, whole rows in a block."""
+    x = _randn(shape, dtype, dev) * 3
+    dy = _randn(shape, dtype, dev, seed=1)
+    plan = lrn_plan(x.numel() // shape[-1], shape[-1], x.element_size(), 5)
+    assert plan.vec * x.element_size() == 16 and plan.chunk == shape[-1]
+    for got, want in _lrn_pair(x, dy, 5, 1e-4, 0.75, 1.0):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_lrn_misaligned_base_takes_one_channel_a_thread(dev, dtype):
+    shape = (8, 5, 5, 96)
+    n = 8 * 5 * 5 * 96
+    x = (_randn((n + 1,), dtype, dev) * 3)[1:].view(shape)   # offset 1
+    dy = _randn(shape, dtype, dev, seed=1)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    assert lrn_plan(n // 96, 96, x.element_size(), 5,
+                    _align(x, dy)).vec == 1
+    for got, want in _lrn_pair(x, dy, 5, 0.1, 0.75, 1.0):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("nsize", [4, 5])
+@pytest.mark.parametrize("dtype,c", [(torch.bfloat16, 4104),
+                                     (torch.float16, 8192),
+                                     (torch.float32, 2052)], ids=str)
+def test_lrn_rows_past_a_block_take_chunks_with_their_halo(dev, dtype, c,
+                                                           nsize):
+    """C whose row needs more than a block's threads: chunks of
+    LRN_MAX_TPR vectors, the last one ragged, over a ragged row count."""
+    shape = (1, 1, 7, c)
+    x = _randn(shape, dtype, dev) * 3
+    dy = _randn(shape, dtype, dev, seed=1)
+    plan = lrn_plan(7, c, x.element_size(), nsize)
+    assert plan.chunk < c
+    for got, want in _lrn_pair(x, dy, nsize, 0.1, 0.75, 1.0):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_lrn_inf_and_nan_give_the_plain_nan_and_zero(dev, dtype):
+    x = _randn((2, 3, 3, 96), dtype, dev) * 3
+    x[0, 1, 1, 40], x[1, 2, 0, 7] = float("inf"), float("nan")
+    dy = _randn(x.shape, dtype, dev, seed=1)
+    (y, y0), (dx, dx0) = _lrn_pair(x, dy, 5, 0.1, 0.75, 1.0)
+    assert torch.isnan(y0).any() and (y0 == 0).any()
+    assert _same_bits(y, y0) and _same_bits(dx, dx0)
+
+
+def test_lrn_kernel_refuses_a_plan_the_inputs_do_not_allow(dev):
+    from cxxnet_tpu_torch.ops.fused import stream_handle
+    from cxxnet_tpu_torch.ops.fused_lrn import LRN_FWD
+    x = _randn((4, 5, 5, 96), torch.bfloat16, dev)
+    y = torch.empty_like(x)
+    plan = lrn_plan(100, 96, 2, 5)
+    before = LRN_FWD.launches
+    with pytest.raises(RuntimeError, match="cudaError"):
+        LRN_FWD.launch(x.data_ptr() + 2, y.data_ptr(), 99, 96, 5, 1,
+                       0.02, 1.0, -0.75, plan.vec, plan.rows, plan.chunk,
+                       plan.stride, stream_handle(dev))
+    with pytest.raises(RuntimeError, match="cudaError"):
+        LRN_FWD.launch(x.data_ptr(), y.data_ptr(), 100, 96, 5, 1, 0.02, 1.0,
+                       -0.75, plan.vec, plan.rows, plan.chunk,
+                       plan.stride - 1, stream_handle(dev))
+    assert LRN_FWD.launches == before
 
 
 def _device_launches(fn, calls=20):

@@ -359,6 +359,20 @@ def test_a_rank_that_raises_fails_the_run_within_its_timeout():
     assert time.monotonic() - t0 < 60
 
 
+def test_the_rank_that_failed_first_is_raised_when_another_exits_first(
+        tmp_path):
+    # rank 0 raises after rank 1 and its process ends first, so the first
+    # exit that the launcher sees is not the first failure
+    from torch.multiprocessing import ProcessRaisedException
+    with pytest.raises(ProcessRaisedException,
+                       match="rank 1 fails first") as err:
+        launch(torch_dp_fixture.second_failure_exits_first_rank,
+               args=(str(tmp_path),), devices=CPU2, timeout_s=30,
+               deadline_s=60)
+    assert err.value.error_index == 1
+    assert "rank 0 fails second" not in str(err.value)
+
+
 def test_launch_refuses_one_device_and_nccl_on_a_shared_card():
     with pytest.raises(ValueError, match="two or more"):
         launch(torch_dp_fixture.raising_rank, devices=("cpu",))

@@ -4,7 +4,8 @@
   (their CPU path) against ``cxxnet_tpu.ops.fused_lrn.fused_lrn`` and its
   vjp, the Pallas kernels run in interpret mode (``pallas_call`` asserted
   in the jaxpr), at nsize 3, 4 and 5, knorm 1 and 2, in float32 and
-  bfloat16, on shapes the JAX gate takes. Both compute in float32 and
+  bfloat16, on shapes the JAX gate takes (C 24, and C 7, 33, 34 and 36,
+  where the kernels' plan narrows its vector). Both compute in float32 and
   round once; the TPU sums the window as a band matmul, the port adds it
   in ascending order. Tolerance: float32 1e-6 of max|JAX| (readings up to
   1.7e-7), bfloat16 one bf16 ulp of the value (readings: equal).
@@ -97,6 +98,22 @@ def test_lrn_plain_matches_the_pallas_kernels(nsize, knorm, dtype):
     assert y.dtype == dx.dtype == tdt
     _close(y.detach().float(), _f32(y_j), dtype)
     _close(dx.float(), _f32(dx_j), dtype)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("c", [7, 33, 34, 36])
+def test_lrn_plain_matches_the_pallas_kernels_at_narrow_vectors(c, dtype):
+    """C that the kernels' plan takes a vector of 1, 2 or 4 channels for
+    (``lrn_plan``), at a row count the JAX gate takes, nsize 4."""
+    jdt, tdt = DTYPES[dtype]
+    x, dy = _inputs((2, 4, 4, c), jdt, seed=c)
+    call = lambda a: jax_fused_lrn(a, 4, ALPHA, BETA, 1.0, interpret=True)
+    assert "pallas_call" in str(jax.make_jaxpr(call)(x))
+    y_j, vjp = jax.vjp(call, x)
+    xt, dyt = _t(_f32(x), tdt), _t(_f32(dy), tdt)
+    _close(lrn_plain(xt, 4, ALPHA, BETA, 1.0).float(), _f32(y_j), dtype)
+    _close(lrn_bwd_plain(xt, dyt, 4, ALPHA, BETA, 1.0).float(),
+           _f32(vjp(dy)[0]), dtype)
 
 
 @pytest.mark.parametrize("shape", [(1, 1, 7, 7), (1, 1, 3, 1500),

@@ -6,6 +6,11 @@ ranks import by name. This one imports torch and the port only (no jax):
 each rank starts in a second or two. Inputs and results are numpy.
 """
 
+import atexit
+import fcntl
+import os
+import time
+
 import numpy as np
 import torch
 
@@ -41,6 +46,40 @@ def raising_rank(dp):
         raise ValueError("rank 1 fails on purpose")
     dp.all_reduce(torch.zeros(4))
     return "rank 0 was not stopped"
+
+
+def _wait_for(path, what):
+    deadline = time.monotonic() + 30
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no {what} within 30 s")
+        time.sleep(0.01)
+
+
+def _hold_until_unlocked(lock_path, flag_path):
+    """At rank 1's exit: say that it has raised, then wait until rank 0's
+    process has ended (its lock is released when it exits)."""
+    open(flag_path, "w").close()
+    with open(lock_path, "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+
+
+def second_failure_exits_first_rank(dp, tmp):
+    """Rank 1 raises first. Rank 0 raises after it, and its process ends
+    before rank 1's: rank 1 stays alive at exit until rank 0's has ended.
+    So the launcher sees rank 0's exit first, though rank 1 failed
+    first. ``tmp`` is a directory both ranks share."""
+    lock, held = os.path.join(tmp, "lock"), os.path.join(tmp, "held")
+    raised = os.path.join(tmp, "rank1_raised")
+    if dp.rank == 0:
+        # a bare descriptor, never closed: the lock goes with the process
+        fcntl.flock(os.open(lock, os.O_WRONLY | os.O_CREAT), fcntl.LOCK_EX)
+        open(held, "w").close()
+        _wait_for(raised, "failure of rank 1")
+        raise ValueError("rank 0 fails second")
+    _wait_for(held, "lock of rank 0")
+    atexit.register(_hold_until_unlocked, lock, raised)
+    raise ValueError("rank 1 fails first")
 
 
 def train_step_rank(dp, cfg, weights, batches):
