@@ -13,7 +13,9 @@ them, the four sync-BN kernels as phase 11 does, ``lrn_fwd`` and
 ``lrn_bwd`` at AlexNet's lrn1 and lrn2 as phase 8 does, with their
 rates at lrn1, out of the L2, and a copy of the bytes beside them; a
 tree that plans the LRN blocks also times lrn1 at each of LRN_SWEEP
-threads a block).
+threads a block; ``pool_bwd_max`` at spp1 as phase 8 does and at the
+digits LeNet's 2x2, and ``stem`` at phase 12's shape with no mean, a
+per-channel mean and a mean image, with their rates).
 
 Phases, each printing one line of its own; any failure exits non-zero
 and prints no result:
@@ -39,8 +41,13 @@ and prints no result:
             nsize 3/4/5, knorm 1/2, beta 0.75/0.5 (f32 within 4 ulp of
             max|plain|, bf16/f16 one ulp); the first-match max-pool
             backward at spp1's shape, a 2x2 tile and a global 7x7
-            window, pre_relu on and off, on tie-ridden integer inputs
-            (bit-equal); the four data-parallel BN kernels at every BN
+            window on tie-ridden integer inputs, first matches in
+            different window rows on the lanes of one vector, C 5, 20
+            and 40, a base one element past 16 bytes, NaN cells and
+            maxima, non-positive windows, a global 13x13 and 27x27,
+            pre_relu on and off (POOL_BWD_CASES, bit-equal); the stem
+            in every STEM_CASES entry (bit-equal; phase 12 lists
+            them); the four data-parallel BN kernels at every BN
             shape of Inception-BN at 64 rows a rank, a flat node, C 1, 7
             and 1500, a ragged row count and ragged rows 1 element past
             a 16-byte boundary in bf16, f16 and f32: their sums within
@@ -145,9 +152,10 @@ and prints no result:
             against ``fused_kernels = 0`` from the same state and the
             same draws (CONVNET_LOSS_TOL, CONVNET_GRAD_TOL); insanity's
             step counters read CONVNET_STEPS; the written round answers
-            finite softmax rows. Step and kernel times beside bound,
-            plain version and library call (``F.local_response_norm``
-            forward and backward, ``max_pool2d_with_indices_backward``);
+            finite softmax rows. Step and kernel times (and rates)
+            beside bound, plain version and library call
+            (``F.local_response_norm`` forward and backward,
+            ``max_pool2d_with_indices_backward``);
             for AlexNet also the device time and launches a step of its
             epilogue backwards, from the step's profile by kind.
 9. digits:  ``examples/digits/digits_lenet.conf`` trained one round
@@ -235,8 +243,9 @@ and prints no result:
             kernels, ``stem`` is held bit-equal to its plain version at
             the path shape (128x224x224x3 to bf16, a mean image), with a
             per-channel mean to f32 and f16, without a mean at a factor
-            of 1/255, at a ragged 5x17x13x3 and a batch of 1. Times,
-            printed and not gated: ``stem`` beside its bound and plain
+            of 1/255, at a ragged 5x17x13x3, a batch of 1, 37 images,
+            C 1 and 4, and cols 4 mod 8 and odd. Times, printed and not
+            gated: ``stem`` and its rate beside its bound and plain
             version, the H2D copy of one uint8 and one float32 batch,
             the imgrec train step beside phase 6's, the train chain's
             decoded images/s with its ``decode_threads`` and the PNG
@@ -327,7 +336,9 @@ PERF_BEFORE_MS = {"bn_fwd": "0.4064 ms",
                   "bn_bwd_dx": "0.1889 ms",
                   "epilogue_bwd": "0.004553 ms",
                   "epilogue_bwd (cv1)": "0.2254 ms",
-                  "bn_norm": "0.1430 ms"}
+                  "bn_norm": "0.1430 ms",
+                  "pool_bwd_max": "0.07046 ms",
+                  "stem": "0.04496 ms"}
 TRAIN_BATCH = 128       # the flagship's batch_size
 TRAIN_STEPS = 4         # 512 synthetic rows
 TRAIN_IMAGE, TRAIN_CLASSES = "3,224,224", 1000
@@ -584,7 +595,7 @@ def phase_build():
 #: the sources whose every kernel's registers and spills phase 2 prints
 REPORT_PTXAS = ("flash_fwd.cu", "flash_bwd.cu", "q_mm.cu", "bn_sync.cu",
                 "bn_fwd.cu", "bn_bwd.cu", "pool_fwd.cu", "epilogue_bwd.cu",
-                "lrn_fwd.cu", "lrn_bwd.cu")
+                "lrn_fwd.cu", "lrn_bwd.cu", "pool_bwd_max.cu", "stem.cu")
 
 
 def ptxas_functions(log: str):
@@ -598,7 +609,8 @@ def ptxas_functions(log: str):
             k = re.search(r"(flash_\w+?_(?:tc|kernel)|q_mm_kernel|"
                           r"colsum_vec|bn_dx_vec|bn_norm_vec|bn_fwd_norm_vec|"
                           r"mask_copy_vec|pool_fwd_kernel|lrn_fwd_kernel|"
-                          r"lrn_bwd_kernel)I(\w+)", m.group(1))
+                          r"lrn_bwd_kernel|pool_bwd_max_kernel|stem_kernel)"
+                          r"I(\w+)", m.group(1))
             if k is None:
                 name = m.group(1)
             else:
@@ -1992,14 +2004,81 @@ def lrn_issue_floor(fwd_ms: float, bwd_ms: float) -> str:
     return f"ab: lrn issue at lrn1 ({warps} warps): " + " | ".join(parts)
 
 
+#: spp1's input at batch 128 and its 3x3/3 window
+SPP1 = ((128, 27, 27, 256), 3)
+#: the digits LeNet's pool input at batch 100 and its 2x2/2 window
+LENET_POOL = ((100, 8, 8, 32), 2)
+
+
+def _tbs(nbytes: int, ms: float) -> str:
+    return f"{nbytes / ms / 1e9:.2f} TB/s"
+
+
+def _rate(row: dict) -> str:
+    """A timed kernel row's rate: the bytes of its bound over its time."""
+    if row["bound"][1] != "bytes":
+        return "bound by operations"
+    return _tbs(row["bound"][0] * 1e-3 * HBM_BYTES_PER_S, row["ms"])
+
+
+def max_pool_inputs(gen: torch.Generator, shape=SPP1[0], k: int = SPP1[1],
+                    relu: bool = False):
+    """x (bf16, normal), y its k x k/k max (relu_max with ``relu``) and dy
+    (bf16, normal), and the bytes the backward must move (x, y, dy read,
+    dx written); spp1's by default."""
+    from cxxnet_tpu_torch.ops.fused_pool import pool_fwd_plain
+    x = torch.randn(shape, generator=gen, device=gen.device).to(
+        torch.bfloat16)
+    y = pool_fwd_plain(x, k, k, "max", False, relu)
+    dy = torch.randn(y.shape, generator=gen, device=gen.device).to(
+        torch.bfloat16)
+    return x, y, dy, 2 * (2 * x.numel() + 2 * y.numel())
+
+
+def pool_stem_ab_times(gen: torch.Generator) -> dict:
+    """``pool_bwd_max`` at spp1 (bf16, pre_relu off, as phase 8 times it)
+    and at the digits LeNet's 2x2 (bf16, pre_relu on), and ``stem`` at
+    the imgrec path's shape to bf16 with each kind of mean, with their
+    rates and a copy of spp1's x beside them."""
+    from cxxnet_tpu_torch.ops import fused_pool as fp
+    from cxxnet_tpu_torch.ops import fused_stem as fs
+    out, notes = {}, []
+    for what, (shape, k), relu in (("spp1", SPP1, False),
+                                   ("lenet", LENET_POOL, True)):
+        x, y, dy, nbytes = max_pool_inputs(gen, shape, k, relu)
+        key = f"pool_bwd_max {what}"
+        out[key] = time_call(
+            lambda: fp.fused_pool_bwd_max(x, y, dy, k, k, relu))
+        notes.append(f"{key} {_tbs(nbytes, out[key])}")
+        if what == "spp1":
+            copy = time_call(lambda: x.clone())
+            notes.append(f"x.clone() of spp1 {copy:.5f} ms "
+                         f"({_tbs(4 * x.numel(), copy)})")
+        del x, y, dy
+    for kind in ("none", "channel", "image"):
+        # the imgrec path's batch; bytes: x and the mean read, y written
+        xs, mean = _stem_inputs(gen, (TRAIN_BATCH, 224, 224, 3), kind)
+        nb = 3 * xs.numel() + (0 if mean is None else 4 * mean.numel())
+        out[f"stem {kind}"] = time_call(
+            lambda: fs.fused_decode_normalize(xs, mean, 1 / 58.0,
+                                              torch.bfloat16))
+        notes.append(f"stem {kind} {_tbs(nb, out[f'stem {kind}'])}")
+    print("ab: pool_bwd_max and stem rates: " + " | ".join(notes),
+          flush=True)
+    return out
+
+
 def ab_times(gen: torch.Generator) -> None:
     """The times of the kernels this tree's vectorised designs touch, for
     an A/B of two trees (``--ab``): ``bn_fwd`` at :func:`bn_fwd_cases`,
     ``bn_bwd`` as :func:`bn_bwd_times` takes it, the four sync-BN
     kernels as :func:`phase_dp_times` does, ``epilogue_bwd`` at fc1,
-    cv1 and fc6 as :func:`epilogue_bwd_times` does, and the LRN kernels
-    as :func:`lrn_ab_times` does. Prints them as one JSON line."""
+    cv1 and fc6 as :func:`epilogue_bwd_times` does, the LRN kernels
+    as :func:`lrn_ab_times` does, and ``pool_bwd_max`` and ``stem`` as
+    :func:`pool_stem_ab_times` does. Prints them as one JSON line."""
     from cxxnet_tpu_torch.ops.fused_norm import bn_fwd
+    pool_stem = pool_stem_ab_times(gen)
+    torch.cuda.empty_cache()
     lrn = lrn_ab_times(gen)
     torch.cuda.empty_cache()
     fwd = {}
@@ -2020,7 +2099,7 @@ def ab_times(gen: torch.Generator) -> None:
                                    epi["epilogue_bwd (cv1)"]["ms"],
                                "epilogue_bwd fc6":
                                    epi["epilogue_bwd (fc6)"]["ms"],
-                               **lrn}),
+                               **lrn, **pool_stem}),
           flush=True)
 
 
@@ -2530,7 +2609,8 @@ def phase_lm_times(tr, kern, plain, batches, gen) -> dict:
     ibn = adam_row([torch.randn(sh, generator=gen, device=dev)
                     for shapes in flagship_shapes(FLAGSHIP)[1].values()
                     for sh in shapes], "Inception-BN")
-    line = lambda k, r: (f"{k} {r['shape']}: {r['ms'] * 1e3:.2f} us, bound "
+    line = lambda k, r: (f"{k} {r['shape']}: {r['ms'] * 1e3:.2f} us "
+                         f"({_rate(r)}), bound "
                          f"{r['bound'][0] * 1e3:.2f} us ({r['bound'][-1]}), "
                          f"plain {r['plain_ms'] * 1e3:.2f} us, "
                          f"{r['library']} {r['library_ms'] * 1e3:.2f} us"
@@ -2622,6 +2702,57 @@ def lrn_inputs(gen: torch.Generator, shape):
         torch.bfloat16)
 
 
+#: the max-pool backward on the paths: (inputs, x shape, window); spp1,
+#: the digits LeNet's 2x2 and a global 7x7 on tie-ridden integers
+POOL_BWD_PATHS = (("ints",) + SPP1, ("ints",) + LENET_POOL,
+                  ("ints", (32, 7, 7, 256), 7))
+#: the max-pool backward's edge cases: the first match in another window
+#: row on each lane of a vector, C that no 16-byte vector divides, a base
+#: one element past 16 bytes, NaN cells and NaN maxima, windows of
+#: non-positive values, a global 13x13 (169 cells, a row in chunks) and a
+#: global 27x27 (two rounds of 16 rows)
+POOL_BWD_EDGES = (("rows", (16, 9, 9, 64), 3), ("rows", (16, 8, 8, 16), 2),
+                  ("ints", (6, 9, 9, 5), 3), ("ints", (6, 6, 6, 20), 2),
+                  ("ints", (6, 9, 9, 40), 3), ("offset", (6, 9, 9, 64), 3),
+                  ("nan", (16, 9, 9, 64), 3), ("nonpos", (16, 9, 9, 64), 3),
+                  ("ints", (8, 13, 13, 64), 13), ("ints", (4, 27, 27, 16), 27))
+#: phase 3's max-pool backward cases
+POOL_BWD_CASES = POOL_BWD_PATHS + POOL_BWD_EDGES
+
+
+def pool_bwd_case(seed: int, kind: str, shape, k: int, dt, relu: bool,
+                  dev="cuda"):
+    """x, y and dy of a max-pool backward case (POOL_BWD_CASES), made
+    from ``seed`` with numpy and put on ``dev``: x drawn from -2..2 (ties
+    abound); "rows": lane c's max (2, and a tie 1 cell later) in window
+    row c mod k; "offset": x starts one element past a 16-byte boundary;
+    "nan": NaN cells after y was taken and NaN maxima; "nonpos": windows
+    of values <= 0 (under pre_relu they pass nothing)."""
+    from cxxnet_tpu_torch.ops.fused_pool import pool_fwd_plain
+    rng = np.random.RandomState(seed)
+    lo, hi = (-3, 1) if kind == "nonpos" else (-2, 3)
+    xn = rng.randint(lo, hi, shape).astype(np.float32)
+    if kind == "rows":
+        b, h, w, c = shape
+        xr = xn.reshape(b, h // k, k, w // k, k, c)
+        np.minimum(xr, 1, out=xr)
+        for ch in range(c):
+            r, col = ch % k, (ch // k) % k
+            xr[:, :, r, :, col, ch] = 2
+            xr[:, :, (r + (col + 1) // k) % k, :, (col + 1) % k, ch] = 2
+    x = torch.from_numpy(xn).to(dev, dt)
+    if kind == "offset":
+        buf = torch.empty(x.numel() + 1, dtype=dt, device=dev)
+        buf[1:] = x.reshape(-1)
+        x = buf[1:].view(shape)
+    y = pool_fwd_plain(x, k, k, "max", False, relu)
+    if kind == "nan":
+        x.view(-1)[::37] = float("nan")
+        y.view(-1)[::29] = float("nan")
+    dy = torch.from_numpy(rng.randn(*y.shape).astype(np.float32))
+    return x, y, dy.to(dev, dt)
+
+
 def phase_convnet_kernels(gen: torch.Generator) -> dict:
     """The convnet path's kernels against their plain versions: LRN
     forward and backward at AlexNet's lrn1 and lrn2 (bf16, f16, f32) and
@@ -2629,15 +2760,13 @@ def phase_convnet_kernels(gen: torch.Generator) -> dict:
     a block's threads in bf16: chunks of a row) and a ragged row count,
     with nsize 3, 4 and 5, knorm 1 and 2, beta 0.75 and 0.5
     (float32 within 4 ulp of max|plain|, bf16/f16 one ulp of the value);
-    the first-match max-pool backward at spp1's shape, the digits LeNet's
-    2x2 pool and a global 7x7 window, pre_relu on and off, inputs drawn
-    from five integer values so that ties abound (bit-equal). Returns the
-    largest error per kernel at the path's shape."""
+    the first-match max-pool backward in every case of POOL_BWD_CASES,
+    pre_relu on and off (bit-equal). Returns the largest error per
+    kernel at the path's shape."""
     from cxxnet_tpu_torch.ops.fused_lrn import (fused_lrn_bwd, fused_lrn_fwd,
                                                 lrn_bwd_plain, lrn_plain)
     from cxxnet_tpu_torch.ops.fused_pool import (fused_pool_bwd_max,
-                                                 pool_bwd_max_plain,
-                                                 pool_fwd_plain)
+                                                 pool_bwd_max_plain)
     dev = gen.device
     path_err, lines = {}, []
     dts = (torch.bfloat16, torch.float16, torch.float32)
@@ -2675,23 +2804,19 @@ def phase_convnet_kernels(gen: torch.Generator) -> dict:
                                  + lines[-1])
         if shape == (256, 27, 27, 96) and dt == torch.bfloat16:
             path_err["lrn_fwd"], path_err["lrn_bwd"] = errs[0][0], errs[1][0]
-    pools = [((128, 27, 27, 256), 3), ((100, 8, 8, 32), 2),
-             ((32, 7, 7, 256), 7)]
-    for (shape, k), dt, relu in ((p, dt, r) for p in pools for dt in dts
-                                 for r in (False, True)):
-        x = torch.randint(-2, 3, shape, generator=gen, device=dev).to(dt)
-        y = pool_fwd_plain(x, k, k, "max", False, relu)
-        dy = torch.randn(y.shape, generator=gen, device=dev).to(dt)
+    for (kind, shape, k), dt, relu in ((p, dt, r) for p in POOL_BWD_CASES
+                                       for dt in dts for r in (False, True)):
+        x, y, dy = pool_bwd_case(shape[3] + k, kind, shape, k, dt, relu)
         got = fused_pool_bwd_max(x, y, dy, k, k, relu)
         want = pool_bwd_max_plain(x, y, dy, k, k, relu)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
-        lines.append(f"pool_bwd_max {k}x{k} {shape} {str(dt)[6:]} "
+        lines.append(f"pool_bwd_max {kind} {k}x{k} {shape} {str(dt)[6:]} "
                      f"relu={int(relu)}: max_abs_err {err:.3g} (tol 0)")
         if not torch.equal(got, want):
             raise AssertionError("max-pool backward kernel disagrees: "
                                  + lines[-1])
-        if shape[0] == 128 and dt == torch.bfloat16 and not relu:
+        if (shape, k) == SPP1 and dt == torch.bfloat16 and not relu:
             path_err["pool_bwd_max"] = err
     print(f"kernels (convnets): {len(lines)} cases agree with the plain "
           "versions | " + " | ".join(lines), flush=True)
@@ -2872,8 +2997,7 @@ def phase_convnet_times(name, tr, plain, batches, gen) -> dict:
     from cxxnet_tpu_torch.ops.fused_lrn import (fused_lrn_bwd, fused_lrn_fwd,
                                                 lrn_bwd_plain, lrn_plain)
     from cxxnet_tpu_torch.ops.fused_pool import (fused_pool_bwd_max,
-                                                 pool_bwd_max_plain,
-                                                 pool_fwd_plain)
+                                                 pool_bwd_max_plain)
     b0 = batches[0]
     snap = _snap(tr)
     _load(plain, snap, tr.epoch_counter)
@@ -2890,7 +3014,6 @@ def phase_convnet_times(name, tr, plain, batches, gen) -> dict:
         print(f"profile: alexnet lrn: {k:g} launches a step, {ms:.4f} ms a "
               f"step in all (the step's profile by kind; lrn_fwd and lrn_bwd "
               f"at lrn1 and lrn2)", flush=True)
-    dev, bf = tr.device, torch.bfloat16
     rows = {}
     if name == "alexnet":
         n, alpha, beta, knorm = LRN_ALEX
@@ -2923,13 +3046,10 @@ def phase_convnet_times(name, tr, plain, batches, gen) -> dict:
                 r["shape"] = f"{layer} {shape} bf16 nsize {n}"
                 rows[kname if layer == "lrn1" else f"{kname} ({layer})"] = r
     if name == "spp":
-        shape, k = (128, 27, 27, 256), 3
-        x = torch.randn(shape, generator=gen, device=dev).to(bf)
-        y = pool_fwd_plain(x, k, k, "max", False, False)
-        dy = torch.randn(y.shape, generator=gen, device=dev).to(bf)
+        shape, k = SPP1
+        x, y, dy, nbytes = max_pool_inputs(gen)
         xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
         _, idx = F.max_pool2d(xn, k, k, return_indices=True)
-        nbytes = 2 * (2 * x.numel() + 2 * y.numel())
         rows["pool_bwd_max"] = dict(
             ms=time_call(lambda: fused_pool_bwd_max(x, y, dy, k, k, False)),
             plain_ms=time_call(lambda: pool_bwd_max_plain(x, y, dy, k, k,
@@ -2941,10 +3061,13 @@ def phase_convnet_times(name, tr, plain, batches, gen) -> dict:
             shape=f"spp1 3x3/3, x {shape} bf16",
             library="aten.max_pool2d_with_indices_backward (indices "
                     "from the forward)")
-    line = lambda k, r: (f"{k} {r['shape']}: {r['ms'] * 1e3:.2f} us, bound "
+    line = lambda k, r: (f"{k} {r['shape']}: {r['ms'] * 1e3:.2f} us "
+                         f"({_rate(r)}), bound "
                          f"{r['bound'][0] * 1e3:.2f} us ({r['bound'][1]}), "
                          f"plain {r['plain_ms'] * 1e3:.2f} us, "
-                         f"{r['library']} {r['library_ms'] * 1e3:.2f} us")
+                         f"{r['library']} {r['library_ms'] * 1e3:.2f} us"
+                         + (f" (PERF.md before: {PERF_BEFORE_MS[k]})"
+                            if k in PERF_BEFORE_MS else ""))
     print(f"times ({name}): train step {step_ms:.3f} ms, fused_kernels=0 "
           f"{step_plain:.3f} ms (one batch from the host, CUDA events, "
           f"median of 5) | " + " | ".join(line(k, r) for k, r in
@@ -3881,6 +4004,11 @@ STEM_CASES = (
     ("no mean", (16, 227, 227, 3), "none", 1 / 255.0, torch.bfloat16),
     ("ragged", (5, 17, 13, 3), "image", 0.017, torch.float32),
     ("batch 1", (1, 224, 224, 3), "channel", 1.0, torch.bfloat16),
+    ("rows ragged", (37, 224, 224, 3), "image", 1 / 58.0, torch.bfloat16),
+    ("C 1", (9, 31, 17, 1), "channel", 0.5, torch.float16),
+    ("C 4", (6, 20, 20, 4), "channel", 1 / 255.0, torch.float32),
+    ("cols 4 mod 8", (5, 10, 10, 3), "channel", 0.017, torch.bfloat16),
+    ("cols odd", (7, 15, 15, 3), "image", 0.017, torch.bfloat16),
 )
 
 
@@ -3888,8 +4016,8 @@ def _stem_inputs(gen, shape, mean_kind):
     x = torch.randint(0, 256, shape, generator=gen, device="cuda",
                       dtype=torch.uint8)
     mean = {"none": None,
-            "channel": torch.tensor([123.68, 116.78, 103.94],
-                                    device="cuda"),
+            "channel": torch.tensor([123.68, 116.78, 103.94, 99.5][
+                :shape[-1]], device="cuda"),
             "image": torch.rand(shape[1:], generator=gen, device="cuda")
             * 255}[mean_kind]
     return x, mean
@@ -4111,7 +4239,8 @@ def phase_imgrec_times(tr, batches, cfg, val_imgs, synthetic_step_ms):
             decode_image(e, 3)
         rates[k] = 20 / (time.perf_counter() - t0)
     host_ms = TRAIN_BATCH / iter_ips * 1e3
-    print(f"times (imgrec): stem {stem['shape']}: {stem['ms'] * 1e3:.2f} us, "
+    print(f"times (imgrec): stem {stem['shape']}: {stem['ms'] * 1e3:.2f} us "
+          f"({_rate(stem)}; PERF.md before: {PERF_BEFORE_MS['stem']}), "
           f"bound {stem['bound'][0] * 1e3:.2f} us ({stem['bound'][1]}), "
           f"plain {stem['plain_ms'] * 1e3:.2f} us, library "
           f"{stem['library']} | H2D of one batch (pinned, CUDA events, "
@@ -4142,9 +4271,10 @@ def main(argv=None) -> int:
     ap.add_argument("--conf", default=FLAGSHIP)
     ap.add_argument("--json", default="", help="also write the results here")
     ap.add_argument("--ab", nargs="+", metavar="TREE",
-                    help="only time the vectorised BN, epilogue and LRN "
-                         "kernels of each checkout root in turn (e.g. parent "
-                         "change change parent)")
+                    help="only time the vectorised BN, epilogue, LRN, "
+                         "max-pool backward and stem kernels of each "
+                         "checkout root in turn (e.g. parent change change "
+                         "parent)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs the "

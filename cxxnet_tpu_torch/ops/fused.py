@@ -119,6 +119,15 @@ def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def base_align(*ts: torch.Tensor) -> int:
+    """The largest power of two up to 16 that divides every base address
+    of ``ts`` (what a kernel's vector loads and stores may assume)."""
+    p = 0
+    for t in ts:
+        p |= t.data_ptr()
+    return min(16, p & -p) if p else 16
+
+
 _sms: Dict[torch.device, int] = {}
 
 

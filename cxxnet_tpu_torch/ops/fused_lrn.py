@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from .fused import Kernel, check_cuda_input, register, stream_handle
+from .fused import base_align as _align
 
 _FLOAT, _INT = ctypes.c_float, ctypes.c_int
 #: vec, rows, chunk and stride of an LrnPlan
@@ -111,14 +112,6 @@ def lrn_plan(n: int, c: int, itemsize: int, nsize: int, align: int = 16
     rows = max(1, min(LRN_THREADS // tpr, LRN_MAX_TPR // tpr, n or 1,
                       LRN_SMEM // (stride * 4)))
     return LrnPlan(vec, rows, tpr, chunk, stride, rows * stride * 4)
-
-
-def _align(*ts: torch.Tensor) -> int:
-    """The largest power of two up to 16 that divides every base."""
-    p = 0
-    for t in ts:
-        p |= t.data_ptr()
-    return min(16, p & -p) if p else 16
 
 
 def lrn_takes(x: torch.Tensor, knorm: float) -> bool:

@@ -22,6 +22,11 @@ a window that window's dy, times the avg scale rounded to the dtype.
 The backward of max (``csrc/pool_bwd_max.cu``) gives the whole dy to the
 first cell of the window, in row-major order, that equals the max
 (XLA's select-and-scatter semantics), with no cap on the window size.
+
+Both max kernels launch under a plan: :func:`pool_fwd_plan` for the
+forward and :func:`pool_bwd_max_plan` for the max backward, each a
+16-byte vector of channels a thread (narrower where C or a base
+forbids), one thread a window row and ``bx`` output vectors a block.
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ from typing import NamedTuple
 
 import torch
 
-from .fused import Kernel, check_cuda_input, register, stream_handle
+from .fused import (Kernel, base_align, check_cuda_input, register,
+                    stream_handle)
 
 POOL_FWD = register(Kernel(
     "pool_fwd", "pool_fwd.cu",
@@ -49,8 +55,9 @@ POOL_THREADS = 256
 
 
 class PoolPlan(NamedTuple):
-    """The launch of ``csrc/pool_fwd.cu``: ``vec`` channels a load (16
-    bytes, or 1), the window's rows split over ``ry`` threads (thread y
+    """The launch of ``csrc/pool_fwd.cu`` and ``csrc/pool_bwd_max.cu``:
+    ``vec`` channels a load (16 bytes, narrower where C or a base
+    forbids), the window's rows split over ``ry`` threads (thread y
     takes rows y, y + ry, ...) and ``bx`` output vectors a block."""
     vec: int
     ry: int
@@ -85,7 +92,32 @@ POOL_BWD_MAX = register(Kernel(
     argtypes=[ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-              ctypes.c_int, ctypes.c_void_p]))
+              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+              ctypes.c_void_p]))
+
+#: threads a block of the max backward aims at (csrc/pool_bwd_max.cu takes
+#: 512 at most, its launch bound)
+POOL_BWD_THREADS = 256
+
+
+def pool_bwd_max_plan(c: int, kh: int, kw: int, itemsize: int,
+                      align: int = 16) -> PoolPlan:
+    """The max backward's launch over windows of kh x kw on C channels
+    of ``itemsize``-byte elements, every base address a multiple of
+    ``align`` bytes: the widest vector (16 bytes, down to one element)
+    that C and the bases allow; one thread a window row, up to
+    POOL_MAX_SPLIT rows (a taller window's thread y takes rows y,
+    y + ry, ... in rounds); and about POOL_BWD_THREADS threads a block,
+    a whole warp of output vectors at least."""
+    if c < 1 or kh < 1 or kw < 1:
+        raise ValueError(f"pool_bwd_max_plan: needs c, kh, kw >= 1, got "
+                         f"{c}, {kh}, {kw}")
+    vec = 16 // itemsize
+    while vec > 1 and (c % vec or align % (vec * itemsize)):
+        vec //= 2
+    ry = min(kh, POOL_MAX_SPLIT)
+    bx = max(32, POOL_BWD_THREADS // ry // 32 * 32)
+    return PoolPlan(vec, ry, bx)
 
 
 def kernel_geometry(h: int, w: int, kh: int, kw: int, stride: int,
@@ -254,10 +286,13 @@ def fused_pool_bwd_max(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
             raise ValueError("max pool backward: x, y and dy must share "
                              "dtype and device")
     dx = torch.empty_like(x)
+    plan = pool_bwd_max_plan(c, kh, kw, x.element_size(),
+                             base_align(x, y, dy, dx))
     with torch.cuda.device(x.device):
         POOL_BWD_MAX.launch(x.data_ptr(), y.data_ptr(), dy.data_ptr(),
                             dx.data_ptr(), b, h, w, c, kh, kw, code,
-                            int(pre_relu), stream_handle(x.device))
+                            int(pre_relu), plan.vec, plan.ry, plan.bx,
+                            stream_handle(x.device))
     return dx
 
 

@@ -11,6 +11,7 @@ setup:
 import pytest
 import torch
 
+from chip_smoke import POOL_BWD_EDGES, pool_bwd_case
 from cxxnet_tpu_torch.ops.fused import KERNELS
 from cxxnet_tpu_torch.ops.fused_epilogue import (bias_act_plain,
                                                  epilogue_bwd_plain,
@@ -606,25 +607,46 @@ def test_pool_backward_kernel_matches_plain(dev, dtype, shape, kh, kw, avg):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("shape,k,relu", [
-    ((128, 27, 27, 256), 3, False),    # the SPP net's spp1
-    ((100, 8, 8, 32), 2, True),        # the digits LeNet's pool
-    ((6, 7, 7, 40), 7, False),         # a global 7x7 max (49 cells)
-    ((3, 4, 6, 5), 2, True)])
-def test_max_pool_backward_kernel_is_bit_equal_to_plain(dev, dtype, shape, k,
-                                                        relu):
-    """Inputs from a few integer values, so that ties abound: the first
-    match in row-major order takes dy, exactly as the plain version."""
-    g = torch.Generator(device=dev).manual_seed(3)
-    x = torch.randint(-2, 3, shape, generator=g, device=dev).to(dtype)
-    y = pool_fwd_plain(x, k, k, "max", False, relu)
-    dy = _randn(y.shape, dtype, dev, seed=4)
+@pytest.mark.parametrize("kind,shape,k,relu", [
+    ("ints", (128, 27, 27, 256), 3, False),    # the SPP net's spp1
+    ("ints", (100, 8, 8, 32), 2, True),        # the digits LeNet's pool
+    ("ints", (6, 7, 7, 40), 7, False),         # a global 7x7 max (49 cells)
+    ("ints", (3, 4, 6, 5), 2, True)] + [
+    (kind, shape, k, relu) for kind, shape, k in POOL_BWD_EDGES
+    for relu in (False, True)])
+def test_max_pool_backward_kernel_is_bit_equal_to_plain(dev, dtype, kind,
+                                                        shape, k, relu):
+    """Inputs from a few integer values, so that ties abound, and phase
+    3's edge cases (chip_smoke.POOL_BWD_EDGES): the first match in
+    row-major order takes dy, exactly as the plain version."""
+    x, y, dy = pool_bwd_case(3, kind, shape, k, dtype, relu, dev)
+    before = KERNELS["pool_bwd_max"].launches
     got = fused_pool_bwd_max(x, y, dy, k, k, relu)
+    torch.cuda.synchronize()
+    assert KERNELS["pool_bwd_max"].launches == before + 1
     assert torch.equal(got, pool_bwd_max_plain(x, y, dy, k, k, relu))
-    xr = x.detach().clone().requires_grad_(True)
-    (dx,) = torch.autograd.grad(Pool.apply(xr, k, k, "max", False, relu),
-                                [xr], dy)
-    assert torch.equal(dx, got)
+    if kind == "nonpos" and relu:
+        assert not got.any()
+    if kind != "nan":                  # y is the forward's own
+        xr = x.detach().clone().requires_grad_(True)
+        (dx,) = torch.autograd.grad(
+            Pool.apply(xr, k, k, "max", False, relu), [xr], dy)
+        assert torch.equal(dx, got)
+
+
+def test_max_pool_backward_refuses_a_plan_the_inputs_do_not_allow(dev):
+    from cxxnet_tpu_torch.ops.fused import stream_handle
+    from cxxnet_tpu_torch.ops.fused_pool import POOL_BWD_MAX
+    x = torch.zeros((2, 6, 6, 16), dtype=torch.bfloat16, device=dev)
+    y = torch.zeros((2, 2, 2, 16), dtype=torch.bfloat16, device=dev)
+    before = POOL_BWD_MAX.launches
+    for vec, ry, bx, base in ((8, 3, 64, 2), (8, 3, 512, 0), (8, 4, 64, 0),
+                              (3, 3, 64, 0), (16, 3, 64, 0)):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            POOL_BWD_MAX.launch(x.data_ptr() + base, y.data_ptr(),
+                                y.data_ptr(), x.data_ptr(), 2, 6, 6, 16, 3,
+                                3, 1, 0, vec, ry, bx, stream_handle(dev))
+    assert POOL_BWD_MAX.launches == before
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -1094,6 +1116,46 @@ def test_stem_kernel_takes_an_unaligned_batch(dev, out_dtype):
     assert torch.equal(fs.fused_decode_normalize(x, mean, 0.5, out_dtype),
                        fs.decode_normalize_reference(x, mean, 0.5,
                                                      out_dtype))
+
+
+@pytest.mark.parametrize("out_dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape,mean_kind", [
+    ((37, 224, 224, 3), "image"),      # rows no thread's walk divides
+    ((1, 224, 224, 3), "image"),
+    ((9, 31, 17, 1), "channel"),       # C 1, odd cols
+    ((6, 20, 20, 4), "channel"),       # C 4
+    ((5, 10, 10, 3), "channel"),       # cols 4 mod 8: lanes cross channels
+    ((7, 15, 15, 3), "none")])
+def test_stem_kernel_edge_cases_are_bit_equal(dev, out_dtype, shape,
+                                              mean_kind):
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randint(0, 256, shape, generator=g, device=dev,
+                      dtype=torch.uint8)
+    mean = {"none": None,
+            "channel": torch.tensor([123.68, 116.78, 103.94, 99.5][
+                :shape[-1]], device=dev),
+            "image": torch.rand(shape[1:], generator=g, device=dev) * 255
+            }[mean_kind]
+    got = fs.fused_decode_normalize(x, mean, 1 / 58.0, out_dtype)
+    want = fs.decode_normalize_reference(x, mean, 1 / 58.0, out_dtype)
+    assert got.dtype == out_dtype and torch.equal(got, want)
+
+
+def test_stem_kernel_refuses_a_plan_the_inputs_do_not_allow(dev):
+    from cxxnet_tpu_torch.ops.fused import stream_handle
+    x = torch.zeros((4, 8, 8, 3), dtype=torch.uint8, device=dev)
+    y = torch.empty(x.shape, dtype=torch.bfloat16, device=dev)
+    mean = torch.zeros(3, device=dev)
+    before = fs.STEM.launches
+    for vec, bx, by, rows, base, mlen in (
+            (8, 256, 1, 16, 4, 3), (16, 256, 1, 16, 0, 3),
+            (8, 512, 4, 16, 0, 3), (8, 32, 1, 0, 0, 3),
+            (8, 32, 1, 16, 0, 5), (3, 32, 1, 16, 0, 3)):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            fs.STEM.launch(x.data_ptr() + base, mean.data_ptr(), mlen, 1.0,
+                           y.data_ptr(), 4, 192, 1, vec, bx, by, rows,
+                           stream_handle(dev))
+    assert fs.STEM.launches == before
 
 
 def test_stem_wrapper_refuses_what_the_kernel_does_not_take(dev):
