@@ -14,8 +14,11 @@ them, the four sync-BN kernels as phase 11 does, ``lrn_fwd`` and
 rates at lrn1, out of the L2, and a copy of the bytes beside them; a
 tree that plans the LRN blocks also times lrn1 at each of LRN_SWEEP
 threads a block; ``pool_bwd_max`` at spp1 as phase 8 does and at the
-digits LeNet's 2x2, and ``stem`` at phase 12's shape with no mean, a
-per-channel mean and a mean image, with their rates).
+digits LeNet's 2x2, ``stem`` at phase 12's shape with no mean, a
+per-channel mean and a mean image, with their rates, ``epilogue_fwd`` at
+AlexNet's cv1 and cv2, the SPP net's cv1 and fc1, and ``adam_apply`` over
+the LM's and Inception-BN's leaves, each beside its bound, plain version
+and library call).
 
 Phases, each printing one line of its own; any failure exits non-zero
 and prints no result:
@@ -34,8 +37,13 @@ and prints no result:
             widths 16, 64 and 128, and non-causal with 300 queries over
             1000 keys (f32 within 2e-5 of max|plain|, bf16 and f16 one
             ulp plus 2e-5 of max|plain|, lse 1e-5 of max|lse|); the
-            Adam apply over the LM's and Inception-BN's parameter groups,
-            bit-equal; LRN forward and backward at AlexNet's lrn1 and
+            Adam apply over the LM's and Inception-BN's parameter groups
+            and the odd leaves of ADAM_EDGES, their streams aligned or 4,
+            8 and 12 bytes past a 16-byte boundary, bit-equal; the
+            epilogue forward at fc1's buckets, AlexNet's cv1 and fc6, the
+            SPP net's cv1, C 5, 7 and 1001, a base 2 or 4 bytes past 16,
+            and NaN, +0 and -0 inputs, equal (NaN where plain has one);
+            LRN forward and backward at AlexNet's lrn1 and
             lrn2 and at 7 rows by C 7, C 1500, C 4104 (a row in chunks)
             and a ragged row count,
             nsize 3/4/5, knorm 1/2, beta 0.75/0.5 (f32 within 4 ulp of
@@ -155,8 +163,11 @@ and prints no result:
             finite softmax rows. Step and kernel times (and rates)
             beside bound, plain version and library call
             (``F.local_response_norm`` forward and backward,
-            ``max_pool2d_with_indices_backward``);
-            for AlexNet also the device time and launches a step of its
+            ``max_pool2d_with_indices_backward``, and the epilogue
+            forward at AlexNet's cv1 and cv2 and the SPP net's cv1,
+            EPI_FWD, beside ``torch.add`` of the bias, then ``.relu_()``
+            for AlexNet's); for each net the device time and launches a
+            step of its epilogue forwards, and for AlexNet of its
             epilogue backwards, from the step's profile by kind.
 9. digits:  ``examples/digits/digits_lenet.conf`` trained one round
             through ``main.run`` on the card from gzipped idx files
@@ -338,7 +349,13 @@ PERF_BEFORE_MS = {"bn_fwd": "0.4064 ms",
                   "epilogue_bwd (cv1)": "0.2254 ms",
                   "bn_norm": "0.1430 ms",
                   "pool_bwd_max": "0.07046 ms",
-                  "stem": "0.04496 ms"}
+                  "stem": "0.04496 ms",
+                  "epilogue_fwd": "0.002147 ms",
+                  "epilogue_fwd (alexnet cv1)": "0.2036 ms",
+                  "epilogue_fwd (alexnet cv2)": "0.1321 ms",
+                  "epilogue_fwd (spp cv1)": "0.3959 ms",
+                  "adam_apply": "0.01181 ms",
+                  "adam_apply (Inception-BN)": "0.1194 ms"}
 TRAIN_BATCH = 128       # the flagship's batch_size
 TRAIN_STEPS = 4         # 512 synthetic rows
 TRAIN_IMAGE, TRAIN_CLASSES = "3,224,224", 1000
@@ -595,7 +612,8 @@ def phase_build():
 #: the sources whose every kernel's registers and spills phase 2 prints
 REPORT_PTXAS = ("flash_fwd.cu", "flash_bwd.cu", "q_mm.cu", "bn_sync.cu",
                 "bn_fwd.cu", "bn_bwd.cu", "pool_fwd.cu", "epilogue_bwd.cu",
-                "lrn_fwd.cu", "lrn_bwd.cu", "pool_bwd_max.cu", "stem.cu")
+                "lrn_fwd.cu", "lrn_bwd.cu", "pool_bwd_max.cu", "stem.cu",
+                "epilogue_fwd.cu", "adam_apply.cu")
 
 
 def ptxas_functions(log: str):
@@ -609,10 +627,13 @@ def ptxas_functions(log: str):
             k = re.search(r"(flash_\w+?_(?:tc|kernel)|q_mm_kernel|"
                           r"colsum_vec|bn_dx_vec|bn_norm_vec|bn_fwd_norm_vec|"
                           r"mask_copy_vec|pool_fwd_kernel|lrn_fwd_kernel|"
-                          r"lrn_bwd_kernel|pool_bwd_max_kernel|stem_kernel)"
-                          r"I(\w+)", m.group(1))
+                          r"lrn_bwd_kernel|pool_bwd_max_kernel|stem_kernel|"
+                          r"epilogue_fwd_kernel|adam_apply_kernel)"
+                          r"(?:I(\w+))?", m.group(1))
             if k is None:
                 name = m.group(1)
+            elif k.group(2) is None:          # not a template
+                name = k.group(1)
             else:
                 g = k.group(2)
                 ops = "BwdSumsVec|EpiBwdVec|MomentsVec|SqDevVec"
@@ -699,21 +720,45 @@ def phase_kernels(gen: torch.Generator) -> dict:
         if shape == (32, 7, 7, 1024):
             path_err["pool_fwd"] = err.max().item()
 
-    epi_cases = [((b, 1000), torch.bfloat16, True, "none") for b in (1, 5, 32)]
-    epi_cases += [((2 * 28 * 28, 192), torch.bfloat16, True, "relu"),
-                  ((37, 192), torch.float32, False, "relu"),
-                  ((9, 333), torch.float16, True, "relu")]
-    for shape, dt, with_bias, act in epi_cases:
+    # (shape, dtype, bias, act, how): "" plain inputs, "offset" x 2 or 4
+    # bytes past a 16-byte boundary (the one-element loads), "nan" NaN, +0
+    # and -0 planted (NaN where the plain version has one, the rest equal)
+    epi_cases = [((b, 1000), torch.bfloat16, True, "none", "")
+                 for b in (1, 5, 32)]
+    epi_cases += [((2 * 28 * 28, 192), torch.bfloat16, True, "relu", ""),
+                  ((37, 192), torch.float32, False, "relu", ""),
+                  ((9, 333), torch.float16, True, "relu", "")]
+    epi_cases += [(EPI_CV1, torch.bfloat16, True, "relu", ""),
+                  (EPI_FWD["spp cv1"][:2], torch.bfloat16, True, "none", ""),
+                  (EPI_FC6, torch.bfloat16, True, "relu", ""),
+                  ((333, 5), torch.bfloat16, True, "relu", ""),
+                  ((1000, 7), torch.float16, True, "none", ""),
+                  ((37, 1001), torch.float32, True, "relu", ""),
+                  ((1000, 96), torch.bfloat16, True, "relu", "offset"),
+                  ((64, 1000), torch.float32, True, "none", "offset"),
+                  ((999, 40), torch.bfloat16, True, "none", "nan"),
+                  ((999, 40), torch.float16, True, "relu", "nan"),
+                  ((999, 40), torch.float32, False, "relu", "nan")]
+    for shape, dt, with_bias, act, how in epi_cases:
         x = rnd(shape, dt)
+        if how == "offset":
+            x = rnd((x.numel() + 1,), dt)[1:].view(shape)
+        if how == "nan":
+            x.view(-1)[::17] = float("nan")
+            x.view(-1)[5::23] = 0.0
+            x.view(-1)[7::29] = -0.0
         bias = rnd((shape[1],), torch.float32) if with_bias else None
         got = fused_bias_act(x, bias, act)
         want = bias_act_plain(x, bias, act)
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
+        nan = want.isnan()
+        nan_ok = torch.equal(got.isnan(), nan)
+        err = (got.float() - want.float()).abs()[~nan].max().item()
         lines.append(f"epilogue {tuple(shape)} {str(dt)[6:]} "
-                     f"bias={int(with_bias)} act={act}: max_abs_err "
-                     f"{err:.3g} (tol 0: one rounding on both sides)")
-        if err != 0.0:
+                     f"bias={int(with_bias)} act={act} {how or 'plain'}: "
+                     f"max_abs_err {err:.3g} (tol 0: one rounding on both "
+                     f"sides), NaNs where plain has them {nan_ok}")
+        if err != 0.0 or not nan_ok:
             raise AssertionError("epilogue kernel disagrees: " + lines[-1])
         if shape == (32, 1000):
             path_err["epilogue_fwd"] = err
@@ -1125,6 +1170,35 @@ def flash_case(gen, B, S, H, D, dtype, causal, Sk=None):
     return errs, bad
 
 
+#: phase 3's Adam edge leaves: odd sizes, a partial last vector, single
+#: elements; with ADAM_EDGE_OFFSETS (elements past a 16-byte boundary of
+#: w, g, m1 and m2, a leaf each) streams 4, 8 or 12 bytes past together
+#: (a head of single elements, then vectors) or apart (single elements)
+ADAM_EDGES = [(1,), (3,), (4097,), (8193,), (1025,), (7,), (5000,)]
+ADAM_EDGE_OFFSETS = [(1, 1, 1, 1), (2, 2, 2, 2), (3, 3, 3, 3), (1, 1, 1, 1),
+                     (2, 2, 2, 2), (3, 3, 3, 3), (0, 2, 1, 3)]
+
+
+def adam_inputs(gen: torch.Generator, shapes, offsets=None):
+    """w, g (a NaN every 7th element of the first leaf), m1 and m2 (>= 0)
+    f32 leaves of ``shapes`` on the generator's device, each stream of
+    leaf i starting ``offsets[i][k]`` elements past a 16-byte boundary."""
+    out = []
+    for k, scale in enumerate((1.0, 1.0, 0.1, 0.1)):
+        ts = []
+        for i, sh in enumerate(shapes):
+            t = torch.randn(sh, generator=gen, device=gen.device) * scale
+            off = 0 if offsets is None else offsets[i][k]
+            if off:
+                buf = torch.empty(t.numel() + off, device=gen.device)
+                buf[off:] = t.view(-1)
+                t = buf[off:].view(sh)
+            ts.append(t.abs() if k == 3 else t)
+        out.append(ts)
+    out[1][0].view(-1)[::7] = float("nan")
+    return out
+
+
 def phase_lm_kernels(gen: torch.Generator, conf: str) -> dict:
     """The LM path's kernels against their plain versions: flash
     attention forward, dQ and dK/dV in bf16, f16 and f32, causal and
@@ -1158,34 +1232,33 @@ def phase_lm_kernels(gen: torch.Generator, conf: str) -> dict:
             if (B, S, H, D, dt, causal) == LM_PATH_ATTN and Sk == S:
                 path_err.update({k: v for k, v in errs.items()
                                  if k != "lse"})
-    for what, groups in (("LM", lm_shapes(conf)[1]),
-                         ("Inception-BN", flagship_shapes(FLAGSHIP)[1])):
-        for tag, shapes in sorted(groups.items()):
-            rnd = lambda sh, sc=1.0: torch.randn(sh, generator=gen,
-                                                 device=dev) * sc
-            ws = [rnd(sh) for sh in shapes]
-            gs = [rnd(sh) for sh in shapes]
-            gs[0].view(-1)[::7] = float("nan")
-            m1 = [rnd(sh, 0.1) for sh in shapes]
-            m2 = [rnd(sh, 0.1).abs() for sh in shapes]
-            wd, clip = (1e-4, 0.0) if tag == "wmat" else (0.0, 0.5)
-            want = adam_apply_plain(ws, gs, m1, m2, 1e-3, 0.1, 0.001, wd,
-                                    clip)
-            fused_adam_apply(ws, gs, m1, m2, 1e-3, d1=0.1, d2=0.001, wd=wd,
-                             clip=clip)
-            torch.cuda.synchronize()
-            err = max((a - b).abs().max().item() for a, b in
-                      zip(ws + m1 + m2, sum(want, [])))
-            lines.append(f"adam_apply {what} {tag} group ({len(shapes)} "
-                         f"leaves, {sum(int(np.prod(sh)) for sh in shapes)} "
-                         f"params, wd {wd}, clip {clip}): max_abs_err "
-                         f"{err:.3g} (tol 0: the same rounded f32 ops)")
-            if err != 0.0:
-                raise AssertionError("adam apply kernel disagrees: "
-                                     + lines[-1])
-            if what == "LM":
-                path_err["adam_apply"] = max(path_err.get("adam_apply", 0.0),
-                                             err)
+    # the paths' tag groups, then ADAM_EDGES in both groups' settings
+    cases = [(what, tag, shapes, None)
+             for what, groups in (("LM", lm_shapes(conf)[1]),
+                                  ("Inception-BN",
+                                   flagship_shapes(FLAGSHIP)[1]))
+             for tag, shapes in sorted(groups.items())]
+    cases += [(what, tag, ADAM_EDGES, offsets) for tag in ("wmat", "bias")
+              for what, offsets in (("edge sizes", None),
+                                    ("offsets", ADAM_EDGE_OFFSETS))]
+    for what, tag, shapes, offsets in cases:
+        ws, gs, m1, m2 = adam_inputs(gen, shapes, offsets)
+        wd, clip = (1e-4, 0.0) if tag == "wmat" else (0.0, 0.5)
+        want = adam_apply_plain(ws, gs, m1, m2, 1e-3, 0.1, 0.001, wd, clip)
+        fused_adam_apply(ws, gs, m1, m2, 1e-3, d1=0.1, d2=0.001, wd=wd,
+                         clip=clip)
+        torch.cuda.synchronize()
+        err = max((a - b).abs().max().item() for a, b in
+                  zip(ws + m1 + m2, sum(want, [])))
+        lines.append(f"adam_apply {what} {tag} group ({len(shapes)} "
+                     f"leaves, {sum(int(np.prod(sh)) for sh in shapes)} "
+                     f"params, wd {wd}, clip {clip}): max_abs_err "
+                     f"{err:.3g} (tol 0: the same rounded f32 ops)")
+        if err != 0.0:
+            raise AssertionError("adam apply kernel disagrees: " + lines[-1])
+        if what == "LM":
+            path_err["adam_apply"] = max(path_err.get("adam_apply", 0.0),
+                                         err)
     print(f"kernels (LM): {len(lines)} cases agree with the plain versions"
           " | " + " | ".join(lines), flush=True)
     return path_err
@@ -1858,6 +1931,39 @@ def epilogue_bwd_times(gen: torch.Generator) -> dict:
     return rows
 
 
+#: the epilogue forward's timed shapes as (N, C) rows and its act:
+#: AlexNet's cv1 and cv2 at batch 256 (relu folded), the SPP net's cv1 at
+#: batch 128 (insanity is not folded: the bias only) and Inception-BN's fc1
+EPI_FWD = {"alexnet cv1": EPI_CV1 + ("relu",),
+           "alexnet cv2": (256 * 27 * 27, 256, "relu"),
+           "spp cv1": (128 * 109 * 109, 96, "none"),
+           "fc1": (TRAIN_BATCH, 1000, "none")}
+
+
+def epilogue_fwd_row(gen: torch.Generator, n: int, c: int, act: str) -> dict:
+    """``epilogue_fwd`` over (n, c) bf16 rows with an f32 bias and
+    ``act``: CUDA-graph times of the wrapper, its plain version and the
+    library's ``torch.add`` of the bias in bf16 (then ``.relu_()``, two
+    calls) beside the bound (x read, y written, the bias read)."""
+    from cxxnet_tpu_torch.ops.fused_epilogue import (bias_act_plain,
+                                                     fused_bias_act)
+    dev = gen.device
+    x = torch.randn((n, c), generator=gen, device=dev).to(torch.bfloat16)
+    bias = torch.randn((c,), generator=gen, device=dev)
+    b16 = bias.to(torch.bfloat16)
+    relu = act == "relu"
+    lib = (lambda: torch.add(x, b16).relu_()) if relu else \
+        (lambda: torch.add(x, b16))
+    return dict(
+        ms=time_call(lambda: fused_bias_act(x, bias, act)),
+        plain_ms=time_call(lambda: bias_act_plain(x, bias, act)),
+        library_ms=time_call(lib),
+        bound=bound_ms(2 * 2 * n * c + 4 * c, (1 + relu) * n * c),
+        shape=f"bias{' + relu' if relu else ''} on ({n},{c}) bf16",
+        library="torch.add(x, bias_bf16)" + (" then .relu_(), two calls"
+                                             if relu else ""))
+
+
 #: the profile kinds (``_KINDS``) of bn_fwd's launches in a train step
 BN_FWD_KINDS = ("bn moments kernel", "bn fwd normalize kernel")
 #: (rows, channels) of Inception-BN's bn_stem1 at batch TRAIN_BATCH, and
@@ -2074,8 +2180,11 @@ def ab_times(gen: torch.Generator) -> None:
     ``bn_bwd`` as :func:`bn_bwd_times` takes it, the four sync-BN
     kernels as :func:`phase_dp_times` does, ``epilogue_bwd`` at fc1,
     cv1 and fc6 as :func:`epilogue_bwd_times` does, the LRN kernels
-    as :func:`lrn_ab_times` does, and ``pool_bwd_max`` and ``stem`` as
-    :func:`pool_stem_ab_times` does. Prints them as one JSON line."""
+    as :func:`lrn_ab_times` does, ``pool_bwd_max`` and ``stem`` as
+    :func:`pool_stem_ab_times` does, ``epilogue_fwd`` at each EPI_FWD
+    shape as :func:`epilogue_fwd_row` times it, and ``adam_apply`` over
+    the LM's and Inception-BN's leaves as :func:`adam_row` does. Prints
+    them as one JSON line."""
     from cxxnet_tpu_torch.ops.fused_norm import bn_fwd
     pool_stem = pool_stem_ab_times(gen)
     torch.cuda.empty_cache()
@@ -2092,6 +2201,19 @@ def ab_times(gen: torch.Generator) -> None:
     r = bn_bwd_times(gen)
     dp = phase_dp_times(gen)["kernels"]
     epi = epilogue_bwd_times(gen)
+    torch.cuda.empty_cache()
+    epi_adam = {f"epilogue_fwd {k}": epilogue_fwd_row(gen, *v)
+                for k, v in EPI_FWD.items()}
+    epi_adam.update({f"adam_apply {what}": adam_row(
+        [torch.randn(sh, generator=gen, device=gen.device)
+         for sh in adam_shapes(conf)], what)
+        for what, conf in (("LM", LM_CONF), ("Inception-BN", FLAGSHIP))})
+    print("ab: epilogue_fwd and adam_apply: " + " | ".join(
+        f"{k} {row['shape']}: {row['ms'] * 1e3:.3f} us ({_rate(row)}), "
+        f"bound {row['bound'][0] * 1e3:.3f} us, plain "
+        f"{row['plain_ms'] * 1e3:.3f} us, {row['library']} "
+        f"{row['library_ms'] * 1e3:.3f} us"
+        for k, row in epi_adam.items()), flush=True)
     print("ab: " + json.dumps({**fwd, "bn_bwd": r["ms"],
                                **{k: v["ms"] for k, v in dp.items()},
                                "epilogue_bwd fc1": epi["epilogue_bwd"]["ms"],
@@ -2099,7 +2221,8 @@ def ab_times(gen: torch.Generator) -> None:
                                    epi["epilogue_bwd (cv1)"]["ms"],
                                "epilogue_bwd fc6":
                                    epi["epilogue_bwd (fc6)"]["ms"],
-                               **lrn, **pool_stem}),
+                               **lrn, **pool_stem,
+                               **{k: v["ms"] for k, v in epi_adam.items()}}),
           flush=True)
 
 
@@ -2479,6 +2602,58 @@ def _unflat_np(tree):
     return unflatten((p, torch.as_tensor(v)) for p, v in leaves(tree))
 
 
+def adam_shapes(conf: str):
+    """Every parameter leaf shape of the net config ``conf``, both tag
+    groups (the Adam rows time them in one launch)."""
+    return [sh for shapes in lm_shapes(conf)[1].values() for sh in shapes]
+
+
+def adam_launcher(ws, gs, m1, m2, lr_t=1e-3, d1=0.1, d2=0.001, wd=1e-4,
+                  clip=0.0):
+    """A call that launches the tree's ``adam_apply`` kernel once over the
+    leaves, its table uploaded once beforehand (``fused_optim.adam_table``;
+    a tree without it takes ``_table``'s CHUNK-element CTAs)."""
+    from cxxnet_tpu_torch.ops import fused_optim as fo
+    from cxxnet_tpu_torch.ops.fused import stream_handle
+    if hasattr(fo, "adam_table"):
+        table, nblk = fo.adam_table(ws, gs, m1, m2)
+        args = (table.data_ptr(), len(ws), nblk)
+    else:
+        table, nblk = fo._table(ws, gs, m1, m2)
+        args = (table.data_ptr(), len(ws), nblk, fo.CHUNK)
+
+    def call(table=table):             # keeps the table alive
+        fo.ADAM_APPLY.launch(*args, lr_t, d1, d2, wd, clip,
+                             stream_handle(table.device))
+    return call
+
+
+def adam_row(ws, what: str) -> dict:
+    """``adam_apply`` over the leaves ``ws`` in one launch (wd 1e-4, no
+    clip): its CUDA-graph time beside its bound (w, g, m1, m2 read, w, m1,
+    m2 written: 28 bytes a parameter), its plain version and
+    ``torch.optim.Adam(fused=True).step()`` (a host loop)."""
+    from cxxnet_tpu_torch.ops.fused_optim import adam_apply_plain
+    gs = [torch.randn_like(w) for w in ws]
+    m1 = [torch.zeros_like(w) for w in ws]
+    m2 = [torch.zeros_like(w) for w in ws]
+    n = sum(w.numel() for w in ws)
+    tparams = [w.clone().requires_grad_(True) for w in ws]
+    for t, gg in zip(tparams, gs):
+        t.grad = gg
+    adam = torch.optim.Adam(tparams, lr=1e-3, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=1e-4, fused=True)
+    return dict(
+        ms=time_call(adam_launcher(ws, gs, m1, m2)),
+        plain_ms=time_call(lambda: adam_apply_plain(
+            ws, gs, m1, m2, 1e-3, 0.1, 0.001, 1e-4, 0.0)),
+        library_ms=time_loop(adam.step),
+        bound=bound_ms(28 * n, 12 * n),
+        shape=f"{what}: all {len(ws)} leaves, {n} params, f32, one "
+              "launch",
+        library="torch.optim.Adam(fused=True).step()")
+
+
 def phase_lm_times(tr, kern, plain, batches, gen) -> dict:
     """CUDA-event times of an LM train step with the kernels and with
     fused_kernels = 0 (from the same state, one host batch), and of each
@@ -2487,8 +2662,6 @@ def phase_lm_times(tr, kern, plain, batches, gen) -> dict:
     apply also at Inception-BN's size."""
     import torch.nn.functional as F
     from cxxnet_tpu_torch.ops import attention as att
-    from cxxnet_tpu_torch.ops import fused_optim
-    from cxxnet_tpu_torch.ops.fused import stream_handle
     b0 = batches[0]
     snap = _snap(tr)
     _load(kern, snap, 0)
@@ -2582,33 +2755,10 @@ def phase_lm_times(tr, kern, plain, batches, gen) -> dict:
                 bound=flash_bound_ms(6 * el * 2 + 8 * rows_, 4 * 2 * pp * D,
                                      pp))}
 
-    def adam_row(ws, what):
-        gs = [torch.randn_like(w) for w in ws]
-        m1 = [torch.zeros_like(w) for w in ws]
-        m2 = [torch.zeros_like(w) for w in ws]
-        table, nblk = fused_optim._table(ws, gs, m1, m2)
-        n = sum(w.numel() for w in ws)
-        tparams = [w.clone().requires_grad_(True) for w in ws]
-        for t, gg in zip(tparams, gs):
-            t.grad = gg
-        adam = torch.optim.Adam(tparams, lr=1e-3, betas=(0.9, 0.999),
-                                eps=1e-8, weight_decay=1e-4, fused=True)
-        return dict(
-            ms=time_call(lambda: fused_optim.ADAM_APPLY.launch(
-                table.data_ptr(), len(ws), nblk, fused_optim.CHUNK, 1e-3,
-                0.1, 0.001, 1e-4, 0.0, stream_handle(dev))),
-            plain_ms=time_call(lambda: fused_optim.adam_apply_plain(
-                ws, gs, m1, m2, 1e-3, 0.1, 0.001, 1e-4, 0.0)),
-            library_ms=time_loop(adam.step),
-            bound=bound_ms(28 * n, 12 * n),
-            shape=f"{what}: all {len(ws)} leaves, {n} params, f32, one "
-                  "launch",
-            library="torch.optim.Adam(fused=True).step()")
     rows["adam_apply"] = adam_row(
         [v.detach().clone() for v in _paths(tr.params).values()], "LM")
     ibn = adam_row([torch.randn(sh, generator=gen, device=dev)
-                    for shapes in flagship_shapes(FLAGSHIP)[1].values()
-                    for sh in shapes], "Inception-BN")
+                    for sh in adam_shapes(FLAGSHIP)], "Inception-BN")
     line = lambda k, r: (f"{k} {r['shape']}: {r['ms'] * 1e3:.2f} us "
                          f"({_rate(r)}), bound "
                          f"{r['bound'][0] * 1e3:.2f} us ({r['bound'][-1]}), "
@@ -2623,7 +2773,8 @@ def phase_lm_times(tr, kern, plain, batches, gen) -> dict:
           + " | SDPA backward ops in a CUDA graph: " + ", ".join(
               f"{k} {v * 1e3:.2f} us" for k, v in sdpa_bwd.items())
           + f"; through autograd, host loop: {sdpa_bwd_loop * 1e3:.2f} us"
-          + " | " + line("adam_apply", ibn) + " | " + " | ".join(
+          + " | " + line("adam_apply (Inception-BN)", ibn) + " | "
+          + " | ".join(
               f"{k} {what}: {r['ms'] * 1e3:.2f} us, bound "
               f"{r['bound'][0] * 1e3:.2f} us ({r['bound'][-1]}), SDPA "
               f"{'forward' if k == 'flash_fwd' else 'backward'} "
@@ -3005,6 +3156,10 @@ def phase_convnet_times(name, tr, plain, batches, gen) -> dict:
     step_plain = time_forward(lambda: plain.update(b0), reps=5)
     prof, kinds = profile_kinds(lambda: tr.update(b0), 3, "step")
     print(f"profile: {name} train step, kernels: {prof}", flush=True)
+    ms, k = kinds.get("epilogue kernel", (0.0, 0))
+    print(f"profile: {name} epilogue kernel: {k:g} launches a step, "
+          f"{ms:.4f} ms a step in all (the step's profile by kind; the "
+          f"forward of each biased conv and fullc)", flush=True)
     if name == "alexnet":
         ms, k = kinds.get("epilogue bwd kernel", (0.0, 0))
         print(f"profile: alexnet epilogue backward: {k:g} launches a step, "
@@ -3014,7 +3169,8 @@ def phase_convnet_times(name, tr, plain, batches, gen) -> dict:
         print(f"profile: alexnet lrn: {k:g} launches a step, {ms:.4f} ms a "
               f"step in all (the step's profile by kind; lrn_fwd and lrn_bwd "
               f"at lrn1 and lrn2)", flush=True)
-    rows = {}
+    rows = {f"epilogue_fwd ({k})": epilogue_fwd_row(gen, *v)
+            for k, v in EPI_FWD.items() if k.startswith(name)}
     if name == "alexnet":
         n, alpha, beta, knorm = LRN_ALEX
         for layer, shape in LRN_LAYERS:
@@ -4272,7 +4428,7 @@ def main(argv=None) -> int:
     ap.add_argument("--json", default="", help="also write the results here")
     ap.add_argument("--ab", nargs="+", metavar="TREE",
                     help="only time the vectorised BN, epilogue, LRN, "
-                         "max-pool backward and stem kernels of each "
+                         "max-pool backward, stem and Adam kernels of each "
                          "checkout root in turn (e.g. parent change change "
                          "parent)")
     args = ap.parse_args(argv)

@@ -58,23 +58,23 @@ __global__ void __launch_bounds__(kNormThreads, kNormCtasPerSm)
   if (t >= stride) return;
   const int C = groups * V;
   const int c0 = (int)(t % groups) * V;
-  float km[V], kr[V], kg[V], kb[V];
+  NormOp<V, RELU> op;
 #pragma unroll
   for (int j = 0; j < V; ++j) {
     const float mean = bn_mean(sums[c0 + j], n);
     const float var = TWO_PASS ? __fdiv_rn(sums[C + c0 + j], n)
                                : bn_var(sums[C + c0 + j], n, mean);
-    km[j] = mean;
-    kr[j] = bn_rstd(var, eps);
-    kg[j] = gamma[c0 + j];
-    kb[j] = beta[c0 + j];
+    op.km[j] = mean;
+    op.kr[j] = bn_rstd(var, eps);
+    op.kg[j] = gamma[c0 + j];
+    op.kb[j] = beta[c0 + j];
     if (t < groups) {
       stats[c0 + j] = mean;
       stats[C + c0 + j] = var;
-      stats[2 * C + c0 + j] = kr[j];
+      stats[2 * C + c0 + j] = op.kr[j];
     }
   }
-  norm_walk<T, V, RELU>(x, y, t, stride, nv, km, kr, kg, kb);
+  norm_walk<T, V>(x, y, t, stride, nv, op);
 }
 
 template <typename T, int V, bool RELU, bool TWO_PASS>

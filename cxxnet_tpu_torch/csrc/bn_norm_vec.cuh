@@ -3,19 +3,25 @@
 // with the moments and the affine parameters handed in as (C,) f32
 // vectors. bn_norm (bn_sync.cu) launches it with the all-reduced moments;
 // bn_fwd (bn_fwd.cu) takes the same walk (norm_walk) in its own kernel,
-// which forms the moments from the column sums.
+// which forms the moments from the column sums, and epilogue_fwd
+// (epilogue_fwd.cu) takes it with its bias-and-relu op.
 //
 // The walk is the dx pass's (bn_bwd_vec.cuh's bn_dx_vec). Thread t owns
 // the V = 16 / sizeof(T) neighbouring channels of group t % groups
-// (groups = C / V) for its whole loop: their mean, rstd, gamma and beta
-// sit in registers, loaded once. It takes the vectors t, t + stride, ...
-// with stride = lanes * groups vectors, a multiple of C elements, so the
-// channel group never changes: no division in the loop. kNormRows vectors
-// of x in flight a thread, 16-byte loads of x and 16-byte stores of y, one
-// wave of kNormCtasPerSm CTAs a SM (ops/fused_norm.bn_dx_plan plans both
-// walks: kNormThreads and kNormCtasPerSm are the dx pass's). Every
-// operation is a rounded f32 operation in the order of the plain version
-// (no FMA contraction), so y is bit-equal to it on finite inputs.
+// (groups = C / V) for its whole loop: their constants (here mean, rstd,
+// gamma and beta) sit in registers in the walk's op, loaded once. It takes
+// the vectors t, t + stride, ... with stride = lanes * groups vectors, a
+// multiple of C elements, so the channel group never changes: no division
+// in the loop. kNormRows vectors of x in flight a thread, 16-byte loads of
+// x and 16-byte stores of y, one wave of kNormCtasPerSm CTAs a SM
+// (ops/fused_norm.bn_dx_plan plans both walks: kNormThreads and
+// kNormCtasPerSm are the dx pass's). The op maps channel j of the group
+// (0 <= j < V) from f32 to f32; the walk rounds its result to T. The
+// walk's index type I is the caller's: 64-bit for the BN kernels, 32-bit
+// for the epilogue, which launches its rows in slices to stay below 2^31.
+// Every operation of NormOp is a rounded f32 operation in the order of the
+// plain version (no FMA contraction), so y is bit-equal to it on finite
+// inputs.
 //
 // Where C is not a multiple of V or a base is not 16-byte aligned the plan
 // takes V = 1: one element a load, a planned path of the same kernel.
@@ -27,43 +33,46 @@ constexpr int kNormThreads = 256;
 constexpr int kNormRows = 2;       // vectors of x in flight a thread
 constexpr int kNormCtasPerSm = 3;  // resident CTAs a SM the grid fills
 
-// The V channels of a vector: ((x - mean) * rstd) * gamma + beta (+ relu)
-template <typename T, int V, bool RELU>
-__device__ __forceinline__ void norm_vec(const typename VecIO<T, V>::Raw& rx,
-                                         const float* km, const float* kr,
-                                         const float* kg, const float* kb,
-                                         T* out) {
+// The normalize of channel j of a group: ((x - mean) * rstd) * gamma +
+// beta (+ relu), the group's constants in registers
+template <int V, bool RELU>
+struct NormOp {
+  float km[V], kr[V], kg[V], kb[V];
+  __device__ __forceinline__ float operator()(float x, int j) const {
+    const float v = __fmul_rn(__fsub_rn(x, km[j]), kr[j]);
+    const float o = __fadd_rn(__fmul_rn(v, kg[j]), kb[j]);
+    return RELU ? relu_f32(o) : o;
+  }
+};
+
+// The V channels of a vector through op, rounded to T and stored at out
+template <typename T, int V, typename Op>
+__device__ __forceinline__ void op_vec(const typename VecIO<T, V>::Raw& rx,
+                                       const Op& op, T* out) {
   using IO = VecIO<T, V>;
   typename IO::Raw o;
 #pragma unroll
-  for (int j = 0; j < V; ++j) {
-    float v = __fmul_rn(__fsub_rn(IO::at(rx, j), km[j]), kr[j]);
-    v = __fadd_rn(__fmul_rn(v, kg[j]), kb[j]);
-    o.v[j] = from_f32<T>(RELU ? relu_f32(v) : v);
-  }
+  for (int j = 0; j < V; ++j) o.v[j] = from_f32<T>(op(IO::at(rx, j), j));
   *reinterpret_cast<typename IO::Raw*>(out) = o;
 }
 
 // Thread t's walk: the vectors t, t + stride, ... below nv, kNormRows
-// in flight, with its channel group's constants km, kr, kg, kb
-template <typename T, int V, bool RELU>
+// in flight, each through op (its channel group's)
+template <typename T, int V, typename Op, typename I>
 __device__ __forceinline__ void norm_walk(const T* __restrict__ x,
-                                          T* __restrict__ y, int64_t t,
-                                          int64_t stride, int64_t nv,
-                                          const float* km, const float* kr,
-                                          const float* kg, const float* kb) {
+                                          T* __restrict__ y, I t, I stride,
+                                          I nv, const Op& op) {
   using IO = VecIO<T, V>;
-  int64_t v = t;
+  I v = t;
   for (; v + (kNormRows - 1) * stride < nv; v += kNormRows * stride) {
     typename IO::Raw rx[kNormRows];
 #pragma unroll
     for (int u = 0; u < kNormRows; ++u) rx[u] = IO::load(x + (v + u * stride) * V);
 #pragma unroll
     for (int u = 0; u < kNormRows; ++u)
-      norm_vec<T, V, RELU>(rx[u], km, kr, kg, kb, y + (v + u * stride) * V);
+      op_vec<T, V>(rx[u], op, y + (v + u * stride) * V);
   }
-  for (; v < nv; v += stride)
-    norm_vec<T, V, RELU>(IO::load(x + v * V), km, kr, kg, kb, y + v * V);
+  for (; v < nv; v += stride) op_vec<T, V>(IO::load(x + v * V), op, y + v * V);
 }
 
 // nv = N * C / V vectors; thread t < lanes * groups takes the vectors t,
@@ -79,15 +88,15 @@ __global__ void __launch_bounds__(kNormThreads, kNormCtasPerSm)
   const int64_t t = (int64_t)blockIdx.x * kNormThreads + threadIdx.x;
   if (t >= stride) return;
   const int c0 = (int)(t % groups) * V;
-  float km[V], kr[V], kg[V], kb[V];
+  NormOp<V, RELU> op;
 #pragma unroll
   for (int j = 0; j < V; ++j) {
-    km[j] = mean[c0 + j];
-    kr[j] = rstd[c0 + j];
-    kg[j] = gamma[c0 + j];
-    kb[j] = beta[c0 + j];
+    op.km[j] = mean[c0 + j];
+    op.kr[j] = rstd[c0 + j];
+    op.kg[j] = gamma[c0 + j];
+    op.kb[j] = beta[c0 + j];
   }
-  norm_walk<T, V, RELU>(x, y, t, stride, nv, km, kr, kg, kb);
+  norm_walk<T, V>(x, y, t, stride, nv, op);
 }
 
 // Whether bn_dx_plan's (vec, lanes, blocks) covers (N, C) rows of T from

@@ -4,7 +4,8 @@ and the autograd function over them.
 The port of ``cxxnet_tpu/ops/fused_epilogue.py``: a conv or fullc output
 ``x`` viewed as (N, C) rows gets ``bias`` (C,) added, cast to ``x``'s
 dtype first, and then an optional relu (the graph-folded one,
-graph.act_fusion_plan); the kernel is ``csrc/epilogue_fwd.cu``. Its
+graph.act_fusion_plan); the kernel is ``csrc/epilogue_fwd.cu``, the BN
+normalize's channel-group walk (:func:`epilogue_fwd_plan`). Its
 backward (``csrc/epilogue_bwd.cu``) is dx = dy, masked by ``y > 0`` with
 relu, and dbias = the f32 column sum of that dx, in one launch: with a
 bias, the column sums of ``csrc/colsum_vec.cuh`` (:func:`epilogue_bwd_plan`)
@@ -24,22 +25,45 @@ import torch
 from .fused import (Kernel, check_cuda_input, register, sm_count,
                     split_scratch, stream_handle)
 from .fused_norm import (COLSUM_VEC_THREADS, ColsumPlan, _aligned,
-                         colsum_vec_plan)
+                         bn_dx_plan, colsum_vec_plan)
 
+_P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 EPILOGUE_FWD = register(Kernel(
     "epilogue_fwd", "epilogue_fwd.cu",
     replaces="cxxnet_tpu/ops/fused_epilogue.py:46",
-    argtypes=[ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-              ctypes.c_void_p]))
-
-
-_P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    argtypes=[_P, _P, _P, _I64, _I, _I, _I64, _I, _I64, _I, _I, _P]))
 EPILOGUE_BWD = register(Kernel(
     "epilogue_bwd", "epilogue_bwd.cu",
     replaces="cxxnet_tpu/ops/fused_epilogue.py:58",
     argtypes=[_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I64, _I,
               _I, _I, _P]))
+
+#: elements a launch of the forward takes at most: longer inputs go in
+#: slices of whole rows, so that the kernel's 32-bit vector indices (and
+#: each thread's last one, strides past a slice's end) stay below 2^31
+EPI_FWD_SLICE = 1 << 30
+
+
+class EpiFwdPlan(NamedTuple):
+    """The forward's launch over (n, c) rows: ``bn_dx_plan``'s ``vec``,
+    ``lanes`` and ``blocks`` (thread t takes the vectors t, t + lanes *
+    c // vec, ... of its channel group t % (c // vec)), each slice of
+    ``slice_rows`` rows one launch."""
+    vec: int
+    lanes: int
+    blocks: int
+    slice_rows: int
+
+
+def epilogue_fwd_plan(n: int, c: int, itemsize: int, aligned: bool = True,
+                      sms: int = 132) -> EpiFwdPlan:
+    """The forward's launch: the BN normalize's walk
+    (:func:`~.fused_norm.bn_dx_plan`: 16-byte vectors where ``c`` and
+    the bases allow, one wave of CTAs), in slices of at most
+    EPI_FWD_SLICE elements."""
+    p = bn_dx_plan(n, c, itemsize, aligned, sms)
+    return EpiFwdPlan(p.vec, p.lanes, p.blocks, max(1, EPI_FWD_SLICE // c))
+
 
 #: rows a lane of a one-block plan takes: one round of the kVecRows
 #: rows ``csrc/colsum_vec.cuh`` keeps in flight
@@ -135,11 +159,14 @@ def fused_bias_act(x: torch.Tensor, bias: Optional[torch.Tensor],
                 "epilogue: bias must be a contiguous float32 tensor on "
                 f"{x.device} (got {bias.dtype} on {bias.device})")
     c = x.shape[-1]
+    n = x.numel() // c
     y = torch.empty_like(x)
+    plan = epilogue_fwd_plan(n, c, x.element_size(), _aligned(x, y),
+                             sm_count(x.device))
     with torch.cuda.device(x.device):
         EPILOGUE_FWD.launch(
             x.data_ptr(), None if bias is None else bias.data_ptr(),
-            y.data_ptr(), x.numel() // c, c, code, int(act == "relu"),
+            y.data_ptr(), n, c, *plan, code, int(act == "relu"),
             stream_handle(x.device))
     return y
 

@@ -18,8 +18,11 @@ All leaves are float32 (the master-weight contract).
 The TPU kernels' pack of every leaf into one padded buffer and the
 unpack after it are not carried over: the kernels (``csrc/sgd_apply.cu``,
 ``csrc/adam_apply.cu``) read each leaf where it lives through a device
-table of pointers and sizes, and write the new weights and moments over
-the old ones. The scalars are arguments of every launch.
+table of pointers and each CTA's chunk, and write the new weights and
+moments over the old ones. SGD's CTAs take CHUNK elements of a leaf in a
+grid-stride loop; Adam's take ADAM_CHUNK, in 16-byte vectors where the
+leaf's four bases allow (:func:`adam_plan`). The scalars are arguments
+of every launch.
 """
 
 from __future__ import annotations
@@ -42,12 +45,16 @@ SGD_APPLY = register(Kernel(
 ADAM_APPLY = register(Kernel(
     "adam_apply", "adam_apply.cu",
     replaces="cxxnet_tpu/ops/fused_optim.py:101",
-    argtypes=[ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    argtypes=[ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
               ctypes.c_float, ctypes.c_float, ctypes.c_float,
-              ctypes.c_float, ctypes.c_float, ctypes.c_void_p]))
+              ctypes.c_float, ctypes.c_void_p]))
 
-#: elements a CTA of the kernel updates (one leaf's chunk)
+#: elements a CTA of the SGD kernel updates (one leaf's chunk)
 CHUNK = 8192
+#: threads of an Adam CTA (``csrc/adam_apply.cu``, kAdamThreads) and the
+#: elements it updates at most: one 16-byte vector a thread
+ADAM_THREADS = 256
+ADAM_CHUNK = 4 * ADAM_THREADS
 
 
 def _f32(v: float) -> float:
@@ -80,9 +87,9 @@ def sgd_apply_plain(ws: Sequence[torch.Tensor], gs: Sequence[torch.Tensor],
 
 
 def _table(*lists: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, int]:
-    """A kernel's int64 table on the device: the pointers of every leaf
-    in each of ``lists`` (w, g, then the moments), the leaf sizes, then
-    each CTA's leaf and chunk start. Returns ``(table, n_blocks)``."""
+    """The SGD kernel's int64 table on the device: the pointers of every
+    leaf in each of ``lists`` (w, g, m), the leaf sizes, then each CTA's
+    leaf and chunk start. Returns ``(table, n_blocks)``."""
     ws = lists[0]
     sizes = np.array([w.numel() for w in ws], np.int64)
     per = -(-sizes // CHUNK)
@@ -96,6 +103,51 @@ def _table(*lists: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, int]:
     return (torch.from_numpy(host).pin_memory().to(ws[0].device,
                                                    non_blocking=True),
             len(blk_leaf))
+
+
+def adam_plan(sizes: np.ndarray, bases: np.ndarray) -> np.ndarray:
+    """The Adam kernel's CTAs over leaves of ``sizes`` elements whose w,
+    g, m1 and m2 start at the byte addresses ``bases`` (leaves, 4): rows
+    (leaf, start, count, vec). A leaf whose four bases lie the same 0, 4,
+    8 or 12 bytes past a 16-byte boundary takes its elements before the
+    next boundary (0 to 3) as one CTA of single elements (vec 0), then
+    CTAs of ADAM_CHUNK elements from there in 16-byte vectors (vec 1),
+    the last one ending in a partial vector where the size leaves one;
+    any other leaf takes CTAs of ADAM_CHUNK single elements."""
+    sizes = np.asarray(sizes, np.int64)
+    off = np.asarray(bases, np.int64) % 16
+    vec = (off == off[:, :1]).all(1)
+    head = np.where(vec, np.minimum((16 - off[:, 0]) % 16 // 4, sizes), 0)
+    body = sizes - head
+    per = -(-body // ADAM_CHUNK)
+    leaf = np.repeat(np.arange(len(sizes), dtype=np.int64), per)
+    k = np.arange(len(leaf), dtype=np.int64) - np.repeat(np.cumsum(per) - per,
+                                                        per)
+    start = np.repeat(head, per) + k * ADAM_CHUNK
+    count = np.minimum(ADAM_CHUNK, np.repeat(body, per) - k * ADAM_CHUNK)
+    heads = np.flatnonzero(head)
+    return np.concatenate([
+        np.stack([leaf, start, count, np.repeat(vec, per)], 1),
+        np.stack([heads, np.zeros_like(heads), head[heads],
+                  np.zeros_like(heads)], 1)]).astype(np.int64)
+
+
+def adam_table(ws: Sequence[torch.Tensor], gs: Sequence[torch.Tensor],
+               m1s: Sequence[torch.Tensor], m2s: Sequence[torch.Tensor]
+               ) -> Tuple[torch.Tensor, int]:
+    """The Adam kernel's int64 table on the device: the w, g, m1 and m2
+    pointers of every leaf, then each CTA's chunk start and its word
+    ``leaf << 32 | count << 1 | vec`` (:func:`adam_plan`). Returns
+    ``(table, n_blocks)``."""
+    lists = (ws, gs, m1s, m2s)
+    ptrs = np.array([[t.data_ptr() for t in ts] for ts in lists], np.int64)
+    plan = adam_plan([w.numel() for w in ws], ptrs.T)
+    host = np.concatenate([ptrs.reshape(-1), plan[:, 1],
+                           plan[:, 0] << 32 | plan[:, 2] << 1 | plan[:, 3]])
+    # pinned, so the copy is queued on the stream without a host sync
+    return (torch.from_numpy(host).pin_memory().to(ws[0].device,
+                                                   non_blocking=True),
+            len(plan))
 
 
 def _check_leaves(name: str, *lists: Sequence[torch.Tensor]
@@ -192,8 +244,8 @@ def fused_adam_apply(ws: Sequence[torch.Tensor], gs: Sequence[torch.Tensor],
                 for t, v in zip(dst, src):
                     t.copy_(v)
             return
-        table, n_blocks = _table(ws, gs, m1s, m2s)
+        table, n_blocks = adam_table(ws, gs, m1s, m2s)
         with torch.cuda.device(dev):
-            ADAM_APPLY.launch(table.data_ptr(), len(ws), n_blocks, CHUNK,
+            ADAM_APPLY.launch(table.data_ptr(), len(ws), n_blocks,
                               _f32(lr_t), _f32(d1), _f32(d2), _f32(wd),
                               _f32(clip), stream_handle(dev))

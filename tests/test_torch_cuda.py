@@ -147,6 +147,111 @@ def test_epilogue_kernel_matches_plain(dev, dtype, rows, c, with_bias, act):
     assert torch.equal(got, bias_act_plain(x, b, act))
 
 
+def _equal_or_nan(got, want):
+    """Equal (torch.equal: +0 and -0 compare equal), with a NaN wherever
+    ``want`` has one."""
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) and torch.equal(
+        got[~nan], want[~nan])
+
+
+def _offset(x, elems):
+    """A copy of ``x`` starting ``elems`` elements past an aligned base."""
+    buf = torch.empty(x.numel() + elems, dtype=x.dtype, device=x.device)
+    out = buf[elems:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("rows,c,with_bias,act,offset", [
+    (256 * 55 * 55, 96, True, "relu", 0),      # AlexNet's cv1
+    (256, 4096, True, "relu", 0),               # AlexNet's fc6
+    (128 * 109 * 109, 96, True, "none", 0),     # the SPP net's cv1
+    (333, 5, True, "relu", 0), (1000, 7, True, "none", 0),
+    (37, 1001, True, "relu", 0), (50, 1001, False, "relu", 0),
+    (1000, 96, True, "relu", 1), (64, 1000, True, "none", 1)])
+def test_epilogue_forward_edges_are_bit_equal_to_plain(dev, dtype, rows, c,
+                                                       with_bias, act,
+                                                       offset):
+    """The channel-group walk at the paths' shapes, C that no 16-byte
+    vector divides and x one element (2 or 4 bytes) past a 16-byte
+    boundary (the one-element loads): equal to the plain version."""
+    x = _randn((rows, c), dtype, dev, seed=rows + c)
+    if offset:
+        x = _offset(x, offset)
+        assert x.data_ptr() % 16 != 0
+    b = _randn((c,), torch.float32, dev, seed=3) if with_bias else None
+    assert torch.equal(fused_bias_act(x, b, act), bias_act_plain(x, b, act))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("with_bias,act", [(True, "none"), (True, "relu"),
+                                           (False, "relu")])
+def test_epilogue_forward_keeps_nan_and_signed_zeros(dev, dtype, with_bias,
+                                                     act):
+    """NaN, +0 and -0 inputs and a bias with -0: NaN where the plain
+    version has one, equal elsewhere; without the relu the sign of every
+    zero too (the same IEEE add on both sides; with it the kernel's relu
+    gives +0 for -0, which torch.equal does not tell apart)."""
+    rows, c = 999, 40
+    x = _randn((rows, c), dtype, dev, seed=11) * 3
+    x.view(-1)[::17] = float("nan")
+    x.view(-1)[5::23] = 0.0
+    x.view(-1)[7::29] = -0.0
+    b = _randn((c,), torch.float32, dev, seed=12) if with_bias else None
+    if b is not None:
+        b[::3] = -0.0
+    got = fused_bias_act(x, b, act)
+    want = bias_act_plain(x, b, act)
+    assert _equal_or_nan(got, want)
+    if act == "none":
+        zero = want == 0
+        assert torch.equal(got[zero].signbit(), want[zero].signbit())
+
+
+def test_epilogue_forward_in_slices_is_bit_equal_to_plain(dev, monkeypatch):
+    """Rows past EPI_FWD_SLICE elements go in slices of whole rows, one
+    kernel launch each (EPI_FWD_SLICE cut to 4096 elements here)."""
+    from cxxnet_tpu_torch.ops import fused_epilogue as fe
+    monkeypatch.setattr(fe, "EPI_FWD_SLICE", 4096)
+    for dtype, c, offset in ((torch.bfloat16, 96, 0), (torch.float32, 7, 0),
+                             (torch.float16, 96, 1)):
+        x = _randn((1000, c), dtype, dev, seed=c)
+        if offset:
+            x = _offset(x, offset)
+        b = _randn((c,), torch.float32, dev, seed=4)
+        assert torch.equal(fused_bias_act(x, b, "relu"),
+                           bias_act_plain(x, b, "relu"))
+
+
+def test_epilogue_forward_refuses_a_plan_the_inputs_do_not_allow(dev):
+    from cxxnet_tpu_torch.ops.fused import stream_handle
+    from cxxnet_tpu_torch.ops.fused_epilogue import (EPILOGUE_FWD,
+                                                     epilogue_fwd_plan)
+    x = _randn((100, 96), torch.bfloat16, dev)
+    y = torch.empty_like(x)
+    b = _randn((96,), torch.float32, dev)
+    p = epilogue_fwd_plan(100, 96, 2)
+    before = EPILOGUE_FWD.launches
+    for args in (
+            (x.data_ptr() + 2, y.data_ptr(), *p),          # vec 8, misaligned
+            (x.data_ptr(), y.data_ptr(), p.vec, p.lanes, p.blocks - 1,
+             p.slice_rows),                                # too few CTAs
+            (x.data_ptr(), y.data_ptr(), p.vec, 0, p.blocks, p.slice_rows),
+            (x.data_ptr(), y.data_ptr(), p.vec, p.lanes, p.blocks, 0),
+            (x.data_ptr(), y.data_ptr(), p.vec, p.lanes, p.blocks,
+             (1 << 30) // 96 + 1)):                        # a slice past 2^30
+        xp, yp, *plan = args
+        with pytest.raises(RuntimeError, match="cudaError"):
+            EPILOGUE_FWD.launch(xp, b.data_ptr(), yp, 100, 96, *plan, 1, 1,
+                                stream_handle(dev))
+    with pytest.raises(RuntimeError, match="cudaError"):      # nothing to do
+        EPILOGUE_FWD.launch(x.data_ptr(), None, y.data_ptr(), 100, 96, *p, 1,
+                            0, stream_handle(dev))
+    assert EPILOGUE_FWD.launches == before
+
+
 def test_each_launch_counts_once(dev):
     for k in KERNELS.values():
         k.launches = 0
@@ -992,6 +1097,31 @@ def test_adam_apply_kernel_is_bit_equal_to_plain(dev, wd, clip):
           for i, s in enumerate(shapes)]
     m2 = [_randn(s, torch.float32, dev, seed=30 + i).abs() * 0.1
           for i, s in enumerate(shapes)]
+    want = adam_apply_plain(ws, gs, m1, m2, 3e-4, 0.1, 0.001, wd, clip)
+    fused_adam_apply(ws, gs, m1, m2, 3e-4, d1=0.1, d2=0.001, wd=wd,
+                     clip=clip)
+    for a, b in zip(ws + m1 + m2, sum(want, [])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("wd,clip", [(0.0, 0.0), (1e-4, 0.0), (1e-4, 0.5),
+                                     (0.0, 0.5)])
+@pytest.mark.parametrize("case", ["sizes", "offsets", "lm", "inception_bn"])
+def test_adam_apply_edges_are_bit_equal_to_plain(dev, case, wd, clip):
+    """Phase 3's Adam edges (``chip_smoke.ADAM_EDGES``: leaves of 1, 3,
+    7, 1025, 4097, 5000 and 8193 elements; with ADAM_EDGE_OFFSETS their
+    streams 4, 8 or 12 bytes past a 16-byte boundary, together or apart)
+    and the LM's and Inception-BN's leaf lists, NaN gradients, clip and wd
+    on and off: equal to the plain version."""
+    from chip_smoke import (ADAM_EDGE_OFFSETS, ADAM_EDGES, FLAGSHIP, LM_CONF,
+                            adam_inputs, adam_shapes)
+    shapes, offsets = {
+        "sizes": (ADAM_EDGES, None), "offsets": (ADAM_EDGES,
+                                                 ADAM_EDGE_OFFSETS),
+        "lm": (adam_shapes(LM_CONF), None),
+        "inception_bn": (adam_shapes(FLAGSHIP), None)}[case]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ws, gs, m1, m2 = adam_inputs(gen, shapes, offsets)
     want = adam_apply_plain(ws, gs, m1, m2, 3e-4, 0.1, 0.001, wd, clip)
     fused_adam_apply(ws, gs, m1, m2, 3e-4, d1=0.1, d2=0.001, wd=wd,
                      clip=clip)

@@ -1,4 +1,15 @@
-"""The epilogue backward's launch plans (``epilogue_bwd``:
+"""The epilogue's launch plans, forward and backward, and the walk of
+the data-parallel batch-norm normalize on the CPU.
+
+The forward (``epilogue_fwd``: ``csrc/epilogue_fwd.cu``) takes the
+normalize's channel-group walk under ``epilogue_fwd_plan``: every vector
+of every slice once, each from the thread's own channel group, at every
+biased conv and fullc of AlexNet and the SPP net (held against their
+configs), fc1, odd C and misaligned bases; its per-vector op, emulated
+in numpy with each operation rounded, equals ``bias_act_plain`` and the
+JAX package's Pallas forward (interpreted).
+
+The backward's launch plans (``epilogue_bwd``:
 ``csrc/epilogue_bwd.cu`` over ``csrc/colsum_vec.cuh``) and the walk of
 the data-parallel batch-norm normalize (``bn_norm``:
 ``csrc/bn_norm_vec.cuh``) on the CPU.
@@ -41,16 +52,23 @@ ALEXNET_EPI = [(256 * 55 * 55, 96, True), (256 * 27 * 27, 256, True),
                (256 * 13 * 13, 384, True), (256 * 13 * 13, 384, True),
                (256 * 13 * 13, 256, True), (256, 4096, True),
                (256, 4096, True), (256, 1000, False)]
+#: (rows, channels, relu) of the SPP net's eight biased epilogues at batch
+#: 128 (insanity is not folded: the bias only; held against the config)
+SPP_EPI = [(128 * 109 * 109, 96, False), (128 * 54 * 54, 256, False),
+           (128 * 27 * 27, 384, False), (128 * 27 * 27, 384, False),
+           (128 * 27 * 27, 256, False), (128, 4096, False),
+           (128, 4096, False), (128, 1000, False)]
 #: Inception-BN's fc1 at batch 128: a bias, no relu
 FC1 = (128, 1000)
 
 
-def test_alexnet_epilogue_shapes_are_the_configs():
+def _conf_epilogue_shapes(conf, batch):
+    """(rows, channels) of every conv and fullc output of ``conf`` at
+    ``batch``, in graph order."""
     from cxxnet_tpu_torch.config import parse_config_file, split_sections
     from cxxnet_tpu_torch.graph import build_graph
     from cxxnet_tpu_torch.model import Network
-    cfg, _ = split_sections(parse_config_file(
-        "examples/ImageNet/alexnet.conf"))
+    cfg, _ = split_sections(parse_config_file(conf))
     graph = build_graph(cfg)
     net = Network(graph, cfg, device="cpu")
     shapes = []
@@ -58,9 +76,162 @@ def test_alexnet_epilogue_shapes_are_the_configs():
         if spec.type in ("conv", "fullc"):
             a, b, c = net.node_shapes[spec.nindex_out[0]]
             # conv nodes are (C, H, W), fullc nodes (1, 1, n)
-            n, ch = (256 * b * c, a) if spec.type == "conv" else (256, c)
+            n, ch = (batch * b * c, a) if spec.type == "conv" else (batch, c)
             shapes.append((n, ch))
-    assert shapes == [(n, c) for n, c, _ in ALEXNET_EPI]
+    return shapes
+
+
+def test_alexnet_epilogue_shapes_are_the_configs():
+    assert _conf_epilogue_shapes("examples/ImageNet/alexnet.conf", 256) == \
+        [(n, c) for n, c, _ in ALEXNET_EPI]
+
+
+def test_spp_epilogue_shapes_are_the_configs():
+    assert _conf_epilogue_shapes("examples/ImageNet/kaiming.conf", 128) == \
+        [(n, c) for n, c, _ in SPP_EPI]
+
+
+_SIZE = {torch.bfloat16: 2, torch.float16: 2, torch.float32: 4}
+#: (n, c, itemsize, aligned) of the forward's walk: every biased epilogue
+#: of AlexNet and the SPP net and fc1 in bf16, fc1 in f32, C 5, 7 and 1001
+#: and misaligned bases in bf16, f16 and f32
+FWD_CASES = [(n, c, 2, True) for n, c, _ in ALEXNET_EPI + SPP_EPI]
+FWD_CASES += [FC1 + (2, True), FC1 + (4, True)]
+FWD_CASES += [(n, c, _SIZE[dt], aligned)
+              for dt in (torch.bfloat16, torch.float16, torch.float32)
+              for n, c, aligned in ((333, 5, True), (1000, 7, True),
+                                    (37, 1001, True), (1000, 96, False),
+                                    (64, 1000, False))]
+
+
+def _fwd_walk(plan, n, c):
+    """Each (slice's first vector, threads, vectors) step of the forward's
+    walk under ``plan``, as the kernel takes it: each slice of
+    ``plan.slice_rows`` rows one launch of the normalize's walk
+    (``order.dx_walk`` with BN_NORM_ROWS vectors in flight), its
+    vectors counted from the slice's first row."""
+    dx = N.DxPlan(plan.vec, plan.lanes, plan.blocks)
+    for r0 in range(0, n, plan.slice_rows):
+        rows = min(plan.slice_rows, n - r0)
+        for t, v in order.dx_walk(dx, rows, c, rows=N.BN_NORM_ROWS):
+            yield r0 * c // plan.vec, t, v
+
+
+@pytest.mark.parametrize("n,c,size,aligned", FWD_CASES)
+def test_epilogue_fwd_walk_takes_every_vector_once(n, c, size, aligned):
+    """The forward under ``epilogue_fwd_plan``: the normalize's plan
+    (16-byte vectors where C and the bases allow), one launch at every
+    path shape, and every vector exactly once, each from the thread's own
+    channel group, at 32-bit indices."""
+    plan = E.epilogue_fwd_plan(n, c, size, aligned)
+    assert plan[:3] == N.bn_dx_plan(n, c, size, aligned)
+    vw = 16 // size
+    assert plan.vec == (vw if aligned and c % vw == 0 else 1)
+    assert plan.slice_rows >= n          # one launch
+    groups = c // plan.vec
+    stride = plan.lanes * groups
+    seen = np.zeros(n * c // plan.vec, np.uint8)
+    for base, t, v in _fwd_walk(plan, n, c):
+        assert (v % groups == t % groups).all()
+        assert v.max() + N.BN_NORM_ROWS * stride < 2 ** 31
+        seen[base + v] += 1
+    assert (seen == 1).all()
+
+
+def test_epilogue_fwd_keeps_fc1_one_launch_of_few_ctas():
+    """fc1 (128 x 1000 bf16): one launch of half a wave, each thread one
+    16-byte vector."""
+    plan = E.epilogue_fwd_plan(*FC1, 2)
+    assert plan.slice_rows >= FC1[0] and plan.blocks < 132
+    assert plan.lanes * (FC1[1] // plan.vec) == FC1[0] * FC1[1] // 8
+
+
+@pytest.mark.parametrize("n,c,size,aligned", [
+    (1000, 96, 2, True), (1000, 96, 2, False), (999, 7, 4, True),
+    (50, 1001, 2, True)])
+def test_epilogue_fwd_slices_take_every_vector_once(monkeypatch, n, c, size,
+                                                    aligned):
+    """Past EPI_FWD_SLICE elements the rows go in slices, one launch
+    each: every vector of every slice once, from the thread's own channel
+    group (EPI_FWD_SLICE cut to a few thousand elements here)."""
+    monkeypatch.setattr(E, "EPI_FWD_SLICE", 4096)
+    plan = E.epilogue_fwd_plan(n, c, size, aligned)
+    assert plan.slice_rows == max(1, 4096 // c) < n
+    groups = c // plan.vec
+    seen = np.zeros(n * c // plan.vec, np.uint8)
+    for base, t, v in _fwd_walk(plan, n, c):
+        assert (v % groups == t % groups).all()
+        seen[base + v] += 1
+    assert (seen == 1).all()
+
+
+def _epi_fwd_emulated(x, bias, act):
+    """The kernel's per-vector op in numpy, each operation rounded: x in
+    f32 plus the bias rounded to x's dtype (one f32 add), a relu that
+    lets NaN through, then the round to the dtype."""
+    v = x.float().numpy()
+    if bias is not None:
+        v = v + bias.to(x.dtype).float().numpy()
+    assert v.dtype == np.float32
+    if act == "relu":
+        v = np.where((v > 0) | np.isnan(v), v, np.float32(0))
+    return torch.from_numpy(v).to(x.dtype)
+
+
+def _same(got, want):
+    """Equal where not NaN (torch.equal: +0 and -0 compare equal, and the
+    kernel's relu gives +0 where torch.relu may keep a -0), NaN where
+    ``want`` is."""
+    nan = want.isnan()
+    return torch.equal(got.isnan(), nan) and torch.equal(got[~nan],
+                                                         want[~nan])
+
+
+def _epi_fwd_inputs(n, c, dtype, seed):
+    """x (n, c) with NaNs, +0 and -0 planted, and a f32 bias with a -0."""
+    rs = np.random.RandomState(seed)
+    x = rs.randn(n, c).astype(np.float32) * 3
+    x.reshape(-1)[::17] = np.nan
+    x.reshape(-1)[5::23] = 0.0
+    x.reshape(-1)[7::29] = -0.0
+    b = (rs.randn(c) * 2).astype(np.float32)
+    b[::3] = -0.0
+    return torch.from_numpy(x).to(dtype), torch.from_numpy(b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32], ids=str)
+@pytest.mark.parametrize("with_bias,act", [(True, "none"), (True, "relu"),
+                                           (False, "relu")])
+def test_epilogue_fwd_arithmetic_is_the_plain_version(dtype, with_bias, act):
+    """The kernel's op, emulated, equals ``bias_act_plain`` on rows with
+    NaN, +0 and -0 inputs, a bias with -0 and values past bf16's and
+    f16's rounding."""
+    x, b = _epi_fwd_inputs(999, 40, dtype, seed=3)
+    bias = b if with_bias else None
+    got = _epi_fwd_emulated(x, bias, act)
+    assert _same(got, E.bias_act_plain(x, bias, act))
+
+
+@pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float16, jnp.float32],
+                         ids=str)
+@pytest.mark.parametrize("c,with_bias,act", [
+    (1, True, "none"), (5, True, "relu"), (8, False, "relu"),
+    (16, True, "relu")])
+def test_epilogue_fwd_arithmetic_is_the_jax_kernel(dtype, c, with_bias, act):
+    """The emulated op against the JAX package's epilogue forward
+    (``_epi_fwd_kernel``, interpreted) on the same 16 rows (the row block
+    its 16-bit kernels need) with NaN, +0 and -0 planted."""
+    tdt = {jnp.bfloat16: torch.bfloat16, jnp.float16: torch.float16,
+           jnp.float32: torch.float32}[dtype]
+    x, b = _epi_fwd_inputs(16, c, tdt, seed=c)
+    xj = jnp.asarray(x.float().numpy()).astype(dtype).reshape(16, 1, 1, c)
+    bj = jnp.asarray(b.numpy()) if with_bias else None
+    call = lambda a, bb: jax_bias_act(a, bb, act, interpret=True)
+    assert "pallas_call" in str(jax.make_jaxpr(call)(xj, bj))
+    want = torch.from_numpy(np.array(call(xj, bj).astype(jnp.float32))
+                            .reshape(16, c)).to(tdt)
+    assert _same(_epi_fwd_emulated(x, b if with_bias else None, act), want)
 
 
 #: (n, c, itemsize, aligned) of the epilogue's plan cases: AlexNet's and
