@@ -262,6 +262,38 @@ and prints no result:
             decoded images/s with its ``decode_threads`` and the PNG
             decoder's alone.
 
+13. tasks:  run right after phase 6, on its round (full-width
+            Inception-BN, bf16, trained 4 steps), every task through
+            ``main.run``, the launch counts set to 0 before each and
+            read after it. ``pred_raw``, ``pred``, ``extract`` at
+            ``gap`` (txt) and ``i_5b`` (1024x7x7, ``output_format =
+            bin``) and ``get_weight`` (fc1's ``wmat``, bin) over a
+            ``pred = <file>`` section of TASKS_INST synthetic rows at
+            batch TASKS_BATCH, the last batch padded: each forward
+            launches ``pool_fwd`` and ``epilogue_fwd``; ``pred_raw``'s
+            rows finite and summing to 1 (1e-3), against the same task
+            with ``fused_kernels = 0`` (no launch) at atol 2e-2 and the
+            same top-1 wherever the margin exceeds 0.05; ``pred``'s ids
+            the argmax of those rows; the ``.meta`` files ``nrow,1024,1,1``
+            and ``nrow,1024,7,7``; each gap row within one bf16 ulp of
+            the global average pool (``pool_fwd_plain``) of the i_5b row
+            read as NHWC (the element order); fc1's ``wmat`` bit-equal to
+            the round's. ``continue = 1`` with ``num_round = 2`` over
+            phase 6's train section cut to TASKS_STEPS steps: it prints
+            ``continuing from round 0``, loads params, momenta, BN state
+            and counters bit-equal to the round, launches phase 6's
+            counts a step, writes ``0001.model``, and its first loss is
+            within 2e-2 * max(1, |loss|) of phase 6's trainer taking the
+            same step from the round. ``task = finetune`` from the round
+            with fc1 cut to FINETUNE_CLASSES: every other layer copied
+            bit-equal, fc1 its fresh draw, phase 6's launch counts, round
+            0 written. Printed, not gated: the ``pred_raw`` task's
+            seconds and images/s end to end (the round's load, the net's
+            build, the iterator and the text write), the forward at batch
+            TASKS_BATCH with the kernels and with ``fused_kernels = 0``,
+            the runs' and the phase's seconds, the card's name and power
+            limit.
+
 Then, on lines of their own: the card's name and power limit as
 ``nvidia-smi`` reports them, the kernels JSON line, and last
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits 2 when
@@ -275,6 +307,7 @@ import functools
 import json
 import os
 import pickle
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1678,6 +1711,18 @@ def _steps_line(worst) -> str:
             f" (tol [0.5, 2])")
 
 
+def train_launches(what: str, launches: dict, steps: int) -> None:
+    """Raise unless Inception-BN's training launched, over ``steps``
+    steps, 69 ``bn_fwd`` and ``bn_bwd`` and 2 ``sgd_apply`` a step and
+    each other training kernel at least once a step (phase 6's
+    counts)."""
+    check_launches(what, launches,
+                   {"bn_fwd": 69 * steps, "bn_bwd": 69 * steps,
+                    "sgd_apply": 2 * steps},
+                   {k: steps for k in TRAIN_KERNELS
+                    if k not in ("bn_fwd", "bn_bwd", "sgd_apply")})
+
+
 def phase_train(conf: str, seed: int, tmp: str):
     """Train through main.run, check the launches, hold each step
     against the plain one from the same state and the written round's
@@ -1716,13 +1761,7 @@ def phase_train(conf: str, seed: int, tmp: str):
     steps = len(box["losses"])
     if steps != TRAIN_STEPS or n_bn != 69:
         raise AssertionError(f"{steps} steps, {n_bn} batch_norm layers")
-    want = {"bn_fwd": n_bn * steps, "bn_bwd": n_bn * steps,
-            "sgd_apply": 2 * steps}
-    bad = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
-    bad.update({k: (launches[k], f">= {steps}") for k in TRAIN_KERNELS
-                if k not in want and launches[k] < steps})
-    if bad:
-        raise AssertionError(f"launches (got, want) per kernel: {bad}")
+    train_launches("train", launches, steps)
     losses = box["losses"]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite train loss: {losses}")
@@ -2367,6 +2406,326 @@ def phase_train_times(tr, plain, batches, gen) -> dict:
     return {"step_ms": step_ms, "step_plain_ms": step_plain,
             "bn_fwd_step": bn_fwd_step,
             "kernels": rows}
+
+
+# -- phase 13 -----------------------------------------------------------------
+
+#: rows of the batch tasks' pred section and the batch they run at: the
+#: last batch holds 4 real rows and 28 padded ones
+TASKS_INST, TASKS_BATCH = 100, 32
+#: classes of the pred section's synthetic data: its labels go unused,
+#: and the iterator draws num_class x 150,528 centers on the host (some
+#: seconds a run at 1000 classes)
+TASKS_PRED_CLASSES = 10
+#: steps of the continue and finetune runs (TASKS_STEPS batches of 128)
+TASKS_STEPS = 2
+#: fc1's width in the finetune run
+FINETUNE_CLASSES = 10
+#: (c, y, x) of the node ``i_5b`` that the global average pool reads
+TASKS_I5B = (1024, 7, 7)
+
+
+def tasks_cfg(conf: str, seed: int, model_path: str, out: str, task: str,
+              extra=()):
+    """``conf``'s netconfig and globals with a ``pred = <out>`` section of
+    ``iter = synthetic`` (TASKS_INST rows from ``seed``) and ``task``
+    over the round at ``model_path``, at batch TASKS_BATCH."""
+    from cxxnet_tpu_torch.config import (parse_cli_overrides,
+                                         parse_config_file, split_sections)
+    glob, _ = split_sections(parse_config_file(conf))
+    pred = [("pred", out), ("iter", "synthetic"),
+            ("num_inst", str(TASKS_INST)),
+            ("num_class", str(TASKS_PRED_CLASSES)),
+            ("input_shape", TRAIN_IMAGE), ("seed_data", str(seed + 5)),
+            ("iter", "end")]
+    return glob + pred + parse_cli_overrides([
+        f"task={task}", f"batch_size={TASKS_BATCH}", f"model_in={model_path}",
+        *extra])
+
+
+def run_counted(cfg, ready=None, quiet: str = ""):
+    """``main.run(cfg)`` with the launch counts set to 0 just before it
+    and read just after; returns (its result, launches, seconds, what it
+    printed). Printed lines that start with ``quiet`` are kept from
+    stdout (still returned)."""
+    from cxxnet_tpu_torch.main import run
+    from cxxnet_tpu_torch.ops import KERNELS, reset_launches
+    tee, old = _Tee(None if quiet else sys.stdout), sys.stdout
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    sys.stdout = tee
+    try:
+        res = run(cfg, ready=ready)
+        torch.cuda.synchronize()
+    finally:
+        sys.stdout = old
+    took = time.perf_counter() - t0
+    log = "".join(tee.parts)
+    if quiet:
+        print("".join(ln for ln in log.splitlines(True)
+                      if not ln.startswith(quiet)), end="", flush=True)
+    return (res, {k.name: k.launches for k in KERNELS.values()}, took, log)
+
+
+def _read_rows(path: str, ncol: int = 0) -> np.ndarray:
+    """A task's output: text rows, or with ``ncol`` little-endian f32."""
+    if ncol:
+        return np.fromfile(path, "<f4").reshape(-1, ncol)
+    with open(path) as f:
+        return np.array([[float(v) for v in ln.split()]
+                         for ln in f.read().splitlines()], np.float64)
+
+
+def gap_of(rows: np.ndarray, cyx):
+    """Extracted rows of a (c, y, x) node read as NHWC: each channel's
+    mean over the y*x cells in float64, and as the global average pool
+    defines it in bf16 (``pool_fwd_plain``: the f32 sum rounded to bf16,
+    times 1/(y*x) in bf16, rounded), both as (rows, c)."""
+    from cxxnet_tpu_torch.ops.fused_pool import pool_fwd_plain
+    c, y, x = cyx
+    nhwc = rows.reshape(-1, y, x, c)
+    pool = pool_fwd_plain(torch.from_numpy(np.ascontiguousarray(
+        nhwc, np.float32)).to(torch.bfloat16), y, x, "sum", True, False)
+    return (nhwc.astype(np.float64).mean((1, 2)),
+            pool.float().numpy().reshape(-1, c))
+
+
+def _ulps(got: np.ndarray, want: np.ndarray) -> float:
+    """The largest difference in bf16 units in the last place of
+    ``want`` (printed values: 6 digits hold a bf16 value to 2^-17)."""
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).clip(1e-30))) - 7)
+    return float((np.abs(got - want) / ulp).max())
+
+
+def _read(path: str) -> str:
+    with open(path) as f:
+        return f.read()
+
+
+def _check_trees(what: str, got, want, skip=()):
+    """Every leaf of ``want`` (layer -> leaf -> array) bit-equal in
+    ``got``, but for the layers of ``skip``."""
+    bad = [f"{l}/{k}" for l, d in want.items() if l not in skip
+           for k, v in d.items() if not np.array_equal(got[l][k], v)]
+    if bad or set(got) != set(want):
+        raise AssertionError(f"{what}: not bit-equal at {bad[:5]} "
+                             f"(layers {sorted(set(got) ^ set(want))[:5]})")
+
+
+def phase_tasks(conf: str, seed: int, tmp: str, tr, smi_line: str) -> dict:
+    """Phase 13: the batch tasks and resumed training on phase 6's round
+    (``<tmp>/train/0000.model``), each through ``main.run``; ``tr`` is
+    phase 6's trainer, which takes the continue run's first step from
+    the same state. Returns what the module docstring's phase 13
+    prints."""
+    from cxxnet_tpu_torch import checkpoint as ckpt
+    from cxxnet_tpu_torch.config import parse_cli_overrides, split_sections
+    from cxxnet_tpu_torch.convert import params_to_jax
+    from cxxnet_tpu_torch.io import create_iterator
+    from cxxnet_tpu_torch.ops import reset_launches
+    t_phase = time.perf_counter()
+    c5, y5, x5 = TASKS_I5B
+    round_path = os.path.join(tmp, "train", "0000.model")
+    blob = ckpt.load_model(round_path)
+    out_dir = os.path.join(tmp, "tasks")
+    os.makedirs(out_dir)
+    n_fwd = -(-TASKS_INST // TASKS_BATCH)
+
+    def forward_task(task, name, extra=(), kernels=True):
+        """Run ``task`` into ``name``; with ``kernels`` every forward
+        launched the serve kernels, else no kernel launched (the plain
+        versions, or a task without a forward)."""
+        out = os.path.join(out_dir, name)
+        res, launches, took, log = run_counted(
+            tasks_cfg(conf, seed, round_path, out, task, extra))
+        if kernels:
+            bad = {k: launches[k] for k in SERVE_KERNELS
+                   if launches[k] < n_fwd or launches[k] % n_fwd}
+            if bad:
+                raise AssertionError(f"task = {task}: launches {bad} over "
+                                     f"{n_fwd} forwards ({launches})")
+        elif any(launches.values()):
+            raise AssertionError(f"task = {task} {extra} launched kernels: "
+                                 f"{launches}")
+        if f"write into {out}" not in log:
+            raise AssertionError(f"task = {task}: no 'write into {out}'")
+        return res, out, launches, took
+
+    # pred_raw with the kernels and with fused_kernels = 0
+    tr_raw, raw_path, raw_launches, raw_s = forward_task("pred_raw", "raw.txt")
+    _, plain_path, _, _ = forward_task("pred_raw", "plain.txt",
+                                       ["fused_kernels=0"], kernels=False)
+    raw, plain = _read_rows(raw_path), _read_rows(plain_path)
+    if raw.shape != (TASKS_INST, TRAIN_CLASSES) or not np.isfinite(raw).all():
+        raise AssertionError(f"pred_raw rows {raw.shape}, finite "
+                             f"{np.isfinite(raw).all()}")
+    if np.abs(raw.sum(1) - 1.0).max() > 1e-3:
+        raise AssertionError("pred_raw rows do not sum to 1")
+    raw_err = float(np.abs(raw - plain).max())
+    srt = np.sort(plain, 1)
+    sure = srt[:, -1] - srt[:, -2] > 0.05
+    if raw_err > 2e-2 or (raw.argmax(1)[sure] != plain.argmax(1)[sure]).any():
+        raise AssertionError(f"pred_raw vs fused_kernels=0: max diff "
+                             f"{raw_err} (atol 2e-2) or top-1 differs")
+    # pred: each id among the classes of the row's largest printed value
+    _, pred_path, _, _ = forward_task("pred", "pred.txt")
+    ids = _read_rows(pred_path)[:, 0].astype(np.int64)
+    if ids.shape != (TASKS_INST,) or not all(
+            raw[i, j] == raw[i].max() for i, j in enumerate(ids)):
+        raise AssertionError("pred's ids are not the argmax of pred_raw")
+    # extract at gap (txt) and i_5b (bin); gap is i_5b's channel mean
+    _, gap_path, _, _ = forward_task(
+        "extract", "gap.txt", ["extract_node_name=gap"])
+    _, i5b_path, _, _ = forward_task(
+        "extract", "i_5b.bin", ["extract_node_name=i_5b", "output_format=bin"])
+    metas = [_read(p + ".meta") for p in (gap_path, i5b_path)]
+    if metas != [f"{TASKS_INST},{c5},1,1\n",
+                 f"{TASKS_INST},{c5},{y5},{x5}\n"]:
+        raise AssertionError(f"extract .meta files: {metas}")
+    gap = _read_rows(gap_path)
+    i5b = _read_rows(i5b_path, c5 * y5 * x5)
+    mean, want = gap_of(i5b, TASKS_I5B)
+    # the true mean, beside the check: the pool's three bf16 roundings
+    mean_err = float((np.abs(gap - mean) / np.abs(mean).clip(1e-30)).max())
+    gap_err = _ulps(gap, want)
+    if gap.shape != want.shape or gap_err > 1.0:
+        raise AssertionError(f"gap vs the pool of i_5b's NHWC rows: "
+                             f"{gap_err} bf16 ulp (tol 1)")
+    # get_weight: fc1's wmat bit-equal to the round's
+    _, w_path, _, _ = forward_task(
+        "get_weight", "fc1.bin", ["extract_layer_name=fc1",
+                                  "weight_name=wmat", "output_format=bin"],
+        kernels=False)
+    want_w = blob["params"]["fc1"]["wmat"]
+    got_w = _read_rows(w_path, want_w.shape[1])
+    if _read(w_path + ".meta") != f"{c5} {TRAIN_CLASSES}\n" or \
+            not np.array_equal(got_w, want_w):
+        raise AssertionError("get_weight fc1 wmat differs from the round")
+    # the pred_raw forward a batch of TASKS_BATCH, kernels and plain
+    net = tr_raw.net
+    c, y, x = net.graph.input_shape
+    data = torch.randn((TASKS_BATCH, y, x, c), device=net.device,
+                       generator=torch.Generator(device=net.device)
+                       .manual_seed(seed))
+    fwd_ms = time_forward(lambda: net(data))
+    fwd_plain_ms = time_forward(lambda: net(data, fused=False))
+    del tr_raw, net, data
+    torch.cuda.empty_cache()
+    print(f"tasks: pred, pred_raw, extract, get_weight through main.run "
+          f"from phase 6's round ({TASKS_INST} rows at batch {TASKS_BATCH}, "
+          f"the last padded) | pred_raw launches "
+          f"{ {k: raw_launches[k] for k in SERVE_KERNELS} } over {n_fwd} "
+          f"forwards, rows sum to 1, vs fused_kernels=0 max diff "
+          f"{raw_err:.3g} (atol 2e-2), top-1 equal on {int(sure.sum())} "
+          f"sure rows | pred ids = argmax of pred_raw | extract .meta "
+          f"{metas[0].strip()} and {metas[1].strip()}, gap vs the pool of "
+          f"i_5b's rows read as NHWC {gap_err:.3g} bf16 ulp (tol 1; vs their "
+          f"f64 channel mean rel {mean_err:.3g}) | get_weight fc1 wmat "
+          f"bit-equal | pred_raw task {raw_s:.2f} s end to end (round load "
+          f"and net build included), {TASKS_INST / raw_s:.1f} images/s | "
+          f"forward at batch {TASKS_BATCH} {fwd_ms:.3f} ms, fused_kernels=0 "
+          f"{fwd_plain_ms:.3f} ms | {smi_line}", flush=True)
+
+    # continue = 1 over phase 6's train section cut to TASKS_STEPS steps
+    cont_dir = os.path.join(tmp, "continue")
+    os.makedirs(cont_dir)
+    shutil.copy(round_path, cont_dir)
+    box = {"losses": []}
+
+    def ready_continue(t):
+        p, o, st = _snap(t)
+        _check_trees("continue: params", p, blob["params"])
+        _check_trees("continue: momenta", o["mom"], blob["opt"]["mom"])
+        _check_trees("continue: BN state", st, blob["state"])
+        box["counters"] = (t.round_counter, t.epoch_counter, t.step_count)
+        t.step_hook = lambda t2: box["losses"].append(t2.last_loss)
+        torch.cuda.synchronize()
+        reset_launches()
+
+    cfg = train_cfg(conf, seed, cont_dir, steps=TASKS_STEPS) + \
+        parse_cli_overrides(["continue=1", "num_round=2"])
+    t_cont, cont_launches, cont_s, log = run_counted(cfg, ready_continue)
+    t_cont.step_hook = None
+    del t_cont
+    if "continuing from round 0 (" not in log:
+        raise AssertionError("continue = 1 did not print 'continuing from "
+                             "round 0'")
+    if box["counters"] != (0, 4, 4):
+        raise AssertionError(f"continue: round, epoch, step count "
+                             f"{box['counters']}, want (0, 4, 4)")
+    train_launches("continue", cont_launches, TASKS_STEPS)
+    if not os.path.exists(os.path.join(cont_dir, "0001.model")):
+        raise AssertionError("continue = 1 wrote no 0001.model")
+    glob, secs = split_sections(cfg)
+    first = next(iter(create_iterator(
+        glob + [p for kind, _, p in secs if kind == "data"][0])))
+    _load(tr, (blob["params"], blob["opt"], blob["state"]), 4)
+    tr.update(first)
+    ref = tr.last_loss
+    got = box["losses"][0]
+    cont_err = abs(got - ref) / max(1.0, abs(ref))
+    if len(box["losses"]) != TASKS_STEPS or not cont_err <= 2e-2:
+        raise AssertionError(f"continue: losses {box['losses']}, first vs "
+                             f"phase 6's trainer from the round {ref} "
+                             f"(tol 2e-2 of max(1, |loss|))")
+
+    # finetune from the round with fc1 at FINETUNE_CLASSES
+    ft_dir = os.path.join(tmp, "finetune")
+    cfg = train_cfg(conf, seed, ft_dir, steps=TASKS_STEPS) + \
+        parse_cli_overrides(["task=finetune", f"model_in={round_path}"])
+    at = cfg.index(("layer[flat->fc]", "fullc:fc1")) + 1
+    if cfg[at] != ("nhidden", str(TRAIN_CLASSES)):
+        raise AssertionError(f"fc1's width is not at {at}: {cfg[at]}")
+    cfg[at] = ("nhidden", str(FINETUNE_CLASSES))
+    cfg = [("num_class", str(FINETUNE_CLASSES)) if kv[0] == "num_class"
+           else kv for kv in cfg]
+
+    def ready_finetune(t):
+        got_p = params_to_jax(t.params, {})[0]
+        _check_trees("finetune: copied layers", got_p, blob["params"],
+                     skip=("fc1",))
+        fresh = params_to_jax(*t.net.init(
+            torch.Generator().manual_seed(t.seed)))[0]["fc1"]
+        _check_trees("finetune: fc1's fresh draw", {"fc1": got_p["fc1"]},
+                     {"fc1": fresh})
+        box["fc1"] = got_p["fc1"]["wmat"].shape
+        torch.cuda.synchronize()
+        reset_launches()
+
+    _, ft_launches, ft_s, log = run_counted(
+        cfg, ready_finetune, quiet="CopyModelFrom: copied layer")
+    if "CopyModelFrom: shape mismatch, skip layer 'fc1'" not in log or \
+            box["fc1"] != (c5, FINETUNE_CLASSES):
+        raise AssertionError(f"finetune: fc1 {box['fc1']}, no skip line")
+    train_launches("finetune", ft_launches, TASKS_STEPS)
+    if not os.path.exists(os.path.join(ft_dir, "0000.model")):
+        raise AssertionError("finetune wrote no 0000.model")
+    seconds = time.perf_counter() - t_phase
+    print(f"tasks: continue = 1 (num_round 2, {TASKS_STEPS} steps) resumed "
+          f"round 0 bit-equal (params, momenta, BN state; round, epoch, "
+          f"step count {box['counters']}), losses "
+          f"{[round(v, 4) for v in box['losses']]}, first step vs phase 6's "
+          f"trainer from the round {cont_err:.3g} of max(1,|loss|) (tol "
+          f"2e-2), launches per step bn_fwd {cont_launches['bn_fwd'] // TASKS_STEPS}"
+          f" bn_bwd {cont_launches['bn_bwd'] // TASKS_STEPS} sgd_apply "
+          f"{cont_launches['sgd_apply'] // TASKS_STEPS}, 0001.model written, "
+          f"{cont_s:.1f} s | finetune fc1 -> {FINETUNE_CLASSES} classes: "
+          f"every other layer copied bit-equal, fc1 its fresh draw, "
+          f"launches per step bn_fwd {ft_launches['bn_fwd'] // TASKS_STEPS} "
+          f"sgd_apply {ft_launches['sgd_apply'] // TASKS_STEPS}, "
+          f"0000.model written, {ft_s:.1f} s | phase {seconds:.1f} s | "
+          f"{smi_line}", flush=True)
+    return {"pred_raw_s": raw_s, "pred_raw_images_per_s": TASKS_INST / raw_s,
+            "forward_ms": fwd_ms, "forward_plain_ms": fwd_plain_ms,
+            "pred_raw_vs_plain": raw_err, "gap_vs_i5b_pool_ulp": gap_err,
+            "gap_vs_i5b_mean": mean_err,
+            "continue_losses": box["losses"], "continue_first_vs_tr": cont_err,
+            "continue_s": cont_s, "finetune_s": ft_s, "seconds": seconds,
+            "launches": {"pred_raw": {k: raw_launches[k]
+                                      for k in SERVE_KERNELS},
+                         "continue": cont_launches,
+                         "finetune": ft_launches}}
 
 
 # -- phase 7 ------------------------------------------------------------------
@@ -4199,17 +4558,19 @@ def phase_stem_kernels(gen: torch.Generator) -> dict:
 
 
 class _Tee:
-    """stdout that is also kept: the phase reads the run's log."""
+    """stdout that is also kept: the phase reads the run's log (kept
+    only, with ``out`` None)."""
 
     def __init__(self, out):
         self.out, self.parts = out, []
 
     def write(self, s):
         self.parts.append(s)
-        return self.out.write(s)
+        return len(s) if self.out is None else self.out.write(s)
 
     def flush(self):
-        self.out.flush()
+        if self.out is not None:
+            self.out.flush()
 
 
 def phase_imgrec(conf: str, seed: int, tmp: str, extra=()):
@@ -4481,12 +4842,15 @@ def main(argv=None) -> int:
         del engine
         tr, plain_tr, batches, launches, notes = phase_train(
             args.conf, args.seed, tmp)
+        mark("train")
+        tasks = phase_tasks(args.conf, args.seed, tmp, tr, smi_line)
+        mark("tasks")
     train_times = phase_train_times(tr, plain_tr, batches, gen)
     glob = [kv for kv in plain_tr.cfg if kv[0] != "fused_kernels"]
     del tr, plain_tr
     torch.cuda.empty_cache()
     f32 = phase_train_f32(batches, notes["init"], glob)
-    mark("train")
+    mark("train times")
     with tempfile.TemporaryDirectory() as tmp:
         tr, kern, plain_tr, lm_batches, lm_launches, lm_notes = phase_lm(
             args.seed, tmp)
@@ -4561,6 +4925,7 @@ def main(argv=None) -> int:
                              if k != "bound"},
               "train": {k: v for k, v in notes.items() if k != "init"},
               "train_f32": f32,
+              "tasks": tasks,
               "lm_step_ms": lm_times["step_ms"],
               "lm_step_plain_ms": lm_times["step_plain_ms"],
               "lm": lm_notes, "lm_profile": lm_times["profile"],

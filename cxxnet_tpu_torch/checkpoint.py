@@ -19,6 +19,12 @@ resumes, in the JAX package;
 ``convert.params_from_jax`` / ``params_to_jax`` change layouts. A
 PTQ-derived round (``quant/``) holds int8 ``wmat`` leaves and carries
 ``__quant_meta__`` in its meta JSON (:func:`quant_meta`).
+
+The resume scan (:func:`find_latest_valid`, what ``continue = 1``
+reads) takes the newest round of a ``model_dir`` that verifies, skipping
+a torn or digest-failing one, and sweeps the temp files a writer killed
+before its rename left behind. :func:`copy_model_from` is finetune's
+copy by layer name.
 """
 
 from __future__ import annotations
@@ -27,8 +33,10 @@ import hashlib
 import io
 import json
 import os
+import re
+import time
 import zipfile
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -211,3 +219,130 @@ def verify_model(path: str) -> Dict[str, Any]:
 def model_path(model_dir: str, round_counter: int) -> str:
     return os.path.join(model_dir, "%04d.model" % round_counter)
 
+
+
+# -- the resume scan ----------------------------------------------------------
+
+#: ``%04d`` pads and does not truncate: round 10000 writes
+#: ``10000.model``, so the scan takes 4 digits or more
+_MODEL_RE = re.compile(r"^(\d{4,})\.model$")
+#: a shard-set round directory of the JAX package's ``shard_ckpt = 1``
+_ROUND_DIR_RE = re.compile(r"^r(\d{4,})$")
+#: what :func:`save_model` writes before its rename: ``<round>.<pid>.tmp``
+_TMP_RE = re.compile(r"^\d{4,}\.model\.(\d+)\.tmp$")
+#: a temp file younger than this may be a live writer's in another
+#: process (a serve or a second run sharing ``model_dir``) and is kept
+TMP_SWEEP_MIN_AGE_S = 600.0
+#: what a scan says of the shard-set rounds it skips
+SHARD_SET = ("ROADMAP Queue A 11 (sharded checkpoints): the PyTorch port "
+             "does not read shard-set rounds yet")
+
+
+def _scan_rounds(model_dir: str) -> List[Tuple[int, str]]:
+    """Every ``%04d.model`` round of ``model_dir`` as (round, path),
+    newest first. Shard-set directories (``r%04d``) are skipped, named
+    in one line a scan."""
+    if not os.path.isdir(model_dir):
+        return []
+    out, shard_sets = [], []
+    for fn in os.listdir(model_dir):
+        m = _MODEL_RE.match(fn)
+        if m:
+            out.append((int(m.group(1)), os.path.join(model_dir, fn)))
+        elif _ROUND_DIR_RE.match(fn) and \
+                os.path.isdir(os.path.join(model_dir, fn)):
+            shard_sets.append(fn)
+    if shard_sets:
+        print(f"checkpoint scan: skipping {len(shard_sets)} shard-set "
+              f"round(s) in {model_dir} ({', '.join(sorted(shard_sets))}): "
+              f"{SHARD_SET}", flush=True)
+    out.sort(reverse=True)
+    return out
+
+
+def find_latest(model_dir: str) -> Optional[Tuple[int, str]]:
+    """The newest ``%04d.model`` of ``model_dir`` as (round, path),
+    unverified; None when there is none."""
+    rounds = _scan_rounds(model_dir)
+    return rounds[0] if rounds else None
+
+
+def _sweep_orphans(model_dir: str, verbose: bool) -> None:
+    """Delete the temp files of :func:`save_model` that a writer killed
+    between its write and its rename left in ``model_dir``: never this
+    process's own, and never one younger than TMP_SWEEP_MIN_AGE_S."""
+    for fn in os.listdir(model_dir):
+        m = _TMP_RE.match(fn)
+        if m is None or int(m.group(1)) == os.getpid():
+            continue
+        path = os.path.join(model_dir, fn)
+        try:
+            if time.time() - os.path.getmtime(path) < TMP_SWEEP_MIN_AGE_S:
+                continue
+            os.remove(path)
+            if verbose:
+                print(f"checkpoint scan: swept orphan {fn}")
+        except OSError:
+            pass                  # a racing writer owns it; leave it
+
+
+def find_latest_valid(model_dir: str, sweep_tmp: bool = True,
+                      verbose: bool = False, want_blob: bool = False):
+    """The scan of ``continue = 1``: the newest round of ``model_dir``
+    that reads whole and verifies its digests, falling back round by
+    round past torn or corrupt ones (each named with ``verbose``).
+    ``sweep_tmp`` first deletes stale temp files (:func:`_sweep_orphans`).
+    Returns (round, path), or with ``want_blob`` (round, path, blob),
+    the blob being :func:`load_model`'s of the verified round, so a
+    resume reads the archive once; None when no round verifies."""
+    if sweep_tmp and os.path.isdir(model_dir):
+        _sweep_orphans(model_dir, verbose)
+    for r, path in _scan_rounds(model_dir):
+        try:
+            blob = load_model(path)
+        except (CheckpointCorrupt, OSError) as e:
+            if verbose:
+                print(f"checkpoint scan: skipping invalid {path}: {e}")
+            continue
+        return (r, path, blob) if want_blob else (r, path)
+    return None
+
+
+# -- finetune ------------------------------------------------------------------
+
+def _tree_matches(dst: Any, src: Any) -> bool:
+    """Whether ``src`` holds every key of ``dst``, nested, with leaves of
+    the same shapes."""
+    if isinstance(dst, dict):
+        return (isinstance(src, dict) and set(src) >= set(dst)
+                and all(_tree_matches(v, src[k]) for k, v in dst.items()))
+    return not isinstance(src, dict) and np.shape(src) == np.shape(dst)
+
+
+def _tree_copy(dst: Any, src: Any) -> Any:
+    """``src``'s leaves in ``dst``'s structure (``dst``'s keys only)."""
+    if isinstance(dst, dict):
+        return {k: _tree_copy(v, src[k]) for k, v in dst.items()}
+    return np.asarray(src)
+
+
+def copy_model_from(dst_params: Dict[str, Any], src_params: Dict[str, Any],
+                    verbose: bool = True) -> Dict[str, Any]:
+    """Finetune's copy by layer name, in the JAX layout: a layer of
+    ``dst_params`` whose name is in ``src_params`` with every nested
+    leaf of the same shape takes the source's arrays; every other layer
+    keeps its own (its fresh initialisation). Layers go in name order,
+    as the JAX package's params pytree holds them, so both print the
+    same lines."""
+    out = {}
+    for lname, lp in sorted(dst_params.items()):
+        if lname in src_params:
+            if _tree_matches(lp, src_params[lname]):
+                out[lname] = _tree_copy(lp, src_params[lname])
+                if verbose:
+                    print(f"CopyModelFrom: copied layer {lname!r}")
+                continue
+            if verbose:
+                print(f"CopyModelFrom: shape mismatch, skip layer {lname!r}")
+        out[lname] = lp
+    return out

@@ -285,10 +285,6 @@ _A3 = "Queue A 3, still queued: "
 #: training keys of features the port does not train with yet ->
 #: (predicate "holds its off value", ROADMAP item)
 TRAIN_NOT_YET = {
-    "continue": (lambda v: _same_value(v, "0"),
-                 _A3 + "continue = 1 and finetune"),
-    "model_in": (lambda v: v.strip() == "NULL",
-                 _A3 + "continue = 1 and finetune (start from a round)"),
     "compute_dtype": (lambda v: _DTYPE_NAMES.get(v.strip().lower())
                       != "float16", _A3 + "the fp16 loss scaler"),
     "update_period": (lambda v: _same_value(v, "1"), _A3 + "update_period"),

@@ -1,6 +1,9 @@
-"""Task driver CLI of the PyTorch port: ``task = train`` and ``serve``.
+"""Task driver CLI of the PyTorch port: ``task = train``, ``finetune``,
+``pred``, ``pred_raw``, ``extract`` (``extract_feature``),
+``get_weight`` and ``serve``.
 
     python -m cxxnet_tpu_torch.main <conf> [task=train] [key=value ...]
+    python -m cxxnet_tpu_torch.main <conf> task=pred_raw model_in=<round>.model
     python -m cxxnet_tpu_torch.main <conf> task=serve model_in=<round>.model \\
         [serve_port=8080 serve_max_batch=32 serve_buckets=1,8,32 ...]
 
@@ -8,14 +11,21 @@ The config file plus ``key=value`` overrides, as in
 ``python -m cxxnet_tpu.main``, on the device the config's ``dev`` names
 (the card unless ``dev = cpu``).
 
-``task = train`` (the default) trains from fresh weights for rounds
-``start_counter`` .. ``num_round - 1`` (capped by ``max_round``) over the
+``task = train`` (the default) trains for rounds ``start_counter`` ..
+``num_round - 1`` (capped by ``max_round``) over the
 ``data = ...`` section, printing the JAX package's progress lines every
 ``print_step`` batches and its round line ``round N:[T sec]`` with the
 train metrics and one fragment per ``eval = <name>`` section; every
 ``save_period`` rounds (``save_model = 1``) and at the end it writes
 ``<model_dir>/%04d.model`` with the optimizer state, a round the JAX
-package loads and resumes.
+package loads and resumes. The weights come from the first of: with
+``continue = 1``, the newest round of ``model_dir`` that verifies (torn
+rounds skipped; params, optimizer state and counters restored, training
+goes on at the round after it); the round named by ``model_in``
+(training goes on at the round after it); fresh weights drawn from
+``seed``. ``task = finetune`` trains the same way, but takes from
+``model_in`` only the layers whose name and shapes match the net, which
+keeps its fresh draw elsewhere, and starts at ``start_counter``.
 
 With several cards in ``dev`` (``gpu:0-1``, ``gpu:0,2``) ``task = train``
 runs data-parallel: one process per card (NCCL), the global
@@ -23,9 +33,10 @@ runs data-parallel: one process per card (NCCL), the global
 gradient all-reduce a step; rank 0 alone prints and writes rounds, and a
 rank that fails fails the run (:mod:`cxxnet_tpu_torch.parallel`).
 
-``task = serve``: iterator sections are never opened; the round named by
-``model_in`` (a ``%04d.model`` written by either package) is served over
-HTTP until SIGINT/SIGTERM. ``serve_dtype = int8`` serves a round
+``task = serve``: iterator sections are never opened; the newest valid
+round of ``model_dir`` with ``continue = 1``, else the round named by
+``model_in`` (a ``%04d.model`` written by either package), is served
+over HTTP until SIGINT/SIGTERM. ``serve_dtype = int8`` serves a round
 quantized by ``python -m cxxnet_tpu_torch.quant`` (or the JAX package's
 ``tools/quantize.py``) as version ``rNNNN-int8``; an fp engine serves a
 quantized round dequantized.
@@ -38,19 +49,34 @@ that resolves ``device_normalize`` to 1 feeds uint8 batches that the
 train step normalizes on the card (the input fold). The chains' threads
 are stopped when the task ends.
 
-The other tasks (finetune, pred, pred_raw, extract, get_weight) wait for
-later slices (ROADMAP Queue A 2 and A 3).
+The batch tasks run on one device over the ``pred = <file>`` section
+(the ``data`` section when there is none) with the weights of
+``continue = 1`` or ``model_in`` as above, through the eval forward, and
+write ``name_pred`` (default: the pred section's file name, else
+``pred.txt``): ``pred`` one class id a line, ``pred_raw`` one row of the
+top node a line, ``extract`` the rows of ``extract_node_name`` (default
+``top``) with a ``.meta`` sidecar ``nrow,c,y,x``, and ``get_weight`` the
+weight ``weight_name`` (default ``wmat``) of ``extract_layer_name``,
+in the JAX package's layout, as rows of its first axis, to
+``weight_filename`` (default ``name_pred``) with a ``.meta`` of its
+shape. ``output_format = txt`` (the default) writes ``%g`` values
+separated by spaces; ``bin`` raw little-endian float32 (extract and
+get_weight). The files are the JAX package's, byte for byte where the
+values are.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import os
+import re
 import sys
 import threading
 import time
 from typing import Any, Callable, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from . import checkpoint as ckpt
@@ -75,11 +101,6 @@ def task_serve(cfg: ConfigPairs,
     gp = lambda n, d: global_param(cfg, n, d)
     sc = parse_serve_config(cfg)
     silent = bool(int(gp("silent", "0")))
-    if int(gp("continue", "0")):
-        raise ConfigError(
-            "continue = 1: the PyTorch port serves the round named by "
-            "model_in; the resume scan comes with resumed training "
-            "(ROADMAP Queue A 3, still queued: continue = 1 and finetune)")
     # float32 policies compute in full float32 (no TF32 in cuDNN convs
     # or cuBLAS matmuls), as the JAX package's float32 does on the CPU;
     # bfloat16 / float16 policies are unaffected
@@ -88,9 +109,17 @@ def task_serve(cfg: ConfigPairs,
     graph = build_graph(cfg)
     net = Network(graph, cfg)
     model_in = gp("model_in", "NULL")
-    blob = None
-    if model_in != "NULL":
-        blob = ckpt.load_for_inference(model_in)
+    # the newest valid round with continue = 1 (its blob read once, by
+    # the scan), else model_in, else random weights
+    model_path = blob = None
+    if int(gp("continue", "0")):
+        latest = _agree_latest(gp("model_dir", "./models"), silent,
+                               want_blob=True)
+        if latest is not None:
+            _, model_path, blob = latest
+    if blob is None and model_in != "NULL":
+        model_path, blob = model_in, ckpt.load_for_inference(model_in)
+    if blob is not None:
         ckpt.check_structure(blob["meta"], graph.structure_signature())
         # dtype negotiation: serve_dtype = int8 demands a PTQ-derived
         # round; an fp engine dequantizes a quantized one on load
@@ -98,10 +127,10 @@ def task_serve(cfg: ConfigPairs,
         net.load_weights(*params_from_jax(placed["params"],
                                           placed["state"]))
         if not silent:
-            print(f"serving model {model_in}", flush=True)
+            print(f"serving model {model_path}", flush=True)
     else:
         if not silent:
-            print("serve: no model_in given — serving a RANDOMLY "
+            print("serve: no model_in/continue given — serving a RANDOMLY "
                   "INITIALIZED model (smoke mode)", flush=True)
         net.load_weights(*net.init(torch.Generator().manual_seed(0)))
     engine = InferenceEngine(net, buckets=sc.buckets or None,
@@ -127,12 +156,66 @@ def task_serve(cfg: ConfigPairs,
     srv.serve_until_interrupt()
 
 
-def _train_rounds(tr: Trainer, gp, itr_train, evals) -> int:
-    """The JAX package's round loop (main.py:1023-1167, its single-device
-    and dp parts; under dp every rank runs it, rank 0 alone prints);
-    returns the last round run."""
-    start = time.time()
+def _agree_latest(model_dir: str, silent: bool,
+                  dp: Optional[DpContext] = None, want_blob: bool = False):
+    """The round ``continue = 1`` resumes: ``find_latest_valid`` of
+    ``model_dir`` (torn rounds skipped, named unless ``silent``). Under
+    dp every rank scans, and the ranks all-gather the round they found
+    and raise if they differ (``model_dir`` must be one directory that
+    every rank sees)."""
+    latest = ckpt.find_latest_valid(model_dir, verbose=not silent,
+                                    want_blob=want_blob)
+    if dp is not None and dp.world > 1:
+        dev = dp.device if dp.backend == "nccl" else torch.device("cpu")
+        mine = torch.zeros(dp.world, dtype=torch.int64, device=dev)
+        mine[dp.rank] = -1 if latest is None else latest[0]
+        rounds = sorted({int(r) for r in dp.all_reduce(mine).tolist()})
+        if len(rounds) != 1:
+            raise RuntimeError(
+                "continue=1: ranks resolved different latest checkpoint "
+                f"rounds {rounds}; model_dir must be on a shared "
+                "filesystem visible to every rank")
+    return latest
+
+
+def _init_model(tr: Trainer, cfg: ConfigPairs) -> int:
+    """Place the trainer's weights as the JAX package's
+    ``LearnTask._init_model`` does and return the first round to run:
+    the newest valid round of ``model_dir`` with ``continue = 1`` (the
+    round after it), else ``model_in`` (finetune: copied by layer name
+    into fresh weights, ``start_counter``; any other task: the round
+    after it), else fresh weights (``start_counter``)."""
+    gp = lambda n, d: global_param(cfg, n, d)
     start_counter = int(gp("start_counter", "0"))
+    silent = bool(int(gp("silent", "0"))) or (tr.dp is not None
+                                              and not tr.dp.is_main)
+    if int(gp("continue", "0")):
+        latest = _agree_latest(gp("model_dir", "./models"), silent, tr.dp,
+                               want_blob=True)
+        if latest is not None:
+            r, path, blob = latest
+            tr.load_blob(blob)
+            if not silent:
+                print(f"continuing from round {r} ({path})", flush=True)
+            return r + 1
+    model_in = gp("model_in", "NULL")
+    if model_in == "NULL":
+        tr.init_model()
+        return start_counter
+    if gp("task", "train") == "finetune":
+        tr.init_model()
+        tr.copy_model_from(model_in)
+        return start_counter
+    tr.load_model(model_in)
+    return tr.round_counter + 1
+
+
+def _train_rounds(tr: Trainer, gp, itr_train, evals,
+                  start_counter: int) -> int:
+    """The JAX package's round loop (main.py:1023-1167, its single-device
+    and dp parts; under dp every rank runs it, rank 0 alone prints) from
+    round ``start_counter``; returns the last round of the run."""
+    start = time.time()
     num_round = int(gp("num_round", "10"))
     max_round = int(gp("max_round", "0"))
     print_step = int(gp("print_step", "100"))
@@ -173,10 +256,11 @@ def _train_rounds(tr: Trainer, gp, itr_train, evals) -> int:
 def task_train(cfg: ConfigPairs, sections,
                ready: Optional[Callable[[Trainer], None]] = None,
                dp: Optional[DpContext] = None) -> Trainer:
-    """Train from fresh weights over the ``data`` section, evaluating on
-    each ``eval`` section after every round; ``ready`` is handed the
-    initialized trainer before the first step. Under ``dp`` this is one
-    rank's part of a data-parallel run. Returns the trainer."""
+    """``task = train`` or ``finetune`` over the ``data`` section from
+    the weights :func:`_init_model` places, evaluating on each ``eval``
+    section after every round; ``ready`` is handed the initialized
+    trainer before the first step. Under ``dp`` this is one rank's part
+    of a data-parallel run. Returns the trainer."""
     gp = lambda n, d: global_param(cfg, n, d)
     # float32 policies compute in full float32 (no TF32 in cuDNN convs
     # or cuBLAS matmuls), as the JAX package's float32 does on the CPU
@@ -197,10 +281,10 @@ def task_train(cfg: ConfigPairs, sections,
         save_model = int(gp("save_model", "1"))
         if save_model:
             os.makedirs(model_dir, exist_ok=True)
-        tr.init_model()
+        start_counter = _init_model(tr, cfg)
         if ready is not None:
             ready(tr)
-        last = _train_rounds(tr, gp, chains[0], evals)
+        last = _train_rounds(tr, gp, chains[0], evals, start_counter)
         final = ckpt.model_path(model_dir, last)
         if save_model and last >= 0 and not os.path.exists(final):
             tr.save_model(final)
@@ -234,41 +318,192 @@ def task_train_dp(cfg: ConfigPairs, sections, devices: Sequence[Any],
            backend=backend)
 
 
+# -- the batch tasks ------------------------------------------------------------
+
+#: a ``scheme://`` path (gs://, s3://, hdfs://, ...)
+_REMOTE_RE = re.compile(r"^[a-zA-Z][a-zA-Z0-9+.\-]*://")
+
+
+def _open_out(path: str, mode: str = "w"):
+    """A local output file (``mode`` "w" text, "wb" binary); a
+    ``scheme://`` path raises."""
+    if _REMOTE_RE.match(path):
+        raise ConfigError(
+            f"{path}: the PyTorch port writes local files only; remote "
+            "output streams wait for ROADMAP Queue A 2 (remote streams)")
+    return open(path, mode)
+
+
+def _fmt_row(row) -> str:
+    """One output line: the values as ``%g``, separated by spaces."""
+    return " ".join(f"{float(v):g}" for v in row) + "\n"
+
+
+def _output_txt(cfg: ConfigPairs) -> bool:
+    """``output_format = txt`` (the default) or ``bin`` (raw
+    little-endian float32); anything else raises, a typo such as
+    ``Bin`` included."""
+    fmt = global_param(cfg, "output_format", "txt")
+    if fmt not in ("txt", "bin"):
+        raise ValueError(
+            f"output_format must be 'txt' or 'bin', got {fmt!r}")
+    return fmt != "bin"
+
+
+def _name_pred(cfg: ConfigPairs, sections) -> str:
+    """``name_pred``, by default the ``pred = <file>`` section's file
+    name, else ``pred.txt``."""
+    pred_name = next((name for kind, name, _ in sections
+                      if kind == "pred" and name), "")
+    return global_param(cfg, "name_pred", pred_name or "pred.txt")
+
+
+def _batch_trainer(cfg: ConfigPairs) -> Trainer:
+    """A trainer on one device with the weights of :func:`_init_model`."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tr = Trainer(cfg)
+    _init_model(tr, cfg)
+    return tr
+
+
+def _pred_iter(cfg: ConfigPairs, sections):
+    """The iterator of the first ``pred`` section, else of the ``data``
+    section (the caller closes its chain)."""
+    for want in ("pred", "data"):
+        pairs = next((p for kind, _, p in sections if kind == want), None)
+        if pairs is not None:
+            return create_iterator(cfg + pairs)
+    raise ValueError("no pred/data section in config")
+
+
+def task_predict(cfg: ConfigPairs, sections, raw: bool = False) -> Trainer:
+    """``task = pred``: one class id a line (``raw``, ``task =
+    pred_raw``: one row of the top node a line) to ``name_pred``."""
+    tr = _batch_trainer(cfg)
+    out = _name_pred(cfg, sections)
+    it = _pred_iter(cfg, sections)
+    try:
+        with _open_out(out) as f:
+            for batch in it:
+                if raw:
+                    f.writelines(_fmt_row(r) for r in tr.predict_raw(batch))
+                else:
+                    f.writelines(f"{float(v):g}\n"
+                                 for v in tr.predict(batch))
+    finally:
+        close_chain(it)
+    if not tr.silent:
+        print(f"finished {'raw ' if raw else ''}prediction, write into "
+              f"{out}", flush=True)
+    return tr
+
+
+def task_extract(cfg: ConfigPairs, sections) -> Trainer:
+    """``task = extract``: the rows of ``extract_node_name`` to
+    ``name_pred`` (``output_format``), and ``<name_pred>.meta`` with
+    ``nrow,c,y,x``."""
+    tr = _batch_trainer(cfg)
+    node = global_param(cfg, "extract_node_name", "top")
+    out = _name_pred(cfg, sections)
+    it = _pred_iter(cfg, sections)
+    nrow = 0
+    try:
+        txt = _output_txt(cfg)
+        with _open_out(out, "w" if txt else "wb") as f:
+            for batch in it:
+                feats = tr.extract_feature(batch, node)
+                nrow += feats.shape[0]
+                if txt:
+                    f.writelines(_fmt_row(r) for r in feats)
+                else:
+                    f.write(np.ascontiguousarray(feats, "<f4").tobytes())
+    finally:
+        close_chain(it)
+    c, y, x = tr.node_shape(node)
+    with _open_out(out + ".meta") as f:
+        f.write(f"{nrow},{c},{y},{x}\n")
+    if not tr.silent:
+        print(f"finished feature extraction, write into {out}", flush=True)
+    return tr
+
+
+def task_get_weight(cfg: ConfigPairs, sections) -> Trainer:
+    """``task = get_weight``: the weight ``weight_name`` (alias
+    ``weight_tag``, default ``wmat``) of ``extract_layer_name`` (alias
+    ``weight_layer``) in the JAX layout, as rows of its first axis, to
+    ``weight_filename`` (default ``name_pred``), and a ``.meta`` with
+    its shape."""
+    tr = _batch_trainer(cfg)
+    gp = lambda n, d: global_param(cfg, n, d)
+    layer = gp("extract_layer_name", "") or gp("weight_layer", "")
+    tag = gp("weight_name", "") or gp("weight_tag", "wmat")
+    out = gp("weight_filename", "") or _name_pred(cfg, sections)
+    if not layer:
+        raise ValueError("get_weight requires extract_layer_name=<layer>")
+    w = tr.get_weight(layer, tag)
+    w2 = w.reshape(w.shape[0], -1)
+    if _output_txt(cfg):
+        with _open_out(out) as f:
+            f.writelines(_fmt_row(r) for r in w2)
+    else:
+        with _open_out(out, "wb") as f:
+            f.write(np.ascontiguousarray(w2, "<f4").tobytes())
+    with _open_out(out + ".meta") as f:
+        f.write(" ".join(str(d) for d in w.shape) + "\n")
+    if not tr.silent:
+        print(f"finished getting weight, write into {out}", flush=True)
+    return tr
+
+
+BATCH_TASKS = {
+    "pred": task_predict,
+    "pred_raw": functools.partial(task_predict, raw=True),
+    "extract": task_extract,
+    "extract_feature": task_extract,
+    "get_weight": task_get_weight,
+}
+
+
 def run(cfg: ConfigPairs, ready: Optional[Callable] = None,
         devices: Optional[Sequence[Any]] = None,
         backend: Optional[str] = None):
     """Dispatch on ``task`` over the global settings. ``ready`` is handed
-    the listening server (serve) or the initialized trainer (train);
-    single-device train returns its :class:`Trainer`. ``devices`` and
-    ``backend`` override, for training, the ranks that ``dev`` names and
-    the collective backend (``parallel.launch``): tests run two CPU
-    ranks over gloo with ``dev = cpu`` and ``devices=("cpu", "cpu")``,
-    and two ranks can share one card with ``backend="gloo"``."""
+    the listening server (serve) or the initialized trainer (train,
+    finetune); single-device training and the batch tasks return their
+    :class:`Trainer`. ``devices`` and ``backend`` override, for
+    training, the ranks that ``dev`` names and the collective backend
+    (``parallel.launch``): tests run two CPU ranks over gloo with ``dev
+    = cpu`` and ``devices=("cpu", "cpu")``, and two ranks can share one
+    card with ``backend="gloo"``."""
     global_cfg, sections = split_sections(cfg)
     task = global_param(global_cfg, "task", "train")
-    if task == "train":
+    if task in ("train", "finetune"):
         if devices is None:
             devices = resolve_devices(global_param(global_cfg, "dev", ""))
         if len(devices) > 1:
             task_train_dp(global_cfg, sections, devices, ready, backend)
             return None
         return task_train(global_cfg, sections, ready)
-    if task != "serve":
+    if task in BATCH_TASKS:
+        return BATCH_TASKS[task](global_cfg, sections)
+    if task == "serve":
+        task_serve(global_cfg, ready)
+        return None
+    if task == "data_reader":
         raise ConfigError(
-            f"task = {task}: the PyTorch port runs task = train and serve "
-            "only so far (pred / pred_raw / extract / get_weight: ROADMAP "
-            "Queue A 2; finetune: Queue A 3, still queued: continue = 1 "
-            "and finetune)")
-    task_serve(global_cfg, ready)
-    return None
+            "task = data_reader: not in the PyTorch port yet (ROADMAP "
+            "Queue A 2, the input data service)")
+    raise ConfigError(f"unknown task {task!r}")
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     argv = argv if argv is not None else sys.argv[1:]
     ap = argparse.ArgumentParser(
         prog="cxxnet_tpu_torch",
-        description="cxxnet task driver, PyTorch/CUDA port "
-                    "(task=train|serve)")
+        description="cxxnet task driver, PyTorch/CUDA port (task=train|"
+                    "finetune|pred|pred_raw|extract|extract_feature|"
+                    "get_weight|serve)")
     ap.add_argument("config", help="config file (key=value dialect)")
     ap.add_argument("overrides", nargs="*", help="key=value overrides")
     args = ap.parse_args(argv)

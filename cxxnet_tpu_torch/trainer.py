@@ -174,6 +174,70 @@ class Trainer:
         self.step_count = int(meta.get("step_count", 0))
         self.optimizer.lr_scale = float(meta.get("lr_scale", 1.0))
 
+    def load_model(self, path: str) -> None:
+        """Restore a round from ``path`` (:meth:`load_blob`)."""
+        self.load_blob(ckpt.load_model(path))
+
+    def copy_model_from(self, path: str) -> None:
+        """Finetune's restore: the layers of the round at ``path`` whose
+        name and leaf shapes match this net's replace the current (fresh)
+        params (``checkpoint.copy_model_from``, which prints a line a
+        layer unless ``silent``); layer state, optimizer state and
+        counters stay as they are."""
+        blob = ckpt.load_model(path)
+        fresh = params_to_jax(self.params, {})[0]
+        self._set_params(ckpt.copy_model_from(
+            fresh, blob["params"], verbose=not self.silent and (
+                self.dp is None or self.dp.is_main)))
+
+    def _set_params(self, params_jax: Dict) -> None:
+        """Replace the masters by a JAX-layout params tree, keeping the
+        layer state and the optimizer state."""
+        self.net.load_weights(params_from_jax(params_jax, {})[0],
+                              self.net.state)
+        self.params = self.net.params
+        for _, v in leaves(self.params):
+            v.requires_grad_(True)
+
+    # -- weights API (the JAX package's get_weight / set_weight) -------------
+    @staticmethod
+    def _walk(tree, layer_name: str, tag: str):
+        """The leaf of ``tree`` at ``layer_name`` and ``tag``, a dotted
+        path into a nested layer (``q.wmat`` of an mha layer)."""
+        node = tree[layer_name]
+        for part in tag.split("."):
+            node = node[part]
+        return node
+
+    def get_weight(self, layer_name: str, tag: str) -> np.ndarray:
+        """A master weight as float32 numpy in the JAX package's layout
+        (a conv ``wmat`` HWIO), as the JAX package's get_weight gives it."""
+        layer = params_to_jax({layer_name: self.params[layer_name]}, {})[0]
+        return self._walk(layer, layer_name, tag)
+
+    def set_weight(self, weight: np.ndarray, layer_name: str,
+                   tag: str) -> None:
+        self.set_weights({(layer_name, tag): weight})
+
+    def set_weights(self, updates) -> None:
+        """Assign weights given in the JAX layout, ``updates`` mapping
+        (layer, dotted tag) to an array; a shape that differs from the
+        current weight's raises before anything changes."""
+        p = params_to_jax(self.params, {})[0]
+        for (layer, tag), w in updates.items():
+            cur = self._walk(p, layer, tag)
+            if tuple(np.shape(w)) != tuple(cur.shape):
+                raise ValueError(
+                    f"set_weight {layer}.{tag}: shape {np.shape(w)} != "
+                    f"{tuple(cur.shape)}")
+        for (layer, tag), w in updates.items():
+            parts = tag.split(".")
+            node = p[layer]
+            for part in parts[:-1]:
+                node = node[part]
+            node[parts[-1]] = np.asarray(w, dtype=node[parts[-1]].dtype)
+        self._set_params(p)
+
     def save_model(self, path: str) -> None:
         """Write the current round with its optimizer state (``has_opt``).
         Under dp rank 0 writes it between two barriers: once every rank
@@ -368,6 +432,54 @@ class Trainer:
                      for n in need}
             self._add_metric(self.metric, nodes, batch)
         return self._report(self.metric, name)
+
+    # -- inference (the batch tasks) -----------------------------------------
+    def _eval_rows(self, batch: DataBatch,
+                   node: Optional[str] = None) -> np.ndarray:
+        """The eval forward of :meth:`evaluate` over ``batch`` (uint8
+        batches normalized eagerly in f32): the value of ``node`` (the
+        last node when None) as float32 rows, each flattened in NHWC
+        order as the JAX package's node, the padded rows dropped."""
+        res = self.net(self._input(batch, fold=False),
+                       capture_nodes=node is not None)
+        v = res.out if node is None else res.nodes[node]
+        _, n_real = self._rows(batch)
+        return v.reshape(v.shape[0], -1)[:n_real].float().cpu().numpy()
+
+    def predict(self, batch: DataBatch) -> np.ndarray:
+        """Class ids (float32) of the real rows: the argmax of the top
+        node, or its value where the top node has one column."""
+        out = self._eval_rows(batch)
+        if out.shape[1] != 1:
+            return np.argmax(out, axis=1).astype(np.float32)
+        return out[:, 0]
+
+    def predict_raw(self, batch: DataBatch) -> np.ndarray:
+        """The top node's rows (softmax probabilities) of the real rows."""
+        return self._eval_rows(batch)
+
+    def _node(self, node_name: str) -> Optional[str]:
+        """None for the top node ('top' or 'top[-1]'), else the node's
+        name, which must be one of the graph's."""
+        if node_name in ("top", "top[-1]"):
+            return None
+        if node_name not in self.graph.node_names:
+            raise ValueError(f"unknown node name {node_name!r}")
+        return node_name
+
+    def node_shape(self, node_name: str) -> Tuple[int, int, int]:
+        """The (c, y, x) shape of one instance at a node ('top' = the
+        last node), as the extract task's ``.meta`` writes it."""
+        node = self._node(node_name)
+        if node is None:
+            return tuple(self.net.out_shape())
+        return tuple(self.net.node_shapes[self.graph.node_names.index(node)])
+
+    def extract_feature(self, batch: DataBatch,
+                        node_name: str) -> np.ndarray:
+        """The value of a node by name ('top' = the last node) as one
+        row an instance, in the JAX package's NHWC element order."""
+        return self._eval_rows(batch, self._node(node_name))
 
     def train_metric_report(self, name: str = "train") -> str:
         self._drain_pending_metric()

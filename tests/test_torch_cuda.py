@@ -1299,3 +1299,87 @@ def test_stem_wrapper_refuses_what_the_kernel_does_not_take(dev):
                                   torch.float32)
     with pytest.raises(ValueError, match="float32 on"):
         fs.fused_decode_normalize(x, torch.zeros(3), 1.0, torch.float32)
+
+
+def _narrow_224(tmp_path):
+    """Inception-BN at 1/8 of its widths on 224x224 inputs (its i_5b is
+    128x7x7, as the flagship's is 1024x7x7), bf16, on the card, with a
+    round of numpy-drawn weights and calibrated BN statistics, and a
+    pred section of 20 synthetic rows (at batch 8 the last is padded)."""
+    import os
+    import sys
+    from chip_smoke import write_round
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.join(repo, "examples", "ImageNet"))
+    from gen_inception_bn import generate
+    text = generate(scale=0.125, image_size=224, num_class=10,
+                    with_data=False) + "\ndev = gpu\nbatch_size = 8\n"
+    conf = tmp_path / "narrow.conf"
+    conf.write_text(text)
+    model = write_round(str(conf), 3, str(tmp_path), torch.device("cuda"))
+    return text + ("pred = pred.txt\niter = synthetic\n  num_inst = 20\n"
+                   "  num_class = 10\n  input_shape = 3,224,224\n"
+                   "  seed_data = 4\niter = end\n"
+                   f"model_in = {model}\n")
+
+
+def _task(text, tmp_path, name, **over):
+    """``main.run`` of ``text`` with ``over``, writing ``name``; returns
+    the launches of the run."""
+    from cxxnet_tpu_torch.config import parse_config_string
+    from cxxnet_tpu_torch.main import run
+    from cxxnet_tpu_torch.ops import reset_launches
+    over = dict(over, name_pred=str(tmp_path / name))
+    reset_launches()
+    run(parse_config_string(text + "".join(f"{k} = {v}\n"
+                                           for k, v in over.items())))
+    torch.cuda.synchronize()
+    return {k.name: k.launches for k in KERNELS.values()}
+
+
+def test_extract_at_a_7x7_node_is_nhwc_rows(dev, tmp_path):
+    """``task = extract`` at i_5b (bin) and gap (txt) on the card: the
+    .meta sidecars, and each gap row the global average pool (its plain
+    version's bf16 definition) of the i_5b row read as NHWC, within one
+    bf16 ulp (the kernel's f32 sum may round across one)."""
+    import numpy as np
+    from chip_smoke import _ulps, gap_of
+    text = _narrow_224(tmp_path)
+    _task(text, tmp_path, "i5b.bin", task="extract",
+          extract_node_name="i_5b", output_format="bin")
+    launches = _task(text, tmp_path, "gap.txt", task="extract",
+                     extract_node_name="gap")
+    assert launches["pool_fwd"] > 0 and launches["epilogue_fwd"] > 0
+    assert (tmp_path / "i5b.bin.meta").read_text() == "20,128,7,7\n"
+    assert (tmp_path / "gap.txt.meta").read_text() == "20,128,1,1\n"
+    i5b = np.fromfile(tmp_path / "i5b.bin", "<f4")
+    gap = np.loadtxt(tmp_path / "gap.txt")
+    _, want = gap_of(i5b, (128, 7, 7))
+    assert gap.shape == want.shape == (20, 128)
+    assert _ulps(gap, want) <= 1.0
+
+
+def test_pred_raw_with_the_kernels_matches_fused_kernels_0(dev, tmp_path):
+    """``task = pred_raw`` on the card with the kernels and with
+    ``fused_kernels = 0``: finite rows summing to 1 (1e-3), atol 2e-2,
+    the same top-1 wherever the margin exceeds 0.05; ``task = pred``'s
+    ids are the rows' argmax."""
+    import numpy as np
+    text = _narrow_224(tmp_path)
+    launches = _task(text, tmp_path, "raw.txt", task="pred_raw")
+    assert launches["pool_fwd"] >= 3 and launches["epilogue_fwd"] >= 3
+    plain = _task(text, tmp_path, "plain.txt", task="pred_raw",
+                  fused_kernels=0)
+    assert not any(plain.values())
+    _task(text, tmp_path, "pred.txt", task="pred")
+    got = np.loadtxt(tmp_path / "raw.txt")
+    want = np.loadtxt(tmp_path / "plain.txt")
+    ids = np.loadtxt(tmp_path / "pred.txt").astype(np.int64)
+    assert got.shape == want.shape == (20, 10)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got.sum(1), 1.0, atol=1e-3)
+    np.testing.assert_allclose(got, want, atol=2e-2)
+    srt = np.sort(want, 1)
+    sure = srt[:, -1] - srt[:, -2] > 0.05
+    np.testing.assert_array_equal(got.argmax(1)[sure], want.argmax(1)[sure])
+    assert all(got[i, j] == got[i].max() for i, j in enumerate(ids))

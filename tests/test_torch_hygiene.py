@@ -144,7 +144,7 @@ def test_lm_train_entry_point_without_cuda_raises(no_cuda):
 def test_other_tasks_and_fleet_keys_name_the_roadmap(tmp_path):
     conf = tmp_path / "ibn.conf"
     conf.write_text(IBN_TEXT)
-    for args in (["task=pred"], ["task=serve", "serve_replicas=2"],
+    for args in (["task=data_reader"], ["task=serve", "serve_replicas=2"],
                  ["task=serve", "cascade_enable=1"],
                  ["task=serve", "deploy_enable=1"]):
         with pytest.raises(ValueError, match="ROADMAP"):

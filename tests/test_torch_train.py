@@ -54,7 +54,8 @@ train step with ``fused_kernels = 0``, compiled with excess precision off
   (``has_opt``) and from which the JAX trainer takes the same next step
   as the port (the float32 step tolerances above).
 * Training keys of features outside this slice raise ``ConfigError``
-  naming their ROADMAP item unless they hold their off value.
+  naming their ROADMAP item unless they hold their off value, as do
+  ``task = data_reader`` and an unknown task.
 """
 
 import functools
@@ -572,7 +573,6 @@ def test_main_train_writes_rounds_the_jax_package_resumes(tmp_path, capsys):
 
 #: a value that switches on each training key outside this slice
 SWITCHED_ON = {
-    "continue": "1", "model_in": "/nowhere/0003.model",
     "telemetry_port": "9099",
     "compute_dtype": "float16", "update_period": "2",
     "train_chain": "4", "health": "1", "sentinel": "1",
@@ -595,10 +595,9 @@ def test_training_keys_outside_the_slice_name_their_roadmap_item(key):
     base = _cfg("ibn", "float32", "auto")
     with pytest.raises(ConfigError, match=r"ROADMAP Queue .*" + {
             "compute_dtype": "fp16 loss scaler",
-            "continue": "continue = 1 and finetune",
             "update_period": "update_period"}.get(key, "")):
         Trainer(parse_config_string(base + f'{key} = "{SWITCHED_ON[key]}"\n'))
-    off = {"model_in": "NULL", "compute_dtype": "bfloat16",
+    off = {"compute_dtype": "bfloat16",
            "update_period": "1", "train_chain": "1",
            "model_parallel": "1", "seq_parallel": "1",
            "pipeline_parallel": "1", "dist_num_proc": "1"}.get(
@@ -608,12 +607,13 @@ def test_training_keys_outside_the_slice_name_their_roadmap_item(key):
     Trainer(parse_config_string(base + f'{key} = "{off}"\n'))
 
 
-def test_task_finetune_and_batch_tasks_name_their_roadmap_item(tmp_path):
+def test_task_data_reader_and_unknown_tasks_raise(tmp_path):
     conf = tmp_path / "ibn.conf"
     conf.write_text(IBN_TEXT)
-    for task, item in (("finetune", "finetune"), ("pred", "Queue A 2"),
-                       ("extract", "Queue A 2")):
-        with pytest.raises(ConfigError, match=item):
+    for task, msg in (("data_reader", "ROADMAP Queue A 2, the input data "
+                                      "service"),
+                      ("trian", "unknown task 'trian'")):
+        with pytest.raises(ConfigError, match=msg):
             port_main.main([str(conf), "dev=cpu", f"task={task}"])
 
 

@@ -99,3 +99,10 @@ def train_step_rank(dp, cfg, weights, batches):
         losses.append(tr.last_loss)
     p, s = params_to_jax(tr.params, tr.net.state)
     return losses, (p, opt_to_jax(tr.opt_state), s)
+
+
+def agree_latest_rank(dp, dirs):
+    """The round ``continue = 1`` resumes, with this rank scanning
+    ``dirs[dp.rank]``; the ranks check that they agree."""
+    from cxxnet_tpu_torch.main import _agree_latest
+    return _agree_latest(dirs[dp.rank], True, dp)[0]
