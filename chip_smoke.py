@@ -25,7 +25,10 @@ and prints no result:
 
 1. env:     torch / CUDA versions, the card, compute capability 9.0.
 2. build:   every kernel under ``cxxnet_tpu_torch/csrc`` built with nvcc
-            for sm_90a (one nvcc per source, all at once).
+            for sm_90a (one nvcc per source, all at once), and beside
+            them the image pipeline's host libraries under ``native/``
+            with g++ (``png.cc``, ``warp.cc``, and ``nvjpeg.cc`` against
+            the CUDA toolkit's nvJPEG).
 3. kernels: each kernel against its plain PyTorch version on the card,
             at the serving and training paths' shapes, in bf16, f16 and
             f32, and at row counts the TPU kernels' gates refused (the
@@ -237,11 +240,15 @@ and prints no result:
             ``shuffle``, then ``iter = threadbuffer``; the eval section
             center-crops), only ``image_rec`` and ``image_mean``
             rewritten to files the phase writes from ``--seed``: 512
-            train and 128 val RGB PNGs of 256x256 (its own PNG writer
-            over zlib, every row filter in each image) in the port's
-            record files. Batch 128, bf16, SGD, 4 steps, one evaluation,
-            one round written; the mean image is computed on first use
-            and written, and the log must show ``device_normalize
+            train and 128 val RGB images of 256x256 in the port's record
+            files, twice: (a) as PNGs (its own PNG writer over zlib,
+            every row filter in each image), decoded by ``png.cc``; (b)
+            as JPEGs (its own numpy baseline writer, ``jpeg_encode``:
+            quality 90, 4:2:0, the Annex K tables, restart markers in
+            every fourth file), decoded by nvJPEG on the card. Each run:
+            batch 128, bf16, SGD, 4 steps, one evaluation, one round
+            written; the mean image is computed on first use and
+            written, and the log must show ``device_normalize
             auto-resolved to 1``. Launch counts, set to 0 just before
             the first step and read after each: ``stem`` 1 a step and 0
             in the evaluation, ``bn_fwd`` = ``bn_bwd`` = 69 and
@@ -249,8 +256,15 @@ and prints no result:
             0`` from the same state on the same uint8 batches with phase
             6's bounds; the folded input bit-equal to the ``input_fold =
             0`` path cast to bf16; the val crops bit-equal to the center
-            crops of the encoded arrays; the written round answers
-            finite softmax rows. Before the phases' runs, with the other
+            crops of the decoded records (the encoded arrays for PNG;
+            nvJPEG's pixels for JPEG, each at least JPEG_PSNR_MIN dB
+            from its array); the written round answers finite softmax
+            rows. Between the runs, (c) nvJPEG against the libjpeg pixels
+            of ``tests/torch_jpeg_fixture.py`` (grey, 4:4:4, 4:2:2,
+            4:2:0, progressive, restart intervals) within its
+            NVJPEG_BOUNDS, its CMYK file refused naming ROADMAP Queue A
+            2, and the fixture decoded on 8 threads at once bit-equal to
+            one thread. Before the phases' runs, with the other
             kernels, ``stem`` is held bit-equal to its plain version at
             the path shape (128x224x224x3 to bf16, a mean image), with a
             per-channel mean to f32 and f16, without a mean at a factor
@@ -258,9 +272,10 @@ and prints no result:
             C 1 and 4, and cols 4 mod 8 and odd. Times, printed and not
             gated: ``stem`` and its rate beside its bound and plain
             version, the H2D copy of one uint8 and one float32 batch,
-            the imgrec train step beside phase 6's, the train chain's
-            decoded images/s with its ``decode_threads`` and the PNG
-            decoder's alone.
+            the imgrec train step beside phase 6's, each run's train
+            chain's decoded images/s with its ``decode_threads`` (and
+            with 1), and each decoder alone (``png.cc``, nvJPEG) on 1
+            and 8 threads.
 
 13. tasks:  run right after phase 6, on its round (full-width
             Inception-BN, bf16, trained 4 steps), every task through
@@ -294,6 +309,29 @@ and prints no result:
             the runs' and the phase's seconds, the card's name and power
             limit.
 
+14. bowl:   ``examples/kaggle_bowl/bowl.conf``'s own train and eval
+            sections (``iter = imgrec`` with ``max_rotate_angle = 180``,
+            ``max_aspect_ratio = 0.5``, ``max_shear_ratio = 0.3``,
+            ``min/max_crop_size = 32/48``, ``rand_crop``, ``rand_mirror``,
+            ``shuffle`` and ``image_mean``; its netconfig at its own
+            widths, 3x40x40, 121 classes, batch 64, float32), only
+            ``image_rec`` and ``image_mean`` rewritten to JPEG records
+            the phase writes from ``--seed``: 1,024 train and 256 val
+            RGB images of 48x48, as ``gen_resize.py`` makes them. One
+            round through ``main.run``: the 16 steps of the epoch (1,024
+            records at batch 64), one evaluation, one round written; the
+            mean computed on first use. Every step's launches, set to 0
+            before it: ``epilogue_fwd`` = ``epilogue_bwd`` = the net's
+            biased conv and fullc layers (7), ``sgd_apply`` = its tag
+            groups (2), no other kernel (its 3x3/2 pools do not tile).
+            Each step held against ``fused_kernels = 0`` from the same
+            state on the same host batches (CONVNET_LOSS_TOL,
+            CONVNET_GRAD_TOL at float32); ``warp.cc`` against
+            ``warp_affine_plain`` on 8 of the phase's images within
+            BOWL_WARP_ATOL; the written round answers finite softmax
+            rows. Printed: the decoded-and-augmented images/s of the
+            train chain and the step time.
+
 Then, on lines of their own: the card's name and power limit as
 ``nvidia-smi`` reports them, the kernels JSON line, and last
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits 2 when
@@ -309,6 +347,7 @@ import os
 import pickle
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -619,11 +658,29 @@ def phase_env() -> str:
 
 # -- phase 2 ------------------------------------------------------------------
 
+def build_host_libs() -> dict:
+    """Build and load the image pipeline's host libraries (``native/``:
+    png.cc, warp.cc, nvjpeg.cc against the CUDA toolkit) with g++;
+    returns seconds per library."""
+    from cxxnet_tpu_torch.io import augment, decode
+    times = {}
+    for name, load in (("png.cc", decode._png), ("warp.cc", augment._warp),
+                       ("nvjpeg.cc", decode._nvjpeg_lib)):
+        t0 = time.perf_counter()
+        load()
+        times[name] = time.perf_counter() - t0
+    return times
+
+
 def phase_build():
+    import concurrent.futures as futures
     from cxxnet_tpu_torch.ops import KERNELS, _build
     sources = sorted({k.source for k in KERNELS.values()})
     t0 = time.perf_counter()
-    per = _build.build(sources)
+    with futures.ThreadPoolExecutor(1) as ex:
+        host = ex.submit(build_host_libs)  # g++ beside the nvcc builds
+        per = _build.build(sources)
+        host_times = host.result()
     took = time.perf_counter() - t0
     regs = []
     for src in sources:
@@ -633,7 +690,9 @@ def phase_build():
         regs.append(f"{src}: {'; '.join(used[:3]) or 'cached'}")
     print(f"build: {len(sources)} sources with nvcc for sm_90a in "
           f"{took:.1f}s ({', '.join(f'{s} {t:.1f}s' for s, t in per.items())})"
-          f" | ptxas {' | '.join(regs)}", flush=True)
+          f" | ptxas {' | '.join(regs)} | host libraries with g++ beside "
+          f"them: {', '.join(f'{k} {v:.1f}s' for k, v in host_times.items())}",
+          flush=True)
     for src in REPORT_PTXAS:
         print(f"ptxas {src}: " + ", ".join(
             f"{name} {n} registers" + (f" {sp} bytes spilled" if sp else "")
@@ -4451,6 +4510,213 @@ def png_encode(img: np.ndarray, ftypes) -> bytes:
             + chunk(b"IEND", b""))
 
 
+#: Annex K.1 quantization tables (luminance, chrominance), row-major
+JPEG_QUANT = (
+    np.array([16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+              14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+              18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113,
+              92, 49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112,
+              100, 103, 99]),
+    np.array([17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+              24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99]
+             + [99] * 32))
+_AC_LUM_VALS = bytes.fromhex(
+    "01020300041105122131410613516107227114328191a1082342b1c11552d1f0"
+    "2433627282090a161718191a25262728292a3435363738393a43444546474849"
+    "4a535455565758595a636465666768696a737475767778797a83848586878889"
+    "8a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5"
+    "c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8"
+    "f9fa")
+_AC_CHR_VALS = bytes.fromhex(
+    "000102031104052131061241510761711322328108144291a1b1c109233352f0"
+    "156272d10a162434e125f11718191a262728292a35363738393a434445464748"
+    "494a535455565758595a636465666768696a737475767778797a828384858687"
+    "88898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3"
+    "c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8"
+    "f9fa")
+#: Annex K.3 Huffman tables: (class << 4 | id) -> (code counts of lengths
+#: 1..16, symbols)
+JPEG_HUFF = {
+    0x00: ((0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0), bytes(range(12))),
+    0x01: ((0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0), bytes(range(12))),
+    0x10: ((0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d), _AC_LUM_VALS),
+    0x11: ((0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77), _AC_CHR_VALS),
+}
+_ZIGZAG = np.array(sorted(range(64), key=lambda i: (
+    (i // 8 + i % 8), (i % 8 if (i // 8 + i % 8) % 2 == 0 else i // 8))))
+
+
+def _huff_codes(counts, symbols):
+    """symbol -> (code, length) of a canonical Huffman table."""
+    out, code, k = {}, 0, 0
+    for length, n in enumerate(counts, start=1):
+        for _ in range(n):
+            out[symbols[k]] = (code, length)
+            code += 1
+            k += 1
+        code <<= 1
+    lut_code = np.zeros(256, np.int64)
+    lut_len = np.zeros(256, np.int64)
+    for s, (c, ln) in out.items():
+        lut_code[s], lut_len[s] = c, ln
+    return lut_code, lut_len
+
+
+_HUFF_LUT = {k: _huff_codes(*v) for k, v in JPEG_HUFF.items()}
+_DCT = np.array([[(np.sqrt(0.5) if u == 0 else 1.0) / 2
+                  * np.cos((2 * x + 1) * u * np.pi / 16) for x in range(8)]
+                 for u in range(8)])
+
+
+def _category(v):
+    """JPEG magnitude category (bits of |v|) and the extra bits of v."""
+    a = np.abs(v)
+    size = np.zeros_like(a)
+    nz = a > 0
+    size[nz] = np.floor(np.log2(a[nz])).astype(np.int64) + 1
+    extra = np.where(v >= 0, v, v + (1 << size) - 1)
+    return size, extra
+
+
+def _entropy_code(blocks, comp_of, restart_every):
+    """The entropy-coded segment of quantized zigzag blocks (n, 64) in
+    scan order; ``comp_of`` gives each block's component (0 = Y). Returns
+    bytes, byte-stuffed, with RST markers every ``restart_every`` MCUs
+    (given as a block count per interval, 0 = none)."""
+    n = blocks.shape[0]
+    per = restart_every if restart_every else n
+    out = bytearray()
+    for s0 in range(0, n, per):
+        seg = blocks[s0:s0 + per]
+        comp = comp_of[s0:s0 + per]
+        nb = seg.shape[0]
+        # DC differences per component within the interval
+        dc = seg[:, 0].copy()
+        diff = np.zeros(nb, np.int64)
+        for c in np.unique(comp):
+            idx = np.flatnonzero(comp == c)
+            d = dc[idx]
+            diff[idx] = d - np.concatenate([[0], d[:-1]])
+        tab = np.minimum(comp, 1)          # Y tables 0, chroma 1
+        codes, lens, keys = [], [], []
+        size, extra = _category(diff)
+        dcode = np.where(tab == 0, _HUFF_LUT[0x00][0][size],
+                         _HUFF_LUT[0x01][0][size])
+        dlen = np.where(tab == 0, _HUFF_LUT[0x00][1][size],
+                        _HUFF_LUT[0x01][1][size])
+        codes.append((dcode << size) | extra)
+        lens.append(dlen + size)
+        keys.append(np.arange(nb) * 4096)
+        # AC: nonzero coefficients with their zero runs
+        b, k = np.nonzero(seg[:, 1:])
+        k = k + 1
+        first = np.ones(len(b), bool)
+        first[1:] = b[1:] != b[:-1]
+        prev = np.where(first, 0, np.concatenate([[0], k[:-1]]))
+        run = k - prev - 1
+        v = seg[b, k]
+        asize, aextra = _category(v)
+        sym = ((run % 16) << 4) | asize
+        atab = tab[b]
+        acode = np.where(atab == 0, _HUFF_LUT[0x10][0][sym],
+                         _HUFF_LUT[0x11][0][sym])
+        alen = np.where(atab == 0, _HUFF_LUT[0x10][1][sym],
+                        _HUFF_LUT[0x11][1][sym])
+        codes.append((acode << asize) | aextra)
+        lens.append(alen + asize)
+        keys.append(b * 4096 + k * 32 + 16)
+        # ZRL (16 zeros) symbols before a coefficient with a run >= 16
+        nzrl = run // 16
+        zb = np.repeat(b, nzrl)
+        zk = np.repeat(k, nzrl)
+        zi = np.arange(len(zb)) - np.repeat(np.cumsum(nzrl) - nzrl, nzrl)
+        ztab = tab[zb]
+        codes.append(np.where(ztab == 0, _HUFF_LUT[0x10][0][0xF0],
+                              _HUFF_LUT[0x11][0][0xF0]))
+        lens.append(np.where(ztab == 0, _HUFF_LUT[0x10][1][0xF0],
+                             _HUFF_LUT[0x11][1][0xF0]))
+        keys.append(zb * 4096 + zk * 32 + zi)
+        # EOB where the last nonzero coefficient is before 63
+        last = np.zeros(nb, np.int64)
+        np.maximum.at(last, b, k)
+        eb = np.flatnonzero(last < 63)
+        codes.append(np.where(tab[eb] == 0, _HUFF_LUT[0x10][0][0],
+                              _HUFF_LUT[0x11][0][0]))
+        lens.append(np.where(tab[eb] == 0, _HUFF_LUT[0x10][1][0],
+                             _HUFF_LUT[0x11][1][0]))
+        keys.append(eb * 4096 + 64 * 32)
+        codes, lens, keys = (np.concatenate(a) for a in (codes, lens, keys))
+        order = np.argsort(keys, kind="stable")
+        codes, lens = codes[order], lens[order]
+        total = int(lens.sum())
+        pad = -total % 8
+        ends = np.cumsum(lens)
+        ev = np.repeat(np.arange(len(lens)), lens)
+        j = np.arange(total) - np.repeat(ends - lens, lens)
+        bits = (codes[ev] >> (lens[ev] - 1 - j)) & 1
+        bits = np.concatenate([bits, np.ones(pad, np.int64)])
+        data = np.packbits(bits.astype(np.uint8))
+        ff = np.flatnonzero(data == 0xFF)
+        data = np.insert(data, ff + 1, 0)
+        out += data.tobytes()
+        if restart_every and s0 + per < n:
+            out += bytes([0xFF, 0xD0 + (s0 // per) % 8])
+    return bytes(out)
+
+
+def jpeg_encode(img, quality=90, restart_mcus=0):
+    """A baseline JFIF JPEG of an RGB uint8 (h, w, 3) image: YCbCr 4:2:0,
+    Annex K tables scaled to ``quality`` as libjpeg scales them, standard
+    Huffman codes, a restart marker every ``restart_mcus`` MCUs (0 =
+    none)."""
+    h, w, _ = img.shape
+    scale = 5000 / quality if quality < 50 else 200 - 2 * quality
+    qt = [np.clip((q * scale + 50) // 100, 1, 255).astype(np.int64)
+          for q in JPEG_QUANT]
+    x = img.astype(np.float64)
+    ycc = np.stack([
+        0.299 * x[..., 0] + 0.587 * x[..., 1] + 0.114 * x[..., 2],
+        -0.168735892 * x[..., 0] - 0.331264108 * x[..., 1] + 0.5 * x[..., 2]
+        + 128,
+        0.5 * x[..., 0] - 0.418687589 * x[..., 1] - 0.081312411 * x[..., 2]
+        + 128], -1)
+    hp, wp = -(-h // 16) * 16, -(-w // 16) * 16
+    ycc = np.pad(ycc, ((0, hp - h), (0, wp - w), (0, 0)), mode="edge")
+    planes = [ycc[..., 0]] + [ycc[..., c].reshape(hp // 2, 2, wp // 2, 2)
+                              .mean((1, 3)) for c in (1, 2)]
+
+    def blocks(p, q):
+        bh, bw = p.shape[0] // 8, p.shape[1] // 8
+        b = (p - 128).reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3)
+        f = _DCT @ b @ _DCT.T
+        return np.rint(f / q.reshape(8, 8)).astype(np.int64).reshape(
+            bh, bw, 64)[..., _ZIGZAG]
+    yb = blocks(planes[0], qt[0])
+    cb, cr = blocks(planes[1], qt[1]), blocks(planes[2], qt[1])
+    my, mx = hp // 16, wp // 16
+    # MCU: Y00 Y01 Y10 Y11 Cb Cr
+    ys = yb.reshape(my, 2, mx, 2, 64).transpose(0, 2, 1, 3, 4).reshape(
+        my, mx, 4, 64)
+    mcu = np.concatenate([ys, cb[:, :, None], cr[:, :, None]], 2)
+    scan = mcu.reshape(-1, 64)
+    comp = np.tile(np.array([0, 0, 0, 0, 1, 2]), my * mx)
+    ecs = _entropy_code(scan, comp, restart_mcus * 6)
+
+    def seg(marker, body):
+        return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
+    out = b"\xff\xd8" + seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    for i, q in enumerate(qt):
+        out += seg(0xDB, bytes([i]) + q[_ZIGZAG].astype(np.uint8).tobytes())
+    out += seg(0xC0, struct.pack(">BHHB", 8, h, w, 3)
+               + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1]))
+    for tc, (counts, syms) in JPEG_HUFF.items():
+        out += seg(0xC4, bytes([tc]) + bytes(counts) + syms)
+    if restart_mcus:
+        out += seg(0xDD, struct.pack(">H", restart_mcus))
+    out += seg(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0]))
+    return out + ecs + b"\xff\xd9"
+
+
 def seeded_images(rng: np.random.RandomState, n: int, side: int):
     """``n`` RGB images with structure (a gradient per channel, two
     bright rectangles, noise), uint8."""
@@ -4469,32 +4735,75 @@ def seeded_images(rng: np.random.RandomState, n: int, side: int):
     return out
 
 
-def write_imgrec(tmp: str, seed: int):
-    """Phase 12's record files (train and val PNGs with labels from
-    ``seed``) through the port's RecordWriter; returns their paths, the
-    val images and the seconds taken."""
+#: phase 12's JPEGs: quality, and a restart marker every this many MCUs
+#: in every fourth file
+JPEG_QUALITY, JPEG_RESTART_MCUS = 90, 8
+#: the least PSNR (dB) of phase 12's decoded JPEGs against their arrays:
+#: libjpeg reads 30.4 on these images (per-channel noise that 4:2:0
+#: chroma cannot keep; tests/test_torch_decode.py)
+JPEG_PSNR_MIN = 28.0
+
+
+def encode_image(img: np.ndarray, fmt: str, i: int) -> bytes:
+    """Image ``i`` of a record file as ``fmt``: phase 12's PNG filter
+    mix, or a quality-90 4:2:0 JPEG, every fourth with restart
+    markers."""
+    if fmt == "png":
+        return png_encode(img, _png_filter_types(img.shape[0]))
+    return jpeg_encode(img, JPEG_QUALITY,
+                       JPEG_RESTART_MCUS if i % 4 == 3 else 0)
+
+
+def write_records(tmp: str, seed: int, sizes, side: int, classes: int,
+                  fmt: str):
+    """Record files of seeded RGB images (``sizes``: name -> count) of
+    ``side``^2 pixels as ``fmt``, labels below ``classes``, through the
+    port's RecordWriter; returns their paths, the images by name and the
+    seconds taken."""
     from cxxnet_tpu_torch.io.recordio import ImageRecord, RecordWriter
     rng = np.random.RandomState(seed)
     t0 = time.perf_counter()
-    ft = _png_filter_types(IMGREC_SIDE)
-    paths, val = {}, None
-    for name, n in (("train", IMGREC_TRAIN), ("val", IMGREC_VAL)):
-        imgs = seeded_images(rng, n, IMGREC_SIDE)
-        labels = rng.randint(0, TRAIN_CLASSES, n)
-        paths[name] = os.path.join(tmp, f"{name}.rec")
+    paths, imgs = {}, {}
+    for name, n in sizes:
+        imgs[name] = seeded_images(rng, n, side)
+        labels = rng.randint(0, classes, n)
+        paths[name] = os.path.join(tmp, f"{name}.{fmt}.rec")
         with RecordWriter(paths[name]) as w:
-            for i, (img, lab) in enumerate(zip(imgs, labels)):
+            for i, (img, lab) in enumerate(zip(imgs[name], labels)):
                 w.write(ImageRecord(inst_id=i, labels=np.float32([lab]),
-                                    data=png_encode(img, ft)).pack())
+                                    data=encode_image(img, fmt, i)).pack())
             w.write_index(paths[name])
-        if name == "val":
-            val = imgs
-    return paths, val, time.perf_counter() - t0
+    return paths, imgs, time.perf_counter() - t0
+
+
+def write_imgrec(tmp: str, seed: int, fmt: str = "png"):
+    """Phase 12's record files (train and val images with labels from
+    ``seed``, PNG or JPEG); returns their paths, the val images and the
+    seconds taken."""
+    paths, imgs, took = write_records(
+        tmp, seed, (("train", IMGREC_TRAIN), ("val", IMGREC_VAL)),
+        IMGREC_SIDE, TRAIN_CLASSES, fmt)
+    return paths, imgs["val"], took
+
+
+def read_records(path: str):
+    """The ImageRecords of a record file."""
+    from cxxnet_tpu_torch.io.recordio import ImageRecord, RecordReader
+    reader = RecordReader(path)
+    try:
+        return [ImageRecord.unpack(p) for p in reader]
+    finally:
+        reader.close()
+
+
+def psnr(a: np.ndarray, b: np.ndarray) -> float:
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float(10 * np.log10(255.0 ** 2 / max(mse, 1e-12)))
 
 
 def imgrec_cfg(conf: str, paths, mean: str, model_dir: str, extra=()):
     """``conf`` as it stands, its data and eval sections included, with
-    only the record and mean paths rewritten to phase 12's files."""
+    only the record and mean paths rewritten to the phase's files."""
     from cxxnet_tpu_torch.config import (parse_cli_overrides,
                                          parse_config_file)
     out, section = [], None
@@ -4573,20 +4882,25 @@ class _Tee:
             self.out.flush()
 
 
-def phase_imgrec(conf: str, seed: int, tmp: str, extra=()):
+def phase_imgrec(conf: str, seed: int, tmp: str, extra=(),
+                 fmt: str = "png"):
     """Phase 12: train Inception-BN from ``conf``'s own imgrec sections
-    over seeded PNG records and check it (module docstring); returns
-    (trainer, batches, config, val images, notes, launches)."""
+    over seeded PNG or JPEG (``fmt``) records and check it (module
+    docstring); returns (trainer, batches, config, val images, notes,
+    launches)."""
     import contextlib
     from cxxnet_tpu_torch import checkpoint as ckpt
     from cxxnet_tpu_torch.config import split_sections
     from cxxnet_tpu_torch.convert import params_from_jax
     from cxxnet_tpu_torch.io import close_chain, create_iterator
+    from cxxnet_tpu_torch.io.decode import decode_image
     from cxxnet_tpu_torch.main import run
     from cxxnet_tpu_torch.model import Network
     from cxxnet_tpu_torch.ops import KERNELS, reset_launches
     from cxxnet_tpu_torch.trainer import Trainer
-    paths, val_imgs, t_write = write_imgrec(tmp, seed)
+    tmp = os.path.join(tmp, fmt)
+    os.makedirs(tmp, exist_ok=True)
+    paths, val_imgs, t_write = write_imgrec(tmp, seed, fmt)
     mean_path = os.path.join(tmp, "mean.bin")
     model_dir = os.path.join(tmp, "imgrec")
     cfg = imgrec_cfg(conf, paths, mean_path, model_dir, extra)
@@ -4657,17 +4971,31 @@ def phase_imgrec(conf: str, seed: int, tmp: str, extra=()):
             raise AssertionError("the folded input differs from the "
                                  "input_fold = 0 path cast to bf16")
     del eager
-    # the val crops: center crops of the encoded arrays, bit for bit
+    # the val crops: center crops of the decoded records, bit for bit
+    # (the encoded arrays themselves for PNG; nvJPEG's pixels for JPEG,
+    # which must stay near the arrays)
     val_pairs = [p for kind, _, p in sections if kind == "eval"][0]
     it = create_iterator(glob + val_pairs + [("silent", "1")])
     vb = it.next()
     close_chain(it)
+    if fmt == "png":
+        decoded, worst_psnr = val_imgs, None
+    else:
+        dev = torch.device("cuda", torch.cuda.current_device())
+        decoded = [decode_image(r.data, 3, dev)
+                   for r in read_records(paths["val"])]
+        worst_psnr = min(psnr(a, b) for a, b in zip(decoded, val_imgs))
+        if worst_psnr < JPEG_PSNR_MIN:
+            raise AssertionError(f"nvJPEG's val images read {worst_psnr:.2f}"
+                                 f" dB against their arrays (want >= "
+                                 f"{JPEG_PSNR_MIN})")
     crop = vb.data.shape[1]
     o = (IMGREC_SIDE - crop) // 2
-    crops = np.stack([val_imgs[i][o:o + crop, o:o + crop]
+    crops = np.stack([decoded[i][o:o + crop, o:o + crop]
                       for i in vb.inst_index])
     if vb.data.dtype != np.uint8 or not np.array_equal(vb.data, crops):
-        raise AssertionError("the val crops differ from the encoded arrays")
+        raise AssertionError("the val crops differ from the decoded "
+                             "records' center crops")
     # the written round serves finite softmax rows
     blob = ckpt.load_for_inference(ckpt.model_path(model_dir, 0))
     net = Network(tr.graph, [kv for kv in glob if kv[0] != "task"])
@@ -4679,25 +5007,72 @@ def phase_imgrec(conf: str, seed: int, tmp: str, extra=()):
         raise AssertionError("the written round's answers are not finite "
                              "softmax rows")
     del net
-    print(f"imgrec: {steps} steps of full-width Inception-BN from "
+    route = ("png.cc" if fmt == "png" else
+             f"nvJPEG; its val decodes >= {worst_psnr:.2f} dB against the "
+             f"arrays")
+    print(f"imgrec ({fmt}): {steps} steps of full-width Inception-BN from "
           f"{os.path.relpath(conf, ROOT)}'s own data/eval sections (imgrec, "
           f"rand_crop, rand_mirror, shuffle, image_mean, threadbuffer; "
-          f"{IMGREC_TRAIN} train and {IMGREC_VAL} val PNG records of "
-          f"{IMGREC_SIDE}x{IMGREC_SIDE} written in {t_write:.1f}s) through "
-          f"main.run in {t_run:.1f}s with the mean computed and written, "
-          f"the evaluation and the round | device_normalize auto-resolved "
-          f"to 1, uint8 batches | losses {[round(v, 4) for v in losses]} | "
-          f"launches per step {box['per_step'][0]} (want {want}), stem in "
-          f"the evaluation {eval_launches['stem']} | {_steps_line(worst)} |"
-          f" folded input bit-equal to input_fold=0 cast to bf16 | val "
-          f"crops bit-equal to the encoded arrays' center crops | round "
-          f"loads, finite softmax rows", flush=True)
+          f"{IMGREC_TRAIN} train and {IMGREC_VAL} val {fmt.upper()} records"
+          f" of {IMGREC_SIDE}x{IMGREC_SIDE} written in {t_write:.1f}s, "
+          f"decoded through {route}) through main.run in {t_run:.1f}s with "
+          f"the mean computed and written, the evaluation and the round | "
+          f"device_normalize auto-resolved to 1, uint8 batches | losses "
+          f"{[round(v, 4) for v in losses]} | launches per step "
+          f"{box['per_step'][0]} (want {want}), stem in the evaluation "
+          f"{eval_launches['stem']} | {_steps_line(worst)} | folded input "
+          f"bit-equal to input_fold=0 cast to bf16 | val crops bit-equal "
+          f"to the decoded records' center crops | round loads, finite "
+          f"softmax rows", flush=True)
     launches = {k: sum(n[k] for n in box["per_step"]) + eval_launches[k]
                 for k in counted}
     notes = {"losses": losses, "worst": worst, "seconds": t_run,
-             "write_seconds": t_write}
+             "write_seconds": t_write, "format": fmt,
+             "val_psnr_min": worst_psnr}
     del plain
     return tr, batches, cfg, val_imgs, notes, launches
+
+
+#: PR 15's PNG chain (numpy unfilter), from PERF.md section 5
+PNG_CHAIN_BEFORE = "52.4 images/s, 2,444.8 ms a batch"
+#: threads of the decode-alone rates (the iterator's default on 8 cores)
+DECODE_THREADS = 8
+
+
+def chain_rates(cfg) -> dict:
+    """The data section's chain read for one epoch: images/s by
+    ``decode_threads`` (the default, and 1)."""
+    from cxxnet_tpu_torch.config import split_sections
+    from cxxnet_tpu_torch.io import close_chain, create_iterator
+    glob, sections = split_sections(cfg)
+    data_pairs = [p for kind, _, p in sections if kind == "data"][0]
+    chain = {}
+    for extra in ((), (("decode_threads", "1"),)):
+        it = create_iterator(glob + data_pairs + [("silent", "1"), *extra])
+        t0 = time.perf_counter()
+        seen = sum(bb.batch_size for bb in it)
+        chain[getattr(it, "base", it).nthread] = \
+            seen / (time.perf_counter() - t0)
+        close_chain(it)
+    return chain
+
+
+def decode_rates(decode, datas) -> dict:
+    """Images/s of ``decode`` over ``datas``, on one thread and on a pool
+    of DECODE_THREADS (each after one warm call a thread)."""
+    import concurrent.futures as futures
+    out = {}
+    for n in (1, DECODE_THREADS):
+        with futures.ThreadPoolExecutor(n) as ex:
+            list(ex.map(decode, datas[:n]))
+            t0 = time.perf_counter()
+            list(ex.map(decode, datas))
+            out[n] = len(datas) / (time.perf_counter() - t0)
+    return out
+
+
+def _rates(r: dict) -> str:
+    return " / ".join(f"{v:.1f}" for _, v in sorted(r.items()))
 
 
 def phase_imgrec_times(tr, batches, cfg, val_imgs, synthetic_step_ms):
@@ -4705,11 +5080,8 @@ def phase_imgrec_times(tr, batches, cfg, val_imgs, synthetic_step_ms):
     shape beside its bound and plain version, the H2D copy of a uint8 and
     a float32 batch, the train step over an imgrec batch beside phase
     6's, the train chain's decode rate and the PNG decoder's alone."""
-    from cxxnet_tpu_torch.config import split_sections
-    from cxxnet_tpu_torch.io import close_chain, create_iterator
     from cxxnet_tpu_torch.io.decode import decode_image
     from cxxnet_tpu_torch.ops import fused_stem as fs
-    glob, sections = split_sections(cfg)
     b0 = batches[0]
     x = torch.from_numpy(b0.data).cuda()
     mean_t = torch.from_numpy(np.asarray(b0.norm["mean"], np.float32)).cuda()
@@ -4731,18 +5103,9 @@ def phase_imgrec_times(tr, batches, cfg, val_imgs, synthetic_step_ms):
     step_ms = time_forward(lambda: tr.update(b0), reps=10)
     prof = profile_calls(lambda: tr.update(b0), 3, "step")
     # decode: the train chain's images/s over one epoch (its first batch
-    # waits for the decode of four), and
-    # the PNG decoder alone on one thread (phase 12's filter mix, and a
-    # Paeth-only image)
-    data_pairs = [p for kind, _, p in sections if kind == "data"][0]
-    chain = {}
-    for extra in ((), (("decode_threads", "1"),)):
-        it = create_iterator(glob + data_pairs + [("silent", "1"), *extra])
-        t0 = time.perf_counter()
-        seen = sum(bb.batch_size for bb in it)
-        chain[getattr(it, "base", it).nthread] = \
-            seen / (time.perf_counter() - t0)
-        close_chain(it)
+    # waits for the decode of four), and the PNG decoder alone (phase
+    # 12's filter mix, and a Paeth-only image)
+    chain = chain_rates(cfg)
     threads = max(chain)
     iter_ips = chain[threads]
     enc = png_encode(val_imgs[0], _png_filter_types(IMGREC_SIDE))
@@ -4751,10 +5114,7 @@ def phase_imgrec_times(tr, batches, cfg, val_imgs, synthetic_step_ms):
     for k, e in (("mix", enc), ("paeth", enc4)):
         if not np.array_equal(decode_image(e, 3), val_imgs[0]):
             raise AssertionError(f"PNG ({k}) does not decode to its array")
-        t0 = time.perf_counter()
-        for _ in range(20):
-            decode_image(e, 3)
-        rates[k] = 20 / (time.perf_counter() - t0)
+        rates[k] = decode_rates(lambda d: decode_image(d, 3), [e] * 64)
     host_ms = TRAIN_BATCH / iter_ips * 1e3
     print(f"times (imgrec): stem {stem['shape']}: {stem['ms'] * 1e3:.2f} us "
           f"({_rate(stem)}; PERF.md before: {PERF_BEFORE_MS['stem']}), "
@@ -4766,18 +5126,276 @@ def phase_imgrec_times(tr, batches, cfg, val_imgs, synthetic_step_ms):
           f"{h2d['float32']:.3f} ms | train step over an imgrec batch "
           f"(uint8 H2D, stem, forward, backward, SGD) {step_ms:.3f} ms, "
           f"phase 6's synthetic step {synthetic_step_ms:.3f} ms | train "
-          f"chain {iter_ips:.1f} images/s with decode_threads={threads} "
-          f"(the default; host decode of one batch of {TRAIN_BATCH}: "
-          f"{host_ms:.1f} ms), {chain[1]:.1f} with decode_threads=1 | "
-          f"PNG decode alone, one thread, {IMGREC_SIDE}x{IMGREC_SIDE} RGB: "
-          f"{rates['mix']:.1f} images/s at phase 12's filter mix, "
-          f"{rates['paeth']:.1f} Paeth-only | profile: train step over an "
-          f"imgrec batch: {prof}", flush=True)
+          f"chain (png.cc) {iter_ips:.1f} images/s with decode_threads="
+          f"{threads} (the default; host decode of one batch of "
+          f"{TRAIN_BATCH}: {host_ms:.1f} ms; PERF.md before, numpy "
+          f"unfilter: {PNG_CHAIN_BEFORE}), {chain[1]:.1f} with "
+          f"decode_threads=1 | PNG decode alone (png.cc), "
+          f"{IMGREC_SIDE}x{IMGREC_SIDE} RGB, images/s on 1 and "
+          f"{DECODE_THREADS} threads: {_rates(rates['mix'])} at phase 12's "
+          f"filter mix, {_rates(rates['paeth'])} Paeth-only | profile: "
+          f"train step over an imgrec batch: {prof}", flush=True)
     return {"kernels": {"stem": stem}, "step_ms": step_ms,
             "h2d_ms": h2d, "iter_images_per_s": iter_ips,
             "iter_images_per_s_1_thread": chain[1],
             "decode_threads": threads, "png_images_per_s": rates,
             "profile": prof}
+
+
+def jpeg_fixture():
+    """tests/torch_jpeg_fixture.py (no jax, no PIL at import)."""
+    tests = os.path.join(ROOT, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_jpeg_fixture
+    return torch_jpeg_fixture
+
+
+def phase_nvjpeg() -> dict:
+    """nvJPEG against the fixture's libjpeg pixels, within its bounds
+    (``NVJPEG_BOUNDS``); CMYK raises naming ROADMAP Queue A 2; the
+    fixture decoded on DECODE_THREADS threads at once gives the pixels
+    one thread gives. Returns the readings by file."""
+    import concurrent.futures as futures
+    from cxxnet_tpu_torch.io.decode import decode_image
+    jfx = jpeg_fixture()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rows, bad = {}, []
+    for name in jfx.SPECS:
+        data = jfx.jpeg(name)
+        if name.startswith("cmyk"):
+            try:
+                decode_image(data, 3, dev)
+            except NotImplementedError as e:
+                if "Queue A 2" not in str(e):
+                    bad.append(f"{name}: {e}")
+                rows[name] = "raises"
+            else:
+                bad.append(f"{name}: decoded, want a refusal")
+            continue
+        for want in (3, 1):
+            got = decode_image(data, want, dev)
+            ref = jfx.pixels(name, want)
+            d = np.abs(got.astype(np.int32) - ref.astype(np.int32))
+            mx, mean = int(d.max()), float(d.mean())
+            bmax, bmean = jfx.bound_of(name, want)
+            rows[f"{name}/{want}"] = (mx, round(mean, 4))
+            if got.shape != ref.shape or mx > bmax or (
+                    bmean is not None and mean > bmean):
+                bad.append(f"{name} to {want}: max {mx} mean {mean:.4f} "
+                           f"(bounds {bmax}, {bmean})")
+    names = [n for n in jfx.SPECS if not n.startswith("cmyk")] * 8
+    one = [decode_image(jfx.jpeg(n), 3, dev) for n in names]
+    with futures.ThreadPoolExecutor(DECODE_THREADS) as ex:
+        many = list(ex.map(lambda n: decode_image(jfx.jpeg(n), 3, dev),
+                           names))
+    if not all(np.array_equal(a, b) for a, b in zip(one, many)):
+        bad.append(f"{DECODE_THREADS} threads at once differ from one")
+    if bad:
+        raise AssertionError("nvJPEG against the fixture's libjpeg pixels: "
+                             + "; ".join(bad))
+    print(f"nvjpeg: {len(jfx.SPECS)} fixture files (grey, 4:4:4, 4:2:2, "
+          f"4:2:0, progressive, restart intervals, CMYK) against libjpeg's "
+          f"pixels, (max |d|, mean |d|) by file/channels: {rows} within "
+          f"{jfx.NVJPEG_BOUNDS} | {len(names)} decodes on "
+          f"{DECODE_THREADS} threads at once bit-equal to one thread",
+          flush=True)
+    return rows
+
+
+def phase_jpeg_times(tr, batches, cfg, val_imgs, png_step_ms) -> dict:
+    """The JPEG run's times, printed and not gated: its train chain's
+    images/s (nvJPEG on the decode threads), nvJPEG alone on 1 and
+    DECODE_THREADS threads, and the train step over a JPEG batch."""
+    from cxxnet_tpu_torch.io.decode import decode_image
+    dev = torch.device("cuda", torch.cuda.current_device())
+    chain = chain_rates(cfg)
+    threads = max(chain)
+    enc = [encode_image(img, "jpeg", i) for i, img in enumerate(val_imgs)]
+    alone = decode_rates(lambda d: decode_image(d, 3, dev), enc)
+    step_ms = time_forward(lambda: tr.update(batches[0]), reps=10)
+    print(f"times (imgrec, jpeg): train chain (nvJPEG) {chain[threads]:.1f}"
+          f" images/s with decode_threads={threads} (host decode of one "
+          f"batch of {TRAIN_BATCH}: {TRAIN_BATCH / chain[threads] * 1e3:.1f}"
+          f" ms), {chain[1]:.1f} with decode_threads=1 | nvJPEG alone, "
+          f"{IMGREC_SIDE}x{IMGREC_SIDE} 4:2:0 quality {JPEG_QUALITY}, "
+          f"images/s on 1 and {DECODE_THREADS} threads: {_rates(alone)} | "
+          f"train step over a JPEG batch {step_ms:.3f} ms (the PNG run's "
+          f"{png_step_ms:.3f})", flush=True)
+    return {"iter_images_per_s": chain[threads],
+            "iter_images_per_s_1_thread": chain[1],
+            "decode_threads": threads, "nvjpeg_images_per_s": alone,
+            "step_ms": step_ms}
+
+
+# -- phase 14 -------------------------------------------------------------------
+
+BOWL_CONF = os.path.join(ROOT, "examples", "kaggle_bowl", "bowl.conf")
+#: phase 14's records: 48x48 RGB as gen_resize.py makes them, 121 classes
+BOWL_TRAIN, BOWL_VAL, BOWL_SIDE, BOWL_CLASSES = 1024, 256, 48, 121
+#: warp.cc against warp_affine_plain on the phase's images (0..255)
+BOWL_WARP_ATOL = 2e-3
+
+
+def phase_bowl(seed: int, tmp: str, extra=()) -> dict:
+    """Phase 14: bowl.conf's train and eval sections as written (the
+    affine keys included) over seeded JPEG records, trained one round
+    through main.run and checked (module docstring). Returns notes."""
+    from cxxnet_tpu_torch import checkpoint as ckpt
+    from cxxnet_tpu_torch.config import split_sections
+    from cxxnet_tpu_torch.convert import params_from_jax
+    from cxxnet_tpu_torch.io.augment import (AugmentParams, ImageAugmenter,
+                                             warp_affine, warp_affine_plain)
+    from cxxnet_tpu_torch.io.decode import decode_image
+    from cxxnet_tpu_torch.main import run
+    from cxxnet_tpu_torch.model import Network
+    from cxxnet_tpu_torch.ops import KERNELS, reset_launches
+    from cxxnet_tpu_torch.trainer import Trainer
+    t_phase = time.perf_counter()
+    tmp = os.path.join(tmp, "bowl")
+    os.makedirs(tmp, exist_ok=True)
+    paths, imgs, t_write = write_records(
+        tmp, seed, (("train", BOWL_TRAIN), ("val", BOWL_VAL)), BOWL_SIDE,
+        BOWL_CLASSES, "jpeg")
+    model_dir = os.path.join(tmp, "models")
+    cfg = imgrec_cfg(BOWL_CONF, paths, os.path.join(tmp, "bowl_mean.bin"),
+                     model_dir, extra)
+    glob, sections = split_sections(cfg)
+    data = [p for kind, _, p in sections if kind == "data"][0]
+    batch = int(dict(glob)["batch_size"])
+    steps = BOWL_TRAIN // batch
+    counted = ("epilogue_fwd", "epilogue_bwd", "sgd_apply")
+    box = {"losses": [], "before": [], "batches": [], "per_step": []}
+
+    def on_step(tr):
+        box["losses"].append(tr.last_loss)
+        box["per_step"].append({k: KERNELS[k].launches for k in KERNELS})
+        reset_launches()
+        if len(box["losses"]) < steps:
+            box["before"].append(_snap(tr))
+
+    def ready(tr):
+        box["before"].append(_snap(tr))
+        tr.step_hook = on_step
+        update = tr.update
+
+        def keep(b):
+            box["batches"].append(b)
+            update(b)
+        tr.update = keep
+        torch.cuda.synchronize()
+        reset_launches()                  # just before the first step
+        box["t0"] = time.perf_counter()
+
+    t_run = time.perf_counter()
+    tr = run(cfg, ready=ready)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t_run
+    del tr.update
+    tr.step_hook = None
+    batches, losses = box["batches"], box["losses"]
+    if len(losses) != steps or len(batches) != steps:
+        raise AssertionError(f"bowl: {len(losses)} steps over "
+                             f"{len(batches)} batches, want {steps}")
+    if any(b.data.dtype != np.float32 or b.norm is not None
+           for b in batches):
+        raise AssertionError("bowl: the affine section must give float32 "
+                             "host-normalized batches")
+    # the launches a step, counted from the net: one epilogue forward
+    # and backward for each conv and fullc with a bias, one SGD apply a
+    # tag group, no other kernel (the 3x3/2 pools do not tile)
+    biased = sum(1 for layer in tr.net.layers
+                 if layer.spec.type in ("conv", "fullc")
+                 and not layer.hp.no_bias)
+    want = {"epilogue_fwd": biased, "epilogue_bwd": biased,
+            "sgd_apply": len(tr.optimizer._groups(tr.params))}
+    others = {}
+    for i, n in enumerate(box["per_step"]):
+        check_launches(f"bowl step {i + 1}", n, want, {})
+        others.update({k: v for k, v in n.items()
+                       if k not in counted and v})
+    if others:
+        raise AssertionError(f"bowl: other kernels launched {others}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"bowl: non-finite loss {losses}")
+    # each step against fused_kernels = 0 from the same state and batch
+    dt = dict(glob).get("compute_dtype", "float32")
+    quiet = [("silent", "1")]
+    kern = Trainer(glob + quiet)
+    plain = Trainer(glob + quiet + [("fused_kernels", "0")])
+    rows = []
+    for i, b in enumerate(batches):
+        dl, rels, spread = convnet_step_check(kern, plain, box["before"][i],
+                                              b, i, dt)
+        rows.append((dl, float(np.median([r for r, _ in rels])), max(rels),
+                     spread))
+    fails = [f"step {i + 1}: {r}" for i, r in enumerate(rows)
+             if r[0] > CONVNET_LOSS_TOL[dt] or r[1] > CONVNET_GRAD_TOL[dt][0]
+             or r[2][0] > CONVNET_GRAD_TOL[dt][1]]
+    if fails:
+        raise AssertionError(f"bowl: kernels vs fused_kernels=0 from the "
+                             f"same state (tol loss {CONVNET_LOSS_TOL[dt]}, "
+                             f"gradient {CONVNET_GRAD_TOL[dt]}): {fails}")
+    step_ms = time_forward(lambda: tr.update(batches[0]), reps=10)
+    del kern, plain
+    # warp.cc against its plain version on the phase's own images
+    aug = AugmentParams()
+    for k, v in data:
+        aug.set_param(k, v)
+    c, oy, ox = (int(v) for v in dict(glob)["input_shape"].split(","))
+    augmenter = ImageAugmenter(aug, (c, oy, ox))
+    rng = np.random.RandomState(seed)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    warp_err = 0.0
+    for rec in read_records(paths["train"])[:8]:
+        img = decode_image(rec.data, 3, dev).astype(np.float32)
+        m = augmenter.affine_matrix(img.shape[0], img.shape[1], rng)
+        got = warp_affine(img, m, (oy, ox), aug.fill_value)
+        ref = warp_affine_plain(img, m, (oy, ox), aug.fill_value)
+        warp_err = max(warp_err, float(np.abs(got - ref).max()))
+    if warp_err > BOWL_WARP_ATOL:
+        raise AssertionError(f"bowl: warp.cc against warp_affine_plain "
+                             f"{warp_err} (atol {BOWL_WARP_ATOL})")
+    # the written round answers finite softmax rows
+    blob = ckpt.load_for_inference(ckpt.model_path(model_dir, 0))
+    net = Network(tr.graph, [kv for kv in glob if kv[0] != "task"])
+    ckpt.check_structure(blob["meta"], tr.graph.structure_signature())
+    net.load_weights(*params_from_jax(blob["params"], blob["state"]))
+    x = torch.from_numpy(batches[0].data[:8]).to(net.device)
+    prob = net(x).out.float().reshape(8, -1)
+    if not bool(torch.isfinite(prob).all()) or \
+            (prob.sum(1) - 1).abs().max().item() > 1e-3:
+        raise AssertionError("bowl: the written round's answers are not "
+                             "finite softmax rows")
+    del net
+    chain = chain_rates(cfg)
+    threads = max(chain)
+    fmt = [(f"{dl:.2g}", f"{md:.2g}", f"{w[0]:.2g} {w[1]}")
+           for dl, md, w, _ in rows]
+    took = time.perf_counter() - t_phase
+    print(f"bowl: {steps} steps of {os.path.relpath(BOWL_CONF, ROOT)}'s own "
+          f"train and eval sections (imgrec with max_rotate_angle 180, "
+          f"max_aspect_ratio 0.5, max_shear_ratio 0.3, crop 32-48, "
+          f"rand_crop, rand_mirror, shuffle, image_mean; batch {batch}, "
+          f"{dt}) over {BOWL_TRAIN} train and {BOWL_VAL} val JPEG records "
+          f"of {BOWL_SIDE}x{BOWL_SIDE}, {BOWL_CLASSES} classes, written in "
+          f"{t_write:.1f}s, through main.run in {t_run:.1f}s with the mean "
+          f"computed, one evaluation and the round | losses "
+          f"{[round(v, 4) for v in losses]} | launches per step {want} "
+          f"(each step checked, no other kernel) | vs fused_kernels=0 from "
+          f"the same state, per step (loss diff, gradient rel L2 median, "
+          f"worst leaf): {fmt} (tol loss {CONVNET_LOSS_TOL[dt]}, gradient "
+          f"{CONVNET_GRAD_TOL[dt]}) | warp.cc vs warp_affine_plain on 8 of "
+          f"the phase's images: max |d| {warp_err:.3g} (atol "
+          f"{BOWL_WARP_ATOL}) | round loads, finite softmax rows | times: "
+          f"decoded and augmented {chain[threads]:.1f} images/s with "
+          f"decode_threads={threads}, {chain[1]:.1f} with 1; train step "
+          f"{step_ms:.3f} ms | phase {took:.1f}s", flush=True)
+    return {"losses": losses, "checks": rows, "warp_err": warp_err,
+            "launches_per_step": want, "steps": steps,
+            "iter_images_per_s": chain[threads],
+            "iter_images_per_s_1_thread": chain[1], "decode_threads": threads,
+            "step_ms": step_ms, "seconds": took, "write_seconds": t_write}
 
 
 # -- main ---------------------------------------------------------------------
@@ -4894,9 +5512,20 @@ def main(argv=None) -> int:
             phase_imgrec(args.conf, args.seed, tmp)
         imgrec_times = phase_imgrec_times(tr, ibatches, icfg, val_imgs,
                                           train_times["step_ms"])
-    del tr, ibatches
+        del tr, ibatches
+        torch.cuda.empty_cache()
+        nvjpeg = phase_nvjpeg()
+        tr, jbatches, jcfg, jval, imgrec_jpeg, jpeg_launches = \
+            phase_imgrec(args.conf, args.seed, tmp, fmt="jpeg")
+        jpeg_times = phase_jpeg_times(tr, jbatches, jcfg, jval,
+                                      imgrec_times["step_ms"])
+        del tr, jbatches
     torch.cuda.empty_cache()
     mark("imgrec")
+    with tempfile.TemporaryDirectory() as tmp:
+        bowl = phase_bowl(args.seed, tmp)
+    torch.cuda.empty_cache()
+    mark("bowl")
     source["stem"] = (imgrec_times, imgrec_launches)
     kernels = []
     for name, k in KERNELS.items():
@@ -4949,6 +5578,10 @@ def main(argv=None) -> int:
               "dp": dp,
               "imgrec": {**imgrec, **{k: v for k, v in imgrec_times.items()
                                       if k != "kernels"}},
+              "imgrec_jpeg": {**imgrec_jpeg, **jpeg_times,
+                              "launches": jpeg_launches},
+              "nvjpeg_fixture": nvjpeg,
+              "bowl": bowl,
               "phase_seconds": {b[0]: b[1] - a[1]
                                 for a, b in zip(marks, marks[1:])},
               "card": smi_line, "seconds": time.perf_counter() - t_start}

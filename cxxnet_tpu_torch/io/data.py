@@ -119,10 +119,13 @@ def create_iterator(cfg: ConfigPairs) -> DataIter:
     ``iter = <type>`` entry names the source, each later one wraps the
     chain so far (``end`` closes the section); every other pair is
     passed to every iterator of the chain. The port reads the sources
-    ``synthetic``, ``synthetic_lm``, ``mnist`` and ``imgrec`` (and its
-    aliases) and the wrapper ``threadbuffer``; the other iterator types
-    and the keys of ``NOT_YET_KEYS`` raise naming ROADMAP Queue A 2."""
-    from . import iter_imgrec, iter_mnist, proc  # noqa: F401  (registry)
+    ``synthetic``, ``synthetic_lm``, ``mnist``, ``imgrec`` (and its
+    aliases) and ``img``, and the wrapper ``threadbuffer``; the other
+    iterator types (``attachtxt``, ``csv``, ``membuffer``, ``throttle``)
+    and the keys of ``NOT_YET_KEYS`` (the ``image_bin`` and
+    ``image_conf_prefix`` packs, sharded reading, ``test_skipread``,
+    ``data_gen_seed``) raise naming ROADMAP Queue A 2."""
+    from . import iter_img, iter_imgrec, iter_mnist, proc  # noqa: F401
     kinds = [v for k, v in cfg if k == "iter" and v != "end"]
     params = [(k, v) for k, v in cfg if k != "iter"]
     for k, v in params:
@@ -135,8 +138,8 @@ def create_iterator(cfg: ConfigPairs) -> DataIter:
         if kind not in ITER_REGISTRY or (i > 0) != (kind in WRAPPERS):
             raise ConfigError(
                 f"iter = {kind} (chain {kinds}): the PyTorch port reads "
-                "the sources synthetic, synthetic_lm, mnist and imgrec, "
-                f"wrapped by threadbuffer, so far ({A2})")
+                "the sources synthetic, synthetic_lm, mnist, imgrec and "
+                f"img, wrapped by threadbuffer, so far ({A2})")
     it = None
     for kind in kinds:
         cls = ITER_REGISTRY[kind]

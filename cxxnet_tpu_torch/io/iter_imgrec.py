@@ -5,7 +5,9 @@ Registered as ``imgrec`` and, as in the JAX package, ``imgbin``,
 (``image_rec``), decodes each record on a pool of ``decode_threads``
 threads (:mod:`.decode`), augments it (:mod:`.augment`) and batches the
 results; labels come from the records or, by instance id, from an
-``image_list``. With ``shuffle`` the records are shuffled four batches
+``image_list``. JPEG records decode through nvJPEG on the card that
+``dev`` names (the rank's own under dp) and through libjpeg with ``dev =
+cpu``; PNG records through ``png.cc`` either way. With ``shuffle`` the records are shuffled four batches
 at a time by ``RandomState(seed_data)``; ``round_batch`` fills the
 epoch's last batch from the start of the file, marked as padding.
 
@@ -17,8 +19,8 @@ image is computed on first use with ``RandomState(0)`` and written as a
 
 ``device_normalize`` (``-1`` = auto) decides where the mean, ``divideby``
 and ``scale`` are applied. Auto resolves to 1 when the augmentations keep
-pixels exact (crop and mirror only) and the first records of the file
-are encoded images at least as large as the crop; then batches are
+pixels exact (crop and mirror only, no affine warp) and the first records
+of the file are encoded images at least as large as the crop; then batches are
 uint8 and ``DataBatch.norm`` carries the normalization for the trainer
 to apply on the card (the uint8 input fold). Otherwise the batches are
 normalized float32, as the JAX package's host path makes them.
@@ -40,7 +42,7 @@ from ..config import ConfigError
 from .augment import (AugmentParams, ImageAugmenter, MeanStore,
                       mean_cache_path, pack_label)
 from .data import A2, DataBatch, DataIter, register_iter
-from .decode import decode_image
+from .decode import decode_image, jpeg_device
 from .recordio import ImageRecord, RecordReader, read_image_list
 
 
@@ -77,10 +79,13 @@ class ImageRecordIterator(DataIter):
             self.nthread = int(val)
         elif name == "silent":
             self.silent = int(val)
+        elif name == "dev":
+            self.dev = val
         else:
             self.aug.set_param(name, val)
 
     def __init__(self, cfg):
+        self.dev = ""
         self.rec_path = ""
         self.list_path = ""
         self.batch_size = 128
@@ -111,6 +116,7 @@ class ImageRecordIterator(DataIter):
             raise ValueError(f"decode_threads must be >= 1, got "
                              f"{self.nthread}")
         c, y, x = self.input_shape
+        self._jpeg_device = jpeg_device(self.dev)
         self.augmenter = ImageAugmenter(self.aug, (c, y, x))
         self.mean = MeanStore(mean_cache_path(self.aug), (y, x, c))
         self._label_map = None
@@ -183,7 +189,7 @@ class ImageRecordIterator(DataIter):
         c, y, x = self.input_shape
         if rec.flag == 1:    # a raw float32 tensor record
             return np.frombuffer(rec.data, np.float32).reshape(y, x, c)
-        return decode_image(rec.data, c)
+        return decode_image(rec.data, c, self._jpeg_device)
 
     # -- iteration ---------------------------------------------------------
     def before_first(self):

@@ -7,14 +7,24 @@
 // releases the GIL during the call, so a thread pool decodes in parallel);
 // every entry point is thread-safe.
 //
+// Besides, cxn_jpeg_planes reads a YCbCr file's component planes as stored
+// (libjpeg's raw data output) and cxn_jpeg_planes_to_rgb finishes them with
+// jpeg_color.h's copy of libjpeg's upsampling and colour conversion, the code
+// that nvjpeg.cc runs over nvJPEG's planes: the CPU tests hold the two
+// together bit for bit with libjpeg's own RGB.
+//
 // Built at first use by cxxnet_tpu_torch/ops/_build.py (load_host):
 //   g++ -O3 -fPIC -shared -std=c++17 -o <build>/libdecode-<hash>.so decode.cc -ljpeg
 
 #include <csetjmp>
 #include <cstdint>
 #include <cstdio>
+#include <cstring>
+#include <vector>
 
 #include <jpeglib.h>
+
+#include "jpeg_color.h"
 
 namespace {
 
@@ -93,6 +103,80 @@ int cxn_jpeg_decode(const uint8_t* buf, long len, int want_c, uint8_t* out,
   jpeg_finish_decompress(&cinfo);
   jpeg_destroy_decompress(&cinfo);
   return 0;
+}
+
+// The three component planes of a YCbCr JPEG as stored: Y into `y` (h x w),
+// Cb and Cr into `cb`, `cr` (dims[2] x dims[3] each, the subsampled size
+// libjpeg computes). Called first with y == nullptr to get dims = {h, w,
+// c_h, c_w}. Returns 0, -1 on a decode error, -3 for a file that is not
+// three components with the chroma sampled alike.
+int cxn_jpeg_planes(const uint8_t* buf, long len, uint8_t* y, uint8_t* cb,
+                    uint8_t* cr, int* dims) {
+  jpeg_decompress_struct cinfo;
+  ErrorMgr err;
+  cinfo.err = jpeg_std_error(&err.pub);
+  err.pub.error_exit = error_exit;
+  err.pub.output_message = silent_output;
+  if (setjmp(err.jump)) {
+    jpeg_destroy_decompress(&cinfo);
+    return -1;
+  }
+  jpeg_create_decompress(&cinfo);
+  jpeg_mem_src(&cinfo, const_cast<uint8_t*>(buf), len);
+  jpeg_read_header(&cinfo, TRUE);
+  if (cinfo.num_components != 3 ||
+      cinfo.comp_info[1].h_samp_factor != cinfo.comp_info[2].h_samp_factor ||
+      cinfo.comp_info[1].v_samp_factor != cinfo.comp_info[2].v_samp_factor) {
+    jpeg_destroy_decompress(&cinfo);
+    return -3;
+  }
+  cinfo.raw_data_out = TRUE;
+  jpeg_start_decompress(&cinfo);
+  dims[0] = cinfo.image_height;
+  dims[1] = cinfo.image_width;
+  dims[2] = cinfo.comp_info[1].downsampled_height;
+  dims[3] = cinfo.comp_info[1].downsampled_width;
+  if (y == nullptr) {
+    jpeg_abort_decompress(&cinfo);
+    jpeg_destroy_decompress(&cinfo);
+    return 0;
+  }
+  uint8_t* planes[3] = {y, cb, cr};
+  std::vector<std::vector<uint8_t>> store(3);
+  std::vector<std::vector<JSAMPROW>> rows(3);
+  JSAMPARRAY bufs[3];
+  for (int c = 0; c < 3; ++c) {
+    const jpeg_component_info& comp = cinfo.comp_info[c];
+    const int nrow = comp.v_samp_factor * DCTSIZE;
+    const int width = comp.width_in_blocks * DCTSIZE;
+    store[c].resize(static_cast<size_t>(nrow) * width);
+    rows[c].resize(nrow);
+    for (int r = 0; r < nrow; ++r) rows[c][r] = store[c].data() + r * width;
+    bufs[c] = rows[c].data();
+  }
+  const int step = cinfo.max_v_samp_factor * DCTSIZE;
+  for (int imcu = 0; cinfo.output_scanline < cinfo.output_height; ++imcu) {
+    jpeg_read_raw_data(&cinfo, bufs, step);
+    for (int c = 0; c < 3; ++c) {
+      const jpeg_component_info& comp = cinfo.comp_info[c];
+      const int nrow = comp.v_samp_factor * DCTSIZE;
+      const int dh = comp.downsampled_height, dw = comp.downsampled_width;
+      for (int r = 0; r < nrow && imcu * nrow + r < dh; ++r)
+        std::memcpy(planes[c] + static_cast<long>(imcu * nrow + r) * dw,
+                    rows[c][r], static_cast<size_t>(dw));
+    }
+  }
+  jpeg_finish_decompress(&cinfo);
+  jpeg_destroy_decompress(&cinfo);
+  return 0;
+}
+
+// RGB (h x w x 3) from planes as cxn_jpeg_planes gives them, chroma
+// subsampled by hf x vf, through jpeg_color.h.
+void cxn_jpeg_planes_to_rgb(const uint8_t* y, const uint8_t* cb,
+                            const uint8_t* cr, int h, int w, int ch, int cw,
+                            int hf, int vf, uint8_t* out) {
+  cxn_jpeg::planes_to_rgb(y, w, cb, cr, cw, ch, cw, hf, vf, w, h, out);
 }
 
 }  // extern "C"

@@ -7,7 +7,8 @@ hash of the sources, the shared headers and the flags, so an edited
 source never loads a stale library. :func:`build` starts one ``nvcc``
 per missing library, all at once, and waits for them together.
 :func:`load_host` does the same for a host C++ source under ``native/``
-(the JPEG decoder) with ``g++``.
+(the libjpeg and nvJPEG decoders, the PNG reconstruction, the warps)
+with ``g++``.
 
 Nothing here runs at import: the CPU-only test environment has no
 ``nvcc`` and imports every module. A build that fails raises with the
@@ -134,29 +135,56 @@ def load(source: str) -> ctypes.CDLL:
 GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 
 
-def host_lib_path(source: str, libs: Sequence[str] = ()) -> str:
+def cuda_home() -> str:
+    """The CUDA toolkit's root: ``$CUDA_HOME``, else the directory above
+    ``nvcc``'s ``bin``."""
+    if os.environ.get("CUDA_HOME"):
+        return os.environ["CUDA_HOME"]
+    return os.path.dirname(os.path.dirname(os.path.realpath(nvcc_path())))
+
+
+def _host_flags(libs: Sequence[str], include_dirs: Sequence[str],
+                lib_dirs: Sequence[str], rpath: Sequence[str]) -> List[str]:
+    """The compiler's arguments after the source: ``-I``, ``-L``, the
+    run-time search path and ``-l`` for each library."""
+    return ([f"-I{d}" for d in include_dirs] + [f"-L{d}" for d in lib_dirs]
+            + [f"-Wl,-rpath,{d}" for d in rpath] + [f"-l{lb}" for lb in libs])
+
+
+def host_lib_path(source: str, libs: Sequence[str] = (),
+                  include_dirs: Sequence[str] = (),
+                  lib_dirs: Sequence[str] = (),
+                  rpath: Sequence[str] = ()) -> str:
     """Where the host library of ``native/<source>`` lands: keyed by the
-    bytes of the source, the flags and the libraries it links."""
+    bytes of the source and of every header beside it, the flags, the
+    directories and the libraries it links."""
     h = hashlib.sha256()
-    h.update(" ".join(GXX_FLAGS + tuple(libs)).encode())
-    with open(os.path.join(NATIVE_DIR, source), "rb") as f:
-        h.update(f.read())
+    h.update(" ".join(GXX_FLAGS + tuple(_host_flags(
+        libs, include_dirs, lib_dirs, rpath))).encode())
+    for p in [os.path.join(NATIVE_DIR, source)] + sorted(
+            glob.glob(os.path.join(NATIVE_DIR, "*.h"))):
+        with open(p, "rb") as f:
+            h.update(os.path.basename(p).encode() + b"\0" + f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")
 
 
-def load_host(source: str, libs: Sequence[str] = ()) -> ctypes.CDLL:
+def load_host(source: str, libs: Sequence[str] = (),
+              include_dirs: Sequence[str] = (), lib_dirs: Sequence[str] = (),
+              rpath: Sequence[str] = ()) -> ctypes.CDLL:
     """The loaded host library of ``native/<source>``, compiled first
-    with ``g++`` (``$CXX`` when set) and linked with ``-l<lib>`` for each
-    of ``libs`` when missing or when it does not load (a library built
-    on another machine). Raises with the compiler's output when the
-    build fails."""
+    with ``g++`` (``$CXX`` when set) when missing or when it does not
+    load (a library built on another machine): ``-I`` each of
+    ``include_dirs``, ``-L`` each of ``lib_dirs``, ``rpath`` as the
+    run-time search path, ``-l<lib>`` for each of ``libs``. Raises with
+    the compiler's output when the build fails."""
     key = "host:" + source
     with _lock:
         lib = _libs.get(key)
         if lib is not None:
             return lib
-        out = host_lib_path(source, libs)
+        flags = _host_flags(libs, include_dirs, lib_dirs, rpath)
+        out = host_lib_path(source, libs, include_dirs, lib_dirs, rpath)
         if os.path.exists(out):
             try:
                 lib = ctypes.CDLL(out)
@@ -172,7 +200,7 @@ def load_host(source: str, libs: Sequence[str] = ()) -> ctypes.CDLL:
             tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
             p = subprocess.run(
                 [cxx, *GXX_FLAGS, "-o", tmp, os.path.join(NATIVE_DIR, source),
-                 *(f"-l{lb}" for lb in libs)],
+                 *flags],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
             if p.returncode != 0:
                 if os.path.exists(tmp):

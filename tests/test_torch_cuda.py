@@ -1383,3 +1383,48 @@ def test_pred_raw_with_the_kernels_matches_fused_kernels_0(dev, tmp_path):
     sure = srt[:, -1] - srt[:, -2] > 0.05
     np.testing.assert_array_equal(got.argmax(1)[sure], want.argmax(1)[sure])
     assert all(got[i, j] == got[i].max() for i, j in enumerate(ids))
+
+
+# -- nvJPEG (the JPEG route on the card) ----------------------------------------
+
+def _nvjpeg_fixture():
+    import torch_jpeg_fixture
+    return torch_jpeg_fixture
+
+
+@pytest.mark.parametrize("name", ["gray_37x53", "444_37x53", "422_37x53",
+                                  "420_37x53", "420_progressive_41x29",
+                                  "420_restart_blocks_40x56",
+                                  "444_restart_rows_33x47"])
+@pytest.mark.parametrize("want", [3, 1])
+def test_nvjpeg_is_near_libjpeg_on_the_fixture(dev, name, want):
+    """nvJPEG against libjpeg's stored pixels: Y max |d| <= 2, RGB 4:4:4
+    <= 3, 4:2:0 and 4:2:2 mean |d| <= 1.0 and max <= 32 (the chroma
+    upsampling); the shape and type exact."""
+    import numpy as np
+    from cxxnet_tpu_torch.io.decode import decode_image
+    jfx = _nvjpeg_fixture()
+    got = decode_image(jfx.jpeg(name), want, torch.device("cuda", 0))
+    ref = jfx.pixels(name, want)
+    assert got.dtype == np.uint8 and got.shape == ref.shape
+    d = np.abs(got.astype(np.int32) - ref.astype(np.int32))
+    bmax, bmean = jfx.bound_of(name, want)
+    assert d.max() <= bmax, (d.max(), d.mean())
+    if bmean is not None:
+        assert d.mean() <= bmean, (d.max(), d.mean())
+
+
+def test_nvjpeg_refuses_cmyk_and_is_the_same_on_eight_threads(dev):
+    import concurrent.futures as futures
+    import numpy as np
+    from cxxnet_tpu_torch.io.decode import decode_image
+    jfx = _nvjpeg_fixture()
+    cuda0 = torch.device("cuda", 0)
+    with pytest.raises(NotImplementedError, match="Queue A 2"):
+        decode_image(jfx.jpeg("cmyk_24x20"), 3, cuda0)
+    names = [n for n in jfx.SPECS if not n.startswith("cmyk")] * 6
+    one = [decode_image(jfx.jpeg(n), 3, cuda0) for n in names]
+    with futures.ThreadPoolExecutor(8) as ex:
+        many = list(ex.map(lambda n: decode_image(jfx.jpeg(n), 3, cuda0),
+                           names))
+    assert all(np.array_equal(a, b) for a, b in zip(one, many))

@@ -65,6 +65,7 @@ def test_port_files_exist():
             "cxxnet_tpu_torch/io/decode.py",
             "cxxnet_tpu_torch/io/augment.py",
             "cxxnet_tpu_torch/io/iter_imgrec.py",
+            "cxxnet_tpu_torch/io/iter_img.py",
             "cxxnet_tpu_torch/ops/fused_stem.py"} <= names
     csrc = {os.path.basename(p) for p in glob.glob(
         os.path.join(REPO, "cxxnet_tpu_torch", "csrc", "*.cu"))}

@@ -24,7 +24,8 @@ from cxxnet_tpu_torch.io.data import DataIter
 from cxxnet_tpu_torch.io.decode import decode_image
 from cxxnet_tpu_torch.io.proc import ThreadBufferIterator
 
-from torch_imgrec_fixture import image, pil_bytes, png_bytes, write_records
+from torch_imgrec_fixture import (binaryproto, image, pil_bytes, png_any,
+                                  png_bytes, write_records)
 
 A2 = "ROADMAP Queue A 2"
 
@@ -175,11 +176,20 @@ def test_jpeg_route_is_bit_equal_to_the_jax_native_decoder(
 
 
 def test_formats_the_port_does_not_decode_name_roadmap_a2():
+    """16-bit and interlaced PNGs decode as the JAX package decodes them
+    (they were refused before the native decoder); other formats still
+    raise naming ROADMAP Queue A 2, a damaged PNG raises."""
+    from cxxnet_tpu.io.iter_imgrec import decode_image as jax_decode
     img = _images(1, 1, 8, 8)[0]
-    with pytest.raises(NotImplementedError, match=A2):
-        decode_image(png_bytes(img, depth=16), 3)
-    with pytest.raises(NotImplementedError, match=A2):
-        decode_image(png_bytes(img, interlace=1), 3)
+    deep = png_any(img.astype(np.uint16) * 257 + 3, 2, 16)
+    laced = png_any(img, 2, 8, interlace=1)
+    for data in (deep, laced):
+        for want in (3, 1):
+            got = decode_image(data, want)
+            np.testing.assert_array_equal(got, img if want == 3 else
+                                          _pil_decode(png_bytes(img), 1))
+        np.testing.assert_array_equal(decode_image(data, 3),
+                                      jax_decode(data, 3))
     with pytest.raises(NotImplementedError, match=A2):
         decode_image(b"GIF89a" + bytes(40), 3)
     bad = bytearray(png_bytes(img))
@@ -191,16 +201,24 @@ def test_formats_the_port_does_not_decode_name_roadmap_a2():
 # -- augmenter --------------------------------------------------------------
 
 def test_affine_and_upscale_name_roadmap_a2():
-    p = AugmentParams()
-    p.set_param("max_rotate_angle", "10")
-    aug = ImageAugmenter(p, (3, 16, 16))
+    """The affine warp and the upscale, refused before ``warp.cc``, now
+    give the JAX package's (cv2) pixels within 2e-3; the uint8 path still
+    hands them to the float path."""
+    from cxxnet_tpu.io.augment import AugmentParams as JaxParams
+    from cxxnet_tpu.io.augment import ImageAugmenter as JaxAugmenter
     img = _images(2, 1, 24, 24)[0]
-    with pytest.raises(NotImplementedError, match=A2):
-        aug.process(img, np.random.RandomState(0))
-    assert aug.process_u8(img, np.random.RandomState(0)) is None
-    small = ImageAugmenter(AugmentParams(), (3, 30, 30))
-    with pytest.raises(NotImplementedError, match=A2):
-        small.process(img, np.random.RandomState(0))
+    for keys, shape in (({"max_rotate_angle": "10"}, (3, 16, 16)),
+                        ({}, (3, 30, 30))):
+        p, jp = AugmentParams(), JaxParams()
+        for k, v in keys.items():
+            p.set_param(k, v)
+            jp.set_param(k, v)
+        aug, ref = ImageAugmenter(p, shape), JaxAugmenter(jp, shape)
+        got = aug.process(img, np.random.RandomState(0))
+        want = ref.process(img, np.random.RandomState(0))
+        assert got.shape == shape[1:] + (3,)
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-3)
+        assert aug.process_u8(img, np.random.RandomState(0)) is None
 
 
 def test_every_augment_key_is_parsed():
@@ -322,7 +340,8 @@ def test_jpeg_and_gray_records_are_bit_equal_to_the_jax_iterator(tmp_path):
                   jrec.RecordWriter, jrec.ImageRecord)
     for shape in ("3,24,28", "1,20,20"):
         cfg = _section(path, [("rand_crop", "1"), ("rand_mirror", "1"),
-                              ("input_shape", shape), ("shuffle", "1")])
+                              ("input_shape", shape), ("shuffle", "1"),
+                              ("dev", "cpu")])
         got = _assert_same_batches(cfg, epochs=1)
         assert got[0].data.shape[-1] == int(shape[0])
 
@@ -334,25 +353,27 @@ def test_device_normalize_auto_resolves_as_the_jax_iterator(
     close_chain(it)
     assert "device_normalize auto-resolved to 1" in capsys.readouterr().out
     # images smaller than the crop resolve to the host path, whose
-    # upscale the port does not have
+    # upscale (warp.cc) gives the JAX package's cv2 batches within 2e-3
     small = str(tmp_path / "small.rec")
     write_records(small, [png_bytes(im) for im in _images(4, 3, 16, 16)],
                   prec.RecordWriter, prec.ImageRecord)
     ref = jax_create_iterator(_section(small, []))
     assert ref.aug.device_normalize == 0
-    jax_close_chain(ref)
     it = create_iterator(_section(small, []))
     assert it.aug.device_normalize == 0
-    with pytest.raises(NotImplementedError, match=A2):
-        it.next()
-    close_chain(it)
+    try:
+        got, want = it.next(), ref.next()
+        assert got.data.shape == want.data.shape == (8, 24, 28, 3)
+        np.testing.assert_allclose(got.data, want.data, rtol=0, atol=2e-3)
+    finally:
+        close_chain(it)
+        jax_close_chain(ref)
 
 
 @pytest.mark.parametrize("pairs", [
     [("image_bin", "x.bin")], [("image_conf_prefix", "p%d")],
-    [("dist_num_worker", "2")], [("max_rotate_angle", "10")],
-    [("image_mean", "m.binaryproto")]],
-    ids=["image_bin", "conf_prefix", "dist", "affine", "binaryproto"])
+    [("dist_num_worker", "2")]],
+    ids=["image_bin", "conf_prefix", "dist"])
 def test_imgrec_features_outside_the_slice_name_roadmap_a2(png_rec, pairs):
     with pytest.raises((ConfigError, NotImplementedError), match=A2):
         it = create_iterator(_section(png_rec["path"], pairs))
@@ -360,6 +381,40 @@ def test_imgrec_features_outside_the_slice_name_roadmap_a2(png_rec, pairs):
             list(it)
         finally:
             close_chain(it)
+
+
+@pytest.mark.parametrize("case", ["affine", "binaryproto"])
+def test_imgrec_features_ported_in_the_slice_match_the_jax_iterator(
+        png_rec, tmp_path, case):
+    """The two cases that the list above refused before this slice: the
+    affine keys (within 2e-3 of the JAX package's cv2) and a
+    ``.binaryproto`` mean image (bit-equal)."""
+    if case == "affine":
+        extra = [("max_rotate_angle", "10"), ("max_shear_ratio", "0.1"),
+                 ("rand_mirror", "1"), ("shuffle", "1")]
+    else:
+        mean = str(tmp_path / "m.binaryproto")
+        arr = np.random.RandomState(9).uniform(0, 255, (3, 32, 36))
+        with open(mean, "wb") as f:
+            f.write(binaryproto(arr.astype(np.float32)))
+        extra = [("image_mean", mean), ("rand_crop", "1"),
+                 ("device_normalize", "0")]
+    cfg = _section(png_rec["path"], extra)
+    port, ref = create_iterator(cfg), jax_create_iterator(cfg)
+    try:
+        got, want = list(port), list(ref)
+        assert len(got) == len(want) == 4
+        for a, b in zip(got, want):
+            assert a.data.dtype == b.data.dtype == np.float32
+            if case == "affine":
+                np.testing.assert_allclose(a.data, b.data, rtol=0,
+                                           atol=2e-3)
+            else:
+                np.testing.assert_array_equal(a.data, b.data)
+            np.testing.assert_array_equal(a.inst_index, b.inst_index)
+    finally:
+        close_chain(port)
+        jax_close_chain(ref)
 
 
 def test_remote_record_paths_name_roadmap_a2():

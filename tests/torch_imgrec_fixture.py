@@ -1,6 +1,7 @@
 """Shared setup of the port's image-record tests: seeded structured
-images, a minimal PNG writer over ``zlib`` that uses every row filter,
-and record files of them.
+images, minimal PNG writers over ``zlib`` that use every row filter
+(any colour type, bit depth and interlace), record files of them, and
+Caffe ``.binaryproto`` means.
 
 No jax import: the port's tests and the JAX package's iterator both
 read what these helpers write.
@@ -65,13 +66,58 @@ def png_bytes(img: np.ndarray, ctype: int = None, plte: bytes = None,
     """PNG of ``img`` ((h, w, ch) uint8: ch 1 gray, 2 gray+alpha, 3 RGB,
     4 RGBA, or palette indices with ``ctype = 3`` and ``plte``); rows
     filtered by ``ftypes`` (default: row r by r % 5). ``depth`` and
-    ``interlace`` only label the header (to make files the decoder must
-    refuse)."""
+    ``interlace`` only label the header (:func:`png_any` writes other
+    depths and Adam7)."""
     h, w, ch = img.shape
     if ctype is None:
         ctype = {1: 0, 2: 4, 3: 2, 4: 6}[ch]
     ftypes = [r % 5 for r in range(h)] if ftypes is None else ftypes
     body = _filter_rows(img.reshape(h, w * ch), ch, ftypes)
+    out = b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))
+    if plte is not None:
+        out += _chunk(b"PLTE", plte)
+    return out + _chunk(b"IDAT", zlib.compress(body)) + _chunk(b"IEND", b"")
+
+
+#: Adam7's passes: (x0, y0, dx, dy)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _pack_rows(s: np.ndarray, depth: int) -> np.ndarray:
+    """Samples (h, w, ch) -> rows of bytes at ``depth`` bits a sample
+    (16: big-endian; below 8: packed from the high bit, the row padded
+    to a byte)."""
+    h, w, ch = s.shape
+    if depth == 16:
+        return s.astype(">u2").reshape(h, w * ch).view(np.uint8)
+    if depth == 8:
+        return s.astype(np.uint8).reshape(h, w * ch)
+    per = 8 // depth
+    flat = s.reshape(h, w * ch).astype(np.uint8)
+    flat = np.concatenate([flat, np.zeros((h, -flat.shape[1] % per),
+                                          np.uint8)], 1).reshape(h, -1, per)
+    shifts = (8 - depth * (np.arange(per) + 1)).astype(np.uint8)
+    return (flat << shifts).sum(2).astype(np.uint8)
+
+
+def png_any(samples: np.ndarray, ctype: int, depth: int,
+            interlace: int = 0, plte: bytes = None, ftypes=None) -> bytes:
+    """A PNG of any colour type, bit depth and interlace: ``samples``
+    (h, w, ch) integers below 2^depth (palette indices for ``ctype =
+    3``); each row of each pass filtered by ``ftypes(r)`` (default r %
+    5, so every pass of every size uses every filter it has rows for)."""
+    h, w, ch = samples.shape
+    bpp = max(1, ch * depth // 8)
+    ft = ftypes or (lambda r: r % 5)
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    body = b""
+    for x0, y0, dx, dy in passes:
+        sub = samples[y0::dy, x0::dx]
+        if sub.size:
+            body += _filter_rows(_pack_rows(sub, depth), bpp,
+                                 [ft(r) for r in range(sub.shape[0])])
     out = b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", struct.pack(
         ">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))
     if plte is not None:
@@ -100,3 +146,45 @@ def write_records(path: str, encoded, writer_cls, record_cls,
                                labels=np.asarray(lab, np.float32),
                                data=data).pack())
         w.write_index(path)
+
+
+def _varint(v):
+    out = bytearray()
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        out.append(b | (0x80 if v else 0))
+        if not v:
+            return bytes(out)
+
+
+def _field(num, wt, payload):
+    key = _varint(num << 3 | wt)
+    if wt == 0:
+        return key + _varint(payload)
+    if wt == 2:
+        return key + _varint(len(payload)) + payload
+    return key + payload
+
+
+def binaryproto(arr, legacy=True, packed=True, packed_dims=True,
+                lead_one=True):
+    """A BlobProto of ``arr`` (C, H, W) float32 in the given spellings."""
+    shape = ((1,) if lead_one else ()) + arr.shape
+    out = b""
+    if legacy:
+        dims = (1,) * (4 - len(arr.shape)) + arr.shape
+        for f, d in zip((1, 2, 3, 4), dims):
+            out += _field(f, 0, d)
+    else:
+        if packed_dims:
+            body = _field(1, 2, b"".join(_varint(d) for d in shape))
+        else:
+            body = b"".join(_field(1, 0, d) for d in shape)
+        out += _field(7, 2, body)
+    flat = arr.astype("<f4").ravel()
+    if packed:
+        out += _field(5, 2, flat.tobytes())
+    else:
+        out += b"".join(_field(5, 5, struct.pack("<f", v)) for v in flat)
+    return out
