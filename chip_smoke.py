@@ -332,6 +332,52 @@ and prints no result:
             rows. Printed: the decoded-and-augmented images/s of the
             train chain and the step time.
 
+15. rest:   the rest of training, each run through ``main.run`` with its
+            launch counts set to 0 just before its first step and read
+            after it. (a) Full-width Inception-BN with only
+            ``compute_dtype = float16`` (batch 128, SGD, 4 steps):
+            phase 6's launches a step; the loss scaler's scale and
+            ``good`` after each step; each applied step held against
+            ``fused_kernels = 0`` from the same state at phase 6's
+            bounds (the yardstick plain f16 against plain f32), a step
+            whose apply the scaler skipped (the deep net's float16
+            gradients overflow at the first scale) skipped by the plain
+            step too with every master bit-unchanged; at least 2 of the
+            4 applied. A planted overflow (one batch of 1e8, past
+            float16's 65504): the scale halved, ``good`` 0, every
+            master and momentum bit-unchanged, and no host read in the
+            step (PyTorch's CUDA sync debug mode, which sees the one
+            sync of an ``.item()``); the next clean batch applies, the
+            masters finite; with ``loss_scale_window = 2`` the scale
+            doubles after two clean applies. (b) Full-width AlexNet at
+            ``alexnet.conf``'s own fallback, batch 128 with
+            ``update_period = 2`` (bf16, 4 steps): ``lrn_*`` 2 a step,
+            ``sgd_apply`` 0 at the mid-period steps and one a tag group
+            at the applies; masters and momenta bit-unchanged after
+            each mid-period step; each step against ``fused_kernels =
+            0`` from the same state and accumulator (the accumulator
+            after a mid-period step, the update after an apply) at the
+            bf16 convnet bounds; ``epoch_counter`` 2; the mid-period and
+            apply steps timed. (c) Full-width Inception-BN (bf16) with
+            ``train_chain = 4`` over one round of 10 batches: two chains
+            and a tail of two ``update()`` calls, phase 6's launches a
+            step, and with ``torch.backends.cudnn.deterministic`` set
+            the losses, masters, momenta and BN statistics bit-equal to
+            10 sequential ``update()`` calls from the same init. (d) The
+            long-context LM with ``compute_dtype = float16`` (Adam, 4
+            steps): phase 7's launches (2 / 1 / 1 / 2 a step, no apply
+            skipped), each step's gradients against ``fused_kernels =
+            0`` from the same state (LM_LOSS_TOL, LM_GRAD_TOL at
+            float16), the step timed beside phase 7's bf16 step. Phase 3
+            adds float16 cases at the paths' full-width shapes: the BN
+            forward and backward at bn_stem1, the 7x7 pool backward and
+            forward at batch 128, fc1's epilogue, and the SGD apply over
+            Inception-BN's groups with the skip flag set (every bit
+            kept) and clear (the flash kernels' f16 cases at the LM's
+            shape were there before); phase 15 times those kernels in
+            f16 beside bf16 on the same data, and the SGD apply with a
+            clear flag beside none.
+
 Then, on lines of their own: the card's name and power limit as
 ``nvidia-smi`` reports them, the kernels JSON line, and last
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits 2 when
@@ -787,6 +833,9 @@ def phase_kernels(gen: torch.Generator) -> dict:
          "offset"),
         ((2, 4, 4, 64), torch.bfloat16, 2, 2, "max", False, True, "nan"),
         ((2, 7, 7, 64), torch.bfloat16, 7, 7, "sum", False, False, "nan"),
+        # the float16 training path's global average (phase 15)
+        ((TRAIN_BATCH, 7, 7, 1024), torch.float16, 7, 7, "sum", True, False,
+         ""),
     ]
     for shape, dt, kh, kw, red, avg, relu, how in pool_cases:
         x = rnd(shape, dt)
@@ -830,7 +879,9 @@ def phase_kernels(gen: torch.Generator) -> dict:
                   ((64, 1000), torch.float32, True, "none", "offset"),
                   ((999, 40), torch.bfloat16, True, "none", "nan"),
                   ((999, 40), torch.float16, True, "relu", "nan"),
-                  ((999, 40), torch.float32, False, "relu", "nan")]
+                  ((999, 40), torch.float32, False, "relu", "nan"),
+                  # the float16 training path's fc1 (phase 15)
+                  ((TRAIN_BATCH, 1000), torch.float16, True, "none", "")]
     for shape, dt, with_bias, act, how in epi_cases:
         x = rnd(shape, dt)
         if how == "offset":
@@ -930,6 +981,7 @@ def phase_train_kernels(gen: torch.Generator, conf: str) -> dict:
 
     bn_cases = [(bn_shapes[0], torch.bfloat16, True, False),
                 (bn_shapes[-1], torch.bfloat16, True, False),
+                (bn_shapes[0], torch.float16, True, False),
                 ((333, 200), torch.float16, True, True),
                 ((1000, 64), torch.float32, False, False),
                 ((37, 3), torch.float32, True, True)]
@@ -972,11 +1024,12 @@ def phase_train_kernels(gen: torch.Generator, conf: str) -> dict:
                 "to bn_norm_plain with its own moments, dx one ulp + 1e-3, "
                 "stats 1e-4, dgamma/dbeta 1e-3 of |v| + 1; dx bit-equal to "
                 "bn_bwd_dx's with the same sums): " + lines[-1])
-        if (n, c) == bn_shapes[0]:
+        if (n, c) == bn_shapes[0] and dt == torch.bfloat16:
             path_err["bn_fwd"] = ey.max().item()
             path_err["bn_bwd"] = edx.max().item()
 
     pool_cases = [((TRAIN_BATCH, 1, 1, 1024), torch.bfloat16, 7, 7, True),
+                  ((TRAIN_BATCH, 1, 1, 1024), torch.float16, 7, 7, True),
                   ((5, 1, 1, 333), torch.float16, 7, 7, True),
                   ((3, 3, 4, 40), torch.float32, 4, 5, False)]
     for shape, dt, kh, kw, avg in pool_cases:
@@ -990,7 +1043,7 @@ def phase_train_kernels(gen: torch.Generator, conf: str) -> dict:
         if err != 0.0:
             raise AssertionError("pool backward kernel disagrees: "
                                  + lines[-1])
-        if shape[0] == TRAIN_BATCH:
+        if shape[0] == TRAIN_BATCH and dt == torch.bfloat16:
             path_err["pool_bwd"] = err
 
     epi_cases = [((TRAIN_BATCH, 1000), torch.bfloat16, True, "none"),
@@ -1044,6 +1097,30 @@ def phase_train_kernels(gen: torch.Generator, conf: str) -> dict:
                      f"{err:.3g} (tol 2.4e-7 of |v| + 1: two f32 ulp)")
         if rel > 2.4e-7:
             raise AssertionError("sgd apply kernel disagrees: " + lines[-1])
+        # the loss scaler's skip flag, on the card: set, kernel and plain
+        # keep every bit; clear, they compute the same as without it
+        for flag in (1, 0):
+            skip = torch.tensor(flag, dtype=torch.int32, device=dev)
+            old = [t.clone() for t in ws + ms]
+            want_w, want_m = sgd_apply_plain(ws, gs, ms, 0.1, 0.9, 1e-4, 0.0,
+                                             tag == "bias", skip)
+            fused_sgd_apply(ws, gs, ms, 0.1, 0.9, wd=1e-4, clip=0.0,
+                            nag=tag == "bias", skip=skip)
+            torch.cuda.synchronize()
+            if flag:
+                same = all(torch.equal(a, o) and torch.equal(b, o) for a, b, o
+                           in zip(ws + ms, want_w + want_m, old))
+                lines.append(f"sgd_apply {tag} group, skip flag set: every "
+                             f"leaf and moment bit-unchanged {same}")
+                if not same:
+                    raise AssertionError("sgd apply skip: " + lines[-1])
+                continue
+            rel = max(((a - b).abs() / (b.abs() + 1.0)).max().item()
+                      for a, b in zip(ws + ms, want_w + want_m))
+            lines.append(f"sgd_apply {tag} group, skip flag clear: max rel "
+                         f"err {rel:.3g} (tol 2.4e-7)")
+            if rel > 2.4e-7:
+                raise AssertionError("sgd apply skip: " + lines[-1])
     path_err["sgd_apply"] = worst
 
     # batch_norm_no_ma at eval: the BN forward kernel on the card
@@ -1622,7 +1699,7 @@ def _step_rels(got, want, before):
         g, w, b = _leafs(g), _leafs(w), _leafs(b)
         rels += [(_rel(g[k] - b[k], w[k] - b[k]), k) for k in w]
     gs, ws = _leafs(got[2]), _leafs(want[2])
-    return rels, max(_rel(gs[k], ws[k]) for k in ws)
+    return rels, max((_rel(gs[k], ws[k]) for k in ws), default=0.0)
 
 
 def _grad_ratios(got, want, before, mom):
@@ -1700,29 +1777,48 @@ def layer_parity(tr, batch, gen) -> dict:
     return worst
 
 
-def _load(tr, snap, epoch):
+def _load(tr, snap, epoch, step=None):
     """Load ``snap`` as the state before update ``epoch`` (its step
-    counter too, so a drawing layer draws what that step drew)."""
+    counter too, ``step`` where it differs, so a drawing layer draws
+    what that step drew)."""
     from cxxnet_tpu_torch.checkpoint import _sig_to_json
     p, o, s = snap
     tr.load_blob({"meta": {"structure_sig": _sig_to_json(
         tr.graph.structure_signature()), "round": 0, "epoch": epoch,
-        "step_count": epoch}, "params": p, "state": s, "opt": o})
+        "step_count": epoch if step is None else step}, "params": p,
+        "state": s, "opt": o})
 
 
-def steps_vs_plain(glob, before, after, losses, batches):
+def steps_vs_plain(glob, before, after, losses, batches, skipped=()):
     """Each step of a kernel run (``before[i]`` -> ``after[i]``, loss
     ``losses[i]``, on ``batches[i]``) held against the same step with
-    fused_kernels = 0 from the same state, in bf16 and, as the yardstick
-    of bf16 rounding, in f32 (the module docstring's phase 6 bounds).
-    Returns the readings and the plain bf16 trainer; raises past a
-    bound."""
+    fused_kernels = 0 from the same state, in the run's compute dtype
+    and, as the yardstick of its rounding, in f32 (the module
+    docstring's phase 6 bounds). A step in ``skipped`` (a float16 step
+    whose apply the loss scaler skipped) must be skipped by the plain
+    step too, with its masters and momenta bit-unchanged. Returns the
+    readings and the plain trainer; raises past a bound."""
     from cxxnet_tpu_torch.trainer import Trainer
     plain = Trainer(glob + [("fused_kernels", "0")])
     plain32 = Trainer(glob + [("fused_kernels", "0"), ("silent", "1"),
                               ("compute_dtype", "float32")])
-    worst = {"loss": 0.0, "state": 0.0, "kp": [], "pf": [], "ratio": []}
+    worst = {"loss": 0.0, "state": 0.0, "kp": [], "pf": [], "ratio": [],
+             "skipped": []}
     for i, b in enumerate(batches):
+        if i in skipped:
+            _load(plain, before[i], i)
+            plain.update(b)
+            got = _snap(plain)
+            mp0, mp1 = before[i][1]["_mp"], got[1]["_mp"]
+            same = all(np.array_equal(x, y) for x, y in zip(
+                _flat_np(before[i][0]) + _flat_np(before[i][1]["mom"]),
+                _flat_np(got[0]) + _flat_np(got[1]["mom"])))
+            if not same or float(mp1["scale"]) != max(
+                    float(mp0["scale"]) / 2, plain.optimizer.ls_min):
+                raise AssertionError(f"step {i + 1}: the kernels' apply was "
+                                     "skipped, the plain step's not")
+            worst["skipped"].append(i + 1)
+            continue
         got = []
         for t in (plain, plain32):
             _load(t, before[i], i)
@@ -1744,7 +1840,8 @@ def steps_vs_plain(glob, before, after, losses, batches):
     del plain32
     # step 1's bf16 rounding yardstick (median 0.94) leaves no bound
     # under 1, so its update is held by the ratio check only
-    bad = [i + 1 for i, (mk, mf) in enumerate(zip(worst["kp"], worst["pf"]))
+    applied = [i for i in range(len(batches)) if i not in skipped]
+    bad = [i + 1 for i, mk, mf in zip(applied, worst["kp"], worst["pf"])
            if i > 0 and mk[0] > 1.5 * mf[0]]
     bad += [f"ratio at step {i + 1}" for i, (lo, hi) in
             enumerate(worst["ratio"]) if lo[0] < 0.5 or hi[0] > 2]
@@ -1754,14 +1851,22 @@ def steps_vs_plain(glob, before, after, losses, batches):
     return worst, plain
 
 
-def _steps_line(worst) -> str:
+def _flat_np(tree):
+    """The leaves of a nested tree of arrays, depth first."""
+    out = []
+    for v in tree.values():
+        out += _flat_np(v) if isinstance(v, dict) else [np.asarray(v)]
+    return out
+
+
+def _steps_line(worst, dt: str = "bf16") -> str:
     """The round-line text of :func:`steps_vs_plain`'s readings."""
     return (f"vs fused_kernels=0 from the same state, worst over steps: loss "
             f"{worst['loss']:.3g} of max(1,|loss|) (tol 2e-2), BN statistics "
             f"{worst['state']:.3g} (tol 2e-2); per step, update rel L2 "
-            f"median over leaves / worst leaf, kernels vs plain bf16 "
+            f"median over leaves / worst leaf, kernels vs plain {dt} "
             f"{[(round(m, 4), round(w[0], 4)) for m, w in worst['kp']]} "
-            f"against plain bf16 vs plain f32 (bf16 rounding) "
+            f"against plain {dt} vs plain f32 ({dt} rounding) "
             f"{[(round(m, 4), round(w[0], 4)) for m, w in worst['pf']]} "
             f"(tol: median at most 1.5x the rounding's at steps 2-"
             f"{len(worst['kp'])}); gradient-part norm ratio per leaf, "
@@ -2438,7 +2543,7 @@ def phase_train_times(tr, plain, batches, gen) -> dict:
         "sgd_apply": dict(
             ms=time_call(lambda: fused_optim.SGD_APPLY.launch(
                 table.data_ptr(), len(ws), nblk, fused_optim.CHUNK, 0.1,
-                0.9, 1e-4, 0.0, 0, stream())),
+                0.9, 1e-4, 0.0, 0, None, stream())),
             plain_ms=time_call(lambda: fused_optim.sgd_apply_plain(
                 ws, gs, ms, 0.1, 0.9, 1e-4, 0.0, False)),
             library_ms=time_loop(sgd.step),
@@ -2793,8 +2898,8 @@ def phase_tasks(conf: str, seed: int, tmp: str, tr, smi_line: str) -> dict:
 #: same state (readings in PERF.md section 2): the loss relative to
 #: max(1, |loss|), and each parameter leaf's gradient as a relative L2
 #: difference; per dtype
-LM_LOSS_TOL = {"bfloat16": 1e-4, "float32": 1e-6}
-LM_GRAD_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
+LM_LOSS_TOL = {"bfloat16": 1e-4, "float16": 1e-4, "float32": 1e-6}
+LM_GRAD_TOL = {"bfloat16": 1e-2, "float16": 1e-2, "float32": 1e-5}
 
 
 def lm_cfg(seed: int, model_dir: str, extra=()):
@@ -5398,6 +5503,505 @@ def phase_bowl(seed: int, tmp: str, extra=()) -> dict:
             "step_ms": step_ms, "seconds": took, "write_seconds": t_write}
 
 
+# -- phase 15: the rest of training -------------------------------------------
+
+#: the planted overflow: every input value 1e8, past float16's 65504
+PLANT = 1e8
+#: AlexNet under accumulation: alexnet.conf's own fallback, batch 128 with
+#: update_period = 2 (its comment: equivalent to batch 256)
+ACCUM_BATCH, ACCUM_PERIOD = 128, 2
+#: the chained run: train_chain = CHAIN_K over CHAIN_BATCHES batches, so
+#: two chains and a tail of two update() calls
+CHAIN_K, CHAIN_BATCHES = 4, 10
+
+
+def _scaler(tr):
+    """(scale, good) of a trainer's float16 loss scaler."""
+    mp = tr.opt_state["_mp"]
+    return float(mp["scale"]), int(mp["good"])
+
+
+def _bits_equal(a, b) -> bool:
+    """Whether the masters and momenta of two snapshots are bit-equal."""
+    return all(np.array_equal(x, y) for x, y in zip(
+        _flat_np(a[0]) + _flat_np(a[1]["mom"]),
+        _flat_np(b[0]) + _flat_np(b[1]["mom"])))
+
+
+def _host_syncs(fn) -> list:
+    """The host syncs ``fn()`` makes, caught by PyTorch's CUDA sync
+    debug mode (a warning for each synchronizing call), as the
+    ``file:line`` of the Python line that made each."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in seen
+            if "called a synchronizing" in str(w.message)]
+
+
+def _train_run(cfg, on_step=None, wrap=None):
+    """``main.run(cfg)`` with the launch counts set to 0 just before the
+    first step and read just after the run; ``on_step`` is the trainer's
+    step hook, ``wrap(tr)`` is called in ``ready``. Returns (trainer,
+    launches, the init's snapshot, seconds)."""
+    from cxxnet_tpu_torch.main import run
+    from cxxnet_tpu_torch.ops import KERNELS, reset_launches
+    box = {}
+
+    def ready(tr):
+        box["init"] = _snap(tr)
+        tr.step_hook = on_step
+        if wrap is not None:
+            wrap(tr)
+        torch.cuda.synchronize()
+        reset_launches()                  # just before the first step
+        box["t0"] = time.perf_counter()
+
+    tr = run(cfg, ready=ready)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in KERNELS.values()}
+    tr.step_hook = None
+    return tr, launches, box["init"], time.perf_counter() - box["t0"]
+
+
+def _data_batches(cfg):
+    from cxxnet_tpu_torch.config import split_sections
+    from cxxnet_tpu_torch.io import create_iterator
+    glob, sections = split_sections(cfg)
+    data = [p for kind, _, p in sections if kind == "data"][0]
+    return glob, list(create_iterator(glob + data))
+
+
+def phase_fp16(conf: str, seed: int, tmp: str, bf16_step_ms: float) -> dict:
+    """Full-width Inception-BN with ``compute_dtype = float16`` through
+    main.run (phase 6's run otherwise), the planted overflow, and the
+    scale's growth with ``loss_scale_window = 2``."""
+    from cxxnet_tpu_torch.io.data import DataBatch
+    from cxxnet_tpu_torch.trainer import Trainer
+    cfg = train_cfg(conf, seed, os.path.join(tmp, "fp16"),
+                    ("compute_dtype=float16",))
+    box = {"losses": [], "after": [], "scales": []}
+
+    def on_step(tr):
+        box["losses"].append(tr.last_loss)
+        box["scales"].append(_scaler(tr))
+        box["after"].append(_snap(tr))
+
+    tr, launches, init, took = _train_run(cfg, on_step)
+    steps = len(box["losses"])
+    if steps != TRAIN_STEPS:
+        raise AssertionError(f"fp16: {steps} steps")
+    train_launches("fp16", launches, steps)
+    mp = init[1]["_mp"]
+    scales = [(float(mp["scale"]), int(mp["good"]))] + box["scales"]
+    # no growth within a window of 200: good 0 after a step is a skip
+    skipped = {i for i in range(steps) if scales[i + 1][1] == 0}
+    if len(skipped) > steps - 2:
+        raise AssertionError(f"fp16: fewer than 2 of {steps} steps applied: "
+                             f"scale, good {scales}")
+    losses = box["losses"]
+    if not all(np.isfinite(v) for i, v in enumerate(losses)
+               if i not in skipped):
+        raise AssertionError(f"fp16: non-finite loss {losses}")
+    before = [init] + box["after"][:-1]
+    glob, batches = _data_batches(cfg)
+    worst, plain = steps_vs_plain(glob, before, box["after"], losses,
+                                  batches, skipped)
+    del plain
+    # the planted overflow: skipped on the card, with no host read (the
+    # train metrics, whose one-step-late read is a host read by design,
+    # drained before it and off during it)
+    b0 = batches[0]
+    bad = DataBatch(data=np.full_like(b0.data, PLANT), label=b0.label)
+    snap0, sc0 = _snap(tr), _scaler(tr)
+    tr._drain_pending_metric()
+    eval_train, tr.eval_train = tr.eval_train, 0
+    # the detector sees a host read: one .item() is one sync
+    probe = _host_syncs(lambda: torch.ones((), device=tr.device).item())
+    syncs = _host_syncs(lambda: tr.update(bad))
+    tr.eval_train = eval_train
+    if len(probe) != 1:
+        raise AssertionError(f"the sync detector saw {probe} in one .item()")
+    snap1, sc1 = _snap(tr), _scaler(tr)
+    want = (max(sc0[0] / 2, tr.optimizer.ls_min), 0)
+    kept = _bits_equal(snap0, snap1)
+    if sc1 != want or not kept or syncs:
+        raise AssertionError(f"planted overflow: scale {sc0} -> {sc1} "
+                             f"(want {want}), masters and momenta "
+                             f"bit-unchanged {kept}, host syncs {syncs}")
+    tr.update(batches[1])
+    snap2, sc2 = _snap(tr), _scaler(tr)
+    moved = not _bits_equal(snap1, snap2)
+    finite = all(np.isfinite(x).all() for x in _flat_np(snap2[0]))
+    if sc2 != (sc1[0], 1) or not moved or not finite:
+        raise AssertionError(f"after the overflow, a clean batch: scale "
+                             f"{sc2}, applied {moved}, finite {finite}")
+    step_ms = time_forward(lambda: tr.update(batches[2]), reps=10)
+    del tr
+    # the scale's growth: loss_scale_window = 2 from the skipped state
+    t2 = Trainer(glob + [("loss_scale_window", "2"), ("silent", "1")])
+    _load(t2, snap1, steps + 1)
+    grow = [_scaler(t2)]
+    for b in batches[2:4]:
+        t2.update(b)
+        grow.append(_scaler(t2))
+    del t2
+    torch.cuda.empty_cache()
+    s1 = sc1[0]
+    if grow != [(s1, 0), (s1, 1), (2 * s1, 0)]:
+        raise AssertionError(f"loss_scale_window = 2: scale, good {grow}")
+    print(f"fp16: {steps} steps of full-width Inception-BN (batch "
+          f"{TRAIN_BATCH}, compute_dtype = float16, SGD momentum) through "
+          f"main.run in {took:.1f}s | losses {[round(v, 4) for v in losses]}"
+          f" | scale, good after each step {scales[1:]}; applies skipped "
+          f"{sorted(i + 1 for i in skipped) or 'none'} | launches per step: "
+          f"bn_fwd {launches['bn_fwd'] // steps}, bn_bwd "
+          f"{launches['bn_bwd'] // steps}, sgd_apply "
+          f"{launches['sgd_apply'] // steps} (phase 6's) | "
+          f"{_steps_line(worst, 'f16')} | planted overflow (inputs "
+          f"{PLANT:g}): "
+          f"scale {sc0} -> {sc1}, masters and momenta bit-unchanged, "
+          f"{len(syncs)} host syncs in the step (CUDA sync debug mode); next "
+          f"clean batch applies, finite masters, scale {sc2} | "
+          f"loss_scale_window = 2: {grow} | step {step_ms:.3f} ms in float16"
+          f" beside phase 6's {bf16_step_ms:.3f} ms in bf16", flush=True)
+    return {"losses": losses, "scales": scales[1:],
+            "skipped": sorted(i + 1 for i in skipped), "worst": worst,
+            "planted": {"scale": [sc0, sc1], "host_syncs": syncs,
+                        "next": sc2}, "window2": grow,
+            "step_ms": step_ms, "bf16_step_ms": bf16_step_ms,
+            "seconds": took}
+
+
+def _accum_np(tr):
+    """A host copy of the trainer's accumulator, JAX layout."""
+    from cxxnet_tpu_torch.convert import params_to_jax
+    return params_to_jax(tr.accum, {})[0]
+
+
+def phase_accum(seed: int, tmp: str) -> dict:
+    """Full-width AlexNet with ``update_period = 2`` at batch 128 (bf16)
+    through main.run: the masters bit-unchanged after a mid-period
+    step, each step against fused_kernels = 0 from the same state and
+    accumulator, ``epoch_counter`` 2 after 4 steps, the two kinds of
+    step timed."""
+    from cxxnet_tpu_torch.convert import params_from_jax
+    from cxxnet_tpu_torch.ops import KERNELS
+    from cxxnet_tpu_torch.optim import tree_map
+    from cxxnet_tpu_torch.trainer import Trainer
+    conf, _, image, per_step = CONVNETS["alexnet"]
+    steps = CONVNET_STEPS
+    cfg = train_cfg(conf, seed, os.path.join(tmp, "accum"),
+                    (f"seed={seed}", f"update_period={ACCUM_PERIOD}"),
+                    batch=ACCUM_BATCH, steps=steps, image=image)
+    box = {"counts": [], "losses": [], "after": []}
+
+    def on_step(tr):
+        box["counts"].append({k.name: k.launches for k in KERNELS.values()})
+        box["losses"].append(tr.last_loss)
+        box["after"].append((_snap(tr), _accum_np(tr)))
+
+    accum0 = {}
+    tr, launches, init, took = _train_run(
+        cfg, on_step, wrap=lambda t: accum0.update(a=_accum_np(t)))
+    if len(box["losses"]) != steps or (tr.epoch_counter,
+                                       tr.sample_counter) != (2, 0):
+        raise AssertionError(f"accum: {len(box['losses'])} steps, epoch "
+                             f"{tr.epoch_counter}, sample "
+                             f"{tr.sample_counter}")
+    groups = len(tr.optimizer._groups(tr.params))
+    prev = {k: 0 for k in launches}
+    for i, after in enumerate(box["counts"]):
+        want = dict(per_step, sgd_apply=groups if i % 2 else 0)
+        check_launches(f"accum step {i + 1}",
+                       {k: after[k] - prev[k] for k in after}, want,
+                       {"epilogue_fwd": 1, "epilogue_bwd": 1})
+        prev = after
+    before = [(init, accum0["a"])] + box["after"][:-1]
+    kept = [_bits_equal(before[i][0], box["after"][i][0])
+            for i in range(0, steps, 2)]
+    if not all(kept):
+        raise AssertionError(f"accum: a mid-period step changed the "
+                             f"masters or momenta: {kept}")
+    glob, batches = _data_batches(cfg)
+    plain = Trainer(glob + [("fused_kernels", "0"), ("silent", "1")])
+    rows = []
+    for i, b in enumerate(batches):
+        (snap, acc), (after, acc_after) = before[i], box["after"][i]
+        _load(plain, snap, i // ACCUM_PERIOD, step=i)
+        plain.accum = tree_map(lambda v: v.to(plain.device),
+                               params_from_jax(acc, {})[0])
+        plain.sample_counter = i % ACCUM_PERIOD
+        plain.update(b)
+        lk = box["losses"][i]
+        dl = abs(plain.last_loss - lk) / max(1.0, abs(lk))
+        if i % ACCUM_PERIOD == 0:         # mid-period: the accumulator
+            g, w = _leafs(acc_after), _leafs(_accum_np(plain))
+            rels = [(_rel(g[k], w[k]), k) for k in w]
+        else:                             # the apply
+            rels, _ = _step_rels(after, _snap(plain), snap)
+        rows.append((dl, float(np.median([r for r, _ in rels])), max(rels)))
+    del plain
+    fails = [f"step {i + 1}: {r}" for i, r in enumerate(rows)
+             if r[0] > CONVNET_LOSS_TOL["bfloat16"]
+             or r[1] > CONVNET_GRAD_TOL["bfloat16"][0]
+             or r[2][0] > CONVNET_GRAD_TOL["bfloat16"][1]]
+    if fails:
+        raise AssertionError(f"accum: kernels vs fused_kernels=0 from the "
+                             f"same state and accumulator: {fails}")
+    # the mid-period step (forward, backward, accumulate) and the apply
+    times = {0: [], 1: []}
+    for r in range(12):
+        which = tr.sample_counter
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        tr.update(batches[r % steps])
+        e.record()
+        e.synchronize()
+        if r >= 2:
+            times[which].append(a.elapsed_time(e))
+    mid_ms, apply_ms = (statistics.median(times[k]) for k in (0, 1))
+    del tr
+    torch.cuda.empty_cache()
+    fmt = [(f"{dl:.2g}", f"{md:.2g}", f"{w[0]:.2g} {w[1]}")
+           for dl, md, w in rows]
+    print(f"accum: {steps} steps of full-width AlexNet (batch "
+          f"{ACCUM_BATCH}, update_period = {ACCUM_PERIOD}, bf16, SGD) "
+          f"through main.run in {took:.1f}s | losses "
+          f"{[round(v, 4) for v in box['losses']]} | epoch_counter 2, "
+          f"masters and momenta bit-unchanged after steps 1 and 3 | "
+          f"launches per step {per_step} each step, sgd_apply 0 at steps "
+          f"1 and 3 and {groups} at steps 2 and 4 | vs fused_kernels=0 from "
+          f"the same state and accumulator, per step (loss diff, rel L2 "
+          f"median, worst leaf: of the accumulator at steps 1 and 3, of the "
+          f"update at 2 and 4): {fmt} (tol loss "
+          f"{CONVNET_LOSS_TOL['bfloat16']}, (median, worst) "
+          f"{CONVNET_GRAD_TOL['bfloat16']}) | mid-period step {mid_ms:.3f} "
+          f"ms, apply step {apply_ms:.3f} ms (CUDA events, median of 5)",
+          flush=True)
+    return {"losses": box["losses"], "checks": rows, "mid_ms": mid_ms,
+            "apply_ms": apply_ms, "seconds": took}
+
+
+def phase_chain(conf: str, seed: int, tmp: str) -> dict:
+    """Full-width Inception-BN (bf16) with ``train_chain = 4`` through
+    main.run over one round of 10 batches (two chains, a tail of two
+    ``update()`` calls), held bit for bit against 10 sequential
+    ``update()`` calls from the same init, with cuDNN deterministic."""
+    from cxxnet_tpu_torch.trainer import Trainer
+    cfg = train_cfg(conf, seed, os.path.join(tmp, "chain"),
+                    (f"train_chain={CHAIN_K}",), steps=CHAIN_BATCHES)
+    box = {"losses": [], "calls": []}
+
+    def wrap(tr):
+        update, chain = tr.update, tr.update_chain_batches
+
+        def one(b):
+            update(b)
+            box["losses"].append(tr.last_loss)
+            box["calls"].append(1)
+
+        def many(bs):
+            losses = chain(bs)
+            box["losses"] += losses.tolist()
+            box["calls"].append(len(bs))
+            return losses
+        tr.update, tr.update_chain_batches = one, many
+
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        tr, launches, init, took = _train_run(cfg, wrap=wrap)
+        train_launches("chain", launches, CHAIN_BATCHES)
+        if box["calls"] != [CHAIN_K, CHAIN_K, 1, 1]:
+            raise AssertionError(f"chain: dispatches {box['calls']}")
+        glob, batches = _data_batches(cfg)
+        seq = Trainer([kv for kv in glob if kv[0] != "train_chain"]
+                      + [("silent", "1")])
+        seq.init_model((init[0], init[2]))
+        want = []
+        for b in batches:
+            seq.update(b)
+            want.append(seq.last_loss)
+        got, ref = _snap(tr), _snap(seq)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    diff = max(float(np.abs(x - y).max()) for x, y in zip(
+        _flat_np(got[0]) + _flat_np(got[1]["mom"]) + _flat_np(got[2]),
+        _flat_np(ref[0]) + _flat_np(ref[1]["mom"]) + _flat_np(ref[2])))
+    same_loss = box["losses"] == want
+    if not same_loss or diff != 0.0:
+        raise AssertionError(f"chain vs sequential (cuDNN deterministic): "
+                             f"losses equal {same_loss} ({box['losses']} vs "
+                             f"{want}), largest master/momentum/BN difference"
+                             f" {diff}")
+    counters = (tr.step_count, tr.epoch_counter)
+    del tr, seq
+    torch.cuda.empty_cache()
+    print(f"chain: full-width Inception-BN (batch {TRAIN_BATCH}, bf16) with "
+          f"train_chain = {CHAIN_K} through main.run over {CHAIN_BATCHES} "
+          f"batches in {took:.1f}s: dispatches {box['calls']} (two chains, "
+          f"a tail of two update() calls), step and epoch counters "
+          f"{counters} | launches per step: bn_fwd "
+          f"{launches['bn_fwd'] // CHAIN_BATCHES}, bn_bwd "
+          f"{launches['bn_bwd'] // CHAIN_BATCHES}, sgd_apply "
+          f"{launches['sgd_apply'] // CHAIN_BATCHES} (phase 6's) | against "
+          f"{CHAIN_BATCHES} sequential update() calls from the same init, "
+          f"cuDNN deterministic: losses bit-equal "
+          f"{[round(v, 4) for v in want]}, masters, momenta and BN "
+          f"statistics bit-equal", flush=True)
+    return {"losses": want, "dispatches": box["calls"], "seconds": took,
+            "bit_equal": True}
+
+
+def phase_lm_fp16(seed: int, tmp: str, bf16_step_ms: float) -> dict:
+    """The long-context LM with ``compute_dtype = float16`` (Adam)
+    through main.run: phase 7's launches, each step's gradients against
+    fused_kernels = 0 from the same state, the step timed beside
+    phase 7's bf16 step."""
+    from cxxnet_tpu_torch.trainer import Trainer
+    cfg = lm_cfg(seed, os.path.join(tmp, "lm16"), ("compute_dtype=float16",))
+    box = {"losses": [], "after": [], "scales": []}
+
+    def on_step(tr):
+        box["losses"].append(tr.last_loss)
+        box["scales"].append(_scaler(tr))
+        box["after"].append(_snap(tr))
+
+    tr, launches, init, took = _train_run(cfg, on_step)
+    steps = len(box["losses"])
+    mha = [l for l in tr.net.layers if l.spec.type == "mha"]
+    groups = len(tr.optimizer._groups(tr.params))
+    skipped = [i + 1 for i, (_, good) in enumerate(box["scales"])
+               if good == 0]
+    want = {"flash_fwd": 2 * len(mha) * steps,
+            "flash_bwd_dq": len(mha) * steps,
+            "flash_bwd_dkv": len(mha) * steps,
+            "adam_apply": groups * (steps - len(skipped))}
+    if steps != LM_STEPS or skipped:
+        raise AssertionError(f"lm fp16: {steps} steps, skipped applies "
+                             f"{skipped} (scale, good {box['scales']})")
+    check_launches("lm fp16", launches, want, {})
+    glob, batches = _data_batches(cfg)
+    quiet = [("silent", "1")]
+    kern = Trainer(glob + quiet)
+    plain = Trainer(glob + quiet + [("fused_kernels", "0")])
+    snaps = [init] + box["after"][:-1]
+    rows = []
+    for i, b in enumerate(batches[:steps]):
+        dl, rels, kmove, _ = lm_step_check(kern, plain, snaps[i], b, i,
+                                           "float16")
+        rows.append((dl, float(np.median([r for r, _ in rels])), max(rels),
+                     kmove))
+    fails = [f"step {i + 1}: {r}" for i, r in enumerate(rows)
+             if r[0] > LM_LOSS_TOL["float16"]
+             or r[2][0] > LM_GRAD_TOL["float16"] or r[3] > 1 + 1e-3]
+    if fails:
+        raise AssertionError(f"lm fp16 kernels vs fused_kernels=0: {fails}")
+    _load(kern, snaps[0], 0)
+    step_ms = time_forward(lambda: kern.update(batches[0]), reps=10)
+    del tr, kern, plain
+    torch.cuda.empty_cache()
+    fmt = [(f"{dl:.2g}", f"{md:.2g}", f"{w[0]:.2g} {w[1]}", f"{km:.2g}")
+           for dl, md, w, km in rows]
+    print(f"lm fp16: {steps} steps of the long-context LM with "
+          f"compute_dtype = float16 (Adam) through main.run in {took:.1f}s "
+          f"| losses {[round(v, 4) for v in box['losses']]} | scale, good "
+          f"{box['scales']}, no apply skipped | launches "
+          f"{ {k: launches[k] for k in want} } (per step 2 / 1 / 1 / "
+          f"{groups}, phase 7's) | vs fused_kernels=0 from the same state, "
+          f"per step (loss diff of max(1,|loss|), gradient rel L2 median, "
+          f"worst leaf, k-bias move over the Adam step bound): {fmt} (tol "
+          f"loss {LM_LOSS_TOL['float16']}, gradient "
+          f"{LM_GRAD_TOL['float16']}, k bias 1.001) | step {step_ms:.3f} ms "
+          f"in float16 (Adam reads the skip flag on the host once per "
+          f"apply) beside phase 7's {bf16_step_ms:.3f} ms in bf16",
+          flush=True)
+    return {"losses": box["losses"], "scales": box["scales"],
+            "checks": rows, "step_ms": step_ms,
+            "bf16_step_ms": bf16_step_ms, "seconds": took}
+
+
+def fp16_kernel_times(gen: torch.Generator, conf: str) -> dict:
+    """CUDA-graph times of the float16 training path's kernels beside the
+    same kernels in bf16 on the same data (both 2-byte types: one bound):
+    ``bn_fwd`` and ``bn_bwd`` at bn_stem1 (relu), ``pool_fwd`` and
+    ``pool_bwd`` at the 7x7 global average of batch 128, the fc1
+    epilogue forward and backward; and ``sgd_apply`` over Inception-BN's
+    groups with the skip flag (clear) beside without it. Prints one
+    line; returns {kernel: {dtype: ms}, "bound": ms}."""
+    from cxxnet_tpu_torch.ops.fused_epilogue import (fused_bias_act,
+                                                     fused_epilogue_bwd)
+    from cxxnet_tpu_torch.ops.fused_norm import bn_bwd, bn_fwd
+    from cxxnet_tpu_torch.ops import fused_optim
+    from cxxnet_tpu_torch.ops.fused import stream_handle
+    from cxxnet_tpu_torch.ops.fused_pool import fused_pool, fused_pool_bwd_lin
+    dev = gen.device
+    n, c = TRAIN_BATCH * 112 * 112, 64                  # bn_stem1
+    rnd = lambda shape: torch.randn(shape, generator=gen, device=dev)
+    g, be = rnd((c,)).abs() + 0.5, rnd((c,)) * 0.1
+    bias = rnd((1000,))
+    out = {}
+    for dt in (torch.float16, torch.bfloat16):
+        name = str(dt)[6:]
+        x, dy = (rnd((n, c)).to(dt) for _ in range(2))
+        y, mean, _, rstd = bn_fwd(x, g, be, 1e-5, "relu")
+        xp = rnd((TRAIN_BATCH, 7, 7, 1024)).to(dt)
+        dyp = rnd((TRAIN_BATCH, 1, 1, 1024)).to(dt)
+        xf, dyf = rnd((TRAIN_BATCH, 1000)).to(dt), rnd((TRAIN_BATCH,
+                                                         1000)).to(dt)
+        for k, fn in (
+                ("bn_fwd", lambda: bn_fwd(x, g, be, 1e-5, "relu")),
+                ("bn_bwd", lambda: bn_bwd(x, dy, y, g, mean, rstd)),
+                ("pool_fwd", lambda: fused_pool(xp, 7, 7, "sum", True,
+                                                False)),
+                ("pool_bwd", lambda: fused_pool_bwd_lin(dyp, 7, 7, True)),
+                ("epilogue_fwd", lambda: fused_bias_act(xf, bias, "none")),
+                ("epilogue_bwd", lambda: fused_epilogue_bwd(
+                    xf, dyf, "none", True))):
+            out.setdefault(k, {})[name] = time_call(fn)
+        del x, dy, y
+    _, groups = flagship_shapes(conf)
+    ws, gs, ms = ([rnd(sh) for sh in groups["wmat"]] for _ in range(3))
+    # the table made once, outside the captured graph, as phase 6 times it
+    table, nblk = fused_optim._table(ws, gs, ms)
+    clear = torch.zeros((), dtype=torch.int32, device=dev)
+    out["sgd_apply"] = {
+        what: time_call(lambda: fused_optim.SGD_APPLY.launch(
+            table.data_ptr(), len(ws), nblk, fused_optim.CHUNK, 0.1, 0.9,
+            1e-4, 0.0, 0, flag, stream_handle(dev)))
+        for what, flag in (("no flag", None),
+                           ("flag clear", clear.data_ptr()))}
+    print("times (f16): " + " | ".join(
+        f"{k} " + ", ".join(f"{d} {v * 1e3:.2f} us" for d, v in r.items())
+        for k, r in out.items()) + f" (bn at bn_stem1 ({n},{c}) relu, "
+        f"pools and fc1 at batch {TRAIN_BATCH}; sgd_apply over "
+        f"Inception-BN's wmat group)", flush=True)
+    return out
+
+
+def phase_rest(conf: str, seed: int, tmp: str, train_step_ms: float,
+               lm_step_ms: float, gen: torch.Generator) -> dict:
+    """Phase 15: float16 Inception-BN, AlexNet under update_period,
+    Inception-BN in chains, the float16 LM, the float16 kernel times."""
+    return {"fp16": phase_fp16(conf, seed, tmp, train_step_ms),
+            "accum": phase_accum(seed, tmp),
+            "chain": phase_chain(conf, seed, tmp),
+            "lm_fp16": phase_lm_fp16(seed, tmp, lm_step_ms),
+            "kernels_f16": fp16_kernel_times(gen, conf)}
+
+
 # -- main ---------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -5526,6 +6130,10 @@ def main(argv=None) -> int:
         bowl = phase_bowl(args.seed, tmp)
     torch.cuda.empty_cache()
     mark("bowl")
+    with tempfile.TemporaryDirectory() as tmp:
+        rest = phase_rest(args.conf, args.seed, tmp, train_times["step_ms"],
+                          lm_times["step_ms"], gen)
+    mark("rest")
     source["stem"] = (imgrec_times, imgrec_launches)
     kernels = []
     for name, k in KERNELS.items():
@@ -5582,6 +6190,7 @@ def main(argv=None) -> int:
                               "launches": jpeg_launches},
               "nvjpeg_fixture": nvjpeg,
               "bowl": bowl,
+              "rest": rest,
               "phase_seconds": {b[0]: b[1] - a[1]
                                 for a, b in zip(marks, marks[1:])},
               "card": smi_line, "seconds": time.perf_counter() - t_start}

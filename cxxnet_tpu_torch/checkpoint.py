@@ -5,8 +5,9 @@ npz archive of flattened arrays, ``params/<layer>/<leaf>`` and
 ``state/<layer>/<leaf>`` (deeper where a layer's tree nests, as
 ``params/attn1/q/wmat``), plus the optimizer state in training rounds
 (``has_opt``: ``opt/mom/...`` for SGD, ``opt/m1/...``, ``opt/m2/...``
-and the int32 ``opt/t`` for Adam; an inference load never decompresses
-them), and a
+and the int32 ``opt/t`` for Adam, and under float16 the loss scaler's
+``opt/_mp/scale`` (float32) and ``opt/_mp/good`` (int32); an inference
+load never decompresses them), and a
 ``__meta__`` JSON blob with the structure signature, the round, epoch
 and step counters and a per-array sha256 digest map. Loads verify the
 digests and raise :class:`CheckpointCorrupt` on a mismatch or a torn

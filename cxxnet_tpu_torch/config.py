@@ -280,15 +280,9 @@ def parse_quant_config(cfg: ConfigPairs) -> QuantConfig:
 
 # -- training -----------------------------------------------------------------
 
-_A3 = "Queue A 3, still queued: "
-
 #: training keys of features the port does not train with yet ->
 #: (predicate "holds its off value", ROADMAP item)
 TRAIN_NOT_YET = {
-    "compute_dtype": (lambda v: _DTYPE_NAMES.get(v.strip().lower())
-                      != "float16", _A3 + "the fp16 loss scaler"),
-    "update_period": (lambda v: _same_value(v, "1"), _A3 + "update_period"),
-    "train_chain": (lambda v: int(v) <= 1, _A3 + "train_chain"),
     "health": (lambda v: _same_value(v, "0"), "Queue A 12 (model health)"),
     "sentinel": (lambda v: _same_value(v, "0"),
                  "Queue A 12 (the loss sentinel)"),

@@ -13,7 +13,8 @@ Trees nest to any depth (an attention layer's ``params[layer][q][wmat]``
 is 3-D ``(E, H, D)``, not a conv weight). The optimizer state, SGD's
 ``{"mom": tree}`` or Adam's ``{"m1": tree, "m2": tree, "t": step}``, has
 the params' layout, and its conv moments are transposed the same way
-(:func:`opt_from_jax`, :func:`opt_to_jax`).
+(:func:`opt_from_jax`, :func:`opt_to_jax`); a float16 round adds the
+loss scaler, ``"_mp": {"scale", "good"}``, as in the JAX package.
 
 Weights move between the packages this way or through a checkpoint
 (checkpoint.py reads and writes the JAX layout), never through seeds:
@@ -77,13 +78,36 @@ def params_to_jax(params: Dict, state: Dict) -> Tuple[Dict, Dict]:
 def opt_from_jax(opt_np: Dict) -> Dict:
     """JAX-layout optimizer state -> port layout: SGD's ``{"mom": tree}``
     or Adam's ``{"m1": tree, "m2": tree, "t": step}``, the trees as
-    float32 CPU tensors (conv moments OIHW), ``t`` an int32 scalar."""
-    return {k: torch.as_tensor(np.asarray(v, np.int32)) if k == "t"
-            else params_from_jax(v, {})[0] for k, v in opt_np.items()}
+    float32 CPU tensors (conv moments OIHW), ``t`` an int32 scalar; a
+    float16 round's loss scaler ``_mp`` as ``{"scale": float32, "good":
+    int32}`` scalars."""
+    out = {}
+    for k, v in opt_np.items():
+        if k == "t":
+            out[k] = torch.as_tensor(np.asarray(v, np.int32))
+        elif k == "_mp":
+            out[k] = {"scale": torch.as_tensor(
+                np.asarray(v["scale"], np.float32).reshape(())),
+                "good": torch.as_tensor(
+                    np.asarray(v["good"], np.int32).reshape(()))}
+        else:
+            out[k] = params_from_jax(v, {})[0]
+    return out
 
 
 def opt_to_jax(opt: Dict) -> Dict:
     """Port optimizer state (tensors on any device) -> JAX layout
-    (float32 numpy trees, conv moments HWIO; ``t`` int32)."""
-    return {k: np.asarray(v.cpu().numpy(), np.int32) if k == "t"
-            else params_to_jax(v, {})[0] for k, v in opt.items()}
+    (float32 numpy trees, conv moments HWIO; ``t`` int32; the loss
+    scaler's ``scale`` float32 and ``good`` int32, which the checkpoint
+    writes as ``opt/_mp/scale`` and ``opt/_mp/good``)."""
+    out = {}
+    for k, v in opt.items():
+        if k == "t":
+            out[k] = np.asarray(v.cpu().numpy(), np.int32)
+        elif k == "_mp":
+            out[k] = {"scale": np.asarray(v["scale"].cpu().numpy(),
+                                          np.float32),
+                      "good": np.asarray(v["good"].cpu().numpy(), np.int32)}
+        else:
+            out[k] = params_to_jax(v, {})[0]
+    return out

@@ -11,6 +11,12 @@
 // into an FMA). lr and momentum are arguments of every launch, so a
 // schedule changes nothing that was built.
 //
+// Skip flag (the fp16 loss scaler's overflow skip, the lax.cond of
+// cxxnet_tpu/optim.py:_update_scaled): `skip` is a device int, or null for
+// none. When it is set, every CTA returns before its first load of a leaf,
+// so w and m keep their bits; the flag is read on the card, so the step
+// that computes it queues the apply without a host read.
+//
 // Bound on the H100 (3.35 TB/s): w, g and m read once and w and m written
 // once, 20 bytes per parameter: 0.22 GB, 0.067 ms, for Inception-BN's 11.3 M
 // parameters over both groups.
@@ -28,7 +34,9 @@
 __global__ void sgd_apply_kernel(const int64_t* __restrict__ table,
                                  int n_leaves, int n_blocks, int chunk,
                                  float lr, float momentum, float wd,
-                                 float clip, int nag) {
+                                 float clip, int nag,
+                                 const int* __restrict__ skip) {
+  if (skip != nullptr && *skip != 0) return;
   const int64_t leaf = table[4 * (int64_t)n_leaves + blockIdx.x];
   const int64_t start = table[4 * (int64_t)n_leaves + n_blocks + blockIdx.x];
   float* w = (float*)table[leaf];
@@ -59,14 +67,16 @@ __global__ void sgd_apply_kernel(const int64_t* __restrict__ table,
 
 // table: device int64 array of 4 * n_leaves + 2 * n_blocks entries, laid
 // out [w ptrs | g ptrs | m ptrs | sizes | CTA leaf | CTA chunk start].
-// Returns a cudaError_t (0 = launched).
+// skip: a device int (non-zero: apply nothing) or null. Returns a
+// cudaError_t (0 = launched).
 extern "C" int sgd_apply(const int64_t* table, int n_leaves, int n_blocks,
                          int chunk, float lr, float momentum, float wd,
-                         float clip, int nag, void* stream) {
+                         float clip, int nag, const int* skip,
+                         void* stream) {
   if (n_leaves <= 0 || n_blocks <= 0 || chunk <= 0)
     return (int)cudaErrorInvalidValue;
   sgd_apply_kernel<<<n_blocks, 256, 0, (cudaStream_t)stream>>>(
-      table, n_leaves, n_blocks, chunk, lr, momentum, wd, clip, nag);
+      table, n_leaves, n_blocks, chunk, lr, momentum, wd, clip, nag, skip);
   return (int)cudaGetLastError();
 }
 

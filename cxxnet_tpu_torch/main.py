@@ -18,7 +18,9 @@ The config file plus ``key=value`` overrides, as in
 train metrics and one fragment per ``eval = <name>`` section; every
 ``save_period`` rounds (``save_model = 1``) and at the end it writes
 ``<model_dir>/%04d.model`` with the optimizer state, a round the JAX
-package loads and resumes. The weights come from the first of: with
+package loads and resumes. ``train_chain = k`` queues k batches at a
+time as one chain (``Trainer.update_chain_batches``); ``update_period``
+and ``compute_dtype = float16`` (the loss scaler) are the trainer's. The weights come from the first of: with
 ``continue = 1``, the newest round of ``model_dir`` that verifies (torn
 rounds skipped; params, optimizer state and counters restored, training
 goes on at the round after it); the round named by ``model_in``
@@ -87,6 +89,7 @@ from .graph import build_graph, global_param
 from .device import resolve_devices
 from .model import Network
 from .io import close_chain, create_iterator
+from .io.data import DataBatch
 from .parallel import DpContext, launch
 from .serve import InferenceEngine, ServeServer
 from .serve.engine import negotiate_blob, version_name
@@ -214,7 +217,11 @@ def _train_rounds(tr: Trainer, gp, itr_train, evals,
                   start_counter: int) -> int:
     """The JAX package's round loop (main.py:1023-1167, its single-device
     and dp parts; under dp every rank runs it, rank 0 alone prints) from
-    round ``start_counter``; returns the last round of the run."""
+    round ``start_counter``; returns the last round of the run. With
+    ``train_chain = k > 1`` the batches are copied to the host as they
+    come and every k of them go to ``update_chain_batches`` as one
+    chain; a round's tail shorter than k goes through ``update``, and
+    the progress line counts dispatched work only."""
     start = time.time()
     num_round = int(gp("num_round", "10"))
     max_round = int(gp("max_round", "0"))
@@ -222,6 +229,8 @@ def _train_rounds(tr: Trainer, gp, itr_train, evals,
     save_period = int(gp("save_period", "1"))
     save_model = int(gp("save_model", "1"))
     model_dir = gp("model_dir", "./models")
+    chain = int(gp("train_chain", "0"))
+    chain = chain if chain > 1 else 0
     silent = int(gp("silent", "0")) or (tr.dp is not None
                                         and not tr.dp.is_main)
     end_round = num_round
@@ -231,16 +240,37 @@ def _train_rounds(tr: Trainer, gp, itr_train, evals,
         tr.start_round(r)
         batch_count = n_images = 0
         round_start = time.time()
+        pending, pending_rows = [], 0
         for batch in itr_train:
-            tr.update(batch)
-            n_images += batch.batch_size - batch.num_batch_padd
-            batch_count += 1
-            if print_step and batch_count % print_step == 0 and not silent:
+            real_rows = batch.batch_size - batch.num_batch_padd
+            if chain:
+                # host copies: iterators may hand out views into buffers
+                # they refill on the next batch
+                pending.append(DataBatch(
+                    data=np.array(batch.data), label=np.array(batch.label),
+                    num_batch_padd=batch.num_batch_padd,
+                    inst_index=None if batch.inst_index is None
+                    else np.array(batch.inst_index), norm=batch.norm))
+                pending_rows += real_rows
+                if len(pending) < chain:
+                    continue
+                tr.update_chain_batches(pending)
+                batch_count += len(pending)
+                n_images += pending_rows
+                pending, pending_rows = [], 0
+            else:
+                tr.update(batch)
+                n_images += real_rows
+                batch_count += 1
+            if print_step and not silent and batch_count // print_step \
+                    != (batch_count - (chain or 1)) // print_step:
                 ips = n_images / max(time.time() - round_start, 1e-9)
                 print(f"round {r:8d}:[{batch_count:8d}] "
                       f"{int(time.time() - start)} sec elapsed, "
                       f"loss={tr.last_loss:.6f}, {ips:.1f} images/sec",
                       flush=True)
+        for b in pending:             # the round's tail, shorter than k
+            tr.update(b)
         line = f"round {r:8d}:[{int(time.time() - start)} sec]"
         if tr.eval_train:
             line += tr.train_metric_report("train")

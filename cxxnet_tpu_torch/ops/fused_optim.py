@@ -15,6 +15,17 @@ become 0, the gradient is clipped (``clip != 0``), ``wd * w`` is added
 
 All leaves are float32 (the master-weight contract).
 
+Skip flag (the fp16 loss scaler's overflow skip, the ``lax.cond`` of the
+JAX package's ``Optimizer._update_scaled``): each apply takes an
+optional ``skip``, an int32 scalar on the leaves' device; where it is
+non-zero the leaves and moments keep their bits. The SGD kernel reads it
+on the card (every CTA returns before its first load), so the step that
+computes the flag queues the apply without a host read. The Adam wrapper
+reads it on the host before it launches, since Adam's step counter
+``t`` and its bias correction live on the host (``optim.adam_lr_t``): a
+skipped apply must leave ``t`` as it was. The plain versions take the
+same flag through ``torch.where``.
+
 The TPU kernels' pack of every leaf into one padded buffer and the
 unpack after it are not carried over: the kernels (``csrc/sgd_apply.cu``,
 ``csrc/adam_apply.cu``) read each leaf where it lives through a device
@@ -28,7 +39,7 @@ of every launch.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,7 +51,8 @@ SGD_APPLY = register(Kernel(
     replaces="cxxnet_tpu/ops/fused_optim.py:86",
     argtypes=[ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
               ctypes.c_float, ctypes.c_float, ctypes.c_float,
-              ctypes.c_float, ctypes.c_int, ctypes.c_void_p]))
+              ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+              ctypes.c_void_p]))
 
 ADAM_APPLY = register(Kernel(
     "adam_apply", "adam_apply.cu",
@@ -62,13 +74,21 @@ def _f32(v: float) -> float:
     return float(np.float32(v))
 
 
+def _kept(skip: Optional[torch.Tensor], old: torch.Tensor,
+          new: torch.Tensor) -> torch.Tensor:
+    """``old`` where the skip flag is set, else ``new`` (no host read)."""
+    return new if skip is None else torch.where(skip != 0, old, new)
+
+
 def sgd_apply_plain(ws: Sequence[torch.Tensor], gs: Sequence[torch.Tensor],
                     ms: Sequence[torch.Tensor], lr: float, momentum: float,
-                    wd: float, clip: float, nag: bool
+                    wd: float, clip: float, nag: bool,
+                    skip: Optional[torch.Tensor] = None
                     ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Plain PyTorch SGD / NAG step, leaf by leaf, the definition of
     what the kernel computes: returns ``(new_ws, new_ms)`` and changes
-    nothing it was given. Scalars enter as float32."""
+    nothing it was given. Scalars enter as float32. Where ``skip`` is
+    set the leaves and moments come back as they were."""
     lr, momentum = _f32(lr), _f32(momentum)
     one_plus = _f32(np.float32(1.0) + np.float32(momentum))
     new_ws, new_ms = [], []
@@ -81,8 +101,8 @@ def sgd_apply_plain(ws: Sequence[torch.Tensor], gs: Sequence[torch.Tensor],
             g = g + _f32(wd) * w
         nm = momentum * m - lr * g
         nw = (w + one_plus * nm - momentum * m) if nag else (w + nm)
-        new_ws.append(nw)
-        new_ms.append(nm)
+        new_ws.append(_kept(skip, w, nw))
+        new_ms.append(_kept(skip, m, nm))
     return new_ws, new_ms
 
 
@@ -176,18 +196,31 @@ def _check_leaves(name: str, *lists: Sequence[torch.Tensor]
     return dev
 
 
+def _check_skip(name: str, skip: Optional[torch.Tensor],
+                dev: torch.device) -> None:
+    """Raise unless ``skip`` is None or one int32 on ``dev``."""
+    if skip is not None and (skip.dtype != torch.int32
+                             or skip.numel() != 1 or skip.device != dev):
+        raise ValueError(f"{name}: the skip flag must be one int32 on "
+                         f"{dev} (got {skip.dtype}, {skip.numel()} "
+                         f"elements on {skip.device})")
+
+
 def fused_sgd_apply(ws: Sequence[torch.Tensor], gs: Sequence[torch.Tensor],
                     ms: Sequence[torch.Tensor], lr: float, momentum: float,
-                    *, wd: float, clip: float, nag: bool) -> None:
+                    *, wd: float, clip: float, nag: bool,
+                    skip: Optional[torch.Tensor] = None) -> None:
     """One SGD / NAG step over a tag group's leaves, IN PLACE: ``ws``
-    and ``ms`` are overwritten. CUDA tensors go to the kernel (one
-    launch); CPU tensors are updated with :func:`sgd_apply_plain`.
+    and ``ms`` are overwritten, unless the device flag ``skip`` is set.
+    CUDA tensors go to the kernel (one launch, which reads the flag on
+    the card); CPU tensors are updated with :func:`sgd_apply_plain`.
     Raises on what the kernel does not take."""
     dev = _check_leaves("sgd_apply", ws, gs, ms)
+    _check_skip("sgd_apply", skip, dev)
     with torch.no_grad():
         if dev.type == "cpu":
             nws, nms = sgd_apply_plain(ws, gs, ms, lr, momentum, wd, clip,
-                                       nag)
+                                       nag, skip)
             for w, m, nw, nm in zip(ws, ms, nws, nms):
                 w.copy_(nw)
                 m.copy_(nm)
@@ -196,20 +229,24 @@ def fused_sgd_apply(ws: Sequence[torch.Tensor], gs: Sequence[torch.Tensor],
         with torch.cuda.device(dev):
             SGD_APPLY.launch(table.data_ptr(), len(ws), n_blocks, CHUNK,
                              _f32(lr), _f32(momentum), _f32(wd), _f32(clip),
-                             int(nag), stream_handle(dev))
+                             int(nag),
+                             None if skip is None else skip.data_ptr(),
+                             stream_handle(dev))
 
 
 def adam_apply_plain(ws: Sequence[torch.Tensor], gs: Sequence[torch.Tensor],
                      m1s: Sequence[torch.Tensor],
                      m2s: Sequence[torch.Tensor], lr_t: float, d1: float,
-                     d2: float, wd: float, clip: float
+                     d2: float, wd: float, clip: float,
+                     skip: Optional[torch.Tensor] = None
                      ) -> Tuple[List[torch.Tensor], List[torch.Tensor],
                                 List[torch.Tensor]]:
     """Plain PyTorch Adam step, leaf by leaf, the definition of what the
     kernel computes (the JAX package's ``Optimizer._apply`` Adam leaf):
     returns ``(new_ws, new_m1s, new_m2s)`` and changes nothing it was
     given. Scalars enter as float32; every operation is its own
-    correctly rounded f32 op, as in the kernel."""
+    correctly rounded f32 op, as in the kernel. Where ``skip`` is set
+    the leaves and moments come back as they were."""
     lr_t, d1, d2 = _f32(lr_t), _f32(d1), _f32(d2)
     out = ([], [], [])
     for w, g, m1, m2 in zip(ws, gs, m1s, m2s):
@@ -221,28 +258,35 @@ def adam_apply_plain(ws: Sequence[torch.Tensor], gs: Sequence[torch.Tensor],
             g = g + _f32(wd) * w
         n1 = m1 + d1 * (g - m1)
         n2 = m2 + d2 * (g * g - m2)
-        for o, v in zip(out, (w - lr_t * n1 / (torch.sqrt(n2) + 1e-8), n1,
+        for o, old, v in zip(out, (w, m1, m2),
+                             (w - lr_t * n1 / (torch.sqrt(n2) + 1e-8), n1,
                               n2)):
-            o.append(v)
+            o.append(_kept(skip, old, v))
     return out
 
 
 def fused_adam_apply(ws: Sequence[torch.Tensor], gs: Sequence[torch.Tensor],
                      m1s: Sequence[torch.Tensor],
                      m2s: Sequence[torch.Tensor], lr_t: float, *,
-                     d1: float, d2: float, wd: float, clip: float) -> None:
+                     d1: float, d2: float, wd: float, clip: float,
+                     skip: Optional[torch.Tensor] = None) -> None:
     """One Adam step over a tag group's leaves, IN PLACE: ``ws``,
-    ``m1s`` and ``m2s`` are overwritten. ``lr_t`` carries the bias
-    correction (``optim.adam_lr_t``). CUDA tensors go to the kernel (one
-    launch); CPU tensors are updated with :func:`adam_apply_plain`.
-    Raises on what the kernel does not take."""
+    ``m1s`` and ``m2s`` are overwritten, unless the flag ``skip`` is
+    set. ``lr_t`` carries the bias correction (``optim.adam_lr_t``).
+    CUDA tensors go to the kernel (one launch, none where the flag, read
+    on the host, is set); CPU tensors are updated with
+    :func:`adam_apply_plain`. Raises on what the kernel does not take."""
     dev = _check_leaves("adam_apply", ws, gs, m1s, m2s)
+    _check_skip("adam_apply", skip, dev)
     with torch.no_grad():
         if dev.type == "cpu":
-            new = adam_apply_plain(ws, gs, m1s, m2s, lr_t, d1, d2, wd, clip)
+            new = adam_apply_plain(ws, gs, m1s, m2s, lr_t, d1, d2, wd, clip,
+                                   skip)
             for dst, src in zip((ws, m1s, m2s), new):
                 for t, v in zip(dst, src):
                     t.copy_(v)
+            return
+        if skip is not None and int(skip):
             return
         table, n_blocks = adam_table(ws, gs, m1s, m2s)
         with torch.cuda.device(dev):

@@ -20,18 +20,33 @@ per-leaf math. The optimizer state is the JAX package's: ``{"mom":
 tree}`` for SGD / NAG, ``{"m1": tree, "m2": tree, "t": step}`` for Adam,
 the trees in the params' layout and ``t`` an int32 scalar kept on the
 host (Adam's bias correction is computed there, once per step).
+
+Under ``compute_dtype = float16`` the state also holds the dynamic loss
+scaler, ``"_mp": {"scale": f32, "good": int32}``, two scalars on the
+device (the JAX package's ``_mp`` subtree, created by :meth:`Optimizer.
+init_state` and injected or dropped by :meth:`Optimizer.adapt_state` as
+the policy of a resumed round changes). The gradients then arrive
+multiplied by the scale; :meth:`Optimizer.update` divides them by it
+(exact: the scale is a power of two), tests every leaf for inf and NaN,
+skips the apply on any (params, moments and Adam's ``t`` keep their
+bits), halves the scale (floored at ``loss_scale_min``) and resets
+``good``; otherwise it applies, and doubles the scale (capped at
+``loss_scale_max``) after ``loss_scale_window`` clean applies in a row.
+For SGD and NAG the skip is a device flag that the apply reads on the
+card, so a step has no host read; Adam reads the flag on the host once
+per apply, since its ``t`` and bias correction live there.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .config import ConfigError, ConfigPairs
-from .graph import global_param
+from .graph import global_param, policy_from_config
 from .ops.fused import kernels_active, resolve_mode
 from .ops.fused_optim import adam_apply_plain, fused_adam_apply, fused_sgd_apply
 
@@ -220,18 +235,48 @@ class Optimizer:
         self.fused_mode = resolve_mode(
             global_param(cfg, "fused_kernels", "auto"))
         self.lr_scale = 1.0
+        self.fp16 = policy_from_config(cfg).compute_dtype == torch.float16
+        self.ls_init = float(global_param(cfg, "loss_scale_init",
+                                          str(2.0 ** 15)))
+        self.ls_window = int(global_param(cfg, "loss_scale_window", "200"))
+        self.ls_min = float(global_param(cfg, "loss_scale_min", "1.0"))
+        self.ls_max = float(global_param(cfg, "loss_scale_max",
+                                         str(2.0 ** 24)))
 
     @property
     def fused(self) -> bool:
         """Whether the step goes through the multi-tensor apply."""
         return kernels_active(self.fused_mode)
 
+    def _mp_init(self, device) -> Dict[str, torch.Tensor]:
+        """A fresh loss scaler on ``device``."""
+        return {"scale": torch.tensor(np.float32(self.ls_init),
+                                      device=device),
+                "good": torch.zeros((), dtype=torch.int32, device=device)}
+
     def init_state(self, params: Tree) -> Dict[str, Any]:
         zeros = lambda: tree_map(torch.zeros_like, params)
         if self.type == "adam":
-            return {"m1": zeros(), "m2": zeros(),
-                    "t": torch.zeros((), dtype=torch.int32)}
-        return {"mom": zeros()}
+            state = {"m1": zeros(), "m2": zeros(),
+                     "t": torch.zeros((), dtype=torch.int32)}
+        else:
+            state = {"mom": zeros()}
+        if self.fp16:
+            state["_mp"] = self._mp_init(leaves(params)[0][1].device)
+        return state
+
+    def adapt_state(self, opt_state: Dict[str, Any],
+                    device) -> Dict[str, Any]:
+        """A loaded optimizer state fitted to the current policy: a
+        fresh scaler on ``device`` where float16 training resumes a round
+        without one, the scaler dropped where another policy resumes a
+        float16 round; the moments stay as they are either way."""
+        has = "_mp" in opt_state
+        if self.fp16 and not has:
+            return {**opt_state, "_mp": self._mp_init(device)}
+        if not self.fp16 and has:
+            return {k: v for k, v in opt_state.items() if k != "_mp"}
+        return opt_state
 
     def schedules(self, epoch: int) -> Dict[str, Tuple[float, float]]:
         """(lr, momentum) per tag at update step ``epoch``."""
@@ -253,9 +298,44 @@ class Optimizer:
                sched: Dict[str, Tuple[float, float]]) -> None:
         """One step: ``params`` and the moments in ``opt_state`` change in
         place (Adam's ``t`` is replaced by ``t + 1``); ``grads`` has the
-        params' structure."""
+        params' structure. With a loss scaler in ``opt_state`` the
+        gradients are loss-scaled: they are unscaled, tested, and the
+        apply skipped on an overflow (the module docstring)."""
+        mp = opt_state.get("_mp")
+        if mp is None:
+            self._apply(params, grads, opt_state, sched, None)
+            return
+        flat = leaves(grads)
+        scale = mp["scale"]
+        # dividing by a power of two is exact, as the JAX package's g / scale
+        gs = torch._foreach_div([g.float() for _, g in flat], scale)
+        found = torch.zeros((1,), dtype=torch.float32, device=scale.device)
+        torch._amp_foreach_non_finite_check_and_unscale_(
+            gs, found, torch.ones((), dtype=torch.float32,
+                                  device=scale.device))
+        skip = found.reshape(()).to(torch.int32)
+        self._apply(params, unflatten(
+            (p, g) for (p, _), g in zip(flat, gs)), opt_state, sched, skip)
+        finite = skip == 0
+        good = torch.where(finite, mp["good"] + 1, 0)
+        grow = finite & (good >= self.ls_window)
+        ls_max = float(np.float32(self.ls_max))
+        ls_min = float(np.float32(self.ls_min))
+        new_scale = torch.where(
+            finite, torch.where(grow, torch.clamp(scale * 2.0, max=ls_max),
+                                scale),
+            torch.clamp(scale * 0.5, min=ls_min))
+        opt_state["_mp"] = {"scale": new_scale,
+                            "good": torch.where(grow, 0, good)
+                            .to(torch.int32)}
+
+    def _apply(self, params: Tree, grads: Tree, opt_state: Dict[str, Any],
+               sched: Dict[str, Tuple[float, float]],
+               skip: Optional[torch.Tensor]) -> None:
+        """The apply of unscaled gradients; where the device flag
+        ``skip`` is set, params and moments keep their bits."""
         if self.type == "adam":
-            self._adam(params, grads, opt_state, sched)
+            self._adam(params, grads, opt_state, sched, skip)
             return
         mom = opt_state["mom"]
         if self.fused:
@@ -266,7 +346,8 @@ class Optimizer:
                     [get_leaf(params, p) for p in paths],
                     [get_leaf(grads, p).float().contiguous() for p in paths],
                     [get_leaf(mom, p) for p in paths], lr, momentum,
-                    wd=h.wd, clip=h.clip_gradient, nag=self.type == "nag")
+                    wd=h.wd, clip=h.clip_gradient, nag=self.type == "nag",
+                    skip=skip)
             return
         for path, w in leaves(params):
             tag = tag_for_param(path[-1])
@@ -279,14 +360,21 @@ class Optimizer:
                 new_w = w + new_m
             else:
                 new_w = w + (1 + momentum) * new_m - momentum * m
+            if skip is not None:
+                new_w = torch.where(skip != 0, w, new_w)
+                new_m = torch.where(skip != 0, m, new_m)
             w.copy_(new_w)
             m.copy_(new_m)
 
     def _adam(self, params: Tree, grads: Tree, opt_state: Dict[str, Any],
-              sched: Dict[str, Tuple[float, float]]) -> None:
+              sched: Dict[str, Tuple[float, float]],
+              skip: Optional[torch.Tensor]) -> None:
         """Adam (the JAX package's ``_apply`` / ``_apply_fused``): one
         apply per tag group with the kernels, else the plain math leaf by
-        leaf; either way with ``t + 1``'s float32 ``lr_t``."""
+        leaf; either way with ``t + 1``'s float32 ``lr_t``. The skip flag
+        is read on the host: a skipped apply leaves ``t`` as it was."""
+        if skip is not None and int(skip):
+            return
         t = int(opt_state["t"]) + 1
         m1, m2 = opt_state["m1"], opt_state["m2"]
         for tag, paths in self._groups(params).items():

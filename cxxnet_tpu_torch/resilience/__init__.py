@@ -1,6 +1,6 @@
 """Fault tolerance of the serve path (the port of ``cxxnet_tpu/resilience``):
 the dispatch circuit breaker. Failpoints, retries and the training
-sentinel come with training (ROADMAP Queue A 3)."""
+sentinel come with the training telemetry (ROADMAP Queue A 12)."""
 
 from .breaker import CircuitBreaker, CircuitOpen
 

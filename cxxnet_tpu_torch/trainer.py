@@ -2,13 +2,33 @@
 port of ``cxxnet_tpu/trainer.py``'s single-device and dp paths).
 
 A step is the JAX package's ``_make_train_step`` body ``one``
-(trainer.py:1620-1650) without model health, chains or gradient
-accumulation: the differentiable forward :meth:`Network.apply` over the
-f32 masters, ``torch.autograd.grad`` of the summed loss, then the
-optimizer's in-place update of the masters and moments, and the
-batch_norm running statistics replaced by the step's. The eval
-forward's cast weights are dropped after every update, so
+(trainer.py:1620-1650) without model health: the differentiable forward
+:meth:`Network.apply` over the f32 masters, ``torch.autograd.grad`` of
+the summed loss, then the optimizer's in-place update of the masters and
+moments, and the batch_norm running statistics replaced by the step's.
+The eval forward's cast weights are dropped after every step, so
 :meth:`Trainer.evaluate` scores the weights just trained.
+
+Under ``compute_dtype = float16`` the loss is multiplied by the loss
+scaler's scale before the backward (the scale rides the optimizer state,
+``opt_state["_mp"]``) and the returned loss is divided back, as the JAX
+package's ``_scaled_value_and_grad``; the optimizer unscales, tests and
+skips (:mod:`cxxnet_tpu_torch.optim`).
+
+Gradient accumulation (``update_period = p > 1``): an f32 tree of zeros
+like the masters (``accum``, zeroed again on every load) sums each
+step's gradients (loss-scaled sums under float16); the step that
+completes a period hands ``accum / p`` to the optimizer and zeroes it.
+``sample_counter`` counts the steps into the period, and
+``epoch_counter``, which the schedules and rounds key on, advances once
+per applied period. Loss and train metrics stay per step.
+
+Chains (``train_chain = k``, :meth:`Trainer.update_chain_batches`): k
+distinct host batches staged in one stacked upload, their k steps queued
+with no host read between them (SGD and NAG; Adam under float16 reads
+its skip flag once per apply), the k losses returned as one device
+tensor: the same steps as k :meth:`Trainer.update` calls, the
+accumulation riding across chain boundaries.
 
 Input fold (``input_fold = auto|1|0``, on unless 0): a
 ``device_normalize`` batch (uint8 with its ``norm``, from an imgrec
@@ -22,8 +42,8 @@ the same bits. Under data parallelism each rank uploads and folds its
 own rows.
 
 Train metrics are read one step late, as in the JAX package: step N's
-top node is copied to the host after step N+1 was queued, so the copy
-does not stall the card. Rounds are ``%04d.model`` checkpoints in the
+top node is copied to the host after step N+1 was queued (a chain's k
+steps after the next chain), so the copy does not stall the card. Rounds are ``%04d.model`` checkpoints in the
 JAX layout with the optimizer state (``has_opt``: SGD's momentum tree,
 Adam's ``m1``, ``m2`` and ``t``), which the JAX package loads and
 resumes.
@@ -36,7 +56,11 @@ batch's moments (``Network.dp``). After the backward, one all-reduce
 sums a flat f32 buffer of every gradient leaf and the loss, so the
 ranks' gradients add up to the global batch's and ``last_loss`` is the
 global loss; each rank then applies the same update to its replica,
-which stays bit-equal to the others. Train and eval metrics are summed
+which stays bit-equal to the others. Under ``update_period`` the
+all-reduce still runs every step, before the accumulation (the JAX
+package's order, where the psum sits inside the gradient), and under
+float16 the finiteness test reads the reduced gradients, so every rank
+takes the same branch. Train and eval metrics are summed
 over the ranks as (sum, cnt) pairs; rank 0 alone writes a round, after
 a barrier.
 """
@@ -44,7 +68,7 @@ a barrier.
 from __future__ import annotations
 
 import re
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -110,13 +134,18 @@ class Trainer:
             self.metric.add(val, label_field, node)
             self.train_metric.add(val, label_field, node)
         self._metric_nodes = sorted({n for n in self.metric.nodes if n})
+        self.update_period = int(gp("update_period", "1"))
         self.epoch_counter = 0          # applied updates (schedules key)
+        self.sample_counter = 0         # steps into the update period
         self.round_counter = 0
         self.step_count = 0
         self.params = None
         self.opt_state = None
+        #: f32 gradient sums of the period so far (update_period > 1)
+        self.accum: Optional[Dict] = None
         self._last_loss: Optional[torch.Tensor] = None
-        self._pending_metric = None
+        #: (metric nodes, batch) of the steps whose metrics are unread
+        self._pending_metric: List[Tuple[Dict, DataBatch]] = []
         self._ones: Optional[torch.Tensor] = None
         #: called with the trainer after every update (timing, tests)
         self.step_hook: Optional[Callable[["Trainer"], None]] = None
@@ -141,11 +170,12 @@ class Trainer:
         self.params = self.net.params
         for _, v in leaves(self.params):
             v.requires_grad_(True)
+        self._init_accum()
         fresh = self.optimizer.init_state(self.params)
         if opt is None:
             self.opt_state = fresh
             return
-        if set(opt) != set(fresh):
+        if set(opt) - {"_mp"} != set(fresh) - {"_mp"}:
             raise ValueError(f"optimizer state {sorted(opt)} does not match "
                              f"updater = {self.optimizer.type}")
         want = {p for p, _ in leaves(self.params)}
@@ -154,12 +184,28 @@ class Trainer:
             if name == "t":
                 self.opt_state["t"] = torch.as_tensor(tree).to(torch.int32)
                 continue
+            if name == "_mp":
+                self.opt_state["_mp"] = {
+                    k: torch.as_tensor(np.asarray(tree[k])).reshape(())
+                    .to(self.device, dt) for k, dt in
+                    (("scale", torch.float32), ("good", torch.int32))}
+                continue
             if {p for p, _ in leaves(tree)} != want:
                 raise ValueError("optimizer state does not match the net's "
                                  "parameters")
             self.opt_state[name] = tree_map(
                 lambda v: torch.as_tensor(v).to(self.device, torch.float32)
                 .contiguous(), tree)
+        # rounds are policy-portable: the float16 loss scaler is injected
+        # or dropped to match this trainer's compute_dtype
+        self.opt_state = self.optimizer.adapt_state(self.opt_state,
+                                                    self.device)
+
+    def _init_accum(self) -> None:
+        """A zero f32 accumulator like the masters (update_period > 1)."""
+        self.accum = None if self.update_period <= 1 else tree_map(
+            lambda v: torch.zeros_like(v, dtype=torch.float32,
+                                       requires_grad=False), self.params)
 
     def load_blob(self, blob: Dict[str, Any]) -> None:
         """Restore params, layer state, optimizer state and counters from
@@ -295,21 +341,31 @@ class Trainer:
 
     def _input(self, batch: DataBatch, fold: bool) -> torch.Tensor:
         """This process's rows of ``batch.data`` as the network's input on
-        the device. A uint8 batch crosses as uint8; with ``fold`` and
-        ``input_fold`` on, its ``norm`` is applied into the compute dtype
-        by :func:`decode_normalize` (the stem kernel when the kernels are
-        on), else eagerly into f32 (no ``norm``: a plain cast)."""
+        the device (:meth:`_stage_input`)."""
         rows, _ = self._rows(batch)
-        data = np.asarray(batch.data)[rows]
+        return self._stage_input(np.asarray(batch.data)[rows], batch.norm,
+                                 fold)
+
+    def _stage_input(self, data: np.ndarray, norm: Optional[dict],
+                     fold: bool) -> torch.Tensor:
+        """Host rows (any leading axes before the NHWC or flat ones) on the
+        device as the network's input. A uint8 array crosses as uint8;
+        with ``fold`` and ``input_fold`` on, ``norm`` is applied into the
+        compute dtype by :func:`decode_normalize` (the stem kernel when
+        the kernels are on), else eagerly into f32 (no ``norm``: a plain
+        cast)."""
         if data.dtype != np.uint8:
             return self._upload(data, np.float32)
         x = self._upload(data, np.uint8)
-        if batch.norm is None:
+        if norm is None:
             return x.to(torch.float32)
-        mean, factor = self._norm_consts(batch.norm)
+        mean, factor = self._norm_consts(norm)
         if fold and self.input_fold:
-            return decode_normalize(x, mean, factor, self.net.compute_dtype,
-                                    fused=self.net.fused)
+            lead = x.shape[:-3]
+            y = decode_normalize(x.reshape((-1,) + x.shape[-3:]), mean,
+                                 factor, self.net.compute_dtype,
+                                 fused=self.net.fused)
+            return y.reshape(lead + y.shape[1:])
         return decode_normalize_reference(x, mean, factor, torch.float32)
 
     def _to_device(self, batch: DataBatch):
@@ -335,16 +391,29 @@ class Trainer:
     def gradients(self, batch: DataBatch):
         """The forward and backward of one minibatch, changing nothing:
         ``(loss, new_state, nodes, grads)``, ``grads`` in the params'
-        tree layout (f32)."""
+        tree layout (f32; multiplied by the loss scale under float16)."""
         if self.params is None:
             raise RuntimeError("call init_model() first")
         data, label = self._to_device(batch)
+        return self._forward_backward(data, label, self._mask(batch))
+
+    def _forward_backward(self, data: torch.Tensor, label: torch.Tensor,
+                          mask: torch.Tensor):
+        """:meth:`gradients` of staged inputs. Under float16 the summed
+        loss is multiplied by the scale before the backward and the
+        returned loss divided back (exact: the scale is a power of
+        two)."""
         loss, new_state, nodes = self.net.apply(
-            self.params, self.net.state, data, label, self._mask(batch),
+            self.params, self.net.state, data, label, mask,
             train=True, capture_nodes=bool(self._metric_nodes),
             step=self.step_count)
+        mp = self.opt_state.get("_mp")
+        if mp is not None:
+            loss = loss * mp["scale"]
         flat = leaves(self.params)
         grads = torch.autograd.grad(loss, [v for _, v in flat])
+        if mp is not None:
+            loss = loss.detach() / mp["scale"]
         return loss, new_state, nodes, unflatten(
             (p, g) for (p, _), g in zip(flat, grads))
 
@@ -362,25 +431,103 @@ class Trainer:
             o += g.numel()
         return buf[o], unflatten(out)
 
-    def update(self, batch: DataBatch) -> None:
-        """One minibatch forward, backward and optimizer step."""
-        loss, new_state, nodes, gtree = self.gradients(batch)
+    def _step(self, data: torch.Tensor, label: torch.Tensor,
+              mask: torch.Tensor):
+        """One step on staged inputs: forward, backward, the all-reduce
+        under dp, then the optimizer's apply, or under ``update_period``
+        the accumulation and, at the period's end, the apply of ``accum
+        / period``. Advances the counters; returns the loss (on the
+        device) and the step's nodes. Reads nothing back to the host
+        (but Adam's skip flag under float16)."""
+        loss, new_state, nodes, gtree = self._forward_backward(data, label,
+                                                               mask)
         if self.dp is not None:
             loss, gtree = self._allreduce(loss, gtree)
-        self.optimizer.update(self.params, gtree, self.opt_state,
-                              self.optimizer.schedules(self.epoch_counter))
+        sched = self.optimizer.schedules(self.epoch_counter)
+        period = self.update_period
+        if period > 1:
+            acc = [a for _, a in leaves(self.accum)]
+            torch._foreach_add_(acc, [g for _, g in leaves(gtree)])
+            if (self.sample_counter + 1) % period == 0:
+                self.optimizer.update(
+                    self.params, tree_map(lambda a: a / period, self.accum),
+                    self.opt_state, sched)
+                torch._foreach_zero_(acc)
+        else:
+            self.optimizer.update(self.params, gtree, self.opt_state, sched)
         self.net.state = new_state
         self.net.invalidate_cast()
-        self._last_loss = loss.detach()
         self.step_count += 1
-        self.epoch_counter += 1
+        self.sample_counter += 1
+        if self.sample_counter >= period:
+            self.sample_counter = 0
+            self.epoch_counter += 1
+        return loss.detach(), nodes
+
+    def _metric_values(self, nodes) -> Dict[Optional[str], torch.Tensor]:
+        """The nodes the train metrics read, of one step's nodes."""
+        return {n: nodes[n if n is not None else self.net.top_node()]
+                .detach() for n in set(self.train_metric.nodes)}
+
+    def update(self, batch: DataBatch) -> None:
+        """One minibatch forward, backward and optimizer step (under
+        ``update_period``: the accumulation, and the apply at the
+        period's end)."""
+        if self.params is None:
+            raise RuntimeError("call init_model() first")
+        data, label = self._to_device(batch)
+        self._last_loss, nodes = self._step(data, label, self._mask(batch))
         if self.eval_train:
             self._drain_pending_metric()
-            self._pending_metric = (
-                {n: nodes[n if n is not None else self.net.top_node()]
-                 .detach() for n in set(self.train_metric.nodes)}, batch)
+            self._pending_metric = [(self._metric_values(nodes), batch)]
         if self.step_hook is not None:
             self.step_hook(self)
+
+    def update_chain_batches(self, batches) -> torch.Tensor:
+        """``len(batches)`` steps on distinct host batches, the same steps
+        as that many :meth:`update` calls (per-batch padding masks, the
+        draws of each step, the schedule of each step's epoch counter,
+        the accumulation across chain boundaries): the batches staged in
+        one stacked upload of the data and one of the labels (their
+        ``norm`` shared, as in the JAX package), the steps queued with no
+        host read between them. Returns the steps' losses as one device
+        tensor. The chain's train metrics are read after the next chain
+        or step was queued; ``step_hook`` is called once, after the
+        chain."""
+        if self.params is None:
+            raise RuntimeError("call init_model() first")
+        k = len(batches)
+        if k == 0:
+            raise ValueError("update_chain_batches: empty batch list")
+        norms = {None if b.norm is None else (
+            None if b.norm.get("mean") is None else
+            np.asarray(b.norm["mean"], np.float32).tobytes(),
+            float(b.norm.get("divideby", 1.0)),
+            float(b.norm.get("scale", 1.0))) for b in batches}
+        if len(norms) != 1:
+            raise ValueError("update_chain_batches: batches carry "
+                             "different deferred-norm metadata")
+        rows, _ = self._rows(batches[0])
+        data = self._stage_input(
+            np.stack([np.asarray(b.data)[rows] for b in batches]),
+            batches[0].norm, fold=True)
+        labels = self._upload(
+            np.stack([np.asarray(b.label)[rows] for b in batches]),
+            np.float32)
+        losses, pending = [], []
+        for i, b in enumerate(batches):
+            loss, nodes = self._step(data[i], labels[i], self._mask(b))
+            losses.append(loss)
+            if self.eval_train:
+                pending.append((self._metric_values(nodes), b))
+        losses = torch.stack(losses)
+        self._last_loss = losses[-1]
+        if self.eval_train:
+            self._drain_pending_metric()
+            self._pending_metric = pending
+        if self.step_hook is not None:
+            self.step_hook(self)
+        return losses
 
     @property
     def last_loss(self) -> float:
@@ -408,9 +555,8 @@ class Trainer:
         mset.add_eval(vals, labels, slices)
 
     def _drain_pending_metric(self) -> None:
-        if self._pending_metric is not None:
-            nodes, batch = self._pending_metric
-            self._pending_metric = None
+        pending, self._pending_metric = self._pending_metric, []
+        for nodes, batch in pending:
             self._add_metric(self.train_metric, nodes, batch)
 
     def _report(self, mset: MetricSet, name: str) -> str:

@@ -1129,6 +1129,49 @@ def test_adam_apply_edges_are_bit_equal_to_plain(dev, case, wd, clip):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("flag", [0, 1])
+@pytest.mark.parametrize("kind", ["sgd", "nag", "adam"])
+def test_optimizer_applies_take_the_skip_flag(dev, kind, flag):
+    """The loss scaler's skip flag (an int32 on the card): set, the
+    kernel and the plain version leave every leaf and moment bit for
+    bit as it was, the SGD kernel's launch counted (it reads the flag on
+    the card) and the Adam wrapper launching nothing (it reads the flag
+    on the host); clear, both compute what they compute without it."""
+    shapes = [(64, 3, 7, 7), (64,), (8193,), (1,)]
+    ws = [_randn(s, torch.float32, dev, seed=i) for i, s in enumerate(shapes)]
+    gs = [_randn(s, torch.float32, dev, seed=10 + i)
+          for i, s in enumerate(shapes)]
+    gs[0].view(-1)[::5] = float("inf")
+    ms = [_randn(s, torch.float32, dev, seed=20 + i).abs() * 0.1
+          for i, s in enumerate(shapes)]
+    m2 = [m.clone() for m in ms]
+    skip = torch.tensor(flag, dtype=torch.int32, device=dev)
+    before = [t.clone() for t in ws + ms + m2]
+    launches = KERNELS[f"{'adam' if kind == 'adam' else 'sgd'}_apply"]
+    n0 = launches.launches
+    if kind == "adam":
+        want = sum(adam_apply_plain(ws, gs, ms, m2, 3e-4, 0.1, 0.001, 1e-4,
+                                    0.0, skip), [])
+        fused_adam_apply(ws, gs, ms, m2, 3e-4, d1=0.1, d2=0.001, wd=1e-4,
+                         clip=0.0, skip=skip)
+        got, equal = ws + ms + m2, True
+    else:
+        want = sum(sgd_apply_plain(ws, gs, ms, 0.1, 0.9, 1e-4, 0.0,
+                                   kind == "nag", skip), [])
+        fused_sgd_apply(ws, gs, ms, 0.1, 0.9, wd=1e-4, clip=0.0,
+                        nag=kind == "nag", skip=skip)
+        got, equal = ws + ms, bool(flag)
+    assert launches.launches - n0 == (0 if kind == "adam" and flag else 1)
+    for i, (a, b) in enumerate(zip(got, want)):
+        if flag:
+            assert torch.equal(a, before[i]) and torch.equal(b, before[i])
+        elif equal:
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+        else:
+            torch.testing.assert_close(a, b, rtol=2.4e-7, atol=1e-7,
+                                       equal_nan=True)
+
+
 def _codes(shape, dev, seed, extreme=False):
     g = torch.Generator(device=dev).manual_seed(seed)
     if extreme:

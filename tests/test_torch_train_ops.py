@@ -243,12 +243,15 @@ def test_optimizer_step_matches_jax_optimizer(updater, port_fused, jax_fused):
 
 
 def test_update_period_still_names_its_queue_item():
-    """Adam trains now; gradient accumulation is still queued and its key
-    still raises naming its ROADMAP item (the unknown updater too)."""
+    """Adam trains, and since the rest of training (ROADMAP Queue A 3) was
+    ported so does gradient accumulation: ``update_period`` passes with
+    Adam, a key still queued raises naming its item (model health), and
+    the unknown updater raises."""
     from cxxnet_tpu_torch.config import ConfigError, check_train_config
-    with pytest.raises(ConfigError,
-                       match="Queue A 3, still queued: update_period"):
-        check_train_config([("updater", "adam"), ("update_period", "2")])
+    check_train_config([("updater", "adam"), ("update_period", "2")])
     check_train_config([("updater", "adam"), ("update_period", "1")])
+    with pytest.raises(ConfigError,
+                       match=r"ROADMAP Queue A 12 \(model health\)"):
+        check_train_config([("updater", "adam"), ("health", "1")])
     with pytest.raises(ConfigError, match="unknown updater"):
         Optimizer("adagrad", [])

@@ -82,11 +82,13 @@ def second_failure_exits_first_rank(dp, tmp):
     raise ValueError("rank 1 fails first")
 
 
-def train_step_rank(dp, cfg, weights, batches):
+def train_step_rank(dp, cfg, weights, batches, chain=0):
     """One ``Trainer`` per rank over ``cfg`` (config text or pairs) from
     the JAX-layout ``weights``, one update per batch (global
-    ``DataBatch`` objects). Returns the losses and, after the last step,
-    the (params, momenta, layer state) trees in the JAX layout."""
+    ``DataBatch`` objects), or with ``chain`` the batches in chains of
+    that many (``update_chain_batches``). Returns the losses and, after
+    the last step, the (params, optimizer state, layer state) trees in
+    the JAX layout."""
     from cxxnet_tpu_torch.config import parse_config_string
     from cxxnet_tpu_torch.convert import opt_to_jax, params_to_jax
     from cxxnet_tpu_torch.trainer import Trainer
@@ -94,8 +96,11 @@ def train_step_rank(dp, cfg, weights, batches):
                  else list(cfg), dp=dp)
     tr.init_model(weights)
     losses = []
-    for b in batches:
-        tr.update(b)
+    for i in range(0, len(batches), chain or 1):
+        if chain:
+            losses += tr.update_chain_batches(batches[i:i + chain]).tolist()
+            continue
+        tr.update(batches[i])
         losses.append(tr.last_loss)
     p, s = params_to_jax(tr.params, tr.net.state)
     return losses, (p, opt_to_jax(tr.opt_state), s)
