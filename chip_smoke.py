@@ -378,6 +378,51 @@ and prints no result:
             f16 beside bf16 on the same data, and the SGD apply with a
             clear flag beside none.
 
+16. lm serve: run right after phase 7, on its round (the long-context
+            LM trained 4 steps, ``<tmp>/lm/0000.model``) loaded by
+            ``InferenceEngine.from_checkpoint``, the LM plane
+            (``cxxnet_tpu_torch.serve.lm``) at LMS_KNOBS: blocks of 16,
+            1,025 of them (8 x 128 and the scratch block), 8 decode
+            rows, context 2048, prefill chunks of 128, 64 new tokens,
+            bf16; pools and steps on the card. (a) ``paged_attention``
+            on the card at decode (8, 1) and prefill (1, 128) over the
+            whole pool and shuffled tables, against
+            ``attention_reference`` over the same gathered keys: f32
+            within 1e-5 of max(1, max|ref|), bf16 within one bf16 ulp.
+            (b) 24 seeded prompts of 64-1536 tokens (LMS_PROMPTS): each
+            prompt's last-position logits from the chunked prefill, as
+            log-probabilities, against the eval forward of the same
+            network at S 2048 (its mha through ``flash_fwd``, row 15a,
+            launches counted): within 5e-3 of max(1, |log-prob|), top-1
+            equal wherever the forward's margin exceeds 0.05; then the
+            round served and run in f32, within 1e-5, where two faulty
+            steps (each chunk's ``lengths`` one short; the last block
+            of keys dropped) must read over 1e-5. (c) the
+            same prompts through ``LMScheduler`` (8 rows, at most
+            LMS_IN_FLIGHT sequences live, so the pool never runs dry)
+            bit-equal, prompt by prompt, to ``generate_whole``; the
+            runner cache's misses unchanged after its warm-up. (d) 16
+            concurrent ``POST /generate`` clients over loopback
+            (``ServeServer.attach_lm``; prompts of 64-960 tokens, so 16
+            sequences fit the pool), half streamed and half ``"stream":
+            0``, launch counts set to 0 just before and read just after
+            (the LM step launches no hand kernel, and none may run):
+            zero failures, every stream token events then ``done``,
+            every answer equal to ``generate_whole``, ``/statz``'s
+            ``lm`` block at ``kv_blocks_used`` 0 after the drain, the
+            misses at their warm-up value. (e) a prefill-role scheduler
+            handing each of (c)'s prompts to a decode-role one on the
+            same card over loopback: the tokens equal (c)'s. (f) a pool
+            that holds one of the two longest prompts and its 64 tokens
+            only: the newer evicted under pressure (503's
+            ``Backpressure``), the older's tokens equal, then one
+            deadline eviction (5 ms), every block freed. Printed, not
+            limited: the decode step at 8 live rows and the prefill
+            chunk (CUDA events, median of 20), the decode step's
+            kernels and idle share (torch.profiler), and run (d)'s
+            tokens/s, TTFT and inter-token p50/p99, beside the card's
+            name and power limit.
+
 Then, on lines of their own: the card's name and power limit as
 ``nvidia-smi`` reports them, the kernels JSON line, and last
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits 2 when
@@ -387,6 +432,7 @@ there is none.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -6002,6 +6048,513 @@ def phase_rest(conf: str, seed: int, tmp: str, train_step_ms: float,
             "kernels_f16": fp16_kernel_times(gen, conf)}
 
 
+# -- phase 16 -----------------------------------------------------------------
+
+#: the LM plane's knobs at the long-context LM's full width: 8 rows of
+#: 2048 tokens fill the pool exactly (8 * 128 blocks of 16, and scratch)
+LMS_KNOBS = (("kv_block_size", "16"), ("kv_pool_blocks", "1025"),
+             ("lm_serve_max_seqs", "8"), ("lm_serve_max_context", "2048"),
+             ("lm_serve_prefill_chunk", "128"),
+             ("lm_serve_max_new_tokens", "64"))
+LMS_PROMPTS = (24, 64, 1536)    # (c): prompts, shortest, longest
+LMS_CLIENTS = (16, 64, 960)     # (d): 16 clients x 64 blocks = the pool
+LMS_IN_FLIGHT = 10              # (c), (e): 10 x 100 blocks < the pool
+LMS_NEW = 64
+#: (b): of max(1, |log-prob|). The round (4 Adam steps from the init) is
+#: near uniform, so a faulty step moves its log-probs little: the bf16
+#: bound sits 10x over the sound bf16 reading and guards against gross
+#: faults; the f32 bound sits between the sound f32 reading and the
+#: controls', which must exceed it (PERF.md section 6, PR 20)
+LMS_LOGIT_TOL = {"bfloat16": 5e-3, "float32": 1e-5}
+LMS_MARGIN = 0.05               # (b): top-1 held where the margin exceeds
+
+
+def lm_prompts(seed: int, spec):
+    n, lo, hi = spec
+    rs = np.random.RandomState(seed)
+    return [rs.randint(1, 64, size=rs.randint(lo, hi + 1)).astype(np.int32)
+            for _ in range(n)]
+
+
+def lm_prefill_last(lme, prompt, cut: int = 0):
+    """A prompt prefilled chunk by chunk through ``lme.step`` on blocks of
+    its own (freed after): the greedy token and the f32 logits at its
+    last position. ``cut = 1`` is (b)'s first control: each chunk's
+    ``lengths`` one short, so the chunk's last key and value go to the
+    scratch block, its last query loses its own key, and later chunks
+    read a stale slot in its place."""
+    pool = lme.block_pool
+    need = pool.blocks_for_tokens(prompt.size)
+    blocks = pool.alloc(need, seq_id=-2)
+    table = np.zeros((lme.T,), np.int32)
+    table[:need] = blocks
+    try:
+        p0, C = 0, lme.chunk
+        while p0 < prompt.size:
+            c = min(C, prompt.size - p0)
+            ids = np.zeros((1, C), np.int32)
+            ids[0, :c] = prompt[p0:p0 + c]
+            tok, last = lme.step(ids, (p0 + np.arange(C))[None], table[None],
+                                 [p0 + c - cut], [c - 1])
+            p0 += c
+        return int(tok[0]), last[0].float().cpu()
+    finally:
+        pool.free(blocks)
+
+
+@contextlib.contextmanager
+def lm_last_block_dropped(lme):
+    """(b)'s second control: while open, the LM step's paged attention
+    reads no key of a row's last block (``lengths`` cut to the block's
+    start; a row inside its first block keeps its first key)."""
+    from cxxnet_tpu_torch.serve.lm import engine as lm_engine
+    sound, bs = lm_engine.paged_attention, lme.block_size
+
+    def dropped(q, kp, vp, tables, q_pos, lengths):
+        cut = torch.clamp((lengths - 1) // bs * bs, min=1)
+        return sound(q, kp, vp, tables, q_pos, cut)
+
+    lm_engine.paged_attention = dropped
+    try:
+        yield
+    finally:
+        lm_engine.paged_attention = sound
+
+
+def lm_logit_err(last, ref) -> float:
+    """(b)'s reading: the largest |log-prob error| over max(1, |ref|)."""
+    last = torch.log_softmax(last, dim=-1)
+    return float(((last - ref).abs() / ref.abs().clamp_min(1.0)).max())
+
+
+def lm_logit_readings(eng, lme, prompts) -> dict:
+    """(b) in ``lme``'s compute dtype: each prompt's last-position
+    log-probabilities from the chunked prefill against the eval forward of
+    ``eng``'s network over batches of 8 padded to S (its mha through
+    ``flash_fwd``, launches counted), as ``lm_logit_err``; top-1 held where
+    the forward's margin exceeds LMS_MARGIN; the same reading of the two
+    controls."""
+    from cxxnet_tpu_torch.ops import KERNELS
+    S = eng.net.graph.input_shape[2]
+    fwd = []
+    flash0 = KERNELS["flash_fwd"].launches
+    for i in range(0, len(prompts), 8):
+        x = np.zeros((8, 1, 1, S), np.float32)
+        for j, p in enumerate(prompts[i:i + 8]):
+            x[j, 0, 0, :p.size] = p
+        # the forward's output: lmloss's log-probabilities of the head
+        logp = eng.net(torch.from_numpy(x).to(lme.device)).out
+        fwd += [logp[j, p.size - 1, 0].float().cpu()
+                for j, p in enumerate(prompts[i:i + 8])]
+    flash_n = KERNELS["flash_fwd"].launches - flash0
+    if flash_n != len(lme.pools) * -(-len(prompts) // 8):
+        raise AssertionError(f"the eval forward launched flash_fwd "
+                             f"{flash_n} times")
+    out = {"worst": 0.0, "held": 0, "flips": [], "firsts": [],
+           "flash_fwd": flash_n}
+    for i, p in enumerate(prompts):
+        tok, last = lm_prefill_last(lme, p)
+        out["firsts"].append(tok)
+        ref = fwd[i]
+        if not bool(torch.isfinite(last).all()):
+            raise AssertionError(f"prompt {i}: non-finite prefill logits")
+        out["worst"] = max(out["worst"], lm_logit_err(last, ref))
+        top2 = torch.topk(ref, 2).values
+        if float(top2[0] - top2[1]) > LMS_MARGIN:
+            out["held"] += 1
+            if int(torch.argmax(last)) != int(torch.argmax(ref)):
+                out["flips"].append(i)
+    out["controls"] = {"own key masked": max(
+        lm_logit_err(lm_prefill_last(lme, p, cut=1)[1], fwd[i])
+        for i, p in enumerate(prompts))}
+    with lm_last_block_dropped(lme):
+        out["controls"]["last block dropped"] = max(
+            lm_logit_err(lm_prefill_last(lme, p)[1], fwd[i])
+            for i, p in enumerate(prompts))
+    return out
+
+
+def paged_attention_check(gen: torch.Generator, lme) -> dict:
+    """(a): ``paged_attention`` on the card at the path's decode (8, 1)
+    and prefill (1, 128) shapes over the full pool and shuffled tables,
+    against ``attention_reference`` in f32 over the same gathered keys
+    and queries (rounded to bf16 for the bf16 case): f32 within 1e-5 of
+    max(1, max|ref|), bf16 within one bf16 ulp of it; the decode call
+    timed in a CUDA graph."""
+    from cxxnet_tpu_torch.ops.attention import (attention_reference,
+                                                paged_attention)
+    dev = gen.device
+    N, bs = lme.num_blocks, lme.block_size
+    _, pool = next(iter(lme.pools.items()))
+    H, D = pool["k"].shape[2:]
+    T, B = lme.T, lme.max_seqs
+    rs = np.random.RandomState(5)
+    kp = torch.randn((N, bs, H, D), generator=gen, device=dev)
+    vp = torch.randn((N, bs, H, D), generator=gen, device=dev)
+    tables = torch.from_numpy(rs.permutation(np.arange(1, N))[:B * T]
+                              .reshape(B, T).astype(np.int64)).to(dev)
+    lengths = torch.from_numpy(np.concatenate([
+        [T * bs, 1], rs.randint(2, T * bs, B - 2)]).astype(np.int64)).to(dev)
+    out, worst = {}, {}
+    for what, q_pos, lens, rows in (
+            ("decode (8,1)", (lengths - 1)[:, None], lengths, B),
+            ("prefill (1,128)", 1024 + torch.arange(lme.chunk, device=dev)
+             [None], torch.tensor([1024 + lme.chunk], device=dev), 1)):
+        q = torch.randn((rows, q_pos.shape[1], H, D), generator=gen,
+                        device=dev)
+        tabs = tables[:rows]
+        got = {dt: paged_attention(q.to(dt), kp.to(dt), vp.to(dt), tabs,
+                                   q_pos, lens).float()
+               for dt in (torch.float32, torch.bfloat16)}
+        errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+        for b in range(rows):
+            n = int(lens[b])
+            kg = kp[tabs[b]].reshape(-1, H, D)[:n][None]
+            vg = vp[tabs[b]].reshape(-1, H, D)[:n][None]
+            Q = q_pos.shape[1]
+            qf = torch.zeros((1, n, H, D), device=dev)
+            qf[0, n - Q:] = q[b]                # queries at n-Q .. n-1
+            for dt in (torch.float32, torch.bfloat16):
+                # the reference in f32 over the inputs rounded to dt
+                ref = attention_reference(
+                    *(t.to(dt).float() for t in (qf, kg, vg)),
+                    causal=True)[0, n - Q:]
+                scale = max(1.0, float(ref.abs().max()))
+                tol = (1e-5 if dt == torch.float32 else 2.0 ** -7) * scale
+                e = float((got[dt][b] - ref).abs().max())
+                errs[dt] = max(errs[dt], e)
+                if not e <= tol:
+                    raise AssertionError(
+                        f"paged_attention {what} {dt} row {b} (length {n}): "
+                        f"max|err| {e:.3g} > {tol:.3g}")
+        worst[what] = {str(dt)[6:]: e for dt, e in errs.items()}
+    kb, vb = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    qb = torch.randn((B, 1, H, D), generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    out["decode_ms"] = time_call(lambda: paged_attention(
+        qb, kb, vb, tables, (lengths - 1)[:, None], lengths), inner=20)
+    out["max_abs_err"] = worst
+    return out
+
+
+def lm_run_clients(submit, prompts, in_flight: int):
+    """Each prompt through ``submit(prompt) -> handle`` with at most
+    ``in_flight`` sequences live at once (a finished one lets the next
+    in): the terminal events in prompt order."""
+    outs = [None] * len(prompts)
+    sem = threading.Semaphore(in_flight)
+
+    def one(i):
+        try:
+            outs[i] = submit(prompts[i]).result(timeout=300)
+        except BaseException as e:          # reported by the caller
+            outs[i] = e
+        finally:
+            sem.release()
+
+    threads = []
+    for i in range(len(prompts)):
+        sem.acquire()
+        t = threading.Thread(target=one, args=(i,), daemon=True)
+        t.start()
+        threads.append(t)
+    for t in threads:
+        t.join(timeout=600)
+    bad = [(i, o) for i, o in enumerate(outs)
+           if not isinstance(o, dict) or o.get("event") != "done"]
+    if bad:
+        raise AssertionError(f"sequences failed: {bad[:4]}")
+    return [o["tokens"] for o in outs]
+
+
+def _stream_client(base: str, prompt, stream: int, box: dict) -> None:
+    """One /generate client: its tokens, and the times of its events."""
+    t0 = time.perf_counter()
+    req = urllib.request.Request(
+        base + "/generate", headers={"Content-Type": "application/json"},
+        data=json.dumps({"prompt": prompt.tolist(), "max_new": LMS_NEW,
+                         "stream": stream}).encode())
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            if not stream:
+                box["tokens"] = json.loads(r.read())["tokens"]
+                box["t"] = [time.perf_counter() - t0]
+                return
+            evs, ts = [], []
+            while True:
+                line = r.readline()
+                if not line:
+                    break
+                evs.append(json.loads(line))
+                ts.append(time.perf_counter() - t0)
+        box["events"], box["t"] = evs, ts
+        box["tokens"] = evs[-1].get("tokens") if evs else None
+    except BaseException as e:              # reported by the caller
+        box["error"] = repr(e)
+
+
+def _pcts(v):
+    return (f"p50 {np.percentile(v, 50):.2f} ms, p99 "
+            f"{np.percentile(v, 99):.2f} ms")
+
+
+def phase_lm_serve(seed: int, tmp: str, gen: torch.Generator,
+                   smi_line: str) -> dict:
+    """Phase 16: serve the LM phase's round through the LM plane at
+    full width; checks (a)-(f) of the docstring, then the times."""
+    from cxxnet_tpu_torch import checkpoint as ckpt
+    from cxxnet_tpu_torch.config import parse_lm_serve_config
+    from cxxnet_tpu_torch.ops import KERNELS, reset_launches
+    from cxxnet_tpu_torch.serve import (Backpressure, DeadlineExceeded,
+                                        InferenceEngine, ServeServer)
+    from cxxnet_tpu_torch.serve.lm import LMEngine, LMScheduler
+    t_phase = time.perf_counter()
+    model = ckpt.model_path(os.path.join(tmp, "lm"), 0)
+    eng = InferenceEngine.from_checkpoint(_serve_cfg(LM_CONF, []), model,
+                                          buckets="1", max_batch=1)
+    cfg = parse_lm_serve_config(list(LMS_KNOBS))
+    lme = LMEngine(eng, cfg)
+    if lme.device.type != "cuda" or \
+            {p[w].device.type for p in lme.pools.values() for w in "kv"} \
+            != {"cuda"}:
+        raise AssertionError(f"the LM plane is not on the card: "
+                             f"{lme.device}")
+    notes = {"version": eng.weights_version}
+
+    # (a) paged attention on the card
+    notes["paged_attention"] = paged_attention_check(gen, lme)
+
+    # (b) prefill logits against the training network's eval forward, in
+    # the round's bf16 and again in f32, where the controls must fail
+    prompts = lm_prompts(seed + 16, LMS_PROMPTS)
+    reads = {"bfloat16": lm_logit_readings(eng, lme, prompts)}
+    eng32 = InferenceEngine.from_checkpoint(
+        _serve_cfg(LM_CONF, ["compute_dtype=float32"]), model, buckets="1",
+        max_batch=1)
+    lme32 = LMEngine(eng32, cfg)
+    reads["float32"] = lm_logit_readings(eng32, lme32, prompts)
+    lme32.close()
+    print("lm serve (b): prefill log-probs vs the eval forward, worst of "
+          "max(1,|log-prob|), sound and controls: " + "; ".join(
+              f"{dt} {r['worst']:.4g}, "
+              f"{ {k: float(f'{v:.4g}') for k, v in r['controls'].items()} }"
+              f" (tol {LMS_LOGIT_TOL[dt]})" for dt, r in reads.items()),
+          flush=True)
+    for dt, r in reads.items():
+        if r["worst"] > LMS_LOGIT_TOL[dt] or r["flips"]:
+            raise AssertionError(
+                f"{dt} prefill log-probs vs the eval forward (flash_fwd): "
+                f"worst {r['worst']:.3g} of max(1,|log-prob|) (tol "
+                f"{LMS_LOGIT_TOL[dt]}); top-1 differs on prompts "
+                f"{r['flips']}")
+    blind = {k: v for k, v in reads["float32"]["controls"].items()
+             if not v > LMS_LOGIT_TOL["float32"]}
+    if blind:
+        raise AssertionError(f"check (b) passes faulty f32 steps: {blind} "
+                             f"within {LMS_LOGIT_TOL['float32']}")
+    firsts, held = reads["bfloat16"]["firsts"], reads["bfloat16"]["held"]
+    worst_b = reads["bfloat16"]["worst"]
+    flash_n = reads["bfloat16"]["flash_fwd"]
+
+    # (c) continuous batching bit-equal to the whole-request path
+    t0 = time.perf_counter()
+    ref_tokens = [lme.generate_whole(p, max_new=LMS_NEW) for p in prompts]
+    whole_s = time.perf_counter() - t0
+    if [r[0] for r in ref_tokens] != firsts:
+        raise AssertionError("generate_whole's first tokens differ from "
+                             "the prefill's")
+    warm = lme.compile_info()["misses"]
+    sched = LMScheduler(lme, cfg)
+    sched.start()
+    try:
+        t0 = time.perf_counter()
+        got = lm_run_clients(lambda p: sched.submit(p, max_new=LMS_NEW),
+                             prompts, LMS_IN_FLIGHT)
+        sched_s = time.perf_counter() - t0
+        steps = sched.steps
+    finally:
+        sched.stop(drain=True)
+    bad = [i for i, (a, b) in enumerate(zip(got, ref_tokens)) if a != b]
+    if bad or lme.block_pool.used or lme.compile_info()["misses"] != warm:
+        raise AssertionError(
+            f"scheduler vs generate_whole: prompts {bad} differ; blocks "
+            f"used {lme.block_pool.used}; misses "
+            f"{lme.compile_info()['misses']} (warm-up {warm})")
+
+    # timings at 8 live rows, then launches per decode step
+    B, T = cfg.max_seqs, lme.T
+    blocks = lme.block_pool.alloc(B * T, seq_id=-3)
+    tables = np.asarray(blocks, np.int32).reshape(B, T)
+    ids = np.asarray([p[0] for p in prompts[:B]], np.int32)
+    L = np.full((B,), 1500, np.int32)
+    decode = lambda: lme.run_decode(ids, L, tables, L + 1)
+    decode_ms = time_forward(decode)
+    chunk = prompts[0][:lme.chunk].copy()
+    prefill_ms = time_forward(lambda: lme.run_prefill(
+        tables[0], chunk, 1024, lme.chunk))
+    prof = profile_kinds(decode, n=20, what="decode step")[0]
+    lme.block_pool.free(blocks)
+
+    # (d) 16 concurrent /generate clients over loopback
+    dprompts = lm_prompts(seed + 17, LMS_CLIENTS)
+    dref = [lme.generate_whole(p, max_new=LMS_NEW) for p in dprompts]
+    srv = ServeServer(eng, port=0, silent=True, handle_signals=False)
+    srv.start()
+    try:
+        srv.attach_lm(cfg)
+        srv.lm.engine.generate_whole(dprompts[0], max_new=2)   # warm-up
+        d_warm = srv.lm.engine.compile_info()["misses"]
+        base = f"http://127.0.0.1:{srv.port}"
+        boxes = [{} for _ in dprompts]
+        reset_launches()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(
+            target=_stream_client, args=(base, p, i % 2 == 0, boxes[i]),
+            daemon=True) for i, p in enumerate(dprompts)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        http_s = time.perf_counter() - t0
+        hand = {k.name: k.launches for k in KERNELS.values() if k.launches}
+        for _ in range(500):
+            if srv.lm.live_count() == 0:
+                break
+            time.sleep(0.01)
+        statz = _get(base + "/statz")
+        d_misses = srv.lm.engine.compile_info()["misses"]
+    finally:
+        srv.stop()
+    fails = [(i, b.get("error")) for i, b in enumerate(boxes)
+             if "error" in b or b.get("tokens") != dref[i]]
+    order = [i for i, b in enumerate(boxes) if "events" in b and not (
+        b["events"][0]["event"] == "token" and b["events"][-1]["event"]
+        == "done" and len(b["events"]) == LMS_NEW + 1)]
+    lm_statz = statz.get("lm", {})
+    if fails or order or lm_statz.get("kv_blocks_used") != 0 \
+            or d_misses != d_warm or hand:
+        raise AssertionError(
+            f"/generate: failed or wrong tokens {fails}; event order "
+            f"{order}; /statz lm {lm_statz}; misses {d_misses} (warm-up "
+            f"{d_warm}); hand-kernel launches {hand} (the LM step has none)")
+    streamed = [b for b in boxes if "events" in b]
+    ttft = [1e3 * b["t"][0] for b in streamed]
+    itl = [1e3 * (b2 - b1) for b in streamed
+           for b1, b2 in zip(b["t"][:-2], b["t"][1:-1])]
+    n_tok = sum(len(b["tokens"]) for b in boxes)
+
+    # (e) prefill -> decode handoff on the same card
+    pre, dec = LMEngine(eng, cfg), LMEngine(eng, cfg)
+    d_sched = LMScheduler(dec, cfg, role="decode")
+    d_sched.start()
+    p_sched = LMScheduler(pre, cfg, role="prefill",
+                          peer=d_sched.handoff_addr)
+    p_sched.start()
+    try:
+        t0 = time.perf_counter()
+        hgot = lm_run_clients(lambda p: p_sched.submit(p, max_new=LMS_NEW),
+                              prompts, LMS_IN_FLIGHT)
+        hand_s = time.perf_counter() - t0
+    finally:
+        p_sched.stop(drain=True)
+        d_sched.stop(drain=True)
+    hbad = [i for i, (a, b) in enumerate(zip(hgot, ref_tokens)) if a != b]
+    if hbad or pre.block_pool.used or dec.block_pool.used \
+            or p_sched.steps or not d_sched.steps:
+        raise AssertionError(
+            f"handoff: prompts {hbad} differ from (c); blocks used "
+            f"{pre.block_pool.used}/{dec.block_pool.used}; decode steps "
+            f"{p_sched.steps}/{d_sched.steps}")
+    pre.close()
+    dec.close()
+
+    # (f) a pool two long prompts cannot share, and a deadline
+    long2 = sorted(range(len(prompts)), key=lambda i: -prompts[i].size)[:2]
+    blocks_one = -(-(prompts[long2[0]].size + LMS_NEW) // 16)
+    small_cfg = parse_lm_serve_config(
+        list(LMS_KNOBS) + [("kv_pool_blocks", str(blocks_one + 1))])
+    small = LMEngine(eng, small_cfg)
+    s_sched = LMScheduler(small, small_cfg)
+    s_sched.start()
+    try:
+        h_old = s_sched.submit(prompts[long2[0]], max_new=LMS_NEW)
+        h_new = s_sched.submit(prompts[long2[1]], max_new=LMS_NEW)
+        old = h_old.result(timeout=300)
+        try:
+            h_new.result(timeout=300)
+            pressure = "not evicted"
+        except Backpressure as e:
+            pressure = str(e)
+        h_dl = s_sched.submit(prompts[long2[0]], max_new=LMS_NEW,
+                              deadline_ms=5.0)
+        try:
+            h_dl.result(timeout=300)
+            deadline = "not evicted"
+        except DeadlineExceeded as e:
+            deadline = str(e)
+        evictions = s_sched.evictions
+    finally:
+        s_sched.stop(drain=True)
+    if old["tokens"] != ref_tokens[long2[0]] or "pressure" not in pressure \
+            or "deadline" not in deadline or evictions != 2 \
+            or small.block_pool.used:
+        raise AssertionError(
+            f"evictions: survivor equal {old['tokens'] == ref_tokens[long2[0]]}"
+            f", pressure {pressure!r}, deadline {deadline!r}, evictions "
+            f"{evictions}, blocks used {small.block_pool.used}")
+    small.close()
+    lme.close()
+
+    took = time.perf_counter() - t_phase
+    notes.update({
+        "decode_step_ms": decode_ms, "prefill_chunk_ms": prefill_ms,
+        "decode_profile": prof, "prefill_logit_err": worst_b,
+        "prefill_logit": {dt: {k: r[k] for k in ("worst", "controls")}
+                          for dt, r in reads.items()},
+        "top1_held": held, "whole_s": whole_s, "sched_s": sched_s,
+        "sched_steps": steps, "http_s": http_s,
+        "tokens_per_s": n_tok / http_s,
+        "ttft_ms": {"p50": float(np.percentile(ttft, 50)),
+                    "p99": float(np.percentile(ttft, 99))},
+        "itl_ms": {"p50": float(np.percentile(itl, 50)),
+                   "p99": float(np.percentile(itl, 99))},
+        "handoff_s": hand_s, "seconds": took, "card": smi_line})
+    pa = notes["paged_attention"]
+    print(f"lm serve: the LM phase's round ({notes['version']}) served at "
+          f"full width (kv {cfg.kv_pool_blocks} blocks of "
+          f"{cfg.kv_block_size}, {cfg.max_seqs} rows, context "
+          f"{cfg.max_context}, chunk {cfg.prefill_chunk}, bf16) on "
+          f"{lme.device} | (a) paged_attention vs attention_reference "
+          f"over the gathered keys: {pa['max_abs_err']} (tol f32 1e-5, "
+          f"bf16 2^-7 of max(1,|ref|)), decode call {pa['decode_ms']:.4f} "
+          f"ms in a CUDA graph | (b) {len(prompts)} prompts "
+          f"({min(p.size for p in prompts)}-{max(p.size for p in prompts)}"
+          f" tokens): prefill log-probs vs the eval forward through "
+          f"flash_fwd "
+          f"({flash_n} launches) worst {worst_b:.3g} of max(1,|log-prob|) ("
+          f"tol {LMS_LOGIT_TOL['bfloat16']}), f32 "
+          f"{reads['float32']['worst']:.3g} (tol "
+          f"{LMS_LOGIT_TOL['float32']}; both controls over it), top-1 "
+          f"equal on all {held} with a margin > "
+          f"{LMS_MARGIN} | (c) scheduler ({LMS_IN_FLIGHT} in flight, "
+          f"{steps} decode steps, {sched_s:.2f}s) bit-equal to "
+          f"generate_whole ({whole_s:.2f}s) on all {len(prompts)}, runner "
+          f"misses {warm} | (d) {len(dprompts)} clients over HTTP "
+          f"({len(streamed)} streamed, {len(dprompts) - len(streamed)} "
+          f"stream=0): 0 failures, tokens equal to generate_whole, "
+          f"{n_tok} tokens in {http_s:.3f}s = {n_tok / http_s:.1f} "
+          f"tokens/s, TTFT {_pcts(ttft)}, inter-token {_pcts(itl)}, /statz "
+          f"lm {lm_statz}, hand-kernel launches 0 | (e) prefill -> decode "
+          f"handoff over loopback: all {len(prompts)} equal to (c) in "
+          f"{hand_s:.2f}s | (f) pool of {blocks_one} blocks: pressure "
+          f"eviction of the newer sequence, the older's tokens equal, one "
+          f"deadline eviction, blocks all freed | decode step at 8 live "
+          f"rows {decode_ms:.3f} ms, prefill chunk of 128 "
+          f"{prefill_ms:.3f} ms (CUDA events, median of 20) | decode step "
+          f"profile: {prof} | phase {took:.1f}s | {smi_line}", flush=True)
+    return notes
+
+
 # -- main ---------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -6076,6 +6629,8 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         tr, kern, plain_tr, lm_batches, lm_launches, lm_notes = phase_lm(
             args.seed, tmp)
+        lm_serve = phase_lm_serve(args.seed, tmp, gen, smi_line)
+        mark("lm serve")
     lm_times = phase_lm_times(tr, kern, plain_tr, lm_batches, gen)
     mark("lm")
     del tr, kern, plain_tr
@@ -6166,6 +6721,7 @@ def main(argv=None) -> int:
               "lm_step_ms": lm_times["step_ms"],
               "lm_step_plain_ms": lm_times["step_plain_ms"],
               "lm": lm_notes, "lm_profile": lm_times["profile"],
+              "lm_serve": lm_serve,
               "adam_inception_bn": {kk: vv for kk, vv in
                                     lm_times["adam_ibn"].items()
                                     if kk != "bound"},

@@ -3,8 +3,8 @@
 The port's own copy of the parts of ``cxxnet_tpu/config.py`` that the
 serving and training paths need: the tokenizer and
 ``parse_config_string``, the mixed-precision :class:`Policy` (mapped to
-torch dtypes), the ``fused_kernels`` grammar, the ``serve_*`` and ``quant_*``
-namespaces, the training keys the port does not run yet, and the split of iterator
+torch dtypes), the ``fused_kernels`` grammar, the ``serve_*``,
+``lm_serve_*`` / ``kv_*`` and ``quant_*`` namespaces, the training keys the port does not run yet, and the split of iterator
 sections (``data = train`` .. ``iter = end``) from the global settings. Grammar: whitespace-separated tokens, ``=`` as its own token,
 ``#`` line comments, ``"..."`` single-line and ``'...'`` multi-line
 quoted strings with backslash escapes. Order of pairs is preserved,
@@ -192,6 +192,90 @@ def parse_serve_config(cfg: ConfigPairs) -> ServeConfig:
             f"serve_breaker_threshold must be >= 0, got "
             f"{sc.breaker_threshold}")
     return sc
+
+
+@dataclasses.dataclass(frozen=True)
+class LMServeConfig:
+    """The ``lm_serve_*`` / ``kv_*`` knob set of the LM plane
+    (``serve/lm``): the paged KV-cache's geometry and the continuous-
+    batching decode scheduler, with the JAX package's keys, defaults and
+    validation (a typo'd key raises)."""
+    kv_block_size: int = 16       # kv_block_size: tokens per cache block
+    kv_pool_blocks: int = 64      # kv_pool_blocks: blocks in the pool
+    kv_dtype: str = ""            # kv_dtype: cache dtype ('' = compute)
+    max_seqs: int = 4             # lm_serve_max_seqs: decode batch rows
+    max_context: int = 128        # lm_serve_max_context: prompt+gen cap
+    max_new_tokens: int = 32      # lm_serve_max_new_tokens: default cap
+    prefill_chunk: int = 16       # lm_serve_prefill_chunk: tokens/step
+    max_queue: int = 32           # lm_serve_max_queue: waiting requests
+    eos: int = -1                 # lm_serve_eos: stop token (-1 = none)
+    role: str = "both"            # lm_serve_role: both|prefill|decode
+    handoff_port: int = 0         # lm_serve_handoff_port (0 = ephemeral)
+    deadline_ms: float = 0.0      # lm_serve_deadline_ms (0 = none)
+
+    @property
+    def max_blocks_per_seq(self) -> int:
+        """Block-table width: blocks that hold ``max_context`` tokens
+        (every step runs at this fixed T)."""
+        return -(-self.max_context // self.kv_block_size)
+
+
+def parse_lm_serve_config(cfg: ConfigPairs) -> LMServeConfig:
+    """Collect and validate the ``lm_serve_*`` / ``kv_*`` keys (last
+    occurrence wins; unknown keys in either namespace raise). The cache
+    dtype is resolved by the engine, through :func:`parse_policy`."""
+    known = {
+        "kv_block_size": ("kv_block_size", int),
+        "kv_pool_blocks": ("kv_pool_blocks", int),
+        "kv_dtype": ("kv_dtype", str),
+        "lm_serve_max_seqs": ("max_seqs", int),
+        "lm_serve_max_context": ("max_context", int),
+        "lm_serve_max_new_tokens": ("max_new_tokens", int),
+        "lm_serve_prefill_chunk": ("prefill_chunk", int),
+        "lm_serve_max_queue": ("max_queue", int),
+        "lm_serve_eos": ("eos", int),
+        "lm_serve_role": ("role", str),
+        "lm_serve_handoff_port": ("handoff_port", int),
+        "lm_serve_deadline_ms": ("deadline_ms", float),
+    }
+    vals = {}
+    for name, val in cfg:
+        if name.startswith("lm_serve_") or name.startswith("kv_"):
+            if name not in known:
+                raise ConfigError(
+                    f"unknown lm-serve setting {name!r}; valid keys: "
+                    + ", ".join(sorted(known)))
+            field, conv = known[name]
+            try:
+                vals[field] = conv(val)
+            except ValueError as e:
+                raise ConfigError(f"bad {name} value {val!r}: {e}")
+    lc = LMServeConfig(**vals)
+    if lc.kv_block_size < 1 or lc.kv_pool_blocks < 2:
+        raise ConfigError(
+            "kv_block_size must be >= 1 and kv_pool_blocks >= 2 "
+            "(block 0 is reserved scratch), got "
+            f"{lc.kv_block_size}/{lc.kv_pool_blocks}")
+    if lc.max_seqs < 1 or lc.max_queue < 1:
+        raise ConfigError(
+            "lm_serve_max_seqs and lm_serve_max_queue must be >= 1, "
+            f"got {lc.max_seqs}/{lc.max_queue}")
+    if lc.max_context < 1 or lc.max_new_tokens < 1:
+        raise ConfigError(
+            "lm_serve_max_context and lm_serve_max_new_tokens must be "
+            f">= 1, got {lc.max_context}/{lc.max_new_tokens}")
+    if lc.prefill_chunk < 1 or lc.prefill_chunk % lc.kv_block_size:
+        raise ConfigError(
+            f"lm_serve_prefill_chunk ({lc.prefill_chunk}) must be a "
+            f"positive multiple of kv_block_size ({lc.kv_block_size}) "
+            "so chunk boundaries align with cache blocks")
+    if lc.role not in ("both", "prefill", "decode"):
+        raise ConfigError(
+            f"lm_serve_role must be both|prefill|decode, got {lc.role!r}")
+    if lc.deadline_ms < 0:
+        raise ConfigError(
+            f"lm_serve_deadline_ms must be >= 0, got {lc.deadline_ms}")
+    return lc
 
 
 # -- post-training quantization -----------------------------------------------

@@ -5,7 +5,8 @@ kernels for its forward and both halves of its backward.
 The port of ``cxxnet_tpu/ops/attention.py``. Every function takes
 ``(batch, seq, heads, head_dim)`` tensors, the JAX package's layout.
 
-* :func:`attention_reference` and :func:`chunked_attention` are plain
+* :func:`attention_reference`, :func:`chunked_attention` and the LM
+  plane's :func:`paged_attention` (with :func:`rope_at`) are plain
   torch, as they are plain jnp in the JAX package.
 * :func:`flash_attention` is a ``torch.autograd.Function``. Its forward
   returns the output and keeps the per-row logsumexp ``lse``; its
@@ -76,15 +77,31 @@ def rope(x: torch.Tensor, theta: float = 10000.0,
     (i, i + D/2) rotated by position-dependent angles. The angles and the
     rotation are float32; a bf16 ``x`` is promoted to f32 for the rotation
     and cast back at the end, as in the JAX package."""
-    B, S, H, D = x.shape
+    pos = torch.arange(x.shape[1], dtype=torch.float32, device=x.device) \
+        + float(offset)
+    return _rotate(x, theta, pos[None, :])
+
+
+def rope_at(x: torch.Tensor, theta: float, pos: torch.Tensor) -> torch.Tensor:
+    """Rotary embedding at explicit per-token positions: ``x`` (B, S, H,
+    D), ``pos`` integer (B, S) absolute positions. The same ``pos * inv``
+    products and cos/sin combine as :func:`rope`, so a token rotated
+    here at position p equals the row a full forward rotated at p, bit
+    for bit: what the paged KV-cache's decode parity rests on."""
+    return _rotate(x, theta, pos.to(torch.float32))
+
+
+def _rotate(x: torch.Tensor, theta: float, pos: torch.Tensor
+            ) -> torch.Tensor:
+    """The rotation of :func:`rope` at f32 positions ``pos`` (B or 1, S)."""
+    D = x.shape[-1]
     if D % 2:
         raise ValueError(f"rope needs an even head_dim, got {D}")
-    f32 = dict(dtype=torch.float32, device=x.device)
-    pos = torch.arange(S, **f32) + float(offset)
-    inv = theta ** (-torch.arange(0, D // 2, **f32) / (D // 2))
-    ang = pos[:, None] * inv[None, :]                  # (S, D/2)
-    cos = torch.cos(ang)[None, :, None, :]
-    sin = torch.sin(ang)[None, :, None, :]
+    inv = theta ** (-torch.arange(0, D // 2, dtype=torch.float32,
+                                  device=x.device) / (D // 2))
+    ang = pos[:, :, None] * inv                        # (B, S, D/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x[..., : D // 2], x[..., D // 2:]
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -142,6 +159,38 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                    v_pool: torch.Tensor, tables: torch.Tensor,
+                    q_pos: torch.Tensor, lengths: torch.Tensor,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Attention over a paged KV-cache, gather-style (the JAX package's
+    ``paged_attention``, which is plain jnp there as it is plain torch
+    here): each sequence's keys and values live in fixed-size token
+    blocks of a shared pool, addressed by its block table.
+
+    q (B, Q, H, D): the query tokens (Q 1 at a decode step, the chunk at
+    prefill); k_pool, v_pool (N, bs, H, D); tables (B, T) integer block
+    ids, logical token i of row b at ``(tables[b, i // bs], i % bs)``;
+    q_pos (B, Q) absolute positions of the queries; lengths (B,) valid
+    tokens a row (0: a dead row). Keys past a query's position or past
+    the row's length take -1e30 before an f32 softmax, so a dead row
+    comes out uniform, never NaN. Each row depends only on its own q,
+    table and the pool. Returns (B, Q, H, D) in q's dtype."""
+    N, bs, H, D = k_pool.shape
+    B, T = tables.shape
+    kg = k_pool[tables].reshape(B, T * bs, H, D)
+    vg = v_pool[tables].reshape(B, T * bs, H, D)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kg.float()) \
+        * _scale(q, scale)
+    # the gathered flat index is the logical position (ordered tables)
+    k_pos = torch.arange(T * bs, device=q.device)
+    mask = (k_pos <= q_pos[:, None, :, None]) \
+        & (k_pos < lengths[:, None, None, None])
+    s = torch.where(mask, s, torch.full_like(s, _NEG))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vg.float()).to(q.dtype)
 
 
 # -- flash attention: plain versions ------------------------------------------

@@ -2,8 +2,9 @@
 
 from .batcher import Backpressure, DeadlineExceeded, MicroBatcher
 from .engine import InferenceEngine
-from .server import ServeServer, UnknownVersion
+from .server import NoLMPlane, ServeServer, UnknownVersion
 from .stats import ServingStats
 
 __all__ = ["Backpressure", "DeadlineExceeded", "InferenceEngine",
-           "MicroBatcher", "ServeServer", "ServingStats", "UnknownVersion"]
+           "MicroBatcher", "NoLMPlane", "ServeServer", "ServingStats",
+           "UnknownVersion"]

@@ -73,6 +73,9 @@ class MicroBatcher:
         self._q: "queue.Queue[_Request]" = queue.Queue()
         self._rows_lock = threading.Lock()
         self._queued_rows = 0
+        # live-work probes (the LM scheduler's live sequences): counts of
+        # in-flight work outside the row accounting
+        self._live_probes: List = []
         self._stop = threading.Event()
         self._drain = True
         self._thread = threading.Thread(target=self._worker, daemon=True,
@@ -135,6 +138,15 @@ class MicroBatcher:
     def queued_rows(self) -> int:
         with self._rows_lock:
             return self._queued_rows
+
+    def add_idle_probe(self, probe) -> None:
+        """Register a live-work probe (a callable returning a count of
+        in-flight items). The LM scheduler registers its live-sequence
+        count: a drained batcher with decodes still holding KV blocks is
+        not idle. The fleet's reload drain, which reads the probes, is
+        not in the port yet (ROADMAP Queue A 4)."""
+        with self._rows_lock:
+            self._live_probes.append(probe)
 
     # -- worker side -----------------------------------------------------
     def _release(self, reqs: List[_Request]) -> None:

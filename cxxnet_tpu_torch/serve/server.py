@@ -5,21 +5,29 @@
   "version": "rNNNN"?}`` -> ``{"pred": [...]}`` / ``{"prob": [[...]]}``
 * ``POST /extract``  ``{"data": ..., "node": "name"}``
   -> ``{"node": ..., "features": [[...]]}``
+* ``POST /generate`` ``{"prompt": [ids...], "max_new": N?,
+  "deadline_ms": T?, "stream": 0|1, "version": "rNNNN"?}``: LM serving
+  (``serve/lm/``), once ``attach_lm`` brought the plane up. Streamed by
+  default as ``Transfer-Encoding: chunked`` ndjson, one event a chunk
+  flushed as each token lands (``serve/lm/stream.py`` has the events),
+  so a client reads TTFT and inter-token latency directly; ``"stream":
+  0`` returns ``{"tokens": [...], "reason": ...}`` in one body. A client
+  that drops mid-stream cancels its sequence and frees its KV blocks.
 * ``GET  /healthz``  -> ``{"status": "ok"|"degraded"|"open"|"down", ...}``
 * ``GET  /statz``    -> the ServingStats snapshot + breaker/queue state
 
 Health: ``ok`` (200) dispatching normally; ``degraded`` (200) the queue
 is past ``degraded_queue_frac`` of its budget or the breaker is probing;
 ``open`` (503) the breaker is open; ``down`` (500) the batcher worker is
-dead. Errors: malformed request, wrong row width or unknown version
-400; backpressure or breaker open 503; deadline exceeded 504; engine
-failure 500. Shutdown is graceful: stop accepting, then drain the
-batcher, on ``stop()`` or on SIGINT/SIGTERM (handlers installed by
-``start()`` on the main thread).
+dead. Errors: malformed request, wrong row width, a bad prompt or
+unknown version 400; backpressure, breaker open or no LM plane 503;
+deadline exceeded 504; engine failure 500. Shutdown is graceful: stop
+accepting, then drain the LM plane and the batcher, on ``stop()`` or on
+SIGINT/SIGTERM (handlers installed by ``start()`` on the main thread).
 
-Not served yet: replica fleets, hot reload and A/B pins (ROADMAP Queue
-A 4), ``POST /generate`` (Queue A 4), ``GET /metrics`` and the SLO burn
-rate (Queue A 12).
+Not served yet: replica fleets, hot reload and A/B pins, and with them
+``ReplicaPool.attach_lm``, ``set_lm_role`` and int8 LM serving (ROADMAP
+Queue A 4); ``GET /metrics`` and the SLO burn rate (Queue A 12).
 """
 
 from __future__ import annotations
@@ -39,6 +47,10 @@ from .engine import InferenceEngine
 
 class UnknownVersion(ValueError):
     """A request pinned a model version this server does not serve."""
+
+
+class NoLMPlane(RuntimeError):
+    """``POST /generate`` on a server with no LM plane attached (503)."""
 
 
 def _make_handler(server: "ServeServer"):
@@ -78,17 +90,20 @@ def _make_handler(server: "ServeServer"):
             return json.loads(self.rfile.read(n).decode("utf-8"))
 
         def do_POST(self):
-            if self.path not in ("/predict", "/extract"):
+            if self.path not in ("/predict", "/extract", "/generate"):
                 self._reply(404, {"error": f"no such path {self.path}"})
                 return
             try:
                 req = self._read_json()
+                version = req.get("version") \
+                    or self.headers.get("X-Model-Version") or None
+                if self.path == "/generate":
+                    self._handle_generate(req, version)
+                    return
                 data = np.asarray(req["data"], np.float32)
                 if data.ndim == 1:
                     data = data[None, :]
                 timeout_ms = req.get("timeout_ms")
-                version = req.get("version") \
-                    or self.headers.get("X-Model-Version") or None
                 if self.path == "/extract":
                     node = req.get("node", "top")
                     fut = server.submit(data, "extract", node,
@@ -104,7 +119,7 @@ def _make_handler(server: "ServeServer"):
                     out = fut.result(timeout=server.result_timeout_s)
                     key = "prob" if kind == "raw" else "pred"
                     self._reply(200, {key: out.tolist()})
-            except (Backpressure, CircuitOpen) as e:
+            except (Backpressure, CircuitOpen, NoLMPlane) as e:
                 self._reply(503, {"error": str(e)})
             except DeadlineExceeded as e:
                 self._reply(504, {"error": str(e)})
@@ -112,6 +127,47 @@ def _make_handler(server: "ServeServer"):
                 self._reply(400, {"error": f"{type(e).__name__}: {e}"})
             except Exception as e:   # the engine failed: report, keep serving
                 self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+
+        def _handle_generate(self, req: dict, version) -> None:
+            from .lm.stream import LAST_CHUNK, chunk, encode_event
+            prompt = req.get("prompt")
+            if not isinstance(prompt, (list, tuple)) or not prompt:
+                raise ValueError(
+                    "generate needs a non-empty integer list 'prompt'")
+            handle = server.submit_lm(
+                [int(t) for t in prompt], max_new=req.get("max_new"),
+                deadline_ms=req.get("deadline_ms"), version=version)
+            if not int(req.get("stream", 1)):
+                try:
+                    done = handle.result(timeout=server.result_timeout_s)
+                except TimeoutError:
+                    # the generation outlived the handler's budget: evict
+                    # it (its decode row and KV blocks) and answer 504
+                    handle.cancel()
+                    raise DeadlineExceeded(
+                        "generation exceeded result_timeout_s="
+                        f"{server.result_timeout_s}")
+                self._reply(200, {"tokens": done["tokens"],
+                                  "reason": done["reason"]})
+                return
+            # headers are committed from here on: a failure is an in-band
+            # error event (pushed by the scheduler) or a dropped
+            # connection, never a second status line
+            self.send_response(200)
+            self.send_header("Content-Type", "application/x-ndjson")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+            try:
+                for ev in handle.events(timeout=server.result_timeout_s):
+                    self.wfile.write(chunk(encode_event(ev)))
+                    self.wfile.flush()         # per token: TTFT is real
+                self.wfile.write(LAST_CHUNK)
+                self.wfile.flush()
+            except (TimeoutError, OSError):
+                # client gone (or stream wedged): release the decode row
+                # and KV blocks instead of generating into the void
+                handle.cancel()
+                self.close_connection = True
 
     return Handler
 
@@ -151,6 +207,8 @@ class ServeServer:
             max_queue_rows=max_queue_rows,
             default_timeout_ms=default_timeout_ms, stats=self.stats,
             breaker=self.breaker)
+        # the LM plane (serve/lm LMScheduler), set by attach_lm
+        self.lm = None
         self.httpd = ThreadingHTTPServer((host, port), _make_handler(self))
         self.httpd.daemon_threads = True
         self.port = self.httpd.server_address[1]
@@ -170,11 +228,40 @@ class ServeServer:
                version: Optional[str] = None):
         """Route one request to the batcher; a version pin must name the
         engine's own weights."""
+        self._check_version(version)
+        return self.batcher.submit(data, kind, node, timeout_ms=timeout_ms)
+
+    def _check_version(self, version: Optional[str]) -> None:
         if version is not None and version != self.engine.weights_version:
             raise UnknownVersion(
                 f"no replica serves model version {version!r}; "
                 f"available: [{self.engine.weights_version!r}]")
-        return self.batcher.submit(data, kind, node, timeout_ms=timeout_ms)
+
+    # -- LM serving plane --------------------------------------------------
+    def attach_lm(self, lm_cfg) -> "ServeServer":
+        """Bring up the LM plane (a ``parse_lm_serve_config`` result):
+        one LMEngine and scheduler on this server's engine, its live
+        count registered as the batcher's idle probe and its snapshot in
+        ``/statz`` (``self.lm.set_role`` splits prefill and decode)."""
+        from .lm import LMEngine, LMScheduler
+        if self.lm is not None:
+            raise RuntimeError("LM plane already attached")
+        sched = LMScheduler(LMEngine(self.engine, lm_cfg), lm_cfg)
+        sched.start()
+        self.batcher.add_idle_probe(sched.live_count)
+        self.stats.lm = sched.snapshot
+        self.lm = sched
+        return self
+
+    def submit_lm(self, prompt, max_new: Optional[int] = None,
+                  deadline_ms: Optional[float] = None,
+                  version: Optional[str] = None):
+        """Route one generation request; returns its StreamHandle."""
+        if self.lm is None:
+            raise NoLMPlane("no LM plane attached (server.attach_lm)")
+        self._check_version(version)
+        return self.lm.submit(prompt, max_new=max_new,
+                              deadline_ms=deadline_ms)
 
     def health(self) -> Tuple[int, Dict]:
         alive = self.batcher._thread.is_alive()
@@ -266,6 +353,11 @@ class ServeServer:
                 self.httpd.shutdown()
                 self._http_thread.join(timeout=10)
             self.httpd.server_close()
+            # the LM plane first: its live sequences are what the
+            # batcher's idle probe watches
+            if self.lm is not None:
+                self.lm.stop(drain=True)
+                self.lm.engine.close()
             self.batcher.close(drain=True)
             if not self.silent:
                 print(self.stats.log_line(), flush=True)

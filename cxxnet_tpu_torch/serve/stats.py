@@ -2,7 +2,8 @@
 cell-cache hits (the port of ``cxxnet_tpu/serve/stats.py``).
 
 :meth:`ServingStats.snapshot` is the ``/statz`` payload with the JAX
-package's key layout. The counters are plain integers behind a lock;
+package's key layout, with the LM plane's block under ``lm`` once one is
+attached. The counters are plain integers behind a lock;
 the Prometheus ``/metrics`` registry that the JAX package exports them
 through waits for ROADMAP Queue A 12. Thread-safe: the batcher worker,
 the HTTP handler threads and the engine all write here.
@@ -37,6 +38,9 @@ class ServingStats:
         self._done_ts: deque = deque(maxlen=65536)         # completion times
         for name in self._COUNTERS:
             setattr(self, name, 0)
+        # the LM plane's snapshot (LMScheduler.snapshot), set by
+        # ServeServer.attach_lm; /statz shows it as "lm"
+        self.lm = None
 
     def _add(self, **deltas: int) -> None:
         with self._lock:
@@ -146,6 +150,7 @@ class ServingStats:
                 "size": c["cache_size"],
                 "capacity": c["cache_capacity"],
             },
+            **({"lm": self.lm()} if self.lm is not None else {}),
         }
 
     def log_line(self) -> str:

@@ -1471,3 +1471,95 @@ def test_nvjpeg_refuses_cmyk_and_is_the_same_on_eight_threads(dev):
         many = list(ex.map(lambda n: decode_image(jfx.jpeg(n), 3, cuda0),
                            names))
     assert all(np.array_equal(a, b) for a, b in zip(one, many))
+
+
+# -- the LM plane (serve/lm) on the card --------------------------------------
+
+LM_TINY = """
+netconfig=start
+layer[+1:e0] = embed:tok_embed
+  nhidden = 32
+  vocab_size = 16
+layer[+1:n1] = layernorm:ln1
+layer[+1:a1] = mha:attn1
+  nhead = 4
+  causal = 1
+  rope = 1
+layer[e0,a1->r1] = add:res1
+layer[+1:n2] = layernorm:ln2
+layer[+1:f1] = ffn:ffn1
+  nhidden = 64
+layer[r1,f1->r2] = add:res2
+layer[+1:lg] = seqfc:lm_head
+  nhidden = 16
+layer[+0] = lmloss
+netconfig=end
+input_shape = 1,1,64
+compute_dtype = bfloat16
+"""
+
+
+@pytest.mark.parametrize("q_len", [1, 16])
+def test_paged_attention_on_the_card_matches_its_f32_result(dev, q_len):
+    """bf16 on the card against the same function in f32 on the CPU over
+    the same bf16-rounded inputs: within one bf16 ulp of max|f32|; dead
+    rows (length 0) uniform, finite."""
+    import numpy as np
+    from cxxnet_tpu_torch.ops.attention import paged_attention
+    rs = np.random.RandomState(0)
+    N, bs, H, D, B, T = 33, 16, 8, 16, 4, 8
+    g = torch.Generator().manual_seed(0)
+    kp, vp = (torch.randn((N, bs, H, D), generator=g).to(torch.bfloat16)
+              for _ in range(2))
+    q = torch.randn((B, q_len, H, D), generator=g).to(torch.bfloat16)
+    tables = torch.from_numpy(rs.permutation(np.arange(1, N))[:B * T]
+                              .reshape(B, T))
+    lengths = torch.tensor([T * bs, 37, 0, q_len])
+    q_pos = (lengths.clamp(min=q_len) - q_len)[:, None] \
+        + torch.arange(q_len)[None]
+    want = paged_attention(q.float(), kp.float(), vp.float(), tables, q_pos,
+                           lengths)
+    got = paged_attention(*(t.to(dev) for t in (q, kp, vp, tables, q_pos,
+                                                 lengths))).float().cpu()
+    assert torch.isfinite(got).all()
+    tol = 2.0 ** -7 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol
+
+
+def test_lm_scheduler_on_the_card_is_bit_equal_to_generate_whole(dev):
+    """A narrow rope LM (random weights) on the card: continuous batching
+    (3 rows, 5 prompts) bit-equal to the whole-request path, the pools
+    on the card, every block freed, no runner built after warm-up."""
+    import numpy as np
+    from cxxnet_tpu_torch.config import (parse_config_string,
+                                         parse_lm_serve_config)
+    from cxxnet_tpu_torch.graph import build_graph
+    from cxxnet_tpu_torch.model import Network
+    from cxxnet_tpu_torch.serve import InferenceEngine
+    from cxxnet_tpu_torch.serve.lm import LMEngine, LMScheduler
+    cfg = parse_config_string(LM_TINY)
+    net = Network(build_graph(cfg), cfg, device=dev)
+    params, state = net.init(torch.Generator(device=dev).manual_seed(0))
+    params["tok_embed"]["wmat"] *= 50.0
+    net.load_weights(params, state)
+    lc = parse_lm_serve_config([
+        ("kv_block_size", "4"), ("kv_pool_blocks", "64"),
+        ("lm_serve_max_seqs", "3"), ("lm_serve_max_context", "64"),
+        ("lm_serve_prefill_chunk", "8")])
+    lme = LMEngine(InferenceEngine(net, buckets="1", max_batch=1), lc)
+    assert {p[w].device.type for p in lme.pools.values() for w in "kv"} \
+        == {dev.type}
+    rs = np.random.RandomState(1)
+    prompts = [rs.randint(1, 16, size=rs.randint(3, 30)) for _ in range(5)]
+    want = [lme.generate_whole(p, max_new=12) for p in prompts]
+    warm = lme.compile_info()["misses"]
+    sched = LMScheduler(lme, lc)
+    sched.start()
+    try:
+        got = [h.result(timeout=120)["tokens"] for h in
+               [sched.submit(p, max_new=12) for p in prompts]]
+    finally:
+        sched.stop(drain=True)
+    assert got == want
+    assert lme.block_pool.used == 0
+    assert lme.compile_info()["misses"] == warm
