@@ -422,6 +422,57 @@ and prints no result:
             kernels and idle share (torch.profiler), and run (d)'s
             tokens/s, TTFT and inter-token p50/p99, beside the card's
             name and power limit.
+17. fleet:  run right after phase 16 (``phase_fleet``), full-width
+            Inception-BN and the long-context LM on the one card through
+            ``main.run`` (``task = serve serve_replicas = 2``; both
+            replicas on ``cuda:0``, each dispatching from its own thread
+            on the default stream). (a) Rounds A and B (numpy weights
+            from two seeds, ``write_round``); open-loop ``/predict``
+            clients (``raw = 1``, sizes FLEET_SIZES from 1 to 32, rows
+            on a 1/8 grid of N(0, 1), FLEET_RATE a second for
+            FLEET_LOAD_S) against one engine, then against the fleet
+            (``serve_reload_s``) while round B lands in ``model_dir``
+            at half time: no request fails, one sweep, both replicas on
+            r0002, every answer within FLEET_ROW_TOL rel L2 of a single
+            engine's on round A or B (and nearer it than the other by
+            FLEET_SEP; a control, B's params with A's BN state, must
+            read over FLEET_ROW_TOL), every request sent after the sweep
+            on B, and ``pool_fwd`` / ``epilogue_fwd`` launched a
+            forward's worth for each forward of each replica;
+            closed-loop in-process load (FLEET_CLIENTS, FLEET_CLOSED_S)
+            on both; printed: answers/s and latency of the fleet and the
+            engine, and the latency of requests in flight during the
+            sweep against the rest, each with the count of requests
+            behind it (a p99 only over P99_MIN_N or more). (b) ``serve_ab = 1``, one canary: after the canary
+            reload, ``X-Model-Version`` pins answer from their rounds,
+            r0042 gets 400, ``/statz`` ``versions`` holds both,
+            ``promote()`` brings both replicas to B. (c) ``serve_dtype =
+            int8`` over round A quantized over served rows: 70 ``q_mm`` a
+            forward on both replicas, the replicas' dispatches run at
+            once bit-equal to serial ones (``split_scratch`` on one
+            stream), a plain round landing refused once (no drain, both
+            replicas up on r0001-int8), int8 against float32 within
+            INT8_VS_FP. (d) Phase 7's LM round quantized by the quant
+            CLI over its ``synthetic_lm`` section (the prompts'
+            distribution) and served int8 by two replicas with an LM
+            plane each (``attach_lm``): concurrent decodes of the two
+            bit-equal to serial ones; the f32 logits of a prefill chunk
+            a row and a decode step over 8 rows (the ``lm_head`` through
+            ``q_mm`` at M 128 and 8, every launch of the pipelined
+            variant) within LMF_STEP_TOL of the same steps with
+            ``fused_kernels = 0``; streamed ``/generate`` clients
+            (LMF_PROMPTS) across ``set_lm_role(0, "prefill", peer=...)``
+            all equal to ``generate_whole``, the second wave handed off;
+            one ``q_mm`` launch every LM step (prefill chunk and decode
+            step, the ``lm_head`` at M 128 and 8); int8 and bf16 greedy
+            tokens equal over the leading steps where bf16's margin
+            clears LMF_MARGIN, and, teacher-forced on bf16's tokens,
+            int8's greedy token equal on every step where bf16's
+            log-prob margin exceeds LMS_MARGIN; a reload of the decode replica with two
+            live sequences swaps only once they finished (the
+            ``live_count`` probe), and the KV pools are empty after.
+            Printed: the int8 decode step at 8 live rows (ms, launches,
+            profile) beside phase 16's bf16 one.
 
 Then, on lines of their own: the card's name and power limit as
 ``nvidia-smi`` reports them, the kernels JSON line, and last
@@ -1508,9 +1559,11 @@ def random_round(net, seed: int):
     return params, state
 
 
-def write_round(conf: str, seed: int, out_dir: str, device) -> str:
+def write_round(conf: str, seed: int, out_dir: str, device,
+                round_counter: int = 1) -> str:
     """Random weights, BN statistics calibrated with the port's plain
-    forward on one seeded batch, written as ``0001.model``."""
+    forward on one seeded batch, written as round ``round_counter``
+    (``0001.model`` by default)."""
     from cxxnet_tpu_torch import checkpoint as ckpt
     from cxxnet_tpu_torch.config import parse_config_file, split_sections
     from cxxnet_tpu_torch.convert import params_from_jax, params_to_jax
@@ -1525,10 +1578,10 @@ def write_round(conf: str, seed: int, out_dir: str, device) -> str:
     calib = torch.from_numpy(np.random.RandomState(seed + 1).randn(
         16, y, x, c).astype(np.float32)).to(device)
     state = params_to_jax({}, calibrate_bn(net, calib))[1]
-    path = os.path.join(out_dir, "0001.model")
+    path = ckpt.model_path(out_dir, round_counter)
     ckpt.save_model(path, structure_sig=graph.structure_signature(),
-                    round_counter=1, epoch_counter=0, params=params,
-                    net_state=state)
+                    round_counter=round_counter, epoch_counter=0,
+                    params=params, net_state=state)
     return path
 
 
@@ -1544,19 +1597,10 @@ def _get(url: str):
         return json.loads(r.read())
 
 
-def phase_serve(conf: str, seed: int, model_path: str, extra=()):
-    """Serve the round through ``main.run`` on a thread; returns
-    (engine, launches, requests' rows and answers, statz)."""
-    from cxxnet_tpu_torch.config import parse_cli_overrides, parse_config_file
+def start_serve(cfg):
+    """``main.run(cfg)`` on a thread; returns (server, thread) once it
+    listens."""
     from cxxnet_tpu_torch.main import run
-    from cxxnet_tpu_torch.ops import KERNELS, reset_launches
-    cfg = parse_config_file(conf) + parse_cli_overrides(
-        ["task=serve", f"model_in={model_path}", "serve_port=0",
-         f"serve_buckets={','.join(map(str, BUCKETS))}",
-         f"serve_max_batch={BUCKETS[-1]}", "serve_max_latency_ms=2",
-         *extra])
-    c, y, x = [int(v) for v in dict(cfg)["input_shape"].split(",")]
-    rs = np.random.RandomState(seed + 2)
     ready = threading.Event()
     box = {}
 
@@ -1570,15 +1614,36 @@ def phase_serve(conf: str, seed: int, model_path: str, extra=()):
         except BaseException as e:          # reported by the main thread
             box["error"] = e
             ready.set()
-
-    reset_launches()
     t = threading.Thread(target=target, name="serve-main", daemon=True)
     t.start()
     if not ready.wait(timeout=600):
         raise TimeoutError("server did not come up within 600 s")
     if "error" in box:
         raise RuntimeError("task=serve failed") from box["error"]
-    srv = box["srv"]
+    return box["srv"], t
+
+
+def stop_serve(srv, t) -> None:
+    srv.stop()
+    t.join(timeout=60)
+    if t.is_alive():
+        raise RuntimeError("task=serve did not return after stop()")
+
+
+def phase_serve(conf: str, seed: int, model_path: str, extra=()):
+    """Serve the round through ``main.run`` on a thread; returns
+    (engine, launches, requests' rows and answers, statz)."""
+    from cxxnet_tpu_torch.config import parse_cli_overrides, parse_config_file
+    from cxxnet_tpu_torch.ops import KERNELS, reset_launches
+    cfg = parse_config_file(conf) + parse_cli_overrides(
+        ["task=serve", f"model_in={model_path}", "serve_port=0",
+         f"serve_buckets={','.join(map(str, BUCKETS))}",
+         f"serve_max_batch={BUCKETS[-1]}", "serve_max_latency_ms=2",
+         *extra])
+    c, y, x = [int(v) for v in dict(cfg)["input_shape"].split(",")]
+    rs = np.random.RandomState(seed + 2)
+    reset_launches()
+    srv, t = start_serve(cfg)
     base = f"http://127.0.0.1:{srv.port}"
     answers = []
     try:
@@ -1592,11 +1657,8 @@ def phase_serve(conf: str, seed: int, model_path: str, extra=()):
         health = _get(base + "/healthz")
         statz = _get(base + "/statz")
     finally:
-        srv.stop()
-        t.join(timeout=60)
+        stop_serve(srv, t)
     launches = {k.name: k.launches for k in KERNELS.values()}
-    if t.is_alive():
-        raise RuntimeError("task=serve did not return after stop()")
     if health.get("status") != "ok":
         raise AssertionError(f"/healthz: {health}")
     if statz["requests"]["ok"] != len(answers) + 1:
@@ -3859,7 +3921,9 @@ def phase_digits(seed: int, tmp: str) -> dict:
 
 #: q_mm cases of phase 10 at the int8 serve paths' shapes (and odd ones):
 #: name -> (M, K, N per group, groups, all codes at +-127, K padded to a
-#: multiple of 16 with zero columns as the int8 conv pads it)
+#: multiple of 16 with zero columns as the int8 conv pads it). The
+#: "lm_head" cases are the int8 long-context LM's head (seqfc, K 128,
+#: N 64) in a decode step of 8 rows and a prefill chunk of 128
 Q_MM_CASES = {
     "fc1 b1": (1, 1024, 1000, 1, False, False),
     "fc1 b8": (8, 1024, 1000, 1, False, False),
@@ -3872,6 +3936,8 @@ Q_MM_CASES = {
     "fc6 b1": (1, 9216, 4096, 1, False, False),
     "fc6 b32": (32, 9216, 4096, 1, False, False),
     "fc7 b32": (32, 4096, 4096, 1, False, False),
+    "lm_head decode": (8, 128, 64, 1, False, False),
+    "lm_head prefill": (128, 128, 64, 1, False, False),
     "K 4112 split": (8, 4112, 512, 1, False, False),
     "odd": (7, 13, 5, 1, False, False),
     "K4096 +-127": (5, 4096, 3, 1, True, False),
@@ -3893,6 +3959,13 @@ Q_MM_PER_FORWARD = {"inception_bn": 70, "alexnet": 8}
 #: act_scale/127 * |w| (2e-3 at random weights), a probability by less
 #: than 5e-4; the bound is twice that
 INT8_ROW_ATOL = 1e-3
+#: int8 against float32, rel L2 of the served softmax rows, on the round
+#: quantized over rows drawn as the served ones: the bound sits between
+#: the sound reading (0.1119 on the H100; 0.109 at full width on the
+#: CPU, in both packages) and the control's, the same round quantized
+#: over the synthetic iterator's cluster rows (11.21), which must read
+#: over it (PERF.md section 6)
+INT8_VS_FP = 0.5
 
 
 def _codes(shape, gen, extreme):
@@ -3980,8 +4053,9 @@ def write_conf(path: str, pairs) -> str:
 def quantize_round(conf: str, model: str, seed: int, tmp: str, tag: str,
                    image: str, batch: int = BUCKETS[-1]) -> tuple:
     """The round ``model`` quantized by ``python -m cxxnet_tpu_torch.quant``'s
-    ``main()`` over 2 synthetic batches of ``batch`` from ``seed``; returns
-    (path, exit code, the drift verdict line)."""
+    ``main()`` over 2 synthetic batches of ``batch`` from ``seed`` (cluster
+    rows, another distribution than the served one: phase 10's control);
+    returns (path, exit code, the drift verdict line)."""
     import contextlib
     import io
     from cxxnet_tpu_torch.quant.__main__ import main as quant_main
@@ -3995,6 +4069,40 @@ def quantize_round(conf: str, model: str, seed: int, tmp: str, tag: str,
     if rc not in (0, 2) or not lines or "quant drift" not in lines[-1]:
         raise AssertionError(f"quantize {tag}: exit {rc}, output {lines[-3:]}")
     return out, rc, lines[-1]
+
+
+def served_rows(seed: int, n: int, width: int) -> np.ndarray:
+    """``n`` flat request rows of N(0, 1), NCHW order: how phase 4 and
+    the fleet phase draw what they serve."""
+    return np.random.RandomState(seed).randn(n, width).astype(np.float32)
+
+
+def quantize_served(conf: str, model: str, seed: int, out: str,
+                    batch: int = BUCKETS[-1], batches: int = 2) -> tuple:
+    """The round ``model`` quantized by the port's PTQ
+    (``quant.quantize_blob``) over ``batches`` batches of ``batch`` rows
+    drawn as the served rows are (N(0, 1), from ``seed + 3``), written to
+    ``out``; returns (out, the drift verdict line). The round's BN
+    statistics come from such rows too (``write_round``), so the act
+    scales cover what is served."""
+    from cxxnet_tpu_torch import checkpoint as ckpt
+    from cxxnet_tpu_torch.config import parse_quant_config
+    from cxxnet_tpu_torch.graph import build_graph
+    from cxxnet_tpu_torch.model import Network
+    from cxxnet_tpu_torch.quant import (drift_verdict, quantize_blob,
+                                        write_quantized_round)
+    cfg = _serve_cfg(conf, [])
+    graph = build_graph(cfg)
+    net = Network(graph, cfg, device=torch.device("cuda"))
+    c, y, x = graph.input_shape
+    rows = served_rows(seed + 3, batch * batches, c * y * x)
+    calib = [r.reshape(batch, c, y, x).transpose(0, 2, 3, 1).copy()
+             for r in np.split(rows, batches)]
+    qc = parse_quant_config([("quant_calib_batches", str(batches))])
+    qblob, qm = quantize_blob(net, ckpt.load_for_inference(model), calib, qc)
+    write_quantized_round(out, graph.structure_signature(), qblob, qm)
+    del net
+    return out, drift_verdict(qm, qc.max_rel_err, qc.max_sat_frac)["line"]
 
 
 def _int8_vs_fp(got, want):
@@ -4016,10 +4124,13 @@ def phase_int8(conf: str, seed: int, tmp: str, bf16_forward) -> dict:
     dev = torch.device("cuda")
     reset_q_mm_variants()
     model = write_round(conf, seed, tmp, dev)
-    qpath, rc, drift = quantize_round(conf, model, seed, tmp, "ibn",
-                                      TRAIN_IMAGE)
-    print(f"int8: Inception-BN round quantized by cxxnet_tpu_torch.quant "
-          f"(exit {rc}): {drift}", flush=True)
+    qpath, drift = quantize_served(conf, model, seed,
+                                   os.path.join(tmp, "ibn-int8.model"))
+    cpath, rc, cdrift = quantize_round(conf, model, seed, tmp, "control",
+                                       TRAIN_IMAGE)
+    print(f"int8: Inception-BN round quantized over served rows: {drift} | "
+          f"the control, over synthetic cluster rows by "
+          f"cxxnet_tpu_torch.quant (exit {rc}): {cdrift}", flush=True)
     engine, launches, answers, statz = phase_serve(
         conf, seed, qpath, extra=("serve_dtype=int8",))
     forwards = launches["pool_fwd"]
@@ -4041,22 +4152,35 @@ def phase_int8(conf: str, seed: int, tmp: str, bf16_forward) -> dict:
     fp = InferenceEngine.from_checkpoint(_serve_cfg(conf, []), model,
                                          dtype="float32", **serve_cfg)
     got = np.concatenate([a for _, raw, a in answers if raw])
-    want = fp.predict_raw(np.concatenate([r for r, raw, _ in answers if raw]))
+    raw_rows = np.concatenate([r for r, raw, _ in answers if raw])
+    want = fp.predict_raw(raw_rows)
     del fp
     rel, top1, pmax, pmax_fp = _int8_vs_fp(got, want)
+    ctl = InferenceEngine.from_checkpoint(_serve_cfg(conf, []), cpath,
+                                          dtype="int8", **serve_cfg)
+    crel, ctop1, cpmax, _ = _int8_vs_fp(ctl.predict_raw(raw_rows), want)
+    del ctl
+    if not rel <= INT8_VS_FP < crel:
+        raise AssertionError(
+            f"int8 vs fp32: rel L2 {rel:.4g} (served-row calibration) and "
+            f"{crel:.4g} (control) do not straddle {INT8_VS_FP}")
     notes["inception_bn"] = {"launches_q_mm": launches["q_mm"],
                              "q_mm_variants": variants,
                              "forwards": forwards, "vs_plain": worst,
                              "int8_vs_fp32_rel_l2": rel, "top1_agree": top1,
-                             "top_prob": (pmax, pmax_fp), "drift": drift}
+                             "top_prob": (pmax, pmax_fp), "drift": drift,
+                             "control_rel_l2": crel, "control_top1": ctop1,
+                             "control_drift": cdrift}
     print(f"int8: Inception-BN served over HTTP by main.run "
           f"(serve_dtype=int8, version {statz['version']}) | q_mm "
           f"{launches['q_mm']} launches in {forwards} forwards ({per} each) "
           f"| variants {variants} | vs fused_kernels=0: max prob diff "
           f"{worst:.3g} (atol "
-          f"{INT8_ROW_ATOL}) | int8 vs fp32 (random weights, not gated): "
-          f"rel L2 {rel:.3g}, top-1 agree {top1:.3f}, mean top prob "
-          f"{pmax:.3g} vs {pmax_fp:.3g}", flush=True)
+          f"{INT8_ROW_ATOL}) | int8 vs fp32 over {len(raw_rows)} served "
+          f"rows: rel L2 {rel:.4g} (bound {INT8_VS_FP}), top-1 agree "
+          f"{top1:.3f}, mean top prob {pmax:.3g} vs {pmax_fp:.3g}; the "
+          f"control reads rel L2 {crel:.4g}, top-1 agree {ctop1:.3f}, mean "
+          f"top prob {cpmax:.3g}", flush=True)
     net = engine.net
     c, y, x = net.graph.input_shape
     f32 = torch.float32
@@ -4085,14 +4209,13 @@ def phase_int8(conf: str, seed: int, tmp: str, bf16_forward) -> dict:
     adir = os.path.join(tmp, "alexnet")
     os.makedirs(adir, exist_ok=True)
     amodel = write_round(ALEXNET, seed, adir, dev)
-    aq, rc, adrift = quantize_round(ALEXNET, amodel, seed, tmp, "alexnet",
-                                    "3,227,227")
     b = BUCKETS[-1]
+    aq, adrift = quantize_served(ALEXNET, amodel, seed,
+                                 os.path.join(tmp, "alexnet-int8.model"))
     kw = dict(buckets=str(b), max_batch=b)
     eng = InferenceEngine.from_checkpoint(_serve_cfg(ALEXNET, []), aq,
                                           dtype="int8", **kw)
-    rows = np.random.RandomState(seed + 5).randn(
-        b, 3 * 227 * 227).astype(np.float32)
+    rows = served_rows(seed + 5, b, 3 * 227 * 227)
     reset_launches()
     reset_q_mm_variants()
     got = eng.predict_raw(rows)
@@ -4118,7 +4241,8 @@ def phase_int8(conf: str, seed: int, tmp: str, bf16_forward) -> dict:
                         "int8_vs_fp32_rel_l2": arel, "top1_agree": atop1,
                         "top_prob": (apmax, apmax_fp), "drift": adrift, "forward_ms": ams,
                         "forward_plain_ms": ams_plain}
-    print(f"int8: AlexNet quantized (exit {rc}: {adrift}) and run through "
+    print(f"int8: AlexNet quantized over served rows ({adrift}) and run "
+          f"through "
           f"the int8 engine at bucket {b} | launches {alaunch} | variants "
           f"{avariants} | vs "
           f"fused_kernels=0: max prob diff {aworst:.3g} | int8 vs fp32 (not "
@@ -4162,7 +4286,7 @@ def phase_int8_times(gen: torch.Generator) -> dict:
             continue
         m, k, n, g, _, _ = Q_MM_CASES[name]
         xq, wt, f, b, g = q_mm_case(gen, name)
-        act = "none" if name.startswith("fc1") else "relu"
+        act = "none" if name.startswith(("fc1", "lm_head")) else "relu"
         copies = max(2, -(-COLD_BYTES // wt.numel())) \
             if name.startswith("fc") else 0
         wts = [wt] + [wt.clone() for _ in range(copies - 1)]
@@ -6555,6 +6679,764 @@ def phase_lm_serve(seed: int, tmp: str, gen: torch.Generator,
     return notes
 
 
+# -- phase 17 -----------------------------------------------------------------
+
+#: (a): the open-loop clients' request sizes (rows), cycled; 1 to 32
+FLEET_SIZES = (1, 2, 1, 4, 1, 8, 3, 1, 16, 2, 1, 32)
+FLEET_RATE = 2.0            # (a): requests a second, open loop
+FLEET_LOAD_S = 10.0         # (a): seconds of load, for the fleet and alone
+FLEET_RELOAD_S = 0.5        # (a)-(c): serve_reload_s
+FLEET_CLIENTS = 8           # (a): closed-loop in-process clients
+FLEET_CLOSED_S = 4.0        # (a): seconds of the closed-loop load
+#: (a), (b): a fleet answer against the single engine's for the same
+#: rows on its round, rel L2 of each softmax row: read 0 on the H100
+#: (the bf16 forward is the same in every bucket; PERF.md section 6).
+#: The control, round B's params with round A's BN state (a swap that
+#: mixed a pair), must read over it against both rounds, and the two
+#: rounds' rows (0.561 apart) over twice it. An answer must also lie
+#: within FLEET_SEP of its distance to the other round's, so that it
+#: tells the rounds apart
+FLEET_ROW_TOL = 1e-3
+FLEET_SEP = 0.5
+LMF_PROMPTS = (8, 64, 512)  # (d): prompts, shortest, longest
+LMF_MARGIN = 0.02           # (d): bf16 margin of tests/test_quant.py's bar
+#: (d): the int8 LM's f32 logits of a prefill chunk and a decode step
+#: against the same step with fused_kernels = 0, of max(1, |logit|):
+#: q_mm is bit-equal to q_mm_plain and every other op of the step is the
+#: same, so the sound reading is 0
+LMF_STEP_TOL = 1e-5
+#: open-loop latency: the fewest requests behind a p99 (fewer print the
+#: largest instead)
+P99_MIN_N = 100
+
+
+def _post_bytes(url: str, body: bytes, box: dict, headers=None) -> None:
+    """One /predict client: its answer (or error) and its times."""
+    req = urllib.request.Request(url, data=body, headers={
+        "Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            box["prob"] = np.asarray(json.loads(r.read())["prob"],
+                                     np.float32)
+    except BaseException as e:              # reported by the caller
+        box["error"] = repr(e)
+    box["t_done"] = time.perf_counter()
+
+
+def open_loop(base: str, bodies, rate: float, duration: float,
+              on_half=None):
+    """Open-loop /predict load: request i (body ``i % len(bodies)``) sent
+    at ``i / rate`` s, each on a thread of its own, whatever the
+    answers' pace; ``on_half()`` runs at half time. Returns a box a
+    request: ``k`` (its body), ``t_send``, ``t_done``, ``prob`` or
+    ``error``."""
+    boxes, threads = [], []
+    t0 = time.perf_counter()
+    half_done = on_half is None
+    i = 0
+    while i / rate < duration:
+        now = time.perf_counter() - t0
+        if not half_done and now >= duration / 2:
+            on_half()
+            half_done = True
+        if now < i / rate:
+            time.sleep(min(i / rate - now, 0.05))
+            continue
+        box = {"k": i % len(bodies), "t_send": time.perf_counter()}
+        th = threading.Thread(target=_post_bytes, daemon=True, args=(
+            base + "/predict", bodies[box["k"]], box))
+        th.start()
+        boxes.append(box)
+        threads.append(th)
+        i += 1
+    for th in threads:
+        th.join(timeout=300)
+    return boxes
+
+
+def closed_loop(submit, rows, clients: int, seconds: float) -> dict:
+    """``clients`` threads each submitting the next of ``rows`` and
+    waiting for its answer, for ``seconds``: answers/s, rows/s and the
+    latency line (:func:`_lat_line`)."""
+    lat, n_rows, stop = [], [0], threading.Event()
+    lock = threading.Lock()
+
+    def client(c):
+        j = c
+        while not stop.is_set():
+            x = rows[j % len(rows)]
+            t = time.perf_counter()
+            submit(x).result(timeout=300)
+            with lock:
+                lat.append(1e3 * (time.perf_counter() - t))
+                n_rows[0] += x.shape[0]
+            j += 1
+    ts = [threading.Thread(target=client, args=(c,), daemon=True)
+          for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    time.sleep(seconds)
+    stop.set()
+    for t in ts:
+        t.join(timeout=300)
+    took = time.perf_counter() - t0
+    return {"answers_per_s": len(lat) / took, "rows_per_s": n_rows[0] / took,
+            "latency": _lat_line(lat)}
+
+
+def land(src: str, model_dir: str, r: int) -> str:
+    """Copy round file ``src`` into ``model_dir`` as round ``r`` the way a
+    trainer's writer publishes one: whole, by a rename."""
+    from cxxnet_tpu_torch import checkpoint as ckpt
+    dst = ckpt.model_path(model_dir, r)
+    part = os.path.join(os.path.dirname(model_dir), f"landing-{r}")
+    shutil.copy(src, part)
+    os.replace(part, dst)
+    return dst
+
+
+def _row_rel(got, want) -> np.ndarray:
+    return np.linalg.norm(got - want, axis=1) / np.linalg.norm(want, axis=1)
+
+
+def _lat_line(v) -> str:
+    """p50 and p99 of ``v`` (ms) and how many values stand behind them;
+    under P99_MIN_N values the largest instead of the p99."""
+    if not len(v):
+        return "none"
+    tail = (f"p99 {np.percentile(v, 99):.1f} ms" if len(v) >= P99_MIN_N
+            else f"max {np.max(v):.1f} ms")
+    return f"p50 {np.percentile(v, 50):.1f} ms, {tail} over {len(v)}"
+
+
+def _count_calls(obj, name: str, counter: list) -> None:
+    """Wrap ``obj.name`` so that each call adds one to ``counter[0]``."""
+    fn = getattr(obj, name)
+
+    def counted(*a, **k):
+        counter[0] += 1
+        return fn(*a, **k)
+    setattr(obj, name, counted)
+
+
+def fleet_reload(conf: str, seed: int, fdir: str, dev) -> dict:
+    """(a): the open-loop load on one engine, then on a 2-replica fleet
+    through which a new round sweeps mid-run; closed-loop in-process
+    load on both. Returns the readings and the rounds' paths."""
+    from cxxnet_tpu_torch import checkpoint as ckpt
+    from cxxnet_tpu_torch.ops import KERNELS, reset_launches
+    from cxxnet_tpu_torch.serve import InferenceEngine
+    models, stage = os.path.join(fdir, "models"), os.path.join(fdir, "stage")
+    os.makedirs(models)
+    os.makedirs(stage)
+    ra = write_round(conf, seed + 40, models, dev, round_counter=1)
+    rb = write_round(conf, seed + 41, stage, dev, round_counter=2)
+    c, y, x = [int(v) for v in
+               dict(_serve_cfg(conf, []))["input_shape"].split(",")]
+    rows = [np.round(served_rows(seed + 50 + k, n, c * y * x) * 8) / 8
+            for k, n in enumerate(FLEET_SIZES)]
+    rows = [r.astype(np.float32) for r in rows]
+    bodies = [json.dumps({"data": r.tolist(), "raw": 1}).encode()
+              for r in rows]
+    kw = dict(buckets=",".join(map(str, BUCKETS)), max_batch=BUCKETS[-1])
+    refs = {}
+    for tag, path in (("a", ra), ("b", rb)):
+        eng = InferenceEngine.from_checkpoint(_serve_cfg(conf, []), path, **kw)
+        refs[tag] = [eng.predict_raw(r) for r in rows]
+    # the control: round B's params with round A's BN state
+    eng.swap_weights(ckpt.load_for_inference(rb)["params"],
+                     ckpt.load_for_inference(ra)["state"], 99)
+    mixed = min(float(np.minimum(_row_rel(m, a), _row_rel(m, b)).min())
+                for m, a, b in zip([eng.predict_raw(r) for r in rows],
+                                   refs["a"], refs["b"]))
+    del eng
+    apart = min(float(_row_rel(a, b).min())
+                for a, b in zip(refs["a"], refs["b"]))
+    if apart < 2 * FLEET_ROW_TOL or not mixed > FLEET_ROW_TOL:
+        raise AssertionError(f"rounds A and B answer too alike ({apart}), "
+                             f"or the control (B's params, A's BN state) "
+                             f"reads {mixed} <= {FLEET_ROW_TOL}")
+    base_over = ["task=serve", f"model_in={ra}", "serve_port=0",
+                 f"serve_buckets={','.join(map(str, BUCKETS))}",
+                 f"serve_max_batch={BUCKETS[-1]}", "serve_max_latency_ms=2",
+                 "silent=1"]
+    out = {"rows": [r.shape[0] for r in rows], "apart": apart,
+           "control": mixed}
+    # one engine under the load
+    srv, t = start_serve(_serve_cfg(conf, base_over))
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        t0 = time.perf_counter()
+        one = open_loop(base, bodies, FLEET_RATE, FLEET_LOAD_S)
+        one_s = time.perf_counter() - t0
+        one_closed = closed_loop(lambda r: srv.submit(r, "raw"), rows,
+                                 FLEET_CLIENTS, FLEET_CLOSED_S)
+    finally:
+        stop_serve(srv, t)
+    # the fleet under the same load, the sweep to round B at half time
+    srv, t = start_serve(_serve_cfg(conf, base_over + [
+        "serve_replicas=2", f"serve_reload_s={FLEET_RELOAD_S}",
+        f"model_dir={models}"]))
+    pool, watcher = srv.pool, srv.reload_watcher
+    sweep, fwd = [], [[0] for _ in pool.replicas]
+    reload_replica = pool.reload_replica
+
+    def timed_reload(*a, **k):
+        t_start = time.perf_counter()
+        try:
+            return reload_replica(*a, **k)
+        finally:
+            sweep.append((t_start, time.perf_counter()))
+    pool.reload_replica = timed_reload
+    for rep, n in zip(pool.replicas, fwd):
+        _count_calls(rep.engine, "run_padded", n)
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        reset_launches()
+        t0 = time.perf_counter()
+        boxes = open_loop(base, bodies, FLEET_RATE, FLEET_LOAD_S,
+                          on_half=lambda: os.replace(
+                              rb, os.path.join(models, "0002.model")))
+        fleet_s = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in KERNELS.values()}
+        n_fwd = [n[0] for n in fwd]
+        for _ in range(200):
+            if watcher.reloads:
+                break
+            time.sleep(0.05)
+        statz = _get(base + "/statz")
+        fleet_closed = closed_loop(lambda r: srv.submit(r, "raw"), rows,
+                                   FLEET_CLIENTS, FLEET_CLOSED_S)
+    finally:
+        stop_serve(srv, t)
+    # one forward's launches of each serve kernel
+    eng = InferenceEngine.from_checkpoint(_serve_cfg(conf, []), ra, **kw)
+    reset_launches()
+    eng.predict_raw(rows[0])
+    torch.cuda.synchronize()
+    per = {k: KERNELS[k].launches for k in SERVE_KERNELS}
+    del eng
+    fails = [b for b in boxes + one if "error" in b]
+    if fails:
+        raise AssertionError(f"(a) requests failed: {fails[:3]}")
+    versions = [r["version"] for r in statz["replicas"]]
+    if watcher.reloads != 1 or len(sweep) != 2 or versions != ["r0002"] * 2:
+        raise AssertionError(f"(a) sweeps {watcher.reloads}, replica "
+                             f"reloads {len(sweep)}, versions {versions}")
+    s0, s1 = sweep[0][0], sweep[-1][1]
+    bad, late_bad, worst = [], [], 0.0
+    for b in boxes:
+        ea = _row_rel(b["prob"], refs["a"][b["k"]])
+        eb = _row_rel(b["prob"], refs["b"][b["k"]])
+        own = np.minimum(ea, eb)
+        worst = max(worst, float(own.max()))
+        if (own > FLEET_ROW_TOL).any() or \
+                (own > FLEET_SEP * np.maximum(ea, eb)).any():
+            bad.append((b["k"], float(ea.max()), float(eb.max())))
+        if b["t_send"] > s1 and not (eb < FLEET_SEP * ea).all():
+            late_bad.append((b["k"], float(eb.max())))
+        b["lat"] = 1e3 * (b["t_done"] - b["t_send"])
+    want_l = {k: per[k] * sum(n_fwd) for k in SERVE_KERNELS}
+    got_l = {k: launches[k] for k in SERVE_KERNELS}
+    if bad or late_bad or min(n_fwd) == 0 or got_l != want_l \
+            or 0 in per.values():
+        raise AssertionError(
+            f"(a) answers on neither round {bad[:3]}; after the sweep not "
+            f"on round B {late_bad[:3]}; forwards by replica {n_fwd}; "
+            f"launches {got_l}, want {want_l} ({per} a forward)")
+    during = [b["lat"] for b in boxes
+              if b["t_done"] >= s0 and b["t_send"] <= s1]
+    outside = [b["lat"] for b in boxes
+               if not (b["t_done"] >= s0 and b["t_send"] <= s1)]
+    lat_one = [1e3 * (b["t_done"] - b["t_send"]) for b in one]
+    lat_fleet = [b["lat"] for b in boxes]
+    out.update(
+        requests=len(boxes), after_sweep=sum(b["t_send"] > s1
+                                             for b in boxes),
+        sweep_s=s1 - s0, forwards=n_fwd, launches=got_l, worst=worst,
+        one={"answers_per_s": len(one) / one_s,
+             "rows_per_s": sum(rows[b["k"]].shape[0] for b in one) / one_s,
+             "p50_ms": float(np.percentile(lat_one, 50)),
+             "latency": _lat_line(lat_one), "closed": one_closed},
+        fleet={"answers_per_s": len(boxes) / fleet_s,
+               "rows_per_s": sum(rows[b["k"]].shape[0]
+                                 for b in boxes) / fleet_s,
+               "p50_ms": float(np.percentile(lat_fleet, 50)),
+               "latency": _lat_line(lat_fleet), "closed": fleet_closed},
+        during_sweep=_lat_line(during), outside_sweep=_lat_line(outside),
+        ra=ra, rb=os.path.join(models, "0002.model"), bodies=bodies,
+        rows_data=rows, refs=refs)
+    return out
+
+
+def fleet_ab(conf: str, a: dict, fdir: str) -> dict:
+    """(b): A/B with one canary replica: pins route to their round, an
+    unknown pin is refused, ``promote()`` rolls the other replica."""
+    models = os.path.join(fdir, "ab")
+    os.makedirs(models)
+    land(a["ra"], models, 1)
+    srv, t = start_serve(_serve_cfg(conf, [
+        "task=serve", f"model_in={a['ra']}", "serve_port=0",
+        f"serve_buckets={','.join(map(str, BUCKETS))}",
+        f"serve_max_batch={BUCKETS[-1]}", "serve_replicas=2",
+        f"serve_reload_s={FLEET_RELOAD_S}", "serve_ab=1",
+        "serve_ab_replicas=1", f"model_dir={models}", "silent=1"]))
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        land(a["rb"], models, 2)
+        for _ in range(200):
+            if srv.reload_watcher.reloads:
+                break
+            time.sleep(0.05)
+        split = [r.version for r in srv.pool.replicas]
+        worst = 0.0
+        for k in range(4):
+            for ver, tag in (("r0002", "b"), ("r0001", "a")):
+                box = {}
+                _post_bytes(base + "/predict", a["bodies"][k], box,
+                            {"X-Model-Version": ver})
+                if "error" in box:
+                    raise AssertionError(f"(b) pin {ver}: {box['error']}")
+                own = _row_rel(box["prob"], a["refs"][tag][k])
+                other = _row_rel(box["prob"],
+                                 a["refs"]["a" if tag == "b" else "b"][k])
+                if (own > FLEET_SEP * other).any():
+                    raise AssertionError(f"(b) pin {ver} answered nearer "
+                                         f"the other round")
+                worst = max(worst, float(own.max()))
+        box = {}
+        _post_bytes(base + "/predict", a["bodies"][0], box,
+                    {"X-Model-Version": "r0042"})
+        unknown = box.get("error", "answered")
+        statz = _get(base + "/statz")
+        promoted = srv.reload_watcher.promote()
+        after = [r.version for r in srv.pool.replicas]
+    finally:
+        stop_serve(srv, t)
+    if split != ["r0002", "r0001"] or worst > FLEET_ROW_TOL \
+            or "400" not in unknown or set(statz["versions"]) \
+            != {"r0001", "r0002"} or not promoted or after != ["r0002"] * 2:
+        raise AssertionError(
+            f"(b) canary split {split}, pinned answers {worst:.3g} from "
+            f"their rounds, unknown pin {unknown!r}, /statz versions "
+            f"{sorted(statz['versions'])}, promoted {promoted} to {after}")
+    return {"split": split, "pinned_worst": worst,
+            "versions": statz["versions"], "promoted": after}
+
+
+def fleet_int8(conf: str, seed: int, a: dict, fdir: str) -> dict:
+    """(c): an int8 fleet: q_mm on both replicas, concurrent dispatches
+    bit-equal to serial ones, a plain round refused once, int8 against
+    float32 gated."""
+    from cxxnet_tpu_torch.ops import KERNELS, reset_launches
+    from cxxnet_tpu_torch.serve import InferenceEngine
+    models = os.path.join(fdir, "int8")
+    os.makedirs(models)
+    qpath, drift = quantize_served(conf, a["ra"], seed + 40,
+                                   os.path.join(models, "0001.model"))
+    srv, t = start_serve(_serve_cfg(conf, [
+        "task=serve", f"model_in={qpath}", "serve_port=0",
+        f"serve_buckets={','.join(map(str, BUCKETS))}",
+        f"serve_max_batch={BUCKETS[-1]}", "serve_replicas=2",
+        "serve_dtype=int8", f"serve_reload_s={FLEET_RELOAD_S}",
+        f"model_dir={models}", "silent=1"]))
+    pool = srv.pool
+    fwd, reloads = [[0] for _ in pool.replicas], [0]
+    for rep, n in zip(pool.replicas, fwd):
+        _count_calls(rep.engine, "run_padded", n)
+    _count_calls(pool, "reload_replica", reloads)
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        reqs = [a["rows_data"][k] for k in (0, 5, 11)]     # 1, 8, 32 rows
+        reset_launches()
+        http = []
+        for k in (0, 1, 3, 5):
+            box = {}
+            _post_bytes(base + "/predict", a["bodies"][k], box)
+            http.append(box)
+        q_mm, n_fwd = KERNELS["q_mm"].launches, [n[0] for n in fwd]
+        engs = [r.engine for r in pool.replicas]
+        serial = [[e.predict_raw(x) for x in reqs] for e in engs]
+        outs = [[] for _ in engs]
+        go = threading.Barrier(len(engs))
+
+        def hammer(i):
+            go.wait()
+            for _ in range(3):
+                outs[i].append([engs[i].predict_raw(x) for x in reqs])
+        ts = [threading.Thread(target=hammer, args=(i,))
+              for i in range(len(engs))]
+        for th in ts:
+            th.start()
+        for th in ts:
+            th.join(timeout=300)
+        concurrent_equal = all(
+            np.array_equal(g, w) for per in outs for got in per
+            for g, w in zip(got, serial[0]))
+        # a plain round lands: refused once, before any drain
+        land(a["rb"], models, 2)
+        time.sleep(4 * FLEET_RELOAD_S)
+        refused = dict(srv.reload_watcher.snapshot(),
+                       refusals=srv.reload_watcher.refusals)
+        still = [(r.version, r.state) for r in pool.replicas]
+        again = engs[0].predict_raw(reqs[1])
+    finally:
+        stop_serve(srv, t)
+    fp = InferenceEngine.from_checkpoint(_serve_cfg(conf, []), a["ra"],
+                                         dtype="float32",
+                                         buckets=",".join(map(str, BUCKETS)),
+                                         max_batch=BUCKETS[-1])
+    rel = float(np.linalg.norm(serial[0][2] - fp.predict_raw(reqs[2]))
+                / np.linalg.norm(fp.predict_raw(reqs[2])))
+    del fp
+    per = Q_MM_PER_FORWARD["inception_bn"]
+    fails = [b["error"] for b in http if "error" in b]
+    if fails or min(n_fwd) == 0 or q_mm != per * sum(n_fwd):
+        raise AssertionError(f"(c) failures {fails}; forwards by replica "
+                             f"{n_fwd}; q_mm {q_mm}, want {per} a forward")
+    if not all(np.array_equal(g, w) for g, w in zip(serial[1], serial[0])):
+        raise AssertionError("(c) the two replicas answer apart serially")
+    if not concurrent_equal:
+        raise AssertionError("(c) concurrent int8 dispatches differ from "
+                             "serial ones")
+    if refused["refusals"] != 1 or reloads[0] != 0 or "not quantized" \
+            not in refused["last_error"] or still != [("r0001-int8", "up")] \
+            * 2 or not np.array_equal(again, serial[0][1]):
+        raise AssertionError(f"(c) plain round: {refused}, replica reloads "
+                             f"{reloads[0]}, replicas {still}")
+    if not rel <= INT8_VS_FP:
+        raise AssertionError(f"(c) int8 vs fp32 rel L2 {rel:.4g} > "
+                             f"{INT8_VS_FP}")
+    return {"drift": drift, "forwards": n_fwd, "q_mm": q_mm,
+            "concurrent_equal": True, "refused": refused["last_error"],
+            "int8_vs_fp32_rel_l2": rel}
+
+
+def lm_step_readings(kern, plain, prompts) -> tuple:
+    """The f32 logits of ``kern`` (an int8 LMEngine with the kernels)
+    against ``plain`` (the same round with fused_kernels = 0) from the
+    same prompts: one prefill chunk a row (the head at M = chunk), then
+    one decode step over every row (M = max_seqs). Returns the worst of
+    each, of max(1, |logit|)."""
+    lasts = []
+    for e in (kern, plain):
+        B, C, T = e.max_seqs, e.chunk, e.T
+        # the blocks a chunk and one token take, the rest of each table
+        # on the scratch block
+        need = e.block_pool.blocks_for_tokens(C + 1)
+        blocks = e.block_pool.alloc(B * need, seq_id=-4)
+        tables = np.zeros((B, T), np.int64)
+        tables[:, :need] = np.asarray(blocks).reshape(B, need)
+        pre, n_real = [], []
+        for b in range(B):
+            p = prompts[b % len(prompts)][:C]
+            ids = np.zeros((1, C), np.int64)
+            ids[0, :p.size] = p
+            pre.append(e.step(ids, np.arange(C)[None, :], tables[b:b + 1],
+                              [p.size], [p.size - 1])[1])
+            n_real.append(p.size)
+        pre = torch.cat(pre)
+        n_real = np.asarray(n_real)
+        _, dec = e.step(pre.argmax(-1).cpu().numpy()[:, None],
+                        n_real[:, None], tables, n_real + 1,
+                        np.zeros((B,), np.int64))
+        torch.cuda.synchronize()
+        e.block_pool.free(blocks)
+        lasts.append((pre, dec))
+
+    def err(got, want):
+        return float(((got - want).abs()
+                      / want.abs().clamp(min=1.0)).max())
+    return (err(lasts[0][0], lasts[1][0]), err(lasts[0][1], lasts[1][1]))
+
+
+def fleet_lm(seed: int, tmp: str, fdir: str, lm_serve: dict) -> dict:
+    """(d): the LM phase's round quantized and served int8 by a 2-replica
+    pool with an LM plane each, split into prefill and decode under
+    streamed load; a reload that waits for live sequences."""
+    import contextlib
+    import io
+    from cxxnet_tpu_torch import checkpoint as ckpt
+    from cxxnet_tpu_torch.config import parse_lm_serve_config
+    from cxxnet_tpu_torch.ops import KERNELS, reset_launches
+    from cxxnet_tpu_torch.ops.fused_quant import reset_q_mm_variants
+    from cxxnet_tpu_torch.quant.__main__ import main as quant_main
+    from cxxnet_tpu_torch.serve import InferenceEngine
+    from cxxnet_tpu_torch.serve.lm import LMEngine
+    ldir = os.path.join(fdir, "lm")
+    os.makedirs(ldir)
+    src = ckpt.model_path(os.path.join(tmp, "lm"), 0)
+    calib = write_conf(os.path.join(ldir, "calib.conf"),
+                       lm_cfg(seed, ldir))
+    qpath = os.path.join(ldir, "0000.model")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = quant_main([calib, src, qpath, "quant_calib_batches=2"])
+    drift = buf.getvalue().strip().splitlines()[-1]
+    if rc not in (0, 2):
+        raise AssertionError(f"(d) quantize: exit {rc}: {drift}")
+    cfg = parse_lm_serve_config(list(LMS_KNOBS))
+    srv, t = start_serve(_serve_cfg(LM_CONF, [
+        "task=serve", f"model_in={qpath}", "serve_port=0",
+        "serve_buckets=1", "serve_max_batch=1", "serve_replicas=2",
+        "serve_dtype=int8", "silent=1"]))
+    pool = srv.pool
+    try:
+        srv.attach_lm(cfg)
+        base = f"http://127.0.0.1:{srv.port}"
+        lmes = [r.lm.engine for r in pool.replicas]
+        if {lme.device.type for lme in lmes} != {"cuda"} \
+                or lmes[0].compute_dtype != torch.float32:
+            raise AssertionError("(d) the int8 LM plane is not f32 on the "
+                                 "card")
+        steps = [[0] for _ in lmes]
+        for lme, n in zip(lmes, steps):
+            _count_calls(lme, "step", n)
+        prompts = lm_prompts(seed + 21, LMF_PROMPTS)
+        refs = [lmes[0].generate_whole(p, max_new=LMS_NEW) for p in prompts]
+        # concurrent decode on both replicas, bit-equal to serial
+        got = [None, None]
+        ths = [threading.Thread(target=lambda i=i: got.__setitem__(
+            i, [lmes[i].generate_whole(p, max_new=LMS_NEW)
+                for p in prompts[:4]])) for i in range(2)]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(timeout=300)
+        if got != [refs[:4]] * 2:
+            raise AssertionError("(d) concurrent int8 decodes differ from "
+                                 "serial ones")
+        # the head through q_mm at the step's shapes, against the plain
+        # product of fused_kernels = 0 on the same round
+        plain = LMEngine(InferenceEngine.from_checkpoint(
+            _serve_cfg(LM_CONF, ["fused_kernels=0"]), qpath, dtype="int8",
+            buckets="1", max_batch=1), cfg)
+        reset_q_mm_variants()
+        step_err = lm_step_readings(lmes[0], plain, prompts)
+        head_variants = check_q_mm_variants("int8 LM head")
+        plain.close()
+        del plain
+        if not max(step_err) <= LMF_STEP_TOL:
+            raise AssertionError(
+                f"(d) int8 LM logits against fused_kernels = 0: prefill "
+                f"{step_err[0]:.3g}, decode {step_err[1]:.3g} > "
+                f"{LMF_STEP_TOL}")
+        # q_mm launches once a step (the head)
+        for n in steps:
+            n[0] = 0
+        reset_launches()
+        boxes = [{} for _ in prompts]
+        half = len(prompts) // 2
+
+        def wave(idx):
+            ts = [threading.Thread(target=_stream_client, daemon=True,
+                                   args=(base, prompts[i], i % 2 == 0,
+                                         boxes[i])) for i in idx]
+            for th in ts:
+                th.start()
+            return ts
+        handoffs = [0]
+        _count_calls(pool.replicas[1].lm, "admit_handoff", handoffs)
+        ts = wave(range(half))
+        time.sleep(0.2)
+        pool.set_lm_role(0, "prefill", peer=pool.replicas[1].lm.handoff_addr)
+        pool.set_lm_role(1, "decode")
+        ts += wave(range(half, len(prompts)))
+        for th in ts:
+            th.join(timeout=600)
+        for _ in range(500):
+            if all(r.lm.live_count() == 0 for r in pool.replicas):
+                break
+            time.sleep(0.01)
+        q_mm, n_steps = KERNELS["q_mm"].launches, sum(n[0] for n in steps)
+        fails = [(i, b.get("error")) for i, b in enumerate(boxes)
+                 if "error" in b or b.get("tokens") != refs[i]]
+        if fails or handoffs[0] < len(prompts) - half or q_mm != n_steps:
+            raise AssertionError(
+                f"(d) /generate failed or differs from generate_whole "
+                f"{fails[:3]}; handoffs {handoffs[0]}; q_mm {q_mm} for "
+                f"{n_steps} steps")
+        # the decode step at 8 live rows, int8 against phase 16's bf16
+        lme = lmes[1]
+        B, T = cfg.max_seqs, lme.T
+        blocks = lme.block_pool.alloc(B * T, seq_id=-3)
+        tables = np.asarray(blocks, np.int32).reshape(B, T)
+        ids = np.asarray([p[0] for p in prompts[:B]], np.int32)
+        L = np.full((B,), 1500, np.int32)
+        decode = lambda: lme.run_decode(ids, L, tables, L + 1)
+        decode_ms = time_forward(decode)
+        reset_launches()
+        decode()
+        torch.cuda.synchronize()
+        step_launch = {k.name: k.launches for k in KERNELS.values()
+                       if k.launches}
+        prof = profile_kinds(decode, n=20, what="decode step")[0]
+        lme.block_pool.free(blocks)
+        # a reload of the decode replica waits for its live sequences
+        blob = ckpt.load_for_inference(qpath)
+        blob["params"]["lm_head"]["wmat_scale"] = \
+            blob["params"]["lm_head"]["wmat_scale"] * np.float32(0.9)
+        rep = pool.replicas[1]
+        seen = []
+        _swap = rep.engine.swap_weights
+
+        def spy(*a, **k):
+            seen.append((rep.lm.live_count(), rep.batcher.idle))
+            return _swap(*a, **k)
+        rep.engine.swap_weights = spy
+        hs = [pool.submit_lm(p, max_new=LMS_NEW) for p in prompts[:2]]
+        for _ in range(500):            # handed off to the decode replica
+            if rep.lm.live_count() == 2:
+                break
+            time.sleep(0.01)
+        live = rep.lm.live_count()
+        t0 = time.perf_counter()
+        pool.reload_replica(1, blob["params"], blob["state"], 1)
+        waited = time.perf_counter() - t0
+        olds = [h.result(timeout=300)["tokens"] for h in hs]
+        if live < 1 or seen != [(0, True)] or olds != refs[:2] \
+                or rep.version != "r0001-int8":
+            raise AssertionError(
+                f"(d) reload: {live} live before, swap saw {seen}, old "
+                f"sequences equal {olds == refs[:2]}, version {rep.version}")
+        statz = _get(base + "/statz")
+        used = [r["stats"]["lm"]["kv_blocks_used"]
+                for r in statz["replicas"]]
+        if used != [0, 0] or any(r.lm.engine.block_pool.used
+                                 for r in pool.replicas):
+            raise AssertionError(f"(d) KV blocks left: {used}")
+    finally:
+        stop_serve(srv, t)
+    # int8 against bf16 greedy tokens where bf16's margin clears the bar
+    eng = InferenceEngine.from_checkpoint(_serve_cfg(LM_CONF, []), src,
+                                          buckets="1", max_batch=1)
+    bl = LMEngine(eng, cfg)
+    S = eng.net.graph.input_shape[2]
+    agree = total = conf_total = 0
+    forced = [0, 0]            # steps held, of them equal
+    net8 = InferenceEngine.from_checkpoint(
+        _serve_cfg(LM_CONF, []), qpath, dtype="int8", buckets="1",
+        max_batch=1).net
+    for p, r8 in zip(prompts, refs):
+        rb = bl.generate_whole(p, max_new=LMS_NEW)
+        seq = np.concatenate([p, np.asarray(rb)])[:S]
+        xin = np.zeros((1, 1, 1, S), np.float32)
+        xin[0, 0, 0, :seq.size] = seq
+        logp = eng.net(torch.from_numpy(xin).to(bl.device)).out.float()
+        logp = logp.reshape(S, -1)[p.size - 1:p.size - 1 + len(rb)]
+        top2 = torch.topk(torch.exp(logp), 2).values.cpu().numpy()
+        conf_steps = 0
+        while conf_steps < len(rb) and \
+                top2[conf_steps, 0] - top2[conf_steps, 1] >= LMF_MARGIN:
+            conf_steps += 1
+        if r8[:conf_steps] != rb[:conf_steps]:
+            raise AssertionError(f"(d) int8 and bf16 greedy tokens differ "
+                                 f"within {conf_steps} confident steps")
+        # teacher-forced over bf16's tokens: the int8 network's greedy
+        # token where bf16's log-prob margin exceeds LMS_MARGIN
+        lp8 = net8(torch.from_numpy(xin).to(bl.device),
+                   compute_dtype=torch.float32).out.float()
+        lp8 = lp8.reshape(S, -1)[p.size - 1:p.size - 1 + len(rb)]
+        lmarg = torch.topk(logp, 2).values
+        sure = (lmarg[:, 0] - lmarg[:, 1]) > LMS_MARGIN
+        forced[0] += int(sure.sum())
+        forced[1] += int((lp8.argmax(-1) == logp.argmax(-1))[sure].sum())
+        agree += sum(x == y for x, y in zip(r8, rb))
+        total += len(rb)
+        conf_total += conf_steps
+    bl.close()
+    del eng, net8
+    if not forced[0] or forced[1] != forced[0]:
+        raise AssertionError(
+            f"(d) teacher-forced on bf16's tokens, int8's greedy token "
+            f"equal on {forced[1]} of the {forced[0]} steps where bf16's "
+            f"log-prob margin exceeds {LMS_MARGIN}")
+    return {"forced_held": forced[0], "forced_equal": forced[1],
+            "step_err": step_err, "head_variants": head_variants,
+            "drift": drift, "handoffs": handoffs[0], "q_mm": q_mm,
+            "steps": n_steps, "decode_step_ms": decode_ms,
+            "decode_launches": step_launch, "decode_profile": prof,
+            "bf16_decode_step_ms": lm_serve["decode_step_ms"],
+            "bf16_decode_profile": lm_serve["decode_profile"],
+            "reload_waited_s": waited, "live_at_reload": live,
+            "int8_bf16_token_agree": agree / total,
+            "confident_steps": conf_total}
+
+
+def phase_fleet(conf: str, seed: int, tmp: str, lm_serve: dict,
+                smi_line: str) -> dict:
+    """Phase 17: the serving fleet at full width, (a)-(d) of the
+    docstring."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    fdir = os.path.join(tmp, "fleet")
+    a = fleet_reload(conf, seed, fdir, dev)
+    b = fleet_ab(conf, a, fdir)
+    c = fleet_int8(conf, seed, a, fdir)
+    d = fleet_lm(seed, tmp, fdir, lm_serve)
+    notes = {"reload": {k: v for k, v in a.items() if k not in (
+        "bodies", "rows_data", "refs", "ra", "rb")},
+        "ab": b, "int8": c, "lm": d,
+        "seconds": time.perf_counter() - t_phase, "card": smi_line}
+    one, fl = a["one"], a["fleet"]
+    print(f"fleet: (a) full-width Inception-BN, 2 replicas on {dev} through "
+          f"main.run, {a['requests']} open-loop /predict requests (raw, "
+          f"sizes {sorted(set(a['rows']))}) at {FLEET_RATE}/s for "
+          f"{FLEET_LOAD_S:.0f} s: 0 failed, one sweep to r0002 in "
+          f"{a['sweep_s']:.2f} s ({a['after_sweep']} requests sent after it, "
+          f"all on r0002), every answer within {FLEET_ROW_TOL} rel L2 of "
+          f"the single engine's on its round (worst {a['worst']:.3g}; "
+          f"control, B's params with A's BN state, {a['control']:.3g}; "
+          f"rounds {a['apart']:.3g} apart), forwards by replica "
+          f"{a['forwards']}, launches "
+          f"{a['launches']} | open loop, one engine: {one['answers_per_s']:.2f}"
+          f" answers/s ({one['rows_per_s']:.1f} rows/s), {one['latency']}; "
+          f"fleet: {fl['answers_per_s']:.2f} answers/s "
+          f"({fl['rows_per_s']:.1f} rows/s), {fl['latency']} | latency of "
+          f"the requests in flight during the sweep {a['during_sweep']}, "
+          f"of the rest {a['outside_sweep']} | closed loop in process "
+          f"({FLEET_CLIENTS} clients, {FLEET_CLOSED_S:.0f} s): one engine "
+          f"{one['closed']['answers_per_s']:.1f} answers/s "
+          f"({one['closed']['rows_per_s']:.1f} rows/s, "
+          f"{one['closed']['latency']}), fleet "
+          f"{fl['closed']['answers_per_s']:.1f} answers/s "
+          f"({fl['closed']['rows_per_s']:.1f} rows/s, "
+          f"{fl['closed']['latency']}) | {smi_line}", flush=True)
+    print(f"fleet: (b) A/B (serve_ab=1, serve_ab_replicas=1): canary "
+          f"{b['split']}, X-Model-Version pins answered from their rounds "
+          f"(worst {b['pinned_worst']:.3g} rel L2), r0042 refused with 400, "
+          f"/statz versions {sorted(b['versions'])}, promote() -> "
+          f"{b['promoted']} | (c) int8 fleet ({c['drift']}): q_mm "
+          f"{c['q_mm']} launches over forwards {c['forwards']} (70 each), "
+          f"concurrent dispatches of the two replicas bit-equal to serial "
+          f"ones, a plain round refused once ({c['refused']}), int8 vs "
+          f"fp32 rel L2 {c['int8_vs_fp32_rel_l2']:.4g} (bound {INT8_VS_FP})",
+          flush=True)
+    print(f"fleet: (d) the long-context LM quantized ({d['drift']}) and "
+          f"served int8 by 2 replicas with an LM plane each: concurrent "
+          f"decodes bit-equal to serial, {len(lm_prompts(seed + 21, LMF_PROMPTS))}"
+          f" streamed /generate clients across set_lm_role(0, prefill) "
+          f"equal to generate_whole ({d['handoffs']} handed off), q_mm "
+          f"{d['q_mm']} launches for {d['steps']} steps, a reload waited "
+          f"{d['reload_waited_s']:.3f} s for {d['live_at_reload']} live "
+          f"sequences, KV pools empty after; int8 and bf16 greedy tokens "
+          f"agree on {100 * d['int8_bf16_token_agree']:.1f}% of steps, all "
+          f"{d['confident_steps']} leading steps where bf16's margin >= "
+          f"{LMF_MARGIN}; teacher-forced on bf16's tokens, int8's greedy "
+          f"token equal on {d['forced_equal']} of the {d['forced_held']} "
+          f"steps where bf16's log-prob margin exceeds {LMS_MARGIN} (all "
+          f"required); f32 logits against fused_kernels = 0, of max(1, "
+          f"|logit|): prefill chunk {d['step_err'][0]:.3g}, decode step "
+          f"{d['step_err'][1]:.3g} (tol {LMF_STEP_TOL}; q_mm "
+          f"{d['head_variants']}) | decode step at 8 live "
+          f"rows: int8 {d['decode_step_ms']:.3f} ms, launches "
+          f"{d['decode_launches']}, {d['decode_profile']} | bf16 (phase 16) "
+          f"{d['bf16_decode_step_ms']:.3f} ms, {d['bf16_decode_profile']} | "
+          f"phase {notes['seconds']:.1f}s | {smi_line}", flush=True)
+    return notes
+
+
 # -- main ---------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -6631,6 +7513,8 @@ def main(argv=None) -> int:
             args.seed, tmp)
         lm_serve = phase_lm_serve(args.seed, tmp, gen, smi_line)
         mark("lm serve")
+        fleet = phase_fleet(args.conf, args.seed, tmp, lm_serve, smi_line)
+        mark("fleet")
     lm_times = phase_lm_times(tr, kern, plain_tr, lm_batches, gen)
     mark("lm")
     del tr, kern, plain_tr
@@ -6722,6 +7606,7 @@ def main(argv=None) -> int:
               "lm_step_plain_ms": lm_times["step_plain_ms"],
               "lm": lm_notes, "lm_profile": lm_times["profile"],
               "lm_serve": lm_serve,
+              "fleet": fleet,
               "adam_inception_bn": {kk: vv for kk, vv in
                                     lm_times["adam_ibn"].items()
                                     if kk != "bound"},

@@ -88,7 +88,9 @@ def parse_fused_mode(val: str) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """The ``serve_*`` knob set of the single-engine server."""
+    """The ``serve_*`` knob set: the engine, its batcher, breaker and
+    latency SLO, and the fleet (replicas, hot reload, A/B pins,
+    admission control)."""
     port: int = 8080              # serve_port
     host: str = "127.0.0.1"       # serve_host
     buckets: str = ""             # serve_buckets: comma ladder ('' = auto)
@@ -103,22 +105,23 @@ class ServeConfig:
     breaker_threshold: int = 5    # serve_breaker_threshold (0 = off)
     breaker_reset_s: float = 10.0  # serve_breaker_reset_s
     degraded_queue_frac: float = 0.8  # serve_degraded_queue_frac
+    slo_ms: float = 0.0           # serve_slo_ms (0 = SLO tracking off)
+    slo_target: float = 0.99      # serve_slo_target
+    slo_window_s: float = 60.0    # serve_slo_window_s
+    slo_burn_degraded: float = 2.0  # serve_slo_burn_degraded
+    replicas: int = 1             # serve_replicas: engines in the pool
+    reload_s: float = 0.0         # serve_reload_s: round poll (0 = off)
+    ab: int = 0                   # serve_ab: 1 = reloads hit canaries only
+    ab_replicas: int = 1          # serve_ab_replicas: canary subset size
+    admission: int = 1            # serve_admission: 0 disables shedding
+    drain_timeout_s: float = 30.0  # serve_drain_timeout_s: reload drain
 
+    @property
+    def fleet(self) -> bool:
+        """Whether ``task = serve`` builds a replica pool (any fleet
+        feature asked for) instead of the single engine."""
+        return self.replicas > 1 or self.reload_s > 0 or self.ab > 0
 
-#: keys of the JAX package's serve namespace that belong to features the
-#: port does not serve yet -> (value that means "off", ROADMAP item)
-_NOT_YET = {
-    "serve_replicas": ("1", "Queue A 4 (fleet serving)"),
-    "serve_reload_s": ("0", "Queue A 4 (fleet serving, hot reload)"),
-    "serve_ab": ("0", "Queue A 4 (fleet serving, A/B pinning)"),
-    "serve_ab_replicas": ("1", "Queue A 4 (fleet serving, A/B pinning)"),
-    "serve_admission": ("1", "Queue A 4 (fleet serving, admission)"),
-    "serve_drain_timeout_s": ("30", "Queue A 4 (fleet serving, reload)"),
-    "serve_slo_ms": ("0", "Queue A 12 (telemetry: SLO burn rate)"),
-    "serve_slo_target": ("0.99", "Queue A 12 (telemetry: SLO burn rate)"),
-    "serve_slo_window_s": ("60", "Queue A 12 (telemetry: SLO burn rate)"),
-    "serve_slo_burn_degraded": ("2", "Queue A 12 (telemetry: SLO burn rate)"),
-}
 
 #: config-key prefixes of features the port does not serve yet
 _NOT_YET_PREFIXES = {
@@ -136,8 +139,8 @@ def _same_value(a: str, b: str) -> bool:
 
 def parse_serve_config(cfg: ConfigPairs) -> ServeConfig:
     """Collect and validate the ``serve_*`` keys (last occurrence wins;
-    unknown keys raise). Keys of features the port does not serve yet
-    raise unless they hold their "off" value."""
+    unknown keys raise). The ``cascade_*`` and ``deploy_*`` features the
+    port does not serve yet raise unless switched off."""
     known = {
         "serve_port": ("port", int),
         "serve_host": ("host", str),
@@ -152,6 +155,16 @@ def parse_serve_config(cfg: ConfigPairs) -> ServeConfig:
         "serve_breaker_threshold": ("breaker_threshold", int),
         "serve_breaker_reset_s": ("breaker_reset_s", float),
         "serve_degraded_queue_frac": ("degraded_queue_frac", float),
+        "serve_slo_ms": ("slo_ms", float),
+        "serve_slo_target": ("slo_target", float),
+        "serve_slo_window_s": ("slo_window_s", float),
+        "serve_slo_burn_degraded": ("slo_burn_degraded", float),
+        "serve_replicas": ("replicas", int),
+        "serve_reload_s": ("reload_s", float),
+        "serve_ab": ("ab", int),
+        "serve_ab_replicas": ("ab_replicas", int),
+        "serve_admission": ("admission", int),
+        "serve_drain_timeout_s": ("drain_timeout_s", float),
     }
     vals = {}
     for name, val in cfg:
@@ -162,13 +175,6 @@ def parse_serve_config(cfg: ConfigPairs) -> ServeConfig:
                     f"{name}: not served by the PyTorch port yet "
                     f"(ROADMAP {item})")
         if not name.startswith("serve_"):
-            continue
-        if name in _NOT_YET:
-            off, item = _NOT_YET[name]
-            if not _same_value(val, off):
-                raise ConfigError(
-                    f"{name} = {val}: not served by the PyTorch port yet "
-                    f"(ROADMAP {item})")
             continue
         if name not in known:
             raise ConfigError(
@@ -182,6 +188,9 @@ def parse_serve_config(cfg: ConfigPairs) -> ServeConfig:
     sc = ServeConfig(**vals)
     if sc.dtype and sc.dtype.strip().lower() != "int8":
         parse_policy(sc.dtype)
+    if sc.replicas < 1:
+        raise ConfigError(
+            f"serve_replicas must be >= 1, got {sc.replicas}")
     if sc.max_batch < 1 or sc.queue_rows < 1 or sc.cache_size < 1:
         raise ConfigError(
             "serve_max_batch, serve_queue_rows and serve_cache_size "
@@ -191,6 +200,26 @@ def parse_serve_config(cfg: ConfigPairs) -> ServeConfig:
         raise ConfigError(
             f"serve_breaker_threshold must be >= 0, got "
             f"{sc.breaker_threshold}")
+    if sc.reload_s < 0:
+        raise ConfigError(
+            f"serve_reload_s must be >= 0, got {sc.reload_s}")
+    if sc.ab not in (0, 1):
+        raise ConfigError(f"serve_ab must be 0 or 1, got {sc.ab}")
+    if sc.ab_replicas < 1:
+        raise ConfigError(
+            f"serve_ab_replicas must be >= 1, got {sc.ab_replicas}")
+    if sc.ab and sc.ab_replicas >= sc.replicas:
+        raise ConfigError(
+            f"serve_ab_replicas ({sc.ab_replicas}) must be < "
+            f"serve_replicas ({sc.replicas}): A/B needs at least one "
+            "replica left on the old version")
+    if sc.slo_ms > 0 and not 0.0 < sc.slo_target < 1.0:
+        raise ConfigError(
+            f"serve_slo_target must be in (0, 1), got {sc.slo_target}")
+    if sc.drain_timeout_s < 0:
+        raise ConfigError(
+            f"serve_drain_timeout_s must be >= 0, got "
+            f"{sc.drain_timeout_s}")
     return sc
 
 

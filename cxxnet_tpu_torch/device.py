@@ -8,8 +8,8 @@ too. ``cpu`` is the only way onto the CPU: with no CUDA device visible,
 any other value raises instead of quietly running on the CPU.
 
 One engine runs on one card (:func:`resolve_device`); a multi-card list
-is for data-parallel training, one rank per card
-(:func:`resolve_devices`).
+is for data-parallel training, one rank per card, and for a serving
+fleet, one replica per card (:func:`resolve_devices`).
 """
 
 from __future__ import annotations
@@ -62,11 +62,14 @@ def resolve_devices(spec: str) -> List[torch.device]:
 
 def resolve_device(spec: str) -> torch.device:
     """The one torch device of a ``dev`` value (see module docstring). A
-    list of several cards raises: only training spreads over them."""
+    list of several cards raises: training spreads over them, and a
+    serving fleet puts one replica on each."""
     devs = resolve_devices(spec)
     if len(devs) > 1:
         raise ConfigError(
             f"dev = {spec!r}: one engine runs on one card; task = train "
-            "spreads over several (data parallelism), serving over several "
-            "waits for the fleet (ROADMAP Queue A 4)")
+            "spreads over several (data parallelism), and task = serve "
+            "with serve_replicas = one per card puts a replica on each; "
+            "an engine over several cards waits for ROADMAP Queue A 4: "
+            "replicas over several cards")
     return devs[0]

@@ -41,7 +41,12 @@ round of ``model_dir`` with ``continue = 1``, else the round named by
 over HTTP until SIGINT/SIGTERM. ``serve_dtype = int8`` serves a round
 quantized by ``python -m cxxnet_tpu_torch.quant`` (or the JAX package's
 ``tools/quantize.py``) as version ``rNNNN-int8``; an fp engine serves a
-quantized round dequantized.
+quantized round dequantized. ``serve_replicas = N`` (or ``serve_reload_s``
+or ``serve_ab``) serves a replica fleet (``serve/fleet.py``): the replicas
+share the cards of ``dev`` round-robin, or take one card each; with
+``serve_reload_s > 0`` new rounds in ``model_dir`` roll into it without
+dropping a request, and ``serve_ab = 1`` reloads only the first
+``serve_ab_replicas`` (``serve/reload.py``).
 
 The iterator sections read ``synthetic``, ``synthetic_lm``, ``mnist``
 and ``imgrec`` record files (PNG everywhere, JPEG where libjpeg is
@@ -84,23 +89,24 @@ import torch
 from . import checkpoint as ckpt
 from .config import (ConfigError, ConfigPairs, parse_cli_overrides,
                      parse_config_file, parse_serve_config, split_sections)
-from .convert import params_from_jax
 from .graph import build_graph, global_param
 from .device import resolve_devices
-from .model import Network
 from .io import close_chain, create_iterator
 from .io.data import DataBatch
 from .parallel import DpContext, launch
-from .serve import InferenceEngine, ServeServer
-from .serve.engine import negotiate_blob, version_name
+from .serve import ReloadWatcher, ReplicaPool, ServeServer
+from .serve.fleet import build_engines
 from .trainer import Trainer
 
 
 def task_serve(cfg: ConfigPairs,
                ready: Optional[Callable[[ServeServer], None]] = None) -> None:
-    """Build the network, load ``model_in``, and serve until interrupted
-    (or until ``stop()`` on the server that ``ready`` is handed once it
-    listens). The single-engine path of the JAX package's serve task."""
+    """Build the network, load the round, and serve until interrupted (or
+    until ``stop()`` on the server that ``ready`` is handed once it
+    listens). One engine by default; any fleet knob (``serve_replicas >
+    1``, ``serve_reload_s``, ``serve_ab``) builds a replica pool, with the
+    hot-reload watcher on ``model_dir`` when ``serve_reload_s > 0``: the
+    JAX package's serve task."""
     gp = lambda n, d: global_param(cfg, n, d)
     sc = parse_serve_config(cfg)
     silent = bool(int(gp("silent", "0")))
@@ -110,49 +116,59 @@ def task_serve(cfg: ConfigPairs,
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     graph = build_graph(cfg)
-    net = Network(graph, cfg)
     model_in = gp("model_in", "NULL")
+    model_dir = gp("model_dir", "./models")
     # the newest valid round with continue = 1 (its blob read once, by
-    # the scan), else model_in, else random weights
+    # the scan), else model_in, else random weights; the blob is read
+    # once for a whole fleet
     model_path = blob = None
     if int(gp("continue", "0")):
-        latest = _agree_latest(gp("model_dir", "./models"), silent,
-                               want_blob=True)
+        latest = _agree_latest(model_dir, silent, want_blob=True)
         if latest is not None:
             _, model_path, blob = latest
     if blob is None and model_in != "NULL":
         model_path, blob = model_in, ckpt.load_for_inference(model_in)
     if blob is not None:
         ckpt.check_structure(blob["meta"], graph.structure_signature())
-        # dtype negotiation: serve_dtype = int8 demands a PTQ-derived
-        # round; an fp engine dequantizes a quantized one on load
-        placed = negotiate_blob(blob, sc.dtype or None)
-        net.load_weights(*params_from_jax(placed["params"],
-                                          placed["state"]))
         if not silent:
             print(f"serving model {model_path}", flush=True)
+    elif not silent:
+        print("serve: no model_in/continue given — serving a RANDOMLY "
+              "INITIALIZED model (smoke mode)", flush=True)
+    digest = ckpt.blob_digest(blob["meta"]) if blob is not None else ""
+    # dtype negotiation happens once for every engine: serve_dtype =
+    # int8 demands a PTQ-derived round, an fp engine dequantizes one
+    engines = build_engines(cfg, sc.replicas, blob=blob, digest=digest,
+                            buckets=sc.buckets or None,
+                            max_batch=sc.max_batch,
+                            cache_size=sc.cache_size,
+                            dtype=sc.dtype or None, silent=silent)
+    knobs = dict(max_latency_ms=sc.max_latency_ms,
+                 max_queue_rows=sc.queue_rows,
+                 default_timeout_ms=sc.timeout_ms or None,
+                 breaker_threshold=sc.breaker_threshold,
+                 breaker_reset_s=sc.breaker_reset_s,
+                 degraded_queue_frac=sc.degraded_queue_frac,
+                 slo_ms=sc.slo_ms, slo_target=sc.slo_target,
+                 slo_window_s=sc.slo_window_s,
+                 slo_burn_degraded=sc.slo_burn_degraded)
+    served = dict(port=sc.port, host=sc.host,
+                  log_interval_s=sc.log_interval_s, silent=silent,
+                  handle_signals=threading.current_thread()
+                  is threading.main_thread())
+    if sc.fleet:
+        pool = ReplicaPool.from_engines(
+            engines, admission_control=bool(sc.admission), **knobs)
+        # hot reload watches the directory a trainer (this process or
+        # another) keeps writing rounds into
+        watcher = (ReloadWatcher(pool, model_dir, interval_s=sc.reload_s,
+                                 ab_replicas=sc.ab_replicas if sc.ab else 0,
+                                 drain_timeout_s=sc.drain_timeout_s,
+                                 verbose=not silent)
+                   if sc.reload_s > 0 else None)
+        srv = ServeServer(pool=pool, reload_watcher=watcher, **served)
     else:
-        if not silent:
-            print("serve: no model_in/continue given — serving a RANDOMLY "
-                  "INITIALIZED model (smoke mode)", flush=True)
-        net.load_weights(*net.init(torch.Generator().manual_seed(0)))
-    engine = InferenceEngine(net, buckets=sc.buckets or None,
-                             max_batch=sc.max_batch,
-                             cache_size=sc.cache_size,
-                             dtype=sc.dtype or None)
-    if blob is not None:
-        engine.weights_digest = ckpt.blob_digest(blob["meta"])
-        engine.weights_version = version_name(blob["meta"]["round"]) \
-            + ("-int8" if engine.serve_int8 else "")
-    srv = ServeServer(
-        engine, port=sc.port, host=sc.host,
-        max_latency_ms=sc.max_latency_ms, max_queue_rows=sc.queue_rows,
-        default_timeout_ms=sc.timeout_ms or None,
-        log_interval_s=sc.log_interval_s,
-        breaker_threshold=sc.breaker_threshold,
-        breaker_reset_s=sc.breaker_reset_s,
-        degraded_queue_frac=sc.degraded_queue_frac, silent=silent,
-        handle_signals=threading.current_thread() is threading.main_thread())
+        srv = ServeServer(engines[0], **served, **knobs)
     srv.start()
     if ready is not None:
         ready(srv)

@@ -25,6 +25,12 @@ also held cast to the compute dtype, cast once per load or update
 (:meth:`Network.invalidate_cast`), which equals the JAX package's
 per-call cast. :meth:`Network.apply` casts inside the autograd graph
 instead, so gradients reach the f32 masters.
+
+The eval forward reads the cast params and the layer state as one pair
+under ``weights_lock`` (:meth:`Network.weights_pair`), and a weights
+swap installs both under the same lock after placing and casting them
+outside it (:meth:`Network.place_weights`, :meth:`Network.install_weights`),
+so no forward sees new params with old batch-norm statistics.
 """
 
 from __future__ import annotations
@@ -121,7 +127,9 @@ class Network(nn.Module):
         # moments over it and the loss divides by the global batch
         self.dp = None
         self._cast: Dict[torch.dtype, Params] = {}
-        self._cast_lock = threading.Lock()
+        # guards params, state and their casts as one set (reentrant: a
+        # serve engine installs weights and its version under it)
+        self.weights_lock = threading.RLock()
 
     @property
     def fused(self) -> bool:
@@ -180,6 +188,14 @@ class Network(nn.Module):
         against the graph, and cast the compute leaves once. A quantized
         layer's leaves (``wmat`` int8 of the float shape, ``wmat_scale``,
         ``act_scale``) are checked too; int8 stays int8."""
+        self.install_weights(self.place_weights(params, state,
+                                                self.compute_dtype))
+
+    def place_weights(self, params: Dict, state: Dict,
+                      dtype: torch.dtype) -> Tuple[Params, NetState, Dict]:
+        """The checked placement of :meth:`load_weights` and the cast
+        tree of ``dtype``, without touching the loaded weights: the
+        slow half of a swap, done outside ``weights_lock``."""
         want_p, want_s = self._expected()
         want_p.update(self._expected_quant(params))
         quant = {path[0] for path in want_p if path[-1] == "wmat_scale"}
@@ -218,15 +234,22 @@ class Network(nn.Module):
 
         params_d = place(params, want_p, "params")
         state_d = place(state, want_s, "state")
-        with self._cast_lock:
+        with torch.inference_mode():
+            casts = {dtype: self._cast_tree(params_d, dtype)}
+        return params_d, state_d, casts
+
+    def install_weights(self, placed: Tuple[Params, NetState, Dict]) -> None:
+        """Make a :meth:`place_weights` result the loaded weights, params,
+        state and casts at once under ``weights_lock``."""
+        params_d, state_d, casts = placed
+        with self.weights_lock:
             self.params, self.state = params_d, state_d
-            self._cast = {}
-        self.weights_for(self.compute_dtype)
+            self._cast = dict(casts)
 
     def invalidate_cast(self) -> None:
         """Drop the eval forward's cast weights: call after the masters
         changed in place (an optimizer step)."""
-        with self._cast_lock:
+        with self.weights_lock:
             self._cast = {}
 
     def _cast_tree(self, params: Params, dtype: torch.dtype) -> Params:
@@ -248,7 +271,12 @@ class Network(nn.Module):
     def weights_for(self, dtype: torch.dtype) -> Params:
         """Params with each layer's compute leaves cast to ``dtype`` and
         laid out by the layer, built once per dtype."""
-        with self._cast_lock:
+        return self.weights_pair(dtype)[0]
+
+    def weights_pair(self, dtype: torch.dtype) -> Tuple[Params, NetState]:
+        """(:meth:`weights_for` ``dtype``, the layer state), read together
+        under ``weights_lock``: what one eval pass runs with."""
+        with self.weights_lock:
             if self.params is None:
                 raise ValueError("no weights loaded: call load_weights()")
             tree = self._cast.get(dtype)
@@ -256,7 +284,7 @@ class Network(nn.Module):
                 with torch.inference_mode():
                     tree = self._cast_tree(self.params, dtype)
                 self._cast[dtype] = tree
-            return tree
+            return tree, self.state
 
     # -- graph walk --------------------------------------------------------
     def _walk(self, params: Params, state: NetState, data: torch.Tensor,
@@ -323,8 +351,9 @@ class Network(nn.Module):
         ``calib_sink`` switches batch_norm layers to calibration
         (:func:`calibrate_bn`)."""
         cdt = self.compute_dtype if compute_dtype is None else compute_dtype
+        params, state = self.weights_pair(cdt)
         nodes, _ = self._walk(
-            self.weights_for(cdt), self.state, data,
+            params, state, data,
             dict(compute_dtype=cdt,
                  fused=self.fused if fused is None else fused,
                  calib_sink=calib_sink, dp=self.dp))

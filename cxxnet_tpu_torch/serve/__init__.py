@@ -1,10 +1,15 @@
-"""Serving: engine, micro-batcher, stats and the HTTP server."""
+"""Serving: engine, micro-batcher, stats, the replica fleet with its hot
+reload, and the HTTP server."""
 
 from .batcher import Backpressure, DeadlineExceeded, MicroBatcher
 from .engine import InferenceEngine
-from .server import NoLMPlane, ServeServer, UnknownVersion
+from .fleet import (AllReplicasDegraded, NoHealthyReplica, ReplicaPool,
+                    UnknownVersion)
+from .reload import ReloadWatcher
+from .server import NoLMPlane, ServeServer
 from .stats import ServingStats
 
-__all__ = ["Backpressure", "DeadlineExceeded", "InferenceEngine",
-           "MicroBatcher", "NoLMPlane", "ServeServer", "ServingStats",
-           "UnknownVersion"]
+__all__ = ["AllReplicasDegraded", "Backpressure", "DeadlineExceeded",
+           "InferenceEngine", "MicroBatcher", "NoHealthyReplica",
+           "NoLMPlane", "ReloadWatcher", "ReplicaPool", "ServeServer",
+           "ServingStats", "UnknownVersion"]

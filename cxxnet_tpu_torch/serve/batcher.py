@@ -73,6 +73,8 @@ class MicroBatcher:
         self._q: "queue.Queue[_Request]" = queue.Queue()
         self._rows_lock = threading.Lock()
         self._queued_rows = 0
+        # flushes between their row release and their last dispatch
+        self._dispatching = 0
         # live-work probes (the LM scheduler's live sequences): counts of
         # in-flight work outside the row accounting
         self._live_probes: List = []
@@ -141,12 +143,25 @@ class MicroBatcher:
 
     def add_idle_probe(self, probe) -> None:
         """Register a live-work probe (a callable returning a count of
-        in-flight items). The LM scheduler registers its live-sequence
-        count: a drained batcher with decodes still holding KV blocks is
-        not idle. The fleet's reload drain, which reads the probes, is
-        not in the port yet (ROADMAP Queue A 4)."""
+        in-flight items) that must read 0 before :attr:`idle` is True.
+        The LM scheduler registers its live-sequence count: a drained
+        batcher with decodes still holding KV blocks is not idle, and a
+        weights swap then would hand a sequence logits from a model that
+        never saw its prefix."""
         with self._rows_lock:
             self._live_probes.append(probe)
+
+    @property
+    def idle(self) -> bool:
+        """No row admitted, no flush mid-dispatch, and every live-work
+        probe at 0: what a hot reload drains to. ``queued_rows`` alone
+        is not enough, because ``_flush`` releases the rows before the
+        device call."""
+        with self._rows_lock:
+            probes = list(self._live_probes)
+            if self._queued_rows != 0 or self._dispatching != 0:
+                return False
+        return all(int(p()) == 0 for p in probes)
 
     # -- worker side -----------------------------------------------------
     def _release(self, reqs: List[_Request]) -> None:
@@ -157,26 +172,33 @@ class MicroBatcher:
     def _flush(self, reqs: List[_Request]) -> None:
         """Reject expired requests, then dispatch the group in chunks of
         at most ``max_batch`` rows."""
-        self._release(reqs)
-        now = time.perf_counter()
-        live: List[_Request] = []
-        for r in reqs:
-            if r.deadline is not None and now > r.deadline:
-                self.stats.record_reject("deadline")
-                r.future.set_exception(DeadlineExceeded(
-                    "request expired before dispatch"))
-            else:
-                live.append(r)
-        chunk: List[_Request] = []
-        n_rows = 0
-        for r in live:
-            if chunk and n_rows + r.rows.shape[0] > self.max_batch:
+        with self._rows_lock:
+            # keeps `idle` False across the release -> dispatch gap
+            self._dispatching += 1
+        try:
+            self._release(reqs)
+            now = time.perf_counter()
+            live: List[_Request] = []
+            for r in reqs:
+                if r.deadline is not None and now > r.deadline:
+                    self.stats.record_reject("deadline")
+                    r.future.set_exception(DeadlineExceeded(
+                        "request expired before dispatch"))
+                else:
+                    live.append(r)
+            chunk: List[_Request] = []
+            n_rows = 0
+            for r in live:
+                if chunk and n_rows + r.rows.shape[0] > self.max_batch:
+                    self._dispatch(chunk)
+                    chunk, n_rows = [], 0
+                chunk.append(r)
+                n_rows += r.rows.shape[0]
+            if chunk:
                 self._dispatch(chunk)
-                chunk, n_rows = [], 0
-            chunk.append(r)
-            n_rows += r.rows.shape[0]
-        if chunk:
-            self._dispatch(chunk)
+        finally:
+            with self._rows_lock:
+                self._dispatching -= 1
 
     def _dispatch(self, live: List[_Request]) -> None:
         """ONE device call for one chunk; scatter results to futures."""

@@ -17,6 +17,13 @@ responses leave as float32. ``dtype = "int8"`` serves a PTQ-derived round
 through the int8 kernel (``ops/fused_quant``), everything else in
 float32, as version ``rNNNN-int8``; an fp engine dequantizes a quantized
 round on load (:func:`negotiate_blob`).
+
+:meth:`InferenceEngine.swap_weights` is the hot-reload primitive of the
+fleet (``serve/reload.py``): it places and casts a verified round
+outside the network's ``weights_lock``, then installs params, state and
+the version labels under it, so a dispatch runs wholly on the old
+weights or wholly on the new. An int8 engine never swaps in a plain
+round, nor an fp engine a quantized one.
 """
 
 from __future__ import annotations
@@ -165,6 +172,7 @@ class InferenceEngine:
         self._lock = threading.Lock()
         self.weights_digest = ""
         self.weights_version = "init"
+        self.weights_round = -1
         self.stats.record_cache(size=0, capacity=self._cache_cap)
         if not net.fused:
             print("fused_kernels = 0: this engine computes the plain "
@@ -185,10 +193,17 @@ class InferenceEngine:
         placed = negotiate_blob(blob, dtype)
         net.load_weights(*params_from_jax(placed["params"], placed["state"]))
         eng = cls(net, dtype=dtype, **kw)
-        eng.weights_digest = ckpt.blob_digest(blob["meta"])
-        eng.weights_version = version_name(blob["meta"]["round"]) \
-            + ("-int8" if eng.serve_int8 else "")
+        eng.set_provenance(blob["meta"]["round"],
+                           ckpt.blob_digest(blob["meta"]))
         return eng
+
+    def set_provenance(self, round_counter: int, digest: str = "") -> None:
+        """Label the loaded weights as checkpoint round ``round_counter``:
+        version ``rNNNN`` (``rNNNN-int8`` on an int8 engine)."""
+        self.weights_round = int(round_counter)
+        self.weights_digest = digest
+        self.weights_version = version_name(round_counter) \
+            + ("-int8" if self.serve_int8 else "")
 
     # -- shape plumbing --------------------------------------------------
     def _to_input(self, data) -> np.ndarray:
@@ -318,6 +333,30 @@ class InferenceEngine:
     def extract(self, data, node_name: str) -> np.ndarray:
         """Named node activations ('top' = the final node)."""
         return self._run(data, "extract", node_name)
+
+    # -- hot weight reload -----------------------------------------------
+    def swap_weights(self, params, net_state, round_counter: int,
+                     digest: str = "") -> None:
+        """Replace the served weights in place with a verified round's
+        ``params`` / ``net_state`` (JAX-layout numpy trees, as a
+        checkpoint blob holds them; the caller has checked the structure,
+        as the reload watcher does). Placement and the cast run outside
+        the weights lock; params, state and the version labels change
+        together under it. The runners close over the network, not its
+        weights, so a swap rebuilds none."""
+        if is_quantized_params(params) != self.serve_int8:
+            # an int8 replica never swaps in a plain round, nor an fp
+            # replica a quantized one: their layer paths differ
+            raise ValueError(
+                "swap_weights: params quantization does not match the "
+                f"engine dtype (serve_int8={self.serve_int8}); "
+                "negotiate the blob first (serve.engine.negotiate_blob)")
+        net = self.net
+        placed = net.place_weights(*params_from_jax(params, net_state),
+                                   self.compute_dtype)
+        with net.weights_lock:
+            net.install_weights(placed)
+            self.set_provenance(round_counter, digest)
 
     # -- introspection ---------------------------------------------------
     def cache_info(self) -> Dict[str, int]:

@@ -33,6 +33,13 @@ position-aware paths (ids clamped at 0, the position table's rows at
 layernorm, ffn, seqfc and add go through the layers' own ``forward``
 on ``(B, C, 1, E)`` nodes, the training layout with C in place of S.
 
+An int8 engine (``serve_dtype = int8``, a PTQ-derived round) steps in
+float32, as the JAX int8 engine does: the quantized ``seqfc`` head goes
+through ``int8_matmul`` (the ``q_mm`` kernel on the card, at M = the
+step's B * C rows), and embed, posembed, mha, ffn and layernorm stay
+float32. A step reads the params and the layer state as one pair
+(``Network.weights_pair``), so a weights swap never lands inside it.
+
 Card work goes on the device's current stream (no side streams: the
 kernels' ``split_scratch`` relies on one stream a device), and a step
 reads the device once: the greedy tokens. Its integer inputs go up in
@@ -94,10 +101,6 @@ class LMEngine:
             raise ValueError(
                 "lm serve needs a flat (1,1,S) token-id input node, got "
                 f"input_shape {net.graph.input_shape}")
-        if engine.serve_int8:
-            raise ValueError(
-                "int8 LM serving is not in the PyTorch port yet (ROADMAP "
-                "Queue A 4, with the fleet)")
         self.device = _norm(net.device)
         self.block_size = cfg.kv_block_size
         self.num_blocks = cfg.kv_pool_blocks
@@ -227,7 +230,8 @@ class LMEngine:
             lengths = packed[2 * n:2 * n + B]
             last_idx = packed[2 * n + B:2 * n + 2 * B]
             tables = packed[2 * n + 2 * B:].view(B, T)
-            params, state = net.weights_for(cdt), net.state
+            # one pair read: a hot reload never lands inside a step
+            params, state = net.weights_pair(cdt)
             nodes: List[Optional[torch.Tensor]] = [None] * g.num_nodes
             for li, (spec, layer) in enumerate(zip(g.layers, net.layers)):
                 if layer.is_loss:

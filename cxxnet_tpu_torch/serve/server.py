@@ -1,5 +1,5 @@
-"""Stdlib JSON front-end of one inference engine (the port of
-``cxxnet_tpu/serve/server.py``'s single-engine server).
+"""Stdlib JSON front-end of one inference engine or a replica fleet (the
+port of ``cxxnet_tpu/serve/server.py``).
 
 * ``POST /predict``  ``{"data": [[...], ...], "raw": 0|1, "timeout_ms": N?,
   "version": "rNNNN"?}`` -> ``{"pred": [...]}`` / ``{"prob": [[...]]}``
@@ -16,18 +16,31 @@
 * ``GET  /healthz``  -> ``{"status": "ok"|"degraded"|"open"|"down", ...}``
 * ``GET  /statz``    -> the ServingStats snapshot + breaker/queue state
 
-Health: ``ok`` (200) dispatching normally; ``degraded`` (200) the queue
-is past ``degraded_queue_frac`` of its budget or the breaker is probing;
-``open`` (503) the breaker is open; ``down`` (500) the batcher worker is
-dead. Errors: malformed request, wrong row width, a bad prompt or
-unknown version 400; backpressure, breaker open or no LM plane 503;
-deadline exceeded 504; engine failure 500. Shutdown is graceful: stop
-accepting, then drain the LM plane and the batcher, on ``stop()`` or on
-SIGINT/SIGTERM (handlers installed by ``start()`` on the main thread).
+The server fronts one engine (``ServeServer(engine)``, served as a
+pool of one replica) or a replica fleet (``ServeServer(pool=...)``,
+``serve/fleet.py``). Requests route by version pin, breaker state,
+admission control and queue depth. A fleet's ``/healthz`` reports the
+worst replica with a per-replica list; its ``/statz`` keeps the
+single-engine layout at the top (summed) and adds ``replicas``,
+``versions`` and, with a ``reload_watcher`` (``serve/reload.py``,
+started and stopped with the server), ``reload``. The ``version`` field or the ``X-Model-Version`` header pins
+a request to the replicas serving that version; ``/generate`` goes
+through ``pool.submit_lm``.
 
-Not served yet: replica fleets, hot reload and A/B pins, and with them
-``ReplicaPool.attach_lm``, ``set_lm_role`` and int8 LM serving (ROADMAP
-Queue A 4); ``GET /metrics`` and the SLO burn rate (Queue A 12).
+Health: ``ok`` (200) dispatching normally; ``degraded`` (200) the queue
+is past ``degraded_queue_frac`` of its budget, the breaker is probing,
+the latency-SLO burn rate (``slo_ms > 0``) is at or over
+``slo_burn_degraded``, or (fleet) a replica is draining, reloading or
+degraded; ``open`` (503) the breaker is open; ``down`` (500) the batcher
+worker is dead. Errors: malformed request, wrong row width, a bad
+prompt or unknown version 400; backpressure, breaker open, no healthy
+replica, admission shedding or no LM plane 503; deadline exceeded 504;
+engine failure 500. Shutdown is graceful: stop the reload watcher and
+accepting, then drain the LM planes and the batchers, on ``stop()`` or
+on SIGINT/SIGTERM (handlers installed by ``start()`` on the main
+thread).
+
+Not served yet: ``GET /metrics`` (ROADMAP Queue A 12).
 """
 
 from __future__ import annotations
@@ -40,13 +53,10 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from ..resilience import CircuitBreaker, CircuitOpen
-from .batcher import Backpressure, DeadlineExceeded, MicroBatcher
+from ..resilience import CircuitOpen
+from .batcher import Backpressure, DeadlineExceeded
 from .engine import InferenceEngine
-
-
-class UnknownVersion(ValueError):
-    """A request pinned a model version this server does not serve."""
+from .fleet import NoHealthyReplica, ReplicaPool
 
 
 class NoLMPlane(RuntimeError):
@@ -119,7 +129,8 @@ def _make_handler(server: "ServeServer"):
                     out = fut.result(timeout=server.result_timeout_s)
                     key = "prob" if kind == "raw" else "pred"
                     self._reply(200, {key: out.tolist()})
-            except (Backpressure, CircuitOpen, NoLMPlane) as e:
+            except (Backpressure, CircuitOpen, NoHealthyReplica,
+                    NoLMPlane) as e:
                 self._reply(503, {"error": str(e)})
             except DeadlineExceeded as e:
                 self._reply(504, {"error": str(e)})
@@ -173,10 +184,19 @@ def _make_handler(server: "ServeServer"):
 
 
 class ServeServer:
-    """One engine + micro-batcher + breaker behind HTTP, with a periodic
-    stats log line."""
+    """One engine (or a replica pool) behind HTTP, with a periodic stats
+    log line.
 
-    def __init__(self, engine: InferenceEngine,
+    Exactly one of ``engine`` and ``pool`` is given. An engine becomes a
+    pool of one replica (``ReplicaPool.from_engines``) with the server's
+    batcher, breaker and SLO knobs and no admission control, and
+    ``/healthz``, ``/statz`` and the log line keep the single engine's
+    layout. A pool's replicas already have their batchers, breakers and
+    SLO trackers (built by ``ReplicaPool.build``), so those knobs are
+    not used. An optional ``reload_watcher`` starts with the server,
+    stops before the drain, and shows in ``/statz`` as ``reload``."""
+
+    def __init__(self, engine: Optional[InferenceEngine] = None,
                  port: int = 0, host: str = "127.0.0.1",
                  max_batch: Optional[int] = None,
                  max_latency_ms: float = 5.0,
@@ -189,26 +209,37 @@ class ServeServer:
                  breaker_threshold: int = 5,
                  breaker_reset_s: float = 10.0,
                  degraded_queue_frac: float = 0.8,
+                 slo_ms: float = 0.0,
+                 slo_target: float = 0.99,
+                 slo_window_s: float = 60.0,
+                 slo_burn_degraded: float = 2.0,
+                 pool: Optional[ReplicaPool] = None,
+                 reload_watcher=None,
                  handle_signals: bool = True):
+        if (engine is None) == (pool is None):
+            raise ValueError("ServeServer takes exactly one of "
+                             "engine= or pool=")
+        if engine is not None:
+            pool = ReplicaPool.from_engines(
+                [engine], admission_control=False, max_batch=max_batch,
+                max_latency_ms=max_latency_ms, max_queue_rows=max_queue_rows,
+                default_timeout_ms=default_timeout_ms,
+                breaker_threshold=breaker_threshold,
+                breaker_reset_s=breaker_reset_s,
+                degraded_queue_frac=degraded_queue_frac, slo_ms=slo_ms,
+                slo_target=slo_target, slo_window_s=slo_window_s,
+                slo_burn_degraded=slo_burn_degraded)
+        # the single engine's replica, whose layout the views keep
+        self._one = pool.replicas[0] if engine is not None else None
         self.engine = engine
-        self.stats = engine.stats
+        self.batcher = self._one.batcher if self._one else None
+        self.pool = pool
+        self.reload_watcher = reload_watcher
         self.silent = silent
         self.verbose = verbose
         self.max_body_bytes = max_body_bytes
         self.result_timeout_s = result_timeout_s
         self.log_interval_s = log_interval_s
-        self.degraded_queue_frac = float(degraded_queue_frac)
-        # breaker_threshold = 0 disables circuit breaking
-        self.breaker = (CircuitBreaker(failure_threshold=breaker_threshold,
-                                       reset_timeout_s=breaker_reset_s)
-                        if breaker_threshold > 0 else None)
-        self.batcher = MicroBatcher(
-            engine, max_batch=max_batch, max_latency_ms=max_latency_ms,
-            max_queue_rows=max_queue_rows,
-            default_timeout_ms=default_timeout_ms, stats=self.stats,
-            breaker=self.breaker)
-        # the LM plane (serve/lm LMScheduler), set by attach_lm
-        self.lm = None
         self.httpd = ThreadingHTTPServer((host, port), _make_handler(self))
         self.httpd.daemon_threads = True
         self.port = self.httpd.server_address[1]
@@ -222,73 +253,78 @@ class ServeServer:
         self._stop_done = threading.Event()
         self._prev_handlers: Dict[int, object] = {}
 
+    @property
+    def lm(self):
+        """The single engine's LM plane (serve/lm LMScheduler), once
+        ``attach_lm`` brought it up; a pool keeps one per replica."""
+        return self._one.lm if self._one else None
+
     def submit(self, data, kind: str = "predict",
                node: Optional[str] = None,
                timeout_ms: Optional[float] = None,
                version: Optional[str] = None):
-        """Route one request to the batcher; a version pin must name the
-        engine's own weights."""
-        self._check_version(version)
-        return self.batcher.submit(data, kind, node, timeout_ms=timeout_ms)
-
-    def _check_version(self, version: Optional[str]) -> None:
-        if version is not None and version != self.engine.weights_version:
-            raise UnknownVersion(
-                f"no replica serves model version {version!r}; "
-                f"available: [{self.engine.weights_version!r}]")
+        """Route one request through the pool; a version pin must name
+        a version some replica serves."""
+        return self.pool.submit(data, kind, node, timeout_ms=timeout_ms,
+                                version=version)
 
     # -- LM serving plane --------------------------------------------------
     def attach_lm(self, lm_cfg) -> "ServeServer":
-        """Bring up the LM plane (a ``parse_lm_serve_config`` result):
-        one LMEngine and scheduler on this server's engine, its live
-        count registered as the batcher's idle probe and its snapshot in
-        ``/statz`` (``self.lm.set_role`` splits prefill and decode)."""
-        from .lm import LMEngine, LMScheduler
-        if self.lm is not None:
-            raise RuntimeError("LM plane already attached")
-        sched = LMScheduler(LMEngine(self.engine, lm_cfg), lm_cfg)
-        sched.start()
-        self.batcher.add_idle_probe(sched.live_count)
-        self.stats.lm = sched.snapshot
-        self.lm = sched
+        """Bring up the LM plane (a ``parse_lm_serve_config`` result) on
+        every replica (``ReplicaPool.attach_lm``): its live count is the
+        batcher's idle probe and its snapshot in ``/statz``
+        (``set_lm_role`` splits prefill and decode)."""
+        self.pool.attach_lm(lm_cfg)
         return self
 
     def submit_lm(self, prompt, max_new: Optional[int] = None,
                   deadline_ms: Optional[float] = None,
                   version: Optional[str] = None):
         """Route one generation request; returns its StreamHandle."""
-        if self.lm is None:
+        if all(r.lm is None for r in self.pool.replicas):
             raise NoLMPlane("no LM plane attached (server.attach_lm)")
-        self._check_version(version)
-        return self.lm.submit(prompt, max_new=max_new,
-                              deadline_ms=deadline_ms)
+        return self.pool.submit_lm(prompt, max_new=max_new,
+                                   deadline_ms=deadline_ms,
+                                   version=version)
 
     def health(self) -> Tuple[int, Dict]:
-        alive = self.batcher._thread.is_alive()
-        queued = self.batcher.queued_rows if alive else 0
-        queue_frac = queued / max(1, self.batcher.max_queue_rows)
-        breaker_state = (self.breaker.effective_state()
-                         if self.breaker is not None else "disabled")
-        if not alive:
-            status, code = "down", 500
-        elif breaker_state == "open":
-            status, code = "open", 503
-        elif (breaker_state == "half_open"
-              or queue_frac >= self.degraded_queue_frac):
-            status, code = "degraded", 200
-        else:
-            status, code = "ok", 200
-        return code, {"status": status, "ok": status == "ok",
-                      "breaker": breaker_state, "queued_rows": queued,
-                      "queue_frac": round(queue_frac, 4)}
+        codes = {"ok": 200, "degraded": 200, "open": 503, "down": 500}
+        if self._one is None:
+            agg = self.pool.health()
+            status = agg["status"]
+            return codes[status], {
+                "status": status, "ok": status == "ok",
+                "replicas": agg["replicas"], "versions": agg["versions"]}
+        rep = self._one
+        status = rep.health()
+        queued = rep.batcher.queued_rows if rep.alive() else 0
+        out = {"status": status, "ok": status == "ok",
+               "breaker": (rep.breaker.effective_state()
+                           if rep.breaker is not None else "disabled"),
+               "queued_rows": queued,
+               "queue_frac": round(
+                   queued / max(1, rep.batcher.max_queue_rows), 4)}
+        if rep.slo is not None:
+            out["slo_burn_rate"] = round(rep.burn_rate(), 4)
+        return codes[status], out
 
     def statz(self) -> Dict:
-        out = self.stats.snapshot()
-        if self.breaker is not None:
-            out["breaker"] = self.breaker.snapshot()
-        out["queue"] = {"rows": self.batcher.queued_rows,
-                        "max_rows": self.batcher.max_queue_rows}
-        out["version"] = self.engine.weights_version
+        reps = self.pool.replicas
+        if self._one is None:
+            out = self.pool.snapshot()
+        else:
+            rep = self._one
+            out = rep.engine.stats.snapshot()
+            if rep.breaker is not None:
+                out["breaker"] = rep.breaker.snapshot()
+            if rep.slo is not None:
+                out["slo"] = rep.slo.snapshot()
+            out["version"] = rep.version
+        out["queue"] = {"rows": sum(r.batcher.queued_rows for r in reps),
+                        "max_rows": sum(r.batcher.max_queue_rows
+                                        for r in reps)}
+        if self.reload_watcher is not None:
+            out["reload"] = self.reload_watcher.snapshot()
         return out
 
     # -- lifecycle -------------------------------------------------------
@@ -300,17 +336,31 @@ class ServeServer:
             self._log_thread = threading.Thread(
                 target=self._log_loop, daemon=True, name="serve-statlog")
             self._log_thread.start()
+        if self.reload_watcher is not None:
+            self.reload_watcher.start()
         if self.handle_signals:
             self._install_signal_handlers()
         if not self.silent:
             print(f"serving on http://{self.httpd.server_address[0]}:"
-                  f"{self.port} (/predict /extract /healthz /statz)",
-                  flush=True)
+                  f"{self.port} (/predict /extract /healthz /statz), "
+                  f"{len(self.pool.replicas)} replica(s)", flush=True)
         return self
 
     def _log_loop(self) -> None:
         while not self._log_stop.wait(self.log_interval_s):
-            print(self.stats.log_line(), flush=True)
+            print(self.log_line(), flush=True)
+
+    def log_line(self) -> str:
+        if self._one is not None:
+            return self._one.engine.stats.log_line()
+        s = self.pool.snapshot()
+        return ("serve-fleet[%dx]\tqps:%.2f\tp50_ms:%.2f\tp99_ms:%.2f"
+                "\tfill:%.3f\tok:%d\tfailed:%d\tversions:%s" % (
+                    len(self.pool.replicas), s["qps"],
+                    s["latency_ms"]["p50"], s["latency_ms"]["p99"],
+                    s["batches"]["fill_ratio"], s["requests"]["ok"],
+                    s["requests"]["failed"],
+                    ",".join(sorted(s["versions"]) or ["init"])))
 
     def _install_signal_handlers(self) -> None:
         """SIGTERM/SIGINT -> the graceful drain of ``stop()``. Main thread
@@ -338,9 +388,9 @@ class ServeServer:
         self._prev_handlers = {}
 
     def stop(self) -> None:
-        """Graceful and idempotent: stop accepting, drain the batcher,
-        print the final stats line. A second caller waits for the first
-        one's drain to finish."""
+        """Graceful and idempotent: stop the reload watcher and
+        accepting, drain the batcher(s), print the final stats line. A
+        second caller waits for the first one's drain to finish."""
         with self._stop_lock:
             if self._stopped:
                 self._stop_done.wait()
@@ -349,18 +399,17 @@ class ServeServer:
         self._stop_evt.set()
         self._log_stop.set()
         try:
+            # no weights swap may race the teardown
+            if self.reload_watcher is not None:
+                self.reload_watcher.stop()
             if self._http_thread is not None:     # serve_forever runs
                 self.httpd.shutdown()
                 self._http_thread.join(timeout=10)
             self.httpd.server_close()
-            # the LM plane first: its live sequences are what the
-            # batcher's idle probe watches
-            if self.lm is not None:
-                self.lm.stop(drain=True)
-                self.lm.engine.close()
-            self.batcher.close(drain=True)
+            # each replica's LM plane, then its batcher
+            self.pool.close(drain=True)
             if not self.silent:
-                print(self.stats.log_line(), flush=True)
+                print(self.log_line(), flush=True)
             if threading.current_thread() is threading.main_thread():
                 self._restore_signal_handlers()
         finally:

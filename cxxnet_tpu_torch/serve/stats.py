@@ -5,16 +5,22 @@ cell-cache hits (the port of ``cxxnet_tpu/serve/stats.py``).
 package's key layout, with the LM plane's block under ``lm`` once one is
 attached. The counters are plain integers behind a lock;
 the Prometheus ``/metrics`` registry that the JAX package exports them
-through waits for ROADMAP Queue A 12. Thread-safe: the batcher worker,
-the HTTP handler threads and the engine all write here.
+through waits for ROADMAP Queue A 12. Each instance has its own
+``instance`` id, so the replicas of a fleet stay distinguishable, and an
+optional :class:`telemetry.SLOTracker` (``slo``) that every terminal
+outcome is also recorded in. Thread-safe: the batcher worker, the HTTP
+handler threads and the engine all write here.
 """
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from collections import deque
 from typing import Dict, List, Optional
+
+_INSTANCE_SEQ = itertools.count()
 
 
 class ServingStats:
@@ -32,6 +38,7 @@ class ServingStats:
 
     def __init__(self, max_samples: int = 4096, qps_window_s: float = 60.0):
         self._lock = threading.Lock()
+        self.instance = str(next(_INSTANCE_SEQ))
         self._t0 = time.time()
         self.qps_window_s = qps_window_s
         self._lat: deque = deque(maxlen=max_samples)       # seconds
@@ -41,6 +48,9 @@ class ServingStats:
         # the LM plane's snapshot (LMScheduler.snapshot), set by
         # ServeServer.attach_lm; /statz shows it as "lm"
         self.lm = None
+        # the latency-SLO tracker (telemetry.SLOTracker), set by the
+        # server or the fleet when serve_slo_ms > 0
+        self.slo = None
 
     def _add(self, **deltas: int) -> None:
         with self._lock:
@@ -55,9 +65,13 @@ class ServingStats:
         key = {"backpressure": "rejected_backpressure",
                "breaker": "rejected_breaker"}.get(kind, "rejected_deadline")
         self._add(**{key: 1})
+        if self.slo is not None:        # a rejected client missed the SLO
+            self.slo.record(ok=False)
 
     def record_failure(self) -> None:
         self._add(failed=1)
+        if self.slo is not None:
+            self.slo.record(ok=False)
 
     def record_done(self, latency_s: float) -> None:
         now = time.time()
@@ -65,6 +79,8 @@ class ServingStats:
             self.requests_ok += 1
             self._lat.append(latency_s)
             self._done_ts.append(now)
+        if self.slo is not None:
+            self.slo.record(latency_s=latency_s, ok=True)
 
     def record_batch(self, n_requests: int, rows_real: int,
                      rows_bucket: int) -> None:
@@ -90,6 +106,16 @@ class ServingStats:
                 self.cache_capacity = capacity
 
     # -- reading ---------------------------------------------------------
+    def latency_samples(self) -> List[float]:
+        """Copy of the latency reservoir (seconds): a fleet pools these
+        across replicas, so its percentiles come from the pooled
+        observations, not from averaged percentiles."""
+        with self._lock:
+            return list(self._lat)
+
+    def snapshot_uptime(self) -> float:
+        return max(time.time() - self._t0, 1e-9)
+
     def recent_qps(self) -> float:
         """Completions per second over the rolling window."""
         now = time.time()
@@ -112,7 +138,7 @@ class ServingStats:
         with self._lock:
             lat = sorted(self._lat)
             c = {k: getattr(self, k) for k in self._COUNTERS}
-        uptime = max(time.time() - self._t0, 1e-9)
+        uptime = self.snapshot_uptime()
         qps = self.recent_qps()
         fill = c["rows_real"] / c["rows_padded"] if c["rows_padded"] else 0.0
         rpb = (c["requests_batched"] / c["batches_dispatched"]

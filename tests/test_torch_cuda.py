@@ -1563,3 +1563,193 @@ def test_lm_scheduler_on_the_card_is_bit_equal_to_generate_whole(dev):
     assert got == want
     assert lme.block_pool.used == 0
     assert lme.compile_info()["misses"] == warm
+
+
+# -- the serving fleet on one card ----------------------------------------------
+
+def _int8_pool(tmp_path, n=2):
+    """The narrow 224 Inception-BN of :func:`_narrow_224` quantized by the
+    port's PTQ over N(0, 1) rows, as ``n`` int8 replicas on the card."""
+    from chip_smoke import quantize_served
+    from cxxnet_tpu_torch import checkpoint as ckpt
+    from cxxnet_tpu_torch.serve import ReplicaPool
+    text = _narrow_224(tmp_path)
+    conf = tmp_path / "narrow.conf"
+    qpath, _ = quantize_served(str(conf), str(tmp_path / "0001.model"), 3,
+                               str(tmp_path / "int8.model"), batch=8)
+    pool = ReplicaPool.build(text, n, blob=ckpt.load_for_inference(qpath),
+                             dtype="int8", buckets="1,8", max_batch=8)
+    return pool
+
+
+def _hammer(fns, reps):
+    """Each ``fns[i]`` called ``reps`` times on a thread of its own, all
+    at once; the results by thread."""
+    import threading
+    outs = [[] for _ in fns]
+    go = threading.Barrier(len(fns))
+
+    def run(i):
+        go.wait()
+        for _ in range(reps):
+            outs[i].append(fns[i]())
+    ts = [threading.Thread(target=run, args=(i,)) for i in range(len(fns))]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=300)
+    return outs
+
+
+def test_int8_replicas_on_one_card_are_bit_equal_to_serial(dev, tmp_path):
+    """Two int8 replicas on the one card dispatch at once from their own
+    threads (the device's default stream, as the fleet leaves it): every
+    answer bit-equal to the same request run alone, with q_mm splitting
+    K (the shared split_scratch workspace in use)."""
+    import numpy as np
+    from cxxnet_tpu_torch.ops import reset_launches
+    pool = _int8_pool(tmp_path)
+    try:
+        rs = np.random.RandomState(5)
+        reqs = [rs.randn(n, 3 * 224 * 224).astype(np.float32)
+                for n in (1, 8, 3, 8)]
+        engs = [r.engine for r in pool.replicas]
+        assert {e.net.device for e in engs} == {torch.device("cuda", 0)}
+        want = [engs[0].predict_raw(x) for x in reqs]
+        assert all(np.array_equal(engs[1].predict_raw(x), w)
+                   for x, w in zip(reqs, want))
+        fq.reset_q_mm_variants()
+        reset_launches()
+        outs = _hammer([lambda e=e: [e.predict_raw(x) for x in reqs]
+                        for e in engs], reps=5)
+        assert KERNELS["q_mm"].launches == 70 * 2 * 5 * len(reqs)
+        assert any(not v.endswith("x1") for v in fq.Q_MM_VARIANTS)
+        for per_thread in outs:
+            for got in per_thread:
+                assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    finally:
+        pool.close()
+
+
+def test_int8_lm_decode_on_two_replicas_is_bit_equal_to_serial(dev):
+    """LM_TINY with its head quantized by the port's PTQ, one LM plane per
+    replica of an int8 pool on the card: decode steps run at once on both
+    give the serial steps' tokens and logits bit for bit, the head through
+    q_mm (one launch a step) at 3 rows, K 32, N 16."""
+    import numpy as np
+    from cxxnet_tpu_torch.config import (parse_config_string,
+                                         parse_lm_serve_config,
+                                         parse_quant_config)
+    from cxxnet_tpu_torch.convert import params_to_jax
+    from cxxnet_tpu_torch.graph import build_graph
+    from cxxnet_tpu_torch.model import Network
+    from cxxnet_tpu_torch.ops import reset_launches
+    from cxxnet_tpu_torch.quant import quantize_blob
+    from cxxnet_tpu_torch.serve import ReplicaPool
+    text = LM_TINY + "compute_dtype = float32\ndev = gpu\n"
+    cfg = parse_config_string(text)
+    net = Network(build_graph(cfg), cfg, device=dev)
+    params, state = net.init(torch.Generator(device=dev).manual_seed(0))
+    params["tok_embed"]["wmat"] *= 50.0
+    params["lm_head"]["wmat"] *= 1e4
+    p_np, s_np = params_to_jax(params, state)
+    rs = np.random.RandomState(2)
+    calib = [rs.randint(0, 16, (4, 1, 1, 64)).astype(np.float32)]
+    qblob, _ = quantize_blob(net, {"params": p_np, "state": s_np,
+                                   "meta": {"round": 0}}, calib,
+                             parse_quant_config([]))
+    lc = parse_lm_serve_config([
+        ("kv_block_size", "4"), ("kv_pool_blocks", "64"),
+        ("lm_serve_max_seqs", "3"), ("lm_serve_max_context", "64"),
+        ("lm_serve_prefill_chunk", "8")])
+    pool = ReplicaPool.build(text, 2, blob=qblob, dtype="int8", buckets="1",
+                             max_batch=1)
+    try:
+        pool.attach_lm(lc)
+        lmes = [r.lm.engine for r in pool.replicas]
+        B, T = lc.max_seqs, lmes[0].T
+        tables = np.arange(1, 1 + B * T, dtype=np.int32).reshape(B, T) % 63 + 1
+        ids = rs.randint(1, 16, (B, 1)).astype(np.int32)
+        pos = np.asarray([[5], [17], [40]], np.int32)
+        step = lambda e: [t.cpu().numpy() for t in e.step(
+            ids, pos, tables, pos[:, 0] + 1, np.zeros((B,), np.int32))]
+        want = step(lmes[0])
+        reset_launches()
+        outs = _hammer([lambda e=e: step(e) for e in lmes], reps=20)
+        assert KERNELS["q_mm"].launches == 2 * 20
+        for per_thread in outs:
+            for tok, last in per_thread:
+                assert np.array_equal(tok, want[0])
+                assert np.array_equal(last, want[1])
+    finally:
+        pool.close()
+
+
+def test_a_swap_between_dispatches_never_mixes_params_and_state(dev):
+    """A bf16 conv-BN net on the card swapped between two rounds (other
+    weights, other BN statistics) by one thread while another dispatches:
+    every answer is one round's, bit for bit."""
+    import threading
+    import time
+    import numpy as np
+    from cxxnet_tpu_torch.config import parse_config_string
+    from cxxnet_tpu_torch.convert import params_to_jax
+    from cxxnet_tpu_torch.graph import build_graph
+    from cxxnet_tpu_torch.model import Network, calibrate_bn
+    from cxxnet_tpu_torch.serve import InferenceEngine
+    text = """
+netconfig=start
+layer[+1:c1] = conv:cv1
+  kernel_size = 3
+  nchannel = 16
+  pad = 1
+layer[+1:b1] = batch_norm:bn1
+layer[+1:r1] = relu
+layer[+1:p1] = avg_pooling
+  kernel_size = 8
+  stride = 8
+layer[+1:f1] = flatten
+layer[+1:o] = fullc:fc1
+  nhidden = 10
+layer[+0] = softmax
+netconfig=end
+input_shape = 3,8,8
+compute_dtype = bfloat16
+dev = gpu
+"""
+    cfg = parse_config_string(text)
+    rounds = []
+    for seed in (1, 2):
+        net = Network(build_graph(cfg), cfg, device=dev)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        p, s = net.init(g)
+        net.load_weights(p, s)
+        x = torch.randn((16, 8, 8, 3), generator=g, device=dev) * seed
+        rounds.append(params_to_jax(p, calibrate_bn(net, x)))
+    eng = InferenceEngine(net, buckets="8", max_batch=8)
+    x = np.random.RandomState(0).randn(8, 3 * 64).astype(np.float32)
+    want = []
+    for r, (p, s) in enumerate(rounds):
+        eng.swap_weights(p, s, r)
+        want.append(eng.predict_raw(x))
+    assert np.abs(want[0] - want[1]).max() > 1e-3
+    stop, bad, n = threading.Event(), [], [0]
+
+    def swapper():
+        r = 0
+        while not stop.is_set():
+            r ^= 1
+            eng.swap_weights(*rounds[r], r)
+    t = threading.Thread(target=swapper)
+    t.start()
+    try:
+        t_end = time.time() + 3
+        while time.time() < t_end:
+            got = eng.predict_raw(x)
+            n[0] += 1
+            if not any(np.array_equal(got, w) for w in want):
+                bad.append(got)
+    finally:
+        stop.set()
+        t.join()
+    assert n[0] > 50 and not bad

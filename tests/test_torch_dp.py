@@ -345,7 +345,8 @@ def test_serve_on_several_cards_names_the_fleet(monkeypatch):
                                           torch.device("cuda", 1)]
     assert resolve_devices("gpu:0,2") == [torch.device("cuda", 0),
                                           torch.device("cuda", 2)]
-    with pytest.raises(ConfigError, match="Queue A 4"):
+    with pytest.raises(ConfigError,
+                       match="Queue A 4: replicas over several cards"):
         resolve_device("gpu:0-1")
 
 

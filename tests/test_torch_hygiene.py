@@ -66,7 +66,10 @@ def test_port_files_exist():
             "cxxnet_tpu_torch/io/augment.py",
             "cxxnet_tpu_torch/io/iter_imgrec.py",
             "cxxnet_tpu_torch/io/iter_img.py",
-            "cxxnet_tpu_torch/ops/fused_stem.py"} <= names
+            "cxxnet_tpu_torch/ops/fused_stem.py",
+            "cxxnet_tpu_torch/serve/fleet.py",
+            "cxxnet_tpu_torch/serve/reload.py",
+            "cxxnet_tpu_torch/telemetry/slo.py"} <= names
     csrc = {os.path.basename(p) for p in glob.glob(
         os.path.join(REPO, "cxxnet_tpu_torch", "csrc", "*.cu"))}
     assert {"lrn_fwd.cu", "lrn_bwd.cu", "pool_bwd_max.cu", "q_mm.cu",
@@ -145,7 +148,7 @@ def test_lm_train_entry_point_without_cuda_raises(no_cuda):
 def test_other_tasks_and_fleet_keys_name_the_roadmap(tmp_path):
     conf = tmp_path / "ibn.conf"
     conf.write_text(IBN_TEXT)
-    for args in (["task=data_reader"], ["task=serve", "serve_replicas=2"],
+    for args in (["task=data_reader"],
                  ["task=serve", "cascade_enable=1"],
                  ["task=serve", "deploy_enable=1"]):
         with pytest.raises(ValueError, match="ROADMAP"):
