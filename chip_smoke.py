@@ -473,6 +473,37 @@ and prints no result:
             ``live_count`` probe), and the KV pools are empty after.
             Printed: the int8 decode step at 8 live rows (ms, launches,
             profile) beside phase 16's bf16 one.
+18. cascade: run right after phase 17 on its round A and the int8
+            round (c) derived from it (``phase_cascade``), full-width
+            Inception-BN through ``main.run``. (a) ``cascade_enable =
+            1``, ``cascade_model`` the int8 round, one replica a tier on
+            ``cuda:0``, ``cascade_threshold`` between the two middle
+            margins of an int8 engine over the request rows (phase 17's
+            FLEET_SIZES requests, 1 to 32 rows): no request fails, each
+            answer row within FLEET_ROW_TOL rel L2 of the int8 engine's
+            where it stays and of the bf16 engine's where it escalates
+            (either, within CASCADE_BAND of the threshold), the
+            escalation count the mask's outside that band, and
+            ``q_mm`` (70 a fast forward), ``pool_fwd`` and
+            ``epilogue_fwd`` launched between the first request and the
+            last; then closed-loop in-process load (CASCADE_CLIENTS,
+            CASCADE_CLOSED_S) on the cascade and on its bf16 flagship
+            replica alone (version-pinned), over the same requests.
+            (b) ``deploy_enable = 1`` over two bf16 replicas,
+            ``deploy_poll_s = 0``, DEPLOY_WINDOW_S and DEPLOY_BACKOFF_S,
+            ticked through the server's ``reload_watcher`` while
+            DEPLOY_CLIENTS in-process clients keep load on it: round A
+            times 1 + DEPLOY_NOISE N(0, 1) canaries, then promotes, and
+            both replicas answer within FLEET_ROW_TOL of one engine on
+            it; NaN in DEPLOY_NAN_LAYER's weights is blocked naming that
+            layer; fc1's columns permuted (finite, SUSPECT) canaries and
+            rolls back on the parity gate, the canary's answers bit-equal
+            to its answers before the canary, and the backoff refuses
+            the round again; no request fails; ``pool_fwd`` and
+            ``epilogue_fwd`` launched. (c) Printed: the escalation rate,
+            the cascade's answers/s and latency beside the flagship's
+            alone, and the canary, promote, blocked and rollback ticks'
+            seconds, beside the card's name and power limit.
 
 Then, on lines of their own: the card's name and power limit as
 ``nvidia-smi`` reports them, the kernels JSON line, and last
@@ -6796,6 +6827,15 @@ def land(src: str, model_dir: str, r: int) -> str:
     return dst
 
 
+def fleet_rows(conf: str, seed: int):
+    """The request rows of phases 17 and 18: FLEET_SIZES rows each, on a
+    1/8 grid of N(0, 1)."""
+    c, y, x = [int(v) for v in
+               dict(_serve_cfg(conf, []))["input_shape"].split(",")]
+    return [(np.round(served_rows(seed + 50 + k, n, c * y * x) * 8) / 8)
+            .astype(np.float32) for k, n in enumerate(FLEET_SIZES)]
+
+
 def _row_rel(got, want) -> np.ndarray:
     return np.linalg.norm(got - want, axis=1) / np.linalg.norm(want, axis=1)
 
@@ -6832,11 +6872,7 @@ def fleet_reload(conf: str, seed: int, fdir: str, dev) -> dict:
     os.makedirs(stage)
     ra = write_round(conf, seed + 40, models, dev, round_counter=1)
     rb = write_round(conf, seed + 41, stage, dev, round_counter=2)
-    c, y, x = [int(v) for v in
-               dict(_serve_cfg(conf, []))["input_shape"].split(",")]
-    rows = [np.round(served_rows(seed + 50 + k, n, c * y * x) * 8) / 8
-            for k, n in enumerate(FLEET_SIZES)]
-    rows = [r.astype(np.float32) for r in rows]
+    rows = fleet_rows(conf, seed)
     bodies = [json.dumps({"data": r.tolist(), "raw": 1}).encode()
               for r in rows]
     kw = dict(buckets=",".join(map(str, BUCKETS)), max_batch=BUCKETS[-1])
@@ -7437,6 +7473,339 @@ def phase_fleet(conf: str, seed: int, tmp: str, lm_serve: dict,
     return notes
 
 
+# -- phase 18 -----------------------------------------------------------------
+
+#: (a): kernels the cascade's two tiers launch (int8: q_mm, pool_fwd,
+#: epilogue_fwd; bf16: pool_fwd, epilogue_fwd)
+CASCADE_KERNELS = ("q_mm",) + SERVE_KERNELS
+#: (a): rows whose int8 margin lies this close to the threshold may go
+#: either way
+CASCADE_BAND = 1e-6
+CASCADE_CLIENTS = 8         # (a): closed-loop in-process clients
+CASCADE_CLOSED_S = 4.0      # (a): seconds of closed-loop load, each arm
+#: (b): the canary window and the backoff after a rejection (s), the
+#: conv whose weights the blocked round poisons, the relative noise of
+#: the sane round, and the in-process clients that keep load on the fleet
+DEPLOY_WINDOW_S = 0.5
+DEPLOY_BACKOFF_S = 1.0
+DEPLOY_NAN_LAYER = "cv_3a_3x3"
+DEPLOY_NOISE = 1e-3
+DEPLOY_CLIENTS = 2
+
+
+def cascade_serve(conf: str, seed: int, ra: str, qpath: str) -> dict:
+    """(a): the two-tier cascade through ``main.run`` (``cascade_enable =
+    1``): the int8 round ``qpath`` as the fast tier, round ``ra`` in bf16
+    as the flagship, one replica each on the card, the threshold between
+    the two middle int8 margins over the request rows."""
+    from cxxnet_tpu_torch.ops import KERNELS, reset_launches
+    from cxxnet_tpu_torch.serve import InferenceEngine, row_confidence
+    rows = fleet_rows(conf, seed)
+    bodies = [json.dumps({"data": r.tolist(), "raw": 1}).encode()
+              for r in rows]
+    kw = dict(buckets=",".join(map(str, BUCKETS)), max_batch=BUCKETS[-1])
+    eng = InferenceEngine.from_checkpoint(_serve_cfg(conf, []), qpath,
+                                          dtype="int8", **kw)
+    want_fast = [eng.predict_raw(r) for r in rows]
+    confs = [row_confidence(p) for p in want_fast]
+    m = np.sort(np.concatenate(confs))
+    thr = float((m[len(m) // 2 - 1] + m[len(m) // 2]) / 2)
+    # the flagship's answers to the rows that escalate, sent as the
+    # router sends them (one request of those rows: the bf16 forward
+    # differs in the last bits from bucket to bucket), and to every row
+    # for those within CASCADE_BAND, which may go either way
+    eng = InferenceEngine.from_checkpoint(_serve_cfg(conf, []), ra, **kw)
+    want_flag = []
+    for r, c in zip(rows, confs):
+        w = eng.predict_raw(r)
+        if (c < thr).any():
+            w[c < thr] = eng.predict_raw(r[c < thr])
+        want_flag.append(w)
+    del eng
+    srv, t = start_serve(_serve_cfg(conf, [
+        "task=serve", f"model_in={ra}", "serve_port=0",
+        f"serve_buckets={','.join(map(str, BUCKETS))}",
+        f"serve_max_batch={BUCKETS[-1]}", "serve_max_latency_ms=2",
+        "cascade_enable=1", f"cascade_model={qpath}",
+        f"cascade_threshold={thr!r}", "silent=1"]))
+    pool = srv.pool
+    fwd = [[0] for _ in pool.replicas]
+    for rep, n in zip(pool.replicas, fwd):
+        _count_calls(rep.engine, "run_padded", n)
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        tiers = [r.version for r in pool.replicas]
+        reset_launches()
+        boxes = []
+        for k, body in enumerate(bodies):
+            box = {"k": k}
+            _post_bytes(base + "/predict", body, box)
+            boxes.append(box)
+        torch.cuda.synchronize()
+        launches = {k: KERNELS[k].launches for k in CASCADE_KERNELS}
+        n_fwd = [n[0] for n in fwd]
+        stats = pool.cascade_stats()
+        # the cost: the cascade beside the flagship replica alone (the
+        # same replica, pinned), over the same requests
+        casc = closed_loop(lambda r: srv.submit(r, "raw"), rows,
+                           CASCADE_CLIENTS, CASCADE_CLOSED_S)
+        alone = closed_loop(
+            lambda r: srv.submit(r, "raw", version=pool.flagship_version),
+            rows, CASCADE_CLIENTS, CASCADE_CLOSED_S)
+        statz = _get(base + "/statz")
+    finally:
+        stop_serve(srv, t)
+    fails = [b["error"] for b in boxes if "error" in b]
+    bad, worst, sure_esc, band = [], 0.0, 0, 0
+    for b in boxes:
+        k, c = b["k"], confs[b["k"]]
+        near = np.abs(c - thr) <= CASCADE_BAND
+        esc = c < thr
+        band += int(near.sum())
+        sure_esc += int((esc & ~near).sum())
+        e_fast = _row_rel(b["prob"], want_fast[k])
+        e_flag = _row_rel(b["prob"], want_flag[k])
+        own = np.where(esc, e_flag, e_fast)
+        own = np.where(near, np.minimum(e_fast, e_flag), own)
+        worst = max(worst, float(own.max()))
+        if (own > FLEET_ROW_TOL).any():
+            bad.append((k, float(e_fast.max()), float(e_flag.max()),
+                        esc.tolist()))
+    total = sum(r.shape[0] for r in rows)
+    per = Q_MM_PER_FORWARD["inception_bn"]
+    failed = stats["failed"] + sum(v["failed"]
+                                   for v in statz["versions"].values())
+    if fails or failed or bad or tiers != ["r0001-int8", "r0001"]:
+        raise AssertionError(
+            f"(a) failures {fails[:3]} (failed outcomes {failed}); "
+            f"answers off their tier's engine {bad[:3]}; tiers {tiers}")
+    if stats["rows"] != total or not sure_esc <= stats["rows_escalated"] \
+            <= sure_esc + band or not 0 < stats["rows_escalated"] < total:
+        raise AssertionError(
+            f"(a) cascade_stats {stats}: want rows {total}, escalated "
+            f"{sure_esc} (+{band} within {CASCADE_BAND} of {thr})")
+    if 0 in launches.values() or launches["q_mm"] != per * n_fwd[0] \
+            or 0 in n_fwd:
+        raise AssertionError(
+            f"(a) launches {launches} over forwards {n_fwd} (fast, "
+            f"flagship); want q_mm {per} a fast forward and every kernel")
+    return {"threshold": thr, "rows": total, "requests": len(boxes),
+            "rows_escalated": stats["rows_escalated"],
+            "requests_escalated": stats["requests_escalated"],
+            "escalation_rate": stats["escalation_rate"], "band": band,
+            "worst": worst, "forwards": n_fwd, "launches": launches,
+            "cascade": casc, "flagship_alone": alone,
+            "closed_escalation_rate":
+                statz["cascade"]["escalation_rate"]}
+
+
+def derive_round(conf: str, src: str, out: str, r: int, edit) -> str:
+    """Round ``r`` at ``out``: round ``src``'s params passed through
+    ``edit`` (JAX layout, in place), its BN state as it is."""
+    from cxxnet_tpu_torch import checkpoint as ckpt
+    from cxxnet_tpu_torch.graph import build_graph
+    blob = ckpt.load_for_inference(src)
+    params = {k: {kk: np.array(vv) for kk, vv in v.items()}
+              for k, v in blob["params"].items()}
+    edit(params)
+    ckpt.save_model(
+        out, structure_sig=build_graph(_serve_cfg(conf, []))
+        .structure_signature(), round_counter=r, epoch_counter=0,
+        params=params, net_state=blob["state"])
+    return out
+
+
+def deploy_loop(conf: str, seed: int, fdir: str, ra: str) -> dict:
+    """(b): the deployment controller through ``main.run``
+    (``deploy_enable = 1``, two bf16 replicas, ``deploy_poll_s = 0``),
+    ticked through the server's ``reload_watcher`` while in-process
+    clients keep load on the fleet: a sane round canaries and promotes,
+    a round with NaN in one conv is blocked naming it, a round with
+    fc1's columns permuted canaries and rolls back, and the backoff
+    refuses it again."""
+    from cxxnet_tpu_torch.ops import KERNELS, reset_launches
+    from cxxnet_tpu_torch.serve import InferenceEngine
+    models, stage = os.path.join(fdir, "deploy"), os.path.join(fdir, "dstage")
+    os.makedirs(models)
+    os.makedirs(stage)
+    land(ra, models, 1)
+    rs = np.random.RandomState(seed + 60)
+
+    def noise(p):
+        for lp in p.values():
+            for k, v in lp.items():
+                lp[k] = (v * (1 + DEPLOY_NOISE * rs.standard_normal(
+                    v.shape))).astype(np.float32)
+    sane = derive_round(conf, ra, os.path.join(stage, "sane"), 2, noise)
+
+    def poison(p):
+        p[DEPLOY_NAN_LAYER]["wmat"].flat[0] = np.nan
+    nan = derive_round(conf, sane, os.path.join(stage, "nan"), 3, poison)
+
+    def permute(p):
+        order = np.roll(np.arange(p["fc1"]["bias"].shape[0]), 1)
+        p["fc1"]["wmat"] = p["fc1"]["wmat"][:, order]
+        p["fc1"]["bias"] = p["fc1"]["bias"][order]
+    perm = derive_round(conf, sane, os.path.join(stage, "perm"), 4, permute)
+    rows = fleet_rows(conf, seed)
+    kw = dict(buckets=",".join(map(str, BUCKETS)), max_batch=BUCKETS[-1])
+    eng = InferenceEngine.from_checkpoint(_serve_cfg(conf, []), sane, **kw)
+    want_sane = eng.predict_raw(rows[-1])
+    del eng
+    srv, t = start_serve(_serve_cfg(conf, [
+        "task=serve", f"model_in={ra}", f"model_dir={models}",
+        "serve_port=0", f"serve_buckets={','.join(map(str, BUCKETS))}",
+        f"serve_max_batch={BUCKETS[-1]}", "serve_max_latency_ms=2",
+        "serve_replicas=2", "deploy_enable=1", "deploy_poll_s=0",
+        f"deploy_window_s={DEPLOY_WINDOW_S}",
+        f"deploy_backoff_s={DEPLOY_BACKOFF_S}", "silent=1"]))
+    pool, ctl = srv.pool, srv.reload_watcher
+    stop, errors, answered = threading.Event(), [], [0]
+
+    def client(c):
+        j = c
+        while not stop.is_set():
+            try:
+                srv.submit(rows[j % len(rows)], "raw").result(timeout=300)
+                answered[0] += 1
+            except BaseException as e:      # reported below
+                errors.append(repr(e))
+            j += 1
+
+    def tick(want: str, limit_s: float = 60.0):
+        """Tick until an action; returns (it, the seconds of the tick
+        that took it)."""
+        t_end = time.perf_counter() + limit_s
+        while time.perf_counter() < t_end:
+            t0 = time.perf_counter()
+            act = ctl.check_once()
+            took = time.perf_counter() - t0
+            if act:
+                if act != want:
+                    raise AssertionError(f"(b) {act!r}, want {want!r}: "
+                                         f"{ctl.last_incident}")
+                return took
+            time.sleep(0.02)
+        raise AssertionError(f"(b) no {want!r} within {limit_s} s")
+
+    versions = lambda: [r.version for r in pool.replicas]
+    ts = [threading.Thread(target=client, args=(c,), daemon=True)
+          for c in range(DEPLOY_CLIENTS)]
+    try:
+        reset_launches()
+        for th in ts:
+            th.start()
+        out = {}
+        land(sane, models, 2)
+        out["canary_s"] = tick("canary")
+        out["canary_versions"] = versions()
+        out["promote_s"] = tick("promote")
+        promoted = versions()
+        sane_err = max(float(_row_rel(r.engine.predict_raw(rows[-1]),
+                                      want_sane).max())
+                       for r in pool.replicas)
+        land(nan, models, 3)
+        out["blocked_s"] = tick("blocked")
+        blocked = dict(ctl.last_incident)
+        after_block = versions()
+        before = pool.replicas[0].engine.predict_raw(rows[-1])
+        land(perm, models, 4)
+        out["suspect_canary_s"] = tick("canary")
+        suspect = ctl.snapshot()["canary"]
+        out["rollback_s"] = tick("rollback")
+        rolled = dict(ctl.last_incident)
+        after = pool.replicas[0].engine.predict_raw(rows[-1])
+        time.sleep(2 * DEPLOY_BACKOFF_S)
+        again = ctl.check_once()
+        snap = ctl.snapshot()
+        final = versions()
+    finally:
+        stop.set()
+        for th in ts:
+            th.join(timeout=300)
+        torch.cuda.synchronize()
+        launches = {k: KERNELS[k].launches for k in SERVE_KERNELS}
+        stop_serve(srv, t)
+    if errors or not answered[0]:
+        raise AssertionError(f"(b) {len(errors)} requests failed "
+                             f"({errors[:3]}), {answered[0]} answered")
+    if out["canary_versions"] != ["r0002", "r0001"] \
+            or promoted != ["r0002"] * 2 or not sane_err <= FLEET_ROW_TOL:
+        raise AssertionError(
+            f"(b) sane round: canary {out['canary_versions']}, promoted "
+            f"{promoted}, answers {sane_err:.3g} from one engine on it")
+    if blocked["gate"] != "offline" or blocked["layers"] \
+            != [DEPLOY_NAN_LAYER] or not blocked["provenance"].startswith(
+                f"layer={DEPLOY_NAN_LAYER} ") or after_block != promoted:
+        raise AssertionError(f"(b) NaN round: {blocked}, replicas "
+                             f"{after_block}")
+    if not suspect["suspect"] or rolled["gate"] != "parity" \
+            or not rolled["rolled_back"] or not np.array_equal(after, before) \
+            or again != "" or snap["rejected_rounds"] != [3, 4] \
+            or final != ["r0002"] * 2 or snap["promotions"] != 1 \
+            or snap["rollbacks"] != 1 or 0 in launches.values():
+        raise AssertionError(
+            f"(b) permuted round: canary {suspect}, incident {rolled}, "
+            f"canary bit-equal after the rollback "
+            f"{np.array_equal(after, before)}, tick after the backoff "
+            f"{again!r}, controller {snap}, replicas {final}, launches "
+            f"{launches}")
+    out.update(sane_worst=sane_err, blocked=blocked["reason"],
+               rollback=rolled["reason"], answered=answered[0],
+               launches=launches, window_s=suspect["window_s"])
+    return out
+
+
+def phase_cascade(conf: str, seed: int, tmp: str, smi_line: str) -> dict:
+    """Phase 18: the two-tier cascade and the deployment controller at
+    full width, (a)-(c) of the docstring, on phase 17's round A and its
+    int8 derivation."""
+    t_phase = time.perf_counter()
+    fdir = os.path.join(tmp, "fleet")
+    ra = os.path.join(fdir, "models", "0001.model")
+    qpath = os.path.join(fdir, "int8", "0001.model")
+    a = cascade_serve(conf, seed, ra, qpath)
+    b = deploy_loop(conf, seed, fdir, ra)
+    notes = {"cascade": a, "deploy": b,
+             "seconds": time.perf_counter() - t_phase, "card": smi_line}
+    casc, alone = a["cascade"], a["flagship_alone"]
+    print(f"cascade: (a) full-width Inception-BN through main.run "
+          f"(cascade_enable=1): r0001-int8 (q_mm) answers first, r0001 in "
+          f"bf16 takes rows under cascade_threshold {a['threshold']:.6g} "
+          f"(the median int8 margin), one replica each on cuda:0; "
+          f"{a['requests']} /predict requests ({a['rows']} rows, sizes "
+          f"{sorted(set(FLEET_SIZES))}): 0 failed, {a['rows_escalated']} "
+          f"rows escalated in {a['requests_escalated']} requests "
+          f"(escalation rate {a['escalation_rate']:.4g}, {a['band']} rows "
+          f"within {CASCADE_BAND} of the threshold), every row within "
+          f"{FLEET_ROW_TOL} rel L2 of its tier's engine (worst "
+          f"{a['worst']:.3g}), forwards (fast, flagship) {a['forwards']}, "
+          f"launches {a['launches']} | closed loop in process "
+          f"({CASCADE_CLIENTS} clients, {CASCADE_CLOSED_S:.0f} s, the same "
+          f"requests): cascade {casc['answers_per_s']:.1f} answers/s "
+          f"({casc['rows_per_s']:.1f} rows/s, {casc['latency']}, escalation "
+          f"rate {a['closed_escalation_rate']:.4g}); the bf16 flagship "
+          f"replica alone {alone['answers_per_s']:.1f} answers/s "
+          f"({alone['rows_per_s']:.1f} rows/s, {alone['latency']}) | "
+          f"{smi_line}", flush=True)
+    print(f"cascade: (b) deploy_enable=1 over 2 bf16 replicas "
+          f"(deploy_window_s {DEPLOY_WINDOW_S}, backoff "
+          f"{DEPLOY_BACKOFF_S} s), {DEPLOY_CLIENTS} in-process clients, "
+          f"{b['answered']} answered, 0 failed: a sane round (x(1 + "
+          f"{DEPLOY_NOISE} N(0, 1))) canaried in {b['canary_s']:.3f} s and "
+          f"promoted in {b['promote_s']:.3f} s (both replicas within "
+          f"{FLEET_ROW_TOL} of one engine on it, worst "
+          f"{b['sane_worst']:.3g}); NaN in {DEPLOY_NAN_LAYER} blocked in "
+          f"{b['blocked_s']:.3f} s ({b['blocked'][:90]}); fc1's columns "
+          f"permuted: SUSPECT canary ({b['window_s']:.3g} s window) in "
+          f"{b['suspect_canary_s']:.3f} s, rolled back in "
+          f"{b['rollback_s']:.3f} s ({b['rollback']}), the canary's answers "
+          f"bit-equal to before, refused again after the backoff; "
+          f"launches {b['launches']} | phase {notes['seconds']:.1f}s | "
+          f"{smi_line}", flush=True)
+    return notes
+
+
 # -- main ---------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -7515,6 +7884,8 @@ def main(argv=None) -> int:
         mark("lm serve")
         fleet = phase_fleet(args.conf, args.seed, tmp, lm_serve, smi_line)
         mark("fleet")
+        cascade = phase_cascade(args.conf, args.seed, tmp, smi_line)
+        mark("cascade")
     lm_times = phase_lm_times(tr, kern, plain_tr, lm_batches, gen)
     mark("lm")
     del tr, kern, plain_tr
@@ -7607,6 +7978,7 @@ def main(argv=None) -> int:
               "lm": lm_notes, "lm_profile": lm_times["profile"],
               "lm_serve": lm_serve,
               "fleet": fleet,
+              "cascade": cascade,
               "adam_inception_bn": {kk: vv for kk, vv in
                                     lm_times["adam_ibn"].items()
                                     if kk != "bound"},

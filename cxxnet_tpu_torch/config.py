@@ -123,13 +123,6 @@ class ServeConfig:
         return self.replicas > 1 or self.reload_s > 0 or self.ab > 0
 
 
-#: config-key prefixes of features the port does not serve yet
-_NOT_YET_PREFIXES = {
-    "cascade_": "Queue A 4 (int8 cascade serving)",
-    "deploy_": "Queue A 4 (closed-loop deployment)",
-}
-
-
 def _same_value(a: str, b: str) -> bool:
     try:
         return float(a) == float(b)
@@ -139,8 +132,9 @@ def _same_value(a: str, b: str) -> bool:
 
 def parse_serve_config(cfg: ConfigPairs) -> ServeConfig:
     """Collect and validate the ``serve_*`` keys (last occurrence wins;
-    unknown keys raise). The ``cascade_*`` and ``deploy_*`` features the
-    port does not serve yet raise unless switched off."""
+    unknown keys raise). The ``cascade_*`` keys are
+    :func:`parse_quant_config`'s, the ``deploy_*`` keys
+    ``deploy.parse_deploy_config``'s."""
     known = {
         "serve_port": ("port", int),
         "serve_host": ("host", str),
@@ -168,12 +162,6 @@ def parse_serve_config(cfg: ConfigPairs) -> ServeConfig:
     }
     vals = {}
     for name, val in cfg:
-        for prefix, item in _NOT_YET_PREFIXES.items():
-            if name.startswith(prefix) and not (
-                    name.endswith("_enable") and _same_value(val, "0")):
-                raise ConfigError(
-                    f"{name}: not served by the PyTorch port yet "
-                    f"(ROADMAP {item})")
         if not name.startswith("serve_"):
             continue
         if name not in known:
@@ -313,9 +301,8 @@ def parse_lm_serve_config(cfg: ConfigPairs) -> LMServeConfig:
 class QuantConfig:
     """The ``quant_*`` / ``cascade_*`` knob set: the PTQ pass's
     calibration and the drift-verdict thresholds, with the JAX package's
-    keys, defaults and validation (a typo'd key raises). The cascade
-    keys are parsed and validated too, but ``cascade_enable = 1`` raises:
-    the two-tier cascade is not served by the port yet."""
+    keys, defaults and validation (a typo'd key raises), and the
+    two-tier cascade's (``serve/cascade.py``)."""
     calib_batches: int = 4        # quant_calib_batches: activation calib
     calib_percentile: float = 100.0  # quant_calib_percentile (100=absmax)
     max_rel_err: float = 0.05     # quant_max_rel_err: drift gate (RMS)
@@ -384,10 +371,6 @@ def parse_quant_config(cfg: ConfigPairs) -> QuantConfig:
     if qc.cascade_replicas < 1:
         raise ConfigError(
             f"cascade_replicas must be >= 1, got {qc.cascade_replicas}")
-    if qc.cascade_enable:
-        raise ConfigError(
-            "cascade_enable = 1: not served by the PyTorch port yet "
-            f"(ROADMAP {_NOT_YET_PREFIXES['cascade_']})")
     return qc
 
 

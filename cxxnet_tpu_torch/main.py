@@ -46,7 +46,15 @@ or ``serve_ab``) serves a replica fleet (``serve/fleet.py``): the replicas
 share the cards of ``dev`` round-robin, or take one card each; with
 ``serve_reload_s > 0`` new rounds in ``model_dir`` roll into it without
 dropping a request, and ``serve_ab = 1`` reloads only the first
-``serve_ab_replicas`` (``serve/reload.py``).
+``serve_ab_replicas`` (``serve/reload.py``). ``deploy_enable = 1`` (two
+replicas or more, no ``serve_reload_s``) puts the deployment controller
+in the watcher's place: each new round is gated offline, canaried on
+``deploy_canary_replicas``, and promoted or rolled back on the window's
+evidence (``deploy/``). ``cascade_enable = 1`` with ``cascade_model =
+<quantized round>`` serves the two-tier cascade: ``cascade_replicas``
+int8 replicas answer first, and the rows under ``cascade_threshold``
+escalate to the ``serve_replicas`` flagship replicas of the round
+(``serve/cascade.py``).
 
 The iterator sections read ``synthetic``, ``synthetic_lm``, ``mnist``
 and ``imgrec`` record files (PNG everywhere, JPEG where libjpeg is
@@ -88,13 +96,15 @@ import torch
 
 from . import checkpoint as ckpt
 from .config import (ConfigError, ConfigPairs, parse_cli_overrides,
-                     parse_config_file, parse_serve_config, split_sections)
+                     parse_config_file, parse_quant_config,
+                     parse_serve_config, split_sections)
+from .deploy import DeployController, parse_deploy_config
 from .graph import build_graph, global_param
 from .device import resolve_devices
 from .io import close_chain, create_iterator
 from .io.data import DataBatch
 from .parallel import DpContext, launch
-from .serve import ReloadWatcher, ReplicaPool, ServeServer
+from .serve import CascadeRouter, ReloadWatcher, ReplicaPool, ServeServer
 from .serve.fleet import build_engines
 from .trainer import Trainer
 
@@ -105,10 +115,44 @@ def task_serve(cfg: ConfigPairs,
     until ``stop()`` on the server that ``ready`` is handed once it
     listens). One engine by default; any fleet knob (``serve_replicas >
     1``, ``serve_reload_s``, ``serve_ab``) builds a replica pool, with the
-    hot-reload watcher on ``model_dir`` when ``serve_reload_s > 0``: the
-    JAX package's serve task."""
+    hot-reload watcher on ``model_dir`` when ``serve_reload_s > 0``, or
+    the deployment controller with ``deploy_enable = 1``;
+    ``cascade_enable = 1`` builds the two-tier cascade over the round
+    (the flagship tier) and ``cascade_model`` (the int8 tier): the JAX
+    package's serve task, with its refusals of what does not compose."""
     gp = lambda n, d: global_param(cfg, n, d)
     sc = parse_serve_config(cfg)
+    dc = parse_deploy_config(cfg)
+    qc = parse_quant_config(cfg)
+    if qc.cascade_enable:
+        if dc.enable or sc.reload_s > 0:
+            raise ConfigError(
+                "cascade_enable = 1 does not compose with "
+                "deploy_enable/serve_reload_s yet: the cascade "
+                "tiers pin their versions, a reload would swap "
+                "them out from under the router")
+        if not qc.cascade_model:
+            raise ConfigError(
+                "cascade_enable = 1 needs cascade_model = <path to "
+                "a quantized round> (tools/quantize.py derives one)")
+    if dc.enable:
+        # the controller owns canary reloads end to end: a plain reload
+        # watcher racing it would ship ungated rounds
+        if sc.replicas < 2:
+            raise ConfigError(
+                "deploy_enable = 1 needs a replica fleet "
+                f"(serve_replicas >= 2, got {sc.replicas}): one "
+                "canary plus at least one incumbent")
+        if sc.reload_s > 0:
+            raise ConfigError(
+                "deploy_enable = 1 replaces serve_reload_s: the "
+                "deployment controller decides what reloads (set "
+                "serve_reload_s = 0 and use deploy_poll_s)")
+        if dc.canary_replicas >= sc.replicas:
+            raise ConfigError(
+                f"deploy_canary_replicas ({dc.canary_replicas}) "
+                f"must be < serve_replicas ({sc.replicas}): the "
+                "parity gate compares against a live incumbent")
     silent = bool(int(gp("silent", "0")))
     # float32 policies compute in full float32 (no TF32 in cuDNN convs
     # or cuBLAS matmuls), as the JAX package's float32 does on the CPU;
@@ -136,13 +180,8 @@ def task_serve(cfg: ConfigPairs,
         print("serve: no model_in/continue given — serving a RANDOMLY "
               "INITIALIZED model (smoke mode)", flush=True)
     digest = ckpt.blob_digest(blob["meta"]) if blob is not None else ""
-    # dtype negotiation happens once for every engine: serve_dtype =
-    # int8 demands a PTQ-derived round, an fp engine dequantizes one
-    engines = build_engines(cfg, sc.replicas, blob=blob, digest=digest,
-                            buckets=sc.buckets or None,
-                            max_batch=sc.max_batch,
-                            cache_size=sc.cache_size,
-                            dtype=sc.dtype or None, silent=silent)
+    cells = dict(buckets=sc.buckets or None, max_batch=sc.max_batch,
+                 cache_size=sc.cache_size, silent=silent)
     knobs = dict(max_latency_ms=sc.max_latency_ms,
                  max_queue_rows=sc.queue_rows,
                  default_timeout_ms=sc.timeout_ms or None,
@@ -156,19 +195,51 @@ def task_serve(cfg: ConfigPairs,
                   log_interval_s=sc.log_interval_s, silent=silent,
                   handle_signals=threading.current_thread()
                   is threading.main_thread())
-    if sc.fleet:
-        pool = ReplicaPool.from_engines(
-            engines, admission_control=bool(sc.admission), **knobs)
-        # hot reload watches the directory a trainer (this process or
-        # another) keeps writing rounds into
-        watcher = (ReloadWatcher(pool, model_dir, interval_s=sc.reload_s,
-                                 ab_replicas=sc.ab_replicas if sc.ab else 0,
-                                 drain_timeout_s=sc.drain_timeout_s,
-                                 verbose=not silent)
-                   if sc.reload_s > 0 else None)
+    if qc.cascade_enable:
+        # the flagship tier serves the round loaded above in serve_dtype,
+        # the fast tier the quantized round of cascade_model in int8; the
+        # router is a pool, so the server is unchanged
+        if blob is None:
+            raise ConfigError(
+                "cascade_enable = 1 needs a flagship model "
+                "(model_in or continue = 1)")
+        fast_blob = ckpt.load_for_inference(qc.cascade_model)
+        ckpt.check_structure(fast_blob["meta"], graph.structure_signature())
+        pool = CascadeRouter.build_two_tier(
+            cfg, flagship_blob=blob, flagship_digest=digest,
+            fast_blob=fast_blob,
+            fast_digest=ckpt.blob_digest(fast_blob["meta"]),
+            qc=qc, n_flagship=sc.replicas, n_fast=qc.cascade_replicas,
+            flagship_dtype=sc.dtype or None,
+            admission_control=bool(sc.admission), **cells, **knobs)
+        srv = ServeServer(pool=pool, **served)
+    elif sc.fleet:
+        # dtype negotiation happens once for every engine: serve_dtype =
+        # int8 demands a PTQ-derived round, an fp engine dequantizes one
+        pool = ReplicaPool.build(
+            cfg, sc.replicas, blob=blob, digest=digest,
+            dtype=sc.dtype or None, admission_control=bool(sc.admission),
+            **cells, **knobs)
+        if dc.enable:
+            # the controller polls the round directory, gates each new
+            # round offline, canaries it, and promotes or rolls back
+            watcher = DeployController(pool, model_dir, dc,
+                                       drain_timeout_s=sc.drain_timeout_s,
+                                       verbose=not silent)
+        elif sc.reload_s > 0:
+            # hot reload watches the directory a trainer (this process
+            # or another) keeps writing rounds into
+            watcher = ReloadWatcher(
+                pool, model_dir, interval_s=sc.reload_s,
+                ab_replicas=sc.ab_replicas if sc.ab else 0,
+                drain_timeout_s=sc.drain_timeout_s, verbose=not silent)
+        else:
+            watcher = None
         srv = ServeServer(pool=pool, reload_watcher=watcher, **served)
     else:
-        srv = ServeServer(engines[0], **served, **knobs)
+        engine, = build_engines(cfg, 1, blob=blob, digest=digest,
+                                dtype=sc.dtype or None, **cells)
+        srv = ServeServer(engine, **served, **knobs)
     srv.start()
     if ready is not None:
         ready(srv)

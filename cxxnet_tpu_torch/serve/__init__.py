@@ -1,7 +1,8 @@
 """Serving: engine, micro-batcher, stats, the replica fleet with its hot
-reload, and the HTTP server."""
+reload, the two-tier cascade, and the HTTP server."""
 
 from .batcher import Backpressure, DeadlineExceeded, MicroBatcher
+from .cascade import CascadeRouter, row_confidence
 from .engine import InferenceEngine
 from .fleet import (AllReplicasDegraded, NoHealthyReplica, ReplicaPool,
                     UnknownVersion)
@@ -9,7 +10,8 @@ from .reload import ReloadWatcher
 from .server import NoLMPlane, ServeServer
 from .stats import ServingStats
 
-__all__ = ["AllReplicasDegraded", "Backpressure", "DeadlineExceeded",
+__all__ = ["AllReplicasDegraded", "Backpressure", "CascadeRouter",
+           "DeadlineExceeded",
            "InferenceEngine", "MicroBatcher", "NoHealthyReplica",
            "NoLMPlane", "ReloadWatcher", "ReplicaPool", "ServeServer",
-           "ServingStats", "UnknownVersion"]
+           "ServingStats", "UnknownVersion", "row_confidence"]

@@ -335,9 +335,19 @@ def test_serve_config_matches_the_jax_package(text):
 
 
 def test_cascade_and_deploy_keys_stay_refused():
-    for text in ("cascade_enable = 1\n", "deploy_enable = 1\n"):
-        with pytest.raises(ConfigError, match="ROADMAP Queue A 4"):
-            parse_serve_config(parse_config_string(text))
+    """The cascade and deploy keys are not serve keys: they parse, as in
+    the JAX package. ``task = serve`` refuses the forms of them that do
+    not compose (``tests/test_torch_deploy.py`` holds each message
+    against the JAX package's serve task)."""
+    from cxxnet_tpu.config import parse_config_string as jax_parse
+    from cxxnet_tpu.config import parse_serve_config as jax_parse_serve
+    for text, refused in (("cascade_enable = 1\n", "needs cascade_model"),
+                          ("deploy_enable = 1\n",
+                           "needs a replica fleet")):
+        assert vars(parse_serve_config(parse_config_string(text))) \
+            == vars(jax_parse_serve(jax_parse(text)))
+        with pytest.raises(ConfigError, match=refused):
+            run(parse_config_string(PORT_CFG + text + "task = serve\n"))
 
 
 def test_replica_devices():

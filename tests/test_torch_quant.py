@@ -170,9 +170,12 @@ def test_parse_quant_config_range_validation(key, val):
 def test_serve_dtype_int8_is_accepted_and_the_cascade_names_queue_a4():
     assert parse_serve_config([("serve_dtype", "int8")]).dtype == "int8"
     assert parse_serve_config([("cascade_enable", "0")]).dtype == ""
-    for parse in (parse_quant_config, parse_serve_config):
-        with pytest.raises(ConfigError, match="Queue A 4"):
-            parse([("cascade_enable", "1")])
+    # the cascade is served now (serve/cascade.py): cascade_enable = 1
+    # parses as in the JAX package, and is no serve key
+    on = [("cascade_enable", "1"), ("cascade_model", "q.model")]
+    assert vars(parse_quant_config(on)) == vars(jax_parse_quant_config(on))
+    assert parse_quant_config(on).cascade_enable == 1
+    assert parse_serve_config(on) == parse_serve_config([])
 
 
 # -- PTQ ----------------------------------------------------------------------
