@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--seed 0] [--conf examples/ImageNet/inception_bn.conf]
                           [--json OUT.json]
     python3 chip_smoke.py --ab PARENT . . PARENT   # A/B of two checkouts
+    python3 chip_smoke.py --phase telemetry        # the build and phase 19
 
 With ``--ab``, only the kernels of the vectorised designs are timed, in
 each checkout root given, in turn, one process each (``bn_fwd`` at
@@ -504,6 +505,27 @@ and prints no result:
             the cascade's answers/s and latency beside the flagship's
             alone, and the canary, promote, blocked and rollback ticks'
             seconds, beside the card's name and power limit.
+19. telemetry: run last (``phase_telemetry``), full-width Inception-BN
+            (batch 128, bf16, ``iter = synthetic``). (a) A child process
+            ``python -m cxxnet_tpu_torch.main`` trains TEL_STEPS steps
+            with ``telemetry_profile_steps = 8-9``, ``telemetry_trace``,
+            ``telemetry_ledger`` and ``telemetry_port``: ``/metrics``
+            answers while it trains; its torch.profiler summary names
+            every device kernel of the hand kernels of the train step
+            (TEL_FRAGMENTS), each as many times a step as one step's
+            CUDA graph in this process holds it (``_graph_nodes``). (b)
+            ``failpoints = device.step=once`` through ``main.run`` with
+            ``continue = 1`` on (a)'s round: the ledger has
+            ``sentinel_trip`` and ``rollback``, and the run ends with
+            finite parameters. (c) ``task = serve`` on that round:
+            ``GET /metrics`` counts exactly the TEL_REQUESTS requests
+            sent. Printed: the step-time probe's EMAs and verdict, and
+            the trace's medians of its spans over steps 2-7, the host
+            syncs of one update with the train metrics on (CUDA sync
+            debug mode), and the step with the default telemetry beside
+            ``telemetry_steptime = 0 sentinel = 0`` (not gated: a host
+            drifts 25-35 % between runs), beside the card's name and
+            power limit. Run alone with ``--phase telemetry``.
 
 Then, on lines of their own: the card's name and power limit as
 ``nvidia-smi`` reports them, the kernels JSON line, and last
@@ -1790,18 +1812,18 @@ def phase_times(engine, gen: torch.Generator) -> dict:
 
 def train_cfg(conf: str, seed: int, model_dir: str, extra=(),
               batch: int = TRAIN_BATCH, steps: int = TRAIN_STEPS,
-              image: str = TRAIN_IMAGE):
+              image: str = TRAIN_IMAGE, classes: int = TRAIN_CLASSES):
     """``conf``'s netconfig and globals (the flagship's by default) with
     its data/eval sections replaced by ``iter = synthetic`` (``image``,
-    1000 classes, from ``seed``): ``steps`` batches of ``batch`` to train
-    on, one to evaluate."""
+    ``classes`` clusters, 1000 by default, from ``seed``): ``steps``
+    batches of ``batch`` to train on, one to evaluate."""
     from cxxnet_tpu_torch.config import (parse_cli_overrides,
                                          parse_config_file, split_sections)
     glob, _ = split_sections(parse_config_file(conf))
 
     def synth(kind, name, n, s):
         return [(kind, name), ("iter", "synthetic"), ("num_inst", str(n)),
-                ("num_class", str(TRAIN_CLASSES)),
+                ("num_class", str(classes)),
                 ("input_shape", image), ("seed_data", str(s)),
                 ("iter", "end")]
     return (glob + synth("data", "train", batch * steps, seed)
@@ -5226,7 +5248,9 @@ def phase_imgrec(conf: str, seed: int, tmp: str, extra=(),
         update = tr.update
 
         def keep(b):
-            box["batches"].append(b)
+            # the round loop stages each batch as it draws it: keep the
+            # host batch
+            box["batches"].append(getattr(b, "host", b))
             update(b)
         tr.update = keep
         torch.cuda.synchronize()
@@ -5586,7 +5610,9 @@ def phase_bowl(seed: int, tmp: str, extra=()) -> dict:
         update = tr.update
 
         def keep(b):
-            box["batches"].append(b)
+            # the round loop stages each batch as it draws it: keep the
+            # host batch
+            box["batches"].append(getattr(b, "host", b))
             update(b)
         tr.update = keep
         torch.cuda.synchronize()
@@ -7808,11 +7834,386 @@ def phase_cascade(conf: str, seed: int, tmp: str, smi_line: str) -> dict:
 
 # -- main ---------------------------------------------------------------------
 
+# -- phase 19 ------------------------------------------------------------------
+
+#: the child's steps: the profiled pair TEL_PROFILE and the probe's first
+#: window of 8 lie inside
+TEL_STEPS = 10
+TEL_PROFILE = "8-9"
+#: steps of the sentinel run (b) and of each step-time run
+TEL_SHORT_STEPS = 2
+TEL_TIMED_STEPS = 4
+#: requests the served engine's /metrics must count (c)
+TEL_REQUESTS = 5
+#: the synthetic data's clusters: the generator draws a centre of
+#: 3x224x224 for each, and 1000 of them cost seconds an iterator
+TEL_CLASSES = 10
+#: the device kernels of the hand kernels of PERF.md rows 1-7 and 12a by
+#: a fragment of their name, as torch.profiler (demangled) and the CUDA
+#: graph (mangled) both spell it; TRAIN_KERNELS are on the Inception-BN
+#: step, the rest must read 0 in both
+TEL_FRAGMENTS = {
+    "pool_fwd": ("pool_fwd_kernel",),
+    "pool_bwd_max": ("pool_bwd_max_kernel",),
+    "pool_bwd": ("pool_bwd_kernel",),
+    "epilogue_fwd": ("epilogue_fwd_kernel",),
+    "epilogue_bwd": ("mask_copy_vec", "EpiBwdVec"),
+    "bn_fwd": ("MomentsVec", "SqDevVec", "bn_fwd_norm_vec"),
+    "bn_bwd": ("BwdSumsVec", "bn_dx_vec"),
+    "sgd_apply": ("sgd_apply_kernel",),
+}
+
+
+def _graph_nodes(fn):
+    """The kernel names of one ``fn()`` captured in a CUDA graph, read
+    through the CUDA driver's graph calls (tests/test_torch_cuda.py's
+    reader; the warm-up runs on a side stream, as graph capture of a
+    backward asks, and the capture is relaxed: the graph only is read,
+    never replayed)."""
+    import ctypes
+
+    class KernelParams(ctypes.Structure):       # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p)] + [
+            (f, ctypes.c_uint) for f in ("gx", "gy", "gz", "bx", "by", "bz",
+                                         "smem")] + [
+            (f, ctypes.c_void_p) for f in ("params", "extra", "kern",
+                                           "ctx")]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(graph, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    out = []
+    for node in nodes:
+        node = ctypes.c_void_p(node)
+        kind, name = ctypes.c_int(-1), ctypes.c_char_p()
+        if cu.cuGraphNodeGetType(node, ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        if kind.value != 0:
+            continue
+        kp = KernelParams()
+        if cu.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(kp)):
+            raise RuntimeError("cuGraphKernelNodeGetParams failed")
+        rc = (cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(kp.func))
+              if kp.func else
+              cu.cuKernelGetName(ctypes.byref(name),
+                                 ctypes.c_void_p(kp.kern)))
+        if rc:
+            raise RuntimeError(f"cuFuncGetName failed ({rc})")
+        out.append(name.value.decode())
+    del g
+    return out
+
+
+def _fragment_counts(names_counts) -> dict:
+    """{fragment: count} of TEL_FRAGMENTS over (kernel name, count)
+    pairs, each name going to its first matching fragment."""
+    frags = [f for fs in TEL_FRAGMENTS.values() for f in fs]
+    out = dict.fromkeys(frags, 0)
+    for name, k in names_counts:
+        hit = next((f for f in frags if f in name), None)
+        if hit is not None:
+            out[hit] += k
+    return out
+
+
+def _steady_spans(path: str) -> dict:
+    """Medians (ms) over steps 2-7 of the ``train.data_wait``,
+    ``train.step_dispatch`` and ``train.step`` spans of a telemetry
+    trace: the step-time probe's components past the first step's
+    warm-up and before the profiled pair."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for key, name in (("data_wait", "train.data_wait"),
+                      ("dispatch", "train.step_dispatch"),
+                      ("step", "train.step")):
+        durs = [e["dur"] / 1e3 for e in sorted(
+            (e for e in events if e.get("name") == name),
+            key=lambda e: e["ts"])][1:7]
+        out[key] = statistics.median(durs)
+    return out
+
+
+def _child_timeline(path: str) -> dict:
+    """Seconds from the child's first traced event to its first step's
+    end, its last step's end, the profile bracket's stop (the trace and
+    summary written) and the checkpoint's end, from its telemetry
+    trace."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") in ("X", "i")]
+    t0 = min(e["ts"] for e in events)
+    end = lambda e: (e["ts"] + e.get("dur", 0.0) - t0) / 1e6
+    steps = sorted(end(e) for e in events if e["name"] == "train.step")
+    stop = [end(e) for e in events if e["name"] == "profiler.stop_trace"]
+    start = [end(e) for e in events if e["name"] == "profiler.start_trace"]
+    save = [end(e) for e in events if e["name"] == "ckpt.save"]
+    return {"first step": steps[0], "last step": steps[-1],
+            "profile start": start[0], "profile stop": stop[0],
+            "saved": save[-1]}
+
+
+def _first_batch(pairs):
+    """The first batch of the iterator of ``pairs`` (its chain closed)."""
+    from cxxnet_tpu_torch.io import close_chain, create_iterator
+    it = create_iterator(pairs)
+    try:
+        return next(iter(it))
+    finally:
+        close_chain(it)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _scrape(port: int) -> str:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=10) as r:
+        return r.read().decode("utf-8")
+
+
+def _metric_sum(text: str, name: str, **labels) -> float:
+    """The sum of the samples of ``name`` whose labels include
+    ``labels``."""
+    import re
+    total = 0.0
+    for m in re.finditer(r"^%s(\{[^}]*\})? (\S+)$" % re.escape(name), text,
+                         re.M):
+        lab = dict(re.findall(r'(\w+)="([^"]*)"', m.group(1) or ""))
+        if all(lab.get(k) == v for k, v in labels.items()):
+            total += float(m.group(2))
+    return total
+
+
+def _train_only(cfg):
+    """``cfg`` without its ``eval`` section (a run that only trains)."""
+    out, skip = [], False
+    for k, v in cfg:
+        if k == "eval":
+            skip = True
+        elif skip and (k, v) == ("iter", "end"):
+            skip = False
+        elif not skip:
+            out.append((k, v))
+    return out
+
+
+def _step_wall_ms(cfg) -> float:
+    """The median wall time between consecutive steps of a
+    ``main.run(cfg)`` train run (the step hook's clock; the last step
+    waited for)."""
+    stamps = []
+
+    def on_step(tr):
+        stamps.append(time.perf_counter())
+    _train_run(cfg, on_step)
+    gaps = [b - a for a, b in zip(stamps, stamps[1:])]
+    return 1e3 * statistics.median(gaps)
+
+
+def phase_telemetry(conf: str, seed: int, tmp: str, smi_line: str) -> dict:
+    """Phase 19 (see the module docstring)."""
+    from cxxnet_tpu_torch import checkpoint as ckpt
+    from cxxnet_tpu_torch.config import split_sections
+    from cxxnet_tpu_torch.main import run
+    from cxxnet_tpu_torch.telemetry.ledger import read_ledger
+    from cxxnet_tpu_torch.trainer import Trainer
+    t_start = time.perf_counter()
+    marks = {}
+    mdir = os.path.join(tmp, "telemetry")
+    prof = os.path.join(tmp, "telemetry_profile")
+    port = _free_port()
+    cfg = _train_only(train_cfg(conf, seed, mdir, (
+        f"telemetry_profile_steps={TEL_PROFILE}",
+        f"telemetry_profile_dir={prof}",
+        f"telemetry_trace={tmp}/telemetry_trace.json",
+        f"telemetry_ledger={tmp}/telemetry_ledger.jsonl",
+        f"telemetry_port={port}", "print_step=0"), steps=TEL_STEPS,
+        classes=TEL_CLASSES))
+    conf_path = write_conf(os.path.join(tmp, "telemetry.conf"), cfg)
+    # (a) a process of its own: a profiler session late in a process
+    # that ran many loses its device events
+    child = subprocess.Popen(
+        [sys.executable, "-m", "cxxnet_tpu_torch.main", conf_path],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    scraped = None
+    try:
+        deadline = time.perf_counter() + 300
+        while child.poll() is None and time.perf_counter() < deadline:
+            try:
+                body = _scrape(port)
+            except OSError:
+                time.sleep(0.1)
+                continue
+            marks.setdefault("child up", time.perf_counter())
+            if _metric_sum(body, "cxxnet_steptime_steps_total") > 0:
+                scraped = body
+                marks["child stepping"] = time.perf_counter()
+                break
+            time.sleep(0.05)
+        out, _ = child.communicate(timeout=300)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    marks["child done"] = time.perf_counter()
+    if child.returncode:
+        raise AssertionError(f"telemetry child exited {child.returncode}:"
+                             f"\n{out[-4000:]}")
+    if scraped is None:
+        raise AssertionError("/metrics of telemetry_port did not answer "
+                             "while the trainer stepped")
+    lines = [ln for ln in out.splitlines() if ln.startswith("round")]
+    probe = next((ln for ln in lines if "\tbound:" in ln), None)
+    if probe is None:
+        raise AssertionError(f"no round line with the probe's verdict:\n"
+                             f"{out[-2000:]}")
+    frag = probe[probe.index("\tdata_ms:"):].strip().replace("\t", " ")
+    steady = _steady_spans(os.path.join(tmp, "telemetry_trace.json"))
+    child_t = _child_timeline(os.path.join(tmp, "telemetry_trace.json"))
+    with open(os.path.join(prof, "summary.json")) as f:
+        summary = json.load(f)
+    steps = 2
+    got = _fragment_counts((n, k["count"]) for n, k in
+                           summary["kernels"].items())
+    ledger = read_ledger(os.path.join(tmp, "telemetry_ledger.jsonl"))
+    events = [r["event"] for r in ledger]
+    for e in ("run_start", "round_end", "ckpt_save", "run_end"):
+        if e not in events:
+            raise AssertionError(f"ledger lacks {e}: {events}")
+    # (b) the sentinel rolls a poisoned step back
+    ledger_b = os.path.join(tmp, "telemetry_sentinel.jsonl")
+    cfg_b = _train_only(train_cfg(conf, seed, mdir, (
+        "continue=1", "num_round=2", "failpoints=device.step=once",
+        f"telemetry_ledger={ledger_b}", "print_step=0"),
+        steps=TEL_SHORT_STEPS, classes=TEL_CLASSES))
+    tr = run(cfg_b)
+    finite = tr.params_finite()
+    rec = read_ledger(ledger_b)
+    trips = [r for r in rec if r["event"] in ("sentinel_trip", "rollback")]
+    if [r["event"] for r in trips] != ["sentinel_trip", "rollback"] \
+            or trips[1]["to_round"] != 0 or not finite:
+        raise AssertionError(f"device.step=once: ledger {trips}, finite "
+                             f"params {finite}")
+    marks["sentinel"] = time.perf_counter()
+    # one step's CUDA graph, in this process, on (b)'s trainer
+    glob, sections = split_sections(cfg_b)
+    batch = _first_batch(glob + sections[0][2])
+    # what the probe cannot see: the host syncs of one update with the
+    # train metrics on (eval_train = 1 reads step k-1's nodes after step
+    # k was queued)
+    tr.update(batch)
+    update_syncs = _host_syncs(lambda: tr.update(batch))
+    staged = tr.stage_batch(batch)
+    mask = tr._mask(batch)
+    nodes = _graph_nodes(lambda: tr._step(staged.data, staged.label, mask))
+    want = _fragment_counts((n, 1) for n in nodes)
+    del tr, staged
+    torch.cuda.empty_cache()
+    marks["graph"] = time.perf_counter()
+    per_step = {f: got[f] / steps for f in got}
+    bad = {f: (per_step[f], want[f]) for f in got if per_step[f] != want[f]}
+    # every hand kernel of the step holds one of its device kernels at
+    # least (pool_bwd_max is not on Inception-BN's path: 0 in both)
+    absent = [k for k in TRAIN_KERNELS
+              if not any(want[f] for f in TEL_FRAGMENTS[k])]
+    if bad or absent:
+        raise AssertionError(f"profiler trace vs one step's CUDA graph "
+                             f"(per step, graph): {bad}; kernels absent "
+                             f"from the step: {absent}; graph {want}")
+    # (c) a served engine's /metrics counts the requests sent
+    srv, t = start_serve(_serve_cfg(conf, [
+        "task=serve", f"model_in={ckpt.model_path(mdir, 1)}",
+        "serve_port=0", "serve_buckets=1", "serve_max_batch=1",
+        "silent=1"]))
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        rs = np.random.RandomState(seed)
+        width = int(np.prod([int(v) for v in TRAIN_IMAGE.split(",")]))
+        for _ in range(TEL_REQUESTS):
+            _post(base + "/predict", {"data": rs.randn(1, width)
+                                      .astype(np.float32).tolist()})
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            text = r.read().decode("utf-8")
+        eng = srv.engine.stats.instance
+        served = {res: _metric_sum(text, "cxxnet_serve_requests_total",
+                                   engine=eng, result=res)
+                  for res in ("received", "ok")}
+    finally:
+        stop_serve(srv, t)
+    if served != {"received": TEL_REQUESTS, "ok": TEL_REQUESTS}:
+        raise AssertionError(f"/metrics counted {served}, sent "
+                             f"{TEL_REQUESTS}")
+    marks["serve"] = time.perf_counter()
+    # the step with the default telemetry beside both off, from round 1
+    timed = ("save_model=0", "continue=1", "num_round=3")
+    on_ms = _step_wall_ms(_train_only(train_cfg(
+        conf, seed, mdir, timed, steps=TEL_TIMED_STEPS,
+        classes=TEL_CLASSES)))
+    off_ms = _step_wall_ms(_train_only(train_cfg(
+        conf, seed, mdir, timed + ("telemetry_steptime=0", "sentinel=0"),
+        steps=TEL_TIMED_STEPS, classes=TEL_CLASSES)))
+    marks["step times"] = time.perf_counter()
+    took = time.perf_counter() - t_start
+    spans = ", ".join(f"{k} {v - t_start:.1f}s" for k, v in marks.items())
+    kern = ", ".join(f"{k} {'+'.join(str(want[f]) for f in fs)}"
+                     for k, fs in TEL_FRAGMENTS.items())
+    print(f"telemetry: child main.run of {TEL_STEPS} steps: /metrics "
+          f"answered while it trained; "
+          f"torch.profiler steps {TEL_PROFILE}: {summary['device_events']} "
+          f"device events, {summary['device_us'] / 1e3 / steps:.3f} ms of "
+          f"kernels a step; the hand kernels' device kernels a step equal "
+          f"one step's CUDA graph ({kern}) | probe {frag}; the trace's "
+          f"medians over steps 2-7: data wait {steady['data_wait']:.2f} ms, "
+          f"dispatch {steady['dispatch']:.2f} ms, step "
+          f"{steady['step']:.2f} ms; host syncs in one update with "
+          f"eval_train = 1: {update_syncs} | "
+          f"device.step=once: sentinel_trip, rollback to round 0, finite "
+          f"params | serve /metrics counted {TEL_REQUESTS} of "
+          f"{TEL_REQUESTS} requests | step {on_ms:.3f} ms with the default "
+          f"telemetry, {off_ms:.3f} ms with telemetry_steptime = 0 "
+          f"sentinel = 0 (not gated) | {took:.1f}s ({spans}; the child "
+          f"from its first span: " + ", ".join(
+              f"{k} {v:.1f}s" for k, v in child_t.items())
+          + f") | {smi_line}",
+          flush=True)
+    return {"probe": frag, "steady_ms": steady,
+            "update_host_syncs": update_syncs, "graph_per_step": want,
+            "profile_per_step": per_step,
+            "profile_device_ms_per_step": summary["device_us"] / 1e3 / steps,
+            "device_events": summary["device_events"],
+            "served": served, "step_ms": on_ms, "step_off_ms": off_ms,
+            "child_timeline": child_t,
+            "seconds": took, "marks": {k: v - t_start
+                                       for k, v in marks.items()},
+            "card": smi_line}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--conf", default=FLAGSHIP)
     ap.add_argument("--json", default="", help="also write the results here")
+    ap.add_argument("--phase", choices=("telemetry",),
+                    help="run the build and this phase only")
     ap.add_argument("--ab", nargs="+", metavar="TREE",
                     help="only time the vectorised BN, epilogue, LRN, "
                          "max-pool backward, stem and Adam kernels of each "
@@ -7836,6 +8237,11 @@ def main(argv=None) -> int:
     smi_line = phase_env()
     phase_build()
     mark("build")
+    if args.phase == "telemetry":
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_telemetry(args.conf, args.seed, tmp, smi_line)
+        print(smi_line, flush=True)
+        return 0
     errs = phase_kernels(gen)
     errs.update(phase_train_kernels(gen, args.conf))
     errs.update(phase_sync_bn_kernels(gen, args.conf))
@@ -7944,6 +8350,9 @@ def main(argv=None) -> int:
         rest = phase_rest(args.conf, args.seed, tmp, train_times["step_ms"],
                           lm_times["step_ms"], gen)
     mark("rest")
+    with tempfile.TemporaryDirectory() as tmp:
+        telemetry = phase_telemetry(args.conf, args.seed, tmp, smi_line)
+    mark("telemetry")
     source["stem"] = (imgrec_times, imgrec_launches)
     kernels = []
     for name, k in KERNELS.items():
@@ -8004,6 +8413,7 @@ def main(argv=None) -> int:
               "nvjpeg_fixture": nvjpeg,
               "bowl": bowl,
               "rest": rest,
+              "telemetry": telemetry,
               "phase_seconds": {b[0]: b[1] - a[1]
                                 for a, b in zip(marks, marks[1:])},
               "card": smi_line, "seconds": time.perf_counter() - t_start}

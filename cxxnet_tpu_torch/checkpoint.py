@@ -26,6 +26,14 @@ reads) takes the newest round of a ``model_dir`` that verifies, skipping
 a torn or digest-failing one, and sweeps the temp files a writer killed
 before its rename left behind. :func:`copy_model_from` is finetune's
 copy by layer name.
+
+Telemetry, as in the JAX package: a save is the ``ckpt.save`` span and a
+``ckpt_save`` ledger event, a read the ``ckpt.load`` span and a
+``ckpt_load`` event, both timed into ``cxxnet_ckpt_io_seconds{op}``;
+skipped rounds and swept temp files count as ``ckpt.skipped_invalid``
+and ``ckpt.tmp_swept``. The failpoints ``ckpt.write`` (before the
+write), ``io.write`` (before the rename), ``io.open`` and ``io.read``
+(a read) guard these paths.
 """
 
 from __future__ import annotations
@@ -40,6 +48,16 @@ import zipfile
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+
+from .resilience import counters, failpoints
+from .telemetry.ledger import LEDGER
+from .telemetry.registry import REGISTRY
+from .telemetry.trace import TRACER
+
+_H_CKPT = REGISTRY.histogram(
+    "cxxnet_ckpt_io_seconds",
+    "Checkpoint archive IO duration by operation",
+    labels=("op",))
 
 
 class CheckpointCorrupt(IOError):
@@ -94,6 +112,29 @@ def save_model(path: str, *, structure_sig: tuple, round_counter: int,
     are). ``extra_meta`` adds keys to the meta JSON (a derived round's
     ``__quant_meta__``); a key that clashes with the reserved fields
     raises. The file appears atomically (temp file, fsync, rename)."""
+    with TRACER.span("ckpt.save", cat="ckpt", args={"round": round_counter}):
+        t0 = time.perf_counter()
+        ok = False
+        try:
+            _save_model(path, structure_sig=structure_sig,
+                        round_counter=round_counter,
+                        epoch_counter=epoch_counter, params=params,
+                        net_state=net_state, opt_state=opt_state,
+                        step_count=step_count, lr_scale=lr_scale,
+                        extra_meta=extra_meta)
+            ok = True
+        finally:
+            t1 = time.perf_counter()
+            _H_CKPT.labels("save").observe(t1 - t0)
+            LEDGER.event("ckpt_save", round=round_counter, path=path,
+                         seconds=round(t1 - t0, 4), ok=ok)
+
+
+def _save_model(path: str, *, structure_sig: tuple, round_counter: int,
+                epoch_counter: int, params: Any, net_state: Any,
+                opt_state: Any, step_count: int, lr_scale: float,
+                extra_meta: Optional[Dict[str, Any]]) -> None:
+    failpoints.check("ckpt.write", IOError)
     arrays: Dict[str, np.ndarray] = {}
     _flatten("params", params, arrays)
     _flatten("state", net_state, arrays)
@@ -124,6 +165,7 @@ def save_model(path: str, *, structure_sig: tuple, round_counter: int,
         f.write(buf.getvalue())
         f.flush()
         os.fsync(f.fileno())
+    failpoints.check("io.write", IOError)
     os.replace(tmp, path)
 
 
@@ -143,8 +185,26 @@ def load_model(path: str, verify: bool = True) -> Dict[str, Any]:
 
 
 def _load(path: str, verify: bool, with_opt: bool) -> Dict[str, Any]:
+    t0 = time.perf_counter()
+    ok = False
+    try:
+        out = _load_inner(path, verify, with_opt)
+        ok = True
+        return out
+    finally:
+        t1 = time.perf_counter()
+        _H_CKPT.labels("load").observe(t1 - t0)
+        TRACER.add_complete("ckpt.load", t0, t1, cat="ckpt",
+                            args={"path": os.path.basename(path)})
+        LEDGER.event("ckpt_load", path=path, seconds=round(t1 - t0, 4),
+                     ok=ok)
+
+
+def _load_inner(path: str, verify: bool, with_opt: bool) -> Dict[str, Any]:
+    failpoints.check("io.open", IOError)
     try:
         with np.load(path, allow_pickle=False) as z:
+            failpoints.check("io.read", IOError)
             arrays = {k: z[k] for k in z.files
                       if with_opt or not k.startswith("opt/")}
         if "__meta__" not in arrays:
@@ -281,6 +341,7 @@ def _sweep_orphans(model_dir: str, verbose: bool) -> None:
             if time.time() - os.path.getmtime(path) < TMP_SWEEP_MIN_AGE_S:
                 continue
             os.remove(path)
+            counters.inc("ckpt.tmp_swept")
             if verbose:
                 print(f"checkpoint scan: swept orphan {fn}")
         except OSError:
@@ -302,6 +363,7 @@ def find_latest_valid(model_dir: str, sweep_tmp: bool = True,
         try:
             blob = load_model(path)
         except (CheckpointCorrupt, OSError) as e:
+            counters.inc("ckpt.skipped_invalid")
             if verbose:
                 print(f"checkpoint scan: skipping invalid {path}: {e}")
             continue

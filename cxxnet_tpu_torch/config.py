@@ -4,7 +4,8 @@ The port's own copy of the parts of ``cxxnet_tpu/config.py`` that the
 serving and training paths need: the tokenizer and
 ``parse_config_string``, the mixed-precision :class:`Policy` (mapped to
 torch dtypes), the ``fused_kernels`` grammar, the ``serve_*``,
-``lm_serve_*`` / ``kv_*`` and ``quant_*`` namespaces, the training keys the port does not run yet, and the split of iterator
+``lm_serve_*`` / ``kv_*``, ``quant_*`` and ``telemetry_*`` namespaces,
+the training keys the port does not run yet, and the split of iterator
 sections (``data = train`` .. ``iter = end``) from the global settings. Grammar: whitespace-separated tokens, ``=`` as its own token,
 ``#`` line comments, ``"..."`` single-line and ``'...'`` multi-line
 quoted strings with backslash escapes. Order of pairs is preserved,
@@ -82,6 +83,138 @@ def parse_fused_mode(val: str) -> str:
         raise ConfigError(
             f"fused_kernels must be one of auto|1|0 (got {val!r})")
     return canon
+
+
+# -- telemetry ----------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TelemetryConfig:
+    """The ``telemetry_*`` knob set, with the JAX package's keys,
+    defaults and validation. Every field's zero value means off, but the
+    step-time probe's (``telemetry_steptime = 1``)."""
+    trace_path: str = ""          # telemetry_trace: Chrome-trace JSON out
+    trace_capacity: int = 65536   # telemetry_trace_capacity: span ring
+    # -- distributed tracing (refused: TELEMETRY_QUEUED) ---------------
+    trace_sample: float = 1.0     # telemetry_trace_sample: root fraction
+    trace_tail_pct: float = 0.0   # telemetry_trace_tail_pct: exemplars
+    trace_tail_window: int = 128  # telemetry_trace_tail_window: history
+    trace_anchor_s: float = 30.0  # telemetry_trace_anchor_s: clock pairs
+    sync_interval: int = 8        # telemetry_sync_interval: probe cadence
+    port: int = 0                 # telemetry_port: standalone /metrics
+    log_path: str = ""            # telemetry_log: JSONL snapshots
+    log_interval_s: float = 5.0   # telemetry_log_interval (seconds)
+    log_max_kb: int = 1024        # telemetry_log_max_kb: rotate beyond
+    profile_steps: str = ""       # telemetry_profile_steps: "a-b"
+    profile_dir: str = ""         # telemetry_profile_dir: trace dump dir
+    steptime: int = 1             # telemetry_steptime: 0 disables probe
+    ledger_path: str = ""         # telemetry_ledger: run-ledger JSONL
+    run_id: str = ""              # telemetry_run_id: share across procs
+    # -- fleet observability (refused: TELEMETRY_QUEUED) ---------------
+    fleet_dir: str = ""           # telemetry_fleet_dir: snapshot push dir
+    push_interval_s: float = 10.0  # telemetry_push_interval (seconds)
+    host: int = -1                # telemetry_host: -1 = the dp rank
+    hang_s: float = 0.0           # telemetry_hang_s: 0 = watchdog off
+    hang_dryrun: int = 0          # telemetry_hang_dryrun: 1 = one dump
+    straggler_factor: float = 2.0  # telemetry_straggler_factor
+    straggler_min_steps: int = 8  # telemetry_straggler_min_steps
+    storm_window_s: float = 60.0  # telemetry_storm_window (seconds)
+    storm_threshold: int = 8      # telemetry_storm_threshold
+
+
+#: ``telemetry_*`` keys of the JAX package's fleet observability and
+#: distributed tracing: refused unless they hold their default
+TELEMETRY_QUEUED = {
+    "telemetry_fleet_dir": "fleet observability",
+    "telemetry_push_interval": "fleet observability",
+    "telemetry_hang_s": "the hang watchdog",
+    "telemetry_hang_dryrun": "the hang watchdog",
+    "telemetry_straggler_factor": "the straggler detector",
+    "telemetry_straggler_min_steps": "the straggler detector",
+    "telemetry_storm_window": "the recompile-storm detector",
+    "telemetry_storm_threshold": "the recompile-storm detector",
+    "telemetry_trace_sample": "distributed tracing",
+    "telemetry_trace_tail_pct": "distributed tracing",
+    "telemetry_trace_tail_window": "distributed tracing",
+    "telemetry_trace_anchor_s": "distributed tracing",
+}
+
+
+def parse_telemetry_config(cfg: ConfigPairs) -> TelemetryConfig:
+    """Collect and validate the ``telemetry_*`` keys (last occurrence
+    wins; an unknown key in the namespace raises, as in the JAX
+    package). A key of :data:`TELEMETRY_QUEUED` that does not hold its
+    default raises naming its ROADMAP item."""
+    known = {
+        "telemetry_trace": ("trace_path", str),
+        "telemetry_trace_capacity": ("trace_capacity", int),
+        "telemetry_trace_sample": ("trace_sample", float),
+        "telemetry_trace_tail_pct": ("trace_tail_pct", float),
+        "telemetry_trace_tail_window": ("trace_tail_window", int),
+        "telemetry_trace_anchor_s": ("trace_anchor_s", float),
+        "telemetry_sync_interval": ("sync_interval", int),
+        "telemetry_port": ("port", int),
+        "telemetry_log": ("log_path", str),
+        "telemetry_log_interval": ("log_interval_s", float),
+        "telemetry_log_max_kb": ("log_max_kb", int),
+        "telemetry_profile_steps": ("profile_steps", str),
+        "telemetry_profile_dir": ("profile_dir", str),
+        "telemetry_steptime": ("steptime", int),
+        "telemetry_ledger": ("ledger_path", str),
+        "telemetry_run_id": ("run_id", str),
+        "telemetry_fleet_dir": ("fleet_dir", str),
+        "telemetry_push_interval": ("push_interval_s", float),
+        "telemetry_host": ("host", int),
+        "telemetry_hang_s": ("hang_s", float),
+        "telemetry_hang_dryrun": ("hang_dryrun", int),
+        "telemetry_straggler_factor": ("straggler_factor", float),
+        "telemetry_straggler_min_steps": ("straggler_min_steps", int),
+        "telemetry_storm_window": ("storm_window_s", float),
+        "telemetry_storm_threshold": ("storm_threshold", int),
+    }
+    vals = {}
+    for name, val in cfg:
+        if name.startswith("telemetry_"):
+            if name not in known:
+                raise ConfigError(
+                    f"unknown telemetry setting {name!r}; valid keys: "
+                    + ", ".join(sorted(known)))
+            field, conv = known[name]
+            try:
+                vals[field] = conv(val)
+            except ValueError as e:
+                raise ConfigError(f"bad {name} value {val!r}: {e}")
+    defaults = TelemetryConfig()
+    for name, item in TELEMETRY_QUEUED.items():
+        field = known[name][0]
+        if field in vals and vals[field] != getattr(defaults, field):
+            raise ConfigError(
+                f"{name} = {vals[field]}: not run by the PyTorch port yet "
+                f"(ROADMAP Queue A 12, still queued: {item})")
+    tc = TelemetryConfig(**vals)
+    if tc.trace_capacity < 1:
+        raise ConfigError(
+            f"telemetry_trace_capacity must be >= 1, got "
+            f"{tc.trace_capacity}")
+    if tc.sync_interval < 1:
+        raise ConfigError(
+            f"telemetry_sync_interval must be >= 1, got "
+            f"{tc.sync_interval}")
+    if tc.log_max_kb < 1:
+        raise ConfigError(
+            f"telemetry_log_max_kb must be >= 1, got {tc.log_max_kb}")
+    if tc.log_interval_s <= 0:
+        raise ConfigError(
+            f"telemetry_log_interval must be > 0, got "
+            f"{tc.log_interval_s}")
+    if tc.profile_steps:
+        from .telemetry.profiler import parse_step_range
+        try:
+            parse_step_range(tc.profile_steps)
+        except ValueError as e:
+            raise ConfigError(str(e))
+        if not tc.profile_dir:
+            tc = dataclasses.replace(tc, profile_dir="./profile_dump")
+    return tc
 
 
 # -- serving ------------------------------------------------------------------
@@ -379,13 +512,9 @@ def parse_quant_config(cfg: ConfigPairs) -> QuantConfig:
 #: training keys of features the port does not train with yet ->
 #: (predicate "holds its off value", ROADMAP item)
 TRAIN_NOT_YET = {
-    "health": (lambda v: _same_value(v, "0"), "Queue A 12 (model health)"),
-    "sentinel": (lambda v: _same_value(v, "0"),
-                 "Queue A 12 (the loss sentinel)"),
-    "failpoints": (lambda v: not v.strip(),
-                   "Queue A 12 (fault injection)"),
-    "profile_dir": (lambda v: not v.strip(),
-                    "Queue A 12 (profile_dir -> torch.profiler)"),
+    "health": (lambda v: _same_value(v, "0"),
+               "Queue A 12, still queued: model health (its trainer "
+               "half)"),
     "shard_ckpt": (lambda v: _same_value(v, "0"),
                    "Queue A 11 (sharded checkpoints)"),
     "save_async": (lambda v: _same_value(v, "0"),
@@ -412,15 +541,16 @@ TRAIN_NOT_YET = {
 
 #: key prefixes of training features the port does not run yet
 TRAIN_NOT_YET_PREFIXES = {
-    "elastic_": "Queue A 12 (elastic training)",
-    "telemetry_": "Queue A 12 (telemetry)",
+    "elastic_": "Queue A 12, still queued: elastic training",
 }
 
 
 def check_train_config(cfg: ConfigPairs) -> None:
     """Raise :class:`ConfigError` naming the ROADMAP item for the first
     training key whose feature the port does not run yet, unless it
-    holds its off value (the last occurrence of a key decides)."""
+    holds its off value (the last occurrence of a key decides), and for
+    a ``telemetry_*`` key that :func:`parse_telemetry_config` refuses."""
+    parse_telemetry_config(cfg)
     last = {}
     for name, val in cfg:
         last[name] = val

@@ -40,9 +40,13 @@ Where the port differs from the JAX package:
   structure that is not the net's) is refused by the watcher before any
   replica drains, and the controller rejects it as ``blocked`` by the
   ``offline`` gate, with the backoff;
-* the ``deploy_promote``, ``deploy_rollback``, ``deploy_incident`` and
-  ``weights_reload`` ledger events wait for ROADMAP Queue A 12. The
-  fields of the last incident are kept in ``last_incident``.
+* the incident's trace ids are empty until distributed tracing
+  (ROADMAP Queue A 12).
+
+A promotion, a rollback (and each canary's ``weights_reload`` back to
+its copy) and an incident are ledger events (``deploy_promote``,
+``deploy_rollback``, ``deploy_incident``), as in the JAX package; the
+fields of the last incident are kept in ``last_incident`` too.
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ from ..convert import params_to_jax
 from ..serve.engine import version_name
 from ..serve.fleet import ReplicaPool
 from ..serve.reload import ReloadWatcher
+from ..telemetry.ledger import LEDGER
 from . import gates
 from .gates import GateResult
 from .policy import DeployConfig
@@ -227,7 +232,7 @@ class DeployController:
             self._incumbent_version(c), self.cfg, c["baseline_opens"])
         failing = next((g for g in results if not g.passed), None)
         if failing is None:
-            return self._promote(c)
+            return self._promote(c, results)
         return self._rollback(c, failing)
 
     def _incumbent_version(self, c: Dict[str, Any]) -> str:
@@ -239,7 +244,8 @@ class DeployController:
         return version_name(c["incumbent_round"])
 
     # -- verdicts --------------------------------------------------------
-    def _promote(self, c: Dict[str, Any]) -> str:
+    def _promote(self, c: Dict[str, Any],
+                 results: List[GateResult]) -> str:
         # the exact gated round onto every replica not on it yet (not
         # watcher.promote(), which takes the newest round on disk)
         behind = [rep.idx for rep in self.pool.replicas
@@ -247,6 +253,15 @@ class DeployController:
         if behind:
             self.watcher.reload_from_blob(c["blob"], path=c["path"],
                                           targets=behind)
+        vs = self.pool.version_stats().get(c["version"], {})
+        LEDGER.event("deploy_promote", round=c["round"],
+                     digest=c["digest"], version=c["version"],
+                     window_s=round(c["window_s"], 3),
+                     suspect=c["suspect"],
+                     canary_replicas=len(c["idxs"]),
+                     canary_requests=vs.get("requests", 0),
+                     canary_failed=vs.get("failed", 0),
+                     gates=[g.gate for g in results])
         self.promotions += 1
         self._canary = None
         if self.verbose:
@@ -259,7 +274,7 @@ class DeployController:
         # zero-drop path the canary took
         for snap in c["snapshots"]:
             idx = snap["idx"]
-            self.pool.reload_replica(
+            old_round = self.pool.reload_replica(
                 idx, snap["params"], snap["state"], snap["round"],
                 digest=snap["digest"],
                 drain_timeout_s=self.watcher.drain_timeout_s)
@@ -270,6 +285,14 @@ class DeployController:
                 with eng.net.weights_lock:
                     eng.weights_version = "init"
                     eng.weights_digest = ""
+            LEDGER.event("weights_reload", replica=idx,
+                         old_round=old_round, new_round=snap["round"],
+                         digest=snap["digest"], path="",
+                         canary=True, rollback=True)
+        LEDGER.event("deploy_rollback", round=c["round"],
+                     digest=c["digest"], version=c["version"],
+                     incumbent_round=c["incumbent_round"],
+                     replicas=list(c["idxs"]), gate=failing.gate)
         self.rollbacks += 1
         self._reject(c["round"], c["digest"], failing, rolled_back=True)
         self._canary = None
@@ -289,6 +312,7 @@ class DeployController:
             "reason": g.reason, "layers": list(g.layers),
             "provenance": g.provenance, "trace_ids": list(g.trace_ids),
             "rolled_back": rolled_back, "backoff_s": self.cfg.backoff_s}
+        LEDGER.event("deploy_incident", **self.last_incident)
         self.incidents += 1
 
     # -- helpers ---------------------------------------------------------

@@ -29,8 +29,8 @@ Where the port differs from the JAX package:
 
 A failing result carries trace ids of the requests behind it in the
 JAX package; the port's are empty until distributed tracing
-(``ReplicaPool.failed_traces``, and the ``deploy.probe`` span, wait for
-ROADMAP Queue A 12).
+(``ReplicaPool.failed_traces``, ROADMAP Queue A 12). Each version's
+shadow probe is the ``deploy.probe`` span.
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from ..telemetry.modelhealth import reload_verdict
+from ..telemetry.trace import TRACER
 from .policy import DeployConfig
 
 
@@ -180,9 +181,11 @@ def parity_gate(pool, canary_version: str, incumbent_version: str,
     chunk = max(1, eng.max_batch)
     outs: Dict[str, np.ndarray] = {}
     for ver in (canary_version, incumbent_version):
-        futs = [pool.submit(probes[off:off + chunk], kind="predict",
-                            version=ver)
-                for off in range(0, cfg.probe_rows, chunk)]
+        with TRACER.span("deploy.probe", cat="deploy",
+                         args={"version": ver, "rows": cfg.probe_rows}):
+            futs = [pool.submit(probes[off:off + chunk], kind="predict",
+                                version=ver)
+                    for off in range(0, cfg.probe_rows, chunk)]
         outs[ver] = np.concatenate(
             [np.asarray(f.result(timeout=timeout_s)) for f in futs])
     disagree = outs[canary_version] != outs[incumbent_version]

@@ -12,8 +12,11 @@ and the image payload
 :class:`RecordReader` reads the byte range ``[part * size / nsplit,
 (part + 1) * size / nsplit)`` resynced to the next 8-aligned magic, and
 skips a record whose frame is damaged (up to ``max_skip``, then
-raises); a truncated last record ends the range. Local paths only: a
-``scheme://`` URL raises (ROADMAP Queue A 2).
+raises; each skip counts as ``recordio.skipped``, which the serve
+``/healthz`` reports as ``skipped_records``); a truncated last record
+ends the range. The failpoints ``io.open`` (the open) and
+``record.decode`` (a record declared corrupt) guard it. Local paths
+only: a ``scheme://`` URL raises (ROADMAP Queue A 2).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import BinaryIO, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from ..resilience import counters, failpoints
 from .data import check_local
 
 MAGIC = 0xCED7ABEF
@@ -79,6 +83,7 @@ class RecordReader:
                  max_skip: int = 100):
         self.path = check_local(path)
         size = os.path.getsize(path)
+        failpoints.check("io.open", IOError)
         self._f = open(path, "rb")
         self.begin = size * part // nsplit
         self.end = size * (part + 1) // nsplit
@@ -112,6 +117,7 @@ class RecordReader:
 
     def _skip_corrupt(self, at: int, why: str, resync: bool = True) -> None:
         self.skipped += 1
+        counters.inc("recordio.skipped")
         if self.skipped > self.max_skip:
             raise IOError(
                 f"{self.path}: {self.skipped} corrupt records exceed "
@@ -142,6 +148,12 @@ class RecordReader:
                 self._skip_corrupt(at, "bad record length", resync=False)
                 continue
             self._f.read(_pad8(ln))
+            if failpoints.fire("record.decode"):
+                # an injected decode fault: the frame is whole, the
+                # position already at the next record
+                self._skip_corrupt(at, "injected decode fault",
+                                   resync=False)
+                continue
             yield payload
 
     def reset(self) -> None:

@@ -56,6 +56,20 @@ int8 replicas answer first, and the rows under ``cascade_threshold``
 escalate to the ``serve_replicas`` flagship replicas of the round
 (``serve/cascade.py``).
 
+Telemetry and fault tolerance (``telemetry/``, ``resilience/``), the
+JAX package's single-process plane: ``telemetry_trace``,
+``telemetry_port`` (``GET /metrics``), ``telemetry_log``,
+``telemetry_ledger``, ``telemetry_profile_steps`` and ``profile_dir``
+(``torch.profiler``), the step-time probe (``telemetry_steptime = 1``
+and ``telemetry_sync_interval``, on by default: each round line gains
+``data_ms``, ``dispatch_ms``, ``device_ms`` and ``bound``), the loss
+sentinel (``sentinel = 1``, on by default: a NaN/Inf loss or a spike
+rolls back to the newest valid round with the LR scaled by
+``lr_backoff``, and past ``max_rollbacks`` the run aborts) and
+``failpoints``. ``task = serve`` builds the same session for
+``telemetry_port``, ``telemetry_ledger``, ``telemetry_trace`` and
+``telemetry_log``; the server itself answers ``GET /metrics``.
+
 The iterator sections read ``synthetic``, ``synthetic_lm``, ``mnist``
 and ``imgrec`` record files (PNG everywhere, JPEG where libjpeg is
 installed), optionally wrapped by ``iter = threadbuffer``, as the
@@ -83,6 +97,7 @@ values are.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import os
 import re
@@ -97,15 +112,22 @@ import torch
 from . import checkpoint as ckpt
 from .config import (ConfigError, ConfigPairs, parse_cli_overrides,
                      parse_config_file, parse_quant_config,
-                     parse_serve_config, split_sections)
+                     parse_serve_config, parse_telemetry_config,
+                     split_sections)
 from .deploy import DeployController, parse_deploy_config
 from .graph import build_graph, global_param
 from .device import resolve_devices
 from .io import close_chain, create_iterator
 from .io.data import DataBatch
 from .parallel import DpContext, launch
+from .resilience import SentinelAbort, TrainingSentinel, counters, failpoints
 from .serve import CascadeRouter, ReloadWatcher, ReplicaPool, ServeServer
 from .serve.fleet import build_engines
+from .telemetry import ProfileBracket, TelemetrySession
+from .telemetry.profiler import summary_fragment
+from .telemetry.ledger import (LEDGER, config_hash, new_run_id,
+                               plan_config_snapshot)
+from .telemetry.trace import NULL_SPAN, TRACER
 from .trainer import Trainer
 
 
@@ -246,6 +268,29 @@ def task_serve(cfg: ConfigPairs,
     srv.serve_until_interrupt()
 
 
+def _serve_with_session(cfg: ConfigPairs, snapshot: Optional[ConfigPairs],
+                        ready: Optional[Callable[[ServeServer], None]]):
+    """``task = serve`` inside its telemetry session (``telemetry_port``,
+    ``telemetry_ledger``, ``telemetry_trace``, ``telemetry_log``), with
+    the ``run_start`` and ``run_end`` events around it."""
+    gp = lambda n, d: global_param(cfg, n, d)
+    tc = parse_telemetry_config(cfg)
+    platform = resolve_devices(gp("dev", ""))[0].type
+    pairs = snapshot if snapshot is not None else cfg
+    session = TelemetrySession(tc, silent=bool(int(gp("silent", "0"))),
+                               cfg_hash=config_hash(pairs),
+                               host=max(tc.host, 0))
+    _run_start(session, pairs, "serve", platform, 1, 0)
+    status = "ok"
+    try:
+        task_serve(cfg, ready)
+    except BaseException as e:
+        status = f"error:{type(e).__name__}"
+        raise
+    finally:
+        session.close(status=status)
+
+
 def _agree_latest(model_dir: str, silent: bool,
                   dp: Optional[DpContext] = None, want_blob: bool = False):
     """The round ``continue = 1`` resumes: ``find_latest_valid`` of
@@ -300,15 +345,150 @@ def _init_model(tr: Trainer, cfg: ConfigPairs) -> int:
     return tr.round_counter + 1
 
 
-def _train_rounds(tr: Trainer, gp, itr_train, evals,
-                  start_counter: int) -> int:
-    """The JAX package's round loop (main.py:1023-1167, its single-device
+class _Sentinel:
+    """The JAX package's loss sentinel in the round loop
+    (``cxxnet_tpu/main.py`` ``_sentinel_step``): on by default
+    (``sentinel = 0`` turns it off). Every ``sentinel_interval`` steps
+    (and, forced, before each periodic checkpoint write) it reads the
+    loss; a NaN/Inf loss or a spike over ``sentinel_spike_factor`` times
+    the rolling median restores the newest valid round of ``model_dir``,
+    scales the LR by ``lr_backoff``, keeps the round's label, counts
+    ``sentinel.anomalies`` / ``sentinel.rollbacks`` and writes
+    ``sentinel_trip`` and ``rollback`` to the ledger; past
+    ``max_rollbacks``, or with no valid round, it raises
+    :class:`SentinelAbort`."""
+
+    def __init__(self, gp, model_dir: str, silent: bool):
+        self.model_dir = model_dir
+        self.silent = silent
+        self.interval = max(1, int(gp("sentinel_interval", "8")))
+        self.lr_backoff = float(gp("lr_backoff", "0.5"))
+        self.tick = 0
+        self.sentinel: Optional[TrainingSentinel] = None
+        if int(gp("sentinel", "1")):
+            if not 0.0 < self.lr_backoff <= 1.0:
+                raise ValueError(
+                    f"lr_backoff must be in (0, 1], got {self.lr_backoff}")
+            self.sentinel = TrainingSentinel(
+                spike_factor=float(gp("sentinel_spike_factor", "10")),
+                window=int(gp("sentinel_window", "50")),
+                min_history=int(gp("sentinel_min_history", "8")),
+                max_rollbacks=int(gp("max_rollbacks", "3")))
+
+    def step(self, tr: Trainer, r: int, losses=None,
+             force: bool = False) -> None:
+        """Feed the sentinel after a dispatched update (``losses``: a
+        chain's loss vector); ``force`` bypasses the interval."""
+        sentinel = self.sentinel
+        if sentinel is None:
+            return
+        self.tick += 1
+        if not force and self.tick % self.interval:
+            return
+        if losses is None:
+            vals = [tr.last_loss]
+        else:
+            vals = [float(v) for v in losses.float().cpu().reshape(-1)]
+        reason = None
+        for v in vals:
+            reason = sentinel.observe(v)
+            if reason:
+                break
+        if reason is None:
+            return
+        counters.inc("sentinel.anomalies")
+        LEDGER.event("sentinel_trip", round=r, reason=reason,
+                     provenance=None, step=tr.step_count, losses=vals)
+        latest = ckpt.find_latest_valid(self.model_dir, sweep_tmp=False,
+                                        want_blob=True)
+        if latest is None:
+            raise SentinelAbort(
+                f"training anomaly with no valid checkpoint to roll back "
+                f"to: {reason}\n{sentinel.report()}")
+        sentinel.record_rollback(latest[0], reason)   # aborts past budget
+        r0, path, blob = latest
+        # load_blob takes the round's LR scale: back off from the lower
+        # of the two, so rollbacks onto one round compound
+        scale_before = tr.optimizer.lr_scale
+        tr.rollback(path, blob=blob)
+        tr.start_round(r)       # rounds keep their %04d labels
+        tr.optimizer.lr_scale = min(scale_before, tr.optimizer.lr_scale) \
+            * self.lr_backoff
+        sentinel.reset_window()
+        counters.inc("sentinel.rollbacks")
+        LEDGER.event("rollback", round=r, to_round=r0, path=path,
+                     reason=reason, provenance=None, step=tr.step_count,
+                     lr_scale=float(tr.optimizer.lr_scale))
+        TRACER.instant("sentinel.rollback", cat="train",
+                       args={"round": r, "to_round": r0})
+        if not self.silent:
+            print(f"sentinel: {reason}; rolled back to round {r0} "
+                  f"checkpoint ({path}), lr_scale="
+                  f"{tr.optimizer.lr_scale:g}", flush=True)
+
+
+def _save_round(tr: Trainer, path: str, r: int, guard: bool,
+                silent: bool) -> None:
+    """The periodic checkpoint write of the JAX package's round loop:
+    with the sentinel on (``guard``), non-finite masters are not written
+    (``ckpt.skipped_poisoned``); a failed write is counted
+    (``ckpt.write_failures``) and training goes on."""
+    if guard and not tr.params_finite():
+        counters.inc("ckpt.skipped_poisoned")
+        if not silent:
+            print(f"WARNING: skipping checkpoint for round {r}: params "
+                  "are non-finite (sentinel will roll back)", flush=True)
+        return
+    try:
+        tr.save_model(path)
+    except Exception as e:
+        counters.inc("ckpt.write_failures")
+        if not silent:
+            print(f"WARNING: checkpoint write failed for round {r}: "
+                  f"{type(e).__name__}: {e}; training continues (next "
+                  "save period retries)", flush=True)
+
+
+def _timed_batches(it, probe):
+    """The train iterator with each fetch and its staging onto the device
+    (``Trainer.stage_batch``, the next item of ``it``) timed as the
+    step's data wait: banked into the step-time probe and traced as
+    ``train.data_wait``."""
+    it = iter(it)
+    while True:
+        t0 = time.perf_counter()
+        try:
+            batch = next(it)
+        except StopIteration:
+            return
+        t1 = time.perf_counter()
+        if probe is not None:
+            probe.note_data_wait(t1 - t0)
+        TRACER.add_complete("train.data_wait", t0, t1, cat="train")
+        yield batch
+
+
+def _staged(tr: Trainer, it):
+    """Each batch of ``it`` staged onto the device as it is drawn (the
+    JAX package's ``prefetch_device``, one batch deep)."""
+    for b in it:
+        yield tr.stage_batch(b)
+
+
+def _train_rounds(tr: Trainer, gp, itr_train, evals, start_counter: int,
+                  session: TelemetrySession) -> int:
+    """The JAX package's round loop (main.py:1004-1167, its single-device
     and dp parts; under dp every rank runs it, rank 0 alone prints) from
     round ``start_counter``; returns the last round of the run. With
     ``train_chain = k > 1`` the batches are copied to the host as they
     come and every k of them go to ``update_chain_batches`` as one
     chain; a round's tail shorter than k goes through ``update``, and
-    the progress line counts dispatched work only."""
+    the progress line counts dispatched work only.
+
+The telemetry ``session``'s pieces run in it: the step-time probe
+    (its fragment ends the round line), the ``telemetry_profile_steps``
+    bracket, the ``train.step`` and ``train.data_wait`` spans and the
+    ``round_end`` event; and the loss sentinel (:class:`_Sentinel`)."""
     start = time.time()
     num_round = int(gp("num_round", "10"))
     max_round = int(gp("max_round", "0"))
@@ -323,13 +503,40 @@ def _train_rounds(tr: Trainer, gp, itr_train, evals,
     end_round = num_round
     if max_round > 0:
         end_round = min(end_round, start_counter + max_round)
+    guard = _Sentinel(gp, model_dir, bool(silent))
+    probe = session.make_probe() if session.cfg.steptime else None
+    profiler = session.profiler
+    summarized = False
+
+    def step_span(r: int, steps: int = 1):
+        if not TRACER.enabled:
+            return NULL_SPAN
+        return TRACER.span("train.step", cat="train",
+                           args={"round": r, "steps": steps})
+
+    def one(r: int, batch) -> None:
+        if profiler is not None:
+            profiler.maybe_start(tr.step_count)
+        t_d = time.perf_counter()
+        with step_span(r):
+            tr.update(batch)
+            if probe is not None:
+                probe.record_step(time.perf_counter() - t_d,
+                                  ready=tr.last_loss_tensor)
+        if profiler is not None:
+            profiler.maybe_stop(tr.step_count, ready=tr.last_loss_tensor)
+        guard.step(tr, r)
+
     for r in range(start_counter, end_round):
         tr.start_round(r)
         batch_count = n_images = 0
         round_start = time.time()
         pending, pending_rows = [], 0
-        for batch in itr_train:
-            real_rows = batch.batch_size - batch.num_batch_padd
+        batches = _timed_batches(
+            itr_train if chain else _staged(tr, itr_train), probe)
+        for batch in batches:
+            host = getattr(batch, "host", batch)
+            real_rows = host.batch_size - host.num_batch_padd
             if chain:
                 # host copies: iterators may hand out views into buffers
                 # they refill on the next batch
@@ -341,12 +548,22 @@ def _train_rounds(tr: Trainer, gp, itr_train, evals,
                 pending_rows += real_rows
                 if len(pending) < chain:
                     continue
-                tr.update_chain_batches(pending)
+                if profiler is not None:
+                    profiler.maybe_start(tr.step_count)
+                t_d = time.perf_counter()
+                with step_span(r, steps=len(pending)):
+                    losses = tr.update_chain_batches(pending)
+                    if probe is not None:
+                        probe.record_step(time.perf_counter() - t_d,
+                                          ready=losses, steps=len(pending))
+                if profiler is not None:
+                    profiler.maybe_stop(tr.step_count, ready=losses)
                 batch_count += len(pending)
                 n_images += pending_rows
                 pending, pending_rows = [], 0
+                guard.step(tr, r, losses=losses)
             else:
-                tr.update(batch)
+                one(r, batch)
                 n_images += real_rows
                 batch_count += 1
             if print_step and not silent and batch_count // print_step \
@@ -357,36 +574,120 @@ def _train_rounds(tr: Trainer, gp, itr_train, evals,
                       f"loss={tr.last_loss:.6f}, {ips:.1f} images/sec",
                       flush=True)
         for b in pending:             # the round's tail, shorter than k
-            tr.update(b)
+            one(r, b)
+            n_images += b.batch_size - b.num_batch_padd
+            batch_count += 1
+        if profiler is not None and profiler.done and not summarized:
+            # the telemetry_profile_steps bracket closed this round
+            summarized = True
+            frag = summary_fragment(
+                profiler.summarize(),
+                profiler.stop_step - profiler.start_step + 1)
+            if frag and not silent:
+                print(f"round {r:8d}: {frag} (dump: {profiler.dump_dir})",
+                      flush=True)
         line = f"round {r:8d}:[{int(time.time() - start)} sec]"
         if tr.eval_train:
             line += tr.train_metric_report("train")
         for name, itr in evals:
             line += tr.evaluate(itr, name)
+        if probe is not None:
+            line += probe.report_fragment()
+        dt_round = max(time.time() - round_start, 1e-9)
+        line += session.round_tick(
+            r, images=n_images, batches=batch_count,
+            seconds=round(dt_round, 3),
+            images_per_sec=round(n_images / dt_round, 2),
+            loss=tr.last_loss if batch_count else None,
+            step_count=tr.step_count)
         if not silent:
             print(line, flush=True)
         if save_model and save_period and (r + 1) % save_period == 0:
-            tr.save_model(ckpt.model_path(model_dir, r))
+            # a NaN that landed between sentinel ticks rolls back before
+            # the round is written
+            guard.step(tr, r, force=True)
+            _save_round(tr, ckpt.model_path(model_dir, r), r,
+                        guard.sentinel is not None, bool(silent))
     return end_round - 1
+
+
+def _run_start(session: TelemetrySession, pairs: ConfigPairs, task: str,
+               platform: str, world: int, rank: int) -> None:
+    """The ledger's ``run_start`` event (the JAX package's fields: the
+    identity, the layout of the process group, the armed failpoints and
+    the whole config, split into ``config_chunk`` events past one
+    line)."""
+    snap_fields, snap_chunks = plan_config_snapshot(pairs)
+    LEDGER.event(
+        "run_start", task=task, config_hash=session.cfg_hash,
+        process_count=world, process_index=rank, devices=world,
+        platform=platform,
+        mesh={"data": world, "seq": 1, "pipe": 1, "model": 1},
+        dist=None, compile_cache=None,
+        failpoints=failpoints.active(),
+        failpoint_seed=int(os.environ.get(
+            failpoints.SEED_ENV_VAR, "0") or "0"),
+        nan_layer=os.environ.get("CXXNET_NAN_LAYER", ""),
+        data_service_seed=0, data_service_shards=0, **snap_fields)
+    for ch in snap_chunks:
+        LEDGER.event("config_chunk", **ch)
+
+
+def _train_session(cfg: ConfigPairs, tr: Trainer,
+                   snapshot: Optional[ConfigPairs]) -> TelemetrySession:
+    """The telemetry session of one training process, and its
+    ``run_start`` event. Under dp the ranks other than 0 keep the probe
+    and the ledger (``host`` is the rank) but bind no port and write no
+    trace, log or profile."""
+    gp = lambda n, d: global_param(cfg, n, d)
+    tc = parse_telemetry_config(cfg)
+    dp = tr.dp
+    if dp is not None and not dp.is_main:
+        tc = dataclasses.replace(tc, port=0, trace_path="", log_path="",
+                                 profile_steps="")
+    host = tc.host if tc.host >= 0 else (dp.rank if dp is not None else 0)
+    pairs = snapshot if snapshot is not None else cfg
+    silent = bool(int(gp("silent", "0"))) or (dp is not None
+                                              and not dp.is_main)
+    session = TelemetrySession(tc, silent=silent,
+                               cfg_hash=config_hash(pairs), host=host,
+                               cuda=tr.device.type == "cuda")
+    _run_start(session, pairs, gp("task", "train"), tr.device.type,
+               dp.world if dp is not None else 1,
+               dp.rank if dp is not None else 0)
+    return session
 
 
 def task_train(cfg: ConfigPairs, sections,
                ready: Optional[Callable[[Trainer], None]] = None,
-               dp: Optional[DpContext] = None) -> Trainer:
+               dp: Optional[DpContext] = None,
+               snapshot: Optional[ConfigPairs] = None) -> Trainer:
     """``task = train`` or ``finetune`` over the ``data`` section from
     the weights :func:`_init_model` places, evaluating on each ``eval``
     section after every round; ``ready`` is handed the initialized
     trainer before the first step. Under ``dp`` this is one rank's part
-    of a data-parallel run. Returns the trainer."""
+    of a data-parallel run. ``snapshot`` is the whole config as given
+    (the ledger's ``run_start`` records it). The telemetry session lives
+    as long as the run, and ``profile_dir`` traces the whole round loop.
+    Returns the trainer."""
     gp = lambda n, d: global_param(cfg, n, d)
     # float32 policies compute in full float32 (no TF32 in cuDNN convs
     # or cuBLAS matmuls), as the JAX package's float32 does on the CPU
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # failpoints = "site=mode,..." plus the CXXNET_FAILPOINTS env
+    failpoints.install(gp("failpoints", ""), env=True)
     tr = Trainer(cfg, dp=dp)
     data = [pairs for kind, _, pairs in sections if kind == "data"]
     if not data:
         raise ConfigError("no training data section (data = ...) in config")
+    profile_dir = gp("profile_dir", "")
+    if profile_dir and parse_telemetry_config(cfg).profile_steps:
+        raise ConfigError(
+            "profile_dir and telemetry_profile_steps: torch.profiler runs "
+            "one session at a time; set one of them")
+    session = _train_session(cfg, tr, snapshot)
+    status = "ok"
     chains = [create_iterator(cfg + data[0])]
     try:
         evals = []
@@ -401,38 +702,61 @@ def task_train(cfg: ConfigPairs, sections,
         start_counter = _init_model(tr, cfg)
         if ready is not None:
             ready(tr)
-        last = _train_rounds(tr, gp, chains[0], evals, start_counter)
+        bracket = None
+        if profile_dir and (dp is None or dp.is_main):
+            bracket = ProfileBracket(profile_dir,
+                                     cuda=tr.device.type == "cuda")
+            bracket.start()
+        try:
+            last = _train_rounds(tr, gp, chains[0], evals, start_counter,
+                                 session)
+        finally:
+            if bracket is not None:
+                bracket.stop(ready=tr.last_loss_tensor)
+                if not session.silent:
+                    print(f"profiler trace written to {profile_dir}",
+                          flush=True)
         final = ckpt.model_path(model_dir, last)
         if save_model and last >= 0 and not os.path.exists(final):
             tr.save_model(final)
+    except BaseException as e:
+        status = f"error:{type(e).__name__}"
+        raise
     finally:
         for it in chains:
             close_chain(it)
+        session.close(ready=tr.last_loss_tensor, status=status)
     return tr
 
 
 def _train_worker(dp: DpContext, cfg: ConfigPairs, sections,
-                  ready: Optional[Callable[[Trainer], None]]) -> None:
+                  ready: Optional[Callable[[Trainer], None]],
+                  snapshot: Optional[ConfigPairs]) -> None:
     """One rank of a data-parallel ``task = train`` (spawned by
     :func:`task_train_dp`)."""
-    task_train(cfg, sections, ready, dp=dp)
+    task_train(cfg, sections, ready, dp=dp, snapshot=snapshot)
 
 
 def task_train_dp(cfg: ConfigPairs, sections, devices: Sequence[Any],
                   ready: Optional[Callable[[Trainer], None]] = None,
-                  backend: Optional[str] = None) -> None:
+                  backend: Optional[str] = None,
+                  snapshot: Optional[ConfigPairs] = None) -> None:
     """Data-parallel ``task = train``: one rank per entry of ``devices``
     (``parallel.launch``), each running :func:`task_train` on its rows of
     every global batch. On the card the kernels are built here first, so
     every rank loads the same libraries. ``ready`` (a module-level
     function, as it crosses to the ranks by pickle) is handed each
-    rank's trainer before its first step. Raises with the traceback of a
-    rank that fails."""
+    rank's trainer before its first step. The ranks share one run id
+    (``telemetry_run_id``, drawn here unless given). Raises with the
+    traceback of a rank that fails."""
     if any(torch.device(d).type == "cuda" for d in devices):
         from .ops import KERNELS, _build
         _build.build(sorted({k.source for k in KERNELS.values()}))
-    launch(_train_worker, (cfg, sections, ready), devices=devices,
-           backend=backend)
+    tc = parse_telemetry_config(cfg)
+    run_id = tc.run_id or os.environ.get("CXXNET_RUN_ID") or new_run_id()
+    cfg = list(cfg) + [("telemetry_run_id", run_id)]
+    launch(_train_worker, (cfg, sections, ready, snapshot),
+           devices=devices, backend=backend)
 
 
 # -- the batch tasks ------------------------------------------------------------
@@ -599,13 +923,16 @@ def run(cfg: ConfigPairs, ready: Optional[Callable] = None,
         if devices is None:
             devices = resolve_devices(global_param(global_cfg, "dev", ""))
         if len(devices) > 1:
-            task_train_dp(global_cfg, sections, devices, ready, backend)
+            task_train_dp(global_cfg, sections, devices, ready, backend,
+                          snapshot=cfg)
             return None
-        return task_train(global_cfg, sections, ready)
+        return task_train(global_cfg, sections, ready, snapshot=cfg)
     if task in BATCH_TASKS:
         return BATCH_TASKS[task](global_cfg, sections)
     if task == "serve":
-        task_serve(global_cfg, ready)
+        failpoints.install(global_param(global_cfg, "failpoints", ""),
+                           env=True)
+        _serve_with_session(global_cfg, cfg, ready)
         return None
     if task == "data_reader":
         raise ConfigError(

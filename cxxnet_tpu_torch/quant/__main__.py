@@ -17,7 +17,9 @@
    inspect) but the exit code is 2.
 
 The derived round serves as version ``rNNNN-int8`` under ``task = serve
-serve_dtype = int8`` (``serve/engine.negotiate_blob``).
+serve_dtype = int8`` (``serve/engine.negotiate_blob``). With
+``telemetry_ledger = <path>`` the calibration is a ``quant_calibrate``
+event of that run ledger.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import os
 import sys
 from typing import List, Optional
 
@@ -45,7 +48,9 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     from .. import checkpoint as ckpt
     from ..config import (parse_cli_overrides, parse_config_file,
-                          parse_quant_config, split_sections)
+                          parse_quant_config, parse_telemetry_config,
+                          split_sections)
+    from ..telemetry.ledger import LEDGER, new_run_id
     from ..graph import build_graph
     from ..io import close_chain, create_iterator
     from ..model import Network
@@ -54,6 +59,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     cfg = parse_config_file(args.config) + parse_cli_overrides(args.overrides)
     global_cfg, sections = split_sections(cfg)
     qc = parse_quant_config(global_cfg)
+    tc = parse_telemetry_config(global_cfg)
+    if tc.ledger_path:
+        # the quant_calibrate event lands in telemetry_ledger
+        LEDGER.enable(tc.ledger_path, tc.run_id or os.environ.get(
+            "CXXNET_RUN_ID") or new_run_id())
     graph = build_graph(global_cfg)
     net = Network(graph, global_cfg)
     blob = ckpt.load_for_inference(args.src)
@@ -72,6 +82,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         qblob, qm = quantize_blob(net, blob, batches, qc)
     finally:
         close_chain(itr)
+        LEDGER.disable()
 
     write_quantized_round(args.out, graph.structure_signature(), qblob, qm)
     out_digest = ckpt.blob_digest(ckpt.verify_model(args.out))

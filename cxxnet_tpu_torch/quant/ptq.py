@@ -25,6 +25,7 @@ percentile in numpy on a host copy, as the JAX package takes it.
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, Iterable, List, Tuple
 
 import numpy as np
@@ -33,6 +34,7 @@ import torch
 from .. import checkpoint as ckpt
 from ..config import QuantConfig
 from ..convert import params_from_jax
+from ..telemetry.ledger import LEDGER
 
 #: layer types eligible for weight quantization: their ``wmat`` keeps the
 #: output channels on the last axis of the JAX layout
@@ -205,7 +207,9 @@ def quantize_blob(net, blob: Dict[str, Any], batches: Iterable[Any],
     """The PTQ pass over a loaded round (JAX-layout numpy trees, as
     ``checkpoint.load_for_inference`` gives them): load it into ``net``,
     calibrate the activation scales, quantize the weights and assemble
-    the ``__quant_meta__`` block. Returns ``(qblob, quant_meta)``."""
+    the ``__quant_meta__`` block, and write ``quant_calibrate`` to the
+    run ledger. Returns ``(qblob, quant_meta)``."""
+    t0 = time.perf_counter()
     src_digest = ckpt.blob_digest(blob["meta"])
     net.load_weights(*params_from_jax(blob["params"], blob["state"]))
     act_scales = calibrate_act_scales(net, batches,
@@ -229,6 +233,12 @@ def quantize_blob(net, blob: Dict[str, Any], batches: Iterable[Any],
     }
     qblob = dict(blob)
     qblob["params"] = qparams
+    LEDGER.event("quant_calibrate",
+                 source_round=qm["source_round"],
+                 source_digest=src_digest,
+                 layers=len(drift),
+                 percentile=float(qc.calib_percentile),
+                 seconds=round(time.perf_counter() - t0, 4))
     return qblob, qm
 
 

@@ -1,5 +1,6 @@
 """Circuit breaker of the serve dispatch path (the port's copy of
-``cxxnet_tpu/resilience/breaker.py``, without the run ledger).
+``cxxnet_tpu/resilience/breaker.py``). Every transition is a
+``breaker_transition`` event in the run ledger.
 
 * **closed**: normal; ``failure_threshold`` consecutive dispatch
   failures trip it open (one success resets the streak);
@@ -14,6 +15,8 @@ from __future__ import annotations
 import threading
 import time
 from typing import Callable, Dict
+
+from ..telemetry.ledger import LEDGER
 
 
 class CircuitOpen(RuntimeError):
@@ -64,7 +67,7 @@ class CircuitBreaker:
             now = self._clock()
             if self._state == "open":
                 if now - self._opened_at >= self.reset_timeout_s:
-                    self._state = "half_open"
+                    self._set_state("half_open")
                     self._probe_at = now
                     self.probes += 1
                     return True
@@ -80,7 +83,7 @@ class CircuitBreaker:
     def record_success(self) -> None:
         with self._lock:
             self._consecutive_failures = 0
-            self._state = "closed"
+            self._set_state("closed")
 
     def record_failure(self) -> None:
         with self._lock:
@@ -91,10 +94,20 @@ class CircuitBreaker:
             if self._consecutive_failures >= self.failure_threshold:
                 self._trip()
 
+    def _set_state(self, new: str) -> None:
+        """A transition and its ledger event (under the lock; the
+        ledger append is a local file write)."""
+        if new == self._state:
+            return
+        old, self._state = self._state, new
+        LEDGER.event("breaker_transition", from_state=old, to_state=new,
+                     consecutive_failures=self._consecutive_failures,
+                     opens=self.opens)
+
     def _trip(self) -> None:
         if self._state != "open":
             self.opens += 1
-        self._state = "open"
+        self._set_state("open")
         self._opened_at = self._clock()
         self._consecutive_failures = 0
 

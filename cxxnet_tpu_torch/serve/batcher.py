@@ -1,5 +1,8 @@
 """Dynamic micro-batching queue in front of the inference engine (the
 port of ``cxxnet_tpu/serve/batcher.py``, without distributed tracing).
+Each dispatch is the ``serve.queue_wait`` and ``serve.batch_assembly``
+spans, and the rows admitted but not dispatched are the
+``cxxnet_serve_queue_rows{engine}`` gauge.
 
 Requests accumulate until ``max_batch`` rows or ``max_latency_ms``
 elapses, then dispatch as ONE device call (``engine.run_padded``) and
@@ -28,6 +31,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..resilience import CircuitBreaker, CircuitOpen
+from ..telemetry.registry import REGISTRY
+from ..telemetry.trace import TRACER
 from .engine import InferenceEngine
 from .stats import ServingStats
 
@@ -78,6 +83,11 @@ class MicroBatcher:
         # live-work probes (the LM scheduler's live sequences): counts of
         # in-flight work outside the row accounting
         self._live_probes: List = []
+        self._g_depth_fam = REGISTRY.gauge(
+            "cxxnet_serve_queue_rows",
+            "Rows admitted to the micro-batcher but not yet dispatched",
+            labels=("engine",))
+        self._g_depth = self._g_depth_fam.labels(self.stats.instance)
         self._stop = threading.Event()
         self._drain = True
         self._thread = threading.Thread(target=self._worker, daemon=True,
@@ -123,6 +133,7 @@ class MicroBatcher:
                     f"serve queue full ({self._queued_rows} rows "
                     f">= {self.max_queue_rows})")
             self._queued_rows += rows.shape[0]
+            self._g_depth.set(self._queued_rows)
             self._q.put(req)
         return req.future
 
@@ -135,6 +146,7 @@ class MicroBatcher:
             self._stop.set()
         self._q.put(None)                 # wake the worker
         self._thread.join(timeout=timeout)
+        self._g_depth_fam.remove_labels(self.stats.instance)
 
     @property
     def queued_rows(self) -> int:
@@ -168,6 +180,7 @@ class MicroBatcher:
         n = sum(r.rows.shape[0] for r in reqs)
         with self._rows_lock:
             self._queued_rows -= n
+            self._g_depth.set(self._queued_rows)
 
     def _flush(self, reqs: List[_Request]) -> None:
         """Reject expired requests, then dispatch the group in chunks of
@@ -202,8 +215,16 @@ class MicroBatcher:
 
     def _dispatch(self, live: List[_Request]) -> None:
         """ONE device call for one chunk; scatter results to futures."""
-        rows = (live[0].rows if len(live) == 1
-                else np.concatenate([r.rows for r in live], axis=0))
+        # queue wait: the earliest member's submit to now, on the
+        # worker's track
+        TRACER.add_complete("serve.queue_wait",
+                            min(r.t_submit for r in live),
+                            time.perf_counter(), cat="serve",
+                            args={"requests": len(live)})
+        with TRACER.span("serve.batch_assembly", cat="serve",
+                         args={"requests": len(live)}):
+            rows = (live[0].rows if len(live) == 1
+                    else np.concatenate([r.rows for r in live], axis=0))
         try:
             out = self.engine.run_padded(rows, live[0].kind, live[0].node)
         except Exception as e:   # reported to every waiting client

@@ -27,10 +27,12 @@ and ``extract`` (feature taps have no confidence) bypass the cascade.
 The tiers' replicas share the cards as any fleet's do; on one H100
 both tiers dispatch on ``cuda:0``'s default stream.
 
-The registry series ``cxxnet_cascade_rows_total`` and
-``cxxnet_cascade_escalation_rate`` and the ``cascade_escalate`` ledger
-event wait for ROADMAP Queue A 12; ``cascade_stats`` (in ``/statz`` as
-``cascade``) carries the same counts.
+Rows count by the tier that answered them in
+``cxxnet_cascade_rows_total{pool,tier}``, the escalated share is the
+``cxxnet_cascade_escalation_rate{pool}`` gauge, and a request that
+escalates is a ``cascade_escalate`` ledger event, as in the JAX package;
+``cascade_stats`` (in ``/statz`` as ``cascade``) carries the same
+counts.
 """
 
 from __future__ import annotations
@@ -42,6 +44,8 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 
 from ..config import QuantConfig
+from ..telemetry.ledger import LEDGER
+from ..telemetry.registry import REGISTRY
 from .fleet import Replica, ReplicaPool
 
 _TINY = 1e-12
@@ -92,6 +96,14 @@ class CascadeRouter(ReplicaPool):
         self._clock = threading.Lock()
         self._cstats = {"requests": 0, "requests_escalated": 0,
                         "rows": 0, "rows_escalated": 0, "failed": 0}
+        self._c_rows = REGISTRY.counter(
+            "cxxnet_cascade_rows_total",
+            "Cascade rows by final answering tier",
+            labels=("pool", "tier"))
+        self._g_esc = REGISTRY.gauge(
+            "cxxnet_cascade_escalation_rate",
+            "Fraction of cascade rows escalated to the flagship tier",
+            labels=("pool",))
 
     # -- construction ----------------------------------------------------
     @classmethod
@@ -166,9 +178,17 @@ class CascadeRouter(ReplicaPool):
                 self._cstats["rows_escalated"] += n_esc
                 if n_esc:
                     self._cstats["requests_escalated"] += 1
+                rate = self._cstats["rows_escalated"] \
+                    / max(1, self._cstats["rows"])
+            self._c_rows.labels(self.instance, "fast").inc(n - n_esc)
+            self._g_esc.labels(self.instance).set(rate)
             if not n_esc:
                 self._finalize(out, self._fast_answer(probs, kind))
                 return
+            self._c_rows.labels(self.instance, "flagship").inc(n_esc)
+            LEDGER.event("cascade_escalate", rows=n_esc, total=n,
+                         min_conf=round(float(conf.min()), 4),
+                         threshold=self.threshold, metric=self.metric)
             flag_fut = ReplicaPool.submit(
                 self, rows[esc], kind, None, timeout_ms,
                 self.flagship_version)

@@ -41,6 +41,8 @@ from ..convert import params_from_jax
 from ..graph import build_graph
 from ..model import Network
 from ..quant import dequantize_blob, is_quantized_params
+from ..resilience import failpoints
+from ..telemetry.trace import TRACER
 from .stats import ServingStats
 
 # output kinds mirroring the cxxnet task modes pred / pred_raw / extract
@@ -300,16 +302,21 @@ class InferenceEngine:
         entry)."""
         if kind not in _KINDS:
             raise ValueError(f"unknown output kind {kind!r}")
+        # a failing dispatch on demand (what trips the serve breaker)
+        failpoints.check("serve.infer", RuntimeError)
         n = rows_nhwc.shape[0]
         bucket = self.bucket_for(n)
         if n > bucket:
             raise ValueError(
                 f"run_padded: {n} rows exceed the largest bucket "
                 f"{bucket}; chunk to max_batch first")
-        fn = self._cell(bucket, kind, node)
-        data = torch.from_numpy(self._pad(rows_nhwc, bucket)).to(
-            self.net.device)
-        return fn(data).cpu().numpy()[:n]
+        with TRACER.span("serve.infer", cat="serve",
+                         args={"rows": int(n), "bucket": int(bucket),
+                               "kind": kind}):
+            fn = self._cell(bucket, kind, node)
+            data = torch.from_numpy(self._pad(rows_nhwc, bucket)).to(
+                self.net.device)
+            return fn(data).cpu().numpy()[:n]
 
     def _run(self, data, kind: str, node: Optional[str] = None
              ) -> np.ndarray:

@@ -31,14 +31,21 @@ one card dispatch from their own threads on the device's default
 stream, which the kernels' ``split_scratch`` workspaces rely on (one
 stream a device): no replica gets a side stream.
 
-The JAX package's registry gauges, ledger events and trace spans of the
-fleet wait for ROADMAP Queue A 12; :meth:`ReplicaPool.failed_traces`
-keeps its surface and returns no trace ids. Stdlib threading; every
-public method is thread-safe.
+Telemetry, as in the JAX package: each replica's lifecycle state is the
+``cxxnet_serve_replica_state{engine}`` gauge and a ``replica_state``
+ledger event at every transition; terminal outcomes per version count
+in ``cxxnet_serve_version_requests_total{pool,version,result}``; a
+route decision is the ``serve.route`` span. A pool built with ``fleet =
+False`` (the single engine of ``ServeServer(engine)``) exports none of
+these, as the JAX package's single engine has none. Distributed tracing waits
+for ROADMAP Queue A 12, so :meth:`ReplicaPool.failed_traces` keeps its
+surface and returns no trace ids. Stdlib threading; every public method
+is thread-safe.
 """
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence
@@ -52,13 +59,19 @@ from ..graph import build_graph, global_param
 from ..model import Network
 from ..resilience import CircuitBreaker
 from ..telemetry import SLOTracker
+from ..telemetry.ledger import LEDGER
+from ..telemetry.registry import REGISTRY
+from ..telemetry.trace import TRACER
 from .batcher import MicroBatcher
 from .engine import InferenceEngine, negotiate_blob, version_name
 from .stats import ServingStats
 
 # replica lifecycle states
 UP, DRAINING, RELOADING, DOWN = "up", "draining", "reloading", "down"
-_STATES = (UP, DRAINING, RELOADING, DOWN)
+# the cxxnet_serve_replica_state gauge's code of each state
+_STATE_CODE = {UP: 0, DRAINING: 1, RELOADING: 2, DOWN: 3}
+
+_POOL_SEQ = itertools.count()
 
 __all__ = ["Replica", "ReplicaPool", "build_engines", "NoHealthyReplica",
            "AllReplicasDegraded", "UnknownVersion", "version_name",
@@ -88,7 +101,8 @@ class Replica:
                  breaker: Optional[CircuitBreaker],
                  slo: Optional[SLOTracker],
                  degraded_queue_frac: float = 0.8,
-                 slo_burn_degraded: float = 2.0):
+                 slo_burn_degraded: float = 2.0,
+                 fleet: bool = True):
         self.idx = int(idx)
         self.engine = engine
         self.batcher = batcher
@@ -104,6 +118,15 @@ class Replica:
         # picked for version X is never admitted after the replica began
         # draining toward version Y
         self.admission_lock = threading.Lock()
+        # the lifecycle gauge and ledger events of a fleet's replica
+        self.fleet = bool(fleet)
+        self._g_state = None
+        if self.fleet:
+            self._g_state = REGISTRY.gauge(
+                "cxxnet_serve_replica_state",
+                "Replica lifecycle state (0=up 1=draining 2=reloading "
+                "3=down)", labels=("engine",)).labels(engine.stats.instance)
+            self._g_state.set(0)
 
     @classmethod
     def build(cls, idx: int, engine: InferenceEngine, *,
@@ -114,7 +137,8 @@ class Replica:
               degraded_queue_frac: float = 0.8,
               slo_ms: float = 0.0, slo_target: float = 0.99,
               slo_window_s: float = 60.0,
-              slo_burn_degraded: float = 2.0) -> "Replica":
+              slo_burn_degraded: float = 2.0,
+              fleet: bool = True) -> "Replica":
         """``engine`` with a circuit breaker (none when
         ``breaker_threshold = 0``), an SLO tracker on its stats (when
         ``slo_ms > 0``: every terminal outcome is classified good or
@@ -135,7 +159,7 @@ class Replica:
             default_timeout_ms=default_timeout_ms, breaker=breaker)
         return cls(idx, engine, batcher, breaker, slo,
                    degraded_queue_frac=degraded_queue_frac,
-                   slo_burn_degraded=slo_burn_degraded)
+                   slo_burn_degraded=slo_burn_degraded, fleet=fleet)
 
     # -- state -----------------------------------------------------------
     @property
@@ -149,9 +173,17 @@ class Replica:
         return self._state
 
     def set_state(self, new: str) -> None:
-        if new not in _STATES:
+        """A lifecycle transition: the gauge and a ``replica_state``
+        ledger event."""
+        if new not in _STATE_CODE:
             raise ValueError(f"unknown replica state {new!r}")
-        self._state = new
+        old, self._state = self._state, new
+        if old == new or not self.fleet:
+            return
+        self._g_state.set(_STATE_CODE[new])
+        LEDGER.event("replica_state", replica=self.idx,
+                     engine=self.engine.stats.instance,
+                     from_state=old, to_state=new, version=self.version)
 
     # -- router signals --------------------------------------------------
     def alive(self) -> bool:
@@ -226,6 +258,10 @@ class Replica:
             self.lm.stop(drain=drain)
             self.lm.engine.close()
         self.batcher.close(drain=drain)
+        self.engine.stats.unregister()
+        if self.fleet:
+            REGISTRY.get("cxxnet_serve_replica_state").remove_labels(
+                self.engine.stats.instance)
 
 
 def replica_devices(devs: Sequence, n: int, silent: bool = False) -> List:
@@ -298,11 +334,17 @@ class ReplicaPool:
             raise ValueError("replica pool needs at least one replica")
         self.replicas: List[Replica] = list(replicas)
         self.admission_control = bool(admission_control)
+        self.fleet = all(r.fleet for r in self.replicas)
+        self.instance = str(next(_POOL_SEQ))
         self._lock = threading.Lock()
         self._rr = 0
         # per-version terminal outcomes (the A/B readout):
         # version -> {requests, ok, failed, lat_sum}
         self._vstats: Dict[str, Dict[str, float]] = {}
+        self._c_version = REGISTRY.counter(
+            "cxxnet_serve_version_requests_total",
+            "Pool requests by model version and outcome",
+            labels=("pool", "version", "result"))
 
     # -- construction ----------------------------------------------------
     @classmethod
@@ -328,7 +370,8 @@ class ReplicaPool:
                      admission_control: bool = True,
                      **knobs) -> "ReplicaPool":
         """A pool of one replica per engine, each with its own batcher,
-        breaker and SLO tracker (``knobs``: :meth:`Replica.build`)."""
+        breaker and SLO tracker (``knobs``: :meth:`Replica.build`, its
+        ``fleet`` flag included)."""
         return cls([Replica.build(i, e, **knobs)
                     for i, e in enumerate(engines)],
                    admission_control=admission_control)
@@ -383,7 +426,9 @@ class ReplicaPool:
         reload that flips it to DRAINING (or swaps its version) between
         the pick and the enqueue would otherwise serve a pinned request
         from the wrong model. The per-version outcomes hang off the
-        future, so the A/B readout sees terminal results."""
+        future, so the A/B readout sees terminal results. The route
+        decision is the ``serve.route`` span, naming the replica."""
+        t_route0 = time.perf_counter()
         for _ in range(8):            # re-pick bound: reloads are rare
             rep = self.pick(version)
             with rep.admission_lock:
@@ -391,6 +436,9 @@ class ReplicaPool:
                                        and rep.version != version):
                     continue          # lost a race with a reload
                 ver = rep.version
+                # the route ends before the enqueue, where the queue
+                # wait begins
+                t_route1 = time.perf_counter()
                 fut = rep.batcher.submit(data, kind, node,
                                          timeout_ms=timeout_ms)
                 break
@@ -398,6 +446,8 @@ class ReplicaPool:
             raise NoHealthyReplica(
                 "could not admit request: replicas kept transitioning "
                 "(reload storm?) — retry later")
+        TRACER.add_complete("serve.route", t_route0, t_route1, cat="serve",
+                            args={"replica": rep.idx, "version": ver})
         t0 = time.perf_counter()
         with self._lock:
             vs = self._vstats.setdefault(
@@ -410,6 +460,9 @@ class ReplicaPool:
                 vs["ok" if ok else "failed"] += 1
                 if ok:
                     vs["lat_sum"] += time.perf_counter() - t0
+            if self.fleet:
+                self._c_version.labels(self.instance, ver,
+                                       "ok" if ok else "failed").inc()
         fut.add_done_callback(_done)
         return fut
 
@@ -601,3 +654,9 @@ class ReplicaPool:
     def close(self, drain: bool = True) -> None:
         for r in self.replicas:
             r.close(drain=drain)
+        fam = REGISTRY.get("cxxnet_serve_version_requests_total")
+        if fam is not None:
+            with self._lock:
+                for ver in self._vstats:
+                    for res in ("ok", "failed"):
+                        fam.remove_labels(self.instance, ver, res)

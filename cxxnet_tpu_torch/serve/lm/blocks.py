@@ -11,10 +11,11 @@ fixed-width ``(T,)`` arrays padded with 0, and the step writes every
 padding or masked token into block 0, so the allocator never hands it
 out and the attention mask never reads it.
 
-``used`` and ``capacity`` are plain properties that ``/statz`` reads;
-the JAX package's Prometheus gauges of them wait for ROADMAP Queue A
-12. Thread-safe: the scheduler thread is the steady-state caller, but
-the whole-request path and the handoff listener allocate concurrently.
+``used`` and ``capacity`` are what ``/statz`` reads, and the registry
+gauges ``cxxnet_lm_kv_blocks_used{engine}`` and
+``cxxnet_lm_kv_pool_blocks{engine}`` export them. Thread-safe: the
+scheduler thread is the steady-state caller, but the whole-request path
+and the handoff listener allocate concurrently.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ import threading
 from typing import Dict, List, Tuple
 
 import numpy as np
+
+from ...telemetry.registry import REGISTRY
 
 __all__ = ["BlockPool", "PoolExhausted", "SCRATCH_BLOCK"]
 
@@ -38,7 +41,8 @@ class PoolExhausted(RuntimeError):
 class BlockPool:
     """Free-list allocator over blocks ``1 .. num_blocks-1``."""
 
-    def __init__(self, num_blocks: int, block_size: int):
+    def __init__(self, num_blocks: int, block_size: int,
+                 instance: str = ""):
         if num_blocks < 2:
             raise ValueError(
                 f"kv pool needs >= 2 blocks (block 0 is scratch), "
@@ -52,6 +56,19 @@ class BlockPool:
         # working set of pool indices small between defrags
         self._free: List[int] = list(range(self.num_blocks - 1, 0, -1))
         self._owner: Dict[int, int] = {}      # block id -> sequence id
+        self.instance = instance
+        self._g_used_fam = REGISTRY.gauge(
+            "cxxnet_lm_kv_blocks_used",
+            "Allocated KV-cache blocks (block 0 scratch excluded)",
+            labels=("engine",))
+        self._g_cap_fam = REGISTRY.gauge(
+            "cxxnet_lm_kv_pool_blocks",
+            "Allocatable KV-cache pool blocks",
+            labels=("engine",))
+        self._g_used = self._g_used_fam.labels(instance)
+        self._g_cap = self._g_cap_fam.labels(instance)
+        self._g_used.set(0)
+        self._g_cap.set(self.num_blocks - 1)
 
     # -- accounting ------------------------------------------------------
     @property
@@ -88,6 +105,7 @@ class BlockPool:
             got = [self._free.pop() for _ in range(n)]
             for b in got:
                 self._owner[b] = int(seq_id)
+            self._g_used.set(len(self._owner))
             return got
 
     def free(self, blocks: List[int]) -> None:
@@ -104,6 +122,7 @@ class BlockPool:
                     raise ValueError(f"double free of kv block {b}")
                 del self._owner[b]
                 self._free.append(b)
+            self._g_used.set(len(self._owner))
 
     def owners(self) -> Dict[int, int]:
         """{block id: sequence id} snapshot (tests, debugging)."""
@@ -138,3 +157,9 @@ class BlockPool:
             self._owner = {remap[b]: sid for b, sid in self._owner.items()}
             self._free = list(range(self.num_blocks - 1, len(alive), -1))
             return old_of_new, remap
+
+    def unregister(self) -> None:
+        """Drop this pool's gauges from the registry (the engine's
+        close)."""
+        self._g_used_fam.remove_labels(self.instance)
+        self._g_cap_fam.remove_labels(self.instance)

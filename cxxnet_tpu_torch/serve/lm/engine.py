@@ -16,7 +16,8 @@ engine cannot express:
 * **one step for prefill and decode**: prefill runs it at ``(B = 1, C =
   prefill_chunk)``, decode at ``(B = max_seqs, C = 1)``. The runners are
   kept in a cache keyed ``("step", B, C)`` and ``("install",)`` with hit
-  and miss counts, as the JAX package keys its compiled cells, so the
+  and miss counts (``cxxnet_lm_compile_cache_events_total{engine,event}``),
+  as the JAX package keys its compiled cells, so the
   miss count freezes after warm-up (in eager torch a runner is a
   closure; the count starts to cost something with the captured step,
   ROADMAP Queue A 13). Every shape in a cell is fixed (T,
@@ -58,6 +59,7 @@ from ...config import LMServeConfig, parse_policy
 from ...layers import ApplyCtx
 from ...layers.seq import _linear, _seq, _unseq
 from ...ops.attention import paged_attention, rope_at
+from ...telemetry.registry import REGISTRY
 from ..engine import InferenceEngine
 from .blocks import SCRATCH_BLOCK, BlockPool
 
@@ -116,13 +118,21 @@ class LMEngine:
         self.vocab = 0
         self._mha: List[Tuple[int, object]] = []   # (layer index, layer)
         self._validate_graph()
-        self.block_pool = BlockPool(self.num_blocks, self.block_size)
+        self.block_pool = BlockPool(self.num_blocks, self.block_size,
+                                    instance=engine.stats.instance)
         self.pools = self._init_pools()
         self._pool_lock = threading.Lock()
         self._cache: Dict[tuple, object] = {}
         self._cache_lock = threading.Lock()
         self._hits = 0
         self._misses = 0
+        # the cell cache's hits and misses, a family of its own as in the
+        # JAX package
+        self._cc_fam = REGISTRY.counter(
+            "cxxnet_lm_compile_cache_events_total",
+            "LM step compile-cache events", labels=("engine", "event"))
+        self._c_hit = self._cc_fam.labels(engine.stats.instance, "hit")
+        self._c_miss = self._cc_fam.labels(engine.stats.instance, "miss")
 
     # -- validation / pools ----------------------------------------------
     def _validate_graph(self) -> None:
@@ -283,11 +293,13 @@ class LMEngine:
             fn = self._cache.get(key)
             if fn is not None:
                 self._hits += 1
+                self._c_hit.inc()
                 return fn
             fn = (self._make_step(key[1], key[2]) if key[0] == "step"
                   else self._make_install())
             self._cache[key] = fn
             self._misses += 1
+            self._c_miss.inc()
             return fn
 
     def compile_info(self) -> Dict[str, int]:
@@ -437,9 +449,13 @@ class LMEngine:
             return remap
 
     def close(self) -> None:
-        """Release the pools' device memory."""
+        """Release the pools' device memory and drop the engine's
+        series."""
         with self._pool_lock:
             self.pools = {}
+        self.block_pool.unregister()
+        self._cc_fam.remove_labels(self.engine.stats.instance, "hit")
+        self._cc_fam.remove_labels(self.engine.stats.instance, "miss")
 
 
 def _norm(device) -> torch.device:

@@ -1,6 +1,6 @@
 """Continuous (iteration-level) batching scheduler for LM decoding (the
-port of ``cxxnet_tpu/serve/lm/scheduler.py``, without its ledger events,
-which wait for ROADMAP Queue A 12).
+port of ``cxxnet_tpu/serve/lm/scheduler.py``), with its run-ledger
+events: ``lm_serve_start``, ``kv_evict`` and ``prefill_handoff``.
 
 One scheduler thread per LMEngine drives the Orca-style loop:
 
@@ -44,6 +44,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ...config import LMServeConfig
+from ...telemetry.ledger import LEDGER
 from ..batcher import Backpressure, DeadlineExceeded
 from .blocks import PoolExhausted
 from .engine import LMEngine
@@ -170,6 +171,11 @@ class LMScheduler:
             if handoff_port is None else handoff_port)
         self.listener.start()
         self.handoff_addr = self.listener.addr
+        LEDGER.event("lm_serve_start", role=self.role,
+                     max_seqs=self.cfg.max_seqs,
+                     kv_blocks=self.engine.block_pool.capacity,
+                     kv_block_size=self.cfg.kv_block_size,
+                     handoff_port=self.handoff_addr[1])
         self._thread.start()
 
     def set_role(self, role: str,
@@ -351,6 +357,8 @@ class LMScheduler:
                              "seq": seq.seq_id})
         if reason not in ("eos", "length"):
             self.evictions += 1
+            LEDGER.event("kv_evict", seq=seq.seq_id, reason=reason,
+                         tokens=len(seq.generated))
 
     def _first_token(self, seq: Sequence, token: int) -> None:
         """Record + emit generated token 0 (from the prefill cell),
@@ -489,6 +497,9 @@ class LMScheduler:
         left_ms = 0.0
         if seq.deadline is not None:
             left_ms = max(1.0, (seq.deadline - time.monotonic()) * 1e3)
+        LEDGER.event("prefill_handoff", seq=seq.seq_id,
+                     prompt_len=int(seq.prompt.size),
+                     peer=f"{peer[0]}:{peer[1]}")
         with self._lock:
             self._live -= 1     # local custody ends; relay owns the handle
 

@@ -23,8 +23,8 @@ the fleet cannot serve (a plain round into an int8 fleet, a structure
 that is not the net's) is refused before any replica drains, once per
 round file, with ``last_error`` naming the cause; the replicas stay UP
 on their weights. An fp fleet dequantizes a quantized round, as its
-build does (``negotiate_blob``). The reload's ledger events and spans
-wait for ROADMAP Queue A 12.
+build does (``negotiate_blob``). Each replica's drain and swap is the
+``serve.reload`` span and a ``weights_reload`` ledger event.
 """
 
 from __future__ import annotations
@@ -34,6 +34,8 @@ import threading
 from typing import Any, Dict, List, Optional, Tuple
 
 from .. import checkpoint as ckpt
+from ..telemetry.ledger import LEDGER
+from ..telemetry.trace import TRACER
 from .engine import negotiate_blob
 from .fleet import Replica, ReplicaPool, version_name
 
@@ -176,19 +178,26 @@ class ReloadWatcher:
         if not targets:
             return 0
         done = 0
+        canary = max(targets) < self.ab_replicas
         with self._lock:
             blob = self._accept(blob, targets[0])
             for idx in targets:
                 if self._stop.is_set():
                     break
-                self.pool.reload_replica(
-                    idx, blob["params"], blob["state"], new_round,
-                    digest=digest, drain_timeout_s=self.drain_timeout_s)
+                with TRACER.span("serve.reload", cat="serve",
+                                 args={"replica": idx, "round": new_round,
+                                       "digest": digest, "canary": canary}):
+                    old_round = self.pool.reload_replica(
+                        idx, blob["params"], blob["state"], new_round,
+                        digest=digest, drain_timeout_s=self.drain_timeout_s)
+                    LEDGER.event(
+                        "weights_reload", replica=idx, old_round=old_round,
+                        new_round=new_round, digest=digest, path=path,
+                        canary=canary)
                 done += 1
             if done == len(targets):
                 self.reloads += 1
         if self.verbose and done:
-            canary = max(targets) < self.ab_replicas
             mode = f"canary x{done}" if canary else f"all x{done}"
             tail = "" if done == len(targets) \
                 else f" (aborted; {len(targets) - done} left stale)"

@@ -14,7 +14,10 @@ port of ``cxxnet_tpu/serve/server.py``).
   0`` returns ``{"tokens": [...], "reason": ...}`` in one body. A client
   that drops mid-stream cancels its sequence and frees its KV blocks.
 * ``GET  /healthz``  -> ``{"status": "ok"|"degraded"|"open"|"down", ...}``
-* ``GET  /statz``    -> the ServingStats snapshot + breaker/queue state
+* ``GET  /statz``    -> the ServingStats snapshot + breaker/queue state,
+  the resilience ``counters`` and the run identity ``run``
+* ``GET  /metrics``  -> the whole process registry in Prometheus text
+  format 0.0.4 (serving, SLO, fleet, LM plane, cascade, checkpoints)
 
 The server fronts one engine (``ServeServer(engine)``, served as a
 pool of one replica) or a replica fleet (``ServeServer(pool=...)``,
@@ -38,9 +41,13 @@ replica, admission shedding or no LM plane 503; deadline exceeded 504;
 engine failure 500. Shutdown is graceful: stop the reload watcher and
 accepting, then drain the LM planes and the batchers, on ``stop()`` or
 on SIGINT/SIGTERM (handlers installed by ``start()`` on the main
-thread).
+thread). Corrupt records skipped since the server started
+(``recordio.skipped``) read ``degraded`` and show as ``skipped_records``.
 
-Not served yet: ``GET /metrics`` (ROADMAP Queue A 12).
+A request is the ``serve.request`` span (``serve.queue_wait``,
+``serve.batch_assembly`` and ``serve.infer`` on the batcher's thread,
+``serve.respond`` on the handler's); ``start()`` writes ``serve_start``
+to the run ledger.
 """
 
 from __future__ import annotations
@@ -53,7 +60,10 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from ..resilience import CircuitOpen
+from ..resilience import CircuitOpen, counters
+from ..telemetry.exporter import PROMETHEUS_CONTENT_TYPE, render_prometheus
+from ..telemetry.ledger import LEDGER, run_info
+from ..telemetry.trace import TRACER
 from .batcher import Backpressure, DeadlineExceeded
 from .engine import InferenceEngine
 from .fleet import NoHealthyReplica, ReplicaPool
@@ -90,6 +100,14 @@ def _make_handler(server: "ServeServer"):
                 self._reply(code, payload)
             elif self.path == "/statz":
                 self._reply(200, server.statz())
+            elif self.path == "/metrics":
+                # one scrape is the whole process registry
+                body = render_prometheus().encode("utf-8")
+                self.send_response(200)
+                self.send_header("Content-Type", PROMETHEUS_CONTENT_TYPE)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
             else:
                 self._reply(404, {"error": f"no such path {self.path}"})
 
@@ -103,6 +121,11 @@ def _make_handler(server: "ServeServer"):
             if self.path not in ("/predict", "/extract", "/generate"):
                 self._reply(404, {"error": f"no such path {self.path}"})
                 return
+            with TRACER.span("serve.request", cat="serve",
+                             args={"path": self.path}):
+                self._handle_post()
+
+        def _handle_post(self):
             try:
                 req = self._read_json()
                 version = req.get("version") \
@@ -120,15 +143,17 @@ def _make_handler(server: "ServeServer"):
                                         timeout_ms=timeout_ms,
                                         version=version)
                     out = fut.result(timeout=server.result_timeout_s)
-                    self._reply(200, {"node": node,
-                                      "features": out.tolist()})
+                    with TRACER.span("serve.respond", cat="serve"):
+                        self._reply(200, {"node": node,
+                                          "features": out.tolist()})
                 else:
                     kind = "raw" if int(req.get("raw", 0)) else "predict"
                     fut = server.submit(data, kind, timeout_ms=timeout_ms,
                                         version=version)
                     out = fut.result(timeout=server.result_timeout_s)
                     key = "prob" if kind == "raw" else "pred"
-                    self._reply(200, {key: out.tolist()})
+                    with TRACER.span("serve.respond", cat="serve"):
+                        self._reply(200, {key: out.tolist()})
             except (Backpressure, CircuitOpen, NoHealthyReplica,
                     NoLMPlane) as e:
                 self._reply(503, {"error": str(e)})
@@ -158,8 +183,9 @@ def _make_handler(server: "ServeServer"):
                     raise DeadlineExceeded(
                         "generation exceeded result_timeout_s="
                         f"{server.result_timeout_s}")
-                self._reply(200, {"tokens": done["tokens"],
-                                  "reason": done["reason"]})
+                with TRACER.span("serve.respond", cat="serve"):
+                    self._reply(200, {"tokens": done["tokens"],
+                                      "reason": done["reason"]})
                 return
             # headers are committed from here on: a failure is an in-band
             # error event (pushed by the scheduler) or a dropped
@@ -169,11 +195,13 @@ def _make_handler(server: "ServeServer"):
             self.send_header("Transfer-Encoding", "chunked")
             self.end_headers()
             try:
-                for ev in handle.events(timeout=server.result_timeout_s):
-                    self.wfile.write(chunk(encode_event(ev)))
-                    self.wfile.flush()         # per token: TTFT is real
-                self.wfile.write(LAST_CHUNK)
-                self.wfile.flush()
+                with TRACER.span("serve.stream", cat="serve"):
+                    for ev in handle.events(
+                            timeout=server.result_timeout_s):
+                        self.wfile.write(chunk(encode_event(ev)))
+                        self.wfile.flush()     # per token: TTFT is real
+                    self.wfile.write(LAST_CHUNK)
+                    self.wfile.flush()
             except (TimeoutError, OSError):
                 # client gone (or stream wedged): release the decode row
                 # and KV blocks instead of generating into the void
@@ -189,9 +217,9 @@ class ServeServer:
 
     Exactly one of ``engine`` and ``pool`` is given. An engine becomes a
     pool of one replica (``ReplicaPool.from_engines``) with the server's
-    batcher, breaker and SLO knobs and no admission control, and
-    ``/healthz``, ``/statz`` and the log line keep the single engine's
-    layout. A pool's replicas already have their batchers, breakers and
+    batcher, breaker and SLO knobs, no admission control and no fleet
+    series, and ``/healthz``, ``/statz``, ``/metrics`` and the log line
+    keep the single engine's layout. A pool's replicas already have their batchers, breakers and
     SLO trackers (built by ``ReplicaPool.build``), so those knobs are
     not used. An optional ``reload_watcher`` starts with the server,
     stops before the drain, and shows in ``/statz`` as ``reload``."""
@@ -221,7 +249,8 @@ class ServeServer:
                              "engine= or pool=")
         if engine is not None:
             pool = ReplicaPool.from_engines(
-                [engine], admission_control=False, max_batch=max_batch,
+                [engine], admission_control=False, fleet=False,
+                max_batch=max_batch,
                 max_latency_ms=max_latency_ms, max_queue_rows=max_queue_rows,
                 default_timeout_ms=default_timeout_ms,
                 breaker_threshold=breaker_threshold,
@@ -240,6 +269,9 @@ class ServeServer:
         self.max_body_bytes = max_body_bytes
         self.result_timeout_s = result_timeout_s
         self.log_interval_s = log_interval_s
+        # degradation relative to this server's lifetime: records skipped
+        # before it started (a training run in the process) are not its
+        self._skipped_base = counters.get("recordio.skipped")
         self.httpd = ThreadingHTTPServer((host, port), _make_handler(self))
         self.httpd.daemon_threads = True
         self.port = self.httpd.server_address[1]
@@ -289,21 +321,28 @@ class ServeServer:
 
     def health(self) -> Tuple[int, Dict]:
         codes = {"ok": 200, "degraded": 200, "open": 503, "down": 500}
+        skipped = counters.get("recordio.skipped") - self._skipped_base
         if self._one is None:
             agg = self.pool.health()
             status = agg["status"]
+            if status == "ok" and skipped > 0:
+                status = "degraded"
             return codes[status], {
                 "status": status, "ok": status == "ok",
-                "replicas": agg["replicas"], "versions": agg["versions"]}
+                "replicas": agg["replicas"], "versions": agg["versions"],
+                "skipped_records": skipped}
         rep = self._one
         status = rep.health()
+        if status == "ok" and skipped > 0:
+            status = "degraded"
         queued = rep.batcher.queued_rows if rep.alive() else 0
         out = {"status": status, "ok": status == "ok",
                "breaker": (rep.breaker.effective_state()
                            if rep.breaker is not None else "disabled"),
                "queued_rows": queued,
                "queue_frac": round(
-                   queued / max(1, rep.batcher.max_queue_rows), 4)}
+                   queued / max(1, rep.batcher.max_queue_rows), 4),
+               "skipped_records": skipped}
         if rep.slo is not None:
             out["slo_burn_rate"] = round(rep.burn_rate(), 4)
         return codes[status], out
@@ -325,6 +364,9 @@ class ServeServer:
                                         for r in reps)}
         if self.reload_watcher is not None:
             out["reload"] = self.reload_watcher.snapshot()
+        out["counters"] = counters.snapshot()
+        # run identity: joins /statz and scrapes with the run ledger
+        out["run"] = run_info()
         return out
 
     # -- lifecycle -------------------------------------------------------
@@ -340,10 +382,18 @@ class ServeServer:
             self.reload_watcher.start()
         if self.handle_signals:
             self._install_signal_handlers()
+        n_rep = len(self.pool.replicas)
+        LEDGER.event(
+            "serve_start", port=self.port, replicas=n_rep,
+            versions=self.pool.versions() if self._one is None else None,
+            reload_s=(self.reload_watcher.interval_s
+                      if self.reload_watcher is not None
+                      and hasattr(self.reload_watcher, "interval_s")
+                      else 0))
         if not self.silent:
             print(f"serving on http://{self.httpd.server_address[0]}:"
-                  f"{self.port} (/predict /extract /healthz /statz), "
-                  f"{len(self.pool.replicas)} replica(s)", flush=True)
+                  f"{self.port} (/predict /extract /healthz /statz "
+                  f"/metrics), {n_rep} replica(s)", flush=True)
         return self
 
     def _log_loop(self) -> None:

@@ -1,6 +1,6 @@
 """Serve SLO tracking: good/bad request accounting and burn rate (the
-port of ``cxxnet_tpu/telemetry/slo.py``, without its Prometheus series;
-``/metrics`` waits for ROADMAP Queue A 12).
+port of ``cxxnet_tpu/telemetry/slo.py``), exported as the registry's
+``cxxnet_serve_slo_*`` series.
 
 The operator declares an SLO, "``serve_slo_target`` of requests complete
 OK within ``serve_slo_ms``", and this tracker classifies every finished
@@ -28,10 +28,13 @@ import threading
 import time
 from typing import Dict, Optional, Tuple
 
+from .registry import REGISTRY, MetricRegistry
+
 
 class SLOTracker:
     def __init__(self, slo_ms: float, target: float = 0.99,
                  window_s: float = 60.0, instance: str = "0",
+                 registry: Optional[MetricRegistry] = None,
                  clock=time.monotonic):
         if slo_ms <= 0:
             raise ValueError(f"slo_ms must be > 0, got {slo_ms}")
@@ -52,6 +55,37 @@ class SLOTracker:
         self._sec = [-1] * n
         self._tot_good = 0
         self._tot_bad = 0
+        reg = registry or REGISTRY
+        self._reg = reg
+        slo_req = reg.counter(
+            "cxxnet_serve_slo_requests_total",
+            "Terminal requests classified against the latency SLO",
+            labels=("engine", "result"))
+        self._c_good = slo_req.labels(self.instance, "good")
+        self._c_bad = slo_req.labels(self.instance, "bad")
+        self._g_burn = reg.gauge(
+            "cxxnet_serve_slo_burn_rate",
+            "Error-budget burn rate over the rolling window "
+            "(1.0 = exactly sustainable)", labels=("engine",)
+        ).labels(self.instance)
+        self._g_burn.set_function(self.burn_rate)
+        reg.gauge("cxxnet_serve_slo_ms", "Latency objective (ms)",
+                  labels=("engine",)).labels(self.instance).set(slo_ms)
+        reg.gauge("cxxnet_serve_slo_target", "Availability objective",
+                  labels=("engine",)).labels(self.instance).set(target)
+
+    def unregister(self) -> None:
+        """Drop this engine's SLO series (the replica's teardown, as
+        ``ServingStats.unregister``)."""
+        for name in ("cxxnet_serve_slo_burn_rate", "cxxnet_serve_slo_ms",
+                     "cxxnet_serve_slo_target"):
+            fam = self._reg.get(name)
+            if fam is not None:
+                fam.remove_labels(self.instance)
+        fam = self._reg.get("cxxnet_serve_slo_requests_total")
+        if fam is not None:
+            fam.remove_labels(self.instance, "good")
+            fam.remove_labels(self.instance, "bad")
 
     # -- recording -------------------------------------------------------
     def record(self, latency_s: Optional[float] = None,
@@ -73,6 +107,7 @@ class SLOTracker:
             else:
                 self._bad[i] += 1
                 self._tot_bad += 1
+        (self._c_good if good else self._c_bad).inc()
 
     # -- reading ---------------------------------------------------------
     def _window_counts(self) -> Tuple[int, int]:

@@ -41,6 +41,15 @@ package's ``_device_normalize`` does; under a float32 policy both give
 the same bits. Under data parallelism each rank uploads and folds its
 own rows.
 
+Telemetry (``telemetry/``): :meth:`Trainer.stage_batch` is the
+``train.h2d_stage`` span, :meth:`Trainer.update` the
+``train.step_dispatch`` span and :meth:`Trainer.evaluate` the
+``train.eval`` span, all free when tracing is off. The ``device.step``
+failpoint poisons the masters and the loss with NaN after a step, as a
+divergent step would; :meth:`Trainer.rollback` restores a verified
+round and :meth:`Trainer.params_finite` guards checkpoint writes (the
+loss sentinel in ``main.py``).
+
 Train metrics are read one step late, as in the JAX package: step N's
 top node is copied to the host after step N+1 was queued (a chain's k
 steps after the next chain), so the copy does not stall the card. Rounds are ``%04d.model`` checkpoints in the
@@ -67,7 +76,9 @@ a barrier.
 
 from __future__ import annotations
 
+import os
 import re
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -84,8 +95,25 @@ from .model import Network
 from .ops.fused_stem import decode_normalize, decode_normalize_reference
 from .optim import Optimizer, leaves, tree_map, unflatten
 from .parallel import DpContext, allreduce_metric_pairs
+from .resilience import failpoints
+from .telemetry.trace import TRACER
 
 _METRIC_RE = re.compile(r"^metric(?:\[([^,\]]+)(?:,([^\]]+))?\])?$")
+
+
+class StagedBatch:
+    """A host batch with this process's rows already on the device
+    (:meth:`Trainer.stage_batch`): ``data`` the network's input (folded
+    into the compute dtype for a train step, f32 for an eval forward),
+    ``label`` f32 (None for an eval forward), ``host`` the batch itself
+    (its padding, labels and metric rows)."""
+    __slots__ = ("host", "data", "label")
+
+    def __init__(self, host: DataBatch, data: torch.Tensor,
+                 label: Optional[torch.Tensor]):
+        self.host = host
+        self.data = data
+        self.label = label
 
 
 class Trainer:
@@ -290,9 +318,11 @@ class Trainer:
         got here, and before any rank goes on."""
         if self.dp is not None:
             self.dp.barrier()
-            if self.dp.is_main:
-                self._write(path)
-            self.dp.barrier()
+            try:
+                if self.dp.is_main:
+                    self._write(path)
+            finally:
+                self.dp.barrier()
             return
         self._write(path)
 
@@ -368,10 +398,25 @@ class Trainer:
             return y.reshape(lead + y.shape[1:])
         return decode_normalize_reference(x, mean, factor, torch.float32)
 
-    def _to_device(self, batch: DataBatch):
+    def stage_batch(self, batch, for_eval: bool = False) -> StagedBatch:
+        """This process's rows of a host batch on the device (the
+        ``train.h2d_stage`` span; the copies themselves are
+        asynchronous): the input folded for a train step or in f32 for
+        ``for_eval``, and the labels of a train step. A batch staged
+        already comes back as it is."""
+        if not TRACER.enabled:
+            return self._stage_batch(batch, for_eval)
+        with TRACER.span("train.h2d_stage", cat="train"):
+            return self._stage_batch(batch, for_eval)
+
+    def _stage_batch(self, batch, for_eval: bool) -> StagedBatch:
+        if isinstance(batch, StagedBatch):
+            return batch
+        if for_eval:
+            return StagedBatch(batch, self._input(batch, fold=False), None)
         rows, _ = self._rows(batch)
-        return (self._input(batch, fold=True),
-                self._upload(batch.label[rows], np.float32))
+        return StagedBatch(batch, self._input(batch, fold=True),
+                           self._upload(batch.label[rows], np.float32))
 
     def _mask(self, batch: DataBatch) -> torch.Tensor:
         """This process's rows: real 1, padded 0. The all-ones mask of
@@ -394,8 +439,9 @@ class Trainer:
         tree layout (f32; multiplied by the loss scale under float16)."""
         if self.params is None:
             raise RuntimeError("call init_model() first")
-        data, label = self._to_device(batch)
-        return self._forward_backward(data, label, self._mask(batch))
+        staged = self.stage_batch(batch)
+        return self._forward_backward(staged.data, staged.label,
+                                      self._mask(staged.host))
 
     def _forward_backward(self, data: torch.Tensor, label: torch.Tensor,
                           mask: torch.Tensor):
@@ -469,19 +515,69 @@ class Trainer:
         return {n: nodes[n if n is not None else self.net.top_node()]
                 .detach() for n in set(self.train_metric.nodes)}
 
-    def update(self, batch: DataBatch) -> None:
+    def update(self, batch) -> None:
         """One minibatch forward, backward and optimizer step (under
         ``update_period``: the accumulation, and the apply at the
-        period's end)."""
+        period's end) of a host batch or a :class:`StagedBatch`. An
+        armed ``device.step`` failpoint then poisons the masters and the
+        loss with NaN (``CXXNET_NAN_LAYER = <layer>`` confines it to one
+        layer's masters), as the JAX package's trainer does."""
         if self.params is None:
             raise RuntimeError("call init_model() first")
-        data, label = self._to_device(batch)
-        self._last_loss, nodes = self._step(data, label, self._mask(batch))
+        t_dispatch0 = time.perf_counter()
+        staged = self.stage_batch(batch)
+        batch = staged.host
+        self._last_loss, nodes = self._step(staged.data, staged.label,
+                                            self._mask(batch))
+        if failpoints.fire("device.step"):
+            self._poison()
         if self.eval_train:
             self._drain_pending_metric()
             self._pending_metric = [(self._metric_values(nodes), batch)]
+        TRACER.add_complete("train.step_dispatch", t_dispatch0,
+                            time.perf_counter(), cat="train",
+                            args={"step": self.step_count})
         if self.step_hook is not None:
             self.step_hook(self)
+
+    def _poison(self) -> None:
+        """The injected bad step: NaN into the masters (of the layer
+        ``CXXNET_NAN_LAYER`` names, else all) and into the loss."""
+        target = os.environ.get("CXXNET_NAN_LAYER", "")
+        if target and target not in self.params:
+            raise ValueError(
+                "CXXNET_NAN_LAYER=%r names no param layer (have: %s)"
+                % (target, ", ".join(sorted(self.params))))
+        tree = {target: self.params[target]} if target else self.params
+        with torch.no_grad():
+            for _, v in leaves(tree):
+                v.add_(float("nan"))
+        self.net.invalidate_cast()
+        self._last_loss = torch.full_like(self._last_loss, float("nan"))
+
+    def params_finite(self) -> bool:
+        """Whether every master is finite (one host read). Guards
+        checkpoint writes: a step whose apply poisoned the masters after
+        a finite loss must not be written, or every rollback would
+        restore NaN."""
+        with torch.no_grad():
+            ok = torch.stack([torch.isfinite(v).all()
+                              for _, v in leaves(self.params)]).all()
+        return bool(ok)
+
+    def rollback(self, path: str,
+                 blob: Optional[Dict[str, Any]] = None) -> int:
+        """Restore masters, layer state, optimizer state, counters and
+        the LR scale from a verified round (the sentinel's recovery),
+        from ``blob`` when the scan already read it, and drop what the
+        poisoned steps left: the period's accumulation (zeroed by the
+        load), the last loss and the unread train metrics. Returns the
+        restored round."""
+        self.load_blob(blob if blob is not None else ckpt.load_model(path))
+        self.sample_counter = 0
+        self._last_loss = None
+        self._pending_metric = []
+        return self.round_counter
 
     def update_chain_batches(self, batches) -> torch.Tensor:
         """``len(batches)`` steps on distinct host batches, the same steps
@@ -566,17 +662,19 @@ class Trainer:
         return "".join("\t%s:%f" % (m, v) for m, v in mset.get(name))
 
     def evaluate(self, data_iter, name: str) -> str:
-        """All metrics over ``data_iter`` with the eval forward; returns
-        the round-line fragment ``\\tname-metric:value``."""
+        """All metrics over ``data_iter`` with the eval forward (the
+        ``train.eval`` span); returns the round-line fragment
+        ``\\tname-metric:value``."""
         self.metric.clear()
         need = set(self.metric.nodes)
-        for batch in data_iter:
-            data = self._input(batch, fold=False)
-            res = self.net(data, capture_nodes=any(n is not None
-                                                   for n in need))
-            nodes = {n: (res.out if n is None else res.nodes[n])
-                     for n in need}
-            self._add_metric(self.metric, nodes, batch)
+        with TRACER.span("train.eval", cat="train", args={"set": name}):
+            for batch in data_iter:
+                staged = self.stage_batch(batch, for_eval=True)
+                res = self.net(staged.data, capture_nodes=any(
+                    n is not None for n in need))
+                nodes = {n: (res.out if n is None else res.nodes[n])
+                         for n in need}
+                self._add_metric(self.metric, nodes, batch)
         return self._report(self.metric, name)
 
     # -- inference (the batch tasks) -----------------------------------------

@@ -222,7 +222,9 @@ def test_drawing_net_dp_step_equals_the_single_device_step(net):
 
 # -- synthetic_mlp through main.run ------------------------------------------------
 
-ROUND_RE = re.compile(r"^round +(\d+):\[\d+ sec\](.*)$")
+#: a round line: its round and its metric fields; the step-time probe's
+#: timings (``data_ms`` .. ``bound``) at its end differ run to run
+ROUND_RE = re.compile(r"^round +(\d+):\[\d+ sec\](.*?)(?:\tdata_ms:.*)?$")
 
 
 def _mlp_text():

@@ -39,15 +39,8 @@ train step with ``fused_kernels = 0``, compiled with excess precision off
   0); from the JAX state after two bf16 steps the chaos has gone, and
   at step 3 its relative L2 difference is at most 0.4 per leaf and 0.1
   in the median (readings 0.143 and 0.027; a frozen leaf reads 1).
-* Every layer of that net and of the small net in bfloat16, from the
-  same inputs (the JAX package's bf16 training forward's node values)
-  and the same seeded upstream gradient in both packages, with the port
-  casting its f32 masters inside the graph: output, input gradients and
-  the masters' f32 gradients within a relative L2 difference of 2e-2
-  (worst reading 6.4e-3), 5e-2 where XLA adds many bf16 terms in bf16
-  and the port sums in f32 (readings 3.2e-2 and 2.8e-2). No chaos
-  enters here, so this holds each layer's bf16 backward and the casts
-  to the precision of bf16.
+* Every layer of that net and of the small net in bfloat16:
+  ``test_torch_train_layers.py``.
 * ``python -m cxxnet_tpu_torch.main <conf> task=train dev=cpu`` prints
   the JAX package's round lines and writes ``%04d.model`` rounds with
   the optimizer state, which ``cxxnet_tpu.checkpoint`` loads
@@ -363,144 +356,6 @@ def test_ibn_steps_match_the_jax_trainer(dtype, fused, step):
                 got[step - 1], snaps[step - 1], snaps[step])
 
 
-#: bound on the relative L2 difference of each layer's output, input
-#: gradients and master gradients in bfloat16 (worst reading 6.4e-3,
-#: fc1's dbias: f32 sums in another order)
-BF16_LAYER = 2e-2
-#: the bound where XLA adds many bf16 terms in bf16 and the port sums in
-#: f32 and rounds once: the small net's conv bias gradient (a sum over
-#: 1024 rows; reads 3.2e-2) and its 8x8 global average pool through the
-#: pooling kernel's function (64 cells; reads 2.8e-2). Summing 1024
-#: seeded bf16 values so, the JAX package is 5.5e-2 from the exact sum
-#: and the port 1.5e-3.
-BF16_LAYER_WIDE_SUMS = {("cv2", "dbias"): 5e-2, ("gap", "out0"): 5e-2}
-
-
-@functools.lru_cache(maxsize=None)
-def _bf16_layer_rels(net, fused):
-    """Every layer of ``net`` in bfloat16 training mode, in both
-    packages, from the same inputs (the node values of the JAX package's
-    bf16 training forward from the net's weights, compiled with excess
-    precision off) and the same seeded upstream gradient in the layer's
-    output dtype; the loss layer's upstream is its loss.
-    The port casts its f32 masters inside the graph
-    (``Network._cast_tree``), the JAX layer casts them in its apply.
-    Returns {(layer, what): relative L2 difference} for ``what`` in
-    ``out``, ``dx<i>`` (gradient of input i) and ``d<leaf>`` (gradient
-    of an f32 master, which must be f32)."""
-    from cxxnet_tpu.layers.base import ApplyCtx as JaxCtx
-    from cxxnet_tpu_torch.convert import params_from_jax
-    from cxxnet_tpu_torch.graph import build_graph
-    from cxxnet_tpu_torch.layers import ApplyCtx
-    from cxxnet_tpu_torch.model import Network
-    from torch_ibn_fixture import jax_run
-    text = NETS[net][0] + f"compute_dtype = bfloat16\nfused_kernels = {fused}\n"
-    jcfg = jax_parse(text)
-    jnet = JaxNetwork(jax_build_graph(jcfg), jcfg)
-    cfg = parse_config_string(text + "dev = cpu\n")
-    pnet = Network(build_graph(cfg), cfg)
-    assert pnet._act_folded == jnet._act_folded
-    p, s = NETS[net][1]()
-    pp, ps = params_from_jax(p, s)
-    b = _batches(net)[0]
-    mask = np.ones((BATCH,), np.float32)
-    old = os.environ.get("CXXNET_BN_CLAMP_WARN")
-    os.environ["CXXNET_BN_CLAMP_WARN"] = "0"    # no host callback
-    try:
-        nodes = jax_run(lambda p_, s_, x: jnet.apply(
-            p_, s_, x, train=True, capture_nodes=True).nodes,
-            p, s, jnp.asarray(b.data))
-        rs = np.random.RandomState(5)
-        g, rels = jnet.graph, {}
-        for li, (spec, jl) in enumerate(zip(g.layers, jnet.layers)):
-            if li in jnet._act_folded:
-                continue
-            name = jl.name
-            ins = [nodes[g.node_names[ni]] for ni in spec.nindex_in]
-            jctx = JaxCtx(train=True, compute_dtype=jnp.bfloat16,
-                          fuse_act=jnet._fuse_act.get(li))
-
-            def fj(lp, xs, _l=jl, _c=jctx, _s=s.get(name, {})):
-                outs, _ = _l.apply(lp, _s, list(xs), _c)
-                if _l.is_loss:
-                    return [_l.loss(outs, jnp.asarray(b.label), mask)]
-                return outs
-            lp_j = {k: jnp.asarray(v) for k, v in p.get(name, {}).items()}
-            outs, vjp = jax.vjp(fj, lp_j, ins)
-            dys = [jnp.ones_like(o) if jl.is_loss else
-                   jnp.asarray(rs.randn(*o.shape), o.dtype) for o in outs]
-            dlp, dxs = vjp(dys)
-            # the port's layer on the same values
-            layer = pnet.layers[li]
-            lp = {k: v.clone().requires_grad_(True)
-                  for k, v in pp.get(name, {}).items()}
-            xs = [torch.from_numpy(np.array(x, np.float32)).to(
-                getattr(torch, str(x.dtype))).requires_grad_(True)
-                for x in ins]
-            ctx = ApplyCtx(compute_dtype=torch.bfloat16, fused=pnet.fused,
-                           fuse_act=pnet._fuse_act.get(li), train=True,
-                           state_sink={})
-            touts = layer.forward(pnet._cast_tree({name: lp}, torch.bfloat16)
-                                  .get(name, {}), ps.get(name, {}), xs, ctx)
-            if layer.is_loss:
-                touts = [layer.loss(touts, torch.from_numpy(b.label),
-                                    torch.from_numpy(mask))]
-            tdys = [torch.from_numpy(np.array(d, np.float32)).to(o.dtype)
-                    for d, o in zip(dys, touts)]
-            grads = torch.autograd.grad(touts, list(lp.values()) + xs, tdys)
-            tlp = dict(zip(lp, grads[:len(lp)]))
-            assert all(v.dtype == torch.float32 for v in tlp.values())
-            tlp, _ = params_to_jax({name: tlp} if tlp else {}, {})
-            f32 = lambda a: np.asarray(a, np.float32)
-            for i, (o, to) in enumerate(zip(outs, touts)):
-                rels[(name, f"out{i}")] = _rel(f32(to.detach().float()),
-                                               f32(o))
-            for i, (d, td) in enumerate(zip(dxs, grads[len(lp):])):
-                rels[(name, f"dx{i}")] = _rel(f32(td.float()), f32(d))
-            for k, d in dlp.items():
-                rels[(name, f"d{k}")] = _rel(tlp[name][k], f32(d))
-    finally:
-        if old is None:
-            del os.environ["CXXNET_BN_CLAMP_WARN"]
-        else:
-            os.environ["CXXNET_BN_CLAMP_WARN"] = old
-    return rels
-
-
-@pytest.mark.parametrize("fused", ["auto", "0"])
-@pytest.mark.parametrize("net", ["small", "ibn"])
-def test_bf16_layers_backward_like_the_jax_layers(net, fused):
-    """Each layer of the net in bfloat16, from the same inputs and
-    upstream gradient as the JAX package's layer: output, input
-    gradients and the f32 masters' gradients within BF16_LAYER (or
-    BF16_LAYER_WIDE_SUMS)."""
-    rels = _bf16_layer_rels(net, fused)
-    kinds = {what[:2] for _, what in rels}
-    assert kinds == {"ou", "dx", "dw", "db"}, kinds
-    masters = {"small": 9, "ibn": 2 * (69 + 69 + 1) - 69}[net]
-    assert sum(what[:2] in ("dw", "db") for _, what in rels) == masters
-    bad = {k: r for k, r in rels.items()
-           if not r <= BF16_LAYER_WIDE_SUMS.get(k, BF16_LAYER)}
-    assert not bad, bad
-
-
-def test_bias_gradient_sums_in_f32_where_xla_adds_in_bf16():
-    """Why BF16_LAYER_WIDE_SUMS: the gradient of a bf16 bias over 1024
-    rows, against its exact sum."""
-    from torch_ibn_fixture import jax_run
-    x = jnp.asarray(np.random.RandomState(0).randn(16, 8, 8, 16),
-                    jnp.bfloat16)
-    exact = np.asarray(x, np.float64).sum((0, 1, 2))
-    want = jax_run(lambda b, x_: jax.vjp(
-        lambda bb: x_ + bb.astype(jnp.bfloat16), b)[1](x_)[0],
-        jnp.zeros((16,), jnp.float32), x)
-    tb = torch.zeros(16, requires_grad=True)
-    tx = torch.from_numpy(np.array(x, np.float32)).to(torch.bfloat16)
-    (tx + tb.to(torch.bfloat16)).backward(tx)
-    assert _rel(np.asarray(want, np.float64), exact) > 2e-2
-    assert _rel(tb.grad.double().numpy(), exact) < 5e-3
-
-
 def test_trainer_steps_go_through_the_kernel_functions_on_the_cpu():
     """With the kernels selected the training graph holds the kernels'
     autograd functions (their plain versions run on the CPU); with
@@ -571,17 +426,25 @@ def test_main_train_writes_rounds_the_jax_package_resumes(tmp_path, capsys):
                 before, _jax_snap(jtr))
 
 
-#: a value that switches on each training key outside this slice
+#: a value that switches on each training key outside this slice (the
+#: telemetry keys here are the fleet pieces still queued; the rest of
+#: the telemetry namespace, sentinel, failpoints and profile_dir train)
 SWITCHED_ON = {
-    "telemetry_port": "9099", "health": "1", "sentinel": "1",
-    "failpoints": "device.step=every:3", "profile_dir": "/nowhere/prof",
+    "telemetry_fleet_dir": "/nowhere/fleet", "health": "1",
+    "telemetry_hang_s": "120", "telemetry_trace_tail_pct": "5",
+    "telemetry_straggler_factor": "3",
     "shard_ckpt": "1", "save_async": "1", "keep_last_n": "3",
     "data_service": "127.0.0.1:9400", "test_io": "1",
     "model_parallel": "2", "seq_parallel": "2", "pipeline_parallel": "2",
-    "elastic_dir": "/nowhere/elastic", "telemetry_trace": "/nowhere/t.json",
+    "elastic_dir": "/nowhere/elastic", "telemetry_storm_threshold": "4",
     "dist_coordinator": "10.0.0.1:1234", "dist_num_proc": "2",
     "dist_rank": "1",
 }
+
+#: each telemetry key of SWITCHED_ON at its default (the off value)
+TELEMETRY_OFF = {"telemetry_hang_s": "0", "telemetry_trace_tail_pct": "0",
+                 "telemetry_straggler_factor": "2",
+                 "telemetry_storm_threshold": "8"}
 
 
 def test_every_rejected_key_is_covered():
@@ -594,10 +457,11 @@ def test_training_keys_outside_the_slice_name_their_roadmap_item(key):
     with pytest.raises(ConfigError, match=r"ROADMAP Queue "):
         Trainer(parse_config_string(base + f'{key} = "{SWITCHED_ON[key]}"\n'))
     off = {"model_parallel": "1", "seq_parallel": "1",
-           "pipeline_parallel": "1", "dist_num_proc": "1"}.get(
+           "pipeline_parallel": "1", "dist_num_proc": "1",
+           **TELEMETRY_OFF}.get(
                key, "0" if key not in (
-                   "failpoints", "profile_dir", "data_service", "elastic_dir",
-                   "telemetry_trace", "dist_coordinator") else "")
+                   "telemetry_fleet_dir", "data_service", "elastic_dir",
+                   "dist_coordinator") else "")
     Trainer(parse_config_string(base + f'{key} = "{off}"\n'))
 
 

@@ -251,7 +251,8 @@ def test_update_period_still_names_its_queue_item():
     check_train_config([("updater", "adam"), ("update_period", "2")])
     check_train_config([("updater", "adam"), ("update_period", "1")])
     with pytest.raises(ConfigError,
-                       match=r"ROADMAP Queue A 12 \(model health\)"):
+                       match=r"ROADMAP Queue A 12, still queued: model "
+                             r"health"):
         check_train_config([("updater", "adam"), ("health", "1")])
     with pytest.raises(ConfigError, match="unknown updater"):
         Optimizer("adagrad", [])

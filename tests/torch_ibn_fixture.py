@@ -9,6 +9,13 @@ at 0, which makes an eval forward scale by ``rsqrt(eps)`` at each layer;
 seeded calibration batch with one ``train=True`` apply at
 ``bn_momentum = 0``. That apply runs with ``fused_kernels = 0``: the
 interpreted BN kernel at 69 layers would cost minutes for nothing here.
+
+Drawing and calibrating them takes about 90 s, and each test worker
+process needs them, so :func:`jax_weights` keeps them in an npz under the
+temporary directory, keyed by everything they are computed from (the
+net's config, this computation's source, the JAX package's sources and
+the jax and numpy versions), written once under a file lock and read
+back bit for bit by the other workers.
 """
 
 import functools
@@ -42,8 +49,7 @@ def jax_net(extra: str):
     return Network(build_graph(cfg), cfg)
 
 
-@functools.lru_cache(maxsize=None)
-def jax_weights():
+def _draw_jax_weights():
     """(params, state) numpy trees in the JAX layout: JAX init from key 0,
     BN running stats = batch moments of ``images(100)``."""
     import jax
@@ -62,6 +68,74 @@ def jax_weights():
             os.environ["CXXNET_BN_CLAMP_WARN"] = old
     to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)
     return to_np(params), to_np(state)
+
+
+def _weights_cache_path() -> str:
+    """The npz of :func:`jax_weights` under the temporary directory,
+    named by a digest of everything the weights are computed from."""
+    import hashlib
+    import inspect
+    import tempfile
+    import jax
+    h = hashlib.sha256()
+    for part in (IBN_TEXT, inspect.getsource(_draw_jax_weights),
+                 inspect.getsource(images), jax.__version__,
+                 np.__version__):
+        h.update(part.encode("utf-8") + b"\0")
+    for root, _, files in sorted(os.walk(os.path.join(REPO, "cxxnet_tpu"))):
+        for name in sorted(f for f in files if f.endswith(".py")):
+            with open(os.path.join(root, name), "rb") as f:
+                h.update(name.encode("utf-8") + b"\0" + f.read())
+    return os.path.join(tempfile.gettempdir(),
+                        f"cxxnet_torch_ibn_weights_{h.hexdigest()[:20]}.npz")
+
+
+def _flat(prefix: str, tree, out: dict) -> None:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _flat(f"{prefix}{k}/", v, out)
+        else:
+            out[prefix + k] = v
+
+
+def _unflat(flat) -> dict:
+    tree: dict = {}
+    for key, v in flat.items():
+        *path, leaf = key.split("/")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = v
+    return tree
+
+
+@functools.lru_cache(maxsize=None)
+def jax_weights():
+    """:func:`_draw_jax_weights`, drawn once by the first worker process
+    that needs them (the others wait on the lock, then read its npz)."""
+    import fcntl
+    path = _weights_cache_path()
+    with open(path + ".lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if os.path.exists(path):
+                with np.load(path, allow_pickle=False) as z:
+                    flat = {k: z[k] for k in z.files}
+                return (_unflat({k[2:]: v for k, v in flat.items()
+                                 if k.startswith("p/")}),
+                        _unflat({k[2:]: v for k, v in flat.items()
+                                 if k.startswith("s/")}))
+            params, state = _draw_jax_weights()
+            flat: dict = {}
+            _flat("p/", params, flat)
+            _flat("s/", state, flat)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            with open(tmp, "wb") as f:
+                np.savez(f, **flat)
+            os.replace(tmp, path)
+            return params, state
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
 
 
 def jax_run(fn, *args):
