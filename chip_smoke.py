@@ -5,6 +5,7 @@
                           [--json OUT.json]
     python3 chip_smoke.py --ab PARENT . . PARENT   # A/B of two checkouts
     python3 chip_smoke.py --phase telemetry        # the build and phase 19
+    python3 chip_smoke.py --phase data_service     # the build and phase 20
 
 With ``--ab``, only the kernels of the vectorised designs are timed, in
 each checkout root given, in turn, one process each (``bn_fwd`` at
@@ -241,8 +242,8 @@ and prints no result:
             ``shuffle``, then ``iter = threadbuffer``; the eval section
             center-crops), only ``image_rec`` and ``image_mean``
             rewritten to files the phase writes from ``--seed``: 512
-            train and 128 val RGB images of 256x256 in the port's record
-            files, twice: (a) as PNGs (its own PNG writer over zlib,
+            train records (128 distinct images, written in turn) and 128
+            val RGB images of 256x256 in the port's record files, twice: (a) as PNGs (its own PNG writer over zlib,
             every row filter in each image), decoded by ``png.cc``; (b)
             as JPEGs (its own numpy baseline writer, ``jpeg_encode``:
             quality 90, 4:2:0, the Annex K tables, restart markers in
@@ -526,6 +527,33 @@ and prints no result:
             ``telemetry_steptime = 0 sentinel = 0`` (not gated: a host
             drifts 25-35 % between runs), beside the card's name and
             power limit. Run alone with ``--phase telemetry``.
+20. data_service: run after phase 19 (``phase_data_service``). (a)
+            DS_RECORDS JPEG records (DS_UNIQUE seeded images written in
+            turn, so the DS_SHARDS byte ranges split the file at its
+            middle) and a mean image, written under a ``file://`` URL
+            through the stream layer; two reader processes
+            ``python -m cxxnet_tpu_torch.main ... task=data_reader
+            dev=gpu:0`` (nvJPEG on this card), one shard each. (b) One
+            epoch through ``ServiceIterator``: uint8 batches, labels,
+            ``inst_index`` and ``norm`` bit-equal to ``data_service =
+            local`` in this process; a second client's pass is served
+            wholly from the readers' caches. (c) Full-width Inception-BN
+            (bf16, SGD, batch 128, cuDNN deterministic) through
+            ``main.run`` with ``continue = 1`` from a seeded round 0,
+            rounds 1 and 2 of DS_STEPS batches over the readers: reader
+            1 is SIGKILLed after step DS_KILL_STEP of round 1 (failover
+            and rebalance onto reader 0), reader 0 after step
+            DS_KILL_STEP of round 2 (one degrade warning); each step's
+            loss, the masters, momenta and BN statistics bit-equal to an
+            uninterrupted ``data_service = local`` run; launches per
+            step DS_WANT, and every kernel of the train path launched.
+            (d) That run's ``model_dir`` is a ``file://`` URL with
+            ``failpoints = io.read=once``: one ``io.retries``; its round
+            2 answers ``task = pred`` to a ``file://`` output. Printed,
+            not gated: the probe's data wait a step over the service and
+            local, the readers' frames/s, the fetch latency p50/p99 cold
+            and cached, beside the card's name and power limit. Run
+            alone with ``--phase data_service``.
 
 Then, on lines of their own: the card's name and power limit as
 ``nvidia-smi`` reports them, the kernels JSON line, and last
@@ -842,10 +870,11 @@ def phase_env() -> str:
     smi_line = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
         else f"nvidia-smi failed: {smi.stderr.strip()}"
     cc = torch.cuda.get_device_capability(0)
+    import fsspec
     print(f"env: python {sys.version.split()[0]} torch {torch.__version__} "
-          f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
-          f"cc {cc[0]}.{cc[1]} count {torch.cuda.device_count()} "
-          f"| {smi_line}", flush=True)
+          f"cuda {torch.version.cuda} fsspec {fsspec.__version__} device "
+          f"{torch.cuda.get_device_name(0)} cc {cc[0]}.{cc[1]} count "
+          f"{torch.cuda.device_count()} | {smi_line}", flush=True)
     if cc != (9, 0):
         raise RuntimeError(f"compute capability {cc}: the kernels are "
                            "built for sm_90a (Hopper)")
@@ -4798,7 +4827,9 @@ def phase_dp_times(gen: torch.Generator) -> dict:
 # -- phase 12 -----------------------------------------------------------------
 
 #: phase 12's records: train and val images of IMGREC_SIDE^2 RGB pixels,
-#: cropped to the flagship's 224 (its own data/eval sections)
+#: cropped to the flagship's 224 (its own data/eval sections); the train
+#: file writes IMGREC_VAL distinct images in turn (encoding them is what
+#: writing the records costs)
 IMGREC_TRAIN, IMGREC_VAL, IMGREC_SIDE = TRAIN_BATCH * TRAIN_STEPS, 128, 256
 
 
@@ -5083,23 +5114,27 @@ def encode_image(img: np.ndarray, fmt: str, i: int) -> bytes:
 
 
 def write_records(tmp: str, seed: int, sizes, side: int, classes: int,
-                  fmt: str):
+                  fmt: str, unique: int = 0):
     """Record files of seeded RGB images (``sizes``: name -> count) of
     ``side``^2 pixels as ``fmt``, labels below ``classes``, through the
-    port's RecordWriter; returns their paths, the images by name and the
-    seconds taken."""
+    port's RecordWriter (``tmp`` may be a ``file://`` URL); with
+    ``unique``, a file holds at most that many distinct images, written
+    in turn (each record its own id and label). Returns their paths, the
+    distinct images by name and the seconds taken."""
     from cxxnet_tpu_torch.io.recordio import ImageRecord, RecordWriter
     rng = np.random.RandomState(seed)
     t0 = time.perf_counter()
     paths, imgs = {}, {}
     for name, n in sizes:
-        imgs[name] = seeded_images(rng, n, side)
+        imgs[name] = seeded_images(rng, min(n, unique or n), side)
         labels = rng.randint(0, classes, n)
+        encoded = [encode_image(img, fmt, i)
+                   for i, img in enumerate(imgs[name])]
         paths[name] = os.path.join(tmp, f"{name}.{fmt}.rec")
         with RecordWriter(paths[name]) as w:
-            for i, (img, lab) in enumerate(zip(imgs[name], labels)):
+            for i, lab in enumerate(labels):
                 w.write(ImageRecord(inst_id=i, labels=np.float32([lab]),
-                                    data=encode_image(img, fmt, i)).pack())
+                                    data=encoded[i % len(encoded)]).pack())
             w.write_index(paths[name])
     return paths, imgs, time.perf_counter() - t0
 
@@ -5110,7 +5145,7 @@ def write_imgrec(tmp: str, seed: int, fmt: str = "png"):
     seconds taken."""
     paths, imgs, took = write_records(
         tmp, seed, (("train", IMGREC_TRAIN), ("val", IMGREC_VAL)),
-        IMGREC_SIDE, TRAIN_CLASSES, fmt)
+        IMGREC_SIDE, TRAIN_CLASSES, fmt, unique=IMGREC_VAL)
     return paths, imgs["val"], took
 
 
@@ -5343,7 +5378,8 @@ def phase_imgrec(conf: str, seed: int, tmp: str, extra=(),
     print(f"imgrec ({fmt}): {steps} steps of full-width Inception-BN from "
           f"{os.path.relpath(conf, ROOT)}'s own data/eval sections (imgrec, "
           f"rand_crop, rand_mirror, shuffle, image_mean, threadbuffer; "
-          f"{IMGREC_TRAIN} train and {IMGREC_VAL} val {fmt.upper()} records"
+          f"{IMGREC_TRAIN} train ({IMGREC_VAL} distinct images) and "
+          f"{IMGREC_VAL} val {fmt.upper()} records"
           f" of {IMGREC_SIDE}x{IMGREC_SIDE} written in {t_write:.1f}s, "
           f"decoded through {route}) through main.run in {t_run:.1f}s with "
           f"the mean computed and written, the evaluation and the round | "
@@ -8207,12 +8243,377 @@ def phase_telemetry(conf: str, seed: int, tmp: str, smi_line: str) -> dict:
             "card": smi_line}
 
 
+# -- phase 20 -----------------------------------------------------------------
+
+#: phase 20's records: DS_UNIQUE seeded JPEGs (IMGREC_SIDE^2), written in
+#: turn DS_RECORDS // DS_UNIQUE times: one epoch of DS_STEPS batches, and
+#: two halves of equal bytes, so the DS_SHARDS byte ranges split the file
+#: at its middle record
+DS_UNIQUE, DS_STEPS, DS_SHARDS = 128, 8, 2
+DS_RECORDS = TRAIN_BATCH * DS_STEPS
+DS_SEED = 11            # data_service_seed
+DS_PROBE_EPOCH = 9      # (b)'s epoch: one that (c) does not train
+DS_KILL_STEP = 3        # (c): a reader dies after this step of a round
+DS_WANT = {"stem": 1, "bn_fwd": 69, "bn_bwd": 69, "sgd_apply": 2}
+DS_KERNELS = TRAIN_KERNELS + ("stem",)   # every kernel of the path
+DS_READY_S = 180.0      # the readers' start, the kernels' libraries loaded
+DS_READER_DEV = "gpu:0"  # the readers' decode device: nvJPEG on this card
+
+
+def ds_records(url: str, seed: int):
+    """Phase 20's record file (``write_records``) and mean image under the
+    ``file://`` URL ``url``, through the stream layer; returns their URLs
+    and seconds."""
+    from cxxnet_tpu_torch.io import stream
+    t0 = time.perf_counter()
+    paths, imgs, _ = write_records(url, seed, (("train", DS_RECORDS),),
+                                   IMGREC_SIDE, TRAIN_CLASSES, "jpeg",
+                                   unique=DS_UNIQUE)
+    crop = int(TRAIN_IMAGE.split(",")[1])
+    o = (IMGREC_SIDE - crop) // 2
+    mean = np.mean([im[o:o + crop, o:o + crop] for im in imgs["train"]],
+                   axis=0, dtype=np.float64).astype(np.float32)
+    mean_url = f"{url}/mean.npy"
+    with stream.sopen(mean_url, "wb") as f:
+        np.save(f, mean)
+    return paths["train"], mean_url, time.perf_counter() - t0
+
+
+def ds_cfg(conf: str, rec: str, mean: str, extra=()):
+    """``conf``'s netconfig and globals with its own train section over
+    phase 20's records and mean (the eval section dropped)."""
+    from cxxnet_tpu_torch.config import (parse_cli_overrides,
+                                         parse_config_file)
+    out, section = [], None
+    for k, v in parse_config_file(conf):
+        if k in ("data", "eval"):
+            section = k
+        if section == "eval":
+            if k == "iter" and v == "end":
+                section = None
+            continue
+        if k == "image_rec":
+            v = rec
+        elif k == "image_mean":
+            v = mean
+        out.append((k, v))
+    return out + parse_cli_overrides(["print_step=0", *extra])
+
+
+def _ds_stream(it, epoch: int):
+    """Every batch of ``epoch`` and each draw's seconds."""
+    it.set_epoch(epoch)
+    it.before_first()
+    out, lat = [], []
+    while True:
+        t0 = time.perf_counter()
+        b = it.next()
+        lat.append(time.perf_counter() - t0)
+        if b is None:
+            return out, lat[:-1]
+        out.append(b)
+
+
+def _ds_equal(got, want) -> bool:
+    def norm_eq(a, b):
+        if (a is None) != (b is None):
+            return False
+        return a is None or (sorted(a) == sorted(b) and all(
+            np.array_equal(np.asarray(a[k]), np.asarray(b[k])) for k in a))
+    return len(got) == len(want) and all(
+        a.data.dtype == b.data.dtype and np.array_equal(a.data, b.data)
+        and np.array_equal(a.label, b.label)
+        and np.array_equal(a.inst_index, b.inst_index)
+        and a.num_batch_padd == b.num_batch_padd and norm_eq(a.norm, b.norm)
+        for a, b in zip(got, want))
+
+
+def _ds_run(cfg, on_step):
+    """``main.run(cfg)`` from ``continue = 1``, its log kept, the launch
+    counts set to 0 just before the first step: (trainer, log, losses,
+    per-step launches, launches of the whole run, the ``io.retries`` of
+    the run's start: the round's read)."""
+    import contextlib
+    from cxxnet_tpu_torch.main import run
+    from cxxnet_tpu_torch.ops import KERNELS, reset_launches
+    from cxxnet_tpu_torch.resilience import counters
+    box = {"losses": [], "per_step": []}
+    retries = counters.get("io.retries")
+    counted = tuple(DS_WANT)
+
+    def step(tr):
+        box["losses"].append(tr.last_loss)
+        box["per_step"].append({k: KERNELS[k].launches - box["at"][k]
+                                for k in counted})
+        box["at"] = {k: KERNELS[k].launches for k in counted}
+        on_step(len(box["losses"]))
+
+    def ready(tr):
+        box["retries"] = counters.get("io.retries") - retries
+        tr.step_hook = step
+        torch.cuda.synchronize()
+        reset_launches()                  # just before the first step
+        box["at"] = {k: 0 for k in counted}
+
+    tee = _Tee(None)
+    with contextlib.redirect_stdout(tee):
+        tr = run(cfg, ready=ready)
+    torch.cuda.synchronize()
+    tr.step_hook = None
+    whole = {k.name: k.launches for k in KERNELS.values()}
+    return (tr, "".join(tee.parts), box["losses"], box["per_step"], whole,
+            box["retries"])
+
+
+def _data_ms(log: str) -> list:
+    """The step-time probe's data wait a step, from each round line."""
+    lines = [ln for ln in log.splitlines() if "\tdata_ms:" in ln]
+    if not lines:
+        raise AssertionError(f"no round line with data_ms:\n{log[-2000:]}")
+    return [float(ln.split("\tdata_ms:")[1].split("\t")[0])
+            for ln in lines]
+
+
+def phase_data_service(conf: str, seed: int, tmp: str,
+                       smi_line: str) -> dict:
+    """Phase 20 (see the module docstring)."""
+    from cxxnet_tpu_torch import checkpoint as ckpt
+    from cxxnet_tpu_torch.config import (parse_data_service_config,
+                                         split_sections)
+    from cxxnet_tpu_torch.data_service import (DataServiceClient,
+                                               build_service_iterator)
+    from cxxnet_tpu_torch.io import stream
+    from cxxnet_tpu_torch.main import run
+    from cxxnet_tpu_torch.telemetry.registry import REGISTRY
+    t_start = time.perf_counter()
+    marks = {}
+    url = "file://" + os.path.join(tmp, "ds")
+    rec, mean, t_write = ds_records(url, seed)
+    marks["records"] = time.perf_counter()
+    endpoints = ",".join(f"127.0.0.1:{_free_port()}"
+                         for _ in range(DS_SHARDS))
+    svc_keys = [f"data_service_shards={DS_SHARDS}",
+                f"data_service_seed={DS_SEED}",
+                "data_service_timeout_ms=30000"]
+    status = os.path.join(tmp, "ds_status")
+    conf_path = write_conf(os.path.join(tmp, "ds.conf"), ds_cfg(conf, rec,
+                                                                mean))
+    logs = [open(os.path.join(tmp, f"reader{i}.log"), "w")
+            for i in range(DS_SHARDS)]
+    # (a) two reader processes, decoding through nvJPEG on this card
+    readers = [subprocess.Popen(
+        [sys.executable, "-m", "cxxnet_tpu_torch.main", conf_path,
+         "task=data_reader", f"dev={DS_READER_DEV}",
+         f"data_service={endpoints}",
+         f"data_service_reader={i}", f"data_service_status_dir={status}",
+         *svc_keys], cwd=ROOT, stdout=logs[i], stderr=subprocess.STDOUT)
+        for i in range(DS_SHARDS)]
+    try:
+        glob, sections = split_sections(ds_cfg(conf, rec, mean))
+        section = glob + sections[0][2]
+        local_svc = parse_data_service_config(
+            [("data_service", "local")] + [tuple(k.split("=")) for k in
+                                           svc_keys])
+        # (b)'s control while the readers start
+        control, _ = _ds_stream(build_service_iterator(section, local_svc),
+                                DS_PROBE_EPOCH)
+        marks["control"] = time.perf_counter()
+        deadline = time.perf_counter() + DS_READY_S
+        while not all(os.path.exists(os.path.join(
+                status, f"reader_{i}.json")) for i in range(DS_SHARDS)):
+            dead = [i for i, r in enumerate(readers) if r.poll() is not None]
+            if dead or time.perf_counter() > deadline:
+                raise AssertionError(
+                    f"readers {dead} exited (or none answered in "
+                    f"{DS_READY_S:.0f}s): "
+                    + open(os.path.join(tmp, "reader0.log")).read()[-3000:])
+            time.sleep(0.05)
+        marks["readers up"] = time.perf_counter()
+        # (b) one epoch over the readers, then a second client's
+        svc = parse_data_service_config(
+            [("data_service", endpoints), ("data_service_prefetch", "0")]
+            + [tuple(k.split("=")) for k in svc_keys])
+        stats = DataServiceClient(svc)
+        eps = svc.endpoint_list
+
+        def tally():
+            s = [stats.stats(ep) for ep in eps]
+            return (sum(x["served"] for x in s),
+                    sum(x["cache_hits"] for x in s))
+        t0 = time.perf_counter()
+        first_it = build_service_iterator(section, svc)
+        first, lat_cold = _ds_stream(first_it, DS_PROBE_EPOCH)
+        t_first = time.perf_counter() - t0
+        served0, hits0 = tally()
+        second_it = build_service_iterator(section, svc)
+        second, lat_warm = _ds_stream(second_it, DS_PROBE_EPOCH)
+        served1, hits1 = tally()
+        for it in (first_it, second_it, stats):
+            it.close()
+        if not (_ds_equal(first, control) and _ds_equal(second, control)):
+            raise AssertionError("the service stream differs from the "
+                                 "data_service = local stream")
+        if len(control) != DS_STEPS or control[0].data.dtype != np.uint8 \
+                or control[0].norm is None:
+            raise AssertionError(f"{len(control)} batches, want {DS_STEPS} "
+                                 "uint8 batches with norm")
+        frames = served1 - served0
+        if frames != DS_STEPS + DS_SHARDS or hits1 - hits0 != frames:
+            raise AssertionError(f"second client: {frames} frames served, "
+                                 f"{hits1 - hits0} from the cache (want "
+                                 f"{DS_STEPS} batches + {DS_SHARDS} ends, "
+                                 "all cached)")
+        marks["stream"] = time.perf_counter()
+        # (c) rounds 1 and 2 of full-width Inception-BN from one round 0:
+        # over the readers (model_dir under file://, io.read armed once),
+        # killing reader 1 in round 1 and reader 0 in round 2, and over
+        # data_service = local
+        mdir = f"{url}/models"
+        cdir = os.path.join(tmp, "ds_control")
+        stream.makedirs(mdir)
+        r0 = write_round(conf, seed, mdir, torch.device("cuda"),
+                         round_counter=0)
+        os.makedirs(cdir)
+        stream.write_bytes_atomic(ckpt.model_path(cdir, 0),
+                                  stream.read_bytes(r0))
+        common = ["continue=1", "num_round=3", "save_model=1",
+                  f"seed={seed}", *svc_keys]
+        kills = {DS_KILL_STEP: 1, DS_STEPS + DS_KILL_STEP: 0}
+
+        def on_step(n):
+            if n in kills:
+                readers[kills[n]].kill()
+                readers[kills[n]].wait()
+
+        def degrades():
+            return REGISTRY.counter(
+                "cxxnet_dataservice_degrades_total",
+                "Service clients that fell back to the local pipeline"
+            ).labels().value
+
+        def failovers():
+            return REGISTRY.counter(
+                "cxxnet_dataservice_failovers_total",
+                "Fetches that left their shard's owner for a surviving "
+                "reader").labels().value
+        flags = (torch.backends.cudnn.deterministic,
+                 torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        try:
+            d0, f0 = degrades(), failovers()
+            t0 = time.perf_counter()
+            tr, log, losses, per_step, whole, retries = _ds_run(
+                ds_cfg(conf, rec, mean, [
+                    *common, f"model_dir={mdir}",
+                    f"data_service={endpoints}",
+                    "failpoints=io.read=once"]), on_step)
+            t_svc = time.perf_counter() - t0
+            got = _snap(tr)
+            d1, f1 = degrades() - d0, failovers() - f0
+            del tr
+            marks["service run"] = time.perf_counter()
+            t0 = time.perf_counter()
+            ctr, clog, closses, cper, _, _ = _ds_run(
+                ds_cfg(conf, rec, mean, [*common, f"model_dir={cdir}",
+                                         "data_service=local"]),
+                lambda n: None)
+            t_local = time.perf_counter() - t0
+            ref = _snap(ctr)
+            del ctr
+        finally:
+            (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark) = flags
+        torch.cuda.empty_cache()
+        marks["local run"] = time.perf_counter()
+        warn = [ln for ln in log.splitlines()
+                if "degraded to the local input pipeline" in ln]
+        if len(losses) != 2 * DS_STEPS or losses != closses:
+            raise AssertionError(f"losses over the service {losses} vs "
+                                 f"data_service = local {closses}")
+        diff = max(float(np.abs(x - y).max()) for x, y in zip(
+            _flat_np(got[0]) + _flat_np(got[1]["mom"]) + _flat_np(got[2]),
+            _flat_np(ref[0]) + _flat_np(ref[1]["mom"]) + _flat_np(ref[2])))
+        if diff != 0.0:
+            raise AssertionError(f"masters, momenta and BN statistics over "
+                                 f"the service vs local: largest difference"
+                                 f" {diff}")
+        bad = [(i + 1, n) for i, n in enumerate(per_step + cper)
+               if n != DS_WANT]
+        absent = [k for k in DS_KERNELS if whole[k] == 0]
+        if bad or absent:
+            raise AssertionError(f"launches per step {bad} (want {DS_WANT});"
+                                 f" kernels never launched {absent}")
+        if len(warn) != 1 or d1 != 1 or f1 < 1 or retries != 1:
+            raise AssertionError(
+                f"degrade warnings {len(warn)}, degrades {d1}, failovers "
+                f"{f1}, io.retries {retries} (want 1, 1, >= 1, 1)")
+        # (d) the round written under file:// answers task = pred to a
+        # file:// output
+        pred = f"{url}/pred.txt"
+        run(ds_cfg(conf, rec, mean, [
+            "task=pred", f"model_in={ckpt.model_path(mdir, 2)}",
+            f"name_pred={pred}", "silent=1"]))
+        rows = stream.read_bytes(pred).decode().split()
+        if len(rows) != DS_RECORDS or not all(
+                0 <= int(float(v)) < TRAIN_CLASSES for v in rows):
+            raise AssertionError(f"task = pred wrote {len(rows)} rows, want "
+                                 f"{DS_RECORDS} class ids")
+        marks["pred"] = time.perf_counter()
+    finally:
+        for r in readers:
+            if r.poll() is None:
+                r.kill()
+            r.wait()
+        for f in logs:
+            f.close()
+    svc_ms, local_ms = _data_ms(log), _data_ms(clog)
+    took = time.perf_counter() - t_start
+    pct = lambda v, q: float(np.percentile(np.asarray(v) * 1e3, q))
+    spans = ", ".join(f"{k} {v - t_start:.1f}s" for k, v in marks.items())
+    print(f"data_service: {DS_RECORDS} JPEG records ({DS_UNIQUE} images of "
+          f"{IMGREC_SIDE}x{IMGREC_SIDE}) and the mean written under file:// "
+          f"in {t_write:.1f}s; two task = data_reader processes (dev = "
+          f"gpu:0, nvJPEG), {DS_SHARDS} shards | (b) epoch "
+          f"{DS_PROBE_EPOCH}: {len(first)} uint8 batches with norm "
+          f"bit-equal to data_service = local, a second client's "
+          f"{served1 - served0} frames all cache hits | (c) full-width "
+          f"Inception-BN (batch {TRAIN_BATCH}, bf16, cuDNN deterministic) "
+          f"rounds 1-2 over the readers with reader 1 killed after step "
+          f"{DS_KILL_STEP} of round 1 (failovers {f1:g}) and reader 0 "
+          f"after step {DS_KILL_STEP} of round 2 (one degrade warning): "
+          f"losses, masters, momenta and BN statistics bit-equal to "
+          f"data_service = local; launches per step {DS_WANT} | (d) "
+          f"model_dir under file:// with io.read=once: io.retries "
+          f"{retries}; round 2 answered task = pred to file:// | the "
+          f"probe's data wait a step, rounds 1 and 2: {svc_ms} ms over the "
+          f"service (round 2 degraded after step {DS_KILL_STEP}), "
+          f"{local_ms} ms local (not gated) | readers {len(first) / t_first:.2f} "
+          f"frames/s cold ({len(first) * TRAIN_BATCH / t_first:.1f} "
+          f"images/s), fetch p50/p99 {pct(lat_cold, 50):.1f}/"
+          f"{pct(lat_cold, 99):.1f} ms cold, {pct(lat_warm, 50):.1f}/"
+          f"{pct(lat_warm, 99):.1f} ms cached | runs {t_svc:.1f}s service,"
+          f" {t_local:.1f}s local | {took:.1f}s ({spans}) | {smi_line}",
+          flush=True)
+    return {"data_ms_service": svc_ms, "data_ms_local": local_ms,
+            "frames_per_s_cold": len(first) / t_first,
+            "images_per_s_cold": len(first) * TRAIN_BATCH / t_first,
+            "cache_hits_second_client": hits1 - hits0,
+            "fetch_ms_cold": [pct(lat_cold, 50), pct(lat_cold, 99)],
+            "fetch_ms_cached": [pct(lat_warm, 50), pct(lat_warm, 99)],
+            "losses": losses, "failovers": f1, "io_retries": retries,
+            "write_seconds": t_write, "service_run_seconds": t_svc,
+            "local_run_seconds": t_local, "seconds": took,
+            "marks": {k: v - t_start for k, v in marks.items()},
+            "card": smi_line}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--conf", default=FLAGSHIP)
     ap.add_argument("--json", default="", help="also write the results here")
-    ap.add_argument("--phase", choices=("telemetry",),
+    ap.add_argument("--phase", choices=("telemetry", "data_service"),
                     help="run the build and this phase only")
     ap.add_argument("--ab", nargs="+", metavar="TREE",
                     help="only time the vectorised BN, epilogue, LRN, "
@@ -8237,9 +8638,11 @@ def main(argv=None) -> int:
     smi_line = phase_env()
     phase_build()
     mark("build")
-    if args.phase == "telemetry":
+    if args.phase:
+        phase = {"telemetry": phase_telemetry,
+                 "data_service": phase_data_service}[args.phase]
         with tempfile.TemporaryDirectory() as tmp:
-            phase_telemetry(args.conf, args.seed, tmp, smi_line)
+            phase(args.conf, args.seed, tmp, smi_line)
         print(smi_line, flush=True)
         return 0
     errs = phase_kernels(gen)
@@ -8353,6 +8756,11 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         telemetry = phase_telemetry(args.conf, args.seed, tmp, smi_line)
     mark("telemetry")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        data_service = phase_data_service(args.conf, args.seed, tmp,
+                                          smi_line)
+    mark("data_service")
     source["stem"] = (imgrec_times, imgrec_launches)
     kernels = []
     for name, k in KERNELS.items():
@@ -8414,6 +8822,7 @@ def main(argv=None) -> int:
               "bowl": bowl,
               "rest": rest,
               "telemetry": telemetry,
+              "data_service": data_service,
               "phase_seconds": {b[0]: b[1] - a[1]
                                 for a, b in zip(marks, marks[1:])},
               "card": smi_line, "seconds": time.perf_counter() - t_start}

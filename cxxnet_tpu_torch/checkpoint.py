@@ -31,9 +31,13 @@ Telemetry, as in the JAX package: a save is the ``ckpt.save`` span and a
 ``ckpt_save`` ledger event, a read the ``ckpt.load`` span and a
 ``ckpt_load`` event, both timed into ``cxxnet_ckpt_io_seconds{op}``;
 skipped rounds and swept temp files count as ``ckpt.skipped_invalid``
-and ``ckpt.tmp_swept``. The failpoints ``ckpt.write`` (before the
-write), ``io.write`` (before the rename), ``io.open`` and ``io.read``
-(a read) guard these paths.
+and ``ckpt.tmp_swept``. Rounds are read and written through the stream
+layer (``io/stream.py``): a ``model_dir`` may be a local directory or a
+``scheme://`` URL, whose reads and writes retry under the ``io_retry_*``
+policy. The failpoint ``ckpt.write`` fires before a write; the stream
+layer's ``io.open``, ``io.read`` and ``io.write`` fire inside it, and
+while one of them is armed a local read takes the remote path (one
+retried read of the whole archive), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .io import stream
 from .resilience import counters, failpoints
 from .telemetry.ledger import LEDGER
 from .telemetry.registry import REGISTRY
@@ -111,7 +116,7 @@ def save_model(path: str, *, structure_sig: tuple, round_counter: int,
     float32, integer leaves, a quantized round's int8 ``wmat``, as they
     are). ``extra_meta`` adds keys to the meta JSON (a derived round's
     ``__quant_meta__``); a key that clashes with the reserved fields
-    raises. The file appears atomically (temp file, fsync, rename)."""
+    raises. The file appears atomically (``stream.write_bytes_atomic``)."""
     with TRACER.span("ckpt.save", cat="ckpt", args={"round": round_counter}):
         t0 = time.perf_counter()
         ok = False
@@ -160,13 +165,8 @@ def _save_model(path: str, *, structure_sig: tuple, round_counter: int,
         json.dumps(meta).encode("utf-8"), dtype=np.uint8)
     buf = io.BytesIO()
     np.savez(buf, **arrays)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    with open(tmp, "wb") as f:
-        f.write(buf.getvalue())
-        f.flush()
-        os.fsync(f.fileno())
-    failpoints.check("io.write", IOError)
-    os.replace(tmp, path)
+    # local: temp file, fsync, rename; remote: one whole-object write
+    stream.write_bytes_atomic(path, buf.getvalue())
 
 
 def load_for_inference(path: str, verify: bool = True) -> Dict[str, Any]:
@@ -201,10 +201,13 @@ def _load(path: str, verify: bool, with_opt: bool) -> Dict[str, Any]:
 
 
 def _load_inner(path: str, verify: bool, with_opt: bool) -> Dict[str, Any]:
-    failpoints.check("io.open", IOError)
     try:
-        with np.load(path, allow_pickle=False) as z:
-            failpoints.check("io.read", IOError)
+        if stream.is_remote(path) or failpoints.armed_prefix("io."):
+            # one retried read of the whole object, then unpack
+            src = io.BytesIO(stream.read_bytes(path))
+        else:
+            src = path               # local: np.load streams the members
+        with np.load(src, allow_pickle=False) as z:
             arrays = {k: z[k] for k in z.files
                       if with_opt or not k.startswith("opt/")}
         if "__meta__" not in arrays:
@@ -289,8 +292,10 @@ def model_path(model_dir: str, round_counter: int) -> str:
 _MODEL_RE = re.compile(r"^(\d{4,})\.model$")
 #: a shard-set round directory of the JAX package's ``shard_ckpt = 1``
 _ROUND_DIR_RE = re.compile(r"^r(\d{4,})$")
-#: what :func:`save_model` writes before its rename: ``<round>.<pid>.tmp``
-_TMP_RE = re.compile(r"^\d{4,}\.model\.(\d+)\.tmp$")
+#: the temp files a round's writer leaves when it dies before its rename:
+#: ``<round>.tmp.<pid>.<seq>`` (``stream.write_bytes_atomic``), and the
+#: ``<round>.<pid>.tmp`` of earlier rounds of the port
+_TMP_RE = re.compile(r"^\d{4,}\.model\.(?:(\d+)\.tmp|tmp\.(\d+)(?:\.\d+)?)$")
 #: a temp file younger than this may be a live writer's in another
 #: process (a serve or a second run sharing ``model_dir``) and is kept
 TMP_SWEEP_MIN_AGE_S = 600.0
@@ -303,15 +308,15 @@ def _scan_rounds(model_dir: str) -> List[Tuple[int, str]]:
     """Every ``%04d.model`` round of ``model_dir`` as (round, path),
     newest first. Shard-set directories (``r%04d``) are skipped, named
     in one line a scan."""
-    if not os.path.isdir(model_dir):
+    if not stream.isdir(model_dir):
         return []
     out, shard_sets = [], []
-    for fn in os.listdir(model_dir):
+    for fn in stream.listdir(model_dir):
         m = _MODEL_RE.match(fn)
         if m:
             out.append((int(m.group(1)), os.path.join(model_dir, fn)))
         elif _ROUND_DIR_RE.match(fn) and \
-                os.path.isdir(os.path.join(model_dir, fn)):
+                stream.isdir(os.path.join(model_dir, fn)):
             shard_sets.append(fn)
     if shard_sets:
         print(f"checkpoint scan: skipping {len(shard_sets)} shard-set "
@@ -332,15 +337,15 @@ def _sweep_orphans(model_dir: str, verbose: bool) -> None:
     """Delete the temp files of :func:`save_model` that a writer killed
     between its write and its rename left in ``model_dir``: never this
     process's own, and never one younger than TMP_SWEEP_MIN_AGE_S."""
-    for fn in os.listdir(model_dir):
+    for fn in stream.listdir(model_dir):
         m = _TMP_RE.match(fn)
-        if m is None or int(m.group(1)) == os.getpid():
+        if m is None or int(m.group(1) or m.group(2)) == os.getpid():
             continue
         path = os.path.join(model_dir, fn)
         try:
-            if time.time() - os.path.getmtime(path) < TMP_SWEEP_MIN_AGE_S:
+            if time.time() - stream.getmtime(path) < TMP_SWEEP_MIN_AGE_S:
                 continue
-            os.remove(path)
+            stream.remove(path)
             counters.inc("ckpt.tmp_swept")
             if verbose:
                 print(f"checkpoint scan: swept orphan {fn}")
@@ -357,7 +362,7 @@ def find_latest_valid(model_dir: str, sweep_tmp: bool = True,
     Returns (round, path), or with ``want_blob`` (round, path, blob),
     the blob being :func:`load_model`'s of the verified round, so a
     resume reads the archive once; None when no round verifies."""
-    if sweep_tmp and os.path.isdir(model_dir):
+    if sweep_tmp and stream.isdir(model_dir):
         _sweep_orphans(model_dir, verbose)
     for r, path in _scan_rounds(model_dir):
         try:

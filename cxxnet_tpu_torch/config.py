@@ -4,8 +4,9 @@ The port's own copy of the parts of ``cxxnet_tpu/config.py`` that the
 serving and training paths need: the tokenizer and
 ``parse_config_string``, the mixed-precision :class:`Policy` (mapped to
 torch dtypes), the ``fused_kernels`` grammar, the ``serve_*``,
-``lm_serve_*`` / ``kv_*``, ``quant_*`` and ``telemetry_*`` namespaces,
-the training keys the port does not run yet, and the split of iterator
+``lm_serve_*`` / ``kv_*``, ``quant_*``, ``telemetry_*``,
+``data_service*`` and ``io_retry_*`` namespaces, the training keys the
+port does not run yet, and the split of iterator
 sections (``data = train`` .. ``iter = end``) from the global settings. Grammar: whitespace-separated tokens, ``=`` as its own token,
 ``#`` line comments, ``"..."`` single-line and ``'...'`` multi-line
 quoted strings with backslash escapes. Order of pairs is preserved,
@@ -521,10 +522,6 @@ TRAIN_NOT_YET = {
                    "Queue A 11 (async save)"),
     "keep_last_n": (lambda v: _same_value(v, "0"),
                     "Queue A 11 (checkpoint rotation)"),
-    "data_service": (lambda v: not v.strip(),
-                     "Queue A 2 (the input data service)"),
-    "test_io": (lambda v: _same_value(v, "0"),
-                "Queue A 2 (input pipeline benchmarking)"),
     "model_parallel": (lambda v: _same_value(v, "1"),
                        "Queue A 9 (model parallelism)"),
     "seq_parallel": (lambda v: _same_value(v, "1"),
@@ -570,6 +567,165 @@ def check_train_config(cfg: ConfigPairs) -> None:
                 continue
         raise ConfigError(f"{name} = {val}: not trained by the PyTorch "
                           f"port yet (ROADMAP {item})")
+
+
+# -- input data service ---------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DataServiceConfig:
+    """The ``data_service*`` keys, with the JAX package's names, defaults
+    and validation. ``data_service`` set: the train data section is
+    served by the reader fleet (``host:port[,host:port]``) or, with the
+    value ``local``, by the same global-shuffle orchestration in this
+    process (the deterministic control and the degrade stream); unset:
+    every other key is inert."""
+    endpoints: str = ""           # data_service: host:port[,...] | local
+    shards: int = 0               # data_service_shards (0 = one a reader)
+    seed: int = 0                 # data_service_seed: global shuffle seed
+    cache_batches: int = 256      # data_service_cache: reader LRU frames
+    readahead: int = 2            # data_service_readahead: decode-ahead
+    timeout_ms: float = 5000.0    # data_service_timeout_ms: fetch timeout
+    local_fallback: int = 1       # data_service_local_fallback: 0 = hard
+    reader: int = -1              # data_service_reader: this reader's idx
+    status_dir: str = ""          # data_service_status_dir: status files
+    prefetch: int = 2             # data_service_prefetch: client batches
+    #                               fetched ahead on a thread (0 = off)
+
+    @property
+    def enabled(self) -> bool:
+        return bool(self.endpoints.strip())
+
+    @property
+    def local_only(self) -> bool:
+        return self.endpoints.strip().lower() == "local"
+
+    @property
+    def endpoint_list(self) -> List[str]:
+        if not self.enabled or self.local_only:
+            return []
+        return [e.strip() for e in self.endpoints.split(",") if e.strip()]
+
+    @property
+    def n_shards(self) -> int:
+        return self.shards or max(1, len(self.endpoint_list))
+
+    @staticmethod
+    def split_endpoint(endpoint: str) -> Tuple[str, int]:
+        host, _, port = endpoint.rpartition(":")
+        return host, int(port)
+
+
+def parse_data_service_config(cfg: ConfigPairs) -> DataServiceConfig:
+    """Collect and validate the ``data_service*`` keys (the last
+    occurrence wins; an unknown key of the namespace raises)."""
+    known = {
+        "data_service": ("endpoints", str),
+        "data_service_shards": ("shards", int),
+        "data_service_seed": ("seed", int),
+        "data_service_cache": ("cache_batches", int),
+        "data_service_readahead": ("readahead", int),
+        "data_service_timeout_ms": ("timeout_ms", float),
+        "data_service_local_fallback": ("local_fallback", int),
+        "data_service_reader": ("reader", int),
+        "data_service_status_dir": ("status_dir", str),
+        "data_service_prefetch": ("prefetch", int),
+    }
+    vals = {}
+    for name, val in cfg:
+        if name.startswith("data_service"):
+            if name not in known:
+                raise ConfigError(
+                    f"unknown data_service setting {name!r}; valid "
+                    "keys: " + ", ".join(sorted(known)))
+            field, conv = known[name]
+            try:
+                vals[field] = conv(val)
+            except ValueError as e:
+                raise ConfigError(f"bad {name} value {val!r}: {e}")
+    dc = DataServiceConfig(**vals)
+    if dc.enabled and not dc.local_only:
+        for ep in dc.endpoint_list:
+            host, _, port = ep.rpartition(":")
+            if not host or not port.isdigit():
+                raise ConfigError(
+                    f"data_service endpoint {ep!r} is not host:port "
+                    "(or the single value 'local')")
+    if dc.shards < 0:
+        raise ConfigError(
+            f"data_service_shards must be >= 0 (0 = one per reader), "
+            f"got {dc.shards}")
+    if dc.cache_batches < 1:
+        raise ConfigError(
+            f"data_service_cache must be >= 1, got {dc.cache_batches}")
+    if dc.readahead < 0:
+        raise ConfigError(
+            f"data_service_readahead must be >= 0, got {dc.readahead}")
+    if dc.prefetch < 0:
+        raise ConfigError(
+            f"data_service_prefetch must be >= 0, got {dc.prefetch}")
+    if dc.timeout_ms <= 0:
+        raise ConfigError(
+            f"data_service_timeout_ms must be > 0, got "
+            f"{dc.timeout_ms}")
+    if dc.local_fallback not in (0, 1):
+        raise ConfigError(
+            f"data_service_local_fallback must be 0 or 1, got "
+            f"{dc.local_fallback}")
+    if dc.reader < -1:
+        raise ConfigError(
+            f"data_service_reader must be >= 0 (or -1 = unset), got "
+            f"{dc.reader}")
+    if dc.enabled and dc.local_only and dc.shards < 1:
+        raise ConfigError(
+            "data_service = local needs an explicit "
+            "data_service_shards >= 1 (there is no endpoint list to "
+            "default the shard count from)")
+    return dc
+
+
+# -- IO retry policy ------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RetryPolicy:
+    """Backoff of transient IO failures (``resilience.retry_call``), which
+    ``io/stream.py`` applies to every remote operation: 4 attempts, 50 ms
+    to 2 s, full jitter by default."""
+    attempts: int = 4
+    base_delay_s: float = 0.05
+    max_delay_s: float = 2.0
+    jitter: float = 1.0          # 0 = deterministic backoff, 1 = full jitter
+
+
+def parse_retry_policy(cfg: ConfigPairs) -> RetryPolicy:
+    """A :class:`RetryPolicy` from the ``io_retry_attempts``,
+    ``io_retry_base_ms``, ``io_retry_max_ms`` and ``io_retry_jitter``
+    keys (the last occurrence wins; an unknown ``io_retry_*`` key
+    raises)."""
+    known = {"io_retry_attempts", "io_retry_base_ms", "io_retry_max_ms",
+             "io_retry_jitter"}
+    vals = {}
+    for name, val in cfg:
+        if name.startswith("io_retry_"):
+            if name not in known:
+                raise ConfigError(
+                    f"unknown retry setting {name!r}; valid keys: "
+                    + ", ".join(sorted(known)))
+            vals[name] = val
+    try:
+        pol = RetryPolicy(
+            attempts=int(vals.get("io_retry_attempts", "4")),
+            base_delay_s=float(vals.get("io_retry_base_ms", "50")) / 1e3,
+            max_delay_s=float(vals.get("io_retry_max_ms", "2000")) / 1e3,
+            jitter=float(vals.get("io_retry_jitter", "1.0")))
+    except ValueError as e:
+        raise ConfigError(f"bad io_retry_* value: {e}")
+    if pol.attempts < 1:
+        raise ConfigError(
+            f"io_retry_attempts must be >= 1, got {pol.attempts}")
+    if not 0.0 <= pol.jitter <= 1.0:
+        raise ConfigError(
+            f"io_retry_jitter must be in [0, 1], got {pol.jitter}")
+    return pol
 
 
 # -- iterator sections --------------------------------------------------------
@@ -692,7 +848,9 @@ def parse_config_string(text: str) -> ConfigPairs:
 
 
 def parse_config_file(path: str) -> ConfigPairs:
-    with open(path, "rb") as f:
+    """Parse a config file, local or remote (``io/stream.py``)."""
+    from .io.stream import sopen
+    with sopen(path, "rb") as f:
         return parse_config_string(f.read().decode("utf-8"))
 
 

@@ -1,14 +1,24 @@
-"""Length-prefixed frames of the data-service wire protocol (the port of
-the frame half of ``cxxnet_tpu/data_service/wire.py``; the frames are
-byte-equal to the JAX package's). The LM plane's prefill -> decode KV
-handoff (``serve/lm/handoff.py``) speaks them; the data service itself
-waits for ROADMAP Queue A 2. A frame is::
+"""The wire format of the input data service (the port of
+``cxxnet_tpu/data_service/wire.py``; its frames are byte-equal to the
+JAX package's, so a client of either package reads a reader of the
+other). The LM plane's prefill -> decode KV handoff
+(``serve/lm/handoff.py``) speaks the same frames.
+
+A connection carries many requests. A request is one newline-terminated
+JSON line (``{"op": "fetch", "epoch": e, "shard": s, "batch": b}``; also
+``stats`` and ``meta``); the answer is one frame::
 
     uint32 magic 0xDA7AFEED | uint32 header_len | header_json | payloads
 
 The header's ``arrays`` list describes every payload in order
 (``{"name", "dtype", "shape"}``); payloads are raw C-order bytes
-concatenated after the header. Stdlib and numpy only.
+concatenated after the header, so a uint8 batch crosses at one byte a
+pixel. ``status`` is ``ok`` (a batch follows), ``eos`` (the addressed
+shard has fewer batches this epoch) or ``error`` (the ``error`` field
+says why; the client takes it as a dead reader and fails over). A
+batch's deferred normalization rides along: its scalars in the
+header's ``norm``, a mean image as the ``norm_mean`` payload. Stdlib and
+numpy only.
 """
 
 from __future__ import annotations
@@ -21,8 +31,11 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["MAGIC", "MAX_FRAME_BYTES", "WireError", "pack_frame",
-           "recv_frame"]
+from ..io.data import DataBatch
+
+__all__ = ["MAGIC", "MAX_FRAME_BYTES", "WireError", "batch_from",
+           "pack_batch", "pack_eos", "pack_error", "pack_frame",
+           "read_request", "recv_frame", "send_request"]
 
 MAGIC = 0xDA7AFEED
 _HDR = struct.Struct("<II")
@@ -30,6 +43,10 @@ _HDR = struct.Struct("<II")
 #: sanity bound on one frame (header + payloads): a corrupt or foreign
 #: peer must not make the reader allocate gigabytes from 4 wild bytes
 MAX_FRAME_BYTES = 1 << 30
+
+#: request lines are small JSON objects; a longer one is a protocol
+#: violation
+MAX_REQUEST_BYTES = 1 << 16
 
 
 class WireError(OSError):
@@ -54,10 +71,90 @@ def pack_frame(header: Dict[str, Any],
     return b"".join([_HDR.pack(MAGIC, len(hj)), hj] + payloads)
 
 
+def pack_batch(db: DataBatch, **meta: Any) -> bytes:
+    """A batch as an ``ok`` frame (``meta`` goes into the header: the
+    batch address)."""
+    header: Dict[str, Any] = {"status": "ok",
+                              "num_batch_padd": int(db.num_batch_padd)}
+    header.update(meta)
+    arrays: List[Tuple[str, np.ndarray]] = [
+        ("data", db.data), ("label", db.label)]
+    if db.inst_index is not None:
+        arrays.append(("inst_index", np.asarray(db.inst_index)))
+    if db.norm is not None:
+        norm = dict(db.norm)
+        mean = norm.get("mean")
+        if mean is not None:
+            arrays.append(("norm_mean", np.asarray(mean)))
+            norm["mean"] = "__payload__"
+        header["norm"] = norm
+    return pack_frame(header, arrays)
+
+
+def pack_eos(**meta: Any) -> bytes:
+    return pack_frame(dict(meta, status="eos"))
+
+
+def pack_error(message: str, **meta: Any) -> bytes:
+    return pack_frame(dict(meta, status="error", error=str(message)))
+
+
+def batch_from(header: Dict[str, Any],
+               arrays: Dict[str, np.ndarray]) -> DataBatch:
+    """The batch an ``ok`` frame carries. A malformed frame raises
+    :class:`WireError`, which the client's failover takes like a dead
+    reader. ``extra_data`` payloads (``extra_<i>``, from a JAX reader
+    serving ``attachtxt`` inputs) raise: the port has no ``extra_data``
+    inputs yet (ROADMAP Queue A 2)."""
+    if "data" not in arrays or "label" not in arrays:
+        raise WireError("frame lacks data/label payloads")
+    if "extra_0" in arrays:
+        raise WireError("frame carries extra_data payloads, which the "
+                        "PyTorch port does not train on yet (ROADMAP "
+                        "Queue A 2)")
+    try:
+        norm = header.get("norm")
+        if norm is not None:
+            norm = dict(norm)
+            if norm.get("mean") == "__payload__":
+                if "norm_mean" not in arrays:
+                    raise WireError("frame norm references a missing "
+                                    "norm_mean payload")
+                norm["mean"] = arrays["norm_mean"]
+        return DataBatch(
+            data=arrays["data"], label=arrays["label"],
+            num_batch_padd=int(header.get("num_batch_padd", 0)),
+            inst_index=arrays.get("inst_index"), norm=norm)
+    except (KeyError, TypeError, ValueError) as e:
+        raise WireError(f"malformed batch frame: {e}")
+
+
+def send_request(sock: socket.socket, req: Dict[str, Any]) -> None:
+    sock.sendall(json.dumps(req).encode("utf-8") + b"\n")
+
+
+def read_request(rfile) -> Optional[Dict[str, Any]]:
+    """One request line from a file-like socket reader; None when the
+    connection closed cleanly."""
+    line = rfile.readline(MAX_REQUEST_BYTES + 1)
+    if not line:
+        return None
+    if len(line) > MAX_REQUEST_BYTES:
+        raise WireError("oversized request line")
+    try:
+        req = json.loads(line.decode("utf-8"))
+    except ValueError as e:
+        raise WireError(f"unparseable request line: {e}")
+    if not isinstance(req, dict):
+        raise WireError("request is not a JSON object")
+    return req
+
+
 def _recv_exact(sock: socket.socket, n: int,
-                deadline: Optional[float] = None) -> bytes:
+                deadline: Optional[float] = None) -> bytearray:
     """Read exactly ``n`` bytes or raise (a short read mid-frame is a
-    torn frame, never a valid end). ``deadline`` (a ``time.monotonic``
+    torn frame, never a valid end); the buffer is writable, and so are
+    the arrays :func:`recv_frame` views over it. ``deadline`` (a ``time.monotonic``
     instant) bounds the whole read: the per-call socket timeout alone
     restarts on every trickled chunk."""
     buf = bytearray(n)
@@ -75,7 +172,7 @@ def _recv_exact(sock: socket.socket, n: int,
             raise WireError(
                 f"connection closed mid-frame ({got}/{n} bytes)")
         got += k
-    return bytes(buf)
+    return buf
 
 
 def recv_frame(sock: socket.socket,

@@ -29,13 +29,12 @@ protobuf wire reader, flipped to RGB and center-cropped to the input.
 from __future__ import annotations
 
 import ctypes
-import os
 import threading
 from typing import Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-from .data import check_local
+from . import stream
 
 RngLike = Union[np.random.Generator, np.random.RandomState]
 
@@ -479,13 +478,14 @@ class MeanStore:
         self.path = path
         self.shape = shape_hwc
         self.mean: Optional[np.ndarray] = None
-        if path and os.path.exists(check_local(path)):
+        if path and stream.exists(path):
             if path.endswith(".binaryproto"):
-                with open(path, "rb") as f:
+                with stream.sopen(path, "rb") as f:
                     mean = load_binaryproto_mean(f.read())
                 self.mean = center_crop_mean(mean, shape_hwc)
             else:
-                self.mean = np.load(path)
+                with stream.sopen(path, "rb") as f:
+                    self.mean = np.load(f)
 
     @property
     def ready(self) -> bool:
@@ -508,7 +508,7 @@ class MeanStore:
             n += 1
         self.mean = (acc / max(n, 1)).astype(np.float32)
         if self.path:
-            with open(self.path, "wb") as f:
+            with stream.sopen(self.path, "wb") as f:
                 np.save(f, self.mean)
 
     def apply(self, img: np.ndarray, p: AugmentParams) -> np.ndarray:

@@ -10,7 +10,6 @@ deferred normalization in ``norm``; the trainer applies it on the card.
 from __future__ import annotations
 
 import dataclasses
-import re
 from typing import Dict, Optional, Type
 
 import numpy as np
@@ -18,6 +17,7 @@ import numpy as np
 from ..config import ConfigError, ConfigPairs
 
 #: what the port's input pipeline raises on names this ROADMAP item
+#: (``attachtxt`` and ``extra_data`` inputs, CMYK and YCCK JPEGs)
 A2 = "ROADMAP Queue A 2, the input pipeline"
 
 
@@ -39,6 +39,11 @@ class DataBatch:
 
 class DataIter:
     """Iterator protocol: ``before_first`` then ``next`` until None."""
+
+    #: True on the source iterators that read only their worker's share
+    #: under ``dist_num_worker`` / ``dist_worker_rank`` (what the data
+    #: service's shards need; :func:`dist_shardable_sources`)
+    supports_dist_shard = False
 
     def __init__(self, cfg: ConfigPairs):
         self.cfg = cfg
@@ -86,24 +91,22 @@ def close_chain(it) -> None:
         it = getattr(it, "base", None)
 
 
-def check_local(path: str) -> str:
-    """``path`` when it names a local file; a ``scheme://`` URL raises
-    (the JAX package reads those through its stream layer)."""
-    if re.match(r"^[a-zA-Z][a-zA-Z0-9+.\-]*://", path):
-        raise ConfigError(f"{path}: remote paths are not read by the "
-                          f"PyTorch port yet ({A2})")
-    return path
+def dist_slice(n: int, nworker: int, rank: int) -> slice:
+    """The contiguous rows of worker ``rank`` of ``nworker`` over ``n``
+    rows (the first ``n % nworker`` workers take one more), so the
+    union over ranks is the whole dataset."""
+    if not 0 <= rank < nworker:
+        raise ValueError(f"dist_worker_rank {rank} outside "
+                         f"[0, dist_num_worker={nworker})")
+    base, extra = divmod(n, nworker)
+    start = rank * base + min(rank, extra)
+    return slice(start, start + base + (1 if rank < extra else 0))
 
 
 ITER_REGISTRY: Dict[str, Type[DataIter]] = {}
 
 #: iterators that wrap the one before them in a chain (``base``)
-WRAPPERS = ("threadbuffer",)
-
-#: iterator-section keys of features the port does not read yet
-NOT_YET_KEYS = ("test_skipread", "dist_num_worker", "dist_worker_rank",
-                "data_gen_seed", "image_bin", "path_imgbin",
-                "image_conf_prefix", "image_conf_ids")
+WRAPPERS = ("threadbuffer", "throttle", "membuffer")
 
 
 def register_iter(*names: str):
@@ -114,35 +117,81 @@ def register_iter(*names: str):
     return deco
 
 
+class SkipReadIterator(DataIter):
+    """``test_skipread = 1``: the first epoch streams (and counts) the
+    real batches; every later epoch serves the first batch that many
+    times without touching the source. With ``test_io = 1`` over two
+    rounds or more the round lines give the rate with the read and
+    decode (round 0) and without (rounds 1+)."""
+
+    def __init__(self, base: DataIter):
+        self.base = base
+        self._first: Optional[DataBatch] = None
+        self._count = 0
+        self._known = False
+        self._pos = 0
+        super().__init__([])
+
+    def before_first(self):
+        self._pos = 0
+        if not self._known:
+            # only a whole first epoch sets the count
+            self._count = 0
+            self._first = None
+            self.base.before_first()
+
+    def next(self):
+        if not self._known:
+            b = self.base.next()
+            if b is None:
+                self._known = True
+                self._pos = self._count
+                return None
+            if self._first is None:
+                self._first = b
+            self._count += 1
+            return b
+        if self._first is None or self._pos >= self._count:
+            return None
+        self._pos += 1
+        return self._first
+
+
+def dist_shardable_sources() -> list:
+    """The source iterator types that declare ``supports_dist_shard``."""
+    from . import iter_img, iter_imgrec, iter_mnist, proc  # noqa: F401
+    return sorted(n for n, c in ITER_REGISTRY.items()
+                  if c.supports_dist_shard)
+
+
 def create_iterator(cfg: ConfigPairs) -> DataIter:
     """Build an iterator chain from one config section: the first
     ``iter = <type>`` entry names the source, each later one wraps the
     chain so far (``end`` closes the section); every other pair is
-    passed to every iterator of the chain. The port reads the sources
-    ``synthetic``, ``synthetic_lm``, ``mnist``, ``imgrec`` (and its
-    aliases) and ``img``, and the wrapper ``threadbuffer``; the other
-    iterator types (``attachtxt``, ``csv``, ``membuffer``, ``throttle``)
-    and the keys of ``NOT_YET_KEYS`` (the ``image_bin`` and
-    ``image_conf_prefix`` packs, sharded reading, ``test_skipread``,
-    ``data_gen_seed``) raise naming ROADMAP Queue A 2."""
+    passed to every iterator of the chain, and ``test_skipread = 1``
+    wraps the whole chain in :class:`SkipReadIterator`. The port reads
+    the sources ``synthetic``, ``synthetic_lm``, ``mnist``, ``csv``,
+    ``imgrec`` (and its ``imgbin`` aliases) and ``img``, wrapped by
+    ``threadbuffer``, ``throttle`` and ``membuffer``; ``attachtxt`` (it
+    feeds ``extra_data`` inputs) raises naming ROADMAP Queue A 2."""
     from . import iter_img, iter_imgrec, iter_mnist, proc  # noqa: F401
     kinds = [v for k, v in cfg if k == "iter" and v != "end"]
     params = [(k, v) for k, v in cfg if k != "iter"]
-    for k, v in params:
-        if k in NOT_YET_KEYS and str(v).strip() not in ("", "0"):
-            raise ConfigError(f"{k} = {v}: not in the PyTorch port yet "
-                              f"({A2})")
     if not kinds:
         raise ConfigError("config section declares no iterator")
     for i, kind in enumerate(kinds):
         if kind not in ITER_REGISTRY or (i > 0) != (kind in WRAPPERS):
             raise ConfigError(
                 f"iter = {kind} (chain {kinds}): the PyTorch port reads "
-                "the sources synthetic, synthetic_lm, mnist, imgrec and "
-                f"img, wrapped by threadbuffer, so far ({A2})")
+                "the sources synthetic, synthetic_lm, mnist, csv, imgrec "
+                "and img, wrapped by threadbuffer, throttle and membuffer,"
+                f" so far ({A2})")
     it = None
     for kind in kinds:
         cls = ITER_REGISTRY[kind]
         it = cls(params) if it is None else cls(params, base=it)
         it.init()           # inner to outer: a wrapper gets a ready base
+    if any(k == "test_skipread" and str(v).strip() == "1"
+           for k, v in params):
+        it = SkipReadIterator(it)
     return it

@@ -14,7 +14,8 @@ iterator's one rng, as the JAX iterator draws them: its batches are the
 JAX package's, bit for bit without the affine warp and within 2e-3 with
 it. The epoch's last batch repeats its last image, marked as padding.
 Batches are normalized float32 (no ``device_normalize`` path, as in the
-JAX package).
+JAX package). The list and the files are read through the stream layer
+(local paths or ``scheme://`` URLs).
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ import numpy as np
 
 from .augment import (AugmentParams, ImageAugmenter, MeanStore,
                       mean_cache_path, pack_label)
-from .data import DataBatch, DataIter, check_local, register_iter
+from . import stream
+from .data import DataBatch, DataIter, register_iter
 from .decode import decode_image, jpeg_device
 from .recordio import read_image_list
 
@@ -87,7 +89,7 @@ class ImageIterator(DataIter):
         self._jpeg_device = jpeg_device(self.dev)
         self.augmenter = ImageAugmenter(self.aug, (c, y, x))
         self.mean = MeanStore(mean_cache_path(self.aug), (y, x, c))
-        self.items = list(read_image_list(check_local(self.list_path)))
+        self.items = list(read_image_list(self.list_path))
         if not self.silent:
             print(f"ImageIterator: image_list={self.list_path} "
                   f"({len(self.items)} images)", flush=True)
@@ -103,9 +105,8 @@ class ImageIterator(DataIter):
     def _load(self, i: int) -> np.ndarray:
         fname = self.items[i][2]
         path = os.path.join(self.root, fname) if self.root else fname
-        with open(check_local(path), "rb") as f:
-            return decode_image(f.read(), self.input_shape[0],
-                                self._jpeg_device)
+        return decode_image(stream.read_bytes(path), self.input_shape[0],
+                            self._jpeg_device)
 
     def _load_all(self, idx):
         """The decoded images of ``idx``, in order, decoded on the pool a

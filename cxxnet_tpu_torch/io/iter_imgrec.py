@@ -2,7 +2,10 @@
 
 Registered as ``imgrec`` and, as in the JAX package, ``imgbin``,
 ``imgbinx``, ``imginst`` and ``imgbinold``. It reads a record file
-(``image_rec``), decodes each record on a pool of ``decode_threads``
+(``image_rec``), a BinaryPage pack (``image_bin``, its labels by line
+from ``image_list``) or a set of packs (``image_conf_prefix`` with
+``image_conf_ids``: each id of the range ``lb-ub`` formats the prefix
+into ``<name>.bin`` / ``<name>.lst``), decodes each record on a pool of ``decode_threads``
 threads (:mod:`.decode`), augments it (:mod:`.augment`) and batches the
 results; labels come from the records or, by instance id, from an
 ``image_list``. JPEG records decode through nvJPEG on the card that
@@ -25,25 +28,33 @@ uint8 and ``DataBatch.norm`` carries the normalization for the trainer
 to apply on the card (the uint8 input fold). Otherwise the batches are
 normalized float32, as the JAX package's host path makes them.
 
-Not ported, each raising naming ROADMAP Queue A 2: ``image_bin`` /
-``image_conf_prefix`` packs, distributed shards (``dist_num_worker``,
-``dist_worker_rank`` and their environment variables), remote paths.
+Sharded reading, as in the JAX package: ``dist_num_worker`` /
+``dist_worker_rank`` (defaults from ``CXXNET_NUM_WORKER`` and
+``CXXNET_WORKER_RANK`` or ``PS_RANK``) give worker ``rank`` the records
+that start in the byte range ``[rank * size / n, (rank + 1) * size /
+n)`` of a record file, the pages ``rank, rank + n, ...`` of a pack, or
+its contiguous share of a pack set's files; the rank enters the shuffle
+seed (``seed_data + 7 * rank``) and the augmentation counter. With
+``round_batch`` every rank must emit the same number of batches, and
+``init`` raises where the shards' record counts cannot give that. Files
+are read through the stream layer (local paths or ``scheme://`` URLs).
 """
 
 from __future__ import annotations
 
 import concurrent.futures as futures
 import os
+import re
 from typing import List, Optional
 
 import numpy as np
 
-from ..config import ConfigError
 from .augment import (AugmentParams, ImageAugmenter, MeanStore,
                       mean_cache_path, pack_label)
-from .data import A2, DataBatch, DataIter, register_iter
+from .data import DataBatch, DataIter, register_iter
 from .decode import decode_image, jpeg_device
-from .recordio import ImageRecord, RecordReader, read_image_list
+from .recordio import (ImageRecord, RecordReader, read_image_list,
+                       shard_record_counts)
 
 
 def hash_seed(counter: int) -> int:
@@ -54,15 +65,62 @@ def hash_seed(counter: int) -> int:
     return z ^ (z >> 31)
 
 
+def expand_conf_files(prefix: str, ids: str, rank: int, nworker: int):
+    """This worker's (bin, lst) file pairs of ``image_conf_prefix`` /
+    ``image_conf_ids``: the ids are an inclusive range ``lb-ub``, each
+    formats the printf-style prefix, and the workers take contiguous
+    chunks of ceil(n / nworker) files."""
+    m = re.match(r"^(-?\d+)-(-?\d+)$", ids.strip())
+    if not m:
+        raise ValueError(
+            f"image_conf_ids only supports a range like 1-100, got {ids!r}")
+    lb, ub = int(m.group(1)), int(m.group(2))
+    n = ub + 1 - lb
+    if n <= 0:
+        raise ValueError(f"image_conf_ids: empty range {ids!r}")
+    try:
+        all_names = [prefix % i for i in range(lb, ub + 1)]
+    except (TypeError, ValueError) as e:
+        raise ValueError(
+            f"image_conf_prefix must contain a printf-style integer "
+            f"placeholder (e.g. 'part%03d'), got {prefix!r}: {e}") from e
+    if n > 1 and len(set(all_names)) != len(all_names):
+        raise ValueError(
+            f"image_conf_prefix {prefix!r} does not vary with "
+            "image_conf_ids — missing a %d placeholder?")
+    if nworker > 1:
+        step = (n + nworker - 1) // nworker
+        begin = min(rank * step, n)
+        end = min((rank + 1) * step, n)
+        if begin >= end:
+            raise ValueError(
+                "image_conf: too many workers — the id list cannot be "
+                "divided between them")
+        all_names = all_names[begin:end]
+    return [(name + ".bin", name + ".lst") for name in all_names]
+
+
 @register_iter("imgrec", "imgbin", "imgbinx", "imginst", "imgbinold")
 class ImageRecordIterator(DataIter):
     """Batched, augmented image-record reader (see the module docstring)."""
 
+    supports_dist_shard = True
+
     def set_param(self, name, val):
         if name in ("image_rec", "path_imgrec"):
             self.rec_path = val
+        elif name in ("image_bin", "path_imgbin"):
+            self.bin_path = val
         elif name in ("image_list", "path_imglist"):
             self.list_path = val
+        elif name == "image_conf_prefix":
+            self.conf_prefix = val
+        elif name == "image_conf_ids":
+            self.conf_ids = val
+        elif name == "dist_num_worker":
+            self.nworker = int(val)
+        elif name == "dist_worker_rank":
+            self.rank = int(val)
         elif name == "batch_size":
             self.batch_size = int(val)
         elif name == "input_shape":
@@ -87,29 +145,44 @@ class ImageRecordIterator(DataIter):
     def __init__(self, cfg):
         self.dev = ""
         self.rec_path = ""
+        self.bin_path = ""
         self.list_path = ""
+        self.conf_prefix = ""
+        self.conf_ids = ""
         self.batch_size = 128
         self.input_shape = None
         self.shuffle = 0
         self.seed = 0
         self.label_width = 1
         self.round_batch = 0
+        self.nworker = int(os.environ.get("CXXNET_NUM_WORKER", "1"))
+        self.rank = int(os.environ.get("CXXNET_WORKER_RANK",
+                                       os.environ.get("PS_RANK", "0")))
         self.nthread = min(8, os.cpu_count() or 4)
         self.silent = 0
         self.aug = AugmentParams()
         self._pool = None
+        self._reader = None
         super().__init__(cfg)
-        for env, one in (("CXXNET_NUM_WORKER", "1"),
-                         ("CXXNET_WORKER_RANK", "0"), ("PS_RANK", "0")):
-            if os.environ.get(env, one).strip() != one:
-                raise ConfigError(f"{env} = {os.environ[env]}: sharded "
-                                  f"reading is not in the PyTorch port yet "
-                                  f"({A2})")
 
     # -- setup -------------------------------------------------------------
     def init(self):
-        if not self.rec_path:
-            raise ValueError("imgrec: image_rec must be set")
+        if self.conf_prefix:
+            if self.rec_path or self.bin_path or self.list_path:
+                raise ValueError(
+                    "set either image_conf_prefix or image_bin/image_list, "
+                    "not both")
+            self._conf_pairs = expand_conf_files(
+                self.conf_prefix, self.conf_ids, self.rank, self.nworker)
+            if self.round_batch and self.nworker > 1:
+                self._check_conf_batch_counts()
+        elif not self.rec_path and not self.bin_path:
+            raise ValueError("imgrec: image_rec (or image_bin) must be set")
+        elif self.round_batch and self.nworker > 1:
+            self._check_shard_batch_counts()
+        if self.bin_path and not self.list_path:
+            raise ValueError("imgbin: image_list must accompany image_bin "
+                             "(labels live in the list)")
         if self.input_shape is None:
             raise ValueError("imgrec: input_shape must be set")
         if self.nthread < 1:
@@ -120,13 +193,15 @@ class ImageRecordIterator(DataIter):
         self.augmenter = ImageAugmenter(self.aug, (c, y, x))
         self.mean = MeanStore(mean_cache_path(self.aug), (y, x, c))
         self._label_map = None
+        self._list_entries = None
         if self.list_path:
+            self._list_entries = read_image_list(self.list_path)
             self._label_map = {idx: lab for idx, lab, _
-                               in read_image_list(self.list_path)}
+                               in self._list_entries}
         if self.aug.device_normalize == -1:
             # uint8 batches where that is exact: crop and mirror only,
             # encoded records, images at least the crop (the probe reads
-            # the first 8 records of the file)
+            # the first 8 records of the shard)
             exact = (not self.aug.needs_affine
                      and self.aug.max_random_contrast == 0
                      and self.aug.max_random_illumination == 0)
@@ -146,19 +221,90 @@ class ImageRecordIterator(DataIter):
                       f"({'uint8 device path' if exact else 'host float path'})",
                       flush=True)
         self._pool = futures.ThreadPoolExecutor(self.nthread)
-        self._rng = np.random.RandomState(self.seed)
+        self._rng = np.random.RandomState(self.seed + 7 * self.rank)
         # the per-item augmentation counter, hashed into each item's seed
-        self._item_counter = self.seed << 32
+        self._item_counter = (self.seed << 32) ^ (self.rank << 56)
         if self.aug.mean_img and not self.mean.ready:
             self._compute_mean()
         self.before_first()
 
+    def _check_conf_batch_counts(self) -> None:
+        """Under round_batch every rank must emit the same number of
+        batches; whole-file shards of a pack set may not allow that."""
+        counts = []
+        for rank in range(self.nworker):
+            pairs = expand_conf_files(self.conf_prefix, self.conf_ids,
+                                      rank, self.nworker)
+            n = sum(len(read_image_list(lst)) for _, lst in pairs)
+            counts.append(-(-n // self.batch_size))
+        if len(set(counts)) != 1:
+            raise ValueError(
+                "image_conf_prefix + round_batch: per-rank batch counts "
+                f"{counts} are unequal — whole-file sharding cannot give "
+                "every worker the same epoch length with these pack sizes; "
+                "re-pack into equal-size parts (tools/im2bin.py) or use a "
+                "single recordio file (byte-range sharded)")
+
+    def _check_shard_batch_counts(self) -> None:
+        """Under round_batch every rank must emit the same number of
+        batches: counted from the record headers (or the ``.idx``) or
+        the pages' headers, never the payloads."""
+        if self.bin_path:
+            from .binpage import num_pages, page_object_count
+            per_page = [page_object_count(self.bin_path, p)
+                        for p in range(num_pages(self.bin_path))]
+            recs = [sum(per_page[r::self.nworker])
+                    for r in range(self.nworker)]
+        else:
+            recs = shard_record_counts(self.rec_path, self.nworker)
+        counts = [-(-n // self.batch_size) for n in recs]
+        if len(set(counts)) != 1:
+            raise ValueError(
+                f"round_batch with {self.nworker} workers: per-rank batch "
+                f"counts {counts} (record counts {recs}) are unequal — "
+                "every rank must emit the same epoch length or distributed "
+                "training deadlocks; re-pack with tools/im2rec.py "
+                "(uniform record sizes shard evenly) or adjust batch_size")
+
+    def _open_reader(self):
+        """An iterable of this worker's packed record payloads: its byte
+        range of the record file, its pages of a pack (the k-th object
+        with the k-th list line's id and labels), or its files of a pack
+        set. Closed by :meth:`_close`."""
+        if not self.conf_prefix and not self.bin_path:
+            return RecordReader(self.rec_path, self.rank, self.nworker)
+        from .binpage import iter_binpage
+        if self.conf_prefix:
+            def gen():
+                for bin_path, lst_path in self._conf_pairs:
+                    entries = read_image_list(lst_path)
+                    for obj_idx, data in iter_binpage(bin_path, 0, 1):
+                        inst_id, labels, _ = entries[obj_idx]
+                        yield ImageRecord(inst_id=inst_id, labels=labels,
+                                          data=data).pack()
+            return gen()
+        entries = self._list_entries
+
+        def gen_one():
+            for obj_idx, data in iter_binpage(self.bin_path, self.rank,
+                                              self.nworker):
+                inst_id, labels, _ = entries[obj_idx]
+                yield ImageRecord(inst_id=inst_id, labels=labels,
+                                  data=data).pack()
+        return gen_one()
+
+    @staticmethod
+    def _close(reader) -> None:
+        close = getattr(reader, "close", None)
+        if close is not None:
+            close()
+
     def _peek_records(self, n: int) -> List[ImageRecord]:
-        """The first ``n`` records of the file (fewer for a short one)."""
+        """The first ``n`` records of the shard (fewer for a short one)."""
         return self._head(n, ImageRecord.unpack)
 
     def _head(self, n: int, fn=lambda p: p) -> list:
-        reader = RecordReader(self.rec_path)
+        reader = self._open_reader()
         out = []
         try:
             for payload in reader:
@@ -166,23 +312,24 @@ class ImageRecordIterator(DataIter):
                 if len(out) >= n:
                     break
         finally:
-            reader.close()
+            self._close(reader)
         return out
 
     def _compute_mean(self):
         if not self.silent:
-            print(f"computing mean image from {self.rec_path} ...",
-                  flush=True)
+            print(f"computing mean image from "
+                  f"{self.rec_path or self.bin_path or self.conf_prefix} "
+                  "...", flush=True)
         rng = np.random.RandomState(0)
 
         def gen():
-            reader = RecordReader(self.rec_path)
+            reader = self._open_reader()
             try:
                 for payload in reader:
                     rec = ImageRecord.unpack(payload)
                     yield self.augmenter.process(self._decode(rec), rng)
             finally:
-                reader.close()
+                self._close(reader)
         self.mean.compute(gen())
 
     def _decode(self, rec: ImageRecord) -> np.ndarray:
@@ -194,15 +341,14 @@ class ImageRecordIterator(DataIter):
     # -- iteration ---------------------------------------------------------
     def before_first(self):
         self._close_reader()
-        self._reader = RecordReader(self.rec_path)
+        self._reader = self._open_reader()
         self._iter = iter(self._reader)
         self._buf: List = []
         self._done = False
 
     def _close_reader(self):
-        reader = getattr(self, "_reader", None)
-        if reader is not None:
-            reader.close()
+        if self._reader is not None:
+            self._close(self._reader)
             self._reader = None
 
     def _process_one(self, payload: bytes, item_counter: int):

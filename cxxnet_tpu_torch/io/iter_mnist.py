@@ -1,6 +1,5 @@
 """The ``mnist`` iterator: idx-ubyte image and label files (the port of
-``cxxnet_tpu/io/iter_mnist.py`` and of the ``open_maybe_gz`` it reads
-through).
+``cxxnet_tpu/io/iter_mnist.py``).
 
 Plain or gzipped (``.gz``) idx files; images scaled by 1/256 into
 float32, as a flat ``(n, 1, 1, h*w)`` node (``input_flat = 1``, the
@@ -9,28 +8,21 @@ default) or an image ``(n, h, w, 1)``; labels ``(n, 1)`` float32.
 ``np.random.RandomState(seed_data)``; the last partial batch is padded
 by repeating its last row (or, with ``round_batch``, by wrapping to the
 epoch's start), and ``num_batch_padd`` marks the padding. The batches
-are bit-equal to the JAX iterator's. Remote paths (``gs://`` and other
-``scheme://`` URLs) raise: remote streams come with the rest of the
-input pipeline (ROADMAP Queue A 2).
+are bit-equal to the JAX iterator's. The files are read through the
+stream layer (local paths or ``scheme://`` URLs). With
+``dist_num_worker`` / ``dist_worker_rank`` a worker keeps its contiguous
+rows (:func:`~.data.dist_slice`); instance ids stay global.
 """
 
 from __future__ import annotations
 
-import gzip
 import struct
 from typing import Optional
 
 import numpy as np
 
-from .data import DataBatch, DataIter, check_local, register_iter
-
-
-def open_maybe_gz(path: str):
-    """Binary read stream of a local file, gunzipped for ``.gz`` paths."""
-    check_local(path)
-    if path.endswith(".gz"):
-        return gzip.open(path, "rb")
-    return open(path, "rb")
+from .data import DataBatch, DataIter, dist_slice, register_iter
+from .stream import open_maybe_gz
 
 
 def read_idx(path: str) -> np.ndarray:
@@ -45,6 +37,7 @@ def read_idx(path: str) -> np.ndarray:
 
 @register_iter("mnist")
 class MNISTIterator(DataIter):
+    supports_dist_shard = True
 
     def set_param(self, name, val):
         if name == "path_img":
@@ -65,6 +58,10 @@ class MNISTIterator(DataIter):
             self.silent = int(val)
         elif name == "index_offset":
             self.index_offset = int(val)
+        elif name == "dist_num_worker":
+            self.nworker = int(val)
+        elif name == "dist_worker_rank":
+            self.rank = int(val)
 
     def __init__(self, cfg):
         self.path_img = ""
@@ -76,6 +73,8 @@ class MNISTIterator(DataIter):
         self.round_batch = 0
         self.silent = 0
         self.index_offset = 0
+        self.nworker = 1
+        self.rank = 0
         super().__init__(cfg)
 
     def init(self):
@@ -89,7 +88,12 @@ class MNISTIterator(DataIter):
             self.images = images.reshape(n, h, w, 1)
         self.labels = labels.reshape(n, 1)
         self.inst = np.arange(n, dtype=np.int64) + self.index_offset
-        self._order = np.arange(n)
+        if self.nworker > 1:
+            sl = dist_slice(n, self.nworker, self.rank)
+            self.images = self.images[sl]
+            self.labels = self.labels[sl]
+            self.inst = self.inst[sl]
+        self._order = np.arange(self.images.shape[0])
         self._rng = np.random.RandomState(self.seed)
         self.before_first()
         if not self.silent:

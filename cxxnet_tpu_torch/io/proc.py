@@ -1,24 +1,30 @@
-"""Processing iterators (the port of part of ``cxxnet_tpu/io/proc.py``):
-the ``threadbuffer`` prefetch wrapper, the sequential batch cursor with
-tail padding, the ``synthetic`` gaussian-cluster classification data and
-the ``synthetic_lm`` token sequences.
+"""Processing iterators (the port of ``cxxnet_tpu/io/proc.py``): the
+``threadbuffer`` prefetch wrapper, the ``throttle`` delay and the
+``membuffer`` cache wrappers, the ``csv`` source, the sequential batch
+cursor with tail padding, the ``synthetic`` gaussian-cluster
+classification data and the ``synthetic_lm`` token sequences.
 
 The synthetic draws are the JAX package's, line for line, so the same
 ``seed_data`` gives bit-equal data and labels and the same batches in
-the same order. The JAX iterators' data-service sharding keys
-(``dist_num_worker``, ``dist_worker_rank``, ``data_gen_seed``) are not
-ported: ``create_iterator`` raises on them (ROADMAP Queue A 2).
+the same order. The sources ``csv``, ``synthetic`` and ``synthetic_lm``
+shard as the JAX ones do: ``dist_num_worker`` / ``dist_worker_rank``
+keep a worker's contiguous rows (:func:`~.data.dist_slice`), and with
+``data_gen_seed`` the synthetic data is drawn from that seed and
+``seed_data`` only permutes the worker's rows (what the data service's
+shards need: one dataset an epoch, an order a shard and epoch).
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Optional
+import time
+from typing import List, Optional
 
 import numpy as np
 
-from .data import DataBatch, DataIter, register_iter
+from . import stream
+from .data import DataBatch, DataIter, dist_slice, register_iter
 
 
 class _ProducerError:
@@ -129,13 +135,182 @@ class ThreadBufferIterator(DataIter):
             close()
 
 
+@register_iter("throttle")
+class ThrottleIterator(DataIter):
+    """Delays every ``next()`` by ``throttle_ms``: a stand-in for an
+    expensive decode (a trainer fed through it goes input-bound)."""
+
+    def set_param(self, name, val):
+        if name == "throttle_ms":
+            self.throttle_ms = float(val)
+
+    def __init__(self, cfg, base: DataIter):
+        self.throttle_ms = 0.0
+        self.base = base
+        super().__init__(cfg)
+
+    def before_first(self):
+        self.base.before_first()
+
+    def next(self):
+        if self.throttle_ms > 0:
+            time.sleep(self.throttle_ms / 1e3)
+        return self.base.next()
+
+    def close(self):
+        close = getattr(self.base, "close", None)
+        if callable(close):
+            close()
+
+
+@register_iter("membuffer")
+class DenseBufferIterator(DataIter):
+    """Caches the first ``max_nbatch`` (alias ``max_buffer``, default 16)
+    batches in memory, then loops over them."""
+
+    def set_param(self, name, val):
+        if name in ("max_buffer", "max_nbatch"):
+            self.max_buffer = int(val)
+
+    def __init__(self, cfg, base: DataIter):
+        self.max_buffer = 16
+        self.base = base
+        self._cache: List[DataBatch] = []
+        self._filled = False
+        self._pos = 0
+        super().__init__(cfg)
+
+    def before_first(self):
+        self._pos = 0
+        if not self._filled:
+            self.base.before_first()
+            for _ in range(self.max_buffer):
+                b = self.base.next()
+                if b is None:
+                    break
+                self._cache.append(b)
+            self._filled = True
+
+    def next(self):
+        if self._pos >= len(self._cache):
+            return None
+        b = self._cache[self._pos]
+        self._pos += 1
+        return b
+
+
+@register_iter("csv")
+class CSVIterator(DataIter):
+    """CSV rows of ``label_width`` leading label columns, then the
+    features (``input_shape`` c,y,x reshapes them to NHWC); ``shuffle``
+    permutes the order at every epoch with ``RandomState(seed_data)``,
+    ``has_header = 1`` skips the first line."""
+
+    supports_dist_shard = True
+
+    def set_param(self, name, val):
+        if name == "filename" or name == "path_csv":
+            self.filename = val
+        elif name == "label_width":
+            self.label_width = int(val)
+        elif name == "batch_size":
+            self.batch_size = int(val)
+        elif name == "shuffle":
+            self.shuffle = int(val)
+        elif name == "input_shape":
+            self.input_shape = tuple(int(x) for x in val.split(","))
+        elif name == "seed_data":
+            self.seed = int(val)
+        elif name == "has_header":
+            self.has_header = int(val)
+        elif name == "dist_num_worker":
+            self.nworker = int(val)
+        elif name == "dist_worker_rank":
+            self.rank = int(val)
+
+    def __init__(self, cfg):
+        self.filename = ""
+        self.label_width = 1
+        self.batch_size = 128
+        self.shuffle = 0
+        self.input_shape = None
+        self.seed = 0
+        self.has_header = 0
+        self.nworker = 1
+        self.rank = 0
+        self._inst_base = 0
+        super().__init__(cfg)
+
+    def init(self):
+        with stream.sopen(self.filename, "rb") as f:
+            raw = np.loadtxt(f, delimiter=",", dtype=np.float32, ndmin=2,
+                             skiprows=1 if self.has_header else 0)
+        self.labels = raw[:, :self.label_width]
+        feats = raw[:, self.label_width:]
+        n = feats.shape[0]
+        if self.input_shape and not (self.input_shape[0] == 1 and
+                                     self.input_shape[1] == 1):
+            c, y, x = self.input_shape
+            self.data = feats.reshape(n, c, y, x).transpose(0, 2, 3, 1).copy()
+        else:
+            self.data = feats.reshape(n, 1, 1, -1)
+        if self.nworker > 1:
+            sl = dist_slice(n, self.nworker, self.rank)
+            self.data = self.data[sl]
+            self.labels = self.labels[sl]
+            self._inst_base = sl.start
+        self._order = np.arange(self.data.shape[0])
+        self._rng = np.random.RandomState(self.seed)
+        self.before_first()
+
+    def before_first(self):
+        if self.shuffle:
+            self._rng.shuffle(self._order)
+        self._pos = 0
+
+    def next(self):
+        n = self.data.shape[0]
+        bs = self.batch_size
+        if self._pos >= n:
+            return None
+        idx = self._order[self._pos:self._pos + bs]
+        padd = 0
+        if len(idx) < bs:
+            padd = bs - len(idx)
+            idx = np.concatenate([idx, np.repeat(idx[-1:], padd)])
+        self._pos += bs
+        return DataBatch(data=self.data[idx], label=self.labels[idx],
+                         num_batch_padd=padd,
+                         inst_index=(idx + self._inst_base).astype(np.int64))
+
+
 class _InMemoryIterator(DataIter):
     """Sequential batch cursor over in-memory ``self.data`` /
     ``self.labels`` with tail padding (``num_batch_padd``: the last
-    batch repeats its last row)."""
+    batch repeats its last row). :meth:`_finalize_rows` keeps a
+    worker's rows under ``dist_num_worker`` and, with ``data_gen_seed``,
+    permutes them by ``RandomState(seed_data)``; ``inst_index`` stays
+    the row's global index."""
+
+    supports_dist_shard = True
+    nworker = 1
+    rank = 0
+    gen_seed = None
 
     def _finalize_rows(self):
-        self.inst = np.arange(self.data.shape[0], dtype=np.int64)
+        n = self.data.shape[0]
+        self.inst = np.arange(n, dtype=np.int64)
+        if self.nworker > 1:
+            sl = dist_slice(n, self.nworker, self.rank)
+            self.data = self.data[sl]
+            self.labels = self.labels[sl]
+            self.inst = self.inst[sl]
+        if self.gen_seed is not None:
+            p = np.random.RandomState(self.seed) \
+                .permutation(self.data.shape[0])
+            self.data = self.data[p]
+            self.labels = self.labels[p]
+            self.inst = self.inst[p]
 
     def before_first(self):
         self._pos = 0
@@ -174,6 +349,12 @@ class SyntheticIterator(_InMemoryIterator):
             self.seed = int(val)
         elif name == "label_width":
             self.label_width = int(val)
+        elif name == "dist_num_worker":
+            self.nworker = int(val)
+        elif name == "dist_worker_rank":
+            self.rank = int(val)
+        elif name == "data_gen_seed":
+            self.gen_seed = int(val)
 
     def __init__(self, cfg):
         self.num_inst = 512
@@ -185,7 +366,8 @@ class SyntheticIterator(_InMemoryIterator):
         super().__init__(cfg)
 
     def init(self):
-        rng = np.random.RandomState(self.seed)
+        rng = np.random.RandomState(
+            self.seed if self.gen_seed is None else self.gen_seed)
         c, y, x = self.input_shape
         dim = c * y * x
         centers = rng.randn(self.num_class, dim).astype(np.float32) * 2.0
@@ -226,6 +408,12 @@ class SyntheticLMIterator(_InMemoryIterator):
             if val not in ("add0", "copy"):
                 raise ValueError(f"unknown lm_task {val!r}")
             self.lm_task = val
+        elif name == "dist_num_worker":
+            self.nworker = int(val)
+        elif name == "dist_worker_rank":
+            self.rank = int(val)
+        elif name == "data_gen_seed":
+            self.gen_seed = int(val)
 
     def __init__(self, cfg):
         self.num_inst = 512
@@ -237,7 +425,8 @@ class SyntheticLMIterator(_InMemoryIterator):
         super().__init__(cfg)
 
     def init(self):
-        rng = np.random.RandomState(self.seed)
+        rng = np.random.RandomState(
+            self.seed if self.gen_seed is None else self.gen_seed)
         toks = rng.randint(0, self.vocab_size,
                            size=(self.num_inst, self.seq_len))
         if self.lm_task == "copy":

@@ -14,22 +14,22 @@ and the image payload
 skips a record whose frame is damaged (up to ``max_skip``, then
 raises; each skip counts as ``recordio.skipped``, which the serve
 ``/healthz`` reports as ``skipped_records``); a truncated last record
-ends the range. The failpoints ``io.open`` (the open) and
-``record.decode`` (a record declared corrupt) guard it. Local paths
-only: a ``scheme://`` URL raises (ROADMAP Queue A 2).
+ends the range. Files are read and written through the stream layer
+(:mod:`.stream`: local paths or ``scheme://`` URLs, with its ``io.*``
+failpoints); the failpoint ``record.decode`` declares a record corrupt.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
+import io
 import struct
 from typing import BinaryIO, Iterator, List, Optional, Tuple
 
 import numpy as np
 
 from ..resilience import counters, failpoints
-from .data import check_local
+from .stream import getsize, sopen
 
 MAGIC = 0xCED7ABEF
 _HDR = struct.Struct("<II")
@@ -42,8 +42,8 @@ def _pad8(n: int) -> int:
 
 class RecordWriter:
     def __init__(self, path: str):
-        self.path = check_local(path)
-        self._f: BinaryIO = open(path, "wb")
+        self.path = path
+        self._f: BinaryIO = sopen(path, "wb")
         self.offsets: List[int] = []     # record start offsets, in order
         self._pos = 0
 
@@ -60,7 +60,7 @@ class RecordWriter:
         reads instead of scanning the file."""
         path = path or self.path
         idx_path = path if path.endswith(".idx") else path + ".idx"
-        with open(check_local(idx_path), "wb") as f:
+        with sopen(idx_path, "wb") as f:
             f.write("\n".join(str(o) for o in self.offsets).encode()
                     + b"\n")
         return idx_path
@@ -81,10 +81,9 @@ class RecordReader:
 
     def __init__(self, path: str, part: int = 0, nsplit: int = 1,
                  max_skip: int = 100):
-        self.path = check_local(path)
-        size = os.path.getsize(path)
-        failpoints.check("io.open", IOError)
-        self._f = open(path, "rb")
+        self.path = path
+        size = getsize(path)
+        self._f = sopen(path, "rb")
         self.begin = size * part // nsplit
         self.end = size * (part + 1) // nsplit
         self.max_skip = int(max_skip)
@@ -169,19 +168,19 @@ def shard_record_counts(path: str, nsplit: int) -> List[int]:
     :class:`RecordReader`: a record belongs to the shard whose range
     holds its start. From the ``<rec>.idx`` index when it provably
     describes this file, else from one scan of the headers."""
-    size = os.path.getsize(check_local(path))
+    size = getsize(path)
     bounds = [size * k // nsplit for k in range(1, nsplit + 1)]
     counts = [0] * nsplit
     offsets = None
     try:
-        with open(path + ".idx", "rb") as f:
+        with sopen(path + ".idx", "rb") as f:
             offsets = [int(line) for line in f.read().split() if line]
     except (OSError, ValueError):
         pass
     if offsets and offsets == sorted(offsets) \
             and all(0 <= o < size for o in offsets):
         try:
-            with open(path, "rb") as f:
+            with sopen(path, "rb") as f:
                 f.seek(offsets[0])
                 magic0, _ = _HDR.unpack(f.read(_HDR.size))
                 f.seek(offsets[-1])
@@ -197,7 +196,7 @@ def shard_record_counts(path: str, nsplit: int) -> List[int]:
                 return counts
         except (OSError, struct.error):
             pass
-    with open(path, "rb") as f:
+    with sopen(path, "rb") as f:
         pos, part = 0, 0
         while pos + _HDR.size <= size:
             f.seek(pos)
@@ -237,7 +236,7 @@ def read_image_list(path: str) -> List[Tuple[int, np.ndarray, str]]:
     """Parse a ``.lst`` image list: whitespace-separated ``index
     label[ label2 ...] relative_path`` lines."""
     out = []
-    with open(check_local(path), "r") as f:
+    with io.TextIOWrapper(sopen(path, "rb")) as f:
         for line in f:
             parts = line.strip().split()
             if len(parts) < 3:

@@ -1,6 +1,6 @@
 """Task driver CLI of the PyTorch port: ``task = train``, ``finetune``,
 ``pred``, ``pred_raw``, ``extract`` (``extract_feature``),
-``get_weight`` and ``serve``.
+``get_weight``, ``serve`` and ``data_reader``.
 
     python -m cxxnet_tpu_torch.main <conf> [task=train] [key=value ...]
     python -m cxxnet_tpu_torch.main <conf> task=pred_raw model_in=<round>.model
@@ -70,13 +70,29 @@ rolls back to the newest valid round with the LR scaled by
 ``telemetry_port``, ``telemetry_ledger``, ``telemetry_trace`` and
 ``telemetry_log``; the server itself answers ``GET /metrics``.
 
-The iterator sections read ``synthetic``, ``synthetic_lm``, ``mnist``
-and ``imgrec`` record files (PNG everywhere, JPEG where libjpeg is
-installed), optionally wrapped by ``iter = threadbuffer``, as the
-ImageNet configs of ``examples/ImageNet/`` have them; an imgrec section
-that resolves ``device_normalize`` to 1 feeds uint8 batches that the
-train step normalizes on the card (the input fold). The chains' threads
-are stopped when the task ends.
+The iterator sections read ``synthetic``, ``synthetic_lm``, ``mnist``,
+``csv``, ``imgrec`` record files and BinaryPage packs (PNG everywhere,
+JPEG through nvJPEG on the card and libjpeg where it is installed) and
+image files (``img``), optionally wrapped by ``threadbuffer``,
+``throttle`` and ``membuffer``, as the ImageNet configs of
+``examples/ImageNet/`` have them; an imgrec section that resolves
+``device_normalize`` to 1 feeds uint8 batches that the train step
+normalizes on the card (the input fold). Every data, model and output
+path may be a ``scheme://`` URL (``io/stream.py``, retried under the
+``io_retry_*`` keys). The chains' threads are stopped when the task
+ends. ``test_io = 1`` runs the train section's input and skips the
+update, printing ``round N: test_io <n> images in <s> sec = <r>
+images/sec`` a round.
+
+The input data service (``data_service/``): ``task = data_reader``
+serves the ``data = train`` section's batches for shards of the records
+over TCP until SIGINT/SIGTERM (``data_service = host:port[,...]`` names
+the fleet, ``data_service_reader`` this reader's place in it); a ``task =
+train`` or ``finetune`` run with ``data_service`` set reads its train
+section from the fleet (``data_service = local``: the same stream in
+this process), failing over between readers and degrading once to the
+local pipeline when none answers. Evaluation and the batch tasks read
+their sections locally.
 
 The batch tasks run on one device over the ``pred = <file>`` section
 (the ``data`` section when there is none) with the weights of
@@ -99,8 +115,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import io
 import os
-import re
 import sys
 import threading
 import time
@@ -111,13 +127,15 @@ import torch
 
 from . import checkpoint as ckpt
 from .config import (ConfigError, ConfigPairs, parse_cli_overrides,
-                     parse_config_file, parse_quant_config,
+                     parse_config_file, parse_data_service_config,
+                     parse_quant_config, parse_retry_policy,
                      parse_serve_config, parse_telemetry_config,
                      split_sections)
+from .data_service import DataReaderServer, build_service_iterator
 from .deploy import DeployController, parse_deploy_config
 from .graph import build_graph, global_param
 from .device import resolve_devices
-from .io import close_chain, create_iterator
+from .io import close_chain, create_iterator, stream
 from .io.data import DataBatch
 from .parallel import DpContext, launch
 from .resilience import SentinelAbort, TrainingSentinel, counters, failpoints
@@ -284,6 +302,47 @@ def _serve_with_session(cfg: ConfigPairs, snapshot: Optional[ConfigPairs],
     status = "ok"
     try:
         task_serve(cfg, ready)
+    except BaseException as e:
+        status = f"error:{type(e).__name__}"
+        raise
+    finally:
+        session.close(status=status)
+
+
+def task_data_reader(cfg: ConfigPairs, sections,
+                     snapshot: Optional[ConfigPairs] = None) -> None:
+    """``task = data_reader``: serve the ``data = train`` section's
+    batches for this reader's shards (``data_service_reader`` into the
+    ``data_service`` endpoint list) until SIGINT/SIGTERM, inside a
+    telemetry session (``telemetry_port``'s ``GET /metrics`` holds the
+    ``cxxnet_dataservice_*`` series; ``telemetry_ledger`` the
+    ``dataservice_start`` and ``dataservice_stop`` events)."""
+    gp = lambda n, d: global_param(cfg, n, d)
+    pairs = next((p for kind, _name, p in sections if kind == "data"),
+                 None)
+    if pairs is None:
+        raise ValueError(
+            "task=data_reader needs a data = train section (the "
+            "pipeline it serves)")
+    svc = parse_data_service_config(cfg)
+    if not svc.enabled or svc.local_only:
+        raise ValueError(
+            "task=data_reader requires data_service = "
+            "host:port[,host:port] naming the reader fleet")
+    failpoints.install(gp("failpoints", ""), env=True)
+    silent = bool(int(gp("silent", "0")))
+    tc = parse_telemetry_config(cfg)
+    platform = resolve_devices(gp("dev", ""))[0].type
+    snap = snapshot if snapshot is not None else cfg
+    session = TelemetrySession(tc, silent=silent,
+                               cfg_hash=config_hash(snap),
+                               host=max(tc.host, 0))
+    _run_start(session, snap, "data_reader", platform, 1, 0)
+    status = "ok"
+    try:
+        srv = DataReaderServer(cfg + pairs, svc, silent=silent)
+        srv.start()
+        srv.serve_until_interrupt()
     except BaseException as e:
         status = f"error:{type(e).__name__}"
         raise
@@ -488,7 +547,11 @@ def _train_rounds(tr: Trainer, gp, itr_train, evals, start_counter: int,
 The telemetry ``session``'s pieces run in it: the step-time probe
     (its fragment ends the round line), the ``telemetry_profile_steps``
     bracket, the ``train.step`` and ``train.data_wait`` spans and the
-    ``round_end`` event; and the loss sentinel (:class:`_Sentinel`)."""
+    ``round_end`` event; and the loss sentinel (:class:`_Sentinel`).
+    A data-service iterator is set to the epoch of ``start_counter``.
+    With ``test_io = 1`` the batches are drawn and counted, nothing is
+    updated, evaluated or written, and each round prints its input
+    rate."""
     start = time.time()
     num_round = int(gp("num_round", "10"))
     max_round = int(gp("max_round", "0"))
@@ -503,6 +566,23 @@ The telemetry ``session``'s pieces run in it: the step-time probe
     end_round = num_round
     if max_round > 0:
         end_round = min(end_round, start_counter + max_round)
+    test_io = int(gp("test_io", "0"))
+    if hasattr(itr_train, "set_epoch"):
+        # data-service epochs are addressed, not counted: continue = 1
+        # replays the epoch the uninterrupted run would have read
+        itr_train.set_epoch(start_counter)
+    if test_io:
+        for r in range(start_counter, end_round):
+            round_start = time.time()
+            n_images = 0
+            for batch in itr_train:
+                n_images += batch.batch_size - batch.num_batch_padd
+            dt = max(time.time() - round_start, 1e-9)
+            if not silent:
+                print(f"round {r:8d}: test_io {n_images} images in "
+                      f"{dt:.2f} sec = {n_images / dt:.1f} images/sec",
+                      flush=True)
+        return end_round - 1
     guard = _Sentinel(gp, model_dir, bool(silent))
     probe = session.make_probe() if session.cfg.steptime else None
     profiler = session.profiler
@@ -618,6 +698,7 @@ def _run_start(session: TelemetrySession, pairs: ConfigPairs, task: str,
     the whole config, split into ``config_chunk`` events past one
     line)."""
     snap_fields, snap_chunks = plan_config_snapshot(pairs)
+    svc = parse_data_service_config(pairs)
     LEDGER.event(
         "run_start", task=task, config_hash=session.cfg_hash,
         process_count=world, process_index=rank, devices=world,
@@ -628,7 +709,9 @@ def _run_start(session: TelemetrySession, pairs: ConfigPairs, task: str,
         failpoint_seed=int(os.environ.get(
             failpoints.SEED_ENV_VAR, "0") or "0"),
         nan_layer=os.environ.get("CXXNET_NAN_LAYER", ""),
-        data_service_seed=0, data_service_shards=0, **snap_fields)
+        data_service_seed=svc.seed,
+        data_service_shards=svc.n_shards if svc.enabled else 0,
+        **snap_fields)
     for ch in snap_chunks:
         LEDGER.event("config_chunk", **ch)
 
@@ -688,7 +771,11 @@ def task_train(cfg: ConfigPairs, sections,
             "one session at a time; set one of them")
     session = _train_session(cfg, tr, snapshot)
     status = "ok"
-    chains = [create_iterator(cfg + data[0])]
+    svc = parse_data_service_config(cfg)
+    if svc.enabled:
+        chains = [build_service_iterator(cfg + data[0], svc)]
+    else:
+        chains = [create_iterator(cfg + data[0])]
     try:
         evals = []
         for kind, name, pairs in sections:
@@ -696,9 +783,10 @@ def task_train(cfg: ConfigPairs, sections,
                 chains.append(create_iterator(cfg + pairs))
                 evals.append((name, chains[-1]))
         model_dir = gp("model_dir", "./models")
-        save_model = int(gp("save_model", "1"))
+        save_model = int(gp("save_model", "1")) and not int(
+            gp("test_io", "0"))
         if save_model:
-            os.makedirs(model_dir, exist_ok=True)
+            stream.makedirs(model_dir)
         start_counter = _init_model(tr, cfg)
         if ready is not None:
             ready(tr)
@@ -717,7 +805,7 @@ def task_train(cfg: ConfigPairs, sections,
                     print(f"profiler trace written to {profile_dir}",
                           flush=True)
         final = ckpt.model_path(model_dir, last)
-        if save_model and last >= 0 and not os.path.exists(final):
+        if save_model and last >= 0 and not stream.exists(final):
             tr.save_model(final)
     except BaseException as e:
         status = f"error:{type(e).__name__}"
@@ -734,6 +822,7 @@ def _train_worker(dp: DpContext, cfg: ConfigPairs, sections,
                   snapshot: Optional[ConfigPairs]) -> None:
     """One rank of a data-parallel ``task = train`` (spawned by
     :func:`task_train_dp`)."""
+    stream.set_retry_policy(parse_retry_policy(cfg))
     task_train(cfg, sections, ready, dp=dp, snapshot=snapshot)
 
 
@@ -761,17 +850,13 @@ def task_train_dp(cfg: ConfigPairs, sections, devices: Sequence[Any],
 
 # -- the batch tasks ------------------------------------------------------------
 
-#: a ``scheme://`` path (gs://, s3://, hdfs://, ...)
-_REMOTE_RE = re.compile(r"^[a-zA-Z][a-zA-Z0-9+.\-]*://")
-
-
 def _open_out(path: str, mode: str = "w"):
-    """A local output file (``mode`` "w" text, "wb" binary); a
-    ``scheme://`` path raises."""
-    if _REMOTE_RE.match(path):
-        raise ConfigError(
-            f"{path}: the PyTorch port writes local files only; remote "
-            "output streams wait for ROADMAP Queue A 2 (remote streams)")
+    """An output file of the batch tasks (``mode`` "w" text, "wb"
+    binary), local or a ``scheme://`` URL through the stream layer."""
+    if stream.is_remote(path):
+        raw = stream.sopen(path, "wb")
+        return raw if mode == "wb" else io.TextIOWrapper(
+            raw, encoding="utf-8")
     return open(path, mode)
 
 
@@ -919,6 +1004,10 @@ def run(cfg: ConfigPairs, ready: Optional[Callable] = None,
     card with ``backend="gloo"``."""
     global_cfg, sections = split_sections(cfg)
     task = global_param(global_cfg, "task", "train")
+    # every stream operation retries under the io_retry_* policy, and an
+    # unknown data_service* key raises whatever the task
+    stream.set_retry_policy(parse_retry_policy(global_cfg))
+    parse_data_service_config(global_cfg)
     if task in ("train", "finetune"):
         if devices is None:
             devices = resolve_devices(global_param(global_cfg, "dev", ""))
@@ -935,9 +1024,8 @@ def run(cfg: ConfigPairs, ready: Optional[Callable] = None,
         _serve_with_session(global_cfg, cfg, ready)
         return None
     if task == "data_reader":
-        raise ConfigError(
-            "task = data_reader: not in the PyTorch port yet (ROADMAP "
-            "Queue A 2, the input data service)")
+        task_data_reader(global_cfg, sections, cfg)
+        return None
     raise ConfigError(f"unknown task {task!r}")
 
 
@@ -947,7 +1035,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         prog="cxxnet_tpu_torch",
         description="cxxnet task driver, PyTorch/CUDA port (task=train|"
                     "finetune|pred|pred_raw|extract|extract_feature|"
-                    "get_weight|serve)")
+                    "get_weight|serve|data_reader)")
     ap.add_argument("config", help="config file (key=value dialect)")
     ap.add_argument("overrides", nargs="*", help="key=value overrides")
     args = ap.parse_args(argv)

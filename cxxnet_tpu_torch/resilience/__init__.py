@@ -3,14 +3,15 @@
 * :mod:`.failpoints`: named, env/config-driven fault-injection sites;
 * :mod:`.sentinel`: :class:`TrainingSentinel`, the loss NaN / spike
   watchdog behind the round loop's rollback;
-* :mod:`.breaker`: :class:`CircuitBreaker` of the serve dispatch path.
+* :mod:`.breaker`: :class:`CircuitBreaker` of the serve dispatch path;
+* :mod:`.retry`: :func:`retry_call`, the full-jitter backoff of remote
+  streams and data-service fetches (``io.retries``).
 
 Plus the process-wide :data:`counters` (corrupt records skipped,
 checkpoint write failures, sentinel trips and rollbacks), a view over
 the telemetry registry: a dotted name ``ckpt.write_failures`` is the
 counter ``cxxnet_ckpt_write_failures_total`` in a ``/metrics`` scrape,
-and ``/statz`` shows them under ``counters``. The retry ladder of
-remote streams comes with them (ROADMAP Queue A 2).
+and ``/statz`` shows them under ``counters``.
 """
 
 from __future__ import annotations
@@ -71,9 +72,10 @@ counters = Counters()
 from . import failpoints                                    # noqa: E402
 from .breaker import CircuitBreaker, CircuitOpen            # noqa: E402
 from .failpoints import InjectedFault                       # noqa: E402
+from .retry import retry_call                               # noqa: E402
 from .sentinel import SentinelAbort, TrainingSentinel       # noqa: E402
 
 __all__ = [
-    "counters", "failpoints", "InjectedFault", "SentinelAbort",
-    "TrainingSentinel", "CircuitBreaker", "CircuitOpen",
+    "counters", "failpoints", "InjectedFault", "retry_call",
+    "SentinelAbort", "TrainingSentinel", "CircuitBreaker", "CircuitOpen",
 ]

@@ -28,11 +28,15 @@ Sites in the port:
 
 ====================  =====================================================
 ``ckpt.write``        checkpoint.save_model, before anything is written
-``io.write``          checkpoint.save_model, after the temp file is
+``io.open``           io.stream: every open (sopen, read_bytes, a remote
+                      write)
+``io.read``           io.stream: the read of a whole object (read_bytes)
+                      and every read() of a file sopen hands out while
+                      the site is armed
+``io.write``          io.stream.write_bytes_atomic: after the temp file is
                       written and before the rename (leaves a ``.tmp``
-                      orphan, which the resume scan sweeps)
-``io.open``           checkpoint reads and the record reader's open
-``io.read``           checkpoint reads, after the open
+                      orphan, which the resume scan sweeps); remote:
+                      before the put
 ``record.decode``     io.recordio.RecordReader, each record (a corrupt
                       record: skipped and counted as recordio.skipped)
 ``device.step``       trainer.Trainer.update, after the step (poisons
@@ -40,10 +44,14 @@ Sites in the port:
                       sentinel must catch and roll back)
 ``serve.infer``       serve.engine.InferenceEngine.run_padded (a failing
                       dispatch, what trips the serve breaker)
+``data.fetch``        data_service.client, each fetch attempt (retried,
+                      then failed over like a dead reader)
+``data.serve``        data_service.reader, each fetch request (answered
+                      with an error frame)
 ====================  =====================================================
 
-``data.fetch`` and ``data.serve`` come with the input data service
-(ROADMAP Queue A 2).
+While any ``io.*`` site is armed, local stream operations take the
+retry path of remote ones (``io.retries``), as in the JAX package.
 """
 
 from __future__ import annotations

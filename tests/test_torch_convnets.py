@@ -45,7 +45,6 @@ from cxxnet_tpu.io.data import create_iterator as jax_create_iterator
 from cxxnet_tpu.model import Network as JaxNetwork
 from cxxnet_tpu.trainer import Trainer as JaxTrainer
 from cxxnet_tpu_torch import main as port_main
-from cxxnet_tpu_torch.config import ConfigError
 from cxxnet_tpu_torch.convert import (opt_to_jax, params_from_jax,
                                       params_to_jax)
 from cxxnet_tpu_torch.graph import build_graph
@@ -91,10 +90,34 @@ def test_mnist_batches_are_bit_equal_to_the_jax_iterator(
                                        else (16, 8, 8, 1))
 
 
-def test_mnist_remote_paths_name_roadmap_a2():
-    with pytest.raises(ConfigError, match="ROADMAP Queue A 2"):
-        create_iterator([("iter", "mnist"), ("path_img", "gs://b/x.gz"),
-                         ("path_label", "gs://b/y.gz"), ("iter", "end")])
+def test_mnist_remote_paths_name_roadmap_a2(tmp_path):
+    """Remote mnist paths are read through the stream layer now (ROADMAP
+    Queue A 2 brought them): a pair on fsspec's ``memory://`` gives the
+    batches of the same files on disk."""
+    import fsspec
+    from cxxnet_tpu_torch.io import stream
+    rs = np.random.RandomState(0)
+    img = rs.randint(0, 256, (10, 4, 4)).astype(np.uint8)
+    lab = rs.randint(0, 10, 10).astype(np.uint8)
+    root = f"memory://convnets{os.getpid()}"
+    cfgs = []
+    for where in (root, str(tmp_path)):
+        for name, arr, magic in (("x", img, 2051), ("y", lab, 2049)):
+            raw = (np.int32(magic).byteswap().tobytes() + b"".join(
+                np.int32(d).byteswap().tobytes() for d in arr.shape)
+                + arr.tobytes())
+            stream.write_bytes_atomic(f"{where}/{name}", raw)
+        cfgs.append([("iter", "mnist"), ("path_img", f"{where}/x"),
+                     ("path_label", f"{where}/y"), ("batch_size", "4"),
+                     ("silent", "1"), ("iter", "end")])
+    try:
+        got, want = (list(create_iterator(c)) for c in cfgs)
+    finally:
+        fsspec.filesystem("memory").rm(root, recursive=True)
+    assert len(got) == len(want) == 3
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.data, b.data)
+        np.testing.assert_array_equal(a.label, b.label)
 
 
 # -- the narrow nets against the JAX trainer ----------------------------------

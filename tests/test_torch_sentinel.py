@@ -166,7 +166,7 @@ def test_a_checkpoint_write_fault_leaves_no_round(tmp_path, armed, site):
     with pytest.raises(IOError, match=site):
         _tiny_round(path)
     assert not os.path.exists(path)
-    orphans = [f for f in os.listdir(tmp_path) if f.endswith(".tmp")]
+    orphans = [f for f in os.listdir(tmp_path) if ".tmp." in f]
     assert len(orphans) == (1 if site == "io.write" else 0)
     _tiny_round(path)                     # disarmed: the write goes through
     assert os.path.exists(path)
@@ -177,14 +177,27 @@ def test_a_checkpoint_read_fault_raises_and_the_scan_skips(tmp_path, armed,
                                                             site):
     from cxxnet_tpu_torch import checkpoint as ckpt
     from cxxnet_tpu_torch.resilience import counters
+    from cxxnet_tpu_torch.io import stream
+    from cxxnet_tpu_torch.config import RetryPolicy
     _tiny_round(str(tmp_path / "0000.model"))
-    armed(f"{site}=once")
-    with pytest.raises(IOError, match=site):
-        ckpt.load_model(str(tmp_path / "0000.model"))
-    before = counters.get("ckpt.skipped_invalid")
-    armed(f"{site}=once")
-    assert ckpt.find_latest_valid(str(tmp_path)) is None
-    assert counters.get("ckpt.skipped_invalid") == before + 1
+    # the stream layer retries a read while an io.* site is armed, as in
+    # the JAX package: a fault that fires once costs one retry
+    stream.set_retry_policy(RetryPolicy(base_delay_s=0.0, max_delay_s=0.0))
+    try:
+        retries = counters.get("io.retries")
+        armed(f"{site}=once")
+        assert ckpt.load_model(str(tmp_path / "0000.model"))["meta"][
+            "round"] == 0
+        assert counters.get("io.retries") == retries + 1
+        # a fault that fires on every attempt raises, and the scan skips
+        armed(f"{site}=every:1")
+        with pytest.raises(IOError, match=site):
+            ckpt.load_model(str(tmp_path / "0000.model"))
+        before = counters.get("ckpt.skipped_invalid")
+        assert ckpt.find_latest_valid(str(tmp_path)) is None
+        assert counters.get("ckpt.skipped_invalid") == before + 1
+    finally:
+        stream.set_retry_policy(RetryPolicy())
 
 
 def test_record_decode_faults_skip_the_same_records(tmp_path, monkeypatch):

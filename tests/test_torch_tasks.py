@@ -51,7 +51,7 @@ from cxxnet_tpu.config import parse_config_string as jax_parse
 from cxxnet_tpu.graph import build_graph as jax_build_graph
 from cxxnet_tpu_torch import checkpoint as ckpt
 from cxxnet_tpu_torch import main as port_main
-from cxxnet_tpu_torch.config import ConfigError, parse_config_string
+from cxxnet_tpu_torch.config import parse_config_string
 from cxxnet_tpu_torch.convert import params_to_jax
 from cxxnet_tpu_torch.graph import build_graph
 from cxxnet_tpu_torch.model import Network
@@ -376,10 +376,20 @@ def test_errors_raise_with_the_jax_package_message(tmp_path, what):
 
 
 def test_a_remote_output_path_names_its_roadmap_item(tmp_path):
+    """Remote output paths are written through the stream layer now
+    (ROADMAP Queue A 2 brought them): ``pred`` to fsspec's ``memory://``
+    writes the bytes it writes to a local file."""
+    import fsspec
+    from cxxnet_tpu_torch.io import stream
     path = _write_round("mlp", "port", tmp_path / "models")
-    with pytest.raises(ConfigError, match="Queue A 2 \\(remote streams\\)"):
+    url = f"memory://tasks{os.getpid()}/pred.txt"
+    outs = []
+    for where in (url, str(tmp_path / "pred.txt")):
         _port(_text("mlp", tmp_path / "models"), task="pred",
-              model_in=path, name_pred="gs://bucket/pred.txt")
+              model_in=path, name_pred=where)
+        outs.append(stream.read_bytes(where))
+    fsspec.filesystem("memory").rm(url)
+    assert outs[0] == outs[1] and outs[0]
 
 
 @pytest.mark.parametrize("task", ["pred", "pred_raw", "extract",

@@ -47,8 +47,12 @@ train step with ``fused_kernels = 0``, compiled with excess precision off
   (``has_opt``) and from which the JAX trainer takes the same next step
   as the port (the float32 step tolerances above).
 * Training keys of features outside this slice raise ``ConfigError``
-  naming their ROADMAP item unless they hold their off value, as do
-  ``task = data_reader`` and an unknown task.
+  naming their ROADMAP item unless they hold their off value, as does
+  an unknown task; ``data_service`` and ``test_io`` train, and ``task =
+  data_reader`` without ``data_service`` raises the JAX package's
+  message. The iterator chains and keys of the input pipeline build;
+  ``attachtxt``, ``extra_data`` inputs and CMYK records raise naming
+  ROADMAP Queue A 2.
 """
 
 import functools
@@ -434,7 +438,6 @@ SWITCHED_ON = {
     "telemetry_hang_s": "120", "telemetry_trace_tail_pct": "5",
     "telemetry_straggler_factor": "3",
     "shard_ckpt": "1", "save_async": "1", "keep_last_n": "3",
-    "data_service": "127.0.0.1:9400", "test_io": "1",
     "model_parallel": "2", "seq_parallel": "2", "pipeline_parallel": "2",
     "elastic_dir": "/nowhere/elastic", "telemetry_storm_threshold": "4",
     "dist_coordinator": "10.0.0.1:1234", "dist_num_proc": "2",
@@ -460,19 +463,71 @@ def test_training_keys_outside_the_slice_name_their_roadmap_item(key):
            "pipeline_parallel": "1", "dist_num_proc": "1",
            **TELEMETRY_OFF}.get(
                key, "0" if key not in (
-                   "telemetry_fleet_dir", "data_service", "elastic_dir",
+                   "telemetry_fleet_dir", "elastic_dir",
                    "dist_coordinator") else "")
     Trainer(parse_config_string(base + f'{key} = "{off}"\n'))
 
 
+#: a synthetic train section of the narrow Inception-BN's input
+IBN_DATA = """
+data = train
+iter = synthetic
+  num_inst = 32
+  num_class = 10
+  input_shape = 3,64,64
+iter = end
+"""
+
+
 def test_task_data_reader_and_unknown_tasks_raise(tmp_path):
     conf = tmp_path / "ibn.conf"
-    conf.write_text(IBN_TEXT)
-    for task, msg in (("data_reader", "ROADMAP Queue A 2, the input data "
-                                      "service"),
-                      ("trian", "unknown task 'trian'")):
-        with pytest.raises(ConfigError, match=msg):
+    conf.write_text(IBN_TEXT + IBN_DATA)
+    for task, err, msg in (
+            ("data_reader", ValueError, "task=data_reader requires "
+                                        "data_service = host:port"),
+            ("trian", ConfigError, "unknown task 'trian'")):
+        with pytest.raises(err, match=msg):
             port_main.main([str(conf), "dev=cpu", f"task={task}"])
+
+
+#: a narrow net over synthetic rows, for the input service's keys
+MLP_TEXT = """
+data = train
+iter = synthetic
+  num_inst = 48
+  num_class = 3
+  input_shape = 1,1,6
+iter = end
+netconfig = start
+layer[+1:fc1] = fullc:fc1
+  nhidden = 3
+layer[+0] = softmax
+netconfig = end
+input_shape = 1,1,6
+batch_size = 16
+dev = cpu
+num_round = 1
+"""
+
+
+@pytest.mark.parametrize("key", ["data_service", "test_io"])
+def test_training_keys_of_the_input_service_train(tmp_path, capsys, key):
+    """``data_service = local`` trains a round over the service's stream
+    and writes it; ``test_io = 1`` draws the round's batches, prints
+    their rate and writes nothing."""
+    conf = tmp_path / "mlp.conf"
+    conf.write_text(MLP_TEXT)
+    extra = {"data_service": ["data_service=local", "data_service_shards=2"],
+             "test_io": ["test_io=1"]}[key]
+    port_main.main([str(conf), f"model_dir={tmp_path}/m", *extra])
+    out = capsys.readouterr().out
+    written = os.path.exists(tmp_path / "m" / "0000.model")
+    if key == "test_io":
+        assert re.search(r"round +0: test_io 48 images in ", out)
+        assert not written
+    else:
+        assert re.search(r"round +0:\[\d+ sec\]", out)
+        assert "test_io" not in out and written
 
 
 @pytest.mark.parametrize("name,width", [
@@ -524,9 +579,64 @@ def test_evaluate_scores_the_weights_just_trained():
     [("iter", "synthetic"), ("data_gen_seed", "3")],
     [("iter", "synthetic"), ("test_skipread", "1")],
 ], ids=["imgrec", "chain", "dist", "gen_seed", "skipread"])
-def test_iterators_outside_the_slice_name_roadmap_a2(pairs):
-    with pytest.raises(ConfigError, match="ROADMAP Queue A 2"):
-        create_iterator(pairs + [("iter", "end")])
+def test_iterators_of_the_input_pipeline_build_their_chains(tmp_path,
+                                                            pairs):
+    """The chains and keys refused before this slice: each builds and
+    reads an epoch (the pack is 4 PNG records)."""
+    from cxxnet_tpu_torch.io import close_chain
+    from cxxnet_tpu_torch.io.binpage import BinaryPageWriter
+    from torch_imgrec_fixture import image, png_bytes
+    rs = np.random.RandomState(0)
+    with BinaryPageWriter(str(tmp_path / "x.bin")) as w:
+        for _ in range(4):
+            w.push(png_bytes(image(rs, 12, 12)))
+    (tmp_path / "x.lst").write_text("".join(f"{i}\t{i % 2}\tx{i}.png\n"
+                                            for i in range(4)))
+    pairs = [(k, str(tmp_path / v) if k in ("image_bin", "image_list")
+              else v) for k, v in pairs]
+    it = create_iterator(pairs + [("num_inst", "8"), ("batch_size", "4"),
+                                  ("input_shape", "3,12,12"),
+                                  ("silent", "1"), ("iter", "end")])
+    try:
+        rows = [b.batch_size - b.num_batch_padd for b in it]
+    finally:
+        close_chain(it)
+    assert sum(rows) == (4 if pairs[0][1] == "imgrec" else
+                         (4 if ("dist_num_worker", "2") in pairs else 8))
+
+
+@pytest.mark.parametrize("case", ["attachtxt", "extra_data", "cmyk"])
+def test_iterators_outside_the_slice_name_roadmap_a2(tmp_path, case):
+    """What stays in ROADMAP Queue A 2: the ``attachtxt`` iterator, a net
+    with ``extra_data`` inputs, a CMYK JPEG record."""
+    from cxxnet_tpu_torch.io import close_chain
+    from cxxnet_tpu_torch.io import recordio as prec
+    import torch_jpeg_fixture as jfx
+    if case == "attachtxt":
+        with pytest.raises(ConfigError, match="ROADMAP Queue A 2"):
+            create_iterator([("iter", "synthetic"), ("iter", "attachtxt"),
+                             ("iter", "end")])
+    elif case == "extra_data":
+        text = MLP_TEXT.replace("input_shape = 1,1,6\nbatch",
+                                "input_shape = 1,1,6\nextra_data_num = 1"
+                                "\nextra_data_shape[0] = 1,1,2\nbatch")
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue A 2"):
+            Trainer(parse_config_string(text))
+    else:
+        path = str(tmp_path / "c.rec")
+        with prec.RecordWriter(path) as w:
+            w.write(prec.ImageRecord(inst_id=0, labels=np.float32([1]),
+                                     data=jfx.jpeg("cmyk_24x20")).pack())
+        it = create_iterator([("iter", "imgrec"), ("image_rec", path),
+                              ("input_shape", "3,16,16"), ("dev", "cpu"),
+                              ("device_normalize", "0"), ("silent", "1"),
+                              ("iter", "end")])
+        try:
+            with pytest.raises(NotImplementedError,
+                               match="ROADMAP Queue A 2"):
+                list(it)
+        finally:
+            close_chain(it)
 
 
 def _update_rels(after_a, after_b, before):
