@@ -6,6 +6,7 @@
     python3 chip_smoke.py --ab PARENT . . PARENT   # A/B of two checkouts
     python3 chip_smoke.py --phase telemetry        # the build and phase 19
     python3 chip_smoke.py --phase data_service     # the build and phase 20
+    python3 chip_smoke.py --phase grammar          # the build and phase 21
 
 With ``--ab``, only the kernels of the vectorised designs are timed, in
 each checkout root given, in turn, one process each (``bn_fwd`` at
@@ -263,10 +264,10 @@ and prints no result:
             from its array); the written round answers finite softmax
             rows. Between the runs, (c) nvJPEG against the libjpeg pixels
             of ``tests/torch_jpeg_fixture.py`` (grey, 4:4:4, 4:2:2,
-            4:2:0, progressive, restart intervals) within its
-            NVJPEG_BOUNDS, its CMYK file refused naming ROADMAP Queue A
-            2, and the fixture decoded on 8 threads at once bit-equal to
-            one thread. Before the phases' runs, with the other
+            4:2:0, progressive, restart intervals; its CMYK and YCCK
+            files against the JAX package's pixels, cv2's conversion of
+            libjpeg's CMYK) within its NVJPEG_BOUNDS, and the fixture
+            decoded on 8 threads at once bit-equal to one thread. Before the phases' runs, with the other
             kernels, ``stem`` is held bit-equal to its plain version at
             the path shape (128x224x224x3 to bf16, a mean image), with a
             per-channel mean to f32 and f16, without a mean at a factor
@@ -554,6 +555,39 @@ and prints no result:
             local, the readers' frames/s, the fetch latency p50/p99 cold
             and cached, beside the card's name and power limit. Run
             alone with ``--phase data_service``.
+21. grammar: run last (``phase_grammar``). (a) ``tiny_moe_lm.conf`` as
+            written (E 64, S 64, batch 64, 4 experts top-2, Adam, f32;
+            ``attn_impl = flash``, since its S 64 is under the 128 block
+            that ``auto`` wants for the flash path) one round of 32 steps
+            through ``main.run`` with the kernels, then with
+            ``fused_kernels = 0`` from the same init: finite losses;
+            per step ``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv`` 1
+            a mha layer and ``adam_apply`` 1 a tag group, every step,
+            and none under ``fused_kernels = 0``; each step's loss and
+            gradients with the kernels against the plain step from the
+            same state (LM_LOSS_TOL, LM_GRAD_TOL in f32), a step where a
+            token is routed otherwise counted and its gradients not held
+            when that token's first three gates lie within MOE_TIE (a
+            near-tie), failing otherwise; ``task = pred`` on the round.
+            (b) bowl.conf's net and sections with one EXTRA_DIM-wide
+            ``extra_data`` input concatenated after ``fl``, fed by
+            ``attachtxt`` (a side file lacking every fifth id) over
+            GRAMMAR_TRAIN + GRAMMAR_VAL 48x48 JPEG records, every
+            GRAMMAR_FOUR-th the fixture's CMYK or YCCK file (nvJPEG's
+            four planes): one round through ``main.run``, per step one
+            ``epilogue_fwd`` and ``epilogue_bwd`` a biased conv or fullc
+            and ``sgd_apply`` a tag group, no other kernel, each step
+            against ``fused_kernels = 0`` from the same state (phase 14's
+            bounds); nvJPEG on the CMYK and YCCK files within
+            NVJPEG_BOUNDS of their CPU pixels. (c) bias, prelu (with its
+            train-time noise), fixconn, maxout (conv and flat), pairtest
+            (conv against conv), a plugin layer and insanity_max_pooling's
+            training pick at AlexNet's node shapes (batch 256), f32 on
+            the card against the CPU with shared params, draws and
+            upstream gradient (GRAMMAR_ELEM_TOL, GRAMMAR_SUM_TOL,
+            GRAMMAR_PICK_SHARE). Printed: the phase's seconds, the MoE
+            and attachtxt train steps' ms, beside the card's name and
+            power limit. Run alone with ``--phase grammar``.
 
 Then, on lines of their own: the card's name and power limit as
 ``nvidia-smi`` reports them, the kernels JSON line, and last
@@ -5518,10 +5552,10 @@ def jpeg_fixture():
 
 
 def phase_nvjpeg() -> dict:
-    """nvJPEG against the fixture's libjpeg pixels, within its bounds
-    (``NVJPEG_BOUNDS``); CMYK raises naming ROADMAP Queue A 2; the
-    fixture decoded on DECODE_THREADS threads at once gives the pixels
-    one thread gives. Returns the readings by file."""
+    """nvJPEG against the fixture's pixels (libjpeg's; for the CMYK and
+    YCCK files the JAX package's), within its bounds (``NVJPEG_BOUNDS``);
+    the fixture decoded on DECODE_THREADS threads at once gives the
+    pixels one thread gives. Returns the readings by file."""
     import concurrent.futures as futures
     from cxxnet_tpu_torch.io.decode import decode_image
     jfx = jpeg_fixture()
@@ -5529,16 +5563,6 @@ def phase_nvjpeg() -> dict:
     rows, bad = {}, []
     for name in jfx.SPECS:
         data = jfx.jpeg(name)
-        if name.startswith("cmyk"):
-            try:
-                decode_image(data, 3, dev)
-            except NotImplementedError as e:
-                if "Queue A 2" not in str(e):
-                    bad.append(f"{name}: {e}")
-                rows[name] = "raises"
-            else:
-                bad.append(f"{name}: decoded, want a refusal")
-            continue
         for want in (3, 1):
             got = decode_image(data, want, dev)
             ref = jfx.pixels(name, want)
@@ -5550,7 +5574,7 @@ def phase_nvjpeg() -> dict:
                     bmean is not None and mean > bmean):
                 bad.append(f"{name} to {want}: max {mx} mean {mean:.4f} "
                            f"(bounds {bmax}, {bmean})")
-    names = [n for n in jfx.SPECS if not n.startswith("cmyk")] * 8
+    names = list(jfx.SPECS) * 8
     one = [decode_image(jfx.jpeg(n), 3, dev) for n in names]
     with futures.ThreadPoolExecutor(DECODE_THREADS) as ex:
         many = list(ex.map(lambda n: decode_image(jfx.jpeg(n), 3, dev),
@@ -5558,11 +5582,12 @@ def phase_nvjpeg() -> dict:
     if not all(np.array_equal(a, b) for a, b in zip(one, many)):
         bad.append(f"{DECODE_THREADS} threads at once differ from one")
     if bad:
-        raise AssertionError("nvJPEG against the fixture's libjpeg pixels: "
+        raise AssertionError("nvJPEG against the fixture's pixels: "
                              + "; ".join(bad))
     print(f"nvjpeg: {len(jfx.SPECS)} fixture files (grey, 4:4:4, 4:2:2, "
-          f"4:2:0, progressive, restart intervals, CMYK) against libjpeg's "
-          f"pixels, (max |d|, mean |d|) by file/channels: {rows} within "
+          f"4:2:0, progressive, restart intervals, CMYK, YCCK) against "
+          f"libjpeg's pixels (the JAX package's for CMYK and YCCK), (max "
+          f"|d|, mean |d|) by file/channels: {rows} within "
           f"{jfx.NVJPEG_BOUNDS} | {len(names)} decodes on "
           f"{DECODE_THREADS} threads at once bit-equal to one thread",
           flush=True)
@@ -8608,12 +8633,583 @@ def phase_data_service(conf: str, seed: int, tmp: str,
             "card": smi_line}
 
 
+
+# -- phase 21: the rest of the net grammar ------------------------------------
+
+MOE_CONF = os.path.join(ROOT, "examples", "LM", "tiny_moe_lm.conf")
+#: tiny_moe_lm.conf's S 64 is under attn_block's 128, where attn_impl =
+#: auto takes the reference attention: (a) asks for the flash path
+MOE_OVERRIDES = ("attn_impl=flash",)
+#: (a): a token whose first three gates lie closer than this may be routed
+#: otherwise by last-bit differences of the two runs; a step with such a
+#: flip is counted and its gradients are not held (the loss still is)
+MOE_TIE = 1e-5
+#: (b): bowl.conf's net with one EXTRA_DIM-wide extra_data input after
+#: fl, over GRAMMAR_TRAIN + GRAMMAR_VAL 48x48 JPEG records (GRAMMAR_UNIQUE
+#: distinct seeded images), every GRAMMAR_FOUR-th the fixture's 48x48
+#: CMYK or YCCK file in turn; the side file lacks every fifth id
+EXTRA_DIM = 16
+GRAMMAR_TRAIN, GRAMMAR_VAL, GRAMMAR_UNIQUE, GRAMMAR_FOUR = 512, 128, 64, 8
+#: (c): AlexNet's node shapes at its batch, (name, type, keys, NHWC input)
+ALEX_B = 256
+GRAMMAR_LAYERS = (
+    ("bias fc6", "bias", "  init_bias = 0.5", (ALEX_B, 1, 1, 4096)),
+    ("prelu pool1", "prelu", "  random = 0.3\n  random_slope = 1",
+     (ALEX_B, 27, 27, 96)),
+    ("fixconn fc7", "fixconn", "  weight_file = {wfile}",
+     (ALEX_B, 1, 1, 4096)),
+    ("maxout conv1", "maxout", "  num_piece = 2", (ALEX_B, 55, 55, 96)),
+    ("maxout fc6", "maxout", "  num_piece = 4", (ALEX_B, 1, 1, 4096)),
+    ("pairtest conv2", "pairtest-conv-conv",
+     "  nchannel = 256\n  kernel_size = 5\n  pad = 2\n  ngroup = 2",
+     (ALEX_B, 27, 27, 96)),
+    ("plugin pool2", "plugin", "  plugin_module = torch_plugin_layer\n"
+     "  plugin_layer = ScaleShift\n  init_scale = 0.5",
+     (ALEX_B, 13, 13, 256)),
+    ("insanity_max_pooling conv1", "insanity_max_pooling",
+     "  kernel_size = 3\n  stride = 2", (ALEX_B, 55, 55, 96)),
+)
+#: (c): f32 on the card against the CPU: max |d| over max |CPU| for the
+#: elementwise layers, rel L2 for the products (the sums' order); the
+#: pick's outputs that differ (a near-tie of the uniform draw and a cdf
+#: step, whose f32 sums may differ in the last bit) as a share of all
+GRAMMAR_ELEM_TOL, GRAMMAR_SUM_TOL, GRAMMAR_PICK_SHARE = 1e-6, 1e-5, 1e-5
+#: (c): a conv weight's gradient, card against CPU (rel L2): cuDNN's f32
+#: weight gradient of AlexNet's conv2 at batch 256 reads 5.13e-3 from the
+#: CPU's with TF32 off (phase 21 on an NVIDIA H100 80GB HBM3, 700.00 W;
+#: PERF.md section 7), where the input gradient reads 1e-6; so pairtest
+#: is also held bit-equal to its master conv alone on the card
+GRAMMAR_WGRAD_TOL = 1e-2
+
+
+def moe_cfg(seed: int, model_dir: str, extra=()):
+    """tiny_moe_lm.conf as written, its sections included, weights drawn
+    from ``seed``, the flash path asked for (MOE_OVERRIDES)."""
+    from cxxnet_tpu_torch.config import parse_cli_overrides, parse_config_file
+    return parse_config_file(MOE_CONF) + parse_cli_overrides([
+        "task=train", "num_round=1", f"model_dir={model_dir}",
+        "save_model=1", f"seed={seed}", *MOE_OVERRIDES, *extra])
+
+
+def _route_recorder(tr) -> list:
+    """Wrap the route of each moe layer of ``tr``'s network to record the
+    gates and the choices of each forward; returns the record list."""
+    rec = []
+    for layer in tr.net.layers:
+        if layer.spec.type != "moe":
+            continue
+        real = layer.route
+
+        def route(x, router, dp=None, _real=real):
+            gates, sel, aux = _real(x, router, dp)
+            rec.append((gates.detach(),
+                        [oh.detach().argmax(-1) for oh, _ in sel]))
+            return gates, sel, aux
+        layer.route = route
+    return rec
+
+
+def _tie_gaps(gates: torch.Tensor) -> torch.Tensor:
+    """Per token, the least gap between its first three gates."""
+    g = gates.float().topk(3, dim=-1).values
+    return (g[..., :-1] - g[..., 1:]).min(dim=-1).values
+
+
+def moe_step_check(kern, plain, snap, batch, epoch, rk, rp):
+    """One step's loss and gradients with the kernels and with
+    fused_kernels = 0 from the same state: (loss difference of max(1,
+    |loss|), per-leaf gradient rel L2 pairs, tokens routed otherwise, the
+    largest tie gap of those tokens)."""
+    got = []
+    for t, rec in ((kern, rk), (plain, rp)):
+        _load(t, snap, epoch)
+        rec.clear()
+        loss, _, _, grads = t.gradients(batch)
+        got.append((float(loss.detach()), grads))
+    (lk, gk), (lp, gp) = got
+    flips, gap = 0, 0.0
+    for (gk_, ck), (gp_, cp) in zip(rk, rp):
+        diff = torch.zeros_like(ck[0], dtype=torch.bool)
+        for a, b in zip(ck, cp):
+            diff |= a != b
+        if bool(diff.any()):
+            flips += int(diff.sum())
+            gap = max(gap, float(_tie_gaps(gp_)[diff].max()))
+    return abs(lk - lp) / max(1.0, abs(lp)), _grad_rels(gk, gp), flips, gap
+
+
+def grammar_moe(seed: int, tmp: str) -> dict:
+    """Phase 21 (a): tiny_moe_lm.conf trained one round through main.run
+    with the kernels and with fused_kernels = 0 from the same init, each
+    kernel step held against the plain step from the same state, then
+    ``task = pred`` on the round."""
+    from cxxnet_tpu_torch.config import parse_cli_overrides
+    from cxxnet_tpu_torch.main import run
+    from cxxnet_tpu_torch.ops import KERNELS, reset_launches
+    from cxxnet_tpu_torch.trainer import Trainer
+    runs = {}
+    for mode, extra in (("kernels", ()), ("plain", ("fused_kernels=0",))):
+        model_dir = os.path.join(tmp, f"moe_{mode}")
+        cfg = moe_cfg(seed, model_dir, extra)
+        box = {"losses": [], "before": [], "per_step": [], "batches": []}
+
+        def on_step(tr, box=box):
+            box["losses"].append(tr.last_loss)
+            box["per_step"].append({k: KERNELS[k].launches for k in KERNELS})
+            reset_launches()
+            box["before"].append(_snap(tr))
+
+        def ready(tr, box=box):
+            box["before"].append(_snap(tr))
+            tr.step_hook = on_step
+            update = tr.update
+
+            def keep(b):
+                box["batches"].append(getattr(b, "host", b))
+                update(b)
+            tr.update = keep
+            torch.cuda.synchronize()
+            reset_launches()              # just before the first step
+            box["t0"] = time.perf_counter()
+
+        tr = run(cfg, ready=ready)
+        torch.cuda.synchronize()
+        box["took"] = time.perf_counter() - box["t0"]
+        del tr.update
+        tr.step_hook = None
+        runs[mode] = (tr, box, cfg, model_dir)
+    tr, box, cfg, model_dir = runs["kernels"]
+    steps = len(box["losses"])
+    mha = [l for l in tr.net.layers if l.spec.type == "mha"]
+    moe = [l for l in tr.net.layers if l.spec.type == "moe"]
+    groups = len(tr.optimizer._groups(tr.params))
+    want = {"flash_fwd": len(mha), "flash_bwd_dq": len(mha),
+            "flash_bwd_dkv": len(mha), "adam_apply": groups}
+    if steps != 32 or not mha or not moe or moe[0].topk != 2:
+        raise AssertionError(f"moe: {steps} steps, {len(mha)} mha, "
+                             f"{len(moe)} moe layers")
+    for i, n in enumerate(box["per_step"]):
+        check_launches(f"moe step {i + 1}", n, want, {})
+    plain_box = runs["plain"][1]
+    ran = {k: v for n in plain_box["per_step"] for k, v in n.items() if v}
+    if ran:
+        raise AssertionError(f"moe: fused_kernels = 0 launched {ran}")
+    for mode in runs:
+        if not all(np.isfinite(runs[mode][1]["losses"])):
+            raise AssertionError(f"moe {mode}: non-finite loss "
+                                 f"{runs[mode][1]['losses']}")
+    drift = max(abs(a - b) for a, b in zip(box["losses"],
+                                           plain_box["losses"]))
+    # each kernel step against the plain step from the same state
+    glob = [kv for kv in runs["plain"][0].cfg if kv[0] != "fused_kernels"]
+    quiet = [("silent", "1")]
+    kern = Trainer(glob + quiet)
+    plain = Trainer(glob + quiet + [("fused_kernels", "0")])
+    rk, rp = _route_recorder(kern), _route_recorder(plain)
+    rows, fails = [], []
+    for i, b in enumerate(box["batches"]):
+        dl, rels, flips, gap = moe_step_check(kern, plain, box["before"][i],
+                                              b, i, rk, rp)
+        rows.append((dl, float(np.median([r for r, _ in rels])), max(rels),
+                     flips, gap))
+        if dl > LM_LOSS_TOL["float32"]:
+            fails.append(f"step {i + 1} loss {dl:.3g}")
+        if flips and gap >= MOE_TIE:
+            fails.append(f"step {i + 1}: {flips} tokens routed otherwise, "
+                         f"tie gap {gap:.3g} >= {MOE_TIE}")
+        if not flips and max(rels)[0] > LM_GRAD_TOL["float32"]:
+            fails.append(f"step {i + 1} gradient {max(rels)}")
+    if fails:
+        raise AssertionError(
+            f"moe: kernels vs fused_kernels=0 from the same state (tol loss "
+            f"{LM_LOSS_TOL['float32']}, gradient {LM_GRAD_TOL['float32']}, "
+            f"tie {MOE_TIE}): {fails}")
+    del kern, plain
+    step_ms = time_forward(lambda: tr.update(box["batches"][0]), reps=10)
+    # task = pred on the round
+    pred = os.path.join(tmp, "moe_pred.txt")
+    t0 = time.perf_counter()
+    run([kv for kv in cfg if kv[0] not in ("task", "num_round")]
+        + parse_cli_overrides(["task=pred", f"name_pred={pred}",
+                               f"model_in={model_dir}/0000.model"]))
+    pred_s = time.perf_counter() - t0
+    ids = np.loadtxt(pred, ndmin=1)
+    n_rows = int(dict(glob)["batch_size"]) * steps
+    S, V = 64, 32
+    if ids.shape != (n_rows,) or not np.all((ids >= 0) & (ids < S * V)) \
+            or not np.array_equal(ids, np.rint(ids)):
+        raise AssertionError(f"moe pred: {ids.shape} rows, want {n_rows} "
+                             f"ids in [0, {S * V})")
+    flipped = [i + 1 for i, r in enumerate(rows) if r[3]]
+    worst = max(rows, key=lambda r: r[2][0])
+    print(f"grammar (a) moe: {steps} steps of {os.path.relpath(MOE_CONF, ROOT)}"
+          f" as written (E 64, 4 heads, S 64, batch 64, 4 experts top-2, "
+          f"Adam, f32, {' '.join(MOE_OVERRIDES)}) through main.run with the "
+          f"kernels in {box['took']:.1f}s and with fused_kernels = 0 in "
+          f"{plain_box['took']:.1f}s from the same init | losses "
+          f"{box['losses'][0]:.4f} -> {box['losses'][-1]:.4f}, the runs "
+          f"apart by {drift:.3g} at most | launches per step {want}, every "
+          f"step | vs fused_kernels=0 from the same state, worst of "
+          f"{steps} steps: loss {max(r[0] for r in rows):.2g}, gradient "
+          f"rel L2 {worst[2][0]:.2g} ({worst[2][1]}), median "
+          f"{max(r[1] for r in rows):.2g} (tol {LM_LOSS_TOL['float32']}, "
+          f"{LM_GRAD_TOL['float32']}); steps with a near-tie flip "
+          f"{flipped} | train step {step_ms:.3f} ms | task=pred over "
+          f"{n_rows} rows in {pred_s:.1f}s", flush=True)
+    return {"losses": box["losses"], "plain_losses": plain_box["losses"],
+            "drift": drift, "checks": rows, "launches_per_step": want,
+            "step_ms": step_ms, "seconds": box["took"],
+            "plain_seconds": plain_box["took"], "pred_seconds": pred_s,
+            "flip_steps": flipped}
+
+
+def grammar_records(tmp: str, seed: int):
+    """(b)'s record files and side file: seeded 48x48 quality-90 JPEGs,
+    every GRAMMAR_FOUR-th record the fixture's 48x48 CMYK or YCCK file
+    in turn. Returns (paths, side file, the four-component files)."""
+    from cxxnet_tpu_torch.io.recordio import ImageRecord, RecordWriter
+    jfx = jpeg_fixture()
+    four = {n: jfx.jpeg(n) for n in ("cmyk_48x48", "ycck_48x48")}
+    rng = np.random.RandomState(seed)
+    paths = {}
+    for name, n in (("train", GRAMMAR_TRAIN), ("val", GRAMMAR_VAL)):
+        enc = [jpeg_encode(img, JPEG_QUALITY) for img in
+               seeded_images(rng, GRAMMAR_UNIQUE, BOWL_SIDE)]
+        labels = rng.randint(0, BOWL_CLASSES, n)
+        paths[name] = os.path.join(tmp, f"{name}.grammar.rec")
+        with RecordWriter(paths[name]) as w:
+            for i, lab in enumerate(labels):
+                k = i // GRAMMAR_FOUR
+                data = (list(four.values())[k % 2]
+                        if i % GRAMMAR_FOUR == GRAMMAR_FOUR - 1
+                        else enc[i % len(enc)])
+                w.write(ImageRecord(inst_id=i, labels=np.float32([lab]),
+                                    data=data).pack())
+            w.write_index(paths[name])
+    side = os.path.join(tmp, "side.txt")
+    feats = rng.randn(GRAMMAR_TRAIN, EXTRA_DIM).astype(np.float32)
+    with open(side, "w") as f:
+        f.write(f"{EXTRA_DIM}\n")
+        for i in range(GRAMMAR_TRAIN):
+            if i % 5 != 4:
+                f.write(" ".join([str(i)] + [repr(float(v))
+                                             for v in feats[i]]) + "\n")
+    return paths, side, four
+
+
+def grammar_bowl_cfg(paths, side: str, mean: str, model_dir: str, extra=()):
+    """bowl.conf as written, its sections' records and mean rewritten,
+    ``attachtxt`` over ``side`` before each threadbuffer, and one
+    EXTRA_DIM-wide extra_data input concatenated after ``fl``."""
+    out = [("extra_data_num", "1"),
+           ("extra_data_shape[0]", f"1,1,{EXTRA_DIM}")]
+    for k, v in imgrec_cfg(BOWL_CONF, paths, mean, model_dir, extra):
+        if (k, v) == ("iter", "threadbuffer"):
+            out += [("iter", "attachtxt"), ("filename", side)]
+        if (k, v) == ("layer[+1]", "flatten:fl"):
+            out += [("layer[+1:flo]", "flatten:fl"),
+                    ("layer[flo,in_1->flx]", "concat:flx")]
+            continue
+        out.append((k, v))
+    return out
+
+
+def grammar_bowl(seed: int, tmp: str, extra=()) -> dict:
+    """Phase 21 (b): bowl.conf's net with an extra_data input fed by
+    attachtxt over JPEG records (CMYK and YCCK among them), one round
+    through main.run, each step against fused_kernels = 0."""
+    from cxxnet_tpu_torch.config import split_sections
+    from cxxnet_tpu_torch.io.decode import decode_image
+    from cxxnet_tpu_torch.main import run
+    from cxxnet_tpu_torch.ops import KERNELS, reset_launches
+    from cxxnet_tpu_torch.trainer import Trainer
+    tmp = os.path.join(tmp, "grammar_bowl")
+    os.makedirs(tmp, exist_ok=True)
+    t0 = time.perf_counter()
+    paths, side, four = grammar_records(tmp, seed)
+    t_write = time.perf_counter() - t0
+    model_dir = os.path.join(tmp, "models")
+    cfg = grammar_bowl_cfg(paths, side, os.path.join(tmp, "mean.bin"),
+                           model_dir, extra)
+    glob, _ = split_sections(cfg)
+    batch = int(dict(glob)["batch_size"])
+    steps = GRAMMAR_TRAIN // batch
+    counted = ("epilogue_fwd", "epilogue_bwd", "sgd_apply")
+    box = {"losses": [], "before": [], "batches": [], "per_step": []}
+
+    def on_step(tr):
+        box["losses"].append(tr.last_loss)
+        box["per_step"].append({k: KERNELS[k].launches for k in KERNELS})
+        reset_launches()
+        box["before"].append(_snap(tr))
+
+    def ready(tr):
+        box["before"].append(_snap(tr))
+        tr.step_hook = on_step
+        update = tr.update
+
+        def keep(b):
+            box["batches"].append(getattr(b, "host", b))
+            update(b)
+        tr.update = keep
+        torch.cuda.synchronize()
+        reset_launches()                  # just before the first step
+        box["t0"] = time.perf_counter()
+
+    tr = run(cfg, ready=ready)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - box["t0"]
+    del tr.update
+    tr.step_hook = None
+    batches, losses = box["batches"], box["losses"]
+    if len(losses) != steps:
+        raise AssertionError(f"grammar bowl: {len(losses)} steps, want "
+                             f"{steps}")
+    ex = [b.extra_data for b in batches]
+    if any(len(e) != 1 or e[0].shape != (batch, 1, 1, EXTRA_DIM)
+           for e in ex):
+        raise AssertionError("grammar bowl: each batch must carry one "
+                             f"(batch, 1, 1, {EXTRA_DIM}) side array")
+    zero_rows = sum(int((~b.extra_data[0].any(axis=(1, 2, 3))).sum())
+                    for b in batches)
+    if zero_rows == 0:
+        raise AssertionError("grammar bowl: no missing id joined as zeros")
+    biased = sum(1 for layer in tr.net.layers
+                 if layer.spec.type in ("conv", "fullc")
+                 and not layer.hp.no_bias)
+    want = {"epilogue_fwd": biased, "epilogue_bwd": biased,
+            "sgd_apply": len(tr.optimizer._groups(tr.params))}
+    others = {}
+    for i, n in enumerate(box["per_step"]):
+        check_launches(f"grammar bowl step {i + 1}", n, want, {})
+        others.update({k: v for k, v in n.items()
+                       if k not in counted and v})
+    if others:
+        raise AssertionError(f"grammar bowl: other kernels launched {others}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"grammar bowl: non-finite loss {losses}")
+    dt = dict(glob).get("compute_dtype", "float32")
+    quiet = [("silent", "1")]
+    kern = Trainer(glob + quiet)
+    plain = Trainer(glob + quiet + [("fused_kernels", "0")])
+    rows = []
+    for i, b in enumerate(batches):
+        dl, rels, spread = convnet_step_check(kern, plain, box["before"][i],
+                                              b, i, dt)
+        rows.append((dl, float(np.median([r for r, _ in rels])), max(rels),
+                     spread))
+    fails = [f"step {i + 1}: {r}" for i, r in enumerate(rows)
+             if r[0] > CONVNET_LOSS_TOL[dt] or r[1] > CONVNET_GRAD_TOL[dt][0]
+             or r[2][0] > CONVNET_GRAD_TOL[dt][1]]
+    if fails:
+        raise AssertionError(f"grammar bowl: kernels vs fused_kernels=0 "
+                             f"from the same state (tol loss "
+                             f"{CONVNET_LOSS_TOL[dt]}, gradient "
+                             f"{CONVNET_GRAD_TOL[dt]}): {fails}")
+    del kern, plain
+    step_ms = time_forward(lambda: tr.update(batches[0]), reps=10)
+    # the records' four-component files through nvJPEG, against the
+    # fixture's CPU pixels
+    jfx = jpeg_fixture()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    nv = {}
+    for name, data in four.items():
+        for w in (3, 1):
+            got = decode_image(data, w, dev)
+            d = np.abs(got.astype(np.int32)
+                       - jfx.pixels(name, w).astype(np.int32))
+            bmax, bmean = jfx.bound_of(name, w)
+            nv[f"{name}/{w}"] = (int(d.max()), round(float(d.mean()), 4))
+            if d.max() > bmax or (bmean is not None and d.mean() > bmean):
+                raise AssertionError(f"grammar bowl: nvJPEG on {name} to {w}"
+                                     f": {nv[f'{name}/{w}']} over {bmax}, "
+                                     f"{bmean}")
+    fmt = [(f"{dl:.2g}", f"{md:.2g}", f"{w[0]:.2g}") for dl, md, w, _ in rows]
+    print(f"grammar (b) attachtxt: {steps} steps of "
+          f"{os.path.relpath(BOWL_CONF, ROOT)}'s net and sections with an "
+          f"extra_data input ({EXTRA_DIM} features by attachtxt, "
+          f"concatenated after fl; {zero_rows} rows of missing ids zero) "
+          f"over {GRAMMAR_TRAIN} + {GRAMMAR_VAL} JPEG records of 48x48 (every "
+          f"{GRAMMAR_FOUR}th CMYK or YCCK), written in {t_write:.1f}s, "
+          f"through main.run in {took:.1f}s | losses "
+          f"{[round(v, 4) for v in losses]} | launches per step {want} "
+          f"(each step, no other kernel) | vs fused_kernels=0 from the same "
+          f"state (loss diff, gradient rel L2 median, worst leaf): {fmt} "
+          f"(tol {CONVNET_LOSS_TOL[dt]}, {CONVNET_GRAD_TOL[dt]}) | nvJPEG on "
+          f"the CMYK and YCCK records vs the CPU pixels (max, mean |d|): "
+          f"{nv} | train step {step_ms:.3f} ms", flush=True)
+    return {"losses": losses, "checks": rows, "launches_per_step": want,
+            "nvjpeg_four": nv, "step_ms": step_ms, "seconds": took,
+            "write_seconds": t_write, "zero_rows": zero_rows}
+
+
+class SharedDraws:
+    """Uniform draws made on the CPU from one seed and moved to the
+    device asked for: the card's layer and the CPU's draw the same
+    numbers."""
+
+    def __init__(self, seed: int, device):
+        self.seed, self.device = seed, torch.device(device)
+
+    def uniform(self, shape, dtype):
+        g = torch.Generator().manual_seed(self.seed)
+        return torch.rand(tuple(shape), generator=g).to(self.device, dtype)
+
+    def keep_mask(self, shape, pkeep):
+        return self.uniform(shape, torch.float32) < pkeep
+
+
+def grammar_layer_case(name, kind, keys, shape, seed, wfile,
+                       devices=("cuda", "cpu")):
+    """One layer of (c) on the card and on the CPU (``devices``) from the
+    same params, input, draws and upstream gradient, f32: (output, input
+    gradient, parameter gradients) of each, as CPU tensors, by device;
+    a pairtest's params are its master's and slave's."""
+    from cxxnet_tpu_torch.config import parse_config_string
+    from cxxnet_tpu_torch.graph import build_graph
+    from cxxnet_tpu_torch.layers import ApplyCtx
+    from cxxnet_tpu_torch.model import Network
+    b, y, x, c = shape
+    in_shape = f"1,1,{c}" if y == x == 1 else f"{c},{y},{x}"
+    text = (f"netconfig = start\nlayer[in->o] = {kind}:ly\n"
+            f"{keys.format(wfile=wfile)}\nnetconfig = end\n"
+            f"input_shape = {in_shape}\n")
+    g = torch.Generator().manual_seed(seed)
+    xs = torch.randn(shape, generator=g)
+    out = {}
+    for dev in devices:
+        cfg = parse_config_string(text + ("dev = cpu\n" if dev == "cpu"
+                                          else ""))
+        net = Network(build_graph(cfg), cfg)
+        layer = net.layers[0]
+        # a conv alone draws what a pairtest's master draws
+        params, _ = net.init(torch.Generator().manual_seed(seed + 1))
+        flat = []
+
+        def place(t):
+            if isinstance(t, dict):
+                return {k: place(v) for k, v in t.items()}
+            t = t.to(dev).requires_grad_(True)
+            flat.append(t)
+            return t
+        lp = place(params.get("ly", {}))
+        xt = xs.to(dev).requires_grad_(True)
+        (yv,) = layer.forward(layer.cast_params(lp, torch.float32), {}, [xt],
+                              ApplyCtx(compute_dtype=torch.float32,
+                                       train=True, state_sink={},
+                                       fused=dev == "cuda",
+                                       draws=SharedDraws(seed + 2, dev)))
+        dy = torch.randn(yv.shape, generator=torch.Generator().manual_seed(
+            seed + 3)).to(dev)
+        # pairtest's slave params do not reach the output: zeros
+        grads = torch.autograd.grad(yv, [xt] + flat, dy, allow_unused=True)
+        out[dev] = (yv.detach().cpu(),
+                    [torch.zeros(t.shape) if gr is None else gr.cpu()
+                     for t, gr in zip([xt] + flat, grads)])
+    return out
+
+
+def _elem_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30))
+
+
+def grammar_layers(seed: int, tmp: str) -> dict:
+    """Phase 21 (c): each new layer type and insanity_max_pooling's
+    training pick at AlexNet's node shapes (batch 256), f32 on the card
+    against the CPU, shared params, draws and upstream gradient."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # one cuDNN algorithm for a conv's weight gradient (some add with
+    # atomics): the pairtest and its master alone then agree bit for bit
+    torch.backends.cudnn.deterministic = True
+    tests = os.path.join(ROOT, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)            # torch_plugin_layer
+    wfile = os.path.join(tmp, "fixconn.txt")
+    w = np.random.RandomState(seed).randn(4096, 16).astype(np.float32)
+    with open(wfile, "w") as f:
+        f.write("4096 16 " + " ".join(repr(float(v)) for v in w.ravel())
+                + "\n")
+    rows, fails = {}, []
+    try:
+        for i, (name, kind, keys, shape) in enumerate(GRAMMAR_LAYERS):
+            t0 = time.perf_counter()
+            r = grammar_layer_case(name, kind, keys, shape, seed + 10 * i,
+                                   wfile)
+            (yc, gc), (yh, gh) = r["cuda"], r["cpu"]
+            if kind == "insanity_max_pooling":
+                share = float((yc != yh).float().mean())
+                dx_share = float((gc[0] != gh[0]).float().mean())
+                rows[name] = {"pick_share": share, "dx_share": dx_share}
+                if share > GRAMMAR_PICK_SHARE or dx_share > 9 * \
+                        GRAMMAR_PICK_SHARE:
+                    fails.append(f"{name}: {rows[name]}")
+            else:
+                products = kind in ("fixconn", "pairtest-conv-conv")
+                err = (lambda a, b: _rel(a, b)) if products else _elem_err
+                tol = GRAMMAR_SUM_TOL if products else GRAMMAR_ELEM_TOL
+                errs = [err(yc, yh)] + [err(a, b) for a, b in zip(gc, gh)]
+                tols = [tol] * len(errs)
+                if kind == "pairtest-conv-conv":
+                    # the master's wmat gradient is cuDNN's weight gradient
+                    tols[2] = GRAMMAR_WGRAD_TOL
+                    alone = grammar_layer_case(
+                        name, "conv", keys, shape, seed + 10 * i, wfile,
+                        devices=("cuda",))["cuda"]
+                    same = bool(torch.equal(alone[0], yc)) and all(
+                        torch.equal(a, b) for a, b in zip(alone[1], gc))
+                    rows[name] = {"master_alone_equal": same}
+                    if not same:
+                        fails.append(f"{name}: differs from its master conv "
+                                     "alone on the card")
+                rows.setdefault(name, {})["errs"] = [f"{e:.3g}" for e in errs]
+                bad = [(e, t) for e, t in zip(errs, tols) if e > t]
+                if bad:
+                    fails.append(f"{name}: {errs} (tol {tols})")
+            rows[name]["seconds"] = round(time.perf_counter() - t0, 2)
+            torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = prev
+    if fails:
+        raise AssertionError(f"grammar layers, card vs CPU in f32: {fails}")
+    print(f"grammar (c) layers at AlexNet's node shapes (batch {ALEX_B}), "
+          f"f32 card vs CPU, output and every gradient (tol elementwise "
+          f"{GRAMMAR_ELEM_TOL} of max|CPU|, products rel L2 "
+          f"{GRAMMAR_SUM_TOL}, a conv weight's gradient "
+          f"{GRAMMAR_WGRAD_TOL}, picks that differ {GRAMMAR_PICK_SHARE}): "
+          f"{rows}", flush=True)
+    return rows
+
+
+def phase_grammar(conf: str, seed: int, tmp: str, smi_line: str) -> dict:
+    """Phase 21: (a) experts, (b) attachtxt / extra_data with CMYK and
+    YCCK records, (c) the remaining layers (module docstring)."""
+    t0 = time.perf_counter()
+    moe = grammar_moe(seed, tmp)
+    torch.cuda.empty_cache()
+    bowl = grammar_bowl(seed, tmp)
+    torch.cuda.empty_cache()
+    layers = grammar_layers(seed, tmp)
+    took = time.perf_counter() - t0
+    print(f"grammar: phase 21 in {took:.1f}s | MoE step {moe['step_ms']:.3f}"
+          f" ms, attachtxt net step {bowl['step_ms']:.3f} ms | {smi_line}",
+          flush=True)
+    return {"moe": moe, "attachtxt": bowl, "layers": layers,
+            "seconds": took}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--conf", default=FLAGSHIP)
     ap.add_argument("--json", default="", help="also write the results here")
-    ap.add_argument("--phase", choices=("telemetry", "data_service"),
+    ap.add_argument("--phase", choices=("telemetry", "data_service",
+                                        "grammar"),
                     help="run the build and this phase only")
     ap.add_argument("--ab", nargs="+", metavar="TREE",
                     help="only time the vectorised BN, epilogue, LRN, "
@@ -8640,7 +9236,8 @@ def main(argv=None) -> int:
     mark("build")
     if args.phase:
         phase = {"telemetry": phase_telemetry,
-                 "data_service": phase_data_service}[args.phase]
+                 "data_service": phase_data_service,
+                 "grammar": phase_grammar}[args.phase]
         with tempfile.TemporaryDirectory() as tmp:
             phase(args.conf, args.seed, tmp, smi_line)
         print(smi_line, flush=True)
@@ -8761,6 +9358,10 @@ def main(argv=None) -> int:
         data_service = phase_data_service(args.conf, args.seed, tmp,
                                           smi_line)
     mark("data_service")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        grammar = phase_grammar(args.conf, args.seed, tmp, smi_line)
+    mark("grammar")
     source["stem"] = (imgrec_times, imgrec_launches)
     kernels = []
     for name, k in KERNELS.items():
@@ -8823,6 +9424,7 @@ def main(argv=None) -> int:
               "rest": rest,
               "telemetry": telemetry,
               "data_service": data_service,
+              "grammar": grammar,
               "phase_seconds": {b[0]: b[1] - a[1]
                                 for a, b in zip(marks, marks[1:])},
               "card": smi_line, "seconds": time.perf_counter() - t_start}

@@ -17,8 +17,9 @@ pixel. ``status`` is ``ok`` (a batch follows), ``eos`` (the addressed
 shard has fewer batches this epoch) or ``error`` (the ``error`` field
 says why; the client takes it as a dead reader and fails over). A
 batch's deferred normalization rides along: its scalars in the
-header's ``norm``, a mean image as the ``norm_mean`` payload. Stdlib and
-numpy only.
+header's ``norm``, a mean image as the ``norm_mean`` payload, and its
+``extra_data`` arrays as the ``extra_0``, ``extra_1``, ... payloads.
+Stdlib and numpy only.
 """
 
 from __future__ import annotations
@@ -81,6 +82,8 @@ def pack_batch(db: DataBatch, **meta: Any) -> bytes:
         ("data", db.data), ("label", db.label)]
     if db.inst_index is not None:
         arrays.append(("inst_index", np.asarray(db.inst_index)))
+    for i, extra in enumerate(db.extra_data):
+        arrays.append((f"extra_{i}", np.asarray(extra)))
     if db.norm is not None:
         norm = dict(db.norm)
         mean = norm.get("mean")
@@ -103,16 +106,13 @@ def batch_from(header: Dict[str, Any],
                arrays: Dict[str, np.ndarray]) -> DataBatch:
     """The batch an ``ok`` frame carries. A malformed frame raises
     :class:`WireError`, which the client's failover takes like a dead
-    reader. ``extra_data`` payloads (``extra_<i>``, from a JAX reader
-    serving ``attachtxt`` inputs) raise: the port has no ``extra_data``
-    inputs yet (ROADMAP Queue A 2)."""
+    reader. The ``extra_<i>`` payloads are ``extra_data`` in order."""
     if "data" not in arrays or "label" not in arrays:
         raise WireError("frame lacks data/label payloads")
-    if "extra_0" in arrays:
-        raise WireError("frame carries extra_data payloads, which the "
-                        "PyTorch port does not train on yet (ROADMAP "
-                        "Queue A 2)")
     try:
+        extra = []
+        while f"extra_{len(extra)}" in arrays:
+            extra.append(arrays[f"extra_{len(extra)}"])
         norm = header.get("norm")
         if norm is not None:
             norm = dict(norm)
@@ -124,7 +124,8 @@ def batch_from(header: Dict[str, Any],
         return DataBatch(
             data=arrays["data"], label=arrays["label"],
             num_batch_padd=int(header.get("num_batch_padd", 0)),
-            inst_index=arrays.get("inst_index"), norm=norm)
+            inst_index=arrays.get("inst_index"), extra_data=extra,
+            norm=norm)
     except (KeyError, TypeError, ValueError) as e:
         raise WireError(f"malformed batch frame: {e}")
 

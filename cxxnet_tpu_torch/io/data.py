@@ -5,20 +5,19 @@ Batches are host numpy arrays in NHWC (flat nodes (n, 1, 1, k));
 partial batch, which the losses mask and the metrics skip. A
 ``device_normalize`` pipeline (imgrec) ships uint8 batches with their
 deferred normalization in ``norm``; the trainer applies it on the card.
+``extra_data`` holds the values of a net's extra input nodes (``in_1``
+and on, ``extra_data_num``), which ``attachtxt`` joins to a batch by
+instance id.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Type
+from typing import Dict, List, Optional, Type
 
 import numpy as np
 
 from ..config import ConfigError, ConfigPairs
-
-#: what the port's input pipeline raises on names this ROADMAP item
-#: (``attachtxt`` and ``extra_data`` inputs, CMYK and YCCK JPEGs)
-A2 = "ROADMAP Queue A 2, the input pipeline"
 
 
 @dataclasses.dataclass
@@ -27,6 +26,8 @@ class DataBatch:
     label: np.ndarray                     # (batch, label_width) float32
     num_batch_padd: int = 0               # trailing rows that are padding
     inst_index: Optional[np.ndarray] = None  # (batch,) instance ids
+    # the extra input nodes' values, (batch, y, x, c) each
+    extra_data: List[np.ndarray] = dataclasses.field(default_factory=list)
     # device_normalize = 1 pipelines: data is uint8 and this carries the
     # deferred normalization {"mean": (c,) | (y, x, c) | None,
     # "divideby": f, "scale": f} for the trainer to apply on the card
@@ -106,7 +107,7 @@ def dist_slice(n: int, nworker: int, rank: int) -> slice:
 ITER_REGISTRY: Dict[str, Type[DataIter]] = {}
 
 #: iterators that wrap the one before them in a chain (``base``)
-WRAPPERS = ("threadbuffer", "throttle", "membuffer")
+WRAPPERS = ("threadbuffer", "throttle", "membuffer", "attachtxt")
 
 
 def register_iter(*names: str):
@@ -172,8 +173,9 @@ def create_iterator(cfg: ConfigPairs) -> DataIter:
     wraps the whole chain in :class:`SkipReadIterator`. The port reads
     the sources ``synthetic``, ``synthetic_lm``, ``mnist``, ``csv``,
     ``imgrec`` (and its ``imgbin`` aliases) and ``img``, wrapped by
-    ``threadbuffer``, ``throttle`` and ``membuffer``; ``attachtxt`` (it
-    feeds ``extra_data`` inputs) raises naming ROADMAP Queue A 2."""
+    ``threadbuffer``, ``throttle``, ``membuffer`` and ``attachtxt``
+    (which feeds ``extra_data`` inputs); a source in a wrapper's place
+    or a wrapper first raises."""
     from . import iter_img, iter_imgrec, iter_mnist, proc  # noqa: F401
     kinds = [v for k, v in cfg if k == "iter" and v != "end"]
     params = [(k, v) for k, v in cfg if k != "iter"]
@@ -182,10 +184,10 @@ def create_iterator(cfg: ConfigPairs) -> DataIter:
     for i, kind in enumerate(kinds):
         if kind not in ITER_REGISTRY or (i > 0) != (kind in WRAPPERS):
             raise ConfigError(
-                f"iter = {kind} (chain {kinds}): the PyTorch port reads "
-                "the sources synthetic, synthetic_lm, mnist, csv, imgrec "
-                "and img, wrapped by threadbuffer, throttle and membuffer,"
-                f" so far ({A2})")
+                f"iter = {kind} (chain {kinds}): a chain is one of the "
+                "sources synthetic, synthetic_lm, mnist, csv, imgrec and "
+                "img, wrapped by threadbuffer, throttle, membuffer and "
+                "attachtxt")
     it = None
     for kind in kinds:
         cls = ITER_REGISTRY[kind]

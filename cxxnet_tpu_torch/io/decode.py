@@ -37,11 +37,19 @@ card.
     :func:`jpeg_planes`, :func:`planes_to_rgb`), so the card's pixels
     differ from libjpeg's only by the IDCT's rounding.
 
+  A four-component file (CMYK, or YCCK by its Adobe marker) comes out as
+  the JAX package gives it: its native decoder asks libjpeg for RGB,
+  which libjpeg refuses for four components, so cv2 answers, decoding to
+  libjpeg's CMYK and converting by OpenCV's subtractive formula. libjpeg
+  here decodes to CMYK and ``jpeg_color.h`` applies that formula; on the
+  card nvJPEG gives the four planes as stored (``NVJPEG_OUTPUT_UNCHANGED``)
+  and ``jpeg_color.h`` upsamples them, converts YCCK, and applies it
+  (:func:`decode_jpeg_planar4` is that half over libjpeg's planes).
+
   Neither route falls back to the other: a failure to build, load or
-  decode raises, with nvJPEG's status on the card. CMYK and YCCK files
-  raise on both routes, naming ROADMAP Queue A 2 (the JAX package
-  decodes them through cv2).
-* Anything else raises.
+  decode raises, with nvJPEG's status on the card.
+* Anything else raises (the JAX package hands other formats to cv2, which
+  the card's machine does not have).
 """
 
 from __future__ import annotations
@@ -55,8 +63,6 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
-
-from .data import A2
 
 PNG_SIG = b"\x89PNG\r\n\x1a\n"
 JPEG_SOI = b"\xff\xd8"
@@ -276,6 +282,9 @@ def _jpeg():
             lib.cxn_jpeg_planes.argtypes = [
                 ctypes.c_char_p, ctypes.c_long, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+            lib.cxn_jpeg_decode4_planar.restype = ctypes.c_int
+            lib.cxn_jpeg_decode4_planar.argtypes = \
+                lib.cxn_jpeg_decode.argtypes
             lib.cxn_jpeg_planes_to_rgb.restype = None
             lib.cxn_jpeg_planes_to_rgb.argtypes = [ctypes.c_void_p] * 3 + [
                 ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -285,22 +294,32 @@ def _jpeg():
 
 def decode_jpeg(data: bytes, want_channels: int = 3) -> np.ndarray:
     """JPEG bytes -> (h, w, want_channels) uint8 through libjpeg
-    (``want_channels`` 3 or 1)."""
+    (``want_channels`` 3 or 1); a CMYK or YCCK file through libjpeg's
+    CMYK and OpenCV's conversion."""
+    return _libjpeg_decode("cxn_jpeg_decode", data, want_channels)
+
+
+def decode_jpeg_planar4(data: bytes, want_channels: int = 3) -> np.ndarray:
+    """A CMYK or YCCK JPEG decoded the way the card finishes nvJPEG's
+    planes: libjpeg's four raw planes through ``jpeg_color.h``
+    (upsampling, YCCK -> CMYK, OpenCV's conversion). The tests hold it
+    bit-equal to :func:`decode_jpeg`."""
+    return _libjpeg_decode("cxn_jpeg_decode4_planar", data, want_channels)
+
+
+def _libjpeg_decode(fn: str, data: bytes, want_channels: int) -> np.ndarray:
     lib = _jpeg()
     h, w, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     if lib.cxn_jpeg_dims(data, len(data), ctypes.byref(h), ctypes.byref(w),
                          ctypes.byref(c)) != 0:
         raise ValueError("JPEG: cannot read the header")
-    if c.value not in (1, 3):
-        raise NotImplementedError(
-            f"JPEG with {c.value} components (CMYK or YCCK): the port "
-            f"decodes gray and YCbCr files only ({A2})")
     out = np.empty((h.value, w.value, want_channels), np.uint8)
-    rc = lib.cxn_jpeg_decode(data, len(data), want_channels,
-                             out.ctypes.data_as(ctypes.c_void_p),
-                             h.value, w.value)
+    rc = getattr(lib, fn)(data, len(data), want_channels,
+                          out.ctypes.data_as(ctypes.c_void_p),
+                          h.value, w.value)
     if rc != 0:
-        raise ValueError(f"JPEG: decode failed ({rc})")
+        raise ValueError(f"JPEG: decode failed ({rc}, {c.value} "
+                         "components)")
     return out
 
 
@@ -418,9 +437,10 @@ class NvJpeg:
         if rc == 0:
             return
         if rc == _NV_COMPONENTS:
-            raise NotImplementedError(
-                "JPEG with 4 components (CMYK or YCCK): the port's nvJPEG "
-                f"route decodes gray and YCbCr files only ({A2})")
+            raise ValueError(
+                "JPEG: nvJPEG's route decodes files of 1, 3 or 4 components "
+                "whose planes are full size or halved (2x1, 2x2), not this "
+                "one")
         if rc == _NV_SHAPE:
             raise ValueError("JPEG: nvJPEG's dims differ from the header's")
         if rc >= _NV_CUDA_ERROR:
@@ -510,4 +530,4 @@ def decode_image(data: bytes, want_channels: int = 3,
         return decode_jpeg(data, want_channels)
     raise NotImplementedError(
         f"image format with magic {data[:8]!r}: the port decodes PNG and "
-        f"JPEG only ({A2})")
+        "JPEG files only (the JAX package hands other formats to cv2)")

@@ -1,4 +1,5 @@
-"""The image-file iterator ``img`` (the port of ``cxxnet_tpu/io/iter_img.py``).
+"""The image-file iterator ``img`` and the side-feature join ``attachtxt``
+(the port of ``cxxnet_tpu/io/iter_img.py``).
 
 It reads an image list (``image_list`` / ``path_imglist``: ``index<TAB>
 label...<TAB>relative/path`` per line) and loads each file from
@@ -16,11 +17,18 @@ it. The epoch's last batch repeats its last image, marked as padding.
 Batches are normalized float32 (no ``device_normalize`` path, as in the
 JAX package). The list and the files are read through the stream layer
 (local paths or ``scheme://`` URLs).
+
+``attachtxt`` wraps a chain whose batches carry ``inst_index`` and adds
+one ``extra_data`` array, ``(batch, 1, 1, dim)`` float32, of the rows of
+its ``filename`` (``dim``, then ``id f1 .. fdim`` rows, whitespace
+separated, read through the stream layer) joined on the instance id; an
+id the file lacks gets zeros.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as futures
+import dataclasses
 import os
 from typing import Optional
 
@@ -147,3 +155,55 @@ class ImageIterator(DataIter):
         """Shut the decode pool down."""
         if self._pool is not None:
             self._pool.shutdown(wait=True)
+
+
+@register_iter("attachtxt")
+class AttachTxtIterator(DataIter):
+    """Joins per-instance side features into ``batch.extra_data`` by id
+    (appended after the arrays the batch already carries). A base batch
+    without ``inst_index`` raises. The batch is a new object: the base's
+    is not changed (the JAX iterator appends to the base batch's list, so
+    under a wrapper that serves one batch object again, ``membuffer`` or
+    ``test_skipread``, its list grows an array an epoch)."""
+
+    def set_param(self, name, val):
+        if name == "filename":
+            self.filename = val
+
+    def __init__(self, cfg, base: DataIter):
+        self.filename = ""
+        self.base = base
+        super().__init__(cfg)
+
+    def init(self):
+        if not self.filename:
+            raise ValueError("attachtxt: filename must be set")
+        toks = stream.read_bytes(self.filename).decode().split()
+        self.dim = int(toks[0])
+        self.table = {}
+        pos = 1
+        while pos < len(toks):
+            inst_id = int(toks[pos])
+            feat = np.asarray([float(t) for t in
+                               toks[pos + 1:pos + 1 + self.dim]], np.float32)
+            if feat.shape[0] != self.dim:
+                raise ValueError(
+                    "attachtxt: data do not match dimension specified")
+            self.table[inst_id] = feat
+            pos += 1 + self.dim
+
+    def before_first(self):
+        self.base.before_first()
+
+    def next(self) -> Optional[DataBatch]:
+        b = self.base.next()
+        if b is None:
+            return None
+        if b.inst_index is None:
+            raise ValueError("attachtxt: base iterator yields no inst_index")
+        extra = np.zeros((b.batch_size, 1, 1, self.dim), np.float32)
+        for row, inst_id in enumerate(np.asarray(b.inst_index)):
+            feat = self.table.get(int(inst_id))
+            if feat is not None:
+                extra[row, 0, 0, :] = feat
+        return dataclasses.replace(b, extra_data=list(b.extra_data) + [extra])

@@ -246,6 +246,14 @@ class Layer:
         """Hook to give a loaded leaf its memory layout (conv weights)."""
         return t
 
+    def cast_params(self, lp: Params, dtype: torch.dtype) -> Params:
+        """The layer's params as its forward takes them: the compute
+        leaves cast to ``dtype`` (float ones only: an int8 ``wmat`` stays
+        int8) and every leaf laid out by :meth:`place_leaf`."""
+        return {k: self.place_leaf(
+            k, v.to(dtype) if k in self.compute_leaves
+            and v.is_floating_point() else v) for k, v in lp.items()}
+
     def quant_shapes(self) -> Dict[str, Tuple[int, ...]]:
         """Shapes of the leaves a PTQ-derived round adds to this layer's
         parameters beside its int8 ``wmat`` (``wmat_scale`` per output

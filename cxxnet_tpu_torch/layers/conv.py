@@ -207,20 +207,46 @@ class AvgPoolingLayer(_PoolingLayer):
     scale_avg = True
 
 
-@register_layer("relu_max_pooling", "insanity_max_pooling")
+@register_layer("relu_max_pooling")
 class ReluMaxPoolingLayer(_PoolingLayer):
-    """Max pooling over relu'd inputs; also insanity_max_pooling, whose
-    eval forward this is (its random cell pick is train-only)."""
+    """Max pooling over relu'd inputs."""
     reducer = "max"
     pre_relu = True
 
+
+@register_layer("insanity_max_pooling")
+class InsanityPoolingLayer(ReluMaxPoolingLayer):
+    """Stochastic pooling: in training each window of the relu'd input
+    gives one of its cells, picked with probability proportional to its
+    value (uniform over a window of zeros) by a uniform draw of shape
+    ``(b, oy, ox, 1, c)`` in the node's dtype from ``ctx.draws``, the
+    JAX layer's arithmetic step for step (the cumulative sum of the
+    probabilities, the count of those the draw exceeds); at eval, max
+    pooling over relu. The gradient reaches the picked cells only."""
+
     def forward(self, params, state, inputs, ctx):
-        if ctx.train and self.spec.type == "insanity_max_pooling":
-            raise NotImplementedError(
-                f"insanity_max_pooling {self.name!r}: its training forward "
-                "(a random cell pick) is not in the PyTorch port yet "
-                "(ROADMAP Queue A 6, remaining layers)")
-        return super().forward(params, state, inputs, ctx)
+        if not ctx.train:
+            return super().forward(params, state, inputs, ctx)
+        hp = self.hp
+        x = torch.relu(inputs[0])
+        b = x.shape[0]
+        c = x.shape[3]
+        kh, kw, s = hp.kernel_height, hp.kernel_width, hp.stride
+        oy, _ = _pool_geometry(x.shape[1], kh, s, hp.pad_y)
+        ox, _ = _pool_geometry(x.shape[2], kw, s, hp.pad_x)
+        xp = F.pad(x, (0, 0, hp.pad_x, hp.pad_x + self._extra_x,
+                       hp.pad_y, hp.pad_y + self._extra_y))
+        cells = torch.stack(
+            [xp[:, dy:dy + oy * s:s, dx:dx + ox * s:s, :]
+             for dy in range(kh) for dx in range(kw)], dim=3)
+        total = cells.sum(dim=3, keepdim=True)
+        probs = torch.where(total > 0, cells / total.clamp_min(1e-12),
+                            const_like(1.0 / (kh * kw), cells))
+        u = ctx.draw_source(self.name).uniform((b, oy, ox, 1, c), x.dtype)
+        cdf = torch.cumsum(probs, dim=3)
+        idx = (u > cdf).to(torch.int32).sum(dim=3, keepdim=True)
+        idx = idx.clamp(0, kh * kw - 1).long()
+        return [torch.gather(cells, 3, idx)[:, :, :, 0, :]]
 
 
 @register_layer("lrn")

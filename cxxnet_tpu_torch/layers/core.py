@@ -1,6 +1,6 @@
 """Core (non-conv) layers: fullc, activations (xelu and the randomized
-insanity among them), flatten, dropout, split, concat (the port of
-``cxxnet_tpu/layers/core.py``). Their training forwards are
+insanity among them), flatten, dropout, split, concat, bias, prelu,
+fixconn and maxout (the port of ``cxxnet_tpu/layers/core.py``). Their training forwards are
 differentiated by PyTorch autograd; the fullc epilogue's backward is the
 epilogue kernel's (``ops/fused_epilogue.BiasAct``).
 
@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import List
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -303,3 +304,158 @@ class ConcatLayer(_ConcatBase):
 @register_layer("ch_concat")
 class ChConcatLayer(_ConcatBase):
     channel_concat = True
+
+
+@register_layer("bias")
+class BiasLayer(Layer):
+    """Per-feature additive bias of a flat node (its ``bias`` leaf f32,
+    so a bf16 node comes out f32, as JAX's type promotion gives)."""
+    has_params = True
+
+    def infer_shapes(self, in_shapes):
+        self.check_n(in_shapes, 1, 1)
+        if not is_flat(in_shapes[0]):
+            raise ValueError("bias layer requires a flat input node")
+        self._n = in_shapes[0][2]
+        return [in_shapes[0]]
+
+    def init_params(self, generator, in_shapes):
+        return {"bias": torch.full((self._n,), self.hp.init_bias,
+                                   device=generator.device)}
+
+    def forward(self, params, state, inputs, ctx):
+        return [inputs[0] + params["bias"]]
+
+
+@register_layer("prelu")
+class PReluLayer(Layer):
+    """Learnable per-channel negative slope, kept under ``bias`` (so it
+    takes the bias group's lr and wd), clipped to [0, 1]: ``where(x > 0,
+    x, x * slope)``. With ``random = r`` a training forward multiplies
+    the slope by ``1 + 2 r u - r``, ``u`` uniform of the node's shape and
+    dtype from ``ctx.draws``. The f32 slope makes a bf16 node f32, as in
+    the JAX package."""
+    has_params = True
+
+    def set_param(self, name, val):
+        if name == "init_slope":
+            self.init_slope = float(val)
+        elif name == "random_slope":
+            self.init_random = int(val)
+        elif name == "random":
+            self.random_noise = float(val)
+
+    def __init__(self, spec, global_cfg):
+        self.init_slope = 0.25
+        self.init_random = 0
+        self.random_noise = 0.0
+        super().__init__(spec, global_cfg)
+
+    def infer_shapes(self, in_shapes):
+        self.check_n(in_shapes, 1, 1)
+        s = in_shapes[0]
+        self._channel = s[2] if is_flat(s) else s[0]
+        return [s]
+
+    def init_params(self, generator, in_shapes):
+        dev = generator.device
+        if self.init_random:
+            slope = torch.rand((self._channel,), generator=generator,
+                               device=dev) * self.init_slope
+        else:
+            slope = torch.full((self._channel,), self.init_slope, device=dev)
+        return {"bias": slope}
+
+    def forward(self, params, state, inputs, ctx):
+        x = inputs[0]
+        slope = params["bias"]
+        if ctx.train and self.random_noise > 0:
+            r = self.random_noise
+            u = ctx.draw_source(self.name).uniform(x.shape, x.dtype)
+            mask = slope * (const_like(1.0, u) + u * const_like(r, u)
+                            * const_like(2.0, u) - const_like(r, u))
+        else:
+            mask = slope.expand(x.shape)
+        mask = mask.clamp(0.0, 1.0)
+        return [torch.where(x > 0, x, x * mask)]
+
+
+@register_layer("fixconn")
+class FixConnectLayer(Layer):
+    """A fixed (not learned) connection matrix read from ``weight_file``
+    at shape inference: ``rows cols`` then the row-major entries,
+    whitespace separated (or a plain 2-D text table). The matrix is a
+    buffer of the layer, copied to a node's device at its first use;
+    ``y = x @ W`` in float32 at least (a bf16 node comes out f32, as
+    JAX's promotion of the dot gives)."""
+
+    def set_param(self, name, val):
+        if name == "weight_file":
+            self.weight_file = val
+
+    def __init__(self, spec, global_cfg):
+        self.weight_file = ""
+        self._on: dict = {}
+        super().__init__(spec, global_cfg)
+
+    def infer_shapes(self, in_shapes):
+        import io as _io
+        from ..io.stream import read_bytes
+        self.check_n(in_shapes, 1, 1)
+        if not self.weight_file:
+            raise ValueError("fixconn: weight_file must be set")
+        data = np.loadtxt(_io.BytesIO(read_bytes(self.weight_file)),
+                          dtype=np.float32)
+        if data.ndim == 1:
+            rows, cols = int(data[0]), int(data[1])
+            data = data[2:].reshape(rows, cols)
+        self._wmat = np.ascontiguousarray(data)
+        self._on = {}
+        if flat_size(in_shapes[0]) != self._wmat.shape[0]:
+            raise ValueError(
+                f"fixconn: input size {flat_size(in_shapes[0])} does not "
+                f"match weight rows {self._wmat.shape[0]}")
+        return [(1, 1, int(self._wmat.shape[1]))]
+
+    def forward(self, params, state, inputs, ctx):
+        x = _flat2d(inputs[0])
+        w = self._on.get(x.device)
+        if w is None:
+            w = self._on[x.device] = torch.from_numpy(self._wmat).to(
+                x.device)
+        dt = torch.promote_types(x.dtype, torch.float32)
+        return [_as_node(torch.matmul(x.to(dt), w.to(dt)))]
+
+
+@register_layer("maxout")
+class MaxoutLayer(Layer):
+    """Maxout: the channels (conv nodes, NHWC) or features (flat nodes)
+    split into groups of ``num_piece`` consecutive ones, the output the
+    max of each group. The backward shares a tie's gradient evenly among
+    the tied elements, as JAX's max does."""
+
+    def set_param(self, name, val):
+        if name == "num_piece":
+            self.num_piece = int(val)
+
+    def __init__(self, spec, global_cfg):
+        self.num_piece = 2
+        super().__init__(spec, global_cfg)
+
+    def infer_shapes(self, in_shapes):
+        self.check_n(in_shapes, 1, 1)
+        c, y, x = in_shapes[0]
+        feat = x if is_flat(in_shapes[0]) else c
+        if self.num_piece < 1 or feat % self.num_piece:
+            raise ValueError(
+                f"maxout: channel/feature count {feat} not divisible by "
+                f"num_piece {self.num_piece}")
+        if is_flat(in_shapes[0]):
+            return [(1, 1, x // self.num_piece)]
+        return [(c // self.num_piece, y, x)]
+
+    def forward(self, params, state, inputs, ctx):
+        x = inputs[0]
+        k = self.num_piece
+        return [torch.amax(x.reshape(x.shape[:-1] + (x.shape[-1] // k, k)),
+                           dim=-1)]

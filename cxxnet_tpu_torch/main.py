@@ -624,7 +624,9 @@ The telemetry ``session``'s pieces run in it: the step-time probe
                     data=np.array(batch.data), label=np.array(batch.label),
                     num_batch_padd=batch.num_batch_padd,
                     inst_index=None if batch.inst_index is None
-                    else np.array(batch.inst_index), norm=batch.norm))
+                    else np.array(batch.inst_index),
+                    extra_data=[np.array(e) for e in batch.extra_data],
+                    norm=batch.norm))
                 pending_rows += real_rows
                 if len(pending) < chain:
                     continue

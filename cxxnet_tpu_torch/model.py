@@ -12,6 +12,10 @@ weights OIHW (``convert.params_from_jax``). Shared layers
 (``share[tag]``) reuse the primary layer's object and parameters. The
 input node holds images (NHWC) or, for sequence models, token ids as
 floats in a flat ``(batch, 1, 1, S)`` node, which ``embed`` reads.
+Nodes ``1..extra_data_num`` (``in_1``, ...) hold the batch's
+``extra_data`` arrays, shaped by ``extra_data_shape[i]``. In training a
+layer's ``_aux_loss`` state (moe's load-balance loss) joins the
+objective, as the JAX package adds it.
 With ``remat = 1`` the training pass wraps each layer that has
 parameters in ``torch.utils.checkpoint`` (the JAX package's
 ``jax.checkpoint``): its forward runs again in the backward. Layers that
@@ -38,7 +42,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import threading
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -76,10 +80,6 @@ class Network(nn.Module):
         self.graph = graph
         if graph.input_shape is None:
             raise ValueError("input_shape must be set")
-        if graph.extra_data_num:
-            raise NotImplementedError(
-                "extra_data inputs are not in the PyTorch port yet "
-                "(ROADMAP Queue A 2)")
         self.policy: Policy = policy_from_config(cfg)
         self.compute_dtype = self.policy.compute_dtype
         self.fused_mode = resolve_mode(
@@ -100,6 +100,8 @@ class Network(nn.Module):
         # shape inference over the DAG
         self.node_shapes: List[Optional[Shape3]] = [None] * graph.num_nodes
         self.node_shapes[0] = graph.input_shape
+        for i in range(graph.extra_data_num):
+            self.node_shapes[1 + i] = graph.extra_shapes[i]
         for spec, layer in zip(graph.layers, self.layers):
             in_shapes = []
             for ni in spec.nindex_in:
@@ -261,11 +263,7 @@ class Network(nn.Module):
             lp = params.get(layer.name)
             if lp is None or layer.name in tree:
                 continue
-            tree[layer.name] = {
-                k: layer.place_leaf(
-                    k, v.to(dtype) if k in layer.compute_leaves
-                    and v.is_floating_point() else v)
-                for k, v in lp.items()}
+            tree[layer.name] = layer.cast_params(lp, dtype)
         return tree
 
     def weights_for(self, dtype: torch.dtype) -> Params:
@@ -291,21 +289,37 @@ class Network(nn.Module):
               ctx_fields: Dict[str, Any],
               label: Optional[torch.Tensor] = None,
               mask: Optional[torch.Tensor] = None,
-              draws: Optional[Callable[[int], Any]] = None):
+              draws: Optional[Callable[[int], Any]] = None,
+              extra_data: Sequence[torch.Tensor] = ()):
         """The one walk of :meth:`forward` and :meth:`apply`: each layer
         over its input nodes with its leaves of ``params`` (already cast)
         and an ``ApplyCtx(**ctx_fields)`` carrying the act-fold plan and,
-        given ``draws``, ``draws(layer index)``. Returns the node values
-        and the f32 sum of the loss layers' losses (0 without a
-        label)."""
+        given ``draws``, ``draws(layer index)``. ``extra_data`` are the
+        values of the nodes ``1..extra_data_num`` (``in_1..``). Returns
+        the node values and the f32 sum of the training objective: the
+        loss layers' losses (0 without a label) and, in training, the
+        ``_aux_loss`` a layer writes to its state (the moe load-balance
+        loss; divided by the world under dp, whose ranks' losses the
+        trainer sums), in layer order."""
         g = self.graph
         want = to_nhwc(g.input_shape, data.shape[0])
         if tuple(data.shape) != want:
             raise ValueError(f"input shape {tuple(data.shape)} != {want}")
+        if len(extra_data) != g.extra_data_num:
+            raise ValueError(f"the net takes {g.extra_data_num} extra_data "
+                             f"input(s), got {len(extra_data)}")
         nodes: List[Optional[torch.Tensor]] = [None] * g.num_nodes
         nodes[0] = data
+        for i, ed in enumerate(extra_data):
+            want = to_nhwc(g.extra_shapes[i], data.shape[0])
+            if tuple(ed.shape) != want:
+                raise ValueError(f"extra_data[{i}] shape {tuple(ed.shape)} "
+                                 f"!= {want}")
+            nodes[1 + i] = ed
         loss = torch.zeros((), dtype=torch.float32, device=data.device)
         batch = None if self.dp is None else data.shape[0] * self.dp.world
+        sink = ctx_fields.get("state_sink")
+        train = ctx_fields.get("train", False)
         for li, (spec, layer) in enumerate(zip(g.layers, self.layers)):
             if li in self._act_folded:
                 # relu folded into its producer (graph.act_fusion_plan)
@@ -324,6 +338,11 @@ class Network(nn.Module):
                 outputs = run(*inputs)
             for ni, out in zip(spec.nindex_out, outputs):
                 nodes[ni] = out
+            aux = (sink.get(layer.name, {}).get("_aux_loss")
+                   if train and sink is not None else None)
+            if aux is not None:
+                loss = loss + (aux if self.dp is None
+                               else aux / self.dp.world)
             if layer.is_loss and label is not None:
                 a, b = g.label_slice(layer.target)
                 loss = loss + layer.loss(outputs, label[:, a:b].float(),
@@ -343,9 +362,11 @@ class Network(nn.Module):
     def forward(self, data: torch.Tensor, capture_nodes: bool = False,
                 compute_dtype: Optional[torch.dtype] = None,
                 fused: Optional[bool] = None,
-                calib_sink: Optional[Dict] = None) -> ForwardResult:
+                calib_sink: Optional[Dict] = None,
+                extra_data: Sequence[torch.Tensor] = ()) -> ForwardResult:
         """One eval pass. ``data`` is NHWC (batch, y, x, c) or flat
-        (batch, 1, 1, n) on the network's device. ``compute_dtype``
+        (batch, 1, 1, n) on the network's device, ``extra_data`` the
+        values of the extra input nodes. ``compute_dtype``
         overrides the policy's for this call (the serve engine's
         ``serve_dtype``); ``fused`` overrides the kernel selection;
         ``calib_sink`` switches batch_norm layers to calibration
@@ -356,7 +377,8 @@ class Network(nn.Module):
             params, state, data,
             dict(compute_dtype=cdt,
                  fused=self.fused if fused is None else fused,
-                 calib_sink=calib_sink, dp=self.dp))
+                 calib_sink=calib_sink, dp=self.dp),
+            extra_data=extra_data)
         node_map = None
         if capture_nodes:
             node_map = {name: nodes[i]
@@ -369,16 +391,20 @@ class Network(nn.Module):
               label: Optional[torch.Tensor] = None,
               mask: Optional[torch.Tensor] = None, train: bool = False,
               capture_nodes: bool = False, step: int = 0,
-              draws: Optional[Callable[[int], Any]] = None):
+              draws: Optional[Callable[[int], Any]] = None,
+              extra_data: Sequence[torch.Tensor] = ()):
         """One differentiable pass (the JAX package's ``Network.apply``):
         returns ``(loss, new_state, nodes)``. ``params`` are the f32
         masters (leaves that may require grad); each layer casts its
         compute leaves to the compute dtype inside the graph. ``label``
-        is (batch, label_width) float32 and ``mask`` (batch,) marks real
-        rows (None = all). ``loss`` is the f32 sum of the loss layers'
-        losses (0 without a label); ``new_state`` is ``state`` with the
+        is (batch, label_width) float32, ``mask`` (batch,) marks real
+        rows (None = all) and ``extra_data`` holds the extra input
+        nodes' values. ``loss`` is the f32 sum of the loss layers'
+        losses (0 without a label) and, in training, the layers'
+        ``_aux_loss``; ``new_state`` is ``state`` with the
         training updates of layers that keep state (batch_norm's
-        running statistics and insanity's step counter, no grad);
+        running statistics, insanity's step counter, moe's ``_aux_loss``
+        and pairtest's ``diff``, no grad);
         ``nodes`` maps node names to values: every node with
         ``capture_nodes``, else the last one. In training each layer draws
         from ``Draws(seed, step, layer index)`` (under dp this rank's rows
@@ -395,9 +421,9 @@ class Network(nn.Module):
             self._cast_tree(params, self.compute_dtype), state, data,
             dict(compute_dtype=self.compute_dtype, fused=self.fused,
                  train=train, state_sink=sink, dp=self.dp), label, mask,
-            draws)
+            draws, extra_data)
         new_state = {l: dict(d) for l, d in state.items()}
-        new_state.update(sink)
+        new_state.update({l: _detached(d) for l, d in sink.items()})
         top = self._top()
         node_map = {name: nodes[i]
                     for i, name in enumerate(self.graph.node_names)
@@ -408,6 +434,13 @@ class Network(nn.Module):
         """Name of the last layer's output node (the metrics' default)."""
         g = self.graph
         return g.node_names[g.layers[-1].nindex_out[0] if g.layers else 0]
+
+
+def _detached(tree):
+    """A state tree with every tensor detached from autograd."""
+    if isinstance(tree, dict):
+        return {k: _detached(v) for k, v in tree.items()}
+    return tree.detach()
 
 
 def calibrate_bn(net: Network, data: torch.Tensor) -> NetState:

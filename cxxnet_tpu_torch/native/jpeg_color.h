@@ -14,6 +14,16 @@
 // rounding. decode.cc exports the same code over libjpeg's own planes, which
 // is how the CPU tests hold it bit-equal to libjpeg's RGB.
 //
+// Four-component files (CMYK, or YCCK: Adobe transform 2) come out as the
+// JAX package gives them: its libjpeg call asks for RGB, which libjpeg
+// refuses for four components, so it falls through to cv2, which decodes to
+// libjpeg's JCS_CMYK (YCCK converted by jdcolor.c's ycck_cmyk_convert, the
+// planes upsampled as above) and then applies OpenCV's subtractive
+// conversion (imgcodecs' icvCvt_CMYK2BGR_8u_C4C3R and _CMYK2Gray_8u_C4C1R):
+// cmyk_to_pixels. planes4_to_cmyk is libjpeg's half over four raw planes
+// (nvJPEG's NVJPEG_OUTPUT_UNCHANGED on the card), adobe_transform the
+// marker that tells CMYK from YCCK.
+//
 // Header only, plain C++; included by decode.cc and nvjpeg.cc.
 
 #ifndef CXXNET_TPU_TORCH_NATIVE_JPEG_COLOR_H_
@@ -138,6 +148,78 @@ inline void planes_to_rgb(const uint8_t* y, int y_pitch, const uint8_t* cb,
   upsample(cb, cw, ch, c_pitch, hf, vf, cbp.data(), w, h);
   upsample(cr, cw, ch, c_pitch, hf, vf, crp.data(), w, h);
   ycc_to_rgb(yp.data(), cbp.data(), crp.data(), static_cast<long>(n), out);
+}
+
+// The transform flag of a JPEG's Adobe APP14 marker (0: RGB or CMYK, 1:
+// YCbCr, 2: YCCK), or -1 without one; markers are read up to the first SOS.
+// libjpeg takes a four-component file as YCCK when the flag is not 0 and as
+// CMYK when it is 0 or there is no marker (jdapimin.c).
+inline int adobe_transform(const uint8_t* buf, long len) {
+  long pos = 2;                                    // after SOI
+  while (pos + 4 <= len) {
+    if (buf[pos] != 0xFF) return -1;
+    const int marker = buf[pos + 1];
+    if (marker == 0xFF) { ++pos; continue; }       // fill byte
+    if (marker == 0xDA || marker == 0xD9) return -1;   // SOS, EOI
+    const long seg = (static_cast<long>(buf[pos + 2]) << 8) | buf[pos + 3];
+    if (seg < 2 || pos + 2 + seg > len) return -1;
+    const uint8_t* d = buf + pos + 4;
+    if (marker == 0xEE && seg >= 14 && d[0] == 'A' && d[1] == 'd' &&
+        d[2] == 'o' && d[3] == 'b' && d[4] == 'e')
+      return d[11];
+    pos += 2 + seg;
+  }
+  return -1;
+}
+
+// Interleaved CMYK (w x h x 4) from the four planes of a four-component
+// JPEG as stored: plane i is pw[i] x ph[i] with row pitch pitch[i],
+// subsampled by hf[i] x vf[i] (each 1 or 2, vf 2 only with hf 2), each
+// upsampled as libjpeg does; a YCCK file's first three planes are Y, Cb,
+// Cr, turned into C, M, Y as libjpeg's ycck_cmyk_convert does (255 minus
+// the YCbCr -> RGB of jdcolor.c), K as it is.
+inline void planes4_to_cmyk(const uint8_t* const* planes, const int* pw,
+                            const int* ph, const int* pitch, const int* hf,
+                            const int* vf, bool ycck, int w, int h,
+                            uint8_t* cmyk) {
+  const size_t n = static_cast<size_t>(w) * h;
+  std::vector<uint8_t> full(4 * n);
+  for (int i = 0; i < 4; ++i)
+    upsample(planes[i], pw[i], ph[i], pitch[i], hf[i], vf[i],
+             full.data() + i * n, w, h);
+  std::vector<uint8_t> rgb;
+  if (ycck) {
+    rgb.resize(3 * n);
+    ycc_to_rgb(full.data(), full.data() + n, full.data() + 2 * n,
+               static_cast<long>(n), rgb.data());
+  }
+  for (size_t i = 0; i < n; ++i) {
+    for (int c = 0; c < 3; ++c)
+      cmyk[4 * i + c] = ycck ? static_cast<uint8_t>(255 - rgb[3 * i + c])
+                             : full[c * n + i];
+    cmyk[4 * i + 3] = full[3 * n + i];
+  }
+}
+
+// OpenCV's subtractive CMYK -> RGB (want_c 3) or luma (want_c 1) over n
+// interleaved CMYK pixels: each of C, M, Y becomes k - ((255 - v) * k >> 8)
+// (R, G, B), and luma is (1868 B + 9617 G + 4899 R + 2^13) >> 14.
+inline void cmyk_to_pixels(const uint8_t* cmyk, long n, int want_c,
+                           uint8_t* out) {
+  for (long i = 0; i < n; ++i) {
+    const int k = cmyk[4 * i + 3];
+    const int r = k - (((255 - cmyk[4 * i]) * k) >> 8);
+    const int g = k - (((255 - cmyk[4 * i + 1]) * k) >> 8);
+    const int b = k - (((255 - cmyk[4 * i + 2]) * k) >> 8);
+    if (want_c == 3) {
+      out[3 * i] = static_cast<uint8_t>(r);
+      out[3 * i + 1] = static_cast<uint8_t>(g);
+      out[3 * i + 2] = static_cast<uint8_t>(b);
+    } else {
+      out[i] = static_cast<uint8_t>((b * 1868 + g * 9617 + r * 4899 +
+                                     (1 << 13)) >> 14);
+    }
+  }
 }
 
 }  // namespace cxn_jpeg

@@ -16,8 +16,12 @@
 // conversion otherwise, and read max 9-11, mean 1.04-1.18 levels from
 // libjpeg on the test fixture's 4:2:0 and 4:2:2 files (max 3, mean 0.51 from
 // libjpeg without fancy upsampling). Other subsamplings (4:4:0, 4:1:1) take
-// NVJPEG_OUTPUT_RGBI. CMYK and YCCK files (four components) are refused
-// before decoding.
+// NVJPEG_OUTPUT_RGBI. A four-component file (CMYK, or YCCK by its Adobe
+// marker) is decoded to its four planes as stored (NVJPEG_OUTPUT_UNCHANGED;
+// nvJPEG's own CMYK conversion stays off) and finished by jpeg_color.h as
+// the JAX package's cv2 fallback decodes it (planes4_to_cmyk, then OpenCV's
+// cmyk_to_pixels); a plane subsampled otherwise than 2x2 or 2x1 is refused
+// (kComponents), as is any other number of components.
 //
 // One Decoder a decode thread: nvjpegJpegState_t is not thread-safe, so each
 // thread has its own state, its own non-blocking stream (the legacy default
@@ -37,6 +41,7 @@
 
 #include <cstdint>
 #include <cstring>
+#include <vector>
 
 #include <cuda_runtime.h>
 #include <nvjpeg.h>
@@ -46,7 +51,7 @@
 namespace {
 
 constexpr int kCudaError = 1000;
-constexpr int kComponents = 1001;   // not 1 or 3 components (CMYK, YCCK)
+constexpr int kComponents = 1001;   // not 1, 3 or 4 finishable components
 constexpr int kShape = 1002;        // dims differ from those given
 
 struct Decoder {
@@ -88,6 +93,44 @@ int reserve(Decoder* d, size_t bytes) {
   CXN_CUDA(cudaMalloc(&d->dev_buf, cap));
   CXN_CUDA(cudaMallocHost(&d->host_buf, cap));
   d->cap = cap;
+  return 0;
+}
+
+// A four-component file's planes (NVJPEG_OUTPUT_UNCHANGED, plane i of
+// widths[i] x heights[i]) finished on the host by jpeg_color.h into `out`.
+int decode4(Decoder* d, const unsigned char* buf, long len, int want_c,
+            unsigned char* out, const int* widths, const int* heights) {
+  const int w = widths[0], h = heights[0];
+  int hf[4], vf[4];
+  size_t off[5] = {0};
+  for (int i = 0; i < 4; ++i) {
+    // a plane is full size or halved (rounded up) in each direction
+    hf[i] = widths[i] == w ? 1 : (widths[i] == (w + 1) / 2 ? 2 : 0);
+    vf[i] = heights[i] == h ? 1 : (heights[i] == (h + 1) / 2 ? 2 : 0);
+    if (hf[i] == 0 || vf[i] == 0 || vf[i] > hf[i]) return kComponents;
+    off[i + 1] = off[i] + static_cast<size_t>(widths[i]) * heights[i];
+  }
+  int rc = reserve(d, off[4]);
+  if (rc != 0) return rc;
+  nvjpegImage_t img;
+  std::memset(&img, 0, sizeof(img));
+  for (int i = 0; i < 4; ++i) {
+    img.channel[i] = d->dev_buf + off[i];
+    img.pitch[i] = static_cast<unsigned int>(widths[i]);
+  }
+  CXN_NVJPEG(nvjpegDecode(d->handle, d->state, buf, static_cast<size_t>(len),
+                          NVJPEG_OUTPUT_UNCHANGED, &img, d->stream));
+  CXN_CUDA(cudaMemcpyAsync(d->host_buf, d->dev_buf, off[4],
+                           cudaMemcpyDeviceToHost, d->stream));
+  CXN_CUDA(cudaStreamSynchronize(d->stream));
+  const unsigned char* planes[4];
+  for (int i = 0; i < 4; ++i) planes[i] = d->host_buf + off[i];
+  std::vector<unsigned char> cmyk(static_cast<size_t>(w) * h * 4);
+  cxn_jpeg::planes4_to_cmyk(planes, widths, heights, widths, hf, vf,
+                            cxn_jpeg::adobe_transform(buf, len) > 0, w, h,
+                            cmyk.data());
+  cxn_jpeg::cmyk_to_pixels(cmyk.data(), static_cast<long>(w) * h, want_c,
+                           out);
   return 0;
 }
 
@@ -172,8 +215,9 @@ int cxn_nvjpeg_decode(void* ctx, const unsigned char* buf, long len,
   int widths[NVJPEG_MAX_COMPONENT], heights[NVJPEG_MAX_COMPONENT];
   CXN_NVJPEG(nvjpegGetImageInfo(d->handle, buf, static_cast<size_t>(len),
                                 &nc, &css, widths, heights));
-  if (nc != 1 && nc != 3) return kComponents;
+  if (nc != 1 && nc != 3 && nc != 4) return kComponents;
   if (heights[0] != out_h || widths[0] != out_w) return kShape;
+  if (nc == 4) return decode4(d, buf, len, want_c, out, widths, heights);
   // a grey file is decoded as its Y plane and replicated on the host; a
   // 4:4:4, 4:2:2 or 4:2:0 colour file as its planes, finished on the host
   const bool y_only = want_c == 1 || nc == 1;

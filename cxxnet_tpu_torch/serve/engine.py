@@ -130,6 +130,9 @@ class InferenceEngine:
         if net.params is None:
             raise ValueError("network has no weights: load_weights() "
                              "before wrapping")
+        if net.graph.extra_data_num:
+            raise ValueError("serve: graphs with extra_data are not "
+                             "servable (single-input requests)")
         self.net = net
         self.stats = stats or ServingStats()
         self.layout = layout

@@ -105,15 +105,17 @@ class StagedBatch:
     """A host batch with this process's rows already on the device
     (:meth:`Trainer.stage_batch`): ``data`` the network's input (folded
     into the compute dtype for a train step, f32 for an eval forward),
-    ``label`` f32 (None for an eval forward), ``host`` the batch itself
+    ``label`` f32 (None for an eval forward), ``extra`` the f32 values
+    of the extra input nodes (``extra_data``), ``host`` the batch itself
     (its padding, labels and metric rows)."""
-    __slots__ = ("host", "data", "label")
+    __slots__ = ("host", "data", "label", "extra")
 
     def __init__(self, host: DataBatch, data: torch.Tensor,
-                 label: Optional[torch.Tensor]):
+                 label: Optional[torch.Tensor], extra=()):
         self.host = host
         self.data = data
         self.label = label
+        self.extra = tuple(extra)
 
 
 class Trainer:
@@ -376,6 +378,18 @@ class Trainer:
         return self._stage_input(np.asarray(batch.data)[rows], batch.norm,
                                  fold)
 
+    def _extras(self, batch: DataBatch) -> Tuple[torch.Tensor, ...]:
+        """This process's rows of the first ``extra_data_num`` arrays of
+        ``batch.extra_data`` on the device as f32, one upload an array (a
+        net without extra inputs ignores them, as the JAX package's)."""
+        n = self.graph.extra_data_num
+        if len(batch.extra_data) < n:
+            raise ValueError(f"the net takes {n} extra_data input(s) and "
+                             f"the batch carries {len(batch.extra_data)}")
+        rows, _ = self._rows(batch)
+        return tuple(self._upload(np.asarray(e)[rows], np.float32)
+                     for e in batch.extra_data[:n])
+
     def _stage_input(self, data: np.ndarray, norm: Optional[dict],
                      fold: bool) -> torch.Tensor:
         """Host rows (any leading axes before the NHWC or flat ones) on the
@@ -413,10 +427,12 @@ class Trainer:
         if isinstance(batch, StagedBatch):
             return batch
         if for_eval:
-            return StagedBatch(batch, self._input(batch, fold=False), None)
+            return StagedBatch(batch, self._input(batch, fold=False), None,
+                               self._extras(batch))
         rows, _ = self._rows(batch)
         return StagedBatch(batch, self._input(batch, fold=True),
-                           self._upload(batch.label[rows], np.float32))
+                           self._upload(batch.label[rows], np.float32),
+                           self._extras(batch))
 
     def _mask(self, batch: DataBatch) -> torch.Tensor:
         """This process's rows: real 1, padded 0. The all-ones mask of
@@ -441,10 +457,10 @@ class Trainer:
             raise RuntimeError("call init_model() first")
         staged = self.stage_batch(batch)
         return self._forward_backward(staged.data, staged.label,
-                                      self._mask(staged.host))
+                                      self._mask(staged.host), staged.extra)
 
     def _forward_backward(self, data: torch.Tensor, label: torch.Tensor,
-                          mask: torch.Tensor):
+                          mask: torch.Tensor, extra=()):
         """:meth:`gradients` of staged inputs. Under float16 the summed
         loss is multiplied by the scale before the backward and the
         returned loss divided back (exact: the scale is a power of
@@ -452,7 +468,7 @@ class Trainer:
         loss, new_state, nodes = self.net.apply(
             self.params, self.net.state, data, label, mask,
             train=True, capture_nodes=bool(self._metric_nodes),
-            step=self.step_count)
+            step=self.step_count, extra_data=extra)
         mp = self.opt_state.get("_mp")
         if mp is not None:
             loss = loss * mp["scale"]
@@ -478,15 +494,15 @@ class Trainer:
         return buf[o], unflatten(out)
 
     def _step(self, data: torch.Tensor, label: torch.Tensor,
-              mask: torch.Tensor):
+              mask: torch.Tensor, extra=()):
         """One step on staged inputs: forward, backward, the all-reduce
         under dp, then the optimizer's apply, or under ``update_period``
         the accumulation and, at the period's end, the apply of ``accum
         / period``. Advances the counters; returns the loss (on the
         device) and the step's nodes. Reads nothing back to the host
         (but Adam's skip flag under float16)."""
-        loss, new_state, nodes, gtree = self._forward_backward(data, label,
-                                                               mask)
+        loss, new_state, nodes, gtree = self._forward_backward(
+            data, label, mask, extra)
         if self.dp is not None:
             loss, gtree = self._allreduce(loss, gtree)
         sched = self.optimizer.schedules(self.epoch_counter)
@@ -528,7 +544,7 @@ class Trainer:
         staged = self.stage_batch(batch)
         batch = staged.host
         self._last_loss, nodes = self._step(staged.data, staged.label,
-                                            self._mask(batch))
+                                            self._mask(batch), staged.extra)
         if failpoints.fire("device.step"):
             self._poison()
         if self.eval_train:
@@ -610,9 +626,13 @@ class Trainer:
         labels = self._upload(
             np.stack([np.asarray(b.label)[rows] for b in batches]),
             np.float32)
+        extras = [self._upload(np.stack([np.asarray(b.extra_data[j])[rows]
+                                         for b in batches]), np.float32)
+                  for j in range(self.graph.extra_data_num)]
         losses, pending = [], []
         for i, b in enumerate(batches):
-            loss, nodes = self._step(data[i], labels[i], self._mask(b))
+            loss, nodes = self._step(data[i], labels[i], self._mask(b),
+                                     tuple(e[i] for e in extras))
             losses.append(loss)
             if self.eval_train:
                 pending.append((self._metric_values(nodes), b))
@@ -671,7 +691,7 @@ class Trainer:
             for batch in data_iter:
                 staged = self.stage_batch(batch, for_eval=True)
                 res = self.net(staged.data, capture_nodes=any(
-                    n is not None for n in need))
+                    n is not None for n in need), extra_data=staged.extra)
                 nodes = {n: (res.out if n is None else res.nodes[n])
                          for n in need}
                 self._add_metric(self.metric, nodes, batch)
@@ -685,7 +705,8 @@ class Trainer:
         last node when None) as float32 rows, each flattened in NHWC
         order as the JAX package's node, the padded rows dropped."""
         res = self.net(self._input(batch, fold=False),
-                       capture_nodes=node is not None)
+                       capture_nodes=node is not None,
+                       extra_data=self._extras(batch))
         v = res.out if node is None else res.nodes[node]
         _, n_real = self._rows(batch)
         return v.reshape(v.shape[0], -1)[:n_real].float().cpu().numpy()

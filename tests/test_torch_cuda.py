@@ -1438,12 +1438,14 @@ def _nvjpeg_fixture():
 @pytest.mark.parametrize("name", ["gray_37x53", "444_37x53", "422_37x53",
                                   "420_37x53", "420_progressive_41x29",
                                   "420_restart_blocks_40x56",
-                                  "444_restart_rows_33x47"])
+                                  "444_restart_rows_33x47", "cmyk_24x20",
+                                  "ycck_27x33"])
 @pytest.mark.parametrize("want", [3, 1])
 def test_nvjpeg_is_near_libjpeg_on_the_fixture(dev, name, want):
-    """nvJPEG against libjpeg's stored pixels: Y max |d| <= 2, RGB 4:4:4
-    <= 3, 4:2:0 and 4:2:2 mean |d| <= 1.0 and max <= 32 (the chroma
-    upsampling); the shape and type exact."""
+    """nvJPEG against the stored pixels (libjpeg's; the JAX package's cv2
+    conversion of libjpeg's CMYK for the CMYK and YCCK files): Y max |d|
+    <= 2, RGB 4:4:4 and CMYK <= 3, 4:2:0, 4:2:2 and YCCK mean |d| <= 1.0
+    and max <= 32 (the chroma upsampling); the shape and type exact."""
     import numpy as np
     from cxxnet_tpu_torch.io.decode import decode_image
     jfx = _nvjpeg_fixture()
@@ -1458,14 +1460,26 @@ def test_nvjpeg_is_near_libjpeg_on_the_fixture(dev, name, want):
 
 
 def test_nvjpeg_refuses_cmyk_and_is_the_same_on_eight_threads(dev):
+    """CMYK and YCCK files go through nvJPEG's four planes (no host
+    decode: a broken nvJPEG build raises for them too), and every file
+    decodes the same on one thread and on eight."""
     import concurrent.futures as futures
     import numpy as np
+    from cxxnet_tpu_torch.io import decode as pdec
     from cxxnet_tpu_torch.io.decode import decode_image
     jfx = _nvjpeg_fixture()
     cuda0 = torch.device("cuda", 0)
-    with pytest.raises(NotImplementedError, match="Queue A 2"):
+    calls = []
+    real = pdec.NvJpeg.decode
+    try:
+        pdec.NvJpeg.decode = lambda self, *a: calls.append(1) or real(
+            self, *a)
         decode_image(jfx.jpeg("cmyk_24x20"), 3, cuda0)
-    names = [n for n in jfx.SPECS if not n.startswith("cmyk")] * 6
+        decode_image(jfx.jpeg("ycck_27x33"), 1, cuda0)
+    finally:
+        pdec.NvJpeg.decode = real
+    assert len(calls) == 2
+    names = list(jfx.SPECS) * 6
     one = [decode_image(jfx.jpeg(n), 3, cuda0) for n in names]
     with futures.ThreadPoolExecutor(8) as ex:
         many = list(ex.map(lambda n: decode_image(jfx.jpeg(n), 3, cuda0),

@@ -26,7 +26,7 @@ from cxxnet_tpu_torch.io.proc import ThreadBufferIterator
 from torch_imgrec_fixture import (binaryproto, image, pil_bytes, png_any,
                                   png_bytes, write_records)
 
-A2 = "ROADMAP Queue A 2"
+OTHER_FORMATS = "PNG and JPEG files only"
 
 
 def _images(seed, n, h=32, w=36, c=3):
@@ -176,9 +176,17 @@ def test_jpeg_route_is_bit_equal_to_the_jax_native_decoder(
 
 def test_formats_the_port_does_not_decode_name_roadmap_a2():
     """16-bit and interlaced PNGs decode as the JAX package decodes them
-    (they were refused before the native decoder); other formats still
-    raise naming ROADMAP Queue A 2, a damaged PNG raises."""
+    (they were refused before the native decoder), and so do CMYK and
+    YCCK JPEGs (refused before this port's four-component route); other
+    formats raise, saying the port decodes PNG and JPEG files only (the
+    JAX package hands them to cv2); a damaged PNG raises."""
+    import torch_jpeg_fixture as jfx
     from cxxnet_tpu.io.iter_imgrec import decode_image as jax_decode
+    for name in ("cmyk_24x20", "ycck_27x33"):
+        for want in (3, 1):
+            np.testing.assert_array_equal(
+                decode_image(jfx.jpeg(name), want),
+                jax_decode(jfx.jpeg(name), want))
     img = _images(1, 1, 8, 8)[0]
     deep = png_any(img.astype(np.uint16) * 257 + 3, 2, 16)
     laced = png_any(img, 2, 8, interlace=1)
@@ -189,7 +197,7 @@ def test_formats_the_port_does_not_decode_name_roadmap_a2():
                                           _pil_decode(png_bytes(img), 1))
         np.testing.assert_array_equal(decode_image(data, 3),
                                       jax_decode(data, 3))
-    with pytest.raises(NotImplementedError, match=A2):
+    with pytest.raises(NotImplementedError, match=OTHER_FORMATS):
         decode_image(b"GIF89a" + bytes(40), 3)
     bad = bytearray(png_bytes(img))
     bad[40] ^= 0xFF                                 # inside IHDR/IDAT

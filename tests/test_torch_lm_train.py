@@ -37,6 +37,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from cxxnet_tpu import checkpoint as jax_ckpt
 from cxxnet_tpu import main as jax_main
@@ -259,18 +260,24 @@ def test_port_adam_round_resumes_in_the_jax_package(tmp_path, capsys):
 
 
 def test_lm_keys_outside_the_slice_name_their_roadmap_item():
-    """moe waits for the experts item; sequence parallelism (the ring and
-    gather-kv attention) for model parallelism."""
+    """moe builds since the grammar slice (experts, once Queue A 8): its
+    tree is the JAX layer's; expert parallelism (``model_parallel``)
+    and sequence parallelism (the ring and gather-kv attention) wait
+    for model parallelism."""
     from cxxnet_tpu_torch.graph import build_graph
     from cxxnet_tpu_torch.model import Network
     moe = parse_config_string(
         "netconfig = start\nlayer[+1:e] = embed:em\n  nhidden = 8\n"
         "  vocab_size = 4\nlayer[+1:m] = moe:mx\nnetconfig = end\n"
         "input_shape = 1,1,8\n")
-    with pytest.raises(NotImplementedError, match="Queue A 8, experts"):
-        Network(build_graph(moe), moe, device="cpu")
-    with pytest.raises(ConfigError, match="Queue A 9"):
-        Trainer(_cfg() + [("seq_parallel", "2")])
+    params, state = Network(build_graph(moe), moe, device="cpu").init(
+        torch.Generator())
+    assert {k: tuple(v.shape) for k, v in params["mx"]["h"].items()} == {
+        "wmat": (8, 8, 32), "bias": (8, 32)}
+    assert set(state["mx"]) == {"_aux_loss"}
+    for key in ("seq_parallel", "model_parallel"):
+        with pytest.raises(ConfigError, match="Queue A 9"):
+            Trainer(_cfg() + [(key, "2")])
 
 
 def test_nested_parameter_trees_walk_an_mha_tree():

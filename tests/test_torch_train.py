@@ -51,8 +51,10 @@ train step with ``fused_kernels = 0``, compiled with excess precision off
   an unknown task; ``data_service`` and ``test_io`` train, and ``task =
   data_reader`` without ``data_service`` raises the JAX package's
   message. The iterator chains and keys of the input pipeline build;
-  ``attachtxt``, ``extra_data`` inputs and CMYK records raise naming
-  ROADMAP Queue A 2.
+  ``attachtxt`` joins side features (a chain without ``filename``
+  raises the JAX message), a net with ``extra_data`` inputs trains a
+  step, and a CMYK JPEG record decodes as the JAX package decodes it
+  (once refused under ROADMAP Queue A 2).
 """
 
 import functools
@@ -76,7 +78,7 @@ from cxxnet_tpu_torch import main as port_main
 from cxxnet_tpu_torch.config import (TRAIN_NOT_YET, ConfigError,
                                      parse_config_string)
 from cxxnet_tpu_torch.convert import opt_to_jax, params_to_jax
-from cxxnet_tpu_torch.io import create_iterator
+from cxxnet_tpu_torch.io import DataBatch, create_iterator
 from cxxnet_tpu_torch.trainer import Trainer
 
 from torch_ibn_fixture import BATCH, IBN_TEXT, jax_weights
@@ -607,21 +609,44 @@ def test_iterators_of_the_input_pipeline_build_their_chains(tmp_path,
 
 @pytest.mark.parametrize("case", ["attachtxt", "extra_data", "cmyk"])
 def test_iterators_outside_the_slice_name_roadmap_a2(tmp_path, case):
-    """What stays in ROADMAP Queue A 2: the ``attachtxt`` iterator, a net
-    with ``extra_data`` inputs, a CMYK JPEG record."""
+    """What ROADMAP Queue A 2 refused until the grammar slice, now
+    served: the ``attachtxt`` iterator (its rows joined by instance id,
+    zeros for a missing id; no ``filename`` raises the JAX message), a
+    net with ``extra_data`` inputs (a train step and an eval forward
+    take them), a CMYK JPEG record (the JAX package's pixels)."""
     from cxxnet_tpu_torch.io import close_chain
     from cxxnet_tpu_torch.io import recordio as prec
     import torch_jpeg_fixture as jfx
     if case == "attachtxt":
-        with pytest.raises(ConfigError, match="ROADMAP Queue A 2"):
+        with pytest.raises(ValueError, match="filename must be set"):
             create_iterator([("iter", "synthetic"), ("iter", "attachtxt"),
                              ("iter", "end")])
+        side = tmp_path / "side.txt"
+        side.write_text("2\n0 1.5 -2\n3 4 5\n")
+        it = create_iterator([("iter", "synthetic"), ("num_inst", "4"),
+                              ("batch_size", "4"), ("input_shape", "1,1,6"),
+                              ("iter", "attachtxt"), ("filename", str(side)),
+                              ("iter", "end")])
+        b = next(iter(it))
+        np.testing.assert_array_equal(
+            b.extra_data[0][:, 0, 0, :],
+            [[1.5, -2], [0, 0], [0, 0], [4, 5]])
     elif case == "extra_data":
-        text = MLP_TEXT.replace("input_shape = 1,1,6\nbatch",
-                                "input_shape = 1,1,6\nextra_data_num = 1"
-                                "\nextra_data_shape[0] = 1,1,2\nbatch")
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A 2"):
-            Trainer(parse_config_string(text))
+        text = ("extra_data_num = 1\nextra_data_shape[0] = 1,1,2\n"
+                + MLP_TEXT.replace("layer[+1:fc1] = fullc:fc1",
+                                   "layer[in,in_1->cat] = concat\n"
+                                   "layer[cat->fc1] = fullc:fc1"))
+        tr = Trainer(parse_config_string(text))
+        tr.init_model()
+        rng = np.random.RandomState(0)
+        batch = DataBatch(data=rng.randn(16, 1, 1, 6).astype(np.float32),
+                          label=rng.randint(0, 3, (16, 1)).astype(np.float32),
+                          extra_data=[rng.randn(16, 1, 1, 2)
+                                      .astype(np.float32)])
+        assert tr.get_weight("fc1", "wmat").shape == (8, 3)
+        tr.update(batch)
+        assert np.isfinite(tr.last_loss)
+        assert tr.predict_raw(batch).shape == (16, 3)
     else:
         path = str(tmp_path / "c.rec")
         with prec.RecordWriter(path) as w:
@@ -630,11 +655,11 @@ def test_iterators_outside_the_slice_name_roadmap_a2(tmp_path, case):
         it = create_iterator([("iter", "imgrec"), ("image_rec", path),
                               ("input_shape", "3,16,16"), ("dev", "cpu"),
                               ("device_normalize", "0"), ("silent", "1"),
-                              ("iter", "end")])
+                              ("batch_size", "1"), ("iter", "end")])
         try:
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP Queue A 2"):
-                list(it)
+            (b,) = list(it)
+            assert b.data.shape == (1, 16, 16, 3)
+            assert np.isfinite(b.data).all()
         finally:
             close_chain(it)
 
