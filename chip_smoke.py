@@ -4,9 +4,12 @@
     python3 chip_smoke.py [--seed 0] [--conf examples/ImageNet/inception_bn.conf]
                           [--json OUT.json]
     python3 chip_smoke.py --ab PARENT . . PARENT   # A/B of two checkouts
+    python3 chip_smoke.py --step-ab PARENT . . PARENT   # train steps A/B
+    python3 chip_smoke.py --wgrad                  # f32 conv weight gradients
     python3 chip_smoke.py --phase telemetry        # the build and phase 19
     python3 chip_smoke.py --phase data_service     # the build and phase 20
     python3 chip_smoke.py --phase grammar          # the build and phase 21
+    python3 chip_smoke.py --phase operations       # the build, 19 and 22
 
 With ``--ab``, only the kernels of the vectorised designs are timed, in
 each checkout root given, in turn, one process each (``bn_fwd`` at
@@ -22,6 +25,14 @@ per-channel mean and a mean image, with their rates, ``epilogue_fwd`` at
 AlexNet's cv1 and cv2, the SPP net's cv1 and fc1, and ``adam_apply`` over
 the LM's and Inception-BN's leaves, each beside its bound, plain version
 and library call).
+
+With ``--step-ab``, each checkout root in turn, one process each, times
+the train steps of STEP_AB (full-width Inception-BN in bf16 and f32,
+AlexNet and the kaggle_bowl net in f32, synthetic batches) with cuDNN's
+deterministic algorithms off and on. With ``--wgrad``, the float32 conv
+weight gradient at each WGRAD_SHAPES shape: cuDNN's (deterministic off
+and on), ATen's own with cuDNN off, and the port's im2col gemm, each
+timed and held against a float64 reference.
 
 Phases, each printing one line of its own; any failure exits non-zero
 and prints no result:
@@ -585,9 +596,52 @@ and prints no result:
             training pick at AlexNet's node shapes (batch 256), f32 on
             the card against the CPU with shared params, draws and
             upstream gradient (GRAMMAR_ELEM_TOL, GRAMMAR_SUM_TOL,
-            GRAMMAR_PICK_SHARE). Printed: the phase's seconds, the MoE
-            and attachtxt train steps' ms, beside the card's name and
-            power limit. Run alone with ``--phase grammar``.
+            GRAMMAR_PICK_SHARE); AlexNet's conv2 weight gradient (5x5,
+            2 groups) of the port's float32 conv (its im2col gemm) and
+            of cuDNN's own algorithm, with and without
+            ``cudnn.deterministic`` (named from the profiler's kernels),
+            each held against a float64 CPU reference, the port's within
+            GRAMMAR_SUM_TOL. Printed: the phase's seconds, the MoE and
+            attachtxt train steps' ms, beside the card's name and power
+            limit. Run alone with ``--phase grammar``.
+22. operations: run last (``phase_operations``), full-width
+            Inception-BN (batch 128, bf16, ``iter = synthetic``) through
+            ``main.run``, which trains with cuDNN's deterministic
+            algorithms; the script sets no cuDNN flag. (a) OPS_STEPS steps with
+            ``health = 1 health_interval = OPS_INTERVAL`` and with
+            ``health = 0`` from one seed: each step's loss, the masters,
+            momenta and BN statistics bit-equal; the host syncs of the
+            run (CUDA sync debug mode) at most one more an interval with
+            health on; one step's CUDA graph with ``health = 0`` holds as
+            many nodes as phase 19's; the ``cxxnet_health_*`` gauges on
+            ``GET /metrics`` while it trains. Each run pushes to a
+            ``telemetry_fleet_dir`` where the script writes a second
+            host's snapshot with 3x the trainer's step time: the
+            aggregator's straggler verdict names host 1 (round line and
+            ``straggler`` event). (b) ``failpoints = device.step=every:7``
+            with ``health = 1``, rounds of OPS_ROUND_STEPS, through
+            ``python -m cxxnet_tpu_torch.main`` in a process of its own:
+            the ``sentinel_trip`` and ``rollback`` events carry the same
+            non-empty provenance. (c) ``python -m
+            cxxnet_tpu_torch.replay <(b)'s ledger> --last --failpoints
+            on`` exits 0 with ``bit_exact`` and that provenance;
+            ``--failpoints off`` exits 0 or 2; ``--config`` with another
+            ``eta`` exits 3 with ``unreproducible:config-drift``. (d) A
+            ``throttle`` data section with ``throttle_ms`` OPS_THROTTLE_MS
+            under ``telemetry_hang_s = 1``: one ``hang_dump`` or more,
+            with the threads' stacks. (e) One data-service reader
+            process (``telemetry_trace``) serving the trainer with
+            ``telemetry_trace_sample = 1``: ``tools/trace_assemble.py``
+            links every ``dataservice.fetch`` to the reader's
+            ``dataservice.serve``; a ``traceparent`` sent to ``task =
+            serve`` parents its ``serve.request`` span. (f) Phase 19's
+            profile bracket printed the per-phase attribution line, with
+            ``conv``, ``bn_act``, ``pool`` and ``optim`` non-zero, and
+            ``bn_act`` holds every ``bn_fwd`` and ``bn_bwd`` launch of
+            its summary. Printed, not gated: the health on and off step
+            ms, the probe's syncs, the replay's and the phase's seconds,
+            beside the card's name and power limit. Run alone with
+            ``--phase operations`` (phase 19 first, for (f)).
 
 Then, on lines of their own: the card's name and power limit as
 ``nvidia-smi`` reports them, the kernels JSON line, and last
@@ -602,8 +656,10 @@ import contextlib
 import functools
 import json
 import os
+import io
 import pickle
 import shutil
+import signal
 import statistics
 import struct
 import subprocess
@@ -2653,22 +2709,150 @@ def ab_times(gen: torch.Generator) -> None:
           flush=True)
 
 
-def run_ab(trees, seed: int) -> int:
-    """:func:`ab_times` of each checkout root in ``trees`` in turn, one
-    process each, on the kernels built from that tree's sources (this
-    file's timing code throughout). Returns the first non-zero exit."""
+def run_ab(trees, seed: int, fn: str = "ab_times") -> int:
+    """:func:`ab_times` (or ``fn``, a function of this file taking the
+    generator) of each checkout root in ``trees`` in turn, one process
+    each, on the kernels built from that tree's sources (this file's
+    timing code throughout). Returns the first non-zero exit."""
     print(phase_env(), flush=True)
     for tree in trees:
         tree = os.path.abspath(tree)
         code = (f"import sys, runpy, torch; sys.path.insert(0, {tree!r}); "
                 f"m = runpy.run_path({os.path.abspath(__file__)!r}); "
-                f"m['ab_times'](torch.Generator(device='cuda')"
+                f"m[{fn!r}](torch.Generator(device='cuda')"
                 f".manual_seed({seed}))")
         print(f"ab: tree {tree}", flush=True)
         rc = subprocess.run([sys.executable, "-c", code], cwd=tree).returncode
         if rc != 0:
             return rc
     return 0
+
+
+#: ``--step-ab``: (name, conf, batch, input shape, overrides) of each
+#: timed train step
+STEP_AB = (
+    ("inception_bn bf16", FLAGSHIP, TRAIN_BATCH, TRAIN_IMAGE,
+     ("compute_dtype=bfloat16",)),
+    ("inception_bn f32", FLAGSHIP, TRAIN_BATCH, TRAIN_IMAGE,
+     ("compute_dtype=float32",)),
+    ("alexnet f32", os.path.join(ROOT, "examples", "ImageNet",
+                                 "alexnet.conf"), 256, "3,227,227",
+     ("compute_dtype=float32",)),
+    ("bowl f32", os.path.join(ROOT, "examples", "kaggle_bowl", "bowl.conf"),
+     64, "3,40,40", ("compute_dtype=float32",)))
+
+
+def step_ab_times(gen: torch.Generator) -> None:
+    """For ``--step-ab``: the wall ms of each STEP_AB train step
+    (``Trainer.update`` on one staged synthetic batch, median of 10 after
+    3 warm-ups), with ``cudnn.deterministic`` off and on (benchmark off,
+    TF32 off), in this process's tree. Prints them as one JSON line."""
+    from cxxnet_tpu_torch.config import split_sections
+    from cxxnet_tpu_torch.trainer import Trainer
+    seed = int(gen.initial_seed())
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, conf, batch, image, extra in STEP_AB:
+            cfg = _train_only(train_cfg(conf, seed, tmp, extra, batch=batch,
+                                        steps=1, image=image, classes=10))
+            glob, sections = split_sections(cfg)
+            data = [p for kind, _, p in sections if kind == "data"][0]
+            for det in (False, True):
+                torch.backends.cudnn.deterministic = det
+                tr = Trainer(glob)
+                tr.init_model()
+                staged = tr.stage_batch(_first_batch(glob + data))
+                out[f"{name} det={int(det)}"] = time_forward(
+                    lambda: tr.update(staged), reps=10)
+                del tr, staged
+                torch.cuda.empty_cache()
+    print("step-ab: " + json.dumps(out), flush=True)
+
+
+#: ``--wgrad``: (x NCHW, w OIHW, stride, padding, groups) of float32 conv
+#: weight gradients on the float32 training paths
+WGRAD_SHAPES = {
+    "alexnet conv1 11x11/4": ((256, 3, 227, 227), (96, 3, 11, 11), 4, 0, 1),
+    "alexnet conv2 5x5 g2": ((256, 96, 27, 27), (256, 48, 5, 5), 1, 2, 2),
+    "alexnet conv3 3x3": ((256, 256, 13, 13), (384, 256, 3, 3), 1, 1, 1),
+    "inception_bn stem 7x7/2": ((128, 3, 224, 224), (64, 3, 7, 7), 2, 3, 1),
+    "inception_bn 3x3 at 28": ((128, 160, 28, 28), (192, 160, 3, 3), 1, 1,
+                               1),
+    "inception_bn 3x3/2 at 28": ((128, 192, 28, 28), (240, 192, 3, 3), 2, 1,
+                                 1),
+    "inception_bn 1x1 at 28": ((128, 256, 28, 28), (64, 256, 1, 1), 1, 0, 1),
+    "bowl 3x3 at 40": ((64, 32, 40, 40), (32, 32, 3, 3), 1, 1, 1),
+}
+
+
+def wgrad_times(seed: int) -> dict:
+    """For ``--wgrad``: each WGRAD_SHAPES weight gradient in float32 (x
+    and dy in channels_last memory, as the port's conv gives them) by
+    cuDNN with ``deterministic`` off and on, by ATen's own convolution
+    backward with cuDNN off, and by the port's
+    ``layers.conv.conv2d_weight_gemm``: device ms (median of 10 after 3
+    warm-ups) and rel L2 from a float64 reference (ATen's, cuDNN off, on
+    the card); the route ``layers.conv.wgrad_by_gemm`` gives the
+    shape. Prints one line a shape and returns the table."""
+    from cxxnet_tpu_torch.layers.conv import conv2d_weight_gemm, \
+        wgrad_by_gemm
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.enabled,
+            torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    table = {}
+    try:
+        for name, (xs, ws, st, pd, gr) in WGRAD_SHAPES.items():
+            n, c, h, wd = xs
+            x = torch.randn((n, h, wd, c), device="cuda",
+                            generator=g).permute(0, 3, 1, 2)
+            w = torch.randn(ws, device="cuda", generator=g) * 0.05
+            oh = (h + 2 * pd - ws[2]) // st + 1
+            ow = (wd + 2 * pd - ws[3]) // st + 1
+            gy = torch.randn((n, oh, ow, ws[0]), device="cuda",
+                             generator=g).permute(0, 3, 1, 2)
+
+            def aten(x, gy, w):
+                return torch.ops.aten.convolution_backward(
+                    gy, x, w, None, [st, st], [pd, pd], [1, 1], False,
+                    [0, 0], gr, [False, True, False])[1]
+            torch.backends.cudnn.enabled = False
+            want = aten(x.double(), gy.double(), w.double())
+            torch.backends.cudnn.enabled = True
+
+            def rel(got):
+                return float((got.double() - want).norm() / want.norm())
+            row = {"port_route": "gemm" if wgrad_by_gemm(st, ws[2], ws[3])
+                   else "cudnn"}
+            for det in (False, True):
+                torch.backends.cudnn.deterministic = det
+                fn = lambda: aten(x, gy, w)
+                row[f"cudnn det={int(det)}"] = {
+                    "ms": time_forward(fn, reps=10), "rel": rel(fn())}
+            torch.backends.cudnn.enabled = False
+            fn = lambda: aten(x, gy, w)
+            row["aten, cudnn off"] = {"ms": time_forward(fn, reps=10),
+                                      "rel": rel(fn())}
+            torch.backends.cudnn.enabled = True
+            fn = lambda: conv2d_weight_gemm(x, gy, ws, st, (pd, pd), gr)
+            row["gemm"] = {"ms": time_forward(fn, reps=10),
+                           "rel": rel(fn())}
+            table[name] = row
+            print(f"wgrad: {name} {json.dumps(row)}", flush=True)
+            del x, gy, w, want
+            torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.enabled,
+         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+    return table
 
 
 def phase_train_times(tr, plain, batches, gen) -> dict:
@@ -7978,6 +8162,30 @@ def _graph_nodes(fn):
     return out
 
 
+def child_attribution(out: str, prof: str, summary: dict, steps: int
+                      ) -> dict:
+    """Phase 22 (f) on phase 19's child: the attribution line it printed
+    when its profile bracket closed, the per-phase ms and launches a
+    step (``telemetry.traceparse.attribute_profile`` of its trace), and
+    its summary's ``bn_fwd`` and ``bn_bwd`` device kernels with their
+    launches and phase."""
+    from cxxnet_tpu_torch.telemetry.traceparse import (attribute_profile,
+                                                       classify_op)
+    line = next((ln.strip() for ln in out.splitlines()
+                 if "profile[" in ln), "")
+    att = attribute_profile(prof, steps)
+    frags = TEL_FRAGMENTS["bn_fwd"] + TEL_FRAGMENTS["bn_bwd"]
+    bn = {n: k["count"] for n, k in summary["kernels"].items()
+          if any(f in n for f in frags)}
+    return {"line": line,
+            "phases": {ph: {"ms": d["ms"], "count": d["count"]}
+                       for ph, d in att["phases"].items()},
+            "top_other": att["top_other"][:4],
+            "bn_launches": sum(bn.values()),
+            "bn_elsewhere": sorted(n[:60] for n in bn
+                                   if classify_op(n) != "bn_act")}
+
+
 def _fragment_counts(names_counts) -> dict:
     """{fragment: count} of TEL_FRAGMENTS over (kernel name, count)
     pairs, each name going to its first matching fragment."""
@@ -8153,6 +8361,7 @@ def phase_telemetry(conf: str, seed: int, tmp: str, smi_line: str) -> dict:
     with open(os.path.join(prof, "summary.json")) as f:
         summary = json.load(f)
     steps = 2
+    attribution = child_attribution(out, prof, summary, steps)
     got = _fragment_counts((n, k["count"]) for n, k in
                            summary["kernels"].items())
     ledger = read_ledger(os.path.join(tmp, "telemetry_ledger.jsonl"))
@@ -8187,6 +8396,7 @@ def phase_telemetry(conf: str, seed: int, tmp: str, smi_line: str) -> dict:
     mask = tr._mask(batch)
     nodes = _graph_nodes(lambda: tr._step(staged.data, staged.label, mask))
     want = _fragment_counts((n, 1) for n in nodes)
+    graph_total = len(nodes)
     del tr, staged
     torch.cuda.empty_cache()
     marks["graph"] = time.perf_counter()
@@ -8258,6 +8468,7 @@ def phase_telemetry(conf: str, seed: int, tmp: str, smi_line: str) -> dict:
           flush=True)
     return {"probe": frag, "steady_ms": steady,
             "update_host_syncs": update_syncs, "graph_per_step": want,
+            "graph_nodes": graph_total, "attribution": attribution,
             "profile_per_step": per_step,
             "profile_device_ms_per_step": summary["device_us"] / 1e3 / steps,
             "device_events": summary["device_events"],
@@ -8674,12 +8885,12 @@ GRAMMAR_LAYERS = (
 #: pick's outputs that differ (a near-tie of the uniform draw and a cdf
 #: step, whose f32 sums may differ in the last bit) as a share of all
 GRAMMAR_ELEM_TOL, GRAMMAR_SUM_TOL, GRAMMAR_PICK_SHARE = 1e-6, 1e-5, 1e-5
-#: (c): a conv weight's gradient, card against CPU (rel L2): cuDNN's f32
-#: weight gradient of AlexNet's conv2 at batch 256 reads 5.13e-3 from the
-#: CPU's with TF32 off (phase 21 on an NVIDIA H100 80GB HBM3, 700.00 W;
-#: PERF.md section 7), where the input gradient reads 1e-6; so pairtest
-#: is also held bit-equal to its master conv alone on the card
-GRAMMAR_WGRAD_TOL = 1e-2
+#: (c): AlexNet's conv2 (5x5, 2 groups, pad 2) at its batch, for the
+#: float64 reference of its weight gradient: cuDNN's own float32
+#: algorithms (Winograd, FFT) read 5.1e-3 rel L2 from it on an NVIDIA H100
+#: 80GB HBM3 at 700.00 W, so the port's float32 conv takes its weight
+#: gradient as an im2col gemm (layers/conv.py; PERF.md section 7)
+WGRAD_CONV2 = ((ALEX_B, 96, 27, 27), (256, 48, 5, 5), 2, 2)
 
 
 def moe_cfg(seed: int, model_dir: str, extra=()):
@@ -9154,8 +9365,6 @@ def grammar_layers(seed: int, tmp: str) -> dict:
                 errs = [err(yc, yh)] + [err(a, b) for a, b in zip(gc, gh)]
                 tols = [tol] * len(errs)
                 if kind == "pairtest-conv-conv":
-                    # the master's wmat gradient is cuDNN's weight gradient
-                    tols[2] = GRAMMAR_WGRAD_TOL
                     alone = grammar_layer_case(
                         name, "conv", keys, shape, seed + 10 * i, wfile,
                         devices=("cuda",))["cuda"]
@@ -9180,10 +9389,77 @@ def grammar_layers(seed: int, tmp: str) -> dict:
     print(f"grammar (c) layers at AlexNet's node shapes (batch {ALEX_B}), "
           f"f32 card vs CPU, output and every gradient (tol elementwise "
           f"{GRAMMAR_ELEM_TOL} of max|CPU|, products rel L2 "
-          f"{GRAMMAR_SUM_TOL}, a conv weight's gradient "
-          f"{GRAMMAR_WGRAD_TOL}, picks that differ {GRAMMAR_PICK_SHARE}): "
+          f"{GRAMMAR_SUM_TOL}, picks that differ {GRAMMAR_PICK_SHARE}): "
           f"{rows}", flush=True)
     return rows
+
+
+def grammar_wgrad(seed: int) -> dict:
+    """Phase 21 (c): AlexNet conv2's float32 weight gradient on the card,
+    the port's (``layers.conv.conv2d_weight_gemm``) and cuDNN's with and
+    without ``cudnn.deterministic`` (its kernels named from the
+    profiler), and the CPU's, each as rel L2 from a float64 CPU
+    reference of the same inputs; the port's within GRAMMAR_SUM_TOL."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from cxxnet_tpu_torch.layers.conv import conv2d_weight_gemm
+    xs, ws, groups, pad = WGRAD_CONV2
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(xs, generator=g)
+    w = torch.randn(ws, generator=g) * 0.05
+    gy = torch.randn((xs[0], ws[0]) + xs[2:], generator=g)
+    t0 = time.perf_counter()
+    w64 = w.double().requires_grad_(True)
+    (want,) = torch.autograd.grad(
+        F.conv2d(x.double(), w64, padding=pad, groups=groups), [w64],
+        gy.double())
+    ref_s = time.perf_counter() - t0
+
+    def rel(got):
+        return float((got.double().cpu() - want).norm() / want.norm())
+    wc = w.clone().requires_grad_(True)
+    (cpu,) = torch.autograd.grad(F.conv2d(x, wc, padding=pad,
+                                          groups=groups), [wc], gy)
+    out = {"cpu": rel(cpu), "f64_s": round(ref_s, 2)}
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cudnn.deterministic,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    xg, gyg = x.cuda(), gy.cuda()
+    try:
+        out["port"] = rel(conv2d_weight_gemm(xg, gyg, ws, 1, (pad, pad),
+                                             groups))
+        for det in (False, True):
+            torch.backends.cudnn.deterministic = det
+            wg = w.cuda().requires_grad_(True)
+
+            def cudnn_wgrad():
+                return torch.autograd.grad(
+                    F.conv2d(xg, wg, padding=pad, groups=groups), [wg],
+                    gyg)[0]
+            cudnn_wgrad()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as p:
+                got = cudnn_wgrad()
+                torch.cuda.synchronize()
+            kinds = sorted({e.key.split("<")[0].split("(")[0][:48]
+                            for e in p.key_averages()
+                            if "wgrad" in e.key.lower()
+                            or "winograd" in e.key.lower()
+                            or "fft" in e.key.lower()})
+            out[f"cudnn det={int(det)}"] = {"rel": rel(got),
+                                            "kernels": kinds}
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+    if not out["port"] <= GRAMMAR_SUM_TOL:
+        raise AssertionError(f"conv2's float32 weight gradient of the "
+                             f"port vs float64: {out}")
+    print(f"grammar (c) AlexNet conv2 float32 weight gradient, rel L2 from "
+          f"a float64 CPU reference: {out}", flush=True)
+    return out
 
 
 def phase_grammar(conf: str, seed: int, tmp: str, smi_line: str) -> dict:
@@ -9195,6 +9471,8 @@ def phase_grammar(conf: str, seed: int, tmp: str, smi_line: str) -> dict:
     bowl = grammar_bowl(seed, tmp)
     torch.cuda.empty_cache()
     layers = grammar_layers(seed, tmp)
+    layers["conv2 wgrad"] = grammar_wgrad(seed)
+    torch.cuda.empty_cache()
     took = time.perf_counter() - t0
     print(f"grammar: phase 21 in {took:.1f}s | MoE step {moe['step_ms']:.3f}"
           f" ms, attachtxt net step {bowl['step_ms']:.3f} ms | {smi_line}",
@@ -9203,19 +9481,394 @@ def phase_grammar(conf: str, seed: int, tmp: str, smi_line: str) -> dict:
             "seconds": took}
 
 
+# -- phase 22 ------------------------------------------------------------------
+
+#: (a): steps of each health run, two probe intervals
+OPS_STEPS, OPS_INTERVAL = 16, 8
+#: (b): steps a round, and the fault: device.step fires at the 7th check,
+#: in round 1 (steps 5-8), and the sentinel's check at tick 8 trips
+OPS_ROUND_STEPS, OPS_FAULT = 4, "device.step=every:7"
+#: (a): the straggler rule's factor: host 1 runs 3x slower, and the
+#: median of each host sits somewhere inside a bucket of the step-time
+#: histogram, whose edges lie 2.15x apart
+OPS_STRAGGLER_FACTOR = 1.5
+#: (d): the data wait a batch, over telemetry_hang_s = 1
+OPS_THROTTLE_MS, OPS_HANG_STEPS = 1500, 2
+#: (e): steps served by the reader
+OPS_DS_STEPS = 2
+
+
+def _with_throttle(cfg, ms: int):
+    """``cfg`` with its train data section wrapped by ``iter = throttle``."""
+    out, in_data = [], False
+    for k, v in cfg:
+        if (k, v) == ("data", "train"):
+            in_data = True
+        elif in_data and (k, v) == ("iter", "end"):
+            out += [("iter", "throttle"), ("throttle_ms", str(ms))]
+            in_data = False
+        out.append((k, v))
+    return out
+
+
+def _slow_host(fleet_dir: str, run_id: str, factor: float = 3.0) -> float:
+    """Write host 1's snapshot into ``fleet_dir``: 8 steps at ``factor``
+    times this process's median step time (its
+    ``cxxnet_steptime_step_seconds`` histogram, whose edges it takes);
+    returns this process's median in seconds."""
+    from cxxnet_tpu_torch.telemetry.aggregate import quantile, write_snapshot
+    from cxxnet_tpu_torch.telemetry.registry import REGISTRY, MetricRegistry
+    fam = REGISTRY.get("cxxnet_steptime_step_seconds")
+    (_, child), = fam.samples()
+    edges, counts, _, _ = child.raw()
+    med = quantile(list(edges), counts, 0.5)
+    reg = MetricRegistry()
+    h = reg.histogram("cxxnet_steptime_step_seconds", "", buckets=edges)
+    for _ in range(8):
+        h.observe(factor * med)
+    write_snapshot(fleet_dir, 1, reg, run_id=run_id)
+    return med
+
+
+def _ops_health(conf: str, seed: int, tmp: str, health: int) -> dict:
+    """(a): one OPS_STEPS run with ``health``: each step's loss (device),
+    the final (masters, momenta, BN state), the run's host syncs, the
+    step's wall ms, one step's CUDA graph, a /metrics scrape at step 12,
+    and the fleet pieces (the straggler verdict)."""
+    from cxxnet_tpu_torch.telemetry.ledger import read_ledger
+    port = _free_port()
+    fleet = os.path.join(tmp, f"fleet{health}")
+    run_id = f"ops-health{health}"
+    led = os.path.join(tmp, f"ops_health{health}.jsonl")
+    cfg = _train_only(train_cfg(conf, seed, os.path.join(tmp, f"h{health}"), (
+        f"health={health}", f"health_interval={OPS_INTERVAL}",
+        "save_model=0", "print_step=0", f"telemetry_port={port}",
+        f"telemetry_fleet_dir={fleet}", f"telemetry_run_id={run_id}",
+        "telemetry_straggler_min_steps=4",
+        f"telemetry_straggler_factor={OPS_STRAGGLER_FACTOR}",
+        f"telemetry_ledger={led}"),
+        steps=OPS_STEPS, classes=TEL_CLASSES))
+    losses, stamps, box = [], [], {}
+
+    def on_step(tr):
+        losses.append(tr.last_loss_tensor.detach().clone())
+        stamps.append(time.perf_counter())
+        if tr.step_count == 12:
+            box["scrape"] = _scrape(port)
+        if tr.step_count == OPS_STEPS - 1:
+            box["median_s"] = _slow_host(fleet, run_id)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        syncs = _host_syncs(lambda: box.update(
+            run=_train_run(cfg, on_step)))
+    sys.stdout.write(printed.getvalue())
+    tr = box["run"][0]
+    snap = _snap(tr)
+    # a batch of one step's data section (a fresh draw of all OPS_STEPS
+    # batches would cost seconds of the generator)
+    staged = tr.stage_batch(_first_batch(split_sections_of(_train_only(
+        train_cfg(conf, seed, tmp, steps=1, classes=TEL_CLASSES)))))
+    mask = tr._mask(staged.host)
+    nodes = len(_graph_nodes(lambda: tr._step(
+        staged.data, staged.label, mask, health=bool(health))))
+    gaps = [b - a for a, b in zip(stamps, stamps[1:])]
+    strag = [e for e in read_ledger(led) if e["event"] == "straggler"]
+    line = next((ln for ln in printed.getvalue().splitlines()
+                 if ln.startswith("round") and "\tstraggler:" in ln), "")
+    del tr, staged
+    torch.cuda.empty_cache()
+    return {"losses": torch.stack(losses).cpu(), "snap": snap,
+            "syncs": syncs, "step_ms": 1e3 * statistics.median(gaps),
+            "graph_nodes": nodes, "scrape": box.get("scrape", ""),
+            "straggler_events": strag, "straggler_line": line,
+            "median_s": box.get("median_s")}
+
+
+def split_sections_of(cfg):
+    """The global pairs plus the data section's, as one list."""
+    from cxxnet_tpu_torch.config import split_sections
+    glob, sections = split_sections(cfg)
+    return glob + [p for kind, _, p in sections if kind == "data"][0]
+
+
+def _replay(args, child: bool) -> tuple:
+    """``python -m cxxnet_tpu_torch.replay *args`` in a process of its
+    own (``child``) or its ``main`` in this one: (exit code, output,
+    seconds)."""
+    t0 = time.perf_counter()
+    if child:
+        r = subprocess.run([sys.executable, "-m", "cxxnet_tpu_torch.replay",
+                            *args], cwd=ROOT, stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True, timeout=600)
+        return r.returncode, r.stdout, time.perf_counter() - t0
+    from cxxnet_tpu_torch.replay.__main__ import main as replay_main
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(out):
+        rc = replay_main(list(args))
+    return rc, out.getvalue(), time.perf_counter() - t0
+
+
+def _trace_events(path: str) -> list:
+    with open(path) as f:
+        return [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+
+
+def _ops_tracing(conf: str, seed: int, tmp: str, model: str) -> dict:
+    """(e): a reader process and the trainer, both traced, assembled by
+    tools/trace_assemble.py; a traceparent sent to task = serve."""
+    from cxxnet_tpu_torch.main import run
+    ep = f"127.0.0.1:{_free_port()}"
+    status = os.path.join(tmp, "ops_status")
+    t_trainer = os.path.join(tmp, "ops_trainer.json")
+    t_reader = os.path.join(tmp, "ops_reader.json")
+    cfg = _train_only(train_cfg(conf, seed, os.path.join(tmp, "e"), (
+        f"data_service={ep}", "data_service_shards=1",
+        "data_service_timeout_ms=30000", f"telemetry_trace={t_trainer}",
+        "telemetry_trace_sample=1", "save_model=0", "print_step=0"),
+        steps=OPS_DS_STEPS, classes=TEL_CLASSES))
+    conf_path = write_conf(os.path.join(tmp, "ops_e.conf"), cfg)
+    log = open(os.path.join(tmp, "ops_reader.log"), "w")
+    reader = subprocess.Popen(
+        [sys.executable, "-m", "cxxnet_tpu_torch.main", conf_path,
+         "task=data_reader", "dev=cpu", "data_service_reader=0",
+         f"data_service_status_dir={status}", f"telemetry_trace={t_reader}"],
+        cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        deadline = time.perf_counter() + DS_READY_S
+        while not os.path.exists(os.path.join(status, "reader_0.json")):
+            if reader.poll() is not None or time.perf_counter() > deadline:
+                raise AssertionError("the traced reader did not come up: "
+                                     + open(log.name).read()[-3000:])
+            time.sleep(0.05)
+        run(cfg)
+    finally:
+        reader.send_signal(signal.SIGTERM)
+        try:
+            reader.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            reader.kill()
+            reader.wait()
+        log.close()
+    r = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tools", "trace_assemble.py"),
+         t_trainer, t_reader, "-o", os.path.join(tmp, "ops_fleet.json"),
+         "--report", os.path.join(tmp, "ops_cp.json")],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, timeout=300)
+    if r.returncode:
+        raise AssertionError(f"trace_assemble exited {r.returncode}: "
+                             f"{r.stdout[-2000:]}")
+    with open(os.path.join(tmp, "ops_cp.json")) as f:
+        report = json.load(f)
+    fetch = [e for e in _trace_events(t_trainer)
+             if e["name"] == "dataservice.fetch"]
+    serve = {e["args"].get("parent_span_id") for e in
+             _trace_events(t_reader) if e["name"] == "dataservice.serve"}
+    unlinked = [e["args"]["span_id"] for e in fetch
+                if e["args"]["span_id"] not in serve]
+    if not fetch or unlinked or report["flow_links"] < len(fetch):
+        raise AssertionError(
+            f"trace_assemble: {len(fetch)} fetch spans, {len(unlinked)} "
+            f"without the reader's serve span, {report['flow_links']} flow "
+            f"links:\n{r.stdout[-1500:]}")
+    # a traceparent sent to task = serve parents its request span
+    t_serve = os.path.join(tmp, "ops_serve.json")
+    tid, sid = os.urandom(16).hex(), os.urandom(8).hex()
+    srv, t = start_serve(_serve_cfg(conf, [
+        "task=serve", f"model_in={model}", "serve_port=0",
+        "serve_buckets=1", "serve_max_batch=1", "silent=1",
+        f"telemetry_trace={t_serve}"]))
+    try:
+        width = int(np.prod([int(v) for v in TRAIN_IMAGE.split(",")]))
+        body = json.dumps({"data": np.random.RandomState(seed).randn(
+            1, width).astype(np.float32).tolist()}).encode()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/predict", data=body, headers={
+                "Content-Type": "application/json",
+                "traceparent": f"00-{tid}-{sid}-01"})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            resp.read()
+    finally:
+        stop_serve(srv, t)
+    reqs = [e for e in _trace_events(t_serve) if e["name"] == "serve.request"
+            and e["args"].get("trace_id") == tid
+            and e["args"].get("parent_span_id") == sid]
+    kids = [e for e in _trace_events(t_serve)
+            if e["args"].get("trace_id") == tid
+            and e["name"] != "serve.request"]
+    if len(reqs) != 1:
+        raise AssertionError(f"no serve.request span under the sent "
+                             f"traceparent (trace {tid})")
+    return {"fetch_spans": len(fetch), "flow_links": report["flow_links"],
+            "serve_children": sorted({e["name"] for e in kids})}
+
+
+def phase_operations(conf: str, seed: int, tmp: str, smi_line: str,
+                     telemetry: dict) -> dict:
+    """Phase 22 (see the module docstring); ``telemetry`` is phase 19's
+    result, whose child's profile bracket (f) reads."""
+    from cxxnet_tpu_torch.checkpoint import load_model
+    from cxxnet_tpu_torch.main import run
+    from cxxnet_tpu_torch.telemetry.ledger import read_ledger
+    t_start = time.perf_counter()
+    marks = {}
+    # (a) health on and off from one seed
+    on = _ops_health(conf, seed, tmp, 1)
+    off = _ops_health(conf, seed, tmp, 0)
+    marks["health"] = time.perf_counter()
+    equal = (torch.equal(on["losses"], off["losses"])
+             and _bits_equal(on["snap"], off["snap"])
+             and all(np.array_equal(a, b) for a, b in zip(
+                 _flat_np(on["snap"][2]), _flat_np(off["snap"][2]))))
+    extra = len(on["syncs"]) - len(off["syncs"])
+    intervals = OPS_STEPS // OPS_INTERVAL
+    gauges = [g for g in ("cxxnet_health_grad_norm",
+                          "cxxnet_health_bn_var_min",
+                          "cxxnet_health_dead_frac")
+              if g not in on["scrape"]]
+    graph_ok = off["graph_nodes"] == telemetry["graph_nodes"]
+    strag = [e for e in on["straggler_events"] + off["straggler_events"]
+             if e.get("straggler_host") == 1]
+    lines_ok = all("straggler:h1(" in r["straggler_line"] for r in (on, off))
+    if not equal or extra > intervals or gauges or not graph_ok \
+            or len(strag) != 2 or not lines_ok:
+        raise AssertionError(
+            f"operations (a): health on/off bit-equal {equal}; host syncs "
+            f"{len(on['syncs'])} on vs {len(off['syncs'])} off over "
+            f"{intervals} intervals; gauges missing from /metrics {gauges}; "
+            f"graph nodes health=0 {off['graph_nodes']} vs phase 19 "
+            f"{telemetry['graph_nodes']}; straggler events {strag}, lines "
+            f"{[r['straggler_line'] for r in (on, off)]}")
+    # (b) a trip with provenance
+    mdir_b = os.path.join(tmp, "b")
+    led_b = os.path.join(tmp, "ops_trip.jsonl")
+    cfg_b = _train_only(train_cfg(conf, seed, mdir_b, (
+        "health=1", f"failpoints={OPS_FAULT}", f"telemetry_ledger={led_b}",
+        "num_round=3", "print_step=0"), steps=OPS_ROUND_STEPS,
+        classes=TEL_CLASSES))
+    # the trip through the entry point, in a process of its own
+    r = subprocess.run(
+        [sys.executable, "-m", "cxxnet_tpu_torch.main",
+         write_conf(os.path.join(tmp, "ops_trip.conf"), cfg_b)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, timeout=900)
+    if r.returncode:
+        raise AssertionError(f"operations (b): python -m "
+                             f"cxxnet_tpu_torch.main exited "
+                             f"{r.returncode}:\n{r.stdout[-3000:]}")
+    final = load_model(os.path.join(mdir_b, "0002.model"))
+    finite = all(np.isfinite(v).all() for d in final["params"].values()
+                 for v in d.values())
+    trips = [r for r in read_ledger(led_b)
+             if r["event"] in ("sentinel_trip", "rollback")]
+    prov = {r.get("provenance") for r in trips}
+    if [r["event"] for r in trips] != ["sentinel_trip", "rollback"] \
+            or len(prov) != 1 or not next(iter(prov)) or not finite:
+        raise AssertionError(f"operations (b): {trips}, finite {finite}")
+    provenance = next(iter(prov))
+    marks["trip"] = time.perf_counter()
+    # (c) replay: bit_exact with the fault, 0 or 2 without, 3 on drift
+    # the recorded fault in a fresh process; the rest in this one
+    rc_on, out_on, replay_s = _replay([led_b, "--last", "--failpoints",
+                                       "on"], child=True)
+    rc_off, out_off, _ = _replay([led_b, "--last", "--failpoints", "off"],
+                                 child=False)
+    drift = write_conf(os.path.join(tmp, "ops_drift.conf"),
+                       [(k, "0.0123" if k == "eta" else v)
+                        for k, v in cfg_b])
+    rc_drift, out_drift, _ = _replay([led_b, "--last", "--config", drift],
+                                     child=False)
+    torch.cuda.empty_cache()
+    if rc_on != 0 or "verdict: bit_exact" not in out_on \
+            or f"replayed={provenance!r} OK" not in out_on \
+            or rc_off not in (0, 2) or rc_drift != 3 \
+            or "unreproducible:config-drift" not in out_drift \
+            or "eta" not in out_drift:
+        raise AssertionError(
+            f"operations (c): --failpoints on exit {rc_on}:\n{out_on}\n"
+            f"--failpoints off exit {rc_off}:\n{out_off}\n--config "
+            f"drift exit {rc_drift}:\n{out_drift}")
+    marks["replay"] = time.perf_counter()
+    # (d) a hang under the throttle
+    led_d = os.path.join(tmp, "ops_hang.jsonl")
+    cfg_d = _with_throttle(_train_only(train_cfg(
+        conf, seed, os.path.join(tmp, "d"), (
+            "telemetry_hang_s=1", f"telemetry_ledger={led_d}",
+            "save_model=0", "print_step=0"), steps=OPS_HANG_STEPS,
+        classes=TEL_CLASSES)), OPS_THROTTLE_MS)
+    run(cfg_d)
+    torch.cuda.empty_cache()
+    hangs = [r for r in read_ledger(led_d) if r["event"] == "hang_dump"]
+    if not hangs or not all("thread" in r.get("stacks", "").lower()
+                            for r in hangs):
+        raise AssertionError(f"operations (d): hang_dump events {hangs}")
+    marks["hang"] = time.perf_counter()
+    # (e) distributed tracing
+    tracing = _ops_tracing(conf, seed, tmp,
+                           os.path.join(mdir_b, "0002.model"))
+    marks["tracing"] = time.perf_counter()
+    # (f) the attribution of phase 19's profile bracket
+    att = telemetry["attribution"]
+    zero = [ph for ph in ("conv", "bn_act", "pool", "optim")
+            if not att["phases"].get(ph, {}).get("ms")]
+    if not att["line"] or zero or att["bn_elsewhere"] \
+            or att["phases"]["bn_act"]["count"] < att["bn_launches"]:
+        raise AssertionError(f"operations (f): {att}")
+    took = time.perf_counter() - t_start
+    spans = ", ".join(f"{k} {v - t_start:.1f}s" for k, v in marks.items())
+    print(f"operations: (a) health = 1 bit-equal to health = 0 over "
+          f"{OPS_STEPS} steps (losses, masters, momenta, BN statistics); "
+          f"host syncs {len(on['syncs'])} with health = 1, "
+          f"{len(off['syncs'])} without ({extra} more over {intervals} "
+          f"intervals of {OPS_INTERVAL}); step {on['step_ms']:.3f} ms with "
+          f"health = 1, {off['step_ms']:.3f} ms without (not gated); one "
+          f"step's CUDA graph {off['graph_nodes']} nodes with health = 0 "
+          f"(phase 19: {telemetry['graph_nodes']}), {on['graph_nodes']} "
+          f"with health = 1; cxxnet_health_* on /metrics; straggler "
+          f"{on['straggler_events'][0]['ratio']}x: h1 named, 3x the "
+          f"trainer's median {1e3 * on['median_s']:.2f} ms | (b) "
+          f"sentinel_trip and rollback "
+          f"provenance {provenance!r} | (c) replay --failpoints on exit "
+          f"{rc_on} bit_exact in {replay_s:.1f}s, off exit {rc_off}, eta "
+          f"drift exit {rc_drift} | (d) {len(hangs)} hang_dump(s) with a "
+          f"{OPS_THROTTLE_MS} ms throttle under telemetry_hang_s = 1 | (e) "
+          f"{tracing['fetch_spans']} dataservice.fetch spans all linked to "
+          f"the reader's dataservice.serve ({tracing['flow_links']} flow "
+          f"links), a sent traceparent parents serve.request and its "
+          f"{tracing['serve_children']} | (f) {att['line']} (bn_fwd and "
+          f"bn_bwd launches of the bracket {att['bn_launches']}, bn_act "
+          f"{att['phases']['bn_act']['count']}) | {took:.1f}s ({spans}) | "
+          f"{smi_line}", flush=True)
+    return {"health_step_ms": on["step_ms"], "plain_step_ms": off["step_ms"],
+            "host_syncs": [len(on["syncs"]), len(off["syncs"])],
+            "graph_nodes": [on["graph_nodes"], off["graph_nodes"]],
+            "provenance": provenance, "replay_s": replay_s,
+            "replay_rc": [rc_on, rc_off, rc_drift], "hang_dumps": len(hangs),
+            "tracing": tracing, "attribution": att, "seconds": took,
+            "marks": {k: v - t_start for k, v in marks.items()},
+            "card": smi_line}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--conf", default=FLAGSHIP)
     ap.add_argument("--json", default="", help="also write the results here")
     ap.add_argument("--phase", choices=("telemetry", "data_service",
-                                        "grammar"),
-                    help="run the build and this phase only")
+                                        "grammar", "operations"),
+                    help="run the build and this phase only (operations: "
+                         "phase 19, then 22)")
     ap.add_argument("--ab", nargs="+", metavar="TREE",
                     help="only time the vectorised BN, epilogue, LRN, "
                          "max-pool backward, stem and Adam kernels of each "
                          "checkout root in turn (e.g. parent change change "
                          "parent)")
+    ap.add_argument("--step-ab", nargs="+", metavar="TREE",
+                    help="only time the STEP_AB train steps of each "
+                         "checkout root in turn")
+    ap.add_argument("--wgrad", action="store_true",
+                    help="only time the float32 conv weight gradients of "
+                         "WGRAD_SHAPES by each route")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs the "
@@ -9223,6 +9876,12 @@ def main(argv=None) -> int:
         return 2
     if args.ab:
         return run_ab(args.ab, args.seed)
+    if args.step_ab:
+        return run_ab(args.step_ab, args.seed, "step_ab_times")
+    if args.wgrad:
+        print(phase_env(), flush=True)
+        wgrad_times(args.seed)
+        return 0
     from cxxnet_tpu_torch.ops import KERNELS
     from cxxnet_tpu_torch.serve import InferenceEngine
     t_start = time.perf_counter()
@@ -9237,9 +9896,14 @@ def main(argv=None) -> int:
     if args.phase:
         phase = {"telemetry": phase_telemetry,
                  "data_service": phase_data_service,
-                 "grammar": phase_grammar}[args.phase]
+                 "grammar": phase_grammar,
+                 "operations": phase_telemetry}[args.phase]
         with tempfile.TemporaryDirectory() as tmp:
-            phase(args.conf, args.seed, tmp, smi_line)
+            res = phase(args.conf, args.seed, tmp, smi_line)
+        if args.phase == "operations":
+            torch.cuda.empty_cache()
+            with tempfile.TemporaryDirectory() as tmp:
+                phase_operations(args.conf, args.seed, tmp, smi_line, res)
         print(smi_line, flush=True)
         return 0
     errs = phase_kernels(gen)
@@ -9362,6 +10026,11 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         grammar = phase_grammar(args.conf, args.seed, tmp, smi_line)
     mark("grammar")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        operations = phase_operations(args.conf, args.seed, tmp, smi_line,
+                                      telemetry)
+    mark("operations")
     source["stem"] = (imgrec_times, imgrec_launches)
     kernels = []
     for name, k in KERNELS.items():
@@ -9425,6 +10094,7 @@ def main(argv=None) -> int:
               "telemetry": telemetry,
               "data_service": data_service,
               "grammar": grammar,
+              "operations": operations,
               "phase_seconds": {b[0]: b[1] - a[1]
                                 for a, b in zip(marks, marks[1:])},
               "card": smi_line, "seconds": time.perf_counter() - t_start}

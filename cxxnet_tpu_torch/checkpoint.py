@@ -55,6 +55,7 @@ import numpy as np
 
 from .io import stream
 from .resilience import counters, failpoints
+from .telemetry.disttrace import DISTTRACE
 from .telemetry.ledger import LEDGER
 from .telemetry.registry import REGISTRY
 from .telemetry.trace import TRACER
@@ -117,7 +118,10 @@ def save_model(path: str, *, structure_sig: tuple, round_counter: int,
     are). ``extra_meta`` adds keys to the meta JSON (a derived round's
     ``__quant_meta__``); a key that clashes with the reserved fields
     raises. The file appears atomically (``stream.write_bytes_atomic``)."""
-    with TRACER.span("ckpt.save", cat="ckpt", args={"round": round_counter}):
+    # a distributed-trace root (the plain span when that is off): the
+    # ckpt_save event below carries the save's trace id
+    with DISTTRACE.span("ckpt.save", cat="ckpt",
+                        args={"round": round_counter}):
         t0 = time.perf_counter()
         ok = False
         try:

@@ -5,8 +5,9 @@ serving and training paths need: the tokenizer and
 ``parse_config_string``, the mixed-precision :class:`Policy` (mapped to
 torch dtypes), the ``fused_kernels`` grammar, the ``serve_*``,
 ``lm_serve_*`` / ``kv_*``, ``quant_*``, ``telemetry_*``,
-``data_service*`` and ``io_retry_*`` namespaces, the training keys the
-port does not run yet, and the split of iterator
+``data_service*``, ``io_retry_*``, ``health*``, ``partition_rules`` /
+``fsdp_*`` and ``shard_ckpt*`` / ``compile_cache_dir`` namespaces, the
+training keys the port does not run yet, and the split of iterator
 sections (``data = train`` .. ``iter = end``) from the global settings. Grammar: whitespace-separated tokens, ``=`` as its own token,
 ``#`` line comments, ``"..."`` single-line and ``'...'`` multi-line
 quoted strings with backslash escapes. Order of pairs is preserved,
@@ -95,7 +96,7 @@ class TelemetryConfig:
     step-time probe's (``telemetry_steptime = 1``)."""
     trace_path: str = ""          # telemetry_trace: Chrome-trace JSON out
     trace_capacity: int = 65536   # telemetry_trace_capacity: span ring
-    # -- distributed tracing (refused: TELEMETRY_QUEUED) ---------------
+    # -- distributed tracing (telemetry/disttrace.py) ------------------
     trace_sample: float = 1.0     # telemetry_trace_sample: root fraction
     trace_tail_pct: float = 0.0   # telemetry_trace_tail_pct: exemplars
     trace_tail_window: int = 128  # telemetry_trace_tail_window: history
@@ -110,7 +111,7 @@ class TelemetryConfig:
     steptime: int = 1             # telemetry_steptime: 0 disables probe
     ledger_path: str = ""         # telemetry_ledger: run-ledger JSONL
     run_id: str = ""              # telemetry_run_id: share across procs
-    # -- fleet observability (refused: TELEMETRY_QUEUED) ---------------
+    # -- fleet observability (telemetry/aggregate.py, anomaly.py) ------
     fleet_dir: str = ""           # telemetry_fleet_dir: snapshot push dir
     push_interval_s: float = 10.0  # telemetry_push_interval (seconds)
     host: int = -1                # telemetry_host: -1 = the dp rank
@@ -122,29 +123,10 @@ class TelemetryConfig:
     storm_threshold: int = 8      # telemetry_storm_threshold
 
 
-#: ``telemetry_*`` keys of the JAX package's fleet observability and
-#: distributed tracing: refused unless they hold their default
-TELEMETRY_QUEUED = {
-    "telemetry_fleet_dir": "fleet observability",
-    "telemetry_push_interval": "fleet observability",
-    "telemetry_hang_s": "the hang watchdog",
-    "telemetry_hang_dryrun": "the hang watchdog",
-    "telemetry_straggler_factor": "the straggler detector",
-    "telemetry_straggler_min_steps": "the straggler detector",
-    "telemetry_storm_window": "the recompile-storm detector",
-    "telemetry_storm_threshold": "the recompile-storm detector",
-    "telemetry_trace_sample": "distributed tracing",
-    "telemetry_trace_tail_pct": "distributed tracing",
-    "telemetry_trace_tail_window": "distributed tracing",
-    "telemetry_trace_anchor_s": "distributed tracing",
-}
-
-
 def parse_telemetry_config(cfg: ConfigPairs) -> TelemetryConfig:
     """Collect and validate the ``telemetry_*`` keys (last occurrence
     wins; an unknown key in the namespace raises, as in the JAX
-    package). A key of :data:`TELEMETRY_QUEUED` that does not hold its
-    default raises naming its ROADMAP item."""
+    package)."""
     known = {
         "telemetry_trace": ("trace_path", str),
         "telemetry_trace_capacity": ("trace_capacity", int),
@@ -184,13 +166,6 @@ def parse_telemetry_config(cfg: ConfigPairs) -> TelemetryConfig:
                 vals[field] = conv(val)
             except ValueError as e:
                 raise ConfigError(f"bad {name} value {val!r}: {e}")
-    defaults = TelemetryConfig()
-    for name, item in TELEMETRY_QUEUED.items():
-        field = known[name][0]
-        if field in vals and vals[field] != getattr(defaults, field):
-            raise ConfigError(
-                f"{name} = {vals[field]}: not run by the PyTorch port yet "
-                f"(ROADMAP Queue A 12, still queued: {item})")
     tc = TelemetryConfig(**vals)
     if tc.trace_capacity < 1:
         raise ConfigError(
@@ -200,6 +175,22 @@ def parse_telemetry_config(cfg: ConfigPairs) -> TelemetryConfig:
         raise ConfigError(
             f"telemetry_sync_interval must be >= 1, got "
             f"{tc.sync_interval}")
+    if not 0.0 <= tc.trace_sample <= 1.0:
+        raise ConfigError(
+            f"telemetry_trace_sample must be in [0, 1], got "
+            f"{tc.trace_sample}")
+    if not 0.0 <= tc.trace_tail_pct < 100.0:
+        raise ConfigError(
+            f"telemetry_trace_tail_pct must be in [0, 100) "
+            f"(0 = keep every sampled trace), got {tc.trace_tail_pct}")
+    if tc.trace_tail_window < 2:
+        raise ConfigError(
+            f"telemetry_trace_tail_window must be >= 2, got "
+            f"{tc.trace_tail_window}")
+    if tc.trace_anchor_s <= 0:
+        raise ConfigError(
+            f"telemetry_trace_anchor_s must be > 0, got "
+            f"{tc.trace_anchor_s}")
     if tc.log_max_kb < 1:
         raise ConfigError(
             f"telemetry_log_max_kb must be >= 1, got {tc.log_max_kb}")
@@ -207,6 +198,26 @@ def parse_telemetry_config(cfg: ConfigPairs) -> TelemetryConfig:
         raise ConfigError(
             f"telemetry_log_interval must be > 0, got "
             f"{tc.log_interval_s}")
+    if tc.push_interval_s <= 0:
+        raise ConfigError(
+            f"telemetry_push_interval must be > 0, got "
+            f"{tc.push_interval_s}")
+    if tc.hang_s < 0:
+        raise ConfigError(
+            f"telemetry_hang_s must be >= 0, got {tc.hang_s}")
+    if tc.straggler_factor <= 1.0:
+        raise ConfigError(
+            f"telemetry_straggler_factor must be > 1, got "
+            f"{tc.straggler_factor}")
+    if tc.straggler_min_steps < 1:
+        raise ConfigError(
+            f"telemetry_straggler_min_steps must be >= 1, got "
+            f"{tc.straggler_min_steps}")
+    if tc.storm_window_s <= 0 or tc.storm_threshold < 1:
+        raise ConfigError(
+            "telemetry_storm_window must be > 0 and "
+            "telemetry_storm_threshold >= 1, got "
+            f"{tc.storm_window_s}/{tc.storm_threshold}")
     if tc.profile_steps:
         from .telemetry.profiler import parse_step_range
         try:
@@ -513,11 +524,12 @@ def parse_quant_config(cfg: ConfigPairs) -> QuantConfig:
 #: training keys of features the port does not train with yet ->
 #: (predicate "holds its off value", ROADMAP item)
 TRAIN_NOT_YET = {
-    "health": (lambda v: _same_value(v, "0"),
-               "Queue A 12, still queued: model health (its trainer "
-               "half)"),
     "shard_ckpt": (lambda v: _same_value(v, "0"),
                    "Queue A 11 (sharded checkpoints)"),
+    "shard_ckpt_shards": (lambda v: _same_value(v, "0"),
+                          "Queue A 11 (sharded checkpoints)"),
+    "compile_cache_dir": (lambda v: not v.strip(),
+                          "Queue A 11 (the compile cache)"),
     "save_async": (lambda v: _same_value(v, "0"),
                    "Queue A 11 (async save)"),
     "keep_last_n": (lambda v: _same_value(v, "0"),
@@ -528,6 +540,12 @@ TRAIN_NOT_YET = {
                      "Queue A 9 (model parallelism)"),
     "pipeline_parallel": (lambda v: _same_value(v, "1"),
                           "Queue A 9 (model parallelism)"),
+    "fsdp_axis": (lambda v: not v.strip(),
+                  "Queue A 9 (model parallelism: FSDP)"),
+    "fsdp_min_size": (lambda v: _same_value(v, "1024"),
+                      "Queue A 9 (model parallelism: FSDP)"),
+    "partition_rules": (lambda v: not v.strip(),
+                        "Queue A 9 (model parallelism: partition rules)"),
     "dist_coordinator": (lambda v: not v.strip(),
                          "Queue A 5, still queued: multi-host launch"),
     "dist_num_proc": (lambda v: _same_value(v, "1"),
@@ -542,12 +560,172 @@ TRAIN_NOT_YET_PREFIXES = {
 }
 
 
+# -- sharding, checkpoint format, model health: the JAX package's namespaces --
+
+@dataclasses.dataclass(frozen=True)
+class ShardingConfig:
+    """The rule-driven sharding namespace (``partition_rules``,
+    ``fsdp_*``), validated as the JAX package validates it; the port
+    trains none of it yet (:data:`TRAIN_NOT_YET`)."""
+    partition_rules: str = ""   # custom rules prepended to the model table
+    fsdp_axis: str = ""         # mesh axis for at-rest param/opt sharding
+    fsdp_min_size: int = 1024   # smallest leaf (elements) worth sharding
+
+
+_FSDP_AXES = ("", "data", "model")
+
+
+def _check_rule_string(text: str) -> None:
+    """The syntax check of the JAX package's ``parse_rule_string``:
+    ``pattern->axes;...``, each pattern a regex."""
+    import re
+    for entry in text.split(";"):
+        entry = entry.strip()
+        if not entry:
+            continue
+        if "->" not in entry:
+            raise ValueError(
+                f"partition rule {entry!r} has no '->' "
+                "(expected pattern->axis,axis,...)")
+        pat = entry.split("->", 1)[0].strip()
+        try:
+            re.compile(pat)
+        except re.error as e:
+            raise ValueError(f"bad partition-rule regex {pat!r}: {e}")
+
+
+def _parse_namespace(cfg: ConfigPairs, what: str, known, in_space):
+    """The JAX package's namespace walk: the keys for which
+    ``in_space(name)`` holds must be in ``known`` (name -> (field,
+    conv)); last occurrence wins."""
+    vals = {}
+    for name, val in cfg:
+        if in_space(name):
+            if name not in known:
+                raise ConfigError(
+                    f"unknown {what} setting {name!r}; valid keys: "
+                    + ", ".join(sorted(known)))
+            field, conv = known[name]
+            try:
+                vals[field] = conv(val)
+            except ValueError as e:
+                raise ConfigError(f"bad {name} value {val!r}: {e}")
+    return vals
+
+
+def parse_sharding_config(cfg: ConfigPairs) -> ShardingConfig:
+    """Collect and validate ``partition_rules`` / ``fsdp_*`` (the JAX
+    package's ``parse_sharding_config``, messages included)."""
+    sc = ShardingConfig(**_parse_namespace(cfg, "sharding", {
+        "partition_rules": ("partition_rules", str),
+        "fsdp_axis": ("fsdp_axis", str),
+        "fsdp_min_size": ("fsdp_min_size", int),
+    }, lambda n: n.startswith("fsdp_") or n.startswith("partition_rule")))
+    if sc.fsdp_axis not in _FSDP_AXES:
+        raise ConfigError(
+            f"fsdp_axis must be one of {'|'.join(a for a in _FSDP_AXES if a)}"
+            f" (or unset), got {sc.fsdp_axis!r}")
+    if sc.fsdp_min_size < 0:
+        raise ConfigError(
+            f"fsdp_min_size must be >= 0, got {sc.fsdp_min_size}")
+    if sc.partition_rules:
+        try:
+            _check_rule_string(sc.partition_rules)
+        except ValueError as e:
+            raise ConfigError(f"bad partition_rules value: {e}")
+    return sc
+
+
+@dataclasses.dataclass(frozen=True)
+class CkptConfig:
+    """The sharded-checkpoint / compile-cache namespace, validated as the
+    JAX package validates it; the port runs none of it yet
+    (:data:`TRAIN_NOT_YET`)."""
+    shard_ckpt: int = 0          # shard_ckpt: 1 = rounds are shard sets
+    shard_ckpt_shards: int = 0   # shard_ckpt_shards: files a set
+    compile_cache_dir: str = ""  # compile_cache_dir ('' = off)
+
+
+def parse_ckpt_config(cfg: ConfigPairs) -> CkptConfig:
+    """Collect and validate ``shard_ckpt*`` / ``compile_cache_dir`` (the
+    JAX package's ``parse_ckpt_config``, messages included)."""
+    cc = CkptConfig(**_parse_namespace(cfg, "checkpoint", {
+        "shard_ckpt": ("shard_ckpt", int),
+        "shard_ckpt_shards": ("shard_ckpt_shards", int),
+        "compile_cache_dir": ("compile_cache_dir", str),
+    }, lambda n: n.startswith("shard_ckpt") or n.startswith("compile_cache")))
+    if cc.shard_ckpt not in (0, 1):
+        raise ConfigError(
+            f"shard_ckpt must be 0 or 1, got {cc.shard_ckpt}")
+    if cc.shard_ckpt_shards < 0:
+        raise ConfigError(
+            f"shard_ckpt_shards must be >= 0 (0 = one per process), "
+            f"got {cc.shard_ckpt_shards}")
+    return cc
+
+
+@dataclasses.dataclass(frozen=True)
+class HealthConfig:
+    """The ``health`` / ``health_*`` knob set (the JAX package's): the
+    in-step model-health probe (telemetry/modelhealth.py). ``health = 0``
+    adds no tensor op and no host sync to the step."""
+    enabled: int = 0        # health: 1 = in-step model-health probe
+    interval: int = 0       # health_interval: sync cadence in steps
+    #                         (0 = follow sentinel_interval, default 8)
+    window: int = 3         # health_window: consecutive bad syncs
+    #                         before a detector emits health_advice
+    dead_frac: float = 0.9  # health_dead_frac: dead-ReLU threshold
+    bn_var_floor: float = 1e-8  # health_bn_var_floor: BN collapse
+    ratio_min: float = 1e-8     # health_ratio_min: update/weight band
+    ratio_max: float = 0.1      # health_ratio_max: update/weight band
+
+
+def parse_health_config(cfg: ConfigPairs) -> HealthConfig:
+    """Collect and validate ``health`` / ``health_*`` (the JAX package's
+    ``parse_health_config``, messages included)."""
+    hc = HealthConfig(**_parse_namespace(cfg, "health", {
+        "health": ("enabled", int),
+        "health_interval": ("interval", int),
+        "health_window": ("window", int),
+        "health_dead_frac": ("dead_frac", float),
+        "health_bn_var_floor": ("bn_var_floor", float),
+        "health_ratio_min": ("ratio_min", float),
+        "health_ratio_max": ("ratio_max", float),
+    }, lambda n: n == "health" or n.startswith("health_")))
+    if hc.enabled not in (0, 1):
+        raise ConfigError(f"health must be 0 or 1, got {hc.enabled}")
+    if hc.interval < 0:
+        raise ConfigError(
+            f"health_interval must be >= 0 (0 = sentinel_interval), "
+            f"got {hc.interval}")
+    if hc.window < 1:
+        raise ConfigError(
+            f"health_window must be >= 1, got {hc.window}")
+    if not 0.0 < hc.dead_frac <= 1.0:
+        raise ConfigError(
+            f"health_dead_frac must be in (0, 1], got {hc.dead_frac}")
+    if hc.bn_var_floor < 0:
+        raise ConfigError(
+            f"health_bn_var_floor must be >= 0, got {hc.bn_var_floor}")
+    if not 0.0 <= hc.ratio_min < hc.ratio_max:
+        raise ConfigError(
+            "health_ratio_min must be >= 0 and < health_ratio_max, got "
+            f"{hc.ratio_min}/{hc.ratio_max}")
+    return hc
+
+
 def check_train_config(cfg: ConfigPairs) -> None:
-    """Raise :class:`ConfigError` naming the ROADMAP item for the first
-    training key whose feature the port does not run yet, unless it
-    holds its off value (the last occurrence of a key decides), and for
-    a ``telemetry_*`` key that :func:`parse_telemetry_config` refuses."""
+    """Validate the training namespaces as the JAX package does
+    (``telemetry_*``, ``partition_rules`` / ``fsdp_*``, ``shard_ckpt*`` /
+    ``compile_cache_dir``, ``health*``: an unknown key or a bad value
+    raises its message), then raise :class:`ConfigError` naming the
+    ROADMAP item for the first training key whose feature the port does
+    not run yet, unless it holds its off value (the last occurrence of a
+    key decides)."""
     parse_telemetry_config(cfg)
+    parse_sharding_config(cfg)
+    parse_ckpt_config(cfg)
+    parse_health_config(cfg)
     last = {}
     for name, val in cfg:
         last[name] = val

@@ -40,10 +40,15 @@ from ..io.data import DataBatch, DataIter
 from ..io.proc import ThreadBufferIterator
 from ..resilience import failpoints, retry_call
 from ..resilience.failpoints import InjectedFault
+from ..telemetry.disttrace import DISTTRACE, estimate_offset
 from ..telemetry.ledger import LEDGER
 from ..telemetry.registry import REGISTRY
 from . import assign, pipeline, wire
 from .pipeline import LocalShardSource
+
+#: a clock probe runs on the train loop's thread: a partitioned reader
+#: must not stall it for the whole fetch timeout
+_CLOCK_PROBE_TIMEOUT_S = 0.25
 
 
 class NoReaderAvailable(OSError):
@@ -140,9 +145,27 @@ class DataServiceClient:
               ) -> Tuple[Dict, Optional[DataBatch]]:
         """(header, batch) of one address; the batch is None at the end
         of the shard. Raises :class:`NoReaderAvailable` when every
-        endpoint is down (what degrades the iterator)."""
+        endpoint is down (what degrades the iterator).
+
+        Under distributed tracing the fetch is the ``dataservice.fetch``
+        span, whose context rides the request's ``tp`` field, so the
+        reader's serve and decode spans parent under it; an unsampled
+        trace adds no wire bytes."""
+        if not DISTTRACE.enabled:
+            return self._fetch(epoch, shard, batch, None)
+        with DISTTRACE.span("dataservice.fetch", cat="dataservice",
+                            args={"epoch": int(epoch),
+                                  "shard": int(shard),
+                                  "batch": int(batch)}):
+            return self._fetch(epoch, shard, batch,
+                               DISTTRACE.current_traceparent())
+
+    def _fetch(self, epoch: int, shard: int, batch: int,
+               tp: Optional[str]) -> Tuple[Dict, Optional[DataBatch]]:
         req = {"op": "fetch", "epoch": int(epoch), "shard": int(shard),
                "batch": int(batch)}
+        if tp:
+            req["tp"] = tp
         owner = self._owners.get(shard, self.endpoints[0])
         last_exc: Optional[BaseException] = None
         for i, ep in enumerate(assign.failover_order(self.live, owner)):
@@ -174,6 +197,33 @@ class DataServiceClient:
         ``cache_entries``."""
         header, _ = self._request_retrying(endpoint, {"op": "stats"})
         return header
+
+    def probe_clock(self, endpoint: str) -> Optional[Tuple[float, float]]:
+        """One clock-offset probe of a reader (the ``clock`` op): the
+        NTP-style midpoint estimate of its wall clock against ours,
+        recorded into the trace dump's ``otherData.clock_offsets`` for
+        tools/trace_assemble.py. On a socket of its own, capped at
+        ``_CLOCK_PROBE_TIMEOUT_S`` (it runs on the train loop's thread
+        at an epoch's start), with no ``data.fetch`` failpoint check;
+        a reader that does not answer gives None."""
+        cap = min(_CLOCK_PROBE_TIMEOUT_S, self.svc.timeout_ms / 1e3)
+        host, port = self.svc.split_endpoint(endpoint)
+        deadline = time.monotonic() + cap
+        try:
+            with socket.create_connection((host, port),
+                                          timeout=cap) as sock:
+                t0 = time.time()
+                wire.send_request(sock, {"op": "clock"})
+                header, _ = wire.recv_frame(sock, deadline=deadline)
+                t1 = time.time()
+        except OSError:
+            return None
+        wall = header.get("wall")
+        if not isinstance(wall, (int, float)):
+            return None
+        offset, rtt = estimate_offset(t0, float(wall), t1)
+        DISTTRACE.clock_offset(endpoint, offset, rtt)
+        return offset, rtt
 
     def close(self) -> None:
         for ep in list(self._socks):
@@ -228,6 +278,11 @@ class ServiceIterator(DataIter):
                                          self.n_shards)
         self._live = collections.deque(order)
         self._counters = {s: 0 for s in order}
+        # the readers' clock offsets, probed once an epoch for the trace
+        # assembly (free with tracing off, best-effort with a reader down)
+        if DISTTRACE.enabled and self.client is not None:
+            for ep in self.client.live:
+                self.client.probe_clock(ep)
 
     # -- the ladder -----------------------------------------------------------
     def _degrade(self, why: str) -> None:

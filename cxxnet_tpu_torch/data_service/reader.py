@@ -47,8 +47,10 @@ from typing import Dict, Optional, Tuple
 from ..config import ConfigPairs, DataServiceConfig
 from ..io import stream
 from ..resilience import failpoints
+from ..telemetry.disttrace import DISTTRACE, set_trace_identity
 from ..telemetry.ledger import LEDGER
 from ..telemetry.registry import REGISTRY
+from ..telemetry.trace import TRACER
 from . import assign, wire
 from .pipeline import LocalShardSource
 
@@ -157,7 +159,13 @@ class DataReaderServer:
             if frame is not None:
                 return frame
             t0 = time.perf_counter()
-            batch = self.source.get(epoch, shard, b)
+            # recorded only under a client's propagated fetch context:
+            # the readahead thread's decodes open no root trace
+            with DISTTRACE.child_span("dataservice.decode",
+                                      cat="dataservice",
+                                      args={"epoch": epoch,
+                                            "shard": shard, "batch": b}):
+                batch = self.source.get(epoch, shard, b)
             self._h_decode.observe(time.perf_counter() - t0)
             if batch is None:
                 frame = _EOS
@@ -196,7 +204,8 @@ class DataReaderServer:
         with self._stats_lock:
             self.errors += 1
 
-    def _serve_fetch(self, addr: Address) -> bytes:
+    def _serve_fetch(self, addr: Address) -> Tuple[bytes, bool]:
+        """The frame of ``addr`` and whether the cache held it."""
         hit = self._cache_get(addr)
         frame = hit if hit is not None else self._decode(addr)
         self._readahead_hint(addr)
@@ -207,7 +216,7 @@ class DataReaderServer:
         self._c_served.inc()
         if hit is not None:
             self._c_hits.inc()
-        return frame
+        return frame, hit is not None
 
     def _respond(self, req: Dict) -> bytes:
         op = req.get("op")
@@ -227,11 +236,32 @@ class DataReaderServer:
                 return wire.pack_error(
                     "injected fault at failpoint 'data.serve'",
                     epoch=addr[0], shard=addr[1], batch=addr[2])
-            frame = self._serve_fetch(addr)
+            # a request carrying a sampled ``tp`` parents this reader's
+            # serve and decode spans under the trainer's fetch span
+            ctx = (DISTTRACE.extract(req.get("tp"))
+                   if DISTTRACE.enabled else None)
+            if ctx is None:
+                frame, _hit = self._serve_fetch(addr)
+            else:
+                with DISTTRACE.span("dataservice.serve",
+                                    cat="dataservice", parent=ctx,
+                                    args={"epoch": addr[0],
+                                          "shard": addr[1],
+                                          "batch": addr[2],
+                                          "reader": self.index}) as sp:
+                    frame, hit = self._serve_fetch(addr)
+                    sp_args = getattr(sp, "args", None)
+                    if sp_args is not None:
+                        sp_args["cache_hit"] = hit
             if frame is _EOS:
                 return wire.pack_eos(epoch=addr[0], shard=addr[1],
                                      batch=addr[2])
             return frame
+        if op == "clock":
+            # the clock probe (client.probe_clock): our wall clock,
+            # between the client's send and receive times
+            return wire.pack_frame(dict(
+                status="ok", wall=time.time(), reader=self.index))
         if op == "stats":
             with self._stats_lock:
                 return wire.pack_frame(dict(
@@ -277,6 +307,11 @@ class DataReaderServer:
 
         self._server = _Server((host, port), _Handler)
         self.port = self._server.server_address[1]
+        if TRACER.enabled:
+            # names this process's track in the assembled trace and keys
+            # the clients' clock probes (by the configured endpoint)
+            set_trace_identity(role="data_reader", reader=self.index,
+                               service_endpoint=self.endpoint)
         self._thread = threading.Thread(
             target=self._server.serve_forever, daemon=True,
             name=f"ds-reader-{self.index}")

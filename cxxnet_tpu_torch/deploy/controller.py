@@ -40,8 +40,6 @@ Where the port differs from the JAX package:
   structure that is not the net's) is refused by the watcher before any
   replica drains, and the controller rejects it as ``blocked`` by the
   ``offline`` gate, with the backoff;
-* the incident's trace ids are empty until distributed tracing
-  (ROADMAP Queue A 12).
 
 A promotion, a rollback (and each canary's ``weights_reload`` back to
 its copy) and an incident are ledger events (``deploy_promote``,

@@ -27,10 +27,10 @@ Where the port differs from the JAX package:
   no trips, as the burn gate reads 0 without an SLO tracker. The JAX
   controller reads ``breaker.opens`` and raises there.
 
-A failing result carries trace ids of the requests behind it in the
-JAX package; the port's are empty until distributed tracing
-(``ReplicaPool.failed_traces``, ROADMAP Queue A 12). Each version's
-shadow probe is the ``deploy.probe`` span.
+A failing result carries the trace ids of the requests behind it
+(``ReplicaPool.failed_traces``; sampled traces under distributed
+tracing). Each version's shadow probe is the ``deploy.probe`` span,
+whose trace id a failing parity gate keeps.
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from ..telemetry.modelhealth import reload_verdict
-from ..telemetry.trace import TRACER
+from ..telemetry.disttrace import DISTTRACE
 from .policy import DeployConfig
 
 
@@ -180,9 +180,14 @@ def parity_gate(pool, canary_version: str, incumbent_version: str,
     # a policy knob, the admission limit the operator's
     chunk = max(1, eng.max_batch)
     outs: Dict[str, np.ndarray] = {}
+    tids: List[str] = []
     for ver in (canary_version, incumbent_version):
-        with TRACER.span("deploy.probe", cat="deploy",
-                         args={"version": ver, "rows": cfg.probe_rows}):
+        with DISTTRACE.span("deploy.probe", cat="deploy",
+                            args={"version": ver,
+                                  "rows": cfg.probe_rows}) as sp:
+            ctx = getattr(sp, "ctx", None)
+            if ctx is not None and ctx.sampled:
+                tids.append(ctx.trace_id)
             futs = [pool.submit(probes[off:off + chunk], kind="predict",
                                 version=ver)
                     for off in range(0, cfg.probe_rows, chunk)]
@@ -201,7 +206,8 @@ def parity_gate(pool, canary_version: str, incumbent_version: str,
                    cfg.parity_tol)),
         details={"disagree_frac": frac, "rows": cfg.probe_rows,
                  "canary": canary_version,
-                 "incumbent": incumbent_version})
+                 "incumbent": incumbent_version},
+        trace_ids=[] if ok else tids)
 
 
 def online_gates(pool, canary_idxs: List[int], canary_version: str,

@@ -198,6 +198,10 @@ class ApplyCtx:
     # data parallelism: this rank's parallel.DpContext (batch_norm takes
     # the global batch's moments over it); None on one device
     dp: Optional[Any] = None
+    # model health (health = 1): layer name -> its activation taps; a
+    # batch_norm adds the smallest batch variance of the moments its
+    # kernel returns (telemetry/modelhealth.py). None = health off
+    health_sink: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
 
     def draw_source(self, layer: str) -> Draws:
         """The layer's draws; a training forward without them raises."""

@@ -10,7 +10,17 @@ round) the conv is the int8 kernel's product over an int8 im2col with
 the bias and relu in its epilogue (``ops/fused_quant.int8_conv``), its
 weight laid out (cout, kh*kw*cin/group) at load. In training the conv is
 differentiated by PyTorch autograd, as the JAX package left its
-gradient to XLA.
+gradient to XLA, but for one product: on a card, the float32 weight
+gradient of a stride-1 conv with a kernel wider than 1x1 is the explicit
+im2col product ``sum_n,l dy x_col^T`` (:func:`conv2d_weight_gemm`,
+cuBLAS gemms a sample and group in float32, over chunks of samples).
+cuDNN's heuristics pick Winograd or FFT algorithms for those convs
+(AlexNet's 5x5 conv2 reads 5.1e-3 rel L2 from a float64 reference on an
+NVIDIA H100, its input gradient and output 2e-7, the CPU's weight
+gradient 3.7e-6), with or without ``cudnn.deterministic``, and no
+PyTorch switch names an algorithm; strided and 1x1 convs, which those
+algorithms do not take, keep cuDNN's gradient (PERF.md sections 6-7 have
+the precision and the time of each route).
 
 Pooling keeps cxxnet's ceil-mode geometry exactly (``_pool_geometry``):
 the node is padded explicitly, with ``-inf`` for max and 0 for sum, and
@@ -103,12 +113,86 @@ class ConvolutionLayer(Layer):
                 padding=(hp.pad_y, hp.pad_x), groups=hp.num_group,
                 fused=ctx.fused)]
         x = inputs[0].to(ctx.compute_dtype)
-        y = F.conv2d(x.permute(0, 3, 1, 2), params["wmat"],
-                     stride=hp.stride, padding=(hp.pad_y, hp.pad_x),
-                     groups=hp.num_group)
+        w = params["wmat"]
+        conv = (_Conv2dGemmWgrad.apply
+                if x.dtype == torch.float32 and x.is_cuda
+                and torch.is_grad_enabled() and w.requires_grad
+                and wgrad_by_gemm(hp.stride, hp.kernel_height,
+                                  hp.kernel_width)
+                else _conv2d)
+        y = conv(x.permute(0, 3, 1, 2), w, hp.stride, (hp.pad_y, hp.pad_x),
+                 hp.num_group)
         y = y.permute(0, 2, 3, 1).contiguous()
         return [bias_act(y, params.get("bias"), ctx.fuse_act or "none",
                          ctx.fused)]
+
+
+def _conv2d(x, w, stride, padding, groups):
+    return F.conv2d(x, w, stride=stride, padding=padding, groups=groups)
+
+
+#: the most bytes of im2col columns and per-sample products that
+#: :func:`conv2d_weight_gemm` holds at once
+WGRAD_CHUNK_BYTES = 1 << 28
+
+
+def wgrad_by_gemm(stride: int, kh: int, kw: int) -> bool:
+    """Whether a float32 conv on a card takes its weight gradient from
+    :func:`conv2d_weight_gemm`: the stride-1 convs wider than 1x1, the
+    ones cuDNN's Winograd and FFT algorithms take."""
+    return stride == 1 and kh * kw > 1
+
+
+def conv2d_weight_gemm(x: torch.Tensor, gy: torch.Tensor, wshape,
+                       stride: int, padding, groups: int,
+                       chunk_bytes: int = WGRAD_CHUNK_BYTES) -> torch.Tensor:
+    """The weight gradient of ``F.conv2d(x, w)`` (NCHW ``x`` and ``gy``,
+    OIHW ``wshape``) as the im2col product: per sample and group, ``gy``
+    (cout/g, l) times the unfolded ``x`` (l, cin/g*kh*kw), summed over
+    the samples of a chunk, then the chunks added in order. A chunk's
+    columns and products take at most ``chunk_bytes`` (one sample at
+    least)."""
+    o, cg, kh, kw = wshape
+    n, k = x.shape[0], cg * kh * kw
+    per_sample = (groups * k * gy[0, 0].numel() + o * k) * x.element_size()
+    step = max(1, min(n, chunk_bytes // per_sample))
+    out = None
+    for i in range(0, n, step):
+        cols = F.unfold(x[i:i + step], (kh, kw), padding=padding,
+                        stride=stride)
+        cols = cols.view(cols.shape[0], groups, k, -1)
+        g = gy[i:i + step].reshape(cols.shape[0], groups, o // groups, -1)
+        # one gemm a sample and group (the transposed operand is read in
+        # place), then the sum over the chunk's samples
+        part = torch.matmul(g, cols.transpose(-1, -2)).sum(0)
+        out = part if out is None else out.add_(part)
+    return out.reshape(wshape)
+
+
+class _Conv2dGemmWgrad(torch.autograd.Function):
+    """``F.conv2d`` whose backward takes the input gradient from cuDNN and
+    the weight gradient from :func:`conv2d_weight_gemm` (float32 on a
+    card: see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, groups):
+        ctx.save_for_backward(x, w)
+        ctx.conf = (stride, padding, groups)
+        return _conv2d(x, w, stride, padding, groups)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        stride, padding, groups = ctx.conf
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.ops.aten.convolution_backward(
+                gy, x, w, None, [stride, stride], list(padding), [1, 1],
+                False, [0, 0], groups, [True, False, False])[0]
+        if ctx.needs_input_grad[1]:
+            gw = conv2d_weight_gemm(x, gy, tuple(w.shape), stride, padding,
+                                    groups)
+        return gx, gw, None, None, None
 
 
 def _pool_geometry(size: int, k: int, s: int, p: int):

@@ -141,6 +141,11 @@ class _BatchNormBase(Layer):
                                           self.two_pass)
             if not self.two_pass and not self._clamp_checked:
                 self._check_clamp(x, mean.detach())
+        if ctx.health_sink is not None:
+            # the batch variance the kernel already returned: no moments
+            # computed again, no plain path forced
+            ctx.health_sink.setdefault(self.name, {})["bn_var_min"] = \
+                var.detach().min()
         if self.moving_avg:
             m = self.bn_momentum
             with torch.no_grad():

@@ -57,16 +57,28 @@ escalate to the ``serve_replicas`` flagship replicas of the round
 (``serve/cascade.py``).
 
 Telemetry and fault tolerance (``telemetry/``, ``resilience/``), the
-JAX package's single-process plane: ``telemetry_trace``,
-``telemetry_port`` (``GET /metrics``), ``telemetry_log``,
-``telemetry_ledger``, ``telemetry_profile_steps`` and ``profile_dir``
-(``torch.profiler``), the step-time probe (``telemetry_steptime = 1``
-and ``telemetry_sync_interval``, on by default: each round line gains
-``data_ms``, ``dispatch_ms``, ``device_ms`` and ``bound``), the loss
-sentinel (``sentinel = 1``, on by default: a NaN/Inf loss or a spike
-rolls back to the newest valid round with the LR scaled by
+JAX package's plane: ``telemetry_trace`` (with distributed tracing:
+``telemetry_trace_sample``, ``telemetry_trace_tail_pct``, the W3C
+``traceparent`` over the serve HTTP and the data-service wire, dumps
+that ``tools/trace_assemble.py`` merges), ``telemetry_port`` (``GET
+/metrics``), ``telemetry_log``, ``telemetry_ledger``,
+``telemetry_fleet_dir`` (the host's snapshot pushed there; host 0's
+``/metrics`` serves the merged fleet and its round line names
+stragglers), ``telemetry_hang_s`` (the hang watchdog's ``hang_dump``),
+the recompile-storm detector, ``telemetry_profile_steps`` (the round
+log prints the bracket's per-phase attribution line) and
+``profile_dir`` (``torch.profiler``), the step-time probe
+(``telemetry_steptime = 1`` and ``telemetry_sync_interval``, on by
+default: each round line gains ``data_ms``, ``dispatch_ms``,
+``device_ms`` and ``bound``), model health (``health = 1`` and the
+``health_*`` keys: per-layer statistics on the device, read once a
+``health_interval``, ``grad_norm`` and ``dead_max`` in the round line,
+the ``cxxnet_health_*`` gauges, the NaN provenance of a sentinel trip),
+the loss sentinel (``sentinel = 1``, on by default: a NaN/Inf loss or a
+spike rolls back to the newest valid round with the LR scaled by
 ``lr_backoff``, and past ``max_rollbacks`` the run aborts) and
-``failpoints``. ``task = serve`` builds the same session for
+``failpoints``. The ledger's incidents replay with ``python -m
+cxxnet_tpu_torch.replay``. ``task = serve`` builds the same session for
 ``telemetry_port``, ``telemetry_ledger``, ``telemetry_trace`` and
 ``telemetry_log``; the server itself answers ``GET /metrics``.
 
@@ -142,7 +154,9 @@ from .resilience import SentinelAbort, TrainingSentinel, counters, failpoints
 from .serve import CascadeRouter, ReloadWatcher, ReplicaPool, ServeServer
 from .serve.fleet import build_engines
 from .telemetry import ProfileBracket, TelemetrySession
-from .telemetry.profiler import summary_fragment
+from .telemetry.disttrace import DISTTRACE, set_trace_identity
+from .telemetry.modelhealth import HealthProbe, diagnose_nonfinite
+from .telemetry.traceparse import attribute_profile, attribution_fragment
 from .telemetry.ledger import (LEDGER, config_hash, new_run_id,
                                plan_config_snapshot)
 from .telemetry.trace import NULL_SPAN, TRACER
@@ -405,24 +419,38 @@ def _init_model(tr: Trainer, cfg: ConfigPairs) -> int:
 
 
 class _Sentinel:
-    """The JAX package's loss sentinel in the round loop
-    (``cxxnet_tpu/main.py`` ``_sentinel_step``): on by default
-    (``sentinel = 0`` turns it off). Every ``sentinel_interval`` steps
-    (and, forced, before each periodic checkpoint write) it reads the
-    loss; a NaN/Inf loss or a spike over ``sentinel_spike_factor`` times
-    the rolling median restores the newest valid round of ``model_dir``,
-    scales the LR by ``lr_backoff``, keeps the round's label, counts
-    ``sentinel.anomalies`` / ``sentinel.rollbacks`` and writes
-    ``sentinel_trip`` and ``rollback`` to the ledger; past
-    ``max_rollbacks``, or with no valid round, it raises
-    :class:`SentinelAbort`."""
+    """The JAX package's loss sentinel and model-health probe in the
+    round loop (``cxxnet_tpu/main.py`` ``_sentinel_step`` and
+    ``_health_sync``). The sentinel is on by default (``sentinel = 0``
+    turns it off). Every ``sentinel_interval`` steps (and, forced,
+    before each periodic checkpoint write) it reads the loss; a NaN/Inf
+    loss or grad norm, or a spike over ``sentinel_spike_factor`` times
+    the rolling median, restores the newest valid round of
+    ``model_dir``, scales the LR by ``lr_backoff``, keeps the round's
+    label, counts ``sentinel.anomalies`` / ``sentinel.rollbacks`` and
+    writes ``sentinel_trip`` (with the step and the losses replay needs)
+    and ``rollback`` to the ledger, both with the provenance of
+    :func:`~cxxnet_tpu_torch.telemetry.modelhealth.diagnose_nonfinite`
+    under ``health = 1``; past ``max_rollbacks``, or with no valid round,
+    it raises :class:`SentinelAbort`. With ``health = 1`` the
+    :class:`HealthProbe` reads the step's health tree every
+    ``health_interval`` ticks (default: the sentinel's), its one host
+    sync an interval, feeds the sentinel its grad norm, and on a
+    float16 overflow onset runs the provenance walk."""
 
-    def __init__(self, gp, model_dir: str, silent: bool):
+    def __init__(self, gp, model_dir: str, silent: bool,
+                 tr: Optional[Trainer] = None):
         self.model_dir = model_dir
         self.silent = silent
         self.interval = max(1, int(gp("sentinel_interval", "8")))
         self.lr_backoff = float(gp("lr_backoff", "0.5"))
         self.tick = 0
+        self.health: Optional[HealthProbe] = None
+        if tr is not None and tr.health_on:
+            self.health = HealthProbe(tr.health_cfg,
+                                      fp16=tr.optimizer.fp16,
+                                      silent=silent)
+            self.health_every = tr.health_cfg.interval or self.interval
         self.sentinel: Optional[TrainingSentinel] = None
         if int(gp("sentinel", "1")):
             if not 0.0 < self.lr_backoff <= 1.0:
@@ -434,30 +462,60 @@ class _Sentinel:
                 min_history=int(gp("sentinel_min_history", "8")),
                 max_rollbacks=int(gp("max_rollbacks", "3")))
 
+    def _health_sync(self, tr: Trainer, r: int) -> None:
+        """The probe's one host sync an interval; on a float16 overflow
+        onset the provenance walk names the overflowing layer."""
+        hp = self.health
+        info = hp.ingest(tr.last_health_handle, round_no=r,
+                         step=tr.step_count)
+        if info is not None and info.get("overflow_onset"):
+            try:
+                prov = diagnose_nonfinite(tr)
+            except Exception as e:   # diagnosis never blocks training
+                prov = f"diagnosis-failed:{type(e).__name__}"
+            hp.note_overflow_advice(r, tr.step_count, prov)
+
     def step(self, tr: Trainer, r: int, losses=None,
              force: bool = False) -> None:
-        """Feed the sentinel after a dispatched update (``losses``: a
-        chain's loss vector); ``force`` bypasses the interval."""
-        sentinel = self.sentinel
-        if sentinel is None:
+        """Feed the probe and the sentinel after a dispatched update
+        (``losses``: a chain's loss vector); ``force`` bypasses the
+        sentinel's interval."""
+        sentinel, hp = self.sentinel, self.health
+        if sentinel is None and hp is None:
             return
         self.tick += 1
+        if hp is not None and self.tick % self.health_every == 0:
+            self._health_sync(tr, r)
+        if sentinel is None:
+            return
         if not force and self.tick % self.interval:
             return
         if losses is None:
             vals = [tr.last_loss]
         else:
             vals = [float(v) for v in losses.float().cpu().reshape(-1)]
+        gn = hp.last_grad_norm if hp is not None else None
         reason = None
         for v in vals:
-            reason = sentinel.observe(v)
+            reason = sentinel.observe(v, grad_norm=gn)
             if reason:
                 break
         if reason is None:
             return
         counters.inc("sentinel.anomalies")
+        # the provenance walk runs before the rollback wipes the
+        # poisoned state
+        prov = None
+        if tr.health_on:
+            try:
+                prov = diagnose_nonfinite(tr)
+            except Exception as e:   # diagnosis never blocks recovery
+                prov = f"diagnosis-failed:{type(e).__name__}"
+            if prov:
+                sentinel.annotate_last(prov)
+                reason = f"{reason} [{prov}]"
         LEDGER.event("sentinel_trip", round=r, reason=reason,
-                     provenance=None, step=tr.step_count, losses=vals)
+                     provenance=prov, step=tr.step_count, losses=vals)
         latest = ckpt.find_latest_valid(self.model_dir, sweep_tmp=False,
                                         want_blob=True)
         if latest is None:
@@ -474,9 +532,13 @@ class _Sentinel:
         tr.optimizer.lr_scale = min(scale_before, tr.optimizer.lr_scale) \
             * self.lr_backoff
         sentinel.reset_window()
+        if hp is not None:
+            # the last reading is the poisoned step's
+            hp.reset_after_rollback()
         counters.inc("sentinel.rollbacks")
+        # step: the restored count (the trip's is in sentinel_trip)
         LEDGER.event("rollback", round=r, to_round=r0, path=path,
-                     reason=reason, provenance=None, step=tr.step_count,
+                     reason=reason, provenance=prov, step=tr.step_count,
                      lr_scale=float(tr.optimizer.lr_scale))
         TRACER.instant("sentinel.rollback", cat="train",
                        args={"round": r, "to_round": r0})
@@ -546,8 +608,10 @@ def _train_rounds(tr: Trainer, gp, itr_train, evals, start_counter: int,
 
 The telemetry ``session``'s pieces run in it: the step-time probe
     (its fragment ends the round line), the ``telemetry_profile_steps``
-    bracket, the ``train.step`` and ``train.data_wait`` spans and the
-    ``round_end`` event; and the loss sentinel (:class:`_Sentinel`).
+    bracket and its attribution line, the ``train.step`` root span and
+    the ``train.data_wait`` spans, the ``round_end`` event and the fleet
+    fragment of :meth:`TelemetrySession.round_tick`; and the loss
+    sentinel with the model-health probe (:class:`_Sentinel`).
     A data-service iterator is set to the epoch of ``start_counter``.
     With ``test_io = 1`` the batches are drawn and counted, nothing is
     updated, evaluated or written, and each round prints its input
@@ -583,16 +647,18 @@ The telemetry ``session``'s pieces run in it: the step-time probe
                       f"{dt:.2f} sec = {n_images / dt:.1f} images/sec",
                       flush=True)
         return end_round - 1
-    guard = _Sentinel(gp, model_dir, bool(silent))
+    guard = _Sentinel(gp, model_dir, bool(silent), tr)
     probe = session.make_probe() if session.cfg.steptime else None
     profiler = session.profiler
     summarized = False
 
     def step_span(r: int, steps: int = 1):
+        # the step's root span of distributed tracing: the stage and
+        # dispatch spans and the probe's device block nest under it
         if not TRACER.enabled:
             return NULL_SPAN
-        return TRACER.span("train.step", cat="train",
-                           args={"round": r, "steps": steps})
+        return DISTTRACE.span("train.step", cat="train",
+                              args={"round": r, "steps": steps})
 
     def one(r: int, batch) -> None:
         if profiler is not None:
@@ -660,14 +726,16 @@ The telemetry ``session``'s pieces run in it: the step-time probe
             n_images += b.batch_size - b.num_batch_padd
             batch_count += 1
         if profiler is not None and profiler.done and not summarized:
-            # the telemetry_profile_steps bracket closed this round
+            # the telemetry_profile_steps bracket closed this round: the
+            # measured per-phase attribution of its trace
             summarized = True
-            frag = summary_fragment(
-                profiler.summarize(),
-                profiler.stop_step - profiler.start_step + 1)
-            if frag and not silent:
-                print(f"round {r:8d}: {frag} (dump: {profiler.dump_dir})",
-                      flush=True)
+            if not silent:
+                frag = attribution_fragment(attribute_profile(
+                    profiler.dump_dir,
+                    profiler.stop_step - profiler.start_step + 1))
+                if frag:
+                    print(f"round {r:8d}: {frag} (dump: "
+                          f"{profiler.dump_dir})", flush=True)
         line = f"round {r:8d}:[{int(time.time() - start)} sec]"
         if tr.eval_train:
             line += tr.train_metric_report("train")
@@ -675,6 +743,9 @@ The telemetry ``session``'s pieces run in it: the step-time probe
             line += tr.evaluate(itr, name)
         if probe is not None:
             line += probe.report_fragment()
+        if guard.health is not None:
+            line += guard.health.report_fragment()
+            guard.health.round_event(r)
         dt_round = max(time.time() - round_start, 1e-9)
         line += session.round_tick(
             r, images=n_images, batches=batch_count,
@@ -701,6 +772,9 @@ def _run_start(session: TelemetrySession, pairs: ConfigPairs, task: str,
     line)."""
     snap_fields, snap_chunks = plan_config_snapshot(pairs)
     svc = parse_data_service_config(pairs)
+    if session.cfg.trace_path:
+        # names this process's track in tools/trace_assemble.py
+        set_trace_identity(role=task)
     LEDGER.event(
         "run_start", task=task, config_hash=session.cfg_hash,
         process_count=world, process_index=rank, devices=world,
@@ -740,6 +814,9 @@ def _train_session(cfg: ConfigPairs, tr: Trainer,
     _run_start(session, pairs, gp("task", "train"), tr.device.type,
                dp.world if dp is not None else 1,
                dp.rank if dp is not None else 0)
+    if session.watchdog is not None:
+        # the trainer's own step count advances with the probe off too
+        session.watchdog.progress_fn = lambda: tr.step_count
     return session
 
 
@@ -757,9 +834,13 @@ def task_train(cfg: ConfigPairs, sections,
     Returns the trainer."""
     gp = lambda n, d: global_param(cfg, n, d)
     # float32 policies compute in full float32 (no TF32 in cuDNN convs
-    # or cuBLAS matmuls), as the JAX package's float32 does on the CPU
+    # or cuBLAS matmuls), as the JAX package's float32 does on the CPU;
+    # cuDNN's deterministic algorithms and no benchmark, so that a run
+    # repeats bit for bit and its incidents replay (replay/executor.py)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     # failpoints = "site=mode,..." plus the CXXNET_FAILPOINTS env
     failpoints.install(gp("failpoints", ""), env=True)
     tr = Trainer(cfg, dp=dp)

@@ -56,6 +56,7 @@ from .layers import ApplyCtx, Layer, create_layer
 from .layers.base import Draws, Shape3, to_nhwc
 from .ops.fused import kernels_active, resolve_mode
 from .optim import get_leaf, leaves, unflatten
+from .telemetry.modelhealth import act_tap
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 NetState = Dict[str, Dict[str, torch.Tensor]]
@@ -320,10 +321,14 @@ class Network(nn.Module):
         batch = None if self.dp is None else data.shape[0] * self.dp.world
         sink = ctx_fields.get("state_sink")
         train = ctx_fields.get("train", False)
+        health = ctx_fields.get("health_sink")
         for li, (spec, layer) in enumerate(zip(g.layers, self.layers)):
             if li in self._act_folded:
-                # relu folded into its producer (graph.act_fusion_plan)
+                # relu folded into its producer (graph.act_fusion_plan);
+                # its tap reads the fused kernel's output
                 nodes[spec.nindex_out[0]] = nodes[spec.nindex_in[0]]
+                if health is not None:
+                    self._health_tap(health, spec, nodes)
                 continue
             ctx = ApplyCtx(fuse_act=self._fuse_act.get(li),
                            draws=draws(li) if draws is not None else None,
@@ -338,6 +343,8 @@ class Network(nn.Module):
                 outputs = run(*inputs)
             for ni, out in zip(spec.nindex_out, outputs):
                 nodes[ni] = out
+            if health is not None:
+                self._health_tap(health, spec, nodes)
             aux = (sink.get(layer.name, {}).get("_aux_loss")
                    if train and sink is not None else None)
             if aux is not None:
@@ -348,6 +355,15 @@ class Network(nn.Module):
                 loss = loss + layer.loss(outputs, label[:, a:b].float(),
                                          mask, batch)
         return nodes, loss
+
+    @staticmethod
+    def _health_tap(sink: Dict[str, Dict[str, torch.Tensor]], spec,
+                    nodes) -> None:
+        """The JAX package's per-layer activation taps (``_health_tap``):
+        the output's abs-max, a relu's exact-zero fraction, beside what
+        the layer put under its name (batch_norm's ``bn_var_min``)."""
+        ent = act_tap(nodes[spec.nindex_out[0]], spec.type == "relu")
+        sink[spec.name] = {**sink.get(spec.name, {}), **ent}
 
     @staticmethod
     def _run_layer(layer: Layer, lp, ls, ctx: ApplyCtx, *inputs):
@@ -392,7 +408,9 @@ class Network(nn.Module):
               mask: Optional[torch.Tensor] = None, train: bool = False,
               capture_nodes: bool = False, step: int = 0,
               draws: Optional[Callable[[int], Any]] = None,
-              extra_data: Sequence[torch.Tensor] = ()):
+              extra_data: Sequence[torch.Tensor] = (),
+              health_sink: Optional[Dict[str, Dict[str, torch.Tensor]]]
+              = None):
         """One differentiable pass (the JAX package's ``Network.apply``):
         returns ``(loss, new_state, nodes)``. ``params`` are the f32
         masters (leaves that may require grad); each layer casts its
@@ -409,7 +427,10 @@ class Network(nn.Module):
         ``capture_nodes``, else the last one. In training each layer draws
         from ``Draws(seed, step, layer index)`` (under dp this rank's rows
         of the global batch's draws); ``draws`` replaces that
-        factory (tests hand the JAX package's draws in)."""
+        factory (tests hand the JAX package's draws in). A
+        ``health_sink`` dict collects each layer's activation taps
+        (``health = 1``: detached reads, the math unchanged); None adds
+        no op."""
         if mask is None:
             mask = torch.ones((data.shape[0],), dtype=torch.float32,
                               device=data.device)
@@ -420,7 +441,8 @@ class Network(nn.Module):
         nodes, loss = self._walk(
             self._cast_tree(params, self.compute_dtype), state, data,
             dict(compute_dtype=self.compute_dtype, fused=self.fused,
-                 train=train, state_sink=sink, dp=self.dp), label, mask,
+                 train=train, state_sink=sink, dp=self.dp,
+                 health_sink=health_sink), label, mask,
             draws, extra_data)
         new_state = {l: dict(d) for l, d in state.items()}
         new_state.update({l: _detached(d) for l, d in sink.items()})

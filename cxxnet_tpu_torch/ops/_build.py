@@ -74,6 +74,13 @@ def lib_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")
 
 
+def _note_compile(seconds: float, what: str) -> None:
+    """A source built: one compile for the telemetry's counter and its
+    recompile-storm detector (``telemetry.anomaly.note_compile``)."""
+    from ..telemetry.anomaly import note_compile
+    note_compile(seconds, what)
+
+
 def build(sources: Sequence[str]) -> Dict[str, float]:
     """Compile every source in ``sources`` whose library is missing, one
     ``nvcc`` each, all started together. Returns seconds per source (0
@@ -107,6 +114,7 @@ def build(sources: Sequence[str]) -> Dict[str, float]:
                 os.remove(tmp)
             continue
         os.replace(tmp, out)      # atomic: a reader never sees half a file
+        _note_compile(times[src], src)
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
     return times
@@ -198,6 +206,7 @@ def load_host(source: str, libs: Sequence[str] = (),
                                    f"build {source}")
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+            t0 = time.perf_counter()
             p = subprocess.run(
                 [cxx, *GXX_FLAGS, "-o", tmp, os.path.join(NATIVE_DIR, source),
                  *flags],
@@ -209,6 +218,7 @@ def load_host(source: str, libs: Sequence[str] = (),
                     f"building {source} with {cxx} failed (exit "
                     f"{p.returncode}):\n" + p.stdout.decode("utf-8", "replace"))
             os.replace(tmp, out)
+            _note_compile(time.perf_counter() - t0, source)
             lib = ctypes.CDLL(out)
         _libs[key] = lib
         return lib

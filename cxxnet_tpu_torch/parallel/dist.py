@@ -66,10 +66,12 @@ class DpContext:
         b = n // self.world
         return slice(self.rank * b, (self.rank + 1) * b)
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over the ranks, in place; returns ``t``."""
+    def all_reduce(self, t: torch.Tensor,
+                   op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """Reduce ``t`` over the ranks (a sum, or ``op``) in place;
+        returns ``t``."""
         t0 = time.perf_counter()
-        dist.all_reduce(t)
+        dist.all_reduce(t, op=op)
         self.comm_seconds += time.perf_counter() - t0
         self.collectives += 1
         return t

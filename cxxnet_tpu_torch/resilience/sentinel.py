@@ -83,6 +83,13 @@ class TrainingSentinel:
                 f"training aborted: {self.rollbacks} rollbacks exceed "
                 f"max_rollbacks={self.max_rollbacks}\n" + self.report())
 
+    def annotate_last(self, detail: str) -> None:
+        """Append ``detail`` to the latest anomaly record (the round loop
+        attaches the model-health provenance, ``layer=conv3 kind=grad``,
+        once the walk ran)."""
+        if detail and self.anomalies:
+            self.anomalies[-1] += f" [{detail}]"
+
     def reset_window(self) -> None:
         """Drop the rolling baseline — after a rollback + LR backoff the
         old loss scale no longer describes the trajectory."""

@@ -32,6 +32,7 @@ import numpy as np
 
 from ..resilience import CircuitBreaker, CircuitOpen
 from ..telemetry.registry import REGISTRY
+from ..telemetry.disttrace import DISTTRACE
 from ..telemetry.trace import TRACER
 from .engine import InferenceEngine
 from .stats import ServingStats
@@ -46,7 +47,8 @@ class DeadlineExceeded(TimeoutError):
 
 
 class _Request:
-    __slots__ = ("rows", "kind", "node", "future", "t_submit", "deadline")
+    __slots__ = ("rows", "kind", "node", "future", "t_submit", "deadline",
+                 "ctx")
 
     def __init__(self, rows, kind, node, deadline):
         self.rows = rows
@@ -55,6 +57,10 @@ class _Request:
         self.future: Future = Future()
         self.t_submit = time.perf_counter()
         self.deadline = deadline          # perf_counter abs, or None
+        # the submitting thread's distributed-trace context (the HTTP
+        # handler's serve.request span): the worker parents this
+        # request's queue wait, batch assembly and infer under it
+        self.ctx = DISTTRACE.current()
 
 
 class MicroBatcher:
@@ -217,14 +223,16 @@ class MicroBatcher:
         """ONE device call for one chunk; scatter results to futures."""
         # queue wait: the earliest member's submit to now, on the
         # worker's track
+        t_now = time.perf_counter()
         TRACER.add_complete("serve.queue_wait",
                             min(r.t_submit for r in live),
-                            time.perf_counter(), cat="serve",
+                            t_now, cat="serve",
                             args={"requests": len(live)})
         with TRACER.span("serve.batch_assembly", cat="serve",
                          args={"requests": len(live)}):
             rows = (live[0].rows if len(live) == 1
                     else np.concatenate([r.rows for r in live], axis=0))
+        t_asm1 = time.perf_counter()
         try:
             out = self.engine.run_padded(rows, live[0].kind, live[0].node)
         except Exception as e:   # reported to every waiting client
@@ -236,6 +244,22 @@ class MicroBatcher:
             return
         if self.breaker is not None:
             self.breaker.record_success()
+        if DISTTRACE.enabled:
+            # each request's segments, parented across the thread hop
+            # onto its serve.request span (a batch's members share the
+            # assembly and infer wall time)
+            t_infer1 = time.perf_counter()
+            for r in live:
+                if r.ctx is not None:
+                    DISTTRACE.record("serve.queue_wait", r.t_submit,
+                                     t_now, r.ctx, cat="serve",
+                                     args={"requests": len(live)})
+                    DISTTRACE.record("serve.batch_assembly", t_now,
+                                     t_asm1, r.ctx, cat="serve",
+                                     args={"requests": len(live)})
+                    DISTTRACE.record("serve.infer", t_asm1, t_infer1,
+                                     r.ctx, cat="serve",
+                                     args={"rows": int(rows.shape[0])})
         self.stats.record_batch(
             n_requests=len(live), rows_real=rows.shape[0],
             rows_bucket=self.engine.bucket_for(rows.shape[0]))

@@ -35,12 +35,12 @@ Telemetry, as in the JAX package: each replica's lifecycle state is the
 ``cxxnet_serve_replica_state{engine}`` gauge and a ``replica_state``
 ledger event at every transition; terminal outcomes per version count
 in ``cxxnet_serve_version_requests_total{pool,version,result}``; a
-route decision is the ``serve.route`` span. A pool built with ``fleet =
-False`` (the single engine of ``ServeServer(engine)``) exports none of
-these, as the JAX package's single engine has none. Distributed tracing waits
-for ROADMAP Queue A 12, so :meth:`ReplicaPool.failed_traces` keeps its
-surface and returns no trace ids. Stdlib threading; every public method
-is thread-safe.
+route decision is the ``serve.route`` span (under distributed tracing
+a child of the request's trace, and a failed request's trace id is kept
+by version for :meth:`ReplicaPool.failed_traces`). A pool built with
+``fleet = False`` (the single engine of ``ServeServer(engine)``) exports
+none of the gauges and counters, as the JAX package's single engine has
+none. Stdlib threading; every public method is thread-safe.
 """
 
 from __future__ import annotations
@@ -48,6 +48,7 @@ from __future__ import annotations
 import itertools
 import threading
 import time
+from collections import deque
 from typing import Any, Dict, List, Optional, Sequence
 
 import torch
@@ -60,6 +61,7 @@ from ..model import Network
 from ..resilience import CircuitBreaker
 from ..telemetry import SLOTracker
 from ..telemetry.ledger import LEDGER
+from ..telemetry.disttrace import DISTTRACE
 from ..telemetry.registry import REGISTRY
 from ..telemetry.trace import TRACER
 from .batcher import MicroBatcher
@@ -181,9 +183,13 @@ class Replica:
         if old == new or not self.fleet:
             return
         self._g_state.set(_STATE_CODE[new])
+        # the W3C trace context of a current span (a reload's drain)
+        # rides along; the ledger stamps the trace id itself
+        tp = DISTTRACE.current_traceparent()
         LEDGER.event("replica_state", replica=self.idx,
                      engine=self.engine.stats.instance,
-                     from_state=old, to_state=new, version=self.version)
+                     from_state=old, to_state=new, version=self.version,
+                     **({"traceparent": tp} if tp else {}))
 
     # -- router signals --------------------------------------------------
     def alive(self) -> bool:
@@ -341,6 +347,9 @@ class ReplicaPool:
         # per-version terminal outcomes (the A/B readout):
         # version -> {requests, ok, failed, lat_sum}
         self._vstats: Dict[str, Dict[str, float]] = {}
+        # trace ids of recent failed requests a version (bounded; sampled
+        # traces only): a deploy_incident names them
+        self._failed_traces: Dict[str, deque] = {}
         self._c_version = REGISTRY.counter(
             "cxxnet_serve_version_requests_total",
             "Pool requests by model version and outcome",
@@ -427,7 +436,10 @@ class ReplicaPool:
         the pick and the enqueue would otherwise serve a pinned request
         from the wrong model. The per-version outcomes hang off the
         future, so the A/B readout sees terminal results. The route
-        decision is the ``serve.route`` span, naming the replica."""
+        decision is the ``serve.route`` span, naming the replica (a
+        child of the request's trace under distributed tracing); a
+        failed request's trace id is kept for :meth:`failed_traces`."""
+        route_ctx = DISTTRACE.current()
         t_route0 = time.perf_counter()
         for _ in range(8):            # re-pick bound: reloads are rare
             rep = self.pick(version)
@@ -446,8 +458,14 @@ class ReplicaPool:
             raise NoHealthyReplica(
                 "could not admit request: replicas kept transitioning "
                 "(reload storm?) — retry later")
-        TRACER.add_complete("serve.route", t_route0, t_route1, cat="serve",
-                            args={"replica": rep.idx, "version": ver})
+        if route_ctx is not None:
+            DISTTRACE.record("serve.route", t_route0, t_route1, route_ctx,
+                             cat="serve",
+                             args={"replica": rep.idx, "version": ver})
+        else:
+            TRACER.add_complete("serve.route", t_route0, t_route1,
+                                cat="serve",
+                                args={"replica": rep.idx, "version": ver})
         t0 = time.perf_counter()
         with self._lock:
             vs = self._vstats.setdefault(
@@ -460,6 +478,9 @@ class ReplicaPool:
                 vs["ok" if ok else "failed"] += 1
                 if ok:
                     vs["lat_sum"] += time.perf_counter() - t0
+                elif route_ctx is not None and route_ctx.sampled:
+                    self._failed_traces.setdefault(
+                        ver, deque(maxlen=16)).append(route_ctx.trace_id)
             if self.fleet:
                 self._c_version.labels(self.instance, ver,
                                        "ok" if ok else "failed").inc()
@@ -527,9 +548,10 @@ class ReplicaPool:
             "(reload storm?) — retry later")
 
     def failed_traces(self, version: str) -> List[str]:
-        """Trace ids of recent failed requests against ``version``: none
-        in the port until distributed tracing (ROADMAP Queue A 12)."""
-        return []
+        """Trace ids of recent failed requests against ``version`` (newest
+        last; empty when tracing is off or the traces were unsampled)."""
+        with self._lock:
+            return list(self._failed_traces.get(version, ()))
 
     # -- reload hooks (serve/reload.py drives these) ---------------------
     def reload_replica(self, idx: int, params, net_state,

@@ -50,6 +50,7 @@ one host-to-device copy.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -59,6 +60,7 @@ from ...config import LMServeConfig, parse_policy
 from ...layers import ApplyCtx
 from ...layers.seq import _linear, _seq, _unseq
 from ...ops.attention import paged_attention, rope_at
+from ...telemetry.anomaly import note_compile
 from ...telemetry.registry import REGISTRY
 from ..engine import InferenceEngine
 from .blocks import SCRATCH_BLOCK, BlockPool
@@ -295,11 +297,14 @@ class LMEngine:
                 self._hits += 1
                 self._c_hit.inc()
                 return fn
+            t0 = time.perf_counter()
             fn = (self._make_step(key[1], key[2]) if key[0] == "step"
                   else self._make_install())
             self._cache[key] = fn
             self._misses += 1
             self._c_miss.inc()
+            note_compile(time.perf_counter() - t0, "lm:" + "/".join(
+                map(str, key)))
             return fn
 
     def compile_info(self) -> Dict[str, int]:

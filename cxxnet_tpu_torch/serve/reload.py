@@ -35,7 +35,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from .. import checkpoint as ckpt
 from ..telemetry.ledger import LEDGER
-from ..telemetry.trace import TRACER
+from ..telemetry.disttrace import DISTTRACE
 from .engine import negotiate_blob
 from .fleet import Replica, ReplicaPool, version_name
 
@@ -184,16 +184,23 @@ class ReloadWatcher:
             for idx in targets:
                 if self._stop.is_set():
                     break
-                with TRACER.span("serve.reload", cat="serve",
-                                 args={"replica": idx, "round": new_round,
-                                       "digest": digest, "canary": canary}):
+                # each replica's drain and swap under a distributed
+                # span: its replica_state transitions and weights_reload
+                # carry the sweep's trace
+                with DISTTRACE.span("serve.reload", cat="serve",
+                                    args={"replica": idx,
+                                          "round": new_round,
+                                          "digest": digest,
+                                          "canary": canary}):
                     old_round = self.pool.reload_replica(
                         idx, blob["params"], blob["state"], new_round,
                         digest=digest, drain_timeout_s=self.drain_timeout_s)
+                    tp = DISTTRACE.current_traceparent()
                     LEDGER.event(
                         "weights_reload", replica=idx, old_round=old_round,
                         new_round=new_round, digest=digest, path=path,
-                        canary=canary)
+                        canary=canary,
+                        **({"traceparent": tp} if tp else {}))
                 done += 1
             if done == len(targets):
                 self.reloads += 1

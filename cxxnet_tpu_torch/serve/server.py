@@ -63,6 +63,7 @@ import numpy as np
 from ..resilience import CircuitOpen, counters
 from ..telemetry.exporter import PROMETHEUS_CONTENT_TYPE, render_prometheus
 from ..telemetry.ledger import LEDGER, run_info
+from ..telemetry.disttrace import DISTTRACE
 from ..telemetry.trace import TRACER
 from .batcher import Backpressure, DeadlineExceeded
 from .engine import InferenceEngine
@@ -121,8 +122,13 @@ def _make_handler(server: "ServeServer"):
             if self.path not in ("/predict", "/extract", "/generate"):
                 self._reply(404, {"error": f"no such path {self.path}"})
                 return
-            with TRACER.span("serve.request", cat="serve",
-                             args={"path": self.path}):
+            # a W3C ``traceparent`` header parents the request's span
+            # under the client's; without one it is a new root trace
+            # (the plain span when distributed tracing is off)
+            ctx = (DISTTRACE.extract(self.headers.get("traceparent"))
+                   if DISTTRACE.enabled else None)
+            with DISTTRACE.span("serve.request", cat="serve",
+                                args={"path": self.path}, parent=ctx):
                 self._handle_post()
 
         def _handle_post(self):

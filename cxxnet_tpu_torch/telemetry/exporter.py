@@ -90,10 +90,16 @@ class MetricsServer:
     threads, ephemeral-port friendly (``port=0`` -> ``.port``)."""
 
     def __init__(self, port: int = 0, host: str = "127.0.0.1",
-                 registry: Optional[MetricRegistry] = None):
+                 registry: Optional[MetricRegistry] = None,
+                 render_fn=None):
         from http.server import (BaseHTTPRequestHandler,
                                  ThreadingHTTPServer)
         registry = registry or REGISTRY
+        # render_fn replaces the exposition body: host 0's fleet
+        # aggregator (telemetry.aggregate.FleetAggregator.render) serves
+        # the merged, host-labelled view here; settable after start
+        self.render_fn = render_fn
+        server_ref = self
 
         class Handler(BaseHTTPRequestHandler):
             def log_message(self, fmt, *args):       # scrape spam
@@ -101,7 +107,15 @@ class MetricsServer:
 
             def do_GET(self):
                 if self.path == "/metrics":
-                    body = render_prometheus(registry).encode("utf-8")
+                    fn = server_ref.render_fn
+                    try:
+                        text = fn() if fn is not None \
+                            else render_prometheus(registry)
+                    except Exception:
+                        # a broken fleet render must not fail the
+                        # scrape: the local registry answers
+                        text = render_prometheus(registry)
+                    body = text.encode("utf-8")
                     ctype = PROMETHEUS_CONTENT_TYPE
                 elif self.path == "/healthz":
                     body = b'{"ok": true}'

@@ -34,6 +34,7 @@ import threading
 import time
 from typing import Any, Dict, Iterator, List, Tuple
 
+from .disttrace import DISTTRACE
 from .registry import REGISTRY
 
 LEDGER_SCHEMA = 1
@@ -80,6 +81,12 @@ class RunLedger:
         # line, when, for which run) must never be clobberable by an
         # event payload that happens to use the same key
         rec: Dict[str, Any] = dict(fields)
+        # an event written while a sampled distributed span is current
+        # carries its trace id (the incident timeline joins the traces)
+        if "trace_id" not in rec:
+            tid = DISTTRACE.current_trace_id()
+            if tid:
+                rec["trace_id"] = tid
         rec.update({
             "schema": LEDGER_SCHEMA,
             "ts": round(time.time(), 3),

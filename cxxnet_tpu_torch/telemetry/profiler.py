@@ -193,13 +193,3 @@ class StepProfiler:
         return self._bracket.summarize()
 
 
-def summary_fragment(summary: Optional[Dict[str, Any]],
-                     steps: int = 1) -> str:
-    """The round-log line of a closed bracket: device events and device
-    ms a step."""
-    if not summary:
-        return ""
-    steps = max(1, int(steps))
-    return ("profile[kernels:%d device_events:%d device_ms/step:%.3f]"
-            % (len(summary["kernels"]), summary["device_events"],
-               summary["device_us"] / 1e3 / steps))

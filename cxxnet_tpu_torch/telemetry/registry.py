@@ -165,6 +165,13 @@ class HistogramChild(_Child):
         with self._lock:
             return self._sum
 
+    def raw(self) -> Tuple[Tuple[float, ...], List[int], float, int]:
+        """(bucket edges, per-bucket raw counts with the +Inf overflow
+        slot, sum, count) under one lock hold: the mergeable snapshot
+        form (telemetry.aggregate), whose counts add bucket-wise."""
+        with self._lock:
+            return self.buckets, list(self._counts), self._sum, self._count
+
     def snapshot(self) -> Tuple[List[Tuple[float, int]], float, int]:
         """(cumulative buckets, sum, count) read under ONE lock hold —
         exposition must never tear (``bucket{le="+Inf"}`` != ``_count``

@@ -1,6 +1,5 @@
 """Span tracing over monotonic clocks, exported as Chrome-trace JSON (the
-port of ``cxxnet_tpu/telemetry/trace.py``, without the distributed-trace
-sink, which waits for ROADMAP Queue A 12's ``disttrace``).
+port of ``cxxnet_tpu/telemetry/trace.py``).
 
 Spans of the two pipelines the port runs: the train step (data wait ->
 stage -> dispatch -> device block -> eval -> checkpoint) and the serve
@@ -18,17 +17,21 @@ into a bounded ring and written as Chrome trace-event JSON
 
 Events carry the recording thread's id: nested spans on one thread
 render as a flame stack, threads as parallel tracks (Chrome "X"
-complete events).
+complete events). The distributed layer (:mod:`.disttrace`) hooks in
+through one event sink and ``extra_other``, the keys it merges into the
+dump's ``otherData`` (clock anchors, clock offsets, process identity),
+which ``tools/trace_assemble.py`` reads.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import threading
 import time
 from collections import deque
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 from .registry import REGISTRY
 
@@ -83,6 +86,11 @@ class Tracer:
         self._t0 = time.perf_counter()
         self.dropped = 0
         self._thread_names: Dict[int, str] = {}
+        # the distributed layer's sink: sees each event before the ring
+        # and may stamp it or consume it (returns True); None when off
+        self._sink: Optional[Callable[[Dict[str, Any]], bool]] = None
+        # keys merged into the dump's otherData (disttrace owns them)
+        self.extra_other: Dict[str, Any] = {}
         self._c_dropped = REGISTRY.counter(
             "cxxnet_trace_dropped_total",
             "Trace events dropped on span-ring overflow")
@@ -107,6 +115,12 @@ class Tracer:
             self._thread_names.clear()
             self.dropped = 0
             self._t0 = time.perf_counter()
+            self.extra_other = {}
+
+    def to_ts_us(self, perf_s: float) -> float:
+        """A ``time.perf_counter()`` value on the events' timescale
+        (microseconds since the ring's epoch)."""
+        return (perf_s - self._t0) * 1e6
 
     # -- recording -------------------------------------------------------
     def span(self, name: str, cat: str = "",
@@ -119,7 +133,8 @@ class Tracer:
 
     def add_complete(self, name: str, t0: float, t1: float,
                      cat: str = "",
-                     args: Optional[Dict[str, Any]] = None) -> None:
+                     args: Optional[Dict[str, Any]] = None,
+                     tid: Optional[int] = None) -> None:
         """A span from explicit ``time.perf_counter()`` begin and end
         values: a duration measured across threads (queue wait) or
         before the tracer is asked."""
@@ -128,10 +143,10 @@ class Tracer:
         ev = {
             "name": name,
             "ph": "X",
-            "ts": (t0 - self._t0) * 1e6,            # microseconds
+            "ts": self.to_ts_us(t0),                # microseconds
             "dur": max(t1 - t0, 0.0) * 1e6,
             "pid": os.getpid(),
-            "tid": threading.get_ident(),
+            "tid": tid if tid is not None else threading.get_ident(),
         }
         if cat:
             ev["cat"] = cat
@@ -160,6 +175,24 @@ class Tracer:
         self._push(ev)
 
     def _push(self, ev: Dict[str, Any]) -> None:
+        sink = self._sink
+        if sink is not None and sink(ev):
+            return
+        self._push_raw(ev)
+
+    def set_sink(self, sink: Optional[Callable[[Dict[str, Any]], bool]]
+                 ) -> None:
+        """Install (or clear) the distributed-trace sink of ``_push``."""
+        self._sink = sink
+
+    def push_event(self, ev: Dict[str, Any]) -> None:
+        """Append one built event past the sink (the distributed layer's
+        own, already stamped events)."""
+        if not self._enabled:
+            return
+        self._push_raw(ev)
+
+    def _push_raw(self, ev: Dict[str, Any]) -> None:
         t = threading.current_thread()
         overflow = False
         with self._lock:
@@ -172,7 +205,11 @@ class Tracer:
         if overflow:
             self._c_dropped.inc()
 
-    # -- export ----------------------------------------------------------
+    # -- reading / export ------------------------------------------------
+    def events(self) -> List[Dict[str, Any]]:
+        with self._lock:
+            return list(self._buf)
+
     def dump(self, path: str) -> int:
         """Write the ring as Chrome trace-event JSON, with thread-name
         metadata events so tracks carry names; returns the event
@@ -181,15 +218,19 @@ class Tracer:
             events = list(self._buf)
             names = dict(self._thread_names)
             dropped = self.dropped
+            # deep: threads closing root spans go on adding anchors
+            extra = copy.deepcopy(self.extra_other)
         meta = [{"name": "thread_name", "ph": "M", "pid": os.getpid(),
                  "tid": tid, "args": {"name": name}}
                 for tid, name in sorted(names.items())]
+        other = {"dropped_events": dropped,
+                 "producer": "cxxnet_tpu_torch.telemetry",
+                 "pid": os.getpid()}
+        other.update(extra)
         doc = {
             "traceEvents": meta + events,
             "displayTimeUnit": "ms",
-            "otherData": {"dropped_events": dropped,
-                          "producer": "cxxnet_tpu_torch.telemetry",
-                          "pid": os.getpid()},
+            "otherData": other,
         }
         d = os.path.dirname(os.path.abspath(path))
         if d:

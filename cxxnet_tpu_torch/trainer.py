@@ -2,7 +2,7 @@
 port of ``cxxnet_tpu/trainer.py``'s single-device and dp paths).
 
 A step is the JAX package's ``_make_train_step`` body ``one``
-(trainer.py:1620-1650) without model health: the differentiable forward
+(trainer.py:1620-1650): the differentiable forward
 :meth:`Network.apply` over the f32 masters, ``torch.autograd.grad`` of
 the summed loss, then the optimizer's in-place update of the masters and
 moments, and the batch_norm running statistics replaced by the step's.
@@ -50,6 +50,16 @@ divergent step would; :meth:`Trainer.rollback` restores a verified
 round and :meth:`Trainer.params_finite` guards checkpoint writes (the
 loss sentinel in ``main.py``).
 
+Model health (``health = 1``, the ``health_*`` keys; the JAX package's
+trainer.py:180-190 and 1601-1640): a plain step also builds the health
+tree of :func:`telemetry.modelhealth.step_health` from its gradients,
+the masters around the apply and the layers' activation taps (under dp
+the taps reduced over the ranks), kept on the device as
+:attr:`Trainer.last_health_handle` with no host read, and stashes its
+staged batch for :func:`telemetry.modelhealth.diagnose_nonfinite`. A
+chain's steps carry no tree (a warning, once). ``health = 0`` adds
+nothing to the step.
+
 Train metrics are read one step late, as in the JAX package: step N's
 top node is copied to the host after step N+1 was queued (a chain's k
 steps after the next chain), so the copy does not stall the card. Rounds are ``%04d.model`` checkpoints in the
@@ -86,7 +96,7 @@ import torch
 
 from . import checkpoint as ckpt
 from .config import (ConfigError, ConfigPairs, check_train_config,
-                     parse_fused_mode)
+                     parse_fused_mode, parse_health_config)
 from .convert import opt_from_jax, opt_to_jax, params_from_jax, params_to_jax
 from .graph import build_graph, global_param
 from .io.data import DataBatch
@@ -96,6 +106,7 @@ from .ops.fused_stem import decode_normalize, decode_normalize_reference
 from .optim import Optimizer, leaves, tree_map, unflatten
 from .parallel import DpContext, allreduce_metric_pairs
 from .resilience import failpoints
+from .telemetry import modelhealth
 from .telemetry.trace import TRACER
 
 _METRIC_RE = re.compile(r"^metric(?:\[([^,\]]+)(?:,([^\]]+))?\])?$")
@@ -179,6 +190,14 @@ class Trainer:
         self._ones: Optional[torch.Tensor] = None
         #: called with the trainer after every update (timing, tests)
         self.step_hook: Optional[Callable[["Trainer"], None]] = None
+        self.health_cfg = parse_health_config(cfg)
+        self.health_on = bool(self.health_cfg.enabled)
+        #: the last plain step's health tree (device scalars) and its
+        #: staged batch (data, label, mask, extra, step) for the
+        #: provenance walk
+        self._last_health = None
+        self._health_batch = None
+        self._warned_health_chain = False
         if self.net.fused_mode == "off" and not self.silent and (
                 dp is None or dp.is_main):
             print("fused_kernels = 0: this trainer computes the plain "
@@ -460,15 +479,16 @@ class Trainer:
                                       self._mask(staged.host), staged.extra)
 
     def _forward_backward(self, data: torch.Tensor, label: torch.Tensor,
-                          mask: torch.Tensor, extra=()):
+                          mask: torch.Tensor, extra=(), health_sink=None):
         """:meth:`gradients` of staged inputs. Under float16 the summed
         loss is multiplied by the scale before the backward and the
         returned loss divided back (exact: the scale is a power of
-        two)."""
+        two). ``health_sink`` collects the activation taps."""
         loss, new_state, nodes = self.net.apply(
             self.params, self.net.state, data, label, mask,
             train=True, capture_nodes=bool(self._metric_nodes),
-            step=self.step_count, extra_data=extra)
+            step=self.step_count, extra_data=extra,
+            health_sink=health_sink)
         mp = self.opt_state.get("_mp")
         if mp is not None:
             loss = loss * mp["scale"]
@@ -494,17 +514,24 @@ class Trainer:
         return buf[o], unflatten(out)
 
     def _step(self, data: torch.Tensor, label: torch.Tensor,
-              mask: torch.Tensor, extra=()):
+              mask: torch.Tensor, extra=(), health: bool = False):
         """One step on staged inputs: forward, backward, the all-reduce
         under dp, then the optimizer's apply, or under ``update_period``
         the accumulation and, at the period's end, the apply of ``accum
         / period``. Advances the counters; returns the loss (on the
         device) and the step's nodes. Reads nothing back to the host
-        (but Adam's skip flag under float16)."""
+        (but Adam's skip flag under float16). ``health``: the step also
+        leaves its health tree in ``_last_health`` (no host read)."""
+        sink = {} if health else None
+        step = self.step_count
         loss, new_state, nodes, gtree = self._forward_backward(
-            data, label, mask, extra)
+            data, label, mask, extra, health_sink=sink)
         if self.dp is not None:
             loss, gtree = self._allreduce(loss, gtree)
+        if health:
+            mp = self.opt_state.get("_mp")
+            scale_in = None if mp is None else mp["scale"].clone()
+            before = tree_map(lambda v: v.detach().clone(), self.params)
         sched = self.optimizer.schedules(self.epoch_counter)
         period = self.update_period
         if period > 1:
@@ -517,6 +544,13 @@ class Trainer:
                 torch._foreach_zero_(acc)
         else:
             self.optimizer.update(self.params, gtree, self.opt_state, sched)
+        if health:
+            mp = self.opt_state.get("_mp")
+            self._last_health = modelhealth.step_health(
+                gtree, before, self.params, scale_in,
+                None if mp is None else mp["scale"],
+                modelhealth.reduce_island(sink, self.dp))
+            self._health_batch = (data, label, mask, tuple(extra), step)
         self.net.state = new_state
         self.net.invalidate_cast()
         self.step_count += 1
@@ -544,7 +578,8 @@ class Trainer:
         staged = self.stage_batch(batch)
         batch = staged.host
         self._last_loss, nodes = self._step(staged.data, staged.label,
-                                            self._mask(batch), staged.extra)
+                                            self._mask(batch), staged.extra,
+                                            health=self.health_on)
         if failpoints.fire("device.step"):
             self._poison()
         if self.eval_train:
@@ -593,6 +628,10 @@ class Trainer:
         self.sample_counter = 0
         self._last_loss = None
         self._pending_metric = []
+        # the poisoned step's health tree and stash (the provenance walk
+        # ran before the rollback)
+        self._last_health = None
+        self._health_batch = None
         return self.round_counter
 
     def update_chain_batches(self, batches) -> torch.Tensor:
@@ -608,6 +647,11 @@ class Trainer:
         chain."""
         if self.params is None:
             raise RuntimeError("call init_model() first")
+        if self.health_on and not self._warned_health_chain:
+            self._warned_health_chain = True
+            print("WARNING: health=1 does not ride train chains; "
+                  "model-health stats are unavailable for this "
+                  "configuration", flush=True)
         k = len(batches)
         if k == 0:
             raise ValueError("update_chain_batches: empty batch list")
@@ -655,6 +699,13 @@ class Trainer:
     def last_loss_tensor(self) -> Optional[torch.Tensor]:
         """The last step's loss on the device (no sync)."""
         return self._last_loss
+
+    @property
+    def last_health_handle(self):
+        """The last plain step's health tree as device scalars (None with
+        ``health = 0`` or before the first step); the round loop's
+        ``HealthProbe`` reads it once an interval."""
+        return self._last_health
 
     # -- metrics / evaluation -------------------------------------------------
     def _add_metric(self, mset: MetricSet,

@@ -23,7 +23,10 @@ entry point, on the CPU.
   its parity gate pins ``rNNNN`` where the canary serves
   ``rNNNN-int8``; with ``serve_breaker_threshold = 0`` it raises after
   the canary swapped. The port canaries and promotes in all three, and
-  blocks a plain round that its int8 fleet refuses.
+  blocks a plain round that its int8 fleet refuses;
+* under distributed tracing both pools keep the trace ids of their
+  failed requests by version, and a failing canary gate hands them to
+  its incident.
 """
 
 import json
@@ -424,3 +427,43 @@ def test_task_serve_runs_the_controller(tmp_path):
     finally:
         srv.stop()
         t.join(timeout=30)
+
+
+def test_failing_canary_gates_carry_the_failed_trace_ids():
+    """Under distributed tracing each pool keeps the trace ids of its
+    failed requests by version (``ReplicaPool.failed_traces``, newest
+    last), and a failing breaker gate hands them to the incident, in
+    both packages."""
+    from cxxnet_tpu.deploy.gates import breaker_gate as jax_breaker_gate
+    from cxxnet_tpu.resilience import failpoints as jax_fp
+    from cxxnet_tpu.telemetry.disttrace import DISTTRACE as JAX_DT
+    from cxxnet_tpu_torch.deploy.gates import breaker_gate
+    from cxxnet_tpu_torch.resilience import failpoints
+    from cxxnet_tpu_torch.telemetry.disttrace import DISTTRACE
+    got = {}
+    for name, pool, dt, fp, gate in (
+            ("port", port_pool(2), DISTTRACE, failpoints, breaker_gate),
+            ("jax", jax_pool(2), JAX_DT, jax_fp, jax_breaker_gate)):
+        dt.enable()
+        try:
+            ver = pool.replicas[0].version
+            fp.set("serve.infer", "every:1")
+            tids = []
+            for _ in range(3):
+                with dt.span("serve.request") as sp:
+                    fut = pool.submit(rows(1), version=ver)
+                tids.append(sp.ctx.trace_id)
+                with pytest.raises(Exception):
+                    fut.result(timeout=30)
+            fp.clear("serve.infer")
+            ok = pool.submit(rows(1), version=ver)   # untraced, succeeds
+            ok.result(timeout=30)
+            assert pool.failed_traces(ver) == tids
+            g = gate(pool, [0, 1], ver, {0: -1, 1: 0})
+            assert not g.passed and g.trace_ids == tids
+            got[name] = (len(tids), g.gate)
+        finally:
+            fp.clear("serve.infer")
+            dt.disable()
+            pool.close()
+    assert got["port"] == got["jax"] == (3, "breaker")

@@ -432,9 +432,9 @@ def test_main_train_writes_rounds_the_jax_package_resumes(tmp_path, capsys):
                 before, _jax_snap(jtr))
 
 
-#: a value that switches on each training key outside this slice (the
-#: telemetry keys here are the fleet pieces still queued; the rest of
-#: the telemetry namespace, sentinel, failpoints and profile_dir train)
+#: a value that switches on each training key outside this slice, and
+#: the fleet telemetry and model-health keys, which train since the rest
+#: of the observability plane was ported (NOW_TRAINED)
 SWITCHED_ON = {
     "telemetry_fleet_dir": "/nowhere/fleet", "health": "1",
     "telemetry_hang_s": "120", "telemetry_trace_tail_pct": "5",
@@ -443,8 +443,15 @@ SWITCHED_ON = {
     "model_parallel": "2", "seq_parallel": "2", "pipeline_parallel": "2",
     "elastic_dir": "/nowhere/elastic", "telemetry_storm_threshold": "4",
     "dist_coordinator": "10.0.0.1:1234", "dist_num_proc": "2",
-    "dist_rank": "1",
+    "dist_rank": "1", "fsdp_axis": "data", "fsdp_min_size": "4096",
+    "partition_rules": "fc1/wmat->-,model", "shard_ckpt_shards": "4",
+    "compile_cache_dir": "/nowhere/cc",
 }
+
+#: the keys of SWITCHED_ON that a trainer takes
+NOW_TRAINED = {"telemetry_fleet_dir", "health", "telemetry_hang_s",
+               "telemetry_trace_tail_pct", "telemetry_straggler_factor",
+               "telemetry_storm_threshold"}
 
 #: each telemetry key of SWITCHED_ON at its default (the off value)
 TELEMETRY_OFF = {"telemetry_hang_s": "0", "telemetry_trace_tail_pct": "0",
@@ -459,15 +466,22 @@ def test_every_rejected_key_is_covered():
 @pytest.mark.parametrize("key", sorted(SWITCHED_ON))
 def test_training_keys_outside_the_slice_name_their_roadmap_item(key):
     base = _cfg("ibn", "float32", "auto")
-    with pytest.raises(ConfigError, match=r"ROADMAP Queue "):
-        Trainer(parse_config_string(base + f'{key} = "{SWITCHED_ON[key]}"\n'))
+    on = base + f'{key} = "{SWITCHED_ON[key]}"\n'
+    if key in NOW_TRAINED:
+        tr = Trainer(parse_config_string(on))
+        assert tr.health_on == (key == "health")
+    else:
+        with pytest.raises(ConfigError, match=r"ROADMAP Queue "):
+            Trainer(parse_config_string(on))
     off = {"model_parallel": "1", "seq_parallel": "1",
            "pipeline_parallel": "1", "dist_num_proc": "1",
-           **TELEMETRY_OFF}.get(
+           "fsdp_min_size": "1024", **TELEMETRY_OFF}.get(
                key, "0" if key not in (
-                   "telemetry_fleet_dir", "elastic_dir",
+                   "telemetry_fleet_dir", "elastic_dir", "fsdp_axis",
+                   "partition_rules", "compile_cache_dir",
                    "dist_coordinator") else "")
-    Trainer(parse_config_string(base + f'{key} = "{off}"\n'))
+    tr = Trainer(parse_config_string(base + f'{key} = "{off}"\n'))
+    assert not tr.health_on
 
 
 #: a synthetic train section of the narrow Inception-BN's input

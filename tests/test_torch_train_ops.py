@@ -245,14 +245,18 @@ def test_optimizer_step_matches_jax_optimizer(updater, port_fused, jax_fused):
 def test_update_period_still_names_its_queue_item():
     """Adam trains, and since the rest of training (ROADMAP Queue A 3) was
     ported so does gradient accumulation: ``update_period`` passes with
-    Adam, a key still queued raises naming its item (model health), and
-    the unknown updater raises."""
+    Adam, and so does model health (``health = 1``, its namespace held
+    as the JAX package holds it: a typo raises its message); a key still
+    queued raises naming its item (elastic training), and the unknown
+    updater raises."""
     from cxxnet_tpu_torch.config import ConfigError, check_train_config
     check_train_config([("updater", "adam"), ("update_period", "2")])
     check_train_config([("updater", "adam"), ("update_period", "1")])
+    check_train_config([("updater", "adam"), ("health", "1")])
+    with pytest.raises(ConfigError, match="unknown health setting"):
+        check_train_config([("updater", "adam"), ("health_windw", "1")])
     with pytest.raises(ConfigError,
-                       match=r"ROADMAP Queue A 12, still queued: model "
-                             r"health"):
-        check_train_config([("updater", "adam"), ("health", "1")])
+                       match=r"ROADMAP Queue A 12, still queued: elastic"):
+        check_train_config([("updater", "adam"), ("elastic_dir", "/e")])
     with pytest.raises(ConfigError, match="unknown updater"):
         Optimizer("adagrad", [])
